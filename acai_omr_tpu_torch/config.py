@@ -1,0 +1,39 @@
+"""Central constants of the port (the twin of ``acai_omr_tpu/config.py``).
+
+Paths are relative to the repo root by default and overridable through the
+same environment variables as the JAX package.
+"""
+
+import os
+from pathlib import Path
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def _env_path(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+# Special LMX tokens
+LMX_BOS_TOKEN = "<bos>"
+LMX_EOS_TOKEN = "<eos>"
+LMX_PAD_TOKEN = "<pad>"
+
+# Vocabulary file: 227 LMX tokens, one per line, specials first.
+LMX_VOCAB_PATH = _env_path("ACAI_LMX_VOCAB", str(REPO_ROOT / "lmx_vocab.txt"))
+
+# Model shape constants shared by training + inference.
+PATCH_SIZE = 16
+PE_MAX_HEIGHT = 60
+PE_MAX_WIDTH = 200
+OMR_MAX_IMG_SEQ_LEN = 1024  # encoder patch budget during seq2seq training/inference
+MAX_LMX_SEQ_LEN = 1536      # decoder token budget
+
+# Flagship architecture (the JAX package's train/omr_teacher_force_train
+# ``set_up_vitomr``): ViT-B encoder, 12-layer 1024-wide decoder.
+ENCODER_FINE_TUNE_DEPTH = 12
+NUM_DECODER_LAYERS = 12
+
+# Where the CUDA kernels of ``csrc/`` are built at first use (gitignored).
+KERNEL_BUILD_DIR = _env_path("ACAI_TORCH_KERNEL_DIR",
+                             str(REPO_ROOT / "build" / "torch_kernels"))

@@ -1,0 +1,106 @@
+"""Batched greedy inference over ragged multi-resolution images.
+
+The twin of the JAX package's ``inference/batch_inference.py``: images are
+grouped into encoder shape buckets, each group is encoded and decoded with
+the KV-cached greedy loop, and results come back in input order. Ragged
+tail groups are padded up to a power of two (capped at ``decode_batch``) by
+repeating their first image, so a request mix meets only a few batch shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models import decode as decode_lib
+from ..models import vit_encoder, vitomr as vitomr_lib
+from ..models.vitomr import ViTOMRConfig
+
+
+@dataclasses.dataclass
+class BatchResult:
+    lmx: list            # LMX string per image (input order)
+    avg_log_probs: list  # mean per-token log prob per image
+    seqs: list           # raw id arrays (trimmed, specials included)
+    encode_seconds: float = 0.0  # wall time of the encodes (device-synced)
+    decode_seconds: float = 0.0  # wall time of the decodes (device-synced)
+    n_tokens: int = 0            # tokens generated for the real images (through <eos>)
+
+
+def _bucket_key(img, cfg, bucket_multiple):
+    p = cfg.encoder.patch_size
+    hp, wp = img.shape[-2] // p, img.shape[-1] // p
+    return vit_encoder.bucket_len(hp * wp, bucket_multiple)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
+                    max_inference_len: int = 1536, decode_batch: int = 32,
+                    bucket_multiple: int = 128,
+                    compute_dtype=torch.bfloat16,
+                    cache_dtype=torch.bfloat16, device=None) -> BatchResult:
+    """Transcribe a list of (C, H, W) float arrays of arbitrary sizes.
+
+    ``params`` must live on ``device`` (``cuda`` unless the caller passes
+    ``device="cpu"``).
+    """
+    device = resolve_device(device)
+    order = sorted(range(len(imgs)),
+                   key=lambda i: _bucket_key(imgs[i], cfg, bucket_multiple))
+    lmx_out = [None] * len(imgs)
+    lp_out = [0.0] * len(imgs)
+    seq_out = [None] * len(imgs)
+    enc_s = dec_s = 0.0
+    n_tokens = 0
+
+    i = 0
+    while i < len(order):
+        # same-bucket run, capped at decode_batch
+        key = _bucket_key(imgs[order[i]], cfg, bucket_multiple)
+        group = [order[i]]
+        while (len(group) < decode_batch and i + len(group) < len(order)
+               and _bucket_key(imgs[order[i + len(group)]], cfg,
+                               bucket_multiple) == key):
+            group.append(order[i + len(group)])
+        i += len(group)
+
+        n_real = len(group)
+        b_pad = 1
+        while b_pad < n_real:
+            b_pad *= 2
+        b_pad = min(b_pad, decode_batch)
+        group_imgs = [imgs[g] for g in group] \
+            + [imgs[group[0]]] * (b_pad - n_real)
+        pb = vit_encoder.batchify(group_imgs, cfg.encoder, bucket_multiple)
+
+        _sync(device)
+        t0 = time.perf_counter()
+        latent, latent_valid = vitomr_lib.encode_image(
+            params, cfg, *pb.to(device), compute_dtype=compute_dtype)
+        _sync(device)
+        t1 = time.perf_counter()
+        seqs, lps, mask = decode_lib.generate(
+            params["decoder"], cfg.decoder, latent, latent_valid,
+            max_len=max_inference_len, compute_dtype=compute_dtype,
+            cache_dtype=cache_dtype)
+        seqs, lps, mask = (a.cpu().numpy() for a in (seqs, lps, mask))
+        t2 = time.perf_counter()
+        enc_s += t1 - t0
+        dec_s += t2 - t1
+        for row, g in enumerate(group):
+            ids = seqs[row][mask[row]]
+            lmx_out[g] = tokenizer.decode(ids)
+            n = max(int(mask[row].sum()), 1)
+            lp_out[g] = float(lps[row][mask[row]].sum() / n)
+            seq_out[g] = ids
+            n_tokens += int(mask[row].sum()) - 1  # <bos> is not generated
+
+    return BatchResult(lmx_out, lp_out, seq_out, enc_s, dec_s, n_tokens)

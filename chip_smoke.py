@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, all in one process; any failure exits non-zero:
+
+1. print the card (``nvidia-smi`` name and power limit), build every kernel
+   of ``acai_omr_tpu_torch/csrc`` (one nvcc per source, in parallel);
+2. hold each kernel (K1 linear_bias_act, K2 decode_attention, K3
+   encoder_attention, K4 add_layernorm) against its plain PyTorch twin in
+   bf16 at the flagship shapes the slice gives it, and time kernel, twin,
+   a PyTorch library call computing the same function, and the card's bound;
+3. the slice: the flagship ViTOMR (~305M parameters, weights from a seed, bf16)
+   transcribes 8 ragged synthetic images through ``OmrModel.transcribe_batch``
+   (max_len 512) with the launch counts reset just before and read just after;
+   then the kernel path is held against the plain path on the card: encoder
+   output, and 64 greedy decode steps at B=8 (the plain path is fed the
+   kernel path's tokens, so the logits stay comparable step by step);
+4. print the ``kernels`` JSON line, the card line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
+decode steps (device time by kernel, device busy share); ``--report PATH``
+writes every number of the run as JSON to PATH.
+
+Exits non-zero without printing a result when no CUDA device is present or
+when the port's package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# the card's published peaks (H100 SXM data sheet, dense)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOP_PER_S = 989e12
+
+SEED = 0
+N_IMAGES = 8
+MAX_LEN = 512
+CMP_STEPS = 64
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_b = n_bytes / PEAK_BYTES_PER_S
+    t_f = n_flops / PEAK_BF16_FLOP_PER_S
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def time_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    replayed ``reps`` times between CUDA events (the graph keeps the host's
+    launch cost out of the kernel's time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def check_kernels(torch, F, dev):
+    """Phase 2: every kernel against its plain twin, timed."""
+    from acai_omr_tpu_torch.ops.decode_kernel import decode_attention
+    from acai_omr_tpu_torch.ops.encoder_stack_kernel import encoder_attention
+    from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
+    from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+    randn = lambda *s, dtype=bf: torch.randn(*s, generator=g, device=dev,
+                                             dtype=torch.float32).to(dtype)
+    cases = []
+
+    def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nflops):
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        b_ms, b_by = bound_ms(nbytes, nflops)
+        ok = math.isfinite(err) and err <= tol
+        cases.append({"op": op, "case": case, "max_abs_err": err, "tol": tol,
+                      "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
+                      "bound_ms": b_ms, "bound_by": b_by, "ok": ok})
+        print(f"[kernel] {op.name}[{case}] max_abs_err={err:.3e} tol={tol:.1e} "
+              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_lib:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+
+    # K1: decode qkv, decode ff1 (+GELU), decode ff2; encoder qkv, ff1
+    # (+GELU on the fp32 sum), ff2
+    for m, k, n, act in [(32, 1024, 3072, "none"),
+                         (32, 1024, 4096, "gelu_rounded"),
+                         (32, 4096, 1024, "none"), (16384, 768, 2304, "none"),
+                         (16384, 768, 3072, "gelu"),
+                         (16384, 3072, 768, "none")]:
+        x = randn(m, k)
+        w = (randn(k, n, dtype=torch.float32) / math.sqrt(k)).to(bf)
+        b = randn(n, dtype=torch.float32) * 0.1
+        b16 = b.to(bf)
+        out_k = linear_bias_act(x, w, b, act)
+        out_p = linear_bias_act.plain(x, w, b, act)
+        lib = (lambda: torch.addmm(b16, x, w)) if act == "none" else \
+            (lambda: F.gelu(torch.addmm(b16, x, w)))
+        # one bf16 ulp of the largest output is 0.4-0.8% of it
+        tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
+        record(linear_bias_act, f"{m}x{k}->{n},{act}", out_k, out_p, tol,
+               time_ms(torch, lambda: linear_bias_act(x, w, b, act)),
+               time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
+               time_ms(torch, lib), 2 * (m * k + k * n + m * n) + 4 * n,
+               2 * m * n * k)
+
+    # K2 self: B=32, T=512, pos=300, E=1024, H=16
+    bsz, t, pos, e, h = 32, 512, 300, 1024, 16
+    dh = e // h
+    qkv = randn(bsz, 3 * e)
+    kc, vc = randn(bsz, t, e), randn(bsz, t, e)
+    kc_p, vc_p = kc.clone(), vc.clone()
+    out_k = decode_attention(qkv, kc, vc, h, pos=pos)
+    out_p = decode_attention.plain(qkv, kc_p, vc_p, h, pos=pos)
+    assert torch.equal(kc[:, : pos + 1], kc_p[:, : pos + 1]), "K2 append"
+    assert torch.equal(vc[:, : pos + 1], vc_p[:, : pos + 1]), "K2 append"
+    heads = lambda a, n: a.view(bsz, n, h, dh).transpose(1, 2)
+    q_l = heads(qkv[:, :e].contiguous(), 1)
+    k_l = heads(kc[:, : pos + 1].contiguous(), pos + 1)
+    v_l = heads(vc[:, : pos + 1].contiguous(), pos + 1)
+    record(decode_attention, f"self B={bsz} T={t} pos={pos} E={e} H={h}",
+           out_k, out_p, 1e-2,
+           time_ms(torch, lambda: decode_attention(qkv, kc, vc, h, pos=pos)),
+           time_ms(torch, lambda: decode_attention.plain(qkv, kc_p, vc_p, h,
+                                                         pos=pos)),
+           time_ms(torch, lambda: F.scaled_dot_product_attention(q_l, k_l,
+                                                                 v_l)),
+           2 * (bsz * 3 * e + 2 * bsz * pos * e + 2 * bsz * e + bsz * e),
+           4 * bsz * e * (pos + 1))
+
+    # K2 cross: M=512 with ragged padding
+    m_len = 512
+    qc = randn(bsz, e)
+    mk, mv = randn(bsz, m_len, e), randn(bsz, m_len, e)
+    lens = torch.randint(64, m_len + 1, (bsz,), generator=g, device=dev)
+    valid = torch.arange(m_len, device=dev)[None, :] < lens[:, None]
+    mbias = torch.where(valid, 0.0, -1e9).float().contiguous()
+    out_k = decode_attention(qc, mk, mv, h, bias=mbias)
+    out_p = decode_attention.plain(qc, mk, mv, h, bias=mbias)
+    mask4 = valid[:, None, None, :]
+    n_valid = int(valid.sum())  # padded memory rows add nothing to the output
+    qc_l, mk_l, mv_l = heads(qc, 1), heads(mk, m_len), heads(mv, m_len)
+    record(decode_attention, f"cross B={bsz} M={m_len} E={e} H={h}",
+           out_k, out_p, 1e-2,
+           time_ms(torch, lambda: decode_attention(qc, mk, mv, h, bias=mbias)),
+           time_ms(torch, lambda: decode_attention.plain(qc, mk, mv, h,
+                                                         bias=mbias)),
+           time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qc_l, mk_l, mv_l, attn_mask=mask4)),
+           2 * (2 * bsz * e + 2 * n_valid * e) + 4 * bsz * m_len,
+           4 * e * n_valid)
+
+    # K3: B=16, T=1024, E=768, H=12, ragged validity
+    bsz, t, e, h = 16, 1024, 768, 12
+    dh = e // h
+    qkv = randn(bsz * t, 3 * e)
+    lens = torch.randint(128, t + 1, (bsz,), generator=g, device=dev)
+    valid = torch.arange(t, device=dev)[None, :] < lens[:, None]
+    out_k = encoder_attention(qkv, valid, h)
+    out_p = encoder_attention.plain(qkv, valid, h)
+    q5 = qkv.view(bsz, t, 3, h, dh).permute(2, 0, 3, 1, 4)
+    q_l, k_l, v_l = (q5[i].contiguous() for i in range(3))
+    mask4 = valid[:, None, None, :]
+    n_valid = int(valid.sum())  # padded keys add nothing to the output
+    record(encoder_attention, f"B={bsz} T={t} E={e} H={h}", out_k, out_p,
+           1e-2, time_ms(torch, lambda: encoder_attention(qkv, valid, h)),
+           time_ms(torch, lambda: encoder_attention.plain(qkv, valid, h),
+                   iters=5),
+           time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q_l, k_l, v_l, attn_mask=mask4)),
+           2 * (bsz * t * 3 * e + bsz * t * e) + bsz * t,
+           4 * e * t * n_valid)
+
+    # K4: decode rows (32 x 1024) and encoder rows (16384 x 768)
+    for rows, e in [(32, 1024), (16384, 768)]:
+        x, r = randn(rows, e), randn(rows, e)
+        gamma = 1.0 + 0.1 * randn(e, dtype=torch.float32)
+        beta = 0.1 * randn(e, dtype=torch.float32)
+        z = x + r
+        g16, b16 = gamma.to(bf), beta.to(bf)
+        out_k = add_layernorm(x, r, gamma, beta, 1e-5)
+        out_p = add_layernorm.plain(x, r, gamma, beta, 1e-5)
+        tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
+        record(add_layernorm, f"{rows}x{e}", out_k, out_p, tol,
+               time_ms(torch, lambda: add_layernorm(x, r, gamma, beta, 1e-5)),
+               time_ms(torch, lambda: add_layernorm.plain(x, r, gamma, beta,
+                                                          1e-5)),
+               time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
+               2 * 3 * rows * e + 8 * e, 8 * rows * e)
+    return cases
+
+
+def synthetic_images(np, n: int, seed: int) -> list:
+    """Ragged grayscale 'scores': staff-like dark lines on light noise, sizes
+    within 150x300 to 1000x1700 px over several aspect ratios."""
+    rng = np.random.default_rng(seed)
+    imgs = []
+    for _ in range(n):
+        h = int(rng.integers(150, 1001))
+        w = int(rng.integers(300, 1701))
+        img = 235 + 20 * rng.random((h, w))
+        for top in range(int(rng.integers(10, 40)), h - 40,
+                         int(rng.integers(60, 140))):
+            for line in range(5):
+                img[top + 6 * line, :] = 30
+        imgs.append(img.astype(np.uint8))
+    return imgs
+
+
+def compare_paths(torch, np, model, imgs, profile=False):
+    """Kernel path vs plain path on the card: encoder stack output and
+    CMP_STEPS greedy decode steps at B = len(imgs). ``profile`` adds a
+    torch.profiler window over kernel-path decode steps."""
+    from acai_omr_tpu_torch.models import decode as decode_lib
+    from acai_omr_tpu_torch.models import vit_encoder
+    from acai_omr_tpu_torch.ops.decode_kernel import prepack
+    from acai_omr_tpu_torch.ops.encoder_stack_kernel import encoder_stack_fused
+
+    cfg, params, dt = model.cfg, model.params, model.compute_dtype
+    arrays = [model._load_image(i) for i in imgs]
+    pb = vit_encoder.batchify(arrays, cfg.encoder)
+    patches, pe_idx, pe_w, valid = pb.to(model.device)
+    enc = params["encoder"]
+    x = vit_encoder.embed_patches(enc, patches, pe_idx, pe_w, valid, dt)
+    hk = encoder_stack_fused(enc["blocks"], x, valid, cfg.encoder.num_heads)
+    hp = encoder_stack_fused(enc["blocks"], x, valid, cfg.encoder.num_heads,
+                             plain=True)
+    diff = (hk.float() - hp.float()).abs()[valid]
+    enc_err = diff.max().item()
+    enc_rel = (diff.norm() / hp.float()[valid].norm()).item()
+
+    from acai_omr_tpu_torch.models import vitomr
+    from acai_omr_tpu_torch.ops import nn
+    lat = vitomr.transition_head(
+        params["transition_head"],
+        nn.layernorm(enc["final_norm"], hk, eps=1e-6))
+    dec, dcfg = params["decoder"], cfg.decoder
+    mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt, dt)
+    mono = prepack(dec, dt)
+    b = lat.shape[0]
+    sk = decode_lib.init_decode_state(dcfg, b, CMP_STEPS + 1, CMP_STEPS, dt,
+                                      model.device)
+    sp = decode_lib.init_decode_state(dcfg, b, CMP_STEPS + 1, CMP_STEPS, dt,
+                                      model.device)
+    step_err, agree = [], 0
+    for _ in range(CMP_STEPS):
+        lk = decode_lib.step_logits(dec, dcfg, mono, sk, mem, dt)
+        lp = decode_lib.step_logits(dec, dcfg, mono, sp, mem, dt, plain=True)
+        tok = lk.argmax(-1)
+        agree += int((lp.argmax(-1) == tok).sum())
+        step_err.append((lk - lp).abs().max().item())
+        for s in (sk, sp):
+            s.seqs[:, s.t] = tok
+            s.t += 1
+    out = {"encoder_max_abs_err": enc_err, "encoder_rel_err": enc_rel,
+           "decode_steps": CMP_STEPS, "rows": b,
+           "token_agreement": agree / (CMP_STEPS * b),
+           "logit_max_abs_err": max(step_err),
+           "logit_max_abs_err_first8": step_err[:8],
+           "logits_finite": all(math.isfinite(v) for v in step_err)}
+    if profile:
+        state = decode_lib.init_decode_state(dcfg, b, CMP_STEPS + 1,
+                                             CMP_STEPS, dt, model.device)
+        out["profile"] = profile_steps(
+            torch, lambda: _greedy_step(decode_lib, dec, dcfg, mono, state,
+                                        mem, dt), warmup=8, steps=32)
+    return out
+
+
+def _greedy_step(decode_lib, dec, dcfg, mono, state, mem, dt):
+    tok = decode_lib.step_logits(dec, dcfg, mono, state, mem, dt).argmax(-1)
+    state.seqs[:, state.t] = tok
+    state.t += 1
+
+
+def profile_steps(torch, step, warmup: int, steps: int) -> dict:
+    """Device busy share and device time by kernel over ``steps`` decode
+    steps (torch.profiler, CUDA activity), against their host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(ev.device_type):  # kernels only, not host ops
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "device_ms_per_step": busy / steps / 1e3,
+            "device_busy_share": busy / wall_us,
+            "top": [{"kernel": k[:80], "ms_per_step": us / steps / 1e3,
+                     "calls_per_step": c / steps} for us, k, c in rows[:12]]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "acai_omr_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: the acai_omr_tpu_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from acai_omr_tpu_torch.api import OmrModel
+    from acai_omr_tpu_torch.ops import _build
+
+    # full-fp32 products for the plain twins' fp32 math (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[card] {card}", flush=True)
+    print(f"[torch] {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
+          f"allow_tf32=False", flush=True)
+
+    t0 = time.perf_counter()
+    logs = _build.build_all(verbose=True)
+    build_s = time.perf_counter() - t0
+    print(f"[build] {len(_build.sources())} kernel sources in {build_s:.2f} s",
+          flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {line.strip()}")
+
+    cases = check_kernels(torch, F, dev)
+
+    # phase 3: the slice at the flagship width
+    model = OmrModel.load(device="cuda", seed=SEED)
+    n_params = sum(v.numel() for v in _leaves(model.params))
+    print(f"[slice] flagship ViTOMR {n_params / 1e6:.1f}M params, "
+          f"{model.compute_dtype}, seed {SEED}", flush=True)
+    imgs = synthetic_images(np, N_IMAGES, SEED)
+    model.transcribe_batch(imgs[:2], max_len=8)  # warm-up: libraries, caches
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.transcribe_batch(imgs, max_len=MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: op.launches for n, op in _build.REGISTRY.items()}
+    device_launches = {n: op.device_launches
+                       for n, op in _build.REGISTRY.items()}
+    res = model.last_result
+    tok_s = res.n_tokens / res.decode_seconds if res.decode_seconds else 0.0
+    print(f"[slice] images {[i.shape for i in imgs]}", flush=True)
+    print(f"[slice] encode_s={res.encode_seconds:.3f} "
+          f"decode_s={res.decode_seconds:.3f} wall_s={wall:.3f} "
+          f"tokens={res.n_tokens} tokens_per_s={tok_s:.1f}", flush=True)
+    print(f"[slice] launches {json.dumps(launches)}", flush=True)
+    print(f"[slice] device kernels (K1 split-K adds a reduce) "
+          f"{json.dumps(device_launches)}", flush=True)
+    lmx_ok = len(out) == N_IMAGES and all(
+        isinstance(t.lmx, str) and t.lmx for t in out) and all(
+        math.isfinite(lp) for lp in res.avg_log_probs)
+    print(f"[slice] lmx lengths {[len(t.lmx.split()) for t in out]} "
+          f"confidence {[round(t.confidence, 4) for t in out]}", flush=True)
+
+    cmp = compare_paths(torch, np, model, imgs,
+                        profile="--profile" in sys.argv[1:])
+    print(f"[compare] {json.dumps(cmp)}", flush=True)
+
+    failures = [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
+    failures += [f"launches[{n}]=0" for n, v in launches.items() if v <= 0]
+    if not lmx_ok:
+        failures.append("slice output")
+    if not (cmp["logits_finite"] and cmp["token_agreement"] >= 0.9
+            and cmp["logit_max_abs_err"] < 0.25 and cmp["encoder_rel_err"] < 0.02):
+        failures.append("kernel path vs plain path")
+
+    kernels = [{"name": f"{c['op'].name}[{c['case']}]", "route": c["op"].route,
+                "source": c["op"].source, "replaces": c["op"].replaces,
+                "launches": launches[c["op"].name],
+                "device_launches": device_launches[c["op"].name],
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+               for c in cases]
+    report = {"card": card, "build_s": build_s, "kernels": kernels,
+              "slice": {"encode_s": res.encode_seconds,
+                        "decode_s": res.decode_seconds, "wall_s": wall,
+                        "tokens": res.n_tokens, "tokens_per_s": tok_s,
+                        "launches": launches,
+                        "device_launches": device_launches,
+                        "n_params": n_params},
+              "compare": cmp, "failures": failures}
+    if "--report" in sys.argv[1:]:
+        path = Path(sys.argv[sys.argv.index("--report") + 1])
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(report, indent=1))
+
+    if failures:
+        print(f"[fail] {failures}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+if __name__ == "__main__":
+    sys.exit(main())
