@@ -57,20 +57,31 @@ class OmrModel:
             return self.transform(img)
         return self.transform(np.asarray(img))
 
-    def transcribe(self, img, max_len: int = 1536) -> Transcription:
+    def transcribe(self, img, max_len: int = 1536, beam_size: int = 1,
+                   quantized_kv: bool = False) -> Transcription:
         """One system image (path / PIL / array) -> Transcription."""
-        return self.transcribe_batch([img], max_len)[0]
+        return self.transcribe_batch([img], max_len, beam_size,
+                                     quantized_kv)[0]
 
-    def transcribe_batch(self, imgs, max_len: int = 1536) -> list:
-        """Ragged list of system images -> list of Transcription (greedy)."""
+    def transcribe_batch(self, imgs, max_len: int = 1536, beam_size: int = 1,
+                         quantized_kv: bool = False) -> list:
+        """Ragged list of system images -> list of Transcription.
+
+        ``beam_size > 1`` uses beam-search decode. ``quantized_kv`` decodes
+        with int8 KV caches **and** int8 weights with per-row quantized
+        activations (W8A8), following the JAX monolith kernel's numerics:
+        tokens are near but not bit-identical to compute-dtype decode. The
+        two compose.
+        """
         from .inference.batch_inference import batch_inference
         from .lmx.delinearizer import DelinearizationError, delinearize
 
         arrays = [self._load_image(i) for i in imgs]
         res = batch_inference(self.params, self.cfg, arrays, self.tokenizer,
-                              max_inference_len=max_len,
+                              max_inference_len=max_len, beam_size=beam_size,
                               compute_dtype=self.compute_dtype,
-                              cache_dtype=self.compute_dtype,
+                              cache_dtype=(torch.int8 if quantized_kv
+                                           else self.compute_dtype),
                               device=self.device)
         self.last_result = res
         out = []

@@ -16,7 +16,11 @@
 // The unnormalised weights are rounded to bf16 before the PV product and the
 // fresh token's term is added in fp32, as the monolith does.
 // Cross mode (k_new == nullptr): attends over all n_keys memory positions with
-// the additive fp32 bias (B, T) (0 valid / -1e9 padding), same rounding.
+// the additive fp32 bias (0 valid / -1e9 padding), same rounding. With
+// mem_group = G > 1 (the bf16 branch of `_attend_shared`: beams of one image)
+// the memory and its bias hold B / G rows and batch row b reads row b / G.
+// Each of the G rows' blocks reads the shared K/V rows itself (once per row,
+// not once per group; the repeats are served by the L2 cache at best).
 //
 // Bound on an H100: the bytes of the cache rows read (2 * B * n_keys * E * 2)
 // at 3.35 TB/s; the arithmetic is a few flops per byte. Design: one block per
@@ -55,7 +59,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
                         __nv_bfloat16* __restrict__ kc,
                         __nv_bfloat16* __restrict__ vc, int T, int E,
                         int n_keys, const float* __restrict__ bias, int pos,
-                        float scale, __nv_bfloat16* __restrict__ out) {
+                        int mem_group, float scale,
+                        __nv_bfloat16* __restrict__ out) {
   constexpr int PER = DH / 32;
   extern __shared__ float logits[];
   __shared__ float red[WARPS][DH];
@@ -63,6 +68,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int bm = b / mem_group;  // row of the caches / memory and the bias
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -92,13 +98,13 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
 
   // logits over the cache / memory rows
   for (int t = warp; t < n_keys; t += WARPS) {
-    const __nv_bfloat16* kr = kc + ((size_t)b * T + t) * E + col;
+    const __nv_bfloat16* kr = kc + ((size_t)bm * T + t) * E + col;
     float s = 0.0f;
 #pragma unroll
     for (int p = 0; p < PER; ++p) s += qv[p] * __bfloat162float(kr[p]);
     s = warp_sum(s);
     if (lane == 0)
-      logits[t] = s * scale + (bias != nullptr ? bias[(size_t)b * T + t] : 0.0f);
+      logits[t] = s * scale + (bias != nullptr ? bias[(size_t)bm * T + t] : 0.0f);
   }
   __syncthreads();
 
@@ -133,7 +139,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
   for (int p = 0; p < PER; ++p) acc[p] = 0.0f;
   for (int t = warp; t < n_keys; t += WARPS) {
     const float w = __bfloat162float(__float2bfloat16(logits[t]));
-    const __nv_bfloat16* vr = vc + ((size_t)b * T + t) * E + col;
+    const __nv_bfloat16* vr = vc + ((size_t)bm * T + t) * E + col;
 #pragma unroll
     for (int p = 0; p < PER; ++p) acc[p] += w * __bfloat162float(vr[p]);
   }
@@ -159,14 +165,15 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
 // q: (B, q_stride) bf16 with head h's query at columns [h*Dh, (h+1)*Dh).
 // Self mode: k_new/v_new point at the fresh k/v blocks of the same rows
 // (q + E, q + 2E), pos is the cache slot to write and n_keys == pos; bias is
-// null. Cross mode: k_new == v_new == null, bias (B, T) fp32, n_keys == T.
-// kc/vc: this layer's (B, T, E) caches. out: (B, E) bf16.
+// null, mem_group is 1. Cross mode: k_new == v_new == null, n_keys == T,
+// kc/vc (B / mem_group, T, E) and bias (B / mem_group, T) fp32.
+// kc/vc: this layer's (B, T, E) caches in self mode. out: (B, E) bf16.
 extern "C" int acai_decode_attention(const void* q, int q_stride,
                                      const void* k_new, const void* v_new,
                                      void* kc, void* vc, int B, int H, int dh,
                                      int T, int n_keys, const void* bias,
-                                     int pos, float scale, void* out,
-                                     void* stream) {
+                                     int pos, int mem_group, float scale,
+                                     void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int E = H * dh;
   dim3 grid(H, B);
@@ -177,7 +184,7 @@ extern "C" int acai_decode_attention(const void* q, int q_stride,
       static_cast<const __nv_bfloat16*>(k_new),                                \
       static_cast<const __nv_bfloat16*>(v_new),                                \
       static_cast<__nv_bfloat16*>(kc), static_cast<__nv_bfloat16*>(vc), T, E,  \
-      n_keys, static_cast<const float*>(bias), pos, scale,                     \
+      n_keys, static_cast<const float*>(bias), pos, mem_group, scale,          \
       static_cast<__nv_bfloat16*>(out))
   switch (dh) {
     case 32: ACAI_LAUNCH(32); break;

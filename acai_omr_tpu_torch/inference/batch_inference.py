@@ -1,10 +1,11 @@
-"""Batched greedy inference over ragged multi-resolution images.
+"""Batched inference over ragged multi-resolution images.
 
 The twin of the JAX package's ``inference/batch_inference.py``: images are
 grouped into encoder shape buckets, each group is encoded and decoded with
-the KV-cached greedy loop, and results come back in input order. Ragged
-tail groups are padded up to a power of two (capped at ``decode_batch``) by
-repeating their first image, so a request mix meets only a few batch shapes.
+the KV-cached loop (greedy or beam search, compute-dtype or int8 caches), and
+results come back in input order. Ragged tail groups are padded up to a power
+of two (capped at ``decode_batch``) by repeating their first image, so a
+request mix meets only a few batch shapes.
 """
 
 from __future__ import annotations
@@ -44,13 +45,29 @@ def _sync(device: torch.device) -> None:
 
 def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
                     max_inference_len: int = 1536, decode_batch: int = 32,
-                    bucket_multiple: int = 128,
+                    bucket_multiple: int = 128, beam_size: int = 1,
+                    length_penalty: float = 0.6,
                     compute_dtype=torch.bfloat16,
-                    cache_dtype=torch.bfloat16, device=None) -> BatchResult:
+                    cache_dtype=torch.bfloat16, device=None,
+                    progress_cb=None,
+                    progress_interval: int = 25) -> BatchResult:
     """Transcribe a list of (C, H, W) float arrays of arbitrary sizes.
 
     ``params`` must live on ``device`` (``cuda`` unless the caller passes
-    ``device="cpu"``).
+    ``device="cpu"``). ``beam_size > 1`` switches the decode to beam search
+    (the effective decode batch is ``decode_batch * beam_size`` rows over
+    ``decode_batch`` memories). ``cache_dtype=torch.int8`` is the quantized
+    decode: int8 KV caches **and** int8 weights with per-row quantized
+    activations (W8A8), with the JAX monolith kernel's numerics; tokens are
+    near but not bit-identical to compute-dtype decode. It composes with
+    beams.
+
+    ``progress_cb(img_indices, seqs, t, finished)``: mid-decode streaming
+    hook of the greedy path, called every ``progress_interval`` decode steps
+    per bucket group with the ORIGINAL image indices of the group's rows, the
+    raw (rows, max_len) sequence buffer so far, the decode position and a
+    per-row finished mask; batch-pad rows never surface. Beam decodes do not
+    surface mid-decode state.
     """
     device = resolve_device(device)
     order = sorted(range(len(imgs)),
@@ -72,6 +89,14 @@ def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
             group.append(order[i + len(group)])
         i += len(group)
 
+        group_cb = None
+        seg_steps = None
+        if progress_cb is not None and beam_size == 1:
+            # the slice to len(gi) drops batch-pad rows
+            group_cb = (lambda s, t, fin, gi=list(group):
+                        progress_cb(gi, s[: len(gi)], t, fin[: len(gi)]))
+            seg_steps = progress_interval
+
         n_real = len(group)
         b_pad = 1
         while b_pad < n_real:
@@ -87,10 +112,18 @@ def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
             params, cfg, *pb.to(device), compute_dtype=compute_dtype)
         _sync(device)
         t1 = time.perf_counter()
-        seqs, lps, mask = decode_lib.generate(
-            params["decoder"], cfg.decoder, latent, latent_valid,
-            max_len=max_inference_len, compute_dtype=compute_dtype,
-            cache_dtype=cache_dtype)
+        if beam_size > 1:
+            seqs, lps, mask = decode_lib.beam_generate(
+                params["decoder"], cfg.decoder, latent, latent_valid,
+                beam_size=beam_size, length_penalty=length_penalty,
+                max_len=max_inference_len, compute_dtype=compute_dtype,
+                cache_dtype=cache_dtype)
+        else:
+            seqs, lps, mask = decode_lib.generate(
+                params["decoder"], cfg.decoder, latent, latent_valid,
+                max_len=max_inference_len, compute_dtype=compute_dtype,
+                cache_dtype=cache_dtype, progress_cb=group_cb,
+                segment_steps=seg_steps)
         seqs, lps, mask = (a.cpu().numpy() for a in (seqs, lps, mask))
         t2 = time.perf_counter()
         enc_s += t1 - t0

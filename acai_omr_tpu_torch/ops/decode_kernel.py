@@ -1,21 +1,35 @@
-"""One greedy decode step through all decoder layers, as hand-written kernels.
+"""One decode step through all decoder layers, as hand-written kernels.
 
-Port of the JAX package's ``ops/pallas_monolith.py`` ``decode_layers`` in
-bf16 mode: one decode token through all L post-norm decoder layers, with the
-fresh K/V appended in place to the time-major ``(L, B, T, E)`` caches. Here
-each layer is eleven launches of three kernels:
+Port of the JAX package's ``ops/pallas_monolith.py`` ``decode_layers``: one
+decode token through all L post-norm decoder layers, with the fresh K/V
+appended in place to the time-major ``(L, B, T, E)`` caches. Here each layer
+is eleven launches of three kernels:
 
-    qkv = K1(x, Wqkv, bqkv)        a  = K2(qkv, K_l, V_l, pos)   (self, appends)
-    x   = K4(x, K1(a, Wso, bso))
-    qc  = K1(x, Wcq, bcq)          c  = K2(qc, MK_l, MV_l, bias) (cross)
-    x   = K4(x, K1(c, Wco, bco))
-    x   = K4(x, K1(K1(x, W1, b1, gelu_rounded), W2, b2))
+    qkv = LIN(x, Wqkv, bqkv)       a  = ATT(qkv, K_l, V_l, pos)   (self, appends)
+    x   = K4(x, LIN(a, Wso, bso))
+    qc  = LIN(x, Wcq, bcq)         c  = ATT(qc, MK_l, MV_l, bias) (cross)
+    x   = K4(x, LIN(c, Wco, bco))
+    x   = K4(x, LIN(LIN(x, W1, b1, gelu_rounded), W2, b2))
 
-K2 ``decode_attention`` lives in this module (CUDA source
-``csrc/decode_attention.cu``); K1 and K4 are shared with the encoder stack.
-The final norm, the unembedding and the argmax stay outside, as in the JAX
-decode loop. The caches are updated in place (the JAX kernel aliases them
-in and out).
+Compute-dtype caches: ATT = K2 ``decode_attention``
+(``csrc/decode_attention.cu``). int8 caches (the monolith's quantized mode):
+ATT = K6 ``decode_attention_int8`` (``csrc/decode_attention_int8.cu``), which
+quantizes q/k/v per (row, head), appends the int8 rows and their scales, and
+attends with integer products and quantized softmax weights. LIN = K1
+``linear_bias_act`` for compute-dtype weights and K5
+``quant_linear_bias_act`` for int8 weights (W8A8). K1, K4 and K5 live in
+their own modules. The final norm, the unembedding and the argmax stay
+outside, as in the JAX decode loop. The caches are updated in place (the JAX
+kernel aliases them in and out).
+
+int8 scales are per (row, position, head) max-abs / 127, rounded to bf16
+before quantizing, and stored as plain **bf16** tensors ``(L, B, T, H)``
+(self) and ``(L, B/G, M, H)`` (memory): a bf16 tensor holds the rounded value
+exactly and is half the bytes of fp32. The JAX package's lane-packed scale
+planes are a TPU layout and are not reproduced.
+
+``mem_group=G``: the memory holds ``B/G`` rows and batch row ``b`` attends to
+memory row ``b // G`` (beams of one image share its memory).
 """
 
 from __future__ import annotations
@@ -28,22 +42,43 @@ import torch
 from . import _build
 from .layernorm_kernel import add_layernorm
 from .linear_kernel import linear_bias_act
+from .quant_linear_kernel import INT8_QMAX, pack_k4, quant_linear_bias_act
 
 Params = dict
+
+# K6 keeps one fp32 logit per key in shared memory (48 KB without opt-in)
+MAX_INT8_KEYS = 8192
+_MATS = ("w_qkv", "w_self_out", "w_cross_q", "w_cross_out", "w_ff1", "w_ff2")
+
+
+def quantize_rows(x: torch.Tensor, scale_dtype=None):
+    """(..., Dh) -> (int8 values, (...,) fp32 scale), max-abs per row.
+
+    ``scale_dtype`` (bf16 for the decode caches) rounds the scale BEFORE
+    quantizing, so the stored scale dequantizes exactly what was quantized.
+    Division, not a product with a reciprocal; round half to even."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1).clamp_min(1e-8) / INT8_QMAX
+    if scale_dtype is not None:
+        scale = scale.to(scale_dtype).float()
+    q = torch.round(x32 / scale[..., None]).clamp(-INT8_QMAX, INT8_QMAX)
+    return q.to(torch.int8), scale
 
 
 def decode_attention_plain(q: torch.Tensor, k_layer: torch.Tensor,
                            v_layer: torch.Tensor, num_heads: int,
                            pos: int | None = None,
-                           bias: torch.Tensor | None = None) -> torch.Tensor:
+                           bias: torch.Tensor | None = None,
+                           mem_group: int = 1) -> torch.Tensor:
     """Plain twin of K2.
 
     Self mode (``pos`` given): q is the (B, 3E) qkv row block; the fresh k/v
     are written into the (B, T, E) layer caches at ``pos`` and attention runs
     over positions [0, pos) plus the fresh token folded in analytically.
-    Cross mode: q (B, E) attends over every memory row with the additive
-    fp32 ``bias`` (B, M). The unnormalised softmax weights are rounded to q's
-    dtype before the PV product; the fresh token's term stays fp32.
+    Cross mode: q (B, E) attends over every row of memory row ``b //
+    mem_group`` with the additive fp32 ``bias`` (B / mem_group, M). The
+    unnormalised softmax weights are rounded to q's dtype before the PV
+    product; the fresh token's term stays fp32.
     """
     b = q.shape[0]
     e = k_layer.shape[-1]
@@ -57,6 +92,9 @@ def decode_attention_plain(q: torch.Tensor, k_layer: torch.Tensor,
         keys, vals = k_layer[:, :pos], v_layer[:, :pos]
     else:
         qh, keys, vals = q, k_layer, v_layer
+        if mem_group > 1:
+            keys, vals, bias = (a.repeat_interleave(mem_group, dim=0)
+                                for a in (keys, vals, bias))
     n = keys.shape[1]
     qf = qh.float().view(b, num_heads, dh)
     logits = torch.einsum("bhd,bnhd->bhn", qf,
@@ -78,38 +116,42 @@ def decode_attention_plain(q: torch.Tensor, k_layer: torch.Tensor,
     return (out / denom[..., None]).reshape(b, e).to(q.dtype)
 
 
-def _launch(op, q, k_layer, v_layer, num_heads, pos=None, bias=None):
+def _launch(op, q, k_layer, v_layer, num_heads, pos=None, bias=None,
+            mem_group=1):
     _build.require(q, "q", torch.bfloat16, 2)
     _build.require(k_layer, "k_layer", torch.bfloat16, 3)
     _build.require(v_layer, "v_layer", torch.bfloat16, 3)
-    b, t, e = k_layer.shape
+    bm, t, e = k_layer.shape
+    b = q.shape[0]
     dh = e // num_heads
-    if v_layer.shape != k_layer.shape or q.shape[0] != b \
+    if v_layer.shape != k_layer.shape or bm * mem_group != b \
             or dh * num_heads != e or dh not in (32, 64, 128):
         raise ValueError("decode_attention shape mismatch")
     fresh = pos is not None
     if fresh:
-        if q.shape[1] != 3 * e or bias is not None or not 0 <= pos < t:
+        if q.shape[1] != 3 * e or bias is not None or not 0 <= pos < t \
+                or mem_group != 1:
             raise ValueError("self mode needs (B, 3E) qkv, 0 <= pos < T, "
-                             "no bias")
+                             "no bias, mem_group 1")
         k_new, v_new, n_keys, bias_ptr = (q.data_ptr() + 2 * e,
                                           q.data_ptr() + 4 * e, pos, 0)
     else:
         _build.require(bias, "bias", torch.float32, 2)
-        if q.shape[1] != e or bias.shape != (b, t):
-            raise ValueError("cross mode needs (B, E) q and (B, M) bias")
+        if q.shape[1] != e or bias.shape != (bm, t):
+            raise ValueError("cross mode needs (B, E) q and (B/G, M) bias")
         k_new = v_new = 0
         n_keys, bias_ptr = t, bias.data_ptr()
     out = torch.empty((b, e), dtype=torch.bfloat16, device=q.device)
     fn = _build.bind("decode_attention", "acai_decode_attention",
                      [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                      + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                             ctypes.c_float, ctypes.c_void_p,
+                                             ctypes.c_int, ctypes.c_float,
+                                             ctypes.c_void_p,
                                              ctypes.c_void_p])
     rc = fn(q.data_ptr(), q.shape[1], k_new, v_new, k_layer.data_ptr(),
             v_layer.data_ptr(), b, num_heads, dh, t, n_keys, bias_ptr,
-            -1 if pos is None else pos, 1.0 / math.sqrt(dh), out.data_ptr(),
-            _build.stream_ptr())
+            -1 if pos is None else pos, mem_group, 1.0 / math.sqrt(dh),
+            out.data_ptr(), _build.stream_ptr())
     op.launches += 1
     _build.check(rc, op.name)
     return out
@@ -118,65 +160,241 @@ def _launch(op, q, k_layer, v_layer, num_heads, pos=None, bias=None):
 decode_attention = _build.KernelOp(
     "decode_attention", "acai_omr_tpu_torch/csrc/decode_attention.cu",
     "acai_omr_tpu/ops/pallas_monolith.py:825 (_attend_all, self and cross "
-    "sites of _kernel :997)",
+    "sites of _kernel :997) and :932 (_attend_shared, bf16 branch)",
     _launch, decode_attention_plain)
 
 
-def prepack(params: Params, compute_dtype=torch.bfloat16) -> Params:
-    """Decoder params -> the step's operands (the bf16 branch of the JAX
+def decode_attention_int8_plain(q: torch.Tensor, k_layer: torch.Tensor,
+                                v_layer: torch.Tensor, k_scale: torch.Tensor,
+                                v_scale: torch.Tensor, num_heads: int,
+                                pos: int | None = None,
+                                bias: torch.Tensor | None = None,
+                                mem_group: int = 1) -> torch.Tensor:
+    """Plain twin of K6: the monolith's quantized attention, term by term.
+
+    k_layer/v_layer: (B, T, E) int8 with (B, T, H) bf16 scales. Self mode
+    (``pos`` given): q is the (B, 3E) qkv block; q, k and v are quantized per
+    head, the int8 k/v and their scales are written at ``pos``, and
+    attention runs over positions [0, pos) plus the fresh token, whose logit
+    and value come from the dequantized q, k and v in fp32. Cross mode: q
+    (B, E) is quantized per head and attends over memory row
+    ``b // mem_group`` with the additive ``bias`` (B / mem_group, M).
+
+    Cached keys: logit = float(<qq, kq_t>) * ks_t * (qs / sqrt(dh)). The
+    softmax weights are quantized, not rounded: w_v = exp(logit - m) * vs_t,
+    ws = max(max_t w_v, 1e-30) / 127, out = float(<round(w_v / ws), vq>) * ws.
+    The division by the denominator (unquantized weights) comes last. Both
+    integer products are exact (the second one in float64).
+    """
+    b = q.shape[0]
+    e = k_layer.shape[-1]
+    h = num_heads
+    dh = e // h
+    scale = 1.0 / math.sqrt(dh)
+    sd = k_scale.dtype
+    heads = lambda a: a.float().reshape(b, h, dh)
+    fresh = pos is not None
+    if fresh:
+        qq, qs = quantize_rows(heads(q[:, :e]), torch.bfloat16)
+        kq, ks = quantize_rows(heads(q[:, e:2 * e]), torch.bfloat16)
+        vq, vs = quantize_rows(heads(q[:, 2 * e:]), torch.bfloat16)
+        k_layer[:, pos] = kq.reshape(b, e)
+        v_layer[:, pos] = vq.reshape(b, e)
+        k_scale[:, pos] = ks.to(sd)
+        v_scale[:, pos] = vs.to(sd)
+        keys, vals = k_layer[:, :pos], v_layer[:, :pos]
+        kp, vp = k_scale[:, :pos], v_scale[:, :pos]
+    else:
+        qq, qs = quantize_rows(heads(q), torch.bfloat16)
+        keys, vals, kp, vp = k_layer, v_layer, k_scale, v_scale
+        if mem_group > 1:
+            keys, vals, kp, vp, bias = (
+                a.repeat_interleave(mem_group, dim=0)
+                for a in (keys, vals, kp, vp, bias))
+    n = keys.shape[1]
+    qf = qq.float()
+    dots = torch.einsum("bhd,bnhd->bhn", qf, keys.float().view(b, n, h, dh))
+    logits = dots * kp.float().transpose(1, 2) * (qs * scale)[..., None]
+    if bias is not None:
+        logits = logits + bias.float()[:, None, :]
+    m = logits.amax(dim=-1) if n else None
+    if fresh:
+        kd, vd = kq.float() * ks[..., None], vq.float() * vs[..., None]
+        lc = ((qf * qs[..., None]) * kd).sum(-1) * scale
+        m = lc if m is None else torch.maximum(m, lc)
+    w = torch.exp(logits - m[..., None])
+    denom = w.sum(dim=-1)
+    w_v = w * vp.float().transpose(1, 2)
+    ws = (w_v.amax(dim=-1) if n else torch.zeros_like(denom)) \
+        .clamp_min(1e-30) / INT8_QMAX
+    wq = torch.round(w_v / ws[..., None])
+    out = torch.einsum("bhn,bnhd->bhd", wq.double(),
+                       vals.double().view(b, n, h, dh)).float() * ws[..., None]
+    if fresh:
+        wc = torch.exp(lc - m)
+        denom = denom + wc
+        out = out + wc[..., None] * vd
+    return (out / denom[..., None]).reshape(b, e).to(q.dtype)
+
+
+def _launch_int8(op, q, k_layer, v_layer, k_scale, v_scale, num_heads,
+                 pos=None, bias=None, mem_group=1):
+    _build.require(q, "q", torch.bfloat16, 2)
+    _build.require(k_layer, "k_layer", torch.int8, 3)
+    _build.require(v_layer, "v_layer", torch.int8, 3)
+    _build.require(k_scale, "k_scale", torch.bfloat16, 3)
+    _build.require(v_scale, "v_scale", torch.bfloat16, 3)
+    bm, t, e = k_layer.shape
+    b = q.shape[0]
+    dh = e // num_heads
+    if v_layer.shape != k_layer.shape or bm * mem_group != b \
+            or dh * num_heads != e or dh not in (32, 64, 128) \
+            or k_scale.shape != (bm, t, num_heads) \
+            or v_scale.shape != k_scale.shape or t > MAX_INT8_KEYS:
+        raise ValueError("decode_attention_int8 shape mismatch")
+    fresh = pos is not None
+    if fresh:
+        if q.shape[1] != 3 * e or bias is not None or not 0 <= pos < t \
+                or mem_group != 1:
+            raise ValueError("self mode needs (B, 3E) qkv, 0 <= pos < T, "
+                             "no bias, mem_group 1")
+        n_keys, bias_ptr = pos, 0
+    else:
+        _build.require(bias, "bias", torch.float32, 2)
+        if q.shape[1] != e or bias.shape != (bm, t):
+            raise ValueError("cross mode needs (B, E) q and (B/G, M) bias")
+        n_keys, bias_ptr = t, bias.data_ptr()
+    out = torch.empty((b, e), dtype=torch.bfloat16, device=q.device)
+    fn = _build.bind("decode_attention_int8", "acai_decode_attention_int8",
+                     [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_float,
+                                             ctypes.c_void_p,
+                                             ctypes.c_void_p])
+    rc = fn(q.data_ptr(), q.shape[1], k_layer.data_ptr(), v_layer.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), b, num_heads, dh, t,
+            n_keys, bias_ptr, -1 if pos is None else pos, mem_group,
+            1.0 / math.sqrt(dh), out.data_ptr(), _build.stream_ptr())
+    op.launches += 1
+    _build.check(rc, op.name)
+    return out
+
+
+decode_attention_int8 = _build.KernelOp(
+    "decode_attention_int8",
+    "acai_omr_tpu_torch/csrc/decode_attention_int8.cu",
+    "acai_omr_tpu/ops/pallas_monolith.py:725 (_quant_rows), :859-917 "
+    "(_attend_all int8), :951-986 (_attend_shared int8), :1382-1423 "
+    "(quantized append)",
+    _launch_int8, decode_attention_int8_plain)
+
+
+def prepack(params: Params, compute_dtype=torch.bfloat16,
+            quantize_weights=False) -> Params:
+    """Decoder params -> the step's operands (the JAX
     ``pallas_monolith.prepack``): weight matrices in the compute dtype; every
     bias and LayerNorm vector rounded to the compute dtype (as the JAX
-    ``misc`` plane) and held in fp32 for the kernels' epilogues."""
+    ``misc`` plane) and held in fp32 for the kernels' epilogues.
+
+    ``quantize_weights=True`` or ``"int8"`` (the int8 decode mode, W8A8):
+    every weight matrix int8 with one max-abs scale per output column over
+    the full input, rounded to bf16 before quantizing; the matrices are held
+    K-packed (:func:`..quant_linear_kernel.pack_k4`) under their usual names,
+    the fp32 column scales under ``s_<name>``."""
+    if quantize_weights not in (False, True, "int8"):
+        raise ValueError(f"unsupported weight mode {quantize_weights!r}")
     blocks = params["blocks"]
     e = blocks["self_attn"]["out"]["kernel"].shape[-1]
     sa, ca = blocks["self_attn"], blocks["cross_attn"]
-    w = lambda a: a.to(compute_dtype).contiguous()
     vec = lambda a: a.to(compute_dtype).float().contiguous()
-    return {
-        "w_qkv": w(sa["in_kernel"]), "b_qkv": vec(sa["in_bias"]),
-        "w_self_out": w(sa["out"]["kernel"]),
-        "b_self_out": vec(sa["out"]["bias"]),
-        "w_cross_q": w(ca["in_kernel"][:, :, :e]),
+    mats = dict(zip(_MATS, (
+        sa["in_kernel"], sa["out"]["kernel"], ca["in_kernel"][:, :, :e],
+        ca["out"]["kernel"], blocks["linear1"]["kernel"],
+        blocks["linear2"]["kernel"])))
+    out = {}
+    for name, w in mats.items():
+        if not quantize_weights:
+            out[name] = w.to(compute_dtype).contiguous()
+            continue
+        w32 = w.float()                                      # (L, IN, OUT)
+        s = (w32.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / INT8_QMAX) \
+            .to(torch.bfloat16).float()
+        w8 = torch.round(w32 / s).clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+        out[name] = pack_k4(w8)
+        out["s_" + name[2:]] = s[:, 0].contiguous()
+    out.update({
+        "b_qkv": vec(sa["in_bias"]), "b_self_out": vec(sa["out"]["bias"]),
         "b_cross_q": vec(ca["in_bias"][:, :e]),
-        "w_cross_out": w(ca["out"]["kernel"]),
         "b_cross_out": vec(ca["out"]["bias"]),
-        "w_ff1": w(blocks["linear1"]["kernel"]),
         "b_ff1": vec(blocks["linear1"]["bias"]),
-        "w_ff2": w(blocks["linear2"]["kernel"]),
         "b_ff2": vec(blocks["linear2"]["bias"]),
         **{f"ln{i}_{s}": vec(blocks[f"norm{i}"][k])
            for i in (1, 2, 3) for s, k in (("g", "scale"), ("b", "bias"))},
-    }
+    })
+    return out
 
 
 def decode_layers(mono: Params, x: torch.Tensor, pos: int,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
                   mem_k: torch.Tensor, mem_v: torch.Tensor,
                   mem_bias: torch.Tensor, num_heads: int,
-                  plain: bool = False) -> torch.Tensor:
+                  plain: bool = False, k_scale: torch.Tensor | None = None,
+                  v_scale: torch.Tensor | None = None,
+                  mem_k_scale: torch.Tensor | None = None,
+                  mem_v_scale: torch.Tensor | None = None,
+                  mem_group: int = 1) -> torch.Tensor:
     """One token through every decoder layer.
 
     x: (B, E) embedded token in the compute dtype; k_cache/v_cache:
-    (L, B, T, E), appended in place at ``pos``; mem_k/mem_v: (L, B, M, E);
-    mem_bias: (B, M) fp32 additive padding bias. Returns (B, E).
+    (L, B, T, E), appended in place at ``pos``; mem_k/mem_v: (L, B/G, M, E);
+    mem_bias: (B/G, M) fp32 additive padding bias. With int8 caches pass the
+    bf16 scales k_scale/v_scale (L, B, T, H), appended in place too, and
+    mem_k_scale/mem_v_scale (L, B/G, M, H). ``mono`` from :func:`prepack`
+    decides the products: int8 weights run W8A8. Returns (B, E).
 
-    On CUDA tensors every op is a launch of K1/K2/K4; on CPU tensors the
-    plain twins run. ``plain=True`` runs the plain twins on any device.
+    On CUDA tensors every op is a kernel launch (K1 or K5, K2 or K6, K4); on
+    CPU tensors the plain twins run. ``plain=True`` runs the plain twins on
+    any device.
     """
-    lin, attn, ln = linear_bias_act, decode_attention, add_layernorm
+    quantized = k_scale is not None
+    w8a8 = "s_qkv" in mono
+    b, e = x.shape
+    if mem_k.shape[1] * mem_group != b:
+        raise ValueError(f"mem rows {mem_k.shape[1]} x group {mem_group} "
+                         f"!= batch {b}")
+    if quantized:
+        dh = e // num_heads
+        if dh * num_heads != e or dh & (dh - 1):
+            raise ValueError(f"int8 caches need a power-of-two head dim, got "
+                             f"E={e}, heads={num_heads}")
+        if max(k_cache.shape[2], mem_k.shape[2]) > MAX_INT8_KEYS:
+            raise ValueError(
+                f"int8 attention holds at most {MAX_INT8_KEYS} keys in shared "
+                f"memory, got T={k_cache.shape[2]}, M={mem_k.shape[2]}")
+    lin = quant_linear_bias_act if w8a8 else linear_bias_act
+    attn = decode_attention_int8 if quantized else decode_attention
+    ln = add_layernorm
     if plain:
         lin, attn, ln = lin.plain, attn.plain, ln.plain
     p = mono
+
+    def mat(xv, i, name, act="none"):
+        w = (p["w_" + name][i],)
+        if w8a8:
+            w += (p["s_" + name][i],)
+        return lin(xv, *w, p["b_" + name][i], act)
+
     for i in range(k_cache.shape[0]):
-        qkv = lin(x, p["w_qkv"][i], p["b_qkv"][i])
-        a = attn(qkv, k_cache[i], v_cache[i], num_heads, pos=pos)
-        x = ln(x, lin(a, p["w_self_out"][i], p["b_self_out"][i]),
-               p["ln1_g"][i], p["ln1_b"][i], 1e-5)
-        qc = lin(x, p["w_cross_q"][i], p["b_cross_q"][i])
-        c = attn(qc, mem_k[i], mem_v[i], num_heads, bias=mem_bias)
-        x = ln(x, lin(c, p["w_cross_out"][i], p["b_cross_out"][i]),
-               p["ln2_g"][i], p["ln2_b"][i], 1e-5)
-        f = lin(x, p["w_ff1"][i], p["b_ff1"][i], "gelu_rounded")
-        x = ln(x, lin(f, p["w_ff2"][i], p["b_ff2"][i]),
-               p["ln3_g"][i], p["ln3_b"][i], 1e-5)
+        self_kv = (k_cache[i], v_cache[i])
+        mem_kv = (mem_k[i], mem_v[i])
+        if quantized:
+            self_kv += (k_scale[i], v_scale[i])
+            mem_kv += (mem_k_scale[i], mem_v_scale[i])
+        a = attn(mat(x, i, "qkv"), *self_kv, num_heads, pos=pos)
+        x = ln(x, mat(a, i, "self_out"), p["ln1_g"][i], p["ln1_b"][i], 1e-5)
+        c = attn(mat(x, i, "cross_q"), *mem_kv, num_heads, bias=mem_bias,
+                 mem_group=mem_group)
+        x = ln(x, mat(c, i, "cross_out"), p["ln2_g"][i], p["ln2_b"][i], 1e-5)
+        f = mat(x, i, "ff1", "gelu_rounded")
+        x = ln(x, mat(f, i, "ff2"), p["ln3_g"][i], p["ln3_b"][i], 1e-5)
     return x

@@ -7,16 +7,23 @@ Phases, all in one process; any failure exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit), build every kernel
    of ``acai_omr_tpu_torch/csrc`` (one nvcc per source, in parallel);
-2. hold each kernel (K1 linear_bias_act, K2 decode_attention, K3
-   encoder_attention, K4 add_layernorm) against its plain PyTorch twin in
-   bf16 at the flagship shapes the slice gives it, and time kernel, twin,
-   a PyTorch library call computing the same function, and the card's bound;
-3. the slice: the flagship ViTOMR (~305M parameters, weights from a seed, bf16)
-   transcribes 8 ragged synthetic images through ``OmrModel.transcribe_batch``
-   (max_len 512) with the launch counts reset just before and read just after;
-   then the kernel path is held against the plain path on the card: encoder
-   output, and 64 greedy decode steps at B=8 (the plain path is fed the
-   kernel path's tokens, so the logits stay comparable step by step);
+2. hold each kernel (K1 linear_bias_act, K2 decode_attention with and
+   without grouped memory, K3 encoder_attention, K4 add_layernorm, K5
+   quant_linear_bias_act, K6 decode_attention_int8 in self, cross and grouped
+   cross mode) against its plain PyTorch twin at the flagship shapes the
+   paths give it, and time kernel, twin, a PyTorch library call computing
+   the same function where there is one, the card's bound, and the host
+   time of one wrapper call (the decode step is bound by it). The int8
+   kernels' appended rows and scales must equal the twin's bit for bit;
+3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
+   bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
+   images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
+   on 4 of them with 4 beams, bf16 and int8 (max_len 256), and through
+   ``streamed_inference`` on one; the launch counts are reset just before
+   each path and read just after. Then the kernel path is held against the
+   plain path on the card: encoder output, and 64 greedy decode steps at B=8
+   with bf16 and with int8 caches (the plain path is fed the kernel path's
+   tokens, so the logits stay comparable step by step);
 4. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -42,16 +49,30 @@ ROOT = Path(__file__).resolve().parent
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_INT8_OP_PER_S = 1979e12
 
 SEED = 0
 N_IMAGES = 8
 MAX_LEN = 512
+BEAM_IMAGES, BEAM_SIZE, BEAM_MAX_LEN = 4, 4, 256
 CMP_STEPS = 64
+_ENC = ["linear_bias_act", "encoder_attention", "add_layernorm"]
+# the kernels each main path must have launched
+EXPECTED_KERNELS = {
+    "greedy_bf16": _ENC + ["decode_attention"],
+    "int8": _ENC + ["quant_linear_bias_act", "decode_attention_int8"],
+    "beam_bf16": _ENC + ["decode_attention"],
+    "beam_int8": _ENC + ["quant_linear_bias_act", "decode_attention_int8"],
+    "streamed": _ENC + ["decode_attention"],
+}
+# two bf16 ulps of the largest output: what the int8 kernels may differ by
+TWO_BF16_ULPS = 2 * 2.0 ** -7
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_BF16_FLOP_PER_S) -> tuple[float, str]:
     t_b = n_bytes / PEAK_BYTES_PER_S
-    t_f = n_flops / PEAK_BF16_FLOP_PER_S
+    t_f = n_ops / peak_ops
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -81,6 +102,19 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one wrapper call: ``calls`` calls enqueued back to back
+    on an idle stream, the clock read before the device is waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -90,28 +124,42 @@ def card_line() -> str:
 
 def check_kernels(torch, F, dev):
     """Phase 2: every kernel against its plain twin, timed."""
-    from acai_omr_tpu_torch.ops.decode_kernel import decode_attention
+    from acai_omr_tpu_torch.ops.decode_kernel import (decode_attention,
+                                                      decode_attention_int8)
     from acai_omr_tpu_torch.ops.encoder_stack_kernel import encoder_attention
     from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
     from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
+    from acai_omr_tpu_torch.ops.quant_linear_kernel import (
+        pack_k4, quant_linear_bias_act, quantize_activation_rows)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
     randn = lambda *s, dtype=bf: torch.randn(*s, generator=g, device=dev,
                                              dtype=torch.float32).to(dtype)
     cases = []
+    kernel_times = lambda fn: (time_ms(torch, fn), host_us(torch, fn))
 
-    def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nflops):
+    def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
+               peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None):
+        """``paths``: the main paths whose launches count for this case (all
+        when None). ``exact``: for the int8 cases, whether the caches and
+        scales after the kernel equal the twin's bit for bit."""
+        t_k, t_host = t_k  # device ms and host us of one wrapper call
         err = (out_k.float() - out_p.float()).abs().max().item()
-        b_ms, b_by = bound_ms(nbytes, nflops)
-        ok = math.isfinite(err) and err <= tol
+        b_ms, b_by = bound_ms(nbytes, nops, peak)
+        ok = math.isfinite(err) and err <= tol and exact is not False
         cases.append({"op": op, "case": case, "max_abs_err": err, "tol": tol,
-                      "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
-                      "bound_ms": b_ms, "bound_by": b_by, "ok": ok})
+                      "ms": t_k, "host_us": t_host, "plain_ms": t_p,
+                      "library_ms": t_lib,
+                      "bound_ms": b_ms, "bound_by": b_by, "ok": ok,
+                      "paths": paths})
+        lib = "none" if t_lib is None else f"{t_lib:.4f}"
         print(f"[kernel] {op.name}[{case}] max_abs_err={err:.3e} tol={tol:.1e} "
-              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_lib:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"kernel_ms={t_k:.4f} host_us={t_host:.1f} plain_ms={t_p:.4f} "
+              f"library_ms={lib} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              + ("" if exact is None else f"caches_equal={exact} ")
+              + ("ok" if ok else "FAIL"), flush=True)
 
     # K1: decode qkv, decode ff1 (+GELU), decode ff2; encoder qkv, ff1
     # (+GELU on the fp32 sum), ff2
@@ -131,7 +179,7 @@ def check_kernels(torch, F, dev):
         # one bf16 ulp of the largest output is 0.4-0.8% of it
         tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
         record(linear_bias_act, f"{m}x{k}->{n},{act}", out_k, out_p, tol,
-               time_ms(torch, lambda: linear_bias_act(x, w, b, act)),
+               kernel_times(lambda: linear_bias_act(x, w, b, act)),
                time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
                time_ms(torch, lib), 2 * (m * k + k * n + m * n) + 4 * n,
                2 * m * n * k)
@@ -152,7 +200,7 @@ def check_kernels(torch, F, dev):
     v_l = heads(vc[:, : pos + 1].contiguous(), pos + 1)
     record(decode_attention, f"self B={bsz} T={t} pos={pos} E={e} H={h}",
            out_k, out_p, 1e-2,
-           time_ms(torch, lambda: decode_attention(qkv, kc, vc, h, pos=pos)),
+           kernel_times(lambda: decode_attention(qkv, kc, vc, h, pos=pos)),
            time_ms(torch, lambda: decode_attention.plain(qkv, kc_p, vc_p, h,
                                                          pos=pos)),
            time_ms(torch, lambda: F.scaled_dot_product_attention(q_l, k_l,
@@ -174,13 +222,108 @@ def check_kernels(torch, F, dev):
     qc_l, mk_l, mv_l = heads(qc, 1), heads(mk, m_len), heads(mv, m_len)
     record(decode_attention, f"cross B={bsz} M={m_len} E={e} H={h}",
            out_k, out_p, 1e-2,
-           time_ms(torch, lambda: decode_attention(qc, mk, mv, h, bias=mbias)),
+           kernel_times(lambda: decode_attention(qc, mk, mv, h, bias=mbias)),
            time_ms(torch, lambda: decode_attention.plain(qc, mk, mv, h,
                                                          bias=mbias)),
            time_ms(torch, lambda: F.scaled_dot_product_attention(
                qc_l, mk_l, mv_l, attn_mask=mask4)),
            2 * (2 * bsz * e + 2 * n_valid * e) + 4 * bsz * m_len,
            4 * e * n_valid)
+
+    # K2 grouped cross: 8 memories shared by G=4 consecutive rows each. The
+    # bound reads each memory once per group; the library call is SDPA with
+    # the G rows of a group as its query axis
+    grp = 4
+    bu = bsz // grp
+    mk_g, mv_g, valid_g = mk[:bu].contiguous(), mv[:bu].contiguous(), valid[:bu]
+    mbias_g = mbias[:bu].contiguous()
+    n_valid_g = int(valid_g.sum())
+    out_k = decode_attention(qc, mk_g, mv_g, h, bias=mbias_g, mem_group=grp)
+    out_p = decode_attention.plain(qc, mk_g, mv_g, h, bias=mbias_g,
+                                   mem_group=grp)
+    q_g = qc.view(bu, grp, h, dh).transpose(1, 2)
+    mk_gl, mv_gl = (a.view(bu, m_len, h, dh).transpose(1, 2)
+                    for a in (mk_g, mv_g))
+    mask_g = valid_g[:, None, None, :]
+    record(decode_attention, f"cross grouped B={bsz} G={grp} M={m_len} E={e} "
+           f"H={h}", out_k, out_p, 1e-2,
+           kernel_times(lambda: decode_attention(qc, mk_g, mv_g, h,
+                                                   bias=mbias_g,
+                                                   mem_group=grp)),
+           time_ms(torch, lambda: decode_attention.plain(
+               qc, mk_g, mv_g, h, bias=mbias_g, mem_group=grp)),
+           time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q_g, mk_gl, mv_gl, attn_mask=mask_g)),
+           2 * (2 * bsz * e + 2 * n_valid_g * e) + 4 * bu * m_len,
+           4 * e * n_valid_g * grp, paths=["beam_bf16"])
+
+    # K5: the W8A8 decode products (qkv, ff1 + GELU, ff2). Bound: the int8
+    # weight bytes. library_ms is torch._int_mm on pre-quantized rows: the
+    # bare int8 product only, without the row quantizer and the epilogue
+    for m, k, n, act in [(32, 1024, 3072, "none"),
+                         (32, 1024, 4096, "gelu_rounded"),
+                         (32, 4096, 1024, "none")]:
+        x = randn(m, k)
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        s_col = (torch.rand(n, generator=g, device=dev) * 4e-4 + 1e-4) \
+            .to(bf).float()
+        b = randn(n, dtype=torch.float32) * 0.1
+        w4 = pack_k4(w8)
+        out_k = quant_linear_bias_act(x, w4, s_col, b, act)
+        out_p = quant_linear_bias_act.plain(x, w4, s_col, b, act)
+        x8 = quantize_activation_rows(x)[0].to(torch.int8)
+        tol = TWO_BF16_ULPS * max(1.0, out_p.float().abs().max().item())
+        record(quant_linear_bias_act,
+               f"{m}x{k}->{n},{act} (library: _int_mm, bare product)",
+               out_k, out_p, tol,
+               kernel_times(lambda: quant_linear_bias_act(x, w4, s_col, b,
+                                                            act)),
+               time_ms(torch, lambda: quant_linear_bias_act.plain(
+                   x, w4, s_col, b, act)),
+               time_ms(torch, lambda: torch._int_mm(x8, w8)),
+               k * n + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
+               peak=PEAK_INT8_OP_PER_S)
+
+    # K6: int8 caches with bf16 scales. Bound: the int8 K/V bytes plus the
+    # scale bytes of the keys attended to. No library call computes this
+    def int8_cache(rows, length):
+        c = torch.randint(-127, 128, (rows, length, e), generator=g,
+                          device=dev, dtype=torch.int8)
+        sc = (torch.rand(rows, length, h, generator=g, device=dev) * 3e-2
+              + 2e-3).to(bf)
+        return c, sc
+
+    def int8_case(case, q_in, caches, paths, nbytes, nops, **kw):
+        twin = [a.clone() for a in caches]
+        out_k = decode_attention_int8(q_in, *caches, h, **kw)
+        out_p = decode_attention_int8.plain(q_in, *twin, h, **kw)
+        exact = all(torch.equal(a, b) for a, b in zip(caches, twin))
+        tol = TWO_BF16_ULPS * max(1.0, out_p.float().abs().max().item())
+        record(decode_attention_int8, case, out_k, out_p, tol,
+               kernel_times(lambda: decode_attention_int8(q_in, *caches, h,
+                                                            **kw)),
+               time_ms(torch, lambda: decode_attention_int8.plain(
+                   q_in, *twin, h, **kw)),
+               None, nbytes, nops, peak=PEAK_INT8_OP_PER_S, paths=paths,
+               exact=exact)
+
+    for p_at in (300, 0):
+        (kc8, ks8), (vc8, vs8) = int8_cache(bsz, t), int8_cache(bsz, t)
+        int8_case(f"self B={bsz} T={t} pos={p_at} E={e} H={h}", qkv,
+                  (kc8, vc8, ks8, vs8), None,
+                  2 * bsz * p_at * (e + 2 * h) + 2 * bsz * (3 * e + e)
+                  + 2 * bsz * (e + 2 * h), 4 * bsz * e * (p_at + 1), pos=p_at)
+    (mk8, mks8), (mv8, mvs8) = int8_cache(bsz, m_len), int8_cache(bsz, m_len)
+    int8_case(f"cross B={bsz} M={m_len} E={e} H={h}", qc,
+              (mk8, mv8, mks8, mvs8), ["int8"],
+              2 * n_valid * (e + 2 * h) + 2 * 2 * bsz * e + 4 * bsz * m_len,
+              4 * e * n_valid, bias=mbias)
+    int8_case(f"cross grouped B={bsz} G={grp} M={m_len} E={e} H={h}", qc,
+              tuple(a[:bu].contiguous() for a in (mk8, mv8, mks8, mvs8)),
+              ["beam_int8"],
+              2 * n_valid_g * (e + 2 * h) + 2 * 2 * bsz * e + 4 * bu * m_len,
+              4 * e * n_valid_g * grp, bias=mbias_g, mem_group=grp)
 
     # K3: B=16, T=1024, E=768, H=12, ragged validity
     bsz, t, e, h = 16, 1024, 768, 12
@@ -195,7 +338,7 @@ def check_kernels(torch, F, dev):
     mask4 = valid[:, None, None, :]
     n_valid = int(valid.sum())  # padded keys add nothing to the output
     record(encoder_attention, f"B={bsz} T={t} E={e} H={h}", out_k, out_p,
-           1e-2, time_ms(torch, lambda: encoder_attention(qkv, valid, h)),
+           1e-2, kernel_times(lambda: encoder_attention(qkv, valid, h)),
            time_ms(torch, lambda: encoder_attention.plain(qkv, valid, h),
                    iters=5),
            time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -214,7 +357,7 @@ def check_kernels(torch, F, dev):
         out_p = add_layernorm.plain(x, r, gamma, beta, 1e-5)
         tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
         record(add_layernorm, f"{rows}x{e}", out_k, out_p, tol,
-               time_ms(torch, lambda: add_layernorm(x, r, gamma, beta, 1e-5)),
+               kernel_times(lambda: add_layernorm(x, r, gamma, beta, 1e-5)),
                time_ms(torch, lambda: add_layernorm.plain(x, r, gamma, beta,
                                                           1e-5)),
                time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
@@ -241,11 +384,11 @@ def synthetic_images(np, n: int, seed: int) -> list:
 
 def compare_paths(torch, np, model, imgs, profile=False):
     """Kernel path vs plain path on the card: encoder stack output and
-    CMP_STEPS greedy decode steps at B = len(imgs). ``profile`` adds a
-    torch.profiler window over kernel-path decode steps."""
+    CMP_STEPS greedy decode steps at B = len(imgs), with caches in the
+    compute dtype and in int8 (with W8A8 weights). ``profile`` adds a
+    torch.profiler window over kernel-path decode steps of each mode."""
     from acai_omr_tpu_torch.models import decode as decode_lib
     from acai_omr_tpu_torch.models import vit_encoder
-    from acai_omr_tpu_torch.ops.decode_kernel import prepack
     from acai_omr_tpu_torch.ops.encoder_stack_kernel import encoder_stack_fused
 
     cfg, params, dt = model.cfg, model.params, model.compute_dtype
@@ -262,40 +405,50 @@ def compare_paths(torch, np, model, imgs, profile=False):
     enc_rel = (diff.norm() / hp.float()[valid].norm()).item()
 
     from acai_omr_tpu_torch.models import vitomr
-    from acai_omr_tpu_torch.ops import nn
+    from acai_omr_tpu_torch.ops import _build, nn
     lat = vitomr.transition_head(
         params["transition_head"],
         nn.layernorm(enc["final_norm"], hk, eps=1e-6))
     dec, dcfg = params["decoder"], cfg.decoder
-    mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt, dt)
-    mono = prepack(dec, dt)
     b = lat.shape[0]
-    sk = decode_lib.init_decode_state(dcfg, b, CMP_STEPS + 1, CMP_STEPS, dt,
-                                      model.device)
-    sp = decode_lib.init_decode_state(dcfg, b, CMP_STEPS + 1, CMP_STEPS, dt,
-                                      model.device)
-    step_err, agree = [], 0
-    for _ in range(CMP_STEPS):
-        lk = decode_lib.step_logits(dec, dcfg, mono, sk, mem, dt)
-        lp = decode_lib.step_logits(dec, dcfg, mono, sp, mem, dt, plain=True)
-        tok = lk.argmax(-1)
-        agree += int((lp.argmax(-1) == tok).sum())
-        step_err.append((lk - lp).abs().max().item())
-        for s in (sk, sp):
-            s.seqs[:, s.t] = tok
-            s.t += 1
     out = {"encoder_max_abs_err": enc_err, "encoder_rel_err": enc_rel,
-           "decode_steps": CMP_STEPS, "rows": b,
-           "token_agreement": agree / (CMP_STEPS * b),
-           "logit_max_abs_err": max(step_err),
-           "logit_max_abs_err_first8": step_err[:8],
-           "logits_finite": all(math.isfinite(v) for v in step_err)}
-    if profile:
-        state = decode_lib.init_decode_state(dcfg, b, CMP_STEPS + 1,
-                                             CMP_STEPS, dt, model.device)
-        out["profile"] = profile_steps(
-            torch, lambda: _greedy_step(decode_lib, dec, dcfg, mono, state,
-                                        mem, dt), warmup=8, steps=32)
+           "decode_steps": CMP_STEPS, "rows": b}
+    for key, cache_dtype in (("bf16", dt), ("int8", torch.int8)):
+        mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt,
+                                              cache_dtype)
+        mono = decode_lib._prepack_for(dec, dt, cache_dtype)
+        sk, sp = (decode_lib.init_decode_state(
+            dcfg, b, CMP_STEPS + 1, CMP_STEPS, cache_dtype, model.device)
+            for _ in range(2))
+        step_err, agree = [], 0
+        _build.reset_launch_counts()
+        for _ in range(CMP_STEPS):
+            lk = decode_lib.step_logits(dec, dcfg, mono, sk, mem, dt)
+            lp = decode_lib.step_logits(dec, dcfg, mono, sp, mem, dt,
+                                        plain=True)
+            tok = lk.argmax(-1)
+            agree += int((lp.argmax(-1) == tok).sum())
+            step_err.append((lk - lp).abs().max().item())
+            for s in (sk, sp):
+                s.seqs[:, s.t] = tok
+                s.t += 1
+        out[key] = {
+            "token_agreement": agree / (CMP_STEPS * b),
+            "logit_max_abs_err": max(step_err),
+            "logit_max_abs_err_first8": step_err[:8],
+            "logits_finite": all(math.isfinite(v) for v in step_err),
+            # the plain path launches no kernel: these are the kernel path's
+            "wrapper_calls_per_step": sum(
+                op.launches for op in _build.REGISTRY.values()) / CMP_STEPS,
+            "device_kernels_per_step": sum(
+                op.device_launches
+                for op in _build.REGISTRY.values()) / CMP_STEPS}
+        if profile:
+            state = decode_lib.init_decode_state(
+                dcfg, b, CMP_STEPS + 1, CMP_STEPS, cache_dtype, model.device)
+            out[key]["profile"] = profile_steps(
+                torch, lambda: _greedy_step(decode_lib, dec, dcfg, mono, state,
+                                            mem, dt), warmup=8, steps=32)
     return out
 
 
@@ -380,59 +533,132 @@ def main() -> int:
     print(f"[slice] flagship ViTOMR {n_params / 1e6:.1f}M params, "
           f"{model.compute_dtype}, seed {SEED}", flush=True)
     imgs = synthetic_images(np, N_IMAGES, SEED)
+    print(f"[slice] images {[i.shape for i in imgs]}", flush=True)
     model.transcribe_batch(imgs[:2], max_len=8)  # warm-up: libraries, caches
     torch.cuda.synchronize()
+    n_layers = model.cfg.decoder.num_layers
+    failures = []
+    paths = {}
+
+    def finish_path(name, n_tokens, decode_s, extra):
+        """Read the launch counts of the path just driven; check and print."""
+        torch.cuda.synchronize()
+        launches = {n: op.launches for n, op in _build.REGISTRY.items()}
+        device = {n: op.device_launches for n, op in _build.REGISTRY.items()}
+        steps = (launches["decode_attention"]
+                 + launches["decode_attention_int8"]) // (2 * n_layers)
+        # an encode is 7 launches per layer: 4 K1, 1 K3, 2 K4, none split
+        enc = 7 * launches["encoder_attention"]
+        r = {"tokens": n_tokens, "decode_s": decode_s, "steps": steps,
+             "tokens_per_s": n_tokens / decode_s if decode_s else 0.0,
+             "ms_per_step": 1e3 * decode_s / max(steps, 1),
+             "wrapper_calls_per_step":
+                 (sum(launches.values()) - enc) / max(steps, 1),
+             "device_kernels_per_step":
+                 (sum(device.values()) - enc) / max(steps, 1),
+             "launches": launches, "device_launches": device, **extra}
+        paths[name] = r
+        print(f"[path {name}] tokens={n_tokens} steps={steps} "
+              f"decode_s={decode_s:.3f} tokens_per_s={r['tokens_per_s']:.1f} "
+              f"ms_per_step={r['ms_per_step']:.3f} wrapper_calls_per_step="
+              f"{r['wrapper_calls_per_step']:.1f} device_kernels_per_step="
+              f"{r['device_kernels_per_step']:.1f} {json.dumps(extra)}",
+              flush=True)
+        print(f"[path {name}] launches {json.dumps(launches)}", flush=True)
+        for k in EXPECTED_KERNELS[name]:
+            if launches[k] <= 0:
+                failures.append(f"{name}: launches[{k}]=0")
+
+    def transcribe_path(name, batch, **kw):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model.transcribe_batch(batch, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = model.last_result
+        ok = len(out) == len(batch) and all(
+            isinstance(t.lmx, str) and t.lmx for t in out) and all(
+            math.isfinite(lp) for lp in res.avg_log_probs)
+        if not ok:
+            failures.append(f"{name}: output")
+        finish_path(name, res.n_tokens, res.decode_seconds, {
+            "encode_s": res.encode_seconds, "wall_s": wall,
+            "lmx_lengths": [len(t.lmx.split()) for t in out],
+            "confidence": [round(t.confidence, 4) for t in out]})
+        return res
+
+    greedy = transcribe_path("greedy_bf16", imgs, max_len=MAX_LEN)
+    quant = transcribe_path("int8", imgs, max_len=MAX_LEN, quantized_kv=True)
+    same = [int((a[: min(len(a), len(b))] == b[: min(len(a), len(b))]).sum())
+            / max(len(a), len(b)) for a, b in zip(quant.seqs, greedy.seqs)]
+    print(f"[path int8] share of each image's tokens equal to the bf16 "
+          f"decode's {[round(v, 3) for v in same]}", flush=True)
+    beam_imgs = imgs[:BEAM_IMAGES]
+    transcribe_path("beam_bf16", beam_imgs, max_len=BEAM_MAX_LEN,
+                    beam_size=BEAM_SIZE)
+    transcribe_path("beam_int8", beam_imgs, max_len=BEAM_MAX_LEN,
+                    beam_size=BEAM_SIZE, quantized_kv=True)
+
+    # one streamed transcription (an image whose seeded greedy decode runs
+    # long): events in order, chunks a prefix of the finished sequence
+    from acai_omr_tpu_torch import InferenceEvent
+    from acai_omr_tpu_torch.inference.vitomr_inference import streamed_inference
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = model.transcribe_batch(imgs, max_len=MAX_LEN)
+    kinds, chunks, t_dec = [], [], None
+    for ev in streamed_inference(model.params, model.cfg,
+                                 model._load_image(imgs[1]),
+                                 max_inference_len=MAX_LEN,
+                                 compute_dtype=model.compute_dtype,
+                                 device=model.device):
+        kinds.append(ev["type"])
+        if ev["type"] == InferenceEvent.ENCODING_FINISH.value:
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter()
+        elif ev["type"] == InferenceEvent.STEP.value:
+            chunks.append(ev["payload"]["tokens"])
+        elif ev["type"] == InferenceEvent.INFERENCE_FINISH.value:
+            fin = ev["payload"]
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {n: op.launches for n, op in _build.REGISTRY.items()}
-    device_launches = {n: op.device_launches
-                       for n, op in _build.REGISTRY.items()}
-    res = model.last_result
-    tok_s = res.n_tokens / res.decode_seconds if res.decode_seconds else 0.0
-    print(f"[slice] images {[i.shape for i in imgs]}", flush=True)
-    print(f"[slice] encode_s={res.encode_seconds:.3f} "
-          f"decode_s={res.decode_seconds:.3f} wall_s={wall:.3f} "
-          f"tokens={res.n_tokens} tokens_per_s={tok_s:.1f}", flush=True)
-    print(f"[slice] launches {json.dumps(launches)}", flush=True)
-    print(f"[slice] device kernels (K1 split-K adds a reduce) "
-          f"{json.dumps(device_launches)}", flush=True)
-    lmx_ok = len(out) == N_IMAGES and all(
-        isinstance(t.lmx, str) and t.lmx for t in out) and all(
-        math.isfinite(lp) for lp in res.avg_log_probs)
-    print(f"[slice] lmx lengths {[len(t.lmx.split()) for t in out]} "
-          f"confidence {[round(t.confidence, 4) for t in out]}", flush=True)
+    stream_s = time.perf_counter() - t_dec
+    n_stream = int(fin["mask"].sum()) - 1
+    streamed = np.concatenate(chunks, axis=1)[0] if chunks else np.zeros(0, int)
+    if kinds != (["encoding_start", "encoding_finish"]
+                 + ["step"] * len(chunks) + ["inference_finish"]) \
+            or not np.array_equal(streamed,
+                                  fin["sequence"][0, 1:1 + len(streamed)]):
+        failures.append("streamed: events")
+    finish_path("streamed", n_stream, stream_s, {"step_events": len(chunks)})
 
     cmp = compare_paths(torch, np, model, imgs,
                         profile="--profile" in sys.argv[1:])
     print(f"[compare] {json.dumps(cmp)}", flush=True)
 
-    failures = [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
-    failures += [f"launches[{n}]=0" for n, v in launches.items() if v <= 0]
-    if not lmx_ok:
-        failures.append("slice output")
-    if not (cmp["logits_finite"] and cmp["token_agreement"] >= 0.9
-            and cmp["logit_max_abs_err"] < 0.25 and cmp["encoder_rel_err"] < 0.02):
-        failures.append("kernel path vs plain path")
+    failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
+    if cmp["encoder_rel_err"] >= 0.02:
+        failures.append("encoder kernel path vs plain path")
+    for key in ("bf16", "int8"):
+        c = cmp[key]
+        if not (c["logits_finite"] and c["token_agreement"] >= 0.9
+                and c["logit_max_abs_err"] < 0.25):
+            failures.append(f"{key} kernel path vs plain path")
+
+    def path_sum(counts, c):
+        return sum(paths[n][counts][c["op"].name]
+                   for n in (c["paths"] or paths))
 
     kernels = [{"name": f"{c['op'].name}[{c['case']}]", "route": c["op"].route,
                 "source": c["op"].source, "replaces": c["op"].replaces,
-                "launches": launches[c["op"].name],
-                "device_launches": device_launches[c["op"].name],
+                "launches": path_sum("launches", c),
+                "device_launches": path_sum("device_launches", c),
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "host_us": c["host_us"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
                for c in cases]
-    report = {"card": card, "build_s": build_s, "kernels": kernels,
-              "slice": {"encode_s": res.encode_seconds,
-                        "decode_s": res.decode_seconds, "wall_s": wall,
-                        "tokens": res.n_tokens, "tokens_per_s": tok_s,
-                        "launches": launches,
-                        "device_launches": device_launches,
-                        "n_params": n_params},
-              "compare": cmp, "failures": failures}
+    failures += [f"launches[{k['name']}]=0" for k in kernels
+                 if k["launches"] <= 0]
+    report = {"card": card, "build_s": build_s, "n_params": n_params,
+              "kernels": kernels, "paths": paths, "compare": cmp,
+              "failures": failures}
     if "--report" in sys.argv[1:]:
         path = Path(sys.argv[sys.argv.index("--report") + 1])
         path.parent.mkdir(parents=True, exist_ok=True)
