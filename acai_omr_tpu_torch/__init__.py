@@ -1,11 +1,13 @@
 """acai_omr_tpu_torch: the PyTorch + CUDA port of Acai OMR for NVIDIA Hopper.
 
-A second implementation of the ``acai_omr_tpu`` inference path (photo of a
-piano system -> LMX tokens -> MusicXML) in PyTorch, with hand-written CUDA
-kernels (``csrc/``) where the JAX package runs Pallas kernels on the TPU.
+A second implementation of ``acai_omr_tpu`` in PyTorch, with hand-written
+CUDA kernels (``csrc/``) where the JAX package runs Pallas kernels on the
+TPU: the inference path (photo of a piano system -> LMX tokens -> MusicXML)
+and stage-2 seq2seq training (``train/omr_teacher_force_train.py``, whose
+stacks run hand-written kernels forward and backward).
 The package imports ``torch`` and never ``jax``; it keeps its own copies of
-the host-side modules it needs (tokenizer, transforms, LMX grammar and
-delinearizer, PE index builders, patchify).
+the host-side modules it needs (tokenizer, transforms, datasets, bucketing,
+LMX grammar and delinearizer, PE index tables, patchify).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that request they raise (:func:`resolve_device`).

@@ -37,3 +37,13 @@ NUM_DECODER_LAYERS = 12
 # Where the CUDA kernels of ``csrc/`` are built at first use (gitignored).
 KERNEL_BUILD_DIR = _env_path("ACAI_TORCH_KERNEL_DIR",
                              str(REPO_ROOT / "build" / "torch_kernels"))
+
+# Dataset roots of stage-2 training (not in the repository).
+GRAND_STAFF_ROOT_DIR = _env_path(
+    "ACAI_GRAND_STAFF_ROOT", "data/grandstaff-lmx.2024-02-12/grandstaff-lmx")
+OLIMPIC_SYNTHETIC_ROOT_DIR = _env_path(
+    "ACAI_OLIMPIC_SYNTH_ROOT",
+    "data/olimpic-1.0-synthetic.2024-02-12/olimpic-1.0-synthetic")
+OLIMPIC_SCANNED_ROOT_DIR = _env_path(
+    "ACAI_OLIMPIC_SCAN_ROOT",
+    "data/olimpic-1.0-scanned.2024-02-12/olimpic-1.0-scanned")

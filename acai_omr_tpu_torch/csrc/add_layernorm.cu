@@ -10,6 +10,11 @@
 // a row reduction with nothing for the tensor cores. Design: one warp per row,
 // each lane holding E/32 values in registers (E % 32 == 0, E <= 1024), two-pass
 // mean/variance by warp shuffles, four rows per block.
+//
+// Training modes: with `zout` given the rounded sum z = x + r is written too
+// (the forward's saved pre-norm residuals z1, z2, z3); with r == nullptr the
+// kernel is LayerNorm(x) alone (the backward re-derives x1 = LN(z1) and
+// x2 = LN(z2) from the saved sums).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,7 +35,8 @@ add_layernorm_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ r,
                      const float* __restrict__ gamma,
                      const float* __restrict__ beta,
-                     __nv_bfloat16* __restrict__ out, int R, int E, float eps) {
+                     __nv_bfloat16* __restrict__ out,
+                     __nv_bfloat16* __restrict__ zout, int R, int E, float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * ROWS + threadIdx.x / 32;
   if (row >= R) return;
@@ -42,8 +48,14 @@ add_layernorm_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = 0; i < MAX_PER; ++i) {
     if (i < per) {
       const int c = i * 32 + lane;
-      const float z = __bfloat162float(x[off + c]) + __bfloat162float(r[off + c]);
-      v[i] = __bfloat162float(__float2bfloat16(z));
+      if (r != nullptr) {
+        const __nv_bfloat16 z = __float2bfloat16(__bfloat162float(x[off + c]) +
+                                                 __bfloat162float(r[off + c]));
+        if (zout != nullptr) zout[off + c] = z;
+        v[i] = __bfloat162float(z);
+      } else {
+        v[i] = __bfloat162float(x[off + c]);
+      }
       sum += v[i];
     }
   }
@@ -68,16 +80,18 @@ add_layernorm_kernel(const __nv_bfloat16* __restrict__ x,
 
 }  // namespace
 
-// x, r, out: (R, E) bf16; gamma, beta: (E,) fp32. E % 32 == 0, E <= 1024.
+// x, r, out, zout: (R, E) bf16 (r and zout may be null); gamma, beta: (E,)
+// fp32. E % 32 == 0, E <= 1024.
 extern "C" int acai_add_layernorm(const void* x, const void* r,
                                   const void* gamma, const void* beta,
-                                  void* out, int R, int E, float eps,
-                                  void* stream) {
+                                  void* out, void* zout, int R, int E,
+                                  float eps, void* stream) {
   if (E % 32 != 0 || E > 32 * MAX_PER) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   add_layernorm_kernel<<<(R + ROWS - 1) / ROWS, ROWS * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(r),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<__nv_bfloat16*>(out), R, E, eps);
+      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(zout), R, E,
+      eps);
   return (int)cudaGetLastError();
 }

@@ -1,28 +1,38 @@
-// K3 encoder_attention: bidirectional multi-head attention of the ViT encoder
-// stack, masked by key validity, without materialising (B, H, T, T).
+// K3 encoder_attention: the multi-head attention forward of both training
+// stacks, masked by key validity and optionally causal, without materialising
+// (B, H, Tq, Tk).
 //
-// Replaces: the per-(image, head) `_attend` loop of ops/pallas_train_layer.py
-// `_fwd_kernel` (cross=False, save=False) in the JAX package.
+// Replaces: the per-(image, head) `_attend` loops of ops/pallas_train_layer.py
+// `_fwd_kernel` in the JAX package: the encoder's bidirectional self-attention
+// (cross=False), the decoder's causal self-attention and its cross-attention
+// over the precomputed `mem_kv` (cross=True).
 //
-// Input qkv (B*T, 3E) bf16: head h's q, k, v at columns h*Dh, E + h*Dh,
-// 2E + h*Dh. valid (B, T) uint8 (1 = real patch). Output (B*T, E) bf16.
+// Operands: q rows (B*Tq) with row stride ldq, k and v rows (B*Tk) with row
+// stride ldkv, head h at columns h*Dh of each; valid (B, Tk) uint8 (1 = real
+// key). Self-attention passes three views of one (B*T, 3E) qkv buffer
+// (ldq = ldkv = 3E); cross-attention passes qc (ld E) and the two halves of
+// mem_kv[l] (B, M, 2E) (ld 2E). Output (B*Tq, E) bf16.
 //
-// Numerics follow the JAX kernel: logits = q.k * scale + bias (bias 0 for a
-// valid key, -1e9 for padding) in fp32, p = exp(logit - max) / sum normalised
-// in fp32 FIRST and only then rounded to bf16 for the PV product, fp32
-// accumulation. Because p must be normalised before it is rounded, the kernel
-// makes two passes over the key tiles: the first keeps the online softmax
-// statistics (running max and rescaled sum) per query row, the second
-// recomputes the logits tile by tile, forms the normalised p in bf16 and
-// accumulates p @ V in tensor-core fragments. The (T, T) scores exist only one
-// 64x64 tile at a time in shared memory.
+// Numerics follow the JAX kernel: logits = q.k * scale + bias in fp32, where
+// bias is ADDITIVE: -1e9 for a padded key plus -1e9 for a key after the query
+// when causal (not -inf: a query row with no valid key gets the uniform
+// distribution, not NaN). p = exp(logit - max) / sum is normalised in fp32
+// FIRST and only then rounded to bf16 for the PV product, fp32 accumulation.
+// Because p must be normalised before it is rounded, the kernel makes two
+// passes over the key tiles: the first keeps the online softmax statistics
+// (running max and rescaled sum) per query row, the second recomputes the
+// logits tile by tile, forms the normalised p in bf16 and accumulates p @ V in
+// tensor-core fragments. The scores exist only one 64x64 tile at a time in
+// shared memory. Causal runs visit every key tile too: with the additive mask
+// a fully padded row spreads over the keys after it as well, and skipping
+// tiles would change that.
 //
-// Bound on an H100: tensor-core flops (4 * B * H * T^2 * Dh for QK^T and PV,
-// plus the second QK^T this design recomputes) at 989 TFLOP/s bf16; the bytes
-// (qkv in, out) are small beside them at T = 1024. Design: one block per
-// (64-query tile, head, image), four warps of 16 query rows each, wmma
-// 16x16x16 bf16 tiles; K and V tiles share one shared-memory buffer. No
-// pipelining of the tile loads yet.
+// Bound on an H100: tensor-core flops (4 * B * H * Tq * Tk * Dh for QK^T and
+// PV, plus the second QK^T this design recomputes) at 989 TFLOP/s bf16; the
+// bytes are small beside them at T = 1024. Design: one block per (64-query
+// tile, head, image), four warps of 16 query rows each, wmma 16x16x16 bf16
+// tiles; K and V tiles share one shared-memory buffer. No pipelining of the
+// tile loads yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +51,7 @@ constexpr int KT = 64;
 constexpr int THREADS = 128;
 constexpr int H_LD = DH + 8;  // bf16 tiles (Q, K/V, P)
 constexpr int S_LD = KT + 4;  // fp32 score tile
+constexpr float NEG = -1e9f;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -68,10 +79,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
 }
 
 __global__ void __launch_bounds__(THREADS)
-encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
+encoder_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
                          const uint8_t* __restrict__ valid,
-                         __nv_bfloat16* __restrict__ out, int T, int E,
-                         float scale) {
+                         __nv_bfloat16* __restrict__ out, int Tq, int Tk,
+                         int E, int ldq, int ldkv, float scale, int causal) {
   __shared__ __align__(128) __nv_bfloat16 Qs[QT * H_LD];
   __shared__ __align__(128) __nv_bfloat16 KVs[KT * H_LD];
   __shared__ __align__(128) float Ss[QT * S_LD];
@@ -84,11 +97,12 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const size_t ld = (size_t)3 * E;
-  const __nv_bfloat16* base = qkv + (size_t)b * T * ld;
+  const __nv_bfloat16* qb = q + (size_t)b * Tq * ldq + h * DH;
+  const __nv_bfloat16* kb = k + (size_t)b * Tk * ldkv + h * DH;
+  const __nv_bfloat16* vb = v + (size_t)b * Tk * ldkv + h * DH;
   const int row0 = warp * 16;
 
-  load_tile(Qs, base + (size_t)q0 * ld + h * DH, ld, tid);
+  load_tile(Qs, qb + (size_t)q0 * ldq, ldq, tid);
 
   float m_run[16], l_run[16];
 #pragma unroll
@@ -98,7 +112,7 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 
   // S = Q_w K^T for this warp's 16 rows, scaled and biased, into Ss.
-  auto scores = [&]() {
+  auto scores = [&](int k0) {
 #pragma unroll
     for (int j = 0; j < KT / 16; ++j) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
@@ -118,23 +132,26 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       float* srow = Ss + (row0 + r) * S_LD;
-      srow[lane] = srow[lane] * scale + kbias[lane];
-      srow[lane + 32] = srow[lane + 32] * scale + kbias[lane + 32];
+      const int qi = q0 + row0 + r;
+      const float c0 = (causal && k0 + lane > qi) ? NEG : 0.0f;
+      const float c1 = (causal && k0 + lane + 32 > qi) ? NEG : 0.0f;
+      srow[lane] = srow[lane] * scale + (c0 + kbias[lane]);
+      srow[lane + 32] = srow[lane + 32] * scale + (c1 + kbias[lane + 32]);
     }
     __syncwarp();
   };
 
   auto load_keys = [&](int k0) {
-    load_tile(KVs, base + (size_t)k0 * ld + E + h * DH, ld, tid);
-    if (tid < KT) kbias[tid] = valid[(size_t)b * T + k0 + tid] ? 0.0f : -1e9f;
+    load_tile(KVs, kb + (size_t)k0 * ldkv, ldkv, tid);
+    if (tid < KT) kbias[tid] = valid[(size_t)b * Tk + k0 + tid] ? 0.0f : NEG;
   };
 
   // pass 1: softmax statistics per query row
-  for (int k0 = 0; k0 < T; k0 += KT) {
+  for (int k0 = 0; k0 < Tk; k0 += KT) {
     __syncthreads();
     load_keys(k0);
     __syncthreads();
-    scores();
+    scores(k0);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float* srow = Ss + (row0 + r) * S_LD;
@@ -154,11 +171,11 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
   for (int r = 0; r < 16; ++r) inv_l[r] = 1.0f / l_run[r];
 
-  for (int k0 = 0; k0 < T; k0 += KT) {
+  for (int k0 = 0; k0 < Tk; k0 += KT) {
     __syncthreads();
     load_keys(k0);
     __syncthreads();
-    scores();
+    scores(k0);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float* srow = Ss + (row0 + r) * S_LD;
@@ -168,7 +185,7 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
           __float2bfloat16(expf(srow[lane + 32] - m_run[r]) * inv_l[r]);
     }
     __syncthreads();  // every warp is done reading K from KVs
-    load_tile(KVs, base + (size_t)k0 * ld + 2 * E + h * DH, ld, tid);
+    load_tile(KVs, vb + (size_t)k0 * ldkv, ldkv, tid);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
@@ -194,7 +211,7 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int r = 0; r < 16; ++r) {
     const float* srow = Ss + (row0 + r) * S_LD;
     __nv_bfloat16* orow =
-        out + ((size_t)b * T + q0 + row0 + r) * E + h * DH;
+        out + ((size_t)b * Tq + q0 + row0 + r) * E + h * DH;
     orow[lane] = __float2bfloat16(srow[lane]);
     orow[lane + 32] = __float2bfloat16(srow[lane + 32]);
   }
@@ -202,17 +219,22 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 }  // namespace
 
-// qkv: (B*T, 3E) bf16; valid: (B, T) uint8; out: (B*T, E) bf16.
-// Requires Dh == 64 and T % 64 == 0.
-extern "C" int acai_encoder_attention(const void* qkv, const void* valid,
-                                      void* out, int B, int T, int H, int dh,
-                                      float scale, void* stream) {
-  if (dh != DH || T % QT != 0) return (int)cudaErrorInvalidValue;
+// q: rows B*Tq, stride ldq; k, v: rows B*Tk, stride ldkv; valid: (B, Tk)
+// uint8; out: (B*Tq, E) bf16. Requires Dh == 64, Tq % 64 == 0, Tk % 64 == 0
+// and strides that keep 16-byte loads aligned (multiples of 8).
+extern "C" int acai_encoder_attention(const void* q, const void* k,
+                                      const void* v, const void* valid,
+                                      void* out, int B, int Tq, int Tk, int H,
+                                      int dh, int ldq, int ldkv, float scale,
+                                      int causal, void* stream) {
+  if (dh != DH || Tq % QT != 0 || Tk % KT != 0 || ldq % 8 != 0 || ldkv % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(T / QT, H, B);
+  dim3 grid(Tq / QT, H, B);
   encoder_attention_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<const uint8_t*>(valid), static_cast<__nv_bfloat16*>(out), T,
-      H * DH, scale);
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(valid),
+      static_cast<__nv_bfloat16*>(out), Tq, Tk, H * DH, ldq, ldkv, scale,
+      causal);
   return (int)cudaGetLastError();
 }

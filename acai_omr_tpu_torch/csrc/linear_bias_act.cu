@@ -21,12 +21,22 @@
 // Epilogue act: 0 = none; 1 = exact-erf GELU on the fp32 sum (the encoder
 // kernel's ff1); 2 = round the sum to bf16, then GELU (the decode monolith
 // casts ff1 to the compute dtype before its GELU).
+//
+// Training epilogues (`_fwd_kernel` with save=True and dropout on): with act 1
+// and `gp` given, the kernel also writes GELU'(u) = 0.5 (1 + erf(u / sqrt 2))
+// + u phi(u) from the same fp32 u, rounded (the backward's saved `gelu'`).
+// With a DropSpec whose thresh is not 0, dropout (dropout.cuh) acts on the
+// output after the bias, the activation and the rounding: the stacks' sites
+// 0, 1, 3 (`sa`, `ca`, `ff`) and site 2 (`h1`). The epilogue works on four
+// neighbouring columns at a time, one Philox call each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
+
+#include "dropout.cuh"
 
 using namespace nvcuda;
 
@@ -44,19 +54,47 @@ __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float epilogue(float acc, float b, int act) {
-  float u = acc + b;
-  if (act == 1) return gelu_erf(u);
-  if (act == 2) return gelu_erf(__bfloat162float(__float2bfloat16(u)));
-  return u;
+__device__ __forceinline__ float gelu_grad(float u) {
+  return 0.5f * (1.0f + erff(u * 0.70710678118654752f)) +
+         u * expf(-0.5f * u * u) * 0.3989422804014327f;
+}
+
+struct Epilogue {
+  const float* bias;
+  __nv_bfloat16* out;
+  __nv_bfloat16* gp;  // GELU' out, or nullptr
+  int act;
+  int N;
+  DropSpec drop;
+};
+
+// Four neighbouring outputs (m, n .. n + 3) from their fp32 sums.
+__device__ __forceinline__ void epilogue4(const Epilogue& e, const float acc[4],
+                                          int m, int n) {
+  float v[4], g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float u = acc[j] + e.bias[n + j];
+    if (e.act == 1) {
+      v[j] = gelu_erf(u);
+      g[j] = gelu_grad(u);
+    } else if (e.act == 2) {
+      v[j] = gelu_erf(round_bf16(u));
+    } else {
+      v[j] = u;
+    }
+    v[j] = round_bf16(v[j]);
+  }
+  drop4(e.drop, m, n, v);
+  const size_t o = (size_t)m * e.N + n;
+  store4_bf16(e.out + o, v);
+  if (e.gp != nullptr) store4_bf16(e.gp + o, g);
 }
 
 __global__ void __launch_bounds__(THREADS)
 linear_kernel(const __nv_bfloat16* __restrict__ A,
-              const __nv_bfloat16* __restrict__ W,
-              const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-              float* __restrict__ partial, int M, int N, int K, int k_chunk,
-              int act) {
+              const __nv_bfloat16* __restrict__ W, Epilogue epi,
+              float* __restrict__ partial, int M, int N, int K, int k_chunk) {
   __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
   __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
   __shared__ __align__(128) float Cs[BM * C_LD];
@@ -120,54 +158,68 @@ linear_kernel(const __nv_bfloat16* __restrict__ A,
                               C_LD, wmma::mem_row_major);
   __syncthreads();
 
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    const int r = e / BN;
-    const int c = e % BN;
+  for (int e = tid; e < BM * BN / 4; e += THREADS) {
+    const int r = e / (BN / 4);
+    const int c = (e % (BN / 4)) * 4;
     const int m = m0 + r;
     if (m >= M) continue;
-    const float v = Cs[r * C_LD + c];
-    const size_t o = (size_t)m * N + n0 + c;
-    if (partial != nullptr)
-      partial[(size_t)blockIdx.z * M * N + o] = v;
-    else
-      out[o] = __float2bfloat16(epilogue(v, bias[n0 + c], act));
+    const float4 v = *reinterpret_cast<const float4*>(Cs + r * C_LD + c);
+    if (partial != nullptr) {
+      *reinterpret_cast<float4*>(partial + (size_t)blockIdx.z * M * N +
+                                 (size_t)m * N + n0 + c) = v;
+    } else {
+      const float acc[4] = {v.x, v.y, v.z, v.w};
+      epilogue4(epi, acc, m, n0 + c);
+    }
   }
 }
 
 __global__ void reduce_kernel(const float* __restrict__ partial, int splits,
-                              const float* __restrict__ bias,
-                              __nv_bfloat16* __restrict__ out, int M, int N,
-                              int act) {
-  const size_t total = (size_t)M * N;
+                              Epilogue epi, int M, int N) {
+  const size_t total4 = (size_t)M * N / 4;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.0f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * total + i];
-  out[i] = __float2bfloat16(epilogue(s, bias[i % N], act));
+  if (i >= total4) return;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int z = 0; z < splits; ++z) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(partial + ((size_t)z * M * N + i * 4));
+    acc[0] += v.x;
+    acc[1] += v.y;
+    acc[2] += v.z;
+    acc[3] += v.w;
+  }
+  epilogue4(epi, acc, (int)(i * 4 / N), (int)(i * 4 % N));
 }
 
 }  // namespace
 
 // splits == 1: one launch, epilogue in place. splits > 1: `partial` holds
-// (splits, M, N) fp32 scratch; each z-slice covers k_chunk of K.
+// (splits, M, N) fp32 scratch; each z-slice covers k_chunk of K. `gp` may be
+// null; drop_thresh == 0 switches dropout off (drop_t = rows per image).
 extern "C" int acai_linear_bias_act(const void* a, const void* w,
-                                    const void* bias, void* out, void* partial,
-                                    int M, int N, int K, int k_chunk,
-                                    int splits, int act, void* stream) {
+                                    const void* bias, void* out, void* gp,
+                                    void* partial, int M, int N, int K,
+                                    int k_chunk, int splits, int act,
+                                    unsigned drop_thresh, float drop_scale,
+                                    unsigned seed0, unsigned seed1,
+                                    unsigned drop_stream, int drop_t,
+                                    void* stream) {
+  if (drop_thresh != 0u && drop_t <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(N / BN, (M + BM - 1) / BM, splits);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  const Epilogue epi{static_cast<const float*>(bias),
+                     static_cast<__nv_bfloat16*>(out),
+                     static_cast<__nv_bfloat16*>(gp), act, N,
+                     DropSpec{drop_thresh, drop_scale, seed0, seed1,
+                              drop_stream, drop_t > 0 ? drop_t : 1}};
   linear_kernel<<<grid, THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), part, M,
-      N, K, k_chunk, act);
+      epi, part, M, N, K, k_chunk);
   if (splits > 1) {
-    const size_t total = (size_t)M * N;
-    const int blocks = (int)((total + 255) / 256);
-    reduce_kernel<<<blocks, 256, 0, s>>>(part, splits,
-                                         static_cast<const float*>(bias),
-                                         static_cast<__nv_bfloat16*>(out), M, N,
-                                         act);
+    const size_t total4 = (size_t)M * N / 4;
+    const int blocks = (int)((total4 + 255) / 256);
+    reduce_kernel<<<blocks, 256, 0, s>>>(part, splits, epi, M, N);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-"""Host-side image transforms of the inference path.
+"""Host-side image transforms of inference and of stage-2 training.
 
-The twin of the JAX package's ``data/transforms.py`` (its inference transforms
-only), implemented with numpy so the device never sees ragged shapes: images
-are resized on the host, patchified, and bucket-packed before transfer.
+The twin of the JAX package's ``data/transforms.py`` (without its MAE
+resize), implemented with PIL and numpy so the device never sees ragged
+shapes: images are resized and augmented on the host, patchified, and
+bucket-packed before transfer.
 
 All transforms take and return float32 (C, H, W) arrays in [0, 1] (grayscale:
 C=1). ``DynamicResize`` keeps the reference's exact integer-division
@@ -132,3 +133,146 @@ class Compose:
         for t in self.transforms:
             x = t(x)
         return x
+
+
+class RandomApply:
+    def __init__(self, transforms, p: float, rng: np.random.Generator | None = None):
+        self.transforms = list(transforms)
+        self.p = p
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, x):
+        if self.rng.random() < self.p:
+            for t in self.transforms:
+                x = t(x)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# camera augmentations of training
+# ---------------------------------------------------------------------------
+
+class GaussianBlur:
+    """Separable gaussian blur, kernel size + sigma range as torchvision."""
+
+    def __init__(self, kernel_size: int = 15, sigma=(0.2, 0.7),
+                 rng: np.random.Generator | None = None):
+        self.kernel_size = kernel_size
+        self.sigma = sigma
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, arr: np.ndarray) -> np.ndarray:
+        sigma = float(self.rng.uniform(*self.sigma))
+        r = self.kernel_size // 2
+        xs = np.arange(-r, r + 1, dtype=np.float32)
+        k = np.exp(-0.5 * (xs / sigma) ** 2)
+        k /= k.sum()
+
+        def blur_axis(x, axis):
+            pad = [(0, 0)] * x.ndim
+            pad[axis] = (r, r)
+            xp = np.pad(x, pad, mode="reflect")
+            out = np.zeros_like(x)
+            for i, kv in enumerate(k):
+                sl = [slice(None)] * x.ndim
+                sl[axis] = slice(i, i + x.shape[axis])
+                out += kv * xp[tuple(sl)]
+            return out
+
+        return blur_axis(blur_axis(arr.astype(np.float32), 1), 2)
+
+
+class GaussianNoise:
+    def __init__(self, sigma: float = 0.03, rng=None):
+        self.sigma = sigma
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, arr: np.ndarray) -> np.ndarray:
+        noise = self.rng.normal(0.0, self.sigma, arr.shape).astype(np.float32)
+        return np.clip(arr + noise, 0.0, 1.0)
+
+
+class RandomRotation:
+    def __init__(self, degrees=(-2, 2), rng=None):
+        self.degrees = degrees
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, arr: np.ndarray) -> np.ndarray:
+        angle = float(self.rng.uniform(*self.degrees))
+        out = np.empty_like(arr)
+        for c in range(arr.shape[0]):
+            im = Image.fromarray(arr[c], mode="F")
+            out[c] = np.asarray(im.rotate(angle, resample=Image.Resampling.BILINEAR),
+                                dtype=np.float32)
+        return out
+
+
+class RandomPerspective:
+    """Random 4-corner perspective warp (torchvision distortion_scale style)."""
+
+    def __init__(self, distortion_scale: float = 0.2, p: float = 1.0, rng=None):
+        self.distortion_scale = distortion_scale
+        self.p = p
+        self.rng = rng or np.random.default_rng()
+
+    def _coeffs(self, src, dst):
+        a = []
+        for (x, y), (u, v) in zip(dst, src):
+            a.append([x, y, 1, 0, 0, 0, -u * x, -u * y])
+            a.append([0, 0, 0, x, y, 1, -v * x, -v * y])
+        A = np.asarray(a, dtype=np.float64)
+        b = np.asarray(src, dtype=np.float64).reshape(8)
+        return np.linalg.solve(A, b)
+
+    def __call__(self, arr: np.ndarray) -> np.ndarray:
+        if self.rng.random() >= self.p:
+            return arr
+        _, h, w = arr.shape
+        d = self.distortion_scale
+        dx, dy = d * w / 2.0, d * h / 2.0
+        src = [(0, 0), (w, 0), (w, h), (0, h)]
+        dst = [(self.rng.uniform(0, dx), self.rng.uniform(0, dy)),
+               (w - self.rng.uniform(0, dx), self.rng.uniform(0, dy)),
+               (w - self.rng.uniform(0, dx), h - self.rng.uniform(0, dy)),
+               (self.rng.uniform(0, dx), h - self.rng.uniform(0, dy))]
+        coeffs = self._coeffs(src, dst)
+        out = np.empty_like(arr)
+        for c in range(arr.shape[0]):
+            im = Image.fromarray(arr[c], mode="F")
+            out[c] = np.asarray(
+                im.transform((w, h), Image.Transform.PERSPECTIVE, coeffs,
+                             resample=Image.Resampling.BILINEAR),
+                dtype=np.float32)
+        return np.clip(out, 0.0, 1.0)
+
+
+class ColorJitter:
+    """Brightness/contrast jitter (saturation/hue are no-ops on grayscale)."""
+
+    def __init__(self, brightness=0.15, saturation=0.2, contrast=0.2, hue=0,
+                 rng=None):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, arr: np.ndarray) -> np.ndarray:
+        if self.brightness:
+            f = float(self.rng.uniform(1 - self.brightness, 1 + self.brightness))
+            arr = arr * f
+        if self.contrast:
+            f = float(self.rng.uniform(1 - self.contrast, 1 + self.contrast))
+            mean = arr.mean()
+            arr = (arr - mean) * f + mean
+        return np.clip(arr, 0.0, 1.0)
+
+
+def default_camera_augment(p: float, rng=None) -> RandomApply:
+    """The camera augmentation stack of stage-2 training."""
+    rng = rng or np.random.default_rng()
+    return RandomApply([
+        GaussianBlur(15, (0.2, 0.7), rng),
+        GaussianNoise(0.03, rng),
+        RandomRotation((-2, 2), rng),
+        RandomPerspective(0.2, 1.0, rng),
+        ColorJitter(0.15, 0.2, 0.2, 0, rng),
+    ], p=p, rng=rng)

@@ -1,13 +1,16 @@
 """ViT encoder over ragged multi-resolution sheet-music images.
 
-The twin of the JAX package's ``models/vit_encoder.py`` (inference half):
+The twin of the JAX package's ``models/vit_encoder.py`` (without its MAE
+masking):
 
 * :func:`batchify` is a host-side packer (numpy) that emits fixed-shape
   arrays padded to a shape bucket plus gather indices into the 2-D PE grid;
 * PE slice *and* bilinear interpolation are one device gather
   (:func:`..ops.pe.gather_pe`), so a batch can mix in-grid and oversize images;
 * :func:`encode` runs the post-norm stack through the kernel path on CUDA and
-  ends in a final LayerNorm with eps 1e-6.
+  ends in a final LayerNorm with eps 1e-6; in training it applies dropout,
+  runs the frozen prefix of layers without saves and cuts the gradient
+  after it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ import numpy as np
 import torch
 
 from ..ops import nn, transformer
-from ..ops.encoder_stack_kernel import encoder_stack_fused
 from ..ops import patchify as patch_ops
 from ..ops import pe as pe_ops
 
@@ -143,8 +145,30 @@ def embed_patches(params: Params, patches: torch.Tensor, pe_idx: torch.Tensor,
 
 
 def encode(params: Params, cfg: EncoderConfig, patches, pe_idx, pe_w, valid,
-           compute_dtype=torch.float32):
-    """Encoder forward on a packed batch -> (latent (B, L, E), valid (B, L))."""
+           compute_dtype=torch.float32, seeds=None, deterministic: bool = True,
+           frozen_stop_gradient: bool = False):
+    """Encoder forward on a packed batch -> (latent (B, L, E), valid (B, L)).
+
+    With ``frozen_stop_gradient=True`` gradients are cut after the frozen
+    prefix of ``num_layers - fine_tune_depth`` layers (``fine_tune_depth=0``
+    then means the whole encoder is frozen, matching
+    :func:`..parallel.trainer.encoder_llrd_scales`); the prefix runs without
+    dropout and, needing no gradient, without saves. ``seeds``: (seed0, seed1)
+    of the dropout masks when ``deterministic`` is False.
+    """
     x = embed_patches(params, patches, pe_idx, pe_w, valid, compute_dtype)
-    x = encoder_stack_fused(params["blocks"], x, valid, cfg.num_heads)
+    blocks, n, heads = params["blocks"], cfg.num_layers, cfg.num_heads
+    n_frozen = n - cfg.fine_tune_depth \
+        if (cfg.fine_tune_depth or frozen_stop_gradient) else 0
+    if 0 < n_frozen:
+        frozen = transformer.stack_slice(blocks, 0, min(n_frozen, n))
+        if frozen_stop_gradient:
+            with torch.no_grad():
+                x = transformer.encoder_stack(frozen, x, valid, heads)
+        else:
+            x = transformer.encoder_stack(frozen, x, valid, heads)
+    if n_frozen < n:
+        tune = transformer.stack_slice(blocks, max(n_frozen, 0), n)
+        x = transformer.encoder_stack(tune, x, valid, heads, cfg.dropout,
+                                      seeds, deterministic)
     return nn.layernorm(params["final_norm"], x, eps=1e-6), valid

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on its
 own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``<KERNEL_BUILD_DIR>/<name>-<hash>.so`` at first use, then loaded with
 ctypes (no PyTorch headers, so a build takes seconds). The hash covers the
-source and the flags, so an edited source never loads a stale library.
+source, the ``csrc/*.cuh`` headers it includes and the flags, so an edited
+source or header never loads a stale library.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 :class:`KernelOp` is the wrapper every kernel of the port goes through: it
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,8 +45,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(path: Path, seen: set) -> bytes:
+    """The source's bytes followed by those of every local header it
+    includes, directly or through another header, each once."""
+    data = path.read_bytes()
+    for inc in _INCLUDE.findall(data):
+        header = (path.parent / inc.decode()).resolve()
+        if header not in seen and header.is_file():
+            seen.add(header)
+            data += _with_headers(header, seen)
+    return data
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _with_headers(CSRC / f"{name}.cu", set())
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return Path(KERNEL_BUILD_DIR) / f"{name}-{digest}.so"
 

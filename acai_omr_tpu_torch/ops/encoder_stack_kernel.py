@@ -25,49 +25,104 @@ import math
 import torch
 
 from . import _build
-from .layernorm_kernel import add_layernorm
-from .linear_kernel import linear_bias_act
 
 Params = dict
 
 
-def encoder_attention_plain(qkv: torch.Tensor, valid: torch.Tensor,
-                            num_heads: int) -> torch.Tensor:
-    """Plain twin of K3: (B*T, 3E) qkv, (B, T) bool validity -> (B*T, E)."""
-    b, t = valid.shape
-    e = qkv.shape[1] // 3
-    dh = e // num_heads
-    q, k, v = qkv.view(b, t, 3, num_heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
-    zero = torch.zeros((), dtype=torch.float32, device=qkv.device)
-    neg = torch.full((), -1e9, dtype=torch.float32, device=qkv.device)
+def attention_bias(valid: torch.Tensor, tq: int, causal: bool) -> torch.Tensor:
+    """(B, 1, Tq or 1, Tk) fp32 additive mask: -1e9 for a padded key, plus
+    -1e9 for a key after the query when ``causal`` (additive, not -inf: a row
+    with no valid key attends uniformly, as in the JAX kernels)."""
+    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    neg = torch.full((), -1e9, dtype=torch.float32, device=valid.device)
     bias = torch.where(valid, zero, neg)[:, None, None, :]
-    lg = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-        * (1.0 / math.sqrt(dh)) + bias
-    ex = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
-    p = ex / ex.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(qkv.dtype).float(), v.float())
-    return out.permute(0, 2, 1, 3).reshape(b * t, e).to(qkv.dtype)
+    if causal:
+        tk = valid.shape[1]
+        allowed = torch.tril(torch.ones((tq, tk), dtype=torch.bool,
+                                        device=valid.device))
+        bias = torch.where(allowed, zero, neg)[None, None] + bias
+    return bias
 
 
-def _launch(op, qkv, valid, num_heads):
-    _build.require(qkv, "qkv", torch.bfloat16, 2)
-    b, t = valid.shape
-    e = qkv.shape[1] // 3
+def split_qkv(qkv: torch.Tensor, kv: torch.Tensor | None, b: int):
+    """(q, k, v) as (B, T, E) views (last stride 1): of one (B*T, 3E) qkv
+    buffer, or of qc (B*Tq, E) and a layer's mem_kv (B, M, 2E)."""
+    if kv is None:
+        e = qkv.shape[1] // 3
+        return qkv.view(b, -1, 3 * e).split(e, dim=-1)
+    e = qkv.shape[1]
+    return (qkv.view(b, -1, e), *kv.split(e, dim=-1))
+
+
+def attention_probs(q, k, v, valid, num_heads: int, causal: bool):
+    """fp32 probabilities (B, H, Tq, Tk), normalised before any rounding, and
+    the per-head views of q, k, v (B, H, T, Dh)."""
+    b, tq, e = q.shape
     dh = e // num_heads
-    if qkv.shape[0] != b * t or dh * num_heads != e:
-        raise ValueError("encoder_attention shape mismatch")
-    if dh != 64 or t % 64:
-        raise ValueError(f"encoder_attention needs Dh == 64 and T % 64 == 0, "
-                         f"got Dh={dh}, T={t}")
-    if valid.device != qkv.device:
-        raise ValueError("qkv and valid must be on one device")
+    heads = lambda a: a.reshape(b, a.shape[1], num_heads, dh).transpose(1, 2)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    lg = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) \
+        * (1.0 / math.sqrt(dh)) + attention_bias(valid, tq, causal)
+    ex = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    return ex / ex.sum(dim=-1, keepdim=True), qh, kh, vh
+
+
+def encoder_attention_plain(qkv: torch.Tensor, valid: torch.Tensor,
+                            num_heads: int, causal: bool = False,
+                            kv: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of K3. Self-attention: (B*T, 3E) qkv, (B, T) bool validity
+    -> (B*T, E). Cross-attention (``kv`` given): qkv is qc (B*Tq, E), kv is
+    (B, M, 2E), valid is (B, M)."""
+    b = valid.shape[0]
+    q, k, v = split_qkv(qkv, kv, b)
+    p, _, _, vh = attention_probs(q, k, v, valid, num_heads, causal)
+    out = torch.matmul(p.to(qkv.dtype).float(), vh.float())
+    return out.transpose(1, 2).reshape(q.shape[0] * q.shape[1],
+                                       q.shape[2]).to(qkv.dtype)
+
+
+def check_attention_operands(name: str, q, k, v, valid, num_heads: int):
+    """Shapes and strides K3 and K7 take; returns (B, Tq, Tk, E, Dh)."""
+    b, tq, e = q.shape
+    tk = k.shape[1]
+    dh = e // num_heads
+    if k.shape != (b, tk, e) or v.shape != k.shape or dh * num_heads != e \
+            or valid.shape != (b, tk):
+        raise ValueError(f"{name} shape mismatch")
+    if dh != 64 or tq % 64 or tk % 64:
+        raise ValueError(
+            f"{name} needs Dh == 64 and query and key lengths that are "
+            f"multiples of 64 (the training packer pads both T and M to "
+            f"multiples of 128), got Dh={dh}, Tq={tq}, Tk={tk}")
+    for a in (q, k, v):
+        if not a.is_cuda or a.dtype != torch.bfloat16:
+            raise ValueError(f"{name} takes CUDA bf16 tensors")
+        if a.stride(2) != 1 or a.stride(0) != a.shape[1] * a.stride(1) \
+                or a.stride(1) % 8:
+            raise ValueError(f"{name} takes row-strided views only")
+    if k.stride(1) != v.stride(1):
+        raise ValueError(f"{name}: k and v must share a row stride")
+    if valid.device != q.device:
+        raise ValueError(f"{name}: operands must be on one device")
+    return b, tq, tk, e, dh
+
+
+def _launch(op, qkv, valid, num_heads, causal=False, kv=None):
+    _build.require(qkv, "qkv", torch.bfloat16, 2)
+    if kv is not None:
+        _build.require(kv, "kv", torch.bfloat16, 3)
+    q, k, v = split_qkv(qkv, kv, valid.shape[0])
+    b, tq, tk, e, dh = check_attention_operands(op.name, q, k, v, valid,
+                                                num_heads)
     valid_u8 = valid.to(torch.uint8).contiguous()
-    out = torch.empty((b * t, e), dtype=torch.bfloat16, device=qkv.device)
+    out = torch.empty((b * tq, e), dtype=torch.bfloat16, device=qkv.device)
     fn = _build.bind("encoder_attention", "acai_encoder_attention",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                     + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(qkv.data_ptr(), valid_u8.data_ptr(), out.data_ptr(), b, t,
-            num_heads, dh, 1.0 / math.sqrt(dh), _build.stream_ptr())
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
+            out.data_ptr(), b, tq, tk, num_heads, dh, q.stride(1),
+            k.stride(1), 1.0 / math.sqrt(dh), int(causal),
+            _build.stream_ptr())
     op.launches += 1
     _build.check(rc, op.name)
     return out
@@ -75,52 +130,22 @@ def _launch(op, qkv, valid, num_heads):
 
 encoder_attention = _build.KernelOp(
     "encoder_attention", "acai_omr_tpu_torch/csrc/encoder_attention.cu",
-    "acai_omr_tpu/ops/pallas_train_layer.py:438 (_fwd_kernel _attend loop "
-    ":482-509)",
+    "acai_omr_tpu/ops/pallas_train_layer.py:438 (_fwd_kernel _attend loops "
+    ":482-509 self, :521-533 cross)",
     _launch, encoder_attention_plain)
-
-
-def pack_weights_enc(stacked: Params, dtype) -> Params:
-    """Stacked encoder-layer params -> the kernels' operands: weights in the
-    compute dtype, biases and LayerNorm vectors in fp32 (as the JAX kernel's
-    fp32 ``vecs`` plane)."""
-    sa = stacked["self_attn"]
-    w = lambda a: a.to(dtype).contiguous()
-    f32 = lambda a: a.float().contiguous()
-    return {
-        "w_qkv": w(sa["in_kernel"]), "b_qkv": f32(sa["in_bias"]),
-        "w_out": w(sa["out"]["kernel"]), "b_out": f32(sa["out"]["bias"]),
-        "w_ff1": w(stacked["linear1"]["kernel"]),
-        "b_ff1": f32(stacked["linear1"]["bias"]),
-        "w_ff2": w(stacked["linear2"]["kernel"]),
-        "b_ff2": f32(stacked["linear2"]["bias"]),
-        "ln1_g": f32(stacked["norm1"]["scale"]),
-        "ln1_b": f32(stacked["norm1"]["bias"]),
-        "ln2_g": f32(stacked["norm2"]["scale"]),
-        "ln2_b": f32(stacked["norm2"]["bias"]),
-    }
 
 
 def encoder_stack_fused(stacked: Params, x: torch.Tensor, valid: torch.Tensor,
                         num_heads: int, plain: bool = False) -> torch.Tensor:
-    """The encoder stack forward: x (B, T, E), valid (B, T) bool -> (B, T, E).
+    """The encoder stack forward at inference: x (B, T, E), valid (B, T) bool
+    -> (B, T, E), no dropout.
 
     On CUDA tensors every product, attention and LayerNorm is a launch of
     K1/K3/K4; on CPU tensors each op runs its plain twin. ``plain=True`` runs
     the plain twins on any device (the on-card yardstick of the kernel path).
+    The training stack with saves, dropout and the hand-written backward is
+    :func:`.train_layer_kernel.encoder_stack_fused`, which this calls.
     """
-    lin, attn, ln = linear_bias_act, encoder_attention, add_layernorm
-    if plain:
-        lin, attn, ln = lin.plain, attn.plain, ln.plain
-    p = pack_weights_enc(stacked, x.dtype)
-    b, t, e = x.shape
-    h = x.reshape(b * t, e).contiguous()
-    for i in range(p["w_qkv"].shape[0]):
-        qkv = lin(h, p["w_qkv"][i], p["b_qkv"][i])
-        a = attn(qkv, valid, num_heads)
-        h = ln(h, lin(a, p["w_out"][i], p["b_out"][i]), p["ln1_g"][i],
-               p["ln1_b"][i], 1e-5)
-        f = lin(h, p["w_ff1"][i], p["b_ff1"][i], "gelu")
-        h = ln(h, lin(f, p["w_ff2"][i], p["b_ff2"][i]), p["ln2_g"][i],
-               p["ln2_b"][i], 1e-5)
-    return h.reshape(b, t, e)
+    from . import train_layer_kernel
+    return train_layer_kernel.encoder_stack_fused(stacked, x, valid,
+                                                  num_heads, plain=plain)

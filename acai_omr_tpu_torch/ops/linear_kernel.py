@@ -13,6 +13,7 @@ import math
 import torch
 
 from . import _build
+from . import dropout_kernel as dk
 
 ACTS = {"none": 0, "gelu": 1, "gelu_rounded": 2}
 _BM, _BN, _BK = 64, 64, 32
@@ -23,21 +24,37 @@ def _gelu32(u: torch.Tensor) -> torch.Tensor:
     return 0.5 * u * (1.0 + torch.erf(u / math.sqrt(2.0)))
 
 
+def gelu_grad32(u: torch.Tensor) -> torch.Tensor:
+    """d GELU(u) / du = 0.5 (1 + erf(u / sqrt 2)) + u phi(u), fp32."""
+    phi = torch.exp(-0.5 * u * u) * (1.0 / math.sqrt(2.0 * math.pi))
+    return 0.5 * (1.0 + torch.erf(u / math.sqrt(2.0))) + u * phi
+
+
 def linear_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                          act: str = "none") -> torch.Tensor:
+                          act: str = "none", drop: dk.DropSpec | None = None,
+                          save_gelu_grad: bool = False):
     """Plain twin: fp32 product and bias, the activation, then x's dtype.
 
     ``gelu`` applies exact GELU to the fp32 sum (the encoder kernel);
     ``gelu_rounded`` rounds the sum to x's dtype first (the decode monolith).
+    ``drop`` applies K10's mask to the rounded output. ``save_gelu_grad``
+    (with ``gelu``) also returns GELU'(u) of the same fp32 sum, rounded: the
+    pair (h1, gelu') the training forward saves.
     """
     u = torch.matmul(x.float(), w.float()) + b.float()
+    gp = None
     if act == "gelu":
+        if save_gelu_grad:
+            gp = gelu_grad32(u).to(x.dtype)
         u = _gelu32(u)
     elif act == "gelu_rounded":
         u = _gelu32(u.to(x.dtype).float())
     elif act != "none":
         raise ValueError(f"unknown activation {act!r}")
-    return u.to(x.dtype)
+    if save_gelu_grad and gp is None:
+        raise ValueError("save_gelu_grad needs act='gelu'")
+    out = dk.dropout_plain(u.to(x.dtype), drop)
+    return (out, gp) if save_gelu_grad else out
 
 
 def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
@@ -51,7 +68,7 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
     return chunk * _BK, splits
 
 
-def _launch(op, x, w, b, act="none"):
+def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False):
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(w, "w", torch.bfloat16, 2)
     _build.require(b, "b", torch.float32, 1)
@@ -65,20 +82,24 @@ def _launch(op, x, w, b, act="none"):
                          f"N % {_BN} == 0, got K={k}, N={n}")
     if x.device != w.device or x.device != b.device:
         raise ValueError("x, w and b must be on one device")
+    if save_gelu_grad and act != "gelu":
+        raise ValueError("save_gelu_grad needs act='gelu'")
     k_chunk, splits = split_plan(m, n, k)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    gp = torch.empty_like(out) if save_gelu_grad else None
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     fn = _build.bind("linear_bias_act", "acai_linear_bias_act",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                     + [ctypes.c_void_p])
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                     + dk.C_ARGTYPES + [ctypes.c_void_p])
     rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            0 if part is None else part.data_ptr(), m, n, k, k_chunk, splits,
-            ACTS[act], _build.stream_ptr())
+            None if gp is None else gp.data_ptr(),
+            None if part is None else part.data_ptr(), m, n, k, k_chunk,
+            splits, ACTS[act], *dk.c_args(drop), _build.stream_ptr())
     op.launches += 1
     op.extra_launches += part is not None  # the split-K reduce kernel
     _build.check(rc, op.name)
-    return out
+    return (out, gp) if save_gelu_grad else out
 
 
 linear_bias_act = _build.KernelOp(

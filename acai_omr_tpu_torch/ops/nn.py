@@ -9,7 +9,9 @@ over leaf for leaf (:mod:`..models.weights`):
   (columns [0:E) = q, [E:2E) = k, [2E:3E) = v),
 * GELU is the exact erf form,
 * softmax and layernorm run in fp32 whatever the compute dtype,
-* masks are validity masks, True = attend.
+* masks are validity masks, True = attend,
+* dropout is not here: its one definition, a counter-based mask that kernels
+  regenerate, is :func:`.dropout_kernel.dropout_plain`.
 
 These are the plain references the hand-written kernels are held against.
 """
@@ -102,6 +104,16 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return y.to(x.dtype)
 
 
+def embed(params: Params, idxs: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Rows ``idxs`` of the embedding table, in ``dtype`` when given. (The JAX
+    package gathers small tables with a one-hot product to spare the TPU a
+    scatter-add in the gradient; on an H100 the gather's gradient for the
+    (227, 1024) LMX table measured 0.3 ms of a 218 ms training microbatch,
+    so the port gathers.)"""
+    table = params["table"] if dtype is None else params["table"].to(dtype)
+    return table[idxs.long()]
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU computed in fp32, cast back to x's dtype."""
     x32 = x.float()
@@ -153,12 +165,19 @@ def causal_bias(t: int, device="cpu") -> torch.Tensor:
 
 
 def mha(params: Params, x_q: torch.Tensor, x_kv: torch.Tensor, num_heads: int,
-        bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Full multi-head attention block (fused in-projection, SDPA, out proj)."""
+        bias: torch.Tensor | None = None,
+        precomputed_kv: torch.Tensor | None = None) -> torch.Tensor:
+    """Full multi-head attention block (fused in-projection, SDPA, out proj).
+
+    ``precomputed_kv``: optional (B, Tk, 2E) already-projected K/V (see
+    :func:`.transformer.precompute_memory_kv`); only Q is projected here."""
     e = x_q.shape[-1]
     in_kernel = params["in_kernel"].to(x_q.dtype)
     in_bias = params["in_bias"].to(x_q.dtype)
-    if x_q is x_kv:
+    if precomputed_kv is not None:
+        q = torch.matmul(x_q, in_kernel[:, :e]) + in_bias[:e]
+        k, v = precomputed_kv.to(x_q.dtype).split(e, dim=-1)
+    elif x_q is x_kv:
         q, k, v = (torch.matmul(x_q, in_kernel) + in_bias).split(e, dim=-1)
     else:
         q = torch.matmul(x_q, in_kernel[:, :e]) + in_bias[:e]

@@ -5,15 +5,17 @@ Each stack's parameters are one dict whose leaves carry a leading
 ``num_layers`` axis, as in the JAX package. Post-norm layers, exact GELU,
 LayerNorm eps 1e-5.
 
-:func:`encoder_layer` / :func:`decoder_layer` are the plain per-layer
-references. The inference encoder stack is
-:func:`.encoder_stack_kernel.encoder_stack_fused`, whose ops launch the
-hand-written kernels on CUDA tensors; the decoder stack here backs the
-teacher-forced :func:`..models.omr_decoder.forward`, the CPU oracle of the
-cached decode.
+:func:`encoder_stack` and :func:`decoder_stack` are what the models call:
+on CUDA tensors they run the fused stacks of :mod:`.train_layer_kernel`
+(hand-written kernels, forward and backward), on CPU tensors the same
+sequence of plain twins under autograd. :func:`encoder_layer` /
+:func:`decoder_layer` and the ``*_stack_layers`` loops over them are the
+independent per-layer references (no dropout) the tests hold both against.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -66,6 +68,13 @@ def layer_slice(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
+def stack_slice(stacked: Params, lo: int, hi: int) -> Params:
+    """Sub-stack [lo, hi) of a stacked layer tree (the frozen / fine-tune
+    split of the encoder)."""
+    return {k: stack_slice(v, lo, hi) if isinstance(v, dict) else v[lo:hi]
+            for k, v in stacked.items()}
+
+
 def num_stacked_layers(stacked: Params) -> int:
     return stacked["norm1"]["scale"].shape[0]
 
@@ -83,11 +92,14 @@ def encoder_layer(params: Params, x: torch.Tensor, bias, num_heads: int):
 
 
 def decoder_layer(params: Params, x: torch.Tensor, memory: torch.Tensor,
-                  self_bias, cross_bias, num_heads: int) -> torch.Tensor:
-    """Post-norm decoder layer: SA -> norm1, CA -> norm2, FF -> norm3."""
+                  self_bias, cross_bias, num_heads: int,
+                  mem_kv: torch.Tensor | None = None) -> torch.Tensor:
+    """Post-norm decoder layer: SA -> norm1, CA -> norm2, FF -> norm3.
+    ``mem_kv``: optional (B, Tm, 2E) precomputed cross K/V of this layer."""
     sa = nn.mha(params["self_attn"], x, x, num_heads, self_bias)
     x = nn.layernorm(params["norm1"], x + sa, eps=1e-5)
-    ca = nn.mha(params["cross_attn"], x, memory, num_heads, cross_bias)
+    ca = nn.mha(params["cross_attn"], x, memory, num_heads, cross_bias,
+                precomputed_kv=mem_kv)
     x = nn.layernorm(params["norm2"], x + ca, eps=1e-5)
     h = nn.dense(params["linear2"], nn.gelu(nn.dense(params["linear1"], x)))
     return nn.layernorm(params["norm3"], x + h, eps=1e-5)
@@ -106,10 +118,65 @@ def encoder_stack_layers(stacked: Params, x: torch.Tensor,
     return x
 
 
-def decoder_stack(stacked: Params, x: torch.Tensor, memory: torch.Tensor,
-                  self_bias, cross_bias, num_heads: int) -> torch.Tensor:
-    """Plain decoder stack (teacher-forced forward)."""
+def decoder_stack_layers(stacked: Params, x: torch.Tensor,
+                         memory: torch.Tensor, self_bias, cross_bias,
+                         num_heads: int,
+                         mem_kv: torch.Tensor | None = None) -> torch.Tensor:
+    """The decoder stack as a loop of plain :func:`decoder_layer` calls."""
     for i in range(num_stacked_layers(stacked)):
         x = decoder_layer(layer_slice(stacked, i), x, memory, self_bias,
-                          cross_bias, num_heads)
+                          cross_bias, num_heads,
+                          None if mem_kv is None else mem_kv[i])
     return x
+
+
+def precompute_memory_kv(stacked: Params, memory: torch.Tensor) -> torch.Tensor:
+    """All layers' cross-attention K/V projections of ``memory`` (B, Tm, E)
+    in one batched product -> (L, B, Tm, 2E) in memory's dtype. Scheduled
+    sampling's two decoder passes share it. Plain PyTorch under autograd,
+    as the JAX package leaves this product outside its kernels."""
+    e = memory.shape[-1]
+    kern = stacked["cross_attn"]["in_kernel"][:, :, e:].to(memory.dtype)
+    bias = stacked["cross_attn"]["in_bias"][:, e:].to(memory.dtype)
+    kv = torch.einsum("bte,lef->lbtf", memory, kern)
+    return kv + bias[:, None, None, :]
+
+
+_PLAIN_TWINS = False
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Within the block :func:`encoder_stack` and :func:`decoder_stack` run
+    the plain twins under autograd on any device: the yardstick the kernel
+    path is held against on the card."""
+    global _PLAIN_TWINS
+    before, _PLAIN_TWINS = _PLAIN_TWINS, True
+    try:
+        yield
+    finally:
+        _PLAIN_TWINS = before
+
+
+def encoder_stack(stacked: Params, x: torch.Tensor, valid: torch.Tensor,
+                  num_heads: int, dropout_rate: float = 0.0, seeds=None,
+                  deterministic: bool = True) -> torch.Tensor:
+    """The encoder stack, x (B, T, E), valid (B, T) bool: the fused kernels
+    on CUDA tensors, their plain twins under autograd on CPU tensors."""
+    from . import train_layer_kernel
+    return train_layer_kernel.encoder_stack_fused(
+        stacked, x, valid, num_heads, dropout_rate, seeds, deterministic,
+        plain=_PLAIN_TWINS or x.device.type == "cpu")
+
+
+def decoder_stack(stacked: Params, x: torch.Tensor, mem_kv: torch.Tensor,
+                  self_valid: torch.Tensor, mem_valid: torch.Tensor,
+                  num_heads: int, dropout_rate: float = 0.0, seeds=None,
+                  deterministic: bool = True) -> torch.Tensor:
+    """The decoder stack over precomputed cross K/V ``mem_kv``
+    (L, B, Tm, 2E): the fused kernels on CUDA tensors, their plain twins
+    under autograd on CPU tensors."""
+    from . import train_layer_kernel
+    return train_layer_kernel.decoder_stack_fused(
+        stacked, x, mem_kv, self_valid, mem_valid, num_heads, dropout_rate,
+        seeds, deterministic, plain=_PLAIN_TWINS or x.device.type == "cpu")

@@ -14,7 +14,12 @@ Phases, all in one process; any failure exits non-zero:
    paths give it, and time kernel, twin, a PyTorch library call computing
    the same function where there is one, the card's bound, and the host
    time of one wrapper call (the decode step is bound by it). The int8
-   kernels' appended rows and scales must equal the twin's bit for bit;
+   kernels' appended rows and scales must equal the twin's bit for bit. The
+   training kernels (K7 attention_bwd, K8 layernorm_bwd, K9 linear_dgrad /
+   linear_wgrad, K10 dropout, and the training modes of K1, K3, K4) are held
+   the same way at the flagship's training shapes (decoder rows 8 x 256 at
+   E = 1024, F = 4096, M = 1024; encoder rows 8 x 1024 at E = 768,
+   F = 3072); K10 must equal its twin bit for bit;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -24,11 +29,21 @@ Phases, all in one process; any failure exits non-zero:
    plain path on the card: encoder output, and 64 greedy decode steps at B=8
    with bf16 and with int8 caches (the plain path is fed the kernel path's
    tokens, so the logits stay comparable step by step);
-4. print the ``kernels`` JSON line, the card line, and last
+4. the path ``train_tf``: ``omr_teacher_force_train`` on the card with the
+   flagship configuration, bf16 over fp32 masters, dropout on, a seeded
+   synthetic dataset (images of 512-1,024 patches, token sequences that pad
+   to T = 256), batch 8, accumulation 2, one epoch of three optimizer steps
+   and its validation pass; then one flagship microbatch twice through the
+   hand-written path (equal bits demanded) and, at half the batch, against
+   autograd through the plain twins on the card (loss and every leaf's
+   gradient, stacked leaves layer by layer; limits fixed beforehand and a
+   band of three times the errors read), forward and backward timed apart;
+5. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
-decode steps (device time by kernel, device busy share); ``--report PATH``
+decode steps and over two training microbatches (device time by kernel,
+device busy share); ``--report PATH``
 writes every number of the run as JSON to PATH.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -64,7 +79,21 @@ EXPECTED_KERNELS = {
     "beam_bf16": _ENC + ["decode_attention"],
     "beam_int8": _ENC + ["quant_linear_bias_act", "decode_attention_int8"],
     "streamed": _ENC + ["decode_attention"],
+    "train_tf": _ENC + ["attention_bwd", "layernorm_bwd", "linear_dgrad",
+                        "linear_wgrad", "dropout"],
 }
+SERVING_PATHS = ["greedy_bf16", "int8", "beam_bf16", "beam_int8", "streamed"]
+# the training path: flagship width, batch 8, accumulation 2, 3 updates
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_UPDATES = 8, 2, 3
+TRAIN_SIZES = ((256, 1024), (256, 768), (192, 1024), (256, 512))
+TRAIN_SEQ_LEN = 200
+# limits of the hand-written backward against autograd of the plain twins
+# (fixed before the first run, PERF.md section 6): loss, every leaf (stacked
+# leaves layer by layer), all leaves together
+CMP_LOSS_REL, CMP_LEAF_REL, CMP_GLOBAL_REL = 1e-2, 0.2, 0.05
+# a second, tighter band: three times what this comparison read on an
+# NVIDIA H100 80GB HBM3 (loss 4.3e-5, worst slice 0.0128, together 0.0096)
+CMP_LOSS_BAND, CMP_LEAF_BAND, CMP_GLOBAL_BAND = 1.3e-4, 0.039, 0.03
 # two bf16 ulps of the largest output: what the int8 kernels may differ by
 TWO_BF16_ULPS = 2 * 2.0 ** -7
 
@@ -100,6 +129,23 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def time_ms_eager(torch, fn, iters: int = 20) -> float:
+    """Time of one call from CUDA events around ``iters`` eager calls: for
+    calls that run the autograd engine, which a graph capture does not take.
+    Includes the host's launch cost where the device work is shorter."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def host_us(torch, fn, calls: int = 200) -> float:
@@ -141,13 +187,17 @@ def check_kernels(torch, F, dev):
 
     def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
                peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None):
-        """``paths``: the main paths whose launches count for this case (all
-        when None). ``exact``: for the int8 cases, whether the caches and
-        scales after the kernel equal the twin's bit for bit."""
+        """``paths``: the main paths whose launches count for this case (the
+        serving paths when None). ``exact``: for the int8 cases, whether the caches and
+        scales after the kernel equal the twin's bit for bit (for K10: the
+        whole output; for K8 and K9 wgrad: the fp32 column sums within
+        1e-3 of their largest value; for K7: dq, dk and dv each within 2e-2
+        of its own largest value)."""
         t_k, t_host = t_k  # device ms and host us of one wrapper call
         err = (out_k.float() - out_p.float()).abs().max().item()
         b_ms, b_by = bound_ms(nbytes, nops, peak)
         ok = math.isfinite(err) and err <= tol and exact is not False
+        paths = SERVING_PATHS if paths is None else paths
         cases.append({"op": op, "case": case, "max_abs_err": err, "tol": tol,
                       "ms": t_k, "host_us": t_host, "plain_ms": t_p,
                       "library_ms": t_lib,
@@ -158,7 +208,7 @@ def check_kernels(torch, F, dev):
               f"kernel_ms={t_k:.4f} host_us={t_host:.1f} plain_ms={t_p:.4f} "
               f"library_ms={lib} "
               f"bound_ms={b_ms:.4f} ({b_by}) "
-              + ("" if exact is None else f"caches_equal={exact} ")
+              + ("" if exact is None else f"exact={exact} ")
               + ("ok" if ok else "FAIL"), flush=True)
 
     # K1: decode qkv, decode ff1 (+GELU), decode ff2; encoder qkv, ff1
@@ -362,7 +412,220 @@ def check_kernels(torch, F, dev):
                                                           1e-5)),
                time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
                2 * 3 * rows * e + 8 * e, 8 * rows * e)
+    training_cases(torch, F, randn, record, kernel_times, dev)
     return cases
+
+
+def training_cases(torch, F, randn, record, kernel_times, dev):
+    """The kernels of the training stacks at the flagship's shapes: decoder
+    rows 8 x 256 (E 1024, H 16, F 4096, memory 1024), encoder rows 8 x 1024
+    (E 768, H 12, F 3072). Dropout at the flagship's rates."""
+    from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
+    from acai_omr_tpu_torch.ops.dropout_kernel import DropSpec, dropout_apply
+    from acai_omr_tpu_torch.ops.encoder_stack_kernel import (encoder_attention,
+                                                             split_qkv)
+    from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
+    from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
+    from acai_omr_tpu_torch.ops.linear_bwd_kernel import (linear_dgrad,
+                                                          linear_wgrad,
+                                                          row_split_plan)
+    from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
+
+    bf = torch.bfloat16
+    tr = ["train_tf"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    plain_ms = lambda fn: time_ms(torch, fn, iters=5)
+    rel_tol = lambda ref, r=1e-2: r * max(1.0, ref.float().abs().max().item())
+    stacks = [("dec", 8, 256, 1024, 16, 4096, 0.1),
+              ("enc", 8, 1024, 768, 12, 3072, 0.05)]
+
+    # K10 standalone: the transition head's hidden rows, equal bits. The
+    # library call is F.dropout: the same function (Bernoulli keep, 1/(1-p)
+    # scale, same bytes) from PyTorch's own stream
+    x = randn(8 * 1024, 4096)
+    spec = DropSpec(0.05, 17, 29, 3, 1024)
+    out_k, out_p = dropout_apply(x, spec), dropout_apply.plain(x, spec)
+    record(dropout_apply, "8192x4096 rate=0.05", out_k, out_p, 0.0,
+           kernel_times(lambda: dropout_apply(x, spec)),
+           plain_ms(lambda: dropout_apply.plain(x, spec)),
+           time_ms(torch, lambda: F.dropout(x, 0.05, training=True)),
+           2 * 2 * x.numel(), 0, paths=tr, exact=torch.equal(out_k, out_p))
+
+    for name, b, t, e, h, f, rate in stacks:
+        rows = b * t
+        drop = DropSpec(rate, 17, 29, 5, t)
+        w_of = lambda k, n: (randn(k, n, dtype=torch.float32)
+                             / math.sqrt(k)).to(bf)
+
+        # K1 as the stacks call it: qkv and the E -> E projection without
+        # dropout (qc; every site of the save-less forward), then the
+        # training epilogues: sa / ca with dropout, ff1 (GELU, dropout,
+        # saves GELU') and ff2 with dropout
+        for k, n, act, save, dr in [(e, 3 * e, "none", False, None),
+                                    (e, e, "none", False, None),
+                                    (e, e, "none", False, drop),
+                                    (e, f, "gelu", True, drop),
+                                    (f, e, "none", False, drop)]:
+            x, w = randn(rows, k), w_of(k, n)
+            bias = randn(n, dtype=torch.float32) * 0.1
+            call = lambda: linear_bias_act(x, w, bias, act, dr, save)
+            out_k = call()
+            out_p = linear_bias_act.plain(x, w, bias, act, dr, save)
+            if save:  # hold h1 and GELU' together
+                out_k, out_p = torch.cat(out_k, 1), torch.cat(out_p, 1)
+            b16 = bias.to(bf)
+            lib = (lambda: F.gelu(torch.addmm(b16, x, w))) if save else \
+                (lambda: torch.addmm(b16, x, w))
+            record(linear_bias_act,
+                   f"{name} {rows}x{k}->{n},{act}" + (",drop" if dr is not None else "")
+                   + (",saves gelu'" if save else ""), out_k, out_p,
+                   rel_tol(out_p), kernel_times(call),
+                   plain_ms(lambda: linear_bias_act.plain(x, w, bias, act,
+                                                          dr, save)),
+                   time_ms(torch, lib),
+                   2 * (rows * k + k * n + (2 if save else 1) * rows * n)
+                   + 4 * n, 2 * rows * n * k, paths=tr)
+
+        # K4: emitting the pre-norm sum; LayerNorm alone (the recompute)
+        x, r = randn(rows, e), randn(rows, e)
+        gamma = 1.0 + 0.1 * randn(e, dtype=torch.float32)
+        beta = 0.1 * randn(e, dtype=torch.float32)
+        g16, b16 = gamma.to(bf), beta.to(bf)
+        for mode, second, n_out in [("writes z", r, 2), ("no residual", None, 1)]:
+            call = lambda: add_layernorm(x, second, gamma, beta, 1e-5,
+                                         second is not None)
+            out_k = call()
+            out_p = add_layernorm.plain(x, second, gamma, beta, 1e-5,
+                                        second is not None)
+            if second is not None:
+                out_k, out_p = torch.cat(out_k, 1), torch.cat(out_p, 1)
+            z = x if second is None else x + r
+            record(add_layernorm, f"{name} {rows}x{e} {mode}", out_k, out_p,
+                   rel_tol(out_p), kernel_times(call),
+                   plain_ms(lambda: add_layernorm.plain(
+                       x, second, gamma, beta, 1e-5, second is not None)),
+                   time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
+                   2 * (n_out + (2 if second is not None else 1)) * rows * e
+                   + 8 * e, 8 * rows * e, paths=tr)
+
+        # K8: g and z in, dz and dropped dz out, two column sums
+        g_in, z = randn(rows, e), randn(rows, e)
+        call = lambda: layernorm_bwd(g_in, z, gamma, 1e-5, drop)
+        out_k = call()
+        out_p = layernorm_bwd.plain(g_in, z, gamma, 1e-5, drop)
+        col_err = max(((a - c).abs().max() / c.abs().max()).item()
+                      for a, c in zip(out_k[2:], out_p[2:]))
+        z_req = z.clone().requires_grad_(True)
+        g_req = gamma.to(bf).requires_grad_(True)
+        b_req = beta.to(bf).requires_grad_(True)
+        y = F.layer_norm(z_req, (e,), g_req, b_req, 1e-5)
+        record(layernorm_bwd, f"{name} {rows}x{e},drop (column sums rel err "
+               f"{col_err:.1e})", torch.cat(out_k[:2], 1),
+               torch.cat(out_p[:2], 1), rel_tol(out_p[0]), kernel_times(call),
+               plain_ms(lambda: layernorm_bwd.plain(g_in, z, gamma, 1e-5,
+                                                    drop)),
+               time_ms_eager(torch, lambda: torch.autograd.grad(
+                   y, (z_req, g_req, b_req), g_in, retain_graph=True)),
+               2 * 4 * rows * e + 3 * 4 * e, 12 * rows * e, paths=tr,
+               exact=col_err < 1e-3)
+
+        # K9 dgrad: du = round(drop(round(dff W2^T)) * gelu'), dx2 = dz3 + .,
+        # and bare (da_s = dsa Wo^T, da_c = dca Woc^T)
+        for n, k, kw_name in [(e, f, "drop,mul"), (f, e, "add"),
+                              (e, e, "bare")]:
+            dy, w, other = randn(rows, n), w_of(k, n), randn(rows, k)
+            kw = {"drop": drop, "mul": other} if kw_name == "drop,mul" \
+                else {"add": other} if kw_name == "add" else {}
+            call = lambda: linear_dgrad(dy, w, **kw)
+            out_k, out_p = call(), linear_dgrad.plain(dy, w, **kw)
+            wt = w.t()
+            record(linear_dgrad, f"{name} {rows}x{n}->{k},{kw_name}", out_k,
+                   out_p, rel_tol(out_p), kernel_times(call),
+                   plain_ms(lambda: linear_dgrad.plain(dy, w, **kw)),
+                   time_ms(torch, lambda: torch.matmul(dy, wt)),
+                   2 * (rows * n + k * n + (2 if kw else 1) * rows * k),
+                   2 * rows * n * k, paths=tr)
+
+        # K9 wgrad: dW1 = x2^T du, dW2 = h1^T dff, each with its bias sum. No
+        # flagship shape has so few output tiles that the rows are split
+        # across blocks; narrower models (the MAE decoder's E = 512, small
+        # trainer configurations) do, so that branch is held at 512 x 512
+        for k, n in [(e, f), (f, e)] + ([(512, 512)] if name == "enc" else []):
+            x, dy = randn(rows, k), randn(rows, n)
+            call = lambda: linear_wgrad(x, dy)
+            (dw_k, db_k), (dw_p, db_p) = call(), linear_wgrad.plain(x, dy)
+            db_err = ((db_k - db_p).abs().max() / db_p.abs().max()).item()
+            xt = x.t()
+            splits = row_split_plan(rows, k, n)[1]
+            assert (splits > 1) == (k == 512), "wgrad row split plan"
+            record(linear_wgrad, f"{name} {rows}x{k}^T {rows}x{n}"
+                   + (f", rows split {splits}x" if splits > 1 else "")
+                   + f" (bias sum rel err {db_err:.1e})", dw_k, dw_p,
+                   rel_tol(dw_p),
+                   kernel_times(call),
+                   plain_ms(lambda: linear_wgrad.plain(x, dy)),
+                   time_ms(torch, lambda: torch.matmul(xt, dy)),
+                   2 * (rows * k + rows * n + k * n) + 4 * n,
+                   2 * rows * n * k, paths=tr, exact=db_err < 1e-3)
+
+        # K3 / K7 at this stack's attention sites, ragged key validity
+        sites = [("self causal", t, True), ("cross", 1024, False)] \
+            if name == "dec" else [("self", t, False)]
+        for site, tk, causal in sites:
+            cross = site == "cross"
+            lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen,
+                                 device=dev)
+            valid = torch.arange(tk, device=dev)[None, :] < lens[:, None]
+            if cross:
+                q, kv = randn(rows, e), randn(b, tk, 2 * e)
+            else:
+                q, kv = randn(rows, 3 * e), None
+            q3, k3, v3 = split_qkv(q, kv, b)
+            d_o = randn(b, t, e)
+            dh = e // h
+            hd = lambda a: a.reshape(b, a.shape[1], h, dh).transpose(1, 2) \
+                .contiguous()
+            ql, kl, vl, dol = hd(q3), hd(k3), hd(v3), hd(d_o)
+            mask4 = valid[:, None, None, :]
+            if causal:
+                mask4 = mask4 & torch.tril(torch.ones(
+                    t, tk, dtype=torch.bool, device=dev))[None, None]
+            n_pairs = int(mask4.expand(b, 1, t, tk).sum())  # attended (q, k)
+            call = lambda: encoder_attention(q, valid, h, causal, kv)
+            out_k = call()
+            out_p = encoder_attention.plain(q, valid, h, causal, kv)
+            record(encoder_attention, f"{name} {site} B={b} Tq={t} Tk={tk} "
+                   f"E={e} H={h}", out_k, out_p, 1e-2, kernel_times(call),
+                   plain_ms(lambda: encoder_attention.plain(q, valid, h,
+                                                            causal, kv)),
+                   time_ms(torch, lambda: F.scaled_dot_product_attention(
+                       ql, kl, vl, attn_mask=mask4)),
+                   2 * (2 * rows * e + 2 * b * tk * e) + b * tk,
+                   4 * e * n_pairs, paths=tr)
+
+            call = lambda: attention_bwd(q3, k3, v3, d_o, valid, h, causal)
+            out_k = call()
+            out_p = attention_bwd.plain(q3, k3, v3, d_o, valid, h, causal)
+            lq, lk, lv = (a.clone().requires_grad_(True) for a in (ql, kl, vl))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask4)
+            # dq, dk and dv each within 2e-2 of its own largest value
+            rels = [((a.float() - c.float()).abs().max()
+                     / c.float().abs().max()).item()
+                    for a, c in zip(out_k, out_p)]
+            record(attention_bwd, f"{name} {site} B={b} Tq={t} Tk={tk} E={e} "
+                   f"H={h} (dq, dk, dv err / max|ref| "
+                   + ", ".join(f"{r:.1e}" for r in rels) + ")",
+                   torch.cat([a.flatten() for a in out_k]),
+                   torch.cat([a.flatten() for a in out_p]),
+                   2e-2 * max(a.float().abs().max().item() for a in out_p),
+                   kernel_times(call),
+                   plain_ms(lambda: attention_bwd.plain(q3, k3, v3, d_o, valid,
+                                                        h, causal)),
+                   time_ms_eager(torch, lambda: torch.autograd.grad(
+                       lo, (lq, lk, lv), dol, retain_graph=True)),
+                   2 * (3 * rows * e + 4 * b * tk * e) + b * tk,
+                   10 * e * n_pairs, paths=tr,
+                   exact=all(r <= 2e-2 for r in rels))
 
 
 def synthetic_images(np, n: int, seed: int) -> list:
@@ -459,8 +722,9 @@ def _greedy_step(decode_lib, dec, dcfg, mono, state, mem, dt):
 
 
 def profile_steps(torch, step, warmup: int, steps: int) -> dict:
-    """Device busy share and device time by kernel over ``steps`` decode
-    steps (torch.profiler, CUDA activity), against their host wall time."""
+    """Device busy share and device time by kernel over ``steps`` steps
+    (decode steps or training microbatches; torch.profiler, CUDA activity),
+    against their host wall time."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         step()
@@ -487,6 +751,202 @@ def profile_steps(torch, step, warmup: int, steps: int) -> dict:
             "device_busy_share": busy / wall_us,
             "top": [{"kernel": k[:80], "ms_per_step": us / steps / 1e3,
                      "calls_per_step": c / steps} for us, k, c in rows[:12]]}
+
+
+def training_set(tokenizer, n: int, seed: int):
+    """Seeded synthetic stage-2 examples: images of 512-1,024 patches, token
+    sequences that pad to T = 256."""
+    from acai_omr_tpu_torch.data.datasets import DebugDataset
+    return DebugDataset(n=n, sizes=TRAIN_SIZES, seq_len=TRAIN_SEQ_LEN,
+                        vocab=tokenizer.vocab_size, seed=seed)
+
+
+def train_path(torch, model, tmp_dir):
+    """The path ``train_tf``: a few optimizer steps of stage-2 training
+    through ``omr_teacher_force_train`` at the flagship's full width. The
+    launch counts are set to 0 just before and read just after; the hook
+    reads them in between without resetting them."""
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
+
+    tok = model.tokenizer
+    n_train = TRAIN_BATCH * TRAIN_ACCUM * TRAIN_UPDATES
+    train_ds = training_set(tok, n_train, SEED)
+    val_ds = training_set(tok, TRAIN_BATCH, SEED + 1)
+    start = trainer.tree_map(lambda v: v.float().clone(), model.params)
+    counts = lambda: {n: op.launches for n, op in _build.REGISTRY.items()}
+    log = {"micro_ms": [], "update_ms": [], "val_ms": [], "micro_launches": [],
+           "val_launches": [], "shapes": [], "grads_finite": True}
+    last = {"t": None, "counts": None}
+
+    def tick():
+        torch.cuda.synchronize()
+        now, c = time.perf_counter(), counts()
+        dt = 1e3 * (now - last["t"])
+        delta = {k: c[k] - last["counts"].get(k, 0) for k in c
+                 if c[k] != last["counts"].get(k, 0)}
+        last.update(t=now, counts=c)
+        return dt, delta
+
+    def hook(kind, info):
+        dt, delta = tick()
+        if kind == "micro":
+            log["micro_ms"].append(dt)
+            log["micro_launches"].append(delta)
+            log["shapes"].append([tuple(info["batch"]["patches"].shape[:2]),
+                                  tuple(info["batch"]["inputs"].shape)])
+        elif kind == "update":
+            log["update_ms"].append(dt)
+            log["grads_finite"] &= all(
+                bool(torch.isfinite(g).all())
+                for g in trainer.tree_flatten(info["grads"]).values())
+            last["t"] = time.perf_counter()  # the check is not a step's time
+        else:
+            log["val_ms"].append(dt)
+            log["val_launches"].append(delta)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    last.update(t=time.perf_counter(), counts=counts())
+    t0 = time.perf_counter()
+    params, stats = tf_train.omr_teacher_force_train(
+        model.cfg, model.params, train_ds, val_ds, tok, epochs=1,
+        batch_size=TRAIN_BATCH, grad_accumulation_steps=TRAIN_ACCUM,
+        warmup_epochs=1, checkpoint_freq=1, model_dir=Path(tmp_dir) / "tf",
+        num_workers=4, tf_anneal_epochs=1, soft_epochs=1, seed=SEED,
+        bucket_boundaries=[max(TRAIN_SIZES)],  # one bucket: no ragged tails
+        compute_dtype=model.compute_dtype, device=model.device,
+        step_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    device = {n: op.device_launches for n, op in _build.REGISTRY.items()}
+
+    # every leaf the optimizer scales by something other than 0 must have
+    # moved, every other must be bit-unchanged
+    scales = trainer.tree_flatten(trainer.encoder_llrd_scales(
+        params, model.cfg, tf_train.FINE_TUNE_BASE_LR / tf_train.BASE_LR,
+        tf_train.FINE_TUNE_DECAY_FACTOR))
+    before, after = trainer.tree_flatten(start), trainer.tree_flatten(params)
+    unmoved, moved_frozen = [], []
+    for path, sc in scales.items():
+        tuned = (torch.as_tensor(sc, device=after[path].device) != 0) \
+            .expand_as(after[path])
+        changed = after[path] != before[path]
+        if bool(tuned.any()) and not bool((changed & tuned).any()):
+            unmoved.append(path)
+        if bool((changed & ~tuned).any()):
+            moved_frozen.append(path)
+    files = sorted(str(f.relative_to(tmp_dir))
+                   for f in Path(tmp_dir).rglob("*") if f.is_file())
+    return {"window_losses": stats["window_losses"],
+            "val_losses": stats["val_losses"], "wall_s": wall,
+            "micro_ms": log["micro_ms"], "update_ms": log["update_ms"],
+            "val_ms": log["val_ms"], "shapes": log["shapes"],
+            "launches_per_microbatch": log["micro_launches"],
+            "launches_per_val_batch": log["val_launches"],
+            "grads_finite": log["grads_finite"], "unmoved": unmoved,
+            "moved_frozen": moved_frozen, "files": files,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches, "device_launches": device}
+
+
+def expected_micro_launches(cfg) -> dict:
+    """Launches of one scheduled-sampling microbatch by the layer arithmetic
+    (every encoder layer tuned): per encoder layer 4 K1, 1 K3, 2 K4 forward
+    and 1 K3, 1 K4, 1 K7, 2 K8, 4 dgrad, 4 wgrad backward; per decoder layer
+    and pass 6 K1, 2 K3, 3 K4 forward and 1 K1, 2 K3, 2 K4, 2 K7, 3 K8, 6
+    dgrad, 6 wgrad backward; two decoder passes; the transition head's
+    dropout once each way."""
+    le, ld = cfg.encoder.num_layers, 2 * cfg.decoder.num_layers
+    return {"linear_bias_act": 4 * le + 7 * ld,
+            "encoder_attention": 2 * le + 4 * ld,
+            "add_layernorm": 3 * le + 5 * ld,
+            "attention_bwd": le + 2 * ld, "layernorm_bwd": 2 * le + 3 * ld,
+            "linear_dgrad": 4 * le + 6 * ld, "linear_wgrad": 4 * le + 6 * ld,
+            "dropout": 2}
+
+
+def compare_training(torch, model, profile=False):
+    """One flagship microbatch (B = 8) twice through the hand-written path:
+    equal bits demanded, forward and backward timed apart. Then, at B = 4 so
+    that the plain path's fp32 autograd saves fit the card with room, loss
+    and every leaf's gradient against autograd through the plain twins."""
+    from acai_omr_tpu_torch.data.loader import pack_omr_batch, to_device
+    from acai_omr_tpu_torch.ops import _build, transformer
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
+
+    cfg, tok, dt = model.cfg, model.tokenizer, model.compute_dtype
+    ds = training_set(tok, TRAIN_BATCH, SEED + 2)
+    params = trainer.tree_map(lambda v: v.float(), model.params)
+    loss_fn = tf_train.make_loss_fn(cfg, False, dt)
+    grad_fn = trainer.make_grad_fn(loss_fn)
+
+    def batch_of(n):
+        b = pack_omr_batch([ds[i] for i in range(n)], cfg.encoder, tok,
+                           max_lmx_seq_len=cfg.decoder.max_lmx_seq_len)
+        b = to_device(b, model.device)
+        b.update(tf_prob=0.5, tau=2.0)
+        return b
+
+    full = batch_of(TRAIN_BATCH)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        loss, grads = grad_fn(params, full, 7)
+        torch.cuda.synchronize()
+        runs.append((loss, trainer.tree_flatten(grads)))
+    equal_bits = bool(torch.equal(runs[0][0], runs[1][0])) and all(
+        torch.equal(runs[0][1][p], runs[1][1][p]) for p in runs[0][1])
+    micro_launches = {n: op.launches for n, op in _build.REGISTRY.items()
+                      if op.launches}
+
+    # forward and backward apart (host clock around synchronised work)
+    leaves = {p: v.detach().requires_grad_(True)
+              for p, v in trainer.tree_flatten(params).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(trainer.tree_unflatten(leaves), full, 7)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del leaves, loss, runs
+    prof = profile_steps(torch, lambda: grad_fn(params, full, 7), warmup=1,
+                         steps=2) if profile else None
+
+    half = batch_of(TRAIN_BATCH // 2)
+    loss_k, grads_k = grad_fn(params, half, 7)
+    with transformer.plain_twins():
+        loss_p, grads_p = grad_fn(params, half, 7)
+    gk, gp = trainer.tree_flatten(grads_k), trainer.tree_flatten(grads_p)
+    # a stacked leaf is held layer by layer: one layer's wrong gradient
+    # must not hide among the others'
+    for tree in (gk, gp):
+        for p in [p for p in tree if "/blocks/" in p]:
+            for layer, g in enumerate(tree.pop(p)):
+                tree[f"{p}[{layer}]"] = g
+    rel = {p: ((gk[p] - gp[p]).norm()
+               / gp[p].norm().clamp_min(1e-12)).item() for p in gp}
+    num = math.sqrt(sum(float((gk[p] - gp[p]).norm()) ** 2 for p in gp))
+    den = math.sqrt(sum(float(gp[p].norm()) ** 2 for p in gp))
+    worst = max(rel, key=rel.get)
+    return {"equal_bits_two_runs": equal_bits,
+            "forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+            "launches_per_microbatch": micro_launches,
+            "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+            "loss_rel_err": abs(loss_k.item() - loss_p.item())
+            / abs(loss_p.item()),
+            "grad_global_rel_err": num / den, "grad_worst_leaf": worst,
+            "grad_worst_leaf_rel_err": rel[worst],
+            "grad_leaf_rel_err_median": sorted(rel.values())[len(rel) // 2],
+            "grads_finite": all(bool(torch.isfinite(g).all())
+                                for g in gk.values()),
+            **({"profile": prof} if prof else {}), "leaf_rel_err": rel}
 
 
 def main() -> int:
@@ -633,6 +1093,58 @@ def main() -> int:
                         profile="--profile" in sys.argv[1:])
     print(f"[compare] {json.dumps(cmp)}", flush=True)
 
+    # the training path and its comparison with the plain twins
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tr = train_path(torch, model, tmp_dir)
+    paths["train_tf"] = tr
+    want = expected_micro_launches(model.cfg)
+    print(f"[path train_tf] window_losses={tr['window_losses']} "
+          f"val_losses={tr['val_losses']} wall_s={tr['wall_s']:.2f} "
+          f"peak_memory_gb={tr['peak_memory_gb']:.2f} "
+          f"ms_per_microbatch={[round(v, 1) for v in tr['micro_ms']]} "
+          f"optimizer_ms={[round(v, 1) for v in tr['update_ms']]} "
+          f"val_ms={[round(v, 1) for v in tr['val_ms']]} "
+          f"shapes={tr['shapes']} files={tr['files']}", flush=True)
+    print(f"[path train_tf] launches per microbatch "
+          f"{json.dumps(tr['launches_per_microbatch'][-1])} expected "
+          f"{json.dumps(want)}; per validation batch "
+          f"{json.dumps(tr['launches_per_val_batch'][-1])}", flush=True)
+    print(f"[path train_tf] launches {json.dumps(tr['launches'])}", flush=True)
+    finite = lambda vs: len(vs) > 0 and all(math.isfinite(v) for v in vs)
+    if not (finite(tr["window_losses"]) and finite(tr["val_losses"])
+            and len(tr["window_losses"]) == TRAIN_UPDATES
+            and tr["grads_finite"]):
+        failures.append("train_tf: non-finite loss or gradient")
+    if tr["unmoved"] or tr["moved_frozen"]:
+        failures.append(f"train_tf: unmoved {tr['unmoved']} moved frozen "
+                        f"{tr['moved_frozen']}")
+    if any(m != want for m in tr["launches_per_microbatch"]):
+        failures.append("train_tf: launches per microbatch differ from the "
+                        "layer arithmetic")
+    if "tf/vitomr.npz" not in tr["files"] or "tf/stats.csv" not in tr["files"]:
+        failures.append("train_tf: checkpoint or stats.csv missing")
+    for k in EXPECTED_KERNELS["train_tf"]:
+        if tr["launches"][k] <= 0:
+            failures.append(f"train_tf: launches[{k}]=0")
+
+    tcmp = compare_training(torch, model,
+                            profile="--profile" in sys.argv[1:])
+    leaf_errs = tcmp.pop("leaf_rel_err")
+    print(f"[compare train kernel-vs-plain] {json.dumps(tcmp)}", flush=True)
+    if not tcmp["equal_bits_two_runs"]:
+        failures.append("train: two runs of one microbatch differ in bits")
+    if not (tcmp["grads_finite"] and tcmp["loss_rel_err"] <= CMP_LOSS_REL
+            and tcmp["grad_worst_leaf_rel_err"] <= CMP_LEAF_REL
+            and tcmp["grad_global_rel_err"] <= CMP_GLOBAL_REL):
+        failures.append("train kernel path vs plain path")
+    if not (tcmp["loss_rel_err"] <= CMP_LOSS_BAND
+            and tcmp["grad_worst_leaf_rel_err"] <= CMP_LEAF_BAND
+            and tcmp["grad_global_rel_err"] <= CMP_GLOBAL_BAND):
+        failures.append("train kernel path vs plain path: outside three "
+                        "times the errors measured before")
+    tcmp["leaf_rel_err"] = leaf_errs
+
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
     if cmp["encoder_rel_err"] >= 0.02:
         failures.append("encoder kernel path vs plain path")
@@ -643,8 +1155,7 @@ def main() -> int:
             failures.append(f"{key} kernel path vs plain path")
 
     def path_sum(counts, c):
-        return sum(paths[n][counts][c["op"].name]
-                   for n in (c["paths"] or paths))
+        return sum(paths[n][counts][c["op"].name] for n in c["paths"])
 
     kernels = [{"name": f"{c['op'].name}[{c['case']}]", "route": c["op"].route,
                 "source": c["op"].source, "replaces": c["op"].replaces,
@@ -658,6 +1169,7 @@ def main() -> int:
                  if k["launches"] <= 0]
     report = {"card": card, "build_s": build_s, "n_params": n_params,
               "kernels": kernels, "paths": paths, "compare": cmp,
+              "compare_training": tcmp,
               "failures": failures}
     if "--report" in sys.argv[1:]:
         path = Path(sys.argv[sys.argv.index("--report") + 1])

@@ -207,3 +207,213 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         decode_attention_int8(torch.zeros(2, 576, device=dev,
                                           dtype=torch.bfloat16),
                               kc, kc.clone(), ks, ks.clone(), 2, pos=0)
+
+
+# ---------------------------------------------------------------------------
+# the training kernels: K7-K10 and the training modes of K1, K3, K4
+# ---------------------------------------------------------------------------
+
+def _drop(rate=0.25, t=64, stream=11):
+    from acai_omr_tpu_torch.ops.dropout_kernel import DropSpec
+    return DropSpec(rate, 0x1234, 0xBEEF, stream, t)
+
+
+def test_dropout_kernel_equals_twin_bit_for_bit(dev):
+    from acai_omr_tpu_torch.ops.dropout_kernel import dropout_apply
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = _randn(g, 4 * 64, 512, dev=dev)
+    d = _drop()
+    out = dropout_apply(x, d)
+    assert torch.equal(out, dropout_apply.plain(x, d))
+    kept = (out != 0).float().mean().item()
+    assert abs(kept - 0.75) < 0.01
+
+
+@pytest.mark.parametrize("act,save", [("none", False), ("gelu", False),
+                                      ("gelu", True)])
+def test_linear_bias_act_training_epilogues(dev, act, save):
+    g = torch.Generator(device=dev).manual_seed(11)
+    m, k, n = 256, 256, 512
+    x = _randn(g, m, k, dev=dev)
+    w = (_randn(g, k, n, dev=dev, dtype=torch.float32) / math.sqrt(k)) \
+        .to(torch.bfloat16)
+    b = _randn(g, n, dev=dev, dtype=torch.float32)
+    d = _drop()
+    out = linear_bias_act(x, w, b, act, d, save)
+    ref = linear_bias_act.plain(x, w, b, act, d, save)
+    if save:
+        _close(out[1], ref[1])
+        out, ref = out[0], ref[0]
+    # the same elements are dropped; the kept ones agree to a bf16 ulp
+    keep = ref != 0
+    assert ((out != 0) ^ keep).float().mean().item() < 1e-3
+    _close(torch.where(keep, out, 0), torch.where(out != 0, ref, 0))
+
+
+def test_add_layernorm_training_modes(dev):
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, r = _randn(g, 70, 256, dev=dev), _randn(g, 70, 256, dev=dev)
+    gamma = 1 + 0.1 * _randn(g, 256, dev=dev, dtype=torch.float32)
+    beta = 0.1 * _randn(g, 256, dev=dev, dtype=torch.float32)
+    out, z = add_layernorm(x, r, gamma, beta, 1e-5, True)
+    ref, z_ref = add_layernorm.plain(x, r, gamma, beta, 1e-5, True)
+    assert torch.equal(z, z_ref)
+    _close(out, ref)
+    _close(add_layernorm(z, None, gamma, beta, 1e-5),
+           add_layernorm.plain(z, None, gamma, beta, 1e-5))
+
+
+def _attention_case(g, dev, cross, lens):
+    b, tq, e = len(lens), 128, 256
+    tk = 192 if cross else tq
+    valid = torch.arange(tk, device=dev)[None] < torch.tensor(
+        lens, device=dev)[:, None]
+    if cross:
+        q = _randn(g, b * tq, e, dev=dev)
+        kv = _randn(g, b, tk, 2 * e, dev=dev)
+    else:
+        q, kv = _randn(g, b * tq, 3 * e, dev=dev), None
+    return q, kv, valid, b, tq, tk, e
+
+
+@pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
+                                          (True, False)])
+def test_encoder_attention_causal_and_cross(dev, cross, causal):
+    g = torch.Generator(device=dev).manual_seed(13)
+    # a full image, a ragged one, and one with no valid key at all
+    q, kv, valid, *_ = _attention_case(g, dev, cross, [128, 37, 0])
+    out = encoder_attention(q, valid, 4, causal, kv)
+    assert torch.isfinite(out.float()).all()
+    _close(out, encoder_attention.plain(q, valid, 4, causal, kv))
+
+
+@pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
+                                          (True, False)])
+def test_attention_bwd(dev, cross, causal):
+    from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
+    from acai_omr_tpu_torch.ops.encoder_stack_kernel import split_qkv
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, kv, valid, b, tq, tk, e = _attention_case(g, dev, cross, [128, 37, 0])
+    d_o = _randn(g, b, tq, e, dev=dev)
+    q3, k3, v3 = split_qkv(q, kv, b)
+    got = attention_bwd(q3, k3, v3, d_o, valid, 4, causal)
+    again = attention_bwd(q3, k3, v3, d_o, valid, 4, causal)
+    want = attention_bwd.plain(q3, k3, v3, d_o, valid, 4, causal)
+    for a, a2, w in zip(got, again, want):
+        assert torch.equal(a, a2)  # fixed-order sums: equal bits
+        _close(a, w, rel=2e-2)
+    # strided destinations: one dqkv buffer (self) / a mem_kv-shaped one
+    if not cross:
+        dqkv = torch.empty_like(q).view(b, tq, 3 * e)
+        attention_bwd(q3, k3, v3, d_o, valid, 4, causal,
+                      *dqkv.split(e, dim=-1))
+        assert torch.equal(dqkv, torch.cat(got, dim=-1))
+
+
+def test_layernorm_bwd(dev):
+    from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows, e = 640, 256
+    gr, z = _randn(g, rows, e, dev=dev), _randn(g, rows, e, dev=dev)
+    gamma = 1 + 0.1 * _randn(g, e, dev=dev, dtype=torch.float32)
+    d = _drop()
+    got = layernorm_bwd(gr, z, gamma, 1e-5, d)
+    want = layernorm_bwd.plain(gr, z, gamma, 1e-5, d)
+    _close(got[0], want[0])
+    assert torch.equal(got[1] != 0, dropout_plain_keep(got[0], d))
+    _close(got[2], want[2], rel=1e-3)
+    _close(got[3], want[3], rel=1e-3)
+    plain = layernorm_bwd(gr, z, gamma, 1e-5)
+    assert plain[1] is plain[0]
+
+
+def dropout_plain_keep(dz, d):
+    from acai_omr_tpu_torch.ops.dropout_kernel import keep_mask
+    return keep_mask(d, dz.shape[0], dz.shape[1], dz.device) & (dz != 0)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "drop_mul", "add"])
+def test_linear_dgrad(dev, epilogue):
+    from acai_omr_tpu_torch.ops.linear_bwd_kernel import linear_dgrad
+    g = torch.Generator(device=dev).manual_seed(16)
+    m, n, k = 256, 512, 256
+    dy = _randn(g, m, n, dev=dev)
+    w = (_randn(g, k, n, dev=dev, dtype=torch.float32) / math.sqrt(n)) \
+        .to(torch.bfloat16)
+    other = _randn(g, m, k, dev=dev)
+    kw = {"none": {}, "drop_mul": {"drop": _drop(), "mul": other},
+          "add": {"add": other}}[epilogue]
+    out, ref = linear_dgrad(dy, w, **kw), linear_dgrad.plain(dy, w, **kw)
+    if epilogue == "drop_mul":
+        assert ((out != 0) ^ (ref != 0)).float().mean().item() < 1e-3
+        out = torch.where(ref != 0, out, 0)
+        ref = torch.where(out != 0, ref, 0)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("r,k,n", [(256, 128, 128), (2048, 256, 512)])
+def test_linear_wgrad(dev, r, k, n):
+    from acai_omr_tpu_torch.ops.linear_bwd_kernel import linear_wgrad
+    g = torch.Generator(device=dev).manual_seed(17)
+    x, dy = _randn(g, r, k, dev=dev), _randn(g, r, n, dev=dev)
+    stacked = torch.zeros(2, k, n, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(2, n, device=dev)
+    dw, db = linear_wgrad(x, dy, stacked[1], bias[1])
+    dw2, db2 = linear_wgrad(x, dy)
+    want_w, want_b = linear_wgrad.plain(x, dy)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert torch.equal(stacked[1], dw) and not stacked[0].any()
+    _close(dw, want_w)
+    _close(db, want_b, rel=1e-3)
+
+
+@pytest.mark.parametrize("stack", ["encoder", "decoder"])
+def test_training_stacks_forward_and_backward(dev, stack):
+    """The hand-written path against autograd through the plain twins, bf16,
+    dropout on, one image with no valid token."""
+    from acai_omr_tpu_torch.ops import train_layer_kernel as tlk
+    from acai_omr_tpu_torch.ops import transformer
+    gen = torch.Generator().manual_seed(18)
+    n_l, b, t, m, e, h, f = 2, 3, 64, 128, 256, 4, 512
+    init = transformer.encoder_layer_init if stack == "encoder" \
+        else transformer.decoder_layer_init
+    stacked = transformer.stack_init(init, gen, n_l, e, f, device=dev)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+
+    x = torch.randn(b, t, e, generator=gen).to(dev, torch.bfloat16)
+    mem = (0.5 * torch.randn(n_l, b, m, 2 * e, generator=gen)).to(
+        dev, torch.bfloat16)
+    sv = torch.arange(t, device=dev)[None] < torch.tensor(
+        [t, 40, 0], device=dev)[:, None]
+    mv = torch.arange(m, device=dev)[None] < torch.tensor(
+        [m, 100, 70], device=dev)[:, None]
+    weight = torch.linspace(-1, 1, e, device=dev)
+    results = []
+    for plain in (False, True, False):
+        ins = [x.clone().requires_grad_(True),
+               mem.clone().requires_grad_(True)]
+        for v in leaves(stacked):
+            v.grad = None
+            v.requires_grad_(True)
+        if stack == "encoder":
+            out = tlk.encoder_stack_fused(stacked, ins[0], sv, h, 0.1, (3, 4),
+                                          False, plain=plain)
+        else:
+            out = tlk.decoder_stack_fused(stacked, ins[0], ins[1], sv, mv, h,
+                                          0.1, (3, 4), False, plain=plain)
+        (out.float() * weight).sum().backward()
+        grads = [ins[0].grad] + ([ins[1].grad] if stack == "decoder" else []) \
+            + [v.grad.clone() for v in leaves(stacked)]
+        results.append((out.detach(), grads))
+    (out_k, g_k), (out_p, g_p), (out_k2, g_k2) = results
+    assert torch.isfinite(out_k.float()).all()
+    rel = lambda a, c: ((a.float() - c.float()).norm()
+                        / c.float().norm().clamp_min(1e-6)).item()
+    assert rel(out_k, out_p) < 2e-2
+    for a, c, a2 in zip(g_k, g_p, g_k2):
+        assert torch.equal(a, a2)
+        assert torch.isfinite(a.float()).all()
+        assert rel(a, c) < 5e-2
