@@ -26,6 +26,7 @@ LMX_VOCAB_PATH = _env_path("ACAI_LMX_VOCAB", str(REPO_ROOT / "lmx_vocab.txt"))
 PATCH_SIZE = 16
 PE_MAX_HEIGHT = 60
 PE_MAX_WIDTH = 200
+MAE_MAX_SEQ_LEN = 512       # encoder patch budget during MAE pretraining
 OMR_MAX_IMG_SEQ_LEN = 1024  # encoder patch budget during seq2seq training/inference
 MAX_LMX_SEQ_LEN = 1536      # decoder token budget
 
@@ -38,7 +39,9 @@ NUM_DECODER_LAYERS = 12
 KERNEL_BUILD_DIR = _env_path("ACAI_TORCH_KERNEL_DIR",
                              str(REPO_ROOT / "build" / "torch_kernels"))
 
-# Dataset roots of stage-2 training (not in the repository).
+# Dataset roots of stage-1 and stage-2 training (not in the repository).
+PRIMUS_PREPARED_ROOT_DIR = _env_path("ACAI_PRIMUS_ROOT", "data/primusPrepared")
+DOREMI_PREPARED_ROOT_DIR = _env_path("ACAI_DOREMI_ROOT", "data/doReMiPrepared")
 GRAND_STAFF_ROOT_DIR = _env_path(
     "ACAI_GRAND_STAFF_ROOT", "data/grandstaff-lmx.2024-02-12/grandstaff-lmx")
 OLIMPIC_SYNTHETIC_ROOT_DIR = _env_path(

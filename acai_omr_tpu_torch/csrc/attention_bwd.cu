@@ -29,6 +29,9 @@
 //      query tiles, recomputes P and dS from the statistics and accumulates
 //      dV += P^T dO and dK += dS^T Q in fragments.
 // Four warps, wmma 16x16x16 bf16 tiles, dynamic shared memory above 48 KB.
+// The head dim is a template parameter, 64 or 32 (the MAE decoder): each head
+// is its own Dh-wide tile product, as in K3; the TPU kernel's pairing of two
+// 32-wide heads under 0/1 lane masks has no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,19 +44,27 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int DH = 64;
 constexpr int TILE = 64;
 constexpr int THREADS = 128;
-constexpr int H_LD = DH + 8;    // bf16 tiles
+constexpr int P_LD = TILE + 8;  // bf16 tiles of P and dS (64 x 64)
 constexpr int S_LD = TILE + 4;  // fp32 tile
 constexpr float NEG = -1e9f;
-constexpr int BF_TILE = TILE * H_LD;  // elements of one bf16 tile
-constexpr int F_TILE = TILE * S_LD;   // elements of one fp32 tile
+constexpr int P_TILE = TILE * P_LD;  // elements of one P / dS tile
+constexpr int F_TILE = TILE * S_LD;  // elements of one fp32 tile
 
-constexpr size_t DQ_SMEM = 5 * BF_TILE * sizeof(__nv_bfloat16) +
-                           F_TILE * sizeof(float) + TILE * sizeof(float);
-constexpr size_t DKV_SMEM = 6 * BF_TILE * sizeof(__nv_bfloat16) +
-                            F_TILE * sizeof(float) + 4 * TILE * sizeof(float);
+// Per head dim: the 64 x DH bf16 tiles of Q, dO, K, V (row stride DH + 8) and
+// the two kernels' dynamic shared memory.
+template <int DH>
+struct Dims {
+  static constexpr int H_LD = DH + 8;
+  static constexpr int BF_TILE = TILE * H_LD;
+  static constexpr size_t DQ_SMEM =
+      (4 * BF_TILE + P_TILE) * sizeof(__nv_bfloat16) + F_TILE * sizeof(float) +
+      TILE * sizeof(float);
+  static constexpr size_t DKV_SMEM =
+      (4 * BF_TILE + 2 * P_TILE) * sizeof(__nv_bfloat16) +
+      F_TILE * sizeof(float) + 4 * TILE * sizeof(float);
+};
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
@@ -73,6 +84,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <int DH>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, size_t ld_g,
                                           int tid) {
@@ -80,15 +92,17 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   for (int v = tid; v < TILE * DH / 8; v += THREADS) {
     const int r = v / (DH / 8);
     const int c = (v % (DH / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * H_LD + c) =
+    *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * ld_g + c);
   }
 }
 
-// C(16 x 64, fp32, into dst rows row0..) = A_w (16 x 64 of `a`) * B^T where B
-// is a 64 x 64 bf16 tile: C[r][c] = sum_d a[row0 + r][d] * b[c][d].
+// C(16 x 64, fp32, into dst rows row0..) = A_w (16 x DH of `a`) * B^T where B
+// is a 64 x DH bf16 tile: C[r][c] = sum_d a[row0 + r][d] * b[c][d].
+template <int DH>
 __device__ __forceinline__ void mm_abt(float* dst, const __nv_bfloat16* a,
                                        const __nv_bfloat16* b, int row0) {
+  constexpr int H_LD = DH + 8;
 #pragma unroll
   for (int j = 0; j < TILE / 16; ++j) {
     FragC s;
@@ -135,14 +149,17 @@ struct Operands {
   int causal;
 };
 
+template <int DH>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
+  constexpr int H_LD = Dims<DH>::H_LD;
+  constexpr int BF_TILE = Dims<DH>::BF_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* dOs = Qs + BF_TILE;
   __nv_bfloat16* Ks = dOs + BF_TILE;
   __nv_bfloat16* Vs = Ks + BF_TILE;
   __nv_bfloat16* dSs = Vs + BF_TILE;
-  float* Ss = reinterpret_cast<float*>(dSs + BF_TILE);
+  float* Ss = reinterpret_cast<float*>(dSs + P_TILE);
   float* kbias = Ss + F_TILE;
 
   const int q0 = blockIdx.x * TILE;
@@ -154,8 +171,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
   const __nv_bfloat16* kb = p.k + (size_t)b * p.Tk * p.ldkv + h * DH;
   const __nv_bfloat16* vb = p.v + (size_t)b * p.Tk * p.ldkv + h * DH;
 
-  load_tile(Qs, p.q + ((size_t)b * p.Tq + q0) * p.ldq + h * DH, p.ldq, tid);
-  load_tile(dOs, p.d_o + ((size_t)b * p.Tq + q0) * p.ldo + h * DH, p.ldo, tid);
+  load_tile<DH>(Qs, p.q + ((size_t)b * p.Tq + q0) * p.ldq + h * DH, p.ldq, tid);
+  load_tile<DH>(dOs, p.d_o + ((size_t)b * p.Tq + q0) * p.ldo + h * DH, p.ldo, tid);
 
   float m_run[16], l_run[16], dsum[16];
 #pragma unroll
@@ -167,8 +184,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
 
   auto load_keys = [&](int k0, bool with_v) {
     __syncthreads();
-    load_tile(Ks, kb + (size_t)k0 * p.ldkv, p.ldkv, tid);
-    if (with_v) load_tile(Vs, vb + (size_t)k0 * p.ldkv, p.ldkv, tid);
+    load_tile<DH>(Ks, kb + (size_t)k0 * p.ldkv, p.ldkv, tid);
+    if (with_v) load_tile<DH>(Vs, vb + (size_t)k0 * p.ldkv, p.ldkv, tid);
     if (tid < TILE)
       kbias[tid] = p.valid[(size_t)b * p.Tk + k0 + tid] ? 0.0f : NEG;
     __syncthreads();
@@ -177,7 +194,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
   // pass 1: softmax statistics, as the forward takes them
   for (int k0 = 0; k0 < p.Tk; k0 += TILE) {
     load_keys(k0, false);
-    mm_abt(Ss, Qs, Ks, row0);
+    mm_abt<DH>(Ss, Qs, Ks, row0);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       float s0, s1;
@@ -201,7 +218,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
   for (int pass = 2; pass <= 3; ++pass) {
     for (int k0 = 0; k0 < p.Tk; k0 += TILE) {
       load_keys(k0, true);
-      mm_abt(Ss, Qs, Ks, row0);
+      mm_abt<DH>(Ss, Qs, Ks, row0);
       float p0[16], p1[16];
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
@@ -212,7 +229,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
         p1[r] = expf(s1 - m_run[r]) * l_run[r];
       }
       __syncwarp();
-      mm_abt(Ss, dOs, Vs, row0);  // dP over the score rows
+      mm_abt<DH>(Ss, dOs, Vs, row0);  // dP over the score rows
       if (pass == 2) {
 #pragma unroll
         for (int r = 0; r < 16; ++r) {
@@ -225,7 +242,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
         const float* srow = Ss + (row0 + r) * S_LD;
-        __nv_bfloat16* drow = dSs + (row0 + r) * H_LD;
+        __nv_bfloat16* drow = dSs + (row0 + r) * P_LD;
         drow[lane] =
             __float2bfloat16(p0[r] * (srow[lane] - dsum[r]) * p.scale);
         drow[lane + 32] =
@@ -235,7 +252,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
 #pragma unroll
       for (int kk = 0; kk < TILE / 16; ++kk) {
         FragA fa;
-        wmma::load_matrix_sync(fa, dSs + row0 * H_LD + kk * 16, H_LD);
+        wmma::load_matrix_sync(fa, dSs + row0 * P_LD + kk * 16, P_LD);
 #pragma unroll
         for (int j = 0; j < DH / 16; ++j) {
           FragB fb;
@@ -259,8 +276,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
     const float* srow = Ss + (row0 + r) * S_LD;
     __nv_bfloat16* orow =
         p.dq + ((size_t)b * p.Tq + q0 + row0 + r) * p.lddq + h * DH;
-    orow[lane] = __float2bfloat16(srow[lane]);
-    orow[lane + 32] = __float2bfloat16(srow[lane + 32]);
+#pragma unroll
+    for (int c = lane; c < DH; c += 32) orow[c] = __float2bfloat16(srow[c]);
     if (lane == 0) {
       p.stats[srow0 + r] = m_run[r];
       p.stats[plane + srow0 + r] = l_run[r];
@@ -269,15 +286,18 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq(Operands p) {
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
+  constexpr int H_LD = Dims<DH>::H_LD;
+  constexpr int BF_TILE = Dims<DH>::BF_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Vs = Ks + BF_TILE;
   __nv_bfloat16* Qs = Vs + BF_TILE;
   __nv_bfloat16* dOs = Qs + BF_TILE;
   __nv_bfloat16* Ps = dOs + BF_TILE;
-  __nv_bfloat16* dSs = Ps + BF_TILE;
-  float* Ss = reinterpret_cast<float*>(dSs + BF_TILE);
+  __nv_bfloat16* dSs = Ps + P_TILE;
+  float* Ss = reinterpret_cast<float*>(dSs + P_TILE);
   float* kbias = Ss + F_TILE;
   float* st_m = kbias + TILE;
   float* st_il = st_m + TILE;
@@ -291,8 +311,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
   const int row0 = (tid / 32) * 16;
   const size_t plane = (size_t)p.B * p.H * p.Tq;
 
-  load_tile(Ks, p.k + ((size_t)b * p.Tk + k0) * p.ldkv + h * DH, p.ldkv, tid);
-  load_tile(Vs, p.v + ((size_t)b * p.Tk + k0) * p.ldkv + h * DH, p.ldkv, tid);
+  load_tile<DH>(Ks, p.k + ((size_t)b * p.Tk + k0) * p.ldkv + h * DH, p.ldkv, tid);
+  load_tile<DH>(Vs, p.v + ((size_t)b * p.Tk + k0) * p.ldkv + h * DH, p.ldkv, tid);
   if (tid < TILE) kbias[tid] = p.valid[(size_t)b * p.Tk + k0 + tid] ? 0.0f : NEG;
 
   FragC dk[DH / 16], dv[DH / 16];
@@ -304,8 +324,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
 
   for (int q0 = 0; q0 < p.Tq; q0 += TILE) {
     __syncthreads();  // the last tile's P, dS, Q, dO are consumed
-    load_tile(Qs, p.q + ((size_t)b * p.Tq + q0) * p.ldq + h * DH, p.ldq, tid);
-    load_tile(dOs, p.d_o + ((size_t)b * p.Tq + q0) * p.ldo + h * DH, p.ldo, tid);
+    load_tile<DH>(Qs, p.q + ((size_t)b * p.Tq + q0) * p.ldq + h * DH, p.ldq, tid);
+    load_tile<DH>(dOs, p.d_o + ((size_t)b * p.Tq + q0) * p.ldo + h * DH, p.ldo, tid);
     if (tid < TILE) {
       const size_t s = ((size_t)b * p.H + h) * p.Tq + q0 + tid;
       st_m[tid] = p.stats[s];
@@ -315,7 +335,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
     __syncthreads();
 
     // this warp's 16 query rows: P, then dS, into shared memory
-    mm_abt(Ss, Qs, Ks, row0);
+    mm_abt<DH>(Ss, Qs, Ks, row0);
     float p0[16], p1[16];
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
@@ -324,16 +344,16 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
              s0, s1);
       p0[r] = expf(s0 - st_m[row0 + r]) * st_il[row0 + r];
       p1[r] = expf(s1 - st_m[row0 + r]) * st_il[row0 + r];
-      __nv_bfloat16* prow = Ps + (row0 + r) * H_LD;
+      __nv_bfloat16* prow = Ps + (row0 + r) * P_LD;
       prow[lane] = __float2bfloat16(p0[r]);
       prow[lane + 32] = __float2bfloat16(p1[r]);
     }
     __syncwarp();
-    mm_abt(Ss, dOs, Vs, row0);
+    mm_abt<DH>(Ss, dOs, Vs, row0);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float* srow = Ss + (row0 + r) * S_LD;
-      __nv_bfloat16* drow = dSs + (row0 + r) * H_LD;
+      __nv_bfloat16* drow = dSs + (row0 + r) * P_LD;
       const float d = st_d[row0 + r];
       drow[lane] = __float2bfloat16(p0[r] * (srow[lane] - d) * p.scale);
       drow[lane + 32] =
@@ -345,8 +365,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
 #pragma unroll
     for (int qq = 0; qq < TILE / 16; ++qq) {
       FragAT fp, fs;
-      wmma::load_matrix_sync(fp, Ps + (qq * 16) * H_LD + row0, H_LD);
-      wmma::load_matrix_sync(fs, dSs + (qq * 16) * H_LD + row0, H_LD);
+      wmma::load_matrix_sync(fp, Ps + (qq * 16) * P_LD + row0, P_LD);
+      wmma::load_matrix_sync(fs, dSs + (qq * 16) * P_LD + row0, P_LD);
 #pragma unroll
       for (int j = 0; j < DH / 16; ++j) {
         FragB fo, fq;
@@ -373,36 +393,45 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
       const float* srow = Ss + (row0 + r) * S_LD;
       __nv_bfloat16* orow =
           dst + ((size_t)b * p.Tk + k0 + row0 + r) * p.lddkv + h * DH;
-      orow[lane] = __float2bfloat16(srow[lane]);
-      orow[lane + 32] = __float2bfloat16(srow[lane + 32]);
+#pragma unroll
+      for (int c = lane; c < DH; c += 32) orow[c] = __float2bfloat16(srow[c]);
     }
     __syncwarp();
   }
+}
+
+template <int DH>
+int launch(const Operands& p, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Dims<DH>::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attn_bwd_dkv<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Dims<DH>::DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dq<DH><<<dim3(p.Tq / TILE, p.H, p.B), THREADS, Dims<DH>::DQ_SMEM,
+                    s>>>(p);
+  attn_bwd_dkv<DH><<<dim3(p.Tk / TILE, p.H, p.B), THREADS, Dims<DH>::DKV_SMEM,
+                     s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, d_o, dq: rows B*Tq with strides ldq, ldo, lddq; k, v: rows B*Tk with
 // stride ldkv; dk, dv: rows B*Tk with stride lddkv; valid (B, Tk) uint8; stats
-// (3, B, H, Tq) fp32 scratch. Requires Dh == 64, Tq % 64 == 0, Tk % 64 == 0,
-// every stride a multiple of 8.
+// (3, B, H, Tq) fp32 scratch. Requires Dh == 64 or Dh == 32, Tq % 64 == 0,
+// Tk % 64 == 0, every stride a multiple of 8.
 extern "C" int acai_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* d_o, const void* valid, void* dq,
                                   void* dk, void* dv, void* stats, int B,
                                   int Tq, int Tk, int H, int dh, int ldq,
                                   int ldkv, int ldo, int lddq, int lddkv,
                                   float scale, int causal, void* stream) {
-  if (dh != DH || Tq % TILE != 0 || Tk % TILE != 0 || ldq % 8 != 0 ||
-      ldkv % 8 != 0 || ldo % 8 != 0)
+  if ((dh != 64 && dh != 32) || Tq % TILE != 0 || Tk % TILE != 0 ||
+      ldq % 8 != 0 || ldkv % 8 != 0 || ldo % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
   const Operands p{static_cast<const __nv_bfloat16*>(q),
                    static_cast<const __nv_bfloat16*>(k),
                    static_cast<const __nv_bfloat16*>(v),
@@ -413,7 +442,6 @@ extern "C" int acai_attention_bwd(const void* q, const void* k, const void* v,
                    static_cast<__nv_bfloat16*>(dv),
                    static_cast<float*>(stats),
                    B, H, Tq, Tk, ldq, ldkv, ldo, lddq, lddkv, scale, causal};
-  attn_bwd_dq<<<dim3(Tq / TILE, H, B), THREADS, DQ_SMEM, s>>>(p);
-  attn_bwd_dkv<<<dim3(Tk / TILE, H, B), THREADS, DKV_SMEM, s>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dh == 32 ? launch<32>(p, s) : launch<64>(p, s);
 }

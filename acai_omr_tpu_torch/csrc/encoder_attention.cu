@@ -23,13 +23,20 @@
 // (running max and rescaled sum) per query row, the second recomputes the
 // logits tile by tile, forms the normalised p in bf16 and accumulates p @ V in
 // tensor-core fragments. The scores exist only one 64x64 tile at a time in
-// shared memory. Causal runs visit every key tile too: with the additive mask
+// shared memory. The head dim is a template parameter, 64 (the ViT encoder and
+// the seq2seq decoder) or 32 (the MAE decoder's 16 heads of a 512-wide layer):
+// each head is a tile product of its own Dh columns, so a head of 32 does half
+// the work of a head of 64 (the TPU kernel pairs two such heads in one 64-lane
+// group with the other head's lanes zeroed, `_group_spec` / `_head_col_mask`,
+// because it cannot slice below 64 lanes; nothing of that is needed here). Causal runs visit every key tile too: with the additive mask
 // a fully padded row spreads over the keys after it as well, and skipping
 // tiles would change that.
 //
 // Bound on an H100: tensor-core flops (4 * B * H * Tq * Tk * Dh for QK^T and
 // PV, plus the second QK^T this design recomputes) at 989 TFLOP/s bf16; the
-// bytes are small beside them at T = 1024. Design: one block per (64-query
+// bytes are small beside them at T = 1024 (at Dh = 32 and T = 512, the MAE
+// decoder, reading q, k, v and writing the output once is the larger of the
+// two). Design: one block per (64-query
 // tile, head, image), four warps of 16 query rows each, wmma 16x16x16 bf16
 // tiles; K and V tiles share one shared-memory buffer. No pipelining of the
 // tile loads yet.
@@ -45,11 +52,10 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int DH = 64;
 constexpr int QT = 64;
 constexpr int KT = 64;
 constexpr int THREADS = 128;
-constexpr int H_LD = DH + 8;  // bf16 tiles (Q, K/V, P)
+constexpr int P_LD = KT + 8;  // bf16 probability tile
 constexpr int S_LD = KT + 4;  // fp32 score tile
 constexpr float NEG = -1e9f;
 
@@ -65,7 +71,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// rows x 64 bf16 tile from global (row stride ld_g elements) into shared.
+// 64 x DH bf16 tile from global (row stride ld_g elements) into shared (row
+// stride DH + 8).
+template <int DH>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, size_t ld_g,
                                           int tid) {
@@ -73,11 +81,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   for (int v = tid; v < 64 * DH / 8; v += THREADS) {
     const int r = v / (DH / 8);
     const int c = (v % (DH / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * H_LD + c) =
+    *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * ld_g + c);
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
 encoder_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -85,10 +94,11 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const uint8_t* __restrict__ valid,
                          __nv_bfloat16* __restrict__ out, int Tq, int Tk,
                          int E, int ldq, int ldkv, float scale, int causal) {
+  constexpr int H_LD = DH + 8;  // bf16 tiles of Q and K/V
   __shared__ __align__(128) __nv_bfloat16 Qs[QT * H_LD];
   __shared__ __align__(128) __nv_bfloat16 KVs[KT * H_LD];
   __shared__ __align__(128) float Ss[QT * S_LD];
-  __shared__ __align__(128) __nv_bfloat16 Ps[QT * H_LD];
+  __shared__ __align__(128) __nv_bfloat16 Ps[QT * P_LD];
   __shared__ float kbias[KT];
 
   const int q0 = blockIdx.x * QT;
@@ -102,7 +112,7 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + (size_t)b * Tk * ldkv + h * DH;
   const int row0 = warp * 16;
 
-  load_tile(Qs, qb + (size_t)q0 * ldq, ldq, tid);
+  load_tile<DH>(Qs, qb + (size_t)q0 * ldq, ldq, tid);
 
   float m_run[16], l_run[16];
 #pragma unroll
@@ -142,7 +152,7 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   auto load_keys = [&](int k0) {
-    load_tile(KVs, kb + (size_t)k0 * ldkv, ldkv, tid);
+    load_tile<DH>(KVs, kb + (size_t)k0 * ldkv, ldkv, tid);
     if (tid < KT) kbias[tid] = valid[(size_t)b * Tk + k0 + tid] ? 0.0f : NEG;
   };
 
@@ -179,18 +189,18 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float* srow = Ss + (row0 + r) * S_LD;
-      __nv_bfloat16* prow = Ps + (row0 + r) * H_LD;
+      __nv_bfloat16* prow = Ps + (row0 + r) * P_LD;
       prow[lane] = __float2bfloat16(expf(srow[lane] - m_run[r]) * inv_l[r]);
       prow[lane + 32] =
           __float2bfloat16(expf(srow[lane + 32] - m_run[r]) * inv_l[r]);
     }
     __syncthreads();  // every warp is done reading K from KVs
-    load_tile(KVs, vb + (size_t)k0 * ldkv, ldkv, tid);
+    load_tile<DH>(KVs, vb + (size_t)k0 * ldkv, ldkv, tid);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Ps + row0 * H_LD + kk * 16, H_LD);
+      wmma::load_matrix_sync(a, Ps + row0 * P_LD + kk * 16, P_LD);
 #pragma unroll
       for (int j = 0; j < DH / 16; ++j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
@@ -212,29 +222,41 @@ encoder_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const float* srow = Ss + (row0 + r) * S_LD;
     __nv_bfloat16* orow =
         out + ((size_t)b * Tq + q0 + row0 + r) * E + h * DH;
-    orow[lane] = __float2bfloat16(srow[lane]);
-    orow[lane + 32] = __float2bfloat16(srow[lane + 32]);
+#pragma unroll
+    for (int c = lane; c < DH; c += 32) orow[c] = __float2bfloat16(srow[c]);
   }
 }
 
-}  // namespace
-
-// q: rows B*Tq, stride ldq; k, v: rows B*Tk, stride ldkv; valid: (B, Tk)
-// uint8; out: (B*Tq, E) bf16. Requires Dh == 64, Tq % 64 == 0, Tk % 64 == 0
-// and strides that keep 16-byte loads aligned (multiples of 8).
-extern "C" int acai_encoder_attention(const void* q, const void* k,
-                                      const void* v, const void* valid,
-                                      void* out, int B, int Tq, int Tk, int H,
-                                      int dh, int ldq, int ldkv, float scale,
-                                      int causal, void* stream) {
-  if (dh != DH || Tq % QT != 0 || Tk % KT != 0 || ldq % 8 != 0 || ldkv % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* valid,
+           void* out, int B, int Tq, int Tk, int H, int ldq, int ldkv,
+           float scale, int causal, cudaStream_t s) {
   dim3 grid(Tq / QT, H, B);
-  encoder_attention_kernel<<<grid, THREADS, 0, s>>>(
+  encoder_attention_kernel<DH><<<grid, THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(valid),
       static_cast<__nv_bfloat16*>(out), Tq, Tk, H * DH, ldq, ldkv, scale,
       causal);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q: rows B*Tq, stride ldq; k, v: rows B*Tk, stride ldkv; valid: (B, Tk)
+// uint8; out: (B*Tq, E) bf16. Requires Dh == 64 or Dh == 32, Tq % 64 == 0,
+// Tk % 64 == 0 and strides that keep 16-byte loads aligned (multiples of 8).
+extern "C" int acai_encoder_attention(const void* q, const void* k,
+                                      const void* v, const void* valid,
+                                      void* out, int B, int Tq, int Tk, int H,
+                                      int dh, int ldq, int ldkv, float scale,
+                                      int causal, void* stream) {
+  if ((dh != 64 && dh != 32) || Tq % QT != 0 || Tk % KT != 0 || ldq % 8 != 0 ||
+      ldkv % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 32)
+    return launch<32>(q, k, v, valid, out, B, Tq, Tk, H, ldq, ldkv, scale,
+                      causal, s);
+  return launch<64>(q, k, v, valid, out, B, Tq, Tk, H, ldq, ldkv, scale,
+                    causal, s);
 }

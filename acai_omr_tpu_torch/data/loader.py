@@ -1,5 +1,5 @@
 """Threaded prefetching batch loader: host packing overlapped with device
-steps (the twin of the JAX package's ``data/loader.py``, seq2seq half).
+steps (the twin of the JAX package's ``data/loader.py``).
 
 Workers load, transform and *pack* examples into static-shape numpy arrays
 (the expensive host work is PIL decode/resize and numpy patchify, which
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models import omr_decoder, vit_encoder
+from ..ops import patchify as patch_ops
 from ..models.vit_encoder import EncoderConfig
 
 
@@ -37,6 +38,31 @@ def _pad_batch_dim(arrays: dict, pad_to: int | None,
         pad = [(0, pad_to - b)] + [(0, 0)] * (v.ndim - 1)
         out[k] = np.pad(v, pad, constant_values=fills.get(k, 0))
     return out
+
+
+def pack_mae_batch(examples, enc_cfg: EncoderConfig, bucket_multiple=128,
+                   pad_to_batch: int | None = None) -> dict:
+    """[(input_img, target_img)] -> packed arrays for an MAE step: patches,
+    pe_idx, pe_w, valid, lengths, target_patches. Targets share their
+    input's shape and are patchified into the same bucket; when every target
+    IS its input object (the un-augmented wrappers pass it straight through)
+    the input's patches are reused instead of patchifying twice."""
+    inputs = [ex[0] for ex in examples]
+    targets = [ex[1] for ex in examples]
+    pb = vit_encoder.batchify(inputs, enc_cfg, bucket_multiple)
+    if all(t is i for t, i in zip(targets, inputs)):
+        tgt = pb.patches
+    else:
+        tgt = np.zeros_like(pb.patches)
+        for i, t in enumerate(targets):
+            t = np.asarray(t, dtype=np.float32)
+            if t.ndim == 2:
+                t = t[None]
+            tp = patch_ops.patchify(t, enc_cfg.patch_size)
+            tgt[i, :tp.shape[0]] = tp
+    arrays = dict(patches=pb.patches, pe_idx=pb.pe_idx, pe_w=pb.pe_w,
+                  valid=pb.valid, lengths=pb.lengths, target_patches=tgt)
+    return _pad_batch_dim(arrays, pad_to_batch)
 
 
 def pack_omr_batch(examples, enc_cfg: EncoderConfig, tokenizer,
@@ -66,14 +92,16 @@ def to_device(batch: dict, device) -> dict:
     device each goes through a pinned host buffer and a ``non_blocking``
     copy."""
     device = torch.device(device)
-    out = {}
+    out, moved = {}, {}
     for k, v in batch.items():
         if not isinstance(v, np.ndarray):
             continue
-        t = torch.from_numpy(v)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
+        if id(v) not in moved:  # an MAE batch may name one array twice
+            t = torch.from_numpy(v)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            moved[id(v)] = t
+        out[k] = moved[id(v)]
     return out
 
 

@@ -1,7 +1,6 @@
 """ViT encoder over ragged multi-resolution sheet-music images.
 
-The twin of the JAX package's ``models/vit_encoder.py`` (without its MAE
-masking):
+The twin of the JAX package's ``models/vit_encoder.py``:
 
 * :func:`batchify` is a host-side packer (numpy) that emits fixed-shape
   arrays padded to a shape bucket plus gather indices into the 2-D PE grid;
@@ -10,7 +9,9 @@ masking):
 * :func:`encode` runs the post-norm stack through the kernel path on CUDA and
   ends in a final LayerNorm with eps 1e-6; in training it applies dropout,
   runs the frozen prefix of layers without saves and cuts the gradient
-  after it.
+  after it;
+* :func:`mae_mask` / :func:`gather_kept` are the per-example random masking
+  of MAE pretraining as two stable argsorts and a gather over static shapes.
 """
 
 from __future__ import annotations
@@ -172,3 +173,76 @@ def encode(params: Params, cfg: EncoderConfig, patches, pe_idx, pe_w, valid,
         x = transformer.encoder_stack(tune, x, valid, heads, cfg.dropout,
                                       seeds, deterministic)
     return nn.layernorm(params["final_norm"], x, eps=1e-6), valid
+
+
+# ---------------------------------------------------------------------------
+# MAE masking (device-side, static shapes)
+# ---------------------------------------------------------------------------
+
+def mae_keep_len(length, mask_ratio: float) -> np.ndarray:
+    """len_keep = int(L * (1 - mask_ratio)), in float64 on the host."""
+    return (np.asarray(length) * (1.0 - mask_ratio)).astype(np.int32)
+
+
+@dataclasses.dataclass
+class MaeMask:
+    """Device tensors describing one batch's random masking."""
+    ids_keep: torch.Tensor      # (B, K) indices of kept patches (into 0..L)
+    kept_valid: torch.Tensor    # (B, K) True where a real kept patch
+    ids_restore: torch.Tensor   # (B, L) inverse shuffle permutation
+    seq_mask: torch.Tensor      # (B, L) True = patch was masked out
+    keep_lengths: torch.Tensor  # (B,) number of kept patches per example
+
+
+def mae_mask(valid: torch.Tensor, lengths: torch.Tensor, mask_ratio: float,
+             keep_bucket: int, generator: torch.Generator | None = None,
+             noise: torch.Tensor | None = None) -> MaeMask:
+    """Per-example shuffle and mask over static shapes.
+
+    valid: (B, L) patch validity; lengths: (B,) true lengths; ``keep_bucket``
+    is the static K dimension (>= the largest keep length in the batch).
+    Padding positions get +inf noise, so each example's argsort orders its
+    real patches (randomly) first; the first ``keep_len[i]`` shuffled slots
+    are the kept patches. The noise is ``torch.rand`` from ``generator``
+    (drawn on the generator's device) unless ``noise`` (B, L) is given.
+
+    Both argsorts are stable, as ``jnp.argsort`` is: the padding slots all
+    carry +inf, and ``ids_keep`` reaches into them when an image has fewer
+    valid patches than ``keep_bucket``, so their order is part of the result.
+    The keep length comes from a float64 table built on the host: an fp32
+    floor on the device rounds up across an integer boundary for ratios that
+    fp32 does not hold exactly (L = 1000, r = 0.9 keeps 99, not 100).
+    """
+    b, l = valid.shape
+    dev = valid.device
+    if noise is None:
+        if generator is None:
+            raise ValueError("mae_mask needs a generator or the noise")
+        noise = torch.rand((b, l), generator=generator,
+                           device=generator.device)
+    noise = torch.as_tensor(noise).to(device=dev, dtype=torch.float32)
+    noise = torch.where(valid, noise, torch.full_like(noise, float("inf")))
+    ids_shuffle = torch.argsort(noise, dim=-1, stable=True)
+    ids_restore = torch.argsort(ids_shuffle, dim=-1, stable=True)
+
+    keep_table = torch.from_numpy(
+        mae_keep_len(np.arange(l + 1), mask_ratio)).to(dev)
+    keep_lengths = keep_table[lengths.long()]
+    ids_keep = ids_shuffle[:, :keep_bucket]
+    kept_valid = torch.arange(keep_bucket, device=dev)[None] \
+        < keep_lengths[:, None]
+    # slot j of the shuffled order is kept iff j < keep_len; in the original
+    # order a patch is masked when it is valid and not kept
+    shuffled_masked = torch.arange(l, device=dev)[None] \
+        >= keep_lengths[:, None]
+    seq_mask = torch.gather(shuffled_masked, 1, ids_restore) & valid
+    return MaeMask(ids_keep, kept_valid, ids_restore, seq_mask, keep_lengths)
+
+
+def gather_kept(x: torch.Tensor, mask: MaeMask) -> torch.Tensor:
+    """Select kept patches: (B, L, D) -> (B, K, D), padded slots zeroed.
+    A row's kept indices are distinct (a prefix of a permutation), so the
+    gradient's scatter-add meets no repeated row."""
+    idx = mask.ids_keep[..., None].expand(-1, -1, x.shape[-1])
+    out = torch.gather(x, 1, idx)
+    return torch.where(mask.kept_valid[..., None], out, torch.zeros_like(out))

@@ -20,6 +20,7 @@ from ..ops import nn, transformer
 from . import omr_decoder, vit_encoder
 from .omr_decoder import DecoderConfig
 from .vit_encoder import EncoderConfig
+from .weights import _flatten, _unflatten
 
 Params = dict
 
@@ -52,6 +53,25 @@ def init_vitomr_params(cfg: ViTOMRConfig, seed: int = 0, dtype=torch.float32,
         "decoder": omr_decoder.init_decoder_params(gen, cfg.decoder, dtype,
                                                    device),
     }
+
+
+def vitomr_params_from_mae(vitomr_params: Params, mae_params: Params) -> Params:
+    """Transplant a pretrained MAE encoder into a ViTOMR param tree: the
+    encoder subtree is taken over leaf for leaf (the frozen / fine-tune split
+    needs no renaming, since the layers are one stacked array sliced at run
+    time). MAE leaves given as numpy arrays become tensors on the device and
+    in the dtype of the leaf they replace."""
+    like = _flatten(vitomr_params["encoder"])
+    new = _flatten(mae_params["encoder"])
+    if like.keys() != new.keys():
+        raise KeyError(
+            f"encoder tree mismatch: missing {sorted(like.keys() - new.keys())}"
+            f", extra {sorted(new.keys() - like.keys())}")
+    out = dict(vitomr_params)
+    out["encoder"] = _unflatten({
+        k: torch.as_tensor(v).to(device=like[k].device, dtype=like[k].dtype)
+        for k, v in new.items()})
+    return out
 
 
 def transition_head(params: Params, x: torch.Tensor,

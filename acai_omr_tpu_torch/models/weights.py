@@ -7,6 +7,8 @@ a strict leaf-for-leaf copy into tensors. :func:`params_from_jax` takes the
 tree as numpy arrays (e.g. ``jax.tree.map(np.asarray, params)`` on the JAX
 side) and raises on any missing or extra key; :func:`load_npz` reads the same
 tree from a ``.npz`` whose keys are ``/``-joined paths.
+:func:`mae_params_from_jax` and :func:`load_mae_npz` do the same for the MAE
+tree of stage-1 pretraining (``init_mae_params``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,19 @@ TEMPLATE = {
     },
 }
 
+_ENCODER = TEMPLATE["encoder"]
+
+# key structure of the MAE parameter tree
+MAE_TEMPLATE = {
+    "encoder": _ENCODER,
+    "decoder_embed": _DENSE,
+    "decoder_blocks": _ENCODER["blocks"],
+    "decoder_norm": _NORM,
+    "decoder_unembed": _DENSE,
+    "mask_token": None,
+    "decoder_pos_embedding": None,
+}
+
 
 def _paths(template, prefix=()):
     if template is None:
@@ -73,16 +88,18 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def params_from_jax(params: dict, device=None, dtype=None) -> dict:
+def params_from_jax(params: dict, device=None, dtype=None,
+                    template: dict = TEMPLATE) -> dict:
     """JAX ViTOMR param tree of numpy arrays -> the port's tensor tree.
 
     Strict: a missing or an extra key raises. Floating leaves are cast to
     ``dtype`` when given. Tensors land on ``device`` (``cuda`` unless the
-    caller passes ``device="cpu"``).
+    caller passes ``device="cpu"``). ``template`` is the key structure the
+    tree is held to.
     """
     device = resolve_device(device)
     flat = _flatten(params)
-    want = _paths(TEMPLATE)
+    want = _paths(template)
     missing, extra = sorted(want - flat.keys()), sorted(flat.keys() - want)
     if missing or extra:
         raise KeyError(f"parameter tree mismatch: missing {missing}, "
@@ -96,12 +113,25 @@ def params_from_jax(params: dict, device=None, dtype=None) -> dict:
     return _unflatten(out)
 
 
-def load_npz(path: str, device=None, dtype=None) -> dict:
+def mae_params_from_jax(params: dict, device=None, dtype=None) -> dict:
+    """JAX MAE param tree (``init_mae_params``) of numpy arrays -> the port's
+    tensor tree, as strict as :func:`params_from_jax`."""
+    return params_from_jax(params, device, dtype, MAE_TEMPLATE)
+
+
+def load_npz(path: str, device=None, dtype=None,
+             template: dict = TEMPLATE) -> dict:
     """Read a ``.npz`` of ``/``-joined parameter paths (see
     :func:`save_npz`) through :func:`params_from_jax`."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return params_from_jax(_unflatten(flat), device=device, dtype=dtype)
+    return params_from_jax(_unflatten(flat), device, dtype, template)
+
+
+def load_mae_npz(path: str, device=None, dtype=None) -> dict:
+    """Read an MAE tree (what stage-1 pretraining writes as
+    ``pretrained_mae.npz``) through :func:`mae_params_from_jax`."""
+    return load_npz(path, device, dtype, MAE_TEMPLATE)
 
 
 def save_npz(path: str, params: dict) -> None:

@@ -154,7 +154,11 @@ class KernelOp:
     fallback from one to the other. ``launches`` is raised by one where the
     kernel is launched and nowhere else. ``extra_launches`` counts the device
     kernels a launch starts beyond its first (K1's split-K reduce), so
-    ``device_launches`` is what the device ran.
+    ``device_launches`` is what the device ran. ``variants`` splits
+    ``launches`` by the compiled variant or plan a launch took, where a
+    kernel has several (the head dim of K3 / K7, the row splits of
+    ``linear_wgrad``): :meth:`launched` is called where the kernel is
+    launched, in place of the bare increment.
     """
 
     def __init__(self, name: str, source: str, replaces: str, launch, plain):
@@ -166,7 +170,12 @@ class KernelOp:
         self.plain = plain
         self.launches = 0
         self.extra_launches = 0
+        self.variants: dict[str, int] = {}
         REGISTRY[name] = self
+
+    def launched(self, variant: str) -> None:
+        self.launches += 1
+        self.variants[variant] = self.variants.get(variant, 0) + 1
 
     @property
     def device_launches(self) -> int:
@@ -187,3 +196,4 @@ def reset_launch_counts() -> None:
     for op in REGISTRY.values():
         op.launches = 0
         op.extra_launches = 0
+        op.variants = {}

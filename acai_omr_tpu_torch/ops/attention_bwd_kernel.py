@@ -77,7 +77,7 @@ def _launch(op, q, k, v, d_o, valid, num_heads, causal, dq=None, dk=None,
             stats.data_ptr(), b, tq, tk, num_heads, dh, q.stride(1),
             k.stride(1), d_o.stride(1), dq.stride(1), dk.stride(1),
             1.0 / math.sqrt(dh), int(causal), _build.stream_ptr())
-    op.launches += 1
+    op.launched(f"dh{dh}")
     op.extra_launches += 1  # the dK/dV kernel after the dQ kernel
     _build.check(rc, op.name)
     return dq, dk, dv

@@ -89,10 +89,11 @@ def check_attention_operands(name: str, q, k, v, valid, num_heads: int):
     if k.shape != (b, tk, e) or v.shape != k.shape or dh * num_heads != e \
             or valid.shape != (b, tk):
         raise ValueError(f"{name} shape mismatch")
-    if dh != 64 or tq % 64 or tk % 64:
+    if dh not in (32, 64) or tq % 64 or tk % 64:
         raise ValueError(
-            f"{name} needs Dh == 64 and query and key lengths that are "
-            f"multiples of 64 (the training packer pads both T and M to "
+            f"{name} needs Dh == 64 (the ViT encoder, the seq2seq decoder) "
+            f"or Dh == 32 (the MAE decoder) and query and key lengths that "
+            f"are multiples of 64 (the training packers pad T and M to "
             f"multiples of 128), got Dh={dh}, Tq={tq}, Tk={tk}")
     for a in (q, k, v):
         if not a.is_cuda or a.dtype != torch.bfloat16:
@@ -123,7 +124,7 @@ def _launch(op, qkv, valid, num_heads, causal=False, kv=None):
             out.data_ptr(), b, tq, tk, num_heads, dh, q.stride(1),
             k.stride(1), 1.0 / math.sqrt(dh), int(causal),
             _build.stream_ptr())
-    op.launches += 1
+    op.launched(f"dh{dh}")
     _build.check(rc, op.name)
     return out
 

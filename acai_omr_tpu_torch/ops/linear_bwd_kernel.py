@@ -120,7 +120,7 @@ def _launch_wgrad(op, x, dy, out=None, out_bias=None):
     rc = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(), db.data_ptr(),
             None if part is None else part.data_ptr(), db_part.data_ptr(),
             r, k, n, r_chunk, splits, _build.stream_ptr())
-    op.launches += 1
+    op.launched(f"splits{splits}")
     op.extra_launches += 2 + (part is not None)  # bias slabs, sum, reduce
     _build.check(rc, op.name)
     return dw, db

@@ -25,6 +25,15 @@ in the epilogues of K8 and K9 in the backward; no mask is stored. Site ``s``
 of layer ``l`` draws from stream ``l * 8 + s``, keyed on the image's index in
 the batch and the element's row and column.
 
+Which stacks take this path: the JAX package gates its fused stacks with
+``enabled_for`` (decoder) and ``enabled_for_enc`` (encoder; it also admits
+head dims below 64, which is how the MAE decoder's 16 heads of 32 reach the
+fused kernel there). Here the gate is what the wrappers check and raise on:
+head dim 64 or 32 (K3, K7), row counts and widths that are multiples of the
+kernels' tiles (K1 / K9: 64; K4: E % 32; K8: E % 128, both E <= 1024),
+sequence lengths that are multiples of 64. Both of the MAE's stacks and both
+of the flagship's pass; nothing falls back to another path on the card.
+
 Every op is a :class:`._build.KernelOp`: CUDA tensors launch the kernels, CPU
 tensors run the plain twins, so the hand-written backward can be checked on
 the CPU against autograd. ``plain=True`` runs the forward through the plain

@@ -173,3 +173,21 @@ def make_apply_fn(tx: AdamW):
         return state
 
     return apply_fn
+
+
+def make_train_step(loss_fn: Callable, tx: AdamW):
+    """``step(state, batch, seed) -> (state, metrics)``: one loss, one
+    backward and one optimizer update with no accumulation window (MAE
+    pretraining). ``metrics`` holds the loss and the global L2 norm of the
+    gradients, ``grad_norm``, as scalar tensors left on the device.
+    ``loss_fn(params, batch, seed)`` returns ``(loss, aux)``."""
+    grad_fn = make_grad_fn(loss_fn)
+    apply_fn = make_apply_fn(tx)
+
+    def step(state: TrainState, batch, seed):
+        loss, grads = grad_fn(state.params, batch, seed)
+        norms = torch._foreach_norm(list(tree_flatten(grads).values()))
+        metrics = {"loss": loss, "grad_norm": torch.stack(norms).norm()}
+        return apply_fn(state, grads), metrics
+
+    return step

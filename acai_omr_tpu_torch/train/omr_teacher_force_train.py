@@ -286,9 +286,8 @@ def set_up_omr_teacher_force_train(pretrained_mae_path: str = PRETRAINED_MAE_PAT
     tokenizer = LmxTokenizer(LMX_VOCAB_PATH)
     cfg = set_up_vitomr(tokenizer)
     params = vitomr_lib.init_vitomr_params(cfg, seed=seed, device=device)
-    mae = ckpt_lib.load_params(pretrained_mae_path)
-    params["encoder"] = trainer.tree_map(
-        lambda v: torch.from_numpy(v).to(device), mae["encoder"])
+    params = vitomr_lib.vitomr_params_from_mae(
+        params, ckpt_lib.load_params(pretrained_mae_path))
     base_img_transform = tf_lib.Compose([
         tf_lib.to_float_chw,
         tf_lib.DynamicResize(PATCH_SIZE, OMR_MAX_IMG_SEQ_LEN, PE_MAX_HEIGHT,

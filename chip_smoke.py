@@ -19,7 +19,10 @@ Phases, all in one process; any failure exits non-zero:
    linear_wgrad, K10 dropout, and the training modes of K1, K3, K4) are held
    the same way at the flagship's training shapes (decoder rows 8 x 256 at
    E = 1024, F = 4096, M = 1024; encoder rows 8 x 1024 at E = 768,
-   F = 3072); K10 must equal its twin bit for bit;
+   F = 3072); K10 must equal its twin bit for bit. The MAE's shapes follow:
+   K3 and K7 at 16 heads of 32 (B = 64, T = 512, E = 512) and at the
+   encoder's 128 kept rows (12 heads of 64), K1, K4, K8 and K9 at
+   32,768 x 512, ``linear_wgrad`` at 512 x 512 with its rows split;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -38,12 +41,23 @@ Phases, all in one process; any failure exits non-zero:
    autograd through the plain twins on the card (loss and every leaf's
    gradient, stacked leaves layer by layer; limits fixed beforehand and a
    band of three times the errors read), forward and backward timed apart;
-5. print the ``kernels`` JSON line, the card line, and last
+5. the path ``pretrain_mae``: ``pre_train`` on the card at the full width of
+   ``set_up_mae()`` (ViT-B/16 encoder over the kept quarter, 8 x 512 x 16-head
+   decoder), bf16 over fp32 masters, batch 64, seeded noise images of
+   256-512 patches, one epoch of three updates and its validation batch; the
+   launch counts of every update are held against the layer arithmetic,
+   K3 / K7 by head dim and ``linear_wgrad`` by row splits;
+   ``pretrained_mae.npz`` must load as an MAE tree and stage 2's set-up must
+   hold exactly its encoder. Then one batch of 64 twice through the
+   hand-written path (equal bits demanded; forward, backward, optimizer and
+   a validation forward timed apart) and, at 8 images, against autograd
+   through the plain twins (the limits of phase 4);
+6. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
-decode steps and over two training microbatches (device time by kernel,
-device busy share); ``--report PATH``
+decode steps, over two training microbatches and over two MAE updates
+(device time by kernel, device busy share); ``--report PATH``
 writes every number of the run as JSON to PATH.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -81,12 +95,21 @@ EXPECTED_KERNELS = {
     "streamed": _ENC + ["decode_attention"],
     "train_tf": _ENC + ["attention_bwd", "layernorm_bwd", "linear_dgrad",
                         "linear_wgrad", "dropout"],
+    "pretrain_mae": _ENC + ["attention_bwd", "layernorm_bwd", "linear_dgrad",
+                            "linear_wgrad"],
 }
 SERVING_PATHS = ["greedy_bf16", "int8", "beam_bf16", "beam_int8", "streamed"]
 # the training path: flagship width, batch 8, accumulation 2, 3 updates
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_UPDATES = 8, 2, 3
 TRAIN_SIZES = ((256, 1024), (256, 768), (192, 1024), (256, 512))
 TRAIN_SEQ_LEN = 200
+# the MAE pretraining path: the width of set_up_mae(), batch 64 as
+# pre_train.BATCH_SIZE, 3 updates and one validation batch; seeded noise
+# images of 256, 384 and 512 patches, so every batch pads to L = 512 and
+# keeps K = 128
+MAE_BATCH, MAE_UPDATES = 64, 3
+MAE_SIZES = ((256, 512), (192, 512), (128, 512), (256, 384))
+MAE_CMP_BATCH = 8  # the plain twins' fp32 autograd saves at L = 512
 # limits of the hand-written backward against autograd of the plain twins
 # (fixed before the first run, PERF.md section 6): loss, every leaf (stacked
 # leaves layer by layer), all leaves together
@@ -186,9 +209,12 @@ def check_kernels(torch, F, dev):
     kernel_times = lambda fn: (time_ms(torch, fn), host_us(torch, fn))
 
     def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
-               peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None):
+               peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None,
+               variant=None):
         """``paths``: the main paths whose launches count for this case (the
-        serving paths when None). ``exact``: for the int8 cases, whether the caches and
+        serving paths when None). ``variant``: the compiled variant or plan
+        of the kernel this case launches (``KernelOp.variants``), where only
+        that variant's launches count for it. ``exact``: for the int8 cases, whether the caches and
         scales after the kernel equal the twin's bit for bit (for K10: the
         whole output; for K8 and K9 wgrad: the fp32 column sums within
         1e-3 of their largest value; for K7: dq, dk and dv each within 2e-2
@@ -202,7 +228,7 @@ def check_kernels(torch, F, dev):
                       "ms": t_k, "host_us": t_host, "plain_ms": t_p,
                       "library_ms": t_lib,
                       "bound_ms": b_ms, "bound_by": b_by, "ok": ok,
-                      "paths": paths})
+                      "paths": paths, "variant": variant})
         lib = "none" if t_lib is None else f"{t_lib:.4f}"
         print(f"[kernel] {op.name}[{case}] max_abs_err={err:.3e} tol={tol:.1e} "
               f"kernel_ms={t_k:.4f} host_us={t_host:.1f} plain_ms={t_p:.4f} "
@@ -419,7 +445,9 @@ def check_kernels(torch, F, dev):
 def training_cases(torch, F, randn, record, kernel_times, dev):
     """The kernels of the training stacks at the flagship's shapes: decoder
     rows 8 x 256 (E 1024, H 16, F 4096, memory 1024), encoder rows 8 x 1024
-    (E 768, H 12, F 3072). Dropout at the flagship's rates."""
+    (E 768, H 12, F 3072), dropout at the flagship's rates; and at the MAE's:
+    decoder rows 64 x 512 (E 512, 16 heads of 32, F 3072), encoder rows
+    64 x 128 kept patches (E 768, H 12), no dropout."""
     from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
     from acai_omr_tpu_torch.ops.dropout_kernel import DropSpec, dropout_apply
     from acai_omr_tpu_torch.ops.encoder_stack_kernel import (encoder_attention,
@@ -432,12 +460,14 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
     from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
 
     bf = torch.bfloat16
-    tr = ["train_tf"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     plain_ms = lambda fn: time_ms(torch, fn, iters=5)
     rel_tol = lambda ref, r=1e-2: r * max(1.0, ref.float().abs().max().item())
     stacks = [("dec", 8, 256, 1024, 16, 4096, 0.1),
-              ("enc", 8, 1024, 768, 12, 3072, 0.05)]
+              ("enc", 8, 1024, 768, 12, 3072, 0.05),
+              ("mae_dec", MAE_BATCH, 512, 512, 16, 3072, 0.0),
+              ("mae_enc", MAE_BATCH, 128, 768, 12, 3072, 0.0)]
+    tr = ["train_tf"]
 
     # K10 standalone: the transition head's hidden rows, equal bits. The
     # library call is F.dropout: the same function (Bernoulli keep, 1/(1-p)
@@ -451,21 +481,87 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
            time_ms(torch, lambda: F.dropout(x, 0.05, training=True)),
            2 * 2 * x.numel(), 0, paths=tr, exact=torch.equal(out_k, out_p))
 
+    def attention_sites(name, b, t, e, h, tr):
+        """K3 / K7 at a stack's attention sites, ragged key validity."""
+        rows = b * t
+        sites = [("self causal", t, True), ("cross", 1024, False)] \
+            if name == "dec" else [("self", t, False)]
+        for site, tk, causal in sites:
+            cross = site == "cross"
+            lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen,
+                                 device=dev)
+            valid = torch.arange(tk, device=dev)[None, :] < lens[:, None]
+            if cross:
+                q, kv = randn(rows, e), randn(b, tk, 2 * e)
+            else:
+                q, kv = randn(rows, 3 * e), None
+            q3, k3, v3 = split_qkv(q, kv, b)
+            d_o = randn(b, t, e)
+            dh = e // h
+            hd = lambda a: a.reshape(b, a.shape[1], h, dh).transpose(1, 2) \
+                .contiguous()
+            ql, kl, vl, dol = hd(q3), hd(k3), hd(v3), hd(d_o)
+            mask4 = valid[:, None, None, :]
+            if causal:
+                mask4 = mask4 & torch.tril(torch.ones(
+                    t, tk, dtype=torch.bool, device=dev))[None, None]
+            n_pairs = int(mask4.expand(b, 1, t, tk).sum())  # attended (q, k)
+            call = lambda: encoder_attention(q, valid, h, causal, kv)
+            out_k = call()
+            out_p = encoder_attention.plain(q, valid, h, causal, kv)
+            record(encoder_attention, f"{name} {site} B={b} Tq={t} Tk={tk} "
+                   f"E={e} H={h}", out_k, out_p, 1e-2, kernel_times(call),
+                   plain_ms(lambda: encoder_attention.plain(q, valid, h,
+                                                            causal, kv)),
+                   time_ms(torch, lambda: F.scaled_dot_product_attention(
+                       ql, kl, vl, attn_mask=mask4)),
+                   2 * (2 * rows * e + 2 * b * tk * e) + b * tk,
+                   4 * e * n_pairs, paths=tr, variant=f"dh{dh}")
+
+            call = lambda: attention_bwd(q3, k3, v3, d_o, valid, h, causal)
+            out_k = call()
+            out_p = attention_bwd.plain(q3, k3, v3, d_o, valid, h, causal)
+            lq, lk, lv = (a.clone().requires_grad_(True) for a in (ql, kl, vl))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask4)
+            # dq, dk and dv each within 2e-2 of its own largest value
+            rels = [((a.float() - c.float()).abs().max()
+                     / c.float().abs().max()).item()
+                    for a, c in zip(out_k, out_p)]
+            record(attention_bwd, f"{name} {site} B={b} Tq={t} Tk={tk} E={e} "
+                   f"H={h} (dq, dk, dv err / max|ref| "
+                   + ", ".join(f"{r:.1e}" for r in rels) + ")",
+                   torch.cat([a.flatten() for a in out_k]),
+                   torch.cat([a.flatten() for a in out_p]),
+                   2e-2 * max(a.float().abs().max().item() for a in out_p),
+                   kernel_times(call),
+                   plain_ms(lambda: attention_bwd.plain(q3, k3, v3, d_o, valid,
+                                                        h, causal)),
+                   time_ms_eager(torch, lambda: torch.autograd.grad(
+                       lo, (lq, lk, lv), dol, retain_graph=True)),
+                   2 * (3 * rows * e + 4 * b * tk * e) + b * tk,
+                   10 * e * n_pairs, paths=tr,
+                   exact=all(r <= 2e-2 for r in rels), variant=f"dh{dh}")
+
     for name, b, t, e, h, f, rate in stacks:
         rows = b * t
-        drop = DropSpec(rate, 17, 29, 5, t)
+        drop = DropSpec(rate, 17, 29, 5, t) if rate else None
         w_of = lambda k, n: (randn(k, n, dtype=torch.float32)
                              / math.sqrt(k)).to(bf)
+        tr = ["pretrain_mae"] if name.startswith("mae") else ["train_tf"]
+        if name == "mae_enc":
+            # its 8,192 rows of E = 768 are the shapes of "enc" above: only
+            # the attention sites (128 kept rows per image) are new
+            attention_sites(name, b, t, e, h, tr)
+            continue
 
         # K1 as the stacks call it: qkv and the E -> E projection without
         # dropout (qc; every site of the save-less forward), then the
         # training epilogues: sa / ca with dropout, ff1 (GELU, dropout,
         # saves GELU') and ff2 with dropout
         for k, n, act, save, dr in [(e, 3 * e, "none", False, None),
-                                    (e, e, "none", False, None),
-                                    (e, e, "none", False, drop),
-                                    (e, f, "gelu", True, drop),
-                                    (f, e, "none", False, drop)]:
+                                    (e, e, "none", False, None)] \
+                + ([(e, e, "none", False, drop)] if drop else []) \
+                + [(e, f, "gelu", True, drop), (f, e, "none", False, drop)]:
             x, w = randn(rows, k), w_of(k, n)
             bias = randn(n, dtype=torch.float32) * 0.1
             call = lambda: linear_bias_act(x, w, bias, act, dr, save)
@@ -519,22 +615,25 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
         g_req = gamma.to(bf).requires_grad_(True)
         b_req = beta.to(bf).requires_grad_(True)
         y = F.layer_norm(z_req, (e,), g_req, b_req, 1e-5)
-        record(layernorm_bwd, f"{name} {rows}x{e},drop (column sums rel err "
+        record(layernorm_bwd, f"{name} {rows}x{e}" + (",drop" if drop else "")
+               + " (column sums rel err "
                f"{col_err:.1e})", torch.cat(out_k[:2], 1),
                torch.cat(out_p[:2], 1), rel_tol(out_p[0]), kernel_times(call),
                plain_ms(lambda: layernorm_bwd.plain(g_in, z, gamma, 1e-5,
                                                     drop)),
                time_ms_eager(torch, lambda: torch.autograd.grad(
                    y, (z_req, g_req, b_req), g_in, retain_graph=True)),
-               2 * 4 * rows * e + 3 * 4 * e, 12 * rows * e, paths=tr,
+               2 * (3 + (drop is not None)) * rows * e + 3 * 4 * e,
+               12 * rows * e, paths=tr,
                exact=col_err < 1e-3)
 
         # K9 dgrad: du = round(drop(round(dff W2^T)) * gelu'), dx2 = dz3 + .,
         # and bare (da_s = dsa Wo^T, da_c = dca Woc^T)
-        for n, k, kw_name in [(e, f, "drop,mul"), (f, e, "add"),
-                              (e, e, "bare")]:
+        for n, k, kw_name in [(e, f, "drop,mul" if drop else "mul"),
+                              (f, e, "add"), (e, e, "bare")] \
+                + ([(3 * e, e, "add")] if name == "mae_dec" else []):
             dy, w, other = randn(rows, n), w_of(k, n), randn(rows, k)
-            kw = {"drop": drop, "mul": other} if kw_name == "drop,mul" \
+            kw = {"drop": drop, "mul": other} if kw_name.endswith("mul") \
                 else {"add": other} if kw_name == "add" else {}
             call = lambda: linear_dgrad(dy, w, **kw)
             out_k, out_p = call(), linear_dgrad.plain(dy, w, **kw)
@@ -548,16 +647,17 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
 
         # K9 wgrad: dW1 = x2^T du, dW2 = h1^T dff, each with its bias sum. No
         # flagship shape has so few output tiles that the rows are split
-        # across blocks; narrower models (the MAE decoder's E = 512, small
-        # trainer configurations) do, so that branch is held at 512 x 512
-        for k, n in [(e, f), (f, e)] + ([(512, 512)] if name == "enc" else []):
+        # across blocks; the MAE decoder's dWo (512 x 512: 64 output tiles
+        # for 132 SMs) does, and its dWqkv is held too
+        for k, n in [(e, f), (f, e)] + ([(512, 512)] if name == "enc" else []) \
+                + ([(e, e), (e, 3 * e)] if name == "mae_dec" else []):
             x, dy = randn(rows, k), randn(rows, n)
             call = lambda: linear_wgrad(x, dy)
             (dw_k, db_k), (dw_p, db_p) = call(), linear_wgrad.plain(x, dy)
             db_err = ((db_k - db_p).abs().max() / db_p.abs().max()).item()
             xt = x.t()
             splits = row_split_plan(rows, k, n)[1]
-            assert (splits > 1) == (k == 512), "wgrad row split plan"
+            assert (splits > 1) == (k == n == 512), "wgrad row split plan"
             record(linear_wgrad, f"{name} {rows}x{k}^T {rows}x{n}"
                    + (f", rows split {splits}x" if splits > 1 else "")
                    + f" (bias sum rel err {db_err:.1e})", dw_k, dw_p,
@@ -566,66 +666,10 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
                    plain_ms(lambda: linear_wgrad.plain(x, dy)),
                    time_ms(torch, lambda: torch.matmul(xt, dy)),
                    2 * (rows * k + rows * n + k * n) + 4 * n,
-                   2 * rows * n * k, paths=tr, exact=db_err < 1e-3)
-
-        # K3 / K7 at this stack's attention sites, ragged key validity
-        sites = [("self causal", t, True), ("cross", 1024, False)] \
-            if name == "dec" else [("self", t, False)]
-        for site, tk, causal in sites:
-            cross = site == "cross"
-            lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen,
-                                 device=dev)
-            valid = torch.arange(tk, device=dev)[None, :] < lens[:, None]
-            if cross:
-                q, kv = randn(rows, e), randn(b, tk, 2 * e)
-            else:
-                q, kv = randn(rows, 3 * e), None
-            q3, k3, v3 = split_qkv(q, kv, b)
-            d_o = randn(b, t, e)
-            dh = e // h
-            hd = lambda a: a.reshape(b, a.shape[1], h, dh).transpose(1, 2) \
-                .contiguous()
-            ql, kl, vl, dol = hd(q3), hd(k3), hd(v3), hd(d_o)
-            mask4 = valid[:, None, None, :]
-            if causal:
-                mask4 = mask4 & torch.tril(torch.ones(
-                    t, tk, dtype=torch.bool, device=dev))[None, None]
-            n_pairs = int(mask4.expand(b, 1, t, tk).sum())  # attended (q, k)
-            call = lambda: encoder_attention(q, valid, h, causal, kv)
-            out_k = call()
-            out_p = encoder_attention.plain(q, valid, h, causal, kv)
-            record(encoder_attention, f"{name} {site} B={b} Tq={t} Tk={tk} "
-                   f"E={e} H={h}", out_k, out_p, 1e-2, kernel_times(call),
-                   plain_ms(lambda: encoder_attention.plain(q, valid, h,
-                                                            causal, kv)),
-                   time_ms(torch, lambda: F.scaled_dot_product_attention(
-                       ql, kl, vl, attn_mask=mask4)),
-                   2 * (2 * rows * e + 2 * b * tk * e) + b * tk,
-                   4 * e * n_pairs, paths=tr)
-
-            call = lambda: attention_bwd(q3, k3, v3, d_o, valid, h, causal)
-            out_k = call()
-            out_p = attention_bwd.plain(q3, k3, v3, d_o, valid, h, causal)
-            lq, lk, lv = (a.clone().requires_grad_(True) for a in (ql, kl, vl))
-            lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask4)
-            # dq, dk and dv each within 2e-2 of its own largest value
-            rels = [((a.float() - c.float()).abs().max()
-                     / c.float().abs().max()).item()
-                    for a, c in zip(out_k, out_p)]
-            record(attention_bwd, f"{name} {site} B={b} Tq={t} Tk={tk} E={e} "
-                   f"H={h} (dq, dk, dv err / max|ref| "
-                   + ", ".join(f"{r:.1e}" for r in rels) + ")",
-                   torch.cat([a.flatten() for a in out_k]),
-                   torch.cat([a.flatten() for a in out_p]),
-                   2e-2 * max(a.float().abs().max().item() for a in out_p),
-                   kernel_times(call),
-                   plain_ms(lambda: attention_bwd.plain(q3, k3, v3, d_o, valid,
-                                                        h, causal)),
-                   time_ms_eager(torch, lambda: torch.autograd.grad(
-                       lo, (lq, lk, lv), dol, retain_graph=True)),
-                   2 * (3 * rows * e + 4 * b * tk * e) + b * tk,
-                   10 * e * n_pairs, paths=tr,
-                   exact=all(r <= 2e-2 for r in rels))
+                   2 * rows * n * k, paths=tr, exact=db_err < 1e-3,
+                   variant=f"splits{splits}" if tr == ["pretrain_mae"]
+                   else None)
+        attention_sites(name, b, t, e, h, tr)
 
 
 def synthetic_images(np, n: int, seed: int) -> list:
@@ -849,7 +893,220 @@ def train_path(torch, model, tmp_dir):
             "grads_finite": log["grads_finite"], "unmoved": unmoved,
             "moved_frozen": moved_frozen, "files": files,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": launches, "device_launches": device}
+            "launches": launches, "device_launches": device,
+            "variants": {n: dict(op.variants)
+                         for n, op in _build.REGISTRY.items()}}
+
+
+def mae_set(n: int, seed: int):
+    """Seeded synthetic MAE pairs: noise images of 256-512 patches."""
+    from acai_omr_tpu_torch.data.datasets import DebugDataset
+    return DebugDataset(n=n, sizes=MAE_SIZES, kind="mae", seed=seed)
+
+
+def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
+    """Launches of one MAE update and of one validation batch by the layer
+    arithmetic, and the update's launches by variant. Both stacks are
+    encoder-type: per layer 4 K1, 1 K3, 2 K4 forward and 1 K3, 1 K4, 1 K7,
+    2 K8, 4 dgrad, 4 wgrad backward (the gradient flows on into the patch
+    projection and the PE grids, so the first layer's dgrad runs too). The
+    encoder's heads are 64 wide, the decoder's 32; only the decoder's
+    E x E product (dWo) has so few output tiles that its rows are split."""
+    le, ld = cfg.encoder.num_layers, cfg.decoder_num_layers
+    n = le + ld
+    step = {"linear_bias_act": 4 * n, "encoder_attention": 2 * n,
+            "add_layernorm": 3 * n, "attention_bwd": n,
+            "layernorm_bwd": 2 * n, "linear_dgrad": 4 * n,
+            "linear_wgrad": 4 * n}
+    val = {"linear_bias_act": 4 * n, "encoder_attention": n,
+           "add_layernorm": 2 * n}
+    dh_e = cfg.encoder.hidden_dim // cfg.encoder.num_heads
+    dh_d = cfg.decoder_hidden_dim // cfg.decoder_num_heads
+    variants = {"encoder_attention": {f"dh{dh_e}": 2 * le, f"dh{dh_d}": 2 * ld},
+                "attention_bwd": {f"dh{dh_e}": le, f"dh{dh_d}": ld},
+                "linear_wgrad": {"splits1": 4 * le + 3 * ld, "splits4": ld}}
+    return step, val, variants
+
+
+def pretrain_path(torch, tmp_dir):
+    """The path ``pretrain_mae``: ``pre_train`` at the full width of
+    ``set_up_mae()`` for MAE_UPDATES updates of MAE_BATCH images and one
+    validation batch, then the hand-off: ``pretrained_mae.npz`` loads as an
+    MAE tree and stage 2's set-up holds exactly its encoder. The launch
+    counts are set to 0 just before ``pre_train`` and read just after."""
+    from acai_omr_tpu_torch.models import mae as mae_lib
+    from acai_omr_tpu_torch.models.weights import load_mae_npz
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
+    from acai_omr_tpu_torch.train import pre_train as pt
+
+    cfg = pt.set_up_mae()
+    start = mae_lib.init_mae_params(cfg, seed=SEED, device="cuda")
+    train_ds = mae_set(MAE_BATCH * MAE_UPDATES, SEED)
+    val_ds = mae_set(MAE_BATCH, SEED + 1)
+    counts = lambda: {n: op.launches for n, op in _build.REGISTRY.items()}
+    log = {"step_ms": [], "val_ms": [], "step_launches": [],
+           "val_launches": [], "step_variants": [], "grad_norms": []}
+    last = {}
+
+    def hook(kind, info):
+        torch.cuda.synchronize()
+        now, c = time.perf_counter(), counts()
+        delta = {k: c[k] - last["counts"][k] for k in c
+                 if c[k] != last["counts"][k]}
+        log[f"{kind}_ms"].append(1e3 * (now - last["t"]))
+        log[f"{kind}_launches"].append(delta)
+        if kind == "step":
+            log["grad_norms"].append(float(info["metrics"]["grad_norm"]))
+            log["step_variants"].append(
+                {n: dict(op.variants) for n, op in _build.REGISTRY.items()
+                 if op.variants})
+        last.update(t=time.perf_counter(), counts=c)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    last.update(t=time.perf_counter(), counts=counts())
+    t0 = time.perf_counter()
+    params, stats = pt.pre_train(
+        cfg, train_ds, val_ds, params=start, epochs=1, batch_size=MAE_BATCH,
+        warmup_epochs=1, checkpoint_freq=1, model_dir=Path(tmp_dir) / "mae",
+        num_workers=4, bucket_boundaries=[max(MAE_SIZES)], seed=SEED,
+        device="cuda", step_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    device = {n: op.device_launches for n, op in _build.REGISTRY.items()}
+    variants = {n: dict(op.variants) for n, op in _build.REGISTRY.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    before, after = trainer.tree_flatten(start), trainer.tree_flatten(params)
+    unmoved = [p for p in after if torch.equal(after[p], before[p])]
+    files = sorted(str(f.relative_to(tmp_dir))
+                   for f in Path(tmp_dir).rglob("*") if f.is_file())
+
+    # the hand-off to stage 2
+    npz = Path(tmp_dir) / "mae" / "pretrained_mae.npz"
+    loaded = trainer.tree_flatten(load_mae_npz(npz, device="cuda"))
+    npz_equal = loaded.keys() == after.keys() and all(
+        torch.equal(loaded[p], after[p]) for p in after)
+    _, stage2, _, _ = tf_train.set_up_omr_teacher_force_train(
+        str(npz), device="cuda", seed=SEED)
+    enc2 = trainer.tree_flatten(stage2["encoder"])
+    enc1 = trainer.tree_flatten(params["encoder"])
+    handoff = enc2.keys() == enc1.keys() and all(
+        torch.equal(enc2[p], enc1[p]) for p in enc1)
+    return {"cfg": cfg, "params": params,
+            "train_losses": stats["train_losses"],
+            "val_losses": stats["val_losses"], "wall_s": wall,
+            "step_ms": log["step_ms"], "val_ms": log["val_ms"],
+            "grad_norms": log["grad_norms"],
+            "launches_per_step": log["step_launches"],
+            "launches_per_val_batch": log["val_launches"],
+            "variants_after_each_step": log["step_variants"],
+            "unmoved": unmoved, "files": files, "npz_equal": npz_equal,
+            "stage2_holds_encoder": handoff, "peak_memory_gb": peak_gb,
+            "launches": launches, "device_launches": device,
+            "variants": variants}
+
+
+def compare_pretrain(torch, cfg, params, profile=False):
+    """One MAE batch of MAE_BATCH images twice through the hand-written path
+    (equal bits demanded; forward, backward and the optimizer update timed
+    apart, a validation forward too). Then, at MAE_CMP_BATCH images so that
+    the plain path's fp32 autograd saves fit with room, loss and every
+    leaf's gradient against autograd through the plain twins. Every run
+    draws its mask from a generator seeded alike."""
+    from acai_omr_tpu_torch.data.loader import pack_mae_batch, to_device
+    from acai_omr_tpu_torch.ops import transformer
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import pre_train as pt
+
+    dev = torch.device("cuda")
+    ds = mae_set(MAE_BATCH, SEED + 2)
+    loss_fn = pt.make_loss_fn(cfg, torch.bfloat16)
+    grad_fn = trainer.make_grad_fn(loss_fn)
+    eval_fn = pt.make_eval_fn(cfg, torch.bfloat16)
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)
+    batch_of = lambda n: to_device(
+        pack_mae_batch([ds[i] for i in range(n)], cfg.encoder), dev)
+
+    full = batch_of(MAE_BATCH)
+    runs = []
+    for _ in range(2):
+        loss, grads = grad_fn(params, full, gen())
+        torch.cuda.synchronize()
+        runs.append((loss, trainer.tree_flatten(grads)))
+    equal_bits = bool(torch.equal(runs[0][0], runs[1][0])) and all(
+        torch.equal(runs[0][1][p], runs[1][1][p]) for p in runs[0][1])
+    grads = trainer.tree_unflatten(runs[1][1])
+    del runs
+
+    def clock(fn):  # host clock around synchronised work
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    leaves = {p: v.detach().requires_grad_(True)
+              for p, v in trainer.tree_flatten(params).items()}
+    (loss, _), fwd_ms = clock(
+        lambda: loss_fn(trainer.tree_unflatten(leaves), full, gen()))
+    _, bwd_ms = clock(lambda: torch.autograd.grad(
+        loss, list(leaves.values()), allow_unused=True))
+    tx = trainer.adamw(1e-4, betas=pt.ADAMW_BETAS,
+                       weight_decay=pt.ADAMW_WEIGHT_DECAY)
+    state = trainer.create_train_state(params, tx)
+    apply_fn = trainer.make_apply_fn(tx)
+    apply_fn(state, grads)
+    _, opt_ms = clock(lambda: apply_fn(state, grads))
+    _, val_ms = clock(lambda: eval_fn(params, full, gen()))
+    del leaves, loss
+    prof = None
+    if profile:
+        step_fn = trainer.make_train_step(loss_fn, tx)
+        prof = profile_steps(torch, lambda: step_fn(state, full, gen()),
+                             warmup=1, steps=2)
+    del state
+
+    small = batch_of(MAE_CMP_BATCH)
+    loss_k, grads_k = grad_fn(params, small, gen())
+    with transformer.plain_twins():
+        loss_p, grads_p = grad_fn(params, small, gen())
+    return {"equal_bits_two_runs": equal_bits, "batch": MAE_BATCH,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "optimizer_ms": opt_ms, "validation_forward_ms": val_ms,
+            "compared_batch": MAE_CMP_BATCH,
+            **gradient_errors(torch, loss_k, grads_k, loss_p, grads_p),
+            **({"profile": prof} if prof else {})}
+
+
+def gradient_errors(torch, loss_k, grads_k, loss_p, grads_p) -> dict:
+    """Loss and gradient trees of the kernel path against the plain path's:
+    relative L2 error of every leaf (a stacked leaf layer by layer: one
+    layer's wrong gradient must not hide among the others') and of all
+    leaves together."""
+    from acai_omr_tpu_torch.parallel import trainer
+    gk, gp = trainer.tree_flatten(grads_k), trainer.tree_flatten(grads_p)
+    for tree in (gk, gp):
+        for p in [p for p in tree if "blocks/" in p]:
+            for layer, g in enumerate(tree.pop(p)):
+                tree[f"{p}[{layer}]"] = g
+    rel = {p: ((gk[p] - gp[p]).norm()
+               / gp[p].norm().clamp_min(1e-12)).item() for p in gp}
+    num = math.sqrt(sum(float((gk[p] - gp[p]).norm()) ** 2 for p in gp))
+    den = math.sqrt(sum(float(gp[p].norm()) ** 2 for p in gp))
+    worst = max(rel, key=rel.get)
+    return {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+            "loss_rel_err": abs(loss_k.item() - loss_p.item())
+            / abs(loss_p.item()),
+            "grad_global_rel_err": num / den, "grad_worst_leaf": worst,
+            "grad_worst_leaf_rel_err": rel[worst],
+            "grad_leaf_rel_err_median": sorted(rel.values())[len(rel) // 2],
+            "grads_finite": all(bool(torch.isfinite(g).all())
+                                for g in gk.values()),
+            "leaf_rel_err": rel}
 
 
 def expected_micro_launches(cfg) -> dict:
@@ -923,30 +1180,11 @@ def compare_training(torch, model, profile=False):
     loss_k, grads_k = grad_fn(params, half, 7)
     with transformer.plain_twins():
         loss_p, grads_p = grad_fn(params, half, 7)
-    gk, gp = trainer.tree_flatten(grads_k), trainer.tree_flatten(grads_p)
-    # a stacked leaf is held layer by layer: one layer's wrong gradient
-    # must not hide among the others'
-    for tree in (gk, gp):
-        for p in [p for p in tree if "/blocks/" in p]:
-            for layer, g in enumerate(tree.pop(p)):
-                tree[f"{p}[{layer}]"] = g
-    rel = {p: ((gk[p] - gp[p]).norm()
-               / gp[p].norm().clamp_min(1e-12)).item() for p in gp}
-    num = math.sqrt(sum(float((gk[p] - gp[p]).norm()) ** 2 for p in gp))
-    den = math.sqrt(sum(float(gp[p].norm()) ** 2 for p in gp))
-    worst = max(rel, key=rel.get)
     return {"equal_bits_two_runs": equal_bits,
             "forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
             "launches_per_microbatch": micro_launches,
-            "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
-            "loss_rel_err": abs(loss_k.item() - loss_p.item())
-            / abs(loss_p.item()),
-            "grad_global_rel_err": num / den, "grad_worst_leaf": worst,
-            "grad_worst_leaf_rel_err": rel[worst],
-            "grad_leaf_rel_err_median": sorted(rel.values())[len(rel) // 2],
-            "grads_finite": all(bool(torch.isfinite(g).all())
-                                for g in gk.values()),
-            **({"profile": prof} if prof else {}), "leaf_rel_err": rel}
+            **gradient_errors(torch, loss_k, grads_k, loss_p, grads_p),
+            **({"profile": prof} if prof else {})}
 
 
 def main() -> int:
@@ -1145,6 +1383,64 @@ def main() -> int:
                         "times the errors measured before")
     tcmp["leaf_rel_err"] = leaf_errs
 
+    # the MAE pretraining path, its hand-off to stage 2 and its comparison
+    # with the plain twins
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        mae = pretrain_path(torch, tmp_dir)
+    mae_cfg, mae_params = mae.pop("cfg"), mae.pop("params")
+    paths["pretrain_mae"] = mae
+    want_step, want_val, want_variants = expected_mae_launches(mae_cfg)
+    print(f"[path pretrain_mae] batch={MAE_BATCH} train_losses="
+          f"{mae['train_losses']} val_losses={mae['val_losses']} "
+          f"grad_norms={[round(v, 4) for v in mae['grad_norms']]} "
+          f"wall_s={mae['wall_s']:.2f} "
+          f"peak_memory_gb={mae['peak_memory_gb']:.2f} "
+          f"ms_per_step={[round(v, 1) for v in mae['step_ms']]} "
+          f"val_ms={[round(v, 1) for v in mae['val_ms']]} "
+          f"files={mae['files']}", flush=True)
+    print(f"[path pretrain_mae] launches per step "
+          f"{json.dumps(mae['launches_per_step'][-1])} expected "
+          f"{json.dumps(want_step)}; per validation batch "
+          f"{json.dumps(mae['launches_per_val_batch'][-1])}; by variant after "
+          f"the first step {json.dumps(mae['variants_after_each_step'][0])} "
+          f"expected {json.dumps(want_variants)}", flush=True)
+    print(f"[path pretrain_mae] launches {json.dumps(mae['launches'])}",
+          flush=True)
+    if not (finite(mae["train_losses"]) and finite(mae["val_losses"])
+            and finite(mae["grad_norms"])
+            and len(mae["step_ms"]) == MAE_UPDATES
+            and len(mae["val_ms"]) == 1):
+        failures.append("pretrain_mae: non-finite loss or gradient norm, or "
+                        "another number of steps than planned")
+    if mae["unmoved"]:
+        failures.append(f"pretrain_mae: unmoved {mae['unmoved']}")
+    if any(m != want_step for m in mae["launches_per_step"]) \
+            or any(m != want_val for m in mae["launches_per_val_batch"]) \
+            or mae["variants_after_each_step"][0] != want_variants:
+        failures.append("pretrain_mae: launches differ from the layer "
+                        "arithmetic")
+    if not (mae["npz_equal"] and mae["stage2_holds_encoder"]
+            and "mae/stats.csv" in mae["files"]):
+        failures.append("pretrain_mae: pretrained_mae.npz, its hand-off to "
+                        "stage 2, or stats.csv")
+    for k in EXPECTED_KERNELS["pretrain_mae"]:
+        if mae["launches"][k] <= 0:
+            failures.append(f"pretrain_mae: launches[{k}]=0")
+
+    mcmp = compare_pretrain(torch, mae_cfg, mae_params,
+                            profile="--profile" in sys.argv[1:])
+    leaf_errs = mcmp.pop("leaf_rel_err")
+    print(f"[compare pretrain kernel-vs-plain] {json.dumps(mcmp)}", flush=True)
+    if not mcmp["equal_bits_two_runs"]:
+        failures.append("pretrain: two runs of one batch differ in bits")
+    if not (mcmp["grads_finite"] and mcmp["loss_rel_err"] <= CMP_LOSS_REL
+            and mcmp["grad_worst_leaf_rel_err"] <= CMP_LEAF_REL
+            and mcmp["grad_global_rel_err"] <= CMP_GLOBAL_REL):
+        failures.append("pretrain kernel path vs plain path")
+    mcmp["leaf_rel_err"] = leaf_errs
+
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
     if cmp["encoder_rel_err"] >= 0.02:
         failures.append("encoder kernel path vs plain path")
@@ -1155,6 +1451,11 @@ def main() -> int:
             failures.append(f"{key} kernel path vs plain path")
 
     def path_sum(counts, c):
+        """The case's launches on its paths: its variant's where it has one
+        (``device_launches`` are not split by variant)."""
+        if c["variant"] and counts == "launches":
+            return sum(paths[n]["variants"][c["op"].name].get(c["variant"], 0)
+                       for n in c["paths"])
         return sum(paths[n][counts][c["op"].name] for n in c["paths"])
 
     kernels = [{"name": f"{c['op'].name}[{c['case']}]", "route": c["op"].route,
@@ -1169,7 +1470,7 @@ def main() -> int:
                  if k["launches"] <= 0]
     report = {"card": card, "build_s": build_s, "n_params": n_params,
               "kernels": kernels, "paths": paths, "compare": cmp,
-              "compare_training": tcmp,
+              "compare_training": tcmp, "compare_pretrain": mcmp,
               "failures": failures}
     if "--report" in sys.argv[1:]:
         path = Path(sys.argv[sys.argv.index("--report") + 1])

@@ -278,36 +278,49 @@ def _attention_case(g, dev, cross, lens):
 
 @pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
                                           (True, False)])
-def test_encoder_attention_causal_and_cross(dev, cross, causal):
+def test_encoder_attention_causal_and_cross(dev, cross, causal, heads=4):
     g = torch.Generator(device=dev).manual_seed(13)
     # a full image, a ragged one, and one with no valid key at all
     q, kv, valid, *_ = _attention_case(g, dev, cross, [128, 37, 0])
-    out = encoder_attention(q, valid, 4, causal, kv)
+    out = encoder_attention(q, valid, heads, causal, kv)
     assert torch.isfinite(out.float()).all()
-    _close(out, encoder_attention.plain(q, valid, 4, causal, kv))
+    _close(out, encoder_attention.plain(q, valid, heads, causal, kv))
 
 
 @pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
                                           (True, False)])
-def test_attention_bwd(dev, cross, causal):
+def test_encoder_attention_head_dim_32(dev, cross, causal):
+    """E = 256 over 8 heads: the MAE decoder's head dim."""
+    test_encoder_attention_causal_and_cross(dev, cross, causal, heads=8)
+
+
+@pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
+                                          (True, False)])
+def test_attention_bwd(dev, cross, causal, heads=4):
     from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
     from acai_omr_tpu_torch.ops.encoder_stack_kernel import split_qkv
     g = torch.Generator(device=dev).manual_seed(14)
     q, kv, valid, b, tq, tk, e = _attention_case(g, dev, cross, [128, 37, 0])
     d_o = _randn(g, b, tq, e, dev=dev)
     q3, k3, v3 = split_qkv(q, kv, b)
-    got = attention_bwd(q3, k3, v3, d_o, valid, 4, causal)
-    again = attention_bwd(q3, k3, v3, d_o, valid, 4, causal)
-    want = attention_bwd.plain(q3, k3, v3, d_o, valid, 4, causal)
+    got = attention_bwd(q3, k3, v3, d_o, valid, heads, causal)
+    again = attention_bwd(q3, k3, v3, d_o, valid, heads, causal)
+    want = attention_bwd.plain(q3, k3, v3, d_o, valid, heads, causal)
     for a, a2, w in zip(got, again, want):
         assert torch.equal(a, a2)  # fixed-order sums: equal bits
         _close(a, w, rel=2e-2)
     # strided destinations: one dqkv buffer (self) / a mem_kv-shaped one
     if not cross:
         dqkv = torch.empty_like(q).view(b, tq, 3 * e)
-        attention_bwd(q3, k3, v3, d_o, valid, 4, causal,
+        attention_bwd(q3, k3, v3, d_o, valid, heads, causal,
                       *dqkv.split(e, dim=-1))
         assert torch.equal(dqkv, torch.cat(got, dim=-1))
+
+
+@pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
+                                          (True, False)])
+def test_attention_bwd_head_dim_32(dev, cross, causal):
+    test_attention_bwd(dev, cross, causal, heads=8)
 
 
 def test_layernorm_bwd(dev):
@@ -368,13 +381,13 @@ def test_linear_wgrad(dev, r, k, n):
 
 
 @pytest.mark.parametrize("stack", ["encoder", "decoder"])
-def test_training_stacks_forward_and_backward(dev, stack):
+def test_training_stacks_forward_and_backward(dev, stack, h=4):
     """The hand-written path against autograd through the plain twins, bf16,
     dropout on, one image with no valid token."""
     from acai_omr_tpu_torch.ops import train_layer_kernel as tlk
     from acai_omr_tpu_torch.ops import transformer
     gen = torch.Generator().manual_seed(18)
-    n_l, b, t, m, e, h, f = 2, 3, 64, 128, 256, 4, 512
+    n_l, b, t, m, e, f = 2, 3, 64, 128, 256, 512
     init = transformer.encoder_layer_init if stack == "encoder" \
         else transformer.decoder_layer_init
     stacked = transformer.stack_init(init, gen, n_l, e, f, device=dev)
@@ -417,3 +430,9 @@ def test_training_stacks_forward_and_backward(dev, stack):
         assert torch.equal(a, a2)
         assert torch.isfinite(a.float()).all()
         assert rel(a, c) < 5e-2
+
+
+def test_training_stack_head_dim_32(dev):
+    """An encoder stack of 8 heads over E = 256 (head dim 32, as the MAE
+    decoder's blocks): K3 and K7 at that head dim inside the stack."""
+    test_training_stacks_forward_and_backward(dev, "encoder", h=8)
