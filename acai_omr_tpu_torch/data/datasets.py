@@ -19,15 +19,17 @@ from PIL import Image
 
 
 class LMXDataset:
-    """Base: CSV split file -> example ids."""
+    """Base: CSV split file -> example ids. ``include_musicxml`` appends the
+    example's MusicXML string to every item (stage 3 scores against it)."""
 
     def __init__(self, root_dir, split_file_name, img_transform=None,
-                 lmx_transform=None):
+                 lmx_transform=None, include_musicxml=False):
         import pandas as pd
         self.root_dir = Path(root_dir)
         self.id_df = pd.read_csv(self.root_dir / split_file_name, header=None)
         self.img_transform = img_transform
         self.lmx_transform = lmx_transform
+        self.include_musicxml = include_musicxml
 
     def __len__(self):
         return len(self.id_df)
@@ -40,9 +42,15 @@ class LMXDataset:
             lmx = f.read()
         return self.lmx_transform(lmx) if self.lmx_transform else lmx
 
+    def _with_musicxml(self, item: tuple, ex_id: str) -> tuple:
+        if not self.include_musicxml:
+            return item
+        with open(self.root_dir / (ex_id + ".musicxml"), "r") as f:
+            return item + (f.read(),)
+
 
 class GrandStaffLMXDataset(LMXDataset):
-    """(original, distorted-resized, lmx)."""
+    """(original, distorted-resized, lmx[, musicxml])."""
 
     def __getitem__(self, idx):
         ex_id = self.id_df.iat[idx, 0]
@@ -54,18 +62,21 @@ class GrandStaffLMXDataset(LMXDataset):
         if self.img_transform:
             original = self.img_transform(original)
             distorted = self.img_transform(distorted)
-        return original, distorted, self._load_lmx(self.root_dir / (ex_id + ".lmx"))
+        return self._with_musicxml(
+            (original, distorted,
+             self._load_lmx(self.root_dir / (ex_id + ".lmx"))), ex_id)
 
 
 class OlimpicDataset(LMXDataset):
-    """(img, lmx) for synthetic/scanned OLiMPiC."""
+    """(img, lmx[, musicxml]) for synthetic/scanned OLiMPiC."""
 
     def __getitem__(self, idx):
         ex_id = self.id_df.iat[idx, 0]
         img = self._load_img(self.root_dir / (ex_id + ".png"))
         if self.img_transform:
             img = self.img_transform(img)
-        return img, self._load_lmx(self.root_dir / (ex_id + ".lmx"))
+        return self._with_musicxml(
+            (img, self._load_lmx(self.root_dir / (ex_id + ".lmx"))), ex_id)
 
 
 class PreparedDataset:
@@ -133,8 +144,8 @@ class GrandStaffPreTrainWrapper(PreTrainWrapper):
 
 
 class GrandStaffOMRTrainWrapper:
-    """(input_img, lmx): with probability ``augment_p`` the transformed
-    distorted image, else the original."""
+    """(input_img, lmx[, musicxml]): with probability ``augment_p`` the
+    transformed distorted image, else the original."""
 
     def __init__(self, base_dataset, augment_p=0.0, transform=None, rng=None):
         if augment_p > 0 and transform is None:
@@ -149,10 +160,10 @@ class GrandStaffOMRTrainWrapper:
         return len(self.base_dataset)
 
     def __getitem__(self, idx):
-        original, distorted, lmx = self.base_dataset[idx]
+        original, distorted, *rest = self.base_dataset[idx]
         if self.rng.random() < self.augment_p:
-            return self.transform(distorted), lmx
-        return original, lmx
+            return (self.transform(distorted), *rest)
+        return (original, *rest)
 
 
 class ConcatDataset:

@@ -1,52 +1,71 @@
 """KV-cached decode -- the hot path of inference.
 
-The twin of the JAX package's ``models/decode.py`` on one card: greedy
-:func:`generate`, :func:`beam_generate` and :func:`streamed_generate`, with
-caches in the compute dtype or int8.
+The twin of the JAX package's ``models/decode.py`` on one card:
+:func:`generate` (greedy or top-k / temperature sampled, optionally with G
+rows per memory row), :func:`beam_generate` and :func:`streamed_generate`,
+with caches in the compute dtype or int8. Two steps, told apart by the
+caches' ``ndim`` as in JAX:
+
+* **The monolith step** (``ops.decode_kernel.use_monolith()``, the default):
+  time-major caches ``(L, B, T, E)`` appended in place by
+  :func:`..ops.decode_kernel.decode_layers` (K1 or K5, K2 or K6, K4). Memory
+  K/V in the ``te`` layout ``(L, B, M, E)``. ``cache_dtype=torch.int8`` is the
+  JAX monolith's quantized mode: int8 K/V with per (row, position, head) bf16
+  scales ``(L, B, T, H)``, quantized attention and int8 weights (W8A8). The
+  cache length is a multiple of the JAX monolith's time tile.
+* **The per-op step** (``ACAI_MONOLITH_DECODE=0``): lane-major caches
+  ``(L, B, H, Dh, T)`` and memory ``(L, B, H, Dh, M)`` (the ``hd`` layout),
+  int8 with fp32 scales ``(L, B, H, T)``; the products, LayerNorms and GELU in
+  plain PyTorch with the weights in the compute dtype; the attention through
+  :mod:`..ops.decode_hd_kernel` where its switches say so (K11 for the compute
+  dtype, ``ACAI_PALLAS_DECODE=1``; K13 for the int8 self-attention and K12
+  for the int8 cross-attention, ``ACAI_PALLAS_DECODE_INT8``, on by default),
+  else :func:`decode_attention`. No time-tile rounding.
+
+Common to both:
 
 * Cross-attention K/V are projected once per batch from the stacked cross
-  ``in_kernel`` kv columns (:func:`precompute_memory_kv`), in the time-major
-  ``te`` layout ``(L, B, M, E)`` the decode-step kernels read.
-* Caches are time-major ``(L, B, T, E)`` and appended in place by the step
-  (:func:`..ops.decode_kernel.decode_layers`: kernel launches on CUDA).
-* ``cache_dtype=torch.int8`` is the JAX monolith's quantized mode: int8 K/V
-  with per (row, position, head) bf16 scales ``(L, B, T, H)``, quantized
-  attention, and int8 weights with per-row quantized activations (W8A8).
-  Tokens are near, not bit-identical, to compute-dtype decode.
+  ``in_kernel`` kv columns (:func:`precompute_memory_kv`).
 * Segmented cache growth: the cache starts at ``initial_segment`` slots and
   grows (256, then doubling, capped at ``max_len``) only when a segment
   fills, so short sequences only ever touch short caches.
 * Finished-row compaction at segment boundaries down to power-of-two row
-  counts, so finished rows stop paying for cache bandwidth.
+  counts (of groups, with ``mem_group``), so finished rows stop paying for
+  cache bandwidth.
 * Beams decode ``K`` rows per image over the un-replicated memory
   (``mem_group=K``); caches and scales are reordered by parent every step.
-* The final norm, the unembedding and the argmax / log-softmax stay outside
-  the layer kernels.
+* Sampling (:class:`SamplingConfig`) takes top-k of the fp32 logits, draws
+  ``argmax(topk / temperature + Gumbel)`` with noise from an explicit
+  ``torch.Generator`` and records the log-prob under the untempered top-k
+  ``log_softmax``.
+* The final norm, the unembedding and the argmax / sampling stay outside the
+  layer kernels.
 
 The token loop runs on the host; the all-finished early exit is checked every
 ``FINISH_CHECK_STEPS`` steps so the host does not wait on the card every
 token (rows decode independently, so a few extra steps after every row has
 finished change no kept token: :func:`mask_and_clip_seqs` masks them).
-
-Not ported yet: sampled decode and ``generate(mem_group=)`` (the rollout
-paths of GRPO training).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from ..ops import decode_hd_kernel as hd
 from ..ops import nn
-from ..ops.decode_kernel import decode_layers, prepack, quantize_rows
+from ..ops.decode_kernel import (decode_layers, prepack, quantize_rows,
+                                 use_monolith)
 from .omr_decoder import DecoderConfig
 
 Params = dict
 
-# the cache time axis is kept a multiple of the JAX monolith's time tile so
-# segment boundaries (and hence compaction points) fall where they do there
+# the monolith's cache time axis is kept a multiple of the JAX monolith's time
+# tile so segment boundaries (and hence compaction points) fall where they do
+# there
 TIME_TILE = 16
 INT8_TIME_TILE = 32
 FINISH_CHECK_STEPS = 16
@@ -57,11 +76,19 @@ def time_tile(cache_dtype) -> int:
     return INT8_TIME_TILE if cache_dtype == torch.int8 else TIME_TILE
 
 
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    """Top-k + temperature sampling of GRPO rollouts."""
+    top_k: int = 50
+    temperature: float = 1.1
+
+
 @dataclasses.dataclass
 class MemoryKV:
-    """Per-layer cross-attention keys/values (L, B, M, E) and the (B, M)
-    fp32 additive padding bias (0 valid / -1e9 padding). int8 K/V carry
-    (L, B, M, H) bf16 dequantization scales."""
+    """Per-layer cross-attention keys/values and the (B, M) fp32 additive
+    padding bias (0 valid / -1e9 padding). ``te`` layout: (L, B, M, E), int8
+    with (L, B, M, H) bf16 scales; ``hd`` layout: (L, B, H, Dh, M), int8 with
+    (L, B, H, M) fp32 scales."""
     k: torch.Tensor
     v: torch.Tensor
     bias: torch.Tensor
@@ -80,9 +107,10 @@ class DecodeState:
     log_probs: torch.Tensor  # (B, max_len) float32
     finished: torch.Tensor   # (B,) bool
     t: int                   # next position to fill
-    k_cache: torch.Tensor    # (L, B, T_cache, E)
-    v_cache: torch.Tensor    # (L, B, T_cache, E)
-    # int8 caches: per-written-position scales (L, B, T_cache, H) bf16
+    k_cache: torch.Tensor    # (L, B, T_cache, E) or (L, B, H, Dh, T_cache)
+    v_cache: torch.Tensor
+    # int8 caches: per-written-position scales, (L, B, T_cache, H) bf16 or
+    # (L, B, H, T_cache) fp32
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
 
@@ -91,9 +119,11 @@ def precompute_memory_kv(params: Params, cfg: DecoderConfig,
                          img_latent: torch.Tensor,
                          latent_valid: torch.Tensor | None,
                          compute_dtype=torch.bfloat16,
-                         cache_dtype=torch.bfloat16) -> MemoryKV:
-    """Project encoder memory into per-layer cross K/V once per batch."""
-    e = cfg.hidden_dim
+                         cache_dtype=torch.bfloat16,
+                         layout: str = "te") -> MemoryKV:
+    """Project encoder memory into per-layer cross K/V once per batch, in the
+    monolith step's ``te`` layout or the per-op step's ``hd`` layout."""
+    e, h = cfg.hidden_dim, cfg.num_heads
     b, m = img_latent.shape[:2]
     ca = params["blocks"]["cross_attn"]
     mem = img_latent.to(compute_dtype)
@@ -103,13 +133,21 @@ def precompute_memory_kv(params: Params, cfg: DecoderConfig,
         kv = torch.matmul(mem, ca["in_kernel"][i, :, e:].to(compute_dtype)) \
             + ca["in_bias"][i, e:].to(compute_dtype)
         for j, x in enumerate((kv[..., :e], kv[..., e:])):
-            if quantized:
-                q, s = quantize_rows(
-                    x.float().reshape(b, m, cfg.num_heads, -1), SCALE_DTYPE)
+            x = x.reshape(b, m, h, -1)
+            if layout == "hd":  # rows of (B, H, M, Dh), stored (B, H, Dh, M)
+                x = x.permute(0, 2, 1, 3)
+                if quantized:
+                    q, s = quantize_rows(x)
+                    cols[j].append(q.transpose(-1, -2))
+                    cols[2 + j].append(s)
+                else:
+                    cols[j].append(x.transpose(-1, -2).to(cache_dtype))
+            elif quantized:
+                q, s = quantize_rows(x.float(), SCALE_DTYPE)
                 cols[j].append(q.reshape(b, m, e))
                 cols[2 + j].append(s.to(SCALE_DTYPE))
             else:
-                cols[j].append(x.to(cache_dtype))
+                cols[j].append(x.reshape(b, m, e).to(cache_dtype))
     if latent_valid is None:
         bias = torch.zeros((b, m), dtype=torch.float32, device=mem.device)
     else:
@@ -120,23 +158,32 @@ def precompute_memory_kv(params: Params, cfg: DecoderConfig,
 
 
 def _init_caches(cfg: DecoderConfig, rows: int, cache_len: int, cache_dtype,
-                 device):
-    """Zero K/V caches (L, rows, cache_len, E); int8 caches come with
-    all-ones scales (L, rows, cache_len, H)."""
-    shape = (cfg.num_layers, rows, cache_len, cfg.hidden_dim)
+                 device, monolith: bool):
+    """Zero K/V caches, time-major (L, rows, cache_len, E) for the monolith
+    step or lane-major (L, rows, H, Dh, cache_len) for the per-op step; int8
+    caches come with all-ones scales ((L, rows, cache_len, H) bf16 /
+    (L, rows, H, cache_len) fp32)."""
+    l, h = cfg.num_layers, cfg.num_heads
+    if monolith:
+        shape = (l, rows, cache_len, cfg.hidden_dim)
+        scale_shape, scale_dtype = shape[:3] + (h,), SCALE_DTYPE
+    else:
+        shape = (l, rows, h, cfg.head_dim, cache_len)
+        scale_shape, scale_dtype = (l, rows, h, cache_len), torch.float32
     kv = [torch.zeros(shape, dtype=cache_dtype, device=device)
           for _ in range(2)]
     scales = [None, None]
     if cache_dtype == torch.int8:
-        scales = [torch.ones(shape[:3] + (cfg.num_heads,), dtype=SCALE_DTYPE,
-                             device=device) for _ in range(2)]
+        scales = [torch.ones(scale_shape, dtype=scale_dtype, device=device)
+                  for _ in range(2)]
     return (*kv, *scales)
 
 
 def init_decode_state(cfg: DecoderConfig, batch_size: int, max_len: int,
                       cache_len: int, cache_dtype=torch.bfloat16,
-                      device="cpu") -> DecodeState:
-    """Fresh decode state with <bos>-seeded sequences."""
+                      device="cpu", monolith: bool = True) -> DecodeState:
+    """Fresh decode state with <bos>-seeded sequences; ``monolith=False``
+    allocates the per-op step's lane-major caches."""
     seqs = torch.full((batch_size, max_len), cfg.pad_idx, dtype=torch.long,
                       device=device)
     seqs[:, 0] = cfg.bos_idx
@@ -144,17 +191,28 @@ def init_decode_state(cfg: DecoderConfig, batch_size: int, max_len: int,
         seqs, torch.zeros((batch_size, max_len), dtype=torch.float32,
                           device=device),
         torch.zeros((batch_size,), dtype=torch.bool, device=device), 1,
-        *_init_caches(cfg, batch_size, cache_len, cache_dtype, device))
+        *_init_caches(cfg, batch_size, cache_len, cache_dtype, device,
+                      monolith))
+
+
+def cache_len_of(k_cache: torch.Tensor) -> int:
+    """Sequence capacity of a cache in either layout."""
+    return k_cache.shape[2] if k_cache.dim() == 4 else k_cache.shape[-1]
 
 
 def grow_cache(state, new_cache_len: int):
     """Pad the KV caches with zeros, and int8 scales with ones, to a longer
-    segment (``state``: a :class:`DecodeState` or a :class:`BeamState`)."""
-    cur = state.k_cache.shape[2]
+    segment (``state``: a :class:`DecodeState` or a :class:`BeamState`):
+    along axis 2 of time-major caches, along the last axis of lane-major
+    ones."""
+    cur = cache_len_of(state.k_cache)
     if new_cache_len <= cur:
         return state
+    n = new_cache_len - cur
+    # F.pad counts dims from the last: (0, 0, 0, n) pads axis -2
+    widths = (0, 0, 0, n) if state.k_cache.dim() == 4 else (0, n)
     pad = lambda c, v: None if c is None else torch.nn.functional.pad(
-        c, (0, 0, 0, new_cache_len - cur), value=v)
+        c, widths, value=v)
     return dataclasses.replace(
         state, k_cache=pad(state.k_cache, 0), v_cache=pad(state.v_cache, 0),
         k_scale=pad(state.k_scale, 1.0), v_scale=pad(state.v_scale, 1.0))
@@ -167,17 +225,172 @@ def _embed_token(params: Params, tok: torch.Tensor, pos: int,
     return (x + params["pos_embedding"][pos]).to(compute_dtype)
 
 
-def step_logits(params: Params, cfg: DecoderConfig, mono: Params,
+# ---------------------------------------------------------------------------
+# the per-op step
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, kT: torch.Tensor, vT: torch.Tensor,
+                     bias: torch.Tensor | None, compute_dtype=torch.bfloat16,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None,
+                     n_keys: int | None = None) -> torch.Tensor:
+    """Single-query attention against a lane-major cache.
+
+    q: (B, H, Dh); kT/vT: (B, H, Dh, T); bias: (B, T) additive or None; with
+    int8 caches k_scale/v_scale (B, H, T) dequantize after the dots. Only the
+    first ``n_keys`` positions are read (the rest must carry no weight).
+    Where the switch of the cache's dtype is on, K11 (compute dtype) or K12
+    (int8) computes it; else this plain path, whose softmax weights are
+    rounded to the compute dtype before the V product (the kernels' are
+    not). Returns (B, H, Dh) in the compute dtype.
+    """
+    if hd.use_kernel(kT.dtype):
+        if k_scale is None:
+            return hd.decode_attention_hd(q.contiguous(), kT, vT, bias,
+                                          n_keys=n_keys)
+        return hd.decode_attention_hd_int8(q.contiguous(), kT, vT, k_scale,
+                                           v_scale, bias, n_keys=n_keys)
+    n = kT.shape[-1] if n_keys is None else n_keys
+    cast = lambda a: a[..., :n].to(compute_dtype).float()
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhd,bhdt->bht", q.to(compute_dtype).float(),
+                          cast(kT)) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[..., :n]
+    if bias is not None:
+        logits = logits + bias[:, None, :n]
+    w = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale[..., :n]
+    out = torch.einsum("bht,bhdt->bhd", w.to(compute_dtype).float(), cast(vT))
+    return out.to(compute_dtype)
+
+
+def _grouped_cross_attention(qc: torch.Tensor, mem: MemoryKV, i: int,
+                             group: int, compute_dtype=torch.bfloat16):
+    """Cross-attention where G consecutive batch rows share one memory row:
+    qc (B, H, Dh) with B = B_unique * G against layer ``i`` of the B_unique
+    memory rows, the group folded into the query axis. Plain PyTorch (the
+    JAX package computes it outside its kernels)."""
+    bu = mem.k.shape[1]
+    h, dh = qc.shape[1], qc.shape[2]
+    q = qc.reshape(bu, group, h, dh).to(compute_dtype).float()
+    scale = 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bghd,bhdm->bghm", q,
+                          mem.k[i].to(compute_dtype).float()) * scale
+    if mem.k_scale is not None:
+        logits = logits * mem.k_scale[i][:, None]
+    logits = logits + mem.bias[:, None, None, :]
+    w = torch.softmax(logits, dim=-1)
+    if mem.v_scale is not None:
+        w = w * mem.v_scale[i][:, None]
+    out = torch.einsum("bghm,bhdm->bghd", w.to(compute_dtype).float(),
+                       mem.v[i].to(compute_dtype).float())
+    return out.reshape(bu * group, h, dh).to(compute_dtype)
+
+
+def _decode_step_logits(params: Params, cfg: DecoderConfig, x: torch.Tensor,
+                        t: int, caches: dict, mem: MemoryKV,
+                        compute_dtype=torch.bfloat16,
+                        mem_group: int = 1) -> torch.Tensor:
+    """Advance one token on the per-op step: x (B, E) = embedded token at
+    position t-1. ``caches``: {"k", "v"[, "ks", "vs"]} lane-major arrays,
+    written in place at column t-1. Returns (B, V) fp32 logits.
+
+    With int8 caches and ``ACAI_PALLAS_DECODE_INT8`` on, the self-attention
+    is K13 (quantize, append, attend) and the cross-attention with
+    ``mem_group == 1`` is K12 over the stacked memory; otherwise the fresh
+    k / v are quantized with fp32 scales, written, and attended by
+    :func:`decode_attention`. ``mem_group > 1`` takes
+    :func:`_grouped_cross_attention`."""
+    e, h, dh = cfg.hidden_dim, cfg.num_heads, cfg.head_dim
+    b = x.shape[0]
+    pos = t - 1  # cache slot for this token's k/v
+    quantized = "ks" in caches
+    fused_int8 = quantized and hd.use_kernel(torch.int8)
+    fused_mem = (mem_group == 1 and mem.k_scale is not None
+                 and hd.use_kernel(torch.int8))
+    blocks = params["blocks"]
+    cd = compute_dtype
+    for i in range(cfg.num_layers):
+        sa, ca = blocks["self_attn"], blocks["cross_attn"]
+        qkv = torch.matmul(x, sa["in_kernel"][i].to(cd)) \
+            + sa["in_bias"][i].to(cd)
+        q, k, v = (a.reshape(b, h, dh).contiguous()
+                   for a in qkv.split(e, dim=-1))
+        if fused_int8:
+            attn = hd.self_attention_append_int8(
+                q, k, v, caches["k"], caches["v"], caches["ks"], caches["vs"],
+                i, pos)
+        else:
+            ks = vs = None
+            if quantized:
+                k, ks_new = quantize_rows(k)
+                v, vs_new = quantize_rows(v)
+                caches["ks"][i, ..., pos] = ks_new
+                caches["vs"][i, ..., pos] = vs_new
+                ks, vs = caches["ks"][i], caches["vs"][i]
+            caches["k"][i, ..., pos] = k.to(caches["k"].dtype)
+            caches["v"][i, ..., pos] = v.to(caches["v"].dtype)
+            attn = decode_attention(q, caches["k"][i], caches["v"][i], None,
+                                    cd, ks, vs, n_keys=pos + 1)
+        attn = torch.matmul(attn.reshape(b, e), sa["out"]["kernel"][i].to(cd)) \
+            + sa["out"]["bias"][i].to(cd)
+        x = nn.layernorm(_layer(blocks["norm1"], i), x + attn, eps=1e-5)
+
+        qc = torch.matmul(x, ca["in_kernel"][i, :, :e].to(cd)) \
+            + ca["in_bias"][i, :e].to(cd)
+        qc = qc.reshape(b, h, dh)
+        if mem_group > 1:
+            cattn = _grouped_cross_attention(qc, mem, i, mem_group, cd)
+        elif fused_mem:
+            cattn = hd.decode_attention_hd_int8(
+                qc.contiguous(), mem.k, mem.v, mem.k_scale, mem.v_scale,
+                mem.bias, layer=i)
+        else:
+            cattn = decode_attention(
+                qc, mem.k[i], mem.v[i], mem.bias, cd,
+                None if mem.k_scale is None else mem.k_scale[i],
+                None if mem.v_scale is None else mem.v_scale[i])
+        cattn = torch.matmul(cattn.reshape(b, e),
+                             ca["out"]["kernel"][i].to(cd)) \
+            + ca["out"]["bias"][i].to(cd)
+        x = nn.layernorm(_layer(blocks["norm2"], i), x + cattn, eps=1e-5)
+
+        h1 = nn.gelu(nn.dense(_layer(blocks["linear1"], i), x))
+        ff = nn.dense(_layer(blocks["linear2"], i), h1)
+        x = nn.layernorm(_layer(blocks["norm3"], i), x + ff, eps=1e-5)
+    x = nn.layernorm(params["final_norm"], x, eps=1e-6)
+    return nn.dense(params["unembed"], x).float()
+
+
+def _layer(p: Params, i: int) -> Params:
+    return {k: v[i] for k, v in p.items()}
+
+
+# ---------------------------------------------------------------------------
+# one step, either layout
+# ---------------------------------------------------------------------------
+
+def step_logits(params: Params, cfg: DecoderConfig, mono: Params | None,
                 state, mem: MemoryKV, compute_dtype,
                 pe_offset: int = 0, plain: bool = False,
                 mem_group: int = 1) -> torch.Tensor:
     """One decode step at position ``state.t``: appends the caches in place
-    and returns (rows, V) fp32 logits (``plain`` runs the kernels' plain
-    twins). ``state`` is a :class:`DecodeState` or a :class:`BeamState`,
-    whose ``seqs`` are flattened to rows."""
+    and returns (rows, V) fp32 logits. Time-major caches take the monolith
+    step with the operands ``mono`` (:func:`_prepack_for`; ``plain`` runs
+    its kernels' plain twins), lane-major ones the per-op step.
+    ``state`` is a :class:`DecodeState` or a :class:`BeamState`, whose
+    ``seqs`` are flattened to rows."""
     t = state.t
     seqs = state.seqs.reshape(-1, state.seqs.shape[-1])
     x = _embed_token(params, seqs[:, t - 1], t - 1 + pe_offset, compute_dtype)
+    if state.k_cache.dim() == 5:
+        caches = {"k": state.k_cache, "v": state.v_cache}
+        if state.k_scale is not None:
+            caches.update(ks=state.k_scale, vs=state.v_scale)
+        return _decode_step_logits(params, cfg, x, t, caches, mem,
+                                   compute_dtype, mem_group)
     x = decode_layers(mono, x, t - 1, state.k_cache, state.v_cache, mem.k,
                       mem.v, mem.bias, cfg.num_heads, plain=plain,
                       k_scale=state.k_scale, v_scale=state.v_scale,
@@ -188,18 +401,33 @@ def step_logits(params: Params, cfg: DecoderConfig, mono: Params,
 
 
 def _prepack_for(params: Params, compute_dtype, cache_dtype) -> Params:
-    """The step's operands: int8 caches quantize the weights too (W8A8), as
-    the JAX package's ``weight_quant_mode`` does by default."""
+    """The monolith step's operands: int8 caches quantize the weights too
+    (W8A8), as the JAX package's ``weight_quant_mode`` does by default."""
     return prepack(params, compute_dtype,
                    quantize_weights="int8" if cache_dtype == torch.int8
                    else False)
+
+
+def sample_top_k(logits: torch.Tensor, sampling: SamplingConfig,
+                 noise: torch.Tensor):
+    """One sampled token per row from (B, V) fp32 logits: the top-k logits
+    (ties: the lower index first), ``argmax(topk / temperature + noise)``
+    with (B, k) Gumbel ``noise``; the log-prob is the untempered top-k
+    ``log_softmax`` at the choice. Returns (tokens (B,), log_probs (B,))."""
+    k = min(sampling.top_k, logits.shape[-1])
+    order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top, idx = order.values[:, :k], order.indices[:, :k]
+    choice = torch.argmax(top / sampling.temperature + noise, dim=-1)
+    tok = idx.gather(1, choice[:, None])[:, 0]
+    lp = torch.log_softmax(top, dim=-1).gather(1, choice[:, None])[:, 0]
+    return tok, lp
 
 
 def _segment_budget(state, num_steps: int) -> int:
     """Steps one segment may take: up to ``num_steps``, the cache length and
     max_len."""
     return min(state.t + num_steps, state.seqs.shape[-1],
-               state.k_cache.shape[2] + 1) - state.t
+               cache_len_of(state.k_cache) + 1) - state.t
 
 
 def _all_finished(state, i: int) -> bool:
@@ -208,21 +436,31 @@ def _all_finished(state, i: int) -> bool:
     return i % FINISH_CHECK_STEPS == 0 and bool(state.finished.all())
 
 
-def decode_segment(params: Params, cfg: DecoderConfig, mono: Params,
+def decode_segment(params: Params, cfg: DecoderConfig, mono: Params | None,
                    state: DecodeState, mem: MemoryKV, num_steps: int,
-                   compute_dtype=torch.bfloat16,
-                   pe_offset: int = 0) -> DecodeState:
-    """Run up to ``num_steps`` greedy steps; stops at the segment budget, the
-    cache length or max_len, or once every row has finished."""
+                   compute_dtype=torch.bfloat16, pe_offset: int = 0,
+                   sampling: SamplingConfig | None = None,
+                   generator: torch.Generator | None = None,
+                   mem_group: int = 1) -> DecodeState:
+    """Run up to ``num_steps`` steps, greedy or sampled (one fresh draw of
+    Gumbel noise per step from ``generator``); stops at the segment budget,
+    the cache length or max_len, or once every row has finished."""
     for i in range(_segment_budget(state, num_steps)):
         if _all_finished(state, i):
             break
         logits = step_logits(params, cfg, mono, state, mem, compute_dtype,
-                             pe_offset)
-        next_tok = torch.argmax(logits, dim=-1)
-        lp = torch.log_softmax(logits, dim=-1)
+                             pe_offset, mem_group=mem_group)
+        if sampling is None:
+            next_tok = torch.argmax(logits, dim=-1)
+            lp = torch.log_softmax(logits, dim=-1) \
+                .gather(1, next_tok[:, None])[:, 0]
+        else:
+            k = min(sampling.top_k, logits.shape[-1])
+            noise = nn.gumbel_noise((logits.shape[0], k), generator,
+                                    logits.device)
+            next_tok, lp = sample_top_k(logits, sampling, noise)
         state.seqs[:, state.t] = next_tok
-        state.log_probs[:, state.t] = lp.gather(1, next_tok[:, None])[:, 0]
+        state.log_probs[:, state.t] = lp
         state.finished |= next_tok == cfg.eos_idx
         state.t += 1
     return state
@@ -252,15 +490,46 @@ def mask_and_clip_seqs(seqs, log_probs, eos_idx: int, pad_idx: int):
     return seqs[:, :max_len], log_probs[:, :max_len], mask[:, :max_len]
 
 
+def _compaction(finished: np.ndarray, g: int):
+    """Rows to keep at a segment boundary, or None: the live rows (groups of
+    ``g`` rows when the memory is grouped: a group is dropped only when all
+    its rows finished) padded to a power of two by repeating the first live
+    one, when that is at most half the current count. Returns (row
+    selection, memory-row selection, finished mask of the kept rows, number
+    of real rows kept)."""
+    alive = np.flatnonzero(~finished.reshape(-1, g).all(axis=1))
+    n = len(alive)
+    target = max(1, 1 << (n - 1).bit_length()) if n else 1
+    if not n or target > (len(finished) // g) // 2:
+        return None
+    groups = np.concatenate([alive, np.full(target - n, alive[0])])
+    rows = (groups[:, None] * g + np.arange(g)).reshape(-1)
+    fin = finished[rows].copy()
+    fin[n * g:] = True  # pad rows cannot block the all-finished exit
+    return rows, groups, fin, n * g
+
+
 def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
              latent_valid: torch.Tensor | None, *, max_len: int = 1536,
+             sampling: SamplingConfig | None = None,
+             generator: torch.Generator | None = None,
              initial_segment: int = 256, segment_steps: int | None = None,
              compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-             compact: bool = True, pe_offset: int = 0, progress_cb=None):
-    """Batched KV-cached greedy generation.
+             compact: bool = True, mem_group: int = 1, pe_offset: int = 0,
+             progress_cb=None):
+    """Batched KV-cached generation (greedy, or sampled with ``sampling``).
 
     Returns (seqs, log_probs, seq_mask) trimmed to the longest live sequence.
-    ``cache_dtype=torch.int8`` decodes with int8 caches and W8A8 weights.
+    ``cache_dtype=torch.int8`` decodes with int8 caches (and W8A8 weights on
+    the monolith step). Sampling draws its Gumbel noise from ``generator``
+    (a ``torch.Generator`` on the latent's device; seed 0 when None).
+
+    ``mem_group=G > 1``: decode G sequences per row of ``img_latent`` (GRPO
+    rollout groups) without replicating the memory: returns
+    ``G * img_latent.shape[0]`` rows, group-major (row i*G+g is image i's
+    g-th sequence), as decoding a ``repeat_interleave``-expanded latent
+    would. int8 caches on the per-op step need the replicated memory: there
+    the latent is repeated and the group becomes 1, as in JAX.
 
     ``progress_cb(seqs, t, finished)``: called at every segment boundary with
     host copies of the full master sequence buffer (B, max_len) (row order =
@@ -276,14 +545,26 @@ def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
     """
     if cache_dtype not in (compute_dtype, torch.int8):
         raise ValueError("caches are kept in the compute dtype or in int8")
-    b = img_latent.shape[0]
+    monolith = use_monolith()
+    if mem_group > 1 and cache_dtype == torch.int8 and not monolith:
+        img_latent = img_latent.repeat_interleave(mem_group, dim=0)
+        if latent_valid is not None:
+            latent_valid = latent_valid.repeat_interleave(mem_group, dim=0)
+        mem_group = 1
+    g = mem_group
+    b = img_latent.shape[0] * g
     dev = img_latent.device
-    tt = time_tile(cache_dtype)
+    tt = time_tile(cache_dtype) if monolith else 1
     cache_len = _round_up(min(initial_segment, max_len), tt)
     mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
-                               compute_dtype, cache_dtype)
-    mono = _prepack_for(params, compute_dtype, cache_dtype)
-    state = init_decode_state(cfg, b, max_len, cache_len, cache_dtype, dev)
+                               compute_dtype, cache_dtype,
+                               layout="te" if monolith else "hd")
+    mono = _prepack_for(params, compute_dtype, cache_dtype) if monolith \
+        else None
+    state = init_decode_state(cfg, b, max_len, cache_len, cache_dtype, dev,
+                              monolith)
+    if sampling is not None and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
 
     # master per-original-row results; active rows map into it via row_map
     master_seqs = state.seqs.clone()
@@ -294,11 +575,13 @@ def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
     t_known = 1
     while True:
         state = decode_segment(params, cfg, mono, state, mem, steps,
-                               compute_dtype, pe_offset)
+                               compute_dtype, pe_offset, sampling, generator,
+                               g)
         rows = torch.as_tensor(row_map, device=dev)
         master_seqs[rows] = state.seqs[: len(row_map)]
         master_lps[rows] = state.log_probs[: len(row_map)]
-        stop_bound = min(t_known + steps, state.k_cache.shape[2] + 1, max_len)
+        stop_bound = min(t_known + steps, cache_len_of(state.k_cache) + 1,
+                         max_len)
         if stop_bound >= max_len:
             break
         t = t_known = state.t
@@ -309,31 +592,22 @@ def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
             progress_cb(master_seqs.cpu().numpy(), t, fin_master)
         if t >= max_len or finished_rows.all():
             break
-        # compaction: drop finished rows when the live ones fit a power of
-        # two at most half the current batch
-        sel = None
-        unfinished = np.flatnonzero(~finished_rows[: len(row_map)])
-        target_b = max(1, 1 << (len(unfinished) - 1).bit_length())
-        if compact and target_b <= len(row_map) // 2:
-            pad_rows = np.full(target_b - len(unfinished), unfinished[0])
-            sel = torch.as_tensor(np.concatenate([unfinished, pad_rows]),
-                                  device=dev)
-            # duplicate pad rows are marked finished so they cannot block
-            # the all-finished early exit
-            fin = torch.zeros((target_b,), dtype=torch.bool, device=dev)
-            fin[len(unfinished):] = True
-            row_map = row_map[unfinished]
-        need_grow = t > state.k_cache.shape[2]
-        if sel is not None:
+        keep = _compaction(finished_rows[: len(row_map)], g) if compact \
+            else None
+        if keep is not None:
+            sel, sel_mem, fin, n_real = keep
+            row_map = row_map[sel[:n_real]]
+            sel = torch.as_tensor(sel, device=dev)
             pick = lambda a: None if a is None else a[:, sel].contiguous()
-            state = DecodeState(state.seqs[sel], state.log_probs[sel], fin,
-                                state.t, pick(state.k_cache),
-                                pick(state.v_cache), pick(state.k_scale),
-                                pick(state.v_scale))
-            mem = mem.rows(sel)
-        if need_grow:
+            state = DecodeState(
+                state.seqs[sel], state.log_probs[sel],
+                torch.as_tensor(fin, device=dev), state.t,
+                pick(state.k_cache), pick(state.v_cache),
+                pick(state.k_scale), pick(state.v_scale))
+            mem = mem.rows(torch.as_tensor(sel_mem, device=dev))
+        if t > cache_len_of(state.k_cache):
             state = grow_cache(state, _round_up(
-                _next_segment(state.k_cache.shape[2], max_len), tt))
+                _next_segment(cache_len_of(state.k_cache), max_len), tt))
 
     return mask_and_clip_seqs(master_seqs, master_lps, cfg.eos_idx,
                               cfg.pad_idx)
@@ -350,15 +624,15 @@ class BeamState:
     scores: torch.Tensor     # (B, K) float32 cumulative lp
     finished: torch.Tensor   # (B, K) bool
     t: int
-    k_cache: torch.Tensor    # (L, B*K, T_cache, E)
+    k_cache: torch.Tensor    # (L, B*K, T_cache, E) or (L, B*K, H, Dh, T_cache)
     v_cache: torch.Tensor
-    k_scale: torch.Tensor | None = None  # (L, B*K, T_cache, H) bf16
+    k_scale: torch.Tensor | None = None  # int8: per-position scales
     v_scale: torch.Tensor | None = None
 
 
 def init_beam_state(cfg: DecoderConfig, batch_size: int, beam_size: int,
                     max_len: int, cache_len: int, cache_dtype=torch.bfloat16,
-                    device="cpu") -> BeamState:
+                    device="cpu", monolith: bool = True) -> BeamState:
     b, k = batch_size, beam_size
     seqs = torch.full((b, k, max_len), cfg.pad_idx, dtype=torch.long,
                       device=device)
@@ -367,12 +641,12 @@ def init_beam_state(cfg: DecoderConfig, batch_size: int, beam_size: int,
         seqs, torch.zeros((b, k, max_len), dtype=torch.float32, device=device),
         torch.zeros((b, k), dtype=torch.float32, device=device),
         torch.zeros((b, k), dtype=torch.bool, device=device), 1,
-        *_init_caches(cfg, b * k, cache_len, cache_dtype, device))
+        *_init_caches(cfg, b * k, cache_len, cache_dtype, device, monolith))
 
 
-def beam_decode_segment(params: Params, cfg: DecoderConfig, mono: Params,
-                        state: BeamState, mem: MemoryKV, num_steps: int,
-                        compute_dtype=torch.bfloat16,
+def beam_decode_segment(params: Params, cfg: DecoderConfig,
+                        mono: Params | None, state: BeamState, mem: MemoryKV,
+                        num_steps: int, compute_dtype=torch.bfloat16,
                         pe_offset: int = 0) -> BeamState:
     """Run up to ``num_steps`` beam-search steps.
 
@@ -460,27 +734,31 @@ def beam_generate(params: Params, cfg: DecoderConfig, img_latent, latent_valid,
     if cache_dtype not in (compute_dtype, torch.int8):
         raise ValueError("caches are kept in the compute dtype or in int8")
     b = img_latent.shape[0]
-    tt = time_tile(cache_dtype)
+    monolith = use_monolith()
+    tt = time_tile(cache_dtype) if monolith else 1
     cache_len = _round_up(min(initial_segment, max_len), tt)
     mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
-                               compute_dtype, cache_dtype)
-    mono = _prepack_for(params, compute_dtype, cache_dtype)
+                               compute_dtype, cache_dtype,
+                               layout="te" if monolith else "hd")
+    mono = _prepack_for(params, compute_dtype, cache_dtype) if monolith \
+        else None
     state = init_beam_state(cfg, b, beam_size, max_len, cache_len,
-                            cache_dtype, img_latent.device)
+                            cache_dtype, img_latent.device, monolith)
     steps = segment_steps or max_len
     t_known = 1
     while True:
         state = beam_decode_segment(params, cfg, mono, state, mem, steps,
                                     compute_dtype, pe_offset)
-        stop_bound = min(t_known + steps, state.k_cache.shape[2] + 1, max_len)
+        stop_bound = min(t_known + steps, cache_len_of(state.k_cache) + 1,
+                         max_len)
         if stop_bound >= max_len:
             break
         t = t_known = state.t
         if t >= max_len or bool(state.finished.all()):
             break
-        if t > state.k_cache.shape[2]:
+        if t > cache_len_of(state.k_cache):
             state = grow_cache(state, _round_up(
-                _next_segment(state.k_cache.shape[2], max_len), tt))
+                _next_segment(cache_len_of(state.k_cache), max_len), tt))
     out, final_scores = _select_best_beam(state.seqs, state.log_probs,
                                           state.scores, cfg, length_penalty)
     if return_all_beams:
@@ -502,18 +780,21 @@ def streamed_generate(params: Params, cfg: DecoderConfig, img_latent,
     if img_latent.shape[0] != 1:
         raise ValueError("Streamed generation only supports single image "
                          "batches")
-    cache_len = _round_up(min(256, max_len), TIME_TILE)
+    monolith = use_monolith()
+    tt = TIME_TILE if monolith else 1
+    cache_len = _round_up(min(256, max_len), tt)
     mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
-                               compute_dtype, compute_dtype)
-    mono = prepack(params, compute_dtype)
+                               compute_dtype, compute_dtype,
+                               layout="te" if monolith else "hd")
+    mono = prepack(params, compute_dtype) if monolith else None
     state = init_decode_state(cfg, 1, max_len, cache_len, compute_dtype,
-                              img_latent.device)
+                              img_latent.device, monolith)
     start_t = 1
     done = False
     while not done and start_t < max_len:
-        if start_t + flush_interval - 1 > state.k_cache.shape[2]:
+        if start_t + flush_interval - 1 > cache_len_of(state.k_cache):
             state = grow_cache(state, _round_up(
-                _next_segment(state.k_cache.shape[2], max_len), TIME_TILE))
+                _next_segment(cache_len_of(state.k_cache), max_len), tt))
         state = decode_segment(params, cfg, mono, state, mem, flush_interval,
                                compute_dtype, pe_offset)
         t = state.t

@@ -75,7 +75,8 @@ def forward(params: Params, cfg: DecoderConfig, input_seqs: torch.Tensor,
             latent_valid: torch.Tensor | None, *,
             token_idxs_input: bool = True, compute_dtype=torch.float32,
             seeds=None, deterministic: bool = True,
-            mem_kv: torch.Tensor | None = None) -> torch.Tensor:
+            mem_kv: torch.Tensor | None = None,
+            cross_group: int = 1) -> torch.Tensor:
     """Teacher-forced forward -> (B, T, V) fp32 logits.
 
     input_seqs: (B, T) right-shifted token ids, or (B, T, E) mixed embeddings
@@ -84,7 +85,9 @@ def forward(params: Params, cfg: DecoderConfig, input_seqs: torch.Tensor,
     optional (L, B, Tm, 2E) precomputed cross K/V
     (:func:`..ops.transformer.precompute_memory_kv`), which scheduled sampling
     computes once for its two passes. ``seeds``: (seed0, seed1) of the
-    dropout masks when ``deterministic`` is False.
+    dropout masks when ``deterministic`` is False. ``cross_group=G > 1``:
+    input_seqs has B rows but img_latent / latent_valid / mem_kv carry the
+    B/G unique memory rows (GRPO's rollouts of one image are contiguous).
     """
     if input_seqs.dim() == 2 and input_seqs.shape[1] > cfg.max_lmx_seq_len:
         raise ValueError(
@@ -100,12 +103,12 @@ def forward(params: Params, cfg: DecoderConfig, input_seqs: torch.Tensor,
     mem = img_latent.to(compute_dtype)
     if mem_kv is None:
         mem_kv = transformer.precompute_memory_kv(params["blocks"], mem)
-    ones = lambda n: torch.ones((b, n), dtype=torch.bool, device=x.device)
+    ones = lambda *s: torch.ones(s, dtype=torch.bool, device=x.device)
     x = transformer.decoder_stack(
         params["blocks"], x, mem_kv,
-        ones(t) if lmx_valid is None else lmx_valid,
-        ones(mem.shape[1]) if latent_valid is None else latent_valid,
-        cfg.num_heads, cfg.dropout, seeds, deterministic)
+        ones(b, t) if lmx_valid is None else lmx_valid,
+        ones(*mem.shape[:2]) if latent_valid is None else latent_valid,
+        cfg.num_heads, cfg.dropout, seeds, deterministic, cross_group)
     x = nn.layernorm(params["final_norm"], x, eps=1e-6)
     return nn.dense(params["unembed"], x).float()
 

@@ -3,9 +3,10 @@
 The twin of the JAX package's ``models/vitomr.py``: one parameter dict with
 the JAX tree's names and layouts, the pure forward functions of inference
 and of stage-2 training (teacher-forced and scheduled-sampling forwards, the
-padded cross entropy). Randomness is explicit: every training forward takes
-an integer ``seed`` from which the dropout masks (:mod:`..ops.dropout_kernel`)
-and the scheduled-sampling draws are derived on the host.
+padded cross entropy), and the sampled rollouts of stage 3. Randomness is
+explicit: every training forward takes an integer ``seed`` from which the
+dropout masks (:mod:`..ops.dropout_kernel`) and the scheduled-sampling draws
+are derived on the host; rollouts take a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from .. import resolve_device
 from ..ops import dropout_kernel as dk
 from ..ops import nn, transformer
+from . import decode as decode_lib
 from . import omr_decoder, vit_encoder
 from .omr_decoder import DecoderConfig
 from .vit_encoder import EncoderConfig
@@ -130,14 +132,6 @@ def forward_teacher_forced(params: Params, cfg: ViTOMRConfig, patches, pe_idx,
 # scheduled sampling
 # ---------------------------------------------------------------------------
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel draws, fp32."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32).clamp_min(tiny)
-    return -torch.log((-torch.log(u)).clamp_min(tiny))
-
-
 def gumbel_softmax(logits: torch.Tensor, tau: float, hard: bool,
                    noise: torch.Tensor) -> torch.Tensor:
     """F.gumbel_softmax with the Gumbel ``noise`` passed in (straight-through
@@ -169,7 +163,7 @@ def sample_and_mix_seqs(params: Params, tf_input_seqs: torch.Tensor,
         sample_mask = torch.rand(tf_input_seqs.shape, generator=generator,
                                  device=dev) < (1.0 - teacher_forcing_prob)
     if noise is None:
-        noise = gumbel_noise(tf_pred_logits.shape, generator, dev)
+        noise = nn.gumbel_noise(tf_pred_logits.shape, generator, dev)
     table = params["decoder"]["vocab_embedding"]["table"].to(compute_dtype)
     gold = nn.embed(params["decoder"]["vocab_embedding"], tf_input_seqs,
                     compute_dtype)
@@ -232,3 +226,46 @@ def omr_ce_loss(logits: torch.Tensor, target_seqs: torch.Tensor, pad_idx: int,
     if reduction == "sum":
         return (nll * mask).sum(), mask.sum()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# rollouts (stage 3)
+# ---------------------------------------------------------------------------
+
+def forward_rollout_policy(params: Params, cfg: ViTOMRConfig, img_latent,
+                           latent_valid, generator: torch.Generator | None,
+                           max_actions: int = 768, top_k: int = 50,
+                           temperature: float = 1.1, group_size: int = 1,
+                           **kwargs):
+    """Sampled KV-cached rollouts -> (seqs, log_probs, mask).
+
+    ``group_size=G > 1`` decodes G rollouts per image from the unexpanded
+    latent (decode ``mem_group``): the order of the G-times-repeated latent,
+    with the cross K/V projected and held once per image. The Gumbel noise
+    comes from ``generator``. ``kwargs`` go to :func:`.decode.generate`."""
+    sampling = decode_lib.SamplingConfig(top_k=top_k, temperature=temperature)
+    return decode_lib.generate(params["decoder"], cfg.decoder, img_latent,
+                               latent_valid, max_len=max_actions,
+                               sampling=sampling, generator=generator,
+                               mem_group=group_size, **kwargs)
+
+
+def batch_policy_inference(params: Params, cfg: ViTOMRConfig, imgs,
+                           generator: torch.Generator | None = None,
+                           max_actions: int = 768, top_k: int = 50,
+                           temperature: float = 1.1,
+                           compute_dtype=torch.bfloat16, device=None,
+                           **kwargs):
+    """Encode a ragged list of (C, H, W) images and run one sampled rollout
+    for each, caches in the compute dtype unless ``cache_dtype`` says
+    otherwise. Runs on ``cuda`` unless ``device`` says otherwise; ``params``
+    must live there."""
+    device = resolve_device(device)
+    kwargs.setdefault("cache_dtype", compute_dtype)
+    pb = vit_encoder.batchify(imgs, cfg.encoder)
+    with torch.no_grad():
+        latent, latent_valid = encode_image(params, cfg, *pb.to(device),
+                                            compute_dtype=compute_dtype)
+    return forward_rollout_policy(params, cfg, latent, latent_valid,
+                                  generator, max_actions, top_k, temperature,
+                                  compute_dtype=compute_dtype, **kwargs)

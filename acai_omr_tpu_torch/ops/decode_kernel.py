@@ -30,12 +30,18 @@ planes are a TPU layout and are not reproduced.
 
 ``mem_group=G``: the memory holds ``B/G`` rows and batch row ``b`` attends to
 memory row ``b // G`` (beams of one image share its memory).
+
+The decode loops take this step while ``ACAI_MONOLITH_DECODE`` (read at
+import, default on; :func:`set_enabled`) is on, and the per-op step of
+:mod:`..models.decode` otherwise. The switch is the only gate: the JAX
+package's lane and shape conditions of ``use_monolith`` are TPU limits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -50,15 +56,31 @@ Params = dict
 MAX_INT8_KEYS = 8192
 _MATS = ("w_qkv", "w_self_out", "w_cross_q", "w_cross_out", "w_ff1", "w_ff2")
 
+_ENABLED = os.environ.get("ACAI_MONOLITH_DECODE", "1") == "1"
+
+
+def set_enabled(flag: bool) -> None:
+    global _ENABLED
+    _ENABLED = flag
+
+
+def use_monolith() -> bool:
+    """Whether the decode loops take this module's step (time-major caches)
+    rather than the per-op step (lane-major caches)."""
+    return _ENABLED
+
 
 def quantize_rows(x: torch.Tensor, scale_dtype=None):
     """(..., Dh) -> (int8 values, (...,) fp32 scale), max-abs per row.
 
     ``scale_dtype`` (bf16 for the decode caches) rounds the scale BEFORE
     quantizing, so the stored scale dequantizes exactly what was quantized.
-    Division, not a product with a reciprocal; round half to even."""
+    Division, not a product with a reciprocal, by 127 too: PyTorch's CUDA
+    division by a host scalar multiplies by its reciprocal, so the divisor is
+    a tensor on x's device. Round half to even."""
     x32 = x.float()
-    scale = x32.abs().amax(dim=-1).clamp_min(1e-8) / INT8_QMAX
+    amax = x32.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-8) / torch.full_like(amax, INT8_QMAX)
     if scale_dtype is not None:
         scale = scale.to(scale_dtype).float()
     q = torch.round(x32 / scale[..., None]).clamp(-INT8_QMAX, INT8_QMAX)

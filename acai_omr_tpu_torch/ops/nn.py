@@ -120,6 +120,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (0.5 * x32 * (1.0 + torch.erf(x32 / math.sqrt(2.0)))).to(x.dtype)
 
 
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel draws, fp32 (scheduled sampling's mix and the sampled
+    decode)."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32).clamp_min(tiny)
+    return -torch.log((-torch.log(u)).clamp_min(tiny))
+
+
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(..., T, E) -> (..., H, T, Dh)."""
     *lead, t, e = x.shape

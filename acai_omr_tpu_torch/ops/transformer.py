@@ -93,13 +93,19 @@ def encoder_layer(params: Params, x: torch.Tensor, bias, num_heads: int):
 
 def decoder_layer(params: Params, x: torch.Tensor, memory: torch.Tensor,
                   self_bias, cross_bias, num_heads: int,
-                  mem_kv: torch.Tensor | None = None) -> torch.Tensor:
+                  mem_kv: torch.Tensor | None = None,
+                  cross_group: int = 1) -> torch.Tensor:
     """Post-norm decoder layer: SA -> norm1, CA -> norm2, FF -> norm3.
-    ``mem_kv``: optional (B, Tm, 2E) precomputed cross K/V of this layer."""
+    ``mem_kv``: optional (B, Tm, 2E) precomputed cross K/V of this layer.
+    ``cross_group=G``: x's rows are G contiguous rows per memory row (GRPO's
+    rollouts of one image); memory / mem_kv / cross_bias carry the B/G unique
+    rows and the G rows fold into the cross-attention's query axis."""
     sa = nn.mha(params["self_attn"], x, x, num_heads, self_bias)
     x = nn.layernorm(params["norm1"], x + sa, eps=1e-5)
-    ca = nn.mha(params["cross_attn"], x, memory, num_heads, cross_bias,
-                precomputed_kv=mem_kv)
+    r, t, e = x.shape
+    xq = x.reshape(r // cross_group, cross_group * t, e)
+    ca = nn.mha(params["cross_attn"], xq, memory, num_heads, cross_bias,
+                precomputed_kv=mem_kv).reshape(r, t, e)
     x = nn.layernorm(params["norm2"], x + ca, eps=1e-5)
     h = nn.dense(params["linear2"], nn.gelu(nn.dense(params["linear1"], x)))
     return nn.layernorm(params["norm3"], x + h, eps=1e-5)
@@ -121,12 +127,13 @@ def encoder_stack_layers(stacked: Params, x: torch.Tensor,
 def decoder_stack_layers(stacked: Params, x: torch.Tensor,
                          memory: torch.Tensor, self_bias, cross_bias,
                          num_heads: int,
-                         mem_kv: torch.Tensor | None = None) -> torch.Tensor:
+                         mem_kv: torch.Tensor | None = None,
+                         cross_group: int = 1) -> torch.Tensor:
     """The decoder stack as a loop of plain :func:`decoder_layer` calls."""
     for i in range(num_stacked_layers(stacked)):
         x = decoder_layer(layer_slice(stacked, i), x, memory, self_bias,
                           cross_bias, num_heads,
-                          None if mem_kv is None else mem_kv[i])
+                          None if mem_kv is None else mem_kv[i], cross_group)
     return x
 
 
@@ -172,11 +179,17 @@ def encoder_stack(stacked: Params, x: torch.Tensor, valid: torch.Tensor,
 def decoder_stack(stacked: Params, x: torch.Tensor, mem_kv: torch.Tensor,
                   self_valid: torch.Tensor, mem_valid: torch.Tensor,
                   num_heads: int, dropout_rate: float = 0.0, seeds=None,
-                  deterministic: bool = True) -> torch.Tensor:
+                  deterministic: bool = True,
+                  cross_group: int = 1) -> torch.Tensor:
     """The decoder stack over precomputed cross K/V ``mem_kv``
     (L, B, Tm, 2E): the fused kernels on CUDA tensors, their plain twins
-    under autograd on CPU tensors."""
+    under autograd on CPU tensors. ``cross_group=G``: x carries G contiguous
+    rows per row of mem_kv / mem_valid; the projected rows are repeated G
+    times for the stack, and autograd sums their gradient back per group."""
     from . import train_layer_kernel
+    if cross_group > 1:
+        mem_kv = mem_kv.repeat_interleave(cross_group, dim=1)
+        mem_valid = mem_valid.repeat_interleave(cross_group, dim=0)
     return train_layer_kernel.decoder_stack_fused(
         stacked, x, mem_kv, self_valid, mem_valid, num_heads, dropout_rate,
         seeds, deterministic, plain=_PLAIN_TWINS or x.device.type == "cpu")

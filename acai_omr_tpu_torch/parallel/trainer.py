@@ -9,6 +9,9 @@ The update is ``optax.adamw`` followed by the per-leaf scale: Adam moments
 with bias correction (eps 1e-8 outside the root), decoupled weight decay on
 every leaf, the step's learning rate, then the scale, which multiplies the
 whole update, decay included, so a scale of 0 freezes a layer bit for bit.
+With ``max_grad_norm`` the gradients are first clipped to that global L2
+norm, as ``optax.clip_by_global_norm`` does (the norm counts every leaf,
+frozen ones with their zero gradients included).
 
 Parameters and optimizer state are updated in place (the train state owns
 its buffers: :func:`create_train_state` clones the caller's parameters).
@@ -41,6 +44,7 @@ class AdamW:
     weight_decay: float = 0.05
     eps: float = 1e-8
     scale_tree_fn: Callable | None = None
+    max_grad_norm: float | None = None
 
     def lr(self, step: int) -> float:
         return float(self.learning_rate(step)) if callable(self.learning_rate) \
@@ -48,9 +52,16 @@ class AdamW:
 
 
 def adamw(learning_rate, betas=(0.9, 0.95), weight_decay: float = 0.05,
+          max_grad_norm: float | None = None,
           scale_tree_fn: Callable | None = None) -> AdamW:
     return AdamW(learning_rate, tuple(betas), weight_decay,
-                 scale_tree_fn=scale_tree_fn)
+                 scale_tree_fn=scale_tree_fn, max_grad_norm=max_grad_norm)
+
+
+def global_norm(grads: Params) -> torch.Tensor:
+    """The L2 norm of all leaves together, fp32, left on the device."""
+    leaves = [g.float() for g in tree_flatten(grads).values()]
+    return torch.stack(torch._foreach_norm(leaves)).norm()
 
 
 def encoder_llrd_scales(params: Params, cfg, fine_tune_lr_ratio: float,
@@ -156,10 +167,16 @@ def make_apply_fn(tx: AdamW):
         scales = tree_flatten(state.opt_state["scale"]) \
             if state.opt_state["scale"] is not None else None
         flat_g = tree_flatten(grads)
+        g_norm = None
+        if tx.max_grad_norm is not None:
+            g_norm = global_norm(grads) * abs(scale)
+            clip = g_norm >= tx.max_grad_norm
         for path, p in tree_flatten(state.params).items():
             g = flat_g[path].float()
             if scale != 1.0:
                 g = g * scale
+            if g_norm is not None:
+                g = torch.where(clip, (g / g_norm) * tx.max_grad_norm, g)
             m, v = mu[path], nu[path]
             m.mul_(b1).add_(g, alpha=1.0 - b1)
             v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
@@ -186,8 +203,7 @@ def make_train_step(loss_fn: Callable, tx: AdamW):
 
     def step(state: TrainState, batch, seed):
         loss, grads = grad_fn(state.params, batch, seed)
-        norms = torch._foreach_norm(list(tree_flatten(grads).values()))
-        metrics = {"loss": loss, "grad_norm": torch.stack(norms).norm()}
+        metrics = {"loss": loss, "grad_norm": global_norm(grads)}
         return apply_fn(state, grads), metrics
 
     return step

@@ -2,9 +2,9 @@
 ``train/schedules.py``): pure ``step -> value`` functions on host floats.
 
 LinearLR(start_factor=5e-3) warm-up chained into cosine annealing, stepped
-per optimizer step in stage 2; the scheduled-sampling curriculum anneals the
-teacher-forcing probability linearly and the Gumbel temperature
-exponentially.
+per optimizer step in stage 2; the linear decay of stage 3's learning rate;
+the scheduled-sampling curriculum anneals the teacher-forcing probability
+linearly and the Gumbel temperature exponentially.
 """
 
 from __future__ import annotations
@@ -26,6 +26,21 @@ def cosine_anneal_with_warmup(base_lr: float, warmup_steps: int,
             return base_lr * (start_factor + (1.0 - start_factor) * frac)
         t = min(max((step - warmup_steps) / anneal_steps, 0.0), 1.0)
         return final_lr + (base_lr - final_lr) * 0.5 * (1.0 + math.cos(math.pi * t))
+
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int):
+    """``optax.linear_schedule``: linear from init_value to end_value over
+    ``transition_steps`` steps, then held (constant when that is <= 0)."""
+    if transition_steps <= 0:
+        return lambda step: init_value
+
+    def schedule(step) -> float:
+        frac = 1.0 - min(max(float(step), 0.0), transition_steps) \
+            / transition_steps
+        return (init_value - end_value) * frac + end_value
 
     return schedule
 

@@ -10,11 +10,14 @@ Phases, all in one process; any failure exits non-zero:
 2. hold each kernel (K1 linear_bias_act, K2 decode_attention with and
    without grouped memory, K3 encoder_attention, K4 add_layernorm, K5
    quant_linear_bias_act, K6 decode_attention_int8 in self, cross and grouped
-   cross mode) against its plain PyTorch twin at the flagship shapes the
-   paths give it, and time kernel, twin, a PyTorch library call computing
-   the same function where there is one, the card's bound, and the host
-   time of one wrapper call (the decode step is bound by it). The int8
-   kernels' appended rows and scales must equal the twin's bit for bit. The
+   cross mode; the per-op step's K11 decode_attention_hd self and cross, K12
+   decode_attention_hd_int8 per layer and stacked, K13
+   self_attention_append_int8 at pos 300 and 0) against its plain PyTorch
+   twin at the flagship shapes the paths give it, and time kernel, twin, a
+   PyTorch library call computing the same function where there is one, the
+   card's bound, and the host time of one wrapper call (the decode step is
+   bound by it). The int8 kernels' appended rows and scales must equal the
+   twin's bit for bit. The
    training kernels (K7 attention_bwd, K8 layernorm_bwd, K9 linear_dgrad /
    linear_wgrad, K10 dropout, and the training modes of K1, K3, K4) are held
    the same way at the flagship's training shapes (decoder rows 8 x 256 at
@@ -27,8 +30,11 @@ Phases, all in one process; any failure exits non-zero:
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
    on 4 of them with 4 beams, bf16 and int8 (max_len 256), and through
-   ``streamed_inference`` on one; the launch counts are reset just before
-   each path and read just after. Then the kernel path is held against the
+   ``streamed_inference`` on one; then on the per-op step
+   (``ACAI_MONOLITH_DECODE`` off) greedily with K11 and with int8 caches (K13,
+   K12 stacked), and its bf16 step with K11 off and on in turns; the launch
+   counts are reset just before each path and read just after. Then the
+   kernel path is held against the
    plain path on the card: encoder output, and 64 greedy decode steps at B=8
    with bf16 and with int8 caches (the plain path is fed the kernel path's
    tokens, so the logits stay comparable step by step);
@@ -41,7 +47,13 @@ Phases, all in one process; any failure exits non-zero:
    autograd through the plain twins on the card (loss and every leaf's
    gradient, stacked leaves layer by layer; limits fixed beforehand and a
    band of three times the errors read), forward and backward timed apart;
-5. the path ``pretrain_mae``: ``pre_train`` on the card at the full width of
+5. the path ``train_grpo``: ``grpo_train`` on the card on the flagship's
+   stage-3 hand-off (``set_up_grpo``), 32 synthetic images with LMX targets
+   from tests/data in batches of 16 (two outer steps of 8 rollouts per
+   image, at most 768 actions, top-k 50, temperature 1.1, two update epochs
+   of 16 rollout chunks), one mini-validation on 8; phase times per step,
+   frozen leaves bit-unchanged, every decoder leaf moved;
+6. the path ``pretrain_mae``: ``pre_train`` on the card at the full width of
    ``set_up_mae()`` (ViT-B/16 encoder over the kept quarter, 8 x 512 x 16-head
    decoder), bf16 over fp32 masters, batch 64, seeded noise images of
    256-512 patches, one epoch of three updates and its validation batch; the
@@ -52,7 +64,7 @@ Phases, all in one process; any failure exits non-zero:
    hand-written path (equal bits demanded; forward, backward, optimizer and
    a validation forward timed apart) and, at 8 images, against autograd
    through the plain twins (the limits of phase 4);
-6. print the ``kernels`` JSON line, the card line, and last
+7. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
@@ -66,6 +78,7 @@ when the port's package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -97,7 +110,15 @@ EXPECTED_KERNELS = {
                         "linear_wgrad", "dropout"],
     "pretrain_mae": _ENC + ["attention_bwd", "layernorm_bwd", "linear_dgrad",
                             "linear_wgrad"],
+    "decode_hd_bf16": _ENC + ["decode_attention_hd"],
+    "decode_hd_int8": _ENC + ["decode_attention_hd_int8",
+                              "self_attention_append_int8"],
+    "train_grpo": _ENC + ["decode_attention", "attention_bwd",
+                          "layernorm_bwd", "linear_dgrad", "linear_wgrad"],
 }
+# kernels of the monolith step, which the per-op paths must not launch
+MONOLITH_STEP = ["decode_attention", "decode_attention_int8",
+                 "quant_linear_bias_act"]
 SERVING_PATHS = ["greedy_bf16", "int8", "beam_bf16", "beam_int8", "streamed"]
 # the training path: flagship width, batch 8, accumulation 2, 3 updates
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_UPDATES = 8, 2, 3
@@ -110,6 +131,10 @@ TRAIN_SEQ_LEN = 200
 MAE_BATCH, MAE_UPDATES = 64, 3
 MAE_SIZES = ((256, 512), (192, 512), (128, 512), (256, 384))
 MAE_CMP_BATCH = 8  # the plain twins' fp32 autograd saves at L = 512
+# the GRPO path: flagship width, 32 examples in batches of 16 (2 outer
+# steps), 8 rollouts per image of at most 768 actions, top-k 50, temperature
+# 1.1, 2 update epochs of 16 rollout chunks, one mini-validation on 8
+GRPO_EXAMPLES, GRPO_BATCH, GRPO_VAL = 32, 16, 8
 # limits of the hand-written backward against autograd of the plain twins
 # (fixed before the first run, PERF.md section 6): loss, every leaf (stacked
 # leaves layer by layer), all leaves together
@@ -182,6 +207,32 @@ def host_us(torch, fn, calls: int = 200) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e6 * dt / calls
+
+
+@contextlib.contextmanager
+def counted_steps(decode_lib):
+    """Counts the decode steps taken inside the block: every step of either
+    decode step is one call of ``decode.step_logits``."""
+    box = {"n": 0}
+    inner = decode_lib.step_logits
+
+    def step(*args, **kwargs):
+        box["n"] += 1
+        return inner(*args, **kwargs)
+
+    decode_lib.step_logits = step
+    try:
+        yield box
+    finally:
+        decode_lib.step_logits = inner
+
+
+def token_share(res_a, res_b) -> list:
+    """Per image, the share of positions where two decodes of it agree."""
+    return [round(int((a[: min(len(a), len(b))]
+                       == b[: min(len(a), len(b))]).sum())
+                  / max(len(a), len(b)), 3)
+            for a, b in zip(res_a.seqs, res_b.seqs)]
 
 
 def card_line() -> str:
@@ -438,8 +489,110 @@ def check_kernels(torch, F, dev):
                                                           1e-5)),
                time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
                2 * 3 * rows * e + 8 * e, 8 * rows * e)
+    decode_hd_cases(torch, F, randn, record, kernel_times, dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
     return cases
+
+
+def decode_hd_cases(torch, F, randn, record, kernel_times, dev):
+    """K11-K13, the attention kernels of the per-op decode step, at the
+    flagship's decode shapes: 32 rows, 16 heads of 64; self-attention at
+    pos 300 of a 512-slot lane-major cache (K11 reads pos + 1 keys), the
+    cross-attention over 1,024 memory rows with ragged padding; K12 per layer
+    and over layer 7 of a 12-layer stacked memory; K13 appending at pos 300
+    and at pos 0 of layer 7, its written column and scales held bit for bit.
+    Bounds count the keys that carry weight only."""
+    from acai_omr_tpu_torch.ops.decode_hd_kernel import (
+        decode_attention_hd, decode_attention_hd_int8,
+        self_attention_append_int8)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bsz, h, dh, t, pos, m_len, nl, layer = 32, 16, 64, 512, 300, 1024, 12, 7
+    e = h * dh
+    q = randn(bsz, h, dh)
+    kT, vT = randn(bsz, h, dh, t), randn(bsz, h, dh, t)
+    n = pos + 1
+    ql = q[:, :, None, :]
+    kl, vl = (a[..., :n].transpose(-1, -2).contiguous() for a in (kT, vT))
+    call = lambda: decode_attention_hd(q, kT, vT, None, n_keys=n)
+    record(decode_attention_hd, f"self B={bsz} H={h} Dh={dh} T={t} pos={pos}",
+           call(), decode_attention_hd.plain(q, kT, vT, None, n_keys=n), 1e-2,
+           kernel_times(call),
+           time_ms(torch, lambda: decode_attention_hd.plain(q, kT, vT, None,
+                                                            n_keys=n)),
+           time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl)),
+           2 * (2 * bsz * e + 2 * bsz * e * n), 4 * bsz * e * n,
+           paths=["decode_hd_bf16"])
+
+    mk, mv = randn(bsz, h, dh, m_len), randn(bsz, h, dh, m_len)
+    lens = torch.randint(128, m_len + 1, (bsz,), generator=g, device=dev)
+    valid = torch.arange(m_len, device=dev)[None, :] < lens[:, None]
+    mbias = torch.where(valid, 0.0, -1e9).float().contiguous()
+    n_valid = int(valid.sum())
+    mkl, mvl = (a.transpose(-1, -2).contiguous() for a in (mk, mv))
+    mask4 = valid[:, None, None, :]
+    call = lambda: decode_attention_hd(q, mk, mv, mbias)
+    record(decode_attention_hd, f"cross B={bsz} H={h} Dh={dh} M={m_len}",
+           call(), decode_attention_hd.plain(q, mk, mv, mbias), 1e-2,
+           kernel_times(call),
+           time_ms(torch, lambda: decode_attention_hd.plain(q, mk, mv, mbias)),
+           time_ms(torch, lambda: F.scaled_dot_product_attention(
+               ql, mkl, mvl, attn_mask=mask4)),
+           2 * (2 * bsz * e + 2 * n_valid * e) + 4 * bsz * m_len,
+           4 * e * n_valid, paths=["decode_hd_bf16"])
+
+    def int8_planes(*lead_shape):
+        c = torch.randint(-127, 128, lead_shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        sc = torch.rand(lead_shape[:-2] + lead_shape[-1:], generator=g,
+                        device=dev) * 3e-2 + 2e-3
+        return c, sc
+
+    # K12: per layer and over layer 7 of the stacked memory. No library call
+    # computes it. Bound: the int8 K/V bytes and fp32 scales of the valid keys
+    (k8, ks8), (v8, vs8) = (int8_planes(nl, bsz, h, dh, m_len)
+                            for _ in range(2))
+    tol8 = lambda ref: TWO_BF16_ULPS * max(1.0, ref.float().abs().max().item())
+    nbytes8 = 2 * n_valid * (e + 4 * h) + 2 * 2 * bsz * e + 4 * bsz * m_len
+    per_layer = tuple(a[layer] for a in (k8, v8, ks8, vs8))
+    for case, args, kw in [
+            (f"cross per layer B={bsz} H={h} Dh={dh} M={m_len}", per_layer,
+             {}),
+            (f"cross stacked L={nl} layer={layer} B={bsz} H={h} Dh={dh} "
+             f"M={m_len}", (k8, v8, ks8, vs8), {"layer": layer})]:
+        call = lambda: decode_attention_hd_int8(q, *args, mbias, **kw)
+        ref = decode_attention_hd_int8.plain(q, *args, mbias, **kw)
+        record(decode_attention_hd_int8, case, call(), ref, tol8(ref),
+               kernel_times(call),
+               time_ms(torch, lambda: decode_attention_hd_int8.plain(
+                   q, *args, mbias, **kw)),
+               None, nbytes8, 4 * e * n_valid, peak=PEAK_INT8_OP_PER_S,
+               paths=["decode_hd_int8"])
+
+    # K13 at pos 300 and pos 0 of layer 7: the written column and scales
+    # must equal the twin's bit for bit. Bound: the int8 K/V and fp32 scales
+    # of positions < pos, q / k / v in, the output and the column out
+    kn, vn = randn(bsz, h, dh) * 2, randn(bsz, h, dh)
+    for p_at in (pos, 0):
+        caches = [*int8_planes(nl, bsz, h, dh, t), *int8_planes(nl, bsz, h,
+                                                                dh, t)]
+        caches = [caches[0], caches[2], caches[1], caches[3]]  # k, v, ks, vs
+        twin = [a.clone() for a in caches]
+        out_k = self_attention_append_int8(q, kn, vn, *caches, layer, p_at)
+        out_p = self_attention_append_int8.plain(q, kn, vn, *twin, layer,
+                                                 p_at)
+        exact = all(torch.equal(a, b) for a, b in zip(caches, twin))
+        record(self_attention_append_int8,
+               f"self L={nl} layer={layer} B={bsz} H={h} Dh={dh} T={t} "
+               f"pos={p_at}", out_k, out_p, tol8(out_p),
+               kernel_times(lambda: self_attention_append_int8(
+                   q, kn, vn, *caches, layer, p_at)),
+               time_ms(torch, lambda: self_attention_append_int8.plain(
+                   q, kn, vn, *twin, layer, p_at)),
+               None, 2 * bsz * p_at * (e + 4 * h) + 2 * 4 * bsz * e
+               + 2 * bsz * (e + 4 * h), 4 * bsz * e * (p_at + 1),
+               peak=PEAK_INT8_OP_PER_S, paths=["decode_hd_int8"],
+               exact=exact)
 
 
 def training_cases(torch, F, randn, record, kernel_times, dev):
@@ -689,6 +842,59 @@ def synthetic_images(np, n: int, seed: int) -> list:
     return imgs
 
 
+def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
+                 decode_lib, paths, failures):
+    """The paths of the per-op step (``ACAI_MONOLITH_DECODE`` off):
+    ``decode_hd_bf16`` with K11 on (``ACAI_PALLAS_DECODE=1``) and
+    ``decode_hd_int8`` with int8 caches and the defaults (K13, K12 stacked);
+    neither may launch a kernel of the monolith step. Then the bf16 step
+    without K11 against the step with it, in turns (off, on, on, off), for
+    the switch's default on this card. The switches are restored after."""
+    from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
+    from acai_omr_tpu_torch.ops import decode_kernel
+
+    before = (decode_kernel.use_monolith(), hd._ENABLED, hd._ENABLED_INT8)
+    decode_kernel.set_enabled(False)
+    turns = []
+    try:
+        hd.set_enabled(True)
+        res = transcribe_path("decode_hd_bf16", imgs, count_steps=True,
+                              max_len=MAX_LEN)
+        paths["decode_hd_bf16"]["token_share"] = token_share(res, greedy)
+        print(f"[path decode_hd_bf16] share of each image's tokens equal to "
+              f"greedy_bf16's {paths['decode_hd_bf16']['token_share']}",
+              flush=True)
+        hd.set_enabled(before[1])
+        res = transcribe_path("decode_hd_int8", imgs, count_steps=True,
+                              max_len=MAX_LEN, quantized_kv=True)
+        paths["decode_hd_int8"]["token_share"] = token_share(res, quant)
+        print(f"[path decode_hd_int8] share of each image's tokens equal to "
+              f"int8's {paths['decode_hd_int8']['token_share']}; K12 "
+              f"launches by form {hd.decode_attention_hd_int8.variants}",
+              flush=True)
+        for name in ("decode_hd_bf16", "decode_hd_int8"):
+            for k in MONOLITH_STEP:
+                if paths[name]["launches"][k]:
+                    failures.append(f"{name}: launched {k}")
+        if hd.decode_attention_hd_int8.variants.get("layer"):
+            failures.append("decode_hd_int8: K12 ran per layer, not stacked")
+        for flag in (False, True, True, False):
+            hd.set_enabled(flag)
+            with counted_steps(decode_lib) as box:
+                model.transcribe_batch(imgs, max_len=MAX_LEN)
+            r = model.last_result
+            turns.append({"k11": flag, "steps": box["n"],
+                          "tokens": r.n_tokens,
+                          "ms_per_step": 1e3 * r.decode_seconds / box["n"]})
+    finally:
+        decode_kernel.set_enabled(before[0])
+        hd.set_enabled(before[1])
+        hd.set_enabled_int8(before[2])
+    print(f"[per-op bf16 step, K11 off / on in turns] {json.dumps(turns)}",
+          flush=True)
+    return turns
+
+
 def compare_paths(torch, np, model, imgs, profile=False):
     """Kernel path vs plain path on the card: encoder stack output and
     CMP_STEPS greedy decode steps at B = len(imgs), with caches in the
@@ -896,6 +1102,92 @@ def train_path(torch, model, tmp_dir):
             "launches": launches, "device_launches": device,
             "variants": {n: dict(op.variants)
                          for n, op in _build.REGISTRY.items()}}
+
+
+def grpo_examples(np, model, n: int, seed: int) -> list:
+    """Stage-3 examples (image (C, H, W), token ids, MusicXML): seeded
+    synthetic score images of realistic sizes through the model's transform;
+    targets cycling over the LMX files of tests/data, delinearised by the
+    port (files that do not delinearise are skipped)."""
+    from acai_omr_tpu_torch.lmx.delinearizer import (DelinearizationError,
+                                                     delinearize)
+    data = ROOT / "tests" / "data"
+    targets = []
+    for f in sorted(data.glob("sample_lmx_*.txt")) \
+            + sorted((data / "lmx_corpus").glob("*.txt")):
+        lmx = " ".join(f.read_text().split())
+        try:
+            targets.append((model.tokenizer.encode(lmx), delinearize(lmx)[0]))
+        except (DelinearizationError, KeyError):
+            continue
+    return [(model._load_image(img), *targets[i % len(targets)])
+            for i, img in enumerate(synthetic_images(np, n, seed))]
+
+
+def grpo_path(torch, np, model, tmp_dir):
+    """The path ``train_grpo``: ``grpo_train`` at the flagship's width on
+    the stage-2 model's hand-off (``set_up_grpo``), GRPO_EXAMPLES examples in
+    batches of GRPO_BATCH (two outer steps: rollouts of 8 per image on the
+    monolith step with grouped memory, rewards, two update epochs), then one
+    mini-validation on GRPO_VAL examples. The launch counts are set to 0 just
+    before and read just after; the hook reads them in between."""
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import omr_grpo_train as grpo
+
+    cfg, params = grpo.set_up_grpo(model.cfg, model.params)
+    per_step = 2 * cfg.decoder.num_layers  # K2 launches of one decode step
+    gcfg = grpo.default_grpo_config()
+    gcfg.mini_validation_freq = GRPO_EXAMPLES // GRPO_BATCH
+    train = grpo_examples(np, model, GRPO_EXAMPLES, SEED + 5)
+    val = grpo_examples(np, model, GRPO_VAL, SEED + 6)
+    counts = lambda: {n: op.launches for n, op in _build.REGISTRY.items()}
+    log = {"step": [], "val": []}
+    last = {}
+
+    def hook(kind, info):
+        torch.cuda.synchronize()
+        now, c = time.perf_counter(), counts()
+        entry = {"ms": 1e3 * (now - last["t"]),
+                 "launches": {k: c[k] - last["counts"][k] for k in c
+                              if c[k] != last["counts"][k]}}
+        m = info["metrics"]
+        entry["decode_steps"] = entry["launches"].get("decode_attention",
+                                                      0) // per_step
+        if kind == "step":
+            entry.update({k: m[k] for k in ("loss", "ce_loss", "reward",
+                                             "rollout_tokens",
+                                             "update_width", "phase_times")})
+        else:
+            entry.update(reward=m["reward"], ce_loss=m["ce_loss"])
+        log[kind].append(entry)
+        last.update(t=time.perf_counter(), counts=c)
+
+    before = {p: v.clone() for p, v in trainer.tree_flatten(params).items()}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    last.update(t=time.perf_counter(), counts=counts())
+    t0 = time.perf_counter()
+    out, stats = grpo.grpo_train(
+        cfg, params, train, model.tokenizer, grpo_config=gcfg,
+        batch_size=GRPO_BATCH, model_dir=Path(tmp_dir) / "grpo", seed=SEED,
+        compute_dtype=model.compute_dtype, reward_workers=8, val_dataset=val,
+        mini_validation_size=GRPO_VAL, device="cuda", step_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = trainer.tree_flatten(out)
+    moved = lambda p: not torch.equal(after[p], before[p].float())
+    files = sorted(str(f.relative_to(tmp_dir))
+                   for f in Path(tmp_dir).rglob("*") if f.is_file())
+    return {"wall_s": wall, "steps": log["step"], "val": log["val"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "frozen_moved": [p for p in after
+                             if not p.startswith("decoder/") and moved(p)],
+            "decoder_unmoved": [p for p in after
+                                if p.startswith("decoder/") and not moved(p)],
+            "files": files, "launches": counts(),
+            "device_launches": {n: op.device_launches
+                                for n, op in _build.REGISTRY.items()}}
 
 
 def mae_set(n: int, seed: int):
@@ -1201,6 +1493,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from acai_omr_tpu_torch.api import OmrModel
+    from acai_omr_tpu_torch.models import decode as decode_lib
     from acai_omr_tpu_torch.ops import _build
 
     # full-fp32 products for the plain twins' fp32 math (TF32 off)
@@ -1238,13 +1531,16 @@ def main() -> int:
     failures = []
     paths = {}
 
-    def finish_path(name, n_tokens, decode_s, extra):
-        """Read the launch counts of the path just driven; check and print."""
+    def finish_path(name, n_tokens, decode_s, extra, steps=None):
+        """Read the launch counts of the path just driven; check and print.
+        ``steps``: the decode steps counted, else derived from the monolith
+        step's attention launches (two per layer and step)."""
         torch.cuda.synchronize()
         launches = {n: op.launches for n, op in _build.REGISTRY.items()}
         device = {n: op.device_launches for n, op in _build.REGISTRY.items()}
-        steps = (launches["decode_attention"]
-                 + launches["decode_attention_int8"]) // (2 * n_layers)
+        if steps is None:
+            steps = (launches["decode_attention"]
+                     + launches["decode_attention_int8"]) // (2 * n_layers)
         # an encode is 7 launches per layer: 4 K1, 1 K3, 2 K4, none split
         enc = 7 * launches["encoder_attention"]
         r = {"tokens": n_tokens, "decode_s": decode_s, "steps": steps,
@@ -1267,12 +1563,13 @@ def main() -> int:
             if launches[k] <= 0:
                 failures.append(f"{name}: launches[{k}]=0")
 
-    def transcribe_path(name, batch, **kw):
+    def transcribe_path(name, batch, count_steps=False, **kw):
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = model.transcribe_batch(batch, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with counted_steps(decode_lib) as box:
+            t0 = time.perf_counter()
+            out = model.transcribe_batch(batch, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         res = model.last_result
         ok = len(out) == len(batch) and all(
             isinstance(t.lmx, str) and t.lmx for t in out) and all(
@@ -1282,15 +1579,14 @@ def main() -> int:
         finish_path(name, res.n_tokens, res.decode_seconds, {
             "encode_s": res.encode_seconds, "wall_s": wall,
             "lmx_lengths": [len(t.lmx.split()) for t in out],
-            "confidence": [round(t.confidence, 4) for t in out]})
+            "confidence": [round(t.confidence, 4) for t in out]},
+            steps=box["n"] if count_steps else None)
         return res
 
     greedy = transcribe_path("greedy_bf16", imgs, max_len=MAX_LEN)
     quant = transcribe_path("int8", imgs, max_len=MAX_LEN, quantized_kv=True)
-    same = [int((a[: min(len(a), len(b))] == b[: min(len(a), len(b))]).sum())
-            / max(len(a), len(b)) for a, b in zip(quant.seqs, greedy.seqs)]
     print(f"[path int8] share of each image's tokens equal to the bf16 "
-          f"decode's {[round(v, 3) for v in same]}", flush=True)
+          f"decode's {token_share(quant, greedy)}", flush=True)
     beam_imgs = imgs[:BEAM_IMAGES]
     transcribe_path("beam_bf16", beam_imgs, max_len=BEAM_MAX_LEN,
                     beam_size=BEAM_SIZE)
@@ -1326,6 +1622,9 @@ def main() -> int:
                                   fin["sequence"][0, 1:1 + len(streamed)]):
         failures.append("streamed: events")
     finish_path("streamed", n_stream, stream_s, {"step_events": len(chunks)})
+
+    hd_k11 = per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
+                          decode_lib, paths, failures)
 
     cmp = compare_paths(torch, np, model, imgs,
                         profile="--profile" in sys.argv[1:])
@@ -1382,6 +1681,41 @@ def main() -> int:
         failures.append("train kernel path vs plain path: outside three "
                         "times the errors measured before")
     tcmp["leaf_rel_err"] = leaf_errs
+
+    # the GRPO path (stage 3) on the stage-2 model's hand-off
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        gr = grpo_path(torch, np, model, tmp_dir)
+    paths["train_grpo"] = gr
+    for i, st in enumerate(gr["steps"]):
+        print(f"[path train_grpo] step {i + 1}: ms={st['ms']:.1f} phase_s="
+              f"{json.dumps({k: round(v, 3) for k, v in st['phase_times'].items()})} "
+              f"loss={st['loss']:.5f} ce={st['ce_loss']:.4f} "
+              f"reward={st['reward']:.4f} rollout_tokens={st['rollout_tokens']} "
+              f"decode_steps={st['decode_steps']} "
+              f"update_width={st['update_width']} launches="
+              f"{json.dumps(st['launches'])}", flush=True)
+    print(f"[path train_grpo] mini-validation {json.dumps(gr['val'])} "
+          f"wall_s={gr['wall_s']:.2f} peak_memory_gb="
+          f"{gr['peak_memory_gb']:.2f} files={gr['files']}", flush=True)
+    print(f"[path train_grpo] launches {json.dumps(gr['launches'])}",
+          flush=True)
+    if not (len(gr["steps"]) == GRPO_EXAMPLES // GRPO_BATCH
+            and len(gr["val"]) == 1
+            and finite([v for st in gr["steps"]
+                        for v in (st["loss"], st["reward"], st["ce_loss"])])
+            and finite([gr["val"][0]["reward"], gr["val"][0]["ce_loss"]])):
+        failures.append("train_grpo: steps, mini-validation, or a non-finite "
+                        "loss or reward")
+    if gr["frozen_moved"] or gr["decoder_unmoved"]:
+        failures.append(f"train_grpo: frozen leaves moved "
+                        f"{gr['frozen_moved']}, decoder leaves unmoved "
+                        f"{gr['decoder_unmoved']}")
+    if "grpo/stats.csv" not in gr["files"] \
+            or "grpo/grpo_vitomr.npz" not in gr["files"]:
+        failures.append("train_grpo: stats.csv or grpo_vitomr.npz missing")
+    for k in EXPECTED_KERNELS["train_grpo"]:
+        if gr["launches"][k] <= 0:
+            failures.append(f"train_grpo: launches[{k}]=0")
 
     # the MAE pretraining path, its hand-off to stage 2 and its comparison
     # with the plain twins
@@ -1470,6 +1804,7 @@ def main() -> int:
                  if k["launches"] <= 0]
     report = {"card": card, "build_s": build_s, "n_params": n_params,
               "kernels": kernels, "paths": paths, "compare": cmp,
+              "per_op_bf16_k11_turns": hd_k11,
               "compare_training": tcmp, "compare_pretrain": mcmp,
               "failures": failures}
     if "--report" in sys.argv[1:]:

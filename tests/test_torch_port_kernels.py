@@ -17,6 +17,8 @@ import math
 import pytest
 import torch
 
+from acai_omr_tpu_torch.ops.decode_hd_kernel import (
+    decode_attention_hd, decode_attention_hd_int8, self_attention_append_int8)
 from acai_omr_tpu_torch.ops.decode_kernel import (decode_attention,
                                                   decode_attention_int8,
                                                   quantize_rows)
@@ -436,3 +438,81 @@ def test_training_stack_head_dim_32(dev):
     """An encoder stack of 8 heads over E = 256 (head dim 32, as the MAE
     decoder's blocks): K3 and K7 at that head dim inside the stack."""
     test_training_stacks_forward_and_backward(dev, "encoder", h=8)
+
+
+def _hd_bias(rows, t, dev, lengths):
+    valid = torch.arange(t, device=dev)[None] < torch.tensor(
+        lengths, device=dev)[:, None]
+    return torch.where(valid, 0.0, -1e9).float().contiguous()
+
+
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("t,n_keys", [(40, None), (300, 123), (1536, 1536)])
+def test_decode_attention_hd(dev, dh, t, n_keys):
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = _randn(g, 3, 4, dh, dev=dev)
+    kT, vT = _randn(g, 3, 4, dh, t, dev=dev), _randn(g, 3, 4, dh, t, dev=dev)
+    bias = _hd_bias(3, t, dev, [t, t // 3, 7])
+    for b in (None, bias):
+        _close(decode_attention_hd(q, kT, vT, b, n_keys=n_keys),
+               decode_attention_hd.plain(q, kT, vT, b, n_keys=n_keys))
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_decode_attention_hd_int8(dev, stacked, dh):
+    g = torch.Generator(device=dev).manual_seed(22)
+    lead = (3,) if stacked else ()
+    q = _randn(g, 2, 4, dh, dev=dev)
+    kT, vT = (torch.randint(-127, 128, lead + (2, 4, dh, 200), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(lead + (2, 4, 200), generator=g, device=dev) * 3e-2
+              + 2e-3 for _ in range(2))
+    kw = dict(layer=1) if stacked else {}
+    for b in (None, _hd_bias(2, 200, dev, [200, 31])):
+        _close(decode_attention_hd_int8(q, kT, vT, ks, vs, b, **kw),
+               decode_attention_hd_int8.plain(q, kT, vT, ks, vs, b, **kw),
+               rel=2 * 2.0 ** -7)
+
+
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("pos", [0, 1, 37, 299])
+def test_self_attention_append_int8(dev, dh, pos):
+    """Output within two bf16 ulps; the written column and its scales equal
+    the twin's bit for bit, every other entry untouched."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, kn, vn = (_randn(g, 3, 4, dh, dev=dev) * 2 for _ in range(3))
+    kc, vc = (torch.randint(-127, 128, (2, 3, 4, dh, 300), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(2, 3, 4, 300, generator=g, device=dev) * 3e-2 + 2e-3
+              for _ in range(2))
+    before = [a.clone() for a in (kc, vc, ks, vs)]
+    twin = [a.clone() for a in (kc, vc, ks, vs)]
+    out = self_attention_append_int8(q, kn, vn, kc, vc, ks, vs, 1, pos)
+    ref = self_attention_append_int8.plain(q, kn, vn, *twin, 1, pos)
+    _close(out, ref, rel=2 * 2.0 ** -7)
+    for got, want, old in zip((kc, vc, ks, vs), twin, before):
+        assert torch.equal(got, want)
+        changed = (got != old).nonzero()
+        assert bool((changed[:, 0] == 1).all() and (changed[:, -1] == pos)
+                    .all())
+    kq, s = quantize_rows(kn)
+    assert torch.equal(kc[1, ..., pos], kq) and torch.equal(ks[1, ..., pos], s)
+
+
+def test_hd_wrappers_reject_what_the_kernels_do_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(24)
+    q = _randn(g, 2, 4, 16, dev=dev)
+    kT = _randn(g, 2, 4, 16, 32, dev=dev)
+    with pytest.raises(ValueError):
+        decode_attention_hd(q, kT, kT.float(), None)
+    with pytest.raises(ValueError):
+        decode_attention_hd(q, kT, kT, None, n_keys=33)
+    with pytest.raises(ValueError):
+        decode_attention_hd(q, kT[..., :16], kT[..., :16].contiguous(), None)
+    k8 = torch.zeros((2, 2, 4, 16, 32), dtype=torch.int8, device=dev)
+    s = torch.ones((2, 2, 4, 32), device=dev)
+    with pytest.raises(ValueError):
+        self_attention_append_int8(q, q, q, k8, k8, s, s, 0, 32)
+    with pytest.raises(ValueError):
+        decode_attention_hd_int8(q, k8, k8, s, s, None, layer=2)
