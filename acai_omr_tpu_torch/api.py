@@ -68,8 +68,10 @@ class OmrModel:
         """Ragged list of system images -> list of Transcription.
 
         ``beam_size > 1`` uses beam-search decode. ``quantized_kv`` decodes
-        with int8 KV caches **and** int8 weights with per-row quantized
-        activations (W8A8), following the JAX monolith kernel's numerics:
+        with int8 KV caches **and**, by default, int8 weights with per-row
+        quantized activations (W8A8; the weight switches of
+        ``ops.decode_kernel.weight_quant_mode`` choose int4 or compute-dtype
+        weights instead), following the JAX monolith kernel's numerics:
         tokens are near but not bit-identical to compute-dtype decode. The
         two compose.
         """

@@ -30,6 +30,28 @@
 // Epilogue act: 0 = none; 1 = exact-erf GELU on the fp32 sum; 2 = round the
 // sum to bf16, then GELU (the decode monolith casts ff1 to the compute dtype
 // before its GELU).
+//
+// K14 quant4_linear_bias_act (second entry point): the W4A8 product, the
+// same function with int4 weights in [-7, 7].
+//
+// Replaces: `unpack_int4` and the W4A8 branch of `_kernel` in
+// ops/pallas_monolith.py of the JAX package, which unpacks a layer's six
+// nibble-packed matrices once into int8 VMEM scratch (through an identity
+// matmul) and then runs `_qdot` as above; the weights come from
+// `prepack(quantize_weights="int4")` (one bf16-rounded max-abs / 7 scale per
+// output column).
+//
+// Layout: weights K-packed eight rows a word, (K/8, N) int32; byte j of the
+// word of rows k..k+7 holds q[k+j] + 8 in its low nibble and q[k+4+j] + 8 in
+// its high nibble. Nothing is staged in device memory: each thread loads one
+// coalesced word per 8 k and forms the two `__dp4a` operands in registers
+// (mask, then a per-byte subtraction of 8), against the activation words of
+// k..k+3 and k+4..k+7.
+//
+// Bound on an H100: half of K5's, the K*N/2 packed weight bytes at 3.35 TB/s
+// at decode rows. The design is K5's (row quantizer, split-K plan, reduce and
+// epilogue kernels shared); only the product kernel's inner loop differs, two
+// `__dp4a` and the unpack per word.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,9 +105,12 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int K,
         (int8_t)__float2int_rn(__fdiv_rn(__bfloat162float(xr[k]), rs));
 }
 
+// kInt4 = false: K5, w holds (K/4, N) words of four int8 weights.
+// kInt4 = true: K14, w holds (K/8, N) words of eight packed int4 weights.
+template <bool kInt4>
 __global__ void __launch_bounds__(THREADS)
 quant_linear_kernel(const int8_t* __restrict__ x8,
-                    const int32_t* __restrict__ w4,
+                    const uint32_t* __restrict__ w,
                     const float* __restrict__ row_scale,
                     const float* __restrict__ col_scale,
                     const float* __restrict__ bias,
@@ -115,12 +140,27 @@ quant_linear_kernel(const int8_t* __restrict__ x8,
       xs[r][c] = val;
     }
     __syncthreads();
-    const int32_t* wp = w4 + (size_t)(k0 / 4) * N + n;
-#pragma unroll 8
-    for (int c = 0; c < KSTAGE / 4; ++c) {
-      const int32_t w = wp[(size_t)c * N];
+    if constexpr (kInt4) {
+      const uint32_t* wp = w + (size_t)(k0 / 8) * N + n;
+#pragma unroll 4
+      for (int c = 0; c < KSTAGE / 8; ++c) {
+        const uint32_t wv = wp[(size_t)c * N];
+        const int lo = (int)__vsub4(wv & 0x0F0F0F0Fu, 0x08080808u);
+        const int hi = (int)__vsub4((wv >> 4) & 0x0F0F0F0Fu, 0x08080808u);
 #pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] = __dp4a(xs[r][c], w, acc[r]);
+        for (int r = 0; r < BM; ++r) {
+          acc[r] = __dp4a(xs[r][2 * c], lo, acc[r]);
+          acc[r] = __dp4a(xs[r][2 * c + 1], hi, acc[r]);
+        }
+      }
+    } else {
+      const uint32_t* wp = w + (size_t)(k0 / 4) * N + n;
+#pragma unroll 8
+      for (int c = 0; c < KSTAGE / 4; ++c) {
+        const int wv = (int)wp[(size_t)c * N];
+#pragma unroll
+        for (int r = 0; r < BM; ++r) acc[r] = __dp4a(xs[r][c], wv, acc[r]);
+      }
     }
     __syncthreads();
   }
@@ -154,6 +194,34 @@ __global__ void reduce_kernel(const int* __restrict__ partial, int splits,
       epilogue(s, row_scale[i / N], col_scale[n], bias[n], act));
 }
 
+// Row quantizer, product kernel, and (split K) the reduce, on one stream.
+template <bool kInt4>
+int launch_quant_linear(const void* x, const void* w,
+                        const void* col_scale, const void* bias, void* out,
+                        void* x8, void* row_scale, void* partial, int M, int N,
+                        int K, int k_chunk, int splits, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quantize_rows_kernel<<<M, QTHREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), K, static_cast<int8_t*>(x8),
+      static_cast<float*>(row_scale));
+  dim3 grid(N / BN, (M + BM - 1) / BM, splits);
+  int* part = splits > 1 ? static_cast<int*>(partial) : nullptr;
+  quant_linear_kernel<kInt4><<<grid, THREADS, 0, s>>>(
+      static_cast<const int8_t*>(x8), static_cast<const uint32_t*>(w),
+      static_cast<const float*>(row_scale),
+      static_cast<const float*>(col_scale), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), part, M, N, K, k_chunk, act);
+  if (splits > 1) {
+    const size_t total = (size_t)M * N;
+    const int blocks = (int)((total + 255) / 256);
+    reduce_kernel<<<blocks, 256, 0, s>>>(
+        part, splits, static_cast<const float*>(row_scale),
+        static_cast<const float*>(col_scale), static_cast<const float*>(bias),
+        static_cast<__nv_bfloat16*>(out), M, N, act);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x8 (M, K) int8 and row_scale (M,) fp32 are scratch the wrapper allocates.
@@ -167,24 +235,20 @@ extern "C" int acai_quant_linear_bias_act(const void* x, const void* w4,
                                           void* partial, int M, int N, int K,
                                           int k_chunk, int splits, int act,
                                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_rows_kernel<<<M, QTHREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), K, static_cast<int8_t*>(x8),
-      static_cast<float*>(row_scale));
-  dim3 grid(N / BN, (M + BM - 1) / BM, splits);
-  int* part = splits > 1 ? static_cast<int*>(partial) : nullptr;
-  quant_linear_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const int8_t*>(x8), static_cast<const int32_t*>(w4),
-      static_cast<const float*>(row_scale),
-      static_cast<const float*>(col_scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), part, M, N, K, k_chunk, act);
-  if (splits > 1) {
-    const size_t total = (size_t)M * N;
-    const int blocks = (int)((total + 255) / 256);
-    reduce_kernel<<<blocks, 256, 0, s>>>(
-        part, splits, static_cast<const float*>(row_scale),
-        static_cast<const float*>(col_scale), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(out), M, N, act);
-  }
-  return (int)cudaGetLastError();
+  return launch_quant_linear<false>(
+      x, w4, col_scale, bias, out, x8, row_scale,
+      partial, M, N, K, k_chunk, splits, act, stream);
+}
+
+// K14: as above with (K/8, N) int32 words of packed int4 weights.
+extern "C" int acai_quant4_linear_bias_act(const void* x, const void* w8k,
+                                           const void* col_scale,
+                                           const void* bias, void* out,
+                                           void* x8, void* row_scale,
+                                           void* partial, int M, int N, int K,
+                                           int k_chunk, int splits, int act,
+                                           void* stream) {
+  return launch_quant_linear<true>(
+      x, w8k, col_scale, bias, out, x8, row_scale,
+      partial, M, N, K, k_chunk, splits, act, stream);
 }

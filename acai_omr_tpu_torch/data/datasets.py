@@ -186,7 +186,7 @@ class DebugDataset:
     last."""
 
     def __init__(self, n=8, sizes=((64, 96), (48, 64)), seq_len=12, vocab=11,
-                 kind="omr", seed=0):
+                 kind="mae", seed=0):
         self.n = n
         self.sizes = sizes
         self.seq_len = seq_len

@@ -57,10 +57,11 @@ def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
     ``device="cpu"``). ``beam_size > 1`` switches the decode to beam search
     (the effective decode batch is ``decode_batch * beam_size`` rows over
     ``decode_batch`` memories). ``cache_dtype=torch.int8`` is the quantized
-    decode: int8 KV caches **and** int8 weights with per-row quantized
-    activations (W8A8), with the JAX monolith kernel's numerics; tokens are
-    near but not bit-identical to compute-dtype decode. It composes with
-    beams.
+    decode: int8 KV caches **and**, by default, int8 weights with per-row
+    quantized activations (W8A8; int4 weights under ``ACAI_W4A8_DECODE=1``,
+    compute-dtype weights under ``ACAI_W8A8_DECODE=0``), with the JAX
+    monolith kernel's numerics; tokens are near but not bit-identical to
+    compute-dtype decode. It composes with beams.
 
     ``progress_cb(img_indices, seqs, t, finished)``: mid-decode streaming
     hook of the greedy path, called every ``progress_interval`` decode steps

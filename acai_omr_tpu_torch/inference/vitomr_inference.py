@@ -89,8 +89,9 @@ def inference(params, cfg: ViTOMRConfig, img, max_inference_len: int = 1536,
               compute_dtype=torch.bfloat16, beam_size: int = 1,
               cache_dtype=torch.bfloat16, device=None):
     """Batched decode, greedy by default; ``beam_size > 1`` runs beam search,
-    ``cache_dtype=torch.int8`` the quantized decode (int8 caches and W8A8
-    weights; composes with beams).
+    ``cache_dtype=torch.int8`` the quantized decode (int8 caches and, by
+    default, W8A8 weights: ``ops.decode_kernel.weight_quant_mode``; composes
+    with beams).
 
     ``img``: one (C, H, W) array or a list of them (ragged sizes fine).
     Returns (seqs, log_probs, seq_mask) as numpy arrays.
@@ -178,7 +179,9 @@ def main(argv=None):
     ap.add_argument("-b", "--beam-size", type=int, default=1,
                     help="beam-search width (1 = greedy)")
     ap.add_argument("--int8-kv", action="store_true",
-                    help="quantized decode: int8 KV caches and W8A8 weights")
+                    help="quantized decode: int8 KV caches and W8A8 weights "
+                         "(ACAI_W4A8_DECODE=1: int4, ACAI_W8A8_DECODE=0: "
+                         "unquantized)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)

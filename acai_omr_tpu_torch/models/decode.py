@@ -11,8 +11,10 @@ caches' ``ndim`` as in JAX:
   :func:`..ops.decode_kernel.decode_layers` (K1 or K5, K2 or K6, K4). Memory
   K/V in the ``te`` layout ``(L, B, M, E)``. ``cache_dtype=torch.int8`` is the
   JAX monolith's quantized mode: int8 K/V with per (row, position, head) bf16
-  scales ``(L, B, T, H)``, quantized attention and int8 weights (W8A8). The
-  cache length is a multiple of the JAX monolith's time tile.
+  scales ``(L, B, T, H)``, quantized attention and, as the weight switches
+  say (:func:`_prepack_for`), int8 weights (W8A8, the default), int4 weights
+  (W4A8) or compute-dtype weights. The cache length is a multiple of the JAX
+  monolith's time tile.
 * **The per-op step** (``ACAI_MONOLITH_DECODE=0``): lane-major caches
   ``(L, B, H, Dh, T)`` and memory ``(L, B, H, Dh, M)`` (the ``hd`` layout),
   int8 with fp32 scales ``(L, B, H, T)``; the products, LayerNorms and GELU in
@@ -58,7 +60,7 @@ import torch
 from ..ops import decode_hd_kernel as hd
 from ..ops import nn
 from ..ops.decode_kernel import (decode_layers, prepack, quantize_rows,
-                                 use_monolith)
+                                 use_monolith, weight_quant_mode)
 from .omr_decoder import DecoderConfig
 
 Params = dict
@@ -400,12 +402,41 @@ def step_logits(params: Params, cfg: DecoderConfig, mono: Params | None,
     return nn.dense(params["unembed"], x).float()
 
 
+# The operands of the latest _prepack_for call: [(key, leaves, operands)].
+# The key holds each decoder leaf's identity and version counter (an in-place
+# update bumps it); the entry holds the leaves, so no identity in a live key
+# can be taken by another tensor.
+_PREPACKED: list = []
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
 def _prepack_for(params: Params, compute_dtype, cache_dtype) -> Params:
-    """The monolith step's operands: int8 caches quantize the weights too
-    (W8A8), as the JAX package's ``weight_quant_mode`` does by default."""
-    return prepack(params, compute_dtype,
-                   quantize_weights="int8" if cache_dtype == torch.int8
-                   else False)
+    """The monolith step's operands, their weights as
+    :func:`..ops.decode_kernel.weight_quant_mode` says: int8 caches quantize
+    them to int8 (W8A8, by default) or int4 (W4A8, ``ACAI_W4A8_DECODE``), or
+    keep them in the compute dtype (``ACAI_W8A8_DECODE=0``).
+
+    The latest operands are kept and returned again while the same params,
+    unchanged, are decoded with the same dtype and weight mode, so a server
+    quantizes its weights once and not once per batch. Inference tensors
+    (``torch.inference_mode``) keep no version counter and are packed anew
+    on every call."""
+    mode = weight_quant_mode(cache_dtype)
+    leaves = _tensors(params)
+    if any(t.is_inference() for t in leaves):
+        return prepack(params, compute_dtype, quantize_weights=mode)
+    key = (compute_dtype, mode, tuple((id(t), t._version) for t in leaves))
+    cached = _PREPACKED[0] if _PREPACKED else None
+    if cached is not None and cached[0] == key:
+        return cached[2]
+    mono = prepack(params, compute_dtype, quantize_weights=mode)
+    _PREPACKED[:] = [(key, leaves, mono)]
+    return mono
 
 
 def sample_top_k(logits: torch.Tensor, sampling: SamplingConfig,
@@ -520,8 +551,8 @@ def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
     """Batched KV-cached generation (greedy, or sampled with ``sampling``).
 
     Returns (seqs, log_probs, seq_mask) trimmed to the longest live sequence.
-    ``cache_dtype=torch.int8`` decodes with int8 caches (and W8A8 weights on
-    the monolith step). Sampling draws its Gumbel noise from ``generator``
+    ``cache_dtype=torch.int8`` decodes with int8 caches (and, on the monolith
+    step, the weights of :func:`_prepack_for`). Sampling draws its Gumbel noise from ``generator``
     (a ``torch.Generator`` on the latent's device; seed 0 when None).
 
     ``mem_group=G > 1``: decode G sequences per row of ``img_latent`` (GRPO

@@ -16,11 +16,11 @@ Compute-dtype caches: ATT = K2 ``decode_attention``
 ATT = K6 ``decode_attention_int8`` (``csrc/decode_attention_int8.cu``), which
 quantizes q/k/v per (row, head), appends the int8 rows and their scales, and
 attends with integer products and quantized softmax weights. LIN = K1
-``linear_bias_act`` for compute-dtype weights and K5
-``quant_linear_bias_act`` for int8 weights (W8A8). K1, K4 and K5 live in
-their own modules. The final norm, the unembedding and the argmax stay
-outside, as in the JAX decode loop. The caches are updated in place (the JAX
-kernel aliases them in and out).
+``linear_bias_act`` for compute-dtype weights, K5 ``quant_linear_bias_act``
+for int8 weights (W8A8) and K14 ``quant4_linear_bias_act`` for int4 weights
+(W4A8). K1, K4, K5 and K14 live in their own modules. The final norm, the
+unembedding and the argmax stay outside, as in the JAX decode loop. The
+caches are updated in place (the JAX kernel aliases them in and out).
 
 int8 scales are per (row, position, head) max-abs / 127, rounded to bf16
 before quantizing, and stored as plain **bf16** tensors ``(L, B, T, H)``
@@ -35,6 +35,12 @@ The decode loops take this step while ``ACAI_MONOLITH_DECODE`` (read at
 import, default on; :func:`set_enabled`) is on, and the per-op step of
 :mod:`..models.decode` otherwise. The switch is the only gate: the JAX
 package's lane and shape conditions of ``use_monolith`` are TPU limits.
+
+Under int8 caches the weights follow two more switches, read at import as
+the JAX package reads them: ``ACAI_W8A8_DECODE`` (default on;
+:func:`set_w8a8`) and ``ACAI_W4A8_DECODE`` (default off; :func:`set_w4a8`),
+resolved by :func:`weight_quant_mode`. With both off, int8 caches run K6
+with compute-dtype weights (K1).
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ import torch
 from . import _build
 from .layernorm_kernel import add_layernorm
 from .linear_kernel import linear_bias_act
-from .quant_linear_kernel import INT8_QMAX, pack_k4, quant_linear_bias_act
+from .quant_linear_kernel import (INT4_QMAX, INT8_QMAX, pack_k4, pack_k8_int4,
+                                  quant4_linear_bias_act,
+                                  quant_linear_bias_act)
 
 Params = dict
 
@@ -57,11 +65,36 @@ MAX_INT8_KEYS = 8192
 _MATS = ("w_qkv", "w_self_out", "w_cross_q", "w_cross_out", "w_ff1", "w_ff2")
 
 _ENABLED = os.environ.get("ACAI_MONOLITH_DECODE", "1") == "1"
+_W8A8 = os.environ.get("ACAI_W8A8_DECODE", "1") == "1"
+_W4A8 = os.environ.get("ACAI_W4A8_DECODE", "0") == "1"
 
 
 def set_enabled(flag: bool) -> None:
     global _ENABLED
     _ENABLED = flag
+
+
+def set_w8a8(flag: bool) -> None:
+    global _W8A8
+    _W8A8 = flag
+
+
+def set_w4a8(flag: bool) -> None:
+    global _W4A8
+    _W4A8 = flag
+
+
+def weight_quant_mode(cache_dtype):
+    """The weights of the monolith step under ``cache_dtype``: ``"int4"``
+    (W4A8, ``ACAI_W4A8_DECODE``), ``"int8"`` (W8A8, ``ACAI_W8A8_DECODE``) or
+    False (compute dtype). Only int8 caches quantize the weights, and W4A8
+    wins over W8A8, as the JAX package's single-device
+    ``weight_quant_mode``."""
+    if cache_dtype != torch.int8:
+        return False
+    if _W4A8:
+        return "int4"
+    return "int8" if _W8A8 else False
 
 
 def use_monolith() -> bool:
@@ -322,9 +355,16 @@ def prepack(params: Params, compute_dtype=torch.bfloat16,
     every weight matrix int8 with one max-abs scale per output column over
     the full input, rounded to bf16 before quantizing; the matrices are held
     K-packed (:func:`..quant_linear_kernel.pack_k4`) under their usual names,
-    the fp32 column scales under ``s_<name>``."""
-    if quantize_weights not in (False, True, "int8"):
+    the fp32 column scales under ``s_<name>``.
+
+    ``quantize_weights="int4"`` (W4A8): the same with max-abs / 7 scales and
+    values clipped to [-7, 7], held as (L, IN/8, OUT) int32 words
+    (:func:`..quant_linear_kernel.pack_k8_int4`); the int32 dtype is what
+    tells :func:`decode_layers` to take K14."""
+    if quantize_weights not in (False, True, "int8", "int4"):
         raise ValueError(f"unsupported weight mode {quantize_weights!r}")
+    qmax, pack = (INT4_QMAX, pack_k8_int4) if quantize_weights == "int4" \
+        else (INT8_QMAX, pack_k4)
     blocks = params["blocks"]
     e = blocks["self_attn"]["out"]["kernel"].shape[-1]
     sa, ca = blocks["self_attn"], blocks["cross_attn"]
@@ -339,10 +379,10 @@ def prepack(params: Params, compute_dtype=torch.bfloat16,
             out[name] = w.to(compute_dtype).contiguous()
             continue
         w32 = w.float()                                      # (L, IN, OUT)
-        s = (w32.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / INT8_QMAX) \
+        s = (w32.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax) \
             .to(torch.bfloat16).float()
-        w8 = torch.round(w32 / s).clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
-        out[name] = pack_k4(w8)
+        out[name] = pack(torch.round(w32 / s).clamp(-qmax, qmax)
+                         .to(torch.int8))
         out["s_" + name[2:]] = s[:, 0].contiguous()
     out.update({
         "b_qkv": vec(sa["in_bias"]), "b_self_out": vec(sa["out"]["bias"]),
@@ -372,14 +412,17 @@ def decode_layers(mono: Params, x: torch.Tensor, pos: int,
     mem_bias: (B/G, M) fp32 additive padding bias. With int8 caches pass the
     bf16 scales k_scale/v_scale (L, B, T, H), appended in place too, and
     mem_k_scale/mem_v_scale (L, B/G, M, H). ``mono`` from :func:`prepack`
-    decides the products: int8 weights run W8A8. Returns (B, E).
+    decides the products: int8 weights run W8A8 (K5), int4 weights W4A8
+    (K14); both need int8 caches, as in the JAX package. Returns (B, E).
 
-    On CUDA tensors every op is a kernel launch (K1 or K5, K2 or K6, K4); on
-    CPU tensors the plain twins run. ``plain=True`` runs the plain twins on
-    any device.
+    On CUDA tensors every op is a kernel launch (K1, K5 or K14, K2 or K6,
+    K4); on CPU tensors the plain twins run. ``plain=True`` runs the plain
+    twins on any device.
     """
     quantized = k_scale is not None
-    w8a8 = "s_qkv" in mono
+    w_quant = "s_qkv" in mono
+    if w_quant and not quantized:
+        raise ValueError("W8A8 / W4A8 weights need int8 caches")
     b, e = x.shape
     if mem_k.shape[1] * mem_group != b:
         raise ValueError(f"mem rows {mem_k.shape[1]} x group {mem_group} "
@@ -393,7 +436,10 @@ def decode_layers(mono: Params, x: torch.Tensor, pos: int,
             raise ValueError(
                 f"int8 attention holds at most {MAX_INT8_KEYS} keys in shared "
                 f"memory, got T={k_cache.shape[2]}, M={mem_k.shape[2]}")
-    lin = quant_linear_bias_act if w8a8 else linear_bias_act
+    lin = linear_bias_act
+    if w_quant:
+        lin = quant4_linear_bias_act if mono["w_qkv"].dtype == torch.int32 \
+            else quant_linear_bias_act
     attn = decode_attention_int8 if quantized else decode_attention
     ln = add_layernorm
     if plain:
@@ -402,7 +448,7 @@ def decode_layers(mono: Params, x: torch.Tensor, pos: int,
 
     def mat(xv, i, name, act="none"):
         w = (p["w_" + name][i],)
-        if w8a8:
+        if w_quant:
             w += (p["s_" + name][i],)
         return lin(xv, *w, p["b_" + name][i], act)
 

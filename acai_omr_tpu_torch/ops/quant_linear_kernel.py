@@ -1,14 +1,27 @@
-"""K5 ``quant_linear_bias_act``: the W8A8 product of the int8 decode step.
+"""K5 ``quant_linear_bias_act`` and K14 ``quant4_linear_bias_act``: the
+W8A8 and W4A8 products of the int8 decode step.
 
 act(((int8(x) @ w8) * row_scale) * col_scale + b): each activation row is
 quantized over its whole contraction axis (max-abs, fp32 scale, round half to
-even), multiplied with the int8 weights in exact int32 arithmetic, and
+even), multiplied with the integer weights in exact int32 arithmetic, and
 dequantized by the row scale, then by the weights' per-output-column scale.
 
-CUDA source: ``csrc/quant_linear.cu`` (bound, design and the TPU kernel it
-replaces are noted there). The int8 weights are held K-packed four at a time,
-``(IN/4, OUT, 4)``, so that one 32-bit load feeds one ``__dp4a``
-(:func:`pack_k4` / :func:`unpack_k4`); the plain twin reads the same tensor.
+CUDA source: ``csrc/quant_linear.cu`` (bound, design and the TPU kernels they
+replace are noted there). The weights are held K-packed so that one 32-bit
+load feeds ``__dp4a`` directly; the plain twins read the same tensors.
+
+* int8 (K5): four input rows a word, ``(IN/4, OUT, 4)`` int8
+  (:func:`pack_k4` / :func:`unpack_k4`).
+* int4 (K14): eight input rows a word, ``(IN/8, OUT)`` int32
+  (:func:`pack_k8_int4` / :func:`unpack_k8_int4`). Byte ``j`` of the word of
+  rows ``k .. k+7`` holds ``q[k+j] + 8`` in its low nibble and
+  ``q[k+4+j] + 8`` in its high nibble, ``q`` in [-7, 7]. So
+  ``(w & 0x0F0F0F0F) - 0x08080808`` (per byte) is the ``__dp4a`` operand of
+  rows ``k .. k+3`` and ``((w >> 4) & 0x0F0F0F0F) - 0x08080808`` that of rows
+  ``k+4 .. k+7``: the kernel unpacks in registers. The JAX package pairs
+  nibbles along the shorter axis (``int4_pack_axis``) for the TPU's identity
+  matmul unpack; that layout is not reproduced, the int4 values and scales
+  are the same.
 """
 
 from __future__ import annotations
@@ -21,6 +34,7 @@ from . import _build
 from .linear_kernel import ACTS, _gelu32
 
 INT8_QMAX = 127.0
+INT4_QMAX = 7.0
 _BN, _KSTAGE, _BM = 128, 128, 32
 _TARGET_BLOCKS = 2 * 132  # two waves of blocks on an H100's 132 SMs
 
@@ -38,11 +52,39 @@ def unpack_k4(w4: torch.Tensor) -> torch.Tensor:
     return w4.transpose(-1, -2).reshape(*lead, k4 * 4, n)
 
 
+def pack_k8_int4(q: torch.Tensor) -> torch.Tensor:
+    """(..., IN, OUT) int4 values in [-7, 7] (any integer dtype) ->
+    (..., IN/8, OUT) int32 words, eight consecutive input rows each (layout
+    in the module docstring)."""
+    *lead, k, n = q.shape
+    if k % 8:
+        raise ValueError(f"int4 packing needs IN % 8 == 0, got {k}")
+    u = (q.to(torch.int64) + 8).reshape(*lead, k // 8, 2, 4, n)
+    byte = u[..., 0, :, :] | (u[..., 1, :, :] << 4)         # (..., k/8, 4, n)
+    shifts = (8 * torch.arange(4, device=q.device)).view(4, 1)
+    word = (byte << shifts).sum(dim=-2)
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def unpack_k8_int4(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_k8_int4`: (..., IN/8, OUT) int32 ->
+    (..., IN, OUT) int8."""
+    *lead, k8, n = w.shape
+    u = w.to(torch.int64) & 0xFFFFFFFF
+    shifts = (8 * torch.arange(4, device=w.device)).view(4, 1)
+    byte = (u.unsqueeze(-2) >> shifts) & 0xFF                # (..., k/8, 4, n)
+    halves = torch.stack([byte & 0xF, byte >> 4], dim=-3)   # (..., k/8, 2, 4, n)
+    return (halves - 8).reshape(*lead, 8 * k8, n).to(torch.int8)
+
+
 def quantize_activation_rows(x: torch.Tensor):
     """(M, K) -> (int-valued fp32 (M, K), fp32 row scale (M, 1)): max-abs over
-    the whole row, scale not rounded, no clip (|x| / scale <= 127 already)."""
+    the whole row, scale not rounded, no clip (|x| / scale <= 127 already).
+    The divisor 127 is a tensor: PyTorch's CUDA division by a host scalar
+    multiplies by its reciprocal, the kernels divide."""
     x32 = x.float()
-    rs = x32.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / INT8_QMAX
+    amax = x32.abs().amax(dim=1, keepdim=True).clamp_min(1e-8)
+    rs = amax / torch.full_like(amax, INT8_QMAX)
     return torch.round(x32 / rs), rs
 
 
@@ -51,8 +93,20 @@ def quant_linear_bias_act_plain(x: torch.Tensor, w4: torch.Tensor,
                                 act: str = "none") -> torch.Tensor:
     """Plain twin. x (M, K) compute dtype; w4 (K/4, N, 4) int8; s_col, b (N,)
     fp32. The integer product runs in float64, where it is exact."""
+    return _qdot_bias_act(x, unpack_k4(w4), s_col, b, act)
+
+
+def quant4_linear_bias_act_plain(x: torch.Tensor, wp: torch.Tensor,
+                                 s_col: torch.Tensor, b: torch.Tensor,
+                                 act: str = "none") -> torch.Tensor:
+    """Plain twin of K14. x (M, K) compute dtype; wp (K/8, N) int32 packed
+    int4 weights; s_col, b (N,) fp32. Unpacks to int8, then K5's twin."""
+    return _qdot_bias_act(x, unpack_k8_int4(wp), s_col, b, act)
+
+
+def _qdot_bias_act(x, w8, s_col, b, act):
     x8, rs = quantize_activation_rows(x)
-    acc = torch.matmul(x8.double(), unpack_k4(w4).double()).float()
+    acc = torch.matmul(x8.double(), w8.double()).float()
     u = (acc * rs) * s_col.float() + b.float()
     if act == "gelu":
         u = _gelu32(u)
@@ -74,22 +128,24 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
     return chunk * _KSTAGE, -(-k_tiles // chunk)
 
 
-def _launch(op, x, w4, s_col, b, act="none"):
+def _launch_q(op, entry, x, w, packed_shape, s_col, b, act):
+    """Checks, scratch and launch shared by K5 and K14 (``entry`` is the C
+    function; ``packed_shape(k, n)`` the weight tensor's shape)."""
     _build.require(x, "x", torch.bfloat16, 2)
-    _build.require(w4, "w4", torch.int8, 3)
     _build.require(s_col, "s_col", torch.float32, 1)
     _build.require(b, "b", torch.float32, 1)
     m, k = x.shape
-    n = w4.shape[1]
-    if w4.shape != (k // 4, n, 4) or s_col.shape[0] != n or b.shape[0] != n:
+    n = w.shape[1]
+    if w.shape != packed_shape(k, n) or s_col.shape[0] != n \
+            or b.shape[0] != n:
         raise ValueError(f"shape mismatch x{tuple(x.shape)} "
-                         f"w4{tuple(w4.shape)} s{tuple(s_col.shape)} "
+                         f"w{tuple(w.shape)} s{tuple(s_col.shape)} "
                          f"b{tuple(b.shape)}")
     if k % _KSTAGE or n % _BN:
-        raise ValueError(f"quant_linear_bias_act needs K % {_KSTAGE} == 0 and "
+        raise ValueError(f"{op.name} needs K % {_KSTAGE} == 0 and "
                          f"N % {_BN} == 0, got K={k}, N={n}")
-    if not (x.device == w4.device == s_col.device == b.device):
-        raise ValueError("x, w4, s_col and b must be on one device")
+    if not (x.device == w.device == s_col.device == b.device):
+        raise ValueError("x, w, s_col and b must be on one device")
     k_chunk, splits = split_plan(m, n, k)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     # one scratch allocation (each costs the host microseconds): the int8
@@ -99,10 +155,10 @@ def _launch(op, x, w4, s_col, b, act="none"):
     scratch = torch.empty(part_at + (4 * splits * m * n if splits > 1 else 0),
                           dtype=torch.uint8, device=x.device)
     base = scratch.data_ptr()
-    fn = _build.bind("quant_linear", "acai_quant_linear_bias_act",
+    fn = _build.bind("quant_linear", entry,
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                      + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w4.data_ptr(), s_col.data_ptr(), b.data_ptr(),
+    rc = fn(x.data_ptr(), w.data_ptr(), s_col.data_ptr(), b.data_ptr(),
             out.data_ptr(), base, base + rs_at,
             base + part_at if splits > 1 else 0, m, n, k, k_chunk, splits,
             ACTS[act], _build.stream_ptr())
@@ -113,8 +169,28 @@ def _launch(op, x, w4, s_col, b, act="none"):
     return out
 
 
+def _launch(op, x, w4, s_col, b, act="none"):
+    _build.require(w4, "w4", torch.int8, 3)
+    return _launch_q(op, "acai_quant_linear_bias_act", x, w4,
+                     lambda k, n: (k // 4, n, 4), s_col, b, act)
+
+
+def _launch4(op, x, wp, s_col, b, act="none"):
+    _build.require(wp, "wp", torch.int32, 2)
+    return _launch_q(op, "acai_quant4_linear_bias_act", x, wp,
+                     lambda k, n: (k // 8, n), s_col, b, act)
+
+
 quant_linear_bias_act = _build.KernelOp(
     "quant_linear_bias_act", "acai_omr_tpu_torch/csrc/quant_linear.cu",
     "acai_omr_tpu/ops/pallas_monolith.py:619 (_qdot, the six mat sites of "
     "_kernel :1352-1356)",
     _launch, quant_linear_bias_act_plain)
+
+
+quant4_linear_bias_act = _build.KernelOp(
+    "quant4_linear_bias_act", "acai_omr_tpu_torch/csrc/quant_linear.cu",
+    "acai_omr_tpu/ops/pallas_monolith.py:649 (unpack_int4) and :1302-1351 "
+    "(the W4A8 branch of _kernel: per-layer unpack, then _qdot), with "
+    "prepack(quantize_weights='int4') :516-547",
+    _launch4, quant4_linear_bias_act_plain)

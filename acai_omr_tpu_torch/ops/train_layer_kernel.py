@@ -44,6 +44,11 @@ The weight gradients are summed in fp32 over all rows and rounded once (the
 TPU kernel adds one rounded partial per batch tile into a compute-dtype
 accumulator); they return in the compute dtype and autograd casts them to
 the fp32 masters.
+
+The JAX package chooses between two schedules of the same gradients,
+``_bwd_kernel`` and ``_bwd_split_kernel``, with ``ACAI_BWD_SPLIT``. The sweep
+here is always the split schedule (:func:`_backward`), so that switch has no
+counterpart, and neither has its VMEM gate (``bwd_split_fits``).
 """
 
 from __future__ import annotations
@@ -191,7 +196,14 @@ def _forward(m: _Meta, w: Params, x: torch.Tensor, mem_kv, save: bool):
 
 def _backward(m: _Meta, w: Params, mem_kv, saves, g: torch.Tensor,
               need_dx: bool):
-    """The reverse sweep -> (dx or None, d(mem_kv) or None, {key: grad})."""
+    """The reverse sweep -> (dx or None, d(mem_kv) or None, {key: grad}).
+
+    Layer by layer in reverse, phase 0 (the FFN backward over all rows) and
+    then phase 1 (the cross- and the self-attention backward): the schedule
+    of the JAX package's ``_bwd_split_kernel``, always: the port has no
+    ``ACAI_BWD_SPLIT``. ``_bwd_kernel`` computes the same gradients tile by
+    tile; the phases here are whole launches of K7-K10, so nothing is held back
+    between them."""
     ops, h, b, t = m.ops, m.num_heads, m.b, m.t
     e = g.shape[1]
     d = {k: torch.empty_like(v) for k, v in w.items()}

@@ -9,7 +9,8 @@ Phases, all in one process; any failure exits non-zero:
    of ``acai_omr_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. hold each kernel (K1 linear_bias_act, K2 decode_attention with and
    without grouped memory, K3 encoder_attention, K4 add_layernorm, K5
-   quant_linear_bias_act, K6 decode_attention_int8 in self, cross and grouped
+   quant_linear_bias_act, K14 quant4_linear_bias_act (bit for bit), K6
+   decode_attention_int8 in self, cross and grouped
    cross mode; the per-op step's K11 decode_attention_hd self and cross, K12
    decode_attention_hd_int8 per layer and stacked, K13
    self_attention_append_int8 at pos 300 and 0) against its plain PyTorch
@@ -30,14 +31,21 @@ Phases, all in one process; any failure exits non-zero:
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
    on 4 of them with 4 beams, bf16 and int8 (max_len 256), and through
-   ``streamed_inference`` on one; then on the per-op step
+   ``streamed_inference`` on one; with int8 caches and W4A8 weights
+   (``w4a8``: K14, no K5) and with W8A8 off (``int8_bf16w``: K1 products,
+   no K5); ``serve_wsgi``: 8 concurrent clients of the WSGI app
+   (``serving.wsgi_app.application``: create, upload a PNG, one box,
+   stream the SSE body, postprocess) on dynamic batching with int8 caches
+   and W4A8 weights, then one request with batching off, the SSE contract
+   checked on every stream; then on the per-op step
    (``ACAI_MONOLITH_DECODE`` off) greedily with K11 and with int8 caches (K13,
    K12 stacked), and its bf16 step with K11 off and on in turns; the launch
    counts are reset just before each path and read just after. Then the
    kernel path is held against the
    plain path on the card: encoder output, and 64 greedy decode steps at B=8
-   with bf16 and with int8 caches (the plain path is fed the kernel path's
-   tokens, so the logits stay comparable step by step);
+   with bf16 caches, int8 caches and int8 caches with W4A8 weights (the
+   plain path is fed the kernel path's tokens, so the logits stay
+   comparable step by step);
 4. the path ``train_tf``: ``omr_teacher_force_train`` on the card with the
    flagship configuration, bf16 over fp32 masters, dropout on, a seeded
    synthetic dataset (images of 512-1,024 patches, token sequences that pad
@@ -79,10 +87,12 @@ when the port's package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -115,11 +125,21 @@ EXPECTED_KERNELS = {
                               "self_attention_append_int8"],
     "train_grpo": _ENC + ["decode_attention", "attention_bwd",
                           "layernorm_bwd", "linear_dgrad", "linear_wgrad"],
+    "w4a8": _ENC + ["quant4_linear_bias_act", "decode_attention_int8"],
+    "int8_bf16w": _ENC + ["decode_attention_int8"],
+    # the batched requests (W4A8) and the unbatched one (bf16 caches)
+    "serve_wsgi": _ENC + ["quant4_linear_bias_act", "decode_attention_int8",
+                          "decode_attention"],
 }
 # kernels of the monolith step, which the per-op paths must not launch
 MONOLITH_STEP = ["decode_attention", "decode_attention_int8",
-                 "quant_linear_bias_act"]
-SERVING_PATHS = ["greedy_bf16", "int8", "beam_bf16", "beam_int8", "streamed"]
+                 "quant_linear_bias_act", "quant4_linear_bias_act"]
+SERVING_PATHS = ["greedy_bf16", "int8", "beam_bf16", "beam_int8", "streamed",
+                 "w4a8", "int8_bf16w", "serve_wsgi"]
+# the path serve_wsgi: concurrent clients of the WSGI app, dynamic batching
+# with int8 caches and W4A8 weights; MAX_LEN (512) stands for the app's
+# MAX_INFERENCE_LEN of 1,536
+SERVE_CLIENTS, SERVE_MAX_BATCH, SERVE_WAIT_MS = 8, 8, 25.0
 # the training path: flagship width, batch 8, accumulation 2, 3 updates
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_UPDATES = 8, 2, 3
 TRAIN_SIZES = ((256, 1024), (256, 768), (192, 1024), (256, 512))
@@ -250,7 +270,8 @@ def check_kernels(torch, F, dev):
     from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
     from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
     from acai_omr_tpu_torch.ops.quant_linear_kernel import (
-        pack_k4, quant_linear_bias_act, quantize_activation_rows)
+        pack_k4, pack_k8_int4, quant4_linear_bias_act, quant_linear_bias_act,
+        quantize_activation_rows)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
@@ -266,8 +287,8 @@ def check_kernels(torch, F, dev):
         serving paths when None). ``variant``: the compiled variant or plan
         of the kernel this case launches (``KernelOp.variants``), where only
         that variant's launches count for it. ``exact``: for the int8 cases, whether the caches and
-        scales after the kernel equal the twin's bit for bit (for K10: the
-        whole output; for K8 and K9 wgrad: the fp32 column sums within
+        scales after the kernel equal the twin's bit for bit (for K10 and
+        K14: the whole output; for K8 and K9 wgrad: the fp32 column sums within
         1e-3 of their largest value; for K7: dq, dk and dv each within 2e-2
         of its own largest value)."""
         t_k, t_host = t_k  # device ms and host us of one wrapper call
@@ -411,6 +432,35 @@ def check_kernels(torch, F, dev):
                time_ms(torch, lambda: torch._int_mm(x8, w8)),
                k * n + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
                peak=PEAK_INT8_OP_PER_S)
+
+    # K14: the W4A8 decode products at the same shapes, equal to the twin bit
+    # for bit. Bound: the packed int4 weight bytes (half of K5's) with the
+    # rows, scales and output. library_ms: torch._int_mm on the unpacked int8
+    # weights and pre-quantized rows, the bare product only
+    for m, k, n, act in [(32, 1024, 3072, "none"),
+                         (32, 1024, 4096, "gelu_rounded"),
+                         (32, 4096, 1024, "none")]:
+        x = randn(m, k)
+        q = torch.randint(-7, 8, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        s_col = (torch.rand(n, generator=g, device=dev) * 4e-3 + 1e-3) \
+            .to(bf).float()
+        b = randn(n, dtype=torch.float32) * 0.1
+        wp = pack_k8_int4(q)
+        out_k = quant4_linear_bias_act(x, wp, s_col, b, act)
+        out_p = quant4_linear_bias_act.plain(x, wp, s_col, b, act)
+        x8 = quantize_activation_rows(x)[0].to(torch.int8)
+        record(quant4_linear_bias_act,
+               f"{m}x{k}->{n},{act} (library: _int_mm on the unpacked int8 "
+               f"weights, bare product)", out_k, out_p, 0.0,
+               kernel_times(lambda: quant4_linear_bias_act(x, wp, s_col, b,
+                                                             act)),
+               time_ms(torch, lambda: quant4_linear_bias_act.plain(
+                   x, wp, s_col, b, act)),
+               time_ms(torch, lambda: torch._int_mm(x8, q)),
+               k * n // 2 + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
+               peak=PEAK_INT8_OP_PER_S, paths=["w4a8", "serve_wsgi"],
+               exact=torch.equal(out_k, out_p))
 
     # K6: int8 caches with bf16 scales. Bound: the int8 K/V bytes plus the
     # scale bytes of the keys attended to. No library call computes this
@@ -842,6 +892,189 @@ def synthetic_images(np, n: int, seed: int) -> list:
     return imgs
 
 
+class WsgiClient:
+    """In-process client of a WSGI application: one call per request, the
+    response body read to its end (the whole SSE stream)."""
+
+    def __init__(self, app):
+        self.app = app
+
+    def request(self, method, path, body=b"", headers=None, ctype=None):
+        path, _, query = path.partition("?")
+        environ = {"REQUEST_METHOD": method, "PATH_INFO": path,
+                   "QUERY_STRING": query, "CONTENT_LENGTH": str(len(body)),
+                   "wsgi.input": io.BytesIO(body)}
+        if ctype:
+            environ["CONTENT_TYPE"] = ctype
+        for k, v in (headers or {}).items():
+            environ["HTTP_" + k.upper().replace("-", "_")] = v
+        got = {}
+
+        def start_response(status, resp_headers):
+            got["status"] = status
+
+        out = b"".join(self.app(environ, start_response))
+        if not got["status"].startswith("200"):
+            raise RuntimeError(f"{method} {path}: {got['status']} {out[:200]}")
+        return out
+
+    def request_json(self, *a, **kw):
+        return json.loads(self.request(*a, **kw))
+
+    def transcribe(self, png: bytes, box, before_stream=None) -> dict:
+        """/tmpdir/create -> /upload -> /inference/setup (one box) ->
+        /inference/stream -> /inference/postprocess -> /clear; the SSE
+        events and the stream's latency."""
+        call = self.request_json
+        hdr = {"X-Tmpdir": call("POST", "/tmpdir/create")["tmpdir"]}
+        boundary = "chipsmoke"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f'name="image"; filename="s.png"\r\n'
+                f"Content-Type: image/png\r\n\r\n").encode() \
+            + png + f"\r\n--{boundary}--\r\n".encode()
+        call("POST", "/upload", body, hdr,
+             f"multipart/form-data; boundary={boundary}")
+        n = call("POST", "/inference/setup",
+                 json.dumps({"bboxes": [box]}).encode(), hdr,
+                 "application/json")["num_systems"]
+        if before_stream is not None:
+            before_stream()
+        t0 = time.perf_counter()
+        text = self.request("GET", "/inference/stream", headers=hdr).decode()
+        t1 = time.perf_counter()
+        post = call("POST", "/inference/postprocess", headers=hdr)
+        call("POST", "/clear", headers=hdr)
+        events = [(blk.split("\n")[0].removeprefix("event: "),
+                   json.loads(blk.split("\n")[1].removeprefix("data: ")))
+                  for blk in text.strip().split("\n\n")]
+        return {"events": events, "n_systems": n, "t_stream": t0,
+                "t_done": t1, "stream_s": t1 - t0,
+                "postprocess_ok": "ok" in post}
+
+
+def sse_contract(events, n_systems) -> list:
+    """Breaches of the SSE contract: per system, encoding_start first, one
+    encoding_finish before its first STEP, no STEP after its
+    inference_finish, its STEP tokens a prefix of its LMX; inference_finish
+    events in system order; all_inference_finish last."""
+    bad = []
+    if not events or events[-1][0] != "all_inference_finish":
+        bad.append("all_inference_finish is not last")
+    if [p.get("system") for e, p in events if e == "inference_finish"] \
+            != list(range(n_systems)):
+        bad.append("inference_finish events out of order or missing")
+        return bad
+    for s in range(n_systems):
+        kinds = [e for e, p in events if p.get("system") == s]
+        fin = kinds.index("inference_finish")
+        steps = [i for i, k in enumerate(kinds) if k == "step"]
+        if kinds[0] != "encoding_start" or kinds.count("encoding_finish") != 1:
+            bad.append(f"system {s}: encoding events")
+        elif steps and kinds.index("encoding_finish") > steps[0]:
+            bad.append(f"system {s}: STEP before encoding_finish")
+        if steps and steps[-1] > fin:
+            bad.append(f"system {s}: STEP after inference_finish")
+        tokens = [t for e, p in events if e == "step" and p["system"] == s
+                  for t in p["tokens"]]
+        lmx = next(p["lmx"] for e, p in events
+                   if e == "inference_finish" and p["system"] == s).split()
+        if tokens != lmx[: len(tokens)]:
+            bad.append(f"system {s}: STEP tokens not a prefix of the LMX")
+    return bad
+
+
+def serve_path(torch, np, model, imgs) -> dict:
+    """The path ``serve_wsgi``: the flagship behind the port's WSGI
+    application (``serving.wsgi_app.application``), dynamic batching with
+    int8 caches and W4A8 weights (``ACAI_W4A8_DECODE``). SERVE_CLIENTS
+    client threads each send one synthetic image as PNG with one box over
+    it, wait for each other, then stream and postprocess; then one request
+    with batching off (the ``streamed_inference`` branch, bf16 caches). The
+    launch counts are set to 0 before the first request and read after the
+    last; only the batcher's thread, then the main thread, launch."""
+    from PIL import Image
+
+    from acai_omr_tpu_torch.ops import _build, decode_kernel
+    from acai_omr_tpu_torch.serving import routes, wsgi_app
+
+    def png(img):
+        buf = io.BytesIO()
+        Image.fromarray(img, mode="L").save(buf, format="PNG")
+        return buf.getvalue()
+
+    pngs = [png(i) for i in imgs[:SERVE_CLIENTS]]
+    box = lambda i: [0, 0, imgs[i].shape[1], imgs[i].shape[0]]
+    client = WsgiClient(wsgi_app.application)
+    saved = (dict(routes._MODEL), routes.MAX_INFERENCE_LEN,
+             decode_kernel._W4A8)
+    routes._MODEL.clear()
+    routes._MODEL.update(cfg=model.cfg, params=model.params,
+                         tokenizer=model.tokenizer, transform=model.transform)
+    routes.MAX_INFERENCE_LEN = MAX_LEN
+    results, errors = [None] * len(pngs), []
+    barrier = threading.Barrier(len(pngs))
+
+    def run(i):
+        try:
+            results[i] = client.transcribe(pngs[i], box(i),
+                                           lambda: barrier.wait(120))
+        except Exception as e:  # noqa: BLE001 (a failure of the path)
+            errors.append(f"client {i}: {e!r}")
+            barrier.abort()
+
+    try:
+        decode_kernel.set_w4a8(True)
+        batcher = routes.enable_dynamic_batching(
+            max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+            cache_dtype=torch.int8)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(pngs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            errors.append("a client did not finish in 600 s")
+        stats = batcher.stats.summary()
+        routes.disable_dynamic_batching()
+        batched = {n: op.launches for n, op in _build.REGISTRY.items()}
+        try:
+            single = client.transcribe(pngs[0], box(0))
+        except Exception as e:  # noqa: BLE001 (a failure of the path)
+            errors.append(f"unbatched request: {e!r}")
+            single = None
+        torch.cuda.synchronize()
+    finally:
+        routes.disable_dynamic_batching()
+        decode_kernel.set_w4a8(saved[2])
+        routes._MODEL.clear()
+        routes._MODEL.update(saved[0])
+        routes.MAX_INFERENCE_LEN = saved[1]
+    launches = {n: op.launches for n, op in _build.REGISTRY.items()}
+    device = {n: op.device_launches for n, op in _build.REGISTRY.items()}
+    done = [r for r in results if r is not None]
+    for i, r in enumerate(done + ([single] if single else [])):
+        errors += [f"request {i}: {b}"
+                   for b in sse_contract(r["events"], r["n_systems"])]
+        if not r["postprocess_ok"]:
+            errors.append(f"request {i}: postprocess")
+    lat = [r["stream_s"] for r in done]
+    span = (max(r["t_done"] for r in done)
+            - min(r["t_stream"] for r in done)) if done else 0.0
+    return {"clients": len(pngs), "completed": len(done),
+            "systems_per_s": len(done) / span if span else 0.0,
+            "batched_span_s": span,
+            "latency_p50_s": float(np.percentile(lat, 50)) if lat else None,
+            "latency_p95_s": float(np.percentile(lat, 95)) if lat else None,
+            "step_events": [sum(e == "step" for e, _ in r["events"])
+                            for r in done],
+            "batcher": stats, "unbatched_s": single and single["stream_s"],
+            "launches_batched": batched, "launches": launches,
+            "device_launches": device, "errors": errors}
+
+
 def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
                  decode_lib, paths, failures):
     """The paths of the per-op step (``ACAI_MONOLITH_DECODE`` off):
@@ -895,12 +1128,73 @@ def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
     return turns
 
 
+def weight_paths(model, imgs, quant, transcribe_path, paths, failures,
+                 n_layers):
+    """The weight switches under int8 caches: ``w4a8`` (``ACAI_W4A8_DECODE``
+    on: K14 products, no K5) and ``int8_bf16w`` (``ACAI_W8A8_DECODE`` off:
+    K1 products at decode shapes, no K5 or K14), each against the ``int8``
+    path (W8A8) just driven. The switches are restored after. Also the
+    time of the int4 prepack of the decoder's weights, once packed anew and
+    once returned from ``_prepack_for``'s cache (what each later batch
+    pays)."""
+    import torch
+    from acai_omr_tpu_torch.models import decode as decode_lib
+    from acai_omr_tpu_torch.ops import decode_kernel
+
+    before = (decode_kernel._W8A8, decode_kernel._W4A8)
+    try:
+        decode_kernel.set_w4a8(True)
+        prepack_ms = []
+        for fresh in (True, False):
+            if fresh:
+                decode_lib._PREPACKED.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_lib._prepack_for(model.params["decoder"],
+                                    model.compute_dtype, torch.int8)
+            torch.cuda.synchronize()
+            prepack_ms.append(1e3 * (time.perf_counter() - t0))
+        decode_lib._PREPACKED.clear()
+        w4 = transcribe_path("w4a8", imgs, max_len=MAX_LEN, quantized_kv=True)
+        paths["w4a8"].update(prepack_int4_ms=prepack_ms[0],
+                             prepack_cached_ms=prepack_ms[1])
+        print(f"[path w4a8] int4 prepack {prepack_ms[0]:.3f} ms, from the "
+              f"cache {prepack_ms[1]:.4f} ms", flush=True)
+        decode_kernel.set_w4a8(False)
+        decode_kernel.set_w8a8(False)
+        bw = transcribe_path("int8_bf16w", imgs, max_len=MAX_LEN,
+                             quantized_kv=True)
+    finally:
+        decode_kernel.set_w8a8(before[0])
+        decode_kernel.set_w4a8(before[1])
+    for name, res in (("w4a8", w4), ("int8_bf16w", bw)):
+        r = paths[name]
+        r["token_share_vs_int8"] = token_share(res, quant)
+        r["ms_per_step_over_int8"] = r["ms_per_step"] \
+            / paths["int8"]["ms_per_step"]
+        print(f"[path {name}] share of each image's tokens equal to int8's "
+              f"{r['token_share_vs_int8']}; ms per step over int8's "
+              f"{r['ms_per_step_over_int8']:.4f}", flush=True)
+    lw, lb = paths["w4a8"]["launches"], paths["int8_bf16w"]["launches"]
+    if lw["quant_linear_bias_act"]:
+        failures.append("w4a8: launched quant_linear_bias_act")
+    if lb["quant_linear_bias_act"] or lb["quant4_linear_bias_act"]:
+        failures.append("int8_bf16w: launched a quantized product")
+    # K1 at decode shapes: what the encoder's 4 K1 per K3 launch leave
+    decode_k1 = lb["linear_bias_act"] - 4 * lb["encoder_attention"]
+    paths["int8_bf16w"]["decode_linear_bias_act"] = decode_k1
+    if decode_k1 < 6 * n_layers * paths["int8_bf16w"]["steps"]:
+        failures.append("int8_bf16w: too few K1 launches at decode shapes")
+
+
 def compare_paths(torch, np, model, imgs, profile=False):
     """Kernel path vs plain path on the card: encoder stack output and
     CMP_STEPS greedy decode steps at B = len(imgs), with caches in the
-    compute dtype and in int8 (with W8A8 weights). ``profile`` adds a
-    torch.profiler window over kernel-path decode steps of each mode."""
+    compute dtype, in int8 (with W8A8 weights) and in int8 with W4A8 weights.
+    ``profile`` adds a torch.profiler window over kernel-path decode steps
+    of each mode."""
     from acai_omr_tpu_torch.models import decode as decode_lib
+    from acai_omr_tpu_torch.ops import decode_kernel
     from acai_omr_tpu_torch.models import vit_encoder
     from acai_omr_tpu_torch.ops.encoder_stack_kernel import encoder_stack_fused
 
@@ -926,10 +1220,16 @@ def compare_paths(torch, np, model, imgs, profile=False):
     b = lat.shape[0]
     out = {"encoder_max_abs_err": enc_err, "encoder_rel_err": enc_rel,
            "decode_steps": CMP_STEPS, "rows": b}
-    for key, cache_dtype in (("bf16", dt), ("int8", torch.int8)):
+    w4a8 = decode_kernel._W4A8
+    for key, cache_dtype in (("bf16", dt), ("int8", torch.int8),
+                             ("w4a8", torch.int8)):
         mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt,
                                               cache_dtype)
-        mono = decode_lib._prepack_for(dec, dt, cache_dtype)
+        decode_kernel.set_w4a8(key == "w4a8")
+        try:
+            mono = decode_lib._prepack_for(dec, dt, cache_dtype)
+        finally:
+            decode_kernel.set_w4a8(w4a8)
         sk, sp = (decode_lib.init_decode_state(
             dcfg, b, CMP_STEPS + 1, CMP_STEPS, cache_dtype, model.device)
             for _ in range(2))
@@ -1008,7 +1308,7 @@ def training_set(tokenizer, n: int, seed: int):
     sequences that pad to T = 256."""
     from acai_omr_tpu_torch.data.datasets import DebugDataset
     return DebugDataset(n=n, sizes=TRAIN_SIZES, seq_len=TRAIN_SEQ_LEN,
-                        vocab=tokenizer.vocab_size, seed=seed)
+                        vocab=tokenizer.vocab_size, kind="omr", seed=seed)
 
 
 def train_path(torch, model, tmp_dir):
@@ -1587,6 +1887,8 @@ def main() -> int:
     quant = transcribe_path("int8", imgs, max_len=MAX_LEN, quantized_kv=True)
     print(f"[path int8] share of each image's tokens equal to the bf16 "
           f"decode's {token_share(quant, greedy)}", flush=True)
+    weight_paths(model, imgs, quant, transcribe_path, paths, failures,
+                 n_layers)
     beam_imgs = imgs[:BEAM_IMAGES]
     transcribe_path("beam_bf16", beam_imgs, max_len=BEAM_MAX_LEN,
                     beam_size=BEAM_SIZE)
@@ -1622,6 +1924,24 @@ def main() -> int:
                                   fin["sequence"][0, 1:1 + len(streamed)]):
         failures.append("streamed: events")
     finish_path("streamed", n_stream, stream_s, {"step_events": len(chunks)})
+
+    sv = serve_path(torch, np, model, imgs)
+    paths["serve_wsgi"] = sv
+    shown = {k: v for k, v in sv.items()
+             if k not in ("launches", "launches_batched", "device_launches")}
+    print(f"[path serve_wsgi] {json.dumps(shown)}", flush=True)
+    print(f"[path serve_wsgi] launches {json.dumps(sv['launches'])}",
+          flush=True)
+    failures += [f"serve_wsgi: {e}" for e in sv["errors"]]
+    if sv["completed"] != SERVE_CLIENTS \
+            or sv["batcher"]["completed"] != SERVE_CLIENTS \
+            or sv["batcher"]["failed"]:
+        failures.append("serve_wsgi: not every request completed")
+    if sv["launches"]["quant_linear_bias_act"]:
+        failures.append("serve_wsgi: launched quant_linear_bias_act")
+    for k in EXPECTED_KERNELS["serve_wsgi"]:
+        if sv["launches"][k] <= 0:
+            failures.append(f"serve_wsgi: launches[{k}]=0")
 
     hd_k11 = per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
                           decode_lib, paths, failures)
@@ -1778,7 +2098,7 @@ def main() -> int:
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
     if cmp["encoder_rel_err"] >= 0.02:
         failures.append("encoder kernel path vs plain path")
-    for key in ("bf16", "int8"):
+    for key in ("bf16", "int8", "w4a8"):
         c = cmp[key]
         if not (c["logits_finite"] and c["token_agreement"] >= 0.9
                 and c["logit_max_abs_err"] < 0.25):

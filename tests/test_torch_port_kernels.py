@@ -26,8 +26,8 @@ from acai_omr_tpu_torch.ops.encoder_stack_kernel import (encoder_attention,
                                                          encoder_stack_fused)
 from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
 from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
-from acai_omr_tpu_torch.ops.quant_linear_kernel import (pack_k4,
-                                                        quant_linear_bias_act)
+from acai_omr_tpu_torch.ops.quant_linear_kernel import (
+    pack_k4, pack_k8_int4, quant4_linear_bias_act, quant_linear_bias_act)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +111,67 @@ def test_quant_linear_bias_act(dev, m, k, n, act):
     w4 = pack_k4(w8)
     _close(quant_linear_bias_act(x, w4, s, b, act),
            quant_linear_bias_act.plain(x, w4, s, b, act), rel=2 * 2.0 ** -7)
+
+
+@pytest.mark.parametrize("m,k,n,act", [(32, 1024, 3072, "none"),
+                                       (32, 1024, 4096, "gelu_rounded"),
+                                       (32, 4096, 1024, "none"),
+                                       (1, 1024, 3072, "none"),
+                                       (128, 4096, 1024, "none"),
+                                       (128, 1024, 4096, "gelu_rounded")])
+def test_quant4_linear_bias_act_equals_twin(dev, m, k, n, act):
+    """K14 at the decode shapes (B = 32), one row and 128 rows (32 images x
+    4 beams): equal to its plain twin bit for bit (exact integer product,
+    the same divisions and roundings, no fused multiply-adds)."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = _randn(g, m, k, dev=dev) * 3
+    q = torch.randint(-7, 8, (k, n), generator=g, device=dev)
+    s = (torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3) \
+        .to(torch.bfloat16).float()
+    b = _randn(g, n, dev=dev, dtype=torch.float32)
+    wp = pack_k8_int4(q)
+    out = quant4_linear_bias_act(x, wp, s, b, act)
+    assert torch.equal(out, quant4_linear_bias_act.plain(x, wp, s, b, act))
+
+
+def test_int8_caches_with_compute_dtype_weights_step(dev):
+    """ACAI_W8A8_DECODE=0: one int8-cache step through K1 products and K6
+    attention against the same step through the plain twins; the appended
+    rows and scales equal bit for bit."""
+    from acai_omr_tpu_torch.ops import decode_kernel
+    g = torch.Generator(device=dev).manual_seed(17)
+    l, b, t, m_len, e, h, f = 2, 4, 64, 48, 256, 4, 512
+    f32 = lambda *sh: torch.randn(*sh, generator=g, device=dev) * 0.05
+    blocks = {
+        "self_attn": {"in_kernel": f32(l, e, 3 * e), "in_bias": f32(l, 3 * e),
+                      "out": {"kernel": f32(l, e, e), "bias": f32(l, e)}},
+        "cross_attn": {"in_kernel": f32(l, e, 3 * e),
+                       "in_bias": f32(l, 3 * e),
+                       "out": {"kernel": f32(l, e, e), "bias": f32(l, e)}},
+        "linear1": {"kernel": f32(l, e, f), "bias": f32(l, f)},
+        "linear2": {"kernel": f32(l, f, e), "bias": f32(l, e)},
+        **{f"norm{i}": {"scale": 1 + f32(l, e), "bias": f32(l, e)}
+           for i in (1, 2, 3)}}
+    mono = decode_kernel.prepack({"blocks": blocks}, torch.bfloat16)
+    assert "s_qkv" not in mono
+    x = _randn(g, b, e, dev=dev)
+    caches = []
+    for length in (t, t, m_len, m_len):
+        c, sc = _int8_cache(g, l * b, length, e, h, dev)
+        caches += [c.view(l, b, length, e), sc.view(l, b, length, h)]
+    kc, ks, vc, vs, mk, mks, mv, mvs = caches
+    bias = torch.zeros((b, m_len), device=dev)
+    bias[1, 30:] = -1e9
+    twin = [a.clone() for a in (kc, vc, ks, vs)]
+    run = lambda cs, plain: decode_kernel.decode_layers(
+        mono, x, 9, cs[0], cs[1], mk, mv, bias, h, plain=plain,
+        k_scale=cs[2], v_scale=cs[3], mem_k_scale=mks, mem_v_scale=mvs)
+    before = decode_kernel.linear_bias_act.launches
+    out = run((kc, vc, ks, vs), False)
+    assert decode_kernel.linear_bias_act.launches - before == 6 * l
+    _close(out, run(twin, True), rel=3e-2)
+    for got, want in zip((kc, vc, ks, vs), twin):
+        assert torch.equal(got, want)
 
 
 def _int8_cache(g, rows, t, e, h, dev):
@@ -203,6 +264,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     w4 = torch.zeros(12, 64, 4, device=dev, dtype=torch.int8)
     with pytest.raises(ValueError, match="K % 128"):
         quant_linear_bias_act(x, w4, b, b)
+    wp = torch.zeros(6, 64, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="K % 128"):
+        quant4_linear_bias_act(x, wp, b, b)
+    with pytest.raises(ValueError, match="int32"):
+        quant4_linear_bias_act(x, wp.to(torch.int8), b, b)
     kc = torch.zeros(2, 16, 192, device=dev, dtype=torch.int8)
     ks = torch.ones(2, 16, 2, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shape mismatch"):  # head dim 96

@@ -104,8 +104,13 @@ def test_prepack_int8_equals_jax(setup):
     pf = decode_kernel.prepack(pparams, torch.float32)
     assert pf["w_qkv"].dtype == torch.float32 and "s_qkv" not in pf
     np.testing.assert_array_equal(pf["b_ff1"].numpy(), pm["b_ff1"].numpy())
+    # int4 (W4A8) packs eight rows a word (held against JAX in
+    # tests/test_torch_port_w4a8.py); other modes are refused
+    p4 = decode_kernel.prepack(pparams, torch.float32, quantize_weights="int4")
+    assert p4["w_qkv"].dtype == torch.int32 and "s_qkv" in p4
+    np.testing.assert_array_equal(p4["b_ff1"].numpy(), pm["b_ff1"].numpy())
     with pytest.raises(ValueError, match="weight mode"):
-        decode_kernel.prepack(pparams, torch.float32, quantize_weights="int4")
+        decode_kernel.prepack(pparams, torch.float32, quantize_weights="int2")
 
 
 def test_pack_k4_round_trip():

@@ -145,7 +145,8 @@ def test_pack_omr_batch_matches_jax(setup):
 def test_bucket_sampler_matches_jax(shuffle):
     sizes = ((64, 96), (48, 64), (200, 300), (64, 400))
     bounds = [(64, 96), (64, 512)]
-    mk = lambda cls: cls(n=23, sizes=sizes, seq_len=4, vocab=9, seed=5)
+    mk = lambda cls: cls(n=23, sizes=sizes, seq_len=4, vocab=9, kind="omr",
+                         seed=5)
     want = jax_bucketing.BucketBatchSampler(
         JaxDebugDataset(n=23, sizes=sizes, seq_len=4, vocab=9, kind="omr",
                         seed=5), bounds, 4, shuffle=shuffle, seed=7)
@@ -162,19 +163,31 @@ def test_bucket_sampler_matches_jax(shuffle):
 
 
 def test_debug_dataset_and_prefetch_loader_match_jax():
-    a = DebugDataset(n=5, seq_len=6, vocab=12, seed=3)
+    a = DebugDataset(n=5, seq_len=6, vocab=12, kind="omr", seed=3)
     b = JaxDebugDataset(n=5, seq_len=6, vocab=12, kind="omr", seed=3)
     for i in range(5):
         (ia, sa), (ib, sb) = a[i], b[i]
         np.testing.assert_array_equal(ia, ib)
         np.testing.assert_array_equal(sa, sb)
-    ds = DebugDataset(n=7, sizes=((32, 32),), seq_len=3, vocab=9)
+    ds = DebugDataset(n=7, sizes=((32, 32),), seq_len=3, vocab=9, kind="omr")
     sampler = bucketing.BucketBatchSampler(ds, [(32, 32)], 3, shuffle=False)
     got = list(loader.PrefetchLoader(ds, sampler, lambda ex: len(ex), 2))
     assert got == [3, 3, 1]
     boom = loader.PrefetchLoader(ds, sampler, lambda ex: 1 / 0, 2)
     with pytest.raises(ZeroDivisionError):
         list(boom)
+
+
+def test_debug_dataset_default_kind_is_jax_s():
+    """``DebugDataset()`` with no ``kind`` yields the (image, image) MAE pairs
+    of the JAX package's, equal array for array."""
+    a, b = DebugDataset(n=3, seed=2), JaxDebugDataset(n=3, seed=2)
+    assert a.kind == b.kind == "mae"
+    for i in range(3):
+        (ia, ta), (ib, tb) = a[i], b[i]
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(ta, tb)
+        assert ta is ia
 
 
 # ---------------------------------------------------------------------------
@@ -491,9 +504,9 @@ def test_teacher_force_loop_runs(tmp_path):
         transition_head_dim=24, transition_head_dropout=0.05)
     params = vitomr.init_vitomr_params(cfg, seed=0, device="cpu")
     train_ds = DebugDataset(n=6, sizes=((64, 96), (48, 64)), seq_len=10,
-                            vocab=tokenizer.vocab_size)
+                            vocab=tokenizer.vocab_size, kind="omr")
     val_ds = DebugDataset(n=2, sizes=((64, 96),), seq_len=10,
-                          vocab=tokenizer.vocab_size, seed=1)
+                          vocab=tokenizer.vocab_size, kind="omr", seed=1)
     events = []
     new_params, stats = tf_train.omr_teacher_force_train(
         cfg, params, train_ds, val_ds, tokenizer, epochs=2, batch_size=3,
