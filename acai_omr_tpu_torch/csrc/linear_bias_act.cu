@@ -20,7 +20,10 @@
 //
 // Epilogue act: 0 = none; 1 = exact-erf GELU on the fp32 sum (the encoder
 // kernel's ff1); 2 = round the sum to bf16, then GELU (the decode monolith
-// casts ff1 to the compute dtype before its GELU).
+// casts ff1 to the compute dtype before its GELU); 3 = the fp32 partial of a
+// tensor-parallel row-parallel product: the bare fp32 sum written to an fp32
+// `out`, no bias (may be null), no activation, no dropout (the bias comes
+// after K15 tp_allreduce sums the ranks' partials).
 //
 // Training epilogues (`_fwd_kernel` with save=True and dropout on): with act 1
 // and `gp` given, the kernel also writes GELU'(u) = 0.5 (1 + erf(u / sqrt 2))
@@ -66,11 +69,17 @@ struct Epilogue {
   int act;
   int N;
   DropSpec drop;
+  float* out32;  // act 3: the fp32 sum goes here, nothing else is written
 };
 
 // Four neighbouring outputs (m, n .. n + 3) from their fp32 sums.
 __device__ __forceinline__ void epilogue4(const Epilogue& e, const float acc[4],
                                           int m, int n) {
+  if (e.out32 != nullptr) {
+    *reinterpret_cast<float4*>(e.out32 + (size_t)m * e.N + n) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    return;
+  }
   float v[4], g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -196,6 +205,7 @@ __global__ void reduce_kernel(const float* __restrict__ partial, int splits,
 // splits == 1: one launch, epilogue in place. splits > 1: `partial` holds
 // (splits, M, N) fp32 scratch; each z-slice covers k_chunk of K. `gp` may be
 // null; drop_thresh == 0 switches dropout off (drop_t = rows per image).
+// act == 3: `out` is (M, N) fp32 and `bias` may be null.
 extern "C" int acai_linear_bias_act(const void* a, const void* w,
                                     const void* bias, void* out, void* gp,
                                     void* partial, int M, int N, int K,
@@ -205,14 +215,18 @@ extern "C" int acai_linear_bias_act(const void* a, const void* w,
                                     unsigned drop_stream, int drop_t,
                                     void* stream) {
   if (drop_thresh != 0u && drop_t <= 0) return (int)cudaErrorInvalidValue;
+  if (act == 3 && (gp != nullptr || drop_thresh != 0u))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(N / BN, (M + BM - 1) / BM, splits);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  const bool f32 = act == 3;
   const Epilogue epi{static_cast<const float*>(bias),
-                     static_cast<__nv_bfloat16*>(out),
+                     f32 ? nullptr : static_cast<__nv_bfloat16*>(out),
                      static_cast<__nv_bfloat16*>(gp), act, N,
                      DropSpec{drop_thresh, drop_scale, seed0, seed1,
-                              drop_stream, drop_t > 0 ? drop_t : 1}};
+                              drop_stream, drop_t > 0 ? drop_t : 1},
+                     f32 ? static_cast<float*>(out) : nullptr};
   linear_kernel<<<grid, THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
       epi, part, M, N, K, k_chunk);

@@ -29,7 +29,10 @@
 //
 // Epilogue act: 0 = none; 1 = exact-erf GELU on the fp32 sum; 2 = round the
 // sum to bf16, then GELU (the decode monolith casts ff1 to the compute dtype
-// before its GELU).
+// before its GELU); 3 = the dequantized fp32 partial of a tensor-parallel
+// row-parallel product, (float(acc) * row_scale) * col_scale written to an
+// fp32 `out` without the bias (`_qdot` under ACAI_TP_W8A8; K15 tp_allreduce
+// sums the ranks' partials and adds the bias).
 //
 // K14 quant4_linear_bias_act (second entry point): the W4A8 product, the
 // same function with int4 weights in [-7, 7].
@@ -72,9 +75,11 @@ __device__ __forceinline__ float gelu_erf(float u) {
 
 // (float(acc) * rs) * cs + b without fused multiply-adds, so the result is
 // the plain PyTorch twin's bit for bit
-__device__ __forceinline__ float epilogue(int acc, float rs, float cs, float b,
-                                          int act) {
-  float u = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), b);
+__device__ __forceinline__ float epilogue(int acc, float rs, float cs,
+                                          const float* bias, int n, int act) {
+  const float p = __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs);
+  if (act == 3) return p;
+  float u = __fadd_rn(p, bias[n]);
   if (act == 1) return gelu_erf(u);
   if (act == 2) return gelu_erf(__bfloat162float(__float2bfloat16(u)));
   return u;
@@ -114,8 +119,9 @@ quant_linear_kernel(const int8_t* __restrict__ x8,
                     const float* __restrict__ row_scale,
                     const float* __restrict__ col_scale,
                     const float* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ out, int* __restrict__ partial,
-                    int M, int N, int K, int k_chunk, int act) {
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ out32,
+                    int* __restrict__ partial, int M, int N, int K, int k_chunk,
+                    int act) {
   __shared__ __align__(16) int32_t xs[BM][KSTAGE / 4];
 
   const int tid = threadIdx.x;
@@ -172,9 +178,11 @@ quant_linear_kernel(const int8_t* __restrict__ x8,
     const size_t o = (size_t)m * N + n;
     if (partial != nullptr)
       partial[(size_t)blockIdx.z * M * N + o] = acc[r];
+    else if (out32 != nullptr)
+      out32[o] = epilogue(acc[r], row_scale[m], col_scale[n], bias, n, act);
     else
       out[o] = __float2bfloat16(
-          epilogue(acc[r], row_scale[m], col_scale[n], bias[n], act));
+          epilogue(acc[r], row_scale[m], col_scale[n], bias, n, act));
   }
 }
 
@@ -182,7 +190,8 @@ __global__ void reduce_kernel(const int* __restrict__ partial, int splits,
                               const float* __restrict__ row_scale,
                               const float* __restrict__ col_scale,
                               const float* __restrict__ bias,
-                              __nv_bfloat16* __restrict__ out, int M, int N,
+                              __nv_bfloat16* __restrict__ out,
+                              float* __restrict__ out32, int M, int N,
                               int act) {
   const size_t total = (size_t)M * N;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -190,8 +199,11 @@ __global__ void reduce_kernel(const int* __restrict__ partial, int splits,
   int s = 0;
   for (int z = 0; z < splits; ++z) s += partial[(size_t)z * total + i];
   const int n = (int)(i % N);
-  out[i] = __float2bfloat16(
-      epilogue(s, row_scale[i / N], col_scale[n], bias[n], act));
+  const float v = epilogue(s, row_scale[i / N], col_scale[n], bias, n, act);
+  if (out32 != nullptr)
+    out32[i] = v;
+  else
+    out[i] = __float2bfloat16(v);
 }
 
 // Row quantizer, product kernel, and (split K) the reduce, on one stream.
@@ -201,6 +213,8 @@ int launch_quant_linear(const void* x, const void* w,
                         void* x8, void* row_scale, void* partial, int M, int N,
                         int K, int k_chunk, int splits, int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* out16 = act == 3 ? nullptr : static_cast<__nv_bfloat16*>(out);
+  float* out32 = act == 3 ? static_cast<float*>(out) : nullptr;
   quantize_rows_kernel<<<M, QTHREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), K, static_cast<int8_t*>(x8),
       static_cast<float*>(row_scale));
@@ -210,14 +224,14 @@ int launch_quant_linear(const void* x, const void* w,
       static_cast<const int8_t*>(x8), static_cast<const uint32_t*>(w),
       static_cast<const float*>(row_scale),
       static_cast<const float*>(col_scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), part, M, N, K, k_chunk, act);
+      out16, out32, part, M, N, K, k_chunk, act);
   if (splits > 1) {
     const size_t total = (size_t)M * N;
     const int blocks = (int)((total + 255) / 256);
     reduce_kernel<<<blocks, 256, 0, s>>>(
         part, splits, static_cast<const float*>(row_scale),
         static_cast<const float*>(col_scale), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(out), M, N, act);
+        out16, out32, M, N, act);
   }
   return (int)cudaGetLastError();
 }
@@ -227,7 +241,8 @@ int launch_quant_linear(const void* x, const void* w,
 // x8 (M, K) int8 and row_scale (M,) fp32 are scratch the wrapper allocates.
 // splits == 1: two launches, epilogue in the product kernel. splits > 1:
 // `partial` holds (splits, M, N) int32 scratch; each z-slice covers k_chunk
-// (a multiple of 128) of K and a third launch reduces.
+// (a multiple of 128) of K and a third launch reduces. act == 3: `out` is
+// (M, N) fp32 and `bias` may be null.
 extern "C" int acai_quant_linear_bias_act(const void* x, const void* w4,
                                           const void* col_scale,
                                           const void* bias, void* out,

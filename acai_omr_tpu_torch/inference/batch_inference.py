@@ -2,8 +2,9 @@
 
 The twin of the JAX package's ``inference/batch_inference.py``: images are
 grouped into encoder shape buckets, each group is encoded and decoded with
-the KV-cached loop (greedy or beam search, compute-dtype or int8 caches), and
-results come back in input order. Ragged tail groups are padded up to a power
+the KV-cached loop (greedy or beam search, compute-dtype or int8 caches, on
+one device or over a data- and tensor-parallel mesh), and results come back
+in input order. Ragged tail groups are padded up to a power
 of two (capped at ``decode_batch``) by repeating their first image, so a
 request mix meets only a few batch shapes.
 """
@@ -49,6 +50,7 @@ def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
                     length_penalty: float = 0.6,
                     compute_dtype=torch.bfloat16,
                     cache_dtype=torch.bfloat16, device=None,
+                    mesh=None, model_axis: str | None = None,
                     progress_cb=None,
                     progress_interval: int = 25) -> BatchResult:
     """Transcribe a list of (C, H, W) float arrays of arbitrary sizes.
@@ -63,14 +65,31 @@ def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
     monolith kernel's numerics; tokens are near but not bit-identical to
     compute-dtype decode. It composes with beams.
 
+    ``mesh`` (:class:`..parallel.mesh.Mesh`): decode each bucket group over
+    the mesh (:func:`..models.decode.sharded_generate` /
+    :func:`..models.decode.sharded_beam_generate`). The group is padded up
+    to the data axis by repeating its first row (the pad rows are dropped),
+    and ``model_axis`` adds tensor parallelism (heads and MLP split, the
+    decoder's shards prepared once per call). The encode runs on ``device``,
+    which defaults to the mesh's first device.
+
     ``progress_cb(img_indices, seqs, t, finished)``: mid-decode streaming
-    hook of the greedy path, called every ``progress_interval`` decode steps
-    per bucket group with the ORIGINAL image indices of the group's rows, the
-    raw (rows, max_len) sequence buffer so far, the decode position and a
-    per-row finished mask; batch-pad rows never surface. Beam decodes do not
-    surface mid-decode state.
+    hook of the greedy paths (plain and meshed), called every
+    ``progress_interval`` decode steps per bucket group with the ORIGINAL
+    image indices of the group's rows, the raw (rows, max_len) sequence
+    buffer so far, the decode position and a per-row finished mask;
+    batch-pad rows never surface. Beam decodes do not surface mid-decode
+    state.
     """
+    if device is None and mesh is not None:
+        device = mesh.devices[0][0]
     device = resolve_device(device)
+    tp_params = None
+    if mesh is not None and model_axis is not None \
+            and mesh.shape[model_axis] > 1:
+        # shuffle and split the decoder once for every bucket group
+        tp_params = decode_lib.prepare_tp_decode_params(
+            params["decoder"], cfg.decoder, mesh, model_axis)
     order = sorted(range(len(imgs)),
                    key=lambda i: _bucket_key(imgs[i], cfg, bucket_multiple))
     lmx_out = [None] * len(imgs)
@@ -113,12 +132,33 @@ def batch_inference(params, cfg: ViTOMRConfig, imgs, tokenizer, *,
             params, cfg, *pb.to(device), compute_dtype=compute_dtype)
         _sync(device)
         t1 = time.perf_counter()
-        if beam_size > 1:
+        if mesh is not None:
+            from ..parallel.mesh import DATA_AXIS
+            pad = (-latent.shape[0]) % mesh.shape[DATA_AXIS]
+            if pad:  # repeat rows so the batch shards evenly; dropped below
+                latent = torch.cat([latent, latent[:1].expand(
+                    pad, *latent.shape[1:])])
+                latent_valid = torch.cat([latent_valid, latent_valid[:1]
+                                          .expand(pad, -1)])
+            mesh_kw = dict(axis=DATA_AXIS, model_axis=model_axis,
+                           max_len=max_inference_len,
+                           compute_dtype=compute_dtype,
+                           cache_dtype=cache_dtype, tp_params=tp_params)
+        if beam_size > 1 and mesh is not None:
+            seqs, lps, mask = decode_lib.sharded_beam_generate(
+                params["decoder"], cfg.decoder, latent, latent_valid, mesh,
+                beam_size=beam_size, length_penalty=length_penalty,
+                **mesh_kw)
+        elif beam_size > 1:
             seqs, lps, mask = decode_lib.beam_generate(
                 params["decoder"], cfg.decoder, latent, latent_valid,
                 beam_size=beam_size, length_penalty=length_penalty,
                 max_len=max_inference_len, compute_dtype=compute_dtype,
                 cache_dtype=cache_dtype)
+        elif mesh is not None:
+            seqs, lps, mask = decode_lib.sharded_generate(
+                params["decoder"], cfg.decoder, latent, latent_valid, mesh,
+                progress_cb=group_cb, segment_steps=seg_steps, **mesh_kw)
         else:
             seqs, lps, mask = decode_lib.generate(
                 params["decoder"], cfg.decoder, latent, latent_valid,

@@ -43,6 +43,12 @@ Common to both:
 * The final norm, the unembedding and the argmax / sampling stay outside the
   layer kernels.
 
+Over a :class:`..parallel.mesh.Mesh` (:func:`sharded_generate`,
+:func:`sharded_beam_generate`), each data shard decodes its rows, and a
+model axis of tp > 1 splits heads and MLP columns over the ranks
+(:func:`prepare_tp_decode_params`): either step then runs per rank on lists
+of operands, with K15 ``tp_allreduce`` summing the row-parallel products.
+
 The token loop runs on the host; the all-finished early exit is checked every
 ``FINISH_CHECK_STEPS`` steps so the host does not wait on the card every
 token (rows decode independently, so a few extra steps after every row has
@@ -61,6 +67,7 @@ from ..ops import decode_hd_kernel as hd
 from ..ops import nn
 from ..ops.decode_kernel import (decode_layers, prepack, quantize_rows,
                                  use_monolith, weight_quant_mode)
+from ..ops.tp_allreduce_kernel import tp_allreduce
 from .omr_decoder import DecoderConfig
 
 Params = dict
@@ -109,10 +116,12 @@ class DecodeState:
     log_probs: torch.Tensor  # (B, max_len) float32
     finished: torch.Tensor   # (B,) bool
     t: int                   # next position to fill
-    k_cache: torch.Tensor    # (L, B, T_cache, E) or (L, B, H, Dh, T_cache)
+    # (L, B, T_cache, E) or (L, B, H, Dh, T_cache); under tensor parallelism
+    # a list with one per rank, over its H / tp heads
+    k_cache: torch.Tensor
     v_cache: torch.Tensor
     # int8 caches: per-written-position scales, (L, B, T_cache, H) bf16 or
-    # (L, B, H, T_cache) fp32
+    # (L, B, H, T_cache) fp32 (lists under tensor parallelism)
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
 
@@ -160,14 +169,15 @@ def precompute_memory_kv(params: Params, cfg: DecoderConfig,
 
 
 def _init_caches(cfg: DecoderConfig, rows: int, cache_len: int, cache_dtype,
-                 device, monolith: bool):
+                 device, monolith: bool, tp: int = 1):
     """Zero K/V caches, time-major (L, rows, cache_len, E) for the monolith
     step or lane-major (L, rows, H, Dh, cache_len) for the per-op step; int8
     caches come with all-ones scales ((L, rows, cache_len, H) bf16 /
-    (L, rows, H, cache_len) fp32)."""
-    l, h = cfg.num_layers, cfg.num_heads
+    (L, rows, H, cache_len) fp32). ``tp``: one tensor-parallel rank's
+    caches, over H / tp heads."""
+    l, h = cfg.num_layers, cfg.num_heads // tp
     if monolith:
-        shape = (l, rows, cache_len, cfg.hidden_dim)
+        shape = (l, rows, cache_len, h * cfg.head_dim)
         scale_shape, scale_dtype = shape[:3] + (h,), SCALE_DTYPE
     else:
         shape = (l, rows, h, cfg.head_dim, cache_len)
@@ -181,11 +191,25 @@ def _init_caches(cfg: DecoderConfig, rows: int, cache_len: int, cache_dtype,
     return (*kv, *scales)
 
 
+def _state_caches(cfg, rows, cache_len, cache_dtype, device, monolith,
+                  tp_devices):
+    """(k, v, k_scale, v_scale) of a fresh state: tensors, or with
+    ``tp_devices`` one list per field, rank r's caches on tp_devices[r]."""
+    if tp_devices is None:
+        return _init_caches(cfg, rows, cache_len, cache_dtype, device,
+                            monolith)
+    per = [_init_caches(cfg, rows, cache_len, cache_dtype, dv, monolith,
+                        len(tp_devices)) for dv in tp_devices]
+    return tuple(None if c[0] is None else list(c) for c in zip(*per))
+
+
 def init_decode_state(cfg: DecoderConfig, batch_size: int, max_len: int,
                       cache_len: int, cache_dtype=torch.bfloat16,
-                      device="cpu", monolith: bool = True) -> DecodeState:
+                      device="cpu", monolith: bool = True,
+                      tp_devices=None) -> DecodeState:
     """Fresh decode state with <bos>-seeded sequences; ``monolith=False``
-    allocates the per-op step's lane-major caches."""
+    allocates the per-op step's lane-major caches. ``tp_devices``: one cache
+    per tensor-parallel rank, over its H / tp heads, on its device."""
     seqs = torch.full((batch_size, max_len), cfg.pad_idx, dtype=torch.long,
                       device=device)
     seqs[:, 0] = cfg.bos_idx
@@ -193,28 +217,41 @@ def init_decode_state(cfg: DecoderConfig, batch_size: int, max_len: int,
         seqs, torch.zeros((batch_size, max_len), dtype=torch.float32,
                           device=device),
         torch.zeros((batch_size,), dtype=torch.bool, device=device), 1,
-        *_init_caches(cfg, batch_size, cache_len, cache_dtype, device,
-                      monolith))
+        *_state_caches(cfg, batch_size, cache_len, cache_dtype, device,
+                       monolith, tp_devices))
 
 
-def cache_len_of(k_cache: torch.Tensor) -> int:
-    """Sequence capacity of a cache in either layout."""
+def _per_rank(fn, a):
+    """``fn`` over a cache tensor, or over each rank's tensor of a
+    tensor-parallel state (a list); None stays None."""
+    if a is None:
+        return None
+    return [fn(x) for x in a] if isinstance(a, list) else fn(a)
+
+
+def cache_len_of(k_cache) -> int:
+    """Sequence capacity of a cache in either layout (or of a
+    tensor-parallel state's per-rank caches)."""
+    if isinstance(k_cache, list):
+        k_cache = k_cache[0]
     return k_cache.shape[2] if k_cache.dim() == 4 else k_cache.shape[-1]
 
 
 def grow_cache(state, new_cache_len: int):
     """Pad the KV caches with zeros, and int8 scales with ones, to a longer
-    segment (``state``: a :class:`DecodeState` or a :class:`BeamState`):
-    along axis 2 of time-major caches, along the last axis of lane-major
-    ones."""
+    segment (``state``: a :class:`DecodeState` or a :class:`BeamState`, with
+    one cache per rank under tensor parallelism): along axis 2 of
+    time-major caches, along the last axis of lane-major ones."""
     cur = cache_len_of(state.k_cache)
     if new_cache_len <= cur:
         return state
     n = new_cache_len - cur
+    first = state.k_cache[0] if isinstance(state.k_cache, list) \
+        else state.k_cache
     # F.pad counts dims from the last: (0, 0, 0, n) pads axis -2
-    widths = (0, 0, 0, n) if state.k_cache.dim() == 4 else (0, n)
-    pad = lambda c, v: None if c is None else torch.nn.functional.pad(
-        c, widths, value=v)
+    widths = (0, 0, 0, n) if first.dim() == 4 else (0, n)
+    pad = lambda c, v: _per_rank(
+        lambda x: torch.nn.functional.pad(x, widths, value=v), c)
     return dataclasses.replace(
         state, k_cache=pad(state.k_cache, 0), v_cache=pad(state.v_cache, 0),
         k_scale=pad(state.k_scale, 1.0), v_scale=pad(state.v_scale, 1.0))
@@ -241,12 +278,13 @@ def decode_attention(q: torch.Tensor, kT: torch.Tensor, vT: torch.Tensor,
     q: (B, H, Dh); kT/vT: (B, H, Dh, T); bias: (B, T) additive or None; with
     int8 caches k_scale/v_scale (B, H, T) dequantize after the dots. Only the
     first ``n_keys`` positions are read (the rest must carry no weight).
-    Where the switch of the cache's dtype is on, K11 (compute dtype) or K12
-    (int8) computes it; else this plain path, whose softmax weights are
-    rounded to the compute dtype before the V product (the kernels' are
-    not). Returns (B, H, Dh) in the compute dtype.
+    Where the switch of the cache's dtype is on, K11 (caches in the compute
+    dtype) or K12 (int8) computes it; else this plain path, whose softmax
+    weights are rounded to the compute dtype before the V product (the
+    kernels' are not). Returns (B, H, Dh) in the compute dtype.
     """
-    if hd.use_kernel(kT.dtype):
+    if hd.use_kernel(kT.dtype) and (k_scale is not None
+                                    or q.dtype == kT.dtype):
         if k_scale is None:
             return hd.decode_attention_hd(q.contiguous(), kT, vT, bias,
                                           n_keys=n_keys)
@@ -291,10 +329,9 @@ def _grouped_cross_attention(qc: torch.Tensor, mem: MemoryKV, i: int,
     return out.reshape(bu * group, h, dh).to(compute_dtype)
 
 
-def _decode_step_logits(params: Params, cfg: DecoderConfig, x: torch.Tensor,
-                        t: int, caches: dict, mem: MemoryKV,
-                        compute_dtype=torch.bfloat16,
-                        mem_group: int = 1) -> torch.Tensor:
+def _decode_step_logits(params, cfg: DecoderConfig, x, t: int, caches,
+                        mem, compute_dtype=torch.bfloat16,
+                        mem_group: int = 1, tp_group=None) -> torch.Tensor:
     """Advance one token on the per-op step: x (B, E) = embedded token at
     position t-1. ``caches``: {"k", "v"[, "ks", "vs"]} lane-major arrays,
     written in place at column t-1. Returns (B, V) fp32 logits.
@@ -304,109 +341,169 @@ def _decode_step_logits(params: Params, cfg: DecoderConfig, x: torch.Tensor,
     ``mem_group == 1`` is K12 over the stacked memory; otherwise the fresh
     k / v are quantized with fp32 scales, written, and attended by
     :func:`decode_attention`. ``mem_group > 1`` takes
-    :func:`_grouped_cross_attention`."""
-    e, h, dh = cfg.hidden_dim, cfg.num_heads, cfg.head_dim
-    b = x.shape[0]
+    :func:`_grouped_cross_attention`. Caches in another float dtype than the
+    compute dtype store the fresh k / v rounded to it; attention widens them.
+
+    ``tp_group``: JAX's ``tp_axis`` step (Megatron tensor parallelism).
+    ``params``, ``x``, ``caches`` and ``mem`` are then one entry per rank
+    (:func:`prepare_tp_decode_params` shards; caches and memory over the
+    rank's H / tp heads); each rank runs its heads and MLP columns, and the
+    two row-parallel products (attention out, linear2) are summed across the
+    ranks in the compute dtype by K15 ``tp_allreduce`` before their bias, as
+    JAX's ``lax.psum`` of the dot. LayerNorms run on every rank; the
+    logits come from rank 0's copy."""
+    if tp_group is None:
+        params, x, caches, mem = [params], [x], [caches], [mem]
+    tp = len(params)
+    e, dh = cfg.hidden_dim, cfg.head_dim
+    e_loc, h = e // tp, cfg.num_heads // tp
+    b = x[0].shape[0]
     pos = t - 1  # cache slot for this token's k/v
-    quantized = "ks" in caches
+    quantized = "ks" in caches[0]
     fused_int8 = quantized and hd.use_kernel(torch.int8)
-    fused_mem = (mem_group == 1 and mem.k_scale is not None
+    fused_mem = (mem_group == 1 and mem[0].k_scale is not None
                  and hd.use_kernel(torch.int8))
-    blocks = params["blocks"]
     cd = compute_dtype
-    for i in range(cfg.num_layers):
-        sa, ca = blocks["self_attn"], blocks["cross_attn"]
-        qkv = torch.matmul(x, sa["in_kernel"][i].to(cd)) \
-            + sa["in_bias"][i].to(cd)
-        q, k, v = (a.reshape(b, h, dh).contiguous()
-                   for a in qkv.split(e, dim=-1))
+    ranks = range(tp)
+
+    def row_parallel(parts, out):
+        """(B, E) compute-dtype partial products of each rank -> their sum
+        plus the replicated bias (``out(r)``: rank r's dense params)."""
+        if tp > 1:
+            parts = tp_allreduce(parts, tp_group)
+        return [y + out(r)["bias"].to(cd) for r, y in enumerate(parts)]
+
+    def self_attention(r, i, q, k, v):
+        c = caches[r]
         if fused_int8:
-            attn = hd.self_attention_append_int8(
-                q, k, v, caches["k"], caches["v"], caches["ks"], caches["vs"],
-                i, pos)
-        else:
-            ks = vs = None
-            if quantized:
-                k, ks_new = quantize_rows(k)
-                v, vs_new = quantize_rows(v)
-                caches["ks"][i, ..., pos] = ks_new
-                caches["vs"][i, ..., pos] = vs_new
-                ks, vs = caches["ks"][i], caches["vs"][i]
-            caches["k"][i, ..., pos] = k.to(caches["k"].dtype)
-            caches["v"][i, ..., pos] = v.to(caches["v"].dtype)
-            attn = decode_attention(q, caches["k"][i], caches["v"][i], None,
-                                    cd, ks, vs, n_keys=pos + 1)
-        attn = torch.matmul(attn.reshape(b, e), sa["out"]["kernel"][i].to(cd)) \
-            + sa["out"]["bias"][i].to(cd)
-        x = nn.layernorm(_layer(blocks["norm1"], i), x + attn, eps=1e-5)
+            return hd.self_attention_append_int8(
+                q, k, v, c["k"], c["v"], c["ks"], c["vs"], i, pos)
+        ks = vs = None
+        if quantized:
+            k, ks_new = quantize_rows(k)
+            v, vs_new = quantize_rows(v)
+            c["ks"][i, ..., pos] = ks_new
+            c["vs"][i, ..., pos] = vs_new
+            ks, vs = c["ks"][i], c["vs"][i]
+        c["k"][i, ..., pos] = k.to(c["k"].dtype)
+        c["v"][i, ..., pos] = v.to(c["v"].dtype)
+        return decode_attention(q, c["k"][i], c["v"][i], None, cd, ks, vs,
+                                n_keys=pos + 1)
 
-        qc = torch.matmul(x, ca["in_kernel"][i, :, :e].to(cd)) \
-            + ca["in_bias"][i, :e].to(cd)
-        qc = qc.reshape(b, h, dh)
+    def cross_attention(r, i, qc):
+        m = mem[r]
         if mem_group > 1:
-            cattn = _grouped_cross_attention(qc, mem, i, mem_group, cd)
-        elif fused_mem:
-            cattn = hd.decode_attention_hd_int8(
-                qc.contiguous(), mem.k, mem.v, mem.k_scale, mem.v_scale,
-                mem.bias, layer=i)
-        else:
-            cattn = decode_attention(
-                qc, mem.k[i], mem.v[i], mem.bias, cd,
-                None if mem.k_scale is None else mem.k_scale[i],
-                None if mem.v_scale is None else mem.v_scale[i])
-        cattn = torch.matmul(cattn.reshape(b, e),
-                             ca["out"]["kernel"][i].to(cd)) \
-            + ca["out"]["bias"][i].to(cd)
-        x = nn.layernorm(_layer(blocks["norm2"], i), x + cattn, eps=1e-5)
+            return _grouped_cross_attention(qc, m, i, mem_group, cd)
+        if fused_mem:
+            return hd.decode_attention_hd_int8(
+                qc.contiguous(), m.k, m.v, m.k_scale, m.v_scale, m.bias,
+                layer=i)
+        return decode_attention(
+            qc, m.k[i], m.v[i], m.bias, cd,
+            None if m.k_scale is None else m.k_scale[i],
+            None if m.v_scale is None else m.v_scale[i])
 
-        h1 = nn.gelu(nn.dense(_layer(blocks["linear1"], i), x))
-        ff = nn.dense(_layer(blocks["linear2"], i), h1)
-        x = nn.layernorm(_layer(blocks["norm3"], i), x + ff, eps=1e-5)
-    x = nn.layernorm(params["final_norm"], x, eps=1e-6)
-    return nn.dense(params["unembed"], x).float()
+    for i in range(cfg.num_layers):
+        blocks = [_layer(params[r]["blocks"], i) for r in ranks]
+        parts = []
+        for r in ranks:
+            sa = blocks[r]["self_attn"]
+            qkv = torch.matmul(x[r], sa["in_kernel"].to(cd)) \
+                + sa["in_bias"].to(cd)
+            q, k, v = (a.reshape(b, h, dh).contiguous()
+                       for a in qkv.split(e_loc, dim=-1))
+            attn = self_attention(r, i, q, k, v)
+            parts.append(torch.matmul(attn.reshape(b, e_loc),
+                                      sa["out"]["kernel"].to(cd)))
+        y = row_parallel(parts, lambda r: blocks[r]["self_attn"]["out"])
+        x = [nn.layernorm(blocks[r]["norm1"], x[r] + y[r], eps=1e-5)
+             for r in ranks]
+
+        parts = []
+        for r in ranks:
+            ca = blocks[r]["cross_attn"]
+            qc = torch.matmul(x[r], ca["in_kernel"][:, :e_loc].to(cd)) \
+                + ca["in_bias"][:e_loc].to(cd)
+            cattn = cross_attention(r, i, qc.reshape(b, h, dh))
+            parts.append(torch.matmul(cattn.reshape(b, e_loc),
+                                      ca["out"]["kernel"].to(cd)))
+        y = row_parallel(parts, lambda r: blocks[r]["cross_attn"]["out"])
+        x = [nn.layernorm(blocks[r]["norm2"], x[r] + y[r], eps=1e-5)
+             for r in ranks]
+
+        parts = [torch.matmul(nn.gelu(nn.dense(blocks[r]["linear1"], x[r])),
+                              blocks[r]["linear2"]["kernel"].to(cd))
+                 for r in ranks]
+        y = row_parallel(parts, lambda r: blocks[r]["linear2"])
+        x = [nn.layernorm(blocks[r]["norm3"], x[r] + y[r], eps=1e-5)
+             for r in ranks]
+    out = nn.layernorm(params[0]["final_norm"], x[0], eps=1e-6)
+    return nn.dense(params[0]["unembed"], out).float()
 
 
 def _layer(p: Params, i: int) -> Params:
-    return {k: v[i] for k, v in p.items()}
+    """Layer ``i`` of a tree of stacked (L, ...) leaves."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in p.items()}
 
 
 # ---------------------------------------------------------------------------
 # one step, either layout
 # ---------------------------------------------------------------------------
 
-def step_logits(params: Params, cfg: DecoderConfig, mono: Params | None,
-                state, mem: MemoryKV, compute_dtype,
-                pe_offset: int = 0, plain: bool = False,
-                mem_group: int = 1) -> torch.Tensor:
+def step_logits(params, cfg: DecoderConfig, mono, state, mem,
+                compute_dtype, pe_offset: int = 0, plain: bool = False,
+                mem_group: int = 1, tp_group=None) -> torch.Tensor:
     """One decode step at position ``state.t``: appends the caches in place
     and returns (rows, V) fp32 logits. Time-major caches take the monolith
     step with the operands ``mono`` (:func:`_prepack_for`; ``plain`` runs
     its kernels' plain twins), lane-major ones the per-op step.
     ``state`` is a :class:`DecodeState` or a :class:`BeamState`, whose
-    ``seqs`` are flattened to rows."""
+    ``seqs`` are flattened to rows.
+
+    ``tp_group``: a tensor-parallel step. ``params``, ``mono`` and ``mem``
+    are one entry per rank and the state's caches are lists; the token is
+    embedded once on rank 0 and handed to every rank, and the logits come
+    from rank 0 (every rank holds the same x after each all-reduce)."""
     t = state.t
     seqs = state.seqs.reshape(-1, state.seqs.shape[-1])
-    x = _embed_token(params, seqs[:, t - 1], t - 1 + pe_offset, compute_dtype)
-    if state.k_cache.dim() == 5:
+    tp = tp_group is not None
+    p0 = params[0] if tp else params
+    x = _embed_token(p0, seqs[:, t - 1], t - 1 + pe_offset, compute_dtype)
+    if tp:
+        x = [x.to(d) for d in tp_group.devices]
+    first = state.k_cache[0] if tp else state.k_cache
+    if first.dim() == 5:
         caches = {"k": state.k_cache, "v": state.v_cache}
         if state.k_scale is not None:
             caches.update(ks=state.k_scale, vs=state.v_scale)
+        if tp:  # one dict per rank
+            caches = [dict(zip(caches, c)) for c in zip(*caches.values())]
         return _decode_step_logits(params, cfg, x, t, caches, mem,
-                                   compute_dtype, mem_group)
-    x = decode_layers(mono, x, t - 1, state.k_cache, state.v_cache, mem.k,
-                      mem.v, mem.bias, cfg.num_heads, plain=plain,
-                      k_scale=state.k_scale, v_scale=state.v_scale,
-                      mem_k_scale=mem.k_scale, mem_v_scale=mem.v_scale,
-                      mem_group=mem_group)
-    x = nn.layernorm(params["final_norm"], x, eps=1e-6)
-    return nn.dense(params["unembed"], x).float()
+                                   compute_dtype, mem_group, tp_group)
+    each = (lambda f: [f(m) for m in mem]) if tp else (lambda f: f(mem))
+    x = decode_layers(mono, x, t - 1, state.k_cache, state.v_cache,
+                      each(lambda m: m.k), each(lambda m: m.v),
+                      each(lambda m: m.bias),
+                      cfg.num_heads // (tp_group.tp if tp else 1),
+                      plain=plain, k_scale=state.k_scale,
+                      v_scale=state.v_scale,
+                      mem_k_scale=each(lambda m: m.k_scale),
+                      mem_v_scale=each(lambda m: m.v_scale),
+                      mem_group=mem_group, tp_group=tp_group)
+    if tp:
+        x = x[0]
+    x = nn.layernorm(p0["final_norm"], x, eps=1e-6)
+    return nn.dense(p0["unembed"], x).float()
 
 
-# The operands of the latest _prepack_for call: [(key, leaves, operands)].
-# The key holds each decoder leaf's identity and version counter (an in-place
-# update bumps it); the entry holds the leaves, so no identity in a live key
-# can be taken by another tensor.
+# The operands of the latest _prepack_for calls, least recent first:
+# [(key, leaves, operands)]. The key holds each decoder leaf's identity and
+# version counter (an in-place update bumps it); the entry holds the leaves,
+# so no identity in a live key can be taken by another tensor. A few are
+# kept: a tensor-parallel decode packs one shard per rank.
 _PREPACKED: list = []
+_PREPACK_KEEP = 4
 
 
 def _tensors(tree) -> list:
@@ -415,27 +512,31 @@ def _tensors(tree) -> list:
     return [tree]
 
 
-def _prepack_for(params: Params, compute_dtype, cache_dtype) -> Params:
+def _prepack_for(params: Params, compute_dtype, cache_dtype,
+                 tp_mono: bool = False) -> Params:
     """The monolith step's operands, their weights as
     :func:`..ops.decode_kernel.weight_quant_mode` says: int8 caches quantize
     them to int8 (W8A8, by default) or int4 (W4A8, ``ACAI_W4A8_DECODE``), or
-    keep them in the compute dtype (``ACAI_W8A8_DECODE=0``).
+    keep them in the compute dtype (``ACAI_W8A8_DECODE=0``); a
+    tensor-parallel shard (``tp_mono``) keeps them in the compute dtype
+    unless ``ACAI_TP_W8A8`` is on.
 
     The latest operands are kept and returned again while the same params,
     unchanged, are decoded with the same dtype and weight mode, so a server
     quantizes its weights once and not once per batch. Inference tensors
     (``torch.inference_mode``) keep no version counter and are packed anew
     on every call."""
-    mode = weight_quant_mode(cache_dtype)
+    mode = weight_quant_mode(cache_dtype, tp_mono)
     leaves = _tensors(params)
     if any(t.is_inference() for t in leaves):
         return prepack(params, compute_dtype, quantize_weights=mode)
     key = (compute_dtype, mode, tuple((id(t), t._version) for t in leaves))
-    cached = _PREPACKED[0] if _PREPACKED else None
-    if cached is not None and cached[0] == key:
-        return cached[2]
+    for i, entry in enumerate(_PREPACKED):
+        if entry[0] == key:
+            _PREPACKED.append(_PREPACKED.pop(i))
+            return entry[2]
     mono = prepack(params, compute_dtype, quantize_weights=mode)
-    _PREPACKED[:] = [(key, leaves, mono)]
+    _PREPACKED[:] = _PREPACKED[1 - _PREPACK_KEEP:] + [(key, leaves, mono)]
     return mono
 
 
@@ -467,6 +568,31 @@ def _all_finished(state, i: int) -> bool:
     return i % FINISH_CHECK_STEPS == 0 and bool(state.finished.all())
 
 
+def _decode_step(params, cfg: DecoderConfig, mono, state: DecodeState, mem,
+                 compute_dtype, pe_offset: int = 0,
+                 sampling: SamplingConfig | None = None,
+                 generator: torch.Generator | None = None,
+                 mem_group: int = 1, tp_group=None) -> DecodeState:
+    """One greedy or sampled token (one fresh draw of Gumbel noise from
+    ``generator``) for every row, written at ``state.t``."""
+    logits = step_logits(params, cfg, mono, state, mem, compute_dtype,
+                         pe_offset, mem_group=mem_group, tp_group=tp_group)
+    if sampling is None:
+        next_tok = torch.argmax(logits, dim=-1)
+        lp = torch.log_softmax(logits, dim=-1) \
+            .gather(1, next_tok[:, None])[:, 0]
+    else:
+        k = min(sampling.top_k, logits.shape[-1])
+        noise = nn.gumbel_noise((logits.shape[0], k), generator,
+                                logits.device)
+        next_tok, lp = sample_top_k(logits, sampling, noise)
+    state.seqs[:, state.t] = next_tok
+    state.log_probs[:, state.t] = lp
+    state.finished |= next_tok == cfg.eos_idx
+    state.t += 1
+    return state
+
+
 def decode_segment(params: Params, cfg: DecoderConfig, mono: Params | None,
                    state: DecodeState, mem: MemoryKV, num_steps: int,
                    compute_dtype=torch.bfloat16, pe_offset: int = 0,
@@ -479,21 +605,8 @@ def decode_segment(params: Params, cfg: DecoderConfig, mono: Params | None,
     for i in range(_segment_budget(state, num_steps)):
         if _all_finished(state, i):
             break
-        logits = step_logits(params, cfg, mono, state, mem, compute_dtype,
-                             pe_offset, mem_group=mem_group)
-        if sampling is None:
-            next_tok = torch.argmax(logits, dim=-1)
-            lp = torch.log_softmax(logits, dim=-1) \
-                .gather(1, next_tok[:, None])[:, 0]
-        else:
-            k = min(sampling.top_k, logits.shape[-1])
-            noise = nn.gumbel_noise((logits.shape[0], k), generator,
-                                    logits.device)
-            next_tok, lp = sample_top_k(logits, sampling, noise)
-        state.seqs[:, state.t] = next_tok
-        state.log_probs[:, state.t] = lp
-        state.finished |= next_tok == cfg.eos_idx
-        state.t += 1
+        state = _decode_step(params, cfg, mono, state, mem, compute_dtype,
+                             pe_offset, sampling, generator, mem_group)
     return state
 
 
@@ -540,6 +653,20 @@ def _compaction(finished: np.ndarray, g: int):
     return rows, groups, fin, n * g
 
 
+def _check_cache_dtype(cache_dtype) -> None:
+    if cache_dtype != torch.int8 and not cache_dtype.is_floating_point:
+        raise ValueError(f"caches are kept in a float dtype or in int8, got "
+                         f"{cache_dtype}")
+
+
+def _monolith_for(compute_dtype, cache_dtype) -> bool:
+    """Whether a decode takes the monolith step: its switch is on and the
+    caches are in the compute dtype or int8. A float cache dtype other than
+    the compute dtype takes the per-op step, which stores the caches in it
+    (the JAX package's ``use_monolith``, ``pallas_monolith.py:431-437``)."""
+    return use_monolith() and cache_dtype in (compute_dtype, torch.int8)
+
+
 def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
              latent_valid: torch.Tensor | None, *, max_len: int = 1536,
              sampling: SamplingConfig | None = None,
@@ -573,10 +700,13 @@ def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
     ``pe_offset=1`` reproduces the reference's cached-decode PE indexing
     (token ``seqs[:, t-1]`` embedded with ``pos_embedding[t]``); the default
     0 matches the training forward.
+
+    A float ``cache_dtype`` other than the compute dtype (fp32 compute over
+    bf16 caches, JAX's default) decodes on the per-op step with the caches
+    stored in that dtype.
     """
-    if cache_dtype not in (compute_dtype, torch.int8):
-        raise ValueError("caches are kept in the compute dtype or in int8")
-    monolith = use_monolith()
+    _check_cache_dtype(cache_dtype)
+    monolith = _monolith_for(compute_dtype, cache_dtype)
     if mem_group > 1 and cache_dtype == torch.int8 and not monolith:
         img_latent = img_latent.repeat_interleave(mem_group, dim=0)
         if latent_valid is not None:
@@ -663,7 +793,8 @@ class BeamState:
 
 def init_beam_state(cfg: DecoderConfig, batch_size: int, beam_size: int,
                     max_len: int, cache_len: int, cache_dtype=torch.bfloat16,
-                    device="cpu", monolith: bool = True) -> BeamState:
+                    device="cpu", monolith: bool = True,
+                    tp_devices=None) -> BeamState:
     b, k = batch_size, beam_size
     seqs = torch.full((b, k, max_len), cfg.pad_idx, dtype=torch.long,
                       device=device)
@@ -672,7 +803,56 @@ def init_beam_state(cfg: DecoderConfig, batch_size: int, beam_size: int,
         seqs, torch.zeros((b, k, max_len), dtype=torch.float32, device=device),
         torch.zeros((b, k), dtype=torch.float32, device=device),
         torch.zeros((b, k), dtype=torch.bool, device=device), 1,
-        *_init_caches(cfg, b * k, cache_len, cache_dtype, device, monolith))
+        *_state_caches(cfg, b * k, cache_len, cache_dtype, device, monolith,
+                       tp_devices))
+
+
+def _beam_consts(cfg: DecoderConfig, b: int, k: int, dev):
+    """The beam step's fixed masks for B images of K beams on ``dev``."""
+    v = cfg.vocab_size
+    return (torch.arange(v, device=dev) == cfg.pad_idx,
+            (torch.arange(k, device=dev) > 0)[None, :, None],
+            (torch.arange(b, device=dev) * k)[:, None])
+
+
+def _beam_step(params, cfg: DecoderConfig, mono, s: BeamState, mem,
+               compute_dtype, pe_offset: int, consts,
+               tp_group=None) -> BeamState:
+    """One beam-search step (see :func:`beam_decode_segment`); ``consts``
+    from :func:`_beam_consts`."""
+    b, k, _ = s.seqs.shape
+    v = cfg.vocab_size
+    vocab_is_pad, later_beam, row0 = consts
+    logits = step_logits(params, cfg, mono, s, mem, compute_dtype,
+                         pe_offset, mem_group=k, tp_group=tp_group)
+    lp = torch.log_softmax(logits, dim=-1).view(b, k, v)
+    cand = s.scores[:, :, None] + lp                           # (B, K, V)
+    # finished beams extend only with <pad> at frozen score
+    frozen = torch.where(vocab_is_pad, s.scores[:, :, None], nn.NEG_INF)
+    cand = torch.where(s.finished[:, :, None], frozen, cand)
+    if s.t == 1:  # all beams are identical <bos> rows: keep beam 0 only
+        cand = torch.where(later_beam, nn.NEG_INF, cand)
+    order = torch.sort(cand.view(b, k * v), dim=-1, descending=True,
+                       stable=True)
+    top_scores, top_idx = order.values[:, :k], order.indices[:, :k]
+    parent = top_idx // v                                      # (B, K)
+    token = top_idx % v
+
+    def gather_beams(x2):                             # (B, K, ...) by parent
+        idx = parent.view(parent.shape + (1,) * (x2.dim() - 2))
+        return x2.gather(1, idx.expand(-1, -1, *x2.shape[2:]))
+
+    seqs = gather_beams(s.seqs)
+    seqs[:, :, s.t] = token
+    log_probs = gather_beams(s.log_probs)
+    log_probs[:, :, s.t] = top_scores - gather_beams(s.scores)
+    finished = gather_beams(s.finished) | (token == cfg.eos_idx)
+    flat_parent = (row0 + parent).view(b * k)
+    pick = lambda a: _per_rank(
+        lambda c: c.index_select(1, flat_parent.to(c.device)), a)
+    return BeamState(seqs, log_probs, top_scores.contiguous(), finished,
+                     s.t + 1, pick(s.k_cache), pick(s.v_cache),
+                     pick(s.k_scale), pick(s.v_scale))
 
 
 def beam_decode_segment(params: Params, cfg: DecoderConfig,
@@ -689,44 +869,12 @@ def beam_decode_segment(params: Params, cfg: DecoderConfig,
     one row per image (``mem_group = K``).
     """
     b, k, _ = state.seqs.shape
-    v = cfg.vocab_size
-    dev = state.seqs.device
-    vocab_is_pad = torch.arange(v, device=dev) == cfg.pad_idx
-    later_beam = (torch.arange(k, device=dev) > 0)[None, :, None]
-    row0 = (torch.arange(b, device=dev) * k)[:, None]
+    consts = _beam_consts(cfg, b, k, state.seqs.device)
     for i in range(_segment_budget(state, num_steps)):
         if _all_finished(state, i):
             break
-        s = state
-        logits = step_logits(params, cfg, mono, s, mem, compute_dtype,
-                             pe_offset, mem_group=k)
-        lp = torch.log_softmax(logits, dim=-1).view(b, k, v)
-        cand = s.scores[:, :, None] + lp                       # (B, K, V)
-        # finished beams extend only with <pad> at frozen score
-        frozen = torch.where(vocab_is_pad, s.scores[:, :, None], nn.NEG_INF)
-        cand = torch.where(s.finished[:, :, None], frozen, cand)
-        if s.t == 1:  # all beams are identical <bos> rows: keep beam 0 only
-            cand = torch.where(later_beam, nn.NEG_INF, cand)
-        order = torch.sort(cand.view(b, k * v), dim=-1, descending=True,
-                           stable=True)
-        top_scores, top_idx = order.values[:, :k], order.indices[:, :k]
-        parent = top_idx // v                                  # (B, K)
-        token = top_idx % v
-
-        def gather_beams(x2):                         # (B, K, ...) by parent
-            idx = parent.view(parent.shape + (1,) * (x2.dim() - 2))
-            return x2.gather(1, idx.expand(-1, -1, *x2.shape[2:]))
-
-        seqs = gather_beams(s.seqs)
-        seqs[:, :, s.t] = token
-        log_probs = gather_beams(s.log_probs)
-        log_probs[:, :, s.t] = top_scores - gather_beams(s.scores)
-        finished = gather_beams(s.finished) | (token == cfg.eos_idx)
-        flat_parent = (row0 + parent).view(b * k)
-        pick = lambda a: None if a is None else a.index_select(1, flat_parent)
-        state = BeamState(seqs, log_probs, top_scores.contiguous(), finished,
-                          s.t + 1, pick(s.k_cache), pick(s.v_cache),
-                          pick(s.k_scale), pick(s.v_scale))
+        state = _beam_step(params, cfg, mono, state, mem, compute_dtype,
+                           pe_offset, consts)
     return state
 
 
@@ -760,12 +908,12 @@ def beam_generate(params: Params, cfg: DecoderConfig, img_latent, latent_valid,
     trimmed like :func:`generate`; with ``return_all_beams`` also returns
     ``(all_seqs, all_scores)``. Beams share their image's memory
     (``mem_group = beam_size``): the cross K/V are projected and held once
-    per image.
+    per image. A float ``cache_dtype`` other than the compute dtype takes
+    the per-op step, as in :func:`generate`.
     """
-    if cache_dtype not in (compute_dtype, torch.int8):
-        raise ValueError("caches are kept in the compute dtype or in int8")
+    _check_cache_dtype(cache_dtype)
     b = img_latent.shape[0]
-    monolith = use_monolith()
+    monolith = _monolith_for(compute_dtype, cache_dtype)
     tt = time_tile(cache_dtype) if monolith else 1
     cache_len = _round_up(min(initial_segment, max_len), tt)
     mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
@@ -800,25 +948,30 @@ def beam_generate(params: Params, cfg: DecoderConfig, img_latent, latent_valid,
 def streamed_generate(params: Params, cfg: DecoderConfig, img_latent,
                       latent_valid, *, max_len: int = 1536,
                       flush_interval: int = 25, compute_dtype=torch.bfloat16,
-                      pe_offset: int = 0):
+                      pe_offset: int = 0, cache_dtype=None):
     """Greedy generation yielding token chunks every ``flush_interval`` steps.
 
     Yields ("step", (1, n) int64 numpy tokens) chunks, then a final
     ("finish", (seqs, log_probs, mask)). Single-image batches only; caches in
-    the compute dtype. The chunk in which the sequence finishes is not
-    yielded as a step: the finish event carries the whole sequence.
+    the compute dtype, or in another float ``cache_dtype`` on the per-op
+    step. The chunk in which the sequence finishes is not yielded as a step:
+    the finish event carries the whole sequence.
     """
     if img_latent.shape[0] != 1:
         raise ValueError("Streamed generation only supports single image "
                          "batches")
-    monolith = use_monolith()
+    cache_dtype = compute_dtype if cache_dtype is None else cache_dtype
+    if not cache_dtype.is_floating_point:
+        raise ValueError(f"streamed generation keeps float caches, got "
+                         f"{cache_dtype}")
+    monolith = _monolith_for(compute_dtype, cache_dtype)
     tt = TIME_TILE if monolith else 1
     cache_len = _round_up(min(256, max_len), tt)
     mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
-                               compute_dtype, compute_dtype,
+                               compute_dtype, cache_dtype,
                                layout="te" if monolith else "hd")
     mono = prepack(params, compute_dtype) if monolith else None
-    state = init_decode_state(cfg, 1, max_len, cache_len, compute_dtype,
+    state = init_decode_state(cfg, 1, max_len, cache_len, cache_dtype,
                               img_latent.device, monolith)
     start_t = 1
     done = False
@@ -837,3 +990,313 @@ def streamed_generate(params: Params, cfg: DecoderConfig, img_latent,
 
     yield ("finish", mask_and_clip_seqs(state.seqs, state.log_probs,
                                         cfg.eos_idx, cfg.pad_idx))
+
+
+# ---------------------------------------------------------------------------
+# decode over a device mesh (data- and tensor-parallel)
+# ---------------------------------------------------------------------------
+
+def prepare_tp_decode_params(params: Params, cfg: DecoderConfig, mesh,
+                             model_axis: str = "model") -> list:
+    """Shuffle and split the decoder params for tensor-parallel decode once,
+    and place each rank's piece on its device: ``[d][m]`` is the params of
+    data coordinate d, model rank m (ranks that share a device share their
+    tensors). Pass it as ``tp_params=`` when decoding repeatedly with the
+    same weights (``batch_inference`` does, once per call)."""
+    from ..parallel import sharding
+
+    tp = mesh.shape[model_axis]
+    pieces = sharding.tp_split_decoder_params(
+        sharding.tp_shuffle_decoder_params(params, cfg.num_heads,
+                                           cfg.head_dim, tp), tp)
+    placed = {}
+
+    def on(r, dev):
+        if (r, dev) not in placed:
+            placed[r, dev] = _to_device(pieces[r], dev)
+        return placed[r, dev]
+
+    return [[on(r, dev) for r, dev in enumerate(row)] for row in mesh.devices]
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _shard_memory(mem: MemoryKV, rows: slice, r: int, tp: int, dev,
+                  layout: str) -> MemoryKV:
+    """Rows ``rows`` of the memory, over model rank r's heads, on ``dev``:
+    the last (lane) axis of the ``te`` layout, axis 2 of the ``hd`` one."""
+    def cut(a):
+        if a is None:
+            return None
+        a = a[:, rows]
+        ax = a.dim() - 1 if layout == "te" else 2
+        w = a.shape[ax] // tp
+        return a.narrow(ax, r * w, w).contiguous().to(dev)
+
+    return MemoryKV(cut(mem.k), cut(mem.v), mem.bias[rows].contiguous().to(dev),
+                    cut(mem.k_scale), cut(mem.v_scale))
+
+
+def _grow_sharded_caches(shards: list, new_len: int) -> None:
+    """Cache-segment growth, the same for the whole mesh: every shard's
+    caches (each rank's) padded to ``new_len``."""
+    for sh in shards:
+        sh.state = grow_cache(sh.state, new_len)
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One data coordinate of a meshed decode: its rows' state, and per model
+    rank the params, monolith operands and memory (lists under tensor
+    parallelism, single values otherwise)."""
+    state: object
+    params: object
+    mono: object
+    mem: object
+    group: object = None
+    generator: torch.Generator | None = None  # sampled decode
+    beam_consts: tuple | None = None          # beam search
+    done: bool = False
+
+
+def _mesh_plan(cfg: DecoderConfig, mesh, axis, model_axis, compute_dtype,
+               cache_dtype, what: str):
+    """(data shards, tp, monolith) of a meshed decode, with JAX's checks."""
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+    if axis != DATA_AXIS or model_axis not in (None, MODEL_AXIS):
+        raise ValueError(f"a mesh's axes are {DATA_AXIS!r} and "
+                         f"{MODEL_AXIS!r}, got {axis!r} and {model_axis!r}")
+    _check_cache_dtype(cache_dtype)
+    n_dev = mesh.shape[axis]
+    tp = mesh.shape[model_axis] if model_axis is not None else 1
+    if tp > 1 and (cfg.num_heads % tp or cfg.mlp_dim % tp):
+        raise ValueError(f"tensor-parallel {what} needs num_heads "
+                         f"({cfg.num_heads}) and mlp_dim ({cfg.mlp_dim}) "
+                         f"divisible by the model axis size {tp}")
+    # K15 takes 2 or 4 ranks on the card (its twin, on the CPU, any power
+    # of two): a larger model axis over CUDA devices is refused up front
+    if tp > 1 and tp not in (2, 4) and any(
+            d.type == "cuda" for row in mesh.devices for d in row):
+        raise ValueError(f"tensor-parallel {what} on CUDA takes a model "
+                         f"axis of 2 or 4, got {tp}")
+    # tp = 2 / 4 rides the monolith step with K15 (the JAX kernel's lane
+    # conditions are TPU limits); other tp sizes (on the CPU) take the
+    # per-op step
+    monolith = (tp == 1 or tp in (2, 4)) and _monolith_for(compute_dtype,
+                                                            cache_dtype)
+    return n_dev, tp, monolith
+
+
+def _make_shards(params, cfg, mesh, n_dev, tp, mem, layout, monolith,
+                 compute_dtype, cache_dtype, mem_rows, init_state, tp_params,
+                 model_axis):
+    """Each data shard's state (``init_state(its rank devices)``), params,
+    operands and memory rows (``mem_rows`` a shard)."""
+    if tp > 1 and tp_params is None:
+        tp_params = prepare_tp_decode_params(params, cfg, mesh, model_axis)
+    shards = []
+    for d in range(n_dev):
+        devs = mesh.devices[d][:tp]
+        mrows = slice(d * mem_rows, (d + 1) * mem_rows)
+        if tp > 1:
+            p = tp_params[d]
+            mems = [_shard_memory(mem, mrows, r, tp, devs[r], layout)
+                    for r in range(tp)]
+            mono = [_prepack_for(p[r], compute_dtype, cache_dtype, True)
+                    for r in range(tp)] if monolith else None
+            group = mesh.tp_group(d)
+        else:
+            p = _to_device(params, devs[0])
+            mems = _shard_memory(mem, mrows, 0, 1, devs[0], layout)
+            mono = _prepack_for(p, compute_dtype, cache_dtype) if monolith \
+                else None
+            group = None
+        shards.append(_Shard(init_state(devs), p, mono, mems, group))
+    return shards
+
+
+def _lockstep_segment(shards: list, num_steps: int, max_len: int, step):
+    """One segment of every shard in one host loop, token by token: a shard
+    steps while it is below its segment budget (``num_steps``, its cache,
+    max_len) and has a live row (looked for every FINISH_CHECK_STEPS steps,
+    as in :func:`decode_segment`); ``step(shard)`` returns its next state."""
+    stops = [min(sh.state.t + num_steps, max_len,
+                 cache_len_of(sh.state.k_cache) + 1) for sh in shards]
+    for i in range(max(stop - sh.state.t for sh, stop in zip(shards, stops))):
+        for sh, stop in zip(shards, stops):
+            if sh.done or sh.state.t >= stop:
+                continue
+            if i % FINISH_CHECK_STEPS == 0 and bool(sh.state.finished.all()):
+                sh.done = True
+                continue
+            sh.state = step(sh)
+
+
+def _mesh_loop(shards, steps, max_len, tt, step, progress_cb=None):
+    """Segments until every shard has finished or max_len: after each, the
+    merged status (and ``progress_cb``), then cache growth for the whole
+    mesh when a live shard filled its cache."""
+    cache_len = cache_len_of(shards[0].state.k_cache)
+    while True:
+        _lockstep_segment(shards, steps, max_len, step)
+        t_all = [sh.state.t for sh in shards]
+        if progress_cb is not None:
+            fin_rows = np.concatenate([sh.state.finished.cpu().numpy()
+                                       for sh in shards])
+            seqs = np.concatenate([sh.state.seqs.cpu().numpy()
+                                   for sh in shards])
+            progress_cb(seqs, max(t_all), fin_rows)
+        alive = [not (sh.done or bool(sh.state.finished.all()))
+                 for sh in shards]
+        if not any(alive):
+            break
+        t_max = max(t for t, a in zip(t_all, alive) if a)
+        if t_max >= max_len:
+            break
+        if t_max > cache_len:
+            cache_len = _round_up(_next_segment(cache_len, max_len), tt)
+            _grow_sharded_caches(shards, cache_len)
+
+
+def sharded_generate(params: Params, cfg: DecoderConfig, img_latent,
+                     latent_valid, mesh, *, axis: str = "data",
+                     model_axis: str | None = None, max_len: int = 1536,
+                     sampling: SamplingConfig | None = None, seed: int = 0,
+                     initial_segment: int = 256,
+                     segment_steps: int | None = None,
+                     compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                     mem_group: int = 1, tp_params=None, pe_offset: int = 0,
+                     progress_cb=None):
+    """Batch-sharded KV-cached generation over a :class:`..parallel.mesh.Mesh`.
+
+    The twin of the JAX package's ``sharded_generate``: the rows are split
+    over the ``axis`` (data) coordinates, and each data shard runs the whole
+    decode on its rows. One host loop drives every shard in lock step, token
+    by token; a shard stops stepping once all its rows have finished, cache
+    growth is the same for the whole mesh (decided on the live shards), and
+    no rows are compacted (it would desynchronise the shards' shapes).
+
+    ``model_axis`` of size tp > 1 adds Megatron tensor parallelism: heads and
+    MLP columns split over the model ranks (:func:`prepare_tp_decode_params`,
+    or ``tp_params`` from it), three all-reduces per layer and step. tp = 2
+    or 4 rides the monolith step (``decode_layers(tp_group=)``: K1 / K5
+    partials, K15 ``tp_allreduce``) while its switch is on, with bf16 (or
+    compute-dtype) weights unless ``ACAI_TP_W8A8``; with the switch off
+    they take the per-op step (compute-dtype sums through K15). On the CPU
+    any power of two takes the per-op step; on CUDA devices a model axis
+    other than 2 or 4 raises ``ValueError`` (K15 takes 2 or 4 ranks).
+    ``cfg.num_heads`` and ``cfg.mlp_dim`` must divide by tp, and the unique
+    rows of ``img_latent`` by the data axis (pad the batch otherwise).
+
+    With ``sampling``, shard d draws its noise from a generator seeded
+    ``seed + d``, so sampled tokens differ from one device's. Returns
+    (seqs, log_probs, mask) as :func:`generate`. ``progress_cb(seqs, t,
+    finished)`` is called after every segment with the merged host copies
+    (row order = input order) and ``t`` the largest position over all
+    shards; rows of slower shards hold pad past their own position.
+    """
+    n_dev, tp, monolith = _mesh_plan(cfg, mesh, axis, model_axis,
+                                     compute_dtype, cache_dtype, "decode")
+    if mem_group > 1 and cache_dtype == torch.int8 and not monolith:
+        # grouped int8 memory is a monolith-step layout: the per-op step
+        # needs the replicated memory
+        img_latent = img_latent.repeat_interleave(mem_group, dim=0)
+        if latent_valid is not None:
+            latent_valid = latent_valid.repeat_interleave(mem_group, dim=0)
+        mem_group = 1
+    g = mem_group
+    bu = img_latent.shape[0]
+    if bu % n_dev:
+        raise ValueError(f"batch of {bu} unique rows does not shard over "
+                         f"{n_dev} devices: pad the batch")
+    local_b = bu * g // n_dev
+    tt = time_tile(cache_dtype) if monolith else 1
+    cache_len = _round_up(min(initial_segment, max_len), tt)
+    layout = "te" if monolith else "hd"
+    mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
+                               compute_dtype, cache_dtype, layout=layout)
+
+    def init_state(devs):
+        return init_decode_state(cfg, local_b, max_len, cache_len,
+                                 cache_dtype, devs[0], monolith,
+                                 devs if tp > 1 else None)
+
+    shards = _make_shards(params, cfg, mesh, n_dev, tp, mem, layout,
+                          monolith, compute_dtype, cache_dtype, bu // n_dev,
+                          init_state, tp_params, model_axis)
+    if sampling is not None:
+        for d, sh in enumerate(shards):
+            sh.generator = torch.Generator(
+                device=sh.state.seqs.device).manual_seed(seed + d)
+
+    def step(sh):
+        return _decode_step(sh.params, cfg, sh.mono, sh.state, sh.mem,
+                            compute_dtype, pe_offset, sampling, sh.generator,
+                            g, sh.group)
+
+    _mesh_loop(shards, segment_steps or max_len, max_len, tt, step,
+               progress_cb)
+    dev = shards[0].state.seqs.device
+    cat = lambda xs: torch.cat([x.to(dev) for x in xs])
+    return mask_and_clip_seqs(cat([sh.state.seqs for sh in shards]),
+                              cat([sh.state.log_probs for sh in shards]),
+                              cfg.eos_idx, cfg.pad_idx)
+
+
+def sharded_beam_generate(params: Params, cfg: DecoderConfig, img_latent,
+                          latent_valid, mesh, *, axis: str = "data",
+                          model_axis: str | None = None, beam_size: int = 4,
+                          max_len: int = 1536, length_penalty: float = 0.6,
+                          initial_segment: int = 256,
+                          segment_steps: int | None = None,
+                          compute_dtype=torch.bfloat16,
+                          cache_dtype=torch.bfloat16, tp_params=None,
+                          pe_offset: int = 0):
+    """Batch-sharded beam search over a mesh: the twin of the JAX package's
+    ``sharded_beam_generate``. Each data shard runs the beam loop of
+    :func:`beam_generate` on its images (beams share their image's memory,
+    ``mem_group = beam_size``); beams only permute within an image, so the
+    shards exchange nothing. ``model_axis`` adds tensor parallelism as in
+    :func:`sharded_generate`. Returns the best beam per image as
+    ``(seqs, log_probs, mask)``, as :func:`beam_generate`."""
+    n_dev, tp, monolith = _mesh_plan(cfg, mesh, axis, model_axis,
+                                     compute_dtype, cache_dtype, "beams")
+    b = img_latent.shape[0]
+    k = beam_size
+    if b % n_dev:
+        raise ValueError(f"batch of {b} rows does not shard over {n_dev} "
+                         f"devices: pad the batch")
+    local_b = b // n_dev
+    tt = time_tile(cache_dtype) if monolith else 1
+    cache_len = _round_up(min(initial_segment, max_len), tt)
+    layout = "te" if monolith else "hd"
+    mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
+                               compute_dtype, cache_dtype, layout=layout)
+
+    def init_state(devs):
+        return init_beam_state(cfg, local_b, k, max_len, cache_len,
+                               cache_dtype, devs[0], monolith,
+                               devs if tp > 1 else None)
+
+    shards = _make_shards(params, cfg, mesh, n_dev, tp, mem, layout,
+                          monolith, compute_dtype, cache_dtype, local_b,
+                          init_state, tp_params, model_axis)
+    for sh in shards:
+        sh.beam_consts = _beam_consts(cfg, local_b, k, sh.state.seqs.device)
+
+    def step(sh):
+        return _beam_step(sh.params, cfg, sh.mono, sh.state, sh.mem,
+                          compute_dtype, pe_offset, sh.beam_consts, sh.group)
+
+    _mesh_loop(shards, segment_steps or max_len, max_len, tt, step)
+    dev = shards[0].state.seqs.device
+    cat = lambda xs: torch.cat([x.to(dev) for x in xs])
+    out, _ = _select_best_beam(cat([sh.state.seqs for sh in shards]),
+                               cat([sh.state.log_probs for sh in shards]),
+                               cat([sh.state.scores for sh in shards]), cfg,
+                               length_penalty)
+    return out

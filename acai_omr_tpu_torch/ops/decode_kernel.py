@@ -41,6 +41,14 @@ the JAX package reads them: ``ACAI_W8A8_DECODE`` (default on;
 :func:`set_w8a8`) and ``ACAI_W4A8_DECODE`` (default off; :func:`set_w4a8`),
 resolved by :func:`weight_quant_mode`. With both off, int8 caches run K6
 with compute-dtype weights (K1).
+
+Tensor parallelism (``decode_layers(..., tp_group=)``, the JAX kernel's
+``tp`` mode): every rank runs the layer over its heads and MLP columns, its
+three row-parallel products stop at fp32 partials, and K15 ``tp_allreduce``
+(:mod:`.tp_allreduce_kernel`) sums them across the ranks before the
+residual LayerNorm: ``tp * 11 + 3`` wrapper calls a layer. Its weights stay
+in the compute dtype unless ``ACAI_TP_W8A8`` (:func:`set_tp_w8a8`) opts into
+per-shard W8A8; W4A8 never runs there.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from .linear_kernel import linear_bias_act
 from .quant_linear_kernel import (INT4_QMAX, INT8_QMAX, pack_k4, pack_k8_int4,
                                   quant4_linear_bias_act,
                                   quant_linear_bias_act)
+from .tp_allreduce_kernel import tp_allreduce
 
 Params = dict
 
@@ -67,6 +76,7 @@ _MATS = ("w_qkv", "w_self_out", "w_cross_q", "w_cross_out", "w_ff1", "w_ff2")
 _ENABLED = os.environ.get("ACAI_MONOLITH_DECODE", "1") == "1"
 _W8A8 = os.environ.get("ACAI_W8A8_DECODE", "1") == "1"
 _W4A8 = os.environ.get("ACAI_W4A8_DECODE", "0") == "1"
+_TP_W8A8 = os.environ.get("ACAI_TP_W8A8", "0") == "1"
 
 
 def set_enabled(flag: bool) -> None:
@@ -84,14 +94,31 @@ def set_w4a8(flag: bool) -> None:
     _W4A8 = flag
 
 
-def weight_quant_mode(cache_dtype):
+def set_tp_w8a8(flag: bool) -> None:
+    global _TP_W8A8
+    _TP_W8A8 = flag
+
+
+def want_tp_w8a8() -> bool:
+    """Whether tensor-parallel shards run W8A8 (``ACAI_TP_W8A8=1``, default
+    off). Per-shard weight scales and per-row activation maxes over the
+    shard's half of the contraction axis make it another quantization than
+    the single-device W8A8, so it is an opt-in, as in the JAX package."""
+    return _TP_W8A8
+
+
+def weight_quant_mode(cache_dtype, tp_mono: bool = False):
     """The weights of the monolith step under ``cache_dtype``: ``"int4"``
     (W4A8, ``ACAI_W4A8_DECODE``), ``"int8"`` (W8A8, ``ACAI_W8A8_DECODE``) or
     False (compute dtype). Only int8 caches quantize the weights, and W4A8
-    wins over W8A8, as the JAX package's single-device
-    ``weight_quant_mode``."""
+    wins over W8A8, as the JAX package's ``weight_quant_mode``. Under tensor
+    parallelism (``tp_mono``) the weights stay in the compute dtype unless
+    both ``ACAI_W8A8_DECODE`` and ``ACAI_TP_W8A8`` are on; W4A8 never runs
+    there."""
     if cache_dtype != torch.int8:
         return False
+    if tp_mono:
+        return "int8" if (_W8A8 and want_tp_w8a8()) else False
     if _W4A8:
         return "int4"
     return "int8" if _W8A8 else False
@@ -360,14 +387,20 @@ def prepack(params: Params, compute_dtype=torch.bfloat16,
     ``quantize_weights="int4"`` (W4A8): the same with max-abs / 7 scales and
     values clipped to [-7, 7], held as (L, IN/8, OUT) int32 words
     (:func:`..quant_linear_kernel.pack_k8_int4`); the int32 dtype is what
-    tells :func:`decode_layers` to take K14."""
+    tells :func:`decode_layers` to take K14.
+
+    A tensor-parallel shard's params (:mod:`..parallel.sharding`) pack the
+    same way at the shard's widths; int8 column scales then span the shard's
+    rows of the row-parallel matrices only."""
     if quantize_weights not in (False, True, "int8", "int4"):
         raise ValueError(f"unsupported weight mode {quantize_weights!r}")
     qmax, pack = (INT4_QMAX, pack_k8_int4) if quantize_weights == "int4" \
         else (INT8_QMAX, pack_k4)
     blocks = params["blocks"]
-    e = blocks["self_attn"]["out"]["kernel"].shape[-1]
     sa, ca = blocks["self_attn"], blocks["cross_attn"]
+    # the attention width: E, or a tensor-parallel shard's E / tp (its q
+    # columns lead its [q_i|k_i|v_i] block)
+    e = sa["in_kernel"].shape[-1] // 3
     vec = lambda a: a.to(compute_dtype).float().contiguous()
     mats = dict(zip(_MATS, (
         sa["in_kernel"], sa["out"]["kernel"], ca["in_kernel"][:, :, :e],
@@ -396,34 +429,17 @@ def prepack(params: Params, compute_dtype=torch.bfloat16,
     return out
 
 
-def decode_layers(mono: Params, x: torch.Tensor, pos: int,
-                  k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  mem_k: torch.Tensor, mem_v: torch.Tensor,
-                  mem_bias: torch.Tensor, num_heads: int,
-                  plain: bool = False, k_scale: torch.Tensor | None = None,
-                  v_scale: torch.Tensor | None = None,
-                  mem_k_scale: torch.Tensor | None = None,
-                  mem_v_scale: torch.Tensor | None = None,
-                  mem_group: int = 1) -> torch.Tensor:
-    """One token through every decoder layer.
-
-    x: (B, E) embedded token in the compute dtype; k_cache/v_cache:
-    (L, B, T, E), appended in place at ``pos``; mem_k/mem_v: (L, B/G, M, E);
-    mem_bias: (B/G, M) fp32 additive padding bias. With int8 caches pass the
-    bf16 scales k_scale/v_scale (L, B, T, H), appended in place too, and
-    mem_k_scale/mem_v_scale (L, B/G, M, H). ``mono`` from :func:`prepack`
-    decides the products: int8 weights run W8A8 (K5), int4 weights W4A8
-    (K14); both need int8 caches, as in the JAX package. Returns (B, E).
-
-    On CUDA tensors every op is a kernel launch (K1, K5 or K14, K2 or K6,
-    K4); on CPU tensors the plain twins run. ``plain=True`` runs the plain
-    twins on any device.
-    """
-    quantized = k_scale is not None
+def _step_ops(mono: Params, x: torch.Tensor, k_cache: torch.Tensor,
+              mem_k: torch.Tensor, num_heads: int, quantized: bool,
+              mem_group: int, plain: bool):
+    """Checks one device's (or one rank's) operands and picks the step's
+    ops: (product, attention, add-LayerNorm, whether the weights are
+    quantized)."""
     w_quant = "s_qkv" in mono
     if w_quant and not quantized:
         raise ValueError("W8A8 / W4A8 weights need int8 caches")
-    b, e = x.shape
+    b = x.shape[0]
+    e = k_cache.shape[-1]
     if mem_k.shape[1] * mem_group != b:
         raise ValueError(f"mem rows {mem_k.shape[1]} x group {mem_group} "
                          f"!= batch {b}")
@@ -444,25 +460,96 @@ def decode_layers(mono: Params, x: torch.Tensor, pos: int,
     ln = add_layernorm
     if plain:
         lin, attn, ln = lin.plain, attn.plain, ln.plain
-    p = mono
+    return lin, attn, ln, w_quant
 
-    def mat(xv, i, name, act="none"):
+
+def decode_layers(mono, x, pos: int, k_cache, v_cache, mem_k, mem_v,
+                  mem_bias, num_heads: int, plain: bool = False,
+                  k_scale=None, v_scale=None, mem_k_scale=None,
+                  mem_v_scale=None, mem_group: int = 1, tp_group=None):
+    """One token through every decoder layer.
+
+    x: (B, E) embedded token in the compute dtype; k_cache/v_cache:
+    (L, B, T, E), appended in place at ``pos``; mem_k/mem_v: (L, B/G, M, E);
+    mem_bias: (B/G, M) fp32 additive padding bias. With int8 caches pass the
+    bf16 scales k_scale/v_scale (L, B, T, H), appended in place too, and
+    mem_k_scale/mem_v_scale (L, B/G, M, H). ``mono`` from :func:`prepack`
+    decides the products: int8 weights run W8A8 (K5), int4 weights W4A8
+    (K14); both need int8 caches, as in the JAX package. Returns (B, E).
+
+    ``tp_group`` (a :class:`..tp_allreduce_kernel.TPGroup`): the
+    tensor-parallel step of the JAX kernel's ``tp`` mode. Every operand but
+    ``pos`` is then a sequence with one entry per rank, on that rank's device:
+    the rank's :func:`prepack` of its shard, its copy of x, its caches and
+    memory over its ``num_heads`` heads (E / tp wide). Each rank runs its
+    layer; the three row-parallel products (self out, cross out, ff2) stop
+    at fp32 partials without bias (K1 / K5 ``"partial"``), and K15
+    ``tp_allreduce`` sums them, adds the bias and rounds to the compute dtype
+    for every rank before K4. Returns one (B, E) x per rank, equal in every
+    bit.
+
+    On CUDA tensors every op is a kernel launch (K1, K5 or K14, K2 or K6,
+    K4, K15); on CPU tensors the plain twins run. ``plain=True`` runs the
+    plain twins on any device.
+    """
+    tp = 1 if tp_group is None else tp_group.tp
+
+    def ranks(a):  # one entry per rank
+        if tp_group is None:
+            return [a]
+        return [None] * tp if a is None else list(a)
+
+    monos, xs, kcs, vcs = ranks(mono), ranks(x), ranks(k_cache), \
+        ranks(v_cache)
+    mks, mvs, mbs = ranks(mem_k), ranks(mem_v), ranks(mem_bias)
+    kss, vss, mkss, mvss = ranks(k_scale), ranks(v_scale), \
+        ranks(mem_k_scale), ranks(mem_v_scale)
+    quantized = kss[0] is not None
+    # every rank's operands are checked; the ranks share one set of ops
+    lin, attn, ln, w_quant = [
+        _step_ops(monos[r], xs[r], kcs[r], mks[r], num_heads, quantized,
+                  mem_group, plain) for r in range(tp)][0]
+    reduce = tp_allreduce.plain if plain else tp_allreduce
+
+    def mat(r, xv, i, name, act="none"):
+        p = monos[r]
         w = (p["w_" + name][i],)
         if w_quant:
             w += (p["s_" + name][i],)
-        return lin(xv, *w, p["b_" + name][i], act)
+        return lin(xv, *w, None if act == "partial" else p["b_" + name][i],
+                   act)
 
-    for i in range(k_cache.shape[0]):
-        self_kv = (k_cache[i], v_cache[i])
-        mem_kv = (mem_k[i], mem_v[i])
-        if quantized:
-            self_kv += (k_scale[i], v_scale[i])
-            mem_kv += (mem_k_scale[i], mem_v_scale[i])
-        a = attn(mat(x, i, "qkv"), *self_kv, num_heads, pos=pos)
-        x = ln(x, mat(a, i, "self_out"), p["ln1_g"][i], p["ln1_b"][i], 1e-5)
-        c = attn(mat(x, i, "cross_q"), *mem_kv, num_heads, bias=mem_bias,
-                 mem_group=mem_group)
-        x = ln(x, mat(c, i, "cross_out"), p["ln2_g"][i], p["ln2_b"][i], 1e-5)
-        f = mat(x, i, "ff1", "gelu_rounded")
-        x = ln(x, mat(f, i, "ff2"), p["ln3_g"][i], p["ln3_b"][i], 1e-5)
-    return x
+    def row_parallel(parts, i, name):
+        """The summed output of a row-parallel product (+ bias, rounded)."""
+        if tp == 1:
+            return [parts[0]]
+        return reduce(parts, tp_group, [p["b_" + name][i] for p in monos],
+                      xs[0].dtype)
+
+    def residual_ln(ys, i, k):
+        return [ln(xs[r], ys[r], monos[r][f"ln{k}_g"][i],
+                   monos[r][f"ln{k}_b"][i], 1e-5) for r in range(tp)]
+
+    out_act = "none" if tp == 1 else "partial"
+    for i in range(kcs[0].shape[0]):
+        parts = []
+        for r in range(tp):
+            self_kv = (kcs[r][i], vcs[r][i])
+            if quantized:
+                self_kv += (kss[r][i], vss[r][i])
+            a = attn(mat(r, xs[r], i, "qkv"), *self_kv, num_heads, pos=pos)
+            parts.append(mat(r, a, i, "self_out", out_act))
+        xs = residual_ln(row_parallel(parts, i, "self_out"), i, 1)
+        parts = []
+        for r in range(tp):
+            mem_kv = (mks[r][i], mvs[r][i])
+            if quantized:
+                mem_kv += (mkss[r][i], mvss[r][i])
+            c = attn(mat(r, xs[r], i, "cross_q"), *mem_kv, num_heads,
+                     bias=mbs[r], mem_group=mem_group)
+            parts.append(mat(r, c, i, "cross_out", out_act))
+        xs = residual_ln(row_parallel(parts, i, "cross_out"), i, 2)
+        parts = [mat(r, mat(r, xs[r], i, "ff1", "gelu_rounded"), i, "ff2",
+                     out_act) for r in range(tp)]
+        xs = residual_ln(row_parallel(parts, i, "ff2"), i, 3)
+    return xs if tp_group is not None else xs[0]

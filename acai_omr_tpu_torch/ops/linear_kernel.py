@@ -15,7 +15,7 @@ import torch
 from . import _build
 from . import dropout_kernel as dk
 
-ACTS = {"none": 0, "gelu": 1, "gelu_rounded": 2}
+ACTS = {"none": 0, "gelu": 1, "gelu_rounded": 2, "partial": 3}
 _BM, _BN, _BK = 64, 64, 32
 _TARGET_BLOCKS = 2 * 132  # two waves of blocks on an H100's 132 SMs
 
@@ -39,8 +39,12 @@ def linear_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ``gelu_rounded`` rounds the sum to x's dtype first (the decode monolith).
     ``drop`` applies K10's mask to the rounded output. ``save_gelu_grad``
     (with ``gelu``) also returns GELU'(u) of the same fp32 sum, rounded: the
-    pair (h1, gelu') the training forward saves.
+    pair (h1, gelu') the training forward saves. ``partial`` returns the bare
+    fp32 product, without the bias (``b`` may be None): a rank's share of a
+    tensor-parallel row-parallel product, summed by K15 ``tp_allreduce``.
     """
+    if act == "partial":
+        return torch.matmul(x.float(), w.float())
     u = torch.matmul(x.float(), w.float()) + b.float()
     gp = None
     if act == "gelu":
@@ -69,34 +73,43 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
 
 
 def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False):
+    partial = act == "partial"
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(w, "w", torch.bfloat16, 2)
-    _build.require(b, "b", torch.float32, 1)
+    if not (partial and b is None):
+        _build.require(b, "b", torch.float32, 1)
     m, k = x.shape
     n = w.shape[1]
-    if w.shape[0] != k or b.shape[0] != n:
+    if w.shape[0] != k or (b is not None and b.shape[0] != n):
         raise ValueError(f"shape mismatch x{tuple(x.shape)} w{tuple(w.shape)} "
-                         f"b{tuple(b.shape)}")
+                         f"b{None if b is None else tuple(b.shape)}")
     if k % _BK or n % _BN:
         raise ValueError(f"linear_bias_act needs K % {_BK} == 0 and "
                          f"N % {_BN} == 0, got K={k}, N={n}")
-    if x.device != w.device or x.device != b.device:
+    if x.device != w.device or (b is not None and x.device != b.device):
         raise ValueError("x, w and b must be on one device")
     if save_gelu_grad and act != "gelu":
         raise ValueError("save_gelu_grad needs act='gelu'")
+    if partial and drop is not None:
+        raise ValueError("the partial product takes no dropout")
     k_chunk, splits = split_plan(m, n, k)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32 if partial
+                      else torch.bfloat16, device=x.device)
     gp = torch.empty_like(out) if save_gelu_grad else None
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     fn = _build.bind("linear_bias_act", "acai_linear_bias_act",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                      + dk.C_ARGTYPES + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+    rc = fn(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(),
             None if gp is None else gp.data_ptr(),
             None if part is None else part.data_ptr(), m, n, k, k_chunk,
             splits, ACTS[act], *dk.c_args(drop), _build.stream_ptr())
-    op.launches += 1
+    if partial:  # counted apart too: the tensor-parallel step's partials
+        op.launched("partial")
+    else:
+        op.launches += 1
     op.extra_launches += part is not None  # the split-K reduce kernel
     _build.check(rc, op.name)
     return (out, gp) if save_gelu_grad else out

@@ -5,6 +5,9 @@ act(((int8(x) @ w8) * row_scale) * col_scale + b): each activation row is
 quantized over its whole contraction axis (max-abs, fp32 scale, round half to
 even), multiplied with the integer weights in exact int32 arithmetic, and
 dequantized by the row scale, then by the weights' per-output-column scale.
+``act="partial"`` returns the dequantized fp32 product without the bias: a
+rank's share of a tensor-parallel row-parallel product (W8A8 under
+``ACAI_TP_W8A8``), summed by K15 ``tp_allreduce``.
 
 CUDA source: ``csrc/quant_linear.cu`` (bound, design and the TPU kernels they
 replace are noted there). The weights are held K-packed so that one 32-bit
@@ -107,6 +110,8 @@ def quant4_linear_bias_act_plain(x: torch.Tensor, wp: torch.Tensor,
 def _qdot_bias_act(x, w8, s_col, b, act):
     x8, rs = quantize_activation_rows(x)
     acc = torch.matmul(x8.double(), w8.double()).float()
+    if act == "partial":  # a rank's fp32 share of a row-parallel product
+        return (acc * rs) * s_col.float()
     u = (acc * rs) * s_col.float() + b.float()
     if act == "gelu":
         u = _gelu32(u)
@@ -131,23 +136,27 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
 def _launch_q(op, entry, x, w, packed_shape, s_col, b, act):
     """Checks, scratch and launch shared by K5 and K14 (``entry`` is the C
     function; ``packed_shape(k, n)`` the weight tensor's shape)."""
+    partial = act == "partial"
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(s_col, "s_col", torch.float32, 1)
-    _build.require(b, "b", torch.float32, 1)
+    if not (partial and b is None):
+        _build.require(b, "b", torch.float32, 1)
     m, k = x.shape
     n = w.shape[1]
     if w.shape != packed_shape(k, n) or s_col.shape[0] != n \
-            or b.shape[0] != n:
+            or (b is not None and b.shape[0] != n):
         raise ValueError(f"shape mismatch x{tuple(x.shape)} "
                          f"w{tuple(w.shape)} s{tuple(s_col.shape)} "
-                         f"b{tuple(b.shape)}")
+                         f"b{None if b is None else tuple(b.shape)}")
     if k % _KSTAGE or n % _BN:
         raise ValueError(f"{op.name} needs K % {_KSTAGE} == 0 and "
                          f"N % {_BN} == 0, got K={k}, N={n}")
-    if not (x.device == w.device == s_col.device == b.device):
+    if not (x.device == w.device == s_col.device
+            and (b is None or b.device == x.device)):
         raise ValueError("x, w, s_col and b must be on one device")
     k_chunk, splits = split_plan(m, n, k)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32 if partial
+                      else torch.bfloat16, device=x.device)
     # one scratch allocation (each costs the host microseconds): the int8
     # rows (M, K), their fp32 scales (M,), the int32 split-K partials
     rs_at = -(-m * k // 16) * 16
@@ -158,11 +167,15 @@ def _launch_q(op, entry, x, w, packed_shape, s_col, b, act):
     fn = _build.bind("quant_linear", entry,
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                      + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w.data_ptr(), s_col.data_ptr(), b.data_ptr(),
+    rc = fn(x.data_ptr(), w.data_ptr(), s_col.data_ptr(),
+            None if b is None else b.data_ptr(),
             out.data_ptr(), base, base + rs_at,
             base + part_at if splits > 1 else 0, m, n, k, k_chunk, splits,
             ACTS[act], _build.stream_ptr())
-    op.launches += 1
+    if partial:  # counted apart too: the tensor-parallel step's partials
+        op.launched("partial")
+    else:
+        op.launches += 1
     # the row quantizer runs first; split-K adds the reduce + epilogue
     op.extra_launches += 1 + (splits > 1)
     _build.check(rc, op.name)

@@ -13,7 +13,10 @@ Phases, all in one process; any failure exits non-zero:
    decode_attention_int8 in self, cross and grouped
    cross mode; the per-op step's K11 decode_attention_hd self and cross, K12
    decode_attention_hd_int8 per layer and stacked, K13
-   self_attention_append_int8 at pos 300 and 0) against its plain PyTorch
+   self_attention_append_int8 at pos 300 and 0; K15 tp_allreduce at tp = 2
+   and 4, B = 32 and 128, E = 1024, bf16 and fp32 out, bit for bit, then
+   1,000 back-to-back calls with fresh inputs, every one bit-equal to its
+   twin) against its plain PyTorch
    twin at the flagship shapes the paths give it, and time kernel, twin, a
    PyTorch library call computing the same function where there is one, the
    card's bound, and the host time of one wrapper call (the decode step is
@@ -45,7 +48,18 @@ Phases, all in one process; any failure exits non-zero:
    plain path on the card: encoder output, and 64 greedy decode steps at B=8
    with bf16 caches, int8 caches and int8 caches with W4A8 weights (the
    plain path is fed the kernel path's tokens, so the logits stay
-   comparable step by step);
+   comparable step by step); then the meshed decode through
+   ``batch_inference(mesh=make_mesh(n_data, n_model, ["cuda:0"] * n),
+   model_axis="model")``, every shard on this card and K15 summing the
+   model ranks: ``tp2_bf16`` and ``tp4_bf16`` (8 images, max_len 512),
+   ``tp2_int8`` (int8 caches, K5 may not launch) and ``tp2_int8_w8a8``
+   (``ACAI_TP_W8A8``: K5 partials), ``tp2_beam`` (4 images, 4 beams, 256),
+   ``dp2_tp2`` (a 2 x 2 mesh with ``progress_cb`` events) and ``tp2_per_op``
+   (``ACAI_MONOLITH_DECODE`` off, K11 on); per path ms per step, wrapper
+   calls and device kernels per step held against the layer arithmetic,
+   K15 launches, the share of tokens equal to the unsharded path of the
+   same mode and the first step's largest |logit difference| against the
+   unsharded step;
 4. the path ``train_tf``: ``omr_teacher_force_train`` on the card with the
    flagship configuration, bf16 over fp32 masters, dropout on, a seeded
    synthetic dataset (images of 512-1,024 patches, token sequences that pad
@@ -102,12 +116,18 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_INT8_OP_PER_S = 1979e12
+PEAK_FP32_FLOP_PER_S = 67e12  # outside the tensor cores
 
 SEED = 0
 N_IMAGES = 8
 MAX_LEN = 512
 BEAM_IMAGES, BEAM_SIZE, BEAM_MAX_LEN = 4, 4, 256
 CMP_STEPS = 64
+# the kernel path against the plain path (compare_paths, and each meshed
+# path's step): the largest |logit difference| and the greedy token
+# agreement; the meshed step's first logits against the unsharded step's
+CMP_LOGIT_TOL, CMP_AGREEMENT = 0.25, 0.9
+TP_CMP_STEPS = 16
 _ENC = ["linear_bias_act", "encoder_attention", "add_layernorm"]
 # the kernels each main path must have launched
 EXPECTED_KERNELS = {
@@ -130,7 +150,32 @@ EXPECTED_KERNELS = {
     # the batched requests (W4A8) and the unbatched one (bf16 caches)
     "serve_wsgi": _ENC + ["quant4_linear_bias_act", "decode_attention_int8",
                           "decode_attention"],
+    # the meshed decode: every shard on cuda:0, K15 between the model ranks
+    "tp2_bf16": _ENC + ["decode_attention", "tp_allreduce"],
+    "tp4_bf16": _ENC + ["decode_attention", "tp_allreduce"],
+    "tp2_int8": _ENC + ["decode_attention_int8", "tp_allreduce"],
+    "tp2_int8_w8a8": _ENC + ["quant_linear_bias_act", "decode_attention_int8",
+                             "tp_allreduce"],
+    "tp2_beam": _ENC + ["decode_attention", "tp_allreduce"],
+    "dp2_tp2": _ENC + ["decode_attention", "tp_allreduce"],
+    "tp2_per_op": _ENC + ["decode_attention_hd", "tp_allreduce"],
 }
+# the meshed paths: (data, model) mesh, images, max_len, batch_inference
+# keywords, the unsharded path their tokens are held against
+TP_PATHS = {
+    "tp2_bf16": ((1, 2), N_IMAGES, MAX_LEN, {}, "greedy_bf16"),
+    "tp4_bf16": ((1, 4), N_IMAGES, MAX_LEN, {}, "greedy_bf16"),
+    "tp2_int8": ((1, 2), N_IMAGES, MAX_LEN, {"cache_dtype": "int8"},
+                 "int8_bf16w"),
+    "tp2_int8_w8a8": ((1, 2), N_IMAGES, MAX_LEN, {"cache_dtype": "int8"},
+                      "int8"),
+    "tp2_beam": ((1, 2), BEAM_IMAGES, BEAM_MAX_LEN,
+                 {"beam_size": BEAM_SIZE}, "beam_bf16"),
+    "dp2_tp2": ((2, 2), N_IMAGES, MAX_LEN, {}, "greedy_bf16"),
+    "tp2_per_op": ((1, 2), N_IMAGES, MAX_LEN, {}, "decode_hd_bf16"),
+}
+# K15 against its twin: 1,000 calls with fresh inputs, every one bit-equal
+RACE_CALLS = 1000
 # kernels of the monolith step, which the per-op paths must not launch
 MONOLITH_STEP = ["decode_attention", "decode_attention_int8",
                  "quant_linear_bias_act", "quant4_linear_bias_act"]
@@ -232,12 +277,15 @@ def host_us(torch, fn, calls: int = 200) -> float:
 @contextlib.contextmanager
 def counted_steps(decode_lib):
     """Counts the decode steps taken inside the block: every step of either
-    decode step is one call of ``decode.step_logits``."""
-    box = {"n": 0}
+    decode step is one call of ``decode.step_logits`` (one data shard's step
+    on a mesh); ``rows`` lists each step's rows."""
+    box = {"n": 0, "rows": []}
     inner = decode_lib.step_logits
 
     def step(*args, **kwargs):
         box["n"] += 1
+        seqs = args[3].seqs
+        box["rows"].append(seqs.reshape(-1, seqs.shape[-1]).shape[0])
         return inner(*args, **kwargs)
 
     decode_lib.step_logits = step
@@ -287,8 +335,8 @@ def check_kernels(torch, F, dev):
         serving paths when None). ``variant``: the compiled variant or plan
         of the kernel this case launches (``KernelOp.variants``), where only
         that variant's launches count for it. ``exact``: for the int8 cases, whether the caches and
-        scales after the kernel equal the twin's bit for bit (for K10 and
-        K14: the whole output; for K8 and K9 wgrad: the fp32 column sums within
+        scales after the kernel equal the twin's bit for bit (for K10, K14
+        and K15: the whole output, every rank's for K15; for K8 and K9 wgrad: the fp32 column sums within
         1e-3 of their largest value; for K7: dq, dk and dv each within 2e-2
         of its own largest value)."""
         t_k, t_host = t_k  # device ms and host us of one wrapper call
@@ -331,6 +379,41 @@ def check_kernels(torch, F, dev):
                time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
                time_ms(torch, lib), 2 * (m * k + k * n + m * n) + 4 * n,
                2 * m * n * k)
+
+    # K1 at the meshed decode's shard shapes: the column-parallel qkv and ff1
+    # of a tp = 2 rank, and the row-parallel partials (fp32, no bias) of the
+    # self / cross out (K = E / tp) and ff2 (K = F / tp) products at the rows
+    # the meshed paths give them: 8 (tp = 2 / 4), 4 (a dp2_tp2 shard), 16
+    # (tp2_beam). A partial is held to 1e-3 of its largest value, far below
+    # a bf16 ulp: a bias added, a row or column missed would show. Library
+    # call: torch.mm, bf16 out. Only partial launches count for those cases
+    for m, k, n, act in [(8, 1024, 1536, "none"),
+                         (8, 1024, 2048, "gelu_rounded"),
+                         (8, 512, 1024, "partial"), (8, 2048, 1024, "partial"),
+                         (8, 256, 1024, "partial"), (8, 1024, 1024, "partial"),
+                         (4, 512, 1024, "partial"), (16, 2048, 1024, "partial")]:
+        x = randn(m, k)
+        w = (randn(k, n, dtype=torch.float32) / math.sqrt(k)).to(bf)
+        partial = act == "partial"
+        b = None if partial else randn(n, dtype=torch.float32) * 0.1
+        out_k = linear_bias_act(x, w, b, act)
+        out_p = linear_bias_act.plain(x, w, b, act)
+        if partial:
+            assert out_k.dtype == torch.float32, "K1 partial is fp32"
+            lib = lambda: torch.mm(x, w)
+        else:
+            b16 = b.to(bf)
+            lib = (lambda: torch.addmm(b16, x, w)) if act == "none" else \
+                (lambda: F.gelu(torch.addmm(b16, x, w)))
+        tol = (1e-3 if partial else 1e-2) \
+            * max(1.0, out_p.float().abs().max().item())
+        record(linear_bias_act, f"{m}x{k}->{n},{act} (shard)", out_k, out_p,
+               tol, kernel_times(lambda: linear_bias_act(x, w, b, act)),
+               time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
+               time_ms(torch, lib),
+               2 * (m * k + k * n) + (4 if partial else 2) * m * n
+               + (0 if partial else 4 * n), 2 * m * n * k,
+               paths=list(TP_PATHS), variant="partial" if partial else None)
 
     # K2 self: B=32, T=512, pos=300, E=1024, H=16
     bsz, t, pos, e, h = 32, 512, 300, 1024, 16
@@ -432,6 +515,39 @@ def check_kernels(torch, F, dev):
                time_ms(torch, lambda: torch._int_mm(x8, w8)),
                k * n + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
                peak=PEAK_INT8_OP_PER_S)
+
+    # K5 on tp2_int8_w8a8 (ACAI_TP_W8A8): a tp = 2 rank's column-parallel
+    # qkv / ff1 and its row-parallel partials (fp32, no bias; rows quantized
+    # over the rank's half of the contraction axis) at 8 rows. The integer
+    # product is exact and the epilogue multiplies in the twin's order, so a
+    # partial is held to 1e-5 of its largest value. No library call:
+    # torch._int_mm takes more than 16 rows
+    for m, k, n, act in [(8, 1024, 1536, "none"),
+                         (8, 1024, 2048, "gelu_rounded"),
+                         (8, 512, 1024, "partial"),
+                         (8, 2048, 1024, "partial")]:
+        partial = act == "partial"
+        x = randn(m, k)
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        s_col = (torch.rand(n, generator=g, device=dev) * 4e-4 + 1e-4) \
+            .to(bf).float()
+        b = None if partial else randn(n, dtype=torch.float32) * 0.1
+        w4 = pack_k4(w8)
+        out_k = quant_linear_bias_act(x, w4, s_col, b, act)
+        out_p = quant_linear_bias_act.plain(x, w4, s_col, b, act)
+        tol = (1e-5 if partial else TWO_BF16_ULPS) \
+            * max(1.0, out_p.float().abs().max().item())
+        record(quant_linear_bias_act, f"{m}x{k}->{n},{act} (shard)",
+               out_k, out_p, tol,
+               kernel_times(lambda: quant_linear_bias_act(x, w4, s_col, b,
+                                                            act)),
+               time_ms(torch, lambda: quant_linear_bias_act.plain(
+                   x, w4, s_col, b, act)), None,
+               k * n + 2 * m * k + (4 if partial else 2) * m * n
+               + (4 if partial else 8) * n, 2 * m * n * k,
+               peak=PEAK_INT8_OP_PER_S, paths=["tp2_int8_w8a8"],
+               variant="partial" if partial else None)
 
     # K14: the W4A8 decode products at the same shapes, equal to the twin bit
     # for bit. Bound: the packed int4 weight bytes (half of K5's) with the
@@ -541,7 +657,67 @@ def check_kernels(torch, F, dev):
                2 * 3 * rows * e + 8 * e, 8 * rows * e)
     decode_hd_cases(torch, F, randn, record, kernel_times, dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
-    return cases
+    race_bad = tp_allreduce_cases(torch, randn, record, kernel_times, dev)
+    return cases, race_bad
+
+
+def tp_allreduce_cases(torch, randn, record, kernel_times, dev):
+    """K15 against its twin at the meshed decode's shapes, E = 1024, every
+    rank of the group on this card: the monolith step's mode (fp32 partials,
+    the fp32 bias after the sum) at tp = 2 and 4 with B = 32 and 128 (greedy
+    and beams of 4 x 32 rows), out bf16 and fp32, and at the rows the meshed
+    paths give it, out bf16: B = 8 (tp2 / tp4), 4 (a dp2_tp2 shard), 16
+    (tp2_beam); the per-op step's mode (bf16 partials, the running sum
+    rounded after every round, no bias) at B = 8, tp = 2 and 4. Every case is
+    equal to the twin in every bit on every rank. Then RACE_CALLS
+    back-to-back calls with fresh inputs over the same exchange buffers
+    (tp = 2 and 4 in turns, both modes), every one bit-equal to the twin: a
+    stale slot or flag would show here. Bound: the partials read once, the
+    outputs written once, the bias read once per rank. Library call:
+    ``torch.stack(parts).sum(0)``, one rank's sum without the bias."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
+                                                            tp_allreduce)
+    f32, bf, e = torch.float32, torch.bfloat16, 1024
+    groups = {tp: TPGroup([dev] * tp) for tp in (2, 4)}
+    shapes = [(tp, b, f32, out) for tp in (2, 4) for b in (32, 128)
+              for out in (bf, f32)]
+    shapes += [(2, 8, f32, bf), (4, 8, f32, bf), (2, 4, f32, bf),
+               (2, 16, f32, bf), (2, 8, bf, bf), (4, 8, bf, bf)]
+    for tp, b, in_dtype, out_dtype in shapes:
+        parts = [randn(b, e, dtype=in_dtype) for _ in range(tp)]
+        bias = [randn(e, dtype=f32) * 0.1] * tp if in_dtype == f32 else None
+        call = lambda: tp_allreduce(parts, groups[tp], bias, out_dtype)
+        twin = lambda: tp_allreduce.plain(parts, groups[tp], bias, out_dtype)
+        got, want = call(), twin()
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        name = lambda d: str(d).split(".")[-1]
+        record(tp_allreduce, f"tp={tp} B={b} E={e} {name(in_dtype)}->"
+               f"{name(out_dtype)}", torch.cat(got), torch.cat(want), 0.0,
+               kernel_times(call), time_ms(torch, twin),
+               time_ms(torch, lambda: torch.stack(parts).sum(0)),
+               tp * b * e * (in_dtype.itemsize + out_dtype.itemsize)
+               + (tp * e * 4 if bias else 0),
+               tp * tp.bit_length() * b * e,  # rounds' adds + bias
+               peak=PEAK_FP32_FLOP_PER_S, paths=list(TP_PATHS), exact=exact)
+    # the race check: many calls queued at once, compared after
+    calls = []
+    for i in range(RACE_CALLS):
+        tp = 2 if i % 2 else 4
+        dt = torch.bfloat16 if i % 3 == 0 else f32
+        parts = [randn((4, 8, 16, 32, 128)[i % 5], e, dtype=dt)
+                 for _ in range(tp)]
+        bias = None if dt == torch.bfloat16 else \
+            [randn(e, dtype=f32) * 0.1] * tp
+        calls.append((parts, tp, bias,
+                      tp_allreduce(parts, groups[tp], bias, torch.bfloat16)))
+    torch.cuda.synchronize()
+    bad = sum(not all(torch.equal(g, w) for g, w in zip(
+        got, tp_allreduce.plain(parts, groups[tp], bias, torch.bfloat16)))
+        for parts, tp, bias, got in calls)
+    print(f"[kernel] tp_allreduce race check: {RACE_CALLS} back-to-back "
+          f"calls, {bad} differ from the twin "
+          + ("ok" if bad == 0 else "FAIL"), flush=True)
+    return bad
 
 
 def decode_hd_cases(torch, F, randn, record, kernel_times, dev):
@@ -1091,8 +1267,8 @@ def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
     turns = []
     try:
         hd.set_enabled(True)
-        res = transcribe_path("decode_hd_bf16", imgs, count_steps=True,
-                              max_len=MAX_LEN)
+        res = hd_bf16 = transcribe_path("decode_hd_bf16", imgs,
+                                        count_steps=True, max_len=MAX_LEN)
         paths["decode_hd_bf16"]["token_share"] = token_share(res, greedy)
         print(f"[path decode_hd_bf16] share of each image's tokens equal to "
               f"greedy_bf16's {paths['decode_hd_bf16']['token_share']}",
@@ -1125,7 +1301,224 @@ def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
         hd.set_enabled_int8(before[2])
     print(f"[per-op bf16 step, K11 off / on in turns] {json.dumps(turns)}",
           flush=True)
-    return turns
+    return turns, hd_bf16
+
+
+def expected_tp_step(dcfg, tp: int, rows: int, kind: str) -> tuple:
+    """(wrapper calls, device kernels) of one data shard's decode step over
+    ``tp`` model ranks at ``rows`` rows, from the layer arithmetic. The
+    monolith step (``kind`` "bf16" / "int8": K1 products, "w8a8": K5): per
+    layer and rank six products (three of them fp32 partials), two
+    attentions, three K4; per layer three K15 launches (one per row-parallel
+    site, every rank of this card in it). A product is one device kernel
+    more where its split-K plan splits (K1's reduce), K5 two more (its row
+    quantizer) or three. The per-op step: K15 three times a layer, K11
+    twice a layer and rank where it is on; the rest is PyTorch."""
+    from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
+    from acai_omr_tpu_torch.ops.linear_kernel import split_plan as k1_plan
+    from acai_omr_tpu_torch.ops.quant_linear_kernel import \
+        split_plan as k5_plan
+    e, f, l = dcfg.hidden_dim, dcfg.mlp_dim, dcfg.num_layers
+    if kind == "per_op":
+        n = l * (3 + (2 * tp if hd._ENABLED else 0))
+        return n, n
+    dev = 0
+    for k, n in ((e, 3 * e // tp), (e // tp, e), (e, e // tp), (e // tp, e),
+                 (e, f // tp), (f // tp, e)):
+        if kind == "w8a8":
+            dev += 2 + (k5_plan(rows, n, k)[1] > 1)
+        else:
+            dev += 1 + (k1_plan(rows, n, k)[1] > 1)
+    return l * (tp * 11 + 3), l * (tp * (dev + 5) + 3)
+
+
+def mesh_step_checks(torch, model, imgs, mesh, cache_dtype, monolith: bool,
+                     beam_size: int = 1) -> dict:
+    """The meshed decode step against two references on one encoder output
+    (rows x ``beam_size`` decode rows over ``beam_size``-row memory groups):
+    the first step's largest |logit difference| against the unsharded step
+    of the same mode (weights as ``weight_quant_mode(cache, tp_mono=True)``
+    says), and, on the monolith step, TP_CMP_STEPS steps of every data shard
+    with the kernels against the same steps with ``plain=True`` (the twins
+    of K1 / K5 partials, K15 and the rest, on the same shard operands), the
+    kernel path's greedy token fed to both: the largest |logit difference|
+    and the token agreement."""
+    from acai_omr_tpu_torch.models import decode as dl
+    from acai_omr_tpu_torch.models import vit_encoder, vitomr
+    from acai_omr_tpu_torch.ops import decode_kernel
+
+    cfg, dt = model.cfg, model.compute_dtype
+    pb = vit_encoder.batchify([model._load_image(i) for i in imgs],
+                              cfg.encoder)
+    lat, valid = vitomr.encode_image(model.params, cfg, *pb.to(model.device),
+                                     compute_dtype=dt)
+    dec, dcfg = model.params["decoder"], cfg.decoder
+    layout = "te" if monolith else "hd"
+    tt = dl.time_tile(cache_dtype) if monolith else 1
+    k, steps = beam_size, TP_CMP_STEPS
+    mem = dl.precompute_memory_kv(dec, dcfg, lat, valid, dt, cache_dtype,
+                                  layout=layout)
+
+    def state(rows, devs=None):
+        return dl.init_decode_state(dcfg, rows * k, steps + 1,
+                                    -(-(steps + 1) // tt) * tt, cache_dtype,
+                                    model.device, monolith, devs)
+
+    mono = dl.prepack(dec, dt, quantize_weights=decode_kernel
+                      .weight_quant_mode(cache_dtype, True)) \
+        if monolith else None
+    b = lat.shape[0]
+    ref = dl.step_logits(dec, dcfg, mono, state(b), mem, dt, mem_group=k)
+    nd, tp = mesh.shape["data"], mesh.shape["model"]
+    split = dl.prepare_tp_decode_params(dec, dcfg, mesh)
+    rows = b // nd
+    first = err = 0.0
+    agree = n = 0
+    for d in range(nd):
+        devs = mesh.devices[d]
+        sl = slice(d * rows, (d + 1) * rows)
+        mems = [dl._shard_memory(mem, sl, r, tp, devs[r], layout)
+                for r in range(tp)]
+        monos = [dl._prepack_for(p, dt, cache_dtype, True)
+                 for p in split[d]] if monolith else None
+
+        def run(s, plain):
+            return dl.step_logits(split[d], dcfg, monos, s, mems, dt,
+                                  plain=plain, mem_group=k,
+                                  tp_group=mesh.tp_group(d))
+
+        sk, sp = state(rows, devs), state(rows, devs)
+        lk = run(sk, False)
+        first = max(first, (lk.float() - ref[d * rows * k:(d + 1) * rows * k]
+                            .float()).abs().max().item())
+        for i in range(steps if monolith else 0):
+            if i:
+                lk = run(sk, False)
+            lp = run(sp, True)
+            tok = lk.argmax(-1)
+            agree += int((lp.argmax(-1) == tok).sum())
+            n += tok.numel()
+            err = max(err, (lk - lp).abs().max().item())
+            for s in (sk, sp):
+                s.seqs[:, s.t] = tok
+                s.t += 1
+    out = {"first_step_logit_max_abs_diff": first,
+           "logit_max_abs": ref.abs().max().item()}
+    if monolith:
+        out.update(kernel_vs_plain_steps=steps,
+                   kernel_vs_plain_logit_max_abs_err=err,
+                   kernel_vs_plain_token_agreement=agree / n)
+    return out
+
+
+def mesh_paths(torch, model, imgs, decode_lib, paths, failures, finish_path,
+               refs):
+    """The meshed decode (TP_PATHS) through ``batch_inference(mesh=,
+    model_axis="model")`` at the flagship width and depth, every shard on
+    cuda:0: tp = 2 and 4 (bf16 caches), tp = 2 with int8 caches and W8A8 off
+    (K5 may not launch), again with ``ACAI_TP_W8A8`` (K5 partials), tp = 2
+    beams, a 2 x 2 mesh with ``progress_cb`` events, and the per-op step
+    (``ACAI_MONOLITH_DECODE`` off, K11 on). Per path: ms per step (a step is
+    one data shard's step), wrapper calls and device kernels per step held
+    against :func:`expected_tp_step`, K15 launches, the share of tokens
+    equal to the unsharded path ``refs[...]`` of the same mode (reported,
+    not held: seeded near-ties split any two bf16 paths here), and
+    :func:`mesh_step_checks`, held: the first step's logits against the
+    unsharded step, and on the monolith step TP_CMP_STEPS steps of the
+    kernels against their twins, to compare_paths' limits."""
+    from acai_omr_tpu_torch.inference.batch_inference import batch_inference
+    from acai_omr_tpu_torch.ops import _build, decode_kernel
+    from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
+    from acai_omr_tpu_torch.parallel.mesh import make_mesh
+
+    arrays = [model._load_image(i) for i in imgs]
+    saved = (decode_kernel._ENABLED, decode_kernel._TP_W8A8, hd._ENABLED)
+    dcfg = model.cfg.decoder
+    try:
+        for name, ((nd, nm), n_img, max_len, kw, ref) in TP_PATHS.items():
+            per_op = name == "tp2_per_op"
+            decode_kernel.set_enabled(not per_op)
+            hd.set_enabled(per_op or saved[2])
+            decode_kernel.set_tp_w8a8(name == "tp2_int8_w8a8")
+            kw = dict(kw)
+            cache = torch.int8 if kw.pop("cache_dtype", None) == "int8" \
+                else model.compute_dtype
+            mesh = make_mesh(nd, nm, ["cuda:0"] * (nd * nm))
+            events = []
+            cb = (lambda gi, s, t, fin: events.append((tuple(gi), t))) \
+                if name == "dp2_tp2" else None
+            _build.reset_launch_counts()
+            with counted_steps(decode_lib) as box:
+                t0 = time.perf_counter()
+                res = batch_inference(
+                    model.params, model.cfg, arrays[:n_img], model.tokenizer,
+                    max_inference_len=max_len,
+                    compute_dtype=model.compute_dtype, cache_dtype=cache,
+                    device=model.device, mesh=mesh, model_axis="model",
+                    progress_cb=cb, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if not (len(res.lmx) == n_img and all(res.lmx)
+                    and all(math.isfinite(v) for v in res.avg_log_probs)):
+                failures.append(f"{name}: output")
+            kind = "per_op" if per_op else (
+                "w8a8" if name.endswith("w8a8") else "bf16")
+            want = [expected_tp_step(dcfg, nm, rows, kind)
+                    for rows in box["rows"]]
+            steps = max(box["n"], 1)
+            finish_path(name, res.n_tokens, res.decode_seconds, {
+                "mesh": [nd, nm], "wall_s": wall,
+                "encode_s": res.encode_seconds,
+                "expected_wrapper_calls_per_step":
+                    sum(w for w, _ in want) / steps,
+                "expected_device_kernels_per_step":
+                    sum(d for _, d in want) / steps,
+                f"token_share_vs_{ref}": token_share(res, refs[ref])},
+                steps=box["n"])
+            r = paths[name]
+            r["tp_allreduce_per_step"] = r["launches"]["tp_allreduce"] / steps
+            for got, exp in (("wrapper_calls_per_step",
+                              "expected_wrapper_calls_per_step"),
+                             ("device_kernels_per_step",
+                              "expected_device_kernels_per_step")):
+                if abs(r[got] - r[exp]) > 1e-9:
+                    failures.append(f"{name}: {got} {r[got]} differ from the "
+                                    f"layer arithmetic {r[exp]}")
+            if name == "tp2_int8" and r["launches"]["quant_linear_bias_act"]:
+                failures.append("tp2_int8: launched quant_linear_bias_act "
+                                "with ACAI_TP_W8A8 off")
+            if per_op:
+                for k in MONOLITH_STEP:
+                    if r["launches"][k]:
+                        failures.append(f"{name}: launched {k}")
+            if cb is not None:
+                by_group = {}
+                for gi, t in events:
+                    by_group.setdefault(gi, []).append(t)
+                r["progress_events"] = len(events)
+                if not events or any(i not in range(n_img)
+                                     for gi in by_group for i in gi) \
+                        or any(ts != sorted(ts) for ts in by_group.values()):
+                    failures.append(f"{name}: progress events")
+            chk = mesh_step_checks(torch, model, imgs[:n_img], mesh, cache,
+                                   not per_op, kw.get("beam_size", 1))
+            r.update(chk)
+            if not chk["first_step_logit_max_abs_diff"] < CMP_LOGIT_TOL:
+                failures.append(f"{name}: first-step logits vs the unsharded "
+                                f"step")
+            if not per_op and not (
+                    chk["kernel_vs_plain_logit_max_abs_err"] < CMP_LOGIT_TOL
+                    and chk["kernel_vs_plain_token_agreement"]
+                    >= CMP_AGREEMENT):
+                failures.append(f"{name}: kernel path vs plain path")
+            print(f"[path {name}] tp_allreduce per step "
+                  f"{r['tp_allreduce_per_step']:.1f}; {json.dumps(chk)}; "
+                  f"token share vs {ref} {r[f'token_share_vs_{ref}']}",
+                  flush=True)
+    finally:
+        decode_kernel.set_enabled(saved[0])
+        decode_kernel.set_tp_w8a8(saved[1])
+        hd.set_enabled(saved[2])
 
 
 def weight_paths(model, imgs, quant, transcribe_path, paths, failures,
@@ -1185,6 +1578,7 @@ def weight_paths(model, imgs, quant, transcribe_path, paths, failures,
     paths["int8_bf16w"]["decode_linear_bias_act"] = decode_k1
     if decode_k1 < 6 * n_layers * paths["int8_bf16w"]["steps"]:
         failures.append("int8_bf16w: too few K1 launches at decode shapes")
+    return bw
 
 
 def compare_paths(torch, np, model, imgs, profile=False):
@@ -1816,7 +2210,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
-    cases = check_kernels(torch, F, dev)
+    cases, race_bad = check_kernels(torch, F, dev)
 
     # phase 3: the slice at the flagship width
     model = OmrModel.load(device="cuda", seed=SEED)
@@ -1850,7 +2244,9 @@ def main() -> int:
                  (sum(launches.values()) - enc) / max(steps, 1),
              "device_kernels_per_step":
                  (sum(device.values()) - enc) / max(steps, 1),
-             "launches": launches, "device_launches": device, **extra}
+             "launches": launches, "device_launches": device,
+             "variants": {n: dict(op.variants)
+                          for n, op in _build.REGISTRY.items()}, **extra}
         paths[name] = r
         print(f"[path {name}] tokens={n_tokens} steps={steps} "
               f"decode_s={decode_s:.3f} tokens_per_s={r['tokens_per_s']:.1f} "
@@ -1887,11 +2283,11 @@ def main() -> int:
     quant = transcribe_path("int8", imgs, max_len=MAX_LEN, quantized_kv=True)
     print(f"[path int8] share of each image's tokens equal to the bf16 "
           f"decode's {token_share(quant, greedy)}", flush=True)
-    weight_paths(model, imgs, quant, transcribe_path, paths, failures,
-                 n_layers)
+    bf16_weights = weight_paths(model, imgs, quant, transcribe_path, paths,
+                                failures, n_layers)
     beam_imgs = imgs[:BEAM_IMAGES]
-    transcribe_path("beam_bf16", beam_imgs, max_len=BEAM_MAX_LEN,
-                    beam_size=BEAM_SIZE)
+    beam = transcribe_path("beam_bf16", beam_imgs, max_len=BEAM_MAX_LEN,
+                           beam_size=BEAM_SIZE)
     transcribe_path("beam_int8", beam_imgs, max_len=BEAM_MAX_LEN,
                     beam_size=BEAM_SIZE, quantized_kv=True)
 
@@ -1943,8 +2339,15 @@ def main() -> int:
         if sv["launches"][k] <= 0:
             failures.append(f"serve_wsgi: launches[{k}]=0")
 
-    hd_k11 = per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
-                          decode_lib, paths, failures)
+    hd_k11, hd_bf16 = per_op_paths(torch, model, imgs, greedy, quant,
+                                   transcribe_path, decode_lib, paths,
+                                   failures)
+
+    # the meshed decode: data- and tensor-parallel shards on this card
+    mesh_paths(torch, model, imgs, decode_lib, paths, failures, finish_path,
+               {"greedy_bf16": greedy, "int8": quant,
+                "int8_bf16w": bf16_weights, "beam_bf16": beam,
+                "decode_hd_bf16": hd_bf16})
 
     cmp = compare_paths(torch, np, model, imgs,
                         profile="--profile" in sys.argv[1:])
@@ -2096,12 +2499,15 @@ def main() -> int:
     mcmp["leaf_rel_err"] = leaf_errs
 
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
+    if race_bad:
+        failures.append(f"tp_allreduce race check: {race_bad} of {RACE_CALLS} "
+                        f"calls differ from the twin")
     if cmp["encoder_rel_err"] >= 0.02:
         failures.append("encoder kernel path vs plain path")
     for key in ("bf16", "int8", "w4a8"):
         c = cmp[key]
-        if not (c["logits_finite"] and c["token_agreement"] >= 0.9
-                and c["logit_max_abs_err"] < 0.25):
+        if not (c["logits_finite"] and c["token_agreement"] >= CMP_AGREEMENT
+                and c["logit_max_abs_err"] < CMP_LOGIT_TOL):
             failures.append(f"{key} kernel path vs plain path")
 
     def path_sum(counts, c):

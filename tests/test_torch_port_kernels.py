@@ -582,3 +582,156 @@ def test_hd_wrappers_reject_what_the_kernels_do_not_take(dev):
         self_attention_append_int8(q, q, q, k8, k8, s, s, 0, 32)
     with pytest.raises(ValueError):
         decode_attention_hd_int8(q, k8, k8, s, s, None, layer=2)
+
+
+# ---------------------------------------------------------------------------
+# K15 tp_allreduce and the partial products of the tensor-parallel step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("b", [3, 32, 128])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_tp_allreduce_equals_twin_bit_for_bit(dev, tp, b, out_dtype):
+    """Every rank on one card (one cooperative launch): the same bits as the
+    twin on every rank, with the bias (fp32 partials, the monolith's mode)
+    and without it (bf16 partials rounded each round, the per-op mode), over
+    several calls through the same exchange buffers."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
+                                                            tp_allreduce)
+    g = torch.Generator(device=dev).manual_seed(tp * b)
+    group = TPGroup([dev] * tp)
+    for call in range(3):
+        parts = [_randn(g, b, 1024, dev=dev, dtype=torch.float32)
+                 for _ in range(tp)]
+        bias = [_randn(g, 1024, dev=dev, dtype=torch.float32)] * tp
+        before = tp_allreduce.launches
+        got = tp_allreduce(parts, group, bias, out_dtype)
+        assert tp_allreduce.launches - before == 1
+        want = tp_allreduce.plain(parts, group, bias, out_dtype)
+        for o, w in zip(got, want):
+            assert o.dtype == out_dtype and torch.equal(o, w), call
+        p16 = [p.to(torch.bfloat16) for p in parts]
+        for o, w in zip(tp_allreduce(p16, group),
+                        tp_allreduce.plain(p16, group)):
+            assert torch.equal(o, w), call
+
+
+@pytest.mark.parametrize("tp,cards", [(2, 2), (4, 2), (4, 4)])
+def test_tp_allreduce_across_cards(dev, tp, cards):
+    """The multi-card form: the ranks spread over ``cards`` cards (the ranks
+    of a card consecutive), one cooperative launch per card, the peers'
+    slots and flags read through peer-mapped pointers at system scope. The
+    same bits as the twin on every rank, in both modes, over 200 calls
+    queued back to back with fresh inputs. Needs that many cards."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
+                                                            tp_allreduce)
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    devs = [torch.device("cuda", r * cards // tp) for r in range(tp)]
+    group = TPGroup(devs)
+    g = torch.Generator().manual_seed(tp * cards)
+    calls = []
+    for i in range(200):
+        dt = torch.bfloat16 if i % 3 == 0 else torch.float32
+        b = (4, 8, 32, 128)[i % 4]
+        parts = [torch.randn(b, 1024, generator=g).to(dt).to(d) for d in devs]
+        bias = torch.randn(1024, generator=g)  # replicated, as the step's
+        bias = None if dt == torch.bfloat16 else [bias.to(d) for d in devs]
+        calls.append((parts, bias, tp_allreduce(parts, group, bias,
+                                                torch.bfloat16)))
+    for d in range(cards):
+        torch.cuda.synchronize(d)
+    for i, (parts, bias, got) in enumerate(calls):
+        want = tp_allreduce.plain(parts, group, bias, torch.bfloat16)
+        for r, (o, w) in enumerate(zip(got, want)):
+            assert o.device == devs[r] and torch.equal(o, w), (i, r)
+
+
+def test_tp_allreduce_rejects_what_it_does_not_take(dev):
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
+                                                            tp_allreduce)
+    parts = [torch.zeros(4, 64, device=dev)] * 2
+    with pytest.raises(ValueError, match="2 or 4 ranks"):
+        tp_allreduce(parts * 4, TPGroup([dev] * 8))
+    with pytest.raises(ValueError, match="must be"):
+        tp_allreduce([parts[0], torch.zeros(4, 32, device=dev)],
+                     TPGroup([dev] * 2))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        tp_allreduce([p.half() for p in parts], TPGroup([dev] * 2))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 1024), (32, 256, 1024)])
+def test_partial_products(dev, m, k, n):
+    """K1 and K5 ``partial``: the bare fp32 product (K5 dequantized), no
+    bias, as a rank's share of a row-parallel product."""
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = _randn(g, m, k, dev=dev)
+    w = (_randn(g, k, n, dev=dev, dtype=torch.float32) / math.sqrt(k)) \
+        .to(torch.bfloat16)
+    out = linear_bias_act(x, w, None, "partial")
+    assert out.dtype == torch.float32
+    _close(out, linear_bias_act.plain(x, w, None, "partial"), rel=1e-3)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4) \
+        .to(torch.bfloat16).float()
+    w4 = pack_k4(w8)
+    q = quant_linear_bias_act(x, w4, s, None, "partial")
+    assert q.dtype == torch.float32
+    assert torch.equal(q, quant_linear_bias_act.plain(x, w4, s, None,
+                                                      "partial"))
+
+
+@pytest.mark.parametrize("tp,cache", [(2, "bf16"), (4, "bf16"), (2, "int8")])
+def test_tensor_parallel_step_equals_twins(dev, tp, cache):
+    """One step of ``decode_layers(tp_group=)`` (K1 partials, K2 or K6 per
+    rank, K15, K4) against the same step through the twins, 3 K15 launches
+    a layer. int8: layer 0's appended rows within one step of the twin's
+    (K1's bf16 qkv may round an entry the other way) and its scales within
+    one bf16 ulp."""
+    from acai_omr_tpu_torch.models import decode
+    from acai_omr_tpu_torch.models.omr_decoder import (DecoderConfig,
+                                                       init_decoder_params)
+    from acai_omr_tpu_torch.ops import decode_kernel
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
+                                                            tp_allreduce)
+    from acai_omr_tpu_torch.parallel import mesh as mesh_lib
+    cfg = DecoderConfig(max_lmx_seq_len=64, vocab_size=33, num_layers=2,
+                        hidden_dim=512, num_heads=8, mlp_dim=1024, eos_idx=2)
+    params = init_decoder_params(torch.Generator().manual_seed(0), cfg,
+                                 device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, m_len, t = 8, 48, 64
+    latent = torch.randn(b, m_len, 512, generator=g, device=dev)
+    valid = torch.arange(m_len, device=dev)[None] < torch.tensor(
+        [48, 20, 33, 48, 9, 48, 40, 12], device=dev)[:, None]
+    dt = torch.int8 if cache == "int8" else torch.bfloat16
+    mesh = mesh_lib.make_mesh(1, tp, [dev] * tp)
+    split = decode.prepare_tp_decode_params(params, cfg, mesh)[0]
+    mem = decode.precompute_memory_kv(params, cfg, latent, valid,
+                                      torch.bfloat16, dt)
+    mems = [decode._shard_memory(mem, slice(None), r, tp, dev, "te")
+            for r in range(tp)]
+    monos = [decode._prepack_for(p, torch.bfloat16, dt, True) for p in split]
+    states = [decode.init_decode_state(cfg, b, t, t, dt, dev,
+                                       tp_devices=[dev] * tp)
+              for _ in range(2)]
+    for st in states:
+        st.t = 5
+    group = TPGroup([dev] * tp)
+    before = tp_allreduce.launches
+    out = decode.step_logits(split, cfg, monos, states[0], mems,
+                             torch.bfloat16, tp_group=group)
+    assert tp_allreduce.launches - before == 3 * cfg.num_layers
+    ref = decode.step_logits(split, cfg, monos, states[1], mems,
+                             torch.bfloat16, plain=True, tp_group=group)
+    _close(out, ref, rel=3e-2)
+    if cache == "int8":
+        for r in range(tp):
+            for a, w in ((states[0].k_cache[r], states[1].k_cache[r]),
+                         (states[0].v_cache[r], states[1].v_cache[r])):
+                assert (a[0].int() - w[0].int()).abs().max().item() <= 1
+            for a, w in ((states[0].k_scale[r], states[1].k_scale[r]),
+                         (states[0].v_scale[r], states[1].v_scale[r])):
+                a, w = a[0].float(), w[0].float()
+                assert ((a - w).abs() <= 2.0 ** -7 * w.abs()).all()

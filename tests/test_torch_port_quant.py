@@ -444,7 +444,13 @@ def test_int8_generate_is_near_fp32_generate(setup):
                         torch.from_numpy(valid), cache_dtype=torch.float32,
                         **kw)
     assert q[0][:, :8].eq(f[0][:, :8]).float().mean() > 0.9
-    with pytest.raises(ValueError, match="compute dtype or in int8"):
-        decode.generate(pparams, PCFG, torch.from_numpy(latent),
+    # another float cache dtype decodes on the per-op step (F3); only a
+    # cache dtype that is neither float nor int8 is refused
+    h = decode.generate(pparams, PCFG, torch.from_numpy(latent),
                         torch.from_numpy(valid), cache_dtype=torch.float16,
+                        **kw)
+    assert h[0][:, :8].eq(f[0][:, :8]).float().mean() > 0.9
+    with pytest.raises(ValueError, match="float dtype or in int8"):
+        decode.generate(pparams, PCFG, torch.from_numpy(latent),
+                        torch.from_numpy(valid), cache_dtype=torch.int16,
                         **kw)
