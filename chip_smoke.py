@@ -30,6 +30,20 @@ Phases, all in one process; any failure exits non-zero:
    K3 and K7 at 16 heads of 32 (B = 64, T = 512, E = 512) and at the
    encoder's 128 kept rows (12 heads of 64), K1, K4, K8 and K9 at
    32,768 x 512, ``linear_wgrad`` at 512 x 512 with its rows split;
+   then the probes phase: K16 tile_gemm at every tile of the GEMM sweep
+   (bf16 out) at (8192, 768, 3072), (32768, 512, 1536) and
+   (32768, 512, 3072), and in its three operand layouts (fp32 out) at the
+   dot-forms probe's shapes and at (8192, 768, 3072); K17
+   blockdiag_decode_attention (bf16 at bt 2 / 4 / 8, int8 at bt 4 / 8) and
+   K18 batched_decode_attention (bt 4) at B = 32, H = 16, Dh = 64, T = 512;
+   K19 smem_probe at 227 KB (row 0 bit for bit), 228 KB refused; each
+   against its twin, timed beside its bound and the library call. Then the
+   probes' main path, the launch counts reset before it and read after:
+   ``main`` of the five tools of ``acai_omr_tpu_torch/tools`` (gemm_probe,
+   pallas_gemm_probe, mosaic_dot_forms_probe, attn_microbench, vmem_probe),
+   their lines printed; every dot form right, the largest scratch that
+   launches equal to cudaDevAttrMaxSharedMemoryPerBlockOptin and at least
+   the 227 KB ops/decode_hd_kernel.py assumes;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -159,6 +173,9 @@ EXPECTED_KERNELS = {
     "tp2_beam": _ENC + ["decode_attention", "tp_allreduce"],
     "dp2_tp2": _ENC + ["decode_attention", "tp_allreduce"],
     "tp2_per_op": _ENC + ["decode_attention_hd", "tp_allreduce"],
+    # the probe tools, each run through its main
+    "probes": ["tile_gemm", "blockdiag_decode_attention",
+               "batched_decode_attention", "smem_probe"],
 }
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
 # keywords, the unsharded path their tokens are held against
@@ -221,27 +238,9 @@ def bound_ms(n_bytes: float, n_ops: float,
 def time_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
     """Device time of one call: ``iters`` calls captured in a CUDA graph,
     replayed ``reps`` times between CUDA events (the graph keeps the host's
-    launch cost out of the kernel's time)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
+    launch cost out of the kernel's time); the probe tools' timer."""
+    from acai_omr_tpu_torch.tools._probe import time_ms as graph_ms
+    return graph_ms(fn, torch.device("cuda"), iters, reps)
 
 
 def time_ms_eager(torch, fn, iters: int = 20) -> float:
@@ -658,6 +657,7 @@ def check_kernels(torch, F, dev):
     decode_hd_cases(torch, F, randn, record, kernel_times, dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
     race_bad = tp_allreduce_cases(torch, randn, record, kernel_times, dev)
+    probe_cases(torch, F, record, kernel_times, dev)
     return cases, race_bad
 
 
@@ -718,6 +718,150 @@ def tp_allreduce_cases(torch, randn, record, kernel_times, dev):
           f"calls, {bad} differ from the twin "
           + ("ok" if bad == 0 else "FAIL"), flush=True)
     return bad
+
+
+def probe_cases(torch, F, record, kernel_times, dev):
+    """The probes phase, its kernels against their twins at the shapes the
+    probe tools give them. K16 ``tile_gemm``: every tile of the sweep (bf16
+    out, within 1e-2 of the largest output: one bf16 ulp is 0.4-0.8% of it)
+    at (8192, 768, 3072), (32768, 512, 1536) and (32768, 512, 3072), and the
+    dot forms (fp32 out, within 1e-5 of the largest output: fp32 sums in
+    another order) at the JAX script's shapes (tile 64x64x32) and at
+    (8192, 768, 3072) (tile 128x128x32); library call ``torch.matmul`` of the
+    same form, bf16 out; bound 2mkn at the bf16 peak. K17 at bt 2 / 4 / 8
+    (bf16) and 4 / 8 (int8), K18 at bt 4, at the microbench's inputs, within
+    4e-3 absolute (outputs below 0.5: a weight rounded to bf16 on the other
+    side of a tie moves an output by one bf16 ulp); bound: K and V (and the
+    scales) read once; library call SDPA with one query (bf16). K19 at 227 KB:
+    row 0 bit for bit; 228 KB must be refused."""
+    from acai_omr_tpu_torch.ops import probe_kernels as pk
+    from acai_omr_tpu_torch.tools import attn_microbench as ab
+    from acai_omr_tpu_torch.tools import mosaic_dot_forms_probe as forms
+    from acai_omr_tpu_torch.tools import pallas_gemm_probe as pgp
+
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    print("[probes] K16-K19 against their twins", flush=True)
+    t0 = time.perf_counter()
+
+    def gemm_case(a, b, tile, layout, out_dtype, case):
+        m, k, n = pk.gemm_dims(a, b, layout)
+        call = lambda: pk.tile_gemm(a, b, tile, layout, out_dtype)
+        twin = lambda: pk.tile_gemm.plain(a, b, tile, layout, out_dtype)
+        ref = twin()
+        key = (m, k, n, layout, out_dtype)
+        if key not in plain_lib:
+            plain_lib[key] = (time_ms(torch, twin, iters=5),
+                              time_ms(torch, forms.library_call(a, b, layout)))
+        rel = 1e-2 if out_dtype == bf else forms.REL_TOL
+        record(pk.tile_gemm, case, call(), ref,
+               rel * max(1.0, ref.float().abs().max().item()),
+               kernel_times(call), *plain_lib[key],
+               2 * (m * k + k * n) + out_dtype.itemsize * m * n,
+               2 * m * k * n, paths=["probes"],
+               variant=f"{layout} {'x'.join(map(str, tile))} "
+                       f"{str(out_dtype).split('.')[-1]}")
+
+    plain_lib = {}
+    for m, k, n in pgp.SHAPES:
+        x = torch.randn(m, k, generator=g, device=dev).to(bf)
+        w = torch.randn(k, n, generator=g, device=dev).to(bf)
+        for tile in pk.SWEEP_TILES:
+            gemm_case(x, w, tile, "nn", bf,
+                      f"({m},{k},{n}) tile {'x'.join(map(str, tile))}")
+        del x, w
+    for form, layout, a_shape, b_shape in forms.FORMS:
+        a, b = forms.operands(a_shape, b_shape, dev)
+        gemm_case(a, b, forms.CHECK_TILE, layout, f32, f"{form} {a_shape}x"
+                  f"{b_shape} tile 64x64x32 fp32")
+    m, k, n = forms.TIME_SHAPE
+    for form, layout, *_ in forms.FORMS[:3]:
+        a = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=g,
+                        device=dev).to(bf)
+        b = torch.randn(*((n, k) if layout == "nt" else (k, n)), generator=g,
+                        device=dev).to(bf)
+        gemm_case(a, b, forms.TIME_TILE, layout, f32,
+                  f"{form} ({m},{k},{n}) tile 128x128x32 fp32")
+    torch.cuda.empty_cache()
+
+    qb, kb, vb, bias, _, _ = ab.make_inputs(bf, dev)
+    qi, ki, vi, bias_i, ks, vs = ab.make_inputs(torch.int8, dev)
+    bsz, h, dh, t = kb.shape
+    ql = qb[:, :, None, :]
+    kl, vl = (a.transpose(-1, -2).contiguous() for a in (kb, vb))
+    sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl))
+    # flops: the block-diagonal product in full (H x H*Dh x T, twice)
+    full_ops = 2 * 2 * bsz * h * (h * dh) * t
+    for cache, bts, args in (("bf16", (2, 4, 8), (qb, kb, vb, bias)),
+                             ("int8", (4, 8), (qi, ki, vi, bias_i, ks, vs))):
+        nbytes = 2 * args[1].numel() * args[1].element_size() \
+            + (2 * ks.numel() * 4 if cache == "int8" else 0) \
+            + 2 * 2 * bsz * h * dh + 4 * bsz * t
+        for bt in bts:
+            call = lambda: pk.blockdiag_decode_attention(*args, bt=bt)
+            twin = lambda: pk.blockdiag_decode_attention.plain(*args, bt=bt)
+            record(pk.blockdiag_decode_attention,
+                   f"{cache} bt={bt} B={bsz} H={h} Dh={dh} T={t}", call(),
+                   twin(), 4e-3, kernel_times(call), time_ms(torch, twin),
+                   sdpa if cache == "bf16" else None, nbytes, full_ops,
+                   paths=["probes"], variant=f"{cache} bt={bt}")
+    call = lambda: pk.batched_decode_attention(qb, kb, vb, bias, bt=4)
+    twin = lambda: pk.batched_decode_attention.plain(qb, kb, vb, bias, bt=4)
+    record(pk.batched_decode_attention, f"bf16 bt=4 B={bsz} H={h} Dh={dh} "
+           f"T={t}", call(), twin(), 4e-3, kernel_times(call),
+           time_ms(torch, twin), sdpa,
+           2 * kb.numel() * 2 + 2 * 2 * bsz * h * dh + 4 * bsz * t,
+           4 * bsz * h * dh * t, paths=["probes"], variant="bt=4")
+
+    x = torch.randn(8, 128, generator=g, device=dev).to(bf)
+    n_bytes = 227 * 1024
+    call = lambda: pk.smem_probe(x, n_bytes)
+    out_k, out_p = call(), pk.smem_probe.plain(x, n_bytes)
+    refused = False
+    try:  # the one launch that must fail: past the card's limit
+        pk.smem_probe(x, 228 * 1024)
+    except pk.SmemRefused as e:
+        refused = True
+        print(f"[probes] smem_probe at 228 KB refused as expected: {e}",
+              flush=True)
+    record(pk.smem_probe, "227 KB, row 0", out_k[:1], out_p[:1], 0.0,
+           kernel_times(call), time_ms(torch, lambda: pk.smem_probe.plain(
+               x, n_bytes)), None, 2 * x.numel() * 2, x.numel(),
+           peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
+           exact=torch.equal(out_k[0], out_p[0]) and refused)
+    print(f"[probes] checked in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def probes_path(torch):
+    """The probes' main path: each tool's ``main`` on the card, as a user
+    runs ``python -m acai_omr_tpu_torch.tools.<name>``, the launch counts
+    reset just before and read just after; the tools' lines kept."""
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.tools import (attn_microbench, gemm_probe,
+                                          mosaic_dot_forms_probe,
+                                          pallas_gemm_probe, vmem_probe)
+    lines, res = {}, {}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for name, tool in [("gemm_probe", gemm_probe),
+                       ("pallas_gemm_probe", pallas_gemm_probe),
+                       ("mosaic_dot_forms_probe", mosaic_dot_forms_probe),
+                       ("attn_microbench", attn_microbench),
+                       ("vmem_probe", vmem_probe)]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            res[name] = tool.main([])
+        lines[name] = buf.getvalue().splitlines()
+        for line in lines[name]:
+            print(f"[probe {name}] {line}", flush=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "lines": lines, "results": res,
+            "launches": {n: op.launches for n, op in _build.REGISTRY.items()},
+            "device_launches": {n: op.device_launches
+                                for n, op in _build.REGISTRY.items()},
+            "variants": {n: dict(op.variants)
+                         for n, op in _build.REGISTRY.items()}}
 
 
 def decode_hd_cases(torch, F, randn, record, kernel_times, dev):
@@ -2211,6 +2355,8 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
 
     cases, race_bad = check_kernels(torch, F, dev)
+    # the probes phase's main path: the five probe tools
+    probe_run = probes_path(torch)
 
     # phase 3: the slice at the flagship width
     model = OmrModel.load(device="cuda", seed=SEED)
@@ -2223,7 +2369,23 @@ def main() -> int:
     torch.cuda.synchronize()
     n_layers = model.cfg.decoder.num_layers
     failures = []
-    paths = {}
+    paths = {"probes": probe_run}
+    print(f"[path probes] wall_s={probe_run['wall_s']:.2f} launches "
+          f"{json.dumps(probe_run['launches'])}", flush=True)
+    for k in EXPECTED_KERNELS["probes"]:
+        if probe_run["launches"][k] <= 0:
+            failures.append(f"probes: launches[{k}]=0")
+    res = probe_run["results"]
+    if res["mosaic_dot_forms_probe"] != 0:
+        failures.append("probes: a dot form differs from the plain product")
+    vm = res["vmem_probe"]
+    if not (vm["assumed_holds"] and vm["refused_kb"] == vm["largest_kb"] + 1
+            and vm["largest_kb"] * 1024 <= vm["optin_bytes"]
+            < vm["refused_kb"] * 1024):
+        failures.append(f"probes: shared memory per block {vm}")
+    if not all(r["max_abs_err"] <= 1e-2 * max(1.0, r["ref_max"])
+               for r in res["pallas_gemm_probe"]):
+        failures.append("probes: pallas_gemm_probe's spot check")
 
     def finish_path(name, n_tokens, decode_s, extra, steps=None):
         """Read the launch counts of the path just driven; check and print.

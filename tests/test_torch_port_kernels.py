@@ -735,3 +735,81 @@ def test_tensor_parallel_step_equals_twins(dev, tp, cache):
                          (states[0].v_scale[r], states[1].v_scale[r])):
                 a, w = a[0].float(), w[0].float()
                 assert ((a - w).abs() <= 2.0 ** -7 * w.abs()).all()
+
+
+# ---------------------------------------------------------------------------
+# the probes' kernels: K16 tile_gemm, K17 / K18 decode attention, K19
+# smem_probe
+# ---------------------------------------------------------------------------
+
+from acai_omr_tpu_torch.ops import probe_kernels as pk  # noqa: E402
+
+
+@pytest.mark.parametrize("tile", pk.SWEEP_TILES)
+def test_tile_gemm_sweep_tiles(dev, tile):
+    g = torch.Generator(device=dev).manual_seed(30)
+    a, b = _randn(g, 256, 384, dev=dev), _randn(g, 384, 512, dev=dev)
+    _close(pk.tile_gemm(a, b, tile), pk.tile_gemm.plain(a, b, tile))
+
+
+@pytest.mark.parametrize("layout", pk.LAYOUTS)
+@pytest.mark.parametrize("tile", pk.FORM_TILES)
+def test_tile_gemm_forms_fp32(dev, layout, tile):
+    """fp32 out within 1e-5 of the largest output: the sums differ in order
+    only."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    m, k, n = 256, 512, 384
+    a = _randn(g, *((k, m) if layout == "tn" else (m, k)), dev=dev)
+    b = _randn(g, *((n, k) if layout == "nt" else (k, n)), dev=dev)
+    out = pk.tile_gemm(a, b, tile, layout, torch.float32)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    _close(out, pk.tile_gemm.plain(a, b, tile, layout, torch.float32), 1e-5)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("bt,t", [(2, 128), (4, 256), (8, 512)])
+def test_blockdiag_decode_attention(dev, cache, bt, t):
+    g = torch.Generator(device=dev).manual_seed(32)
+    b, h, dh = 8, 16, 32
+    q = _randn(g, b, h, dh, dev=dev)
+    bias = torch.where(torch.rand(b, t, generator=g, device=dev) < 0.2,
+                       -1e9, 0.0).float()
+    bias[:, 0] = 0.0
+    if cache == "int8":
+        kT = torch.randint(-127, 128, (b, h, dh, t), generator=g, device=dev,
+                           dtype=torch.int8)
+        vT = torch.randint(-127, 128, (b, h, dh, t), generator=g, device=dev,
+                           dtype=torch.int8)
+        ks, vs = (torch.rand(b, h, t, generator=g, device=dev) * 2e-2 + 1e-3
+                  for _ in range(2))
+        args = (q, kT, vT, bias, ks, vs)
+    else:
+        args = (q, _randn(g, b, h, dh, t, dev=dev),
+                _randn(g, b, h, dh, t, dev=dev), bias)
+    out = pk.blockdiag_decode_attention(*args, bt=bt)
+    ref = pk.blockdiag_decode_attention.plain(*args, bt=bt)
+    assert (out.float() - ref.float()).abs().max().item() <= 4e-3
+
+
+@pytest.mark.parametrize("bt,t", [(1, 96), (4, 512)])
+def test_batched_decode_attention(dev, bt, t):
+    g = torch.Generator(device=dev).manual_seed(33)
+    b, h, dh = 8, 16, 64
+    q, kT, vT = (_randn(g, *s, dev=dev) for s in ((b, h, dh), (b, h, dh, t),
+                                                   (b, h, dh, t)))
+    out = pk.batched_decode_attention(q, kT, vT, None, bt=bt)
+    ref = pk.batched_decode_attention.plain(q, kT, vT, None, bt=bt)
+    assert (out.float() - ref.float()).abs().max().item() <= 4e-3
+
+
+def test_smem_probe_up_to_the_card_limit(dev):
+    """Row 0 bit for bit at 2 KB and at the card's limit; one KB past it the
+    launch is refused with its CUDA error, and the next launch still runs."""
+    optin = pk.smem_optin_bytes()
+    x = torch.randn(8, 128, device=dev).to(torch.bfloat16)
+    for n in (2048, optin // 256 * 256):
+        assert torch.equal(pk.smem_probe(x, n)[0], x[0] * 2)
+    with pytest.raises(pk.SmemRefused):
+        pk.smem_probe(x, (optin // 1024 + 1) * 1024)
+    assert torch.equal(pk.smem_probe(x, 4096)[0], x[0] * 2)
+    torch.cuda.synchronize()
