@@ -1,0 +1,193 @@
+"""The kernels of the int4 probes: K20 :data:`int4_delivery_gemm` and K21
+:data:`int4_unpack` (``csrc/int4_probe.cu``).
+
+Port of the Pallas kernels of ``tools/int4_probe.py`` (``run_variant`` /
+``time_variant``) and ``tools/unpack_probe.py`` (``run``), which ask how int4
+weights should reach the int8 dot of the W4A8 decode product (K14). Every
+scheme computes one function from the same int4 values, so the wrappers pack
+each scheme's operand from ``lo`` and ``hi`` (:func:`scheme_weights`) and the
+plain twins compute the exact product or the unpacked rows.
+
+Int4 values are in [-8, 7]. The TPU's byte packing (``pack_bytes``) holds a
+``lo`` and a ``hi`` value in one byte, ``(hi << 4) | (lo + 8)``; K14's words
+(:func:`quant_linear_kernel.pack_k8_int4`) hold eight K rows, each nibble
+the value plus 8, so -8 is the nibble 0 on both sides.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .quant_linear_kernel import (pack_k4, pack_k8_int4, unpack_k4,
+                                  unpack_k8_int4)
+
+GEMM_SCHEMES = ("i8ref", "s4dot", "s4conv", "i8shift", "f32unpack")
+BYTE_SCHEMES = ("i8shift", "f32unpack")
+UNPACK_SCHEMES = ("f32", "i32", "i16", "i8div", "eyedot")
+MAX_ROWS = 32
+UNIT = 64  # x columns per contraction unit of K20
+SMEM_X_BYTES = 48 * 1024  # K20 stages its split's x columns in static-size smem
+TARGET_BLOCKS = 2 * 132  # two waves of blocks on an H100's 132 SMs
+
+
+def pack_bytes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """int4 values in [-8, 7] -> int8 bytes ``(hi << 4) | (lo + 8)``, as the
+    TPU tools' ``pack_bytes`` / ``pack``."""
+    b = (hi.to(torch.int32) << 4) | ((lo.to(torch.int32) + 8) & 0xF)
+    return torch.where(b >= 128, b - 256, b).to(torch.int8)
+
+
+def unpack_bytes(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_bytes`: ``hi = floor(b / 16)``, ``lo = b - 16
+    hi - 8``, as int8."""
+    v = b.to(torch.int32)
+    hi = torch.div(v, 16, rounding_mode="floor")
+    return (v - 16 * hi - 8).to(torch.int8), hi.to(torch.int8)
+
+
+def scheme_weights(lo: torch.Tensor, hi: torch.Tensor,
+                   scheme: str) -> torch.Tensor:
+    """K20's weight operand for ``scheme`` from ``lo`` and ``hi`` (cin/2,
+    cout) int4 values, W = lo ‖ hi along the rows: ``i8ref`` (cin/4, cout,
+    4) int8; ``s4dot`` / ``s4conv`` (cin/8, cout) int32; ``i8shift`` /
+    ``f32unpack`` (cin/2, cout) int8 bytes."""
+    _scheme(scheme)
+    if scheme in BYTE_SCHEMES:
+        return pack_bytes(lo, hi)
+    w = torch.cat([lo, hi], 0)
+    return pack_k4(w.to(torch.int8)) if scheme == "i8ref" else pack_k8_int4(w)
+
+
+def full_weights(w: torch.Tensor, scheme: str) -> torch.Tensor:
+    """The (cin, cout) int8 values a K20 operand holds."""
+    if scheme in BYTE_SCHEMES:
+        return torch.cat(unpack_bytes(w), 0)
+    return unpack_k4(w) if scheme == "i8ref" else unpack_k8_int4(w)
+
+
+def _scheme(scheme: str) -> None:
+    if scheme not in GEMM_SCHEMES:
+        raise ValueError(f"scheme must be one of {GEMM_SCHEMES}, got "
+                         f"{scheme!r}")
+
+
+def _weight_shape(scheme: str, cin: int, cout: int) -> tuple:
+    if scheme in BYTE_SCHEMES:
+        return (cin // 2, cout)
+    return (cin // 4, cout, 4) if scheme == "i8ref" else (cin // 8, cout)
+
+
+def gemm_plan(x: torch.Tensor, w: torch.Tensor, scheme: str) -> tuple:
+    """(bt, cin, cout, splits) of a K20 call; raises on what the kernel does
+    not take: bt outside 1..32, cin % 64, cout not a multiple of the block's
+    columns (128 words, 512 for the byte layouts), a weight of another
+    shape."""
+    _scheme(scheme)
+    if x.dim() != 2:
+        raise ValueError("x must be (bt, cin)")
+    bt, cin = x.shape
+    cout = w.shape[1]
+    cols = 4 * 128 if scheme in BYTE_SCHEMES else 128
+    if not 1 <= bt <= MAX_ROWS:
+        raise ValueError(f"bt must be 1..{MAX_ROWS}, got {bt}")
+    if cin % UNIT or cin <= 0:
+        raise ValueError(f"cin must be a positive multiple of {UNIT}, "
+                         f"got {cin}")
+    if cout % cols or cout <= 0:
+        raise ValueError(f"{scheme}: cout must be a multiple of {cols}, got "
+                         f"{cout}")
+    if tuple(w.shape) != _weight_shape(scheme, cin, cout):
+        raise ValueError(f"{scheme} weights must be "
+                         f"{_weight_shape(scheme, cin, cout)}, got "
+                         f"{tuple(w.shape)}")
+    rows = 8 if bt <= 8 else 16 if bt <= 16 else 32
+    units = cin // UNIT
+    need = min(units, max(-(-TARGET_BLOCKS // (cout // cols)),
+                          -(-rows * cin // SMEM_X_BYTES)))
+    splits = next(d for d in range(need, units + 1) if units % d == 0)
+    return bt, cin, cout, splits
+
+
+def int4_delivery_gemm_plain(x: torch.Tensor, w: torch.Tensor,
+                             scheme: str) -> torch.Tensor:
+    """Plain twin of K20: the exact product of the int8 rows and the int4
+    weights as int32 (through float64, exact below 2^53)."""
+    gemm_plan(x, w, scheme)
+    wf = full_weights(w, scheme)
+    return torch.round(x.double() @ wf.double()).to(torch.int32)
+
+
+def _launch_gemm(op, x, w, scheme):
+    bt, cin, cout, splits = gemm_plan(x, w, scheme)
+    _build.require(x, "x", torch.int8, 2)
+    _build.require(w, "w", torch.int32 if scheme in ("s4dot", "s4conv")
+                   else torch.int8, w.dim())
+    if w.device != x.device:
+        raise ValueError("x and w must be on one device")
+    out = (torch.zeros if splits > 1 else torch.empty)(
+        (bt, cout), dtype=torch.int32, device=x.device)
+    fn = _build.bind("int4_probe", "acai_int4_delivery_gemm",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            GEMM_SCHEMES.index(scheme), bt, cin, cout, splits,
+            _build.stream_ptr())
+    op.launched(scheme)
+    _build.check(rc, op.name)
+    return out
+
+
+int4_delivery_gemm = _build.KernelOp(
+    "int4_delivery_gemm", "acai_omr_tpu_torch/csrc/int4_probe.cu",
+    "tools/int4_probe.py:96 (run_variant, pallas_call :112); :130 "
+    "(time_variant, pallas_call :147)", _launch_gemm,
+    int4_delivery_gemm_plain)
+
+
+def _check_unpack(packed: torch.Tensor, scheme: str, reps: int) -> None:
+    if scheme not in UNPACK_SCHEMES:
+        raise ValueError(f"scheme must be one of {UNPACK_SCHEMES}, got "
+                         f"{scheme!r}")
+    if packed.dim() != 2 or packed.dtype != torch.int8:
+        raise ValueError("packed must be (half, cols) int8")
+    half, cols = packed.shape
+    if half % 16 or cols % 16 or half == 0 or cols == 0:
+        raise ValueError(f"packed (half, cols) must be multiples of 16, got "
+                         f"{(half, cols)}")
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+
+
+def int4_unpack_plain(packed: torch.Tensor, scheme: str = "i32",
+                      reps: int = 1) -> torch.Tensor:
+    """Plain twin of K21: lo rows then hi rows, ``(2 half, cols)`` int8 (the
+    reps repeat the same unpack)."""
+    _check_unpack(packed, scheme, reps)
+    return torch.cat(unpack_bytes(packed), 0)
+
+
+def _launch_unpack(op, packed, scheme="i32", reps=1):
+    _check_unpack(packed, scheme, reps)
+    _build.require(packed, "packed", torch.int8, 2)
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned")
+    half, cols = packed.shape
+    out = torch.empty((2 * half, cols), dtype=torch.int8,
+                      device=packed.device)
+    fn = _build.bind("int4_probe", "acai_int4_unpack",
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
+    rc = fn(packed.data_ptr(), out.data_ptr(), UNPACK_SCHEMES.index(scheme),
+            half, cols, reps, _build.stream_ptr())
+    op.launched(scheme)
+    _build.check(rc, op.name)
+    return out
+
+
+int4_unpack = _build.KernelOp(
+    "int4_unpack", "acai_omr_tpu_torch/csrc/int4_probe.cu",
+    "tools/unpack_probe.py:112 (run, KERNELS :108, pallas_call :124)",
+    _launch_unpack, int4_unpack_plain)

@@ -18,7 +18,8 @@ load feeds ``__dp4a`` directly; the plain twins read the same tensors.
 * int4 (K14): eight input rows a word, ``(IN/8, OUT)`` int32
   (:func:`pack_k8_int4` / :func:`unpack_k8_int4`). Byte ``j`` of the word of
   rows ``k .. k+7`` holds ``q[k+j] + 8`` in its low nibble and
-  ``q[k+4+j] + 8`` in its high nibble, ``q`` in [-7, 7]. So
+  ``q[k+4+j] + 8`` in its high nibble, ``q`` in [-8, 7] (the decode's
+  weights are quantized to [-7, 7]; the int4 probe draws -8 too). So
   ``(w & 0x0F0F0F0F) - 0x08080808`` (per byte) is the ``__dp4a`` operand of
   rows ``k .. k+3`` and ``((w >> 4) & 0x0F0F0F0F) - 0x08080808`` that of rows
   ``k+4 .. k+7``: the kernel unpacks in registers. The JAX package pairs
@@ -56,7 +57,7 @@ def unpack_k4(w4: torch.Tensor) -> torch.Tensor:
 
 
 def pack_k8_int4(q: torch.Tensor) -> torch.Tensor:
-    """(..., IN, OUT) int4 values in [-7, 7] (any integer dtype) ->
+    """(..., IN, OUT) int4 values in [-8, 7] (any integer dtype) ->
     (..., IN/8, OUT) int32 words, eight consecutive input rows each (layout
     in the module docstring)."""
     *lead, k, n = q.shape

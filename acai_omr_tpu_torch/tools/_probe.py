@@ -1,8 +1,9 @@
 """What the probe tools share: the device they run on, its name, and a
-timer."""
+timer that can time from HBM."""
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -10,6 +11,8 @@ import torch
 # the card's published dense peaks (H100 SXM data sheet)
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OP_PER_S = 1979e12
+H100_L2_BYTES = 50 * 2 ** 20
 
 
 def resolve(device) -> torch.device:
@@ -30,27 +33,74 @@ def label(dev: torch.device) -> str:
     return "cpu"
 
 
-def time_ms(fn, dev: torch.device, iters: int = 20, reps: int = 3) -> float:
+def l2_bytes(dev: torch.device) -> int:
+    """The card's L2 size (``L2_cache_size``); on the CPU the H100's 50 MiB,
+    so a CPU run rotates as the card would."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).L2_cache_size
+    return H100_L2_BYTES
+
+
+def cold_copies(nbytes: int, l2: int) -> int:
+    """Copies of a call's inputs to rotate over so that one pass over them
+    streams at least twice ``l2`` bytes: 1 when one call already does, else
+    the next power of two of 2 l2 / nbytes."""
+    if nbytes >= 2 * l2:
+        return 1
+    return 1 << max(0, math.ceil(math.log2(2 * l2 / nbytes)))
+
+
+def residency(dev: torch.device, copies: int, nbytes: int) -> str:
+    """Where a timed call's inputs came from: ``from HBM (n copies)`` when
+    the calls streamed at least twice the L2 between two uses of one copy,
+    else ``warm`` (the inputs may sit in L2); ``cpu`` on the CPU."""
+    if dev.type != "cuda":
+        return "cpu"
+    if copies * nbytes >= 2 * l2_bytes(dev):
+        return f"from HBM ({copies} {'copy' if copies == 1 else 'copies'})"
+    return "warm"
+
+
+def time_ms(fn, dev: torch.device, iters: int = 20, reps: int = 3,
+            copies: int | None = None) -> float:
     """Time of one call of ``fn``. On the card: ``iters`` back-to-back calls
     captured in a CUDA graph, replayed ``reps`` times between CUDA events
     (the host's launch cost stays out; calls on one stream run one after
-    the other, so none is elided). On the CPU: the host clock."""
+    the other, so none is elided). On the CPU: the host clock.
+
+    ``copies``: rotate over that many sets of inputs the caller allocated;
+    ``fn(i)`` is then called with the set's index, and the graph holds a
+    whole number of rotations, at least ``iters`` calls. With
+    :func:`cold_copies` of the call's bytes, every call finds its inputs
+    out of L2, as a call that streams weights from HBM does. Without it,
+    ``fn()`` runs on the same tensors every call (warm where they fit L2)."""
+    if copies is not None:
+        if copies < 1:
+            raise ValueError(f"copies must be >= 1, got {copies}")
+        calls = -(-iters // copies) * copies
+        order = [i % copies for i in range(calls)]
+    else:
+        order = [None] * iters
+
+    def run(i):
+        return fn() if i is None else fn(i)
+
     if dev.type != "cuda":
-        fn()
+        run(order[0])
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        for r in range(reps):
+            run(order[r % len(order)])
         return 1e3 * (time.perf_counter() - t0) / reps
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for i in order[:3]:
+            run(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in order:
+            run(i)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -60,7 +110,7 @@ def time_ms(fn, dev: torch.device, iters: int = 20, reps: int = 3) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
+    return start.elapsed_time(end) / (len(order) * reps)
 
 
 def gemm_bound_ms(m: int, k: int, n: int) -> float:

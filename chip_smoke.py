@@ -175,7 +175,9 @@ EXPECTED_KERNELS = {
     "tp2_per_op": _ENC + ["decode_attention_hd", "tp_allreduce"],
     # the probe tools, each run through its main
     "probes": ["tile_gemm", "blockdiag_decode_attention",
-               "batched_decode_attention", "smem_probe"],
+               "batched_decode_attention", "smem_probe", "int4_delivery_gemm",
+               "int4_unpack", "bulk_copy_ring", "clamped_chunk_sum",
+               "lane_stream_sum"],
 }
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
 # keywords, the unsharded path their tokens are held against
@@ -235,12 +237,26 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def time_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
+def time_ms(torch, fn, iters: int = 20, reps: int = 3,
+            copies: int | None = None) -> float:
     """Device time of one call: ``iters`` calls captured in a CUDA graph,
     replayed ``reps`` times between CUDA events (the graph keeps the host's
-    launch cost out of the kernel's time); the probe tools' timer."""
+    launch cost out of the kernel's time); the probe tools' timer. With
+    ``copies``, ``fn(i)`` rotates over that many input sets."""
     from acai_omr_tpu_torch.tools._probe import time_ms as graph_ms
-    return graph_ms(fn, torch.device("cuda"), iters, reps)
+    return graph_ms(fn, torch.device("cuda"), iters, reps, copies)
+
+
+def cold_ms(torch, fn, tensors) -> float:
+    """Device time of ``fn(*tensors)`` from HBM: the calls rotate over enough
+    copies of ``tensors`` (the weights) that each copy is out of L2 when it
+    is used again, as the decode step streams twelve layers' weights."""
+    from acai_omr_tpu_torch.tools._probe import cold_copies, l2_bytes
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = cold_copies(nbytes, l2_bytes(torch.device("cuda")))
+    sets = [tensors] + [[t.clone() for t in tensors]
+                        for _ in range(copies - 1)]
+    return time_ms(torch, lambda i: fn(*sets[i]), copies=copies)
 
 
 def time_ms_eager(torch, fn, iters: int = 20) -> float:
@@ -329,7 +345,7 @@ def check_kernels(torch, F, dev):
 
     def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
                peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None,
-               variant=None):
+               variant=None, cold=None):
         """``paths``: the main paths whose launches count for this case (the
         serving paths when None). ``variant``: the compiled variant or plan
         of the kernel this case launches (``KernelOp.variants``), where only
@@ -337,7 +353,8 @@ def check_kernels(torch, F, dev):
         scales after the kernel equal the twin's bit for bit (for K10, K14
         and K15: the whole output, every rank's for K15; for K8 and K9 wgrad: the fp32 column sums within
         1e-3 of their largest value; for K7: dq, dk and dv each within 2e-2
-        of its own largest value)."""
+        of its own largest value). ``cold``: the device ms from HBM (the
+        weights or inputs rotated out of L2), where it was measured."""
         t_k, t_host = t_k  # device ms and host us of one wrapper call
         err = (out_k.float() - out_p.float()).abs().max().item()
         b_ms, b_by = bound_ms(nbytes, nops, peak)
@@ -347,10 +364,12 @@ def check_kernels(torch, F, dev):
                       "ms": t_k, "host_us": t_host, "plain_ms": t_p,
                       "library_ms": t_lib,
                       "bound_ms": b_ms, "bound_by": b_by, "ok": ok,
-                      "paths": paths, "variant": variant})
+                      "paths": paths, "variant": variant, "cold_ms": cold})
         lib = "none" if t_lib is None else f"{t_lib:.4f}"
         print(f"[kernel] {op.name}[{case}] max_abs_err={err:.3e} tol={tol:.1e} "
-              f"kernel_ms={t_k:.4f} host_us={t_host:.1f} plain_ms={t_p:.4f} "
+              f"kernel_ms={t_k:.4f} "
+              + ("" if cold is None else f"cold_ms={cold:.4f} ")
+              + f"host_us={t_host:.1f} plain_ms={t_p:.4f} "
               f"library_ms={lib} "
               f"bound_ms={b_ms:.4f} ({b_by}) "
               + ("" if exact is None else f"exact={exact} ")
@@ -373,11 +392,13 @@ def check_kernels(torch, F, dev):
             (lambda: F.gelu(torch.addmm(b16, x, w)))
         # one bf16 ulp of the largest output is 0.4-0.8% of it
         tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
+        cold = cold_ms(torch, lambda w_: linear_bias_act(x, w_, b, act),
+                       [w]) if m == 32 else None
         record(linear_bias_act, f"{m}x{k}->{n},{act}", out_k, out_p, tol,
                kernel_times(lambda: linear_bias_act(x, w, b, act)),
                time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
                time_ms(torch, lib), 2 * (m * k + k * n + m * n) + 4 * n,
-               2 * m * n * k)
+               2 * m * n * k, cold=cold)
 
     # K1 at the meshed decode's shard shapes: the column-parallel qkv and ff1
     # of a tp = 2 rank, and the row-parallel partials (fp32, no bias) of the
@@ -513,7 +534,9 @@ def check_kernels(torch, F, dev):
                    x, w4, s_col, b, act)),
                time_ms(torch, lambda: torch._int_mm(x8, w8)),
                k * n + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
-               peak=PEAK_INT8_OP_PER_S)
+               peak=PEAK_INT8_OP_PER_S,
+               cold=cold_ms(torch, lambda w_: quant_linear_bias_act(
+                   x, w_, s_col, b, act), [w4]))
 
     # K5 on tp2_int8_w8a8 (ACAI_TP_W8A8): a tp = 2 rank's column-parallel
     # qkv / ff1 and its row-parallel partials (fp32, no bias; rows quantized
@@ -575,7 +598,9 @@ def check_kernels(torch, F, dev):
                time_ms(torch, lambda: torch._int_mm(x8, q)),
                k * n // 2 + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
                peak=PEAK_INT8_OP_PER_S, paths=["w4a8", "serve_wsgi"],
-               exact=torch.equal(out_k, out_p))
+               exact=torch.equal(out_k, out_p),
+               cold=cold_ms(torch, lambda w_: quant4_linear_bias_act(
+                   x, w_, s_col, b, act), [wp]))
 
     # K6: int8 caches with bf16 scales. Bound: the int8 K/V bytes plus the
     # scale bytes of the keys attended to. No library call computes this
@@ -829,7 +854,127 @@ def probe_cases(torch, F, record, kernel_times, dev):
                x, n_bytes)), None, 2 * x.numel() * 2, x.numel(),
            peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
            exact=torch.equal(out_k[0], out_p[0]) and refused)
+    int4_stream_cases(torch, record, kernel_times, dev)
     print(f"[probes] checked in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def int4_stream_cases(torch, record, kernel_times, dev):
+    """K20-K24 against their twins at the tools' shapes. K20: the five
+    schemes at (8, 256, 512) and (8, 1024, 4096), exact; library none
+    (``torch._int_mm`` takes more than 16 rows); bound the weight, row and
+    output bytes. K21: the five schemes at (512, 4096), one unpack, bit for
+    bit; library none (no one call unpacks nibbles); bound 2 MiB in, 4 MiB
+    out. K22: F = 1..16 at the tool's defaults, the tile bit for bit; library
+    none (the output is one tile, the stream is the probe); bound the
+    stream. K23: both modes at s = 1 / 31 / 63, within 1e-5 of the largest
+    |output|, two runs bit-equal; library ``torch.sum`` of chunks 0..s in
+    fp32 (s known on the host); bound (s + 1) chunks; the twin reads s on
+    the host, so it is timed with events around eager calls. K24: lanes 16 / 128,
+    the same tolerance; library ``x.sum((0, 1))`` (without the carry);
+    bound x. ``cold`` rotates the inputs out of L2 where they fit it."""
+    from acai_omr_tpu_torch.ops import int4_probe_kernels as ik
+    from acai_omr_tpu_torch.ops import stream_probe_kernels as sk
+    from acai_omr_tpu_torch.tools import dma_issue_probe as dip
+    from acai_omr_tpu_torch.tools import int4_probe as i4p
+    from acai_omr_tpu_torch.tools import narrow_lane_dma_probe as nlp
+    from acai_omr_tpu_torch.tools import unpack_probe as upp
+    from acai_omr_tpu_torch.tools._probe import cold_copies, l2_bytes
+
+    print("[probes] K20-K24 against their twins", flush=True)
+    for shape in (i4p.LEGALITY_SHAPE, i4p.TIMING_SHAPE):
+        bt, cin, cout = shape
+        lo, hi, x = i4p.make_inputs(bt, cin, cout, dev)
+        for scheme in ik.GEMM_SCHEMES:
+            w = ik.scheme_weights(lo, hi, scheme)
+            call = lambda: ik.int4_delivery_gemm(x, w, scheme)
+            out_k, out_p = call(), ik.int4_delivery_gemm.plain(x, w, scheme)
+            record(ik.int4_delivery_gemm, f"{scheme} bt={bt} {cin}->{cout} "
+                   f"(library: none, _int_mm takes more than 16 rows)",
+                   out_k, out_p, 0.0, kernel_times(call),
+                   time_ms(torch, lambda: ik.int4_delivery_gemm.plain(
+                       x, w, scheme)), None,
+                   w.numel() * w.element_size() + bt * cin + 4 * bt * cout,
+                   2 * bt * cin * cout, peak=PEAK_INT8_OP_PER_S,
+                   paths=["probes"], exact=torch.equal(out_k, out_p),
+                   variant=scheme,
+                   cold=cold_ms(torch, lambda w_: ik.int4_delivery_gemm(
+                       x, w_, scheme), [w]))
+
+    wp, want = upp.make_block(device=dev)
+    for scheme in ik.UNPACK_SCHEMES:
+        call = lambda: ik.int4_unpack(wp, scheme, 1)
+        out_k = call()
+        record(ik.int4_unpack, f"{scheme} ({upp.HALF},{upp.OUT}) packed, one "
+               f"unpack", out_k, want, 0.0, kernel_times(call),
+               time_ms(torch, lambda: ik.int4_unpack.plain(wp, scheme)), None,
+               3 * wp.numel(),
+               2 * 16 * wp.numel() if scheme == "eyedot" else 0,
+               peak=PEAK_INT8_OP_PER_S, paths=["probes"],
+               exact=torch.equal(out_k, want), variant=scheme)
+
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    src = dip.make_src(48, 64, blocks, dev)
+    for frags in (1, 2, 4, 8, 16):
+        call = lambda: sk.bulk_copy_ring(src, 3, frags, blocks)
+        out_k, out_p = call(), sk.bulk_copy_ring.plain(src, 3, frags, blocks)
+        record(sk.bulk_copy_ring, f"F={frags} 48 steps x {blocks} blocks x 3 "
+               f"slots of 64 KB (library: none)", out_k, out_p, 0.0,
+               kernel_times(call), time_ms(torch, lambda: sk.bulk_copy_ring
+                                           .plain(src, 3, frags, blocks)),
+               None, src.numel() * 2 + out_k.numel() * 2, 0,
+               paths=["probes"], exact=torch.equal(out_k, out_p),
+               variant=f"F={frags}")
+    del src
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn(64, 4096, 1024, generator=g, device=dev).to(torch.bfloat16)
+    chunk = x[0].numel() * 2
+    for mode in sk.MODES:
+        for s in (1, 31, 63):
+            s_dev = torch.tensor([s], dtype=torch.int32, device=dev)
+            call = lambda: sk.clamped_chunk_sum(x, s_dev, mode)
+            out_k, again = call(), call()
+            out_p = sk.clamped_chunk_sum.plain(x, s_dev, mode)
+            # copies start (s + 1) chunks apart in one tensor; an own tensor
+            # per copy would hold 512 MiB each
+            copies = cold_copies((s + 1) * chunk, l2_bytes(dev))
+            x_all = torch.cat([x] + [x[:s + 1]] * (copies - 1)) \
+                if copies > 1 else x
+            views = [x_all[j * (s + 1): j * (s + 1) + 64]
+                     for j in range(copies)]
+            record(sk.clamped_chunk_sum, f"{mode} s={s} x (64,4096,1024) "
+                   f"(library: torch.sum of chunks 0..s)", out_k, out_p,
+                   1e-5 * max(1.0, out_p.abs().max().item()),
+                   kernel_times(call),
+                   time_ms_eager(torch, lambda: sk.clamped_chunk_sum.plain(
+                       x, s_dev, mode), iters=5),
+                   time_ms(torch, lambda: torch.sum(
+                       x[:s + 1], dim=(0, 1), dtype=torch.float32)),
+                   (s + 1) * chunk + 4 + 4 * 1024, (s + 1) * chunk // 2,
+                   peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
+                   exact=torch.equal(out_k, again), variant=mode,
+                   cold=time_ms(torch, lambda i: sk.clamped_chunk_sum(
+                       views[i], s_dev, mode), copies=copies))
+            del x_all, views
+    del x
+    torch.cuda.empty_cache()
+
+    for lanes in (16, 128):
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(nlp.N_BLOCKS, nlp.T, lanes, generator=g, device=dev)
+        c = torch.randn(1, lanes, generator=g, device=dev)
+        call = lambda: sk.lane_stream_sum(x, c)
+        out_k, out_p = call(), sk.lane_stream_sum.plain(x, c)
+        record(sk.lane_stream_sum, f"lanes={lanes} x ({nlp.N_BLOCKS},{nlp.T},"
+               f"{lanes}) (library: x.sum((0, 1)), no carry)", out_k, out_p,
+               1e-5 * max(1.0, out_p.abs().max().item()), kernel_times(call),
+               time_ms(torch, lambda: sk.lane_stream_sum.plain(x, c)),
+               time_ms(torch, lambda: x.sum(dim=(0, 1))),
+               x.numel() * 4 + 8 * lanes, x.numel(),
+               peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
+               variant=f"lanes={lanes}",
+               cold=cold_ms(torch, lambda x_: sk.lane_stream_sum(x_, c),
+                            [x]))
 
 
 def probes_path(torch):
@@ -837,9 +982,12 @@ def probes_path(torch):
     runs ``python -m acai_omr_tpu_torch.tools.<name>``, the launch counts
     reset just before and read just after; the tools' lines kept."""
     from acai_omr_tpu_torch.ops import _build
-    from acai_omr_tpu_torch.tools import (attn_microbench, gemm_probe,
-                                          mosaic_dot_forms_probe,
-                                          pallas_gemm_probe, vmem_probe)
+    from acai_omr_tpu_torch.tools import (attn_microbench, dma_issue_probe,
+                                          dma_skip_probe, gemm_probe,
+                                          int4_probe, mosaic_dot_forms_probe,
+                                          narrow_lane_dma_probe,
+                                          pallas_gemm_probe, unpack_probe,
+                                          vmem_probe)
     lines, res = {}, {}
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -847,7 +995,12 @@ def probes_path(torch):
                        ("pallas_gemm_probe", pallas_gemm_probe),
                        ("mosaic_dot_forms_probe", mosaic_dot_forms_probe),
                        ("attn_microbench", attn_microbench),
-                       ("vmem_probe", vmem_probe)]:
+                       ("vmem_probe", vmem_probe),
+                       ("int4_probe", int4_probe),
+                       ("unpack_probe", unpack_probe),
+                       ("dma_issue_probe", dma_issue_probe),
+                       ("dma_skip_probe", dma_skip_probe),
+                       ("narrow_lane_dma_probe", narrow_lane_dma_probe)]:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
             res[name] = tool.main([])
@@ -2386,6 +2539,26 @@ def main() -> int:
     if not all(r["max_abs_err"] <= 1e-2 * max(1.0, r["ref_max"])
                for r in res["pallas_gemm_probe"]):
         failures.append("probes: pallas_gemm_probe's spot check")
+    i4 = res["int4_probe"]
+    if not (all(i4["legality"].values()) and len(i4["legality"]) == 5
+            and len(i4["timing"]) == 5):
+        failures.append(f"probes: int4_probe schemes {i4['legality']}")
+    up = res["unpack_probe"]
+    if not all(r["exact"] for r in up.values()):
+        failures.append("probes: an unpack scheme is not exact")
+    # a folded reps loop would take no longer for 2n reps than for n
+    folded = [n for n, r in up.items()
+              if r["exact"] and not r["t_2n_ms"] > 1.5 * r["t_n_ms"]]
+    if folded:
+        failures.append(f"probes: unpack reps folded for {folded}")
+    di = res["dma_issue_probe"]
+    if not di["tile_ok"] or not di["ns_per_issue"] >= 0:
+        failures.append(f"probes: dma_issue_probe tile {di['tile_ok']}, "
+                        f"{di['ns_per_issue']:.2f} ns per issue")
+    if not res["dma_skip_probe"]["ok"]:
+        failures.append("probes: dma_skip_probe sums or runs differ")
+    if not res["narrow_lane_dma_probe"]["ok"]:
+        failures.append("probes: narrow_lane_dma_probe sums")
 
     def finish_path(name, n_tokens, decode_s, extra, steps=None):
         """Read the launch counts of the path just driven; check and print.
@@ -2686,7 +2859,8 @@ def main() -> int:
                 "device_launches": path_sum("device_launches", c),
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                 "host_us": c["host_us"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                **({} if c["cold_ms"] is None else {"cold_ms": c["cold_ms"]})}
                for c in cases]
     failures += [f"launches[{k['name']}]=0" for k in kernels
                  if k["launches"] <= 0]

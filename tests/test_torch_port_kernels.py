@@ -813,3 +813,133 @@ def test_smem_probe_up_to_the_card_limit(dev):
         pk.smem_probe(x, (optin // 1024 + 1) * 1024)
     assert torch.equal(pk.smem_probe(x, 4096)[0], x[0] * 2)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the int4 and memory-stream probes' kernels: K20 int4_delivery_gemm, K21
+# int4_unpack, K22 bulk_copy_ring, K23 clamped_chunk_sum, K24
+# lane_stream_sum. K20-K22 exact; K23 / K24 fp32 sums within 1e-5 of the
+# largest output (another order of the same sums), two runs bit-equal
+# ---------------------------------------------------------------------------
+
+from acai_omr_tpu_torch.ops import int4_probe_kernels as ik  # noqa: E402
+from acai_omr_tpu_torch.ops import stream_probe_kernels as sk  # noqa: E402
+
+
+def _int4(g, shape, dev, low=-8, high=8):
+    return torch.randint(low, high, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("scheme", ik.GEMM_SCHEMES)
+@pytest.mark.parametrize("bt,cin,cout", [(8, 256, 512), (8, 1024, 4096),
+                                         (3, 512, 1024), (32, 1024, 512),
+                                         (16, 4096, 1024)])
+def test_int4_delivery_gemm(dev, scheme, bt, cin, cout):
+    g = torch.Generator(device=dev).manual_seed(40 + bt)
+    lo, hi = _int4(g, (cin // 2, cout), dev), _int4(g, (cin // 2, cout), dev)
+    x = _int4(g, (bt, cin), dev, -127, 128)
+    w = ik.scheme_weights(lo, hi, scheme)
+    out = ik.int4_delivery_gemm(x, w, scheme)
+    assert out.dtype == torch.int32 and out.shape == (bt, cout)
+    assert torch.equal(out, ik.int4_delivery_gemm.plain(x, w, scheme))
+
+
+@pytest.mark.parametrize("scheme", ik.GEMM_SCHEMES)
+def test_int4_delivery_gemm_extremes(dev, scheme):
+    """-8 on both sides of the packing, rows of +-127: the largest sums."""
+    lo = torch.full((128, 512), -8, dtype=torch.int8, device=dev)
+    hi = torch.full((128, 512), 7, dtype=torch.int8, device=dev)
+    hi[::2] = -8
+    x = torch.full((8, 256), 127, dtype=torch.int8, device=dev)
+    x[1::2] = -127
+    w = ik.scheme_weights(lo, hi, scheme)
+    assert torch.equal(ik.int4_delivery_gemm(x, w, scheme),
+                       ik.int4_delivery_gemm.plain(x, w, scheme))
+
+
+@pytest.mark.parametrize("scheme", ik.UNPACK_SCHEMES)
+def test_int4_unpack_every_byte(dev, scheme):
+    g = torch.Generator(device=dev).manual_seed(41)
+    packed = _int4(g, (512, 4096), dev, -128, 128)
+    packed[0, :256] = torch.arange(-128, 128, device=dev).to(torch.int8)
+    want = ik.int4_unpack.plain(packed, scheme)
+    for reps in (1, 3):
+        assert torch.equal(ik.int4_unpack(packed, scheme, reps), want)
+
+
+def test_int4_unpack_reps_are_not_folded(dev):
+    """The reps loop runs every rep: twice the reps take over 1.5x the
+    time, for every scheme."""
+    from acai_omr_tpu_torch.tools._probe import time_ms
+    packed = _int4(torch.Generator(device=dev).manual_seed(42), (512, 4096),
+                   dev, -128, 128)
+    for scheme in ik.UNPACK_SCHEMES:
+        t_n = time_ms(lambda: ik.int4_unpack(packed, scheme, 50), dev, 5)
+        t_2n = time_ms(lambda: ik.int4_unpack(packed, scheme, 100), dev, 5)
+        assert t_2n > 1.5 * t_n, (scheme, t_n, t_2n)
+
+
+@pytest.mark.parametrize("frags", [1, 2, 4, 8, 16])
+def test_bulk_copy_ring(dev, frags):
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(43)
+    src = _randn(g, 48, 32 * blocks, sk.LANES, dev=dev)
+    out = sk.bulk_copy_ring(src, 3, frags, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(out, sk.bulk_copy_ring.plain(src, 3, frags, blocks))
+
+
+@pytest.mark.parametrize("steps,slots,rows", [(1, 2, 8), (2, 6, 16),
+                                              (7, 4, 24)])
+def test_bulk_copy_ring_short_streams(dev, steps, slots, rows):
+    g = torch.Generator(device=dev).manual_seed(44)
+    src = _randn(g, steps, rows * 5, sk.LANES, dev=dev)
+    out = sk.bulk_copy_ring(src, slots, 2, 5)
+    assert torch.equal(out, src[-1, :8, :128])
+
+
+def test_stream_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    src = torch.zeros(2, 64, sk.LANES, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.bulk_copy_ring(src, 8, 1, 1)  # 8 x 128 KB
+    with pytest.raises(ValueError, match="16 bytes"):
+        sk.bulk_copy_ring(src, 2, 3, 2)
+    with pytest.raises(ValueError, match="slots"):
+        sk.bulk_copy_ring(src, 9, 1, 8)
+    x = torch.zeros(4, 64, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        sk.clamped_chunk_sum(x, torch.zeros(1, device=dev))
+    with pytest.raises(ValueError, match="lanes"):
+        sk.lane_stream_sum(torch.zeros(4, 64, 24, device=dev),
+                           torch.zeros(1, 24, device=dev))
+
+
+@pytest.fixture(scope="module")
+def chunks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(45)
+    return torch.randn(64, 4096, 1024, generator=g,
+                       device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", sk.MODES)
+@pytest.mark.parametrize("s", [-1, 0, 1, 31, 63, 70])
+def test_clamped_chunk_sum(dev, chunks, mode, s):
+    s_dev = torch.tensor([s], dtype=torch.int32, device=dev)
+    out = sk.clamped_chunk_sum(chunks, s_dev, mode)
+    again = sk.clamped_chunk_sum(chunks, s_dev, mode)
+    assert torch.equal(out, again)
+    _close(out, sk.clamped_chunk_sum.plain(chunks, s_dev, mode), 1e-5)
+
+
+@pytest.mark.parametrize("lanes,blocks,t", [(16, 256, 512), (128, 256, 512),
+                                            (4, 3, 1024), (256, 5, 8)])
+def test_lane_stream_sum(dev, lanes, blocks, t):
+    g = torch.Generator(device=dev).manual_seed(46)
+    x = torch.randn(blocks, t, lanes, generator=g, device=dev)
+    c = torch.randn(1, lanes, generator=g, device=dev)
+    out = sk.lane_stream_sum(x, c)
+    assert torch.equal(out, sk.lane_stream_sum(x, c))
+    _close(out, sk.lane_stream_sum.plain(x, c), 1e-5)
