@@ -19,6 +19,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "func_attrs.cuh"
+
 namespace {
 
 constexpr int ROWS = 4;
@@ -95,3 +97,10 @@ extern "C" int acai_add_layernorm(const void* x, const void* r,
       eps);
   return (int)cudaGetLastError();
 }
+
+// The resource report of the kernels above (func_attrs.cuh): block size and
+// dynamic shared memory as the launcher uses them.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("add_layernorm", "", add_layernorm_kernel, ROWS * 32, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

@@ -40,6 +40,8 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "func_attrs.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -445,3 +447,13 @@ extern "C" int acai_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dh == 32 ? launch<32>(p, s) : launch<64>(p, s);
 }
+
+// The resource report of the kernels above (func_attrs.cuh): block size and
+// dynamic shared memory as the launcher uses them.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("attention_bwd", "dh64", attn_bwd_dq<64>, THREADS, Dims<64>::DQ_SMEM),
+    ACAI_KERNEL("attention_bwd", "dh64", attn_bwd_dkv<64>, THREADS, Dims<64>::DKV_SMEM),
+    ACAI_KERNEL("attention_bwd", "dh32", attn_bwd_dq<32>, THREADS, Dims<32>::DQ_SMEM),
+    ACAI_KERNEL("attention_bwd", "dh32", attn_bwd_dkv<32>, THREADS, Dims<32>::DKV_SMEM),
+};
+ACAI_EXPORT_RESOURCES(kResources)

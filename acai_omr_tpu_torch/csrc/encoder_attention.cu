@@ -48,6 +48,8 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "func_attrs.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -260,3 +262,11 @@ extern "C" int acai_encoder_attention(const void* q, const void* k,
   return launch<64>(q, k, v, valid, out, B, Tq, Tk, H, ldq, ldkv, scale,
                     causal, s);
 }
+
+// The resource report of the kernels above (func_attrs.cuh): block size and
+// dynamic shared memory as the launcher uses them.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("encoder_attention", "dh64", encoder_attention_kernel<64>, THREADS, 0),
+    ACAI_KERNEL("encoder_attention", "dh32", encoder_attention_kernel<32>, THREADS, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

@@ -28,6 +28,7 @@
 #include <cstdint>
 
 #include "dropout.cuh"
+#include "func_attrs.cuh"
 
 namespace {
 
@@ -188,3 +189,12 @@ extern "C" int acai_layernorm_bwd(const void* g, const void* z,
       static_cast<float*>(dbeta), E);
   return (int)cudaGetLastError();
 }
+
+// The resource report of the kernels above (func_attrs.cuh): block size and
+// dynamic shared memory as the launcher uses them.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("layernorm_bwd", "", ln_bwd_rows, ROWS * 32, 0),
+    ACAI_KERNEL("layernorm_bwd", "", ln_bwd_cols, CX * CY, 0),
+    ACAI_KERNEL("layernorm_bwd", "", ln_bwd_final, 256, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

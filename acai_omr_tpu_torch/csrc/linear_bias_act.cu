@@ -40,6 +40,7 @@
 #include <cstdint>
 
 #include "dropout.cuh"
+#include "func_attrs.cuh"
 
 using namespace nvcuda;
 
@@ -237,3 +238,11 @@ extern "C" int acai_linear_bias_act(const void* a, const void* w,
   }
   return (int)cudaGetLastError();
 }
+
+// The resource report of the kernels above (func_attrs.cuh): block size and
+// dynamic shared memory as the launcher uses them.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("linear_bias_act", "", linear_kernel, THREADS, 0),
+    ACAI_KERNEL("linear_bias_act", "", reduce_kernel, 256, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

@@ -34,6 +34,7 @@
 #include <cstdint>
 
 #include "dropout.cuh"
+#include "func_attrs.cuh"
 
 using namespace nvcuda;
 
@@ -314,3 +315,14 @@ extern "C" int acai_linear_wgrad(const void* x, const void* dy, void* dw,
       static_cast<const float*>(db_partial), slabs, static_cast<float*>(db), N);
   return (int)cudaGetLastError();
 }
+
+// The resource report of the kernels above (func_attrs.cuh): block size and
+// dynamic shared memory as the launcher uses them.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("linear_dgrad", "", dgrad_kernel, THREADS, 0),
+    ACAI_KERNEL("linear_wgrad", "", wgrad_kernel, THREADS, 0),
+    ACAI_KERNEL("linear_wgrad", "", wgrad_reduce, 256, 0),
+    ACAI_KERNEL("linear_wgrad", "", colsum_slabs, CX * CY, 0),
+    ACAI_KERNEL("linear_wgrad", "", colsum_final, 256, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

@@ -10,7 +10,9 @@ source or header never loads a stale library.
 
 :class:`KernelOp` is the wrapper every kernel of the port goes through: it
 launches the kernel for CUDA tensors, runs the plain PyTorch twin for CPU
-tensors (and only then), and counts its launches.
+tensors (and only then), and counts its launches. :func:`resources` reads a
+source's resource table (``csrc/func_attrs.cuh``): registers, local (spill)
+bytes, shared memory and resident blocks per SM of every compiled variant.
 """
 
 from __future__ import annotations
@@ -124,6 +126,33 @@ def bind(name: str, fn: str, argtypes: list):
     return f
 
 
+RESOURCE_FIELDS = ("registers", "local_bytes", "static_smem",
+                   "max_dynamic_smem", "blocks_per_sm", "threads",
+                   "dynamic_smem")
+
+
+def resources(name: str) -> list[dict]:
+    """The resource table of ``csrc/<name>.cu``: one dict per compiled kernel
+    variant it lists, with ``op``, ``variant`` (the key of
+    ``KernelOp.variants`` it belongs to, "" for every launch of the op),
+    ``kernel`` and :data:`RESOURCE_FIELDS` as the CUDA runtime reports them
+    on the current device."""
+    lib = library(name)
+    count = lib.acai_resource_count
+    count.argtypes, count.restype = [], ctypes.c_int
+    label = lib.acai_resource_name
+    label.argtypes, label.restype = [ctypes.c_int], ctypes.c_char_p
+    query = bind(name, "acai_resources", [ctypes.c_int, ctypes.c_void_p])
+    rows = []
+    for i in range(count()):
+        out = (ctypes.c_int * len(RESOURCE_FIELDS))()
+        check(query(i, ctypes.addressof(out)), f"csrc/{name}.cu resources")
+        op, variant, kernel = label(i).decode().split("|")
+        rows.append({"op": op, "variant": variant, "kernel": kernel,
+                     **dict(zip(RESOURCE_FIELDS, out))})
+    return rows
+
+
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -180,6 +209,14 @@ class KernelOp:
     @property
     def device_launches(self) -> int:
         return self.launches + self.extra_launches
+
+    def resources(self, variant: str | None = None) -> list[dict]:
+        """The resource rows (:func:`resources`) of this op's device kernels;
+        with ``variant``, only those its launches of that variant run. Needs
+        the card: the query builds and loads the source."""
+        lib = self.source.rsplit("/", 1)[-1].removesuffix(".cu")
+        return [r for r in resources(lib) if r["op"] == self.name
+                and (variant is None or r["variant"] in ("", variant))]
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
         if x.device.type == "cpu":

@@ -49,6 +49,10 @@ The JAX package chooses between two schedules of the same gradients,
 ``_bwd_kernel`` and ``_bwd_split_kernel``, with ``ACAI_BWD_SPLIT``. The sweep
 here is always the split schedule (:func:`_backward`), so that switch has no
 counterpart, and neither has its VMEM gate (``bwd_split_fits``).
+
+:func:`set_ablate` stubs stages of the hand-written backward, as the JAX
+package's ``set_ablate`` stubs those of ``_bwd_kernel`` for
+``tools/bwd_vmem_probe.py``.
 """
 
 from __future__ import annotations
@@ -69,6 +73,29 @@ Params = dict
 LN_EPS = 1e-5
 # dropout sites of a layer (the stream is layer * 8 + site)
 SITE_SA, SITE_CA, SITE_H1, SITE_FF = 0, 1, 2, 3
+
+# stages of the backward that set_ablate may stub; "attnonly" is accepted
+# and stubs nothing, as no branch of the JAX kernel reads it
+ABLATE_MODES = ("full", "nocross", "noself", "noffn", "attnonly")
+_ABLATE = "full"
+
+
+def set_ablate(mode: str) -> None:
+    """Stub one stage of the hand-written backward (``tools/bwd_vmem_probe``):
+    ``noffn`` skips the FFN's launches (the x2 recompute, K9 products) and
+    passes dx2 = dz3 on, with zero FFN weight and bias gradients; ``nocross``
+    skips the cross-attention's (the x1 / qc recompute, K3, K7, its K9
+    products): zero d(mem_kv), d(w_qc), d(b_qc), d(w_oc), dx1 = dz2, while
+    d(b_oc) stays the sum of dca; ``noself`` the self-attention's: zero
+    d(w_qkv), d(b_qkv), d(w_out), dx = dz1, while d(b_out) stays the sum of
+    dsa. Those are the values ``pallas_train_layer._bwd_kernel``'s branches
+    leave. ``full`` (the default) and ``attnonly`` stub nothing. Callers set
+    it back to ``full`` in a ``finally``."""
+    global _ABLATE
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"ablate mode must be one of {ABLATE_MODES}, got "
+                         f"{mode!r}")
+    _ABLATE = mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,18 +241,32 @@ def _backward(m: _Meta, w: Params, mem_kv, saves, g: torch.Tensor,
         # LN(ff residual) + FFN
         dz3, dff, d["ln_ff_g"][l], d["ln_ff_b"][l] = ops.ln_bwd(
             g, z3, w["ln_ff_g"][l], LN_EPS, m.site(l, SITE_FF))
-        if m.cross:
-            x2 = ops.ln(z2, None, w["ln_ca_g"][l], w["ln_ca_b"][l], LN_EPS)
+        if _ABLATE == "noffn":
+            for k in ("w_ff2", "b_ff2", "w_ff1", "b_ff1"):
+                d[k][l].zero_()
+            dx2 = dz3
         else:
-            x2 = ops.ln(z1, None, w["ln_sa_g"][l], w["ln_sa_b"][l], LN_EPS)
-        ops.wgrad(h1, dff, d["w_ff2"][l], d["b_ff2"][l])
-        du = ops.dgrad(dff, w["w_ff2"][l], m.site(l, SITE_H1), gp)
-        ops.wgrad(x2, du, d["w_ff1"][l], d["b_ff1"][l])
-        dx2 = ops.dgrad(du, w["w_ff1"][l], None, None, dz3)
+            if m.cross:
+                x2 = ops.ln(z2, None, w["ln_ca_g"][l], w["ln_ca_b"][l],
+                            LN_EPS)
+            else:
+                x2 = ops.ln(z1, None, w["ln_sa_g"][l], w["ln_sa_b"][l],
+                            LN_EPS)
+            ops.wgrad(h1, dff, d["w_ff2"][l], d["b_ff2"][l])
+            du = ops.dgrad(dff, w["w_ff2"][l], m.site(l, SITE_H1), gp)
+            ops.wgrad(x2, du, d["w_ff1"][l], d["b_ff1"][l])
+            dx2 = ops.dgrad(du, w["w_ff1"][l], None, None, dz3)
         # LN(cross residual) + cross-attention
         if m.cross:
             dz2, dca, d["ln_ca_g"][l], d["ln_ca_b"][l] = ops.ln_bwd(
                 dx2, z2, w["ln_ca_g"][l], LN_EPS, m.site(l, SITE_CA))
+        if m.cross and _ABLATE == "nocross":
+            for k in ("w_oc", "w_qc", "b_qc"):
+                d[k][l].zero_()
+            d["b_oc"][l] = dca.float().sum(0)
+            d_mem[l].zero_()
+            dx1 = dz2
+        elif m.cross:
             x1 = ops.ln(z1, None, w["ln_sa_g"][l], w["ln_sa_b"][l], LN_EPS)
             qc = ops.lin(x1, w["w_qc"][l], w["b_qc"][l])
             a_c = ops.attn(qc, m.mem_valid, h, False, mem_kv[l])
@@ -242,6 +283,14 @@ def _backward(m: _Meta, w: Params, mem_kv, saves, g: torch.Tensor,
         # LN(self residual) + self-attention
         dz1, dsa, d["ln_sa_g"][l], d["ln_sa_b"][l] = ops.ln_bwd(
             dx1, z1, w["ln_sa_g"][l], LN_EPS, m.site(l, SITE_SA))
+        if _ABLATE == "noself":
+            for k in ("w_out", "w_qkv", "b_qkv"):
+                d[k][l].zero_()
+            d["b_out"][l] = dsa.float().sum(0)
+            if l == 0 and not need_dx:
+                return None, d_mem, d
+            g = dz1
+            continue
         a_s = ops.attn(qkv, m.self_valid, h, m.causal)
         da_s = ops.dgrad(dsa, w["w_out"][l])
         dqkv = torch.empty_like(qkv)

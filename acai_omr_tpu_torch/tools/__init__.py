@@ -1,6 +1,7 @@
 """The port's probe tools: the GEMM and decode-attention probes, the scratch
-probe, the int4 delivery and unpack probes and the memory-stream probes of
-the JAX package's ``tools/``, run on the card as
+probe, the int4 delivery and unpack probes, the memory-stream probes, the
+head-access and batched-logit probes, the elementwise-rate probe and the
+backward's resource probe of the JAX package's ``tools/``, run on the card as
 ``python -m acai_omr_tpu_torch.tools.<name>``.
 
 Each runs on ``cuda`` and raises without a GPU, unless the caller passes

@@ -1,9 +1,10 @@
-"""What the probe tools share: the device they run on, its name, and a
-timer that can time from HBM."""
+"""What the probe tools share: the device they run on, its name, the card's
+peaks, and a timer that can time from HBM."""
 
 from __future__ import annotations
 
 import math
+import subprocess
 import time
 
 import torch
@@ -13,6 +14,11 @@ PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OP_PER_S = 1979e12
 H100_L2_BYTES = 50 * 2 ** 20
+# per SM and clock (Hopper tuning guide): fp32 instructions (128 lanes, an
+# FMA one instruction: 132 x 128 x 2 x 1.98 GHz is the data sheet's 67 TFLOP/s
+# fp32) and MUFU operations (exp2, rcp, rsqrt: 16)
+FP32_LANES_PER_SM = 128
+MUFU_PER_SM = 16
 
 
 def resolve(device) -> torch.device:
@@ -33,12 +39,35 @@ def label(dev: torch.device) -> str:
     return "cpu"
 
 
+def cpu_note(dev: torch.device) -> str:
+    """What a line adds when it ran on the CPU: the plain twins, timed on the
+    host's clock; nothing on the card."""
+    return "" if dev.type == "cuda" else "  [cpu: plain twins, host clock]"
+
+
 def l2_bytes(dev: torch.device) -> int:
     """The card's L2 size (``L2_cache_size``); on the CPU the H100's 50 MiB,
     so a CPU run rotates as the card would."""
     if dev.type == "cuda":
         return torch.cuda.get_device_properties(dev).L2_cache_size
     return H100_L2_BYTES
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's SMs."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def sm_clock_hz(dev: torch.device) -> float | None:
+    """The card's highest SM clock (``nvidia-smi --query-gpu=clocks.max.sm``);
+    None on the CPU, where no card's clock applies."""
+    if dev.type != "cuda":
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={dev.index or 0}",
+         "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
 
 
 def cold_copies(nbytes: int, l2: int) -> int:

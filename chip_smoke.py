@@ -36,14 +36,25 @@ Phases, all in one process; any failure exits non-zero:
    dot-forms probe's shapes and at (8192, 768, 3072); K17
    blockdiag_decode_attention (bf16 at bt 2 / 4 / 8, int8 at bt 4 / 8) and
    K18 batched_decode_attention (bt 4) at B = 32, H = 16, Dh = 64, T = 512;
-   K19 smem_probe at 227 KB (row 0 bit for bit), 228 KB refused; each
-   against its twin, timed beside its bound and the library call. Then the
-   probes' main path, the launch counts reset before it and read after:
-   ``main`` of the five tools of ``acai_omr_tpu_torch/tools`` (gemm_probe,
-   pallas_gemm_probe, mosaic_dot_forms_probe, attn_microbench, vmem_probe),
-   their lines printed; every dot form right, the largest scratch that
-   launches equal to cudaDevAttrMaxSharedMemoryPerBlockOptin and at least
-   the 227 KB ops/decode_hd_kernel.py assumes;
+   K19 smem_probe at 227 KB (row 0 bit for bit), 228 KB refused; K20-K24
+   (the int4 and memory-stream probes' kernels, ``int4_stream_cases``); K25
+   head_logits in its three access forms at (T, E, H) = (256, 1024, 16) and
+   (1024, 768, 12), K26 batched_head_logits in fp32 and int8 (exact), K27
+   resident_elementwise in its five works at 8 passes; each against its
+   twin, timed beside its bound and the library call; the resource rows
+   (registers, local bytes, shared memory, blocks per SM) of K25-K27. Then
+   the probes' main path, the launch counts reset before it and read after:
+   ``main`` of the fourteen tools of ``acai_omr_tpu_torch/tools`` (gemm_probe,
+   pallas_gemm_probe, mosaic_dot_forms_probe, attn_microbench, vmem_probe,
+   int4_probe, unpack_probe, dma_issue_probe, dma_skip_probe,
+   narrow_lane_dma_probe, mosaic_head_access_probe, mosaic_batched_attn_probe,
+   vpu_probe, and bwd_vmem_probe once per mode: full, nocross, noself,
+   noffn, which prints the resource rows of every kernel the decoder
+   backward launches), their lines printed; every dot form right, the
+   largest scratch that launches equal to
+   cudaDevAttrMaxSharedMemoryPerBlockOptin and at least the 227 KB
+   ops/decode_hd_kernel.py assumes, every head-access form and K27 work
+   right, every backward mode OK with the launches of its layer arithmetic;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -177,8 +188,11 @@ EXPECTED_KERNELS = {
     "probes": ["tile_gemm", "blockdiag_decode_attention",
                "batched_decode_attention", "smem_probe", "int4_delivery_gemm",
                "int4_unpack", "bulk_copy_ring", "clamped_chunk_sum",
-               "lane_stream_sum"],
+               "lane_stream_sum", "head_logits", "batched_head_logits",
+               "resident_elementwise"],
 }
+# the stages bwd_vmem_probe stubs in the probes path, one run each
+BWD_PROBE_MODES = ("full", "nocross", "noself", "noffn")
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
 # keywords, the unsharded path their tokens are held against
 TP_PATHS = {
@@ -855,6 +869,7 @@ def probe_cases(torch, F, record, kernel_times, dev):
            peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
            exact=torch.equal(out_k[0], out_p[0]) and refused)
     int4_stream_cases(torch, record, kernel_times, dev)
+    access_vpu_cases(torch, record, kernel_times, dev)
     print(f"[probes] checked in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -977,33 +992,141 @@ def int4_stream_cases(torch, record, kernel_times, dev):
                             [x]))
 
 
+def access_vpu_cases(torch, record, kernel_times, dev):
+    """K25-K27 against their twins at the tools' shapes. K25: the three forms
+    at (T, E, H) = (256, 1024, 16) and (1024, 768, 12), fp32 out within 1e-5
+    of the largest |logit|; bound q and k read once, the logits written once
+    (the 2 H T^2 64 flops at the bf16 peak are smaller); library
+    ``torch.matmul`` on the (H, T, 64) views, bf16 out. K26: fp32 and int8 at
+    BT = 8, T = 128, E = 1024, H = 16; int8 exact, fp32 within 1e-5 of the
+    largest output; the transpose equal to the column sums bit for bit
+    (``exact``); bound k read once; library ``torch.einsum`` (fp32), none
+    for int8. K27: the five works at 8 passes, one shape each, within 1e-5
+    of the largest output; bound: the larger of the 8 bytes an element moves
+    and the work's fp32 instructions (128 a SM a clock) or MUFU operations
+    (16) at the card's highest SM clock; library none (no one call runs the
+    chained passes). K25 and K26 also from HBM (``cold``). Then the resource
+    rows of K25-K27."""
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.ops import head_logits_kernels as hk
+    from acai_omr_tpu_torch.ops import vpu_probe_kernels as vk
+    from acai_omr_tpu_torch.tools import mosaic_batched_attn_probe as mbp
+    from acai_omr_tpu_torch.tools import mosaic_head_access_probe as mhp
+    from acai_omr_tpu_torch.tools import vpu_probe as vpp
+    from acai_omr_tpu_torch.tools._probe import (FP32_LANES_PER_SM,
+                                                 MUFU_PER_SM, sm_clock_hz,
+                                                 sm_count)
+
+    print("[probes] K25-K27 against their twins", flush=True)
+    for t, e, h in mhp.SHAPES:
+        q, k = mhp.make_inputs(t, e, dev)
+        qh, kh = (hk.as_heads(a, h).contiguous() for a in (q, k))
+        lib = time_ms(torch, lambda: torch.matmul(
+            hk.as_heads(q, h), hk.as_heads(k, h).transpose(-1, -2)))
+        for form in hk.FORMS:
+            a, b = (qh, kh) if form == "preshaped" else (q, k)
+            call = lambda: hk.head_logits(a, b, form, h)
+            out_k, out_p = call(), hk.head_logits.plain(a, b, form, h)
+            record(hk.head_logits, f"{form} T={t} E={e} H={h}", out_k, out_p,
+                   1e-5 * max(1.0, out_p.abs().max().item()),
+                   kernel_times(call), time_ms(torch, lambda: hk.head_logits
+                                               .plain(a, b, form, h)),
+                   lib, 2 * 2 * t * e + 4 * h * t * t, 2 * h * t * t * hk.DH,
+                   paths=["probes"], variant=form,
+                   cold=cold_ms(torch, lambda a_, b_: hk.head_logits(
+                       a_, b_, form, h), [a, b]))
+        del q, k, qh, kh
+
+    for int8 in (False, True):
+        k, q = (torch.from_numpy(a).to(dev) for a in mbp.make_inputs(int8))
+        call = lambda: hk.batched_head_logits(k, q, mbp.H)
+        (c_k, s_k, t_k), (c_p, s_p, _) = call(), \
+            hk.batched_head_logits.plain(k, q, mbp.H)
+        tol = 0.0 if int8 else 1e-5 * max(1.0, c_p.abs().max().item())
+        sums_ok = torch.equal(s_k, s_p) if int8 else \
+            (s_k - s_p).abs().max().item() <= 1e-5 * s_p.abs().max().item()
+        lib = None if int8 else time_ms(torch, lambda: torch.einsum(
+            "bthd,bhd->tbh", k.view(mbp.BT, mbp.T, mbp.H, hk.DH),
+            q.view(mbp.BT, mbp.H, hk.DH)))
+        nl = mbp.BT * mbp.H
+        record(hk.batched_head_logits, f"{'int8' if int8 else 'fp32'} "
+               f"BT={mbp.BT} T={mbp.T} E={mbp.E} H={mbp.H}"
+               + (" (library: none, no int8 einsum)" if int8 else ""),
+               c_k, c_p, tol, kernel_times(call),
+               time_ms(torch, lambda: hk.batched_head_logits.plain(
+                   k, q, mbp.H)), lib,
+               k.numel() * k.element_size() + q.numel() * 4
+               + 4 * (mbp.T + 2) * nl, 2 * k.numel(),
+               peak=PEAK_INT8_OP_PER_S if int8 else PEAK_FP32_FLOP_PER_S,
+               paths=["probes"], variant="int8" if int8 else "fp32",
+               exact=sums_ok and torch.equal(t_k.t(), s_k),
+               cold=cold_ms(torch, lambda k_: hk.batched_head_logits(
+                   k_, q, mbp.H), [k]))
+        del k, q
+
+    clock = sm_clock_hz(dev)
+    print(f"[probes] SM clock (clocks.max.sm) {clock / 1e6:.0f} MHz",
+          flush=True)
+    for work in vk.WORKS:
+        rows, cols = vpp.SHAPES[work][-1]
+        x = vpp.make_block(rows, cols, dev)
+        call = lambda: vk.resident_elementwise(x, work, 8)
+        out_k, out_p = call(), vk.resident_elementwise.plain(x, work, 8)
+        ops_s = vk.bound_s(work, x.numel(), 8, clock, sm_count(dev),
+                           FP32_LANES_PER_SM, MUFU_PER_SM)
+        record(vk.resident_elementwise, f"{work} ({rows},{cols}) 8 passes "
+               f"(library: none, no one call runs the chained passes)",
+               out_k, out_p, 1e-5 * max(1.0, out_p.abs().max().item()),
+               kernel_times(call), time_ms(torch, lambda: vk
+                                           .resident_elementwise.plain(
+                                               x, work, 8)), None,
+               8 * x.numel(), ops_s * PEAK_FP32_FLOP_PER_S,
+               peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
+               variant=f"{work} {cols}")
+    for name in ("head_logits", "resident_elementwise"):
+        for r in _build.resources(name):
+            print(f"[resources] {r['op']} {r['kernel']} regs={r['registers']} "
+                  f"local={r['local_bytes']} static_smem={r['static_smem']} "
+                  f"dynamic_smem={r['dynamic_smem']} "
+                  f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
+
+
 def probes_path(torch):
     """The probes' main path: each tool's ``main`` on the card, as a user
     runs ``python -m acai_omr_tpu_torch.tools.<name>``, the launch counts
     reset just before and read just after; the tools' lines kept."""
     from acai_omr_tpu_torch.ops import _build
-    from acai_omr_tpu_torch.tools import (attn_microbench, dma_issue_probe,
-                                          dma_skip_probe, gemm_probe,
-                                          int4_probe, mosaic_dot_forms_probe,
+    from acai_omr_tpu_torch.tools import (attn_microbench, bwd_vmem_probe,
+                                          dma_issue_probe, dma_skip_probe,
+                                          gemm_probe, int4_probe,
+                                          mosaic_batched_attn_probe,
+                                          mosaic_dot_forms_probe,
+                                          mosaic_head_access_probe,
                                           narrow_lane_dma_probe,
                                           pallas_gemm_probe, unpack_probe,
-                                          vmem_probe)
+                                          vmem_probe, vpu_probe)
     lines, res = {}, {}
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    for name, tool in [("gemm_probe", gemm_probe),
-                       ("pallas_gemm_probe", pallas_gemm_probe),
-                       ("mosaic_dot_forms_probe", mosaic_dot_forms_probe),
-                       ("attn_microbench", attn_microbench),
-                       ("vmem_probe", vmem_probe),
-                       ("int4_probe", int4_probe),
-                       ("unpack_probe", unpack_probe),
-                       ("dma_issue_probe", dma_issue_probe),
-                       ("dma_skip_probe", dma_skip_probe),
-                       ("narrow_lane_dma_probe", narrow_lane_dma_probe)]:
+    for name, tool, argv in [
+            ("gemm_probe", gemm_probe, []),
+            ("pallas_gemm_probe", pallas_gemm_probe, []),
+            ("mosaic_dot_forms_probe", mosaic_dot_forms_probe, []),
+            ("attn_microbench", attn_microbench, []),
+            ("vmem_probe", vmem_probe, []),
+            ("int4_probe", int4_probe, []),
+            ("unpack_probe", unpack_probe, []),
+            ("dma_issue_probe", dma_issue_probe, []),
+            ("dma_skip_probe", dma_skip_probe, []),
+            ("narrow_lane_dma_probe", narrow_lane_dma_probe, []),
+            ("mosaic_head_access_probe", mosaic_head_access_probe, []),
+            ("mosaic_batched_attn_probe", mosaic_batched_attn_probe, []),
+            ("vpu_probe", vpu_probe, []),
+            *((f"bwd_vmem_probe {m}", bwd_vmem_probe, [m])
+              for m in BWD_PROBE_MODES)]:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
-            res[name] = tool.main([])
+            res[name] = tool.main(argv)
         lines[name] = buf.getvalue().splitlines()
         for line in lines[name]:
             print(f"[probe {name}] {line}", flush=True)
@@ -2508,7 +2631,7 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
 
     cases, race_bad = check_kernels(torch, F, dev)
-    # the probes phase's main path: the five probe tools
+    # the probes phase's main path: the fourteen probe tools
     probe_run = probes_path(torch)
 
     # phase 3: the slice at the flagship width
@@ -2559,6 +2682,13 @@ def main() -> int:
         failures.append("probes: dma_skip_probe sums or runs differ")
     if not res["narrow_lane_dma_probe"]["ok"]:
         failures.append("probes: narrow_lane_dma_probe sums")
+    if not res["mosaic_head_access_probe"]["ok"]:
+        failures.append("probes: a mosaic_head_access_probe form")
+    if not res["vpu_probe"]["ok"]:
+        failures.append("probes: vpu_probe against its twin")
+    for m in BWD_PROBE_MODES:
+        if not res[f"bwd_vmem_probe {m}"]["ok"]:
+            failures.append(f"probes: bwd_vmem_probe {m}")
 
     def finish_path(name, n_tokens, decode_s, extra, steps=None):
         """Read the launch counts of the path just driven; check and print.

@@ -943,3 +943,115 @@ def test_lane_stream_sum(dev, lanes, blocks, t):
     out = sk.lane_stream_sum(x, c)
     assert torch.equal(out, sk.lane_stream_sum(x, c))
     _close(out, sk.lane_stream_sum.plain(x, c), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the last probes' kernels: K25 head_logits, K26 batched_head_logits, K27
+# resident_elementwise; the resource report (csrc/func_attrs.cuh)
+# ---------------------------------------------------------------------------
+
+import re  # noqa: E402
+import subprocess  # noqa: E402
+
+from acai_omr_tpu_torch.ops import _build  # noqa: E402
+from acai_omr_tpu_torch.ops import head_logits_kernels as hk  # noqa: E402
+from acai_omr_tpu_torch.ops import vpu_probe_kernels as vk  # noqa: E402
+from acai_omr_tpu_torch.tools import mosaic_batched_attn_probe as mbp  # noqa: E402
+from acai_omr_tpu_torch.tools import mosaic_head_access_probe as mhp  # noqa: E402
+from acai_omr_tpu_torch.tools import vpu_probe as vpp  # noqa: E402
+
+
+@pytest.mark.parametrize("form", hk.FORMS)
+@pytest.mark.parametrize("t,e,h", mhp.SHAPES)
+def test_head_logits(dev, form, t, e, h):
+    """fp32 out within 1e-5 of the largest output: exact products, sums in
+    another order."""
+    q, k = mhp.make_inputs(t, e, dev)
+    if form == "preshaped":
+        q, k = (hk.as_heads(a, h).contiguous() for a in (q, k))
+    _close(hk.head_logits(q, k, form, h), hk.head_logits.plain(q, k, form, h),
+           1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_batched_head_logits(dev, int8):
+    """int8 bit for bit; fp32 within 1e-5 of the largest output; the
+    transpose equal to the column sums bit for bit."""
+    k, q = (torch.from_numpy(a).to(dev) for a in mbp.make_inputs(int8))
+    got = hk.batched_head_logits(k, q, mbp.H)
+    want = hk.batched_head_logits.plain(k, q, mbp.H)
+    for g, w in zip(got, want):
+        if int8:
+            assert torch.equal(g, w)
+        else:
+            _close(g, w, 1e-5)
+    assert torch.equal(got[2].t(), got[1])
+
+
+@pytest.mark.parametrize("work,rows,cols", [
+    (w, r, c) for w, shapes in vpp.SHAPES.items() for r, c in shapes])
+def test_resident_elementwise(dev, work, rows, cols):
+    """0, 1 and 8 passes against the twin, within 1e-5 of the largest
+    output (fp32 in another order and, for exp, erf and rsqrt, CUDA's
+    roundings)."""
+    x = vpp.make_block(rows, cols, dev)
+    for iters in (0, 1, 8):
+        _close(vk.resident_elementwise(x, work, iters),
+               vk.resident_elementwise.plain(x, work, iters), 1e-5)
+
+
+def _ptxas_report(name: str, out_dir) -> dict:
+    """{mangled kernel: (registers, stack frame bytes, spill store bytes)} as
+    ``nvcc -Xptxas -v`` prints them for csrc/<name>.cu."""
+    run = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out_dir / f"{name}.so"), str(_build.CSRC / f"{name}.cu")],
+        capture_output=True, text=True, check=True, timeout=600)
+    report, current = {}, None
+    for line in (run.stdout + run.stderr).splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            current = m.group(1)
+            report[current] = [None, None, None]
+        elif current and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)):
+            report[current][1:] = [int(m.group(1)), int(m.group(2))]
+        elif current and (m := re.search(r"Used (\d+) registers", line)):
+            report[current][0] = int(m.group(1))
+    return report
+
+
+def test_resources_match_ptxas(dev, tmp_path):
+    """The runtime's registers and local bytes of add_layernorm's one kernel
+    equal what ptxas printed when it compiled it."""
+    report = _ptxas_report("add_layernorm", tmp_path)
+    (regs, stack, _), = [v for k, v in report.items()
+                         if "add_layernorm_kernel" in k]
+    (row,) = _build.resources("add_layernorm")
+    assert (row["registers"], row["local_bytes"]) == (regs, stack)
+    assert row["op"] == "add_layernorm" and row["blocks_per_sm"] >= 1
+
+
+def test_every_backward_kernel_reports_its_resources(dev):
+    from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
+    from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
+    from acai_omr_tpu_torch.ops.linear_bwd_kernel import (linear_dgrad,
+                                                          linear_wgrad)
+    for op in (linear_bias_act, encoder_attention, add_layernorm,
+               attention_bwd, layernorm_bwd, linear_dgrad, linear_wgrad,
+               hk.head_logits, hk.batched_head_logits):
+        rows = op.resources()
+        assert rows and all(r["op"] == op.name for r in rows), op.name
+        for r in rows:
+            assert r["registers"] > 0 and r["blocks_per_sm"] >= 1, r
+    # K7's dQ / dK dV kernels ask for dynamic shared memory past 48 KB
+    assert all(r["dynamic_smem"] > 48 * 1024
+               for r in attention_bwd.resources("dh64"))
+    assert len(attention_bwd.resources("dh64")) == 2
+
+
+def test_resident_elementwise_keeps_its_rows_in_registers(dev):
+    """No local memory (spill) in any K27 variant the probe runs."""
+    for work, shapes in vpp.SHAPES.items():
+        for _, cols in shapes:
+            (row,) = vk.resident_elementwise.resources(f"{work} {cols}")
+            assert row["local_bytes"] == 0, row

@@ -191,10 +191,14 @@ def test_gather_kept_matches_jax(setup):
 # a stack whose heads are 32 wide
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("plain", [False, True],
-                         ids=["hand_written_backward", "autograd_of_twins"])
-def test_head_dim_32_stack_matches_fused_jax(plain):
-    n_l, b, t, e, h, f = 2, 4, 32, 128, 4, 256
+DH32 = dict(n_l=2, b=4, t=32, e=128, h=4, f=256)
+
+
+@pytest.fixture(scope="module")
+def dh32_reference():
+    """Inputs, weights, and JAX's fused encoder stack over them (forward and
+    gradients, interpret mode): computed once for both backward paths."""
+    n_l, b, t, e, h, f = DH32.values()
     rng = np.random.default_rng(1)
     x = rng.standard_normal((b, t, e), dtype=np.float32)
     w = rng.standard_normal((b, t, e), dtype=np.float32)
@@ -205,12 +209,26 @@ def test_head_dim_32_stack_matches_fused_jax(plain):
     stacked = jax.tree.map(
         lambda v: v + 0.05 * jax.random.normal(next(keys), v.shape, v.dtype),
         stacked)
-    assert ptl.enabled_for_enc(b, t, e, h) and ptl._group_spec(e // h)[0] == 2
-    run = lambda s, x_: ptl.encoder_stack_fused(s, x_, jnp.asarray(valid), h)
-    out_j = run(stacked, jnp.asarray(x))
-    gw_j, gx_j = jax.grad(lambda s, x_: jnp.sum(run(s, x_) * w),
-                          argnums=(0, 1))(stacked, jnp.asarray(x))
+    prev = (ptl._FORCE, ptl._INTERPRET)
+    ptl.set_test_mode(force=True, interpret=True)
+    try:
+        assert ptl.enabled_for_enc(b, t, e, h) \
+            and ptl._group_spec(e // h)[0] == 2
+        run = lambda s, x_: ptl.encoder_stack_fused(s, x_, jnp.asarray(valid),
+                                                    h)
+        out_j = run(stacked, jnp.asarray(x))
+        gw_j, gx_j = jax.grad(lambda s, x_: jnp.sum(run(s, x_) * w),
+                              argnums=(0, 1))(stacked, jnp.asarray(x))
+    finally:
+        ptl.set_test_mode(*prev)
+    return x, w, valid, stacked, out_j, gw_j, gx_j
 
+
+@pytest.mark.parametrize("plain", [False, True],
+                         ids=["hand_written_backward", "autograd_of_twins"])
+def test_head_dim_32_stack_matches_fused_jax(dh32_reference, plain):
+    h = DH32["h"]
+    x, w, valid, stacked, out_j, gw_j, gx_j = dh32_reference
     leaves = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
               for k, v in _flat(jax.tree.map(np.asarray, stacked)).items()}
     xt = torch.from_numpy(x).requires_grad_(True)

@@ -261,7 +261,9 @@ def test_tools_import_no_jax():
     code = ("import sys\n"
             "from acai_omr_tpu_torch.tools import attn_microbench, "
             "gemm_probe, mosaic_dot_forms_probe, pallas_gemm_probe, "
-            "vmem_probe\n"
+            "vmem_probe, int4_probe, unpack_probe, dma_issue_probe, "
+            "dma_skip_probe, narrow_lane_dma_probe, mosaic_head_access_probe, "
+            "mosaic_batched_attn_probe, vpu_probe, bwd_vmem_probe\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'acai_omr_tpu', 'tools'))\n"
             "assert not bad, bad\n")
