@@ -8,15 +8,22 @@
 // Layout: A (M, K) row-major, W (K, N) row-major (the JAX (in, out) kernel
 // layout), bias (N,) fp32, out (M, N). K % 32 == 0, N % 64 == 0, any M.
 //
-// Bound on an H100: the encoder products (M = B*T, thousands of rows) are
-// tensor-core bound (2MNK flops at 989 TFLOP/s bf16); the decode products
-// (M = B <= 32) read the whole weight matrix for a handful of rows and are
-// bound by the weight bytes at 3.35 TB/s. Design: one 64x64 output tile per
-// block, four warps of 2x2 wmma 16x16x16 bf16 tiles, the K loop staged through
-// shared memory with 16-byte loads. For skinny M the wrapper splits K across
-// blockIdx.z so enough blocks stream the weights; each split writes an fp32
-// partial and a second launch sums them in a fixed order (deterministic) and
-// applies the epilogue. No cp.async/TMA pipelining and no wgmma yet.
+// Bound on an H100: the encoder and training products (M = B*T, thousands of
+// rows) are tensor-core bound (2MNK flops at 989 TFLOP/s bf16); the decode
+// products (M = B <= 128) read the whole weight matrix for a handful of rows
+// and are bound by the weight bytes at 3.35 TB/s. Two kernels, one epilogue;
+// the wrapper's plan (ops/linear_kernel.py `gemm_plan`) picks one by M:
+//
+// * `acai_linear_bias_act_sm90`, the large-M products: the Hopper GEMM core
+//   of sm90_gemm.cuh (TMA into a shared-memory ring, wgmma from two consumer
+//   warpgroups, a producer warp; X K-major, W MN-major), 128 x BN tiles with
+//   BN = 128 or 256, the epilogue below run on the staged fp32 tile.
+// * `acai_linear_bias_act`, the skinny decode rows: one 64x64 output tile per
+//   block, four warps of 2x2 wmma 16x16x16 bf16 tiles, the K loop staged
+//   through shared memory with 16-byte loads. The wrapper splits K across
+//   blockIdx.z so enough blocks stream the weights; each split writes an
+//   fp32 partial and a second launch sums them in a fixed order
+//   (deterministic) and applies the epilogue.
 //
 // Epilogue act: 0 = none; 1 = exact-erf GELU on the fp32 sum (the encoder
 // kernel's ff1); 2 = round the sum to bf16, then GELU (the decode monolith
@@ -41,6 +48,7 @@
 
 #include "dropout.cuh"
 #include "func_attrs.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -201,6 +209,34 @@ __global__ void reduce_kernel(const float* __restrict__ partial, int splits,
   epilogue4(epi, acc, (int)(i * 4 / N), (int)(i * 4 % N));
 }
 
+// The epilogue of the Hopper core: four staged fp32 sums at (m, n .. n + 3).
+struct CoreEpilogue {
+  Epilogue e;
+  __device__ __forceinline__ void operator()(const float v[4], int m,
+                                             int n) const {
+    epilogue4(e, v, m, n);
+  }
+};
+
+Epilogue make_epilogue(const void* bias, void* out, void* gp, int act, int N,
+                       unsigned drop_thresh, float drop_scale, unsigned seed0,
+                       unsigned seed1, unsigned drop_stream, int drop_t) {
+  const bool f32 = act == 3;
+  return Epilogue{static_cast<const float*>(bias),
+                  f32 ? nullptr : static_cast<__nv_bfloat16*>(out),
+                  static_cast<__nv_bfloat16*>(gp), act, N,
+                  DropSpec{drop_thresh, drop_scale, seed0, seed1, drop_stream,
+                           drop_t > 0 ? drop_t : 1},
+                  f32 ? static_cast<float*>(out) : nullptr};
+}
+
+int check_args(int act, const void* gp, unsigned drop_thresh, int drop_t) {
+  if (drop_thresh != 0u && drop_t <= 0) return (int)cudaErrorInvalidValue;
+  if (act == 3 && (gp != nullptr || drop_thresh != 0u))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 // splits == 1: one launch, epilogue in place. splits > 1: `partial` holds
@@ -215,19 +251,13 @@ extern "C" int acai_linear_bias_act(const void* a, const void* w,
                                     unsigned seed0, unsigned seed1,
                                     unsigned drop_stream, int drop_t,
                                     void* stream) {
-  if (drop_thresh != 0u && drop_t <= 0) return (int)cudaErrorInvalidValue;
-  if (act == 3 && (gp != nullptr || drop_thresh != 0u))
-    return (int)cudaErrorInvalidValue;
+  if (const int rc = check_args(act, gp, drop_thresh, drop_t)) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(N / BN, (M + BM - 1) / BM, splits);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  const bool f32 = act == 3;
-  const Epilogue epi{static_cast<const float*>(bias),
-                     f32 ? nullptr : static_cast<__nv_bfloat16*>(out),
-                     static_cast<__nv_bfloat16*>(gp), act, N,
-                     DropSpec{drop_thresh, drop_scale, seed0, seed1,
-                              drop_stream, drop_t > 0 ? drop_t : 1},
-                     f32 ? static_cast<float*>(out) : nullptr};
+  const Epilogue epi =
+      make_epilogue(bias, out, gp, act, N, drop_thresh, drop_scale, seed0,
+                    seed1, drop_stream, drop_t);
   linear_kernel<<<grid, THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
       epi, part, M, N, K, k_chunk);
@@ -239,10 +269,47 @@ extern "C" int acai_linear_bias_act(const void* a, const void* w,
   return (int)cudaGetLastError();
 }
 
+// The large-M products on the Hopper core (sm90_gemm.cuh): A = x (M, K),
+// W (K, N), any M, K % 8 == 0, N % 8 == 0 (TMA's 16-byte row strides), x and
+// W 16-byte aligned; the arguments and epilogues of acai_linear_bias_act
+// above; bn: 128 or 256.
+extern "C" int acai_linear_bias_act_sm90(const void* a, const void* w,
+                                         const void* bias, void* out, void* gp,
+                                         int M, int N, int K, int bn, int act,
+                                         unsigned drop_thresh, float drop_scale,
+                                         unsigned seed0, unsigned seed1,
+                                         unsigned drop_stream, int drop_t,
+                                         void* stream) {
+  if (const int rc = check_args(act, gp, drop_thresh, drop_t)) return rc;
+  if (N % 8 != 0 || K % 8 != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  int rc = sm90::tensor_map(&ta, a, M, K, sm90::box_rows(false, sm90::BM));
+  if (rc == 0) rc = sm90::tensor_map(&tb, w, K, N, sm90::box_rows(true, 0));
+  if (rc != 0) return rc;
+  const CoreEpilogue epi{make_epilogue(bias, out, gp, act, N, drop_thresh,
+                                       drop_scale, seed0, seed1, drop_stream,
+                                       drop_t)};
+  const int k_chunk = (K + sm90::BK - 1) / sm90::BK * sm90::BK;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 256)
+    return sm90::launch<256, false, true>(ta, tb, M, N, K, k_chunk, 1, epi, s);
+  if (bn == 128)
+    return sm90::launch<128, false, true>(ta, tb, M, N, K, k_chunk, 1, epi, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The resource report of the kernels above (func_attrs.cuh): block size and
 // dynamic shared memory as the launcher uses them.
 static const AcaiKernelEntry kResources[] = {
-    ACAI_KERNEL("linear_bias_act", "", linear_kernel, THREADS, 0),
-    ACAI_KERNEL("linear_bias_act", "", reduce_kernel, 256, 0),
+    ACAI_KERNEL("linear_bias_act", "wmma", linear_kernel, THREADS, 0),
+    ACAI_KERNEL("linear_bias_act", "wmma", reduce_kernel, 256, 0),
+    {"linear_bias_act|sm90|gemm_kernel<256,K,MN>",
+     reinterpret_cast<const void*>(
+         sm90::gemm_kernel<256, false, true, CoreEpilogue>),
+     sm90::THREADS, sm90::Tile<256>::SMEM},
+    {"linear_bias_act|sm90|gemm_kernel<128,K,MN>",
+     reinterpret_cast<const void*>(
+         sm90::gemm_kernel<128, false, true, CoreEpilogue>),
+     sm90::THREADS, sm90::Tile<128>::SMEM},
 };
 ACAI_EXPORT_RESOURCES(kResources)

@@ -17,15 +17,26 @@
 // tiling).
 //
 // Bound on an H100: tensor-core flops (2 M N K each) at 989 TFLOP/s bf16 at
-// the training shapes (thousands of rows). Design: as K1, one 64x64 output
-// tile per block, four warps of 2x2 wmma 16x16x16 bf16 tiles, the contraction
-// staged through shared memory in slabs of 32 with 16-byte loads; the
-// transposed operand is read through a col-major fragment, never transposed
-// in memory. wgrad contracts over the rows: when the output tiles alone are
-// too few to fill the card the rows are split across blockIdx.z, each split
-// writes an fp32 partial and a second launch sums them in a fixed order. The
-// bias sum is two small launches (slabs of 256 rows, then the slabs), fixed
-// order, no atomics.
+// the training shapes (thousands of rows).
+//
+// wgrad runs on the Hopper GEMM core (sm90_gemm.cuh): TMA into a
+// shared-memory ring, wgmma from two consumer warpgroups, a producer warp,
+// A = X^T and B = dY both MN-major (the descriptors' transpose bits: the
+// transposed operand is read at the full rate, never transposed in memory),
+// 128 x BN output tiles. It contracts over the rows: when the output tiles
+// alone are too few to fill the card's 132 SMs the wrapper's plan
+// (ops/linear_bwd_kernel.py `row_split_plan`) splits the rows across
+// blockIdx.z, each split writes an fp32 partial and a second launch sums them
+// in a fixed order and rounds once. The bias sum is two small launches (slabs
+// of 256 rows, then the slabs), fixed order, no atomics.
+//
+// dgrad keeps the pre-Hopper design: one 64x64 output tile per block, four
+// warps of 2x2 wmma 16x16x16 bf16 tiles, the contraction staged through
+// shared memory in slabs of 32 with 16-byte loads, W^T through a col-major
+// fragment. It is the next product to move onto the core (B = W^T,
+// K-major). The pre-Hopper wgrad of the same design (X^T through col-major
+// fragments) stays as the core's yardstick, launched only when the wrapper
+// is asked for it (bn 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,6 +46,7 @@
 
 #include "dropout.cuh"
 #include "func_attrs.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -147,8 +159,10 @@ dgrad_kernel(const __nv_bfloat16* __restrict__ dY,
   }
 }
 
-// dW tile (rows k0.. of K, cols n0.. of N) = X^T dY over rows
-// [z * r_chunk, (z + 1) * r_chunk).
+// The pre-Hopper wgrad (bn 64, kept as the yardstick of the core): dW tile
+// (rows k0.. of K, cols n0.. of N) = X^T dY over rows
+// [z * r_chunk, (z + 1) * r_chunk), 64x64 tiles of wmma, X^T through
+// col-major fragments.
 __global__ void __launch_bounds__(THREADS)
 wgrad_kernel(const __nv_bfloat16* __restrict__ X,
              const __nv_bfloat16* __restrict__ dY,
@@ -218,6 +232,23 @@ wgrad_kernel(const __nv_bfloat16* __restrict__ X,
   }
 }
 
+// The epilogue of the core: dW rounded to bf16 (one range of rows), or the
+// fp32 partial of row split blockIdx.z.
+struct WgradEpilogue {
+  __nv_bfloat16* out;
+  float* partial;
+  int K, N;
+  __device__ __forceinline__ void operator()(const float v[4], int m,
+                                             int n) const {
+    const size_t o = (size_t)m * N + n;
+    if (partial != nullptr)
+      *reinterpret_cast<float4*>(partial + (size_t)blockIdx.z * K * N + o) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    else
+      store4_bf16(out + o, v);
+  }
+};
+
 __global__ void wgrad_reduce(const float* __restrict__ partial, int splits,
                              __nv_bfloat16* __restrict__ out, size_t total4) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -244,11 +275,12 @@ colsum_slabs(const __nv_bfloat16* __restrict__ dY, float* __restrict__ partial,
   const int col = blockIdx.x * CX + tx;
   const int r_end = min(R, (int)(blockIdx.y + 1) * SLAB);
   float a = 0.0f;
-  for (int r = blockIdx.y * SLAB + ty; r < r_end; r += CY)
-    a += __bfloat162float(dY[(size_t)r * N + col]);
+  if (col < N)
+    for (int r = blockIdx.y * SLAB + ty; r < r_end; r += CY)
+      a += __bfloat162float(dY[(size_t)r * N + col]);
   sh[ty][tx] = a;
   __syncthreads();
-  if (ty == 0) {
+  if (ty == 0 && col < N) {
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < CY; ++i) s += sh[i][tx];
@@ -263,6 +295,26 @@ __global__ void colsum_final(const float* __restrict__ partial, int slabs,
   float s = 0.0f;
   for (int k = 0; k < slabs; ++k) s += partial[(size_t)k * N + col];
   db[col] = s;
+}
+
+// dW (K, N) = X^T dY on the Hopper core: X and dY both MN-major.
+int launch_core(const void* x, const void* dy, void* dw, float* part, int R,
+                int K, int N, int r_chunk, int splits, int bn,
+                cudaStream_t s) {
+  if (K % 8 != 0 || N % 8 != 0 || r_chunk % sm90::BK != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  int rc = sm90::tensor_map(&ta, x, R, K, sm90::box_rows(true, 0));
+  if (rc == 0) rc = sm90::tensor_map(&tb, dy, R, N, sm90::box_rows(true, 0));
+  if (rc != 0) return rc;
+  const WgradEpilogue epi{static_cast<__nv_bfloat16*>(dw), part, K, N};
+  if (bn == 256)
+    return sm90::launch<256, true, true>(ta, tb, K, N, R, r_chunk, splits, epi,
+                                         s);
+  if (bn == 128)
+    return sm90::launch<128, true, true>(ta, tb, K, N, R, r_chunk, splits, epi,
+                                         s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -290,25 +342,36 @@ extern "C" int acai_linear_dgrad(const void* dy, const void* w, const void* mul,
 
 // X (R, K), dY (R, N) bf16 -> dW (K, N) bf16, db (N,) fp32. partial: (splits,
 // K, N) fp32 scratch when splits > 1; db_partial: (ceil(R / 256), N) fp32
-// scratch. R % 32 == 0, r_chunk % 32 == 0, K % 64 == 0, N % 64 == 0.
+// scratch. bn 128 or 256 (the Hopper core): any R; r_chunk % 64 == 0;
+// K % 8 == 0, N % 8 == 0 (TMA's 16-byte row strides), X and dY 16-byte
+// aligned. bn 64 (the wmma kernel): R % 32 == 0, r_chunk % 32 == 0,
+// K % 64 == 0, N % 64 == 0.
 extern "C" int acai_linear_wgrad(const void* x, const void* dy, void* dw,
                                  void* db, void* partial, void* db_partial,
                                  int R, int K, int N, int r_chunk, int splits,
-                                 void* stream) {
-  if (R % BK != 0 || r_chunk % BK != 0 || K % BM != 0 || N % BN != 0)
-    return (int)cudaErrorInvalidValue;
+                                 int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  wgrad_kernel<<<dim3(N / BN, K / BM, splits), THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-      static_cast<__nv_bfloat16*>(dw), part, R, K, N, r_chunk);
+  int rc = 0;
+  if (bn == BN) {
+    if (R % BK != 0 || r_chunk % BK != 0 || K % BM != 0 || N % BN != 0)
+      return (int)cudaErrorInvalidValue;
+    wgrad_kernel<<<dim3(N / BN, K / BM, splits), THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dw),
+        part, R, K, N, r_chunk);
+    rc = (int)cudaGetLastError();
+  } else {
+    rc = launch_core(x, dy, dw, part, R, K, N, r_chunk, splits, bn, s);
+  }
+  if (rc != 0) return rc;
   if (splits > 1) {
     const size_t total4 = (size_t)K * N / 4;
     wgrad_reduce<<<(int)((total4 + 255) / 256), 256, 0, s>>>(
         part, splits, static_cast<__nv_bfloat16*>(dw), total4);
   }
   const int slabs = (R + SLAB - 1) / SLAB;
-  colsum_slabs<<<dim3(N / CX, slabs), CX * CY, 0, s>>>(
+  colsum_slabs<<<dim3((N + CX - 1) / CX, slabs), CX * CY, 0, s>>>(
       static_cast<const __nv_bfloat16*>(dy), static_cast<float*>(db_partial), R,
       N);
   colsum_final<<<(N + 255) / 256, 256, 0, s>>>(
@@ -320,7 +383,15 @@ extern "C" int acai_linear_wgrad(const void* x, const void* dy, void* dw,
 // dynamic shared memory as the launcher uses them.
 static const AcaiKernelEntry kResources[] = {
     ACAI_KERNEL("linear_dgrad", "", dgrad_kernel, THREADS, 0),
-    ACAI_KERNEL("linear_wgrad", "", wgrad_kernel, THREADS, 0),
+    ACAI_KERNEL("linear_wgrad", "wmma", wgrad_kernel, THREADS, 0),
+    {"linear_wgrad||gemm_kernel<256,MN,MN>",
+     reinterpret_cast<const void*>(
+         sm90::gemm_kernel<256, true, true, WgradEpilogue>),
+     sm90::THREADS, sm90::Tile<256>::SMEM},
+    {"linear_wgrad||gemm_kernel<128,MN,MN>",
+     reinterpret_cast<const void*>(
+         sm90::gemm_kernel<128, true, true, WgradEpilogue>),
+     sm90::THREADS, sm90::Tile<128>::SMEM},
     ACAI_KERNEL("linear_wgrad", "", wgrad_reduce, 256, 0),
     ACAI_KERNEL("linear_wgrad", "", colsum_slabs, CX * CY, 0),
     ACAI_KERNEL("linear_wgrad", "", colsum_final, 256, 0),

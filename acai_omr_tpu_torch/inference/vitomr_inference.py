@@ -3,7 +3,8 @@
 The twin of the JAX package's ``inference/vitomr_inference.py``: the flagship
 configuration with its weights, tokenizer and image transform
 (:func:`set_up_omr_inference`; weights come from a numpy ``.npz`` of the JAX
-parameter tree or are drawn from a seed), the ``inference`` /
+parameter tree, or from a checkpoint directory the JAX package wrote, which
+needs the optional ``tensorstore``, or are drawn from a seed), the ``inference`` /
 ``streamed_inference`` entry points, ``delinearize`` and
 ``convert_back_to_img`` post-processing, and a command line:
 
@@ -58,7 +59,8 @@ def set_up_omr_inference(weights_path: str | None = None,
                          seed: int = 0):
     """(cfg, params, tokenizer, base_img_transform) on ``device`` (``cuda``
     unless the caller passes ``device="cpu"``). Weights load from a numpy
-    ``.npz`` of the JAX parameter tree when given, else are drawn from
+    ``.npz`` of the JAX parameter tree or a JAX checkpoint directory
+    (:func:`..models.weights.load_npz`) when given, else are drawn from
     ``seed`` (architecture-only use)."""
     device = resolve_device(device)
     tokenizer = LmxTokenizer(LMX_VOCAB_PATH)

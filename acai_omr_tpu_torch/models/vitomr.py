@@ -22,7 +22,7 @@ from . import decode as decode_lib
 from . import omr_decoder, vit_encoder
 from .omr_decoder import DecoderConfig
 from .vit_encoder import EncoderConfig
-from .weights import _flatten, _unflatten
+from .weights import _flatten, _unflatten, leaf_tensor
 
 Params = dict
 
@@ -71,7 +71,7 @@ def vitomr_params_from_mae(vitomr_params: Params, mae_params: Params) -> Params:
             f", extra {sorted(new.keys() - like.keys())}")
     out = dict(vitomr_params)
     out["encoder"] = _unflatten({
-        k: torch.as_tensor(v).to(device=like[k].device, dtype=like[k].dtype)
+        k: leaf_tensor(v).to(device=like[k].device, dtype=like[k].dtype)
         for k, v in new.items()})
     return out
 

@@ -6,7 +6,10 @@ The JAX parameter tree (``init_vitomr_params``: nested dicts, stacked
 a strict leaf-for-leaf copy into tensors. :func:`params_from_jax` takes the
 tree as numpy arrays (e.g. ``jax.tree.map(np.asarray, params)`` on the JAX
 side) and raises on any missing or extra key; :func:`load_npz` reads the same
-tree from a ``.npz`` whose keys are ``/``-joined paths.
+tree from a ``.npz`` whose keys are ``/``-joined paths, or from a checkpoint
+directory the JAX package wrote (orbax; read through
+:mod:`..utils.orbax_tree`, which needs the optional ``tensorstore``). bf16
+leaves (``ml_dtypes.bfloat16`` arrays) carry over bit for bit.
 :func:`mae_params_from_jax` and :func:`load_mae_npz` do the same for the MAE
 tree of stage-1 pretraining (``init_mae_params``).
 """
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import orbax_tree
 
 _DENSE = ("kernel", "bias")
 _NORM = ("scale", "bias")
@@ -88,6 +92,18 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
+def leaf_tensor(leaf) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a CPU tensor of its own dtype; an
+    ``ml_dtypes.bfloat16`` array, which torch cannot take, goes through its
+    16-bit pattern, so it carries over bit for bit."""
+    if torch.is_tensor(leaf):
+        return leaf
+    a = np.array(leaf, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(params: dict, device=None, dtype=None,
                     template: dict = TEMPLATE) -> dict:
     """JAX ViTOMR param tree of numpy arrays -> the port's tensor tree.
@@ -106,7 +122,7 @@ def params_from_jax(params: dict, device=None, dtype=None,
                        f"extra {extra}")
     out = {}
     for path, leaf in flat.items():
-        t = torch.from_numpy(np.array(leaf, copy=True))
+        t = leaf_tensor(leaf)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         out[path] = t.to(device)
@@ -121,16 +137,26 @@ def mae_params_from_jax(params: dict, device=None, dtype=None) -> dict:
 
 def load_npz(path: str, device=None, dtype=None,
              template: dict = TEMPLATE) -> dict:
-    """Read a ``.npz`` of ``/``-joined parameter paths (see
-    :func:`save_npz`) through :func:`params_from_jax`."""
-    with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
-    return params_from_jax(_unflatten(flat), device, dtype, template)
+    """Read a parameter tree through :func:`params_from_jax`: from a ``.npz``
+    of ``/``-joined parameter paths (see :func:`save_npz`), or from a
+    checkpoint directory the JAX package wrote (``save_pytree`` /
+    ``save_train_state``: orbax, read by :func:`..utils.orbax_tree.read`).
+    A train state's ``params`` subtree is taken, as JAX's ``load_params``
+    does."""
+    if orbax_tree.is_orbax_dir(path):
+        tree = orbax_tree.read(path)
+    else:
+        with np.load(path) as data:
+            tree = _unflatten({k: data[k] for k in data.files})
+    if "params" in tree:
+        tree = tree["params"]
+    return params_from_jax(tree, device, dtype, template)
 
 
 def load_mae_npz(path: str, device=None, dtype=None) -> dict:
     """Read an MAE tree (what stage-1 pretraining writes as
-    ``pretrained_mae.npz``) through :func:`mae_params_from_jax`."""
+    ``pretrained_mae.npz``, or a JAX checkpoint directory of one) through
+    :func:`mae_params_from_jax`."""
     return load_npz(path, device, dtype, MAE_TEMPLATE)
 
 

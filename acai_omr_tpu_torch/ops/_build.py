@@ -220,6 +220,9 @@ class KernelOp:
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
         if x.device.type == "cpu":
+            # a launcher's private ``variant=`` picks a compiled kernel; the
+            # twin is one function for all of them
+            kwargs.pop("variant", None)
             return self.plain(x, *args, **kwargs)
         if x.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {x.device}")

@@ -3,7 +3,9 @@
 CUDA source: ``csrc/linear_bwd.cu`` (bound, design and the TPU code it
 replaces are noted there). Two ops: :data:`linear_dgrad` (``dX = dY W^T`` with
 the backward sweep's elementwise epilogues) and :data:`linear_wgrad`
-(``dW = X^T dY`` summed in fp32 over all rows, ``db = colsum(dY)``).
+(``dW = X^T dY`` summed in fp32 over all rows, ``db = colsum(dY)``), the
+latter on the Hopper GEMM core ``csrc/sm90_gemm.cuh`` with its rows split by
+:func:`row_split_plan` (``KernelOp.variants``: ``"sm90_splits{s}"``).
 """
 
 from __future__ import annotations
@@ -14,10 +16,13 @@ import torch
 
 from . import _build
 from . import dropout_kernel as dk
+from .linear_kernel import SM90_BM, SM90_BNS, N_SMS, core_s
 
 _BM, _BN, _BK = 64, 64, 32
 _SLAB = 256
-_TARGET_BLOCKS = 2 * 132  # two waves of blocks on an H100's 132 SMs
+_CORE_BK = 64  # the core's K step: a row split is a multiple of it
+_MAX_SPLITS = 32
+_BYTES_S = 3.35e12  # device memory, for the fp32 partials (H100 SXM)
 
 
 def linear_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
@@ -78,20 +83,60 @@ def linear_wgrad_plain(x: torch.Tensor, dy: torch.Tensor):
     return dw, dy.float().sum(dim=0)
 
 
-def row_split_plan(r: int, k: int, n: int) -> tuple[int, int]:
-    """(r_chunk, splits): split the contracted rows across blocks when the
-    output tiles alone are too few to fill the card."""
+def row_split_plan(r: int, k: int, n: int) -> tuple[int, int, int]:
+    """(r_chunk, splits, bn): how the core computes dW (K, N) = X^T dY over R
+    rows. The output has ceil(K / 128) x ceil(N / bn) tiles; ``splits``
+    ranges of ``r_chunk`` rows (a multiple of 64) each take one block per
+    tile. The plan minimises the core's modelled time
+    (``linear_kernel.core_s``: waves of tiles x splits blocks on the card's
+    132 SMs, each a fixed cost plus its k-steps) plus the fp32 partials'
+    traffic (splits x K x N x 4 bytes written and read again at 3.35 TB/s)
+    when the rows are split; ties go to fewer splits, then the wider tile.
+    The fixed-order reduce sums the splits and rounds once, so every plan
+    gives bits that repeat from run to run. Empty SM slots are a cost the
+    model weighs, not a rule: at the port's shapes (PERF.md section 6) the
+    plan leaves under 55 % of its waves' slots empty, the most where the
+    model finds no split faster (stage 2's 1024 x 1024 products at 2,048
+    rows: 64 tiles)."""
+    best = None
+    for bn in SM90_BNS:
+        tiles = -(-k // SM90_BM) * -(-n // bn)
+        for want in range(1, _MAX_SPLITS + 1):
+            r_chunk, splits = row_chunks(r, want)
+            if splits != want:
+                continue  # the same chunks as fewer splits
+            t = core_s(tiles * splits, r_chunk // _CORE_BK, bn)
+            if splits > 1:
+                t += 2 * splits * k * n * 4 / _BYTES_S
+            key = (t, splits, -bn)
+            if best is None or key < best[0]:
+                best = (key, (r_chunk, splits, bn))
+    return best[1]
+
+
+def wmma_row_chunks(r: int, k: int, n: int) -> tuple[int, int]:
+    """(r_chunk, splits) of the wmma kernel (the core's yardstick): rows
+    split while the 64 x 64 output tiles alone are fewer than two waves."""
     tiles = (k // _BM) * (n // _BN)
     r_tiles = r // _BK
-    splits = max(1, min(r_tiles, _TARGET_BLOCKS // max(tiles, 1)))
+    splits = max(1, min(r_tiles, 2 * N_SMS // max(tiles, 1)))
     chunk = -(-r_tiles // splits)
-    splits = -(-r_tiles // chunk)
-    return chunk * _BK, splits
+    return chunk * _BK, -(-r_tiles // chunk)
 
 
-def _launch_wgrad(op, x, dy, out=None, out_bias=None):
+def row_chunks(r: int, splits: int) -> tuple[int, int]:
+    """(r_chunk, splits): R rows in at most ``splits`` ranges of a multiple
+    of 64 rows, every row in exactly one range."""
+    steps = max(1, -(-r // _CORE_BK))
+    chunk = -(-steps // splits)
+    return chunk * _CORE_BK, -(-steps // chunk)
+
+
+def _launch_wgrad(op, x, dy, out=None, out_bias=None, *, variant=None):
     """``out`` / ``out_bias``: contiguous destinations (a layer's slice of
-    the stacked gradient), allocated when None."""
+    the stacked gradient), allocated when None. ``variant`` (private: tests
+    and chip_smoke.py): ``(splits, bn)`` in place of :func:`row_split_plan`'s,
+    or ``"wmma"`` for the pre-Hopper kernel (:func:`wmma_row_chunks`)."""
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(dy, "dy", torch.bfloat16, 2)
     r, k = x.shape
@@ -99,10 +144,15 @@ def _launch_wgrad(op, x, dy, out=None, out_bias=None):
     if dy.shape[0] != r:
         raise ValueError(f"shape mismatch x{tuple(x.shape)} "
                          f"dy{tuple(dy.shape)}")
-    if r % _BK or k % _BM or n % _BN:
-        raise ValueError(f"linear_wgrad needs rows % {_BK} == 0, "
-                         f"K % {_BM} == 0 and N % {_BN} == 0, got "
-                         f"rows={r}, K={k}, N={n}")
+    if k % 8 or n % 8:
+        raise ValueError(f"linear_wgrad needs K % 8 == 0 and N % 8 == 0 "
+                         f"(TMA's 16-byte row strides), got K={k}, N={n}")
+    if variant == "wmma" and (r % _BK or k % _BM or n % _BN):
+        raise ValueError(f"linear_wgrad's wmma kernel needs rows % {_BK} == 0"
+                         f", K % {_BM} == 0 and N % {_BN} == 0, got rows={r}, "
+                         f"K={k}, N={n}")
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("linear_wgrad needs x and dy 16-byte aligned")
     f32 = dict(dtype=torch.float32, device=x.device)
     dw = torch.empty((k, n), dtype=torch.bfloat16, device=x.device) \
         if out is None else out
@@ -111,16 +161,22 @@ def _launch_wgrad(op, x, dy, out=None, out_bias=None):
     _build.require(db, "out_bias", torch.float32, 1)
     if dw.shape != (k, n) or db.shape != (n,):
         raise ValueError("linear_wgrad destination shape mismatch")
-    r_chunk, splits = row_split_plan(r, k, n)
+    _, splits, bn = row_split_plan(r, k, n)
+    if variant == "wmma":
+        (r_chunk, splits), bn = wmma_row_chunks(r, k, n), _BN
+    else:
+        if variant is not None:
+            splits, bn = variant
+        r_chunk, splits = row_chunks(r, splits)
     part = torch.empty((splits, k, n), **f32) if splits > 1 else None
     db_part = torch.empty((-(-r // _SLAB), n), **f32)
     fn = _build.bind("linear_bwd", "acai_linear_wgrad",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                      + [ctypes.c_void_p])
     rc = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(), db.data_ptr(),
             None if part is None else part.data_ptr(), db_part.data_ptr(),
-            r, k, n, r_chunk, splits, _build.stream_ptr())
-    op.launched(f"splits{splits}")
+            r, k, n, r_chunk, splits, bn, _build.stream_ptr())
+    op.launched(("wmma" if bn == _BN else "sm90") + f"_splits{splits}")
     op.extra_launches += 2 + (part is not None)  # bias slabs, sum, reduce
     _build.check(rc, op.name)
     return dw, db

@@ -1,8 +1,13 @@
 """K1 ``linear_bias_act``: act(x @ w + b) with an fp32 accumulator.
 
 CUDA source: ``csrc/linear_bias_act.cu`` (bound, design and the TPU kernel it
-replaces are noted there). Serves every product inside the two ported stacks:
-the skinny decode rows (M = B) and the encoder rows (M = B*T).
+replaces are noted there) with the Hopper GEMM core ``csrc/sm90_gemm.cuh``.
+Serves every product inside the two ported stacks: the skinny decode rows
+(M = B) and the encoder and training rows (M = B*T). :func:`gemm_plan` picks
+the kernel by M: ``"sm90"`` (TMA + wgmma, 128 x BN tiles) for the large-M
+products, ``"wmma"`` (64 x 64 tiles, split K) for the decode rows;
+``KernelOp.variants`` counts the launches of each (``"partial"``: the wmma
+kernel's fp32 partials of the meshed decode).
 """
 
 from __future__ import annotations
@@ -17,7 +22,12 @@ from . import dropout_kernel as dk
 
 ACTS = {"none": 0, "gelu": 1, "gelu_rounded": 2, "partial": 3}
 _BM, _BN, _BK = 64, 64, 32
-_TARGET_BLOCKS = 2 * 132  # two waves of blocks on an H100's 132 SMs
+N_SMS = 132  # an H100 SXM's streaming multiprocessors
+_TARGET_BLOCKS = 2 * N_SMS  # two waves of blocks
+SM90_BM = 128
+SM90_BNS = (256, 128)
+SKINNY_M = 128  # the most rows the decode products have (GRPO: 16 x 8)
+VARIANTS = ("sm90", "wmma")
 
 
 def _gelu32(u: torch.Tensor) -> torch.Tensor:
@@ -72,7 +82,72 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
     return chunk * _BK, splits
 
 
-def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False):
+def waves(blocks: int) -> int:
+    """Waves of ``blocks`` resident one an SM on the card's SMs."""
+    return -(-blocks // N_SMS)
+
+
+def wave_waste(blocks: int) -> float:
+    """The share of the SM slots of ``blocks``' waves that no block fills."""
+    return 1.0 - blocks / (waves(blocks) * N_SMS)
+
+
+# The core's time model, one block an SM: a 128 x BN tile's k-step (64 deep)
+# at 90 % of an SM's share of 989 TFLOP/s bf16, plus a fixed cost a tile
+# (filling the ring, staging and storing the epilogue). Both are fit to the
+# core's times on an H100 (PERF.md section 6: K1 at K = 768 and K = 3,072).
+CORE_STEP_S = {bn: 2 * SM90_BM * bn * 64 / (0.9 * 989e12 / N_SMS)
+               for bn in SM90_BNS}
+CORE_TILE_S = 10e-6
+
+
+def core_s(blocks: int, k_steps: int, bn: int) -> float:
+    """Modelled seconds of ``blocks`` tiles of ``k_steps`` k-steps each."""
+    return waves(blocks) * (k_steps * CORE_STEP_S[bn] + CORE_TILE_S)
+
+
+def sm90_tile_n(m: int, n: int, k: int) -> int:
+    """BN of the core's 128 x BN tiles for an M x K by K x N product: the
+    one :func:`core_s` models faster, ties to 256 (each row of x read half
+    as often). Wide tiles pay the fixed cost a tile fewer times; narrow ones
+    fill the last wave better. At every large-M shape the port runs
+    (PERF.md section 6) the choice leaves under 30 % of its waves' SM slots
+    empty (:func:`wave_waste`)."""
+    m_tiles, steps = -(-m // SM90_BM), -(-k // 64)
+    return min(SM90_BNS, key=lambda bn: (
+        core_s(m_tiles * -(-n // bn), steps, bn), -bn))
+
+
+def gemm_plan(m: int, n: int, k: int) -> tuple[str, int]:
+    """(variant, BN): the kernel for an M x K by K x N product.
+
+    ``"wmma"`` for M <= SKINNY_M where its shape rule holds (K % 32, N % 64):
+    the decode rows (decode, beams, GRPO's rollouts of up to 128 rows, the
+    meshed partials) read the whole weight matrix for a few rows, so they are
+    bound by weight bytes; the core would give them one row of N / BN <= 32
+    tiles, each streaming its columns of W for all of K on one SM, a quarter
+    of the card's 132 SMs, while the wmma kernel's split-K plan spreads the
+    same bytes over 2 x 132 blocks. ``"sm90"`` for everything else: the
+    encoder's M = B*T, stage 2's 2,048 / 8,192 rows, the MAE's 32,768, with
+    BN from :func:`sm90_tile_n`."""
+    if m <= SKINNY_M and k % _BK == 0 and n % _BN == 0:
+        return "wmma", _BN
+    return "sm90", sm90_tile_n(m, n, k)
+
+
+def _check_shape(variant: str, k: int, n: int) -> None:
+    if variant == "wmma" and (k % _BK or n % _BN):
+        raise ValueError(f"linear_bias_act's wmma kernel needs K % {_BK} == 0 "
+                         f"and N % {_BN} == 0, got K={k}, N={n}")
+    if k % 8 or n % 8:
+        raise ValueError(f"linear_bias_act needs K % 8 == 0 and N % 8 == 0 "
+                         f"(TMA's 16-byte row strides), got K={k}, N={n}")
+
+
+def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False, *,
+            variant=None):
+    """``variant`` (private: tests and chip_smoke.py) forces ``"sm90"`` or
+    ``"wmma"`` in place of :func:`gemm_plan`'s choice."""
     partial = act == "partial"
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(w, "w", torch.bfloat16, 2)
@@ -83,34 +158,45 @@ def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False):
     if w.shape[0] != k or (b is not None and b.shape[0] != n):
         raise ValueError(f"shape mismatch x{tuple(x.shape)} w{tuple(w.shape)} "
                          f"b{None if b is None else tuple(b.shape)}")
-    if k % _BK or n % _BN:
-        raise ValueError(f"linear_bias_act needs K % {_BK} == 0 and "
-                         f"N % {_BN} == 0, got K={k}, N={n}")
+    plan, bn = gemm_plan(m, n, k)
+    if variant is not None:
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}")
+        plan, bn = variant, sm90_tile_n(m, n, k)  # bn: the core's only
+    _check_shape(plan, k, n)
+    if plan != "wmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("linear_bias_act needs x and w 16-byte aligned")
     if x.device != w.device or (b is not None and x.device != b.device):
         raise ValueError("x, w and b must be on one device")
     if save_gelu_grad and act != "gelu":
         raise ValueError("save_gelu_grad needs act='gelu'")
     if partial and drop is not None:
         raise ValueError("the partial product takes no dropout")
-    k_chunk, splits = split_plan(m, n, k)
     out = torch.empty((m, n), dtype=torch.float32 if partial
                       else torch.bfloat16, device=x.device)
     gp = torch.empty_like(out) if save_gelu_grad else None
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
-    fn = _build.bind("linear_bias_act", "acai_linear_bias_act",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                     + dk.C_ARGTYPES + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(),
-            None if gp is None else gp.data_ptr(),
-            None if part is None else part.data_ptr(), m, n, k, k_chunk,
-            splits, ACTS[act], *dk.c_args(drop), _build.stream_ptr())
-    if partial:  # counted apart too: the tensor-parallel step's partials
-        op.launched("partial")
+    bias_ptr = None if b is None else b.data_ptr()
+    gp_ptr = None if gp is None else gp.data_ptr()
+    if plan == "wmma":
+        k_chunk, splits = split_plan(m, n, k)
+        part = (torch.empty((splits, m, n), dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
+        fn = _build.bind("linear_bias_act", "acai_linear_bias_act",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                         + dk.C_ARGTYPES + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), gp_ptr,
+                None if part is None else part.data_ptr(), m, n, k, k_chunk,
+                splits, ACTS[act], *dk.c_args(drop), _build.stream_ptr())
+        # the tensor-parallel step's partials are counted apart
+        op.launched("partial" if partial else "wmma")
+        op.extra_launches += part is not None  # the split-K reduce kernel
     else:
-        op.launches += 1
-    op.extra_launches += part is not None  # the split-K reduce kernel
+        fn = _build.bind("linear_bias_act", "acai_linear_bias_act_sm90",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + dk.C_ARGTYPES + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), gp_ptr,
+                m, n, k, bn, ACTS[act], *dk.c_args(drop), _build.stream_ptr())
+        op.launched(plan)
     _build.check(rc, op.name)
     return (out, gp) if save_gelu_grad else out
 

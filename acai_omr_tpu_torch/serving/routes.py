@@ -6,8 +6,9 @@ transposition, SSE token streaming, LMX concatenation + delinearization +
 optional musescore rendering, exp(avg log prob) confidence.
 
 The model loads lazily on first use (:func:`_get_model`), from
-``ACAI_WEIGHTS`` (a ``.npz`` of the JAX parameter tree) or seeded weights, on
-``cuda``. ``_MODEL["device"]`` is the device of its parameters, and every
+``ACAI_WEIGHTS`` (a ``.npz`` of the JAX parameter tree, or a checkpoint
+directory the JAX package wrote, which needs the optional ``tensorstore``) or
+seeded weights, on ``cuda``. ``_MODEL["device"]`` is the device of its parameters, and every
 call into the decode passes it, so a model injected on another device (a
 small CPU model in the tests) runs there.
 """

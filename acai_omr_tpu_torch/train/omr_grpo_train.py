@@ -44,6 +44,7 @@ from ..data.tokenizer import LmxTokenizer
 from ..models import omr_decoder, vit_encoder
 from ..models import vitomr as vitomr_lib
 from ..models.vitomr import ViTOMRConfig
+from ..models.weights import params_from_jax
 from ..ops import transformer
 from ..parallel import trainer
 from ..utils import checkpoint as ckpt_lib
@@ -696,10 +697,13 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--checkpoint", default=TF_CHECKPOINT_PATH,
-                    help="stage-2 parameters (.npz)")
+                    help="stage-2 parameters (.npz, or a JAX "
+                         "checkpoint directory)")
     args = ap.parse_args()
     tokenizer, train_ds, val_ds = build_datasets()
-    cfg, params = set_up_grpo(set_up_vitomr(tokenizer),
-                              ckpt_lib.load_params(args.checkpoint))
+    cfg, params = set_up_grpo(
+        set_up_vitomr(tokenizer),
+        params_from_jax(ckpt_lib.load_params(args.checkpoint),
+                        device=args.device))
     grpo_train(cfg, params, train_ds, tokenizer, val_dataset=val_ds,
                device=args.device)

@@ -4,6 +4,12 @@ JAX package's orbax-backed ``utils/checkpoint.py``).
 A bare parameter tree is what :func:`..models.weights.load_npz` reads, so
 ``save_pytree(path, params)`` writes the file inference loads. A train state
 adds ``step`` and the Adam moments under ``opt_state/``, enough to resume.
+
+The readers also take a checkpoint directory the JAX package wrote (orbax,
+read by :mod:`.orbax_tree`, which needs the optional ``tensorstore``):
+:func:`load_pytree` and :func:`load_params` return its tree of numpy arrays;
+:func:`load_train_state` refuses a JAX train state, whose optimizer state is
+optax's chain and not the port's ``{mu, nu}``.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import numpy as np
 import torch
 
 from ..models.weights import _flatten, _unflatten
+from . import orbax_tree
 
 
 def _npz(path) -> Path:
@@ -33,7 +40,11 @@ def save_pytree(path, tree: dict) -> Path:
 
 
 def load_pytree(path) -> dict:
-    """The nested dict of numpy arrays :func:`save_pytree` wrote."""
+    """The nested dict of numpy arrays :func:`save_pytree` wrote, or that the
+    JAX package's ``save_pytree`` / ``save_train_state`` wrote into the
+    orbax directory ``path``."""
+    if orbax_tree.is_orbax_dir(path):
+        return orbax_tree.read(path)
     with np.load(_npz(path)) as data:
         return _unflatten({k: data[k] for k in data.files})
 
@@ -49,14 +60,28 @@ def save_train_state(path, state) -> Path:
 
 def load_params(path) -> dict:
     """Just the model parameters (numpy arrays) from a train-state or a
-    bare-params checkpoint."""
+    bare-params checkpoint, of the port or of the JAX package. A parameter
+    tree has no top-level ``params`` key, so the rule is JAX's
+    ``load_params``: a tree with one is a train state."""
     tree = load_pytree(path)
-    return tree["params"] if "params" in tree and "step" in tree else tree
+    return tree["params"] if "params" in tree else tree
 
 
 def load_train_state(path, like_state):
-    """Restore step, params and moments into ``like_state``'s buffers."""
+    """Restore step, params and moments into ``like_state``'s buffers.
+
+    Only the port's own train state resumes: a JAX train state's
+    ``opt_state`` is optax's chain (``(ScaleByAdamState(count, mu, nu),
+    ...)``), which no rule maps onto the port's ``{mu, nu}``, so it raises
+    ``ValueError`` (its parameters still load with :func:`load_params`)."""
     tree = load_pytree(path)
+    opt = tree.get("opt_state")
+    if not (isinstance(opt, dict) and set(opt) == {"mu", "nu"}):
+        found = sorted(opt) if isinstance(opt, dict) else type(opt).__name__
+        raise ValueError(
+            f"{path}: opt_state holds {found}, not the port's {{mu, nu}} "
+            "Adam moments: a JAX (optax chain) train state cannot resume in "
+            "the port; load its parameters with load_params instead")
 
     def fill(dst: dict, src: dict):
         for k, v in dst.items():

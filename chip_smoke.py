@@ -29,7 +29,13 @@ Phases, all in one process; any failure exits non-zero:
    F = 3072); K10 must equal its twin bit for bit. The MAE's shapes follow:
    K3 and K7 at 16 heads of 32 (B = 64, T = 512, E = 512) and at the
    encoder's 128 kept rows (12 heads of 64), K1, K4, K8 and K9 at
-   32,768 x 512, ``linear_wgrad`` at 512 x 512 with its rows split;
+   32,768 x 512, ``linear_wgrad`` with its rows split as its plan says.
+   K1's large-M products (the Hopper GEMM core, csrc/sm90_gemm.cuh) and
+   every ``linear_wgrad`` (dWqkv, dWo, dW1, dW2 of each stack) are timed in
+   turns with the wmma kernels they replaced, forced through the wrappers'
+   ``variant=`` (``old_ms``), which must agree with the twins too, K10's
+   mask the same elements in all three; from HBM (``cold_ms``) where the
+   operands fit L2; then the resource rows of K1's and K9's kernels;
    then the probes phase: K16 tile_gemm at every tile of the GEMM sweep
    (bf16 out) at (8192, 768, 3072), (32768, 512, 1536) and
    (32768, 512, 3072), and in its three operand layouts (fp32 out) at the
@@ -68,7 +74,12 @@ Phases, all in one process; any failure exits non-zero:
    checked on every stream; then on the per-op step
    (``ACAI_MONOLITH_DECODE`` off) greedily with K11 and with int8 caches (K13,
    K12 stacked), and its bf16 step with K11 off and on in turns; the launch
-   counts are reset just before each path and read just after. Then the
+   counts are reset just before each path and read just after, and their
+   split by variant must show every encoder product of K1 on the core
+   ("sm90", 4 per encoder K3 launch) and every decode product on the wmma
+   kernel ("wmma", "partial"); the training paths below run every K1 and
+   every ``linear_wgrad`` on the core ("sm90", "sm90_splits{s}"), GRPO its
+   rollouts' K1 on wmma. Then the
    kernel path is held against the
    plain path on the card: encoder output, and 64 greedy decode steps at B=8
    with bf16 caches, int8 caches and int8 caches with W4A8 weights (the
@@ -228,6 +239,7 @@ TRAIN_SEQ_LEN = 200
 # keeps K = 128
 MAE_BATCH, MAE_UPDATES = 64, 3
 MAE_SIZES = ((256, 512), (192, 512), (128, 512), (256, 384))
+MAE_ROWS, MAE_KEPT = 512, 128  # L and K of every batch
 MAE_CMP_BATCH = 8  # the plain twins' fp32 autograd saves at L = 512
 # the GRPO path: flagship width, 32 examples in batches of 16 (2 outer
 # steps), 8 rollouts per image of at most 768 actions, top-k 50, temperature
@@ -271,6 +283,14 @@ def cold_ms(torch, fn, tensors) -> float:
     sets = [tensors] + [[t.clone() for t in tensors]
                         for _ in range(copies - 1)]
     return time_ms(torch, lambda i: fn(*sets[i]), copies=copies)
+
+
+def turns_ms(torch, new, old) -> tuple[float, float]:
+    """Device ms of a redesigned kernel and of the kernel it replaces on the
+    same inputs, timed in turns (new, old, old, new) inside this call; each
+    the lesser of its two readings."""
+    a, b, c, d = (time_ms(torch, fn) for fn in (new, old, old, new))
+    return min(a, d), min(b, c)
 
 
 def time_ms_eager(torch, fn, iters: int = 20) -> float:
@@ -332,6 +352,32 @@ def token_share(res_a, res_b) -> list:
             for a, b in zip(res_a.seqs, res_b.seqs)]
 
 
+def variant_failures(name: str, r: dict) -> list:
+    """Which kernel each product of a path ran, from its launches by
+    variant: every K1 of an encoder or a training stack on the Hopper core
+    ("sm90"; on the serving paths 4 per encoder K3 launch), every decode K1
+    on the wmma kernel ("wmma", or "partial" on the meshed paths), GRPO
+    both, every linear_wgrad on the core ("sm90_splits{s}")."""
+    k1 = r["variants"].get("linear_bias_act", {})
+    wgrad = r["variants"].get("linear_wgrad", {})
+    out = []
+    if set(k1) - {"sm90", "wmma", "partial"}:
+        out.append(f"{name}: K1 launches of unknown variants {k1}")
+    if any(not v.startswith("sm90_splits") for v in wgrad):
+        out.append(f"{name}: linear_wgrad off the core {wgrad}")
+    if name in ("train_tf", "pretrain_mae"):
+        if set(k1) != {"sm90"}:
+            out.append(f"{name}: K1 off the core {k1}")
+    elif name == "train_grpo":
+        if not (k1.get("sm90") and k1.get("wmma")):
+            out.append(f"{name}: K1 by variant {k1}: the encoder and the "
+                       f"update on the core, the rollouts on wmma")
+    elif k1.get("sm90", 0) != 4 * r["launches"]["encoder_attention"]:
+        out.append(f"{name}: K1 by variant {k1}: the encoder's 4 a K3 launch "
+                   f"on the core, the decode rows on wmma")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -345,7 +391,7 @@ def check_kernels(torch, F, dev):
                                                       decode_attention_int8)
     from acai_omr_tpu_torch.ops.encoder_stack_kernel import encoder_attention
     from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
-    from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
+    from acai_omr_tpu_torch.ops.linear_kernel import gemm_plan, linear_bias_act
     from acai_omr_tpu_torch.ops.quant_linear_kernel import (
         pack_k4, pack_k8_int4, quant4_linear_bias_act, quant_linear_bias_act,
         quantize_activation_rows)
@@ -359,7 +405,7 @@ def check_kernels(torch, F, dev):
 
     def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
                peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None,
-               variant=None, cold=None):
+               variant=None, cold=None, old_ms=None):
         """``paths``: the main paths whose launches count for this case (the
         serving paths when None). ``variant``: the compiled variant or plan
         of the kernel this case launches (``KernelOp.variants``), where only
@@ -368,7 +414,10 @@ def check_kernels(torch, F, dev):
         and K15: the whole output, every rank's for K15; for K8 and K9 wgrad: the fp32 column sums within
         1e-3 of their largest value; for K7: dq, dk and dv each within 2e-2
         of its own largest value). ``cold``: the device ms from HBM (the
-        weights or inputs rotated out of L2), where it was measured."""
+        weights or inputs rotated out of L2), where it was measured.
+        ``old_ms``: for a redesigned kernel, the device ms of the kernel it
+        replaces (forced through the wrapper's ``variant=``), timed in turns
+        with it (``turns_ms``)."""
         t_k, t_host = t_k  # device ms and host us of one wrapper call
         err = (out_k.float() - out_p.float()).abs().max().item()
         b_ms, b_by = bound_ms(nbytes, nops, peak)
@@ -378,29 +427,35 @@ def check_kernels(torch, F, dev):
                       "ms": t_k, "host_us": t_host, "plain_ms": t_p,
                       "library_ms": t_lib,
                       "bound_ms": b_ms, "bound_by": b_by, "ok": ok,
-                      "paths": paths, "variant": variant, "cold_ms": cold})
+                      "paths": paths, "variant": variant, "cold_ms": cold,
+                      "old_ms": old_ms})
         lib = "none" if t_lib is None else f"{t_lib:.4f}"
         print(f"[kernel] {op.name}[{case}] max_abs_err={err:.3e} tol={tol:.1e} "
               f"kernel_ms={t_k:.4f} "
               + ("" if cold is None else f"cold_ms={cold:.4f} ")
+              + ("" if old_ms is None else f"old_ms={old_ms:.4f} ")
               + f"host_us={t_host:.1f} plain_ms={t_p:.4f} "
               f"library_ms={lib} "
               f"bound_ms={b_ms:.4f} ({b_by}) "
               + ("" if exact is None else f"exact={exact} ")
               + ("ok" if ok else "FAIL"), flush=True)
 
-    # K1: decode qkv, decode ff1 (+GELU), decode ff2; encoder qkv, ff1
-    # (+GELU on the fp32 sum), ff2
+    # K1: decode qkv, decode ff1 (+GELU), decode ff2 (the wmma kernel);
+    # the encoder's four products at B = 16: qkv, out, ff1 (+GELU on the fp32
+    # sum), ff2 (the Hopper core, timed in turns with the wmma kernel it
+    # replaces, which must agree with the twin too)
     for m, k, n, act in [(32, 1024, 3072, "none"),
                          (32, 1024, 4096, "gelu_rounded"),
                          (32, 4096, 1024, "none"), (16384, 768, 2304, "none"),
-                         (16384, 768, 3072, "gelu"),
+                         (16384, 768, 768, "none"), (16384, 768, 3072, "gelu"),
                          (16384, 3072, 768, "none")]:
         x = randn(m, k)
         w = (randn(k, n, dtype=torch.float32) / math.sqrt(k)).to(bf)
         b = randn(n, dtype=torch.float32) * 0.1
         b16 = b.to(bf)
-        out_k = linear_bias_act(x, w, b, act)
+        variant = gemm_plan(m, n, k)[0]
+        call = lambda v=None: linear_bias_act(x, w, b, act, variant=v)
+        out_k = call()
         out_p = linear_bias_act.plain(x, w, b, act)
         lib = (lambda: torch.addmm(b16, x, w)) if act == "none" else \
             (lambda: F.gelu(torch.addmm(b16, x, w)))
@@ -408,11 +463,18 @@ def check_kernels(torch, F, dev):
         tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
         cold = cold_ms(torch, lambda w_: linear_bias_act(x, w_, b, act),
                        [w]) if m == 32 else None
-        record(linear_bias_act, f"{m}x{k}->{n},{act}", out_k, out_p, tol,
-               kernel_times(lambda: linear_bias_act(x, w, b, act)),
+        t_k, old, exact = kernel_times(call), None, None
+        if variant == "sm90":
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+            t_k = (t_new, t_k[1])
+            exact = (call("wmma").float() - out_p.float()).abs().max() \
+                .item() <= tol
+        record(linear_bias_act, f"{m}x{k}->{n},{act} ({variant})", out_k,
+               out_p, tol, t_k,
                time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
                time_ms(torch, lib), 2 * (m * k + k * n + m * n) + 4 * n,
-               2 * m * n * k, cold=cold)
+               2 * m * n * k, cold=cold, variant=variant, old_ms=old,
+               exact=exact)
 
     # K1 at the meshed decode's shard shapes: the column-parallel qkv and ff1
     # of a tp = 2 rank, and the row-parallel partials (fp32, no bias) of the
@@ -447,7 +509,7 @@ def check_kernels(torch, F, dev):
                time_ms(torch, lib),
                2 * (m * k + k * n) + (4 if partial else 2) * m * n
                + (0 if partial else 4 * n), 2 * m * n * k,
-               paths=list(TP_PATHS), variant="partial" if partial else None)
+               paths=list(TP_PATHS), variant="partial" if partial else "wmma")
 
     # K2 self: B=32, T=512, pos=300, E=1024, H=16
     bsz, t, pos, e, h = 32, 512, 300, 1024, 16
@@ -695,6 +757,16 @@ def check_kernels(torch, F, dev):
                2 * 3 * rows * e + 8 * e, 8 * rows * e)
     decode_hd_cases(torch, F, randn, record, kernel_times, dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
+    # the resource rows of the products' kernels: the Hopper core's tiles
+    # (sm90) beside the wmma kernels they replace at large M
+    from acai_omr_tpu_torch.ops import _build
+    for name in ("linear_bias_act", "linear_bwd"):
+        for r in _build.resources(name):
+            print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
+                  f"regs={r['registers']} local={r['local_bytes']} "
+                  f"static_smem={r['static_smem']} "
+                  f"dynamic_smem={r['dynamic_smem']} "
+                  f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
     race_bad = tp_allreduce_cases(torch, randn, record, kernel_times, dev)
     probe_cases(torch, F, record, kernel_times, dev)
     return cases, race_bad
@@ -1357,29 +1429,44 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
         # dropout (qc; every site of the save-less forward), then the
         # training epilogues: sa / ca with dropout, ff1 (GELU, dropout,
         # saves GELU') and ff2 with dropout
+        # All on the Hopper core, each timed in turns with the wmma kernel it
+        # replaces (which must agree with the twin too); with dropout, the
+        # dropped elements of the core, the wmma kernel and the twin (K10's
+        # mask) must be the same, bit for bit; cold times where the operands
+        # fit the 50 MB L2
         for k, n, act, save, dr in [(e, 3 * e, "none", False, None),
                                     (e, e, "none", False, None)] \
                 + ([(e, e, "none", False, drop)] if drop else []) \
                 + [(e, f, "gelu", True, drop), (f, e, "none", False, drop)]:
             x, w = randn(rows, k), w_of(k, n)
             bias = randn(n, dtype=torch.float32) * 0.1
-            call = lambda: linear_bias_act(x, w, bias, act, dr, save)
-            out_k = call()
-            out_p = linear_bias_act.plain(x, w, bias, act, dr, save)
-            if save:  # hold h1 and GELU' together
-                out_k, out_p = torch.cat(out_k, 1), torch.cat(out_p, 1)
+            call = lambda v=None, x=x, w=w: linear_bias_act(
+                x, w, bias, act, dr, save, variant=v)
+            both = lambda o: torch.cat(o, 1) if save else o  # h1 and GELU'
+            out_k = both(call())
+            out_p = both(linear_bias_act.plain(x, w, bias, act, dr, save))
+            out_o = both(call("wmma"))
+            tol = rel_tol(out_p)
+            exact = (out_o.float() - out_p.float()).abs().max().item() <= tol
+            if dr is not None:
+                dropped = out_k[:, :n] == 0
+                exact &= torch.equal(dropped, out_p[:, :n] == 0) \
+                    and torch.equal(dropped, out_o[:, :n] == 0)
             b16 = bias.to(bf)
             lib = (lambda: F.gelu(torch.addmm(b16, x, w))) if save else \
                 (lambda: torch.addmm(b16, x, w))
+            nbytes = 2 * (rows * k + k * n + (2 if save else 1) * rows * n)
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
             record(linear_bias_act,
                    f"{name} {rows}x{k}->{n},{act}" + (",drop" if dr is not None else "")
-                   + (",saves gelu'" if save else ""), out_k, out_p,
-                   rel_tol(out_p), kernel_times(call),
+                   + (",saves gelu'" if save else "") + " (sm90)", out_k,
+                   out_p, tol, (t_new, host_us(torch, call)),
                    plain_ms(lambda: linear_bias_act.plain(x, w, bias, act,
                                                           dr, save)),
-                   time_ms(torch, lib),
-                   2 * (rows * k + k * n + (2 if save else 1) * rows * n)
-                   + 4 * n, 2 * rows * n * k, paths=tr)
+                   time_ms(torch, lib), nbytes + 4 * n, 2 * rows * n * k,
+                   paths=tr, variant="sm90", exact=exact, old_ms=old,
+                   cold=cold_ms(torch, lambda x_, w_: call(x=x_, w=w_),
+                                [x, w]) if nbytes < 50e6 else None)
 
         # K4: emitting the pre-norm sum; LayerNorm alone (the recompute)
         x, r = randn(rows, e), randn(rows, e)
@@ -1444,30 +1531,32 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
                    2 * (rows * n + k * n + (2 if kw else 1) * rows * k),
                    2 * rows * n * k, paths=tr)
 
-        # K9 wgrad: dW1 = x2^T du, dW2 = h1^T dff, each with its bias sum. No
-        # flagship shape has so few output tiles that the rows are split
-        # across blocks; the MAE decoder's dWo (512 x 512: 64 output tiles
-        # for 132 SMs) does, and its dWqkv is held too
-        for k, n in [(e, f), (f, e)] + ([(512, 512)] if name == "enc" else []) \
-                + ([(e, e), (e, 3 * e)] if name == "mae_dec" else []):
+        # K9 wgrad on the Hopper core: dWqkv = x^T dqkv, dWo, dW1 = x2^T du,
+        # dW2 = h1^T dff, each with its bias sum, the rows split as
+        # row_split_plan says; timed in turns with the wmma kernel it
+        # replaces (held to the twin too), cold where the operands fit L2
+        for k, n in [(e, 3 * e), (e, e), (e, f), (f, e)]:
             x, dy = randn(rows, k), randn(rows, n)
-            call = lambda: linear_wgrad(x, dy)
+            call = lambda v=None, x=x, dy=dy: linear_wgrad(x, dy, variant=v)
             (dw_k, db_k), (dw_p, db_p) = call(), linear_wgrad.plain(x, dy)
             db_err = ((db_k - db_p).abs().max() / db_p.abs().max()).item()
+            tol = rel_tol(dw_p)
+            old_err = (call("wmma")[0].float() - dw_p.float()).abs().max()
             xt = x.t()
             splits = row_split_plan(rows, k, n)[1]
-            assert (splits > 1) == (k == n == 512), "wgrad row split plan"
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+            nbytes = 2 * (rows * k + rows * n + k * n)
             record(linear_wgrad, f"{name} {rows}x{k}^T {rows}x{n}"
                    + (f", rows split {splits}x" if splits > 1 else "")
-                   + f" (bias sum rel err {db_err:.1e})", dw_k, dw_p,
-                   rel_tol(dw_p),
-                   kernel_times(call),
+                   + f" (bias sum rel err {db_err:.1e})", dw_k, dw_p, tol,
+                   (t_new, host_us(torch, call)),
                    plain_ms(lambda: linear_wgrad.plain(x, dy)),
                    time_ms(torch, lambda: torch.matmul(xt, dy)),
-                   2 * (rows * k + rows * n + k * n) + 4 * n,
-                   2 * rows * n * k, paths=tr, exact=db_err < 1e-3,
-                   variant=f"splits{splits}" if tr == ["pretrain_mae"]
-                   else None)
+                   nbytes + 4 * n, 2 * rows * n * k, paths=tr,
+                   exact=db_err < 1e-3 and old_err.item() <= tol,
+                   variant=f"sm90_splits{splits}", old_ms=old,
+                   cold=cold_ms(torch, lambda x_, d_: call(x=x_, dy=d_),
+                                [x, dy]) if nbytes < 50e6 else None)
         attention_sites(name, b, t, e, h, tr)
 
 
@@ -1668,7 +1757,9 @@ def serve_path(torch, np, model, imgs) -> dict:
                             for r in done],
             "batcher": stats, "unbatched_s": single and single["stream_s"],
             "launches_batched": batched, "launches": launches,
-            "device_launches": device, "errors": errors}
+            "device_launches": device, "errors": errors,
+            "variants": {n: dict(op.variants)
+                         for n, op in _build.REGISTRY.items()}}
 
 
 def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
@@ -2301,7 +2392,9 @@ def grpo_path(torch, np, model, tmp_dir):
                                 if p.startswith("decoder/") and not moved(p)],
             "files": files, "launches": counts(),
             "device_launches": {n: op.device_launches
-                                for n, op in _build.REGISTRY.items()}}
+                                for n, op in _build.REGISTRY.items()},
+            "variants": {n: dict(op.variants)
+                         for n, op in _build.REGISTRY.items()}}
 
 
 def mae_set(n: int, seed: int):
@@ -2316,8 +2409,11 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
     encoder-type: per layer 4 K1, 1 K3, 2 K4 forward and 1 K3, 1 K4, 1 K7,
     2 K8, 4 dgrad, 4 wgrad backward (the gradient flows on into the patch
     projection and the PE grids, so the first layer's dgrad runs too). The
-    encoder's heads are 64 wide, the decoder's 32; only the decoder's
-    E x E product (dWo) has so few output tiles that its rows are split."""
+    encoder's heads are 64 wide, the decoder's 32; every K1 runs on the
+    Hopper core ("sm90"), every wgrad too, its rows split as
+    ``row_split_plan`` says for the layer's shape (the encoder over the
+    batch's kept rows, the decoder over all of them)."""
+    from acai_omr_tpu_torch.ops.linear_bwd_kernel import row_split_plan
     le, ld = cfg.encoder.num_layers, cfg.decoder_num_layers
     n = le + ld
     step = {"linear_bias_act": 4 * n, "encoder_attention": 2 * n,
@@ -2328,9 +2424,18 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
            "add_layernorm": 2 * n}
     dh_e = cfg.encoder.hidden_dim // cfg.encoder.num_heads
     dh_d = cfg.decoder_hidden_dim // cfg.decoder_num_heads
-    variants = {"encoder_attention": {f"dh{dh_e}": 2 * le, f"dh{dh_d}": 2 * ld},
+    wgrad = {}
+    for rows, e, f, layers in ((MAE_BATCH * MAE_KEPT, cfg.encoder.hidden_dim,
+                                cfg.encoder.mlp_dim, le),
+                               (MAE_BATCH * MAE_ROWS, cfg.decoder_hidden_dim,
+                                cfg.decoder_mlp_dim, ld)):
+        for k, cols in ((e, 3 * e), (e, e), (e, f), (f, e)):
+            key = f"sm90_splits{row_split_plan(rows, k, cols)[1]}"
+            wgrad[key] = wgrad.get(key, 0) + layers
+    variants = {"linear_bias_act": {"sm90": 4 * n},
+                "encoder_attention": {f"dh{dh_e}": 2 * le, f"dh{dh_d}": 2 * ld},
                 "attention_bwd": {f"dh{dh_e}": le, f"dh{dh_d}": ld},
-                "linear_wgrad": {"splits1": 4 * le + 3 * ld, "splits4": ld}}
+                "linear_wgrad": wgrad}
     return step, val, variants
 
 
@@ -2720,9 +2825,13 @@ def main() -> int:
               f"{r['device_kernels_per_step']:.1f} {json.dumps(extra)}",
               flush=True)
         print(f"[path {name}] launches {json.dumps(launches)}", flush=True)
+        print(f"[path {name}] K1 / wgrad by variant "
+              f"{json.dumps(r['variants']['linear_bias_act'])} "
+              f"{json.dumps(r['variants']['linear_wgrad'])}", flush=True)
         for k in EXPECTED_KERNELS[name]:
             if launches[k] <= 0:
                 failures.append(f"{name}: launches[{k}]=0")
+        failures.extend(variant_failures(name, r))
 
     def transcribe_path(name, batch, count_steps=False, **kw):
         _build.reset_launch_counts()
@@ -2789,7 +2898,8 @@ def main() -> int:
     sv = serve_path(torch, np, model, imgs)
     paths["serve_wsgi"] = sv
     shown = {k: v for k, v in sv.items()
-             if k not in ("launches", "launches_batched", "device_launches")}
+             if k not in ("launches", "launches_batched", "device_launches",
+                          "variants")}
     print(f"[path serve_wsgi] {json.dumps(shown)}", flush=True)
     print(f"[path serve_wsgi] launches {json.dumps(sv['launches'])}",
           flush=True)
@@ -2803,6 +2913,10 @@ def main() -> int:
     for k in EXPECTED_KERNELS["serve_wsgi"]:
         if sv["launches"][k] <= 0:
             failures.append(f"serve_wsgi: launches[{k}]=0")
+    print(f"[path serve_wsgi] K1 / wgrad by variant "
+          f"{json.dumps(sv['variants']['linear_bias_act'])} "
+          f"{json.dumps(sv['variants']['linear_wgrad'])}", flush=True)
+    failures.extend(variant_failures("serve_wsgi", sv))
 
     hd_k11, hd_bf16 = per_op_paths(torch, model, imgs, greedy, quant,
                                    transcribe_path, decode_lib, paths,
@@ -2836,6 +2950,10 @@ def main() -> int:
           f"{json.dumps(want)}; per validation batch "
           f"{json.dumps(tr['launches_per_val_batch'][-1])}", flush=True)
     print(f"[path train_tf] launches {json.dumps(tr['launches'])}", flush=True)
+    print(f"[path train_tf] K1 / wgrad by variant "
+          f"{json.dumps(tr['variants']['linear_bias_act'])} "
+          f"{json.dumps(tr['variants']['linear_wgrad'])}", flush=True)
+    failures.extend(variant_failures("train_tf", tr))
     finite = lambda vs: len(vs) > 0 and all(math.isfinite(v) for v in vs)
     if not (finite(tr["window_losses"]) and finite(tr["val_losses"])
             and len(tr["window_losses"]) == TRAIN_UPDATES
@@ -2887,6 +3005,10 @@ def main() -> int:
           f"{gr['peak_memory_gb']:.2f} files={gr['files']}", flush=True)
     print(f"[path train_grpo] launches {json.dumps(gr['launches'])}",
           flush=True)
+    print(f"[path train_grpo] K1 / wgrad by variant "
+          f"{json.dumps(gr['variants']['linear_bias_act'])} "
+          f"{json.dumps(gr['variants']['linear_wgrad'])}", flush=True)
+    failures.extend(variant_failures("train_grpo", gr))
     if not (len(gr["steps"]) == GRPO_EXAMPLES // GRPO_BATCH
             and len(gr["val"]) == 1
             and finite([v for st in gr["steps"]
@@ -2930,6 +3052,10 @@ def main() -> int:
           f"expected {json.dumps(want_variants)}", flush=True)
     print(f"[path pretrain_mae] launches {json.dumps(mae['launches'])}",
           flush=True)
+    print(f"[path pretrain_mae] K1 / wgrad by variant "
+          f"{json.dumps(mae['variants']['linear_bias_act'])} "
+          f"{json.dumps(mae['variants']['linear_wgrad'])}", flush=True)
+    failures.extend(variant_failures("pretrain_mae", mae))
     if not (finite(mae["train_losses"]) and finite(mae["val_losses"])
             and finite(mae["grad_norms"])
             and len(mae["step_ms"]) == MAE_UPDATES
@@ -2990,7 +3116,8 @@ def main() -> int:
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                 "host_us": c["host_us"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                **({} if c["cold_ms"] is None else {"cold_ms": c["cold_ms"]})}
+                **({} if c["cold_ms"] is None else {"cold_ms": c["cold_ms"]}),
+                **({} if c["old_ms"] is None else {"old_ms": c["old_ms"]})}
                for c in cases]
     failures += [f"launches[{k['name']}]=0" for k in kernels
                  if k["launches"] <= 0]

@@ -258,7 +258,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     w = torch.zeros(48, 64, device=dev, dtype=torch.bfloat16)
     b = torch.zeros(64, device=dev)
     with pytest.raises(ValueError, match="K % 32"):
-        linear_bias_act(x, w, b)
+        linear_bias_act(x, w, b, variant="wmma")
+    with pytest.raises(ValueError, match="K % 8"):  # TMA's 16-byte rows
+        linear_bias_act(x[:, :44].contiguous(), w[:44].contiguous(), b)
     with pytest.raises(ValueError, match="bfloat16"):
         linear_bias_act(x.float(), w, b)
     w4 = torch.zeros(12, 64, 4, device=dev, dtype=torch.int8)
@@ -430,6 +432,68 @@ def test_linear_dgrad(dev, epilogue):
         out = torch.where(ref != 0, out, 0)
         ref = torch.where(out != 0, ref, 0)
     _close(out, ref)
+
+
+_SM90_ACTS = [("none", False, False), ("gelu", False, False),
+              ("gelu", True, True), ("gelu_rounded", False, False),
+              ("none", False, True), ("partial", False, False)]
+
+
+@pytest.mark.parametrize("act,save,drop", _SM90_ACTS,
+                         ids=["none", "gelu", "gelu_saves_drop",
+                              "gelu_rounded", "drop", "partial"])
+@pytest.mark.parametrize("m,k", [(1000, 768), (1000, 3072), (4000, 768)])
+def test_linear_bias_act_sm90(dev, m, k, act, save, drop):
+    """The Hopper core (TMA + wgmma) at a ragged M against the twin, each
+    epilogue; BN = 128 at M = 1000, 256 at M = 4000 (gemm_plan); dropout's
+    mask the same elements as the wmma kernel's, bit for bit."""
+    from acai_omr_tpu_torch.ops.linear_kernel import gemm_plan
+    n = 768
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = _randn(g, m, k, dev=dev)
+    w = (_randn(g, k, n, dev=dev, dtype=torch.float32) / math.sqrt(k)) \
+        .to(torch.bfloat16)
+    b = None if act == "partial" else _randn(g, n, dev=dev,
+                                             dtype=torch.float32)
+    d = _drop(t=100) if drop else None
+    assert gemm_plan(m, n, k) == ("sm90", 128 if m == 1000 else 256)
+    before = dict(linear_bias_act.variants)
+    out = linear_bias_act(x, w, b, act, d, save)
+    assert linear_bias_act.variants.get("sm90", 0) \
+        == before.get("sm90", 0) + 1
+    ref = linear_bias_act.plain(x, w, b, act, d, save)
+    old = linear_bias_act(x, w, b, act, d, save, variant="wmma")
+    if save:
+        _close(out[1], ref[1])
+        out, ref, old = out[0], ref[0], old[0]
+    if drop:
+        assert torch.equal(out == 0, old == 0)
+        keep = ref != 0
+        assert ((out != 0) ^ keep).float().mean().item() < 1e-3
+        out, ref = torch.where(keep, out, 0), torch.where(out != 0, ref, 0)
+    _close(out, ref, rel=1e-3 if act == "partial" else 1e-2)
+
+
+@pytest.mark.parametrize("plan", [(1, 128), (1, 256), (3, 128), (4, 256),
+                                  None, "wmma"])
+def test_linear_wgrad_sm90_plans(dev, plan):
+    """dW on the core at a ragged row count, unsplit and split, BN 128 and
+    256, written into a slice of a stacked gradient; two runs bit-equal. The
+    wmma kernel (the yardstick) takes rows in multiples of 32."""
+    from acai_omr_tpu_torch.ops.linear_bwd_kernel import linear_wgrad
+    r, k, n = 1024 if plan == "wmma" else 1000, 256, 768
+    g = torch.Generator(device=dev).manual_seed(19)
+    x, dy = _randn(g, r, k, dev=dev), _randn(g, r, n, dev=dev)
+    stacked = torch.zeros(3, k, n, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(3, n, device=dev)
+    dw, db = linear_wgrad(x, dy, stacked[1], bias[1], variant=plan)
+    dw2, db2 = linear_wgrad(x, dy, variant=plan)
+    want_w, want_b = linear_wgrad.plain(x, dy)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert torch.equal(stacked[1], dw)
+    assert not stacked[0].any() and not stacked[2].any()
+    _close(dw, want_w)
+    _close(db, want_b, rel=1e-3)
 
 
 @pytest.mark.parametrize("r,k,n", [(256, 128, 128), (2048, 256, 512)])
