@@ -14,24 +14,59 @@
 // Numerics follow `_attend_bwd`: the probabilities are recomputed exactly as
 // the forward computes them (additive -1e9 masks, fp32 softmax normalised
 // before any rounding), dP = dO V^T in fp32, dV = bf16(P)^T dO,
-// dS = P * (dP - rowsum(dP * P)) scaled by 1/sqrt(Dh) and rounded to bf16,
-// dQ = dS K, dK = dS^T Q, each from an fp32 accumulator rounded once.
+// D = rowsum(dP * P), dS = P * (dP - D) scaled by 1/sqrt(Dh) and rounded to
+// bf16, dQ = dS K, dK = dS^T Q, each from an fp32 accumulator rounded once.
 //
-// Bound on an H100: tensor-core flops (five Tq x Tk x Dh products per head
-// are needed; this design recomputes QK^T twice and dO V^T once more, nine in
-// all) at 989 TFLOP/s bf16. Design: two launches and no atomics, so two runs
-// give equal bits.
-//   1. attn_bwd_dq: one block per (64-query tile, head, image). Three passes
-//      over the key tiles: softmax statistics (max, sum); D = rowsum(dP * P);
-//      dS and the dQ accumulation. Writes dQ and the row statistics
-//      (max, 1/sum, D) for the second launch.
-//   2. attn_bwd_dkv: one block per (64-key tile, head, image) loops over the
-//      query tiles, recomputes P and dS from the statistics and accumulates
-//      dV += P^T dO and dK += dS^T Q in fragments.
-// Four warps, wmma 16x16x16 bf16 tiles, dynamic shared memory above 48 KB.
-// The head dim is a template parameter, 64 or 32 (the MAE decoder): each head
-// is its own Dh-wide tile product, as in K3; the TPU kernel's pairing of two
-// 32-wide heads under 0/1 lane masks has no counterpart here.
+// Bound on an H100: the larger of its tensor-core flops (five Tq x Tk x Dh
+// products a head over the attended (query, key) pairs, at 989 TFLOP/s
+// bf16) and its bytes (q, k, v, dO read once, dQ, dK, dV written once, at
+// 3.35 TB/s): the flops at the encoder's T = 1,024, the bytes at the
+// decoder's 256 rows and at dh = 32. Either is far below what the
+// recomputed softmax costs, so the design cuts products and keeps every
+// product on wgmma.
+//
+// The Hopper design (`sm90`, the default): two launches, no atomics, so two
+// runs give equal bits. Nine products, the fewest two launches without
+// atomics allow (the dK / dV launch needs every row's statistics and D before
+// its first tile, so the dQ launch sweeps the keys twice; summing dQ across
+// key tiles in memory instead costs more bytes than the two products it
+// saves at dh = 32):
+//   1. attn_bwd_dq_sm90, one block per (128 query rows, head, image): sweep
+//      1 computes S = Q K^T and dP = dO V^T a key tile at a time and keeps
+//      the row max, the row sum and D = sum exp(s - max) dP under the running
+//      max (rescaled when it moves; D = that sum / the row sum); sweep 2
+//      recomputes S and dP, forms dS and accumulates dQ += dS K. Writes dQ
+//      and (max, 1/sum, D) to the (3, B, H, Tq) statistics.
+//   2. attn_bwd_dkv_sm90, one block per (128 key rows, head, image): per
+//      query tile S^T = K Q^T, dP^T = V dO^T, P^T and dS^T from the
+//      statistics, dV += P^T dO, dK += dS^T Q.
+// Each block: a producer warp (TMA loads of the block's fixed Q / dO or K / V
+// tiles, then a ring of four stages of the streamed K / V or Q / dO tiles,
+// with the key validity bytes or the statistics beside them as bulk copies)
+// and two consumer warpgroups of 64 rows. Operands are read in place from
+// the strided buffers (a head is a 64 x Dh box of the operand's map) into
+// swizzled shared memory: 128-byte swizzle at Dh = 64, 64-byte at Dh = 32,
+// each head alone. All products are wgmma m64nNk16 bf16 -> fp32: S and dP
+// with both operands in shared memory (K-major), dQ / dK / dV with A = dS or
+// P from registers (the accumulator's fragment is the A fragment, rounded to
+// bf16 pairs) and B = K, Q or dO read MN-major (the transpose bit). The dK
+// and dV accumulators stay in registers (64 a thread at Dh = 64). Skips,
+// exact because a masked key's probability underflows to 0 when the row has
+// a key it may attend (bidirectional: the image has a valid key; causal: its
+// key 0 is valid): key tiles past the last valid key and, causal, past the
+// diagonal (dQ); query tiles before the diagonal and key rows past the last
+// valid key (dK / dV, written as zeros). Without that (a row with no key it
+// may attend spreads its probability over the masked keys, as the forward
+// does) nothing is skipped.
+//
+// The pre-Hopper design (`wmma`, kept as the yardstick): two launches of four
+// warps, wmma 16x16x16 bf16 tiles, 64 x 64 tiles through padded shared
+// memory with 16-byte loads, ten products: attn_bwd_dq sweeps the keys three
+// times (statistics; D; dS and dQ), attn_bwd_dkv recomputes P and dS from the
+// statistics. The head dim is a template parameter in both designs, 64 or 32
+// (the MAE decoder): each head is its own Dh-wide tile product, as in K3; the
+// TPU kernel's pairing of two 32-wide heads under 0/1 lane masks has no
+// counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +76,7 @@
 #include <cstdint>
 
 #include "func_attrs.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -403,7 +439,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv(Operands p) {
 }
 
 template <int DH>
-int launch(const Operands& p, cudaStream_t s) {
+int launch_wmma(const Operands& p, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_dq<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Dims<DH>::DQ_SMEM);
@@ -419,18 +455,498 @@ int launch(const Operands& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the Hopper form
+
+constexpr int ROWS = 64;         // a consumer warpgroup's rows; one tile
+constexpr int SM90_THREADS = 384;  // producer warpgroup + two consumers
+constexpr int STAGES = 4;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of both kernels: the fixed tiles (two consumers' Q and dO,
+// or K and V), the ring of STAGES pairs of streamed tiles, and beside each
+// stage its validity bytes (dQ) or its three rows of statistics (dK / dV).
+template <int DH>
+struct Smem {
+  static constexpr int TILE = ROWS * DH * 2;  // a 64 x DH bf16 tile
+  static constexpr int FIXED = 4 * TILE;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int SIDE = 3 * ROWS * 4;
+  static constexpr int BYTES = 1024 + FIXED + STAGES * STAGE + STAGES * SIDE;
+  static_assert(TILE % 1024 == 0, "every tile keeps the swizzle's alignment");
+  static_assert(BYTES <= 227 * 1024, "past the card's shared memory");
+};
+
+// k16 step kk of a tile read K-major: its 64 rows are M or N, Dh runs along
+// the contraction (+32 bytes a step inside the swizzled row; SBO: 8 rows).
+template <int DH>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return sm90::smem_desc(tile + kk * 32, 16, 8 * DH * 2, DH * 2);
+}
+
+// k16 step kk of a tile read MN-major: its 64 rows run along the
+// contraction, Dh along N (+16 rows a step; SBO: 8 rows; one atom along N).
+template <int DH>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return sm90::smem_desc(tile + kk * 16 * DH * 2, Smem<DH>::TILE, 8 * DH * 2,
+                         DH * 2);
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (DH == 64)
+    sm90::wgmma_rs_n64<1>(d, a, db);
+  else
+    sm90::wgmma_rs_n32<1>(d, a, db);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Two 64 x 64 products of one warpgroup, both operands K-major in shared
+// memory, waited for: s = a0 b0^T and t = a1 b1^T over Dh.
+template <int DH>
+__device__ __forceinline__ void two_products(float (&s)[32], float (&t)[32],
+                                             uint32_t a0, uint32_t b0,
+                                             uint32_t a1, uint32_t b1) {
+  zero(s);
+  zero(t);
+  sm90::fence_acc(s);
+  sm90::fence_acc(t);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    sm90::wgmma_n64<0, 0>(s, desc_k<DH>(a0, kk), desc_k<DH>(b0, kk));
+    sm90::wgmma_n64<0, 0>(t, desc_k<DH>(a1, kk), desc_k<DH>(b1, kk));
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(s);
+  sm90::fence_acc(t);
+}
+
+// Release a ring stage: every warp of the consumer arrives once it is done
+// with the stage (its wgmma groups retired, its shared reads made).
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) sm90::mbar_arrive(sm90::smem_u32(empty));
+}
+
+// What a block may skip. With `on`, every query row of image b has a key it
+// may attend (bidirectional: some key is valid; causal: key 0 is), so each
+// row's max is a real logit and a masked key's exp(-1e9 - max) is exactly 0:
+// tiles of masked keys add nothing. `last`: the image's last valid key, or
+// -1. The count of the barriers' arrivals depends on it, so the scan runs
+// before they are set up.
+struct Skip {
+  bool on;
+  int last;
+};
+
+__device__ __forceinline__ Skip block_skip(const Operands& p, int b,
+                                           int* last_sh) {
+  if (threadIdx.x == 0) *last_sh = -1;
+  __syncthreads();
+  const uint8_t* v = p.valid + (size_t)b * p.Tk;
+  int loc = -1;
+  for (int k = threadIdx.x; k < p.Tk; k += blockDim.x)
+    if (v[k]) loc = k;
+  if (loc >= 0) atomicMax(last_sh, loc);
+  __syncthreads();
+  const int last = *last_sh;
+  return {p.causal ? v[0] != 0 : last >= 0, last};
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
+                                          uint64_t* fixed, int arrivals) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+      sm90::mbar_init(sm90::smem_u32(&empty[s]), arrivals > 0 ? arrivals : 1);
+    }
+    sm90::mbar_init(sm90::smem_u32(fixed), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// A 64 x Dh accumulator (this warpgroup's rows row0.., this thread's rows
+// row0 + 16 warp + lane / 4 (+ 8)) as bf16 into dst (row stride ld), head
+// column c0.
+template <int DH>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, size_t ld,
+                                           int c0, const float (&d)[DH / 2],
+                                           int lt) {
+  const int warp = lt / 32, lane = lt % 32;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    __nv_bfloat16* row = dst + (size_t)(warp * 16 + lane / 4 + 8 * hh) * ld +
+                         c0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, Operands p) {
+  using L = Smem<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t fixed;
+  __shared__ int last_sh;
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t ring = base + L::FIXED;
+  const uint32_t side = ring + STAGES * L::STAGE;
+  const unsigned char* side_g = smem_raw + (side - raw);
+
+  const int q0 = blockIdx.x * 2 * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int n_wg = min(2, (p.Tq - q0) / ROWS);
+  const Skip sk = block_skip(p, b, &last_sh);
+  int n_kt = p.Tk / ROWS;  // key tiles swept, twice
+  if (sk.on) {
+    n_kt = sk.last / ROWS + 1;
+    if (p.causal) n_kt = min(n_kt, (q0 + n_wg * ROWS - 1) / ROWS + 1);
+  }
+  init_ring(full, empty, &fixed, 4 * n_wg);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      const uint32_t fb = sm90::smem_u32(&fixed);
+      sm90::mbar_expect_tx(fb, n_wg * 2 * L::TILE);
+      for (int c = 0; c < n_wg; ++c) {
+        const int row = b * p.Tq + q0 + c * ROWS;
+        sm90::tma_load(base + c * L::TILE, &tq, fb, h * DH, row);
+        sm90::tma_load(base + (2 + c) * L::TILE, &tdo, fb, h * DH, row);
+      }
+      for (int i = 0; i < 2 * n_kt; ++i) {
+        const int s = i % STAGES, kt = i < n_kt ? i : i - n_kt;
+        const uint32_t fs = sm90::smem_u32(&full[s]);
+        sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((i / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(fs, L::STAGE + ROWS);
+        const int row = b * p.Tk + kt * ROWS;
+        sm90::tma_load(ring + s * L::STAGE, &tk, fs, h * DH, row);
+        sm90::tma_load(ring + s * L::STAGE + L::TILE, &tv, fs, h * DH, row);
+        sm90::bulk_load(side + s * L::SIDE, p.valid + row, ROWS, fs);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int c = wg - 1;
+  if (c >= n_wg) return;
+  const int lt = threadIdx.x % 128, lane = lt % 32;
+  const int t4 = lane % 4;
+  const int qa = q0 + c * ROWS + (lt / 32) * 16 + lane / 4;  // rows qa, qa + 8
+  const int q_hi = q0 + c * ROWS + ROWS - 1;
+  const uint32_t qs = base + c * L::TILE, dos = base + (2 + c) * L::TILE;
+  const float scale = p.scale;
+  sm90::mbar_wait(sm90::smem_u32(&fixed), 0);
+
+  float mrow[2] = {-FLT_MAX, -FLT_MAX}, lrow[2] = {0.0f, 0.0f};
+  float drow[2] = {0.0f, 0.0f};
+  float sc[32], dp[32], dq[DH / 2];
+  zero(dq);
+  for (int i = 0; i < 2 * n_kt; ++i) {
+    const int s = i % STAGES, kt = i < n_kt ? i : i - n_kt;
+    const bool sweep2 = i >= n_kt;
+    if (i == n_kt) {  // the statistics, for sweep 2 and the dK / dV launch
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        lrow[hh] = 1.0f / quad_sum(lrow[hh]);
+        drow[hh] = quad_sum(drow[hh]) * lrow[hh];
+        if (t4 == 0) {
+          const size_t plane = (size_t)p.B * p.H * p.Tq;
+          const size_t o = ((size_t)b * p.H + h) * p.Tq + qa + 8 * hh;
+          p.stats[o] = mrow[hh];
+          p.stats[plane + o] = lrow[hh];
+          p.stats[2 * plane + o] = drow[hh];
+        }
+        mrow[hh] *= LOG2E;
+      }
+    }
+    sm90::mbar_wait(sm90::smem_u32(&full[s]), (i / STAGES) & 1);
+    if (sk.on && p.causal && kt * ROWS > q_hi) {  // past this warpgroup's
+      release(&empty[s], lane);                  // diagonal: all zeros
+      continue;
+    }
+    const uint32_t ks = ring + s * L::STAGE;
+    two_products<DH>(sc, dp, qs, ks, dos, ks + L::TILE);
+    // the logits, biased as the forward biases them
+    const unsigned char* vb = side_g + s * L::SIDE;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const uint16_t v2 = *reinterpret_cast<const uint16_t*>(vb + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float kb = (v2 >> (8 * e)) & 0xffu ? 0.0f : NEG;
+        const int key = kt * ROWS + col + e;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float cm = (p.causal && key > qa + 8 * hh) ? NEG : 0.0f;
+          float& x = sc[4 * j + 2 * hh + e];
+          x = x * scale + (cm + kb);
+        }
+      }
+    }
+    if (!sweep2) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -FLT_MAX;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+        const float m_new = fmaxf(mrow[hh], quad_max(mx));
+        const float alpha = exp2f((mrow[hh] - m_new) * LOG2E);
+        const float ml = m_new * LOG2E;
+        float l = lrow[hh] * alpha, d = drow[hh] * alpha;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * hh + e;
+            const float ex = exp2f(fmaf(sc[x], LOG2E, -ml));
+            l += ex;
+            d = fmaf(ex, dp[x], d);
+          }
+        mrow[hh] = m_new;
+        lrow[hh] = l;
+        drow[hh] = d;
+      }
+      release(&empty[s], lane);
+      continue;
+    }
+    // sweep 2: dS (rounded) into A fragments, then dQ += dS K
+    uint32_t a[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int hh = x % 2;
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pr = exp2f(fmaf(sc[2 * x + e], LOG2E, -mrow[hh])) * lrow[hh];
+        ds[e] = pr * (dp[2 * x + e] - drow[hh]) * scale;
+      }
+      a[x] = pack_bf16(ds[0], ds[1]);
+    }
+    sm90::fence_acc(dq);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+      wgmma_rs<DH>(dq, a + 4 * kk, desc_mn<DH>(ks, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(dq);
+    sm90::fence_regs(a);
+    release(&empty[s], lane);
+  }
+  store_rows<DH>(p.dq + ((size_t)b * p.Tq + q0 + c * ROWS) * p.lddq, p.lddq,
+                 h * DH, dq, lt);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    attn_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, Operands p) {
+  using L = Smem<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t fixed;
+  __shared__ int last_sh;
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t ring = base + L::FIXED;
+  const uint32_t side = ring + STAGES * L::STAGE;
+  const float* side_g = reinterpret_cast<const float*>(smem_raw + (side - raw));
+
+  const int k0 = blockIdx.x * 2 * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int n_wg = min(2, (p.Tk - k0) / ROWS);
+  const Skip sk = block_skip(p, b, &last_sh);
+  // consumers whose 64 keys all lie past the last valid key write zeros
+  const int n_work = !sk.on ? n_wg
+                     : sk.last < k0 ? 0
+                                    : min(n_wg, (sk.last - k0) / ROWS + 1);
+  const int qt0 = sk.on && p.causal ? k0 / ROWS : 0;  // the diagonal's tile
+  const int n_qt = p.Tq / ROWS - qt0;
+  init_ring(full, empty, &fixed, 4 * n_work);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0 && n_work > 0) {
+      const uint32_t fb = sm90::smem_u32(&fixed);
+      sm90::mbar_expect_tx(fb, n_work * 2 * L::TILE);
+      for (int c = 0; c < n_work; ++c) {
+        const int row = b * p.Tk + k0 + c * ROWS;
+        sm90::tma_load(base + c * L::TILE, &tk, fb, h * DH, row);
+        sm90::tma_load(base + (2 + c) * L::TILE, &tv, fb, h * DH, row);
+      }
+      const size_t plane = (size_t)p.B * p.H * p.Tq;
+      for (int i = 0; i < n_qt; ++i) {
+        const int s = i % STAGES, qt = qt0 + i;
+        const uint32_t fs = sm90::smem_u32(&full[s]);
+        sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((i / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(fs, L::STAGE + L::SIDE);
+        const int row = b * p.Tq + qt * ROWS;
+        sm90::tma_load(ring + s * L::STAGE, &tq, fs, h * DH, row);
+        sm90::tma_load(ring + s * L::STAGE + L::TILE, &tdo, fs, h * DH, row);
+        const float* st = p.stats + ((size_t)b * p.H + h) * p.Tq + qt * ROWS;
+        for (int k = 0; k < 3; ++k)
+          sm90::bulk_load(side + s * L::SIDE + k * ROWS * 4, st + k * plane,
+                          ROWS * 4, fs);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int c = wg - 1;
+  if (c >= n_wg) return;
+  const int lt = threadIdx.x % 128, lane = lt % 32;
+  const int t4 = lane % 4;
+  const size_t out_row = (size_t)b * p.Tk + k0 + c * ROWS;
+  float dk[DH / 2], dv[DH / 2];
+  zero(dk);
+  zero(dv);
+  if (c < n_work) {
+    const int ka = k0 + c * ROWS + (lt / 32) * 16 + lane / 4;  // keys ka, +8
+    float kb[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      kb[hh] = p.valid[(size_t)b * p.Tk + ka + 8 * hh] ? 0.0f : NEG;
+    const int wg_qt = sk.on && p.causal ? (k0 + c * ROWS) / ROWS : 0;
+    const uint32_t ks = base + c * L::TILE, vs = base + (2 + c) * L::TILE;
+    const float scale = p.scale;
+    sm90::mbar_wait(sm90::smem_u32(&fixed), 0);
+    float st[32], dpt[32];
+    for (int i = 0; i < n_qt; ++i) {
+      const int s = i % STAGES, qt = qt0 + i;
+      sm90::mbar_wait(sm90::smem_u32(&full[s]), (i / STAGES) & 1);
+      if (qt < wg_qt) {  // before this warpgroup's diagonal: all zeros
+        release(&empty[s], lane);
+        continue;
+      }
+      const uint32_t qs = ring + s * L::STAGE, dos = qs + L::TILE;
+      two_products<DH>(st, dpt, ks, qs, vs, dos);
+      const float* sd = side_g + s * (L::SIDE / 4);
+      uint32_t ap[16], as[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        const float2 m2 = *reinterpret_cast<const float2*>(sd + col);
+        const float2 il2 = *reinterpret_cast<const float2*>(sd + ROWS + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(sd + 2 * ROWS + col);
+        const float mq[2] = {m2.x * LOG2E, m2.y * LOG2E};
+        const float ilq[2] = {il2.x, il2.y}, dq2[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float pr[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * hh + e;
+            const int q = qt * ROWS + col + e;
+            const float cm = (p.causal && ka + 8 * hh > q) ? NEG : 0.0f;
+            const float lg = st[x] * scale + (cm + kb[hh]);
+            pr[e] = exp2f(fmaf(lg, LOG2E, -mq[e])) * ilq[e];
+            ds[e] = pr[e] * (dpt[x] - dq2[e]) * scale;
+          }
+          ap[2 * j + hh] = pack_bf16(pr[0], pr[1]);
+          as[2 * j + hh] = pack_bf16(ds[0], ds[1]);
+        }
+      }
+      sm90::fence_acc(dv);
+      sm90::fence_acc(dk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+        wgmma_rs<DH>(dv, ap + 4 * kk, desc_mn<DH>(dos, kk));
+        wgmma_rs<DH>(dk, as + 4 * kk, desc_mn<DH>(qs, kk));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(dv);
+      sm90::fence_acc(dk);
+      sm90::fence_regs(ap);
+      sm90::fence_regs(as);
+      release(&empty[s], lane);
+    }
+  }
+  store_rows<DH>(p.dk + out_row * p.lddkv, p.lddkv, h * DH, dk, lt);
+  store_rows<DH>(p.dv + out_row * p.lddkv, p.lddkv, h * DH, dv, lt);
+}
+
+template <int DH>
+int launch_sm90(const Operands& p, cudaStream_t s) {
+  using L = Smem<DH>;
+  const int e = p.H * DH;
+  CUtensorMap mq, mk, mv, mo;
+  int rc = sm90::tensor_map(&mq, p.q, p.B * p.Tq, e, ROWS, p.ldq, DH);
+  if (rc == 0) rc = sm90::tensor_map(&mk, p.k, p.B * p.Tk, e, ROWS, p.ldkv, DH);
+  if (rc == 0) rc = sm90::tensor_map(&mv, p.v, p.B * p.Tk, e, ROWS, p.ldkv, DH);
+  if (rc == 0) rc = sm90::tensor_map(&mo, p.d_o, p.B * p.Tq, e, ROWS, p.ldo, DH);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_sm90<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dkv_sm90<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = 2 * ROWS;
+  attn_bwd_dq_sm90<DH><<<dim3((p.Tq + blocks - 1) / blocks, p.H, p.B),
+                         SM90_THREADS, L::BYTES, s>>>(mq, mk, mv, mo, p);
+  attn_bwd_dkv_sm90<DH><<<dim3((p.Tk + blocks - 1) / blocks, p.H, p.B),
+                          SM90_THREADS, L::BYTES, s>>>(mq, mk, mv, mo, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, d_o, dq: rows B*Tq with strides ldq, ldo, lddq; k, v: rows B*Tk with
 // stride ldkv; dk, dv: rows B*Tk with stride lddkv; valid (B, Tk) uint8; stats
 // (3, B, H, Tq) fp32 scratch. Requires Dh == 64 or Dh == 32, Tq % 64 == 0,
-// Tk % 64 == 0, every stride a multiple of 8.
+// Tk % 64 == 0, every stride a multiple of 8; wmma 0 (the Hopper kernels):
+// q, k, v, d_o 16-byte aligned (TMA); wmma 1: the pre-Hopper kernels.
 extern "C" int acai_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* d_o, const void* valid, void* dq,
                                   void* dk, void* dv, void* stats, int B,
                                   int Tq, int Tk, int H, int dh, int ldq,
                                   int ldkv, int ldo, int lddq, int lddkv,
-                                  float scale, int causal, void* stream) {
+                                  float scale, int causal, int wmma,
+                                  void* stream) {
   if ((dh != 64 && dh != 32) || Tq % TILE != 0 || Tk % TILE != 0 ||
       ldq % 8 != 0 || ldkv % 8 != 0 || ldo % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -445,15 +961,24 @@ extern "C" int acai_attention_bwd(const void* q, const void* k, const void* v,
                    static_cast<float*>(stats),
                    B, H, Tq, Tk, ldq, ldkv, ldo, lddq, lddkv, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dh == 32 ? launch<32>(p, s) : launch<64>(p, s);
+  if (wmma) return dh == 32 ? launch_wmma<32>(p, s) : launch_wmma<64>(p, s);
+  return dh == 32 ? launch_sm90<32>(p, s) : launch_sm90<64>(p, s);
 }
 
 // The resource report of the kernels above (func_attrs.cuh): block size and
 // dynamic shared memory as the launcher uses them.
 static const AcaiKernelEntry kResources[] = {
-    ACAI_KERNEL("attention_bwd", "dh64", attn_bwd_dq<64>, THREADS, Dims<64>::DQ_SMEM),
-    ACAI_KERNEL("attention_bwd", "dh64", attn_bwd_dkv<64>, THREADS, Dims<64>::DKV_SMEM),
-    ACAI_KERNEL("attention_bwd", "dh32", attn_bwd_dq<32>, THREADS, Dims<32>::DQ_SMEM),
-    ACAI_KERNEL("attention_bwd", "dh32", attn_bwd_dkv<32>, THREADS, Dims<32>::DKV_SMEM),
+    ACAI_KERNEL("attention_bwd", "sm90_dh64", attn_bwd_dq_sm90<64>,
+                SM90_THREADS, Smem<64>::BYTES),
+    ACAI_KERNEL("attention_bwd", "sm90_dh64", attn_bwd_dkv_sm90<64>,
+                SM90_THREADS, Smem<64>::BYTES),
+    ACAI_KERNEL("attention_bwd", "sm90_dh32", attn_bwd_dq_sm90<32>,
+                SM90_THREADS, Smem<32>::BYTES),
+    ACAI_KERNEL("attention_bwd", "sm90_dh32", attn_bwd_dkv_sm90<32>,
+                SM90_THREADS, Smem<32>::BYTES),
+    ACAI_KERNEL("attention_bwd", "wmma_dh64", attn_bwd_dq<64>, THREADS, Dims<64>::DQ_SMEM),
+    ACAI_KERNEL("attention_bwd", "wmma_dh64", attn_bwd_dkv<64>, THREADS, Dims<64>::DKV_SMEM),
+    ACAI_KERNEL("attention_bwd", "wmma_dh32", attn_bwd_dq<32>, THREADS, Dims<32>::DQ_SMEM),
+    ACAI_KERNEL("attention_bwd", "wmma_dh32", attn_bwd_dkv<32>, THREADS, Dims<32>::DKV_SMEM),
 };
 ACAI_EXPORT_RESOURCES(kResources)

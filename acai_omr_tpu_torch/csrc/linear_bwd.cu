@@ -19,24 +19,32 @@
 // Bound on an H100: tensor-core flops (2 M N K each) at 989 TFLOP/s bf16 at
 // the training shapes (thousands of rows).
 //
-// wgrad runs on the Hopper GEMM core (sm90_gemm.cuh): TMA into a
+// Both run on the Hopper GEMM core (sm90_gemm.cuh): TMA into a
 // shared-memory ring, wgmma from two consumer warpgroups, a producer warp,
-// A = X^T and B = dY both MN-major (the descriptors' transpose bits: the
-// transposed operand is read at the full rate, never transposed in memory),
-// 128 x BN output tiles. It contracts over the rows: when the output tiles
-// alone are too few to fill the card's 132 SMs the wrapper's plan
+// 128 x BN output tiles.
+//
+// wgrad: A = X^T and B = dY both MN-major (the descriptors' transpose bits:
+// the transposed operand is read at the full rate, never transposed in
+// memory). It contracts over the rows: when the output tiles alone are too
+// few to fill the card's 132 SMs the wrapper's plan
 // (ops/linear_bwd_kernel.py `row_split_plan`) splits the rows across
 // blockIdx.z, each split writes an fp32 partial and a second launch sums them
 // in a fixed order and rounds once. The bias sum is two small launches (slabs
 // of 256 rows, then the slabs), fixed order, no atomics.
 //
-// dgrad keeps the pre-Hopper design: one 64x64 output tile per block, four
-// warps of 2x2 wmma 16x16x16 bf16 tiles, the contraction staged through
-// shared memory in slabs of 32 with 16-byte loads, W^T through a col-major
-// fragment. It is the next product to move onto the core (B = W^T,
-// K-major). The pre-Hopper wgrad of the same design (X^T through col-major
-// fragments) stays as the core's yardstick, launched only when the wrapper
-// is asked for it (bn 64).
+// dgrad: A = dY K-major, B = W^T read from W (K_out, N) as a K-major operand
+// (boxes of BN rows of W by 64 contraction columns), BN from the wrapper's
+// `dgrad_plan`. The contraction is never split: the epilogue (round, K10's
+// mask keyed by row and output column, `* mul` rounded, `+ add`) runs on the
+// whole fp32 sum, so its bits do not depend on the tiling and equal the
+// pre-Hopper kernel's and the twin's mask for mask. Shape rule: TMA's
+// (K_out and N multiples of 8, dY and W 16-byte aligned).
+//
+// The pre-Hopper kernels of both (one 64x64 output tile per block, four warps
+// of 2x2 wmma 16x16x16 bf16 tiles, the contraction staged through shared
+// memory in slabs of 32 with 16-byte loads, the transposed operand through a
+// col-major fragment) stay as the core's yardsticks, launched only when the
+// wrapper is asked for them (bn 64: `variant="wmma"`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -297,6 +305,54 @@ __global__ void colsum_final(const float* __restrict__ partial, int slabs,
   db[col] = s;
 }
 
+// The epilogue of dgrad on the core: dX rounded to bf16, K10's mask keyed by
+// (row, output column), then `* mul` rounded, then `+ add`; as dgrad_kernel.
+struct DgradEpilogue {
+  const __nv_bfloat16* mul;
+  const __nv_bfloat16* add;
+  __nv_bfloat16* out;
+  int K;
+  DropSpec drop;
+  __device__ __forceinline__ void operator()(const float acc[4], int m,
+                                             int c) const {
+    float v[4] = {round_bf16(acc[0]), round_bf16(acc[1]), round_bf16(acc[2]),
+                  round_bf16(acc[3])};
+    drop4(drop, m, c, v);
+    const size_t o = (size_t)m * K + c;
+    if (mul != nullptr) {
+      float f[4];
+      load4_bf16(mul + o, f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = round_bf16(v[j] * f[j]);
+    }
+    if (add != nullptr) {
+      float f[4];
+      load4_bf16(add + o, f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] += f[j];
+    }
+    store4_bf16(out + o, v);
+  }
+};
+
+// dX (M, K) = dY (M, N) W^T on the Hopper core: dY and W both K-major.
+int launch_dgrad_core(const void* dy, const void* w, const DgradEpilogue& epi,
+                      int M, int N, int K, int bn, cudaStream_t s) {
+  if (K % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  int rc = sm90::tensor_map(&ta, dy, M, N, sm90::box_rows(false, sm90::BM));
+  if (rc == 0) rc = sm90::tensor_map(&tb, w, K, N, sm90::box_rows(false, bn));
+  if (rc != 0) return rc;
+  const int k_chunk = (N + sm90::BK - 1) / sm90::BK * sm90::BK;
+  if (bn == 256)
+    return sm90::launch<256, false, false>(ta, tb, M, K, N, k_chunk, 1, epi,
+                                           s);
+  if (bn == 128)
+    return sm90::launch<128, false, false>(ta, tb, M, K, N, k_chunk, 1, epi,
+                                           s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // dW (K, N) = X^T dY on the Hopper core: X and dY both MN-major.
 int launch_core(const void* x, const void* dy, void* dw, float* part, int R,
                 int K, int N, int r_chunk, int splits, int bn,
@@ -320,18 +376,27 @@ int launch_core(const void* x, const void* dy, void* dw, float* part, int R,
 }  // namespace
 
 // dY (M, N), W (K, N), out (M, K) bf16; mul, add (M, K) bf16 or null.
+// bn 128 or 256 (the Hopper core): K % 8 == 0, N % 8 == 0 (TMA's 16-byte
+// row strides), dY and W 16-byte aligned. bn 64 (the wmma kernel):
 // N % 32 == 0, K % 64 == 0.
 extern "C" int acai_linear_dgrad(const void* dy, const void* w, const void* mul,
                                  const void* add, void* out, int M, int N,
-                                 int K, unsigned drop_thresh, float drop_scale,
-                                 unsigned seed0, unsigned seed1,
-                                 unsigned drop_stream, int drop_t,
-                                 void* stream) {
-  if (N % BK != 0 || K % BN != 0) return (int)cudaErrorInvalidValue;
+                                 int K, int bn, unsigned drop_thresh,
+                                 float drop_scale, unsigned seed0,
+                                 unsigned seed1, unsigned drop_stream,
+                                 int drop_t, void* stream) {
   if (drop_thresh != 0u && drop_t <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DropSpec d{drop_thresh, drop_scale, seed0, seed1, drop_stream,
                    drop_t > 0 ? drop_t : 1};
+  if (bn != BN)
+    return launch_dgrad_core(
+        dy, w,
+        DgradEpilogue{static_cast<const __nv_bfloat16*>(mul),
+                      static_cast<const __nv_bfloat16*>(add),
+                      static_cast<__nv_bfloat16*>(out), K, d},
+        M, N, K, bn, s);
+  if (N % BK != 0 || K % BN != 0) return (int)cudaErrorInvalidValue;
   dgrad_kernel<<<dim3(K / BN, (M + BM - 1) / BM), THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(mul),
@@ -382,7 +447,15 @@ extern "C" int acai_linear_wgrad(const void* x, const void* dy, void* dw,
 // The resource report of the kernels above (func_attrs.cuh): block size and
 // dynamic shared memory as the launcher uses them.
 static const AcaiKernelEntry kResources[] = {
-    ACAI_KERNEL("linear_dgrad", "", dgrad_kernel, THREADS, 0),
+    ACAI_KERNEL("linear_dgrad", "wmma", dgrad_kernel, THREADS, 0),
+    {"linear_dgrad|sm90|gemm_kernel<256,K,K>",
+     reinterpret_cast<const void*>(
+         sm90::gemm_kernel<256, false, false, DgradEpilogue>),
+     sm90::THREADS, sm90::Tile<256>::SMEM},
+    {"linear_dgrad|sm90|gemm_kernel<128,K,K>",
+     reinterpret_cast<const void*>(
+         sm90::gemm_kernel<128, false, false, DgradEpilogue>),
+     sm90::THREADS, sm90::Tile<128>::SMEM},
     ACAI_KERNEL("linear_wgrad", "wmma", wgrad_kernel, THREADS, 0),
     {"linear_wgrad||gemm_kernel<256,MN,MN>",
      reinterpret_cast<const void*>(

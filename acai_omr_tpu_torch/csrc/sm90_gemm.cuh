@@ -1,5 +1,7 @@
 // sm90_gemm.cuh: one GEMM core for Hopper, shared by K1 linear_bias_act (its
-// large-M products) and K9 linear_wgrad.
+// large-M products) and K9 linear_bwd (wgrad and dgrad), and the Hopper
+// building blocks (mbarriers, TMA, shared-memory descriptors, wgmma) that K7
+// attention_bwd's warp-specialised kernels are made of.
 //
 // Computes C (M, N) = A (M, K) B (K, N) over one range of K in bf16 with an
 // fp32 accumulator, a (BM = 128) x BN tile a block, and hands the fp32 tile to
@@ -9,12 +11,13 @@
 //   K1:        A = X (M, K) K-major,       B = W (K, N) MN-major;
 //   K9 wgrad:  A = X^T, X (R, K) MN-major, B = dY (R, N) MN-major, contracting
 //              over the R rows;
-//   K9 dgrad:  B = W^T, W (K_out, N) K-major (the next kernel on this core).
+//   K9 dgrad:  A = dY (M, N) K-major,      B = W^T, W (K_out, N) K-major
+//              (BN rows of W a box), contracting over N.
 //
 // Replaces (JAX package, ops/pallas_train_layer.py): the MXU dots of
 // `_fwd_kernel` :438 (`_dot(x, wqkv)`, `_dot(a_s, wo)`, the F-chunked ff1 /
-// ff2 dots) and the weight-gradient folds `_acc` / `_dot_tb` :666-694 of
-// `_bwd_kernel`.
+// ff2 dots), the weight-gradient folds `_acc` / `_dot_tb` :666-694 and the
+// `_dot_bt` products of `_bwd_kernel`.
 //
 // Bound on an H100: tensor-core operations, 2 M N K at 989 TFLOP/s bf16, at
 // every shape this core is given (thousands of rows; 170-1,000 flops a byte).
@@ -27,7 +30,9 @@
 //   swizzle, so a box's inner extent is 64 bf16: a K-major tile is one box of
 //   64 K columns by its rows; an MN-major tile is one 64 x 64 box per 64
 //   columns of M or N. TMA's zero fill covers the ragged M / N edge and any K
-//   tail: nothing is padded on the host.
+//   tail: nothing is padded on the host. (`tensor_map` also takes a row
+//   stride and a 32-column box with 64-byte swizzle: K7 maps one head of a
+//   strided (rows, 3E) buffer with them.)
 // * A ring of STAGES (4 at BN = 256, 6 at BN = 128) stages of the (128 x 64)
 //   A and (64 x BN) B tiles in dynamic shared memory (193 KB), each stage with
 //   a full mbarrier (arrive.expect_tx of the stage's bytes, completed by the
@@ -49,15 +54,18 @@
 //   consumer threads walk the staged tile in groups of four columns, row by
 //   row (coalesced), and call the caller's epilogue: K1's bias / GELU /
 //   GELU' / dropout (keyed by row and column: the mask does not depend on the
-//   tiling) or fp32 partial; K9's bf16 dW or fp32 split partial.
+//   tiling) or fp32 partial; K9's bf16 dW or fp32 split partial, or dX with
+//   dgrad's dropout / product / residual epilogue.
 //
 // Measured on an H100 (PERF.md section 6): the mainloop at about 90 % of an
 // SM's share of the tensor-core rate, plus a fixed cost of about 10 us a
 // tile (the ring's fill, the staged epilogue and its stores, the launch)
 // that nothing hides while a block holds one tile; the wrappers' plans
-// model both. Not here yet, each for a later change: a persistent tile
-// scheduler (one tile's epilogue overlapping the next tile's loads: the
-// answer to that fixed cost), clusters with TMA multicast, fp8.
+// model both. An epilogue that reads device memory (dgrad's `* mul` on wide
+// outputs) adds its reads to that fixed cost. Not here yet, each for a
+// later change: a persistent tile scheduler (one tile's epilogue
+// overlapping the next tile's loads: the answer to that fixed cost),
+// clusters with TMA multicast, fp8.
 
 #pragma once
 
@@ -147,11 +155,25 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A shared-memory matrix descriptor, 128-byte swizzle.
+// One contiguous run of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) into shared memory, completing on `bar` like a TMA box.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor; `swizzle` is the swizzle's span in bytes
+// (128 or 64: layout types 1 and 2).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              int swizzle = 128) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) |
+         ((swizzle == 128 ? 1ull : 2ull) << 62);
 }
 
 // The descriptor of k16 step `kk` of a 64-deep tile at `addr`.
@@ -270,6 +292,82 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64, fp32, 32 registers a thread) += A (64 x 16) B (16 x 64), bf16,
+// both operands in shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers, the fragment
+// layout of an accumulator's columns) B (16 x 64) in shared memory.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers, the fragment
+// layout of an accumulator's columns) B (16 x 32) in shared memory.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// Keeps registers that an issued wgmma still reads (A fragments) live, and
+// unchanged, up to this point: after its wait_group.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int BN, bool A_MN, bool B_MN>
@@ -437,32 +535,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a row-major bf16 matrix (rows, cols), read in boxes of
-// box_rows x 64 columns, 128-byte swizzle, zeros outside. TMA's own rules:
-// a row stride (cols * 2 bytes) and a base address that are multiples of
-// 16 bytes.
+// The map of a row-major bf16 matrix (rows, cols) whose rows lie `ld`
+// elements apart (cols when 0), read in boxes of box_rows x box_cols (64 or
+// 32) columns, swizzled across box_cols * 2 bytes (128 or 64), zeros outside.
+// TMA's own rules: a row stride (ld * 2 bytes) and a base address that are
+// multiples of 16 bytes. A head of a fused (rows, 3E) buffer is a map of
+// its E columns at stride 3E.
 inline int tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                      int box_rows) {
-  if (rows <= 0 || cols <= 0 || cols % 8 != 0 ||
+                      int box_rows, int ld = 0, int box_cols = BOX) {
+  ld = ld == 0 ? cols : ld;
+  if (rows <= 0 || cols <= 0 || ld < cols || ld % 8 != 0 ||
+      (box_cols != 64 && box_cols != 32) ||
       reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BOX, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // The box rows of an operand's map: a K-major tile is one box of its rows
-// (BM for A, BN for B), an MN-major tile boxes of 64 K rows.
+// (BM for A, BN for B: at most 256, TMA's limit on a box's extent), an
+// MN-major tile boxes of 64 K rows.
 constexpr int box_rows(bool mn, int tile_rows) { return mn ? BK : tile_rows; }
 
 // C (M, N) = A B over K, in `splits` ranges of k_chunk (a multiple of BK).

@@ -7,7 +7,11 @@ replaces are noted there). Operands are the (B, T, E) views
 through destination views, so the self site fills one ``(B*T, 3E)`` buffer
 and the cross site fills ``dqc`` and the layer's slice of ``d(mem_kv)``. The
 attention output itself is not returned: the backward of the stacks
-recomputes it with K3, which gives the forward's bits.
+recomputes it with K3, which gives the forward's bits. Two designs, counted
+apart in ``KernelOp.variants``: ``"sm90_dh{Dh}"`` (TMA + wgmma, warp
+specialised, the default) and ``"wmma_dh{Dh}"`` (the pre-Hopper kernels,
+kept as its yardstick: ``variant="wmma"``). Either is two device kernels a
+call.
 """
 
 from __future__ import annotations
@@ -49,8 +53,15 @@ def attention_bwd_plain(q, k, v, d_o, valid, num_heads: int, causal: bool,
     return tuple(outs)
 
 
+VARIANTS = ("sm90", "wmma")
+
+
 def _launch(op, q, k, v, d_o, valid, num_heads, causal, dq=None, dk=None,
-            dv=None):
+            dv=None, *, variant="sm90"):
+    """``variant`` (private: tests and chip_smoke.py): ``"wmma"`` for the
+    pre-Hopper kernels."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
     b, tq, tk, e, dh = check_attention_operands(op.name, q, k, v, valid,
                                                 num_heads)
     bf = dict(dtype=torch.bfloat16, device=q.device)
@@ -66,18 +77,23 @@ def _launch(op, q, k, v, d_o, valid, num_heads, causal, dq=None, dk=None,
                              f"row-strided view of shape {(b, t, e)}")
     if d_o.stride(1) % 8 or dk.stride(1) != dv.stride(1):
         raise ValueError(f"{op.name}: unsupported strides")
+    if variant == "sm90" and any(a.data_ptr() % 16 for a in (q, k, v, d_o)):
+        raise ValueError(f"{op.name} needs q, k, v and d_o 16-byte aligned "
+                         f"(TMA)")
     valid_u8 = valid.to(torch.uint8).contiguous()
     stats = torch.empty((3, b, num_heads, tq), dtype=torch.float32,
                         device=q.device)
     fn = _build.bind("attention_bwd", "acai_attention_bwd",
                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(),
             valid_u8.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             stats.data_ptr(), b, tq, tk, num_heads, dh, q.stride(1),
             k.stride(1), d_o.stride(1), dq.stride(1), dk.stride(1),
-            1.0 / math.sqrt(dh), int(causal), _build.stream_ptr())
-    op.launched(f"dh{dh}")
+            1.0 / math.sqrt(dh), int(causal), int(variant == "wmma"),
+            _build.stream_ptr())
+    op.launched(f"{variant}_dh{dh}")
     op.extra_launches += 1  # the dK/dV kernel after the dQ kernel
     _build.check(rc, op.name)
     return dq, dk, dv

@@ -1,11 +1,13 @@
 """K9 ``linear_bwd``: the backward products of ``y = x @ w + b``.
 
 CUDA source: ``csrc/linear_bwd.cu`` (bound, design and the TPU code it
-replaces are noted there). Two ops: :data:`linear_dgrad` (``dX = dY W^T`` with
-the backward sweep's elementwise epilogues) and :data:`linear_wgrad`
-(``dW = X^T dY`` summed in fp32 over all rows, ``db = colsum(dY)``), the
-latter on the Hopper GEMM core ``csrc/sm90_gemm.cuh`` with its rows split by
-:func:`row_split_plan` (``KernelOp.variants``: ``"sm90_splits{s}"``).
+replaces are noted there). Two ops, both on the Hopper GEMM core
+``csrc/sm90_gemm.cuh``: :data:`linear_dgrad` (``dX = dY W^T`` with the
+backward sweep's elementwise epilogues, its tile from :func:`dgrad_plan`;
+``KernelOp.variants``: ``"sm90"``) and :data:`linear_wgrad` (``dW = X^T dY``
+summed in fp32 over all rows, ``db = colsum(dY)``, its rows split by
+:func:`row_split_plan`; ``"sm90_splits{s}"``). The pre-Hopper wmma kernels
+stay as their yardsticks (``variant="wmma"``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from . import _build
 from . import dropout_kernel as dk
-from .linear_kernel import SM90_BM, SM90_BNS, N_SMS, core_s
+from .linear_kernel import SM90_BM, SM90_BNS, N_SMS, core_s, sm90_tile_n
 
 _BM, _BN, _BK = 64, 64, 32
 _SLAB = 256
@@ -40,7 +42,33 @@ def linear_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _launch_dgrad(op, dy, w, drop=None, mul=None, add=None):
+def dgrad_plan(m: int, k: int, n: int) -> tuple[str, int]:
+    """(variant, BN) of dX (M, K) = dY (M, N) W^T: the Hopper core
+    (``"sm90"``), a 128 x BN tile of dX a block over the whole contraction,
+    BN as :func:`.linear_kernel.sm90_tile_n` picks it for this product (the
+    core's time model). The contraction is not split: every dgrad of the
+    port's paths has at least 64 tiles at that BN, and a split would have to
+    run the epilogue (rounding, K10's mask, ``* mul``, ``+ add``) after an
+    fp32 reduce."""
+    return "sm90", sm90_tile_n(m, k, n)
+
+
+def check_dgrad_shape(variant: str, k: int, n: int) -> None:
+    """Raise on an (N -> K) product the kernel of ``variant`` does not take:
+    the core's rule is TMA's (16-byte row strides), the wmma kernel's its
+    tiles'."""
+    if variant == "wmma" and (n % _BK or k % _BN):
+        raise ValueError(f"linear_dgrad's wmma kernel needs N % {_BK} == 0 "
+                         f"and K % {_BN} == 0, got N={n}, K={k}")
+    if k % 8 or n % 8:
+        raise ValueError(f"linear_dgrad needs K % 8 == 0 and N % 8 == 0 "
+                         f"(TMA's 16-byte row strides), got N={n}, K={k}")
+
+
+def _launch_dgrad(op, dy, w, drop=None, mul=None, add=None, *,
+                  variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"wmma"`` for the
+    pre-Hopper kernel in place of :func:`dgrad_plan`'s core."""
     _build.require(dy, "dy", torch.bfloat16, 2)
     _build.require(w, "w", torch.bfloat16, 2)
     m, n = dy.shape
@@ -48,9 +76,16 @@ def _launch_dgrad(op, dy, w, drop=None, mul=None, add=None):
     if w.shape[1] != n:
         raise ValueError(f"shape mismatch dy{tuple(dy.shape)} "
                          f"w{tuple(w.shape)}")
-    if n % _BK or k % _BN:
-        raise ValueError(f"linear_dgrad needs N % {_BK} == 0 and "
-                         f"K % {_BN} == 0, got N={n}, K={k}")
+    plan, bn = dgrad_plan(m, k, n)
+    if variant is not None:
+        if variant not in ("sm90", "wmma"):
+            raise ValueError(f"unknown variant {variant!r}")
+        plan = variant
+    check_dgrad_shape(plan, k, n)
+    if plan == "wmma":
+        bn = _BN
+    elif dy.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("linear_dgrad needs dy and w 16-byte aligned")
     for name, t in (("mul", mul), ("add", add)):
         if t is not None:
             _build.require(t, name, torch.bfloat16, 2)
@@ -58,13 +93,13 @@ def _launch_dgrad(op, dy, w, drop=None, mul=None, add=None):
                 raise ValueError(f"{name} must be {(m, k)}")
     out = torch.empty((m, k), dtype=torch.bfloat16, device=dy.device)
     fn = _build.bind("linear_bwd", "acai_linear_dgrad",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                      + dk.C_ARGTYPES + [ctypes.c_void_p])
     rc = fn(dy.data_ptr(), w.data_ptr(),
             None if mul is None else mul.data_ptr(),
             None if add is None else add.data_ptr(), out.data_ptr(), m, n, k,
-            *dk.c_args(drop), _build.stream_ptr())
-    op.launches += 1
+            bn, *dk.c_args(drop), _build.stream_ptr())
+    op.launched(plan)
     _build.check(rc, op.name)
     return out
 

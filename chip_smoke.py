@@ -30,12 +30,14 @@ Phases, all in one process; any failure exits non-zero:
    K3 and K7 at 16 heads of 32 (B = 64, T = 512, E = 512) and at the
    encoder's 128 kept rows (12 heads of 64), K1, K4, K8 and K9 at
    32,768 x 512, ``linear_wgrad`` with its rows split as its plan says.
-   K1's large-M products (the Hopper GEMM core, csrc/sm90_gemm.cuh) and
-   every ``linear_wgrad`` (dWqkv, dWo, dW1, dW2 of each stack) are timed in
-   turns with the wmma kernels they replaced, forced through the wrappers'
-   ``variant=`` (``old_ms``), which must agree with the twins too, K10's
-   mask the same elements in all three; from HBM (``cold_ms``) where the
-   operands fit L2; then the resource rows of K1's and K9's kernels;
+   K1's large-M products and every ``linear_wgrad`` and ``linear_dgrad``
+   (the Hopper GEMM core, csrc/sm90_gemm.cuh), and every K7 site (its
+   TMA + wgmma kernels) are timed in turns with the wmma kernels they
+   replaced, forced through the wrappers' ``variant=`` (``old_ms``), which
+   must agree with the twins too, K10's mask the same elements in all
+   three, two runs of the new K7 bit-equal; from HBM (``cold_ms``) where
+   the operands fit L2; then the resource rows of K1's, K9's and K7's
+   kernels, none of the Hopper dgrad and K7 kernels with local memory;
    then the probes phase: K16 tile_gemm at every tile of the GEMM sweep
    (bf16 out) at (8192, 768, 3072), (32768, 512, 1536) and
    (32768, 512, 3072), and in its three operand layouts (fp32 out) at the
@@ -77,9 +79,10 @@ Phases, all in one process; any failure exits non-zero:
    counts are reset just before each path and read just after, and their
    split by variant must show every encoder product of K1 on the core
    ("sm90", 4 per encoder K3 launch) and every decode product on the wmma
-   kernel ("wmma", "partial"); the training paths below run every K1 and
-   every ``linear_wgrad`` on the core ("sm90", "sm90_splits{s}"), GRPO its
-   rollouts' K1 on wmma. Then the
+   kernel ("wmma", "partial"); the training paths below run every K1,
+   every ``linear_dgrad`` and every ``linear_wgrad`` on the core ("sm90",
+   "sm90_splits{s}") and every K7 on its Hopper kernels ("sm90_dh{Dh}"),
+   GRPO its rollouts' K1 on wmma. Then the
    kernel path is held against the
    plain path on the card: encoder output, and 64 greedy decode steps at B=8
    with bf16 caches, int8 caches and int8 caches with W4A8 weights (the
@@ -116,7 +119,8 @@ Phases, all in one process; any failure exits non-zero:
    decoder), bf16 over fp32 masters, batch 64, seeded noise images of
    256-512 patches, one epoch of three updates and its validation batch; the
    launch counts of every update are held against the layer arithmetic,
-   K3 / K7 by head dim and ``linear_wgrad`` by row splits;
+   K3 / K7 by head dim, ``linear_dgrad`` on the core and ``linear_wgrad``
+   by row splits;
    ``pretrained_mae.npz`` must load as an MAE tree and stage 2's set-up must
    hold exactly its encoder. Then one batch of 64 twice through the
    hand-written path (equal bits demanded; forward, backward, optimizer and
@@ -353,18 +357,26 @@ def token_share(res_a, res_b) -> list:
 
 
 def variant_failures(name: str, r: dict) -> list:
-    """Which kernel each product of a path ran, from its launches by
-    variant: every K1 of an encoder or a training stack on the Hopper core
-    ("sm90"; on the serving paths 4 per encoder K3 launch), every decode K1
-    on the wmma kernel ("wmma", or "partial" on the meshed paths), GRPO
-    both, every linear_wgrad on the core ("sm90_splits{s}")."""
+    """Which kernel each product and attention backward of a path ran, from
+    its launches by variant: every K1 of an encoder or a training stack on
+    the Hopper core ("sm90"; on the serving paths 4 per encoder K3 launch),
+    every decode K1 on the wmma kernel ("wmma", or "partial" on the meshed
+    paths), GRPO both, every linear_wgrad on the core ("sm90_splits{s}"),
+    every linear_dgrad on the core ("sm90") and every K7 attention_bwd on
+    its Hopper kernels ("sm90_dh{Dh}")."""
     k1 = r["variants"].get("linear_bias_act", {})
     wgrad = r["variants"].get("linear_wgrad", {})
+    dgrad = r["variants"].get("linear_dgrad", {})
+    k7 = r["variants"].get("attention_bwd", {})
     out = []
     if set(k1) - {"sm90", "wmma", "partial"}:
         out.append(f"{name}: K1 launches of unknown variants {k1}")
     if any(not v.startswith("sm90_splits") for v in wgrad):
         out.append(f"{name}: linear_wgrad off the core {wgrad}")
+    if set(dgrad) - {"sm90"}:
+        out.append(f"{name}: linear_dgrad off the core {dgrad}")
+    if any(not v.startswith("sm90_dh") for v in k7):
+        out.append(f"{name}: attention_bwd off its Hopper kernels {k7}")
     if name in ("train_tf", "pretrain_mae"):
         if set(k1) != {"sm90"}:
             out.append(f"{name}: K1 off the core {k1}")
@@ -376,6 +388,13 @@ def variant_failures(name: str, r: dict) -> list:
         out.append(f"{name}: K1 by variant {k1}: the encoder's 4 a K3 launch "
                    f"on the core, the decode rows on wmma")
     return out
+
+
+def variant_line(name: str, r: dict) -> str:
+    """The launches by variant of a path's products and attention backward."""
+    keys = ("linear_bias_act", "linear_wgrad", "linear_dgrad", "attention_bwd")
+    return f"[path {name}] by variant " + json.dumps(
+        {k: r["variants"].get(k, {}) for k in keys})
 
 
 def card_line() -> str:
@@ -757,19 +776,24 @@ def check_kernels(torch, F, dev):
                2 * 3 * rows * e + 8 * e, 8 * rows * e)
     decode_hd_cases(torch, F, randn, record, kernel_times, dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
-    # the resource rows of the products' kernels: the Hopper core's tiles
-    # (sm90) beside the wmma kernels they replace at large M
+    # the resource rows of the products' and the attention backward's
+    # kernels: the Hopper kernels (sm90) beside the wmma kernels they replace;
+    # no Hopper kernel of dgrad or K7 may use local memory (a spill)
     from acai_omr_tpu_torch.ops import _build
-    for name in ("linear_bias_act", "linear_bwd"):
+    spills = []
+    for name in ("linear_bias_act", "linear_bwd", "attention_bwd"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
                   f"static_smem={r['static_smem']} "
                   f"dynamic_smem={r['dynamic_smem']} "
                   f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
+            if r["op"] in ("linear_dgrad", "attention_bwd") \
+                    and r["variant"].startswith("sm90") and r["local_bytes"]:
+                spills.append(f"{r['op']} {r['kernel']}")
     race_bad = tp_allreduce_cases(torch, randn, record, kernel_times, dev)
     probe_cases(torch, F, record, kernel_times, dev)
-    return cases, race_bad
+    return cases, race_bad, spills
 
 
 def tp_allreduce_cases(torch, randn, record, kernel_times, dev):
@@ -1320,7 +1344,8 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
     decoder rows 64 x 512 (E 512, 16 heads of 32, F 3072), encoder rows
     64 x 128 kept patches (E 768, H 12), no dropout."""
     from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
-    from acai_omr_tpu_torch.ops.dropout_kernel import DropSpec, dropout_apply
+    from acai_omr_tpu_torch.ops.dropout_kernel import (DropSpec, dropout_apply,
+                                                       keep_mask)
     from acai_omr_tpu_torch.ops.encoder_stack_kernel import (encoder_attention,
                                                              split_qkv)
     from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
@@ -1389,29 +1414,38 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
                    2 * (2 * rows * e + 2 * b * tk * e) + b * tk,
                    4 * e * n_pairs, paths=tr, variant=f"dh{dh}")
 
-            call = lambda: attention_bwd(q3, k3, v3, d_o, valid, h, causal)
+            # the Hopper kernels, timed in turns with the wmma kernels they
+            # replace; both held to the twin (dq, dk and dv each within 2e-2
+            # of its own largest value), two runs of the new one bit-equal
+            call = lambda v="sm90": attention_bwd(q3, k3, v3, d_o, valid, h,
+                                                  causal, variant=v)
             out_k = call()
             out_p = attention_bwd.plain(q3, k3, v3, d_o, valid, h, causal)
+            out_o = call("wmma")
+            again = all(torch.equal(a, c) for a, c in zip(out_k, call()))
             lq, lk, lv = (a.clone().requires_grad_(True) for a in (ql, kl, vl))
             lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask4)
-            # dq, dk and dv each within 2e-2 of its own largest value
-            rels = [((a.float() - c.float()).abs().max()
-                     / c.float().abs().max()).item()
-                    for a, c in zip(out_k, out_p)]
+            rel = lambda outs: [((a.float() - c.float()).abs().max()
+                                 / c.float().abs().max()).item()
+                                for a, c in zip(outs, out_p)]
+            rels, rels_o = rel(out_k), rel(out_o)
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
             record(attention_bwd, f"{name} {site} B={b} Tq={t} Tk={tk} E={e} "
                    f"H={h} (dq, dk, dv err / max|ref| "
-                   + ", ".join(f"{r:.1e}" for r in rels) + ")",
+                   + ", ".join(f"{r:.1e}" for r in rels) + "; wmma "
+                   + ", ".join(f"{r:.1e}" for r in rels_o) + ")",
                    torch.cat([a.flatten() for a in out_k]),
                    torch.cat([a.flatten() for a in out_p]),
                    2e-2 * max(a.float().abs().max().item() for a in out_p),
-                   kernel_times(call),
+                   (t_new, host_us(torch, call)),
                    plain_ms(lambda: attention_bwd.plain(q3, k3, v3, d_o, valid,
                                                         h, causal)),
                    time_ms_eager(torch, lambda: torch.autograd.grad(
                        lo, (lq, lk, lv), dol, retain_graph=True)),
                    2 * (3 * rows * e + 4 * b * tk * e) + b * tk,
                    10 * e * n_pairs, paths=tr,
-                   exact=all(r <= 2e-2 for r in rels), variant=f"dh{dh}")
+                   exact=again and all(r <= 2e-2 for r in rels + rels_o),
+                   variant=f"sm90_dh{dh}", old_ms=old)
 
     for name, b, t, e, h, f, rate in stacks:
         rows = b * t
@@ -1513,23 +1547,43 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
                12 * rows * e, paths=tr,
                exact=col_err < 1e-3)
 
-        # K9 dgrad: du = round(drop(round(dff W2^T)) * gelu'), dx2 = dz3 + .,
-        # and bare (da_s = dsa Wo^T, da_c = dca Woc^T)
+        # K9 dgrad on the Hopper core: du = round(drop(round(dff W2^T)) *
+        # gelu'), dx2 = dz3 + ., and bare (da_s = dsa Wo^T, da_c = dca Woc^T);
+        # timed in turns with the wmma kernel it replaces (held to the twin
+        # too); with dropout, the dropped elements of the core, the wmma
+        # kernel and the twin (K10's mask) the same, bit for bit
         for n, k, kw_name in [(e, f, "drop,mul" if drop else "mul"),
                               (f, e, "add"), (e, e, "bare")] \
                 + ([(3 * e, e, "add")] if name == "mae_dec" else []):
             dy, w, other = randn(rows, n), w_of(k, n), randn(rows, k)
             kw = {"drop": drop, "mul": other} if kw_name.endswith("mul") \
                 else {"add": other} if kw_name == "add" else {}
-            call = lambda: linear_dgrad(dy, w, **kw)
+            call = lambda v=None, dy=dy, w=w, kw=kw: linear_dgrad(
+                dy, w, **kw, variant=v)
             out_k, out_p = call(), linear_dgrad.plain(dy, w, **kw)
+            out_o = call("wmma")
+            tol = rel_tol(out_p)
+            exact = (out_o.float() - out_p.float()).abs().max().item() <= tol
+            if kw.get("drop") is not None:
+                # K10's mask bit for bit: each output is 0 exactly where the
+                # mask drops or where the same call without dropout is 0 (a
+                # sum can cancel to 0.0 in one order and not in another)
+                dropped = ~keep_mask(drop, rows, k, dev)
+                bare = lambda v: linear_dgrad(dy, w, mul=other, variant=v)
+                exact &= all(torch.equal(o == 0, dropped | (o_bare == 0))
+                             for o, o_bare in (
+                                 (out_k, bare(None)), (out_o, bare("wmma")),
+                                 (out_p, linear_dgrad.plain(dy, w,
+                                                            mul=other))))
             wt = w.t()
-            record(linear_dgrad, f"{name} {rows}x{n}->{k},{kw_name}", out_k,
-                   out_p, rel_tol(out_p), kernel_times(call),
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+            record(linear_dgrad, f"{name} {rows}x{n}->{k},{kw_name} (sm90)",
+                   out_k, out_p, tol, (t_new, host_us(torch, call)),
                    plain_ms(lambda: linear_dgrad.plain(dy, w, **kw)),
                    time_ms(torch, lambda: torch.matmul(dy, wt)),
                    2 * (rows * n + k * n + (2 if kw else 1) * rows * k),
-                   2 * rows * n * k, paths=tr)
+                   2 * rows * n * k, paths=tr, variant="sm90", exact=exact,
+                   old_ms=old)
 
         # K9 wgrad on the Hopper core: dWqkv = x^T dqkv, dWo, dW1 = x2^T du,
         # dW2 = h1^T dff, each with its bias sum, the rows split as
@@ -2409,8 +2463,9 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
     encoder-type: per layer 4 K1, 1 K3, 2 K4 forward and 1 K3, 1 K4, 1 K7,
     2 K8, 4 dgrad, 4 wgrad backward (the gradient flows on into the patch
     projection and the PE grids, so the first layer's dgrad runs too). The
-    encoder's heads are 64 wide, the decoder's 32; every K1 runs on the
-    Hopper core ("sm90"), every wgrad too, its rows split as
+    encoder's heads are 64 wide, the decoder's 32, every K7 on its Hopper
+    kernels ("sm90_dh{Dh}"); every K1 and every dgrad runs on the Hopper
+    core ("sm90"), every wgrad too, its rows split as
     ``row_split_plan`` says for the layer's shape (the encoder over the
     batch's kept rows, the decoder over all of them)."""
     from acai_omr_tpu_torch.ops.linear_bwd_kernel import row_split_plan
@@ -2434,8 +2489,8 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
             wgrad[key] = wgrad.get(key, 0) + layers
     variants = {"linear_bias_act": {"sm90": 4 * n},
                 "encoder_attention": {f"dh{dh_e}": 2 * le, f"dh{dh_d}": 2 * ld},
-                "attention_bwd": {f"dh{dh_e}": le, f"dh{dh_d}": ld},
-                "linear_wgrad": wgrad}
+                "attention_bwd": {f"sm90_dh{dh_e}": le, f"sm90_dh{dh_d}": ld},
+                "linear_dgrad": {"sm90": 4 * n}, "linear_wgrad": wgrad}
     return step, val, variants
 
 
@@ -2735,7 +2790,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
-    cases, race_bad = check_kernels(torch, F, dev)
+    cases, race_bad, spills = check_kernels(torch, F, dev)
     # the probes phase's main path: the fourteen probe tools
     probe_run = probes_path(torch)
 
@@ -2825,9 +2880,7 @@ def main() -> int:
               f"{r['device_kernels_per_step']:.1f} {json.dumps(extra)}",
               flush=True)
         print(f"[path {name}] launches {json.dumps(launches)}", flush=True)
-        print(f"[path {name}] K1 / wgrad by variant "
-              f"{json.dumps(r['variants']['linear_bias_act'])} "
-              f"{json.dumps(r['variants']['linear_wgrad'])}", flush=True)
+        print(variant_line(name, r), flush=True)
         for k in EXPECTED_KERNELS[name]:
             if launches[k] <= 0:
                 failures.append(f"{name}: launches[{k}]=0")
@@ -2913,9 +2966,7 @@ def main() -> int:
     for k in EXPECTED_KERNELS["serve_wsgi"]:
         if sv["launches"][k] <= 0:
             failures.append(f"serve_wsgi: launches[{k}]=0")
-    print(f"[path serve_wsgi] K1 / wgrad by variant "
-          f"{json.dumps(sv['variants']['linear_bias_act'])} "
-          f"{json.dumps(sv['variants']['linear_wgrad'])}", flush=True)
+    print(variant_line("serve_wsgi", sv), flush=True)
     failures.extend(variant_failures("serve_wsgi", sv))
 
     hd_k11, hd_bf16 = per_op_paths(torch, model, imgs, greedy, quant,
@@ -2950,9 +3001,7 @@ def main() -> int:
           f"{json.dumps(want)}; per validation batch "
           f"{json.dumps(tr['launches_per_val_batch'][-1])}", flush=True)
     print(f"[path train_tf] launches {json.dumps(tr['launches'])}", flush=True)
-    print(f"[path train_tf] K1 / wgrad by variant "
-          f"{json.dumps(tr['variants']['linear_bias_act'])} "
-          f"{json.dumps(tr['variants']['linear_wgrad'])}", flush=True)
+    print(variant_line("train_tf", tr), flush=True)
     failures.extend(variant_failures("train_tf", tr))
     finite = lambda vs: len(vs) > 0 and all(math.isfinite(v) for v in vs)
     if not (finite(tr["window_losses"]) and finite(tr["val_losses"])
@@ -3005,9 +3054,7 @@ def main() -> int:
           f"{gr['peak_memory_gb']:.2f} files={gr['files']}", flush=True)
     print(f"[path train_grpo] launches {json.dumps(gr['launches'])}",
           flush=True)
-    print(f"[path train_grpo] K1 / wgrad by variant "
-          f"{json.dumps(gr['variants']['linear_bias_act'])} "
-          f"{json.dumps(gr['variants']['linear_wgrad'])}", flush=True)
+    print(variant_line("train_grpo", gr), flush=True)
     failures.extend(variant_failures("train_grpo", gr))
     if not (len(gr["steps"]) == GRPO_EXAMPLES // GRPO_BATCH
             and len(gr["val"]) == 1
@@ -3052,9 +3099,7 @@ def main() -> int:
           f"expected {json.dumps(want_variants)}", flush=True)
     print(f"[path pretrain_mae] launches {json.dumps(mae['launches'])}",
           flush=True)
-    print(f"[path pretrain_mae] K1 / wgrad by variant "
-          f"{json.dumps(mae['variants']['linear_bias_act'])} "
-          f"{json.dumps(mae['variants']['linear_wgrad'])}", flush=True)
+    print(variant_line("pretrain_mae", mae), flush=True)
     failures.extend(variant_failures("pretrain_mae", mae))
     if not (finite(mae["train_losses"]) and finite(mae["val_losses"])
             and finite(mae["grad_norms"])
@@ -3093,6 +3138,9 @@ def main() -> int:
     if race_bad:
         failures.append(f"tp_allreduce race check: {race_bad} of {RACE_CALLS} "
                         f"calls differ from the twin")
+    if spills:
+        failures.append(f"local memory (a spill) in the Hopper kernels "
+                        f"{spills}")
     if cmp["encoder_rel_err"] >= 0.02:
         failures.append("encoder kernel path vs plain path")
     for key in ("bf16", "int8", "w4a8"):

@@ -1,14 +1,17 @@
 """The plans that route the port's products: K1's variant (``gemm_plan``:
 the Hopper core for the large-M products, the wmma kernel for the decode
-rows) and K9 ``linear_wgrad``'s row split (``row_split_plan``), at every
-shape of the port's paths (PERF.md section 6). Pure Python: nothing here
-asks for the card. The plain twins answer the same for every variant on CPU
-tensors (exactly: they are one function).
+rows), K9 ``linear_wgrad``'s row split (``row_split_plan``) and K9
+``linear_dgrad``'s tile (``dgrad_plan``), at every shape of the port's paths
+(PERF.md section 6); and the premise of K7's skipped tiles. Pure Python:
+nothing here asks for the card. The plain twins answer the same for every
+variant on CPU tensors (exactly: they are one function).
 """
 
 import pytest
 import torch
 
+from acai_omr_tpu_torch.ops import attention_bwd_kernel as ab
+from acai_omr_tpu_torch.ops import encoder_stack_kernel as es
 from acai_omr_tpu_torch.ops import linear_bwd_kernel as lb
 from acai_omr_tpu_torch.ops import linear_kernel as lk
 
@@ -34,6 +37,18 @@ WGRAD = [(2048, 1024, 3072), (2048, 1024, 1024), (2048, 1024, 4096),
          (2048, 4096, 1024), (8192, 768, 2304), (8192, 768, 768),
          (8192, 768, 3072), (8192, 3072, 768), (32768, 512, 1536),
          (32768, 512, 512), (32768, 512, 3072), (32768, 3072, 512)]
+
+
+# (M, N, K) of every dgrad dX (M, K) = dY (M, N) W^T: per stack du (E -> F),
+# dx2 (F -> E, + residual), the bare E -> E products and dx (3E -> E, +
+# residual) of stage 2's decoder (8 x 256 rows) and encoder (8 x 1024), the
+# MAE's decoder (64 x 512; its encoder has stage 2's encoder shapes) and
+# GRPO's update chunks (8 rollouts x 128 positions, E 1024)
+DGRAD = [(rows, n, k) for rows, e, f in ((2048, 1024, 4096),
+                                         (8192, 768, 3072),
+                                         (32768, 512, 3072),
+                                         (1024, 1024, 4096))
+         for n, k in ((e, f), (f, e), (e, e), (3 * e, e))]
 
 
 @pytest.mark.parametrize("m,k,n", DECODE)
@@ -104,6 +119,60 @@ def test_old_wgrad_plan_is_kept_for_the_yardstick():
     assert lb.wmma_row_chunks(32768, 512, 1536) == (32768, 1)
 
 
+@pytest.mark.parametrize("m,n,k", DGRAD)
+def test_dgrad_plan_takes_the_core(m, n, k):
+    variant, bn = lb.dgrad_plan(m, k, n)
+    # the core, at the tile the core's time model picks for this product
+    assert (variant, bn) == ("sm90", lk.sm90_tile_n(m, k, n))
+    lb.check_dgrad_shape(variant, k, n)
+    # unsplit: at least 64 tiles of dX, the bound dgrad_plan states
+    assert -(-m // lk.SM90_BM) * -(-k // bn) >= 64
+    # the yardstick takes every one of these shapes too
+    lb.check_dgrad_shape("wmma", k, n)
+
+
+def test_dgrad_shape_rule():
+    # the core's rule is TMA's: 16-byte rows
+    lb.check_dgrad_shape("sm90", 776, 520)
+    for k, n in ((774, 520), (776, 516)):
+        with pytest.raises(ValueError, match="K % 8 == 0 and N % 8 == 0"):
+            lb.check_dgrad_shape("sm90", k, n)
+    # the wmma kernel keeps its tiles' rule
+    with pytest.raises(ValueError, match="N % 32 == 0 and K % 64 == 0"):
+        lb.check_dgrad_shape("wmma", 776, 512)
+    with pytest.raises(ValueError, match="N % 32 == 0 and K % 64 == 0"):
+        lb.check_dgrad_shape("wmma", 768, 520)
+    # a ragged row count takes the core too
+    assert lb.dgrad_plan(2049, 768, 512)[0] == "sm90"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k7_skipped_keys_carry_no_probability(causal):
+    """What K7's Hopper kernels skip carries exactly zero probability in the
+    twin: with a key the row may attend (bidirectional: a valid key; causal:
+    key 0 valid), a masked key's probability is 0.0, so the tiles past the
+    last valid key (and, causal, past the diagonal) add nothing; a row with
+    none spreads its probability over masked keys, so nothing is skipped."""
+    g = torch.Generator().manual_seed(3)
+    b, t, e, heads = 4, 192, 128, 2
+    valid = torch.rand(b, t, generator=g) < 0.5
+    valid[0, 0], valid[0, 150:] = True, False  # skips past key 149
+    valid[1, 0] = False                        # causal rows before its first
+    valid[2] = False                           # valid key; no valid key
+    q, k, v = (torch.randn(b, t, e, generator=g) * 2 for _ in range(3))
+    p, *_ = es.attention_probs(q, k, v, valid, heads, causal)
+    keys = torch.arange(t)
+    for i in range(b):
+        rows_ok = bool(valid[i, 0]) if causal else bool(valid[i].any())
+        masked = ~valid[i][None, :].expand(t, t)
+        if causal:
+            masked = masked | (keys[None, :] > keys[:, None])
+        zero = p[i][:, masked] == 0.0
+        assert bool(zero.all()) == rows_ok, i
+    last = int(valid[0].nonzero().max())
+    assert not p[0][..., last + 1:].any()
+
+
 @pytest.mark.parametrize("act,save", [("none", False), ("gelu", True),
                                       ("gelu_rounded", False),
                                       ("partial", False)])
@@ -124,4 +193,18 @@ def test_plain_twin_is_one_for_every_variant(act, save):
     for variant in ((3, 128), (1, 256), "wmma", None):
         dw, db = lb.linear_wgrad(x, dy, variant=variant)
         assert torch.equal(dw, want_w) and torch.equal(db, want_b)
-    assert lk.linear_bias_act.launches == 0  # the twins launch nothing
+    mul = torch.randn(130, 64, generator=g).to(torch.bfloat16)
+    want_x = lb.linear_dgrad.plain(dy, w, mul=mul)
+    for variant in ("sm90", "wmma", None):
+        assert torch.equal(lb.linear_dgrad(dy, w, mul=mul, variant=variant),
+                           want_x)
+    qkv = torch.randn(2, 64, 3 * 64, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.split(64, dim=-1)
+    d_o = torch.randn(2, 64, 64, generator=g).to(torch.bfloat16)
+    valid = torch.ones(2, 64, dtype=torch.bool)
+    want_a = ab.attention_bwd.plain(q, k, v, d_o, valid, 2, True)
+    for variant in ab.VARIANTS:
+        got = ab.attention_bwd(q, k, v, d_o, valid, 2, True, variant=variant)
+        assert all(torch.equal(a, c) for a, c in zip(got, want_a))
+    for op in (lk.linear_bias_act, lb.linear_dgrad, ab.attention_bwd):
+        assert op.launches == 0  # the twins launch nothing

@@ -393,6 +393,44 @@ def test_attention_bwd_head_dim_32(dev, cross, causal):
     test_attention_bwd(dev, cross, causal, heads=8)
 
 
+@pytest.mark.parametrize("heads", [4, 8])  # head dims 64, 32
+@pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
+                                          (True, False)])
+def test_attention_bwd_sm90_beside_wmma(dev, cross, causal, heads):
+    """The Hopper kernels at 192 queries (a block of 128 rows and a half
+    one) and 320 cross keys, under validity that is no prefix: scattered
+    keys, key 0 masked (a causal row before the first valid key attends
+    uniformly: nothing is skipped), no valid key, one valid key past the
+    first tile; both designs against the twin, each launch counted under
+    its variant, two runs of the new one bit-equal."""
+    from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
+    from acai_omr_tpu_torch.ops.encoder_stack_kernel import split_qkv
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, tq, e = 4, 192, 256
+    tk = 320 if cross else tq
+    valid = torch.rand(b, tk, generator=g, device=dev) < 0.6
+    valid[0, 0], valid[1, 0], valid[2] = True, False, False
+    valid[3], valid[3, 70] = False, True
+    q = _randn(g, b * tq, e if cross else 3 * e, dev=dev)
+    kv = _randn(g, b, tk, 2 * e, dev=dev) if cross else None
+    d_o = _randn(g, b, tq, e, dev=dev)
+    q3, k3, v3 = split_qkv(q, kv, b)
+    want = attention_bwd.plain(q3, k3, v3, d_o, valid, heads, causal)
+    dh = e // heads
+    for variant in ("sm90", "wmma"):
+        key = f"{variant}_dh{dh}"
+        before = attention_bwd.variants.get(key, 0)
+        got = attention_bwd(q3, k3, v3, d_o, valid, heads, causal,
+                            variant=variant)
+        assert attention_bwd.variants[key] == before + 1
+        for a, w in zip(got, want):
+            assert torch.isfinite(a.float()).all()
+            _close(a, w, rel=2e-2)
+        if variant == "sm90":
+            again = attention_bwd(q3, k3, v3, d_o, valid, heads, causal)
+            assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
 def test_layernorm_bwd(dev):
     from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
     g = torch.Generator(device=dev).manual_seed(15)
@@ -431,6 +469,46 @@ def test_linear_dgrad(dev, epilogue):
         assert ((out != 0) ^ (ref != 0)).float().mean().item() < 1e-3
         out = torch.where(ref != 0, out, 0)
         ref = torch.where(out != 0, ref, 0)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "drop", "mul", "drop_mul",
+                                      "add"])
+@pytest.mark.parametrize("m,n,k", [(200, 520, 776), (2049, 512, 768)])
+def test_linear_dgrad_sm90(dev, m, n, k, epilogue):
+    """dX on the Hopper core at ragged row counts and at K_out, N that are
+    no multiples of 64 (TMA's zero fill), each epilogue; two runs bit-equal;
+    K10's mask drops the same elements as the twin's and, where the wmma
+    kernel takes the shape, as its: each output is 0 exactly where the mask
+    drops or where the same call without dropout is 0."""
+    from acai_omr_tpu_torch.ops.dropout_kernel import keep_mask
+    from acai_omr_tpu_torch.ops.linear_bwd_kernel import (dgrad_plan,
+                                                          linear_dgrad)
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    dy = _randn(g, m, n, dev=dev)
+    w = (_randn(g, k, n, dev=dev, dtype=torch.float32) / math.sqrt(n)) \
+        .to(torch.bfloat16)
+    other = _randn(g, m, k, dev=dev)
+    d = _drop(t=100)
+    kw = {"none": {}, "drop": {"drop": d}, "mul": {"mul": other},
+          "drop_mul": {"drop": d, "mul": other},
+          "add": {"add": other}}[epilogue]
+    assert dgrad_plan(m, k, n)[0] == "sm90"
+    before = linear_dgrad.variants.get("sm90", 0)
+    out = linear_dgrad(dy, w, **kw)
+    assert linear_dgrad.variants["sm90"] == before + 1
+    assert torch.equal(out, linear_dgrad(dy, w, **kw))
+    ref = linear_dgrad.plain(dy, w, **kw)
+    if "drop" in kw:
+        dropped = ~keep_mask(d, m, k, dev)
+        bare = {k_: v for k_, v in kw.items() if k_ != "drop"}
+        pairs = [(out, linear_dgrad(dy, w, **bare)),
+                 (ref, linear_dgrad.plain(dy, w, **bare))]
+        if n % 32 == 0 and k % 64 == 0:
+            pairs.append((linear_dgrad(dy, w, **kw, variant="wmma"),
+                          linear_dgrad(dy, w, **bare, variant="wmma")))
+        for o, o_bare in pairs:
+            assert torch.equal(o == 0, dropped | (o_bare == 0))
     _close(out, ref)
 
 
@@ -1107,10 +1185,22 @@ def test_every_backward_kernel_reports_its_resources(dev):
         assert rows and all(r["op"] == op.name for r in rows), op.name
         for r in rows:
             assert r["registers"] > 0 and r["blocks_per_sm"] >= 1, r
-    # K7's dQ / dK dV kernels ask for dynamic shared memory past 48 KB
+    # K7's wmma dQ / dK dV kernels (the yardstick) ask for dynamic shared
+    # memory past 48 KB
     assert all(r["dynamic_smem"] > 48 * 1024
-               for r in attention_bwd.resources("dh64"))
-    assert len(attention_bwd.resources("dh64")) == 2
+               for r in attention_bwd.resources("wmma_dh64"))
+    assert len(attention_bwd.resources("wmma_dh64")) == 2
+    # the Hopper kernels of K7 and dgrad: warp-specialised blocks of 384
+    # threads, one an SM, no local memory (no spill)
+    for op, variant, n in ((attention_bwd, "sm90_dh64", 2),
+                           (attention_bwd, "sm90_dh32", 2),
+                           (linear_dgrad, "sm90", 2)):
+        rows = op.resources(variant)
+        assert len(rows) == n, (op.name, variant)
+        for r in rows:
+            assert r["local_bytes"] == 0 and r["threads"] == 384, r
+            assert r["dynamic_smem"] > 48 * 1024 and r["blocks_per_sm"] == 1, r
+    assert len(linear_dgrad.resources("wmma")) == 1
 
 
 def test_resident_elementwise_keeps_its_rows_in_registers(dev):
