@@ -43,7 +43,8 @@
 // Each block: a producer warp (TMA loads of the block's fixed Q / dO or K / V
 // tiles, then a ring of four stages of the streamed K / V or Q / dO tiles,
 // with the key validity bytes or the statistics beside them as bulk copies)
-// and two consumer warpgroups of 64 rows. Operands are read in place from
+// and two consumer warpgroups of 64 rows (the building blocks, shared with
+// K3's forward, are in attention_sm90.cuh). Operands are read in place from
 // the strided buffers (a head is a 64 x Dh box of the operand's map) into
 // swizzled shared memory: 128-byte swizzle at Dh = 64, 64-byte at Dh = 32,
 // each head alone. All products are wgmma m64nNk16 bf16 -> fp32: S and dP
@@ -76,6 +77,7 @@
 #include <cstdint>
 
 #include "func_attrs.cuh"
+#include "attention_sm90.cuh"
 #include "sm90_gemm.cuh"
 
 using namespace nvcuda;
@@ -457,10 +459,23 @@ int launch_wmma(const Operands& p, cudaStream_t s) {
 
 // ------------------------------------------------------------ the Hopper form
 
-constexpr int ROWS = 64;         // a consumer warpgroup's rows; one tile
-constexpr int SM90_THREADS = 384;  // producer warpgroup + two consumers
-constexpr int STAGES = 4;
-constexpr float LOG2E = 1.4426950408889634f;
+using attn90::bias_scores;
+using attn90::block_skip;
+using attn90::desc_k;
+using attn90::desc_mn;
+using attn90::init_ring;
+using attn90::LOG2E;
+using attn90::pack_bf16;
+using attn90::quad_max;
+using attn90::quad_sum;
+using attn90::release;
+using attn90::ROWS;
+using attn90::Skip;
+using attn90::SM90_THREADS;
+using attn90::STAGES;
+using attn90::store_rows;
+using attn90::wgmma_rs;
+using attn90::zero;
 
 // Shared memory of both kernels: the fixed tiles (two consumers' Q and dO,
 // or K and V), the ring of STAGES pairs of streamed tiles, and beside each
@@ -475,51 +490,6 @@ struct Smem {
   static_assert(TILE % 1024 == 0, "every tile keeps the swizzle's alignment");
   static_assert(BYTES <= 227 * 1024, "past the card's shared memory");
 };
-
-// k16 step kk of a tile read K-major: its 64 rows are M or N, Dh runs along
-// the contraction (+32 bytes a step inside the swizzled row; SBO: 8 rows).
-template <int DH>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return sm90::smem_desc(tile + kk * 32, 16, 8 * DH * 2, DH * 2);
-}
-
-// k16 step kk of a tile read MN-major: its 64 rows run along the
-// contraction, Dh along N (+16 rows a step; SBO: 8 rows; one atom along N).
-template <int DH>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return sm90::smem_desc(tile + kk * 16 * DH * 2, Smem<DH>::TILE, 8 * DH * 2,
-                         DH * 2);
-}
-
-template <int DH>
-__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (DH == 64)
-    sm90::wgmma_rs_n64<1>(d, a, db);
-  else
-    sm90::wgmma_rs_n32<1>(d, a, db);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.0f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // Two 64 x 64 products of one warpgroup, both operands K-major in shared
 // memory, waited for: s = a0 b0^T and t = a1 b1^T over Dh.
@@ -543,70 +513,6 @@ __device__ __forceinline__ void two_products(float (&s)[32], float (&t)[32],
   sm90::fence_acc(t);
 }
 
-// Release a ring stage: every warp of the consumer arrives once it is done
-// with the stage (its wgmma groups retired, its shared reads made).
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) sm90::mbar_arrive(sm90::smem_u32(empty));
-}
-
-// What a block may skip. With `on`, every query row of image b has a key it
-// may attend (bidirectional: some key is valid; causal: key 0 is), so each
-// row's max is a real logit and a masked key's exp(-1e9 - max) is exactly 0:
-// tiles of masked keys add nothing. `last`: the image's last valid key, or
-// -1. The count of the barriers' arrivals depends on it, so the scan runs
-// before they are set up.
-struct Skip {
-  bool on;
-  int last;
-};
-
-__device__ __forceinline__ Skip block_skip(const Operands& p, int b,
-                                           int* last_sh) {
-  if (threadIdx.x == 0) *last_sh = -1;
-  __syncthreads();
-  const uint8_t* v = p.valid + (size_t)b * p.Tk;
-  int loc = -1;
-  for (int k = threadIdx.x; k < p.Tk; k += blockDim.x)
-    if (v[k]) loc = k;
-  if (loc >= 0) atomicMax(last_sh, loc);
-  __syncthreads();
-  const int last = *last_sh;
-  return {p.causal ? v[0] != 0 : last >= 0, last};
-}
-
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
-                                          uint64_t* fixed, int arrivals) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
-      sm90::mbar_init(sm90::smem_u32(&empty[s]), arrivals > 0 ? arrivals : 1);
-    }
-    sm90::mbar_init(sm90::smem_u32(fixed), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// A 64 x Dh accumulator (this warpgroup's rows row0.., this thread's rows
-// row0 + 16 warp + lane / 4 (+ 8)) as bf16 into dst (row stride ld), head
-// column c0.
-template <int DH>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, size_t ld,
-                                           int c0, const float (&d)[DH / 2],
-                                           int lt) {
-  const int warp = lt / 32, lane = lt % 32;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    __nv_bfloat16* row = dst + (size_t)(warp * 16 + lane / 4 + 8 * hh) * ld +
-                         c0 + 2 * (lane % 4);
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j) =
-          pack_bf16(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
-  }
-}
-
 template <int DH>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
@@ -627,7 +533,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 
   const int q0 = blockIdx.x * 2 * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int n_wg = min(2, (p.Tq - q0) / ROWS);
-  const Skip sk = block_skip(p, b, &last_sh);
+  const Skip sk = block_skip(p.valid, p.Tk, p.causal, b, &last_sh);
   int n_kt = p.Tk / ROWS;  // key tiles swept, twice
   if (sk.on) {
     n_kt = sk.last / ROWS + 1;
@@ -701,23 +607,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     const uint32_t ks = ring + s * L::STAGE;
     two_products<DH>(sc, dp, qs, ks, dos, ks + L::TILE);
     // the logits, biased as the forward biases them
-    const unsigned char* vb = side_g + s * L::SIDE;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * j + 2 * t4;
-      const uint16_t v2 = *reinterpret_cast<const uint16_t*>(vb + col);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float kb = (v2 >> (8 * e)) & 0xffu ? 0.0f : NEG;
-        const int key = kt * ROWS + col + e;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float cm = (p.causal && key > qa + 8 * hh) ? NEG : 0.0f;
-          float& x = sc[4 * j + 2 * hh + e];
-          x = x * scale + (cm + kb);
-        }
-      }
-    }
+    bias_scores(sc, side_g + s * L::SIDE, kt, qa, t4, scale, p.causal);
     if (!sweep2) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -793,7 +683,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 
   const int k0 = blockIdx.x * 2 * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int n_wg = min(2, (p.Tk - k0) / ROWS);
-  const Skip sk = block_skip(p, b, &last_sh);
+  const Skip sk = block_skip(p.valid, p.Tk, p.causal, b, &last_sh);
   // consumers whose 64 keys all lie past the last valid key write zeros
   const int n_work = !sk.on ? n_wg
                      : sk.last < k0 ? 0

@@ -6,24 +6,42 @@
 // (`_dot(x, wqkv)`, `_dot(a_s, wo)`, the F-chunked ff1/ff2 dots).
 //
 // Layout: A (M, K) row-major, W (K, N) row-major (the JAX (in, out) kernel
-// layout), bias (N,) fp32, out (M, N). K % 32 == 0, N % 64 == 0, any M.
+// layout), bias (N,) fp32, out (M, N). Any M; K % 8 == 0, N % 8 == 0 (the
+// wmma kernel: K % 32 == 0, N % 64 == 0).
 //
 // Bound on an H100: the encoder and training products (M = B*T, thousands of
 // rows) are tensor-core bound (2MNK flops at 989 TFLOP/s bf16); the decode
 // products (M = B <= 128) read the whole weight matrix for a handful of rows
-// and are bound by the weight bytes at 3.35 TB/s. Two kernels, one epilogue;
-// the wrapper's plan (ops/linear_kernel.py `gemm_plan`) picks one by M:
+// and are bound by the weight bytes at 3.35 TB/s. Three kernels, one
+// epilogue; the wrapper's plan (ops/linear_kernel.py `gemm_plan`) picks one
+// by M:
 //
 // * `acai_linear_bias_act_sm90`, the large-M products: the Hopper GEMM core
 //   of sm90_gemm.cuh (TMA into a shared-memory ring, wgmma from two consumer
 //   warpgroups, a producer warp; X K-major, W MN-major), 128 x BN tiles with
 //   BN = 128 or 256, the epilogue below run on the staged fp32 tile.
-// * `acai_linear_bias_act`, the skinny decode rows: one 64x64 output tile per
-//   block, four warps of 2x2 wmma 16x16x16 bf16 tiles, the K loop staged
-//   through shared memory with 16-byte loads. The wrapper splits K across
-//   blockIdx.z so enough blocks stream the weights; each split writes an
-//   fp32 partial and a second launch sums them in a fixed order
-//   (deterministic) and applies the epilogue.
+// * `acai_linear_bias_act_skinny`, the decode rows (M <= 128): one launch
+//   that keeps deep streams of W in flight. A block owns 64 output columns
+//   and one range of K; a producer warp streams W boxes (64 rows x 64,
+//   MN-major) and the x box beside each (the M rows rounded up to 8,
+//   K-major) through a ring of four stages (32 KB of W in flight a block);
+//   one consumer warpgroup per 64 rows runs wgmma m64n64k16. The K ranges
+//   of one output tile are the blocks of one thread-block cluster (at most
+//   8): each block stages its fp32 partial tile in its shared memory, and
+//   after a cluster barrier the blocks share the tile's epilogue, each
+//   output summing the partials from distributed shared memory in rank
+//   order, so two runs give the same bits and no second launch sums them.
+//   The plan (`skinny_plan`) gives each block at most a ring's depth of
+//   k-steps and the grid about one block an SM. Measured on an H100: the
+//   time is mostly a fixed cost (about 4.5 us for the smallest products),
+//   not the weight stream; narrower tiles (32 columns), more blocks (a
+//   16-block cluster) or deeper splits measured slower.
+// * `acai_linear_bias_act`, the pre-Hopper kernel the decode rows took
+//   before (kept as the yardstick, `variant="wmma"`): one 64x64 output tile
+//   per block, four warps of 2x2 wmma 16x16x16 bf16 tiles, the K loop staged
+//   through shared memory with 16-byte loads. Its plan (`split_plan`) splits
+//   K across blockIdx.z; each split writes an fp32 partial and a second
+//   launch sums them in a fixed order and applies the epilogue.
 //
 // Epilogue act: 0 = none; 1 = exact-erf GELU on the fp32 sum (the encoder
 // kernel's ff1); 2 = round the sum to bf16, then GELU (the decode monolith
@@ -218,6 +236,209 @@ struct CoreEpilogue {
   }
 };
 
+// ------------------------------------------------- the decode rows (skinny)
+
+namespace skinny {
+
+constexpr int BN = 64;        // output columns a block
+constexpr int BK = 64;        // one 128-byte swizzle row of bf16
+constexpr int STAGES = 4;     // 32 KB of W in flight a block
+constexpr int MAX_SPLIT = 8;  // a portable cluster
+constexpr int X_ROWS = 64;    // a consumer warpgroup's rows
+constexpr int W_BYTES = BK * BN * 2;
+constexpr int C_LD = BN + 4;  // fp32 partial tile, 16-byte aligned rows
+
+// The kernel for NWG consumer warpgroups of 64 rows (M <= 64 NWG). A stage
+// holds the x box (up to 64 NWG rows x BK, K-major) and the W box (BK rows x
+// BN, MN-major), both with 128-byte swizzle; once the block is done, the
+// ring's bytes hold its fp32 partial tile (row stride C_LD).
+template <int NWG>
+struct Form {
+  static constexpr int X_BYTES = X_ROWS * NWG * BK * 2;
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int THREADS = 128 * NWG + 32;  // consumers + producer warp
+  static constexpr int C_BYTES = X_ROWS * NWG * C_LD * 4;
+  static constexpr int smem(int stages) {
+    return 1024 + (stages * STAGE > C_BYTES ? stages * STAGE : C_BYTES);
+  }
+  static_assert(1024 + STAGES * STAGE <= 227 * 1024, "past shared memory");
+};
+
+// The thread-block cluster, in PTX: this block's rank, a barrier of every
+// thread of the cluster (by default arrive releases and wait acquires:
+// shared-memory writes before it are seen by the cluster's reads after it),
+// and four floats of block `rank`'s shared memory at this block's address
+// `p`.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n\t"
+      "barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 load_peer4(const float* p, int rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr)
+               : "r"(sm90::smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Grid (split, ceil(N / BN)), one cluster of `split` blocks per BN output
+// columns: block r of the cluster sums K over [r k_chunk, (r + 1) k_chunk).
+// The partials meet in distributed shared memory, each summed in rank order;
+// the cluster's blocks share the tile's epilogue.
+template <int NWG>
+__global__ void __launch_bounds__(Form<NWG>::THREADS)
+    skinny_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw, int M, int N, int K,
+                  int k_chunk, int stages, int x_bytes, Epilogue epi) {
+  using F = Form<NWG>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // the swizzle's alignment
+  float* ctile = reinterpret_cast<float*>(smem_raw + (ring - raw));
+
+  const int rank = cluster_rank(), split = (int)gridDim.x;
+  const int n0 = blockIdx.y * BN;
+  const int k_lo = rank * k_chunk;
+  const int steps = max(0, (min(K, k_lo + k_chunk) - k_lo + BK - 1) / BK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+      sm90::mbar_init(sm90::smem_u32(&empty[s]), NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  const int c = warp / 4, lt = threadIdx.x % 128;
+  if (warp == 4 * NWG) {  // the producer warp
+    if (lane == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % stages;
+        const uint32_t st = ring + s * F::STAGE, fs = sm90::smem_u32(&full[s]);
+        sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((i / stages) & 1) ^ 1);
+        sm90::mbar_expect_tx(fs, x_bytes + W_BYTES);
+        sm90::tma_load(st, &tx, fs, k_lo + i * BK, 0);
+        sm90::tma_load(st + F::X_BYTES, &tw, fs, n0, k_lo + i * BK);
+      }
+    }
+    __syncwarp();
+  } else {
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % stages;
+      sm90::mbar_wait(sm90::smem_u32(&full[s]), (i / stages) & 1);
+      const uint32_t a = ring + s * F::STAGE + c * X_ROWS * BK * 2;
+      const uint32_t w = ring + s * F::STAGE + F::X_BYTES;
+      sm90::fence_acc(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::wgmma_n64<0, 1>(acc, sm90::step_desc<false>(a, kk),
+                              sm90::step_desc<true>(w, kk));
+      sm90::wgmma_commit();
+      sm90::fence_acc(acc);
+      sm90::wgmma_wait<1>();
+      if (i > 0 && lt == 0)
+        sm90::mbar_arrive(sm90::smem_u32(&empty[(i - 1) % stages]));
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(acc);
+  }
+  // every load has landed and every wgmma has retired: the ring is free
+  __syncthreads();
+  if (warp < 4 * NWG) {
+    const int row = c * X_ROWS + (lt / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(ctile + row * C_LD + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(ctile + (row + 8) * C_LD + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  cluster_sync();  // every block's partial tile is staged
+  // this block's share of the tile's outputs, four columns at a time: the
+  // partials summed in rank order (the same order whichever block sums)
+  constexpr int G = BN / 4;
+  for (int e = rank * F::THREADS + threadIdx.x; e < M * G;
+       e += split * F::THREADS) {
+    const int r = e / G, col = (e % G) * 4, n = n0 + col;
+    if (n >= N) continue;
+    const int off = r * C_LD + col;
+    float4 v = load_peer4(ctile + off, 0);
+    for (int q = 1; q < split; ++q) {
+      const float4 u = load_peer4(ctile + off, q);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    epilogue4(epi, f, r, n);
+  }
+  cluster_sync();  // no block leaves while another reads its partials
+}
+
+template <int NWG>
+int launch(const void* x, const void* w, int M, int N, int K, int k_chunk,
+           int split, const Epilogue& epi, cudaStream_t s) {
+  using F = Form<NWG>;
+  if (k_chunk <= 0 || k_chunk % BK != 0 || split < 1 || split > MAX_SPLIT ||
+      (long long)k_chunk * (split - 1) >= K)
+    return (int)cudaErrorInvalidValue;
+  // x's box: its M rows rounded up to 8; the stage keeps room for 64 NWG
+  // rows, and the rows past the box (stale bytes) only reach accumulator
+  // rows that are never read
+  const int x_rows = (M + 7) / 8 * 8;
+  CUtensorMap tx, tw;
+  int rc = sm90::tensor_map(&tx, x, M, K, x_rows, 0, BK);
+  if (rc == 0) rc = sm90::tensor_map(&tw, w, K, N, BK, 0, BN);
+  if (rc != 0) return rc;
+  const int stages = k_chunk / BK < STAGES ? k_chunk / BK : STAGES;
+  const auto kernel = skinny_kernel<NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::smem(STAGES));
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (N + BN - 1) / BN, 1);
+  cfg.blockDim = dim3(F::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = F::smem(stages);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, M, N, K, k_chunk, stages,
+                           x_rows * BK * 2, epi);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace skinny
+
 Epilogue make_epilogue(const void* bias, void* out, void* gp, int act, int N,
                        unsigned drop_thresh, float drop_scale, unsigned seed0,
                        unsigned seed1, unsigned drop_stream, int drop_t) {
@@ -298,9 +519,35 @@ extern "C" int acai_linear_bias_act_sm90(const void* a, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// The decode rows (M <= 128) in one launch: x (M, K), W (K, N), K % 8 == 0,
+// N % 8 == 0, x and W 16-byte aligned (TMA's rules); the arguments and
+// epilogues of acai_linear_bias_act above. K split in `split` (<= 8, one
+// cluster) ranges of k_chunk (a multiple of 64), none empty.
+extern "C" int acai_linear_bias_act_skinny(
+    const void* a, const void* w, const void* bias, void* out, void* gp, int M,
+    int N, int K, int k_chunk, int split, int act, unsigned drop_thresh,
+    float drop_scale, unsigned seed0, unsigned seed1, unsigned drop_stream,
+    int drop_t, void* stream) {
+  if (const int rc = check_args(act, gp, drop_thresh, drop_t)) return rc;
+  if (M < 1 || M > 128 || N % 8 != 0 || K % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Epilogue epi = make_epilogue(bias, out, gp, act, N, drop_thresh,
+                                     drop_scale, seed0, seed1, drop_stream,
+                                     drop_t);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return M > 64 ? skinny::launch<2>(a, w, M, N, K, k_chunk, split, epi, s)
+                : skinny::launch<1>(a, w, M, N, K, k_chunk, split, epi, s);
+}
+
 // The resource report of the kernels above (func_attrs.cuh): block size and
 // dynamic shared memory as the launcher uses them.
 static const AcaiKernelEntry kResources[] = {
+    {"linear_bias_act|skinny|skinny_kernel<1>",
+     reinterpret_cast<const void*>(skinny::skinny_kernel<1>),
+     skinny::Form<1>::THREADS, skinny::Form<1>::smem(skinny::STAGES)},
+    {"linear_bias_act|skinny|skinny_kernel<2>",
+     reinterpret_cast<const void*>(skinny::skinny_kernel<2>),
+     skinny::Form<2>::THREADS, skinny::Form<2>::smem(skinny::STAGES)},
     ACAI_KERNEL("linear_bias_act", "wmma", linear_kernel, THREADS, 0),
     ACAI_KERNEL("linear_bias_act", "wmma", reduce_kernel, 256, 0),
     {"linear_bias_act|sm90|gemm_kernel<256,K,MN>",

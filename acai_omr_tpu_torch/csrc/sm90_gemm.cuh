@@ -1,7 +1,8 @@
 // sm90_gemm.cuh: one GEMM core for Hopper, shared by K1 linear_bias_act (its
 // large-M products) and K9 linear_bwd (wgrad and dgrad), and the Hopper
-// building blocks (mbarriers, TMA, shared-memory descriptors, wgmma) that K7
-// attention_bwd's warp-specialised kernels are made of.
+// building blocks (mbarriers, TMA, shared-memory descriptors, wgmma) that K1's
+// skinny decode kernel and the warp-specialised attention kernels of K3
+// encoder_attention and K7 attention_bwd (attention_sm90.cuh) are made of.
 //
 // Computes C (M, N) = A (M, K) B (K, N) over one range of K in bf16 with an
 // fp32 accumulator, a (BM = 128) x BN tile a block, and hands the fp32 tile to

@@ -11,6 +11,10 @@ one Pallas grid. Here each layer is seven launches of three kernels:
 
 K3 ``encoder_attention`` lives in this module (CUDA source
 ``csrc/encoder_attention.cu``); K1 and K4 are shared with the decode step.
+K3 has two designs, counted apart in ``KernelOp.variants``:
+``"sm90_dh{Dh}"`` (TMA + wgmma, warp specialised, the default) and
+``"wmma_dh{Dh}"`` (the pre-Hopper kernel, kept as its yardstick:
+``variant="wmma"``).
 Numerics follow ``_fwd_kernel``: qkv and every projection rounded to the
 compute dtype after its fp32 bias add, softmax probabilities normalised in
 fp32 before the bf16 PV product, exact GELU on the fp32 ff1 sum, residual
@@ -108,23 +112,34 @@ def check_attention_operands(name: str, q, k, v, valid, num_heads: int):
     return b, tq, tk, e, dh
 
 
-def _launch(op, qkv, valid, num_heads, causal=False, kv=None):
+VARIANTS = ("sm90", "wmma")
+
+
+def _launch(op, qkv, valid, num_heads, causal=False, kv=None, *,
+            variant="sm90"):
+    """``variant`` (private: tests and chip_smoke.py): ``"wmma"`` for the
+    pre-Hopper kernel. Launches count as ``"{variant}_dh{Dh}"``."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
     _build.require(qkv, "qkv", torch.bfloat16, 2)
     if kv is not None:
         _build.require(kv, "kv", torch.bfloat16, 3)
     q, k, v = split_qkv(qkv, kv, valid.shape[0])
     b, tq, tk, e, dh = check_attention_operands(op.name, q, k, v, valid,
                                                 num_heads)
+    if variant == "sm90" and any(a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError(f"{op.name} needs q, k and v 16-byte aligned (TMA)")
     valid_u8 = valid.to(torch.uint8).contiguous()
     out = torch.empty((b * tq, e), dtype=torch.bfloat16, device=qkv.device)
     fn = _build.bind("encoder_attention", "acai_encoder_attention",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
             out.data_ptr(), b, tq, tk, num_heads, dh, q.stride(1),
             k.stride(1), 1.0 / math.sqrt(dh), int(causal),
-            _build.stream_ptr())
-    op.launched(f"dh{dh}")
+            int(variant == "wmma"), _build.stream_ptr())
+    op.launched(f"{variant}_dh{dh}")
     _build.check(rc, op.name)
     return out
 

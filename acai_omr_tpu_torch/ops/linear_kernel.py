@@ -5,9 +5,12 @@ replaces are noted there) with the Hopper GEMM core ``csrc/sm90_gemm.cuh``.
 Serves every product inside the two ported stacks: the skinny decode rows
 (M = B) and the encoder and training rows (M = B*T). :func:`gemm_plan` picks
 the kernel by M: ``"sm90"`` (TMA + wgmma, 128 x BN tiles) for the large-M
-products, ``"wmma"`` (64 x 64 tiles, split K) for the decode rows;
-``KernelOp.variants`` counts the launches of each (``"partial"``: the wmma
-kernel's fp32 partials of the meshed decode).
+products, ``"skinny"`` (one launch, K split across a thread-block cluster,
+:func:`skinny_plan`) for the decode rows; ``KernelOp.variants`` counts the
+launches of each (``"skinny_partial"``: the skinny kernel's fp32 partials of
+the meshed decode). ``variant="wmma"`` forces the pre-Hopper kernel the
+decode rows took before (split K and a second launch, :func:`split_plan`;
+its partials count as ``"partial"``), kept as the yardstick.
 """
 
 from __future__ import annotations
@@ -27,7 +30,12 @@ _TARGET_BLOCKS = 2 * N_SMS  # two waves of blocks
 SM90_BM = 128
 SM90_BNS = (256, 128)
 SKINNY_M = 128  # the most rows the decode products have (GRPO: 16 x 8)
-VARIANTS = ("sm90", "wmma")
+VARIANTS = ("sm90", "skinny", "wmma")
+# the skinny kernel: 64 x 64 weight tiles a k-step, a ring of four stages,
+# K split across at most one portable thread-block cluster
+SKINNY_BN = SKINNY_BK = 64
+SKINNY_STAGES = 4
+SKINNY_MAX_SPLIT = 8
 
 
 def _gelu32(u: torch.Tensor) -> torch.Tensor:
@@ -82,6 +90,24 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
     return chunk * _BK, splits
 
 
+def skinny_plan(m: int, n: int, k: int) -> tuple[int, int]:
+    """(k_chunk, split) of the skinny kernel for an M x K by K x N product,
+    M <= SKINNY_M: a block owns SKINNY_BN columns and k_chunk of K (a
+    multiple of 64); the ``split`` blocks of one column tile form one
+    cluster and sum their partials in rank order, ranges in order and none
+    empty. The split gives the grid at least one block an SM (all 132
+    wherever the column tiles times SKINNY_MAX_SPLIT reach them) and each
+    block at most a ring's depth of k-steps, so that all its weight loads
+    are in flight at once. Narrower tiles or clusters past 8 blocks, which
+    would cover the SMs at every shape, measured slower on an H100."""
+    del m  # the rows set the consumer warpgroups, not the plan
+    tiles, steps = -(-n // SKINNY_BN), -(-k // SKINNY_BK)
+    want = min(SKINNY_MAX_SPLIT, steps,
+               max(-(-steps // SKINNY_STAGES), -(-N_SMS // tiles)))
+    chunk = max(steps // want, -(-steps // SKINNY_MAX_SPLIT))
+    return chunk * SKINNY_BK, -(-steps // chunk)
+
+
 def waves(blocks: int) -> int:
     """Waves of ``blocks`` resident one an SM on the card's SMs."""
     return -(-blocks // N_SMS)
@@ -121,17 +147,17 @@ def sm90_tile_n(m: int, n: int, k: int) -> int:
 def gemm_plan(m: int, n: int, k: int) -> tuple[str, int]:
     """(variant, BN): the kernel for an M x K by K x N product.
 
-    ``"wmma"`` for M <= SKINNY_M where its shape rule holds (K % 32, N % 64):
-    the decode rows (decode, beams, GRPO's rollouts of up to 128 rows, the
-    meshed partials) read the whole weight matrix for a few rows, so they are
-    bound by weight bytes; the core would give them one row of N / BN <= 32
-    tiles, each streaming its columns of W for all of K on one SM, a quarter
-    of the card's 132 SMs, while the wmma kernel's split-K plan spreads the
-    same bytes over 2 x 132 blocks. ``"sm90"`` for everything else: the
-    encoder's M = B*T, stage 2's 2,048 / 8,192 rows, the MAE's 32,768, with
-    BN from :func:`sm90_tile_n`."""
-    if m <= SKINNY_M and k % _BK == 0 and n % _BN == 0:
-        return "wmma", _BN
+    ``"skinny"`` for M <= SKINNY_M: the decode rows (decode, beams, GRPO's
+    rollouts of up to 128 rows, the meshed partials) read the whole weight
+    matrix for a few rows, so they are bound by weight bytes; the core would
+    give them one row of N / BN <= 32 tiles, each streaming its columns of W
+    for all of K on one SM, a quarter of the card's 132 SMs, while
+    :func:`skinny_plan` spreads the same bytes over every SM and sums the
+    split K in one launch. ``"sm90"`` for everything else: the encoder's
+    M = B*T, stage 2's 2,048 / 8,192 rows, the MAE's 32,768, with BN from
+    :func:`sm90_tile_n`. Both take TMA's shape rule (K, N multiples of 8)."""
+    if m <= SKINNY_M:
+        return "skinny", SKINNY_BN
     return "sm90", sm90_tile_n(m, n, k)
 
 
@@ -146,8 +172,8 @@ def _check_shape(variant: str, k: int, n: int) -> None:
 
 def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False, *,
             variant=None):
-    """``variant`` (private: tests and chip_smoke.py) forces ``"sm90"`` or
-    ``"wmma"`` in place of :func:`gemm_plan`'s choice."""
+    """``variant`` (private: tests and chip_smoke.py) forces ``"sm90"``,
+    ``"skinny"`` or ``"wmma"`` in place of :func:`gemm_plan`'s choice."""
     partial = act == "partial"
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(w, "w", torch.bfloat16, 2)
@@ -158,11 +184,14 @@ def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False, *,
     if w.shape[0] != k or (b is not None and b.shape[0] != n):
         raise ValueError(f"shape mismatch x{tuple(x.shape)} w{tuple(w.shape)} "
                          f"b{None if b is None else tuple(b.shape)}")
-    plan, bn = gemm_plan(m, n, k)
+    plan = gemm_plan(m, n, k)[0]
     if variant is not None:
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}")
-        plan, bn = variant, sm90_tile_n(m, n, k)  # bn: the core's only
+        if variant == "skinny" and m > SKINNY_M:
+            raise ValueError(f"the skinny kernel takes at most {SKINNY_M} "
+                             f"rows, got {m}")
+        plan = variant
     _check_shape(plan, k, n)
     if plan != "wmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("linear_bias_act needs x and w 16-byte aligned")
@@ -190,12 +219,22 @@ def _launch(op, x, w, b, act="none", drop=None, save_gelu_grad=False, *,
         # the tensor-parallel step's partials are counted apart
         op.launched("partial" if partial else "wmma")
         op.extra_launches += part is not None  # the split-K reduce kernel
+    elif plan == "skinny":
+        k_chunk, split = skinny_plan(m, n, k)
+        fn = _build.bind("linear_bias_act", "acai_linear_bias_act_skinny",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                         + dk.C_ARGTYPES + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), gp_ptr,
+                m, n, k, k_chunk, split, ACTS[act], *dk.c_args(drop),
+                _build.stream_ptr())
+        op.launched("skinny_partial" if partial else "skinny")
     else:
         fn = _build.bind("linear_bias_act", "acai_linear_bias_act_sm90",
                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                          + dk.C_ARGTYPES + [ctypes.c_void_p])
         rc = fn(x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), gp_ptr,
-                m, n, k, bn, ACTS[act], *dk.c_args(drop), _build.stream_ptr())
+                m, n, k, sm90_tile_n(m, n, k), ACTS[act], *dk.c_args(drop),
+                _build.stream_ptr())
         op.launched(plan)
     _build.check(rc, op.name)
     return (out, gp) if save_gelu_grad else out

@@ -31,13 +31,18 @@ Phases, all in one process; any failure exits non-zero:
    encoder's 128 kept rows (12 heads of 64), K1, K4, K8 and K9 at
    32,768 x 512, ``linear_wgrad`` with its rows split as its plan says.
    K1's large-M products and every ``linear_wgrad`` and ``linear_dgrad``
-   (the Hopper GEMM core, csrc/sm90_gemm.cuh), and every K7 site (its
-   TMA + wgmma kernels) are timed in turns with the wmma kernels they
-   replaced, forced through the wrappers' ``variant=`` (``old_ms``), which
-   must agree with the twins too, K10's mask the same elements in all
-   three, two runs of the new K7 bit-equal; from HBM (``cold_ms``) where
-   the operands fit L2; then the resource rows of K1's, K9's and K7's
-   kernels, none of the Hopper dgrad and K7 kernels with local memory;
+   (the Hopper GEMM core, csrc/sm90_gemm.cuh), K1's decode rows (its
+   skinny kernel: one launch, K split across a thread-block cluster), and
+   every K3 and K7 site (their TMA + wgmma kernels) are timed in turns with
+   the wmma kernels they replaced, forced through the wrappers'
+   ``variant=`` (``old_ms``), which must agree with the twins too, K10's
+   mask the same elements in all three, two runs of the new K1 decode
+   rows, K3 and K7 bit-equal; from HBM (``cold_ms``) where the operands fit
+   L2, the decode rows' library call too (``library_cold_ms``); K7's
+   outputs at its five sites equal, bit for bit, to those recorded in
+   ``K7_BITS``; then the resource rows of K1's, K3's, K9's and K7's
+   kernels, none of the Hopper dgrad, K3 and K7 kernels and none of K1's
+   skinny kernels with local memory;
    then the probes phase: K16 tile_gemm at every tile of the GEMM sweep
    (bf16 out) at (8192, 768, 3072), (32768, 512, 1536) and
    (32768, 512, 3072), and in its three operand layouts (fp32 out) at the
@@ -78,11 +83,12 @@ Phases, all in one process; any failure exits non-zero:
    K12 stacked), and its bf16 step with K11 off and on in turns; the launch
    counts are reset just before each path and read just after, and their
    split by variant must show every encoder product of K1 on the core
-   ("sm90", 4 per encoder K3 launch) and every decode product on the wmma
-   kernel ("wmma", "partial"); the training paths below run every K1,
-   every ``linear_dgrad`` and every ``linear_wgrad`` on the core ("sm90",
-   "sm90_splits{s}") and every K7 on its Hopper kernels ("sm90_dh{Dh}"),
-   GRPO its rollouts' K1 on wmma. Then the
+   ("sm90", 4 per encoder K3 launch), every decode product on the skinny
+   kernel ("skinny", "skinny_partial") and every K3 on its Hopper kernel
+   ("sm90_dh{Dh}"); the training paths below run every K1, every
+   ``linear_dgrad`` and every ``linear_wgrad`` on the core ("sm90",
+   "sm90_splits{s}") and every K3 and K7 on its Hopper kernels
+   ("sm90_dh{Dh}"), GRPO its rollouts' K1 on the skinny kernel. Then the
    kernel path is held against the
    plain path on the card: encoder output, and 64 greedy decode steps at B=8
    with bf16 caches, int8 caches and int8 caches with W4A8 weights (the
@@ -132,7 +138,11 @@ Phases, all in one process; any failure exits non-zero:
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
 decode steps, over two training microbatches and over two MAE updates
 (device time by kernel, device busy share); ``--report PATH``
-writes every number of the run as JSON to PATH.
+writes every number of the run as JSON to PATH; ``--k7-bits`` prints only
+the hashes of K7's outputs at its training sites (``k7_bits``, what
+``K7_BITS`` records) and exits; ``--skinny-splits`` times only the skinny
+kernel at every split of K at the decode shapes (``skinny_splits``) and
+exits.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the port's package is not beside this script.
@@ -357,20 +367,26 @@ def token_share(res_a, res_b) -> list:
 
 
 def variant_failures(name: str, r: dict) -> list:
-    """Which kernel each product and attention backward of a path ran, from
-    its launches by variant: every K1 of an encoder or a training stack on
-    the Hopper core ("sm90"; on the serving paths 4 per encoder K3 launch),
-    every decode K1 on the wmma kernel ("wmma", or "partial" on the meshed
-    paths), GRPO both, every linear_wgrad on the core ("sm90_splits{s}"),
+    """Which kernel each product and attention of a path ran, from its
+    launches by variant: every K1 of an encoder or a training stack on the
+    Hopper core ("sm90"; on the serving paths 4 per encoder K3 launch),
+    every decode K1 (M <= 128) on the skinny kernel ("skinny", or
+    "skinny_partial" on the meshed paths), GRPO both, never the wmma kernel
+    ("wmma", "partial"); every K3 encoder_attention on its Hopper kernel
+    ("sm90_dh{Dh}"); every linear_wgrad on the core ("sm90_splits{s}"),
     every linear_dgrad on the core ("sm90") and every K7 attention_bwd on
     its Hopper kernels ("sm90_dh{Dh}")."""
     k1 = r["variants"].get("linear_bias_act", {})
+    k3 = r["variants"].get("encoder_attention", {})
     wgrad = r["variants"].get("linear_wgrad", {})
     dgrad = r["variants"].get("linear_dgrad", {})
     k7 = r["variants"].get("attention_bwd", {})
     out = []
-    if set(k1) - {"sm90", "wmma", "partial"}:
-        out.append(f"{name}: K1 launches of unknown variants {k1}")
+    if set(k1) - {"sm90", "skinny", "skinny_partial"}:
+        out.append(f"{name}: K1 launches off the core and the skinny kernel "
+                   f"{k1}")
+    if any(not v.startswith("sm90_dh") for v in k3):
+        out.append(f"{name}: encoder_attention off its Hopper kernel {k3}")
     if any(not v.startswith("sm90_splits") for v in wgrad):
         out.append(f"{name}: linear_wgrad off the core {wgrad}")
     if set(dgrad) - {"sm90"}:
@@ -381,18 +397,19 @@ def variant_failures(name: str, r: dict) -> list:
         if set(k1) != {"sm90"}:
             out.append(f"{name}: K1 off the core {k1}")
     elif name == "train_grpo":
-        if not (k1.get("sm90") and k1.get("wmma")):
+        if not (k1.get("sm90") and k1.get("skinny")):
             out.append(f"{name}: K1 by variant {k1}: the encoder and the "
-                       f"update on the core, the rollouts on wmma")
+                       f"update on the core, the rollouts on skinny")
     elif k1.get("sm90", 0) != 4 * r["launches"]["encoder_attention"]:
         out.append(f"{name}: K1 by variant {k1}: the encoder's 4 a K3 launch "
-                   f"on the core, the decode rows on wmma")
+                   f"on the core, the decode rows on skinny")
     return out
 
 
 def variant_line(name: str, r: dict) -> str:
     """The launches by variant of a path's products and attention backward."""
-    keys = ("linear_bias_act", "linear_wgrad", "linear_dgrad", "attention_bwd")
+    keys = ("linear_bias_act", "encoder_attention", "linear_wgrad",
+            "linear_dgrad", "attention_bwd")
     return f"[path {name}] by variant " + json.dumps(
         {k: r["variants"].get(k, {}) for k in keys})
 
@@ -424,7 +441,7 @@ def check_kernels(torch, F, dev):
 
     def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
                peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None,
-               variant=None, cold=None, old_ms=None):
+               variant=None, cold=None, old_ms=None, lib_cold=None):
         """``paths``: the main paths whose launches count for this case (the
         serving paths when None). ``variant``: the compiled variant or plan
         of the kernel this case launches (``KernelOp.variants``), where only
@@ -436,7 +453,8 @@ def check_kernels(torch, F, dev):
         weights or inputs rotated out of L2), where it was measured.
         ``old_ms``: for a redesigned kernel, the device ms of the kernel it
         replaces (forced through the wrapper's ``variant=``), timed in turns
-        with it (``turns_ms``)."""
+        with it (``turns_ms``). ``lib_cold``: the library call's device ms
+        from HBM, on the same rotating copies as ``cold``."""
         t_k, t_host = t_k  # device ms and host us of one wrapper call
         err = (out_k.float() - out_p.float()).abs().max().item()
         b_ms, b_by = bound_ms(nbytes, nops, peak)
@@ -447,7 +465,7 @@ def check_kernels(torch, F, dev):
                       "library_ms": t_lib,
                       "bound_ms": b_ms, "bound_by": b_by, "ok": ok,
                       "paths": paths, "variant": variant, "cold_ms": cold,
-                      "old_ms": old_ms})
+                      "old_ms": old_ms, "library_cold_ms": lib_cold})
         lib = "none" if t_lib is None else f"{t_lib:.4f}"
         print(f"[kernel] {op.name}[{case}] max_abs_err={err:.3e} tol={tol:.1e} "
               f"kernel_ms={t_k:.4f} "
@@ -455,17 +473,21 @@ def check_kernels(torch, F, dev):
               + ("" if old_ms is None else f"old_ms={old_ms:.4f} ")
               + f"host_us={t_host:.1f} plain_ms={t_p:.4f} "
               f"library_ms={lib} "
-              f"bound_ms={b_ms:.4f} ({b_by}) "
+              + ("" if lib_cold is None else f"library_cold_ms={lib_cold:.4f} ")
+              + f"bound_ms={b_ms:.4f} ({b_by}) "
               + ("" if exact is None else f"exact={exact} ")
               + ("ok" if ok else "FAIL"), flush=True)
 
-    # K1: decode qkv, decode ff1 (+GELU), decode ff2 (the wmma kernel);
-    # the encoder's four products at B = 16: qkv, out, ff1 (+GELU on the fp32
-    # sum), ff2 (the Hopper core, timed in turns with the wmma kernel it
-    # replaces, which must agree with the twin too)
+    # K1: decode qkv, decode ff1 (+GELU), decode ff2 and GRPO's 128 rollout
+    # rows (the skinny kernel); the encoder's four products at B = 16: qkv,
+    # out, ff1 (+GELU on the fp32 sum), ff2 (the Hopper core). Each timed in
+    # turns with the wmma kernel it replaces, which must agree with the twin
+    # too; the decode rows also from HBM (kernel and library call on the same
+    # rotating weight copies), two runs of the skinny kernel bit-equal
     for m, k, n, act in [(32, 1024, 3072, "none"),
                          (32, 1024, 4096, "gelu_rounded"),
-                         (32, 4096, 1024, "none"), (16384, 768, 2304, "none"),
+                         (32, 4096, 1024, "none"), (128, 1024, 3072, "none"),
+                         (16384, 768, 2304, "none"),
                          (16384, 768, 768, "none"), (16384, 768, 3072, "gelu"),
                          (16384, 3072, 768, "none")]:
         x = randn(m, k)
@@ -476,34 +498,40 @@ def check_kernels(torch, F, dev):
         call = lambda v=None: linear_bias_act(x, w, b, act, variant=v)
         out_k = call()
         out_p = linear_bias_act.plain(x, w, b, act)
-        lib = (lambda: torch.addmm(b16, x, w)) if act == "none" else \
-            (lambda: F.gelu(torch.addmm(b16, x, w)))
+        lib_of = lambda w_: (torch.addmm(b16, x, w_) if act == "none"
+                             else F.gelu(torch.addmm(b16, x, w_)))
         # one bf16 ulp of the largest output is 0.4-0.8% of it
         tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
+        skinny = variant == "skinny"
         cold = cold_ms(torch, lambda w_: linear_bias_act(x, w_, b, act),
-                       [w]) if m == 32 else None
-        t_k, old, exact = kernel_times(call), None, None
-        if variant == "sm90":
-            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
-            t_k = (t_new, t_k[1])
-            exact = (call("wmma").float() - out_p.float()).abs().max() \
-                .item() <= tol
+                       [w]) if skinny else None
+        lib_cold = cold_ms(torch, lib_of, [w]) if skinny else None
+        t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+        exact = (call("wmma").float() - out_p.float()).abs().max() \
+            .item() <= tol
+        if skinny:
+            exact &= torch.equal(out_k, call())
         record(linear_bias_act, f"{m}x{k}->{n},{act} ({variant})", out_k,
-               out_p, tol, t_k,
+               out_p, tol, (t_new, host_us(torch, call)),
                time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
-               time_ms(torch, lib), 2 * (m * k + k * n + m * n) + 4 * n,
+               time_ms(torch, lambda: lib_of(w)),
+               2 * (m * k + k * n + m * n) + 4 * n,
                2 * m * n * k, cold=cold, variant=variant, old_ms=old,
-               exact=exact)
+               exact=exact, lib_cold=lib_cold,
+               paths=["train_grpo"] if m == 128 else None)
 
     # K1 at the meshed decode's shard shapes: the column-parallel qkv and ff1
     # of a tp = 2 rank, and the row-parallel partials (fp32, no bias) of the
     # self / cross out (K = E / tp) and ff2 (K = F / tp) products at the rows
     # the meshed paths give them: 8 (tp = 2 / 4), 4 (a dp2_tp2 shard), 16
-    # (tp2_beam). A partial is held to 1e-3 of its largest value, far below
-    # a bf16 ulp: a bias added, a row or column missed would show. Library
-    # call: torch.mm, bf16 out. Only partial launches count for those cases
+    # (tp2_beam); the cross-query shards (E -> E / tp). A partial is held to
+    # 1e-3 of its largest value, far below a bf16 ulp: a bias added, a row or
+    # column missed would show. Library call: torch.mm, bf16 out. Only
+    # partial launches count for those cases. Timed in turns with the wmma
+    # kernel (held to the twin too), two runs of the skinny kernel bit-equal
     for m, k, n, act in [(8, 1024, 1536, "none"),
                          (8, 1024, 2048, "gelu_rounded"),
+                         (8, 1024, 512, "none"), (8, 1024, 256, "none"),
                          (8, 512, 1024, "partial"), (8, 2048, 1024, "partial"),
                          (8, 256, 1024, "partial"), (8, 1024, 1024, "partial"),
                          (4, 512, 1024, "partial"), (16, 2048, 1024, "partial")]:
@@ -511,7 +539,8 @@ def check_kernels(torch, F, dev):
         w = (randn(k, n, dtype=torch.float32) / math.sqrt(k)).to(bf)
         partial = act == "partial"
         b = None if partial else randn(n, dtype=torch.float32) * 0.1
-        out_k = linear_bias_act(x, w, b, act)
+        call = lambda v=None: linear_bias_act(x, w, b, act, variant=v)
+        out_k = call()
         out_p = linear_bias_act.plain(x, w, b, act)
         if partial:
             assert out_k.dtype == torch.float32, "K1 partial is fp32"
@@ -522,13 +551,17 @@ def check_kernels(torch, F, dev):
                 (lambda: F.gelu(torch.addmm(b16, x, w)))
         tol = (1e-3 if partial else 1e-2) \
             * max(1.0, out_p.float().abs().max().item())
+        t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+        exact = torch.equal(out_k, call()) and (
+            call("wmma").float() - out_p.float()).abs().max().item() <= tol
         record(linear_bias_act, f"{m}x{k}->{n},{act} (shard)", out_k, out_p,
-               tol, kernel_times(lambda: linear_bias_act(x, w, b, act)),
+               tol, (t_new, host_us(torch, call)),
                time_ms(torch, lambda: linear_bias_act.plain(x, w, b, act)),
                time_ms(torch, lib),
                2 * (m * k + k * n) + (4 if partial else 2) * m * n
                + (0 if partial else 4 * n), 2 * m * n * k,
-               paths=list(TP_PATHS), variant="partial" if partial else "wmma")
+               paths=list(TP_PATHS), exact=exact, old_ms=old,
+               variant="skinny_partial" if partial else "skinny")
 
     # K2 self: B=32, T=512, pos=300, E=1024, H=16
     bsz, t, pos, e, h = 32, 512, 300, 1024, 16
@@ -737,26 +770,33 @@ def check_kernels(torch, F, dev):
               2 * n_valid_g * (e + 2 * h) + 2 * 2 * bsz * e + 4 * bu * m_len,
               4 * e * n_valid_g * grp, bias=mbias_g, mem_group=grp)
 
-    # K3: B=16, T=1024, E=768, H=12, ragged validity
+    # K3: B=16, T=1024, E=768, H=12, ragged validity; the Hopper kernel
+    # timed in turns with the wmma kernel it replaces (held to the twin too),
+    # two runs of the new one bit-equal
     bsz, t, e, h = 16, 1024, 768, 12
     dh = e // h
     qkv = randn(bsz * t, 3 * e)
     lens = torch.randint(128, t + 1, (bsz,), generator=g, device=dev)
     valid = torch.arange(t, device=dev)[None, :] < lens[:, None]
-    out_k = encoder_attention(qkv, valid, h)
+    call = lambda v="sm90": encoder_attention(qkv, valid, h, variant=v)
+    out_k = call()
     out_p = encoder_attention.plain(qkv, valid, h)
+    exact = torch.equal(out_k, call()) and (
+        call("wmma").float() - out_p.float()).abs().max().item() <= 1e-2
     q5 = qkv.view(bsz, t, 3, h, dh).permute(2, 0, 3, 1, 4)
     q_l, k_l, v_l = (q5[i].contiguous() for i in range(3))
     mask4 = valid[:, None, None, :]
     n_valid = int(valid.sum())  # padded keys add nothing to the output
+    t_new, old = turns_ms(torch, call, lambda: call("wmma"))
     record(encoder_attention, f"B={bsz} T={t} E={e} H={h}", out_k, out_p,
-           1e-2, kernel_times(lambda: encoder_attention(qkv, valid, h)),
+           1e-2, (t_new, host_us(torch, call)),
            time_ms(torch, lambda: encoder_attention.plain(qkv, valid, h),
                    iters=5),
            time_ms(torch, lambda: F.scaled_dot_product_attention(
                q_l, k_l, v_l, attn_mask=mask4)),
            2 * (bsz * t * 3 * e + bsz * t * e) + bsz * t,
-           4 * e * t * n_valid)
+           4 * e * t * n_valid, exact=exact, variant=f"sm90_dh{dh}",
+           old_ms=old)
 
     # K4: decode rows (32 x 1024) and encoder rows (16384 x 768)
     for rows, e in [(32, 1024), (16384, 768)]:
@@ -776,24 +816,136 @@ def check_kernels(torch, F, dev):
                2 * 3 * rows * e + 8 * e, 8 * rows * e)
     decode_hd_cases(torch, F, randn, record, kernel_times, dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
-    # the resource rows of the products' and the attention backward's
-    # kernels: the Hopper kernels (sm90) beside the wmma kernels they replace;
-    # no Hopper kernel of dgrad or K7 may use local memory (a spill)
+    # the resource rows of the products' and the attentions' kernels: the
+    # Hopper kernels (sm90, skinny) beside the wmma kernels they replace; no
+    # Hopper kernel of dgrad, K3 or K7 and no skinny kernel of K1 may use
+    # local memory (a spill)
     from acai_omr_tpu_torch.ops import _build
     spills = []
-    for name in ("linear_bias_act", "linear_bwd", "attention_bwd"):
+    for name in ("linear_bias_act", "encoder_attention", "linear_bwd",
+                 "attention_bwd"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
                   f"static_smem={r['static_smem']} "
                   f"dynamic_smem={r['dynamic_smem']} "
                   f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
-            if r["op"] in ("linear_dgrad", "attention_bwd") \
-                    and r["variant"].startswith("sm90") and r["local_bytes"]:
+            hopper = (r["op"] in ("linear_dgrad", "encoder_attention",
+                                  "attention_bwd")
+                      and r["variant"].startswith("sm90")) \
+                or r["variant"] == "skinny"
+            if hopper and r["local_bytes"]:
                 spills.append(f"{r['op']} {r['kernel']}")
+    k7_bad = k7_bit_failures(torch)
     race_bad = tp_allreduce_cases(torch, randn, record, kernel_times, dev)
     probe_cases(torch, F, record, kernel_times, dev)
-    return cases, race_bad, spills
+    return cases, race_bad, spills, k7_bad
+
+
+# K7's sites at the training shapes, (name, B, Tq, Tk, E, H, causal,
+# cross), and the bits of its sm90 kernels' (dq, dk, dv) there on seeded
+# inputs (k7_bits): recorded on an NVIDIA H100 80GB HBM3 from the tree
+# before the Hopper attention helpers moved into csrc/attention_sm90.cuh
+# (python3 chip_smoke.py --k7-bits), held by every run since
+K7_SITES = (("dec self causal", 8, 256, 256, 1024, 16, True, False),
+            ("dec cross", 8, 256, 1024, 1024, 16, False, True),
+            ("enc self", 8, 1024, 1024, 768, 12, False, False),
+            ("mae_dec self", 64, 512, 512, 512, 16, False, False),
+            ("mae_enc self", 64, 128, 128, 768, 12, False, False))
+K7_BITS = {"dec self causal": "15285ea4ea57886c", "dec cross": "a159b40715b0eb54",
+           "enc self": "35384ec4c3db4919", "mae_dec self": "221aba0829d2aa0e",
+           "mae_enc self": "e4b9a678e01ea67c"}
+
+
+def k7_bits(torch) -> dict:
+    """sha256 (first 16 hex digits) of the bytes of K7's (dq, dk, dv) at
+    each of K7_SITES, inputs from numpy's generator (seed SEED): q, k, v,
+    dO standard normal in bf16, each image's valid keys a prefix of half to
+    all of them. K7 sums in a fixed order (no atomics), so equal code gives
+    equal bits on any H100."""
+    import hashlib
+    import numpy as np
+    from acai_omr_tpu_torch.ops.attention_bwd_kernel import attention_bwd
+    from acai_omr_tpu_torch.ops.encoder_stack_kernel import split_qkv
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    bf = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
+    out = {}
+    for name, b, tq, tk, e, h, causal, cross in K7_SITES:
+        lens = torch.from_numpy(rng.integers(tk // 2, tk + 1, b)).to(dev)
+        valid = torch.arange(tk, device=dev)[None, :] < lens[:, None]
+        q = bf(b * tq, e if cross else 3 * e)
+        kv = bf(b, tk, 2 * e) if cross else None
+        q3, k3, v3 = split_qkv(q, kv, b)
+        grads = attention_bwd(q3, k3, v3, bf(b, tq, e), valid, h, causal)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for a in grads:
+            digest.update(a.contiguous().view(torch.int16).cpu().numpy()
+                          .tobytes())
+        out[name] = digest.hexdigest()[:16]
+    return out
+
+
+def skinny_splits(torch) -> list:
+    """The skinny kernel (K1's decode rows) at every split its plan could
+    take (1-8, ranges evened out) at the decode shapes, each from HBM
+    (rotating weight copies), beside the plan's own split and the library
+    call from HBM: how far ``skinny_plan`` is from the fastest split."""
+    import ctypes
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.ops import dropout_kernel as dk
+    from acai_omr_tpu_torch.ops import linear_kernel as lk
+    dev = torch.device("cuda")
+    fn = _build.bind("linear_bias_act", "acai_linear_bias_act_skinny",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                     + dk.C_ARGTYPES + [ctypes.c_void_p])
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for m, k, n in ((32, 1024, 3072), (32, 1024, 4096), (32, 4096, 1024),
+                    (128, 1024, 3072), (128, 4096, 1024), (8, 1024, 1536),
+                    (8, 1024, 2048), (8, 2048, 1024), (8, 512, 1024),
+                    (8, 256, 1024), (8, 1024, 1024), (8, 1024, 768),
+                    (8, 1024, 512), (8, 1024, 256)):
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        b = torch.randn(n, generator=g, device=dev)
+        out = torch.empty(m, n, device=dev, dtype=torch.bfloat16)
+        steps, times = -(-k // lk.SKINNY_BK), {}
+        for want in range(1, min(lk.SKINNY_MAX_SPLIT, steps) + 1):
+            chunk = -(-steps // want)
+            split = -(-steps // chunk)
+            if split in times:
+                continue
+            times[split] = cold_ms(torch, lambda w_, c=chunk, s=split: fn(
+                x.data_ptr(), w_.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None, m, n, k, c * lk.SKINNY_BK, s, 0,
+                *dk.c_args(None), _build.stream_ptr()), [w])
+        plan = lk.skinny_plan(m, n, k)[1]
+        lib = cold_ms(torch, lambda w_: torch.addmm(b.to(torch.bfloat16), x,
+                                                    w_), [w])
+        best = min(times, key=times.get)
+        rows.append({"shape": [m, k, n], "plan_split": plan,
+                     "plan_ms": times[plan], "best_split": best,
+                     "best_ms": times[best], "library_cold_ms": lib,
+                     "ms_by_split": times})
+        print(f"[skinny splits] {m}x{k}->{n} plan split {plan} "
+              f"{times[plan]:.4f} ms, best split {best} {times[best]:.4f} ms, "
+              f"library {lib:.4f} ms (all from HBM); by split "
+              + json.dumps({s_: round(t, 4) for s_, t in times.items()}),
+              flush=True)
+    return rows
+
+
+def k7_bit_failures(torch) -> list:
+    """K7's bits at its training sites against the recorded K7_BITS."""
+    got = k7_bits(torch)
+    print(f"[k7 bits] {json.dumps(got)} recorded {json.dumps(K7_BITS)}",
+          flush=True)
+    return [f"attention_bwd[{n}] bits differ from the recorded ones"
+            for n in got if got[n] != K7_BITS.get(n)]
 
 
 def tp_allreduce_cases(torch, randn, record, kernel_times, dev):
@@ -1402,17 +1554,27 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
                 mask4 = mask4 & torch.tril(torch.ones(
                     t, tk, dtype=torch.bool, device=dev))[None, None]
             n_pairs = int(mask4.expand(b, 1, t, tk).sum())  # attended (q, k)
-            call = lambda: encoder_attention(q, valid, h, causal, kv)
+            # K3's Hopper kernel, timed in turns with the wmma kernel it
+            # replaces; both held to the twin, two runs of the new one
+            # bit-equal (the backward's recompute relies on the bits)
+            call = lambda v="sm90": encoder_attention(q, valid, h, causal, kv,
+                                                      variant=v)
             out_k = call()
             out_p = encoder_attention.plain(q, valid, h, causal, kv)
+            exact = torch.equal(out_k, call()) and (
+                call("wmma").float() - out_p.float()).abs().max().item() \
+                <= 1e-2
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
             record(encoder_attention, f"{name} {site} B={b} Tq={t} Tk={tk} "
-                   f"E={e} H={h}", out_k, out_p, 1e-2, kernel_times(call),
+                   f"E={e} H={h}", out_k, out_p, 1e-2,
+                   (t_new, host_us(torch, call)),
                    plain_ms(lambda: encoder_attention.plain(q, valid, h,
                                                             causal, kv)),
                    time_ms(torch, lambda: F.scaled_dot_product_attention(
                        ql, kl, vl, attn_mask=mask4)),
                    2 * (2 * rows * e + 2 * b * tk * e) + b * tk,
-                   4 * e * n_pairs, paths=tr, variant=f"dh{dh}")
+                   4 * e * n_pairs, paths=tr, variant=f"sm90_dh{dh}",
+                   exact=exact, old_ms=old)
 
             # the Hopper kernels, timed in turns with the wmma kernels they
             # replace; both held to the twin (dq, dk and dv each within 2e-2
@@ -1875,12 +2037,13 @@ def expected_tp_step(dcfg, tp: int, rows: int, kind: str) -> tuple:
     monolith step (``kind`` "bf16" / "int8": K1 products, "w8a8": K5): per
     layer and rank six products (three of them fp32 partials), two
     attentions, three K4; per layer three K15 launches (one per row-parallel
-    site, every rank of this card in it). A product is one device kernel
-    more where its split-K plan splits (K1's reduce), K5 two more (its row
-    quantizer) or three. The per-op step: K15 three times a layer, K11
-    twice a layer and rank where it is on; the rest is PyTorch."""
+    site, every rank of this card in it). A K5 product is two device
+    kernels more than one (its row
+    quantizer) or three; a K1 product is one device kernel (the skinny
+    kernel sums its split K inside its launch). The per-op step: K15 three
+    times a layer, K11 twice a layer and rank where it is on; the rest is
+    PyTorch."""
     from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
-    from acai_omr_tpu_torch.ops.linear_kernel import split_plan as k1_plan
     from acai_omr_tpu_torch.ops.quant_linear_kernel import \
         split_plan as k5_plan
     e, f, l = dcfg.hidden_dim, dcfg.mlp_dim, dcfg.num_layers
@@ -1890,10 +2053,7 @@ def expected_tp_step(dcfg, tp: int, rows: int, kind: str) -> tuple:
     dev = 0
     for k, n in ((e, 3 * e // tp), (e // tp, e), (e, e // tp), (e // tp, e),
                  (e, f // tp), (f // tp, e)):
-        if kind == "w8a8":
-            dev += 2 + (k5_plan(rows, n, k)[1] > 1)
-        else:
-            dev += 1 + (k1_plan(rows, n, k)[1] > 1)
+        dev += 2 + (k5_plan(rows, n, k)[1] > 1) if kind == "w8a8" else 1
     return l * (tp * 11 + 3), l * (tp * (dev + 5) + 3)
 
 
@@ -2463,8 +2623,8 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
     encoder-type: per layer 4 K1, 1 K3, 2 K4 forward and 1 K3, 1 K4, 1 K7,
     2 K8, 4 dgrad, 4 wgrad backward (the gradient flows on into the patch
     projection and the PE grids, so the first layer's dgrad runs too). The
-    encoder's heads are 64 wide, the decoder's 32, every K7 on its Hopper
-    kernels ("sm90_dh{Dh}"); every K1 and every dgrad runs on the Hopper
+    encoder's heads are 64 wide, the decoder's 32, every K3 and K7 on its
+    Hopper kernels ("sm90_dh{Dh}"); every K1 and every dgrad runs on the Hopper
     core ("sm90"), every wgrad too, its rows split as
     ``row_split_plan`` says for the layer's shape (the encoder over the
     batch's kept rows, the decoder over all of them)."""
@@ -2488,7 +2648,8 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
             key = f"sm90_splits{row_split_plan(rows, k, cols)[1]}"
             wgrad[key] = wgrad.get(key, 0) + layers
     variants = {"linear_bias_act": {"sm90": 4 * n},
-                "encoder_attention": {f"dh{dh_e}": 2 * le, f"dh{dh_d}": 2 * ld},
+                "encoder_attention": {f"sm90_dh{dh_e}": 2 * le,
+                                      f"sm90_dh{dh_d}": 2 * ld},
                 "attention_bwd": {f"sm90_dh{dh_e}": le, f"sm90_dh{dh_d}": ld},
                 "linear_dgrad": {"sm90": 4 * n}, "linear_wgrad": wgrad}
     return step, val, variants
@@ -2763,6 +2924,13 @@ def main() -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if "--k7-bits" in sys.argv[1:]:  # K7's bits alone, for K7_BITS
+        print(json.dumps(k7_bits(torch)))
+        return 0
+    if "--skinny-splits" in sys.argv[1:]:  # the skinny kernel's splits alone
+        print(card_line())
+        skinny_splits(torch)
+        return 0
     import numpy as np
     import torch.nn.functional as F
 
@@ -2790,7 +2958,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
-    cases, race_bad, spills = check_kernels(torch, F, dev)
+    cases, race_bad, spills, k7_bad = check_kernels(torch, F, dev)
     # the probes phase's main path: the fourteen probe tools
     probe_run = probes_path(torch)
 
@@ -3141,6 +3309,7 @@ def main() -> int:
     if spills:
         failures.append(f"local memory (a spill) in the Hopper kernels "
                         f"{spills}")
+    failures += k7_bad
     if cmp["encoder_rel_err"] >= 0.02:
         failures.append("encoder kernel path vs plain path")
     for key in ("bf16", "int8", "w4a8"):
@@ -3165,7 +3334,9 @@ def main() -> int:
                 "host_us": c["host_us"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                 **({} if c["cold_ms"] is None else {"cold_ms": c["cold_ms"]}),
-                **({} if c["old_ms"] is None else {"old_ms": c["old_ms"]})}
+                **({} if c["old_ms"] is None else {"old_ms": c["old_ms"]}),
+                **({} if c["library_cold_ms"] is None
+                   else {"library_cold_ms": c["library_cold_ms"]})}
                for c in cases]
     failures += [f"launches[{k['name']}]=0" for k in kernels
                  if k["launches"] <= 0]

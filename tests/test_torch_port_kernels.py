@@ -431,6 +431,38 @@ def test_attention_bwd_sm90_beside_wmma(dev, cross, causal, heads):
             assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
+@pytest.mark.parametrize("heads", [4, 8])  # head dims 64, 32
+@pytest.mark.parametrize("cross,causal", [(False, True), (False, False),
+                                          (True, False)])
+def test_encoder_attention_sm90_beside_wmma(dev, cross, causal, heads):
+    """K3's Hopper kernel at 192 queries (a block of 128 rows and a half
+    one) and 320 cross keys, under validity that is no prefix: scattered
+    keys, key 0 masked (a causal row before the first valid key attends
+    uniformly: nothing is skipped), no valid key, one valid key past the
+    first tile; both designs against the twin (1e-2), each launch counted
+    under its variant, two runs of the new one bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, tq, e = 4, 192, 256
+    tk = 320 if cross else tq
+    valid = torch.rand(b, tk, generator=g, device=dev) < 0.6
+    valid[0, 0], valid[1, 0], valid[2] = True, False, False
+    valid[3], valid[3, 70] = False, True
+    q = _randn(g, b * tq, e if cross else 3 * e, dev=dev)
+    kv = _randn(g, b, tk, 2 * e, dev=dev) if cross else None
+    want = encoder_attention.plain(q, valid, heads, causal, kv)
+    dh = e // heads
+    for variant in ("sm90", "wmma"):
+        key = f"{variant}_dh{dh}"
+        before = encoder_attention.variants.get(key, 0)
+        got = encoder_attention(q, valid, heads, causal, kv, variant=variant)
+        assert encoder_attention.variants[key] == before + 1
+        assert torch.isfinite(got.float()).all()
+        _close(got, want)
+        if variant == "sm90":
+            again = encoder_attention(q, valid, heads, causal, kv)
+            assert torch.equal(got, again)
+
+
 def test_layernorm_bwd(dev):
     from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
     g = torch.Generator(device=dev).manual_seed(15)
@@ -550,6 +582,64 @@ def test_linear_bias_act_sm90(dev, m, k, act, save, drop):
         assert ((out != 0) ^ keep).float().mean().item() < 1e-3
         out, ref = torch.where(keep, out, 0), torch.where(out != 0, ref, 0)
     _close(out, ref, rel=1e-3 if act == "partial" else 1e-2)
+
+
+_SKINNY_ACTS = [("none", False, False), ("gelu", False, False),
+                ("gelu", True, True), ("gelu_rounded", False, False),
+                ("none", False, True), ("partial", False, False)]
+
+
+@pytest.mark.parametrize("act,save,drop", _SKINNY_ACTS,
+                         ids=["none", "gelu", "gelu_saves_drop",
+                              "gelu_rounded", "drop", "partial"])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 3072), (8, 1024, 1536),
+                                   (32, 4096, 1024), (128, 1024, 4096),
+                                   (100, 256, 1024), (8, 1024, 256),
+                                   (8, 72, 40), (100, 8192, 256)])
+def test_linear_bias_act_skinny(dev, m, k, n, act, save, drop):
+    """The decode rows' kernel (one launch, K split across a cluster) at
+    1 / 8 / 32 / 100 / 128 rows (one and two consumer warpgroups), the
+    decode and meshed widths (splits of 1-8, a ring that wraps) and a ragged
+    shape, every epilogue: against the twin and the wmma kernel it replaces;
+    dropout's mask the same elements as the wmma kernel's; two runs
+    bit-equal; one device kernel a call."""
+    from acai_omr_tpu_torch.ops.linear_kernel import gemm_plan
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = _randn(g, m, k, dev=dev)
+    w = (_randn(g, k, n, dev=dev, dtype=torch.float32) / math.sqrt(k)) \
+        .to(torch.bfloat16)
+    b = None if act == "partial" else _randn(g, n, dev=dev,
+                                             dtype=torch.float32)
+    d = _drop(t=4) if drop else None
+    assert gemm_plan(m, n, k)[0] == "skinny"
+    key = "skinny_partial" if act == "partial" else "skinny"
+    before = linear_bias_act.variants.get(key, 0)
+    dev_before = linear_bias_act.device_launches
+    out = linear_bias_act(x, w, b, act, d, save)
+    assert linear_bias_act.variants[key] == before + 1
+    assert linear_bias_act.device_launches == dev_before + 1
+    again = linear_bias_act(x, w, b, act, d, save)
+    ref = linear_bias_act.plain(x, w, b, act, d, save)
+    old = None
+    if k % 32 == 0 and n % 64 == 0:  # the wmma kernel's shape rule
+        old = linear_bias_act(x, w, b, act, d, save, variant="wmma")
+    if save:
+        assert all(torch.equal(a, c) for a, c in zip(out, again))
+        _close(out[1], ref[1])
+        out, ref = out[0], ref[0]
+        old = None if old is None else old[0]
+    else:
+        assert torch.equal(out, again)
+    rel = 1e-3 if act == "partial" else 1e-2
+    if old is not None:
+        if drop:
+            assert torch.equal(out == 0, old == 0)
+        _close(old, ref, rel=rel)
+    if drop:
+        keep = ref != 0
+        assert ((out != 0) ^ keep).float().mean().item() < 1e-3
+        out, ref = torch.where(keep, out, 0), torch.where(out != 0, ref, 0)
+    _close(out, ref, rel=rel)
 
 
 @pytest.mark.parametrize("plan", [(1, 128), (1, 256), (3, 128), (4, 256),
@@ -1201,6 +1291,21 @@ def test_every_backward_kernel_reports_its_resources(dev):
             assert r["local_bytes"] == 0 and r["threads"] == 384, r
             assert r["dynamic_smem"] > 48 * 1024 and r["blocks_per_sm"] == 1, r
     assert len(linear_dgrad.resources("wmma")) == 1
+    # K3's Hopper kernels: the same warp-specialised blocks, no local memory
+    for variant in ("sm90_dh64", "sm90_dh32"):
+        (row,) = encoder_attention.resources(variant)
+        assert row["local_bytes"] == 0 and row["threads"] == 384, row
+        assert row["blocks_per_sm"] == 1, row
+    # K3's pre-Hopper kernels (the yardstick): one a head dim, 128 threads
+    for variant in ("wmma_dh64", "wmma_dh32"):
+        (row,) = encoder_attention.resources(variant)
+        assert row["threads"] == 128, row
+    # K1's skinny kernel: one and two consumer warpgroups, a producer warp
+    # beside them, no local memory
+    rows = linear_bias_act.resources("skinny")
+    assert sorted(r["threads"] for r in rows) == [160, 288]
+    for r in rows:
+        assert r["local_bytes"] == 0, r
 
 
 def test_resident_elementwise_keeps_its_rows_in_registers(dev):
