@@ -66,6 +66,7 @@
 
 #include "dropout.cuh"
 #include "func_attrs.cuh"
+#include "sm90_cluster.cuh"
 #include "sm90_gemm.cuh"
 
 using namespace nvcuda;
@@ -243,7 +244,7 @@ namespace skinny {
 constexpr int BN = 64;        // output columns a block
 constexpr int BK = 64;        // one 128-byte swizzle row of bf16
 constexpr int STAGES = 4;     // 32 KB of W in flight a block
-constexpr int MAX_SPLIT = 8;  // a portable cluster
+constexpr int MAX_SPLIT = sm90::MAX_CLUSTER;
 constexpr int X_ROWS = 64;    // a consumer warpgroup's rows
 constexpr int W_BYTES = BK * BN * 2;
 constexpr int C_LD = BN + 4;  // fp32 partial tile, 16-byte aligned rows
@@ -264,36 +265,6 @@ struct Form {
   static_assert(1024 + STAGES * STAGE <= 227 * 1024, "past shared memory");
 };
 
-// The thread-block cluster, in PTX: this block's rank, a barrier of every
-// thread of the cluster (by default arrive releases and wait acquires:
-// shared-memory writes before it are seen by the cluster's reads after it),
-// and four floats of block `rank`'s shared memory at this block's address
-// `p`.
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return (int)r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.aligned;\n\t"
-      "barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ float4 load_peer4(const float* p, int rank) {
-  uint32_t addr;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(addr)
-               : "r"(sm90::smem_u32(p)), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 // Grid (split, ceil(N / BN)), one cluster of `split` blocks per BN output
 // columns: block r of the cluster sums K over [r k_chunk, (r + 1) k_chunk).
 // The partials meet in distributed shared memory, each summed in rank order;
@@ -311,7 +282,7 @@ __global__ void __launch_bounds__(Form<NWG>::THREADS)
   const uint32_t ring = (raw + 1023u) & ~1023u;  // the swizzle's alignment
   float* ctile = reinterpret_cast<float*>(smem_raw + (ring - raw));
 
-  const int rank = cluster_rank(), split = (int)gridDim.x;
+  const int rank = sm90::cluster_rank(), split = (int)gridDim.x;
   const int n0 = blockIdx.y * BN;
   const int k_lo = rank * k_chunk;
   const int steps = max(0, (min(K, k_lo + k_chunk) - k_lo + BK - 1) / BK);
@@ -376,7 +347,7 @@ __global__ void __launch_bounds__(Form<NWG>::THREADS)
           make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
-  cluster_sync();  // every block's partial tile is staged
+  sm90::cluster_sync();  // every block's partial tile is staged
   // this block's share of the tile's outputs, four columns at a time: the
   // partials summed in rank order (the same order whichever block sums)
   constexpr int G = BN / 4;
@@ -385,9 +356,9 @@ __global__ void __launch_bounds__(Form<NWG>::THREADS)
     const int r = e / G, col = (e % G) * 4, n = n0 + col;
     if (n >= N) continue;
     const int off = r * C_LD + col;
-    float4 v = load_peer4(ctile + off, 0);
+    float4 v = sm90::load_peer4(ctile + off, 0);
     for (int q = 1; q < split; ++q) {
-      const float4 u = load_peer4(ctile + off, q);
+      const float4 u = sm90::load_peer4(ctile + off, q);
       v.x += u.x;
       v.y += u.y;
       v.z += u.z;
@@ -396,7 +367,7 @@ __global__ void __launch_bounds__(Form<NWG>::THREADS)
     const float f[4] = {v.x, v.y, v.z, v.w};
     epilogue4(epi, f, r, n);
   }
-  cluster_sync();  // no block leaves while another reads its partials
+  sm90::cluster_sync();  // no block leaves while another reads its partials
 }
 
 template <int NWG>
@@ -419,22 +390,9 @@ int launch(const void* x, const void* w, int M, int N, int K, int k_chunk,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::smem(STAGES));
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, (N + BN - 1) / BN, 1);
-  cfg.blockDim = dim3(F::THREADS, 1, 1);
-  cfg.dynamicSmemBytes = F::smem(stages);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, M, N, K, k_chunk, stages,
-                           x_rows * BK * 2, epi);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return sm90::launch_cluster(kernel, dim3(split, (N + BN - 1) / BN, 1),
+                              F::THREADS, F::smem(stages), split, s, tx, tw, M,
+                              N, K, k_chunk, stages, x_rows * BK * 2, epi);
 }
 
 }  // namespace skinny

@@ -537,16 +537,14 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The map of a row-major bf16 matrix (rows, cols) whose rows lie `ld`
-// elements apart (cols when 0), read in boxes of box_rows x box_cols (64 or
-// 32) columns, swizzled across box_cols * 2 bytes (128 or 64), zeros outside.
-// TMA's own rules: a row stride (ld * 2 bytes) and a base address that are
-// multiples of 16 bytes. A head of a fused (rows, 3E) buffer is a map of
-// its E columns at stride 3E.
-inline int tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                      int box_rows, int ld = 0, int box_cols = BOX) {
-  ld = ld == 0 ? cols : ld;
-  if (rows <= 0 || cols <= 0 || ld < cols || ld % 8 != 0 ||
-      (box_cols != 64 && box_cols != 32) ||
+// elements apart, read in boxes of box_rows x box_cols with `swizzle`, zeros
+// outside. TMA's own rules: a row stride (ld * 2 bytes) and a base address
+// that are multiples of 16 bytes; box extents at most 256.
+inline int encode_map(CUtensorMap* map, const void* ptr, long long rows,
+                      long long cols, long long ld, int box_rows, int box_cols,
+                      CUtensorMapSwizzle swizzle) {
+  if (rows <= 0 || cols <= 0 || ld < cols || ld % 8 != 0 || box_rows < 1 ||
+      box_rows > 256 || box_cols < 1 || box_cols > 256 ||
       reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled fn = encode_tiled();
@@ -557,12 +555,23 @@ inline int tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                       : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The swizzled map of the core's operands: boxes of box_rows x box_cols (64
+// or 32) columns, swizzled across box_cols * 2 bytes (128 or 64); `ld`
+// cols when 0. A head of a fused (rows, 3E) buffer is a map of its E columns
+// at stride 3E.
+inline int tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                      int box_rows, int ld = 0, int box_cols = BOX) {
+  if (box_cols != 64 && box_cols != 32) return (int)cudaErrorInvalidValue;
+  return encode_map(map, ptr, rows, cols, ld == 0 ? cols : ld, box_rows,
+                    box_cols,
+                    box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // The box rows of an operand's map: a K-major tile is one box of its rows

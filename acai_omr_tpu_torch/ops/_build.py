@@ -187,16 +187,22 @@ class KernelOp:
     ``launches`` by the compiled variant or plan a launch took, where a
     kernel has several (the head dim of K3 / K7, the row splits of
     ``linear_wgrad``): :meth:`launched` is called where the kernel is
-    launched, in place of the bare increment.
+    launched, in place of the bare increment. ``check``, where given, takes
+    the call's arguments and raises ValueError on shapes or options the op
+    does not take: on CPU tensors before the twin runs (the launcher runs
+    the same checks for CUDA tensors), so nothing is built for a call the
+    kernel would refuse.
     """
 
-    def __init__(self, name: str, source: str, replaces: str, launch, plain):
+    def __init__(self, name: str, source: str, replaces: str, launch, plain,
+                 check=None):
         self.name = name
         self.route = "cuda"
         self.source = source
         self.replaces = replaces
         self._launch = launch
         self.plain = plain
+        self.check = check
         self.launches = 0
         self.extra_launches = 0
         self.variants: dict[str, int] = {}
@@ -220,6 +226,8 @@ class KernelOp:
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
         if x.device.type == "cpu":
+            if self.check is not None:
+                self.check(x, *args, **kwargs)
             # a launcher's private ``variant=`` picks a compiled kernel; the
             # twin is one function for all of them
             kwargs.pop("variant", None)

@@ -6,7 +6,10 @@ the per-op ("lane-major") decode step, which keeps its caches as
 
 * K11 :data:`decode_attention_hd` (``csrc/decode_attention_hd.cu``): q
   ``(B, H, Dh)`` against kT / vT ``(B, H, Dh, T)`` in the compute dtype, fp32
-  softmax, the division after the V sum.
+  softmax, the division after the V sum. The keys of a (row, head) are split
+  across a thread-block cluster as :func:`..decode_kernel.decode_attention_plan`
+  says, counted as ``"split{s}"``; ``variant="simt"``
+  forces the kernel it replaced, kept as the yardstick.
 * K12 :data:`decode_attention_hd_int8` (``csrc/decode_attention_hd_int8.cu``):
   the same over int8 planes with fp32 ``(B, H, T)`` scales, per layer or
   reading layer ``layer`` of a stacked ``(L, B, H, Dh, T)`` cache.
@@ -31,12 +34,13 @@ import os
 import torch
 
 from . import _build
-from .decode_kernel import quantize_rows
+from .decode_kernel import attention_split, quantize_rows
 
 _ENABLED = os.environ.get("ACAI_PALLAS_DECODE", "0") == "1"
 _ENABLED_INT8 = os.environ.get("ACAI_PALLAS_DECODE_INT8", "1") == "1"
 
-# logits (and the query) live in shared memory: 227 KB a block at most
+# K12 / K13 keep every logit (and the query) in shared memory: 227 KB a block
+# at most; K11 takes as many keys (its blocks hold an eighth of them at most)
 MAX_KEYS = 227 * 1024 // 4 - 3 * 128
 
 
@@ -87,28 +91,53 @@ def decode_attention_hd_plain(q: torch.Tensor, kT: torch.Tensor,
     return (out / w.sum(dim=-1)[..., None]).to(q.dtype)
 
 
-def _launch_hd(op, q, kT, vT, bias=None, n_keys=None):
+def _check_hd(q, kT, vT, bias=None, n_keys=None, variant=None):
+    """K11's shape rules and its variant, on either device: the plan (keys
+    a block, split), or None for ``"simt"``."""
+    if q.dim() != 3 or kT.dim() != 4 or vT.shape != kT.shape \
+            or tuple(kT.shape[:3]) != tuple(q.shape):
+        raise ValueError("decode_attention_hd shape mismatch")
+    b, h, dh, t = kT.shape
+    if bias is not None and tuple(bias.shape) != (b, t):
+        raise ValueError("bias must be (B, T)")
+    n = _keys(t, n_keys)
+    _check_keys(n, dh)
+    return attention_split(variant, b, h, n)
+
+
+def _launch_hd(op, q, kT, vT, bias=None, n_keys=None, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"split{s}"`` forces
+    the cluster kernel's split, ``"simt"`` the kernel it replaced."""
+    plan = _check_hd(q, kT, vT, bias, n_keys, variant)
     _build.require(q, "q", torch.bfloat16, 3)
     _build.require(kT, "kT", torch.bfloat16, 4)
     _build.require(vT, "vT", torch.bfloat16, 4)
-    b, h, dh = q.shape
-    t = kT.shape[-1]
-    if kT.shape != (b, h, dh, t) or vT.shape != kT.shape:
-        raise ValueError("decode_attention_hd shape mismatch")
     if bias is not None:
         _build.require(bias, "bias", torch.float32, 2)
-        if bias.shape != (b, t):
-            raise ValueError("bias must be (B, T)")
+    b, h, dh = q.shape
+    t = kT.shape[-1]
     n = _keys(t, n_keys)
-    _check_keys(n, dh)
+    if plan is not None and dh not in (16, 32, 64, 128):
+        raise ValueError(f"decode_attention_hd's cluster kernel takes head "
+                         f"dims 16, 32, 64 and 128, got {dh}")
     out = torch.empty_like(q)
-    fn = _build.bind("decode_attention_hd", "acai_decode_attention_hd",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    rc = fn(q.data_ptr(), kT.data_ptr(), vT.data_ptr(),
+    args = (q.data_ptr(), kT.data_ptr(), vT.data_ptr(),
             0 if bias is None else bias.data_ptr(), b, h, dh, t, n,
-            1.0 / math.sqrt(dh), out.data_ptr(), _build.stream_ptr())
-    op.launches += 1
+            1.0 / math.sqrt(dh))
+    types = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    if plan is None:
+        fn = _build.bind("decode_attention_hd", "acai_decode_attention_hd",
+                         types + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, out.data_ptr(), _build.stream_ptr())
+        op.launched("simt")
+    else:
+        chunk, split = plan
+        fn = _build.bind("decode_attention_hd",
+                         "acai_decode_attention_hd_cluster",
+                         types + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, chunk, split, out.data_ptr(), _build.stream_ptr())
+        op.launched(f"split{split}")
     _build.check(rc, op.name)
     return out
 
@@ -116,7 +145,7 @@ def _launch_hd(op, q, kT, vT, bias=None, n_keys=None):
 decode_attention_hd = _build.KernelOp(
     "decode_attention_hd", "acai_omr_tpu_torch/csrc/decode_attention_hd.cu",
     "acai_omr_tpu/ops/pallas_decode.py:77 (_kernel, pallas_call :382)",
-    _launch_hd, decode_attention_hd_plain)
+    _launch_hd, decode_attention_hd_plain, _check_hd)
 
 
 def decode_attention_hd_int8_plain(q: torch.Tensor, kT: torch.Tensor,

@@ -12,7 +12,11 @@ is eleven launches of three kernels:
     x   = K4(x, LIN(LIN(x, W1, b1, gelu_rounded), W2, b2))
 
 Compute-dtype caches: ATT = K2 ``decode_attention``
-(``csrc/decode_attention.cu``). int8 caches (the monolith's quantized mode):
+(``csrc/decode_attention.cu``): the keys of a (row, head) split across a
+thread-block cluster as :func:`decode_attention_plan` says, counted as
+``"split{s}"`` in ``KernelOp.variants``; ``variant="simt"`` forces the
+kernel it replaced (one block per (row, head)), kept as the yardstick and
+launched by no path. int8 caches (the monolith's quantized mode):
 ATT = K6 ``decode_attention_int8`` (``csrc/decode_attention_int8.cu``), which
 quantizes q/k/v per (row, head), appends the int8 rows and their scales, and
 attends with integer products and quantized softmax weights. LIN = K1
@@ -54,6 +58,7 @@ per-shard W8A8; W4A8 never runs there.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 
@@ -61,7 +66,7 @@ import torch
 
 from . import _build
 from .layernorm_kernel import add_layernorm
-from .linear_kernel import linear_bias_act
+from .linear_kernel import N_SMS, linear_bias_act
 from .quant_linear_kernel import (INT4_QMAX, INT8_QMAX, pack_k4, pack_k8_int4,
                                   quant4_linear_bias_act,
                                   quant_linear_bias_act)
@@ -71,6 +76,14 @@ Params = dict
 
 # K6 keeps one fp32 logit per key in shared memory (48 KB without opt-in)
 MAX_INT8_KEYS = 8192
+# K2 and K11: a block's keys are whole units of ATTN_UNIT; blocks a cluster
+# at most (a portable cluster); the shared memory a block's logits may take;
+# the blocks an SM and the units a block the plan aims at
+ATTN_UNIT = 16
+ATTN_MAX_SPLIT = 8
+ATTN_LOGIT_BYTES = 96 * 1024
+ATTN_BLOCKS_PER_SM = 2
+ATTN_BLOCK_UNITS = 32
 _MATS = ("w_qkv", "w_self_out", "w_cross_q", "w_cross_out", "w_ff1", "w_ff2")
 
 _ENABLED = os.environ.get("ACAI_MONOLITH_DECODE", "1") == "1"
@@ -147,6 +160,69 @@ def quantize_rows(x: torch.Tensor, scale_dtype=None):
     return q.to(torch.int8), scale
 
 
+def query_group(mem_group: int) -> int:
+    """Queries one cluster of K2 takes: the group of rows sharing a memory
+    row (``mem_group``) rounded up to 1, 2, 4 or 8; larger groups take
+    several clusters of 8."""
+    return next(g for g in (1, 2, 4, 8) if g >= min(mem_group, 8))
+
+
+def decode_attention_plan(rows: int, heads: int, n_keys: int,
+                          mem_group: int = 1) -> tuple[int, int]:
+    """(keys of a block's largest range, split) of K2 and K11.
+
+    One thread-block cluster of ``split`` blocks per (row, head), or per
+    (memory row, head, up to 8 of its ``mem_group`` queries); the keys are
+    U = ceil(n_keys / ATTN_UNIT) units and block r owns units
+    [r U / split, (r + 1) U / split): ranges in order, none empty (``n_keys``
+    0 takes one block of no keys). The split aims at about
+    ATTN_BLOCKS_PER_SM blocks an SM and at most ATTN_BLOCK_UNITS units a
+    block, as far as the units and a cluster of ATTN_MAX_SPLIT allow, so
+    clusters x split reaches the 132 SMs wherever it can; it takes at least
+    what the logits of a block in shared memory need (ATTN_LOGIT_BYTES) and
+    raises ValueError past 8 blocks' worth. Timed on an H100 at every split
+    (``chip_smoke.py --attn-splits``), this rule gave the fastest split or
+    one within 13 % of it at all 24 decode shapes; one block an SM, the rule
+    first tried, was up to 23 % slower at 4-16 rows."""
+    gq = query_group(mem_group)
+    clusters = rows // mem_group * -(-mem_group // gq) * heads
+    units = max(1, -(-n_keys // ATTN_UNIT))
+    most = ATTN_LOGIT_BYTES // (4 * gq) // ATTN_UNIT  # units a block holds
+    split = min(ATTN_MAX_SPLIT, units,
+                max(ATTN_BLOCKS_PER_SM * N_SMS // max(clusters, 1),
+                    -(-units // ATTN_BLOCK_UNITS), -(-units // most)))
+    return _split_keys(units, split, most, n_keys)
+
+
+def _split_keys(units: int, split: int, most: int, n_keys: int):
+    per = -(-units // split)
+    if per > most:
+        raise ValueError(f"{n_keys} keys do not fit the shared memory of "
+                         f"{split} blocks")
+    return per * ATTN_UNIT, split
+
+
+@functools.lru_cache(maxsize=4096)
+def attention_split(variant, rows: int, heads: int, n_keys: int,
+                    mem_group: int = 1):
+    """(keys of the largest range, split) of a K2 / K11 call: the plan's,
+    or ``variant`` ``"split{s}"`` forced (fewer blocks where the keys are
+    fewer units than s); None for ``"simt"``. Raises ValueError on an
+    unknown variant or a split whose blocks' logits do not fit. Cached: the
+    decode step asks for the same few shapes every step."""
+    if variant is None:
+        return decode_attention_plan(rows, heads, n_keys, mem_group)
+    if variant == "simt":
+        return None
+    s = variant[5:] if variant.startswith("split") else ""
+    if not (s.isdigit() and 1 <= int(s) <= ATTN_MAX_SPLIT):
+        raise ValueError(f"unknown variant {variant!r}: 'simt' or "
+                         f"'split1' .. 'split{ATTN_MAX_SPLIT}'")
+    units = max(1, -(-n_keys // ATTN_UNIT))
+    most = ATTN_LOGIT_BYTES // (4 * query_group(mem_group)) // ATTN_UNIT
+    return _split_keys(units, min(int(s), units), most, n_keys)
+
+
 def decode_attention_plain(q: torch.Tensor, k_layer: torch.Tensor,
                            v_layer: torch.Tensor, num_heads: int,
                            pos: int | None = None,
@@ -198,43 +274,71 @@ def decode_attention_plain(q: torch.Tensor, k_layer: torch.Tensor,
     return (out / denom[..., None]).reshape(b, e).to(q.dtype)
 
 
+def _check(q, k_layer, v_layer, num_heads, pos=None, bias=None,
+           mem_group=1, variant=None):
+    """K2's shape rules and its variant, on either device: the plan
+    (keys a block, split), or None for ``"simt"``."""
+    if q.dim() != 2 or k_layer.dim() != 3 or v_layer.shape != k_layer.shape:
+        raise ValueError("decode_attention shape mismatch")
+    bm, t, e = k_layer.shape
+    b = q.shape[0]
+    if mem_group < 1 or bm * mem_group != b or e % num_heads:
+        raise ValueError("decode_attention shape mismatch")
+    if pos is not None:
+        if q.shape[1] != 3 * e or bias is not None or not 0 <= pos < t \
+                or mem_group != 1:
+            raise ValueError("self mode needs (B, 3E) qkv, 0 <= pos < T, "
+                             "no bias, mem_group 1")
+    elif bias is None or q.shape[1] != e or tuple(bias.shape) != (bm, t):
+        raise ValueError("cross mode needs (B, E) q and (B/G, M) bias")
+    return attention_split(variant, b, num_heads, t if pos is None else pos,
+                           mem_group)
+
+
 def _launch(op, q, k_layer, v_layer, num_heads, pos=None, bias=None,
-            mem_group=1):
+            mem_group=1, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"split{s}"`` forces
+    the cluster kernel's split, ``"simt"`` the kernel it replaced."""
+    plan = _check(q, k_layer, v_layer, num_heads, pos, bias, mem_group,
+                  variant)
     _build.require(q, "q", torch.bfloat16, 2)
     _build.require(k_layer, "k_layer", torch.bfloat16, 3)
     _build.require(v_layer, "v_layer", torch.bfloat16, 3)
     bm, t, e = k_layer.shape
     b = q.shape[0]
     dh = e // num_heads
-    if v_layer.shape != k_layer.shape or bm * mem_group != b \
-            or dh * num_heads != e or dh not in (32, 64, 128):
-        raise ValueError("decode_attention shape mismatch")
+    if dh not in (32, 64, 128):
+        raise ValueError("decode_attention shape mismatch: head dim "
+                         f"{dh} is not 32, 64 or 128")
+    if k_layer.data_ptr() % 16 or v_layer.data_ptr() % 16:
+        raise ValueError("decode_attention needs 16-byte aligned caches")
     fresh = pos is not None
     if fresh:
-        if q.shape[1] != 3 * e or bias is not None or not 0 <= pos < t \
-                or mem_group != 1:
-            raise ValueError("self mode needs (B, 3E) qkv, 0 <= pos < T, "
-                             "no bias, mem_group 1")
         k_new, v_new, n_keys, bias_ptr = (q.data_ptr() + 2 * e,
                                           q.data_ptr() + 4 * e, pos, 0)
     else:
         _build.require(bias, "bias", torch.float32, 2)
-        if q.shape[1] != e or bias.shape != (bm, t):
-            raise ValueError("cross mode needs (B, E) q and (B/G, M) bias")
         k_new = v_new = 0
         n_keys, bias_ptr = t, bias.data_ptr()
     out = torch.empty((b, e), dtype=torch.bfloat16, device=q.device)
-    fn = _build.bind("decode_attention", "acai_decode_attention",
-                     [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_float,
-                                             ctypes.c_void_p,
-                                             ctypes.c_void_p])
-    rc = fn(q.data_ptr(), q.shape[1], k_new, v_new, k_layer.data_ptr(),
+    args = (q.data_ptr(), q.shape[1], k_new, v_new, k_layer.data_ptr(),
             v_layer.data_ptr(), b, num_heads, dh, t, n_keys, bias_ptr,
-            -1 if pos is None else pos, mem_group, 1.0 / math.sqrt(dh),
-            out.data_ptr(), _build.stream_ptr())
-    op.launches += 1
+            -1 if pos is None else pos, mem_group, 1.0 / math.sqrt(dh))
+    types = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_float]
+    if plan is None:
+        fn = _build.bind("decode_attention", "acai_decode_attention",
+                         types + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, out.data_ptr(), _build.stream_ptr())
+        op.launched("simt")
+    else:
+        chunk, split = plan
+        fn = _build.bind("decode_attention", "acai_decode_attention_cluster",
+                         types + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, chunk, split, out.data_ptr(), _build.stream_ptr())
+        op.launched(f"split{split}")
     _build.check(rc, op.name)
     return out
 
@@ -243,7 +347,7 @@ decode_attention = _build.KernelOp(
     "decode_attention", "acai_omr_tpu_torch/csrc/decode_attention.cu",
     "acai_omr_tpu/ops/pallas_monolith.py:825 (_attend_all, self and cross "
     "sites of _kernel :997) and :932 (_attend_shared, bf16 branch)",
-    _launch, decode_attention_plain)
+    _launch, decode_attention_plain, _check)
 
 
 def decode_attention_int8_plain(q: torch.Tensor, k_layer: torch.Tensor,

@@ -16,7 +16,11 @@ Phases, all in one process; any failure exits non-zero:
    self_attention_append_int8 at pos 300 and 0; K15 tp_allreduce at tp = 2
    and 4, B = 32 and 128, E = 1024, bf16 and fp32 out, bit for bit, then
    1,000 back-to-back calls with fresh inputs, every one bit-equal to its
-   twin) against its plain PyTorch
+   twin; K2 also at 4 rows and B = 1 (self), 4 and 8 rows over M = 1,024
+   (cross) and GRPO's 128 rows at G = 8, K11 also at 4 rows, each K2 / K11
+   case timed in turns with the simt kernel it replaced and from HBM beside
+   SDPA from HBM, two runs bit-equal, split 1 within the tolerance, keys
+   past n_keys set to NaN changing no bit) against its plain PyTorch
    twin at the flagship shapes the paths give it, and time kernel, twin, a
    PyTorch library call computing the same function where there is one, the
    card's bound, and the host time of one wrapper call (the decode step is
@@ -136,13 +140,16 @@ Phases, all in one process; any failure exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
-decode steps, over two training microbatches and over two MAE updates
-(device time by kernel, device busy share); ``--report PATH``
+decode steps of each cache mode and of the per-op bf16 step with K11 on
+(K2's and K11's device ms a step among them), over two training
+microbatches and over two MAE updates (device time by kernel, device busy
+share); ``--report PATH``
 writes every number of the run as JSON to PATH; ``--k7-bits`` prints only
 the hashes of K7's outputs at its training sites (``k7_bits``, what
 ``K7_BITS`` records) and exits; ``--skinny-splits`` times only the skinny
 kernel at every split of K at the decode shapes (``skinny_splits``) and
-exits.
+exits; ``--attn-splits`` times only K2's and K11's cluster kernels at every
+split of the keys at the decode shapes (``attn_splits``) and exits.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the port's package is not beside this script.
@@ -375,7 +382,9 @@ def variant_failures(name: str, r: dict) -> list:
     ("wmma", "partial"); every K3 encoder_attention on its Hopper kernel
     ("sm90_dh{Dh}"); every linear_wgrad on the core ("sm90_splits{s}"),
     every linear_dgrad on the core ("sm90") and every K7 attention_bwd on
-    its Hopper kernels ("sm90_dh{Dh}")."""
+    its Hopper kernels ("sm90_dh{Dh}"); every K2 decode_attention and K11
+    decode_attention_hd on its cluster kernel ("split{s}"), never the simt
+    kernel it replaced."""
     k1 = r["variants"].get("linear_bias_act", {})
     k3 = r["variants"].get("encoder_attention", {})
     wgrad = r["variants"].get("linear_wgrad", {})
@@ -393,6 +402,11 @@ def variant_failures(name: str, r: dict) -> list:
         out.append(f"{name}: linear_dgrad off the core {dgrad}")
     if any(not v.startswith("sm90_dh") for v in k7):
         out.append(f"{name}: attention_bwd off its Hopper kernels {k7}")
+    for op in ("decode_attention", "decode_attention_hd"):
+        by = r["variants"].get(op, {})
+        if any(not v.startswith("split") for v in by) \
+                or sum(by.values()) != r["launches"].get(op, 0):
+            out.append(f"{name}: {op} off its cluster kernel {by}")
     if name in ("train_tf", "pretrain_mae"):
         if set(k1) != {"sm90"}:
             out.append(f"{name}: K1 off the core {k1}")
@@ -407,9 +421,10 @@ def variant_failures(name: str, r: dict) -> list:
 
 
 def variant_line(name: str, r: dict) -> str:
-    """The launches by variant of a path's products and attention backward."""
+    """The launches by variant of a path's products and attentions."""
     keys = ("linear_bias_act", "encoder_attention", "linear_wgrad",
-            "linear_dgrad", "attention_bwd")
+            "linear_dgrad", "attention_bwd", "decode_attention",
+            "decode_attention_hd")
     return f"[path {name}] by variant " + json.dumps(
         {k: r["variants"].get(k, {}) for k in keys})
 
@@ -563,78 +578,122 @@ def check_kernels(torch, F, dev):
                paths=list(TP_PATHS), exact=exact, old_ms=old,
                variant="skinny_partial" if partial else "skinny")
 
-    # K2 self: B=32, T=512, pos=300, E=1024, H=16
+    # K2 (the cluster kernel: keys split across a thread-block cluster) at
+    # the rows the paths give it: self at pos 300 of T = 512 at B = 32, at
+    # the 4 rows greedy_bf16 runs after compaction and at B = 1 (streamed);
+    # cross over ragged memory at B = 32 (M = 512) and at 4 and 8 rows
+    # (M = 1,024); grouped at B = 32, G = 4 (beams) and at GRPO's 128 rows,
+    # G = 8. Each against its twin; timed in turns with the simt kernel it
+    # replaced (held to the twin too); from HBM beside SDPA from HBM; two
+    # runs bit-equal; split 1 within the tolerance of the plan's split. Bound:
+    # the cache rows read once (once per group), only attended keys.
     bsz, t, pos, e, h = 32, 512, 300, 1024, 16
     dh = e // h
+    nan_failures = []
+
+    def k2_case(case, q_in, caches, kw, lib, lib_args, nbytes, nops,
+                paths=None):
+        twin = [a.clone() for a in caches]
+        call = lambda v=None: decode_attention(q_in, *caches, h, variant=v,
+                                               **kw)
+        out_k = call()
+        out_p = decode_attention.plain(q_in, *twin, h, **kw)
+        tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
+        near = lambda a, b_: (a.float() - b_.float()).abs().max().item() \
+            <= tol
+        exact = (all(torch.equal(a, b_) for a, b_ in zip(caches, twin))
+                 and torch.equal(out_k, call()) and near(call("simt"), out_p)
+                 and near(call("split1"), out_k))
+        t_new, old = turns_ms(torch, call, lambda: call("simt"))
+        q_l, *kv_l = lib_args
+        record(decode_attention, case, out_k, out_p, tol,
+               (t_new, host_us(torch, call)),
+               time_ms(torch, lambda: decode_attention.plain(q_in, *twin, h,
+                                                             **kw)),
+               time_ms(torch, lambda: lib(q_l, *kv_l)), nbytes, nops,
+               paths=paths, exact=exact, old_ms=old,
+               cold=cold_ms(torch, lambda *c: decode_attention(
+                   q_in, *c, h, **kw), list(caches)),
+               lib_cold=cold_ms(torch, lambda *c: lib(q_l, *c), kv_l))
+        return out_k
+
+    heads = lambda a, n: a.view(a.shape[0], n, h, dh).transpose(1, 2)
+    sdpa = F.scaled_dot_product_attention
+
+    def self_case(qkv_, kc_, vc_, paths=None):
+        b_ = qkv_.shape[0]
+        lib_args = (heads(qkv_[:, :e].contiguous(), 1),
+                    *(heads(a[:, : pos + 1].contiguous(), pos + 1)
+                      for a in (kc_, vc_)))
+        return k2_case(f"self B={b_} T={t} pos={pos} E={e} H={h}", qkv_,
+                       (kc_, vc_), {"pos": pos}, sdpa, lib_args,
+                       2 * (b_ * 3 * e + 2 * b_ * pos * e + 2 * b_ * e
+                            + b_ * e), 4 * b_ * e * (pos + 1), paths)
+
+    def cross_case(qc_, mk_, mv_, valid_, grp_=1, paths=None):
+        b_, m_ = qc_.shape[0], mk_.shape[1]
+        bu_ = b_ // grp_
+        bias_ = torch.where(valid_, 0.0, -1e9).float().contiguous()
+        n_val = int(valid_.sum())  # padded memory rows add nothing
+        mask = valid_[:, None, None, :]
+        q_l = qc_.view(bu_, grp_, h, dh).transpose(1, 2)
+        lib = lambda q_, k_, v_: sdpa(q_, k_, v_, attn_mask=mask)
+        name = "cross" if grp_ == 1 else f"cross grouped G={grp_}"
+        return k2_case(f"{name} B={b_} M={m_} E={e} H={h}", qc_, (mk_, mv_),
+                       {"bias": bias_, "mem_group": grp_}, lib,
+                       (q_l, heads(mk_, m_), heads(mv_, m_)),
+                       2 * (2 * b_ * e + 2 * n_val * e) + 4 * bu_ * m_,
+                       4 * e * n_val * grp_, paths)
+
     qkv = randn(bsz, 3 * e)
     kc, vc = randn(bsz, t, e), randn(bsz, t, e)
-    kc_p, vc_p = kc.clone(), vc.clone()
-    out_k = decode_attention(qkv, kc, vc, h, pos=pos)
-    out_p = decode_attention.plain(qkv, kc_p, vc_p, h, pos=pos)
-    assert torch.equal(kc[:, : pos + 1], kc_p[:, : pos + 1]), "K2 append"
-    assert torch.equal(vc[:, : pos + 1], vc_p[:, : pos + 1]), "K2 append"
-    heads = lambda a, n: a.view(bsz, n, h, dh).transpose(1, 2)
-    q_l = heads(qkv[:, :e].contiguous(), 1)
-    k_l = heads(kc[:, : pos + 1].contiguous(), pos + 1)
-    v_l = heads(vc[:, : pos + 1].contiguous(), pos + 1)
-    record(decode_attention, f"self B={bsz} T={t} pos={pos} E={e} H={h}",
-           out_k, out_p, 1e-2,
-           kernel_times(lambda: decode_attention(qkv, kc, vc, h, pos=pos)),
-           time_ms(torch, lambda: decode_attention.plain(qkv, kc_p, vc_p, h,
-                                                         pos=pos)),
-           time_ms(torch, lambda: F.scaled_dot_product_attention(q_l, k_l,
-                                                                 v_l)),
-           2 * (bsz * 3 * e + 2 * bsz * pos * e + 2 * bsz * e + bsz * e),
-           4 * bsz * e * (pos + 1))
-
-    # K2 cross: M=512 with ragged padding
+    self_case(qkv, kc, vc)
     m_len = 512
     qc = randn(bsz, e)
     mk, mv = randn(bsz, m_len, e), randn(bsz, m_len, e)
     lens = torch.randint(64, m_len + 1, (bsz,), generator=g, device=dev)
     valid = torch.arange(m_len, device=dev)[None, :] < lens[:, None]
     mbias = torch.where(valid, 0.0, -1e9).float().contiguous()
-    out_k = decode_attention(qc, mk, mv, h, bias=mbias)
-    out_p = decode_attention.plain(qc, mk, mv, h, bias=mbias)
-    mask4 = valid[:, None, None, :]
-    n_valid = int(valid.sum())  # padded memory rows add nothing to the output
-    qc_l, mk_l, mv_l = heads(qc, 1), heads(mk, m_len), heads(mv, m_len)
-    record(decode_attention, f"cross B={bsz} M={m_len} E={e} H={h}",
-           out_k, out_p, 1e-2,
-           kernel_times(lambda: decode_attention(qc, mk, mv, h, bias=mbias)),
-           time_ms(torch, lambda: decode_attention.plain(qc, mk, mv, h,
-                                                         bias=mbias)),
-           time_ms(torch, lambda: F.scaled_dot_product_attention(
-               qc_l, mk_l, mv_l, attn_mask=mask4)),
-           2 * (2 * bsz * e + 2 * n_valid * e) + 4 * bsz * m_len,
-           4 * e * n_valid)
-
-    # K2 grouped cross: 8 memories shared by G=4 consecutive rows each. The
-    # bound reads each memory once per group; the library call is SDPA with
-    # the G rows of a group as its query axis
+    n_valid = int(valid.sum())
+    cross_case(qc, mk, mv, valid)
+    # grouped: 8 memories shared by G = 4 consecutive rows each
     grp = 4
     bu = bsz // grp
-    mk_g, mv_g, valid_g = mk[:bu].contiguous(), mv[:bu].contiguous(), valid[:bu]
     mbias_g = mbias[:bu].contiguous()
-    n_valid_g = int(valid_g.sum())
-    out_k = decode_attention(qc, mk_g, mv_g, h, bias=mbias_g, mem_group=grp)
-    out_p = decode_attention.plain(qc, mk_g, mv_g, h, bias=mbias_g,
-                                   mem_group=grp)
-    q_g = qc.view(bu, grp, h, dh).transpose(1, 2)
-    mk_gl, mv_gl = (a.view(bu, m_len, h, dh).transpose(1, 2)
-                    for a in (mk_g, mv_g))
-    mask_g = valid_g[:, None, None, :]
-    record(decode_attention, f"cross grouped B={bsz} G={grp} M={m_len} E={e} "
-           f"H={h}", out_k, out_p, 1e-2,
-           kernel_times(lambda: decode_attention(qc, mk_g, mv_g, h,
-                                                   bias=mbias_g,
-                                                   mem_group=grp)),
-           time_ms(torch, lambda: decode_attention.plain(
-               qc, mk_g, mv_g, h, bias=mbias_g, mem_group=grp)),
-           time_ms(torch, lambda: F.scaled_dot_product_attention(
-               q_g, mk_gl, mv_gl, attn_mask=mask_g)),
-           2 * (2 * bsz * e + 2 * n_valid_g * e) + 4 * bu * m_len,
-           4 * e * n_valid_g * grp, paths=["beam_bf16"])
+    n_valid_g = int(valid[:bu].sum())
+    cross_case(qc, mk[:bu].contiguous(), mv[:bu].contiguous(), valid[:bu],
+               grp, ["beam_bf16"])
+
+    # the rows the paths run most (their own generator: the cases above and
+    # K6's below keep their inputs)
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    randn2 = lambda *s_: torch.randn(*s_, generator=g2, device=dev).to(bf)
+    for rows, paths in ((4, ["greedy_bf16"]), (1, ["streamed"])):
+        qkv_r = randn2(rows, 3 * e)
+        kc_r, vc_r = randn2(rows, t, e), randn2(rows, t, e)
+        out_r = self_case(qkv_r, kc_r, vc_r, paths)
+        if rows == 4:  # the keys at and past pos carry NaN: nothing changes
+            kc_n, vc_n = kc_r.clone(), vc_r.clone()
+            kc_n[:, pos:], vc_n[:, pos:] = float("nan"), float("nan")
+            nan_ok = torch.equal(decode_attention(qkv_r, kc_n, vc_n, h,
+                                                  pos=pos), out_r)
+            print(f"[kernel] decode_attention[self B=4 NaN past pos] equal "
+                  f"to the finite case: {nan_ok}", flush=True)
+            nan_failures.extend([] if nan_ok else ["decode_attention NaN"])
+    m_big = 1024
+    mk_r, mv_r = randn2(8, m_big, e), randn2(8, m_big, e)
+    lens_r = torch.randint(128, m_big + 1, (8,), generator=g2, device=dev)
+    valid_r = torch.arange(m_big, device=dev)[None, :] < lens_r[:, None]
+    qc_r = randn2(8, e)
+    for rows in (4, 8):
+        cross_case(qc_r[:rows].contiguous(), mk_r[:rows].contiguous(),
+                   mv_r[:rows].contiguous(), valid_r[:rows], 1,
+                   ["greedy_bf16"])
+    # GRPO's rollouts: 16 images x 8 rollouts over their memories
+    lens_g = torch.randint(128, m_big + 1, (16,), generator=g2, device=dev)
+    valid_gr = torch.arange(m_big, device=dev)[None, :] < lens_g[:, None]
+    cross_case(randn2(128, e), randn2(16, m_big, e), randn2(16, m_big, e),
+               valid_gr, 8, ["train_grpo"])
 
     # K5: the W8A8 decode products (qkv, ff1 + GELU, ff2). Bound: the int8
     # weight bytes. library_ms is torch._int_mm on pre-quantized rows: the
@@ -814,16 +873,18 @@ def check_kernels(torch, F, dev):
                                                           1e-5)),
                time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
                2 * 3 * rows * e + 8 * e, 8 * rows * e)
-    decode_hd_cases(torch, F, randn, record, kernel_times, dev)
+    nan_failures += decode_hd_cases(torch, F, randn, record, kernel_times,
+                                    dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
     # the resource rows of the products' and the attentions' kernels: the
-    # Hopper kernels (sm90, skinny) beside the wmma kernels they replace; no
-    # Hopper kernel of dgrad, K3 or K7 and no skinny kernel of K1 may use
+    # Hopper kernels (sm90, skinny, K2's and K11's cluster kernels) beside
+    # the wmma / simt kernels they replace; no Hopper kernel of dgrad, K3 or
+    # K7, no skinny kernel of K1 and no cluster kernel of K2 or K11 may use
     # local memory (a spill)
     from acai_omr_tpu_torch.ops import _build
     spills = []
     for name in ("linear_bias_act", "encoder_attention", "linear_bwd",
-                 "attention_bwd"):
+                 "attention_bwd", "decode_attention", "decode_attention_hd"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
@@ -833,13 +894,13 @@ def check_kernels(torch, F, dev):
             hopper = (r["op"] in ("linear_dgrad", "encoder_attention",
                                   "attention_bwd")
                       and r["variant"].startswith("sm90")) \
-                or r["variant"] == "skinny"
+                or r["variant"] in ("skinny", "split")
             if hopper and r["local_bytes"]:
                 spills.append(f"{r['op']} {r['kernel']}")
     k7_bad = k7_bit_failures(torch)
     race_bad = tp_allreduce_cases(torch, randn, record, kernel_times, dev)
     probe_cases(torch, F, record, kernel_times, dev)
-    return cases, race_bad, spills, k7_bad
+    return cases, race_bad, spills, k7_bad + nan_failures
 
 
 # K7's sites at the training shapes, (name, B, Tq, Tk, E, H, causal,
@@ -937,6 +998,78 @@ def skinny_splits(torch) -> list:
               + json.dumps({s_: round(t, 4) for s_, t in times.items()}),
               flush=True)
     return rows
+
+
+def attn_splits(torch) -> list:
+    """K2's and K11's cluster kernels at every split (1-8, forced through
+    ``variant="split{s}"``) at the decode shapes the paths run (1-32 rows,
+    beams, GRPO's rollouts), each from HBM (rotating copies of the caches /
+    memory; two readings, the lesser kept), beside the plan's split: how far
+    ``decode_attention_plan`` is from the fastest split."""
+    from acai_omr_tpu_torch.ops import decode_kernel as dk
+    from acai_omr_tpu_torch.ops.decode_hd_kernel import decode_attention_hd
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    randn = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(
+        torch.bfloat16)
+    e, h, t, pos = 1024, 16, 512, 300
+    dh = e // h
+
+    def ragged(rows, m):
+        lens = torch.randint(m // 4, m + 1, (rows,), generator=g, device=dev)
+        return torch.where(torch.arange(m, device=dev)[None] < lens[:, None],
+                           0.0, -1e9).float().contiguous()
+
+    def k2(q, kw):
+        return lambda k_, v_, v: dk.decode_attention(q, k_, v_, h, variant=v,
+                                                     **kw)
+
+    def k11(q, bias, kw):
+        return lambda k_, v_, v: decode_attention_hd(q, k_, v_, bias,
+                                                     variant=v, **kw)
+
+    cases = []  # (name, rows, keys, group, call(k, v, variant), [k, v])
+    for p_at, rows in ((300, 1), (300, 2), (300, 4), (300, 8), (300, 16),
+                       (300, 32), (100, 4), (100, 8), (500, 4)):  # K2 self
+        cases.append((f"decode_attention self B={rows} pos={p_at}", rows,
+                      p_at, 1, k2(randn(rows, 3 * e), {"pos": p_at}),
+                      [randn(rows, t, e), randn(rows, t, e)]))
+    for rows, m, grp in ((1, 1024, 1), (4, 1024, 1), (8, 1024, 1),
+                         (16, 1024, 1), (8, 512, 1), (32, 512, 1),
+                         (16, 512, 4), (64, 1024, 8),
+                         (128, 1024, 8)):  # K2 cross and grouped
+        bu = rows // grp
+        cases.append((f"decode_attention cross B={rows} G={grp} M={m}", rows,
+                      m, grp, k2(randn(rows, e), {"bias": ragged(bu, m),
+                                                  "mem_group": grp}),
+                      [randn(bu, m, e), randn(bu, m, e)]))
+    for rows in (4, 8, 32):  # K11 self and cross
+        cases.append((f"decode_attention_hd self B={rows} pos={pos}", rows,
+                      pos + 1, 1, k11(randn(rows, h, dh), None,
+                                      {"n_keys": pos + 1}),
+                      [randn(rows, h, dh, t), randn(rows, h, dh, t)]))
+        cases.append((f"decode_attention_hd cross B={rows} M=1024", rows,
+                      1024, 1, k11(randn(rows, h, dh), ragged(rows, 1024), {}),
+                      [randn(rows, h, dh, 1024), randn(rows, h, dh, 1024)]))
+    out = []
+    for name, rows, n_keys, grp, fn, kv in cases:
+        # each split twice, in rising then falling order; the lesser reading
+        times = {}
+        order = list(range(1, dk.ATTN_MAX_SPLIT + 1))
+        for s_ in order + order[::-1]:
+            ms = cold_ms(torch, lambda k_, v_, v=f"split{s_}": fn(k_, v_, v),
+                         kv)
+            times[s_] = min(times.get(s_, ms), ms)
+        plan = dk.decode_attention_plan(rows, h, n_keys, grp)[1]
+        best = min(times, key=times.get)
+        out.append({"case": name, "plan_split": plan,
+                    "plan_ms": times[plan], "best_split": best,
+                    "best_ms": times[best], "ms_by_split": times})
+        print(f"[attn splits] {name} plan split {plan} {times[plan]:.4f} ms, "
+              f"best split {best} {times[best]:.4f} ms (from HBM); by split "
+              + json.dumps({s_: round(t_, 4) for s_, t_ in times.items()}),
+              flush=True)
+    return out
 
 
 def k7_bit_failures(torch) -> list:
@@ -1403,37 +1536,79 @@ def decode_hd_cases(torch, F, randn, record, kernel_times, dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     bsz, h, dh, t, pos, m_len, nl, layer = 32, 16, 64, 512, 300, 1024, 12, 7
     e = h * dh
-    q = randn(bsz, h, dh)
-    kT, vT = randn(bsz, h, dh, t), randn(bsz, h, dh, t)
-    n = pos + 1
-    ql = q[:, :, None, :]
-    kl, vl = (a[..., :n].transpose(-1, -2).contiguous() for a in (kT, vT))
-    call = lambda: decode_attention_hd(q, kT, vT, None, n_keys=n)
-    record(decode_attention_hd, f"self B={bsz} H={h} Dh={dh} T={t} pos={pos}",
-           call(), decode_attention_hd.plain(q, kT, vT, None, n_keys=n), 1e-2,
-           kernel_times(call),
-           time_ms(torch, lambda: decode_attention_hd.plain(q, kT, vT, None,
-                                                            n_keys=n)),
-           time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl)),
-           2 * (2 * bsz * e + 2 * bsz * e * n), 4 * bsz * e * n,
-           paths=["decode_hd_bf16"])
+    sdpa = F.scaled_dot_product_attention
+    failures = []
 
+    def hd_case(case, q_, k_, v_, bias_, n_, lib, nbytes, nops):
+        """K11's cluster kernel against its twin, timed in turns with the
+        simt kernel (held to the twin too), from HBM beside SDPA from HBM
+        (on copies of the time-major K / V it reads), two runs bit-equal,
+        split 1 within the tolerance of the plan's split."""
+        call = lambda v=None: decode_attention_hd(q_, k_, v_, bias_,
+                                                  n_keys=n_, variant=v)
+        out_k = call()
+        out_p = decode_attention_hd.plain(q_, k_, v_, bias_, n_keys=n_)
+        tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
+        near = lambda a, b_: (a.float() - b_.float()).abs().max().item() \
+            <= tol
+        exact = (torch.equal(out_k, call()) and near(call("simt"), out_p)
+                 and near(call("split1"), out_k))
+        t_new, old = turns_ms(torch, call, lambda: call("simt"))
+        kl, vl = (a[..., :n_].transpose(-1, -2).contiguous()
+                  for a in (k_, v_))
+        record(decode_attention_hd, case, out_k, out_p, tol,
+               (t_new, host_us(torch, call)),
+               time_ms(torch, lambda: decode_attention_hd.plain(
+                   q_, k_, v_, bias_, n_keys=n_)),
+               time_ms(torch, lambda: lib(kl, vl)), nbytes, nops,
+               paths=["decode_hd_bf16"], exact=exact, old_ms=old,
+               cold=cold_ms(torch, lambda k2, v2: decode_attention_hd(
+                   q_, k2, v2, bias_, n_keys=n_), [k_, v_]),
+               lib_cold=cold_ms(torch, lib, [kl, vl]))
+        return out_k
+
+    def self_hd(q_, k_, v_):
+        b_ = q_.shape[0]
+        ql_ = q_[:, :, None, :]
+        out = hd_case(f"self B={b_} H={h} Dh={dh} T={t} pos={pos}", q_, k_,
+                      v_, None, pos + 1, lambda k2, v2: sdpa(ql_, k2, v2),
+                      2 * (2 * b_ * e + 2 * b_ * e * (pos + 1)),
+                      4 * b_ * e * (pos + 1))
+        if b_ == 4:  # the keys past n_keys carry NaN: nothing changes
+            k_n, v_n = k_.clone(), v_.clone()
+            k_n[..., pos + 1:], v_n[..., pos + 1:] = (float("nan"),
+                                                      float("nan"))
+            ok = torch.equal(decode_attention_hd(q_, k_n, v_n, None,
+                                                 n_keys=pos + 1), out)
+            print(f"[kernel] decode_attention_hd[self B=4 NaN past n_keys] "
+                  f"equal to the finite case: {ok}", flush=True)
+            failures.extend([] if ok else ["decode_attention_hd NaN"])
+
+    def cross_hd(q_, mk_, mv_, valid_):
+        b_ = q_.shape[0]
+        bias_ = torch.where(valid_, 0.0, -1e9).float().contiguous()
+        n_val = int(valid_.sum())
+        ql_, mask4 = q_[:, :, None, :], valid_[:, None, None, :]
+        hd_case(f"cross B={b_} H={h} Dh={dh} M={m_len}", q_, mk_, mv_, bias_,
+                None, lambda k2, v2: sdpa(ql_, k2, v2, attn_mask=mask4),
+                2 * (2 * b_ * e + 2 * n_val * e) + 4 * b_ * m_len,
+                4 * e * n_val)
+        return bias_, n_val
+
+    q = randn(bsz, h, dh)
+    self_hd(q, randn(bsz, h, dh, t), randn(bsz, h, dh, t))
     mk, mv = randn(bsz, h, dh, m_len), randn(bsz, h, dh, m_len)
     lens = torch.randint(128, m_len + 1, (bsz,), generator=g, device=dev)
     valid = torch.arange(m_len, device=dev)[None, :] < lens[:, None]
-    mbias = torch.where(valid, 0.0, -1e9).float().contiguous()
-    n_valid = int(valid.sum())
-    mkl, mvl = (a.transpose(-1, -2).contiguous() for a in (mk, mv))
-    mask4 = valid[:, None, None, :]
-    call = lambda: decode_attention_hd(q, mk, mv, mbias)
-    record(decode_attention_hd, f"cross B={bsz} H={h} Dh={dh} M={m_len}",
-           call(), decode_attention_hd.plain(q, mk, mv, mbias), 1e-2,
-           kernel_times(call),
-           time_ms(torch, lambda: decode_attention_hd.plain(q, mk, mv, mbias)),
-           time_ms(torch, lambda: F.scaled_dot_product_attention(
-               ql, mkl, mvl, attn_mask=mask4)),
-           2 * (2 * bsz * e + 2 * n_valid * e) + 4 * bsz * m_len,
-           4 * e * n_valid, paths=["decode_hd_bf16"])
+    mbias, n_valid = cross_hd(q, mk, mv, valid)
+    # the 4 rows the per-op step runs after compaction (own generator: the
+    # cases around keep their inputs)
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 6)
+    randn2 = lambda *s_: torch.randn(*s_, generator=g2, device=dev).to(
+        torch.bfloat16)
+    self_hd(randn2(4, h, dh), randn2(4, h, dh, t), randn2(4, h, dh, t))
+    cross_hd(randn2(4, h, dh), randn2(4, h, dh, m_len),
+             randn2(4, h, dh, m_len), valid[:4])
 
     def int8_planes(*lead_shape):
         c = torch.randint(-127, 128, lead_shape, generator=g, device=dev,
@@ -1487,6 +1662,7 @@ def decode_hd_cases(torch, F, randn, record, kernel_times, dev):
                + 2 * bsz * (e + 4 * h), 4 * bsz * e * (p_at + 1),
                peak=PEAK_INT8_OP_PER_S, paths=["decode_hd_int8"],
                exact=exact)
+    return failures
 
 
 def training_cases(torch, F, randn, record, kernel_times, dev):
@@ -2381,7 +2557,37 @@ def compare_paths(torch, np, model, imgs, profile=False):
             out[key]["profile"] = profile_steps(
                 torch, lambda: _greedy_step(decode_lib, dec, dcfg, mono, state,
                                             mem, dt), warmup=8, steps=32)
+    if profile:
+        # K2's device ms a bf16 step; K11's a per-op bf16 step (K11 on, the
+        # lane-major caches and memory of decode_hd_bf16)
+        from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
+        out["bf16"]["k2_device_ms_per_step"] = kernel_ms(
+            out["bf16"]["profile"], "attend_cluster", "decode_attention_kernel")
+        before = hd._ENABLED
+        hd.set_enabled(True)
+        try:
+            mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt,
+                                                  dt, layout="hd")
+            state = decode_lib.init_decode_state(
+                dcfg, b, CMP_STEPS + 1, CMP_STEPS, dt, model.device,
+                monolith=False)
+            prof = profile_steps(
+                torch, lambda: _greedy_step(decode_lib, dec, dcfg, None,
+                                            state, mem, dt), warmup=8,
+                steps=32)
+        finally:
+            hd.set_enabled(before)
+        out["per_op_bf16"] = {"profile": prof, "k11_device_ms_per_step":
+                              kernel_ms(prof, "attend_hd_cluster",
+                                        "decode_attention_hd_kernel")}
     return out
+
+
+def kernel_ms(prof: dict, *names) -> float:
+    """Device ms a step of the kernels whose names contain one of
+    ``names``, from a ``profile_steps`` window."""
+    return sum(r["ms_per_step"] for r in prof["all"]
+               if any(n in r["kernel"] for n in names))
 
 
 def _greedy_step(decode_lib, dec, dcfg, mono, state, mem, dt):
@@ -2415,11 +2621,12 @@ def profile_steps(torch, step, warmup: int, steps: int) -> dict:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    every = [{"kernel": k[:80], "ms_per_step": us / steps / 1e3,
+              "calls_per_step": c / steps} for us, k, c in rows]
     return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
             "device_ms_per_step": busy / steps / 1e3,
-            "device_busy_share": busy / wall_us,
-            "top": [{"kernel": k[:80], "ms_per_step": us / steps / 1e3,
-                     "calls_per_step": c / steps} for us, k, c in rows[:12]]}
+            "device_busy_share": busy / wall_us, "top": every[:12],
+            "all": every}
 
 
 def training_set(tokenizer, n: int, seed: int):
@@ -2931,6 +3138,10 @@ def main() -> int:
         print(card_line())
         skinny_splits(torch)
         return 0
+    if "--attn-splits" in sys.argv[1:]:  # K2's and K11's splits alone
+        print(card_line())
+        attn_splits(torch)
+        return 0
     import numpy as np
     import torch.nn.functional as F
 
@@ -3150,6 +3361,18 @@ def main() -> int:
     cmp = compare_paths(torch, np, model, imgs,
                         profile="--profile" in sys.argv[1:])
     print(f"[compare] {json.dumps(cmp)}", flush=True)
+    if "--profile" in sys.argv[1:]:
+        print(f"[profile] K2 device ms a bf16 step "
+              f"{cmp['bf16']['k2_device_ms_per_step']:.4f} of "
+              f"{cmp['bf16']['profile']['device_ms_per_step']:.4f}; K11 "
+              f"device ms a per-op bf16 step "
+              f"{cmp['per_op_bf16']['k11_device_ms_per_step']:.4f} of "
+              f"{cmp['per_op_bf16']['profile']['device_ms_per_step']:.4f}",
+              flush=True)
+    # one device kernel a wrapper call: 11 a layer (six K1, two K2, three K4)
+    if cmp["bf16"]["device_kernels_per_step"] != 11 * n_layers:
+        failures.append(f"bf16 step: {cmp['bf16']['device_kernels_per_step']}"
+                        f" device kernels, not {11 * n_layers}")
 
     # the training path and its comparison with the plain twins
     import tempfile

@@ -97,6 +97,82 @@ def test_decode_attention_cross_grouped(dev):
         bias=bias[rep].contiguous()))
 
 
+def _k2_case(dev, mode, dh, heads=4, t=300, pos=200, seed=6):
+    """Inputs of one K2 call: self mode (appends at pos), cross over ragged
+    memory, or grouped memory (G rows a memory row)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e = heads * dh
+    if mode == "self":
+        b, grp = 3, 1
+        q = _randn(g, b, 3 * e, dev=dev)
+        kw = {"pos": pos}
+    else:
+        grp = {"cross": 1, "grouped3": 3, "grouped8": 8}[mode]
+        b = 2 * grp if grp > 1 else 3
+        q = _randn(g, b, e, dev=dev)
+        lens = torch.tensor([t, t // 3, 17][: b // grp], device=dev)
+        valid = torch.arange(t, device=dev)[None] < lens[:, None]
+        kw = {"bias": torch.where(valid, 0.0, -1e9).float().contiguous(),
+              "mem_group": grp}
+    kc, vc = (_randn(g, b // grp, t, e, dev=dev) for _ in range(2))
+    return q, kc, vc, heads, kw
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["self", "cross", "grouped3", "grouped8"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_decode_attention_cluster_splits(dev, split, mode, dh):
+    """The cluster kernel at splits 1, 2, 4, 8 against the twin (the
+    appended k / v equal to the twin's), two runs bit-equal, one launch
+    counted as split{s}; the simt kernel still agrees."""
+    q, kc, vc, heads, kw = _k2_case(dev, mode, dh)
+    kp, vp = kc.clone(), vc.clone()
+    decode_attention.launches, decode_attention.variants = 0, {}
+    out = decode_attention(q, kc, vc, heads, variant=f"split{split}", **kw)
+    ref = decode_attention.plain(q, kp, vp, heads, **kw)
+    _close(out, ref)
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)
+    assert torch.equal(out, decode_attention(q, kc, vc, heads,
+                                             variant=f"split{split}", **kw))
+    assert decode_attention.variants == {f"split{split}": 2}
+    _close(decode_attention(q, kc, vc, heads, variant="simt", **kw), ref)
+    _close(decode_attention(q, kc, vc, heads, **kw), ref)
+
+
+@pytest.mark.parametrize("pos", [0, 1, 64, 255])
+def test_decode_attention_cluster_ignores_keys_past_pos(dev, pos):
+    """Keys at and past pos (stale or never written: here NaN) change no
+    bit of the output, at every split."""
+    q, kc, vc, heads, _ = _k2_case(dev, "self", 64, t=256, pos=pos)
+    for split in (1, 4, 8):
+        kf, vf, kn, vn = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        kn[:, pos:], vn[:, pos:] = float("nan"), float("nan")
+        v = f"split{split}"
+        out = decode_attention(q, kf, vf, heads, pos=pos, variant=v)
+        assert torch.equal(decode_attention(q, kn, vn, heads, pos=pos,
+                                            variant=v), out)
+        assert torch.equal(kn[:, pos], kf[:, pos])
+        _close(out, decode_attention.plain(q, kc.clone(), vc.clone(), heads,
+                                           pos=pos))
+
+
+def test_decode_attention_cluster_long_and_wide_groups(dev):
+    """A range longer than the ring (2,048 keys a block: tiles streamed
+    through it) and a group of 12 rows (two clusters of 8 queries)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = _randn(g, 2, 3 * 256, dev=dev)
+    kc, vc = (_randn(g, 2, 4096, 256, dev=dev) for _ in range(2))
+    _close(decode_attention(q, kc.clone(), vc.clone(), 4, pos=4000,
+                            variant="split2"),
+           decode_attention.plain(q, kc.clone(), vc.clone(), 4, pos=4000))
+    q = _randn(g, 24, 256, dev=dev)
+    mk, mv = (_randn(g, 2, 96, 256, dev=dev) for _ in range(2))
+    bias = torch.zeros(2, 96, device=dev)
+    bias[1, 40:] = -1e9
+    _close(decode_attention(q, mk, mv, 4, bias=bias, mem_group=12),
+           decode_attention.plain(q, mk, mv, 4, bias=bias, mem_group=12))
+
+
 @pytest.mark.parametrize("m,k,n,act", [(5, 128, 128, "none"),
                                        (32, 256, 1024, "gelu_rounded"),
                                        (70, 1024, 256, "none")])
@@ -756,6 +832,37 @@ def test_decode_attention_hd(dev, dh, t, n_keys):
                decode_attention_hd.plain(q, kT, vT, b, n_keys=n_keys))
 
 
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [300, 512])
+def test_decode_attention_hd_cluster_splits(dev, split, dh, t):
+    """K11's cluster kernel at splits 1, 2, 4, 8, with and without the bias,
+    tiles by TMA (T = 512) and copied by the block (T = 300: rows not
+    16-byte aligned): against the twin, two runs bit-equal, split{s}
+    counted, the simt kernel still agreeing; keys past n_keys (NaN) change
+    no bit."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    q = _randn(g, 3, 4, dh, dev=dev)
+    kT, vT = _randn(g, 3, 4, dh, t, dev=dev), _randn(g, 3, 4, dh, t, dev=dev)
+    v = f"split{split}"
+    for b, n in ((None, 257), (_hd_bias(3, t, dev, [t, t // 3, 7]), None)):
+        decode_attention_hd.launches, decode_attention_hd.variants = 0, {}
+        out = decode_attention_hd(q, kT, vT, b, n_keys=n, variant=v)
+        ref = decode_attention_hd.plain(q, kT, vT, b, n_keys=n)
+        _close(out, ref)
+        assert torch.equal(out, decode_attention_hd(q, kT, vT, b, n_keys=n,
+                                                    variant=v))
+        assert decode_attention_hd.variants == {v: 2}
+        _close(decode_attention_hd(q, kT, vT, b, n_keys=n, variant="simt"),
+               ref)
+    kn, vn = kT.clone(), vT.clone()
+    kn[..., 257:], vn[..., 257:] = float("nan"), float("nan")
+    assert torch.equal(decode_attention_hd(q, kn, vn, None, n_keys=257,
+                                           variant=v),
+                       decode_attention_hd(q, kT, vT, None, n_keys=257,
+                                           variant=v))
+
+
 @pytest.mark.parametrize("stacked", [False, True])
 @pytest.mark.parametrize("dh", [16, 64])
 def test_decode_attention_hd_int8(dev, stacked, dh):
@@ -1306,6 +1413,20 @@ def test_every_backward_kernel_reports_its_resources(dev):
     assert sorted(r["threads"] for r in rows) == [160, 288]
     for r in rows:
         assert r["local_bytes"] == 0, r
+
+
+def test_decode_attention_cluster_kernels_report_no_spill(dev):
+    """K2's cluster kernels (three head dims x four query groups) and K11's
+    (four head dims, TMA or copied tiles): 128 threads, no local memory, at
+    least one block an SM at their largest shared memory; each simt kernel
+    listed beside them."""
+    for op, n in ((decode_attention, 12), (decode_attention_hd, 8)):
+        rows = op.resources("split")
+        assert len(rows) == n, op.name
+        for r in rows:
+            assert r["threads"] == 128 and r["local_bytes"] == 0, r
+            assert r["blocks_per_sm"] >= 1, r
+        assert len(op.resources("simt")) == 1
 
 
 def test_resident_elementwise_keeps_its_rows_in_registers(dev):
