@@ -45,11 +45,25 @@
 // Bound on an H100: the bytes, tp partials read and tp outputs written per
 // call ((B, E) each, B <= 128, E = 1024), a few microseconds at 3.35 TB/s; the
 // rounds' flag round trips through L2 and the launch make it latency-bound.
+//
+// The one-card form (tp_allreduce_local_kernel). Where every rank of the group
+// lies on one card, every partial is readable in place, so nothing needs to
+// be exchanged: one ordinary launch, no slots, flags, epoch or spin loop.
+// Each thread owns 8 consecutive elements (E % 8 == 0, so they share a row):
+// it loads every rank's bias for them (two float4 each), then every rank's
+// partial (two float4 fp32 or one 16-byte bf16 load each), all in flight
+// before the first add; sums them once in the tree order of the exchange
+// ((p0 + p1) + (p2 + p3), rounded to bf16 after every round in the per-op
+// mode), and stores tp outputs, each with its own rank's bias, with 16-byte
+// stores into one (tp, B, E) buffer. The same bits as the exchange on every
+// rank; a single memory round trip and one launch is all it waits for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "func_attrs.cuh"
 
 namespace {
 
@@ -221,7 +235,122 @@ int max_blocks_x(int dev, int n_local) {
   return per_card < 0 ? -1 : per_card / n_local;
 }
 
+// Eight consecutive elements as float: two float4 (fp32) or one 16-byte load
+// of eight bf16.
+__device__ __forceinline__ void load8(const void* base, int i, int bf16,
+                                      float v[8]) {
+  if (bf16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(base) + i);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
+  } else {
+    const float4* p =
+        reinterpret_cast<const float4*>(static_cast<const float*>(base) + i);
+    const float4 a = p[0], b = p[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+}
+
+__device__ __forceinline__ void store8(void* base, size_t i, int bf16,
+                                       const float v[8]) {
+  if (bf16) {
+    unsigned w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      w[j] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(base) + i) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    float4* p = reinterpret_cast<float4*>(static_cast<float*>(base) + i);
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+struct LocalTable {
+  const void* in[MAX_TP];
+  const float* bias[MAX_TP];  // all null: no bias
+};
+
+template <int TP>
+__global__ void __launch_bounds__(256)
+tp_allreduce_local_kernel(LocalTable t, void* out, int n, int e, int in_bf16,
+                          int out_bf16) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i >= n) return;
+  const bool has_bias = t.bias[0] != nullptr;
+  float b[TP][8];
+  if (has_bias) {
+    const int col = i % e;  // e % 8 == 0: the eight share a row
+#pragma unroll
+    for (int r = 0; r < TP; ++r) load8(t.bias[r] + col, 0, 0, b[r]);
+  }
+  float p[TP][8];
+#pragma unroll
+  for (int r = 0; r < TP; ++r) load8(t.in[r], i, in_bf16, p[r]);
+  float s[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float a = __fadd_rn(p[0][j], p[1][j]);
+    if (in_bf16) a = round_bf16(a);
+    if constexpr (TP == 4) {
+      float c = __fadd_rn(p[2][j], p[3][j]);
+      if (in_bf16) c = round_bf16(c);
+      a = __fadd_rn(a, c);
+      if (in_bf16) a = round_bf16(a);
+    }
+    s[j] = a;
+  }
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = has_bias ? __fadd_rn(s[j], b[r][j]) : s[j];
+    store8(out, (size_t)r * n + i, out_bf16, o);
+  }
+}
+
 }  // namespace
+
+// The one-card form: every rank of a group of tp (2 or 4) on the current
+// device. `in`: tp fp32 (in_bf16 = 0) or bf16 (B, E) buffers of n = B * E
+// elements, n % 8 == 0, e % 8 == 0, 16-byte aligned; `bias`: tp fp32 (E,)
+// vectors or null (no bias); `out`: one (tp, B, E) buffer, rank r's output at
+// r * n. `blocks` x `threads` cover n / 8 threads (local_plan in
+// ops/tp_allreduce_kernel.py). Launches on `stream`.
+extern "C" int acai_tp_allreduce_local(const void* const* in,
+                                       const void* const* bias, void* out,
+                                       int tp, int n, int e, int in_bf16,
+                                       int out_bf16, int blocks, int threads,
+                                       void* stream) {
+  if ((tp != 2 && tp != 4) || n <= 0 || n % 8 || e <= 0 || e % 8 || n % e ||
+      threads < 32 || threads > 256 || (long long)blocks * threads * 8 < n)
+    return (int)cudaErrorInvalidValue;
+  LocalTable t;
+  for (int r = 0; r < MAX_TP; ++r) {
+    t.in[r] = r < tp ? in[r] : nullptr;
+    t.bias[r] = r < tp && bias != nullptr ? static_cast<const float*>(bias[r])
+                                          : nullptr;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tp == 2)
+    tp_allreduce_local_kernel<2><<<blocks, threads, 0, s>>>(t, out, n, e,
+                                                            in_bf16, out_bf16);
+  else
+    tp_allreduce_local_kernel<4><<<blocks, threads, 0, s>>>(t, out, n, e,
+                                                            in_bf16, out_bf16);
+  return (int)cudaGetLastError();
+}
 
 // One card's launch: its ranks rank0 .. rank0 + n_local - 1 of a group of tp
 // (2 or 4). The tables list every rank of the group (tp entries each); `in`
@@ -284,3 +413,13 @@ extern "C" int acai_tp_enable_peer_access(int dev, int peer) {
   cudaSetDevice(prev);
   return (int)err;
 }
+
+// The resource report (func_attrs.cuh): the exchange's kernels ("coop") and
+// the one-card form's ("local") at the block sizes their launchers use.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("tp_allreduce", "coop", tp_allreduce_kernel<false>, THREADS, 0),
+    ACAI_KERNEL("tp_allreduce", "coop", tp_allreduce_kernel<true>, THREADS, 0),
+    ACAI_KERNEL("tp_allreduce", "local", tp_allreduce_local_kernel<2>, 256, 0),
+    ACAI_KERNEL("tp_allreduce", "local", tp_allreduce_local_kernel<4>, 256, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

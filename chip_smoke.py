@@ -14,19 +14,23 @@ Phases, all in one process; any failure exits non-zero:
    cross mode; the per-op step's K11 decode_attention_hd self and cross, K12
    decode_attention_hd_int8 per layer and stacked, K13
    self_attention_append_int8 at pos 300 and 0; K15 tp_allreduce at tp = 2
-   and 4, B = 32 and 128, E = 1024, bf16 and fp32 out, bit for bit, then
-   1,000 back-to-back calls with fresh inputs, every one bit-equal to its
-   twin; K2 also at 4 rows and B = 1 (self), 4 and 8 rows over M = 1,024
-   (cross) and GRPO's 128 rows at G = 8, K11 also at 4 rows, each K2 / K11
-   case timed in turns with the simt kernel it replaced and from HBM beside
-   SDPA from HBM, two runs bit-equal, split 1 within the tolerance, keys
-   past n_keys set to NaN changing no bit) against its plain PyTorch
-   twin at the flagship shapes the paths give it, and time kernel, twin, a
-   PyTorch library call computing the same function where there is one, the
-   card's bound, and the host time of one wrapper call (the decode step is
-   bound by it). The int8 kernels' appended rows and scales must equal the
-   twin's bit for bit. The
-   training kernels (K7 attention_bwd, K8 layernorm_bwd, K9 linear_dgrad /
+   and 4, B = 4-128, E = 1024, bf16 and fp32 out, bit for bit, its one-card
+   form timed in turns with the exchange it replaced on one card
+   (``variant="coop"``), the host time of a call of each, then for each
+   form 1,000 back-to-back calls with fresh inputs, every one bit-equal to
+   its twin; K4 add_layernorm at 4, 32 and 16,384 rows, its vector kernel
+   timed in turns with the scalar kernel it replaced (``variant="scalar"``),
+   the decode rows also from HBM; K2 also at 4 rows and B = 1 (self), 4
+   and 8 rows over M = 1,024 (cross) and GRPO's 128 rows at G = 8, K11
+   also at 4 rows, each K2 / K11 case timed in turns with the simt kernel
+   it replaced and from HBM beside SDPA from HBM, two runs bit-equal,
+   split 1 within the tolerance, keys past n_keys set to NaN changing no
+   bit) against its plain PyTorch twin at the flagship shapes the paths
+   give it, and time kernel, twin, a PyTorch library call computing the
+   same function where there is one, the card's bound, and the host time
+   of one wrapper call (the decode step is bound by it). The int8
+   kernels' appended rows and scales must equal the twin's bit for bit.
+   The training kernels (K7 attention_bwd, K8 layernorm_bwd, K9 linear_dgrad /
    linear_wgrad, K10 dropout, and the training modes of K1, K3, K4) are held
    the same way at the flagship's training shapes (decoder rows 8 x 256 at
    E = 1024, F = 4096, M = 1024; encoder rows 8 x 1024 at E = 768,
@@ -44,9 +48,10 @@ Phases, all in one process; any failure exits non-zero:
    rows, K3 and K7 bit-equal; from HBM (``cold_ms``) where the operands fit
    L2, the decode rows' library call too (``library_cold_ms``); K7's
    outputs at its five sites equal, bit for bit, to those recorded in
-   ``K7_BITS``; then the resource rows of K1's, K3's, K9's and K7's
-   kernels, none of the Hopper dgrad, K3 and K7 kernels and none of K1's
-   skinny kernels with local memory;
+   ``K7_BITS``; then the resource rows of K1's, K3's, K9's, K7's, K4's and
+   K15's kernels, none of the Hopper dgrad, K3 and K7 kernels, none of K1's
+   skinny kernels, K4's vector kernels or K15's one-card kernels with local
+   memory;
    then the probes phase: K16 tile_gemm at every tile of the GEMM sweep
    (bf16 out) at (8192, 768, 3072), (32768, 512, 1536) and
    (32768, 512, 3072), and in its three operand layouts (fp32 out) at the
@@ -88,9 +93,10 @@ Phases, all in one process; any failure exits non-zero:
    counts are reset just before each path and read just after, and their
    split by variant must show every encoder product of K1 on the core
    ("sm90", 4 per encoder K3 launch), every decode product on the skinny
-   kernel ("skinny", "skinny_partial") and every K3 on its Hopper kernel
-   ("sm90_dh{Dh}"); the training paths below run every K1, every
-   ``linear_dgrad`` and every ``linear_wgrad`` on the core ("sm90",
+   kernel ("skinny", "skinny_partial"), every K3 on its Hopper kernel
+   ("sm90_dh{Dh}") and every K4 on its vector kernel ("warps{W}"); the
+   training paths below run every K1, every ``linear_dgrad`` and every
+   ``linear_wgrad`` on the core ("sm90",
    "sm90_splits{s}") and every K3 and K7 on its Hopper kernels
    ("sm90_dh{Dh}"), GRPO its rollouts' K1 on the skinny kernel. Then the
    kernel path is held against the
@@ -100,8 +106,9 @@ Phases, all in one process; any failure exits non-zero:
    comparable step by step); then the meshed decode through
    ``batch_inference(mesh=make_mesh(n_data, n_model, ["cuda:0"] * n),
    model_axis="model")``, every shard on this card and K15 summing the
-   model ranks: ``tp2_bf16`` and ``tp4_bf16`` (8 images, max_len 512),
-   ``tp2_int8`` (int8 caches, K5 may not launch) and ``tp2_int8_w8a8``
+   model ranks in its one-card form (every launch "local", none "coop"):
+   ``tp2_bf16`` and ``tp4_bf16`` (8 images, max_len 512), ``tp2_int8``
+   (int8 caches, K5 may not launch) and ``tp2_int8_w8a8``
    (``ACAI_TP_W8A8``: K5 partials), ``tp2_beam`` (4 images, 4 beams, 256),
    ``dp2_tp2`` (a 2 x 2 mesh with ``progress_cb`` events) and ``tp2_per_op``
    (``ACAI_MONOLITH_DECODE`` off, K11 on); per path ms per step, wrapper
@@ -141,7 +148,7 @@ Phases, all in one process; any failure exits non-zero:
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
 decode steps of each cache mode and of the per-op bf16 step with K11 on
-(K2's and K11's device ms a step among them), over two training
+(K2's, K4's and K11's device ms a step among them), over two training
 microbatches and over two MAE updates (device time by kernel, device busy
 share); ``--report PATH``
 writes every number of the run as JSON to PATH; ``--k7-bits`` prints only
@@ -149,7 +156,9 @@ the hashes of K7's outputs at its training sites (``k7_bits``, what
 ``K7_BITS`` records) and exits; ``--skinny-splits`` times only the skinny
 kernel at every split of K at the decode shapes (``skinny_splits``) and
 exits; ``--attn-splits`` times only K2's and K11's cluster kernels at every
-split of the keys at the decode shapes (``attn_splits``) and exits.
+split of the keys at the decode shapes (``attn_splits``) and exits;
+``--k4-plan`` times only K4's vector kernel at 1 and 4 warps a row and
+the scalar kernel at the paths' rows (``k4_plan``) and exits.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the port's package is not beside this script.
@@ -384,7 +393,10 @@ def variant_failures(name: str, r: dict) -> list:
     every linear_dgrad on the core ("sm90") and every K7 attention_bwd on
     its Hopper kernels ("sm90_dh{Dh}"); every K2 decode_attention and K11
     decode_attention_hd on its cluster kernel ("split{s}"), never the simt
-    kernel it replaced."""
+    kernel it replaced; every K4 add_layernorm on its vector kernel
+    ("warps{W}"), never the scalar kernel; every K15 tp_allreduce (all
+    ranks on this card) in its one-card form ("local"), never the
+    exchange ("coop")."""
     k1 = r["variants"].get("linear_bias_act", {})
     k3 = r["variants"].get("encoder_attention", {})
     wgrad = r["variants"].get("linear_wgrad", {})
@@ -407,6 +419,14 @@ def variant_failures(name: str, r: dict) -> list:
         if any(not v.startswith("split") for v in by) \
                 or sum(by.values()) != r["launches"].get(op, 0):
             out.append(f"{name}: {op} off its cluster kernel {by}")
+    k4 = r["variants"].get("add_layernorm", {})
+    if any(not v.startswith("warps") for v in k4) \
+            or sum(k4.values()) != r["launches"].get("add_layernorm", 0):
+        out.append(f"{name}: add_layernorm off its vector kernel {k4}")
+    k15 = r["variants"].get("tp_allreduce", {})
+    if set(k15) - {"local"} \
+            or sum(k15.values()) != r["launches"].get("tp_allreduce", 0):
+        out.append(f"{name}: tp_allreduce off its one-card form {k15}")
     if name in ("train_tf", "pretrain_mae"):
         if set(k1) != {"sm90"}:
             out.append(f"{name}: K1 off the core {k1}")
@@ -424,7 +444,7 @@ def variant_line(name: str, r: dict) -> str:
     """The launches by variant of a path's products and attentions."""
     keys = ("linear_bias_act", "encoder_attention", "linear_wgrad",
             "linear_dgrad", "attention_bwd", "decode_attention",
-            "decode_attention_hd")
+            "decode_attention_hd", "add_layernorm", "tp_allreduce")
     return f"[path {name}] by variant " + json.dumps(
         {k: r["variants"].get(k, {}) for k in keys})
 
@@ -456,7 +476,8 @@ def check_kernels(torch, F, dev):
 
     def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
                peak=PEAK_BF16_FLOP_PER_S, paths=None, exact=None,
-               variant=None, cold=None, old_ms=None, lib_cold=None):
+               variant=None, cold=None, old_ms=None, lib_cold=None,
+               extra=None):
         """``paths``: the main paths whose launches count for this case (the
         serving paths when None). ``variant``: the compiled variant or plan
         of the kernel this case launches (``KernelOp.variants``), where only
@@ -469,7 +490,9 @@ def check_kernels(torch, F, dev):
         ``old_ms``: for a redesigned kernel, the device ms of the kernel it
         replaces (forced through the wrapper's ``variant=``), timed in turns
         with it (``turns_ms``). ``lib_cold``: the library call's device ms
-        from HBM, on the same rotating copies as ``cold``."""
+        from HBM, on the same rotating copies as ``cold``. ``extra``: more
+        numbers of the case (K4's ``old_cold_ms``, K15's ``old_host_us``),
+        printed and reported under their keys."""
         t_k, t_host = t_k  # device ms and host us of one wrapper call
         err = (out_k.float() - out_p.float()).abs().max().item()
         b_ms, b_by = bound_ms(nbytes, nops, peak)
@@ -480,7 +503,8 @@ def check_kernels(torch, F, dev):
                       "library_ms": t_lib,
                       "bound_ms": b_ms, "bound_by": b_by, "ok": ok,
                       "paths": paths, "variant": variant, "cold_ms": cold,
-                      "old_ms": old_ms, "library_cold_ms": lib_cold})
+                      "old_ms": old_ms, "library_cold_ms": lib_cold,
+                      "extra": extra or {}})
         lib = "none" if t_lib is None else f"{t_lib:.4f}"
         print(f"[kernel] {op.name}[{case}] max_abs_err={err:.3e} tol={tol:.1e} "
               f"kernel_ms={t_k:.4f} "
@@ -490,6 +514,7 @@ def check_kernels(torch, F, dev):
               f"library_ms={lib} "
               + ("" if lib_cold is None else f"library_cold_ms={lib_cold:.4f} ")
               + f"bound_ms={b_ms:.4f} ({b_by}) "
+              + "".join(f"{k}={v:.4f} " for k, v in (extra or {}).items())
               + ("" if exact is None else f"exact={exact} ")
               + ("ok" if ok else "FAIL"), flush=True)
 
@@ -857,34 +882,57 @@ def check_kernels(torch, F, dev):
            4 * e * t * n_valid, exact=exact, variant=f"sm90_dh{dh}",
            old_ms=old)
 
-    # K4: decode rows (32 x 1024) and encoder rows (16384 x 768)
-    for rows, e in [(32, 1024), (16384, 768)]:
+    # K4: the decode step's rows (4 x 1024 after compaction, 32 x 1024) and
+    # encoder rows (16384 x 768), each timed in turns with the scalar kernel
+    # it replaced (which must agree with the twin too); the decode rows also
+    # from HBM (x, r, gamma and beta rotated out of L2; the kernel, the
+    # scalar kernel and F.layer_norm on the same copies)
+    for rows, e in [(4, 1024), (32, 1024), (16384, 768)]:
         x, r = randn(rows, e), randn(rows, e)
         gamma = 1.0 + 0.1 * randn(e, dtype=torch.float32)
         beta = 0.1 * randn(e, dtype=torch.float32)
         z = x + r
         g16, b16 = gamma.to(bf), beta.to(bf)
-        out_k = add_layernorm(x, r, gamma, beta, 1e-5)
+        call = lambda v=None, *a: add_layernorm(*(a or (x, r, gamma, beta)),
+                                                1e-5, variant=v)
+        out_k = call()
         out_p = add_layernorm.plain(x, r, gamma, beta, 1e-5)
         tol = 1e-2 * max(1.0, out_p.float().abs().max().item())
+        scalar_ok = (call("scalar").float()
+                     - out_p.float()).abs().max().item() <= tol
+        t_new, old = turns_ms(torch, call, lambda: call("scalar"))
+        cold = old_cold = lib_cold = None
+        if rows <= 32:
+            cold = cold_ms(torch, lambda *a: call(None, *a),
+                           [x, r, gamma, beta])
+            old_cold = cold_ms(torch, lambda *a: call("scalar", *a),
+                               [x, r, gamma, beta])
+            lib_cold = cold_ms(torch, lambda z_, g_, b_: F.layer_norm(
+                z_, (e,), g_, b_, 1e-5), [z, g16, b16])
         record(add_layernorm, f"{rows}x{e}", out_k, out_p, tol,
-               kernel_times(lambda: add_layernorm(x, r, gamma, beta, 1e-5)),
+               (t_new, host_us(torch, call)),
                time_ms(torch, lambda: add_layernorm.plain(x, r, gamma, beta,
                                                           1e-5)),
                time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
-               2 * 3 * rows * e + 8 * e, 8 * rows * e)
+               2 * 3 * rows * e + 8 * e, 8 * rows * e,
+               exact=None if scalar_ok else False, old_ms=old, cold=cold,
+               lib_cold=lib_cold,
+               extra=None if old_cold is None else {"old_cold_ms": old_cold})
     nan_failures += decode_hd_cases(torch, F, randn, record, kernel_times,
                                     dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
-    # the resource rows of the products' and the attentions' kernels: the
-    # Hopper kernels (sm90, skinny, K2's and K11's cluster kernels) beside
-    # the wmma / simt kernels they replace; no Hopper kernel of dgrad, K3 or
-    # K7, no skinny kernel of K1 and no cluster kernel of K2 or K11 may use
+    # the resource rows of the products', the attentions', K4's and K15's
+    # kernels: the Hopper kernels (sm90, skinny, K2's and K11's cluster
+    # kernels, K4's vector kernels, K15's one-card form) beside the wmma /
+    # simt / scalar / exchange kernels they replace; no Hopper kernel of
+    # dgrad, K3 or K7, no skinny kernel of K1, no cluster kernel of K2 or
+    # K11, no vector kernel of K4 and no one-card kernel of K15 may use
     # local memory (a spill)
     from acai_omr_tpu_torch.ops import _build
     spills = []
     for name in ("linear_bias_act", "encoder_attention", "linear_bwd",
-                 "attention_bwd", "decode_attention", "decode_attention_hd"):
+                 "attention_bwd", "decode_attention", "decode_attention_hd",
+                 "add_layernorm", "tp_allreduce"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
@@ -894,7 +942,8 @@ def check_kernels(torch, F, dev):
             hopper = (r["op"] in ("linear_dgrad", "encoder_attention",
                                   "attention_bwd")
                       and r["variant"].startswith("sm90")) \
-                or r["variant"] in ("skinny", "split")
+                or r["variant"] in ("skinny", "split", "local") \
+                or r["variant"].startswith("warps")
             if hopper and r["local_bytes"]:
                 spills.append(f"{r['op']} {r['kernel']}")
     k7_bad = k7_bit_failures(torch)
@@ -1072,6 +1121,49 @@ def attn_splits(torch) -> list:
     return out
 
 
+def k4_plan(torch) -> list:
+    """K4's vector kernel at 1 and 4 warps a row (forced through
+    ``variant="warps{W}"``) and the scalar kernel it replaced, at the rows
+    the paths run (the decode step's 1-32 rows of E = 1024, beams and GRPO's
+    rollouts up to 128, the encoder's and the training stacks' rows), each
+    in turns (rising, then falling order; the lesser of two readings), warm
+    and, up to 128 rows, from HBM (x, r, gamma and beta rotated out of L2),
+    beside the plan's choice: how far ``add_layernorm_plan`` is from the
+    fastest variant."""
+    from acai_omr_tpu_torch.ops.layernorm_kernel import (add_layernorm,
+                                                         add_layernorm_plan)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    variants = ["warps1", "warps4", "scalar"]
+    for rows, e in ((1, 1024), (4, 1024), (8, 1024), (16, 1024), (32, 1024),
+                    (64, 1024), (128, 1024), (512, 1024), (1024, 1024),
+                    (2048, 1024), (16384, 768),
+                    (8192, 768), (32768, 512)):
+        ops = [torch.randn(rows, e, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2)]
+        ops += [1 + 0.1 * torch.randn(e, generator=g, device=dev),
+                0.1 * torch.randn(e, generator=g, device=dev)]
+        fn = lambda v, *a: add_layernorm(*a, 1e-5, variant=v)
+        row = {"rows": rows, "e": e, "plan": add_layernorm_plan(rows, e)}
+        for kind in ("warm", "cold") if rows <= 128 else ("warm",):
+            times = {}
+            for v in variants + variants[::-1]:
+                ms = time_ms(torch, lambda v=v: fn(v, *ops)) \
+                    if kind == "warm" else \
+                    cold_ms(torch, lambda *a, v=v: fn(v, *a), ops)
+                times[v] = min(times.get(v, ms), ms)
+            best = min(times, key=times.get)
+            row[kind] = times
+            print(f"[k4 plan] {rows}x{e} {kind}: plan {row['plan']} "
+                  f"{times[row['plan']]:.4f} ms, best {best} "
+                  f"{times[best]:.4f} ms; "
+                  + json.dumps({v: round(t_, 4) for v, t_ in times.items()}),
+                  flush=True)
+        out.append(row)
+    return out
+
+
 def k7_bit_failures(torch) -> list:
     """K7's bits at its training sites against the recorded K7_BITS."""
     got = k7_bits(torch)
@@ -1088,13 +1180,17 @@ def tp_allreduce_cases(torch, randn, record, kernel_times, dev):
     and beams of 4 x 32 rows), out bf16 and fp32, and at the rows the meshed
     paths give it, out bf16: B = 8 (tp2 / tp4), 4 (a dp2_tp2 shard), 16
     (tp2_beam); the per-op step's mode (bf16 partials, the running sum
-    rounded after every round, no bias) at B = 8, tp = 2 and 4. Every case is
-    equal to the twin in every bit on every rank. Then RACE_CALLS
-    back-to-back calls with fresh inputs over the same exchange buffers
-    (tp = 2 and 4 in turns, both modes), every one bit-equal to the twin: a
-    stale slot or flag would show here. Bound: the partials read once, the
-    outputs written once, the bias read once per rank. Library call:
-    ``torch.stack(parts).sum(0)``, one rank's sum without the bias."""
+    rounded after every round, no bias) at B = 8, tp = 2 and 4. Every case
+    runs the one-card form ("local") and is timed in turns with the exchange
+    it replaced on one card (``variant="coop"``, ``old_ms``), with the host
+    time of a call of each (``host_us``, ``old_host_us``); both equal to the
+    twin in every bit on every rank. Then, for each form, RACE_CALLS
+    back-to-back calls with fresh inputs (tp = 2 and 4 in turns, both
+    modes), every one bit-equal to the twin: a stale slot or flag, or a
+    store landing in another call's output, would show here. Bound: the
+    partials read once, the outputs written once, the bias read once per
+    rank. Library call: ``torch.stack(parts).sum(0)``, one rank's sum
+    without the bias. Returns the race checks' calls that differ."""
     from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
                                                             tp_allreduce)
     f32, bf, e = torch.float32, torch.bfloat16, 1024
@@ -1103,40 +1199,49 @@ def tp_allreduce_cases(torch, randn, record, kernel_times, dev):
               for out in (bf, f32)]
     shapes += [(2, 8, f32, bf), (4, 8, f32, bf), (2, 4, f32, bf),
                (2, 16, f32, bf), (2, 8, bf, bf), (4, 8, bf, bf)]
+    same = lambda got, want: all(torch.equal(g, w) for g, w in zip(got, want))
     for tp, b, in_dtype, out_dtype in shapes:
         parts = [randn(b, e, dtype=in_dtype) for _ in range(tp)]
         bias = [randn(e, dtype=f32) * 0.1] * tp if in_dtype == f32 else None
-        call = lambda: tp_allreduce(parts, groups[tp], bias, out_dtype)
+        call = lambda v=None: tp_allreduce(parts, groups[tp], bias, out_dtype,
+                                           variant=v)
+        coop = lambda: call("coop")
         twin = lambda: tp_allreduce.plain(parts, groups[tp], bias, out_dtype)
         got, want = call(), twin()
-        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        exact = same(got, want) and same(coop(), want)
+        t_new, old = turns_ms(torch, call, coop)
         name = lambda d: str(d).split(".")[-1]
         record(tp_allreduce, f"tp={tp} B={b} E={e} {name(in_dtype)}->"
                f"{name(out_dtype)}", torch.cat(got), torch.cat(want), 0.0,
-               kernel_times(call), time_ms(torch, twin),
+               (t_new, host_us(torch, call)), time_ms(torch, twin),
                time_ms(torch, lambda: torch.stack(parts).sum(0)),
                tp * b * e * (in_dtype.itemsize + out_dtype.itemsize)
                + (tp * e * 4 if bias else 0),
                tp * tp.bit_length() * b * e,  # rounds' adds + bias
-               peak=PEAK_FP32_FLOP_PER_S, paths=list(TP_PATHS), exact=exact)
-    # the race check: many calls queued at once, compared after
-    calls = []
-    for i in range(RACE_CALLS):
-        tp = 2 if i % 2 else 4
-        dt = torch.bfloat16 if i % 3 == 0 else f32
-        parts = [randn((4, 8, 16, 32, 128)[i % 5], e, dtype=dt)
-                 for _ in range(tp)]
-        bias = None if dt == torch.bfloat16 else \
-            [randn(e, dtype=f32) * 0.1] * tp
-        calls.append((parts, tp, bias,
-                      tp_allreduce(parts, groups[tp], bias, torch.bfloat16)))
-    torch.cuda.synchronize()
-    bad = sum(not all(torch.equal(g, w) for g, w in zip(
-        got, tp_allreduce.plain(parts, groups[tp], bias, torch.bfloat16)))
-        for parts, tp, bias, got in calls)
-    print(f"[kernel] tp_allreduce race check: {RACE_CALLS} back-to-back "
-          f"calls, {bad} differ from the twin "
-          + ("ok" if bad == 0 else "FAIL"), flush=True)
+               peak=PEAK_FP32_FLOP_PER_S, paths=list(TP_PATHS), exact=exact,
+               variant="local", old_ms=old,
+               extra={"old_host_us": host_us(torch, coop)})
+    # the race checks: many calls queued at once, compared after
+    bad = 0
+    for form in ("local", "coop"):
+        calls = []
+        for i in range(RACE_CALLS):
+            tp = 2 if i % 2 else 4
+            dt = torch.bfloat16 if i % 3 == 0 else f32
+            parts = [randn((4, 8, 16, 32, 128)[i % 5], e, dtype=dt)
+                     for _ in range(tp)]
+            bias = None if dt == torch.bfloat16 else \
+                [randn(e, dtype=f32) * 0.1] * tp
+            calls.append((parts, tp, bias, tp_allreduce(
+                parts, groups[tp], bias, torch.bfloat16, variant=form)))
+        torch.cuda.synchronize()
+        n_bad = sum(not same(got, tp_allreduce.plain(parts, groups[tp], bias,
+                                                     torch.bfloat16))
+                    for parts, tp, bias, got in calls)
+        print(f"[kernel] tp_allreduce race check ({form}): {RACE_CALLS} "
+              f"back-to-back calls, {n_bad} differ from the twin "
+              + ("ok" if n_bad == 0 else "FAIL"), flush=True)
+        bad += n_bad
     return bad
 
 
@@ -1840,27 +1945,31 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
                    cold=cold_ms(torch, lambda x_, w_: call(x=x_, w=w_),
                                 [x, w]) if nbytes < 50e6 else None)
 
-        # K4: emitting the pre-norm sum; LayerNorm alone (the recompute)
+        # K4: emitting the pre-norm sum; LayerNorm alone (the recompute);
+        # each timed in turns with the scalar kernel it replaced
         x, r = randn(rows, e), randn(rows, e)
         gamma = 1.0 + 0.1 * randn(e, dtype=torch.float32)
         beta = 0.1 * randn(e, dtype=torch.float32)
         g16, b16 = gamma.to(bf), beta.to(bf)
         for mode, second, n_out in [("writes z", r, 2), ("no residual", None, 1)]:
-            call = lambda: add_layernorm(x, second, gamma, beta, 1e-5,
-                                         second is not None)
-            out_k = call()
-            out_p = add_layernorm.plain(x, second, gamma, beta, 1e-5,
-                                        second is not None)
-            if second is not None:
-                out_k, out_p = torch.cat(out_k, 1), torch.cat(out_p, 1)
+            call = lambda v=None: add_layernorm(x, second, gamma, beta, 1e-5,
+                                                second is not None, variant=v)
+            cat = lambda o: torch.cat(o, 1) if second is not None else o
+            out_k = cat(call())
+            out_p = cat(add_layernorm.plain(x, second, gamma, beta, 1e-5,
+                                            second is not None))
+            scalar_ok = (cat(call("scalar")).float()
+                         - out_p.float()).abs().max().item() <= rel_tol(out_p)
+            t_new, old = turns_ms(torch, call, lambda: call("scalar"))
             z = x if second is None else x + r
             record(add_layernorm, f"{name} {rows}x{e} {mode}", out_k, out_p,
-                   rel_tol(out_p), kernel_times(call),
+                   rel_tol(out_p), (t_new, host_us(torch, call)),
                    plain_ms(lambda: add_layernorm.plain(
                        x, second, gamma, beta, 1e-5, second is not None)),
                    time_ms(torch, lambda: F.layer_norm(z, (e,), g16, b16, 1e-5)),
                    2 * (n_out + (2 if second is not None else 1)) * rows * e
-                   + 8 * e, 8 * rows * e, paths=tr)
+                   + 8 * e, 8 * rows * e, paths=tr,
+                   exact=None if scalar_ok else False, old_ms=old)
 
         # K8: g and z in, dz and dropped dz out, two column sums
         g_in, z = randn(rows, e), randn(rows, e)
@@ -2563,6 +2672,8 @@ def compare_paths(torch, np, model, imgs, profile=False):
         from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
         out["bf16"]["k2_device_ms_per_step"] = kernel_ms(
             out["bf16"]["profile"], "attend_cluster", "decode_attention_kernel")
+        out["bf16"]["k4_device_ms_per_step"] = kernel_ms(
+            out["bf16"]["profile"], "add_layernorm")
         before = hd._ENABLED
         hd.set_enabled(True)
         try:
@@ -2834,7 +2945,9 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
     Hopper kernels ("sm90_dh{Dh}"); every K1 and every dgrad runs on the Hopper
     core ("sm90"), every wgrad too, its rows split as
     ``row_split_plan`` says for the layer's shape (the encoder over the
-    batch's kept rows, the decoder over all of them)."""
+    batch's kept rows, the decoder over all of them), every K4 on the vector
+    kernel as ``add_layernorm_plan`` says for those rows."""
+    from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm_plan
     from acai_omr_tpu_torch.ops.linear_bwd_kernel import row_split_plan
     le, ld = cfg.encoder.num_layers, cfg.decoder_num_layers
     n = le + ld
@@ -2846,11 +2959,13 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
            "add_layernorm": 2 * n}
     dh_e = cfg.encoder.hidden_dim // cfg.encoder.num_heads
     dh_d = cfg.decoder_hidden_dim // cfg.decoder_num_heads
-    wgrad = {}
+    wgrad, k4 = {}, {}
     for rows, e, f, layers in ((MAE_BATCH * MAE_KEPT, cfg.encoder.hidden_dim,
                                 cfg.encoder.mlp_dim, le),
                                (MAE_BATCH * MAE_ROWS, cfg.decoder_hidden_dim,
                                 cfg.decoder_mlp_dim, ld)):
+        key = add_layernorm_plan(rows, e)
+        k4[key] = k4.get(key, 0) + 3 * layers
         for k, cols in ((e, 3 * e), (e, e), (e, f), (f, e)):
             key = f"sm90_splits{row_split_plan(rows, k, cols)[1]}"
             wgrad[key] = wgrad.get(key, 0) + layers
@@ -2858,7 +2973,8 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
                 "encoder_attention": {f"sm90_dh{dh_e}": 2 * le,
                                       f"sm90_dh{dh_d}": 2 * ld},
                 "attention_bwd": {f"sm90_dh{dh_e}": le, f"sm90_dh{dh_d}": ld},
-                "linear_dgrad": {"sm90": 4 * n}, "linear_wgrad": wgrad}
+                "linear_dgrad": {"sm90": 4 * n}, "linear_wgrad": wgrad,
+                "add_layernorm": k4}
     return step, val, variants
 
 
@@ -3142,6 +3258,10 @@ def main() -> int:
         print(card_line())
         attn_splits(torch)
         return 0
+    if "--k4-plan" in sys.argv[1:]:  # K4's warps a row alone
+        print(card_line())
+        k4_plan(torch)
+        return 0
     import numpy as np
     import torch.nn.functional as F
 
@@ -3363,7 +3483,8 @@ def main() -> int:
     print(f"[compare] {json.dumps(cmp)}", flush=True)
     if "--profile" in sys.argv[1:]:
         print(f"[profile] K2 device ms a bf16 step "
-              f"{cmp['bf16']['k2_device_ms_per_step']:.4f} of "
+              f"{cmp['bf16']['k2_device_ms_per_step']:.4f}, K4 "
+              f"{cmp['bf16']['k4_device_ms_per_step']:.4f}, of "
               f"{cmp['bf16']['profile']['device_ms_per_step']:.4f}; K11 "
               f"device ms a per-op bf16 step "
               f"{cmp['per_op_bf16']['k11_device_ms_per_step']:.4f} of "
@@ -3527,8 +3648,8 @@ def main() -> int:
 
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
     if race_bad:
-        failures.append(f"tp_allreduce race check: {race_bad} of {RACE_CALLS} "
-                        f"calls differ from the twin")
+        failures.append(f"tp_allreduce race checks: {race_bad} of "
+                        f"{2 * RACE_CALLS} calls differ from the twin")
     if spills:
         failures.append(f"local memory (a spill) in the Hopper kernels "
                         f"{spills}")
@@ -3559,7 +3680,8 @@ def main() -> int:
                 **({} if c["cold_ms"] is None else {"cold_ms": c["cold_ms"]}),
                 **({} if c["old_ms"] is None else {"old_ms": c["old_ms"]}),
                 **({} if c["library_cold_ms"] is None
-                   else {"library_cold_ms": c["library_cold_ms"]})}
+                   else {"library_cold_ms": c["library_cold_ms"]}),
+                **c["extra"]}
                for c in cases]
     failures += [f"launches[{k['name']}]=0" for k in kernels
                  if k["launches"] <= 0]

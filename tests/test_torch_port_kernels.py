@@ -329,6 +329,57 @@ def test_add_layernorm(dev):
            add_layernorm.plain(x, r, gamma, beta, 1e-5))
 
 
+@pytest.mark.parametrize("rows", [1, 4, 32, 33, 16384])
+@pytest.mark.parametrize("e", [512, 768, 1024, 320])
+@pytest.mark.parametrize("variant", [None, "warps1", "warps4"])
+def test_add_layernorm_vector_kernel(dev, rows, e, variant):
+    """The vector kernel (the plan's warps a row, or each forced) in its
+    three modes -- residual sum, residual sum writing z, LayerNorm alone --
+    against the twin and against the scalar kernel it replaced, at the decode
+    step's rows, a ragged block of rows, the encoder's rows, and a width
+    whose last chunk is masked (E = 320); z equal to the twin's bit for
+    bit. Launches counted under the variant taken."""
+    from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm_plan
+    g = torch.Generator(device=dev).manual_seed(rows + e)
+    x, r = _randn(g, rows, e, dev=dev), _randn(g, rows, e, dev=dev)
+    gamma = 1 + 0.1 * _randn(g, e, dev=dev, dtype=torch.float32)
+    beta = 0.1 * _randn(g, e, dev=dev, dtype=torch.float32)
+    taken = variant or add_layernorm_plan(rows, e)
+    for second, save in ((r, False), (r, True), (None, False)):
+        before = add_layernorm.variants.get(taken, 0)
+        got = add_layernorm(x, second, gamma, beta, 1e-5, save,
+                            variant=variant)
+        assert add_layernorm.variants[taken] - before == 1
+        want = add_layernorm.plain(x, second, gamma, beta, 1e-5, save)
+        old = add_layernorm(x, second, gamma, beta, 1e-5, save,
+                            variant="scalar")
+        if save:
+            assert torch.equal(got[1], want[1]) and torch.equal(old[1], want[1])
+            got, want, old = got[0], want[0], old[0]
+        _close(got, want)
+        _close(got, old)
+
+
+def test_add_layernorm_rejects_what_it_does_not_take(dev):
+    x = torch.zeros(4, 1032, device=dev, dtype=torch.bfloat16)
+    gamma, beta = torch.ones(1032, device=dev), torch.zeros(1032, device=dev)
+    with pytest.raises(ValueError, match="E <= 1024"):
+        add_layernorm(x, x, gamma, beta, 1e-5)
+    with pytest.raises(ValueError, match="E % 8"):
+        add_layernorm(x[:, :1020].contiguous(), None, gamma[:1020],
+                      beta[:1020], 1e-5)
+    with pytest.raises(ValueError, match="E % 32"):
+        add_layernorm(x[:, :40].contiguous(), None, gamma[:40], beta[:40],
+                      1e-5, variant="scalar")
+    shifted = torch.zeros(4 * 496 + 1, device=dev,
+                          dtype=torch.bfloat16)[1:].view(4, 496)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        add_layernorm(shifted, None, gamma[:496], beta[:496], 1e-5)
+    with pytest.raises(ValueError, match="unknown variant"):
+        add_layernorm(x[:, :512].contiguous(), None, gamma[:512], beta[:512],
+                      1e-5, variant="warps3")
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 48, device=dev, dtype=torch.bfloat16)
     w = torch.zeros(48, 64, device=dev, dtype=torch.bfloat16)
@@ -931,10 +982,12 @@ def test_hd_wrappers_reject_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("b", [3, 32, 128])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_tp_allreduce_equals_twin_bit_for_bit(dev, tp, b, out_dtype):
-    """Every rank on one card (one cooperative launch): the same bits as the
-    twin on every rank, with the bias (fp32 partials, the monolith's mode)
-    and without it (bf16 partials rounded each round, the per-op mode), over
-    several calls through the same exchange buffers."""
+    """Every rank on one card: the one-card form (one ordinary launch,
+    counted ``"local"``) and the exchange forced on the card (one
+    cooperative launch, ``"coop"``) give the same bits as the twin on every
+    rank, with the bias (fp32 partials, the monolith's mode, each rank its
+    own bias) and without it (bf16 partials rounded each round, the per-op
+    mode), over several calls through the same buffers."""
     from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
                                                             tp_allreduce)
     g = torch.Generator(device=dev).manual_seed(tp * b)
@@ -942,17 +995,21 @@ def test_tp_allreduce_equals_twin_bit_for_bit(dev, tp, b, out_dtype):
     for call in range(3):
         parts = [_randn(g, b, 1024, dev=dev, dtype=torch.float32)
                  for _ in range(tp)]
-        bias = [_randn(g, 1024, dev=dev, dtype=torch.float32)] * tp
-        before = tp_allreduce.launches
-        got = tp_allreduce(parts, group, bias, out_dtype)
-        assert tp_allreduce.launches - before == 1
-        want = tp_allreduce.plain(parts, group, bias, out_dtype)
-        for o, w in zip(got, want):
-            assert o.dtype == out_dtype and torch.equal(o, w), call
+        bias = [_randn(g, 1024, dev=dev, dtype=torch.float32)
+                for _ in range(tp)]
         p16 = [p.to(torch.bfloat16) for p in parts]
-        for o, w in zip(tp_allreduce(p16, group),
-                        tp_allreduce.plain(p16, group)):
-            assert torch.equal(o, w), call
+        for form in ("local", "coop"):
+            before = tp_allreduce.variants.get(form, 0)
+            got = tp_allreduce(parts, group, bias, out_dtype,
+                               variant=None if form == "local" else form)
+            assert tp_allreduce.variants[form] - before == 1
+            want = tp_allreduce.plain(parts, group, bias, out_dtype)
+            for o, w in zip(got, want):
+                assert o.dtype == out_dtype and torch.equal(o, w), \
+                    (call, form)
+            for o, w in zip(tp_allreduce(p16, group, variant=form),
+                            tp_allreduce.plain(p16, group)):
+                assert torch.equal(o, w), (call, form)
 
 
 @pytest.mark.parametrize("tp,cards", [(2, 2), (4, 2), (4, 4)])
@@ -997,6 +1054,10 @@ def test_tp_allreduce_rejects_what_it_does_not_take(dev):
                      TPGroup([dev] * 2))
     with pytest.raises(ValueError, match="fp32 or bf16"):
         tp_allreduce([p.half() for p in parts], TPGroup([dev] * 2))
+    with pytest.raises(ValueError, match="E % 8"):
+        tp_allreduce([torch.zeros(4, 36, device=dev)] * 2, TPGroup([dev] * 2))
+    with pytest.raises(ValueError, match="unknown variant"):
+        tp_allreduce(parts, TPGroup([dev] * 2), variant="ring")
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 512, 1024), (32, 256, 1024)])
@@ -1360,14 +1421,35 @@ def _ptxas_report(name: str, out_dir) -> dict:
 
 
 def test_resources_match_ptxas(dev, tmp_path):
-    """The runtime's registers and local bytes of add_layernorm's one kernel
-    equal what ptxas printed when it compiled it."""
+    """The runtime's registers and local bytes of each of add_layernorm's
+    kernels (the scalar kernel, the vector kernel at 1 and 4 warps a row)
+    equal what ptxas printed when it compiled it; the vector kernels use no
+    local memory."""
     report = _ptxas_report("add_layernorm", tmp_path)
-    (regs, stack, _), = [v for k, v in report.items()
-                         if "add_layernorm_kernel" in k]
-    (row,) = _build.resources("add_layernorm")
-    assert (row["registers"], row["local_bytes"]) == (regs, stack)
-    assert row["op"] == "add_layernorm" and row["blocks_per_sm"] >= 1
+    rows = _build.resources("add_layernorm")
+    assert sorted(r["variant"] for r in rows) == ["scalar", "warps1",
+                                                  "warps4"]
+    for row in rows:
+        base, _, arg = row["kernel"].partition("<")
+        name = f"{len(base)}{base}"  # as the mangled name spells it
+        tmpl = f"ILi{arg.rstrip('>')}E" if arg else ""
+        (regs, stack, _), = [v for k, v in report.items()
+                             if name in k and tmpl in k]
+        assert (row["registers"], row["local_bytes"]) == (regs, stack), row
+        assert row["op"] == "add_layernorm" and row["blocks_per_sm"] >= 1
+        if row["variant"] != "scalar":
+            assert row["local_bytes"] == 0, row
+
+
+def test_tp_allreduce_one_card_kernels_report_no_spill(dev):
+    """K15's one-card kernels (tp = 2 and 4) use no local memory; the
+    exchange's kernels are listed beside them."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import tp_allreduce
+    rows = tp_allreduce.resources("local")
+    assert len(rows) == 2
+    for r in rows:
+        assert r["local_bytes"] == 0 and r["blocks_per_sm"] >= 1, r
+    assert len(tp_allreduce.resources("coop")) == 2
 
 
 def test_every_backward_kernel_reports_its_resources(dev):
