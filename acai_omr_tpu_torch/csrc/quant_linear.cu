@@ -34,8 +34,8 @@
 // fp32 `out` without the bias (`_qdot` under ACAI_TP_W8A8; K15 tp_allreduce
 // sums the ranks' partials and adds the bias).
 //
-// K14 quant4_linear_bias_act (second entry point): the W4A8 product, the
-// same function with int4 weights in [-7, 7].
+// K14 quant4_linear_bias_act (second and third entry points): the W4A8
+// product, the same function with int4 weights in [-7, 7].
 //
 // Replaces: `unpack_int4` and the W4A8 branch of `_kernel` in
 // ops/pallas_monolith.py of the JAX package, which unpacks a layer's six
@@ -46,20 +46,49 @@
 //
 // Layout: weights K-packed eight rows a word, (K/8, N) int32; byte j of the
 // word of rows k..k+7 holds q[k+j] + 8 in its low nibble and q[k+4+j] + 8 in
-// its high nibble. Nothing is staged in device memory: each thread loads one
-// coalesced word per 8 k and forms the two `__dp4a` operands in registers
-// (mask, then a per-byte subtraction of 8), against the activation words of
-// k..k+3 and k+4..k+7.
+// its high nibble, so (w & 0x0F0F0F0F) - 0x08080808 (per byte) holds rows
+// k..k+3 and ((w >> 4) & 0x0F0F0F0F) - 0x08080808 rows k+4..k+7.
 //
-// Bound on an H100: half of K5's, the K*N/2 packed weight bytes at 3.35 TB/s
-// at decode rows. The design is K5's (row quantizer, split-K plan, reduce and
-// epilogue kernels shared); only the product kernel's inner loop differs, two
-// `__dp4a` and the unpack per word.
+// Bound on an H100: the K*N/2 packed weight bytes at 3.35 TB/s at decode
+// rows (M <= 32), a quarter of K1's bytes.
+//
+// Design (`acai_quant4_linear_bias_act_cluster`, one launch, no scratch in
+// device memory), on the model of K1's skinny kernel: a block owns 64 output
+// columns, up to 32 activation rows and one range of K; the K ranges of an
+// output tile are the blocks of one thread-block cluster (at most 8,
+// `quant4_plan` in ops/quant_linear_kernel.py).
+// * Thread 0 issues every load of the block by TMA at once: its K range of
+//   the x rows (boxes of 32 rows x 128 k, rows past M zero) and the packed
+//   weight boxes (16 word rows x 32 columns, 128-byte swizzle, two a stage)
+//   through a ring of up to 8 stages.
+// * Each row's partial max-abs over the block's range (a warp a row, from
+//   shared memory) meets the other blocks' through distributed shared
+//   memory (max is order-free), so every block quantizes its range with the
+//   row's scale over all of K, fp32 max(amax, 1e-8) / 127 (x times the
+//   scale's reciprocal, the division itself only near a half-integer, where
+//   the two could round apart), into int8 rows laid out in the tensor cores'
+//   fragment order, a warp a row.
+// * The product: `mma.sync` m16n8k32 s8 x s8 -> s32. A thread's B fragment
+//   is the two nibble halves of two packed words of its column, unpacked in
+//   registers; the k order inside a 32-deep step is permuted the same way on
+//   both operands (an integer sum is the same in any order). Eight warps, an
+//   8-column tile each.
+// * The exact int32 partial tiles meet through distributed shared memory
+//   after a cluster barrier; the blocks share the tile's epilogue.
+// The result equals K5's function and the plain twin bit for bit.
+//
+// The form it replaced (`acai_quant4_linear_bias_act`, kept as the
+// yardstick, `variant="simt"`): K5's three launches (row quantizer, product,
+// split-K reduce), one coalesced word a thread per 8 k at stride N, two
+// `__dp4a` a word and row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "func_attrs.cuh"
+#include "sm90_cluster.cuh"
 
 namespace {
 
@@ -236,6 +265,309 @@ int launch_quant_linear(const void* x, const void* w,
   return (int)cudaGetLastError();
 }
 
+
+// --------------------------------------------- K14's cluster kernel (W4A8)
+
+namespace q4 {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int BN = 64;               // output columns a block
+constexpr int SUB = 32;              // columns a TMA box: 128 bytes, swizzled
+constexpr int KSTEP = 128;           // k a stage
+constexpr int ROWS = 32;             // activation rows a block
+constexpr int PROWS = KSTEP / 8;     // packed word rows a stage
+constexpr int BOX_BYTES = PROWS * SUB * 4;
+constexpr int X_BOX_BYTES = ROWS * KSTEP * 2;  // an x box: 32 rows x 128 k
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;
+constexpr int STAGES = 8;
+constexpr int MAX_CHUNK = 1024;      // k a block
+constexpr int XS = MAX_CHUNK + 32;   // see x8_stride
+constexpr int PLD = BN + 4;          // int32 partial tile, 16-byte rows
+constexpr int SMEM_MAX = 1024 + STAGES * STAGE_BYTES + ROWS * MAX_CHUNK * 2 +
+                         ROWS * XS + ROWS * PLD * 4;
+
+// The int8 rows' stride: k_chunk + 32 bytes, so the eight-byte fragment
+// loads of four rows fall in four different bank groups.
+__device__ __forceinline__ int x8_stride(int k_chunk) { return k_chunk + 32; }
+
+// Where k (within a block's range) of an int8 row lies: inside each 32-deep
+// step, 4-k groups u = 0..7 go to slot u with bits 0 and 1 swapped, so that
+// a thread's a0 / a2 fragments (k 4t.., 16 + 4t.. of the mma's order) are
+// one eight-byte load; B takes the same permutation.
+__device__ __forceinline__ int x8_offset(int k) {
+  const int u = (k & 31) >> 2;
+  const int v = ((u & 1) << 1) | ((u >> 1) & 1) | (u & 4);
+  return (k & ~31) + 4 * v + (k & 3);
+}
+
+// rint(x / rs) rounded half to even, as the division would give it, from
+// x * (1 / rs): for |x / rs| <= 127 the product and the correctly rounded
+// quotient lie less than 2^-15 apart, so their rounding to an integer can
+// differ only within 2^-14 of a half-integer, where the division is taken.
+__device__ __forceinline__ int round_quotient(float x, float rs, float inv) {
+  const float y = __fmul_rn(x, inv);
+  if (fabsf(fabsf(y - truncf(y)) - 0.5f) < 0x1p-14f)
+    return __float2int_rn(__fdiv_rn(x, rs));
+  return __float2int_rn(y);
+}
+
+// A packed word of a 128-byte-swizzled box of 32 columns: row r, column c.
+__device__ __forceinline__ uint32_t box_word(const unsigned char* box, int r,
+                                             int c) {
+  return *reinterpret_cast<const uint32_t*>(
+      box + r * 128 + ((((c >> 2) ^ (r & 7))) << 4) + (c & 3) * 4);
+}
+
+__device__ __forceinline__ uint32_t nibbles(uint32_t w, int high) {
+  return __vsub4((high ? w >> 4 : w) & 0x0F0F0F0Fu, 0x08080808u);
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Grid (split, N / BN, ceil(M / ROWS)), one cluster of `split` blocks per
+// (64 columns, 32 rows): block r of the cluster sums K over
+// [r k_chunk, (r + 1) k_chunk).
+__global__ void __launch_bounds__(THREADS)
+    quant4_cluster(const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap tx,
+                   const float* __restrict__ col_scale,
+                   const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ out16,
+                   float* __restrict__ out32, int M, int N, int K,
+                   int k_chunk, int stages, int act) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t x_full;
+  __shared__ float amax_s[ROWS];
+  __shared__ float rs_s[ROWS], inv_s[ROWS];
+
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // the swizzle's alignment
+  unsigned char* base = smem_raw + (ring - raw);
+  const int rank = sm90::cluster_rank(), split = (int)gridDim.x;
+  const int n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.z * ROWS;
+  const int mr = min(ROWS, M - m0);
+  const int k_lo = rank * k_chunk;
+  const int kn = min(K, k_lo + k_chunk) - k_lo;  // > 0: ranges none empty
+  const int steps = kn / KSTEP;
+  const int xs = x8_stride(k_chunk);
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(base + stages * STAGE_BYTES);
+  int8_t* x8 = reinterpret_cast<int8_t*>(xb + ROWS * k_chunk);
+  int* part = reinterpret_cast<int*>(x8 + ROWS * xs);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  auto fetch = [&](int i) {
+    const int s = i % stages;
+    const uint32_t bar = sm90::smem_u32(&full[s]);
+    sm90::mbar_expect_tx(bar, STAGE_BYTES);
+    const int row = k_lo / 8 + i * PROWS;
+    sm90::tma_load(ring + s * STAGE_BYTES, &tw, bar, n0, row);
+    sm90::tma_load(ring + s * STAGE_BYTES + BOX_BYTES, &tw, bar, n0 + SUB, row);
+  };
+  // thread 0 starts every load: this block's K range of the rows (one box
+  // of 32 rows x 128 k a step, rows past M zero) and the first stages of
+  // weights
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+    sm90::mbar_init(sm90::smem_u32(&x_full), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    sm90::mbar_expect_tx(sm90::smem_u32(&x_full), steps * X_BOX_BYTES);
+    for (int i = 0; i < steps; ++i)
+      sm90::tma_load(sm90::smem_u32(xb) + i * X_BOX_BYTES, &tx,
+                     sm90::smem_u32(&x_full), k_lo + i * KSTEP, m0);
+    for (int i = 0; i < min(stages, steps); ++i) fetch(i);
+  }
+  __syncthreads();  // the barriers are initialised
+  sm90::mbar_wait(sm90::smem_u32(&x_full), 0);
+  // x row r, k at (k / 128) * X_BOX + r * 128 + k % 128 of the staging
+  auto xs_at = [&](int r, int k) {
+    return xb + (k / KSTEP) * (ROWS * KSTEP) + r * KSTEP + k % KSTEP;
+  };
+  // each row's partial max-abs, a warp a row, by shuffles
+  const int vecs = kn / 8;  // 16-byte vectors a row (a multiple of 16)
+  for (int r = warp; r < mr; r += WARPS) {
+    float a = 0.0f;
+    for (int c = lane; c < vecs; c += 32) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xs_at(r, 8 * c));
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a = fmaxf(a, fmaxf(fabsf(sm90::bf16_lo(w[j])),
+                           fabsf(sm90::bf16_hi(w[j]))));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    if (lane == 0) amax_s[r] = a;
+  }
+  sm90::cluster_sync();  // every block's partial maxima are published
+  if (tid < mr) {
+    float p[sm90::MAX_CLUSTER];
+    sm90::load_peers(&amax_s[tid], split, p);
+    float a = p[0];
+#pragma unroll
+    for (int q = 1; q < sm90::MAX_CLUSTER; ++q)
+      if (q < split) a = fmaxf(a, p[q]);
+    const float rs = __fdiv_rn(fmaxf(a, 1e-8f), 127.0f);
+    rs_s[tid] = rs;
+    inv_s[tid] = __frcp_rn(rs);
+  }
+  __syncthreads();
+  // the int8 rows (x / scale rounded half to even, no clip: |x| / scale is
+  // at most 127), in fragment order; rows past M of a 16-row tile are zero
+  // (a warp a row, 8 k a lane)
+  const int mtiles = (mr + 15) / 16;
+  for (int r = warp; r < mtiles * 16; r += WARPS) {
+    int8_t* dst = x8 + r * xs;
+    const bool real = r < mr;
+    const float rs = real ? rs_s[r] : 1.0f, inv = real ? inv_s[r] : 1.0f;
+    for (int c = lane; c < kn / 8; c += 32) {
+      uint32_t packed[2] = {0u, 0u};
+      if (real) {
+        const uint4 v = *reinterpret_cast<const uint4*>(xs_at(r, 8 * c));
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int lo = round_quotient(sm90::bf16_lo(w[j]), rs, inv) & 0xff;
+          const int hi = round_quotient(sm90::bf16_hi(w[j]), rs, inv) & 0xff;
+          packed[j / 2] |= (uint32_t)(lo | hi << 8) << (16 * (j % 2));
+        }
+      }
+      *reinterpret_cast<uint32_t*>(dst + x8_offset(8 * c)) = packed[0];
+      *reinterpret_cast<uint32_t*>(dst + x8_offset(8 * c + 4)) = packed[1];
+    }
+  }
+  __syncthreads();
+
+  // the product: warp w on the 8-column tile [8 w, 8 w + 8)
+  const int g = lane / 4, t = lane % 4;
+  const int col = warp * 8 + g;
+  const int sub_off = (col / SUB) * BOX_BYTES;
+  int acc[2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[a][e] = 0;
+  const bool refill = stages < steps;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % stages;
+    sm90::mbar_wait(sm90::smem_u32(&full[s]), (i / stages) & 1);
+    const unsigned char* slot = base + s * STAGE_BYTES;
+#pragma unroll
+    for (int kb = 0; kb < KSTEP / 32; ++kb) {
+      const int kx = i * KSTEP + kb * 32 + 8 * t;
+      uint2 a[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (mt < mtiles) {
+          a[mt][0] = *reinterpret_cast<const uint2*>(x8 + (mt * 16 + g) * xs + kx);
+          a[mt][1] =
+              *reinterpret_cast<const uint2*>(x8 + (mt * 16 + g + 8) * xs + kx);
+        }
+      const int pr = kb * 4 + 2 * (t >> 1);  // this thread's two word rows
+      const unsigned char* box = slot + sub_off;
+      const uint32_t b0 = nibbles(box_word(box, pr, col % SUB), t & 1);
+      const uint32_t b1 = nibbles(box_word(box, pr + 1, col % SUB), t & 1);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (mt < mtiles)
+          mma_s8(acc[mt], a[mt][0].x, a[mt][1].x, a[mt][0].y, a[mt][1].y, b0,
+                 b1);
+    }
+    if (refill) {
+      __syncthreads();  // the slot is free
+      if (tid == 0 && i + stages < steps) fetch(i + stages);
+    }
+  }
+  // the block's int32 partial tile
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    if (mt < mtiles) {
+      const int c2 = warp * 8 + 2 * t, row = mt * 16 + g;
+      *reinterpret_cast<int2*>(part + row * PLD + c2) =
+          make_int2(acc[mt][0], acc[mt][1]);
+      *reinterpret_cast<int2*>(part + (row + 8) * PLD + c2) =
+          make_int2(acc[mt][2], acc[mt][3]);
+    }
+  sm90::cluster_sync();  // every block's partial tile is staged
+  // this block's share of the tile's outputs, four columns at a time: the
+  // exact partials of every rank, then the epilogue in the twin's order
+  constexpr int G = BN / 4;
+  for (int e = rank * THREADS + tid; e < mr * G; e += split * THREADS) {
+    const int r = e / G, c = (e % G) * 4;
+    int4 u[sm90::MAX_CLUSTER];  // every load in flight before the sum
+#pragma unroll
+    for (int q = 0; q < sm90::MAX_CLUSTER; ++q)
+      if (q < split) u[q] = sm90::load_peer_int4(part + r * PLD + c, q);
+    int4 v = u[0];
+#pragma unroll
+    for (int q = 1; q < sm90::MAX_CLUSTER; ++q)
+      if (q < split) {
+        v.x += u[q].x;
+        v.y += u[q].y;
+        v.z += u[q].z;
+        v.w += u[q].w;
+      }
+    const int s4[4] = {v.x, v.y, v.z, v.w};
+    const float rs = rs_s[r];
+    const size_t o = (size_t)(m0 + r) * N + n0 + c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float y = epilogue(s4[j], rs, col_scale[n0 + c + j], bias,
+                               n0 + c + j, act);
+      if (out32 != nullptr)
+        out32[o + j] = y;
+      else
+        out16[o + j] = __float2bfloat16(y);
+    }
+  }
+  sm90::cluster_sync();  // no block leaves while another reads its partials
+}
+
+int launch(const void* x, const void* w, const void* col_scale,
+           const void* bias, void* out, int M, int N, int K, int k_chunk,
+           int split, int act, cudaStream_t s) {
+  if (M < 1 || N % BN != 0 || K % KSTEP != 0 || k_chunk <= 0 ||
+      k_chunk % KSTEP != 0 || k_chunk > MAX_CHUNK || split < 1 ||
+      split > sm90::MAX_CLUSTER || (long long)k_chunk * (split - 1) >= K ||
+      (long long)k_chunk * split < K || (act != 3 && bias == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tw, tx;
+  int rc = sm90::encode_map(&tw, w, K / 8, N, N, PROWS, SUB,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_DATA_TYPE_INT32, 4);
+  if (rc == 0)
+    rc = sm90::encode_map(&tx, x, M, K, K, ROWS, KSTEP,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc != 0) return rc;
+  const int stages = std::min(STAGES, k_chunk / KSTEP);
+  const int smem = 1024 + stages * STAGE_BYTES + ROWS * k_chunk * 2 +
+                   ROWS * (k_chunk + 32) + ROWS * PLD * 4;
+  const cudaError_t err = cudaFuncSetAttribute(
+      quant4_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  const bool f32 = act == 3;
+  return sm90::launch_cluster(
+      quant4_cluster, dim3(split, N / BN, (M + ROWS - 1) / ROWS), THREADS,
+      smem, split, s, tw, tx, static_cast<const float*>(col_scale), static_cast<const float*>(bias),
+      f32 ? nullptr : static_cast<__nv_bfloat16*>(out),
+      f32 ? static_cast<float*>(out) : nullptr, M, N, K, k_chunk, stages, act);
+}
+
+}  // namespace q4
+
 }  // namespace
 
 // x8 (M, K) int8 and row_scale (M,) fp32 are scratch the wrapper allocates.
@@ -267,3 +599,32 @@ extern "C" int acai_quant4_linear_bias_act(const void* x, const void* w8k,
       x, w8k, col_scale, bias, out, x8, row_scale,
       partial, M, N, K, k_chunk, splits, act, stream);
 }
+
+// K14 in one launch (`quant4_cluster`): x (M, K) bf16, 16-byte aligned;
+// (K/8, N) int32 words of packed int4 weights, 16-byte aligned; K % 128 == 0,
+// N % 64 == 0; K split in `split` (<= 8, one cluster) ranges of k_chunk (a
+// multiple of 128, at most 1024), none empty. act == 3: `out` is (M, N)
+// fp32 and `bias` is null.
+extern "C" int acai_quant4_linear_bias_act_cluster(
+    const void* x, const void* w8k, const void* col_scale, const void* bias,
+    void* out, int M, int N, int K, int k_chunk, int split, int act,
+    void* stream) {
+  return q4::launch(x, w8k, col_scale, bias, out, M, N, K, k_chunk, split,
+                    act, static_cast<cudaStream_t>(stream));
+}
+
+// The resource report (func_attrs.cuh): K14's cluster kernel, which every
+// `split{s}` launch runs, at its largest dynamic shared memory; the kernels
+// of K5 and of K14's `simt` form.
+static const AcaiKernelEntry kResources[] = {
+    {"quant4_linear_bias_act|split|quant4_cluster",
+     reinterpret_cast<const void*>(q4::quant4_cluster), q4::THREADS,
+     q4::SMEM_MAX},
+    ACAI_KERNEL("quant4_linear_bias_act", "simt", quant_linear_kernel<true>,
+                THREADS, 0),
+    ACAI_KERNEL("quant_linear_bias_act", "", quant_linear_kernel<false>,
+                THREADS, 0),
+    ACAI_KERNEL("quant_linear_bias_act", "", quantize_rows_kernel, QTHREADS,
+                0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

@@ -1,8 +1,9 @@
 // sm90_cluster.cuh: thread-block clusters and unswizzled TMA boxes, shared
 // by the kernels that split one reduction across the blocks of a cluster:
-// K1's skinny decode kernel (linear_bias_act.cu: K split across the
-// cluster), K2 decode_attention and K11 decode_attention_hd (the keys split
-// across the cluster).
+// K1's skinny decode kernel and K14's W4A8 product (linear_bias_act.cu,
+// quant_linear.cu: K split across the cluster), K2 decode_attention, K6
+// decode_attention_int8 and K11 decode_attention_hd (the keys split across
+// the cluster).
 //
 // A cluster's blocks run on neighbouring SMs at the same time and can read
 // each other's shared memory (distributed shared memory). The pattern of all
@@ -14,6 +15,7 @@
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "sm90_gemm.cuh"
 
@@ -64,6 +66,41 @@ __device__ __forceinline__ float load_peer(const float* p, int rank) {
                : "r"(peer_addr(p, rank))
                : "memory");
   return v;
+}
+
+// One int / four ints of block `rank`'s shared memory at this block's `p`.
+__device__ __forceinline__ int load_peer_int(const int* p, int rank) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];"
+               : "=r"(v)
+               : "r"(peer_addr(p, rank))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int4 load_peer_int4(const int* p, int rank) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(peer_addr(p, rank))
+               : "memory");
+  return v;
+}
+
+// The value at this block's `p` in each of the cluster's first n blocks
+// (n <= MAX_CLUSTER) into v[0 .. n), every load issued before the first is
+// used (a distributed load is a round trip of a few hundred cycles; one after
+// another they add up).
+template <class T>
+__device__ __forceinline__ void load_peers(const T* p, int n,
+                                           T (&v)[MAX_CLUSTER]) {
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r) {
+    if constexpr (std::is_same<T, float>::value)
+      v[r] = r < n ? load_peer(p, r) : 0.0f;
+    else
+      v[r] = r < n ? load_peer_int(p, r) : 0;
+  }
 }
 
 // The two bf16 of a 32-bit word as floats (element 0 in the low half).

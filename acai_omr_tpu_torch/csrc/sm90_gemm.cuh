@@ -536,24 +536,29 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a row-major bf16 matrix (rows, cols) whose rows lie `ld`
-// elements apart, read in boxes of box_rows x box_cols with `swizzle`, zeros
-// outside. TMA's own rules: a row stride (ld * 2 bytes) and a base address
-// that are multiples of 16 bytes; box extents at most 256.
-inline int encode_map(CUtensorMap* map, const void* ptr, long long rows,
-                      long long cols, long long ld, int box_rows, int box_cols,
-                      CUtensorMapSwizzle swizzle) {
-  if (rows <= 0 || cols <= 0 || ld < cols || ld % 8 != 0 || box_rows < 1 ||
-      box_rows > 256 || box_cols < 1 || box_cols > 256 ||
+// The map of a row-major matrix (rows, cols) of `type` elements,
+// `elem_bytes` each (bf16 unless given: K6 reads int8 caches, K14 packed int4
+// words), whose rows lie `ld` elements apart, read in boxes of box_rows x
+// box_cols with `swizzle`, zeros outside. TMA's own rules: a row stride and a
+// base address that are multiples of 16 bytes, a box row a multiple of 16
+// bytes, box extents at most 256.
+inline int encode_map(
+    CUtensorMap* map, const void* ptr, long long rows, long long cols,
+    long long ld, int box_rows, int box_cols, CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    int elem_bytes = 2) {
+  if (rows <= 0 || cols <= 0 || ld < cols || (ld * elem_bytes) % 16 != 0 ||
+      box_rows < 1 || box_rows > 256 || box_cols < 1 || box_cols > 256 ||
+      (box_cols * elem_bytes) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem_bytes)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map, type, 2,
                         const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

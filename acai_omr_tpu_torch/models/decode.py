@@ -6,7 +6,9 @@ rows per memory row), :func:`beam_generate` and :func:`streamed_generate`,
 with caches in the compute dtype or int8. Two steps, told apart by the
 caches' ``ndim`` as in JAX:
 
-* **The monolith step** (``ops.decode_kernel.use_monolith()``, the default):
+* **The monolith step** (``ops.decode_kernel.use_monolith()``, the default,
+  where ``ops.decode_kernel.monolith_takes`` says its kernels take the
+  decoder's shapes on the device: :func:`_monolith_for`):
   time-major caches ``(L, B, T, E)`` appended in place by
   :func:`..ops.decode_kernel.decode_layers` (K1 or K5, K2 or K6, K4). Memory
   K/V in the ``te`` layout ``(L, B, M, E)``. ``cache_dtype=torch.int8`` is the
@@ -65,8 +67,9 @@ import torch
 
 from ..ops import decode_hd_kernel as hd
 from ..ops import nn
-from ..ops.decode_kernel import (decode_layers, prepack, quantize_rows,
-                                 use_monolith, weight_quant_mode)
+from ..ops.decode_kernel import (decode_layers, monolith_takes, prepack,
+                                 quantize_rows, use_monolith,
+                                 weight_quant_mode)
 from ..ops.tp_allreduce_kernel import tp_allreduce
 from .omr_decoder import DecoderConfig
 
@@ -279,12 +282,13 @@ def decode_attention(q: torch.Tensor, kT: torch.Tensor, vT: torch.Tensor,
     int8 caches k_scale/v_scale (B, H, T) dequantize after the dots. Only the
     first ``n_keys`` positions are read (the rest must carry no weight).
     Where the switch of the cache's dtype is on, K11 (caches in the compute
-    dtype) or K12 (int8) computes it; else this plain path, whose softmax
-    weights are rounded to the compute dtype before the V product (the
-    kernels' are not). Returns (B, H, Dh) in the compute dtype.
+    dtype, a head dim it takes on the device: ``hd_takes``) or K12 (int8)
+    computes it; else this plain path, whose softmax weights are rounded to
+    the compute dtype before the V product (the kernels' are not). Returns
+    (B, H, Dh) in the compute dtype.
     """
-    if hd.use_kernel(kT.dtype) and (k_scale is not None
-                                    or q.dtype == kT.dtype):
+    if hd.use_kernel(kT.dtype) and (k_scale is not None or (
+            q.dtype == kT.dtype and hd.hd_takes(q.shape[-1], q.device))):
         if k_scale is None:
             return hd.decode_attention_hd(q.contiguous(), kT, vT, bias,
                                           n_keys=n_keys)
@@ -659,12 +663,24 @@ def _check_cache_dtype(cache_dtype) -> None:
                          f"{cache_dtype}")
 
 
-def _monolith_for(compute_dtype, cache_dtype) -> bool:
-    """Whether a decode takes the monolith step: its switch is on and the
-    caches are in the compute dtype or int8. A float cache dtype other than
-    the compute dtype takes the per-op step, which stores the caches in it
-    (the JAX package's ``use_monolith``, ``pallas_monolith.py:431-437``)."""
-    return use_monolith() and cache_dtype in (compute_dtype, torch.int8)
+def _monolith_for(cfg: DecoderConfig, compute_dtype, cache_dtype,
+                  max_len: int, mem_len: int, device, mem_group: int = 1,
+                  tp: int = 1) -> bool:
+    """Whether a decode takes the monolith step, decided once per decode:
+    its switch is on, the caches are in the compute dtype or int8, and
+    every kernel of the step takes the decoder's shapes on ``device`` up to
+    the longest cache the decode can reach (``max_len`` rounded up to the
+    time tile, where segment growth ends) and the memory's ``mem_len`` rows
+    (:func:`..ops.decode_kernel.monolith_takes`). Otherwise the per-op step,
+    as the JAX package's ``use_monolith`` (``pallas_monolith.py:419-443``)
+    sends a float cache dtype other than the compute dtype, and the shapes
+    its kernel does not take, to it."""
+    if not (use_monolith() and cache_dtype in (compute_dtype, torch.int8)):
+        return False
+    return monolith_takes(cfg.hidden_dim, cfg.num_heads, cfg.mlp_dim,
+                          cache_dtype, compute_dtype,
+                          _round_up(max_len, time_tile(cache_dtype)), mem_len,
+                          device, mem_group, tp)
 
 
 def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
@@ -703,10 +719,13 @@ def generate(params: Params, cfg: DecoderConfig, img_latent: torch.Tensor,
 
     A float ``cache_dtype`` other than the compute dtype (fp32 compute over
     bf16 caches, JAX's default) decodes on the per-op step with the caches
-    stored in that dtype.
+    stored in that dtype; so does a decoder whose shapes the monolith
+    step's kernels do not take (:func:`_monolith_for`).
     """
     _check_cache_dtype(cache_dtype)
-    monolith = _monolith_for(compute_dtype, cache_dtype)
+    monolith = _monolith_for(cfg, compute_dtype, cache_dtype, max_len,
+                             img_latent.shape[1], img_latent.device,
+                             mem_group)
     if mem_group > 1 and cache_dtype == torch.int8 and not monolith:
         img_latent = img_latent.repeat_interleave(mem_group, dim=0)
         if latent_valid is not None:
@@ -908,12 +927,15 @@ def beam_generate(params: Params, cfg: DecoderConfig, img_latent, latent_valid,
     trimmed like :func:`generate`; with ``return_all_beams`` also returns
     ``(all_seqs, all_scores)``. Beams share their image's memory
     (``mem_group = beam_size``): the cross K/V are projected and held once
-    per image. A float ``cache_dtype`` other than the compute dtype takes
-    the per-op step, as in :func:`generate`.
+    per image. A float ``cache_dtype`` other than the compute dtype, or a
+    shape the monolith step's kernels do not take, takes the per-op step,
+    as in :func:`generate`.
     """
     _check_cache_dtype(cache_dtype)
     b = img_latent.shape[0]
-    monolith = _monolith_for(compute_dtype, cache_dtype)
+    monolith = _monolith_for(cfg, compute_dtype, cache_dtype, max_len,
+                             img_latent.shape[1], img_latent.device,
+                             beam_size)
     tt = time_tile(cache_dtype) if monolith else 1
     cache_len = _round_up(min(initial_segment, max_len), tt)
     mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
@@ -964,7 +986,8 @@ def streamed_generate(params: Params, cfg: DecoderConfig, img_latent,
     if not cache_dtype.is_floating_point:
         raise ValueError(f"streamed generation keeps float caches, got "
                          f"{cache_dtype}")
-    monolith = _monolith_for(compute_dtype, cache_dtype)
+    monolith = _monolith_for(cfg, compute_dtype, cache_dtype, max_len,
+                             img_latent.shape[1], img_latent.device)
     tt = TIME_TILE if monolith else 1
     cache_len = _round_up(min(256, max_len), tt)
     mem = precompute_memory_kv(params, cfg, img_latent, latent_valid,
@@ -1064,8 +1087,11 @@ class _Shard:
 
 
 def _mesh_plan(cfg: DecoderConfig, mesh, axis, model_axis, compute_dtype,
-               cache_dtype, what: str):
-    """(data shards, tp, monolith) of a meshed decode, with JAX's checks."""
+               cache_dtype, what: str, *, max_len: int, mem_len: int,
+               mem_group: int = 1):
+    """(data shards, tp, monolith) of a meshed decode, with JAX's checks;
+    the monolith step where :func:`_monolith_for` takes the rank's shapes
+    on the mesh's devices."""
     from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
     if axis != DATA_AXIS or model_axis not in (None, MODEL_AXIS):
         raise ValueError(f"a mesh's axes are {DATA_AXIS!r} and "
@@ -1086,8 +1112,9 @@ def _mesh_plan(cfg: DecoderConfig, mesh, axis, model_axis, compute_dtype,
     # tp = 2 / 4 rides the monolith step with K15 (the JAX kernel's lane
     # conditions are TPU limits); other tp sizes (on the CPU) take the
     # per-op step
-    monolith = (tp == 1 or tp in (2, 4)) and _monolith_for(compute_dtype,
-                                                            cache_dtype)
+    monolith = (tp == 1 or tp in (2, 4)) and _monolith_for(
+        cfg, compute_dtype, cache_dtype, max_len, mem_len, mesh.devices[0][0],
+        mem_group, tp)
     return n_dev, tp, monolith
 
 
@@ -1200,7 +1227,10 @@ def sharded_generate(params: Params, cfg: DecoderConfig, img_latent,
     shards; rows of slower shards hold pad past their own position.
     """
     n_dev, tp, monolith = _mesh_plan(cfg, mesh, axis, model_axis,
-                                     compute_dtype, cache_dtype, "decode")
+                                     compute_dtype, cache_dtype, "decode",
+                                     max_len=max_len,
+                                     mem_len=img_latent.shape[1],
+                                     mem_group=mem_group)
     if mem_group > 1 and cache_dtype == torch.int8 and not monolith:
         # grouped int8 memory is a monolith-step layout: the per-op step
         # needs the replicated memory
@@ -1264,7 +1294,10 @@ def sharded_beam_generate(params: Params, cfg: DecoderConfig, img_latent,
     :func:`sharded_generate`. Returns the best beam per image as
     ``(seqs, log_probs, mask)``, as :func:`beam_generate`."""
     n_dev, tp, monolith = _mesh_plan(cfg, mesh, axis, model_axis,
-                                     compute_dtype, cache_dtype, "beams")
+                                     compute_dtype, cache_dtype, "beams",
+                                     max_len=max_len,
+                                     mem_len=img_latent.shape[1],
+                                     mem_group=beam_size)
     b = img_latent.shape[0]
     k = beam_size
     if b % n_dev:

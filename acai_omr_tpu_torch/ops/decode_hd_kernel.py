@@ -18,11 +18,13 @@ the per-op ("lane-major") decode step, which keeps its caches as
   writes them and their scales into column ``pos`` of layer ``layer`` in
   place, and attends over the positions before ``pos`` plus the fresh token.
 
-The switches mirror the JAX package's and are the only gates:
-``ACAI_PALLAS_DECODE`` (K11, default off) and ``ACAI_PALLAS_DECODE_INT8``
-(K12 / K13, default on), read at import, changed with :func:`set_enabled` /
-:func:`set_enabled_int8`. The TPU shape and VMEM conditions of the JAX
-``use_pallas`` are not carried over: the kernels take every shape.
+The switches mirror the JAX package's: ``ACAI_PALLAS_DECODE`` (K11,
+default off) and ``ACAI_PALLAS_DECODE_INT8`` (K12 / K13, default on), read
+at import, changed with :func:`set_enabled` / :func:`set_enabled_int8`. The
+TPU shape and VMEM conditions of the JAX ``use_pallas`` are not carried
+over; the card's own rule is K11's head dims (:func:`hd_takes`), where the
+per-op step takes its plain path instead, as JAX falls back. K12 and K13
+take every head dim.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ _ENABLED_INT8 = os.environ.get("ACAI_PALLAS_DECODE_INT8", "1") == "1"
 # K12 / K13 keep every logit (and the query) in shared memory: 227 KB a block
 # at most; K11 takes as many keys (its blocks hold an eighth of them at most)
 MAX_KEYS = 227 * 1024 // 4 - 3 * 128
+# the head dims K11's cluster kernel is compiled for
+HD_DHS = (16, 32, 64, 128)
 
 
 def set_enabled(flag: bool) -> None:
@@ -58,6 +62,15 @@ def use_kernel(cache_dtype) -> bool:
     """Whether the per-op step attends through these kernels for caches of
     ``cache_dtype`` (the switch of that dtype)."""
     return _ENABLED_INT8 if cache_dtype == torch.int8 else _ENABLED
+
+
+def hd_takes(dh: int, device) -> bool:
+    """Whether K11 takes head dim ``dh`` on ``device``: on the card its
+    cluster kernel is compiled for HD_DHS; on the CPU its twin takes any.
+    :func:`..models.decode.decode_attention` asks before it calls K11 and
+    takes its plain path otherwise, as the JAX package's ``use_pallas``
+    falls back for the shapes its kernel does not take."""
+    return torch.device(device).type != "cuda" or dh in HD_DHS
 
 
 def _keys(t: int, n_keys) -> int:
@@ -117,9 +130,9 @@ def _launch_hd(op, q, kT, vT, bias=None, n_keys=None, variant=None):
     b, h, dh = q.shape
     t = kT.shape[-1]
     n = _keys(t, n_keys)
-    if plan is not None and dh not in (16, 32, 64, 128):
+    if plan is not None and not hd_takes(dh, q.device):
         raise ValueError(f"decode_attention_hd's cluster kernel takes head "
-                         f"dims 16, 32, 64 and 128, got {dh}")
+                         f"dims {HD_DHS}, got {dh}")
     out = torch.empty_like(q)
     args = (q.data_ptr(), kT.data_ptr(), vT.data_ptr(),
             0 if bias is None else bias.data_ptr(), b, h, dh, t, n,

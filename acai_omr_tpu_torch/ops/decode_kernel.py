@@ -19,7 +19,9 @@ kernel it replaced (one block per (row, head)), kept as the yardstick and
 launched by no path. int8 caches (the monolith's quantized mode):
 ATT = K6 ``decode_attention_int8`` (``csrc/decode_attention_int8.cu``), which
 quantizes q/k/v per (row, head), appends the int8 rows and their scales, and
-attends with integer products and quantized softmax weights. LIN = K1
+attends with integer products and quantized softmax weights, on K2's cluster
+design (:func:`decode_attention_int8_plan`, counted as ``"split{s}"``;
+``variant="simt"`` forces the kernel it replaced, launched by no path). LIN = K1
 ``linear_bias_act`` for compute-dtype weights, K5 ``quant_linear_bias_act``
 for int8 weights (W8A8) and K14 ``quant4_linear_bias_act`` for int4 weights
 (W4A8). K1, K4, K5 and K14 live in their own modules. The final norm, the
@@ -36,9 +38,13 @@ planes are a TPU layout and are not reproduced.
 memory row ``b // G`` (beams of one image share its memory).
 
 The decode loops take this step while ``ACAI_MONOLITH_DECODE`` (read at
-import, default on; :func:`set_enabled`) is on, and the per-op step of
-:mod:`..models.decode` otherwise. The switch is the only gate: the JAX
-package's lane and shape conditions of ``use_monolith`` are TPU limits.
+import, default on; :func:`set_enabled`) is on and :func:`monolith_takes`
+says that every op of the step takes the decoder's shapes on the device,
+and the per-op step of :mod:`..models.decode` otherwise, as the JAX
+package's ``use_monolith`` checks its own kernel's shapes (its lane
+conditions are TPU limits and are not carried over). The ops' own checks
+stay as strict: the gate is decided before a decode from the rules they
+enforce.
 
 Under int8 caches the weights follow two more switches, read at import as
 the JAX package reads them: ``ACAI_W8A8_DECODE`` (default on;
@@ -65,25 +71,32 @@ import os
 import torch
 
 from . import _build
-from .layernorm_kernel import add_layernorm
-from .linear_kernel import N_SMS, linear_bias_act
+from .layernorm_kernel import add_layernorm, layernorm_takes
+from .linear_kernel import N_SMS, linear_bias_act, linear_takes
 from .quant_linear_kernel import (INT4_QMAX, INT8_QMAX, pack_k4, pack_k8_int4,
-                                  quant4_linear_bias_act,
-                                  quant_linear_bias_act)
-from .tp_allreduce_kernel import tp_allreduce
+                                  quant4_linear_bias_act, quant4_takes,
+                                  quant_linear_bias_act, quant_takes)
+from .tp_allreduce_kernel import LOCAL_ELEMS, tp_allreduce
 
 Params = dict
 
-# K6 keeps one fp32 logit per key in shared memory (48 KB without opt-in)
+# the most keys of an int8 cache or memory the monolith step takes (the simt
+# K6 keeps one fp32 logit per key in 48 KB of shared memory)
 MAX_INT8_KEYS = 8192
-# K2 and K11: a block's keys are whole units of ATTN_UNIT; blocks a cluster
-# at most (a portable cluster); the shared memory a block's logits may take;
-# the blocks an SM and the units a block the plan aims at
+# K2, K6 and K11: a block's keys are whole units of ATTN_UNIT; blocks a
+# cluster at most (a portable cluster); the shared memory a block's logits
+# may take (K2, K11), a block's per-key shared memory (K6: G fp32 logits, G
+# int8 weights and two bf16 scales a key); the blocks an SM (K2 / K11, K6)
+# and the units a block the plan aims at; the head dims K2's and K6's
+# kernels are compiled for
 ATTN_UNIT = 16
 ATTN_MAX_SPLIT = 8
 ATTN_LOGIT_BYTES = 96 * 1024
+ATTN_INT8_KEY_BYTES = 96 * 1024
 ATTN_BLOCKS_PER_SM = 2
+ATTN_INT8_BLOCKS_PER_SM = 4
 ATTN_BLOCK_UNITS = 32
+ATTN_DHS = (32, 64, 128)
 _MATS = ("w_qkv", "w_self_out", "w_cross_q", "w_cross_out", "w_ff1", "w_ff2")
 
 _ENABLED = os.environ.get("ACAI_MONOLITH_DECODE", "1") == "1"
@@ -138,9 +151,60 @@ def weight_quant_mode(cache_dtype, tp_mono: bool = False):
 
 
 def use_monolith() -> bool:
-    """Whether the decode loops take this module's step (time-major caches)
-    rather than the per-op step (lane-major caches)."""
+    """The switch of this module's step (time-major caches) against the
+    per-op step (lane-major caches); :func:`monolith_takes` is the shape
+    gate beside it."""
     return _ENABLED
+
+
+def int8_step_takes(head_dim: int, max_keys: int) -> bool:
+    """The int8-cache rule of the step, on either device: a power-of-two
+    head dim (the JAX monolith's rolling-max quantization) and at most
+    MAX_INT8_KEYS keys of a cache or memory."""
+    return head_dim > 0 and not head_dim & (head_dim - 1) \
+        and max_keys <= MAX_INT8_KEYS
+
+
+def monolith_takes(e: int, heads: int, mlp_dim: int, cache_dtype,
+                   compute_dtype, max_keys: int, mem_len: int, device,
+                   mem_group: int = 1, tp: int = 1) -> bool:
+    """Whether every op of the step takes a decoder of width ``e``,
+    ``heads`` heads and MLP width ``mlp_dim`` on ``device``, with caches of
+    ``cache_dtype`` up to ``max_keys`` positions, a memory of ``mem_len``
+    rows shared by ``mem_group`` rows, and ``tp`` tensor-parallel ranks: K1,
+    K5 or K14 (as :func:`weight_quant_mode` picks), K2 or K6, K4 and K15.
+
+    Built from the rules the ops enforce. Those their checks enforce on
+    either device hold on the CPU too: K4's width (``layernorm_takes``),
+    K15's (E % LOCAL_ELEMS), the int8 step's power-of-two head dim and
+    MAX_INT8_KEYS (:func:`int8_step_takes`) and the keys a cluster holds
+    (:func:`attention_fits`). The launchers' rules hold on a ``cuda``
+    device only, so the twins keep taking the CPU's tiny shapes: a bf16
+    compute dtype, a head dim of ATTN_DHS, the products' shapes
+    (``linear_takes``, ``quant_takes``, ``quant4_takes``). The decode loops
+    take the per-op step where it is False, as the JAX package's
+    ``use_monolith`` falls back."""
+    if heads <= 0 or e % heads or heads % tp or mlp_dim % tp:
+        return False
+    dh = e // heads
+    quantized = cache_dtype == torch.int8
+    if not layernorm_takes(e) or (tp > 1 and e % LOCAL_ELEMS):
+        return False
+    if quantized and not int8_step_takes(dh, max(max_keys, mem_len)):
+        return False
+    if not (attention_fits(max(max_keys - 1, 0), 1, quantized)
+            and attention_fits(mem_len, mem_group, quantized)):
+        return False
+    if torch.device(device).type != "cuda":
+        return True
+    if compute_dtype != torch.bfloat16 or dh not in ATTN_DHS:
+        return False
+    el, fl = e // tp, mlp_dim // tp
+    mode = weight_quant_mode(cache_dtype, tp > 1)
+    takes = quant4_takes if mode == "int4" else quant_takes if mode \
+        else (lambda k, n: linear_takes("skinny", k, n))
+    return all(takes(k, n) for k, n in ((e, 3 * el), (el, e), (e, el),
+                                        (el, e), (e, fl), (fl, e)))
 
 
 def quantize_rows(x: torch.Tensor, scale_dtype=None):
@@ -167,9 +231,29 @@ def query_group(mem_group: int) -> int:
     return next(g for g in (1, 2, 4, 8) if g >= min(mem_group, 8))
 
 
+def _units_a_block(mem_group: int, int8: bool) -> int:
+    """The key units one block of K2 / K11 (``int8`` False) or of K6 holds
+    in shared memory, for clusters of ``query_group(mem_group)`` queries."""
+    gq = query_group(mem_group)
+    if int8:
+        return ATTN_INT8_KEY_BYTES // (5 * gq + 4) // ATTN_UNIT
+    return ATTN_LOGIT_BYTES // (4 * gq) // ATTN_UNIT
+
+
+def attention_fits(n_keys: int, mem_group: int = 1,
+                   int8: bool = False) -> bool:
+    """Whether the cluster kernels (K2 / K11, or K6 with ``int8``) hold
+    ``n_keys`` keys in the shared memory of ATTN_MAX_SPLIT blocks: the rule
+    :func:`_split_keys` raises on, at the widest split."""
+    units = max(1, -(-n_keys // ATTN_UNIT))
+    return -(-units // ATTN_MAX_SPLIT) <= _units_a_block(mem_group, int8)
+
+
 def decode_attention_plan(rows: int, heads: int, n_keys: int,
-                          mem_group: int = 1) -> tuple[int, int]:
-    """(keys of a block's largest range, split) of K2 and K11.
+                          mem_group: int = 1,
+                          int8: bool = False) -> tuple[int, int]:
+    """(keys of a block's largest range, split) of K2 and K11, or of K6
+    with ``int8`` (:func:`decode_attention_int8_plan`).
 
     One thread-block cluster of ``split`` blocks per (row, head), or per
     (memory row, head, up to 8 of its ``mem_group`` queries); the keys are
@@ -179,19 +263,35 @@ def decode_attention_plan(rows: int, heads: int, n_keys: int,
     ATTN_BLOCKS_PER_SM blocks an SM and at most ATTN_BLOCK_UNITS units a
     block, as far as the units and a cluster of ATTN_MAX_SPLIT allow, so
     clusters x split reaches the 132 SMs wherever it can; it takes at least
-    what the logits of a block in shared memory need (ATTN_LOGIT_BYTES) and
-    raises ValueError past 8 blocks' worth. Timed on an H100 at every split
-    (``chip_smoke.py --attn-splits``), this rule gave the fastest split or
-    one within 13 % of it at all 24 decode shapes; one block an SM, the rule
+    what a block's keys need in shared memory (ATTN_LOGIT_BYTES of logits,
+    or ATTN_INT8_KEY_BYTES for K6) and raises ValueError past 8 blocks'
+    worth. Timed on an H100 at every split (``chip_smoke.py
+    --attn-splits``), this rule gave K2's and K11's fastest split or one
+    within 13 % of it at all 24 decode shapes; one block an SM, the rule
     first tried, was up to 23 % slower at 4-16 rows."""
     gq = query_group(mem_group)
     clusters = rows // mem_group * -(-mem_group // gq) * heads
     units = max(1, -(-n_keys // ATTN_UNIT))
-    most = ATTN_LOGIT_BYTES // (4 * gq) // ATTN_UNIT  # units a block holds
+    most = _units_a_block(mem_group, int8)
+    per_sm = ATTN_INT8_BLOCKS_PER_SM if int8 else ATTN_BLOCKS_PER_SM
     split = min(ATTN_MAX_SPLIT, units,
-                max(ATTN_BLOCKS_PER_SM * N_SMS // max(clusters, 1),
+                max(per_sm * N_SMS // max(clusters, 1),
                     -(-units // ATTN_BLOCK_UNITS), -(-units // most)))
     return _split_keys(units, split, most, n_keys)
+
+
+def decode_attention_int8_plan(rows: int, heads: int, n_keys: int,
+                               mem_group: int = 1) -> tuple[int, int]:
+    """(keys of a block's largest range, split) of K6's cluster kernel:
+    :func:`decode_attention_plan`'s rule (ranges of whole 16-key units in
+    order, none empty; at most 8 blocks a cluster) at about
+    ATTN_INT8_BLOCKS_PER_SM blocks an SM, a block's keys within
+    ATTN_INT8_KEY_BYTES of shared memory at 5 G + 4 bytes a key. An int8
+    key is half a bf16 key's bytes: timed at every split on an H100
+    (``chip_smoke.py --int8-splits``, from HBM), K2's two blocks an SM left
+    K6 up to 14 % slower than its fastest split at 4-16 rows; four blocks an
+    SM were within 12 % of it at all ten decode shapes."""
+    return decode_attention_plan(rows, heads, n_keys, mem_group, int8=True)
 
 
 def _split_keys(units: int, split: int, most: int, n_keys: int):
@@ -204,14 +304,15 @@ def _split_keys(units: int, split: int, most: int, n_keys: int):
 
 @functools.lru_cache(maxsize=4096)
 def attention_split(variant, rows: int, heads: int, n_keys: int,
-                    mem_group: int = 1):
-    """(keys of the largest range, split) of a K2 / K11 call: the plan's,
-    or ``variant`` ``"split{s}"`` forced (fewer blocks where the keys are
-    fewer units than s); None for ``"simt"``. Raises ValueError on an
-    unknown variant or a split whose blocks' logits do not fit. Cached: the
-    decode step asks for the same few shapes every step."""
+                    mem_group: int = 1, int8: bool = False):
+    """(keys of the largest range, split) of a K2 / K11 call, or of a K6
+    call with ``int8``: the plan's, or ``variant`` ``"split{s}"`` forced
+    (fewer blocks where the keys are fewer units than s); None for
+    ``"simt"``. Raises ValueError on an unknown variant or a split whose
+    blocks' keys do not fit. Cached: the decode step asks for the same few
+    shapes every step."""
     if variant is None:
-        return decode_attention_plan(rows, heads, n_keys, mem_group)
+        return decode_attention_plan(rows, heads, n_keys, mem_group, int8)
     if variant == "simt":
         return None
     s = variant[5:] if variant.startswith("split") else ""
@@ -219,8 +320,8 @@ def attention_split(variant, rows: int, heads: int, n_keys: int,
         raise ValueError(f"unknown variant {variant!r}: 'simt' or "
                          f"'split1' .. 'split{ATTN_MAX_SPLIT}'")
     units = max(1, -(-n_keys // ATTN_UNIT))
-    most = ATTN_LOGIT_BYTES // (4 * query_group(mem_group)) // ATTN_UNIT
-    return _split_keys(units, min(int(s), units), most, n_keys)
+    return _split_keys(units, min(int(s), units),
+                       _units_a_block(mem_group, int8), n_keys)
 
 
 def decode_attention_plain(q: torch.Tensor, k_layer: torch.Tensor,
@@ -307,7 +408,7 @@ def _launch(op, q, k_layer, v_layer, num_heads, pos=None, bias=None,
     bm, t, e = k_layer.shape
     b = q.shape[0]
     dh = e // num_heads
-    if dh not in (32, 64, 128):
+    if dh not in ATTN_DHS:
         raise ValueError("decode_attention shape mismatch: head dim "
                          f"{dh} is not 32, 64 or 128")
     if k_layer.data_ptr() % 16 or v_layer.data_ptr() % 16:
@@ -423,8 +524,36 @@ def decode_attention_int8_plain(q: torch.Tensor, k_layer: torch.Tensor,
     return (out / denom[..., None]).reshape(b, e).to(q.dtype)
 
 
+def _check_int8(q, k_layer, v_layer, k_scale, v_scale, num_heads, pos=None,
+                bias=None, mem_group=1, variant=None):
+    """K6's shape rules and its variant, on either device: the plan (keys a
+    block, split), or None for ``"simt"``. The head dims the kernels are
+    compiled for (ATTN_DHS) and MAX_INT8_KEYS are the launcher's rules."""
+    if q.dim() != 2 or k_layer.dim() != 3 or v_layer.shape != k_layer.shape:
+        raise ValueError("decode_attention_int8 shape mismatch")
+    bm, t, e = k_layer.shape
+    b = q.shape[0]
+    if mem_group < 1 or bm * mem_group != b or e % num_heads \
+            or tuple(k_scale.shape) != (bm, t, num_heads) \
+            or v_scale.shape != k_scale.shape:
+        raise ValueError("decode_attention_int8 shape mismatch")
+    if pos is not None:
+        if q.shape[1] != 3 * e or bias is not None or not 0 <= pos < t \
+                or mem_group != 1:
+            raise ValueError("self mode needs (B, 3E) qkv, 0 <= pos < T, "
+                             "no bias, mem_group 1")
+    elif bias is None or q.shape[1] != e or tuple(bias.shape) != (bm, t):
+        raise ValueError("cross mode needs (B, E) q and (B/G, M) bias")
+    return attention_split(variant, b, num_heads, t if pos is None else pos,
+                           mem_group, int8=True)
+
+
 def _launch_int8(op, q, k_layer, v_layer, k_scale, v_scale, num_heads,
-                 pos=None, bias=None, mem_group=1):
+                 pos=None, bias=None, mem_group=1, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"split{s}"`` forces
+    the cluster kernel's split, ``"simt"`` the kernel it replaced."""
+    plan = _check_int8(q, k_layer, v_layer, k_scale, v_scale, num_heads, pos,
+                       bias, mem_group, variant)
     _build.require(q, "q", torch.bfloat16, 2)
     _build.require(k_layer, "k_layer", torch.int8, 3)
     _build.require(v_layer, "v_layer", torch.int8, 3)
@@ -433,35 +562,39 @@ def _launch_int8(op, q, k_layer, v_layer, k_scale, v_scale, num_heads,
     bm, t, e = k_layer.shape
     b = q.shape[0]
     dh = e // num_heads
-    if v_layer.shape != k_layer.shape or bm * mem_group != b \
-            or dh * num_heads != e or dh not in (32, 64, 128) \
-            or k_scale.shape != (bm, t, num_heads) \
-            or v_scale.shape != k_scale.shape or t > MAX_INT8_KEYS:
-        raise ValueError("decode_attention_int8 shape mismatch")
-    fresh = pos is not None
-    if fresh:
-        if q.shape[1] != 3 * e or bias is not None or not 0 <= pos < t \
-                or mem_group != 1:
-            raise ValueError("self mode needs (B, 3E) qkv, 0 <= pos < T, "
-                             "no bias, mem_group 1")
+    if dh not in ATTN_DHS or t > MAX_INT8_KEYS:
+        raise ValueError("decode_attention_int8 shape mismatch: head dim "
+                         f"{dh} (32, 64 or 128), {t} keys (at most "
+                         f"{MAX_INT8_KEYS})")
+    if k_layer.data_ptr() % 16 or v_layer.data_ptr() % 16:
+        raise ValueError("decode_attention_int8 needs 16-byte aligned caches")
+    if pos is not None:
         n_keys, bias_ptr = pos, 0
     else:
         _build.require(bias, "bias", torch.float32, 2)
-        if q.shape[1] != e or bias.shape != (bm, t):
-            raise ValueError("cross mode needs (B, E) q and (B/G, M) bias")
         n_keys, bias_ptr = t, bias.data_ptr()
     out = torch.empty((b, e), dtype=torch.bfloat16, device=q.device)
-    fn = _build.bind("decode_attention_int8", "acai_decode_attention_int8",
-                     [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_float,
-                                             ctypes.c_void_p,
-                                             ctypes.c_void_p])
-    rc = fn(q.data_ptr(), q.shape[1], k_layer.data_ptr(), v_layer.data_ptr(),
+    args = (q.data_ptr(), q.shape[1], k_layer.data_ptr(), v_layer.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), b, num_heads, dh, t,
             n_keys, bias_ptr, -1 if pos is None else pos, mem_group,
-            1.0 / math.sqrt(dh), out.data_ptr(), _build.stream_ptr())
-    op.launches += 1
+            1.0 / math.sqrt(dh))
+    types = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_float]
+    if plan is None:
+        fn = _build.bind("decode_attention_int8",
+                         "acai_decode_attention_int8",
+                         types + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, out.data_ptr(), _build.stream_ptr())
+        op.launched("simt")
+    else:
+        chunk, split = plan
+        fn = _build.bind("decode_attention_int8",
+                         "acai_decode_attention_int8_cluster",
+                         types + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, chunk, split, out.data_ptr(), _build.stream_ptr())
+        op.launched(f"split{split}")
     _build.check(rc, op.name)
     return out
 
@@ -469,10 +602,10 @@ def _launch_int8(op, q, k_layer, v_layer, k_scale, v_scale, num_heads,
 decode_attention_int8 = _build.KernelOp(
     "decode_attention_int8",
     "acai_omr_tpu_torch/csrc/decode_attention_int8.cu",
-    "acai_omr_tpu/ops/pallas_monolith.py:725 (_quant_rows), :859-917 "
-    "(_attend_all int8), :951-986 (_attend_shared int8), :1382-1423 "
-    "(quantized append)",
-    _launch_int8, decode_attention_int8_plain)
+    "acai_omr_tpu/ops/pallas_monolith.py:725 (_quant_rows), :825 / :859-917 "
+    "(_attend_all, int8 branch), :1380-1432 (quantized append), :1466-1473 "
+    "(cross site), :932 / :951-986 (_attend_shared, int8 branch)",
+    _launch_int8, decode_attention_int8_plain, _check_int8)
 
 
 def prepack(params: Params, compute_dtype=torch.bfloat16,
@@ -549,10 +682,10 @@ def _step_ops(mono: Params, x: torch.Tensor, k_cache: torch.Tensor,
                          f"!= batch {b}")
     if quantized:
         dh = e // num_heads
-        if dh * num_heads != e or dh & (dh - 1):
+        if dh * num_heads != e or not int8_step_takes(dh, 1):
             raise ValueError(f"int8 caches need a power-of-two head dim, got "
                              f"E={e}, heads={num_heads}")
-        if max(k_cache.shape[2], mem_k.shape[2]) > MAX_INT8_KEYS:
+        if not int8_step_takes(dh, max(k_cache.shape[2], mem_k.shape[2])):
             raise ValueError(
                 f"int8 attention holds at most {MAX_INT8_KEYS} keys in shared "
                 f"memory, got T={k_cache.shape[2]}, M={mem_k.shape[2]}")

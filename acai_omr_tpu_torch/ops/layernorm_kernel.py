@@ -55,6 +55,13 @@ def add_layernorm_plain(x: torch.Tensor, r: torch.Tensor | None,
     return (out, zr) if return_sum else out
 
 
+def layernorm_takes(e: int, variant: str = "warps4") -> bool:
+    """K4's width rule for ``variant``'s kernel, on either device: E a
+    multiple of 8 (the vector kernels' 16-byte accesses; 32 for the scalar
+    kernel) and at most MAX_E."""
+    return e % (32 if variant == "scalar" else 8) == 0 and 0 < e <= MAX_E
+
+
 def _check(x, r, gamma, beta, eps, return_sum=False, variant=None):
     """K4's rules on either device; the variant the call takes (the plan's
     unless ``variant`` forces one)."""
@@ -72,7 +79,7 @@ def _check(x, r, gamma, beta, eps, return_sum=False, variant=None):
     elif variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
     step = 32 if variant == "scalar" else 8
-    if e % step or e > MAX_E:
+    if not layernorm_takes(e, variant):
         raise ValueError(f"add_layernorm needs E % {step} == 0 and "
                          f"E <= {MAX_E}, got {e}")
     return variant

@@ -161,7 +161,18 @@ def gemm_plan(m: int, n: int, k: int) -> tuple[str, int]:
     return "sm90", sm90_tile_n(m, n, k)
 
 
+def linear_takes(variant: str, k: int, n: int) -> bool:
+    """K1's shape rule for the kernel ``variant``: TMA's 16-byte row strides
+    (K, N multiples of 8); the wmma kernel's tiles also K % 32 == 0 and
+    N % 64 == 0."""
+    if variant == "wmma" and (k % _BK or n % _BN):
+        return False
+    return k % 8 == 0 and n % 8 == 0
+
+
 def _check_shape(variant: str, k: int, n: int) -> None:
+    if linear_takes(variant, k, n):
+        return
     if variant == "wmma" and (k % _BK or n % _BN):
         raise ValueError(f"linear_bias_act's wmma kernel needs K % {_BK} == 0 "
                          f"and N % {_BN} == 0, got K={k}, N={n}")

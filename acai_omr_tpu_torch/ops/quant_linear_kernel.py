@@ -10,8 +10,14 @@ rank's share of a tensor-parallel row-parallel product (W8A8 under
 ``ACAI_TP_W8A8``), summed by K15 ``tp_allreduce``.
 
 CUDA source: ``csrc/quant_linear.cu`` (bound, design and the TPU kernels they
-replace are noted there). The weights are held K-packed so that one 32-bit
-load feeds ``__dp4a`` directly; the plain twins read the same tensors.
+replace are noted there). K5 is three launches (row quantizer, product,
+split-K reduce). K14 is one launch (:func:`quant4_plan`: K split across a
+thread-block cluster, the rows quantized in the kernel, ``mma.sync`` on the
+unpacked nibbles), counted as ``"split{s}"`` in ``KernelOp.variants``;
+``variant="simt"`` forces the three-launch form it replaced, kept as the
+yardstick. The weights are held K-packed so that one 32-bit load feeds
+``__dp4a`` (K5) or a tensor-core fragment (K14) directly; the plain twins
+read the same tensors.
 
 * int8 (K5): four input rows a word, ``(IN/4, OUT, 4)`` int8
   (:func:`pack_k4` / :func:`unpack_k4`).
@@ -35,12 +41,20 @@ import ctypes
 import torch
 
 from . import _build
-from .linear_kernel import ACTS, _gelu32
+from .linear_kernel import ACTS, N_SMS, _gelu32
 
 INT8_QMAX = 127.0
 INT4_QMAX = 7.0
 _BN, _KSTAGE, _BM = 128, 128, 32
 _TARGET_BLOCKS = 2 * 132  # two waves of blocks on an H100's 132 SMs
+# K14's cluster kernel: 64 output columns, 32 rows and a range of K a block,
+# k-steps of 128 through a ring of 8 stages, at most 1,024 k a block (its
+# rows in shared memory), K split across at most one portable cluster; the
+# blocks an SM its plan aims at
+Q4_BN, Q4_KSTEP, Q4_STAGES = 64, 128, 8
+Q4_MAX_CHUNK, Q4_MAX_SPLIT = 1024, 8
+Q4_ROWS = 32
+Q4_BLOCKS_PER_SM = 2
 
 
 def pack_k4(w8: torch.Tensor) -> torch.Tensor:
@@ -134,9 +148,47 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
     return chunk * _KSTAGE, -(-k_tiles // chunk)
 
 
-def _launch_q(op, entry, x, w, packed_shape, s_col, b, act):
-    """Checks, scratch and launch shared by K5 and K14 (``entry`` is the C
-    function; ``packed_shape(k, n)`` the weight tensor's shape)."""
+def quant4_plan(m: int, n: int, k: int) -> tuple[int, int]:
+    """(k_chunk, split) of K14's cluster kernel for an M x K by K x N
+    product: a block owns Q4_BN columns, up to Q4_ROWS rows and k_chunk of K
+    (a multiple of Q4_KSTEP, at most Q4_MAX_CHUNK); the ``split`` blocks of
+    one (column tile, row group) form one cluster and sum their exact int32
+    partials, ranges in order and none empty. The split aims at about
+    Q4_BLOCKS_PER_SM blocks an SM (every block also loads and quantizes its
+    range of the rows, so the work a block shrinks as the split widens),
+    as far as the k-steps and a cluster of Q4_MAX_SPLIT allow. Timed at
+    every split on an H100 (``chip_smoke.py --int8-splits``, from HBM),
+    this rule's split was within 5 % of the fastest at all six decode
+    shapes. Raises ValueError on shapes the kernel does not take
+    (:func:`quant4_takes`)."""
+    if not quant4_takes(k, n):
+        raise ValueError(f"quant4_linear_bias_act takes K % {_KSTAGE} == 0, "
+                         f"K <= {Q4_MAX_SPLIT * Q4_MAX_CHUNK} and N % {_BN} "
+                         f"== 0, got K={k}, N={n}")
+    tiles = -(-n // Q4_BN) * -(-m // Q4_ROWS)
+    steps = k // Q4_KSTEP
+    want = min(Q4_MAX_SPLIT, steps,
+               max(-(-steps // (Q4_MAX_CHUNK // Q4_KSTEP)),
+                   -(-Q4_BLOCKS_PER_SM * N_SMS // tiles)))
+    chunk = -(-steps // want)
+    return chunk * Q4_KSTEP, -(-steps // chunk)
+
+
+def quant_takes(k: int, n: int) -> bool:
+    """K5's and K14's shape rule on the card (both forms): K % 128 == 0 and
+    N % 128 == 0."""
+    return k % _KSTAGE == 0 and n % _BN == 0 and k > 0 and n > 0
+
+
+def quant4_takes(k: int, n: int) -> bool:
+    """K14's shape rule on the card: :func:`quant_takes`, and K within
+    Q4_MAX_SPLIT blocks of Q4_MAX_CHUNK (the cluster kernel's rows in shared
+    memory)."""
+    return quant_takes(k, n) and k <= Q4_MAX_SPLIT * Q4_MAX_CHUNK
+
+
+def _check_q(op, x, w, packed_shape, s_col, b, act):
+    """The shape rules K5 and K14 share, for CUDA tensors; (m, k, n)."""
     partial = act == "partial"
     _build.require(x, "x", torch.bfloat16, 2)
     _build.require(s_col, "s_col", torch.float32, 1)
@@ -149,12 +201,23 @@ def _launch_q(op, entry, x, w, packed_shape, s_col, b, act):
         raise ValueError(f"shape mismatch x{tuple(x.shape)} "
                          f"w{tuple(w.shape)} s{tuple(s_col.shape)} "
                          f"b{None if b is None else tuple(b.shape)}")
-    if k % _KSTAGE or n % _BN:
+    if not quant_takes(k, n):
         raise ValueError(f"{op.name} needs K % {_KSTAGE} == 0 and "
                          f"N % {_BN} == 0, got K={k}, N={n}")
     if not (x.device == w.device == s_col.device
             and (b is None or b.device == x.device)):
         raise ValueError("x, w, s_col and b must be on one device")
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    return m, k, n
+
+
+def _launch_q(op, entry, x, w, packed_shape, s_col, b, act, variant=None):
+    """Checks, scratch and the three launches of K5 and of K14's ``simt``
+    form (``entry`` is the C function; ``packed_shape(k, n)`` the weight
+    tensor's shape)."""
+    partial = act == "partial"
+    m, k, n = _check_q(op, x, w, packed_shape, s_col, b, act)
     k_chunk, splits = split_plan(m, n, k)
     out = torch.empty((m, n), dtype=torch.float32 if partial
                       else torch.bfloat16, device=x.device)
@@ -173,7 +236,9 @@ def _launch_q(op, entry, x, w, packed_shape, s_col, b, act):
             out.data_ptr(), base, base + rs_at,
             base + part_at if splits > 1 else 0, m, n, k, k_chunk, splits,
             ACTS[act], _build.stream_ptr())
-    if partial:  # counted apart too: the tensor-parallel step's partials
+    if variant is not None:  # K14's simt form
+        op.launched(variant)
+    elif partial:  # counted apart too: the tensor-parallel step's partials
         op.launched("partial")
     else:
         op.launches += 1
@@ -189,10 +254,42 @@ def _launch(op, x, w4, s_col, b, act="none"):
                      lambda k, n: (k // 4, n, 4), s_col, b, act)
 
 
-def _launch4(op, x, wp, s_col, b, act="none"):
+def _launch4(op, x, wp, s_col, b, act="none", variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"split{s}"`` forces
+    the cluster kernel's split, ``"simt"`` the three-launch form it
+    replaced."""
     _build.require(wp, "wp", torch.int32, 2)
-    return _launch_q(op, "acai_quant4_linear_bias_act", x, wp,
-                     lambda k, n: (k // 8, n), s_col, b, act)
+    packed = lambda k, n: (k // 8, n)
+    if variant == "simt":
+        return _launch_q(op, "acai_quant4_linear_bias_act", x, wp, packed,
+                         s_col, b, act, variant)
+    m, k, n = _check_q(op, x, wp, packed, s_col, b, act)
+    k_chunk, split = quant4_plan(m, n, k)
+    if variant is not None:
+        s = variant[5:] if variant.startswith("split") else ""
+        if not (s.isdigit() and 1 <= int(s) <= Q4_MAX_SPLIT):
+            raise ValueError(f"unknown variant {variant!r}: 'simt' or "
+                             f"'split1' .. 'split{Q4_MAX_SPLIT}'")
+        steps = k // Q4_KSTEP
+        chunk = max(-(-steps // int(s)), -(-steps // Q4_MAX_SPLIT))
+        if chunk * Q4_KSTEP > Q4_MAX_CHUNK:
+            raise ValueError(f"split {s} gives a block more than "
+                             f"{Q4_MAX_CHUNK} k")
+        k_chunk, split = chunk * Q4_KSTEP, -(-steps // chunk)
+    if x.data_ptr() % 16 or wp.data_ptr() % 16:
+        raise ValueError("quant4_linear_bias_act needs x and wp 16-byte "
+                         "aligned")
+    out = torch.empty((m, n), dtype=torch.float32 if act == "partial"
+                      else torch.bfloat16, device=x.device)
+    fn = _build.bind("quant_linear", "acai_quant4_linear_bias_act_cluster",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), wp.data_ptr(), s_col.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr(), m, n, k,
+            k_chunk, split, ACTS[act], _build.stream_ptr())
+    op.launched(f"split{split}")
+    _build.check(rc, op.name)
+    return out
 
 
 quant_linear_bias_act = _build.KernelOp(

@@ -9,9 +9,14 @@ Phases, all in one process; any failure exits non-zero:
    of ``acai_omr_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. hold each kernel (K1 linear_bias_act, K2 decode_attention with and
    without grouped memory, K3 encoder_attention, K4 add_layernorm, K5
-   quant_linear_bias_act, K14 quant4_linear_bias_act (bit for bit), K6
-   decode_attention_int8 in self, cross and grouped
-   cross mode; the per-op step's K11 decode_attention_hd self and cross, K12
+   quant_linear_bias_act, K14 quant4_linear_bias_act (its cluster kernel,
+   bit for bit, at 32 and 8 rows, in turns with the three-launch form it
+   replaced, ``variant="simt"``, warm and from HBM), K6
+   decode_attention_int8 (its cluster kernel) in self, cross and grouped
+   cross mode at B = 32 and at the rows the int8 paths run (4 and 8 rows,
+   beams B = 16 G = 4, GRPO's 128 rows G = 8 as a kernel row), in turns
+   with the simt kernel it replaced, warm and from HBM, two runs
+   bit-equal; the per-op step's K11 decode_attention_hd self and cross, K12
    decode_attention_hd_int8 per layer and stacked, K13
    self_attention_append_int8 at pos 300 and 0; K15 tp_allreduce at tp = 2
    and 4, B = 4-128, E = 1024, bf16 and fp32 out, bit for bit, its one-card
@@ -148,7 +153,7 @@ Phases, all in one process; any failure exits non-zero:
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
 decode steps of each cache mode and of the per-op bf16 step with K11 on
-(K2's, K4's and K11's device ms a step among them), over two training
+(K2's, K4's, K5's, K6's, K11's and K14's device ms a step among them), over two training
 microbatches and over two MAE updates (device time by kernel, device busy
 share); ``--report PATH``
 writes every number of the run as JSON to PATH; ``--k7-bits`` prints only
@@ -158,7 +163,15 @@ kernel at every split of K at the decode shapes (``skinny_splits``) and
 exits; ``--attn-splits`` times only K2's and K11's cluster kernels at every
 split of the keys at the decode shapes (``attn_splits``) and exits;
 ``--k4-plan`` times only K4's vector kernel at 1 and 4 warps a row and
-the scalar kernel at the paths' rows (``k4_plan``) and exits.
+the scalar kernel at the paths' rows (``k4_plan``) and exits;
+``--int8-splits`` times only K6's and K14's cluster kernels at every split
+at the int8 paths' shapes, from HBM, beside their plans' splits
+(``int8_splits``) and exits. Phase 3 also holds the monolith int8 step
+against the per-op int8 step on one batch (``int8_vs_per_op``: the first
+step's largest |logit difference|, the top-1 margins of rows whose tokens
+differ, 24 free-running steps of each), and checks that K14 is one device
+kernel a call on ``w4a8`` and ``serve_wsgi`` and that a W4A8 step is 11
+device kernels a layer.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the port's package is not beside this script.
@@ -391,9 +404,10 @@ def variant_failures(name: str, r: dict) -> list:
     ("wmma", "partial"); every K3 encoder_attention on its Hopper kernel
     ("sm90_dh{Dh}"); every linear_wgrad on the core ("sm90_splits{s}"),
     every linear_dgrad on the core ("sm90") and every K7 attention_bwd on
-    its Hopper kernels ("sm90_dh{Dh}"); every K2 decode_attention and K11
-    decode_attention_hd on its cluster kernel ("split{s}"), never the simt
-    kernel it replaced; every K4 add_layernorm on its vector kernel
+    its Hopper kernels ("sm90_dh{Dh}"); every K2 decode_attention, K6
+    decode_attention_int8, K11 decode_attention_hd and K14
+    quant4_linear_bias_act on its cluster kernel ("split{s}"), never the
+    simt kernel or form it replaced; every K4 add_layernorm on its vector kernel
     ("warps{W}"), never the scalar kernel; every K15 tp_allreduce (all
     ranks on this card) in its one-card form ("local"), never the
     exchange ("coop")."""
@@ -414,7 +428,8 @@ def variant_failures(name: str, r: dict) -> list:
         out.append(f"{name}: linear_dgrad off the core {dgrad}")
     if any(not v.startswith("sm90_dh") for v in k7):
         out.append(f"{name}: attention_bwd off its Hopper kernels {k7}")
-    for op in ("decode_attention", "decode_attention_hd"):
+    for op in ("decode_attention", "decode_attention_int8",
+               "decode_attention_hd", "quant4_linear_bias_act"):
         by = r["variants"].get(op, {})
         if any(not v.startswith("split") for v in by) \
                 or sum(by.values()) != r["launches"].get(op, 0):
@@ -444,7 +459,8 @@ def variant_line(name: str, r: dict) -> str:
     """The launches by variant of a path's products and attentions."""
     keys = ("linear_bias_act", "encoder_attention", "linear_wgrad",
             "linear_dgrad", "attention_bwd", "decode_attention",
-            "decode_attention_hd", "add_layernorm", "tp_allreduce")
+            "decode_attention_int8", "decode_attention_hd",
+            "quant4_linear_bias_act", "add_layernorm", "tp_allreduce")
     return f"[path {name}] by variant " + json.dumps(
         {k: r["variants"].get(k, {}) for k in keys})
 
@@ -783,13 +799,21 @@ def check_kernels(torch, F, dev):
                peak=PEAK_INT8_OP_PER_S, paths=["tp2_int8_w8a8"],
                variant="partial" if partial else None)
 
-    # K14: the W4A8 decode products at the same shapes, equal to the twin bit
-    # for bit. Bound: the packed int4 weight bytes (half of K5's) with the
-    # rows, scales and output. library_ms: torch._int_mm on the unpacked int8
-    # weights and pre-quantized rows, the bare product only
+    # K14 (the cluster kernel: one launch, K split across a thread-block
+    # cluster, rows quantized in the kernel): the W4A8 decode products at
+    # B = 32 and at the 8 rows w4a8 and serve_wsgi run, equal to the twin
+    # bit for bit; timed in turns with the three-launch form it replaced
+    # (``variant="simt"``, equal to the twin too), warm and from HBM, the
+    # host us a call of both. Bound: the packed int4 weight bytes (half of
+    # K5's) with the rows, scales and output. library_ms: torch._int_mm on
+    # the unpacked int8 weights and pre-quantized rows, the bare product
+    # only (it takes more than 16 rows)
     for m, k, n, act in [(32, 1024, 3072, "none"),
                          (32, 1024, 4096, "gelu_rounded"),
-                         (32, 4096, 1024, "none")]:
+                         (32, 4096, 1024, "none"), (8, 1024, 3072, "none"),
+                         (8, 1024, 1024, "none"),
+                         (8, 1024, 4096, "gelu_rounded"),
+                         (8, 4096, 1024, "none")]:
         x = randn(m, k)
         q = torch.randint(-7, 8, (k, n), generator=g, device=dev,
                           dtype=torch.int8)
@@ -797,62 +821,114 @@ def check_kernels(torch, F, dev):
             .to(bf).float()
         b = randn(n, dtype=torch.float32) * 0.1
         wp = pack_k8_int4(q)
-        out_k = quant4_linear_bias_act(x, wp, s_col, b, act)
+        call = lambda v=None, w_=wp: quant4_linear_bias_act(x, w_, s_col, b,
+                                                            act, variant=v)
+        out_k = call()
         out_p = quant4_linear_bias_act.plain(x, wp, s_col, b, act)
         x8 = quantize_activation_rows(x)[0].to(torch.int8)
+        exact = torch.equal(out_k, out_p) and torch.equal(out_k, call()) \
+            and torch.equal(call("simt"), out_p)
+        t_new, old = turns_ms(torch, call, lambda: call("simt"))
         record(quant4_linear_bias_act,
                f"{m}x{k}->{n},{act} (library: _int_mm on the unpacked int8 "
                f"weights, bare product)", out_k, out_p, 0.0,
-               kernel_times(lambda: quant4_linear_bias_act(x, wp, s_col, b,
-                                                             act)),
+               (t_new, host_us(torch, call)),
                time_ms(torch, lambda: quant4_linear_bias_act.plain(
                    x, wp, s_col, b, act)),
-               time_ms(torch, lambda: torch._int_mm(x8, q)),
+               time_ms(torch, lambda: torch._int_mm(x8, q)) if m > 16
+               else None,
                k * n // 2 + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
                peak=PEAK_INT8_OP_PER_S, paths=["w4a8", "serve_wsgi"],
-               exact=torch.equal(out_k, out_p),
-               cold=cold_ms(torch, lambda w_: quant4_linear_bias_act(
-                   x, w_, s_col, b, act), [wp]))
+               exact=exact, old_ms=old,
+               cold=cold_ms(torch, lambda w_: call(None, w_), [wp]),
+               extra={"old_cold_ms": cold_ms(torch,
+                                             lambda w_: call("simt", w_),
+                                             [wp]),
+                      "old_host_us": host_us(torch, lambda: call("simt"))})
 
-    # K6: int8 caches with bf16 scales. Bound: the int8 K/V bytes plus the
-    # scale bytes of the keys attended to. No library call computes this
-    def int8_cache(rows, length):
-        c = torch.randint(-127, 128, (rows, length, e), generator=g,
+    # K6 (the cluster kernel: keys split across a thread-block cluster, a
+    # cluster per up to 8 queries of a grouped memory): int8 caches with
+    # bf16 scales, self at pos 300 / 0 and cross / grouped at B = 32, then
+    # the rows the paths run (self at 4 rows; cross at 4 and 8 rows over
+    # M = 1,024; beams B = 16, G = 4; GRPO's 128 rollouts over int8 caches,
+    # G = 8, a kernel row). Each against its twin (appends bit-equal, output
+    # within two bf16 ulps), two runs bit-equal, split 1 and the simt kernel
+    # it replaced within the tolerance; timed in turns with the simt kernel,
+    # warm and from HBM. Bound: the int8 K/V bytes plus the scale bytes of
+    # the keys attended to (once per group). No library call computes this
+    def int8_cache(rows, length, gen=g):
+        c = torch.randint(-127, 128, (rows, length, e), generator=gen,
                           device=dev, dtype=torch.int8)
-        sc = (torch.rand(rows, length, h, generator=g, device=dev) * 3e-2
+        sc = (torch.rand(rows, length, h, generator=gen, device=dev) * 3e-2
               + 2e-3).to(bf)
         return c, sc
 
     def int8_case(case, q_in, caches, paths, nbytes, nops, **kw):
         twin = [a.clone() for a in caches]
-        out_k = decode_attention_int8(q_in, *caches, h, **kw)
+        call = lambda v=None, *cs: decode_attention_int8(
+            q_in, *(cs or caches), h, variant=v, **kw)
+        out_k = call()
         out_p = decode_attention_int8.plain(q_in, *twin, h, **kw)
-        exact = all(torch.equal(a, b) for a, b in zip(caches, twin))
         tol = TWO_BF16_ULPS * max(1.0, out_p.float().abs().max().item())
+        near = lambda a: (a.float() - out_p.float()).abs().max().item() <= tol
+        exact = (all(torch.equal(a, b) for a, b in zip(caches, twin))
+                 and torch.equal(out_k, call()) and near(call("simt"))
+                 and near(call("split1")))
+        t_new, old = turns_ms(torch, call, lambda: call("simt"))
         record(decode_attention_int8, case, out_k, out_p, tol,
-               kernel_times(lambda: decode_attention_int8(q_in, *caches, h,
-                                                            **kw)),
+               (t_new, host_us(torch, call)),
                time_ms(torch, lambda: decode_attention_int8.plain(
                    q_in, *twin, h, **kw)),
                None, nbytes, nops, peak=PEAK_INT8_OP_PER_S, paths=paths,
-               exact=exact)
+               exact=exact, old_ms=old,
+               cold=cold_ms(torch, lambda *c: call(None, *c), list(caches)),
+               extra={"old_cold_ms": cold_ms(
+                   torch, lambda *c: call("simt", *c), list(caches))})
+
+    def int8_self(qkv_, p_at, paths, gen=g):
+        b_ = qkv_.shape[0]
+        (kc8, ks8), (vc8, vs8) = int8_cache(b_, t, gen), int8_cache(b_, t, gen)
+        int8_case(f"self B={b_} T={t} pos={p_at} E={e} H={h}", qkv_,
+                  (kc8, vc8, ks8, vs8), paths,
+                  2 * b_ * p_at * (e + 2 * h) + 2 * b_ * (3 * e + e)
+                  + 2 * b_ * (e + 2 * h), 4 * b_ * e * (p_at + 1), pos=p_at)
+
+    def int8_cross(qc_, mk8, mv8, mks8, mvs8, valid_, grp_, paths):
+        b_, bu_, m_ = qc_.shape[0], mk8.shape[0], mk8.shape[1]
+        n_val = int(valid_.sum())  # padded memory rows add nothing
+        name = "cross" if grp_ == 1 else f"cross grouped G={grp_}"
+        int8_case(f"{name} B={b_} M={m_} E={e} H={h}", qc_,
+                  (mk8, mv8, mks8, mvs8), paths,
+                  2 * n_val * (e + 2 * h) + 2 * 2 * b_ * e + 4 * bu_ * m_,
+                  4 * e * n_val * grp_,
+                  bias=torch.where(valid_, 0.0, -1e9).float().contiguous(),
+                  mem_group=grp_)
 
     for p_at in (300, 0):
-        (kc8, ks8), (vc8, vs8) = int8_cache(bsz, t), int8_cache(bsz, t)
-        int8_case(f"self B={bsz} T={t} pos={p_at} E={e} H={h}", qkv,
-                  (kc8, vc8, ks8, vs8), None,
-                  2 * bsz * p_at * (e + 2 * h) + 2 * bsz * (3 * e + e)
-                  + 2 * bsz * (e + 2 * h), 4 * bsz * e * (p_at + 1), pos=p_at)
+        int8_self(qkv, p_at, None)
     (mk8, mks8), (mv8, mvs8) = int8_cache(bsz, m_len), int8_cache(bsz, m_len)
-    int8_case(f"cross B={bsz} M={m_len} E={e} H={h}", qc,
-              (mk8, mv8, mks8, mvs8), ["int8"],
-              2 * n_valid * (e + 2 * h) + 2 * 2 * bsz * e + 4 * bsz * m_len,
-              4 * e * n_valid, bias=mbias)
-    int8_case(f"cross grouped B={bsz} G={grp} M={m_len} E={e} H={h}", qc,
-              tuple(a[:bu].contiguous() for a in (mk8, mv8, mks8, mvs8)),
-              ["beam_int8"],
-              2 * n_valid_g * (e + 2 * h) + 2 * 2 * bsz * e + 4 * bu * m_len,
-              4 * e * n_valid_g * grp, bias=mbias_g, mem_group=grp)
+    int8_cross(qc, mk8, mv8, mks8, mvs8, valid, 1, ["int8"])
+    int8_cross(qc, *(a[:bu].contiguous() for a in (mk8, mv8, mks8, mvs8)),
+               valid[:bu], grp, ["beam_int8"])
+    # the rows the paths run (their own generator: the cases above keep
+    # their inputs)
+    g3 = torch.Generator(device=dev).manual_seed(SEED + 6)
+    randn3 = lambda *s_: torch.randn(*s_, generator=g3, device=dev).to(bf)
+    int8_self(randn3(4, 3 * e), pos, ["int8", "w4a8", "int8_bf16w"], g3)
+    (mk8, mks8), (mv8, mvs8) = int8_cache(16, m_big, g3), \
+        int8_cache(16, m_big, g3)
+    qc3 = randn3(128, e)
+    for rows in (4, 8):
+        int8_cross(qc3[:rows].contiguous(),
+                   *(a[:rows].contiguous() for a in (mk8, mv8, mks8, mvs8)),
+                   valid_gr[:rows], 1, ["int8", "w4a8", "int8_bf16w"])
+    int8_cross(qc3[:16].contiguous(),
+               *(a[:4].contiguous() for a in (mk8, mv8, mks8, mvs8)),
+               valid_gr[:4], 4, ["beam_int8"])
+    # GRPO's 16 images x 8 rollouts over int8 caches (no path runs it: the
+    # GRPO path decodes with bf16 caches); its launches are beam_int8's,
+    # the grouped mode's path
+    int8_cross(qc3, mk8, mv8, mks8, mvs8, valid_gr, 8, ["beam_int8"])
 
     # K3: B=16, T=1024, E=768, H=12, ragged validity; the Hopper kernel
     # timed in turns with the wmma kernel it replaces (held to the twin too),
@@ -922,17 +998,18 @@ def check_kernels(torch, F, dev):
                                     dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
     # the resource rows of the products', the attentions', K4's and K15's
-    # kernels: the Hopper kernels (sm90, skinny, K2's and K11's cluster
-    # kernels, K4's vector kernels, K15's one-card form) beside the wmma /
-    # simt / scalar / exchange kernels they replace; no Hopper kernel of
-    # dgrad, K3 or K7, no skinny kernel of K1, no cluster kernel of K2 or
-    # K11, no vector kernel of K4 and no one-card kernel of K15 may use
-    # local memory (a spill)
+    # kernels: the Hopper kernels (sm90, skinny, K2's, K6's, K11's and
+    # K14's cluster kernels, K4's vector kernels, K15's one-card form)
+    # beside the wmma / simt / scalar / exchange kernels they replace; no
+    # Hopper kernel of dgrad, K3 or K7, no skinny kernel of K1, no cluster
+    # kernel of K2, K6, K11 or K14, no vector kernel of K4 and no one-card
+    # kernel of K15 may use local memory (a spill)
     from acai_omr_tpu_torch.ops import _build
     spills = []
     for name in ("linear_bias_act", "encoder_attention", "linear_bwd",
-                 "attention_bwd", "decode_attention", "decode_attention_hd",
-                 "add_layernorm", "tp_allreduce"):
+                 "attention_bwd", "decode_attention", "decode_attention_int8",
+                 "decode_attention_hd", "quant_linear", "add_layernorm",
+                 "tp_allreduce"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
@@ -1115,6 +1192,91 @@ def attn_splits(torch) -> list:
                     "plan_ms": times[plan], "best_split": best,
                     "best_ms": times[best], "ms_by_split": times})
         print(f"[attn splits] {name} plan split {plan} {times[plan]:.4f} ms, "
+              f"best split {best} {times[best]:.4f} ms (from HBM); by split "
+              + json.dumps({s_: round(t_, 4) for s_, t_ in times.items()}),
+              flush=True)
+    return out
+
+
+def int8_splits(torch) -> list:
+    """K6's and K14's cluster kernels at every split (1-8, forced through
+    ``variant="split{s}"``) at the shapes the int8 paths run (K6: self at
+    1-32 rows, cross at 4-32 rows, beams, GRPO's rollouts over int8 caches;
+    K14: the W4A8 products at 8 and 32 rows), each from HBM (rotating
+    copies of the caches / weights; two readings, the lesser kept), beside
+    the plan's split: how far ``decode_attention_int8_plan`` and
+    ``quant4_plan`` are from the fastest split."""
+    from acai_omr_tpu_torch.ops import decode_kernel as dk
+    from acai_omr_tpu_torch.ops import quant_linear_kernel as qk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    randn = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(
+        torch.bfloat16)
+    e, h, t, pos = 1024, 16, 512, 300
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def sc(*shape):
+        return (torch.rand(*shape, generator=g, device=dev) * 3e-2
+                + 2e-3).to(torch.bfloat16)
+
+    def ragged(rows, m):
+        lens = torch.randint(m // 4, m + 1, (rows,), generator=g, device=dev)
+        return torch.where(torch.arange(m, device=dev)[None] < lens[:, None],
+                           0.0, -1e9).float().contiguous()
+
+    def k6(q, kw):
+        return lambda v, *c: dk.decode_attention_int8(q, *c, h, variant=v,
+                                                      **kw)
+
+    cases = []  # (name, plan split, call(variant, *operands), operands)
+    for rows in (1, 4, 8, 32):
+        cases.append((f"decode_attention_int8 self B={rows} pos={pos}",
+                      dk.decode_attention_int8_plan(rows, h, pos)[1],
+                      k6(randn(rows, 3 * e), {"pos": pos}),
+                      [i8(rows, t, e), i8(rows, t, e), sc(rows, t, h),
+                       sc(rows, t, h)]))
+    for rows, m, grp in ((4, 1024, 1), (8, 1024, 1), (32, 512, 1),
+                         (32, 512, 4), (16, 1024, 4), (128, 1024, 8)):
+        bu = rows // grp
+        cases.append((f"decode_attention_int8 cross B={rows} G={grp} M={m}",
+                      dk.decode_attention_int8_plan(rows, h, m, grp)[1],
+                      k6(randn(rows, e), {"bias": ragged(bu, m),
+                                          "mem_group": grp}),
+                      [i8(bu, m, e), i8(bu, m, e), sc(bu, m, h),
+                       sc(bu, m, h)]))
+    for m, k, n, act in ((32, 1024, 3072, "none"),
+                         (32, 1024, 4096, "gelu_rounded"),
+                         (32, 4096, 1024, "none"), (8, 1024, 3072, "none"),
+                         (8, 1024, 1024, "none"), (8, 4096, 1024, "none")):
+        x = randn(m, k)
+        s_col = torch.rand(n, generator=g, device=dev) * 4e-3 + 1e-3
+        b = torch.randn(n, generator=g, device=dev)
+        wp = qk.pack_k8_int4(torch.randint(-7, 8, (k, n), generator=g,
+                                           device=dev))
+        cases.append((f"quant4_linear_bias_act {m}x{k}->{n},{act}",
+                      qk.quant4_plan(m, n, k)[1],
+                      lambda v, w_, x=x, s_col=s_col, b=b, act=act:
+                      qk.quant4_linear_bias_act(x, w_, s_col, b, act,
+                                                variant=v), [wp]))
+    out = []
+    for name, plan, fn, ops in cases:
+        times = {}
+        order = list(range(1, 9))
+        for s_ in order + order[::-1]:
+            try:
+                ms = cold_ms(torch, lambda *c, v=f"split{s_}": fn(v, *c),
+                             ops)
+            except ValueError:  # K14: a block's range past its shared memory
+                continue
+            times[s_] = min(times.get(s_, ms), ms)
+        best = min(times, key=times.get)
+        out.append({"case": name, "plan_split": plan,
+                    "plan_ms": times[plan], "best_split": best,
+                    "best_ms": times[best], "ms_by_split": times})
+        print(f"[int8 splits] {name} plan split {plan} {times[plan]:.4f} ms, "
               f"best split {best} {times[best]:.4f} ms (from HBM); by split "
               + json.dumps({s_: round(t_, 4) for s_, t_ in times.items()}),
               flush=True)
@@ -2666,14 +2828,29 @@ def compare_paths(torch, np, model, imgs, profile=False):
             out[key]["profile"] = profile_steps(
                 torch, lambda: _greedy_step(decode_lib, dec, dcfg, mono, state,
                                             mem, dt), warmup=8, steps=32)
+    out["int8_vs_per_op"] = int8_vs_per_op(torch, decode_lib, decode_kernel,
+                                           dec, dcfg, lat, valid, dt,
+                                           model.device)
     if profile:
         # K2's device ms a bf16 step; K11's a per-op bf16 step (K11 on, the
-        # lane-major caches and memory of decode_hd_bf16)
+        # lane-major caches and memory of decode_hd_bf16); K6's a step of
+        # each int8 mode, K5's of the int8 step, K14's of the W4A8 step
         from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
         out["bf16"]["k2_device_ms_per_step"] = kernel_ms(
             out["bf16"]["profile"], "attend_cluster", "decode_attention_kernel")
         out["bf16"]["k4_device_ms_per_step"] = kernel_ms(
             out["bf16"]["profile"], "add_layernorm")
+        for key in ("int8", "w4a8"):
+            out[key]["k6_device_ms_per_step"] = kernel_ms(
+                out[key]["profile"], "attend_int8_cluster",
+                "decode_attention_int8_kernel")
+        out["int8"]["k5_device_ms_per_step"] = kernel_ms(
+            out["int8"]["profile"], "quant_linear_kernel<false>",
+            "quantize_rows_kernel", "reduce_kernel")
+        out["w4a8"]["k14_device_ms_per_step"] = kernel_ms(
+            out["w4a8"]["profile"], "quant4_cluster",
+            "quant_linear_kernel<true>", "quantize_rows_kernel",
+            "reduce_kernel")
         before = hd._ENABLED
         hd.set_enabled(True)
         try:
@@ -2691,6 +2868,62 @@ def compare_paths(torch, np, model, imgs, profile=False):
         out["per_op_bf16"] = {"profile": prof, "k11_device_ms_per_step":
                               kernel_ms(prof, "attend_hd_cluster",
                                         "decode_attention_hd_kernel")}
+    return out
+
+
+def int8_vs_per_op(torch, decode_lib, decode_kernel, dec, dcfg, lat, valid,
+                   dt, device, steps: int = 24) -> dict:
+    """The monolith int8 step (K6; W8A8 weights, then compute-dtype weights)
+    against the per-op int8 step (K13 / K12, compute-dtype weights) on one
+    batch: the first step's largest |logit difference|, each row whose
+    greedy token differs with its top-1 margin (top-1 minus top-2 logit) on
+    both sides, then ``steps`` free-running greedy steps of each: the share
+    of equal tokens and the step at which each row first emits <eos>."""
+    b = lat.shape[0]
+    w8a8 = decode_kernel._W8A8
+
+    def run(mono, mem, monolith):
+        state = decode_lib.init_decode_state(dcfg, b, steps + 1, 32,
+                                             torch.int8, device, monolith)
+        first, toks = None, []
+        for _ in range(steps):
+            lg = decode_lib.step_logits(dec, dcfg, mono, state, mem, dt)
+            first = lg if first is None else first
+            tok = lg.argmax(-1)
+            toks.append(tok)
+            state.seqs[:, state.t] = tok
+            state.t += 1
+        return first, torch.stack(toks, 1)
+
+    def eos_at(toks):
+        hit = toks == dcfg.eos_idx
+        return [int(r.nonzero()[0]) + 1 if r.any() else None for r in hit]
+
+    margin = lambda lg: (lambda v: (v[:, 0] - v[:, 1]))(lg.topk(2, -1).values)
+    mem_hd = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt,
+                                             torch.int8, layout="hd")
+    per_op, per_op_toks = run(None, mem_hd, False)
+    out = {"per_op_eos_step": eos_at(per_op_toks)}
+    mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt,
+                                          torch.int8)
+    try:
+        for key, flag in (("w8a8", True), ("bf16w", False)):
+            decode_kernel.set_w8a8(flag)
+            mono = decode_lib._prepack_for(dec, dt, torch.int8)
+            first, toks = run(mono, mem, True)
+            diff = (first - per_op).abs()
+            rows = (first.argmax(-1) != per_op.argmax(-1)).nonzero()[:, 0]
+            out[key] = {
+                "first_logit_max_abs_diff": diff.max().item(),
+                "differing_rows": [
+                    {"row": int(r), "margin_monolith": margin(first)[r].item(),
+                     "margin_per_op": margin(per_op)[r].item()}
+                    for r in rows],
+                "token_share": (toks == per_op_toks).float().mean().item(),
+                "eos_step": eos_at(toks)}
+    finally:
+        decode_kernel.set_w8a8(w8a8)
+    print(f"[int8 monolith vs per-op] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -3258,6 +3491,10 @@ def main() -> int:
         print(card_line())
         attn_splits(torch)
         return 0
+    if "--int8-splits" in sys.argv[1:]:  # K6's and K14's splits alone
+        print(card_line())
+        int8_splits(torch)
+        return 0
     if "--k4-plan" in sys.argv[1:]:  # K4's warps a row alone
         print(card_line())
         k4_plan(torch)
@@ -3467,6 +3704,13 @@ def main() -> int:
             failures.append(f"serve_wsgi: launches[{k}]=0")
     print(variant_line("serve_wsgi", sv), flush=True)
     failures.extend(variant_failures("serve_wsgi", sv))
+    # K14 is one device kernel a call on the W4A8 paths
+    for name in ("w4a8", "serve_wsgi"):
+        r = paths[name]
+        if r["device_launches"]["quant4_linear_bias_act"] \
+                != r["launches"]["quant4_linear_bias_act"]:
+            failures.append(f"{name}: K14 ran more than one device kernel a "
+                            f"call")
 
     hd_k11, hd_bf16 = per_op_paths(torch, model, imgs, greedy, quant,
                                    transcribe_path, decode_lib, paths,
@@ -3490,10 +3734,22 @@ def main() -> int:
               f"{cmp['per_op_bf16']['k11_device_ms_per_step']:.4f} of "
               f"{cmp['per_op_bf16']['profile']['device_ms_per_step']:.4f}",
               flush=True)
-    # one device kernel a wrapper call: 11 a layer (six K1, two K2, three K4)
-    if cmp["bf16"]["device_kernels_per_step"] != 11 * n_layers:
-        failures.append(f"bf16 step: {cmp['bf16']['device_kernels_per_step']}"
-                        f" device kernels, not {11 * n_layers}")
+    if "--profile" in sys.argv[1:]:
+        print(f"[profile] K6 device ms an int8 step "
+              f"{cmp['int8']['k6_device_ms_per_step']:.4f}, K5 "
+              f"{cmp['int8']['k5_device_ms_per_step']:.4f}, of "
+              f"{cmp['int8']['profile']['device_ms_per_step']:.4f}; K6 a W4A8 "
+              f"step {cmp['w4a8']['k6_device_ms_per_step']:.4f}, K14 "
+              f"{cmp['w4a8']['k14_device_ms_per_step']:.4f}, of "
+              f"{cmp['w4a8']['profile']['device_ms_per_step']:.4f}",
+              flush=True)
+    # one device kernel a wrapper call: 11 a layer (six K1 or K14, two K2
+    # or K6, three K4)
+    for key in ("bf16", "w4a8"):
+        if cmp[key]["device_kernels_per_step"] != 11 * n_layers:
+            failures.append(f"{key} step: "
+                            f"{cmp[key]['device_kernels_per_step']} device "
+                            f"kernels, not {11 * n_layers}")
 
     # the training path and its comparison with the plain twins
     import tempfile

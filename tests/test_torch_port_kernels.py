@@ -296,6 +296,154 @@ def test_decode_attention_int8_cross(dev, group):
         bias=bias[rep].contiguous()))
 
 
+def _k6_case(dev, mode, dh, heads=4, t=300, pos=200, seed=9):
+    """Inputs of one K6 call: self mode (appends at pos), cross over ragged
+    memory, or grouped memory (G rows a memory row)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e = heads * dh
+    if mode == "self":
+        b, grp = 3, 1
+        q = _randn(g, b, 3 * e, dev=dev) * 2
+        kw = {"pos": pos}
+    else:
+        grp = {"cross": 1, "grouped3": 3, "grouped8": 8}[mode]
+        b = 2 * grp if grp > 1 else 3
+        q = _randn(g, b, e, dev=dev) * 2
+        lens = torch.tensor([t, t // 3, 17][: b // grp], device=dev)
+        valid = torch.arange(t, device=dev)[None] < lens[:, None]
+        kw = {"bias": torch.where(valid, 0.0, -1e9).float().contiguous(),
+              "mem_group": grp}
+    (kc, ks), (vc, vs) = (_int8_cache(g, b // grp, t, e, heads, dev)
+                          for _ in range(2))
+    return q, (kc, vc, ks, vs), heads, kw
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["self", "cross", "grouped3", "grouped8"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_decode_attention_int8_cluster_splits(dev, split, mode, dh):
+    """K6's cluster kernel at splits 1, 2, 4, 8 against the twin: the
+    appended rows and scales equal bit for bit, the output within two bf16
+    ulps, two runs bit-equal, one launch counted as split{s}; the simt
+    kernel still agrees."""
+    q, caches, heads, kw = _k6_case(dev, mode, dh)
+    twin = [a.clone() for a in caches]
+    decode_attention_int8.launches, decode_attention_int8.variants = 0, {}
+    out = decode_attention_int8(q, *caches, heads, variant=f"split{split}",
+                                **kw)
+    ref = decode_attention_int8.plain(q, *twin, heads, **kw)
+    _close(out, ref, rel=2 * 2.0 ** -7)
+    for got, want in zip(caches, twin):
+        assert torch.equal(got, want)
+    assert torch.equal(out, decode_attention_int8(
+        q, *caches, heads, variant=f"split{split}", **kw))
+    assert decode_attention_int8.variants == {f"split{split}": 2}
+    assert decode_attention_int8.device_launches == 2
+    _close(decode_attention_int8(q, *caches, heads, variant="simt", **kw),
+           ref, rel=2 * 2.0 ** -7)
+    _close(decode_attention_int8(q, *caches, heads, **kw), ref,
+           rel=2 * 2.0 ** -7)
+
+
+@pytest.mark.parametrize("pos", [0, 1, 64, 255])
+def test_decode_attention_int8_cluster_ignores_keys_past_pos(dev, pos):
+    """Keys at and past pos (stale or never written: here other int8 rows
+    and NaN scales) change no bit of the output, at every split."""
+    q, caches, heads, _ = _k6_case(dev, "self", 64, t=256, pos=pos)
+    kc, vc, ks, vs = caches
+    for split in (1, 4, 8):
+        v = f"split{split}"
+        clean = [a.clone() for a in caches]
+        out = decode_attention_int8(q, *clean, heads, pos=pos, variant=v)
+        dirty = [a.clone() for a in caches]
+        dirty[0][:, pos:], dirty[1][:, pos:] = 127, -127
+        dirty[2][:, pos:], dirty[3][:, pos:] = float("nan"), float("nan")
+        assert torch.equal(decode_attention_int8(q, *dirty, heads, pos=pos,
+                                                 variant=v), out)
+        for a, b in zip(dirty, clean):
+            assert torch.equal(a[:, pos], b[:, pos])
+
+
+def test_decode_attention_int8_at_the_key_limit(dev):
+    """The step's limit (MAX_INT8_KEYS keys): self mode at the last slot and
+    grouped memory of that length, as the plan splits them."""
+    from acai_omr_tpu_torch.ops.decode_kernel import MAX_INT8_KEYS
+    t = MAX_INT8_KEYS
+    for mode, pos in (("self", t - 1), ("grouped8", None)):
+        q, caches, heads, kw = _k6_case(dev, mode, 64, t=t,
+                                        pos=t - 1 if pos else 0)
+        twin = [a.clone() for a in caches]
+        out = decode_attention_int8(q, *caches, heads, **kw)
+        _close(out, decode_attention_int8.plain(q, *twin, heads, **kw),
+               rel=2 * 2.0 ** -7)
+        for got, want in zip(caches, twin):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n,act", [(32, 1024, 3072, "none"),
+                                       (8, 1024, 4096, "gelu_rounded"),
+                                       (32, 4096, 1024, "gelu"),
+                                       (40, 2048, 256, "none"),
+                                       (3, 1024, 1024, "partial")])
+def test_quant4_linear_bias_act_cluster_splits(dev, split, m, k, n, act):
+    """K14's cluster kernel at splits 1, 2, 4, 8 (where a block's range fits
+    its shared memory), every act and a second row group (40 rows): equal to
+    the twin bit for bit, one device kernel a call counted as split{s}; the
+    simt form it replaced equal too, in three device kernels or two."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = _randn(g, m, k, dev=dev) * 3
+    q = torch.randint(-7, 8, (k, n), generator=g, device=dev)
+    s = (torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3) \
+        .to(torch.bfloat16).float()
+    b = None if act == "partial" else _randn(g, n, dev=dev,
+                                             dtype=torch.float32)
+    wp = pack_k8_int4(q)
+    want = quant4_linear_bias_act.plain(x, wp, s, b, act)
+    if -(-k // (128 * split)) * 128 > 1024:
+        with pytest.raises(ValueError, match="more than 1024"):
+            quant4_linear_bias_act(x, wp, s, b, act, variant=f"split{split}")
+        return
+    quant4_linear_bias_act.launches = 0
+    quant4_linear_bias_act.extra_launches = 0
+    quant4_linear_bias_act.variants = {}
+    out = quant4_linear_bias_act(x, wp, s, b, act, variant=f"split{split}")
+    assert torch.equal(out, want)
+    assert torch.equal(out, quant4_linear_bias_act(x, wp, s, b, act,
+                                                   variant=f"split{split}"))
+    used = min(split, k // 128)
+    assert quant4_linear_bias_act.variants == {f"split{used}": 2}
+    assert quant4_linear_bias_act.device_launches == 2
+    assert torch.equal(quant4_linear_bias_act(x, wp, s, b, act,
+                                              variant="simt"), want)
+    assert quant4_linear_bias_act.extra_launches >= 1
+
+
+@pytest.mark.parametrize("amax", [127.0, 63.5])
+def test_quant4_linear_bias_act_rounds_halves_to_even(dev, amax):
+    """Rows whose quotients x / scale are exact half-integers (the row max
+    127 or 63.5: scale 1 or 0.5): K14's cluster kernel rounds them half to
+    even, as the twin's division does (its quantizer takes the division
+    wherever the reciprocal's product lies near a half)."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    m, k, n = 8, 1024, 256
+    rs = amax / 127.0
+    halves = (torch.randint(-127, 127, (m, k), generator=g, device=dev)
+              + 0.5) * rs
+    halves[:, 0] = amax
+    x = halves.to(torch.bfloat16)
+    assert torch.equal(x.float(), halves)  # bf16 holds every value exactly
+    q = torch.randint(-7, 8, (k, n), generator=g, device=dev)
+    s = (torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3) \
+        .to(torch.bfloat16).float()
+    b = _randn(g, n, dev=dev, dtype=torch.float32)
+    wp = pack_k8_int4(q)
+    for split in (1, 8):
+        assert torch.equal(
+            quant4_linear_bias_act(x, wp, s, b, variant=f"split{split}"),
+            quant4_linear_bias_act.plain(x, wp, s, b))
+
+
 def test_encoder_attention_and_stack(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     b, t, e, h = 2, 128, 256, 4
@@ -1509,6 +1657,22 @@ def test_decode_attention_cluster_kernels_report_no_spill(dev):
             assert r["threads"] == 128 and r["local_bytes"] == 0, r
             assert r["blocks_per_sm"] >= 1, r
         assert len(op.resources("simt")) == 1
+
+
+def test_int8_cluster_kernels_report_no_spill(dev):
+    """K6's cluster kernels (three head dims x four query groups, 128
+    threads) and K14's (256 threads): no local memory, at least one block an
+    SM at their largest shared memory; the simt kernel or form each replaced
+    listed beside."""
+    for op, n, threads in ((decode_attention_int8, 12, 128),
+                           (quant4_linear_bias_act, 1, 256)):
+        rows = op.resources("split")
+        assert len([r for r in rows if r["variant"] == "split"]) == n
+        for r in rows:
+            if r["variant"] == "split":
+                assert r["threads"] == threads and r["local_bytes"] == 0, r
+                assert r["blocks_per_sm"] >= 1, r
+        assert any(r["variant"] == "simt" for r in op.resources("simt"))
 
 
 def test_resident_elementwise_keeps_its_rows_in_registers(dev):

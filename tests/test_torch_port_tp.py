@@ -379,18 +379,22 @@ def test_meshed_decode_rejects_what_jax_rejects(setup):
     """Heads that the model axis does not divide, and unique rows that the
     data axis does not divide, raise as in JAX; so does, before any step, a
     model axis other than 2 or 4 over CUDA devices (K15's sizes), which the
-    CPU's per-op step takes."""
+    CPU's per-op step takes. Over CUDA devices tp = 4 rides the monolith
+    step where its kernels take the shapes (bf16), and takes the per-op
+    step where they do not (an fp32 compute dtype), as JAX's
+    ``use_monolith``."""
     _, pparams, latent, valid = setup
     with pytest.raises(ValueError, match="num_heads"):
         _meshed(setup, 1, 8)
     cfg8 = DecoderConfig(**dict(DEC, num_heads=8))
-    plan = lambda devs: decode._mesh_plan(cfg8, mesh_lib.Mesh([devs]), "data",
-                                          "model", torch.float32,
-                                          torch.float32, "decode")
+    plan = lambda devs, dt=torch.float32: decode._mesh_plan(
+        cfg8, mesh_lib.Mesh([devs]), "data", "model", dt, dt, "decode",
+        max_len=16, mem_len=M)
     assert plan(["cpu"] * 8) == (1, 8, False)
     with pytest.raises(ValueError, match="model axis of 2 or 4"):
         plan(["cuda:0"] * 8)
-    assert plan(["cuda:0"] * 4) == (1, 4, True)
+    assert plan(["cuda:0"] * 4, torch.bfloat16) == (1, 4, True)
+    assert plan(["cuda:0"] * 4) == (1, 4, False)
     with pytest.raises(ValueError, match="does not shard"):
         _meshed(setup, 2, 1, rows=slice(0, 3))
     with pytest.raises(ValueError, match="num_heads"):
