@@ -16,16 +16,7 @@
 //
 // Bound on an H100: decode rows (M = B <= 32, or B * beams) read the whole
 // weight matrix for a handful of rows, so the K*N weight bytes at 3.35 TB/s
-// bound it; the int8 operations are far below the card's rate. Design: three
-// launches. (1) one block per row finds the row's max, writes the fp32 scale
-// and the int8 row. (2) each block owns 128 output columns (one per thread,
-// so a warp's weight loads are one coalesced 128-byte line per k/4) and a
-// chunk of K; the int8 activation tile (32 rows x 128 k) sits in shared
-// memory and is read as broadcast 32-bit words, one `__dp4a` per row and
-// word. K is split across blockIdx.z so that about two waves of blocks stream
-// the weights; the int32 partial sums are exact, so their order is free.
-// (3) sums the partials and applies the epilogue (skipped when K is not
-// split). No tensor cores, no cp.async/TMA pipelining yet.
+// bound it; the int8 operations are far below the card's rate.
 //
 // Epilogue act: 0 = none; 1 = exact-erf GELU on the fp32 sum; 2 = round the
 // sum to bf16, then GELU (the decode monolith casts ff1 to the compute dtype
@@ -34,8 +25,8 @@
 // fp32 `out` without the bias (`_qdot` under ACAI_TP_W8A8; K15 tp_allreduce
 // sums the ranks' partials and adds the bias).
 //
-// K14 quant4_linear_bias_act (second and third entry points): the W4A8
-// product, the same function with int4 weights in [-7, 7].
+// K14 quant4_linear_bias_act: the W4A8 product, the same function with int4
+// weights in [-7, 7].
 //
 // Replaces: `unpack_int4` and the W4A8 branch of `_kernel` in
 // ops/pallas_monolith.py of the JAX package, which unpacks a layer's six
@@ -52,14 +43,16 @@
 // Bound on an H100: the K*N/2 packed weight bytes at 3.35 TB/s at decode
 // rows (M <= 32), a quarter of K1's bytes.
 //
-// Design (`acai_quant4_linear_bias_act_cluster`, one launch, no scratch in
-// device memory), on the model of K1's skinny kernel: a block owns 64 output
-// columns, up to 32 activation rows and one range of K; the K ranges of an
-// output tile are the blocks of one thread-block cluster (at most 8,
+// Design of both (`quant8_cluster<BN>` for K5, `quant4_cluster` for K14: one
+// launch, no scratch in device memory; one body, `cluster_body`, templated
+// on the weight format), on the model of K1's skinny kernel: a block owns BN
+// output columns (K5: 64 or 128, `quant8_plan`; K14: 64), up to 32
+// activation rows and one range of K; the K ranges of an output tile are the
+// blocks of one thread-block cluster (at most 8, `quant8_plan` /
 // `quant4_plan` in ops/quant_linear_kernel.py).
 // * Thread 0 issues every load of the block by TMA at once: its K range of
-//   the x rows (boxes of 32 rows x 128 k, rows past M zero) and the packed
-//   weight boxes (16 word rows x 32 columns, 128-byte swizzle, two a stage)
+//   the x rows (boxes of 32 rows x 128 k, rows past M zero) and the weight
+//   boxes (word rows x 32 columns, 128-byte swizzle, BN / 32 a stage)
 //   through a ring of up to 8 stages.
 // * Each row's partial max-abs over the block's range (a warp a row, from
 //   shared memory) meets the other blocks' through distributed shared
@@ -68,19 +61,25 @@
 //   scale's reciprocal, the division itself only near a half-integer, where
 //   the two could round apart), into int8 rows laid out in the tensor cores'
 //   fragment order, a warp a row.
-// * The product: `mma.sync` m16n8k32 s8 x s8 -> s32. A thread's B fragment
-//   is the two nibble halves of two packed words of its column, unpacked in
-//   registers; the k order inside a 32-deep step is permuted the same way on
-//   both operands (an integer sum is the same in any order). Eight warps, an
-//   8-column tile each.
+// * The product: `mma.sync` m16n8k32 s8 x s8 -> s32, eight warps, an 8-column
+//   tile each per 64 columns. Only the B fragment differs between the
+//   formats. K5: a (K/4, N) word is already a B register (four k of one
+//   column); a thread takes the two words of its column whose k groups its
+//   A registers hold. K14: the two nibble halves of two packed words,
+//   unpacked in registers. Inside a 32-deep step the 4-k groups of the
+//   int8 rows are permuted (an integer sum is the same in any order) so that
+//   a thread's two A registers of a row are one eight-byte load.
 // * The exact int32 partial tiles meet through distributed shared memory
-//   after a cluster barrier; the blocks share the tile's epilogue.
-// The result equals K5's function and the plain twin bit for bit.
+//   after a cluster barrier; the blocks share the tile's epilogue, summing
+//   the ranks' partials in rank order.
+// The result equals the function above and the plain twins bit for bit.
 //
-// The form it replaced (`acai_quant4_linear_bias_act`, kept as the
-// yardstick, `variant="simt"`): K5's three launches (row quantizer, product,
-// split-K reduce), one coalesced word a thread per 8 k at stride N, two
-// `__dp4a` a word and row.
+// The form both replaced (kept as the yardstick, `variant="simt"`): three
+// launches (a row quantizer writing int8 rows and scales to device memory; a
+// product kernel, one output column a thread, one coalesced weight word a
+// thread per 4 k (K5) or 8 k (K14) at stride N, `__dp4a` against the int8
+// tile broadcast from shared memory; with K split across blockIdx.z a third
+// launch summing the int32 partials and applying the epilogue).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -266,39 +265,36 @@ int launch_quant_linear(const void* x, const void* w,
 }
 
 
-// --------------------------------------------- K14's cluster kernel (W4A8)
+// ------------------------------ the cluster kernel of K5 and K14 (one launch)
 
-namespace q4 {
+namespace qc {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int BN = 64;               // output columns a block
 constexpr int SUB = 32;              // columns a TMA box: 128 bytes, swizzled
 constexpr int KSTEP = 128;           // k a stage
 constexpr int ROWS = 32;             // activation rows a block
-constexpr int PROWS = KSTEP / 8;     // packed word rows a stage
-constexpr int BOX_BYTES = PROWS * SUB * 4;
 constexpr int X_BOX_BYTES = ROWS * KSTEP * 2;  // an x box: 32 rows x 128 k
-constexpr int STAGE_BYTES = 2 * BOX_BYTES;
 constexpr int STAGES = 8;
 constexpr int MAX_CHUNK = 1024;      // k a block
-constexpr int XS = MAX_CHUNK + 32;   // see x8_stride
-constexpr int PLD = BN + 4;          // int32 partial tile, 16-byte rows
-constexpr int SMEM_MAX = 1024 + STAGES * STAGE_BYTES + ROWS * MAX_CHUNK * 2 +
-                         ROWS * XS + ROWS * PLD * 4;
+// the dynamic shared memory a block may take: the card's 227 KB less 1 KB
+// for the kernel's static shared memory (barriers, row statistics)
+constexpr int SMEM_LIMIT = 227 * 1024 - 1024;
 
 // The int8 rows' stride: k_chunk + 32 bytes, so the eight-byte fragment
 // loads of four rows fall in four different bank groups.
 __device__ __forceinline__ int x8_stride(int k_chunk) { return k_chunk + 32; }
 
-// Where k (within a block's range) of an int8 row lies: inside each 32-deep
-// step, 4-k groups u = 0..7 go to slot u with bits 0 and 1 swapped, so that
-// a thread's a0 / a2 fragments (k 4t.., 16 + 4t.. of the mma's order) are
-// one eight-byte load; B takes the same permutation.
+// 4-k groups and their slots inside a 32-deep step of an int8 row: group u
+// lies in slot swap01(u) (bits 0 and 1 swapped; its own inverse), so that a
+// thread's a0 / a2 fragments (slots 2t and 2t + 1) are one eight-byte load.
+__device__ __forceinline__ int swap01(int u) {
+  return ((u & 1) << 1) | ((u >> 1) & 1) | (u & 4);
+}
+
+// Where k (within a block's range) of an int8 row lies.
 __device__ __forceinline__ int x8_offset(int k) {
-  const int u = (k & 31) >> 2;
-  const int v = ((u & 1) << 1) | ((u >> 1) & 1) | (u & 4);
-  return (k & ~31) + 4 * v + (k & 3);
+  return (k & ~31) + 4 * swap01((k & 31) >> 2) + (k & 3);
 }
 
 // rint(x / rs) rounded half to even, as the division would give it, from
@@ -312,7 +308,7 @@ __device__ __forceinline__ int round_quotient(float x, float rs, float inv) {
   return __float2int_rn(y);
 }
 
-// A packed word of a 128-byte-swizzled box of 32 columns: row r, column c.
+// A word of a 128-byte-swizzled box of 32 columns: row r, column c.
 __device__ __forceinline__ uint32_t box_word(const unsigned char* box, int r,
                                              int c) {
   return *reinterpret_cast<const uint32_t*>(
@@ -333,17 +329,75 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// The weight formats: word rows a 128-k stage, and a thread's B fragment
+// (b0 for the mma's first k group of the thread, b1 for its second) of
+// column c of a box in the 32-deep step kb. A thread (t = lane % 4) holds in
+// its A registers the groups of slots 2t and 2t + 1, i.e. groups
+// swap01(2t) and swap01(2t + 1); with SWAP_ODD the odd threads give the
+// mma the second of them first.
+//
+// K14: (K/8, N) int32 words of packed nibbles; word row p holds groups 2p
+// (low nibbles) and 2p + 1 (high nibbles), so a thread's groups are the low
+// (t even) or high (t odd) nibbles of word rows 2 (t >> 1) and + 1.
+struct W4 {
+  static constexpr int PROWS = KSTEP / 8;
+  static constexpr bool SWAP_ODD = false;
+  static __device__ __forceinline__ void frag(const unsigned char* box,
+                                              int kb, int t, int c,
+                                              uint32_t& b0, uint32_t& b1) {
+    const int pr = kb * 4 + 2 * (t >> 1);
+    b0 = nibbles(box_word(box, pr, c), t & 1);
+    b1 = nibbles(box_word(box, pr + 1, c), t & 1);
+  }
+};
+
+// K5: (K/4, N) words of four int8 weights, one word row a group: the word
+// is the B register as it stands. SWAP_ODD makes the eight word rows a
+// warp reads at once (groups 0, 3, 4, 7 for b0, then 2, 1, 6, 5 for b1)
+// fall in eight different 16-byte chunks of the swizzled box for the warp's
+// two column quads: no bank conflict.
+struct W8 {
+  static constexpr int PROWS = KSTEP / 4;
+  static constexpr bool SWAP_ODD = true;
+  static __device__ __forceinline__ void frag(const unsigned char* box,
+                                              int kb, int t, int c,
+                                              uint32_t& b0, uint32_t& b1) {
+    const int odd = t & 1;
+    b0 = box_word(box, kb * 8 + swap01(2 * t + odd), c);
+    b1 = box_word(box, kb * 8 + swap01(2 * t + 1 - odd), c);
+  }
+};
+
+// A block's shared memory beside its ring: the ring's 1 KB alignment, the
+// bf16 rows, the int8 rows, the int32 partial tile (BN + 4 a row).
+constexpr int fixed_bytes(int k_chunk, int bn) {
+  return 1024 + ROWS * k_chunk * 2 + ROWS * (k_chunk + 32) +
+         ROWS * (bn + 4) * 4;
+}
+
+// The tiles of a block of BN columns of format W.
+template <class W, int BN>
+struct Tile {
+  static constexpr int BOX_BYTES = W::PROWS * SUB * 4;
+  static constexpr int STAGE_BYTES = BN / SUB * BOX_BYTES;
+  static constexpr int NT = BN / (8 * WARPS);  // 8-column tiles a warp
+  static constexpr int PLD = BN + 4;  // int32 partial tile, 16-byte rows
+  static constexpr int SMEM_FULL =
+      fixed_bytes(MAX_CHUNK, BN) + STAGES * STAGE_BYTES;
+  static constexpr int SMEM_MAX =
+      SMEM_FULL < SMEM_LIMIT ? SMEM_FULL : SMEM_LIMIT;
+};
+
 // Grid (split, N / BN, ceil(M / ROWS)), one cluster of `split` blocks per
-// (64 columns, 32 rows): block r of the cluster sums K over
+// (BN columns, 32 rows): block r of the cluster sums K over
 // [r k_chunk, (r + 1) k_chunk).
-__global__ void __launch_bounds__(THREADS)
-    quant4_cluster(const __grid_constant__ CUtensorMap tw,
-                   const __grid_constant__ CUtensorMap tx,
-                   const float* __restrict__ col_scale,
-                   const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out16,
-                   float* __restrict__ out32, int M, int N, int K,
-                   int k_chunk, int stages, int act) {
+template <class W, int BN>
+__device__ __forceinline__ void cluster_body(
+    const CUtensorMap* tw, const CUtensorMap* tx,
+    const float* __restrict__ col_scale, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out16, float* __restrict__ out32, int M,
+    int N, int K, int k_chunk, int stages, int act) {
+  using T = Tile<W, BN>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t x_full;
@@ -361,7 +415,8 @@ __global__ void __launch_bounds__(THREADS)
   const int kn = min(K, k_lo + k_chunk) - k_lo;  // > 0: ranges none empty
   const int steps = kn / KSTEP;
   const int xs = x8_stride(k_chunk);
-  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(base + stages * STAGE_BYTES);
+  __nv_bfloat16* xb =
+      reinterpret_cast<__nv_bfloat16*>(base + stages * T::STAGE_BYTES);
   int8_t* x8 = reinterpret_cast<int8_t*>(xb + ROWS * k_chunk);
   int* part = reinterpret_cast<int*>(x8 + ROWS * xs);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -369,10 +424,12 @@ __global__ void __launch_bounds__(THREADS)
   auto fetch = [&](int i) {
     const int s = i % stages;
     const uint32_t bar = sm90::smem_u32(&full[s]);
-    sm90::mbar_expect_tx(bar, STAGE_BYTES);
-    const int row = k_lo / 8 + i * PROWS;
-    sm90::tma_load(ring + s * STAGE_BYTES, &tw, bar, n0, row);
-    sm90::tma_load(ring + s * STAGE_BYTES + BOX_BYTES, &tw, bar, n0 + SUB, row);
+    sm90::mbar_expect_tx(bar, T::STAGE_BYTES);
+    const int row = k_lo / (KSTEP / W::PROWS) + i * W::PROWS;
+#pragma unroll
+    for (int j = 0; j < BN / SUB; ++j)
+      sm90::tma_load(ring + s * T::STAGE_BYTES + j * T::BOX_BYTES, tw, bar,
+                     n0 + j * SUB, row);
   };
   // thread 0 starts every load: this block's K range of the rows (one box
   // of 32 rows x 128 k a step, rows past M zero) and the first stages of
@@ -384,7 +441,7 @@ __global__ void __launch_bounds__(THREADS)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     sm90::mbar_expect_tx(sm90::smem_u32(&x_full), steps * X_BOX_BYTES);
     for (int i = 0; i < steps; ++i)
-      sm90::tma_load(sm90::smem_u32(xb) + i * X_BOX_BYTES, &tx,
+      sm90::tma_load(sm90::smem_u32(xb) + i * X_BOX_BYTES, tx,
                      sm90::smem_u32(&x_full), k_lo + i * KSTEP, m0);
     for (int i = 0; i < min(stages, steps); ++i) fetch(i);
   }
@@ -450,40 +507,46 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
 
-  // the product: warp w on the 8-column tile [8 w, 8 w + 8)
+  // the product: warp w on the 8-column tiles [64 j + 8 w, 64 j + 8 w + 8)
   const int g = lane / 4, t = lane % 4;
-  const int col = warp * 8 + g;
-  const int sub_off = (col / SUB) * BOX_BYTES;
-  int acc[2][4];
+  const bool swap = W::SWAP_ODD && (t & 1);
+  int acc[2][T::NT][4];
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[a][e] = 0;
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][j][e] = 0;
   const bool refill = stages < steps;
   for (int i = 0; i < steps; ++i) {
     const int s = i % stages;
     sm90::mbar_wait(sm90::smem_u32(&full[s]), (i / stages) & 1);
-    const unsigned char* slot = base + s * STAGE_BYTES;
+    const unsigned char* slot = base + s * T::STAGE_BYTES;
 #pragma unroll
     for (int kb = 0; kb < KSTEP / 32; ++kb) {
       const int kx = i * KSTEP + kb * 32 + 8 * t;
-      uint2 a[2][2];
+      uint2 a[2][2];  // rows g and g + 8 of each 16-row tile
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
         if (mt < mtiles) {
-          a[mt][0] = *reinterpret_cast<const uint2*>(x8 + (mt * 16 + g) * xs + kx);
-          a[mt][1] =
-              *reinterpret_cast<const uint2*>(x8 + (mt * 16 + g + 8) * xs + kx);
+          a[mt][0] =
+              *reinterpret_cast<const uint2*>(x8 + (mt * 16 + g) * xs + kx);
+          a[mt][1] = *reinterpret_cast<const uint2*>(
+              x8 + (mt * 16 + g + 8) * xs + kx);
         }
-      const int pr = kb * 4 + 2 * (t >> 1);  // this thread's two word rows
-      const unsigned char* box = slot + sub_off;
-      const uint32_t b0 = nibbles(box_word(box, pr, col % SUB), t & 1);
-      const uint32_t b1 = nibbles(box_word(box, pr + 1, col % SUB), t & 1);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        if (mt < mtiles)
-          mma_s8(acc[mt], a[mt][0].x, a[mt][1].x, a[mt][0].y, a[mt][1].y, b0,
-                 b1);
+      for (int j = 0; j < T::NT; ++j) {
+        const int col = j * 8 * WARPS + warp * 8 + g;
+        uint32_t b0, b1;
+        W::frag(slot + col / SUB * T::BOX_BYTES, kb, t, col % SUB, b0, b1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          if (mt < mtiles)
+            mma_s8(acc[mt][j], swap ? a[mt][0].y : a[mt][0].x,
+                   swap ? a[mt][1].y : a[mt][1].x,
+                   swap ? a[mt][0].x : a[mt][0].y,
+                   swap ? a[mt][1].x : a[mt][1].y, b0, b1);
+      }
     }
     if (refill) {
       __syncthreads();  // the slot is free
@@ -494,11 +557,14 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
     if (mt < mtiles) {
-      const int c2 = warp * 8 + 2 * t, row = mt * 16 + g;
-      *reinterpret_cast<int2*>(part + row * PLD + c2) =
-          make_int2(acc[mt][0], acc[mt][1]);
-      *reinterpret_cast<int2*>(part + (row + 8) * PLD + c2) =
-          make_int2(acc[mt][2], acc[mt][3]);
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int c2 = j * 8 * WARPS + warp * 8 + 2 * t, row = mt * 16 + g;
+        *reinterpret_cast<int2*>(part + row * T::PLD + c2) =
+            make_int2(acc[mt][j][0], acc[mt][j][1]);
+        *reinterpret_cast<int2*>(part + (row + 8) * T::PLD + c2) =
+            make_int2(acc[mt][j][2], acc[mt][j][3]);
+      }
     }
   sm90::cluster_sync();  // every block's partial tile is staged
   // this block's share of the tile's outputs, four columns at a time: the
@@ -509,7 +575,7 @@ __global__ void __launch_bounds__(THREADS)
     int4 u[sm90::MAX_CLUSTER];  // every load in flight before the sum
 #pragma unroll
     for (int q = 0; q < sm90::MAX_CLUSTER; ++q)
-      if (q < split) u[q] = sm90::load_peer_int4(part + r * PLD + c, q);
+      if (q < split) u[q] = sm90::load_peer_int4(part + r * T::PLD + c, q);
     int4 v = u[0];
 #pragma unroll
     for (int q = 1; q < sm90::MAX_CLUSTER; ++q)
@@ -535,9 +601,38 @@ __global__ void __launch_bounds__(THREADS)
   sm90::cluster_sync();  // no block leaves while another reads its partials
 }
 
-int launch(const void* x, const void* w, const void* col_scale,
+// K14 (W4A8), 64 columns a block.
+__global__ void __launch_bounds__(THREADS)
+    quant4_cluster(const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap tx,
+                   const float* __restrict__ col_scale,
+                   const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ out16,
+                   float* __restrict__ out32, int M, int N, int K,
+                   int k_chunk, int stages, int act) {
+  cluster_body<W4, 64>(&tw, &tx, col_scale, bias, out16, out32, M, N, K,
+                       k_chunk, stages, act);
+}
+
+// K5 (W8A8), BN (64 or 128) columns a block.
+template <int BN>
+__global__ void __launch_bounds__(THREADS)
+    quant8_cluster(const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap tx,
+                   const float* __restrict__ col_scale,
+                   const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ out16,
+                   float* __restrict__ out32, int M, int N, int K,
+                   int k_chunk, int stages, int act) {
+  cluster_body<W8, BN>(&tw, &tx, col_scale, bias, out16, out32, M, N, K,
+                       k_chunk, stages, act);
+}
+
+template <class W, int BN, class Kernel>
+int launch(Kernel kernel, const void* x, const void* w, const void* col_scale,
            const void* bias, void* out, int M, int N, int K, int k_chunk,
            int split, int act, cudaStream_t s) {
+  using T = Tile<W, BN>;
   if (M < 1 || N % BN != 0 || K % KSTEP != 0 || k_chunk <= 0 ||
       k_chunk % KSTEP != 0 || k_chunk > MAX_CHUNK || split < 1 ||
       split > sm90::MAX_CLUSTER || (long long)k_chunk * (split - 1) >= K ||
@@ -545,36 +640,40 @@ int launch(const void* x, const void* w, const void* col_scale,
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tw, tx;
-  int rc = sm90::encode_map(&tw, w, K / 8, N, N, PROWS, SUB,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
+  int rc = sm90::encode_map(&tw, w, (long long)K / KSTEP * W::PROWS, N, N,
+                            W::PROWS, SUB, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_DATA_TYPE_INT32, 4);
   if (rc == 0)
     rc = sm90::encode_map(&tx, x, M, K, K, ROWS, KSTEP,
                           CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc != 0) return rc;
-  const int stages = std::min(STAGES, k_chunk / KSTEP);
-  const int smem = 1024 + stages * STAGE_BYTES + ROWS * k_chunk * 2 +
-                   ROWS * (k_chunk + 32) + ROWS * PLD * 4;
+  // every k-step of the block in flight where the shared memory holds them
+  const int stages =
+      std::min({STAGES, k_chunk / KSTEP,
+                (SMEM_LIMIT - fixed_bytes(k_chunk, BN)) / T::STAGE_BYTES});
+  const int smem = fixed_bytes(k_chunk, BN) + stages * T::STAGE_BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
-      quant4_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_MAX);
   if (err != cudaSuccess) return (int)err;
   const bool f32 = act == 3;
   return sm90::launch_cluster(
-      quant4_cluster, dim3(split, N / BN, (M + ROWS - 1) / ROWS), THREADS,
-      smem, split, s, tw, tx, static_cast<const float*>(col_scale), static_cast<const float*>(bias),
+      kernel, dim3(split, N / BN, (M + ROWS - 1) / ROWS), THREADS, smem,
+      split, s, tw, tx, static_cast<const float*>(col_scale),
+      static_cast<const float*>(bias),
       f32 ? nullptr : static_cast<__nv_bfloat16*>(out),
       f32 ? static_cast<float*>(out) : nullptr, M, N, K, k_chunk, stages, act);
 }
 
-}  // namespace q4
+}  // namespace qc
 
 }  // namespace
 
-// x8 (M, K) int8 and row_scale (M,) fp32 are scratch the wrapper allocates.
-// splits == 1: two launches, epilogue in the product kernel. splits > 1:
-// `partial` holds (splits, M, N) int32 scratch; each z-slice covers k_chunk
-// (a multiple of 128) of K and a third launch reduces. act == 3: `out` is
-// (M, N) fp32 and `bias` may be null.
+// The three-launch form (`variant="simt"`). x8 (M, K) int8 and row_scale
+// (M,) fp32 are scratch the wrapper allocates. splits == 1: two launches,
+// epilogue in the product kernel. splits > 1: `partial` holds (splits, M, N)
+// int32 scratch; each z-slice covers k_chunk (a multiple of 128) of K and a
+// third launch reduces. act == 3: `out` is (M, N) fp32 and `bias` may be
+// null.
 extern "C" int acai_quant_linear_bias_act(const void* x, const void* w4,
                                           const void* col_scale,
                                           const void* bias, void* out,
@@ -587,7 +686,8 @@ extern "C" int acai_quant_linear_bias_act(const void* x, const void* w4,
       partial, M, N, K, k_chunk, splits, act, stream);
 }
 
-// K14: as above with (K/8, N) int32 words of packed int4 weights.
+// K14's three-launch form: as above with (K/8, N) int32 words of packed
+// int4 weights.
 extern "C" int acai_quant4_linear_bias_act(const void* x, const void* w8k,
                                            const void* col_scale,
                                            const void* bias, void* out,
@@ -600,31 +700,54 @@ extern "C" int acai_quant4_linear_bias_act(const void* x, const void* w8k,
       partial, M, N, K, k_chunk, splits, act, stream);
 }
 
-// K14 in one launch (`quant4_cluster`): x (M, K) bf16, 16-byte aligned;
-// (K/8, N) int32 words of packed int4 weights, 16-byte aligned; K % 128 == 0,
-// N % 64 == 0; K split in `split` (<= 8, one cluster) ranges of k_chunk (a
+// K5 in one launch (`quant8_cluster<bn>`): x (M, K) bf16, 16-byte aligned;
+// (K/4, N, 4) int8 weights, 16-byte aligned; K % 128 == 0, N % bn == 0, bn
+// 64 or 128; K split in `split` (<= 8, one cluster) ranges of k_chunk (a
 // multiple of 128, at most 1024), none empty. act == 3: `out` is (M, N)
 // fp32 and `bias` is null.
+extern "C" int acai_quant_linear_bias_act_cluster(
+    const void* x, const void* w4, const void* col_scale, const void* bias,
+    void* out, int M, int N, int K, int k_chunk, int split, int bn, int act,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 64)
+    return qc::launch<qc::W8, 64>(qc::quant8_cluster<64>, x, w4, col_scale,
+                                  bias, out, M, N, K, k_chunk, split, act, s);
+  if (bn == 128)
+    return qc::launch<qc::W8, 128>(qc::quant8_cluster<128>, x, w4, col_scale,
+                                   bias, out, M, N, K, k_chunk, split, act, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K14 in one launch (`quant4_cluster`): as above with (K/8, N) int32 words
+// of packed int4 weights and 64 columns a block (N % 64 == 0).
 extern "C" int acai_quant4_linear_bias_act_cluster(
     const void* x, const void* w8k, const void* col_scale, const void* bias,
     void* out, int M, int N, int K, int k_chunk, int split, int act,
     void* stream) {
-  return q4::launch(x, w8k, col_scale, bias, out, M, N, K, k_chunk, split,
-                    act, static_cast<cudaStream_t>(stream));
+  return qc::launch<qc::W4, 64>(qc::quant4_cluster, x, w8k, col_scale, bias,
+                                out, M, N, K, k_chunk, split, act,
+                                static_cast<cudaStream_t>(stream));
 }
 
-// The resource report (func_attrs.cuh): K14's cluster kernel, which every
-// `split{s}` launch runs, at its largest dynamic shared memory; the kernels
-// of K5 and of K14's `simt` form.
+// The resource report (func_attrs.cuh): the cluster kernels, which every
+// `split{s}` launch runs, at their largest dynamic shared memory; the
+// kernels of the three-launch forms (`simt`).
 static const AcaiKernelEntry kResources[] = {
+    {"quant_linear_bias_act|split|quant8_cluster<64>",
+     reinterpret_cast<const void*>(&qc::quant8_cluster<64>), qc::THREADS,
+     qc::Tile<qc::W8, 64>::SMEM_MAX},
+    {"quant_linear_bias_act|split|quant8_cluster<128>",
+     reinterpret_cast<const void*>(&qc::quant8_cluster<128>), qc::THREADS,
+     qc::Tile<qc::W8, 128>::SMEM_MAX},
     {"quant4_linear_bias_act|split|quant4_cluster",
-     reinterpret_cast<const void*>(q4::quant4_cluster), q4::THREADS,
-     q4::SMEM_MAX},
+     reinterpret_cast<const void*>(&qc::quant4_cluster), qc::THREADS,
+     qc::Tile<qc::W4, 64>::SMEM_MAX},
     ACAI_KERNEL("quant4_linear_bias_act", "simt", quant_linear_kernel<true>,
                 THREADS, 0),
-    ACAI_KERNEL("quant_linear_bias_act", "", quant_linear_kernel<false>,
+    ACAI_KERNEL("quant_linear_bias_act", "simt", quant_linear_kernel<false>,
                 THREADS, 0),
-    ACAI_KERNEL("quant_linear_bias_act", "", quantize_rows_kernel, QTHREADS,
-                0),
+    ACAI_KERNEL("quant_linear_bias_act", "simt", quantize_rows_kernel,
+                QTHREADS, 0),
 };
 ACAI_EXPORT_RESOURCES(kResources)

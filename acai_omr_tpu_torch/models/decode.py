@@ -281,14 +281,14 @@ def decode_attention(q: torch.Tensor, kT: torch.Tensor, vT: torch.Tensor,
     q: (B, H, Dh); kT/vT: (B, H, Dh, T); bias: (B, T) additive or None; with
     int8 caches k_scale/v_scale (B, H, T) dequantize after the dots. Only the
     first ``n_keys`` positions are read (the rest must carry no weight).
-    Where the switch of the cache's dtype is on, K11 (caches in the compute
-    dtype, a head dim it takes on the device: ``hd_takes``) or K12 (int8)
-    computes it; else this plain path, whose softmax weights are rounded to
-    the compute dtype before the V product (the kernels' are not). Returns
-    (B, H, Dh) in the compute dtype.
+    Where the switch of the cache's dtype is on and the head dim is one the
+    kernels take on the device (``hd_takes``), K11 (caches in the compute
+    dtype) or K12 (int8) computes it; else this plain path, whose softmax
+    weights are rounded to the compute dtype before the V product (the
+    kernels' are not). Returns (B, H, Dh) in the compute dtype.
     """
-    if hd.use_kernel(kT.dtype) and (k_scale is not None or (
-            q.dtype == kT.dtype and hd.hd_takes(q.shape[-1], q.device))):
+    if hd.use_kernel(kT.dtype) and hd.hd_takes(q.shape[-1], q.device) and (
+            k_scale is not None or q.dtype == kT.dtype):
         if k_scale is None:
             return hd.decode_attention_hd(q.contiguous(), kT, vT, bias,
                                           n_keys=n_keys)
@@ -342,7 +342,9 @@ def _decode_step_logits(params, cfg: DecoderConfig, x, t: int, caches,
 
     With int8 caches and ``ACAI_PALLAS_DECODE_INT8`` on, the self-attention
     is K13 (quantize, append, attend) and the cross-attention with
-    ``mem_group == 1`` is K12 over the stacked memory; otherwise the fresh
+    ``mem_group == 1`` is K12 over the stacked memory where K12 takes the
+    head dim on the device (``hd_takes``; else :func:`decode_attention`'s
+    plain path, as JAX's ``use_pallas`` falls back); otherwise the fresh
     k / v are quantized with fp32 scales, written, and attended by
     :func:`decode_attention`. ``mem_group > 1`` takes
     :func:`_grouped_cross_attention`. Caches in another float dtype than the
@@ -366,7 +368,8 @@ def _decode_step_logits(params, cfg: DecoderConfig, x, t: int, caches,
     quantized = "ks" in caches[0]
     fused_int8 = quantized and hd.use_kernel(torch.int8)
     fused_mem = (mem_group == 1 and mem[0].k_scale is not None
-                 and hd.use_kernel(torch.int8))
+                 and hd.use_kernel(torch.int8)
+                 and hd.hd_takes(dh, x[0].device))
     cd = compute_dtype
     ranks = range(tp)
 

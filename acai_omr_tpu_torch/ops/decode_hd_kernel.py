@@ -12,7 +12,11 @@ the per-op ("lane-major") decode step, which keeps its caches as
   forces the kernel it replaced, kept as the yardstick.
 * K12 :data:`decode_attention_hd_int8` (``csrc/decode_attention_hd_int8.cu``):
   the same over int8 planes with fp32 ``(B, H, T)`` scales, per layer or
-  reading layer ``layer`` of a stacked ``(L, B, H, Dh, T)`` cache.
+  reading layer ``layer`` of a stacked ``(L, B, H, Dh, T)`` cache, on K11's
+  cluster design (the keys split as
+  :func:`..decode_kernel.decode_attention_int8_plan` says), counted as
+  ``"layer_split{s}"`` / ``"stacked_split{s}"``; ``variant="simt"`` forces
+  the kernel it replaced, kept as the yardstick.
 * K13 :data:`self_attention_append_int8`
   (``csrc/self_attention_append_int8.cu``): quantizes the fresh k / v rows,
   writes them and their scales into column ``pos`` of layer ``layer`` in
@@ -22,9 +26,9 @@ The switches mirror the JAX package's: ``ACAI_PALLAS_DECODE`` (K11,
 default off) and ``ACAI_PALLAS_DECODE_INT8`` (K12 / K13, default on), read
 at import, changed with :func:`set_enabled` / :func:`set_enabled_int8`. The
 TPU shape and VMEM conditions of the JAX ``use_pallas`` are not carried
-over; the card's own rule is K11's head dims (:func:`hd_takes`), where the
-per-op step takes its plain path instead, as JAX falls back. K12 and K13
-take every head dim.
+over; the card's own rule is the head dims the cluster kernels of K11 and
+K12 are compiled for (:func:`hd_takes`), where the per-op step takes its
+plain path instead, as JAX falls back. K13 takes every head dim.
 """
 
 from __future__ import annotations
@@ -41,10 +45,11 @@ from .decode_kernel import attention_split, quantize_rows
 _ENABLED = os.environ.get("ACAI_PALLAS_DECODE", "0") == "1"
 _ENABLED_INT8 = os.environ.get("ACAI_PALLAS_DECODE_INT8", "1") == "1"
 
-# K12 / K13 keep every logit (and the query) in shared memory: 227 KB a block
-# at most; K11 takes as many keys (its blocks hold an eighth of them at most)
+# K13 and the simt forms of K11 / K12 keep every logit (and the query) in
+# shared memory: 227 KB a block at most (the cluster kernels hold a range of
+# the keys a block: the plans' rules)
 MAX_KEYS = 227 * 1024 // 4 - 3 * 128
-# the head dims K11's cluster kernel is compiled for
+# the head dims the cluster kernels of K11 and K12 are compiled for
 HD_DHS = (16, 32, 64, 128)
 
 
@@ -65,11 +70,12 @@ def use_kernel(cache_dtype) -> bool:
 
 
 def hd_takes(dh: int, device) -> bool:
-    """Whether K11 takes head dim ``dh`` on ``device``: on the card its
-    cluster kernel is compiled for HD_DHS; on the CPU its twin takes any.
-    :func:`..models.decode.decode_attention` asks before it calls K11 and
-    takes its plain path otherwise, as the JAX package's ``use_pallas``
-    falls back for the shapes its kernel does not take."""
+    """Whether K11 and K12 take head dim ``dh`` on ``device``: on the card
+    their cluster kernels are compiled for HD_DHS; on the CPU their twins
+    take any. :func:`..models.decode.decode_attention` and the per-op
+    step's stacked cross-attention ask before they call K11 or K12 and take
+    the plain path otherwise, as the JAX package's ``use_pallas`` falls back
+    for the shapes its kernels do not take."""
     return torch.device(device).type != "cuda" or dh in HD_DHS
 
 
@@ -187,38 +193,72 @@ def decode_attention_hd_int8_plain(q: torch.Tensor, kT: torch.Tensor,
     return torch.einsum("bht,bhdt->bhd", w, vT[..., :n].float()).to(q.dtype)
 
 
+def _check_hd_int8(q, kT, vT, k_scale, v_scale, bias=None, layer=None,
+                   n_keys=None, variant=None):
+    """K12's shape rules and its variant, on either device: the plan (keys
+    a block, split; the keys a cluster holds are the plan's rule), or None
+    for ``"simt"`` (every logit in one block's shared memory)."""
+    stacked = layer is not None
+    if q.dim() != 3 or kT.dim() != 4 + stacked:
+        raise ValueError("decode_attention_hd_int8 shape mismatch")
+    b, h, dh = q.shape
+    t = kT.shape[-1]
+    lead = tuple(kT.shape[:1]) if stacked else ()
+    if tuple(kT.shape) != lead + (b, h, dh, t) \
+            or tuple(vT.shape) != tuple(kT.shape) \
+            or tuple(k_scale.shape) != lead + (b, h, t) \
+            or tuple(v_scale.shape) != tuple(k_scale.shape) \
+            or (stacked and not 0 <= layer < kT.shape[0]):
+        raise ValueError("decode_attention_hd_int8 shape mismatch")
+    if bias is not None and tuple(bias.shape) != (b, t):
+        raise ValueError("bias must be (B, T)")
+    n = _keys(t, n_keys)
+    if variant == "simt":
+        _check_keys(n, dh)
+    return attention_split(variant, b, h, n, 1, True)
+
+
 def _launch_hd_int8(op, q, kT, vT, k_scale, v_scale, bias=None, layer=None,
-                    n_keys=None):
+                    n_keys=None, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"split{s}"`` forces
+    the cluster kernel's split, ``"simt"`` the kernel it replaced. Launches
+    count per layer and stacked apart: ``"layer_split{s}"`` /
+    ``"stacked_split{s}"``, or ``"simt"``."""
+    plan = _check_hd_int8(q, kT, vT, k_scale, v_scale, bias, layer, n_keys,
+                          variant)
     stacked = layer is not None
     _build.require(q, "q", torch.bfloat16, 3)
     for name, a, dtype, nd in (("kT", kT, torch.int8, 4), ("vT", vT, torch.int8, 4),
                                ("k_scale", k_scale, torch.float32, 3),
                                ("v_scale", v_scale, torch.float32, 3)):
         _build.require(a, name, dtype, nd + stacked)
-    b, h, dh = q.shape
-    t = kT.shape[-1]
-    lead = kT.shape[:1] if stacked else ()
-    if kT.shape != lead + (b, h, dh, t) or vT.shape != kT.shape \
-            or k_scale.shape != lead + (b, h, t) \
-            or v_scale.shape != k_scale.shape \
-            or (stacked and not 0 <= layer < kT.shape[0]):
-        raise ValueError("decode_attention_hd_int8 shape mismatch")
     if bias is not None:
         _build.require(bias, "bias", torch.float32, 2)
-        if bias.shape != (b, t):
-            raise ValueError("bias must be (B, T)")
+    b, h, dh = q.shape
+    t = kT.shape[-1]
     n = _keys(t, n_keys)
-    _check_keys(n, dh)
+    if plan is not None and not hd_takes(dh, q.device):
+        raise ValueError(f"decode_attention_hd_int8's cluster kernel takes "
+                         f"head dims {HD_DHS}, got {dh}")
     out = torch.empty_like(q)
-    fn = _build.bind("decode_attention_hd_int8",
-                     "acai_decode_attention_hd_int8",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    rc = fn(q.data_ptr(), kT.data_ptr(), vT.data_ptr(), k_scale.data_ptr(),
+    args = (q.data_ptr(), kT.data_ptr(), vT.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            layer if stacked else 0, b, h, dh, t, n, 1.0 / math.sqrt(dh),
-            out.data_ptr(), _build.stream_ptr())
-    op.launched("stacked" if stacked else "layer")
+            layer if stacked else 0, b, h, dh, t, n, 1.0 / math.sqrt(dh))
+    types = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    if plan is None:
+        fn = _build.bind("decode_attention_hd_int8",
+                         "acai_decode_attention_hd_int8",
+                         types + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, out.data_ptr(), _build.stream_ptr())
+        op.launched("simt")
+    else:
+        chunk, split = plan
+        fn = _build.bind("decode_attention_hd_int8",
+                         "acai_decode_attention_hd_int8_cluster",
+                         types + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, chunk, split, out.data_ptr(), _build.stream_ptr())
+        op.launched(f"{'stacked' if stacked else 'layer'}_split{split}")
     _build.check(rc, op.name)
     return out
 
@@ -228,7 +268,7 @@ decode_attention_hd_int8 = _build.KernelOp(
     "acai_omr_tpu_torch/csrc/decode_attention_hd_int8.cu",
     "acai_omr_tpu/ops/pallas_decode.py:103 (_kernel_int8, pallas_call :374) "
     "and :274 (_kernel_int8_stacked, pallas_call :329)",
-    _launch_hd_int8, decode_attention_hd_int8_plain)
+    _launch_hd_int8, decode_attention_hd_int8_plain, _check_hd_int8)
 
 
 def self_attention_append_int8_plain(q: torch.Tensor, k_new: torch.Tensor,

@@ -75,7 +75,7 @@ from .layernorm_kernel import add_layernorm, layernorm_takes
 from .linear_kernel import N_SMS, linear_bias_act, linear_takes
 from .quant_linear_kernel import (INT4_QMAX, INT8_QMAX, pack_k4, pack_k8_int4,
                                   quant4_linear_bias_act, quant4_takes,
-                                  quant_linear_bias_act, quant_takes)
+                                  quant8_takes, quant_linear_bias_act)
 from .tp_allreduce_kernel import LOCAL_ELEMS, tp_allreduce
 
 Params = dict
@@ -181,7 +181,7 @@ def monolith_takes(e: int, heads: int, mlp_dim: int, cache_dtype,
     (:func:`attention_fits`). The launchers' rules hold on a ``cuda``
     device only, so the twins keep taking the CPU's tiny shapes: a bf16
     compute dtype, a head dim of ATTN_DHS, the products' shapes
-    (``linear_takes``, ``quant_takes``, ``quant4_takes``). The decode loops
+    (``linear_takes``, ``quant8_takes``, ``quant4_takes``). The decode loops
     take the per-op step where it is False, as the JAX package's
     ``use_monolith`` falls back."""
     if heads <= 0 or e % heads or heads % tp or mlp_dim % tp:
@@ -201,7 +201,7 @@ def monolith_takes(e: int, heads: int, mlp_dim: int, cache_dtype,
         return False
     el, fl = e // tp, mlp_dim // tp
     mode = weight_quant_mode(cache_dtype, tp > 1)
-    takes = quant4_takes if mode == "int4" else quant_takes if mode \
+    takes = quant4_takes if mode == "int4" else quant8_takes if mode \
         else (lambda k, n: linear_takes("skinny", k, n))
     return all(takes(k, n) for k, n in ((e, 3 * el), (el, e), (e, el),
                                         (el, e), (e, fl), (fl, e)))

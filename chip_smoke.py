@@ -9,15 +9,21 @@ Phases, all in one process; any failure exits non-zero:
    of ``acai_omr_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. hold each kernel (K1 linear_bias_act, K2 decode_attention with and
    without grouped memory, K3 encoder_attention, K4 add_layernorm, K5
-   quant_linear_bias_act, K14 quant4_linear_bias_act (its cluster kernel,
-   bit for bit, at 32 and 8 rows, in turns with the three-launch form it
-   replaced, ``variant="simt"``, warm and from HBM), K6
+   quant_linear_bias_act (its cluster kernel, bit for bit, at 32 rows, at
+   the 4, 8 and 16 rows of int8 and beam_int8 and at the tp = 2 shards and
+   partials of tp2_int8_w8a8, in turns with the three-launch form it
+   replaced, ``variant="simt"``, warm and from HBM, the host us a call of
+   both), K14 quant4_linear_bias_act (the same cluster kernel on int4
+   weights, bit for bit, at 32 and 8 rows, in turns with its three-launch
+   form, warm and from HBM), K6
    decode_attention_int8 (its cluster kernel) in self, cross and grouped
    cross mode at B = 32 and at the rows the int8 paths run (4 and 8 rows,
    beams B = 16 G = 4, GRPO's 128 rows G = 8 as a kernel row), in turns
    with the simt kernel it replaced, warm and from HBM, two runs
    bit-equal; the per-op step's K11 decode_attention_hd self and cross, K12
-   decode_attention_hd_int8 per layer and stacked, K13
+   decode_attention_hd_int8 (its cluster kernel) per layer and stacked at
+   B = 32 and stacked at the path's 4 rows, in turns with the simt kernel it
+   replaced, warm and from HBM, two runs bit-equal, K13
    self_attention_append_int8 at pos 300 and 0; K15 tp_allreduce at tp = 2
    and 4, B = 4-128, E = 1024, bf16 and fp32 out, bit for bit, its one-card
    form timed in turns with the exchange it replaced on one card
@@ -152,8 +158,10 @@ Phases, all in one process; any failure exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
-decode steps of each cache mode and of the per-op bf16 step with K11 on
-(K2's, K4's, K5's, K6's, K11's and K14's device ms a step among them), over two training
+decode steps of each cache mode and of the per-op bf16 step with K11 on and
+int8 step (K2's, K4's, K5's, K6's, K11's, K12's, K13's and K14's device ms a
+step among them; the W8A8 step and the per-op int8 step again with K5 / K12
+forced to the forms they replaced, in turns), over two training
 microbatches and over two MAE updates (device time by kernel, device busy
 share); ``--report PATH``
 writes every number of the run as JSON to PATH; ``--k7-bits`` prints only
@@ -164,14 +172,16 @@ exits; ``--attn-splits`` times only K2's and K11's cluster kernels at every
 split of the keys at the decode shapes (``attn_splits``) and exits;
 ``--k4-plan`` times only K4's vector kernel at 1 and 4 warps a row and
 the scalar kernel at the paths' rows (``k4_plan``) and exits;
-``--int8-splits`` times only K6's and K14's cluster kernels at every split
-at the int8 paths' shapes, from HBM, beside their plans' splits
-(``int8_splits``) and exits. Phase 3 also holds the monolith int8 step
-against the per-op int8 step on one batch (``int8_vs_per_op``: the first
-step's largest |logit difference|, the top-1 margins of rows whose tokens
-differ, 24 free-running steps of each), and checks that K14 is one device
-kernel a call on ``w4a8`` and ``serve_wsgi`` and that a W4A8 step is 11
-device kernels a layer.
+``--int8-splits`` times only K5's, K6's, K12's and K14's cluster kernels
+at every split (K5 also at 64 and 128 columns a block) at the int8 paths'
+shapes, from HBM, beside their plans' choices (``int8_splits``) and exits.
+Phase 3 also holds the monolith int8 step against the per-op int8 step on
+one batch (``int8_vs_per_op``: the first step's largest |logit
+difference|, the top-1 margins of rows whose tokens differ, 24 free-running
+steps of each), and checks that K14 is one device kernel a call on
+``w4a8`` and ``serve_wsgi``, K5 on ``int8``, ``beam_int8`` and
+``tp2_int8_w8a8``, and that a W4A8 and a W8A8 step are 11 device kernels a
+layer.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the port's package is not beside this script.
@@ -406,8 +416,10 @@ def variant_failures(name: str, r: dict) -> list:
     every linear_dgrad on the core ("sm90") and every K7 attention_bwd on
     its Hopper kernels ("sm90_dh{Dh}"); every K2 decode_attention, K6
     decode_attention_int8, K11 decode_attention_hd and K14
-    quant4_linear_bias_act on its cluster kernel ("split{s}"), never the
-    simt kernel or form it replaced; every K4 add_layernorm on its vector kernel
+    quant4_linear_bias_act on its cluster kernel ("split{s}"), K5
+    quant_linear_bias_act on its ("split{s}", "partial_split{s}") and K12
+    decode_attention_hd_int8 on its ("layer_split{s}", "stacked_split{s}"),
+    never the simt kernel or form it replaced; every K4 add_layernorm on its vector kernel
     ("warps{W}"), never the scalar kernel; every K15 tp_allreduce (all
     ranks on this card) in its one-card form ("local"), never the
     exchange ("coop")."""
@@ -428,10 +440,16 @@ def variant_failures(name: str, r: dict) -> list:
         out.append(f"{name}: linear_dgrad off the core {dgrad}")
     if any(not v.startswith("sm90_dh") for v in k7):
         out.append(f"{name}: attention_bwd off its Hopper kernels {k7}")
-    for op in ("decode_attention", "decode_attention_int8",
-               "decode_attention_hd", "quant4_linear_bias_act"):
+    for op, forms in (("decode_attention", ("",)),
+                      ("decode_attention_int8", ("",)),
+                      ("decode_attention_hd", ("",)),
+                      ("quant4_linear_bias_act", ("",)),
+                      ("quant_linear_bias_act", ("", "partial_")),
+                      ("decode_attention_hd_int8", ("layer_", "stacked_"))):
         by = r["variants"].get(op, {})
-        if any(not v.startswith("split") for v in by) \
+        cluster = lambda v: any(v.startswith(f + "split")
+                                and v[len(f) + 5:].isdigit() for f in forms)
+        if any(not cluster(v) for v in by) \
                 or sum(by.values()) != r["launches"].get(op, 0):
             out.append(f"{name}: {op} off its cluster kernel {by}")
     k4 = r["variants"].get("add_layernorm", {})
@@ -460,6 +478,7 @@ def variant_line(name: str, r: dict) -> str:
     keys = ("linear_bias_act", "encoder_attention", "linear_wgrad",
             "linear_dgrad", "attention_bwd", "decode_attention",
             "decode_attention_int8", "decode_attention_hd",
+            "decode_attention_hd_int8", "quant_linear_bias_act",
             "quant4_linear_bias_act", "add_layernorm", "tp_allreduce")
     return f"[path {name}] by variant " + json.dumps(
         {k: r["variants"].get(k, {}) for k in keys})
@@ -736,46 +755,35 @@ def check_kernels(torch, F, dev):
     cross_case(randn2(128, e), randn2(16, m_big, e), randn2(16, m_big, e),
                valid_gr, 8, ["train_grpo"])
 
-    # K5: the W8A8 decode products (qkv, ff1 + GELU, ff2). Bound: the int8
-    # weight bytes. library_ms is torch._int_mm on pre-quantized rows: the
-    # bare int8 product only, without the row quantizer and the epilogue
-    for m, k, n, act in [(32, 1024, 3072, "none"),
-                         (32, 1024, 4096, "gelu_rounded"),
-                         (32, 4096, 1024, "none")]:
-        x = randn(m, k)
-        w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                           dtype=torch.int8)
-        s_col = (torch.rand(n, generator=g, device=dev) * 4e-4 + 1e-4) \
-            .to(bf).float()
-        b = randn(n, dtype=torch.float32) * 0.1
-        w4 = pack_k4(w8)
-        out_k = quant_linear_bias_act(x, w4, s_col, b, act)
-        out_p = quant_linear_bias_act.plain(x, w4, s_col, b, act)
-        x8 = quantize_activation_rows(x)[0].to(torch.int8)
-        tol = TWO_BF16_ULPS * max(1.0, out_p.float().abs().max().item())
-        record(quant_linear_bias_act,
-               f"{m}x{k}->{n},{act} (library: _int_mm, bare product)",
-               out_k, out_p, tol,
-               kernel_times(lambda: quant_linear_bias_act(x, w4, s_col, b,
-                                                            act)),
-               time_ms(torch, lambda: quant_linear_bias_act.plain(
-                   x, w4, s_col, b, act)),
-               time_ms(torch, lambda: torch._int_mm(x8, w8)),
-               k * n + 2 * m * k + 2 * m * n + 8 * n, 2 * m * n * k,
-               peak=PEAK_INT8_OP_PER_S,
-               cold=cold_ms(torch, lambda w_: quant_linear_bias_act(
-                   x, w_, s_col, b, act), [w4]))
-
-    # K5 on tp2_int8_w8a8 (ACAI_TP_W8A8): a tp = 2 rank's column-parallel
-    # qkv / ff1 and its row-parallel partials (fp32, no bias; rows quantized
-    # over the rank's half of the contraction axis) at 8 rows. The integer
-    # product is exact and the epilogue multiplies in the twin's order, so a
-    # partial is held to 1e-5 of its largest value. No library call:
-    # torch._int_mm takes more than 16 rows
-    for m, k, n, act in [(8, 1024, 1536, "none"),
-                         (8, 1024, 2048, "gelu_rounded"),
-                         (8, 512, 1024, "partial"),
-                         (8, 2048, 1024, "partial")]:
+    # K5 (the cluster kernel: one launch, K split across a thread-block
+    # cluster, 64 or 128 columns a block as quant8_plan says, the rows
+    # quantized in the kernel): the W8A8 decode products at B = 32 (qkv,
+    # ff1 + GELU, ff2), at the rows the paths run (4 and 8 rows on int8, 16
+    # on beam_int8) and at the tp = 2 shards of tp2_int8_w8a8 (ACAI_TP_W8A8:
+    # the column-parallel qkv / ff1 and the row-parallel partials, fp32 and
+    # no bias, rows quantized over the rank's half of the contraction axis).
+    # Each equal to the twin bit for bit, two runs bit-equal; timed in turns
+    # with the three-launch form it replaced (``variant="simt"``, within two
+    # bf16 ulps of the twin, 1e-5 of the largest value for a partial), warm
+    # and from HBM, the host us a call of both. A case counts the launches
+    # of its kind on its paths: "split{s}", or the partials'
+    # "partial_split{s}". Bound: the int8 weight bytes with the rows,
+    # scales, bias and output. library_ms: torch._int_mm on pre-quantized
+    # rows, the bare int8 product only (it takes more than 16 rows)
+    step4 = [(1024, 3072, "none"), (1024, 1024, "none"),
+             (1024, 4096, "gelu_rounded"), (4096, 1024, "none")]
+    k5_cases = (
+        [(32, k_, n_, a_, ["int8", "beam_int8"]) for k_, n_, a_ in
+         ((1024, 3072, "none"), (1024, 4096, "gelu_rounded"),
+          (4096, 1024, "none"))]
+        + [(r_, k_, n_, a_, ["int8"]) for r_ in (4, 8)
+           for k_, n_, a_ in step4]
+        + [(16, k_, n_, a_, ["beam_int8"]) for k_, n_, a_ in
+           ((1024, 3072, "none"), (4096, 1024, "none"))]
+        + [(8, k_, n_, a_, ["tp2_int8_w8a8"]) for k_, n_, a_ in
+           ((1024, 1536, "none"), (1024, 2048, "gelu_rounded"),
+            (512, 1024, "partial"), (2048, 1024, "partial"))])
+    for m, k, n, act, k5_paths in k5_cases:
         partial = act == "partial"
         x = randn(m, k)
         w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev,
@@ -784,20 +792,35 @@ def check_kernels(torch, F, dev):
             .to(bf).float()
         b = None if partial else randn(n, dtype=torch.float32) * 0.1
         w4 = pack_k4(w8)
-        out_k = quant_linear_bias_act(x, w4, s_col, b, act)
+        call = lambda v=None, w_=w4: quant_linear_bias_act(x, w_, s_col, b,
+                                                           act, variant=v)
+        out_k = call()
         out_p = quant_linear_bias_act.plain(x, w4, s_col, b, act)
-        tol = (1e-5 if partial else TWO_BF16_ULPS) \
+        tol_old = (1e-5 if partial else TWO_BF16_ULPS) \
             * max(1.0, out_p.float().abs().max().item())
-        record(quant_linear_bias_act, f"{m}x{k}->{n},{act} (shard)",
-               out_k, out_p, tol,
-               kernel_times(lambda: quant_linear_bias_act(x, w4, s_col, b,
-                                                            act)),
+        exact = torch.equal(out_k, out_p) and torch.equal(out_k, call()) \
+            and (call("simt").float() - out_p.float()).abs().max().item() \
+            <= tol_old
+        t_new, old = turns_ms(torch, call, lambda: call("simt"))
+        x8 = quantize_activation_rows(x)[0].to(torch.int8)
+        shard = k5_paths == ["tp2_int8_w8a8"]
+        record(quant_linear_bias_act,
+               f"{m}x{k}->{n},{act}" + (" (shard)" if shard else "")
+               + (" (library: _int_mm, bare product)" if m > 16 else ""),
+               out_k, out_p, 0.0, (t_new, host_us(torch, call)),
                time_ms(torch, lambda: quant_linear_bias_act.plain(
-                   x, w4, s_col, b, act)), None,
+                   x, w4, s_col, b, act)),
+               time_ms(torch, lambda: torch._int_mm(x8, w8)) if m > 16
+               else None,
                k * n + 2 * m * k + (4 if partial else 2) * m * n
                + (4 if partial else 8) * n, 2 * m * n * k,
-               peak=PEAK_INT8_OP_PER_S, paths=["tp2_int8_w8a8"],
-               variant="partial" if partial else None)
+               peak=PEAK_INT8_OP_PER_S, paths=k5_paths, exact=exact,
+               old_ms=old, variant="partial_split" if partial else "split",
+               cold=cold_ms(torch, lambda w_: call(None, w_), [w4]),
+               extra={"old_cold_ms": cold_ms(torch,
+                                             lambda w_: call("simt", w_),
+                                             [w4]),
+                      "old_host_us": host_us(torch, lambda: call("simt"))})
 
     # K14 (the cluster kernel: one launch, K split across a thread-block
     # cluster, rows quantized in the kernel): the W4A8 decode products at
@@ -1199,13 +1222,17 @@ def attn_splits(torch) -> list:
 
 
 def int8_splits(torch) -> list:
-    """K6's and K14's cluster kernels at every split (1-8, forced through
-    ``variant="split{s}"``) at the shapes the int8 paths run (K6: self at
-    1-32 rows, cross at 4-32 rows, beams, GRPO's rollouts over int8 caches;
-    K14: the W4A8 products at 8 and 32 rows), each from HBM (rotating
-    copies of the caches / weights; two readings, the lesser kept), beside
-    the plan's split: how far ``decode_attention_int8_plan`` and
-    ``quant4_plan`` are from the fastest split."""
+    """K6's, K12's, K14's and K5's cluster kernels at every split (1-8,
+    forced through ``variant="split{s}"``; K5 also at 64 and 128 columns a
+    block, ``"bn{B}_split{s}"``) at the shapes the int8 paths run (K6: self
+    at 1-32 rows, cross at 4-32 rows, beams, GRPO's rollouts over int8
+    caches; K12: the per-op step's stacked cross-attention at 4 and 32 rows;
+    K14: the W4A8 products at 8 and 32 rows; K5: the W8A8 products at 4, 8,
+    16 and 32 rows and the tp = 2 shards' partials), each from HBM
+    (rotating copies of the caches / weights; two readings, the lesser
+    kept), beside the plan's choice: how far ``decode_attention_int8_plan``,
+    ``quant4_plan`` and ``quant8_plan`` are from the fastest."""
+    from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
     from acai_omr_tpu_torch.ops import decode_kernel as dk
     from acai_omr_tpu_torch.ops import quant_linear_kernel as qk
     dev = torch.device("cuda")
@@ -1213,6 +1240,7 @@ def int8_splits(torch) -> list:
     randn = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(
         torch.bfloat16)
     e, h, t, pos = 1024, 16, 512, 300
+    splits = [f"split{s_}" for s_ in range(1, 9)]
 
     def i8(*shape):
         return torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -1231,22 +1259,39 @@ def int8_splits(torch) -> list:
         return lambda v, *c: dk.decode_attention_int8(q, *c, h, variant=v,
                                                       **kw)
 
-    cases = []  # (name, plan split, call(variant, *operands), operands)
+    # (name, the plan's variant, the variants timed, call(variant,
+    # *operands), operands)
+    cases = []
     for rows in (1, 4, 8, 32):
         cases.append((f"decode_attention_int8 self B={rows} pos={pos}",
-                      dk.decode_attention_int8_plan(rows, h, pos)[1],
-                      k6(randn(rows, 3 * e), {"pos": pos}),
+                      f"split{dk.decode_attention_int8_plan(rows, h, pos)[1]}",
+                      splits, k6(randn(rows, 3 * e), {"pos": pos}),
                       [i8(rows, t, e), i8(rows, t, e), sc(rows, t, h),
                        sc(rows, t, h)]))
     for rows, m, grp in ((4, 1024, 1), (8, 1024, 1), (32, 512, 1),
                          (32, 512, 4), (16, 1024, 4), (128, 1024, 8)):
         bu = rows // grp
         cases.append((f"decode_attention_int8 cross B={rows} G={grp} M={m}",
-                      dk.decode_attention_int8_plan(rows, h, m, grp)[1],
-                      k6(randn(rows, e), {"bias": ragged(bu, m),
-                                          "mem_group": grp}),
+                      "split"
+                      f"{dk.decode_attention_int8_plan(rows, h, m, grp)[1]}",
+                      splits, k6(randn(rows, e), {"bias": ragged(bu, m),
+                                                  "mem_group": grp}),
                       [i8(bu, m, e), i8(bu, m, e), sc(bu, m, h),
                        sc(bu, m, h)]))
+    for rows in (4, 32):  # one layer's planes, a one-layer stack
+        dh, m = e // h, 1024
+        q = randn(rows, h, dh)
+        bias = ragged(rows, m)
+        cases.append((f"decode_attention_hd_int8 stacked B={rows} M={m}",
+                      f"split{dk.decode_attention_int8_plan(rows, h, m)[1]}",
+                      splits,
+                      lambda v, *c, q=q, bias=bias: hd.decode_attention_hd_int8(
+                          q, *c, bias, layer=0, variant=v),
+                      [i8(1, rows, h, dh, m), i8(1, rows, h, dh, m),
+                       torch.rand(1, rows, h, m, generator=g, device=dev)
+                       * 3e-2 + 2e-3,
+                       torch.rand(1, rows, h, m, generator=g, device=dev)
+                       * 3e-2 + 2e-3]))
     for m, k, n, act in ((32, 1024, 3072, "none"),
                          (32, 1024, 4096, "gelu_rounded"),
                          (32, 4096, 1024, "none"), (8, 1024, 3072, "none"),
@@ -1257,28 +1302,46 @@ def int8_splits(torch) -> list:
         wp = qk.pack_k8_int4(torch.randint(-7, 8, (k, n), generator=g,
                                            device=dev))
         cases.append((f"quant4_linear_bias_act {m}x{k}->{n},{act}",
-                      qk.quant4_plan(m, n, k)[1],
+                      f"split{qk.quant4_plan(m, n, k)[1]}", splits,
                       lambda v, w_, x=x, s_col=s_col, b=b, act=act:
                       qk.quant4_linear_bias_act(x, w_, s_col, b, act,
                                                 variant=v), [wp]))
+    for m, k, n, act in ((32, 1024, 3072, "none"),
+                         (32, 1024, 4096, "gelu_rounded"),
+                         (32, 4096, 1024, "none"), (4, 1024, 3072, "none"),
+                         (4, 1024, 1024, "none"), (4, 4096, 1024, "none"),
+                         (8, 1024, 3072, "none"), (8, 1024, 1024, "none"),
+                         (8, 4096, 1024, "none"), (16, 1024, 3072, "none"),
+                         (16, 4096, 1024, "none"), (8, 512, 1024, "partial"),
+                         (8, 2048, 1024, "partial")):
+        x = randn(m, k)
+        s_col = torch.rand(n, generator=g, device=dev) * 4e-4 + 1e-4
+        b = None if act == "partial" else torch.randn(n, generator=g,
+                                                      device=dev)
+        _, split, bn = qk.quant8_plan(m, n, k)
+        cases.append((f"quant_linear_bias_act {m}x{k}->{n},{act}",
+                      f"bn{bn}_split{split}",
+                      [f"bn{bn_}_{v}" for bn_ in qk.Q8_BNS for v in splits],
+                      lambda v, w_, x=x, s_col=s_col, b=b, act=act:
+                      qk.quant_linear_bias_act(x, w_, s_col, b, act,
+                                               variant=v),
+                      [qk.pack_k4(i8(k, n))]))
     out = []
-    for name, plan, fn, ops in cases:
+    for name, plan, keys, fn, ops in cases:
         times = {}
-        order = list(range(1, 9))
-        for s_ in order + order[::-1]:
+        for v_ in keys + keys[::-1]:
             try:
-                ms = cold_ms(torch, lambda *c, v=f"split{s_}": fn(v, *c),
-                             ops)
-            except ValueError:  # K14: a block's range past its shared memory
-                continue
-            times[s_] = min(times.get(s_, ms), ms)
+                ms = cold_ms(torch, lambda *c, v=v_: fn(v, *c), ops)
+            except ValueError:  # K5 / K14: a block's range past its
+                continue        # shared memory
+            times[v_] = min(times.get(v_, ms), ms)
         best = min(times, key=times.get)
-        out.append({"case": name, "plan_split": plan,
-                    "plan_ms": times[plan], "best_split": best,
-                    "best_ms": times[best], "ms_by_split": times})
-        print(f"[int8 splits] {name} plan split {plan} {times[plan]:.4f} ms, "
-              f"best split {best} {times[best]:.4f} ms (from HBM); by split "
-              + json.dumps({s_: round(t_, 4) for s_, t_ in times.items()}),
+        out.append({"case": name, "plan": plan, "plan_ms": times[plan],
+                    "best": best, "best_ms": times[best],
+                    "ms_by_variant": times})
+        print(f"[int8 splits] {name} plan {plan} {times[plan]:.4f} ms, "
+              f"best {best} {times[best]:.4f} ms (from HBM); by variant "
+              + json.dumps({v_: round(t_, 4) for v_, t_ in times.items()}),
               flush=True)
     return out
 
@@ -1884,26 +1947,65 @@ def decode_hd_cases(torch, F, randn, record, kernel_times, dev):
                         device=dev) * 3e-2 + 2e-3
         return c, sc
 
-    # K12: per layer and over layer 7 of the stacked memory. No library call
-    # computes it. Bound: the int8 K/V bytes and fp32 scales of the valid keys
+    # K12 (the cluster kernel: the keys of a (row, head) split across a
+    # thread-block cluster as decode_attention_int8_plan says, int8 planes
+    # and fp32 scales by TMA): per layer and over layer 7 of the stacked
+    # memory at B = 32, then stacked at the 4 rows the per-op step runs
+    # after compaction. Each within two bf16 ulps of its twin, two runs
+    # bit-equal; timed in turns with the simt kernel it replaced (held to
+    # the twin too), warm and from HBM (the from-HBM calls rotate copies of
+    # one layer's planes and scales: a one-layer stack read at layer 0
+    # for the stacked cases). No library call computes it. Bound: the int8
+    # K/V bytes and fp32 scales of the valid keys, q in, the output out
+    tol8 = lambda ref: TWO_BF16_ULPS * max(1.0, ref.float().abs().max().item())
+
+    def k12_case(case, q_, planes, bias_, n_val, kw, variant):
+        call = lambda v=None, *ps: decode_attention_hd_int8(
+            q_, *(ps or planes), bias_, variant=v, **kw)
+        ref = decode_attention_hd_int8.plain(q_, *planes, bias_, **kw)
+        out_k = call()
+        exact = torch.equal(out_k, call()) and (
+            call("simt").float() - ref.float()).abs().max().item() \
+            <= tol8(ref)
+        t_new, old = turns_ms(torch, call, lambda: call("simt"))
+        layer_of = kw.get("layer")
+        one = [a[layer_of][None] if layer_of is not None else a
+               for a in planes]
+        kw1 = {"layer": 0} if layer_of is not None else {}
+        cold_of = lambda v: cold_ms(torch, lambda *ps: decode_attention_hd_int8(
+            q_, *ps, bias_, variant=v, **kw1), one)
+        b_, h_, dh_ = q_.shape
+        m_ = planes[0].shape[-1]
+        record(decode_attention_hd_int8, case, out_k, ref, tol8(ref),
+               (t_new, host_us(torch, call)),
+               time_ms(torch, lambda: decode_attention_hd_int8.plain(
+                   q_, *planes, bias_, **kw)),
+               None, 2 * n_val * h_ * (dh_ + 4) + 2 * 2 * b_ * h_ * dh_
+               + 4 * b_ * m_, 4 * h_ * dh_ * n_val, peak=PEAK_INT8_OP_PER_S,
+               paths=["decode_hd_int8"], exact=exact, old_ms=old,
+               variant=variant, cold=cold_of(None),
+               extra={"old_cold_ms": cold_of("simt")})
+
     (k8, ks8), (v8, vs8) = (int8_planes(nl, bsz, h, dh, m_len)
                             for _ in range(2))
-    tol8 = lambda ref: TWO_BF16_ULPS * max(1.0, ref.float().abs().max().item())
-    nbytes8 = 2 * n_valid * (e + 4 * h) + 2 * 2 * bsz * e + 4 * bsz * m_len
-    per_layer = tuple(a[layer] for a in (k8, v8, ks8, vs8))
-    for case, args, kw in [
-            (f"cross per layer B={bsz} H={h} Dh={dh} M={m_len}", per_layer,
-             {}),
-            (f"cross stacked L={nl} layer={layer} B={bsz} H={h} Dh={dh} "
-             f"M={m_len}", (k8, v8, ks8, vs8), {"layer": layer})]:
-        call = lambda: decode_attention_hd_int8(q, *args, mbias, **kw)
-        ref = decode_attention_hd_int8.plain(q, *args, mbias, **kw)
-        record(decode_attention_hd_int8, case, call(), ref, tol8(ref),
-               kernel_times(call),
-               time_ms(torch, lambda: decode_attention_hd_int8.plain(
-                   q, *args, mbias, **kw)),
-               None, nbytes8, 4 * e * n_valid, peak=PEAK_INT8_OP_PER_S,
-               paths=["decode_hd_int8"])
+    stacked = (k8, v8, ks8, vs8)
+    k12_case(f"cross per layer B={bsz} H={h} Dh={dh} M={m_len}", q,
+             tuple(a[layer] for a in stacked), mbias, n_valid, {}, None)
+    k12_case(f"cross stacked L={nl} layer={layer} B={bsz} H={h} Dh={dh} "
+             f"M={m_len}", q, stacked, mbias, n_valid, {"layer": layer},
+             "stacked_split")
+    del k8, v8, ks8, vs8, stacked
+    g4 = torch.Generator(device=dev).manual_seed(SEED + 7)
+    planes4 = tuple(
+        torch.randint(-127, 128, (nl, 4, h, dh, m_len), generator=g4,
+                      device=dev, dtype=torch.int8) if i < 2 else
+        torch.rand(nl, 4, h, m_len, generator=g4, device=dev) * 3e-2 + 2e-3
+        for i in range(4))
+    q4 = torch.randn(4, h, dh, generator=g4, device=dev).to(torch.bfloat16)
+    k12_case(f"cross stacked L={nl} layer={layer} B=4 H={h} Dh={dh} "
+             f"M={m_len}", q4, planes4, mbias[:4].contiguous(),
+             int(valid[:4].sum()), {"layer": layer}, "stacked_split")
+    del planes4
 
     # K13 at pos 300 and pos 0 of layer 7: the written column and scales
     # must equal the twin's bit for bit. Bound: the int8 K/V and fp32 scales
@@ -2459,8 +2561,10 @@ def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
             for k in MONOLITH_STEP:
                 if paths[name]["launches"][k]:
                     failures.append(f"{name}: launched {k}")
-        if hd.decode_attention_hd_int8.variants.get("layer"):
-            failures.append("decode_hd_int8: K12 ran per layer, not stacked")
+        if any(not v.startswith("stacked_split")
+               for v in hd.decode_attention_hd_int8.variants):
+            failures.append("decode_hd_int8: K12 ran per layer or its simt "
+                            "kernel, not stacked on its cluster kernel")
         for flag in (False, True, True, False):
             hd.set_enabled(flag)
             with counted_steps(decode_lib) as box:
@@ -2478,30 +2582,21 @@ def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
     return turns, hd_bf16
 
 
-def expected_tp_step(dcfg, tp: int, rows: int, kind: str) -> tuple:
+def expected_tp_step(dcfg, tp: int, per_op: bool) -> tuple:
     """(wrapper calls, device kernels) of one data shard's decode step over
-    ``tp`` model ranks at ``rows`` rows, from the layer arithmetic. The
-    monolith step (``kind`` "bf16" / "int8": K1 products, "w8a8": K5): per
-    layer and rank six products (three of them fp32 partials), two
-    attentions, three K4; per layer three K15 launches (one per row-parallel
-    site, every rank of this card in it). A K5 product is two device
-    kernels more than one (its row
-    quantizer) or three; a K1 product is one device kernel (the skinny
-    kernel sums its split K inside its launch). The per-op step: K15 three
-    times a layer, K11 twice a layer and rank where it is on; the rest is
+    ``tp`` model ranks, from the layer arithmetic. The monolith step (K1
+    products, or K5 under ACAI_TP_W8A8): per layer and rank six products
+    (three of them fp32 partials), two attentions, three K4; per layer three
+    K15 launches (one per row-parallel site, every rank of this card in it).
+    Each is one device kernel (the skinny kernel and K5's cluster kernel sum
+    their split K inside their launch). The per-op step: K15 three times a
+    layer, K11 twice a layer and rank where it is on; the rest is
     PyTorch."""
     from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
-    from acai_omr_tpu_torch.ops.quant_linear_kernel import \
-        split_plan as k5_plan
-    e, f, l = dcfg.hidden_dim, dcfg.mlp_dim, dcfg.num_layers
-    if kind == "per_op":
-        n = l * (3 + (2 * tp if hd._ENABLED else 0))
-        return n, n
-    dev = 0
-    for k, n in ((e, 3 * e // tp), (e // tp, e), (e, e // tp), (e // tp, e),
-                 (e, f // tp), (f // tp, e)):
-        dev += 2 + (k5_plan(rows, n, k)[1] > 1) if kind == "w8a8" else 1
-    return l * (tp * 11 + 3), l * (tp * (dev + 5) + 3)
+    l = dcfg.num_layers
+    n = l * (3 + (2 * tp if hd._ENABLED else 0)) if per_op \
+        else l * (tp * 11 + 3)
+    return n, n
 
 
 def mesh_step_checks(torch, model, imgs, mesh, cache_dtype, monolith: bool,
@@ -2633,10 +2728,7 @@ def mesh_paths(torch, model, imgs, decode_lib, paths, failures, finish_path,
             if not (len(res.lmx) == n_img and all(res.lmx)
                     and all(math.isfinite(v) for v in res.avg_log_probs)):
                 failures.append(f"{name}: output")
-            kind = "per_op" if per_op else (
-                "w8a8" if name.endswith("w8a8") else "bf16")
-            want = [expected_tp_step(dcfg, nm, rows, kind)
-                    for rows in box["rows"]]
+            want = [expected_tp_step(dcfg, nm, per_op)] * len(box["rows"])
             steps = max(box["n"], 1)
             finish_path(name, res.n_tokens, res.decode_seconds, {
                 "mesh": [nd, nm], "wall_s": wall,
@@ -2823,18 +2915,30 @@ def compare_paths(torch, np, model, imgs, profile=False):
                 op.device_launches
                 for op in _build.REGISTRY.values()) / CMP_STEPS}
         if profile:
-            state = decode_lib.init_decode_state(
-                dcfg, b, CMP_STEPS + 1, CMP_STEPS, cache_dtype, model.device)
-            out[key]["profile"] = profile_steps(
-                torch, lambda: _greedy_step(decode_lib, dec, dcfg, mono, state,
-                                            mem, dt), warmup=8, steps=32)
+            # the W8A8 step also with K5 forced to the three-launch form it
+            # replaced, in turns
+            from acai_omr_tpu_torch.ops.quant_linear_kernel import \
+                quant_linear_bias_act
+            for form in ("", "_simt") if key == "int8" else ("",):
+                state = decode_lib.init_decode_state(
+                    dcfg, b, CMP_STEPS + 1, CMP_STEPS, cache_dtype,
+                    model.device)
+                with forced_variant(quant_linear_bias_act,
+                                    "simt" if form else None):
+                    out[key]["profile" + form] = profile_steps(
+                        torch, lambda: _greedy_step(decode_lib, dec, dcfg,
+                                                    mono, state, mem, dt),
+                        warmup=8, steps=32)
     out["int8_vs_per_op"] = int8_vs_per_op(torch, decode_lib, decode_kernel,
                                            dec, dcfg, lat, valid, dt,
                                            model.device)
     if profile:
         # K2's device ms a bf16 step; K11's a per-op bf16 step (K11 on, the
-        # lane-major caches and memory of decode_hd_bf16); K6's a step of
-        # each int8 mode, K5's of the int8 step, K14's of the W4A8 step
+        # lane-major caches and memory of decode_hd_bf16); K12's and K13's a
+        # per-op int8 step (the defaults of decode_hd_int8); K6's a step of
+        # each int8 mode, K5's of the int8 step, K14's of the W4A8 step (the
+        # cluster kernels, and the kernels of the forms they replaced, which
+        # no step may run)
         from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
         out["bf16"]["k2_device_ms_per_step"] = kernel_ms(
             out["bf16"]["profile"], "attend_cluster", "decode_attention_kernel")
@@ -2844,9 +2948,11 @@ def compare_paths(torch, np, model, imgs, profile=False):
             out[key]["k6_device_ms_per_step"] = kernel_ms(
                 out[key]["profile"], "attend_int8_cluster",
                 "decode_attention_int8_kernel")
-        out["int8"]["k5_device_ms_per_step"] = kernel_ms(
-            out["int8"]["profile"], "quant_linear_kernel<false>",
-            "quantize_rows_kernel", "reduce_kernel")
+        for form in ("", "_simt"):
+            out["int8"][f"k5{form}_device_ms_per_step"] = kernel_ms(
+                out["int8"]["profile" + form], "quant8_cluster",
+                "quant_linear_kernel<false>", "quantize_rows_kernel",
+                "reduce_kernel")
         out["w4a8"]["k14_device_ms_per_step"] = kernel_ms(
             out["w4a8"]["profile"], "quant4_cluster",
             "quant_linear_kernel<true>", "quantize_rows_kernel",
@@ -2868,6 +2974,28 @@ def compare_paths(torch, np, model, imgs, profile=False):
         out["per_op_bf16"] = {"profile": prof, "k11_device_ms_per_step":
                               kernel_ms(prof, "attend_hd_cluster",
                                         "decode_attention_hd_kernel")}
+        # the per-op int8 step, and again with K12 forced to the simt
+        # kernel it replaced, in turns
+        mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt,
+                                              torch.int8, layout="hd")
+        out["per_op_int8"] = {}
+        for form in ("", "_simt"):
+            state = decode_lib.init_decode_state(
+                dcfg, b, CMP_STEPS + 1, CMP_STEPS, torch.int8, model.device,
+                monolith=False)
+            with forced_variant(hd.decode_attention_hd_int8,
+                                "simt" if form else None):
+                prof = profile_steps(
+                    torch, lambda: _greedy_step(decode_lib, dec, dcfg, None,
+                                                state, mem, dt), warmup=8,
+                    steps=32)
+            out["per_op_int8"].update({
+                "profile" + form: prof,
+                f"k12{form}_device_ms_per_step": kernel_ms(
+                    prof, "attend_hd_int8_cluster",
+                    "decode_attention_hd_int8_kernel"),
+                f"k13{form}_device_ms_per_step": kernel_ms(
+                    prof, "self_attention_append_int8")})
     return out
 
 
@@ -2925,6 +3053,21 @@ def int8_vs_per_op(torch, decode_lib, decode_kernel, dec, dcfg, lat, valid,
         decode_kernel.set_w8a8(w8a8)
     print(f"[int8 monolith vs per-op] {json.dumps(out)}", flush=True)
     return out
+
+
+@contextlib.contextmanager
+def forced_variant(op, variant):
+    """Every launch of ``op`` inside the block takes ``variant`` (a
+    redesigned kernel's replaced form, for a profile window of the step in
+    turns with it); None leaves the op as it is."""
+    launch = op._launch
+    if variant is not None:
+        op._launch = lambda op_, *a, **kw: launch(op_, *a,
+                                                   **{**kw, "variant": variant})
+    try:
+        yield
+    finally:
+        op._launch = launch
 
 
 def kernel_ms(prof: dict, *names) -> float:
@@ -3491,7 +3634,7 @@ def main() -> int:
         print(card_line())
         attn_splits(torch)
         return 0
-    if "--int8-splits" in sys.argv[1:]:  # K6's and K14's splits alone
+    if "--int8-splits" in sys.argv[1:]:  # K5's, K6's, K12's, K14's splits
         print(card_line())
         int8_splits(torch)
         return 0
@@ -3721,6 +3864,13 @@ def main() -> int:
                {"greedy_bf16": greedy, "int8": quant,
                 "int8_bf16w": bf16_weights, "beam_bf16": beam,
                 "decode_hd_bf16": hd_bf16})
+    # K5 is one device kernel a call on the W8A8 paths
+    for name in ("int8", "beam_int8", "tp2_int8_w8a8"):
+        r = paths[name]
+        if r["device_launches"]["quant_linear_bias_act"] \
+                != r["launches"]["quant_linear_bias_act"]:
+            failures.append(f"{name}: K5 ran more than one device kernel a "
+                            f"call")
 
     cmp = compare_paths(torch, np, model, imgs,
                         profile="--profile" in sys.argv[1:])
@@ -3735,17 +3885,32 @@ def main() -> int:
               f"{cmp['per_op_bf16']['profile']['device_ms_per_step']:.4f}",
               flush=True)
     if "--profile" in sys.argv[1:]:
-        print(f"[profile] K6 device ms an int8 step "
+        print(f"[profile] K6 device ms an int8 (W8A8) step "
               f"{cmp['int8']['k6_device_ms_per_step']:.4f}, K5 "
               f"{cmp['int8']['k5_device_ms_per_step']:.4f}, of "
-              f"{cmp['int8']['profile']['device_ms_per_step']:.4f}; K6 a W4A8 "
+              f"{cmp['int8']['profile']['device_ms_per_step']:.4f} "
+              f"({cmp['int8']['device_kernels_per_step']:.0f} device kernels "
+              f"a step); K6 a W4A8 "
               f"step {cmp['w4a8']['k6_device_ms_per_step']:.4f}, K14 "
               f"{cmp['w4a8']['k14_device_ms_per_step']:.4f}, of "
-              f"{cmp['w4a8']['profile']['device_ms_per_step']:.4f}",
+              f"{cmp['w4a8']['profile']['device_ms_per_step']:.4f}; K12 "
+              f"device ms a per-op int8 step "
+              f"{cmp['per_op_int8']['k12_device_ms_per_step']:.4f}, K13 "
+              f"{cmp['per_op_int8']['k13_device_ms_per_step']:.4f}, of "
+              f"{cmp['per_op_int8']['profile']['device_ms_per_step']:.4f}",
               flush=True)
-    # one device kernel a wrapper call: 11 a layer (six K1 or K14, two K2
-    # or K6, three K4)
-    for key in ("bf16", "w4a8"):
+        print(f"[profile] in turns with the replaced forms: K5 simt "
+              f"{cmp['int8']['k5_simt_device_ms_per_step']:.4f} of a W8A8 "
+              f"step's "
+              f"{cmp['int8']['profile_simt']['device_ms_per_step']:.4f}; "
+              f"K12 simt "
+              f"{cmp['per_op_int8']['k12_simt_device_ms_per_step']:.4f} of a "
+              f"per-op int8 step's "
+              f"{cmp['per_op_int8']['profile_simt']['device_ms_per_step']:.4f}",
+              flush=True)
+    # one device kernel a wrapper call: 11 a layer (six K1, K5 or K14, two
+    # K2 or K6, three K4)
+    for key in ("bf16", "int8", "w4a8"):
         if cmp[key]["device_kernels_per_step"] != 11 * n_layers:
             failures.append(f"{key} step: "
                             f"{cmp[key]['device_kernels_per_step']} device "
@@ -3918,12 +4083,21 @@ def main() -> int:
                 and c["logit_max_abs_err"] < CMP_LOGIT_TOL):
             failures.append(f"{key} kernel path vs plain path")
 
+    def of_variant(key, v):
+        """Whether launches counted under ``key`` are the case's variant
+        ``v``: ``v`` itself, or where ``v`` ends in "split" any of its
+        "split{s}" keys (K5's "split" / "partial_split", K12's
+        "stacked_split")."""
+        return key == v or (v.endswith("split") and key.startswith(v)
+                            and key[len(v):].isdigit())
+
     def path_sum(counts, c):
         """The case's launches on its paths: its variant's where it has one
         (``device_launches`` are not split by variant)."""
         if c["variant"] and counts == "launches":
-            return sum(paths[n]["variants"][c["op"].name].get(c["variant"], 0)
-                       for n in c["paths"])
+            return sum(n_ for n in c["paths"] for key, n_ in
+                       paths[n]["variants"][c["op"].name].items()
+                       if of_variant(key, c["variant"]))
         return sum(paths[n][counts][c["op"].name] for n in c["paths"])
 
     kernels = [{"name": f"{c['op'].name}[{c['case']}]", "route": c["op"].route,

@@ -444,6 +444,115 @@ def test_quant4_linear_bias_act_rounds_halves_to_even(dev, amax):
             quant4_linear_bias_act.plain(x, wp, s, b))
 
 
+
+def _k5_inputs(dev, m, k, n, act, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, m, k, dev=dev) * 3
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4) \
+        .to(torch.bfloat16).float()
+    b = None if act == "partial" else _randn(g, n, dev=dev,
+                                             dtype=torch.float32)
+    return x, pack_k4(w8), s, b
+
+
+@pytest.mark.parametrize("act", ["none", "gelu", "gelu_rounded", "partial"])
+@pytest.mark.parametrize("m", [4, 8, 16, 32, 70])
+def test_quant_linear_bias_act_cluster_bits(dev, m, act):
+    """K5's cluster kernel at every split of K = 1,024 at 64 and 128 columns
+    a block, every act, rows of one row group and of three (70): equal to
+    the twin bit for bit, one device kernel a call counted as split{s}
+    (partials apart, as partial_split{s}), two runs bit-equal; the plan's
+    launch and the three-launch form it replaced equal too."""
+    x, w4, s, b = _k5_inputs(dev, m, 1024, 256, act, 36 + m)
+    op = quant_linear_bias_act
+    want = op.plain(x, w4, s, b, act)
+    key = "partial_" if act == "partial" else ""
+    for bn in (64, 128):
+        for split in range(1, 9):
+            v = f"bn{bn}_split{split}"
+            op.launches, op.extra_launches, op.variants = 0, 0, {}
+            out = op(x, w4, s, b, act, variant=v)
+            assert torch.equal(out, want), v
+            assert torch.equal(op(x, w4, s, b, act, variant=v), out), v
+            used = -(-8 // -(-8 // split))  # whole ranges of 1,024 / 128
+            assert op.variants == {f"{key}split{used}": 2}, v
+            assert op.device_launches == 2, v
+    assert torch.equal(op(x, w4, s, b, act), want)
+    op.extra_launches = 0
+    assert torch.equal(op(x, w4, s, b, act, variant="simt"), want)
+    assert op.extra_launches >= 1
+
+
+@pytest.mark.parametrize("m,k,n,act", [(32, 1024, 3072, "none"),
+                                       (32, 1024, 4096, "gelu_rounded"),
+                                       (32, 4096, 1024, "none"),
+                                       (4, 1024, 1024, "none"),
+                                       (16, 1024, 3072, "none"),
+                                       (8, 1024, 1536, "none"),
+                                       (8, 512, 1024, "partial"),
+                                       (8, 2048, 1024, "partial"),
+                                       (128, 4096, 1024, "gelu"),
+                                       (8, 8192, 1024, "none")])
+def test_quant_linear_bias_act_cluster_at_the_paths_shapes(dev, m, k, n, act):
+    """K5 at the shapes of the W8A8 paths (B = 32; 4, 8 and 16 rows; the
+    tp = 2 shards' partials), 128 rows and K at the cluster's limit, on the
+    plan and at the other width: bit-equal to the twin, one device kernel a
+    call."""
+    x, w4, s, b = _k5_inputs(dev, m, k, n, act, 46)
+    op = quant_linear_bias_act
+    want = op.plain(x, w4, s, b, act)
+    for v in (None, "bn64", "bn128"):
+        op.launches, op.extra_launches, op.variants = 0, 0, {}
+        assert torch.equal(op(x, w4, s, b, act, variant=v), want), v
+        assert op.device_launches == op.launches == 1, v
+
+
+@pytest.mark.parametrize("amax", [127.0, 63.5])
+def test_quant_linear_bias_act_rounds_halves_to_even(dev, amax):
+    """Rows whose quotients x / scale are exact half-integers: K5's cluster
+    kernel rounds them half to even, as the twin's division does."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    m, k, n = 8, 1024, 256
+    rs = amax / 127.0
+    halves = (torch.randint(-127, 127, (m, k), generator=g, device=dev)
+              + 0.5) * rs
+    halves[:, 0] = amax
+    x = halves.to(torch.bfloat16)
+    assert torch.equal(x.float(), halves)  # bf16 holds every value exactly
+    w4 = pack_k4(torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                               dtype=torch.int8))
+    s = (torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4) \
+        .to(torch.bfloat16).float()
+    b = _randn(g, n, dev=dev, dtype=torch.float32)
+    for v in ("bn64_split1", "bn128_split8"):
+        assert torch.equal(quant_linear_bias_act(x, w4, s, b, variant=v),
+                           quant_linear_bias_act.plain(x, w4, s, b))
+
+
+@pytest.mark.parametrize("m,k,n,act", [(8, 1024, 3072, "none"),
+                                       (8, 1024, 1024, "none"),
+                                       (8, 4096, 1024, "gelu_rounded"),
+                                       (70, 2048, 256, "partial")])
+def test_quant4_linear_bias_act_after_the_shared_template(dev, m, k, n, act):
+    """K14, its kernel now one instantiation of the body it shares with
+    K5: bit-equal to the twin at the paths' 8 rows and at three row groups,
+    one device kernel a call counted as split{s}."""
+    g = torch.Generator(device=dev).manual_seed(38)
+    x = _randn(g, m, k, dev=dev) * 3
+    q = torch.randint(-7, 8, (k, n), generator=g, device=dev)
+    s = (torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3) \
+        .to(torch.bfloat16).float()
+    b = None if act == "partial" else _randn(g, n, dev=dev,
+                                             dtype=torch.float32)
+    wp = pack_k8_int4(q)
+    op = quant4_linear_bias_act
+    op.launches, op.extra_launches, op.variants = 0, 0, {}
+    assert torch.equal(op(x, wp, s, b, act), op.plain(x, wp, s, b, act))
+    assert op.device_launches == 1 and list(op.variants)[0].startswith(
+        "split")
+
 def test_encoder_attention_and_stack(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     b, t, e, h = 2, 128, 256, 4
@@ -1079,6 +1188,64 @@ def test_decode_attention_hd_int8(dev, stacked, dh):
                rel=2 * 2.0 ** -7)
 
 
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("t", [256, 200])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_decode_attention_hd_int8_cluster(dev, dh, t, stacked):
+    """K12's cluster kernel at each head dim it is compiled for, per layer
+    and over layer 1 of a stacked cache, T a multiple of 16 (TMA) and not
+    (the tiles copied), ragged n_keys and bias, at splits 1, 2, 4, 8 and the
+    plan: within two bf16 ulps of the twin, two runs bit-equal, counted as
+    layer_split{s} / stacked_split{s}; the simt kernel agreeing too; keys
+    past n_keys (other int8 values, NaN scales) change no bit."""
+    g = torch.Generator(device=dev).manual_seed(28 + dh)
+    lead = (3,) if stacked else ()
+    q = _randn(g, 3, 4, dh, dev=dev)
+    kT, vT = (torch.randint(-127, 128, lead + (3, 4, dh, t), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(lead + (3, 4, t), generator=g, device=dev) * 3e-2
+              + 2e-3 for _ in range(2))
+    kw = dict(layer=1) if stacked else {}
+    op = decode_attention_hd_int8
+    form = "stacked" if stacked else "layer"
+    for b, n in ((None, 157), (_hd_bias(3, t, dev, [t, t // 3, 7]), None)):
+        ref = op.plain(q, kT, vT, ks, vs, b, n_keys=n, **kw)
+        for v in ("split1", "split2", "split4", "split8", None):
+            op.launches, op.variants = 0, {}
+            out = op(q, kT, vT, ks, vs, b, n_keys=n, variant=v, **kw)
+            _close(out, ref, rel=2 * 2.0 ** -7)
+            assert torch.equal(out, op(q, kT, vT, ks, vs, b, n_keys=n,
+                                       variant=v, **kw)), v
+            (key, count), = op.variants.items()
+            assert key.startswith(f"{form}_split") and count == 2, v
+        _close(op(q, kT, vT, ks, vs, b, n_keys=n, variant="simt", **kw), ref,
+               rel=2 * 2.0 ** -7)
+    kn, vn, ksn, vsn = (a.clone() for a in (kT, vT, ks, vs))
+    kn[..., 157:], vn[..., 157:] = 127, -127
+    ksn[..., 157:], vsn[..., 157:] = float("nan"), float("nan")
+    for v in ("split1", "split8"):
+        assert torch.equal(op(q, kn, vn, ksn, vsn, None, n_keys=157,
+                              variant=v, **kw),
+                           op(q, kT, vT, ks, vs, None, n_keys=157, variant=v,
+                              **kw))
+
+
+def test_decode_attention_hd_int8_refuses_head_dims_past_its_kernels(dev):
+    """The cluster kernel is compiled for head dims 16-128 (powers of two):
+    a launch at 48 is refused before anything runs (the per-op step asks
+    ``hd_takes`` first and takes its plain path); the simt kernel takes it."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    q = _randn(g, 2, 4, 48, dev=dev)
+    k8 = torch.randint(-127, 128, (2, 4, 48, 64), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = torch.rand(2, 4, 64, generator=g, device=dev) * 3e-2 + 2e-3
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention_hd_int8(q, k8, k8, s, s, None)
+    _close(decode_attention_hd_int8(q, k8, k8, s, s, None, variant="simt"),
+           decode_attention_hd_int8.plain(q, k8, k8, s, s, None),
+           rel=2 * 2.0 ** -7)
+
 @pytest.mark.parametrize("dh", [16, 64, 128])
 @pytest.mark.parametrize("pos", [0, 1, 37, 299])
 def test_self_attention_append_int8(dev, dh, pos):
@@ -1674,6 +1841,20 @@ def test_int8_cluster_kernels_report_no_spill(dev):
                 assert r["blocks_per_sm"] >= 1, r
         assert any(r["variant"] == "simt" for r in op.resources("simt"))
 
+
+def test_k5_k12_cluster_kernels_report_no_spill(dev):
+    """K5's cluster kernels (64 and 128 columns, 256 threads) and K12's
+    (four head dims, TMA or copied tiles, 128 threads): no local memory, at
+    least one block an SM at their largest shared memory; the kernels of
+    the forms each replaced listed beside."""
+    for op, n, threads in ((quant_linear_bias_act, 2, 256),
+                           (decode_attention_hd_int8, 8, 128)):
+        rows = [r for r in op.resources("split") if r["variant"] == "split"]
+        assert len(rows) == n, op.name
+        for r in rows:
+            assert r["threads"] == threads and r["local_bytes"] == 0, r
+            assert r["blocks_per_sm"] >= 1, r
+        assert any(r["variant"] == "simt" for r in op.resources("simt"))
 
 def test_resident_elementwise_keeps_its_rows_in_registers(dev):
     """No local memory (spill) in any K27 variant the probe runs."""
