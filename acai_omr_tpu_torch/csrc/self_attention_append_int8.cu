@@ -18,9 +18,29 @@
 // and are not carried over: only the one column is written.
 //
 // Bound on an H100: the int8 K and V bytes of positions [0, pos)
-// (2 * B * H * Dh * pos) plus their fp32 scales, at 3.35 TB/s. Design: as K11
-// (csrc/decode_attention_hd.cu): one block per (row, head), the fresh head
-// rows quantized by block reductions, threads along T for the logits, one warp
+// (2 * B * H * Dh * pos) plus their fp32 scales, at 3.35 TB/s. At the
+// per-op step's 4-8 rows (after compaction) one block per (row, head) leaves
+// most SMs idle, and 1-byte loads strided by T keep few bytes in flight.
+//
+// Design (`acai_self_attention_append_int8_cluster`): K12's cluster kernel
+// (hd_int8_cluster.cuh, FRESH): the keys [0, pos) of a (row, head) split
+// across a thread-block cluster as ops/decode_kernel.py
+// `decode_attention_int8_plan` splits them for K12, int8 K / V boxes and
+// their fp32 scale boxes by TMA, a thread per key column for the logits.
+// Every block quantizes the fresh k / v (one warp, while its first tiles are
+// in flight) for lc, which enters the max exchange; the partial
+// denominators and PV partials meet at one cluster barrier, summed in rank
+// order by rank 0, which adds wc last, adds wc * vq * vsc to the V sum,
+// divides once and rounds to bf16 once. Rank 0 writes column `pos` and its
+// two scales after the cluster's last barrier, when no block can still have
+// a read in flight over a box that holds the column. pos = 0 takes one block
+// a (row, head) in an ordinary launch: no cluster, no TMA, no cluster
+// barrier. No atomics: two runs give the same bits.
+//
+// The kernel it replaced (`acai_self_attention_append_int8`, kept as the
+// yardstick, `variant="simt"`): one block of 256 threads per (row, head), the
+// fresh head rows quantized by block reductions, threads along T for the
+// logits (1-byte loads strided by T), every logit in shared memory, one warp
 // per head-dim row for the V sum. A block writes only column `pos` of its own
 // (row, head) planes and reads only columns < pos, so blocks never race.
 
@@ -30,24 +50,21 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "func_attrs.cuh"
+#include "hd_int8_cluster.cuh"
+
 namespace {
+
+using hd8::warp_max;
+using hd8::warp_sum;
+
+// ------------------------------------------------ the simt kernel (yardstick)
+
+namespace simt {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr float QMAX = 127.0f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float block_max(float v, float* red) {
   v = warp_max(v);
@@ -156,11 +173,13 @@ self_attention_append_int8_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+}  // namespace simt
+
 }  // namespace
 
-// q, k_new, v_new: (B, H, Dh) bf16; kc/vc: (L, B, H, Dh, T) int8 and ks/vs:
-// (L, B, H, T) fp32, column `pos` of layer `layer` written in place;
-// 0 <= pos < T; out: (B, H, Dh) bf16.
+// The simt kernel (`variant="simt"`). q, k_new, v_new: (B, H, Dh) bf16;
+// kc/vc: (L, B, H, Dh, T) int8 and ks/vs: (L, B, H, T) fp32, column `pos` of
+// layer `layer` written in place; 0 <= pos < T; out: (B, H, Dh) bf16.
 extern "C" int acai_self_attention_append_int8(
     const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
     void* ks, void* vs, int layer, int B, int H, int Dh, int T, int pos,
@@ -168,14 +187,14 @@ extern "C" int acai_self_attention_append_int8(
   const size_t smem = (size_t)(3 * Dh + (pos > 0 ? pos : 1)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        self_attention_append_int8_kernel,
+        simt::self_attention_append_int8_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const size_t plane = (size_t)layer * B * H * Dh * T;
   const size_t splane = (size_t)layer * B * H * T;
-  self_attention_append_int8_kernel<<<dim3(H, B), THREADS, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
+  simt::self_attention_append_int8_kernel<<<
+      dim3(H, B), simt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new),
@@ -184,3 +203,41 @@ extern "C" int acai_self_attention_append_int8(
       Dh, T, pos, scale, static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
+
+// The cluster kernel: the arguments of acai_self_attention_append_int8 above
+// (Dh 16, 32, 64 or 128), plus `split` and `chunk` as
+// acai_decode_attention_cluster takes them (decode_attention.cu) for the pos
+// keys before the fresh token (pos 0: split 1, no cluster).
+extern "C" int acai_self_attention_append_int8_cluster(
+    const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
+    void* ks, void* vs, int layer, int B, int H, int Dh, int T, int pos,
+    float scale, int chunk, int split, void* out, void* stream) {
+  const hd8::Fresh fr{static_cast<const __nv_bfloat16*>(k_new),
+                      static_cast<const __nv_bfloat16*>(v_new),
+                      static_cast<int8_t*>(kc), static_cast<int8_t*>(vc),
+                      static_cast<float*>(ks), static_cast<float*>(vs), pos};
+  return hd8::launch_layer<true>(q, kc, vc, ks, vs, nullptr, layer, B, H, Dh,
+                                 T, pos, scale, chunk, split, out, fr,
+                                 stream);
+}
+
+// The resource report (func_attrs.cuh): the cluster kernels, which every
+// `split{s}` launch runs (`copy`: the tiles copied by the block), at their
+// largest dynamic shared memory, and the simt kernel.
+#define ACAI_CL(D, TMA, NAME)                                                \
+  AcaiKernelEntry {                                                          \
+    "self_attention_append_int8|split|append_hd_int8_cluster<" #D "," NAME   \
+    ">",                                                                     \
+        reinterpret_cast<const void*>(&hd8::append_hd_int8_cluster<D, TMA>),  \
+        hd8::THREADS, hd8::Form<D>::SMEM_MAX                                 \
+  }
+static const AcaiKernelEntry kResources[] = {
+    ACAI_CL(16, true, "tma"),   ACAI_CL(32, true, "tma"),
+    ACAI_CL(64, true, "tma"),   ACAI_CL(128, true, "tma"),
+    ACAI_CL(16, false, "copy"), ACAI_CL(32, false, "copy"),
+    ACAI_CL(64, false, "copy"), ACAI_CL(128, false, "copy"),
+    ACAI_KERNEL("self_attention_append_int8", "simt",
+                simt::self_attention_append_int8_kernel, simt::THREADS, 0),
+};
+#undef ACAI_CL
+ACAI_EXPORT_RESOURCES(kResources)

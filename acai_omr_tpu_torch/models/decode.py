@@ -340,13 +340,13 @@ def _decode_step_logits(params, cfg: DecoderConfig, x, t: int, caches,
     position t-1. ``caches``: {"k", "v"[, "ks", "vs"]} lane-major arrays,
     written in place at column t-1. Returns (B, V) fp32 logits.
 
-    With int8 caches and ``ACAI_PALLAS_DECODE_INT8`` on, the self-attention
-    is K13 (quantize, append, attend) and the cross-attention with
-    ``mem_group == 1`` is K12 over the stacked memory where K12 takes the
-    head dim on the device (``hd_takes``; else :func:`decode_attention`'s
-    plain path, as JAX's ``use_pallas`` falls back); otherwise the fresh
+    With int8 caches and ``ACAI_PALLAS_DECODE_INT8`` on, where K12 / K13
+    take the head dim on the device (``hd_takes``), the self-attention is
+    K13 (quantize, append, attend) and the cross-attention with
+    ``mem_group == 1`` is K12 over the stacked memory; otherwise the fresh
     k / v are quantized with fp32 scales, written, and attended by
-    :func:`decode_attention`. ``mem_group > 1`` takes
+    :func:`decode_attention` (its plain path where K12 does not take the
+    head dim), as JAX's ``use_pallas`` falls back. ``mem_group > 1`` takes
     :func:`_grouped_cross_attention`. Caches in another float dtype than the
     compute dtype store the fresh k / v rounded to it; attention widens them.
 
@@ -366,7 +366,8 @@ def _decode_step_logits(params, cfg: DecoderConfig, x, t: int, caches,
     b = x[0].shape[0]
     pos = t - 1  # cache slot for this token's k/v
     quantized = "ks" in caches[0]
-    fused_int8 = quantized and hd.use_kernel(torch.int8)
+    fused_int8 = (quantized and hd.use_kernel(torch.int8)
+                  and hd.hd_takes(dh, x[0].device))
     fused_mem = (mem_group == 1 and mem[0].k_scale is not None
                  and hd.use_kernel(torch.int8)
                  and hd.hd_takes(dh, x[0].device))

@@ -20,15 +20,19 @@ the per-op ("lane-major") decode step, which keeps its caches as
 * K13 :data:`self_attention_append_int8`
   (``csrc/self_attention_append_int8.cu``): quantizes the fresh k / v rows,
   writes them and their scales into column ``pos`` of layer ``layer`` in
-  place, and attends over the positions before ``pos`` plus the fresh token.
+  place, and attends over the positions before ``pos`` plus the fresh token,
+  on K12's cluster kernel (``csrc/hd_int8_cluster.cuh``; the ``pos`` keys
+  split as K12's are, pos 0 one block a (row, head) without a cluster),
+  counted as ``"split{s}"``; ``variant="simt"`` forces the kernel it
+  replaced, kept as the yardstick.
 
 The switches mirror the JAX package's: ``ACAI_PALLAS_DECODE`` (K11,
 default off) and ``ACAI_PALLAS_DECODE_INT8`` (K12 / K13, default on), read
 at import, changed with :func:`set_enabled` / :func:`set_enabled_int8`. The
 TPU shape and VMEM conditions of the JAX ``use_pallas`` are not carried
-over; the card's own rule is the head dims the cluster kernels of K11 and
-K12 are compiled for (:func:`hd_takes`), where the per-op step takes its
-plain path instead, as JAX falls back. K13 takes every head dim.
+over; the card's own rule is the head dims the cluster kernels of K11-K13
+are compiled for (:func:`hd_takes`), where the per-op step takes its plain
+path instead, as JAX falls back.
 """
 
 from __future__ import annotations
@@ -45,11 +49,11 @@ from .decode_kernel import attention_split, quantize_rows
 _ENABLED = os.environ.get("ACAI_PALLAS_DECODE", "0") == "1"
 _ENABLED_INT8 = os.environ.get("ACAI_PALLAS_DECODE_INT8", "1") == "1"
 
-# K13 and the simt forms of K11 / K12 keep every logit (and the query) in
-# shared memory: 227 KB a block at most (the cluster kernels hold a range of
-# the keys a block: the plans' rules)
+# the simt forms of K11-K13 keep every logit (and the query) in shared
+# memory: 227 KB a block at most (the cluster kernels hold a range of the
+# keys a block: the plans' rules)
 MAX_KEYS = 227 * 1024 // 4 - 3 * 128
-# the head dims the cluster kernels of K11 and K12 are compiled for
+# the head dims the cluster kernels of K11-K13 are compiled for
 HD_DHS = (16, 32, 64, 128)
 
 
@@ -70,12 +74,12 @@ def use_kernel(cache_dtype) -> bool:
 
 
 def hd_takes(dh: int, device) -> bool:
-    """Whether K11 and K12 take head dim ``dh`` on ``device``: on the card
+    """Whether K11-K13 take head dim ``dh`` on ``device``: on the card
     their cluster kernels are compiled for HD_DHS; on the CPU their twins
     take any. :func:`..models.decode.decode_attention` and the per-op
-    step's stacked cross-attention ask before they call K11 or K12 and take
-    the plain path otherwise, as the JAX package's ``use_pallas`` falls back
-    for the shapes its kernels do not take."""
+    step's self- and stacked cross-attention ask before they call K11, K12
+    or K13 and take the plain path otherwise, as the JAX package's
+    ``use_pallas`` falls back for the shapes its kernels do not take."""
     return torch.device(device).type != "cuda" or dh in HD_DHS
 
 
@@ -306,8 +310,34 @@ def self_attention_append_int8_plain(q: torch.Tensor, k_new: torch.Tensor,
     return ((out + wc * (vq.float() * vsc)) / denom).to(q.dtype)
 
 
+def _check_append(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                  layer, pos, variant=None):
+    """K13's shape rules and its variant, on either device: the plan of its
+    ``pos`` keys (keys a block, split; K12's rule, pos 0 one block), or
+    None for ``"simt"`` (every logit in one block's shared memory)."""
+    if q.dim() != 3 or k_cache.dim() != 5:
+        raise ValueError("self_attention_append_int8 shape mismatch")
+    b, h, dh = q.shape
+    nl, t = k_cache.shape[0], k_cache.shape[-1]
+    if tuple(k_new.shape) != tuple(q.shape) \
+            or tuple(v_new.shape) != tuple(q.shape) \
+            or tuple(k_cache.shape) != (nl, b, h, dh, t) \
+            or tuple(v_cache.shape) != tuple(k_cache.shape) \
+            or tuple(k_scale.shape) != (nl, b, h, t) \
+            or tuple(v_scale.shape) != tuple(k_scale.shape) \
+            or not 0 <= layer < nl or not 0 <= pos < t:
+        raise ValueError("self_attention_append_int8 shape mismatch")
+    if variant == "simt":
+        _check_keys(max(pos, 1), dh)
+    return attention_split(variant, b, h, pos, 1, True)
+
+
 def _launch_append(op, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
-                   layer, pos):
+                   layer, pos, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"split{s}"`` forces
+    the cluster kernel's split, ``"simt"`` the kernel it replaced."""
+    plan = _check_append(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                         layer, pos, variant)
     for name, a in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         _build.require(a, name, torch.bfloat16, 3)
     for name, a, dtype, nd in (("k_cache", k_cache, torch.int8, 5),
@@ -316,25 +346,29 @@ def _launch_append(op, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
                                ("v_scale", v_scale, torch.float32, 4)):
         _build.require(a, name, dtype, nd)
     b, h, dh = q.shape
-    nl, t = k_cache.shape[0], k_cache.shape[-1]
-    if k_new.shape != q.shape or v_new.shape != q.shape \
-            or k_cache.shape != (nl, b, h, dh, t) \
-            or v_cache.shape != k_cache.shape \
-            or k_scale.shape != (nl, b, h, t) \
-            or v_scale.shape != k_scale.shape \
-            or not 0 <= layer < nl or not 0 <= pos < t:
-        raise ValueError("self_attention_append_int8 shape mismatch")
-    _check_keys(max(pos, 1), dh)
+    t = k_cache.shape[-1]
+    if plan is not None and not hd_takes(dh, q.device):
+        raise ValueError(f"self_attention_append_int8's cluster kernel takes "
+                         f"head dims {HD_DHS}, got {dh}")
     out = torch.empty_like(q)
-    fn = _build.bind("self_attention_append_int8",
-                     "acai_self_attention_append_int8",
-                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+    args = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), layer, b, h, dh, t, pos, 1.0 / math.sqrt(dh),
-            out.data_ptr(), _build.stream_ptr())
-    op.launches += 1
+            v_scale.data_ptr(), layer, b, h, dh, t, pos, 1.0 / math.sqrt(dh))
+    types = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    if plan is None:
+        fn = _build.bind("self_attention_append_int8",
+                         "acai_self_attention_append_int8",
+                         types + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, out.data_ptr(), _build.stream_ptr())
+        op.launched("simt")
+    else:
+        chunk, split = plan
+        fn = _build.bind("self_attention_append_int8",
+                         "acai_self_attention_append_int8_cluster",
+                         types + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, chunk, split, out.data_ptr(), _build.stream_ptr())
+        op.launched(f"split{split}")
     _build.check(rc, op.name)
     return out
 
@@ -344,4 +378,4 @@ self_attention_append_int8 = _build.KernelOp(
     "acai_omr_tpu_torch/csrc/self_attention_append_int8.cu",
     "acai_omr_tpu/ops/pallas_decode.py:154 (_self_attn_append_kernel, "
     "wrapper :205, pallas_call :259)",
-    _launch_append, self_attention_append_int8_plain)
+    _launch_append, self_attention_append_int8_plain, _check_append)

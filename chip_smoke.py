@@ -24,7 +24,10 @@ Phases, all in one process; any failure exits non-zero:
    decode_attention_hd_int8 (its cluster kernel) per layer and stacked at
    B = 32 and stacked at the path's 4 rows, in turns with the simt kernel it
    replaced, warm and from HBM, two runs bit-equal, K13
-   self_attention_append_int8 at pos 300 and 0; K15 tp_allreduce at tp = 2
+   self_attention_append_int8 (its cluster kernel, K12's with the fresh
+   token) at B = 32 pos 300 and 0 and at the path's 4 and 8 rows, in turns
+   with the simt kernel it replaced, warm and from HBM, two runs bit-equal,
+   the written column bit for bit; K15 tp_allreduce at tp = 2
    and 4, B = 4-128, E = 1024, bf16 and fp32 out, bit for bit, its one-card
    form timed in turns with the exchange it replaced on one card
    (``variant="coop"``), the host time of a call of each, then for each
@@ -45,7 +48,10 @@ Phases, all in one process; any failure exits non-zero:
    linear_wgrad, K10 dropout, and the training modes of K1, K3, K4) are held
    the same way at the flagship's training shapes (decoder rows 8 x 256 at
    E = 1024, F = 4096, M = 1024; encoder rows 8 x 1024 at E = 768,
-   F = 3072); K10 must equal its twin bit for bit. The MAE's shapes follow:
+   F = 3072); K10 must equal its twin bit for bit; K8 (its one-pass
+   kernel) in turns with the three-launch form it replaced, warm and from
+   HBM, one device kernel a call, two runs bit-equal, its dropped dz K10's
+   mask on dz bit for bit. The MAE's shapes follow:
    K3 and K7 at 16 heads of 32 (B = 64, T = 512, E = 512) and at the
    encoder's 128 kept rows (12 heads of 64), K1, K4, K8 and K9 at
    32,768 x 512, ``linear_wgrad`` with its rows split as its plan says.
@@ -161,9 +167,10 @@ Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
 decode steps of each cache mode and of the per-op bf16 step with K11 on and
 int8 step (K2's, K4's, K5's, K6's, K11's, K12's, K13's and K14's device ms a
 step among them; the W8A8 step and the per-op int8 step again with K5 / K12
-forced to the forms they replaced, in turns), over two training
-microbatches and over two MAE updates (device time by kernel, device busy
-share); ``--report PATH``
+/ K13 forced to the forms they replaced, in turns), over two training
+microbatches and over two MAE updates, each again with K8 forced to its
+three-launch form (device time by kernel, device busy share, K8's device ms
+a step); ``--report PATH``
 writes every number of the run as JSON to PATH; ``--k7-bits`` prints only
 the hashes of K7's outputs at its training sites (``k7_bits``, what
 ``K7_BITS`` records) and exits; ``--skinny-splits`` times only the skinny
@@ -181,7 +188,7 @@ difference|, the top-1 margins of rows whose tokens differ, 24 free-running
 steps of each), and checks that K14 is one device kernel a call on
 ``w4a8`` and ``serve_wsgi``, K5 on ``int8``, ``beam_int8`` and
 ``tp2_int8_w8a8``, and that a W4A8 and a W8A8 step are 11 device kernels a
-layer.
+layer; phases 4 and 6 check that K8 is one device kernel a call.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the port's package is not beside this script.
@@ -415,14 +422,16 @@ def variant_failures(name: str, r: dict) -> list:
     ("sm90_dh{Dh}"); every linear_wgrad on the core ("sm90_splits{s}"),
     every linear_dgrad on the core ("sm90") and every K7 attention_bwd on
     its Hopper kernels ("sm90_dh{Dh}"); every K2 decode_attention, K6
-    decode_attention_int8, K11 decode_attention_hd and K14
-    quant4_linear_bias_act on its cluster kernel ("split{s}"), K5
-    quant_linear_bias_act on its ("split{s}", "partial_split{s}") and K12
-    decode_attention_hd_int8 on its ("layer_split{s}", "stacked_split{s}"),
-    never the simt kernel or form it replaced; every K4 add_layernorm on its vector kernel
-    ("warps{W}"), never the scalar kernel; every K15 tp_allreduce (all
-    ranks on this card) in its one-card form ("local"), never the
-    exchange ("coop")."""
+    decode_attention_int8, K11 decode_attention_hd, K13
+    self_attention_append_int8 and K14 quant4_linear_bias_act on its
+    cluster kernel ("split{s}"), K5 quant_linear_bias_act on its
+    ("split{s}", "partial_split{s}") and K12 decode_attention_hd_int8 on
+    its ("layer_split{s}", "stacked_split{s}"), never the simt kernel or
+    form it replaced; every K4 add_layernorm on its vector kernel
+    ("warps{W}"), never the scalar kernel; every K8 layernorm_bwd on its
+    one-pass kernel ("one_pass"), never the three-launch form; every K15
+    tp_allreduce (all ranks on this card) in its one-card form ("local"),
+    never the exchange ("coop")."""
     k1 = r["variants"].get("linear_bias_act", {})
     k3 = r["variants"].get("encoder_attention", {})
     wgrad = r["variants"].get("linear_wgrad", {})
@@ -443,6 +452,7 @@ def variant_failures(name: str, r: dict) -> list:
     for op, forms in (("decode_attention", ("",)),
                       ("decode_attention_int8", ("",)),
                       ("decode_attention_hd", ("",)),
+                      ("self_attention_append_int8", ("",)),
                       ("quant4_linear_bias_act", ("",)),
                       ("quant_linear_bias_act", ("", "partial_")),
                       ("decode_attention_hd_int8", ("layer_", "stacked_"))):
@@ -456,6 +466,10 @@ def variant_failures(name: str, r: dict) -> list:
     if any(not v.startswith("warps") for v in k4) \
             or sum(k4.values()) != r["launches"].get("add_layernorm", 0):
         out.append(f"{name}: add_layernorm off its vector kernel {k4}")
+    k8 = r["variants"].get("layernorm_bwd", {})
+    if set(k8) - {"one_pass"} \
+            or sum(k8.values()) != r["launches"].get("layernorm_bwd", 0):
+        out.append(f"{name}: layernorm_bwd off its one-pass kernel {k8}")
     k15 = r["variants"].get("tp_allreduce", {})
     if set(k15) - {"local"} \
             or sum(k15.values()) != r["launches"].get("tp_allreduce", 0):
@@ -473,13 +487,25 @@ def variant_failures(name: str, r: dict) -> list:
     return out
 
 
+def k8_one_kernel_failures(name: str, r: dict) -> list:
+    """K8 is one device kernel a call on a training path (the three-launch
+    form it replaced ran three)."""
+    calls = r["launches"]["layernorm_bwd"]
+    device = r["device_launches"]["layernorm_bwd"]
+    print(f"[path {name}] layernorm_bwd: {calls} calls, {device} device "
+          f"kernels", flush=True)
+    return [] if device == calls else [
+        f"{name}: layernorm_bwd ran {device} device kernels in {calls} calls"]
+
+
 def variant_line(name: str, r: dict) -> str:
     """The launches by variant of a path's products and attentions."""
     keys = ("linear_bias_act", "encoder_attention", "linear_wgrad",
             "linear_dgrad", "attention_bwd", "decode_attention",
             "decode_attention_int8", "decode_attention_hd",
-            "decode_attention_hd_int8", "quant_linear_bias_act",
-            "quant4_linear_bias_act", "add_layernorm", "tp_allreduce")
+            "decode_attention_hd_int8", "self_attention_append_int8",
+            "quant_linear_bias_act", "quant4_linear_bias_act",
+            "add_layernorm", "layernorm_bwd", "tp_allreduce")
     return f"[path {name}] by variant " + json.dumps(
         {k: r["variants"].get(k, {}) for k in keys})
 
@@ -1020,19 +1046,19 @@ def check_kernels(torch, F, dev):
     nan_failures += decode_hd_cases(torch, F, randn, record, kernel_times,
                                     dev)
     training_cases(torch, F, randn, record, kernel_times, dev)
-    # the resource rows of the products', the attentions', K4's and K15's
-    # kernels: the Hopper kernels (sm90, skinny, K2's, K6's, K11's and
-    # K14's cluster kernels, K4's vector kernels, K15's one-card form)
-    # beside the wmma / simt / scalar / exchange kernels they replace; no
-    # Hopper kernel of dgrad, K3 or K7, no skinny kernel of K1, no cluster
-    # kernel of K2, K6, K11 or K14, no vector kernel of K4 and no one-card
-    # kernel of K15 may use local memory (a spill)
+    # the resource rows of the products', the attentions', K4's, K8's and
+    # K15's kernels: the Hopper kernels (sm90, skinny, the cluster kernels
+    # of K2, K5, K6, K11-K14, K4's vector kernels, K8's one-pass kernel,
+    # K15's one-card form) beside the wmma / simt / scalar / three-launch /
+    # exchange kernels they replace; none of those Hopper kernels may use
+    # local memory (a spill)
     from acai_omr_tpu_torch.ops import _build
     spills = []
     for name in ("linear_bias_act", "encoder_attention", "linear_bwd",
                  "attention_bwd", "decode_attention", "decode_attention_int8",
-                 "decode_attention_hd", "quant_linear", "add_layernorm",
-                 "tp_allreduce"):
+                 "decode_attention_hd", "decode_attention_hd_int8",
+                 "self_attention_append_int8", "quant_linear",
+                 "add_layernorm", "layernorm_bwd", "tp_allreduce"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
@@ -1042,7 +1068,8 @@ def check_kernels(torch, F, dev):
             hopper = (r["op"] in ("linear_dgrad", "encoder_attention",
                                   "attention_bwd")
                       and r["variant"].startswith("sm90")) \
-                or r["variant"] in ("skinny", "split", "local") \
+                or r["variant"] in ("skinny", "split", "local",
+                                    "one_pass") \
                 or r["variant"].startswith("warps")
             if hopper and r["local_bytes"]:
                 spills.append(f"{r['op']} {r['kernel']}")
@@ -2007,30 +2034,56 @@ def decode_hd_cases(torch, F, randn, record, kernel_times, dev):
              int(valid[:4].sum()), {"layer": layer}, "stacked_split")
     del planes4
 
-    # K13 at pos 300 and pos 0 of layer 7: the written column and scales
-    # must equal the twin's bit for bit. Bound: the int8 K/V and fp32 scales
-    # of positions < pos, q / k / v in, the output and the column out
-    kn, vn = randn(bsz, h, dh) * 2, randn(bsz, h, dh)
-    for p_at in (pos, 0):
-        caches = [*int8_planes(nl, bsz, h, dh, t), *int8_planes(nl, bsz, h,
-                                                                dh, t)]
-        caches = [caches[0], caches[2], caches[1], caches[3]]  # k, v, ks, vs
-        twin = [a.clone() for a in caches]
-        out_k = self_attention_append_int8(q, kn, vn, *caches, layer, p_at)
-        out_p = self_attention_append_int8.plain(q, kn, vn, *twin, layer,
+    # K13 (K12's cluster kernel with the fresh token: the pos cached keys
+    # split as decode_attention_int8_plan says, pos 0 one block a (row,
+    # head) without a cluster) at B = 32, pos 300 and pos 0, and at the 4
+    # and 8 rows the per-op step runs after compaction, pos 300; layer 7 of
+    # a 12-layer cache. The written column and scales equal to the twin's
+    # bit for bit, the output within two bf16 ulps, two runs bit-equal, the
+    # simt kernel it replaced held to the twin too; timed in turns with it,
+    # warm and from HBM (the from-HBM calls rotate copies of one layer's
+    # planes and scales, a one-layer cache written at layer 0). No library
+    # call computes it. Bound: the int8 K/V and fp32 scales of positions
+    # < pos, q / k / v in, the output and the column out
+    def k13_case(b_, p_at, seed):
+        gk = torch.Generator(device=dev).manual_seed(seed)
+        q_, kn_, vn_ = (torch.randn(b_, h, dh, generator=gk, device=dev)
+                        .to(torch.bfloat16) * f for f in (1, 2, 1))
+        planes = [torch.randint(-127, 128, (nl, b_, h, dh, t), generator=gk,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2)] + [
+            torch.rand(nl, b_, h, t, generator=gk, device=dev) * 3e-2 + 2e-3
+            for _ in range(2)]
+        twin = [a.clone() for a in planes]
+        out_p = self_attention_append_int8.plain(q_, kn_, vn_, *twin, layer,
                                                  p_at)
-        exact = all(torch.equal(a, b) for a, b in zip(caches, twin))
+        call = lambda v=None, *ps: self_attention_append_int8(
+            q_, kn_, vn_, *(ps or planes), layer if not ps else 0, p_at,
+            variant=v)
+        out_k = call()
+        exact = all(torch.equal(a, b2) for a, b2 in zip(planes, twin)) \
+            and torch.equal(out_k, call()) and (
+                call("simt").float() - out_p.float()).abs().max().item() \
+            <= tol8(out_p)
+        t_new, old = turns_ms(torch, call, lambda: call("simt"))
+        one = [a[layer][None].clone() for a in planes]
+        cold_of = lambda v: cold_ms(torch, lambda *ps: call(v, *ps), one)
+        e_ = h * dh
         record(self_attention_append_int8,
-               f"self L={nl} layer={layer} B={bsz} H={h} Dh={dh} T={t} "
+               f"self L={nl} layer={layer} B={b_} H={h} Dh={dh} T={t} "
                f"pos={p_at}", out_k, out_p, tol8(out_p),
-               kernel_times(lambda: self_attention_append_int8(
-                   q, kn, vn, *caches, layer, p_at)),
+               (t_new, host_us(torch, call)),
                time_ms(torch, lambda: self_attention_append_int8.plain(
-                   q, kn, vn, *twin, layer, p_at)),
-               None, 2 * bsz * p_at * (e + 4 * h) + 2 * 4 * bsz * e
-               + 2 * bsz * (e + 4 * h), 4 * bsz * e * (p_at + 1),
+                   q_, kn_, vn_, *twin, layer, p_at)),
+               None, 2 * b_ * p_at * (e_ + 4 * h) + 2 * 4 * b_ * e_
+               + 2 * b_ * (e_ + 4 * h), 4 * b_ * e_ * (p_at + 1),
                peak=PEAK_INT8_OP_PER_S, paths=["decode_hd_int8"],
-               exact=exact)
+               exact=exact, old_ms=old, variant="split",
+               cold=cold_of(None), extra={"old_cold_ms": cold_of("simt")})
+
+    for b_, p_at, seed in ((bsz, pos, SEED + 8), (bsz, 0, SEED + 9),
+                           (4, pos, SEED + 10), (8, pos, SEED + 11)):
+        k13_case(b_, p_at, seed)
     return failures
 
 
@@ -2235,13 +2288,31 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
                    + 8 * e, 8 * rows * e, paths=tr,
                    exact=None if scalar_ok else False, old_ms=old)
 
-        # K8: g and z in, dz and dropped dz out, two column sums
+        # K8: g and z in, dz and dropped dz out, two column sums. The
+        # one-pass kernel timed in turns with the three-launch form it
+        # replaced (held to the twin too), warm and from HBM; two runs
+        # bit-equal, one device kernel a call, the dropped dz equal to K10's
+        # mask on dz bit for bit; beside layer_norm's backward (autograd)
+        from acai_omr_tpu_torch.ops.dropout_kernel import dropout_plain
         g_in, z = randn(rows, e), randn(rows, e)
-        call = lambda: layernorm_bwd(g_in, z, gamma, 1e-5, drop)
+        call = lambda v=None, g_=g_in, z_=z: layernorm_bwd(g_, z_, gamma,
+                                                          1e-5, drop,
+                                                          variant=v)
+        n0 = layernorm_bwd.device_launches
         out_k = call()
+        one_launch = layernorm_bwd.device_launches - n0 == 1
         out_p = layernorm_bwd.plain(g_in, z, gamma, 1e-5, drop)
         col_err = max(((a - c).abs().max() / c.abs().max()).item()
                       for a, c in zip(out_k[2:], out_p[2:]))
+        old_out = call("three_pass")
+        old_ok = max(((a.float() - c.float()).abs().max()
+                      / c.float().abs().max()).item()
+                     for a, c in zip(old_out, out_p)) < 1e-2
+        mask_ok = torch.equal(out_k[1], dropout_plain(out_k[0], drop))
+        bits_ok = all(torch.equal(a, b) for a, b in zip(out_k, call()))
+        t_new, old = turns_ms(torch, call, lambda: call("three_pass"))
+        cold_of = lambda v: cold_ms(torch, lambda g_, z_: call(v, g_, z_),
+                                    [g_in, z])
         z_req = z.clone().requires_grad_(True)
         g_req = gamma.to(bf).requires_grad_(True)
         b_req = beta.to(bf).requires_grad_(True)
@@ -2249,14 +2320,17 @@ def training_cases(torch, F, randn, record, kernel_times, dev):
         record(layernorm_bwd, f"{name} {rows}x{e}" + (",drop" if drop else "")
                + " (column sums rel err "
                f"{col_err:.1e})", torch.cat(out_k[:2], 1),
-               torch.cat(out_p[:2], 1), rel_tol(out_p[0]), kernel_times(call),
+               torch.cat(out_p[:2], 1), rel_tol(out_p[0]),
+               (t_new, host_us(torch, call)),
                plain_ms(lambda: layernorm_bwd.plain(g_in, z, gamma, 1e-5,
                                                     drop)),
                time_ms_eager(torch, lambda: torch.autograd.grad(
                    y, (z_req, g_req, b_req), g_in, retain_graph=True)),
                2 * (3 + (drop is not None)) * rows * e + 3 * 4 * e,
                12 * rows * e, paths=tr,
-               exact=col_err < 1e-3)
+               exact=col_err < 1e-3 and old_ok and mask_ok and bits_ok
+               and one_launch, variant="one_pass", old_ms=old,
+               cold=cold_of(None), extra={"old_cold_ms": cold_of("three_pass")})
 
         # K9 dgrad on the Hopper core: du = round(drop(round(dff W2^T)) *
         # gelu'), dx2 = dz3 + ., and bare (da_s = dsa Wo^T, da_c = dca Woc^T);
@@ -2555,8 +2629,8 @@ def per_op_paths(torch, model, imgs, greedy, quant, transcribe_path,
         paths["decode_hd_int8"]["token_share"] = token_share(res, quant)
         print(f"[path decode_hd_int8] share of each image's tokens equal to "
               f"int8's {paths['decode_hd_int8']['token_share']}; K12 "
-              f"launches by form {hd.decode_attention_hd_int8.variants}",
-              flush=True)
+              f"launches by form {hd.decode_attention_hd_int8.variants}, "
+              f"K13 {hd.self_attention_append_int8.variants}", flush=True)
         for name in ("decode_hd_bf16", "decode_hd_int8"):
             for k in MONOLITH_STEP:
                 if paths[name]["launches"][k]:
@@ -2974,17 +3048,19 @@ def compare_paths(torch, np, model, imgs, profile=False):
         out["per_op_bf16"] = {"profile": prof, "k11_device_ms_per_step":
                               kernel_ms(prof, "attend_hd_cluster",
                                         "decode_attention_hd_kernel")}
-        # the per-op int8 step, and again with K12 forced to the simt
-        # kernel it replaced, in turns
+        # the per-op int8 step, then with K13 and with K12 forced to the
+        # simt kernels they replaced, in turns
         mem = decode_lib.precompute_memory_kv(dec, dcfg, lat, valid, dt,
                                               torch.int8, layout="hd")
         out["per_op_int8"] = {}
-        for form in ("", "_simt"):
+        for form, op_ in (("", None),
+                          ("_k13simt", hd.self_attention_append_int8),
+                          ("_simt", hd.decode_attention_hd_int8)):
             state = decode_lib.init_decode_state(
                 dcfg, b, CMP_STEPS + 1, CMP_STEPS, torch.int8, model.device,
                 monolith=False)
-            with forced_variant(hd.decode_attention_hd_int8,
-                                "simt" if form else None):
+            with forced_variant(op_ or hd.decode_attention_hd_int8,
+                                "simt" if op_ else None):
                 prof = profile_steps(
                     torch, lambda: _greedy_step(decode_lib, dec, dcfg, None,
                                                 state, mem, dt), warmup=8,
@@ -2995,7 +3071,8 @@ def compare_paths(torch, np, model, imgs, profile=False):
                     prof, "attend_hd_int8_cluster",
                     "decode_attention_hd_int8_kernel"),
                 f"k13{form}_device_ms_per_step": kernel_ms(
-                    prof, "self_attention_append_int8")})
+                    prof, "append_hd_int8_cluster",
+                    "self_attention_append_int8_kernel")})
     return out
 
 
@@ -3322,7 +3399,8 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
     core ("sm90"), every wgrad too, its rows split as
     ``row_split_plan`` says for the layer's shape (the encoder over the
     batch's kept rows, the decoder over all of them), every K4 on the vector
-    kernel as ``add_layernorm_plan`` says for those rows."""
+    kernel as ``add_layernorm_plan`` says for those rows, every K8 on its
+    one-pass kernel."""
     from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm_plan
     from acai_omr_tpu_torch.ops.linear_bwd_kernel import row_split_plan
     le, ld = cfg.encoder.num_layers, cfg.decoder_num_layers
@@ -3350,7 +3428,7 @@ def expected_mae_launches(cfg) -> tuple[dict, dict, dict]:
                                       f"sm90_dh{dh_d}": 2 * ld},
                 "attention_bwd": {f"sm90_dh{dh_e}": le, f"sm90_dh{dh_d}": ld},
                 "linear_dgrad": {"sm90": 4 * n}, "linear_wgrad": wgrad,
-                "add_layernorm": k4}
+                "add_layernorm": k4, "layernorm_bwd": {"one_pass": 2 * n}}
     return step, val, variants
 
 
@@ -3492,8 +3570,7 @@ def compare_pretrain(torch, cfg, params, profile=False):
     prof = None
     if profile:
         step_fn = trainer.make_train_step(loss_fn, tx)
-        prof = profile_steps(torch, lambda: step_fn(state, full, gen()),
-                             warmup=1, steps=2)
+        prof = k8_profiles(torch, lambda: step_fn(state, full, gen()))
     del state
 
     small = batch_of(MAE_CMP_BATCH)
@@ -3505,7 +3582,7 @@ def compare_pretrain(torch, cfg, params, profile=False):
             "optimizer_ms": opt_ms, "validation_forward_ms": val_ms,
             "compared_batch": MAE_CMP_BATCH,
             **gradient_errors(torch, loss_k, grads_k, loss_p, grads_p),
-            **({"profile": prof} if prof else {})}
+            **(prof or {})}
 
 
 def gradient_errors(torch, loss_k, grads_k, loss_p, grads_p) -> dict:
@@ -3599,8 +3676,8 @@ def compare_training(torch, model, profile=False):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     del leaves, loss, runs
-    prof = profile_steps(torch, lambda: grad_fn(params, full, 7), warmup=1,
-                         steps=2) if profile else None
+    prof = k8_profiles(torch, lambda: grad_fn(params, full, 7)) \
+        if profile else None
 
     half = batch_of(TRAIN_BATCH // 2)
     loss_k, grads_k = grad_fn(params, half, 7)
@@ -3610,7 +3687,30 @@ def compare_training(torch, model, profile=False):
             "forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
             "launches_per_microbatch": micro_launches,
             **gradient_errors(torch, loss_k, grads_k, loss_p, grads_p),
-            **({"profile": prof} if prof else {})}
+            **(prof or {})}
+
+
+def k8_profile_line(what: str, c: dict) -> str:
+    return (f"[profile] K8 device ms {what} "
+            f"{c['k8_device_ms_per_step']:.4f} of "
+            f"{c['profile']['device_ms_per_step']:.4f}; in turns with its "
+            f"three-launch form "
+            f"{c['k8_three_pass_device_ms_per_step']:.4f} of "
+            f"{c['profile_three_pass']['device_ms_per_step']:.4f}")
+
+
+def k8_profiles(torch, step) -> dict:
+    """Profile windows of two training steps (microbatches or MAE updates),
+    then again with K8 forced to the three-launch form it replaced, in
+    turns; K8's device ms a step in each."""
+    from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
+    out = {}
+    for form in ("", "_three_pass"):
+        with forced_variant(layernorm_bwd, "three_pass" if form else None):
+            prof = profile_steps(torch, step, warmup=1, steps=2)
+        out["profile" + form] = prof
+        out[f"k8{form}_device_ms_per_step"] = kernel_ms(prof, "ln_bwd_")
+    return out
 
 
 def main() -> int:
@@ -3906,7 +4006,11 @@ def main() -> int:
               f"K12 simt "
               f"{cmp['per_op_int8']['k12_simt_device_ms_per_step']:.4f} of a "
               f"per-op int8 step's "
-              f"{cmp['per_op_int8']['profile_simt']['device_ms_per_step']:.4f}",
+              f"{cmp['per_op_int8']['profile_simt']['device_ms_per_step']:.4f}"
+              f"; K13 simt "
+              f"{cmp['per_op_int8']['k13_k13simt_device_ms_per_step']:.4f} "
+              f"of a per-op int8 step's "
+              f"{cmp['per_op_int8']['profile_k13simt']['device_ms_per_step']:.4f}",
               flush=True)
     # one device kernel a wrapper call: 11 a layer (six K1, K5 or K14, two
     # K2 or K6, three K4)
@@ -3952,11 +4056,14 @@ def main() -> int:
     for k in EXPECTED_KERNELS["train_tf"]:
         if tr["launches"][k] <= 0:
             failures.append(f"train_tf: launches[{k}]=0")
+    failures.extend(k8_one_kernel_failures("train_tf", tr))
 
     tcmp = compare_training(torch, model,
                             profile="--profile" in sys.argv[1:])
     leaf_errs = tcmp.pop("leaf_rel_err")
     print(f"[compare train kernel-vs-plain] {json.dumps(tcmp)}", flush=True)
+    if "--profile" in sys.argv[1:]:
+        print(k8_profile_line("a stage-2 microbatch", tcmp), flush=True)
     if not tcmp["equal_bits_two_runs"]:
         failures.append("train: two runs of one microbatch differ in bits")
     if not (tcmp["grads_finite"] and tcmp["loss_rel_err"] <= CMP_LOSS_REL
@@ -4054,11 +4161,14 @@ def main() -> int:
     for k in EXPECTED_KERNELS["pretrain_mae"]:
         if mae["launches"][k] <= 0:
             failures.append(f"pretrain_mae: launches[{k}]=0")
+    failures.extend(k8_one_kernel_failures("pretrain_mae", mae))
 
     mcmp = compare_pretrain(torch, mae_cfg, mae_params,
                             profile="--profile" in sys.argv[1:])
     leaf_errs = mcmp.pop("leaf_rel_err")
     print(f"[compare pretrain kernel-vs-plain] {json.dumps(mcmp)}", flush=True)
+    if "--profile" in sys.argv[1:]:
+        print(k8_profile_line("an MAE update", mcmp), flush=True)
     if not mcmp["equal_bits_two_runs"]:
         failures.append("pretrain: two runs of one batch differ in bits")
     if not (mcmp["grads_finite"] and mcmp["loss_rel_err"] <= CMP_LOSS_REL

@@ -847,21 +847,41 @@ def test_encoder_attention_sm90_beside_wmma(dev, cross, causal, heads):
             assert torch.equal(got, again)
 
 
-def test_layernorm_bwd(dev):
+@pytest.mark.parametrize("dropping", [False, True])
+@pytest.mark.parametrize("rows,e", [(640, 256)] + [
+    (r, e) for e in (512, 768, 1024) for r in (1, 255, 257, 2048, 8192)])
+def test_layernorm_bwd(dev, rows, e, dropping):
+    """K8's one-pass kernel: dz within the bf16 tolerance of the twin, the
+    dropped dz equal to K10's mask applied to it (bit for bit), dgamma /
+    dbeta within 1e-3 of their largest value; two runs bit-equal; one device
+    kernel a call, counted ``one_pass``; the three-launch form it replaced
+    (``variant="three_pass"``) held to the twin too."""
+    from acai_omr_tpu_torch.ops.dropout_kernel import dropout_plain
     from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import layernorm_bwd
     g = torch.Generator(device=dev).manual_seed(15)
-    rows, e = 640, 256
     gr, z = _randn(g, rows, e, dev=dev), _randn(g, rows, e, dev=dev)
     gamma = 1 + 0.1 * _randn(g, e, dev=dev, dtype=torch.float32)
-    d = _drop()
+    d = _drop() if dropping else None
+    layernorm_bwd.launches, layernorm_bwd.extra_launches = 0, 0
+    layernorm_bwd.variants = {}
     got = layernorm_bwd(gr, z, gamma, 1e-5, d)
+    assert layernorm_bwd.device_launches == 1
+    assert layernorm_bwd.variants == {"one_pass": 1}
     want = layernorm_bwd.plain(gr, z, gamma, 1e-5, d)
     _close(got[0], want[0])
-    assert torch.equal(got[1] != 0, dropout_plain_keep(got[0], d))
+    if dropping:
+        assert torch.equal(got[1], dropout_plain(got[0], d))
+        assert torch.equal(got[1] != 0, dropout_plain_keep(got[0], d))
+    else:
+        assert got[1] is got[0]
     _close(got[2], want[2], rel=1e-3)
     _close(got[3], want[3], rel=1e-3)
-    plain = layernorm_bwd(gr, z, gamma, 1e-5)
-    assert plain[1] is plain[0]
+    again = layernorm_bwd(gr, z, gamma, 1e-5, d)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    old = layernorm_bwd(gr, z, gamma, 1e-5, d, variant="three_pass")
+    _close(old[0], want[0])
+    _close(old[2], want[2], rel=1e-3)
+    _close(old[3], want[3], rel=1e-3)
 
 
 def dropout_plain_keep(dz, d):
@@ -1246,29 +1266,77 @@ def test_decode_attention_hd_int8_refuses_head_dims_past_its_kernels(dev):
            decode_attention_hd_int8.plain(q, k8, k8, s, s, None),
            rel=2 * 2.0 ** -7)
 
+@pytest.mark.parametrize("b", [1, 4, 32])
 @pytest.mark.parametrize("dh", [16, 64, 128])
-@pytest.mark.parametrize("pos", [0, 1, 37, 299])
-def test_self_attention_append_int8(dev, dh, pos):
-    """Output within two bf16 ulps; the written column and its scales equal
-    the twin's bit for bit, every other entry untouched."""
+@pytest.mark.parametrize("t,pos", [(300, 0), (300, 1), (300, 15), (300, 16),
+                                   (300, 37), (300, 127), (300, 128),
+                                   (300, 299), (512, 300), (512, 511)])
+def test_self_attention_append_int8(dev, dh, t, pos, b):
+    """K13's cluster kernel (T = 300: the tiles copied by the block; T = 512:
+    by TMA) at every forced split and the plan's, and the simt kernel it
+    replaced: output within two bf16 ulps of the twin, two runs bit-equal;
+    the written column and its scales equal the twin's bit for bit, every
+    other entry untouched; launches counted ``split{s}`` (pos 0: split1) or
+    ``simt``. Other values in column pos and past it (NaN scales) change no
+    bit of the output: no block reads them as keys."""
     g = torch.Generator(device=dev).manual_seed(23)
-    q, kn, vn = (_randn(g, 3, 4, dh, dev=dev) * 2 for _ in range(3))
-    kc, vc = (torch.randint(-127, 128, (2, 3, 4, dh, 300), generator=g,
+    q, kn, vn = (_randn(g, b, 4, dh, dev=dev) * 2 for _ in range(3))
+    kc, vc = (torch.randint(-127, 128, (2, b, 4, dh, t), generator=g,
                             device=dev, dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand(2, 3, 4, 300, generator=g, device=dev) * 3e-2 + 2e-3
+    ks, vs = (torch.rand(2, b, 4, t, generator=g, device=dev) * 3e-2 + 2e-3
               for _ in range(2))
-    before = [a.clone() for a in (kc, vc, ks, vs)]
-    twin = [a.clone() for a in (kc, vc, ks, vs)]
-    out = self_attention_append_int8(q, kn, vn, kc, vc, ks, vs, 1, pos)
-    ref = self_attention_append_int8.plain(q, kn, vn, *twin, 1, pos)
-    _close(out, ref, rel=2 * 2.0 ** -7)
-    for got, want, old in zip((kc, vc, ks, vs), twin, before):
-        assert torch.equal(got, want)
-        changed = (got != old).nonzero()
-        assert bool((changed[:, 0] == 1).all() and (changed[:, -1] == pos)
-                    .all())
+    before = (kc, vc, ks, vs)
+    twin = [a.clone() for a in before]
+    op = self_attention_append_int8
+    ref = op.plain(q, kn, vn, *twin, 1, pos)
+    outs = {}
+    for v in ("split1", "split2", "split4", "split8", None, "simt"):
+        op.launches, op.variants = 0, {}
+        runs = []
+        for _ in range(2):
+            caches = [a.clone() for a in before]
+            runs.append(op(q, kn, vn, *caches, 1, pos, variant=v))
+            for got, want, old in zip(caches, twin, before):
+                assert torch.equal(got, want), v
+                changed = (got != old).nonzero()
+                assert bool((changed[:, 0] == 1).all()
+                            and (changed[:, -1] == pos).all()), v
+        _close(runs[0], ref, rel=2 * 2.0 ** -7)
+        assert torch.equal(runs[0], runs[1]), v
+        outs[v] = runs[0]
+        (key, count), = op.variants.items()
+        want_key = "simt" if v == "simt" else \
+            "split1" if pos == 0 or v == "split1" else key
+        assert count == 2 and key == want_key and (
+            v == "simt" or key.startswith("split")), (v, key)
     kq, s = quantize_rows(kn)
-    assert torch.equal(kc[1, ..., pos], kq) and torch.equal(ks[1, ..., pos], s)
+    assert torch.equal(twin[0][1, ..., pos], kq)
+    assert torch.equal(twin[2][1, ..., pos], s)
+    dirty = [a.clone() for a in before]
+    dirty[0][..., pos:], dirty[1][..., pos:] = 127, -127
+    dirty[2][..., pos:], dirty[3][..., pos:] = float("nan"), float("nan")
+    assert torch.equal(op(q, kn, vn, *dirty, 1, pos), outs[None])
+
+
+def test_self_attention_append_int8_refuses_head_dims_past_its_kernels(dev):
+    """K13's cluster kernel is compiled for head dims 16-128 (powers of
+    two): a launch at 48 is refused before anything runs (the per-op step
+    asks ``hd_takes`` first and takes its plain path); the simt kernel
+    takes it."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    q = _randn(g, 2, 4, 48, dev=dev)
+    k8 = torch.randint(-127, 128, (1, 2, 4, 48, 64), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = torch.rand(1, 2, 4, 64, generator=g, device=dev) * 3e-2 + 2e-3
+    with pytest.raises(ValueError, match="head dims"):
+        self_attention_append_int8(q, q, q, k8.clone(), k8.clone(), s.clone(),
+                                   s.clone(), 0, 9)
+    twin = [a.clone() for a in (k8, k8, s, s)]
+    _close(self_attention_append_int8(q, q, q, k8.clone(), k8.clone(),
+                                      s.clone(), s.clone(), 0, 9,
+                                      variant="simt"),
+           self_attention_append_int8.plain(q, q, q, *twin, 0, 9),
+           rel=2 * 2.0 ** -7)
 
 
 def test_hd_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -1855,6 +1923,30 @@ def test_k5_k12_cluster_kernels_report_no_spill(dev):
             assert r["threads"] == threads and r["local_bytes"] == 0, r
             assert r["blocks_per_sm"] >= 1, r
         assert any(r["variant"] == "simt" for r in op.resources("simt"))
+
+def test_k13_k8_kernels_report_no_spill(dev):
+    """K13's cluster kernels (four head dims, TMA or copied tiles, 128
+    threads) and K8's one-pass kernel (eight widths, 256 threads): no local
+    memory, at least one block an SM (K8: as many as its plan counts on);
+    the kernels of the forms each replaced listed beside."""
+    from acai_omr_tpu_torch.ops.layernorm_bwd_kernel import (LNB_WIDE_E,
+                                                             layernorm_bwd)
+    rows = [r for r in self_attention_append_int8.resources("split")
+            if r["variant"] == "split"]
+    assert len(rows) == 8
+    for r in rows:
+        assert r["threads"] == 128 and r["local_bytes"] == 0, r
+        assert r["blocks_per_sm"] >= 1, r
+    assert any(r["variant"] == "simt"
+               for r in self_attention_append_int8.resources("simt"))
+    rows = layernorm_bwd.resources("one_pass")
+    one = [r for r in rows if r["variant"] == "one_pass"]
+    assert len(one) == 8
+    for r in one:
+        e = int(r["kernel"].split("<")[1].rstrip(">"))
+        assert r["threads"] == 256 and r["local_bytes"] == 0, r
+        assert r["blocks_per_sm"] >= (2 if e <= LNB_WIDE_E else 1), r
+    assert len(layernorm_bwd.resources("three_pass")) == 3
 
 def test_resident_elementwise_keeps_its_rows_in_registers(dev):
     """No local memory (spill) in any K27 variant the probe runs."""
