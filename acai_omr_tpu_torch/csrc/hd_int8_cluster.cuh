@@ -71,20 +71,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// An int8 value as a float, exactly, without the quarter-rate integer
-// conversion: the float 2^23 + (b + 128), whose low mantissa byte is the
-// byte with its sign bit flipped, less 2^23 + 128. `u`: the byte as stored;
-// `flipped`: a word of four int8 values with their sign bits flipped
-// (w ^ 0x80808080), j picking the byte.
-__device__ __forceinline__ float i8_float(uint32_t biased) {
-  return __uint_as_float(biased) - 8388736.0f;
-}
-__device__ __forceinline__ float i8_byte(uint8_t u) {
-  return i8_float(0x4B000000u | ((uint32_t)u ^ 0x80u));
-}
-__device__ __forceinline__ float i8_lane(uint32_t flipped, int j) {
-  return i8_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | j));
-}
+// the int8-to-float conversions of sm90_cluster.cuh
+using sm90::i8_byte;
+using sm90::i8_lane;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;

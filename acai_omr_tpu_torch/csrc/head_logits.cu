@@ -7,20 +7,42 @@
 // which in-kernel access of a head Mosaic lowers; here the question is
 // whether reading a head's 64 columns straight out of a fused row-major
 // (T, E) buffer, as K3 and K7 do, costs anything against a pre-shaped
-// (H, T, Dh) copy. One kernel templated on the form:
-//   lane_slice (k1): one block per 64-query tile loops over all H heads and
-//                    reads each head's Dh columns of row-major (T, E);
-//   reshape    (k2): one block per (head, 64-query tile) reads the same
-//                    strided columns;
-//   preshaped  (k3): one block per (head, 64-query tile) reads contiguous
-//                    (H, T, Dh).
-// A head's 64 bf16 columns are 128 bytes of a row, so the strided forms read
-// whole 128-byte lines too. Bound on an H100: the fp32 output (4 H T^2
-// bytes) at 3.35 TB/s; the 2 H T^2 Dh flops are small beside it. Design: four
-// warps of 16 query rows, wmma 16x16x16 bf16 tiles with fp32 sums; Q and a
-// 64-key K tile in shared memory; each warp stages its 16 x 64 fp32 block
-// through shared memory and writes it with 16-byte stores, a row's 256 bytes
-// at a time. No pipelining of the tile loads.
+// (H, T, Dh) copy. Bound on an H100: the fp32 output (4 H T^2 bytes) at
+// 3.35 TB/s; the 2 H T^2 Dh flops, a product of depth 64, are small beside
+// it. So the kernel is a store stream, and its design
+// (`head_logits_persistent`) is the epilogue's:
+//
+// * One kernel body for the three forms; a form decides only how a head's
+//   tile is addressed and the order of the tiles. lane_slice and reshape
+//   read q and k through 2-D TMA maps of (T, E) whose 64-column box starts
+//   at column h * 64 (128 bytes: the 128-byte swizzle's row), preshaped
+//   through maps of (H * T, 64).
+// * A tile is 64 queries x 128 keys of one head. One consumer warpgroup runs
+//   `wgmma` m64n128k16 with both operands K-major in shared memory (Q_h and
+//   K_h are both row-major along Dh, so S = Q K^T needs no transpose), four
+//   k-steps, the sums in fp32 registers. A producer warp keeps the next
+//   tiles' Q and K boxes in flight through a ring of three stages.
+// * The epilogue is the kernel: the accumulators go, 64 keys at a time, to
+//   one of two 16 KB staging buffers (128-byte swizzle: the warps' float2
+//   writes take two wavefronts, the least), from which two TMA bulk tensor
+//   stores of 64 x 32 write them into a (H * T, T) fp32 map. A buffer is
+//   written again only once the store before last has read it, so one
+//   half's stores overlap the next half's staging and the next tile's loads
+//   and product.
+// * The blocks are persistent, two an SM (81 KB of shared memory each), and
+//   block b walks tiles [b N / G, (b + 1) N / G) of the N = H x T/64 x
+//   ceil(T/128) tiles (ops/head_logits_kernels.py `head_logits_schedule`).
+//   The forms keep their TPU question as tile order: lane_slice walks the
+//   heads innermost (a block covers the heads of the same query and key
+//   rows, as k1 loops over heads), reshape and preshaped the heads
+//   outermost. No form is limited to T / 64 blocks.
+// * T a multiple of 64 but not of 128 (T = 64, 320): the last key tile holds
+//   64 keys; its box past T reads zeros (or the next head's rows,
+//   preshaped), its second half is neither staged nor stored, and TMA never
+//   writes past the map.
+// The kernel it replaced (wmma 16x16x16, three barriers a 64-key tile,
+// lane_slice on T / 64 blocks) stays as `variant="wmma"`, the yardstick
+// timed in turns.
 //
 // K26 replaces tools/mosaic_batched_attn_probe.py `run` (kernels `kern` :86 /
 // `kernel` :31, pallas_call :117): batched single-query logits of BT images,
@@ -47,6 +69,7 @@
 #include <type_traits>
 
 #include "func_attrs.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -143,6 +166,203 @@ head_logits_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+namespace hl {  // K25's persistent kernel
+
+constexpr int BQ = 64;                        // queries a tile: a warpgroup
+constexpr int BK = 128;                       // keys a tile
+constexpr int HALF = 64;                      // keys a staged half
+constexpr int OUT_COLS = 32;                  // fp32 columns a store box
+constexpr int THREADS = 128 + 32;             // consumers + a producer warp
+constexpr int STAGES = 3;
+constexpr int Q_BYTES = BQ * DH * 2;          // 8 KB
+constexpr int STAGE_BYTES = Q_BYTES + BK * DH * 2;  // + 16 KB
+constexpr int BOX_BYTES = BQ * OUT_COLS * 4;  // 8 KB
+constexpr int HALF_BYTES = BQ * HALF * 4;     // 16 KB: two store boxes
+constexpr int NHALF = 2;                      // staging buffers of a half
+constexpr int SMEM = STAGES * STAGE_BYTES + NHALF * HALF_BYTES + 1024;
+
+// Tile i of a launch: its head and query / key tiles. lane_slice: heads
+// innermost, then key tiles, then query tiles; reshape and preshaped: heads
+// outermost, then query tiles, then key tiles.
+__device__ __forceinline__ void tile_of(int i, int form, int H, int nq, int nk,
+                                        int& h, int& qt, int& kt) {
+  if (form == LANE_SLICE) {
+    h = i % H;
+    kt = i / H % nk;
+    qt = i / H / nk;
+  } else {
+    kt = i % nk;
+    qt = i / nk % nq;
+    h = i / nk / nq;
+  }
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N committed store groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Grid: G persistent blocks (G <= N tiles); tq / tk: the maps of q and k
+// (forms 0, 1: (T, E), boxes of 64 / 128 rows x 64 columns; form 2:
+// (H * T, 64)); to: the (H * T, T) fp32 map of the output, boxes of 64 x 32.
+template <int FORM>
+__global__ void __launch_bounds__(THREADS, 1)
+    head_logits_persistent(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap to, int T,
+                           int H) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t stage_out = ring + STAGES * STAGE_BYTES;
+  unsigned char* out_p = smem_raw + (stage_out - raw);
+
+  const int nq = T / BQ, nk = (T + BK - 1) / BK;
+  const long long n_tiles = (long long)H * nq * nk;
+  const int G = (int)gridDim.x;
+  const int i0 = (int)(blockIdx.x * n_tiles / G);
+  const int i1 = (int)((blockIdx.x + 1) * n_tiles / G);
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+      sm90::mbar_init(sm90::smem_u32(&empty[s]), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer: Q and K boxes of each tile
+    if (threadIdx.x % 32 == 0) {
+      for (int i = i0; i < i1; ++i) {
+        const int k = i - i0, s = k % STAGES;
+        sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((k / STAGES) & 1) ^ 1);
+        int h, qt, kt;
+        tile_of(i, FORM, H, nq, nk, h, qt, kt);
+        const uint32_t bar = sm90::smem_u32(&full[s]);
+        const uint32_t dst = ring + s * STAGE_BYTES;
+        sm90::mbar_expect_tx(bar, STAGE_BYTES);
+        if (FORM == PRESHAPED) {
+          sm90::tma_load(dst, &tq, bar, 0, h * T + qt * BQ);
+          sm90::tma_load(dst + Q_BYTES, &tk, bar, 0, h * T + kt * BK);
+        } else {
+          sm90::tma_load(dst, &tq, bar, h * DH, qt * BQ);
+          sm90::tma_load(dst + Q_BYTES, &tk, bar, h * DH, kt * BK);
+        }
+      }
+    }
+    return;
+  }
+
+  const int lt = threadIdx.x;  // 0..127: the consumer warpgroup
+  const int lane = lt % 32;
+  const int row = warp * 16 + lane / 4;  // the accumulator's rows row, row + 8
+  int halves = 0;  // halves staged so far: the buffer is halves % NHALF
+  for (int i = i0; i < i1; ++i) {
+    const int k = i - i0, s = k % STAGES;
+    int h, qt, kt;
+    tile_of(i, FORM, H, nq, nk, h, qt, kt);
+    sm90::mbar_wait(sm90::smem_u32(&full[s]), (k / STAGES) & 1);
+    const uint32_t qa = ring + s * STAGE_BYTES, ka = qa + Q_BYTES;
+    float acc[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
+    sm90::fence_acc(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::wgmma_n128<0, 0>(acc, sm90::step_desc<false>(qa, kk),
+                             sm90::step_desc<false>(ka, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(acc);
+    if (lt == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[s]));
+
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int hf = 0; hf < BK / HALF; ++hf) {
+      if (k0 + hf * HALF >= T) break;  // past the last key: nothing to store
+      const int buf = halves++ % NHALF;
+      // the store that last used this buffer has read it
+      if (lt == 0) store_wait_read<NHALF - 1>();
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+      unsigned char* hb = out_p + buf * HALF_BYTES;
+#pragma unroll
+      for (int j = 0; j < HALF / 8; ++j) {
+        const int col = j * 8 + 2 * (lane % 4);  // within the half
+        const int c = (col % OUT_COLS) / 4;      // 16-byte chunk of the row
+        unsigned char* box = hb + (col / OUT_COLS) * BOX_BYTES + (col % 4) * 4;
+        const int jj = hf * (HALF / 8) + j;
+        *reinterpret_cast<float2*>(box + row * 128 + ((c ^ (row & 7)) << 4)) =
+            make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        *reinterpret_cast<float2*>(box + (row + 8) * 128 +
+                                   ((c ^ (row & 7)) << 4)) =
+            make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+      if (lt == 0) {
+        const uint32_t src = stage_out + buf * HALF_BYTES;
+#pragma unroll
+        for (int b = 0; b < HALF / OUT_COLS; ++b)
+          tma_store(&to, src + b * BOX_BYTES, k0 + hf * HALF + b * OUT_COLS,
+                    h * T + qt * BQ);
+        store_commit();
+      }
+    }
+  }
+  if (lt == 0) store_wait_all();
+}
+
+template <int FORM>
+int launch(const void* q, const void* k, void* out, int T, int H, int blocks,
+           cudaStream_t s) {
+  CUtensorMap tq = {}, tk = {}, to = {};
+  const int E = H * DH;
+  int rc;
+  if (FORM == PRESHAPED) {
+    rc = sm90::tensor_map(&tq, q, H * T, DH, BQ);
+    if (rc == 0) rc = sm90::tensor_map(&tk, k, H * T, DH, BK);
+  } else {
+    rc = sm90::tensor_map(&tq, q, T, E, BQ);
+    if (rc == 0) rc = sm90::tensor_map(&tk, k, T, E, BK);
+  }
+  if (rc == 0)
+    rc = sm90::encode_map(&to, out, (long long)H * T, T, T, BQ, OUT_COLS,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4);
+  if (rc != 0) return rc;
+  const auto kernel = head_logits_persistent<FORM>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, THREADS, SMEM, s>>>(tq, tk, to, T, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hl
+
 constexpr int MAX_T = 1024;  // K26 keys a (b, h) pair keeps in shared memory
 constexpr int ROW_LANES = 16;  // lanes of one key row: 4 elements each
 
@@ -228,6 +448,24 @@ extern "C" int acai_head_logits(const void* q, const void* k, void* out, int T,
   return (int)cudaGetLastError();
 }
 
+// K25's persistent kernel: the same arguments, and `blocks` persistent
+// blocks (1 .. the tiles; ops/head_logits_kernels.py `head_logits_blocks`).
+// q, k and out 16-byte aligned.
+extern "C" int acai_head_logits_persistent(const void* q, const void* k,
+                                           void* out, int T, int H, int form,
+                                           int blocks, void* stream) {
+  const long long tiles =
+      (long long)H * (T / hl::BQ) * ((T + hl::BK - 1) / hl::BK);
+  if (T % QT != 0 || T <= 0 || H <= 0 || form < 0 || form > 2 ||
+      blocks <= 0 || blocks > tiles)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == LANE_SLICE)
+    return hl::launch<LANE_SLICE>(q, k, out, T, H, blocks, s);
+  if (form == RESHAPE) return hl::launch<RESHAPE>(q, k, out, T, H, blocks, s);
+  return hl::launch<PRESHAPED>(q, k, out, T, H, blocks, s);
+}
+
 // k: (BT, T, H * 64) fp32 (int8 == 0) or int8; q: (BT, H * 64) fp32;
 // compact: (T, BT * H), colsum: (BT * H,), col: (BT * H,) fp32. T <= 1024.
 extern "C" int acai_batched_head_logits(const void* k, const void* q,
@@ -252,12 +490,18 @@ extern "C" int acai_batched_head_logits(const void* k, const void* q,
 }
 
 static const AcaiKernelEntry kResources[] = {
-    ACAI_KERNEL("head_logits", "lane_slice", head_logits_kernel<LANE_SLICE>,
+    ACAI_KERNEL("head_logits", "lane_slice",
+                hl::head_logits_persistent<LANE_SLICE>, hl::THREADS, hl::SMEM),
+    ACAI_KERNEL("head_logits", "reshape",
+                hl::head_logits_persistent<RESHAPE>, hl::THREADS, hl::SMEM),
+    ACAI_KERNEL("head_logits", "preshaped",
+                hl::head_logits_persistent<PRESHAPED>, hl::THREADS, hl::SMEM),
+    ACAI_KERNEL("head_logits", "lane_slice wmma",
+                head_logits_kernel<LANE_SLICE>, THREADS, 0),
+    ACAI_KERNEL("head_logits", "reshape wmma", head_logits_kernel<RESHAPE>,
                 THREADS, 0),
-    ACAI_KERNEL("head_logits", "reshape", head_logits_kernel<RESHAPE>,
-                THREADS, 0),
-    ACAI_KERNEL("head_logits", "preshaped", head_logits_kernel<PRESHAPED>,
-                THREADS, 0),
+    ACAI_KERNEL("head_logits", "preshaped wmma",
+                head_logits_kernel<PRESHAPED>, THREADS, 0),
     ACAI_KERNEL("batched_head_logits", "fp32",
                 batched_head_logits_kernel<false>, THREADS, 0),
     ACAI_KERNEL("batched_head_logits", "int8",

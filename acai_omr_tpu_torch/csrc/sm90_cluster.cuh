@@ -3,7 +3,8 @@
 // K1's skinny decode kernel and K14's W4A8 product (linear_bias_act.cu,
 // quant_linear.cu: K split across the cluster), K2 decode_attention, K6
 // decode_attention_int8 and K11 decode_attention_hd (the keys split across
-// the cluster).
+// the cluster), and K17 blockdiag_decode_attention (a row's keys split
+// across the cluster).
 //
 // A cluster's blocks run on neighbouring SMs at the same time and can read
 // each other's shared memory (distributed shared memory). The pattern of all
@@ -109,6 +110,21 @@ __device__ __forceinline__ float bf16_lo(uint32_t w) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
+}
+
+// An int8 value as a float (K12, K13, K17), exactly, without the quarter-rate integer
+// conversion: the float 2^23 + (b + 128), whose low mantissa byte is the
+// byte with its sign bit flipped, less 2^23 + 128. `u`: the byte as stored;
+// `flipped`: a word of four int8 values with their sign bits flipped
+// (w ^ 0x80808080), j picking the byte.
+__device__ __forceinline__ float i8_float(uint32_t biased) {
+  return __uint_as_float(biased) - 8388736.0f;
+}
+__device__ __forceinline__ float i8_byte(uint8_t u) {
+  return i8_float(0x4B000000u | ((uint32_t)u ^ 0x80u));
+}
+__device__ __forceinline__ float i8_lane(uint32_t flipped, int j) {
+  return i8_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | j));
 }
 
 // Launch `kernel` on `grid` in clusters of `cluster_x` blocks along x.

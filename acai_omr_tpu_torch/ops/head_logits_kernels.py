@@ -5,7 +5,10 @@ Port of the Pallas kernels of ``tools/mosaic_head_access_probe.py`` (``main``:
 ``k1``, ``k2``, ``k3``) and ``tools/mosaic_batched_attn_probe.py`` (``run``:
 ``kern`` / ``kernel``), which ask how a kernel should reach one head of a
 fused row-major buffer, and how single-query logits of a batch are laid out.
-Each has its plain PyTorch twin beside it.
+Each has its plain PyTorch twin beside it. K25 runs on persistent blocks
+(:func:`head_logits_blocks`) that walk the tiles of
+:func:`head_logits_schedule`; ``variant="wmma"`` forces the kernel it
+replaced, kept as the yardstick.
 """
 
 from __future__ import annotations
@@ -15,9 +18,12 @@ import ctypes
 import torch
 
 from . import _build
+from .linear_kernel import N_SMS
 
 DH = 64  # the head width both kernels are compiled for
 FORMS = ("lane_slice", "reshape", "preshaped")
+TILE_Q, TILE_K = 64, 128  # K25: queries x keys of one head a tile
+BLOCKS_PER_SM = 2  # K25's persistent blocks (81 KB of shared memory each)
 MAX_KEYS = 1024  # K26: keys a (b, h) pair holds in shared memory
 
 
@@ -66,17 +72,68 @@ def head_logits_plain(q: torch.Tensor, k: torch.Tensor, form: str,
     return torch.einsum("htd,hsd->hts", q.float(), k.float())
 
 
-def _launch_heads(op, q, k, form, num_heads):
-    t = head_dims(q, k, form, num_heads)
+def head_logits_tiles(t: int, h: int) -> int:
+    """K25's tiles at T keys and H heads: H x T / 64 x ceil(T / 128)."""
+    return h * (t // TILE_Q) * -(-t // TILE_K)
+
+
+def head_logits_blocks(t: int, h: int) -> int:
+    """K25's persistent blocks: two an SM, no more than the tiles."""
+    return min(head_logits_tiles(t, h), BLOCKS_PER_SM * N_SMS)
+
+
+def head_logits_tile(i: int, t: int, h: int, form: str) -> tuple:
+    """(head, first query, first key) of K25's tile ``i`` as the kernel
+    orders them: ``lane_slice`` the heads innermost (then key tiles, then
+    query tiles), ``reshape`` / ``preshaped`` the heads outermost (then
+    query tiles, then key tiles)."""
+    nq, nk = t // TILE_Q, -(-t // TILE_K)
+    if form == "lane_slice":
+        hh, kt, qt = i % h, i // h % nk, i // h // nk
+    else:
+        kt, qt, hh = i % nk, i // nk % nq, i // nk // nq
+    return hh, qt * TILE_Q, kt * TILE_K
+
+
+def head_logits_schedule(t: int, h: int, form: str,
+                         blocks: int | None = None) -> list[list[tuple]]:
+    """The tiles each of K25's persistent blocks computes, in order: block b
+    walks tiles [b N / G, (b + 1) N / G) of the N tiles, G the blocks."""
+    n = head_logits_tiles(t, h)
+    g = head_logits_blocks(t, h) if blocks is None else blocks
+    return [[head_logits_tile(i, t, h, form)
+             for i in range(b * n // g, (b + 1) * n // g)] for b in range(g)]
+
+
+def _check_heads(q, k, form, num_heads, variant=None) -> int:
+    """K25's shape rules and its variant, on either device: T."""
+    if variant not in (None, "wmma"):
+        raise ValueError(f"unknown variant {variant!r}: None (the persistent "
+                         f"kernel) or 'wmma'")
+    return head_dims(q, k, form, num_heads)
+
+
+def _launch_heads(op, q, k, form, num_heads, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"wmma"`` forces the
+    kernel the persistent one replaced."""
+    t = _check_heads(q, k, form, num_heads, variant)
     for a, what in ((q, "q"), (k, "k")):
         _build.require(a, what, torch.bfloat16, q.dim())
     out = torch.empty((num_heads, t, t), dtype=torch.float32, device=q.device)
-    fn = _build.bind("head_logits", "acai_head_logits",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p])
-    rc = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), t, num_heads,
-            FORMS.index(form), _build.stream_ptr())
-    op.launched(form)
+    args = (q.data_ptr(), k.data_ptr(), out.data_ptr(), t, num_heads,
+            FORMS.index(form))
+    if variant == "wmma":
+        fn = _build.bind("head_logits", "acai_head_logits",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
+        rc = fn(*args, _build.stream_ptr())
+        op.launched(f"{form} wmma")
+    else:
+        fn = _build.bind("head_logits", "acai_head_logits_persistent",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+        rc = fn(*args, head_logits_blocks(t, num_heads), _build.stream_ptr())
+        op.launched(form)
     _build.check(rc, op.name)
     return out
 
@@ -85,7 +142,7 @@ head_logits = _build.KernelOp(
     "head_logits", "acai_omr_tpu_torch/csrc/head_logits.cu",
     "tools/mosaic_head_access_probe.py:35 (main: k1 :44, k2 :58, k3 :78; "
     "pallas_call :52, :66, :83)",
-    _launch_heads, head_logits_plain)
+    _launch_heads, head_logits_plain, _check_heads)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,9 @@ attention has to answer on the card:
 * K17 :data:`blockdiag_decode_attention` and K18
   :data:`batched_decode_attention` (``csrc/probe_decode_attention.cu``):
   ``tools/attn_microbench.py`` ``blockdiag_attn`` and ``batcheddot_attn``.
+  K17 runs one thread-block cluster a row, the row's keys split across it as
+  :func:`blockdiag_plan` says (counted as ``"{cache} bt={bt} split{s}"``);
+  ``variant="wmma"`` forces the kernel it replaced, kept as the yardstick.
 * K19 :data:`smem_probe` (``csrc/smem_probe.cu``): ``tools/vmem_probe.py``
   ``probe``.
 
@@ -25,6 +28,7 @@ import math
 import torch
 
 from . import _build
+from .linear_kernel import N_SMS
 
 # K16's compiled variants: (layout, out dtype) -> (BM, BN, BK) tiles. The
 # sweep's tiles fit Hopper's shared memory (two staged slabs of at most
@@ -154,8 +158,100 @@ def decode_attention_probe_plain(q: torch.Tensor, kT: torch.Tensor,
     return torch.einsum("bht,bhdt->bhd", w, vT.float()).to(torch.bfloat16)
 
 
+BLOCKDIAG_UNIT = 16  # keys: a block's range is whole units
+BLOCKDIAG_BOX = 64  # keys a TMA box: ranges of whole boxes read no key twice
+BLOCKDIAG_MAX_SPLIT = 8  # a portable cluster
+BLOCKDIAG_STAGE_BYTES = 16 * 1024  # a box, K or V
+BLOCKDIAG_MIN_STAGES = 2
+BLOCKDIAG_SMEM_LIMIT = 227 * 1024
+BLOCKDIAG_STATIC = 2048  # csrc: room for the static shared memory
+# what a cluster launch costs beyond an ordinary one (an H100 80GB HBM3 at
+# 700 W: K13's 512 blocks 0.0130 ms with the cluster attribute, 0.0110
+# without, PERF.md section 6)
+BLOCKDIAG_CLUSTER_US = 2.0
+HBM_BYTES_PER_S = 3.35e12
+
+
+def blockdiag_ranges(t: int, split: int) -> list[tuple[int, int]]:
+    """The key ranges [lo, hi) of a cluster's blocks, as the kernel forms
+    them: block r owns units [r U / split, (r + 1) U / split) of the U =
+    T / 16 units."""
+    units = t // BLOCKDIAG_UNIT
+    return [(r * units // split * BLOCKDIAG_UNIT,
+             (r + 1) * units // split * BLOCKDIAG_UNIT) for r in range(split)]
+
+
+def blockdiag_smem(chunk: int, dh: int, stages: int) -> int:
+    """Dynamic shared memory of a K17 block at its smallest (csrc
+    ``bd::Layout`` without the bias and scales, which the kernel copies in
+    only where they fit and reads from device memory where not): the ring,
+    the logits (fp32) and weights (bf16) of 16 heads over the range's key
+    boxes, the row's q, its partial output and the peers' partials of the
+    block's share, 1 KB of alignment."""
+    keys = -(-chunk // BLOCKDIAG_BOX) * BLOCKDIAG_BOX
+    return (stages * BLOCKDIAG_STAGE_BYTES + HEADS * (keys + 4) * 4
+            + HEADS * (keys + 8) * 2 + HEADS * dh * 10 + 128 + 1024)
+
+
+def _split_chunk(t: int, dh: int, split: int) -> tuple[int, int]:
+    units = t // BLOCKDIAG_UNIT
+    chunk = -(-units // split) * BLOCKDIAG_UNIT
+    if blockdiag_smem(chunk, dh, BLOCKDIAG_MIN_STAGES) + BLOCKDIAG_STATIC \
+            > BLOCKDIAG_SMEM_LIMIT:
+        raise ValueError(f"{chunk} keys of head dim {dh} do not fit a "
+                         f"block's shared memory")
+    return chunk, split
+
+
+def blockdiag_plan(b: int, t: int, dh: int,
+                   int8: bool = False) -> tuple[int, int]:
+    """(keys of a block's largest range, split) of K17's cluster kernel.
+
+    One cluster of ``split`` blocks per row, whatever ``bt`` is; the T keys
+    are U = T / 16 units and block r owns units [r U / split, (r + 1) U /
+    split) (:func:`blockdiag_ranges`: in order, none empty). The kernel is a
+    stream of K and V, so the split is the one whose estimate is least:
+    the bytes its blocks' boxes read (a range that is not whole 64-key boxes
+    reads the rest of its last box too) at 3.35 TB/s times the share of
+    the 132 SMs the B x split blocks leave idle, plus BLOCKDIAG_CLUSTER_US
+    for a cluster launch (split 1 is an ordinary launch); ties go to the
+    smaller split. At B = 32, T = 512 that is split 8: 256 blocks, where
+    ``bt`` gave the TPU's kernel 4-16."""
+    units = t // BLOCKDIAG_UNIT
+    per_key = 2 * HEADS * dh * (1 if int8 else 2) + (2 * HEADS * 4 if int8
+                                                      else 0)
+    best = None
+    for split in range(1, min(BLOCKDIAG_MAX_SPLIT, units) + 1):
+        boxed = sum(-(-(hi - lo) // BLOCKDIAG_BOX) * BLOCKDIAG_BOX
+                    for lo, hi in blockdiag_ranges(t, split))
+        busy = min(1.0, b * split / N_SMS)
+        us = 1e6 * b * boxed * per_key / HBM_BYTES_PER_S / busy \
+            + (BLOCKDIAG_CLUSTER_US if split > 1 else 0.0)
+        if best is None or us < best[0] - 1e-9:
+            best = (us, split)
+    return _split_chunk(t, dh, best[1])
+
+
+def blockdiag_split(variant, b: int, t: int, dh: int, int8: bool = False):
+    """(keys of the largest range, split) of a K17 call: the plan's, or
+    ``variant`` ``"split{s}"`` forced (fewer blocks where T has fewer units
+    than s); None for ``"wmma"``. Raises ValueError on an unknown variant."""
+    if variant is None:
+        return blockdiag_plan(b, t, dh, int8)
+    if variant == "wmma":
+        return None
+    s = variant[5:] if isinstance(variant, str) \
+        and variant.startswith("split") else ""
+    if not (s.isdigit() and 1 <= int(s) <= BLOCKDIAG_MAX_SPLIT):
+        raise ValueError(f"unknown variant {variant!r}: 'wmma' or 'split1' "
+                         f".. 'split{BLOCKDIAG_MAX_SPLIT}'")
+    return _split_chunk(t, dh, min(int(s), t // BLOCKDIAG_UNIT))
+
+
 def blockdiag_decode_attention_plain(q, kT, vT, bias=None, k_scale=None,
                                      v_scale=None, bt: int = 4):
+    """Plain twin of K17 (:func:`decode_attention_probe_plain`); the output
+    does not depend on ``bt``."""
     _check_blockdiag(q, kT, k_scale, v_scale)
     return decode_attention_probe_plain(q, kT, vT, bias, k_scale, v_scale, bt)
 
@@ -174,28 +270,53 @@ def _check_blockdiag(q, kT, k_scale, v_scale) -> None:
         raise ValueError("k_scale / v_scale must be (B, H, T)")
 
 
+def _check_blockdiag_call(q, kT, vT, bias=None, k_scale=None, v_scale=None,
+                          bt: int = 4, variant=None):
+    """K17's shape rules and its variant, on either device: the plan (keys
+    a block, split), or None for ``"wmma"``."""
+    b, _, dh, t = _check_attention(q, kT, vT, bias, bt)
+    _check_blockdiag(q, kT, k_scale, v_scale)
+    return blockdiag_split(variant, b, t, dh, kT.dtype == torch.int8)
+
+
 def _launch_blockdiag(op, q, kT, vT, bias=None, k_scale=None, v_scale=None,
-                      bt: int = 4):
+                      bt: int = 4, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"split{s}"`` forces
+    the cluster kernel's split, ``"wmma"`` the kernel it replaced."""
+    plan = _check_blockdiag_call(q, kT, vT, bias, k_scale, v_scale, bt,
+                                 variant)
     int8 = kT.dtype == torch.int8
     _build.require(q, "q", torch.bfloat16, 3)
     for name, a in (("kT", kT), ("vT", vT)):
         _build.require(a, name, torch.int8 if int8 else torch.bfloat16, 4)
-    b, h, dh, t = _check_attention(q, kT, vT, bias, bt)
-    _check_blockdiag(q, kT, k_scale, v_scale)
+    b, _, dh, t = kT.shape
     for name, a in (("bias", bias), ("k_scale", k_scale),
                     ("v_scale", v_scale)):
         if a is not None:
             _build.require(a, name, torch.float32, a.dim())
     out = torch.empty_like(q)
-    fn = _build.bind("probe_decode_attention",
-                     "acai_blockdiag_decode_attention",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     ptr = lambda x: 0 if x is None else x.data_ptr()
-    rc = fn(q.data_ptr(), kT.data_ptr(), vT.data_ptr(), ptr(bias),
-            ptr(k_scale), ptr(v_scale), int(int8), b, bt, dh, t,
-            1.0 / math.sqrt(dh), out.data_ptr(), _build.stream_ptr())
-    op.launched(f"{'int8' if int8 else 'bf16'} bt={bt}")
+    args = (q.data_ptr(), kT.data_ptr(), vT.data_ptr(), ptr(bias),
+            ptr(k_scale), ptr(v_scale), int(int8))
+    cache = "int8" if int8 else "bf16"
+    if plan is None:
+        fn = _build.bind("probe_decode_attention",
+                         "acai_blockdiag_decode_attention",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, b, bt, dh, t, 1.0 / math.sqrt(dh), out.data_ptr(),
+                _build.stream_ptr())
+        op.launched(f"{cache} bt={bt} wmma")
+    else:
+        chunk, split = plan
+        fn = _build.bind("probe_decode_attention",
+                         "acai_blockdiag_decode_attention_cluster",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                         + [ctypes.c_float] + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*args, b, dh, t, 1.0 / math.sqrt(dh), chunk, split,
+                out.data_ptr(), _build.stream_ptr())
+        op.launched(f"{cache} bt={bt} split{split}")
     _build.check(rc, op.name)
     return out
 
@@ -204,7 +325,8 @@ blockdiag_decode_attention = _build.KernelOp(
     "blockdiag_decode_attention",
     "acai_omr_tpu_torch/csrc/probe_decode_attention.cu",
     "tools/attn_microbench.py:89 (_blockdiag_kernel via blockdiag_attn :129, "
-    "pallas_call :151)", _launch_blockdiag, blockdiag_decode_attention_plain)
+    "pallas_call :151)", _launch_blockdiag, blockdiag_decode_attention_plain,
+    _check_blockdiag_call)
 
 
 def batched_decode_attention_plain(q, kT, vT, bias=None, bt: int = 4):

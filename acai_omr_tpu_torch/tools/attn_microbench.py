@@ -13,7 +13,10 @@ T = 512, bf16 and int8 caches (fp32 (B, H, T) scales), timed in turns:
   * "perhead": the per-op decode step's K11 / K12, the counterparts of
     ``pallas_decode.decode_attention``;
   * "blockdiag": K17, the block-diagonal tensor-core form, bf16 at bt 2 / 4 /
-    8 and int8 at bt 4 / 8;
+    8 and int8 at bt 4 / 8, each on one thread-block cluster a row with the
+    keys split across it as ``blockdiag_plan`` says (the line names the
+    split; ``bt`` no longer shapes the grid, so the lines of one cache read
+    alike);
   * "batcheddot": K18, one warp per (row, head), bf16 at bt 4.
 
 Each line prints microseconds, the bound (K and V read once, plus the
@@ -30,7 +33,7 @@ import torch.nn.functional as F
 
 from ..ops.decode_hd_kernel import decode_attention_hd, decode_attention_hd_int8
 from ..ops.probe_kernels import (batched_decode_attention,
-                                 blockdiag_decode_attention,
+                                 blockdiag_decode_attention, blockdiag_plan,
                                  decode_attention_probe_plain)
 from ._probe import PEAK_BYTES_PER_S, label, resolve, time_ms
 
@@ -80,7 +83,7 @@ def bound_ms(kT, ks=None) -> float:
 
 def _line(name: str, us: float, bound: float, err=None, what="maxerr"):
     tail = "" if err is None else f"  ({what} {err:.2e})"
-    print(f"{name:22s} {us:8.1f} us  {us / (1e3 * bound):6.2f}x bound{tail}",
+    print(f"{name:29s} {us:8.1f} us  {us / (1e3 * bound):6.2f}x bound{tail}",
           flush=True)
 
 
@@ -113,14 +116,20 @@ def main(argv=None, device="cuda", shape=None, reps: int = 200) -> list:
           ref, kernel="decode_attention_hd")
     timed("perhead int8:", lambda: decode_attention_hd_int8(
         qi, ki, vi, ks, vs, bias_i), bi, kernel="decode_attention_hd_int8")
+    b, _, dh, t = kb.shape
+    split = {c: blockdiag_plan(b, t, dh, c == "int8")[1]
+             for c in ("bf16", "int8")}
     for bt in (2, 4, 8):
-        timed(f"blockdiag bf16 bt={bt}:", lambda: blockdiag_decode_attention(
-            qb, kb, vb, bias, bt=bt), bb, ref,
-            kernel="blockdiag_decode_attention", bt=bt)
+        timed(f"blockdiag bf16 bt={bt} split{split['bf16']}:",
+              lambda: blockdiag_decode_attention(qb, kb, vb, bias, bt=bt), bb,
+              ref, kernel="blockdiag_decode_attention", bt=bt,
+              split=split["bf16"])
     for bt in (4, 8):
-        timed(f"blockdiag int8 bt={bt}:", lambda: blockdiag_decode_attention(
-            qi, ki, vi, bias_i, ks, vs, bt=bt), bi, ref, "maxerr-vs-bf16",
-            kernel="blockdiag_decode_attention", bt=bt)
+        timed(f"blockdiag int8 bt={bt} split{split['int8']}:",
+              lambda: blockdiag_decode_attention(
+                  qi, ki, vi, bias_i, ks, vs, bt=bt), bi, ref,
+              "maxerr-vs-bf16", kernel="blockdiag_decode_attention", bt=bt,
+              split=split["int8"])
     timed("batcheddot bf16 bt=4:", lambda: batched_decode_attention(
         qb, kb, vb, bias, bt=4), bb, ref, kernel="batched_decode_attention",
         bt=4)

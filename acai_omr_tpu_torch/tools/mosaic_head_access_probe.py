@@ -7,15 +7,20 @@ anything on the card, against a pre-shaped (H, T, Dh) copy (K25)?
 Port of ``tools/mosaic_head_access_probe.py`` (``main``): per-head logits
 S[h] = Q_h K_h^T, (H, T, T) fp32 from bf16 q and k, in the three forms the
 TPU probe tries (``ops/head_logits_kernels.head_logits``): 1 ``lane_slice``
-(one block per query tile loops over the heads, reading each head's 64
-columns of row-major (T, E)), 2 ``reshape`` (a block per head and query
-tile, the same strided columns), 3 ``preshaped`` (a block per head and query
-tile over contiguous (H, T, 64)). Shapes (T, E, H): the TPU probe's (256,
+(each head's 64 columns of row-major (T, E), the tiles walked heads
+innermost, as ``k1`` loops over the heads), 2 ``reshape`` (the same strided
+columns, heads outermost), 3 ``preshaped`` (contiguous (H, T, 64), heads
+outermost). Shapes (T, E, H): the TPU probe's (256,
 1024, 16) and K3's encoder (1024, 768, 12). Per form: ``OK`` and the largest
 |error| against the fp32 reference (the JAX tool's line), then ms a call
 with its inputs from HBM, the bound (the fp32 output written once at 3.35
-TB/s) and ``x bound``; last ``torch.matmul`` on the bf16 (H, T, Dh) views as
-the yardstick (bf16 out: the library call, never the kernel).
+TB/s) and ``x bound``. The three forms are one persistent kernel whose form
+sets only how a head is addressed and the tiles' order, so their lines
+compare the accesses on one design. Last
+the yardsticks, library calls the kernel never makes: ``torch.bmm`` on the
+bf16 (H, T, Dh) views with ``out_dtype=torch.float32``, the same function
+(fp32 out), where the build has it (not on the CPU), and ``torch.matmul``
+on the same views with bf16 out (half the bytes written).
 """
 
 from __future__ import annotations
@@ -87,13 +92,31 @@ def run_shape(t: int, e: int, h: int, dev, iters: int) -> dict:
               f"(tol {tol:.1e})  {ms:.4f} ms{ratio}, {where}{note}",
               flush=True)
         del sets
+    lib32 = None
+    try:
+        lib32 = time_ms(library_fp32(q, k, h), dev, iters=iters)
+    except (RuntimeError, TypeError, NotImplementedError) as exc:
+        print(f"torch.bmm(out_dtype=torch.float32): not available on this "
+              f"build ({str(exc).splitlines()[0][:80]}){note}", flush=True)
+    if lib32 is not None:
+        ratio = f", {lib32 / bound:.1f}x bound" if dev.type == "cuda" else ""
+        print(f"torch.bmm on the (H, T, Dh) views, fp32 out (yardstick, the "
+              f"same function): {lib32:.4f} ms{ratio}{note}", flush=True)
     lib = time_ms(lambda: torch.matmul(as_heads(q, h), as_heads(k, h)
                                        .transpose(-1, -2)), dev, iters=iters)
     ratio = f", {lib / bound:.1f}x bound" if dev.type == "cuda" else ""
-    print(f"torch.matmul on the (H, T, Dh) views, bf16 out (yardstick): "
-          f"{lib:.4f} ms{ratio}{note}", flush=True)
+    print(f"torch.matmul on the (H, T, Dh) views, bf16 out (yardstick, half "
+          f"the bytes written): {lib:.4f} ms{ratio}{note}", flush=True)
     return {"shape": (t, e, h), "forms": rows, "bound_ms": bound,
-            "library_ms": lib}
+            "library_ms": lib, "library_fp32_ms": lib32}
+
+
+def library_fp32(q: torch.Tensor, k: torch.Tensor, h: int):
+    """One PyTorch call of K25's function: ``torch.bmm`` of the (H, T, Dh)
+    bf16 views with fp32 out (``aten::bmm.dtype``); raises where the build
+    does not register it for the tensors' device."""
+    qh, kh = as_heads(q, h), as_heads(k, h).transpose(-1, -2)
+    return lambda: torch.bmm(qh, kh, out_dtype=torch.float32)
 
 
 def main(argv=None, device="cuda", shapes=SHAPES) -> dict:

@@ -73,15 +73,22 @@ Phases, all in one process; any failure exits non-zero:
    (bf16 out) at (8192, 768, 3072), (32768, 512, 1536) and
    (32768, 512, 3072), and in its three operand layouts (fp32 out) at the
    dot-forms probe's shapes and at (8192, 768, 3072); K17
-   blockdiag_decode_attention (bf16 at bt 2 / 4 / 8, int8 at bt 4 / 8) and
-   K18 batched_decode_attention (bt 4) at B = 32, H = 16, Dh = 64, T = 512;
-   K19 smem_probe at 227 KB (row 0 bit for bit), 228 KB refused; K20-K24
-   (the int4 and memory-stream probes' kernels, ``int4_stream_cases``); K25
-   head_logits in its three access forms at (T, E, H) = (256, 1024, 16) and
+   blockdiag_decode_attention (bf16 at bt 2 / 4 / 8, int8 at bt 4 / 8, on
+   one thread-block cluster a row, the split its plan gives) and K18
+   batched_decode_attention (bt 4) at B = 32, H = 16, Dh = 64, T = 512, with
+   K11 decode_attention_hd on the same inputs (the microbench's per-head
+   line) beside them; K19 smem_probe at 227 KB (row 0 bit for bit), 228 KB
+   refused; K20-K24 (the int4 and memory-stream probes' kernels,
+   ``int4_stream_cases``); K25 head_logits (persistent blocks, TMA-stored
+   tiles) in its three access forms at (T, E, H) = (256, 1024, 16) and
    (1024, 768, 12), K26 batched_head_logits in fp32 and int8 (exact), K27
    resident_elementwise in its five works at 8 passes; each against its
-   twin, timed beside its bound and the library call; the resource rows
-   (registers, local bytes, shared memory, blocks per SM) of K25-K27. Then
+   twin, timed beside its bound and the library call (K25: ``torch.bmm``
+   with fp32 out, the same function, and ``torch.matmul`` with bf16 out);
+   K17 and K25 timed in turns with the wmma kernels they replaced
+   (``variant="wmma"``, held to the twins too), warm and from HBM, two runs
+   bit-equal; the resource rows (registers, local bytes, shared memory,
+   blocks per SM) of K17 and K25-K27. Then
    the probes' main path, the launch counts reset before it and read after:
    ``main`` of the fourteen tools of ``acai_omr_tpu_torch/tools`` (gemm_probe,
    pallas_gemm_probe, mosaic_dot_forms_probe, attn_microbench, vmem_probe,
@@ -93,7 +100,8 @@ Phases, all in one process; any failure exits non-zero:
    largest scratch that launches equal to
    cudaDevAttrMaxSharedMemoryPerBlockOptin and at least the 227 KB
    ops/decode_hd_kernel.py assumes, every head-access form and K27 work
-   right, every backward mode OK with the launches of its layer arithmetic;
+   right, every backward mode OK with the launches of its layer arithmetic,
+   no launch of K17's or K25's wmma kernel on the path;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -345,11 +353,14 @@ def cold_ms(torch, fn, tensors) -> float:
     return time_ms(torch, lambda i: fn(*sets[i]), copies=copies)
 
 
-def turns_ms(torch, new, old) -> tuple[float, float]:
+def turns_ms(torch, new, old, timer: bool = True) -> tuple[float, float]:
     """Device ms of a redesigned kernel and of the kernel it replaces on the
     same inputs, timed in turns (new, old, old, new) inside this call; each
-    the lesser of its two readings."""
-    a, b, c, d = (time_ms(torch, fn) for fn in (new, old, old, new))
+    the lesser of its two readings. ``timer=False``: ``new`` and ``old``
+    are measurements themselves (``cold_ms`` of each), run in the same
+    turns."""
+    run = (lambda fn: time_ms(torch, fn)) if timer else (lambda fn: fn())
+    a, b, c, d = (run(fn) for fn in (new, old, old, new))
     return min(a, d), min(b, c)
 
 
@@ -1509,8 +1520,11 @@ def probe_cases(torch, F, record, kernel_times, dev):
     (bf16) and 4 / 8 (int8), K18 at bt 4, at the microbench's inputs, within
     4e-3 absolute (outputs below 0.5: a weight rounded to bf16 on the other
     side of a tie moves an output by one bf16 ulp); bound: K and V (and the
-    scales) read once; library call SDPA with one query (bf16). K19 at 227 KB:
-    row 0 bit for bit; 228 KB must be refused."""
+    scales) read once; library call SDPA with one query (bf16). K17 on its
+    cluster kernel at the plan's split, in turns with the wmma kernel it
+    replaced, warm and from HBM (``old_cold_ms``), two runs bit-equal (the
+    wmma kernel within 4e-3 too); K11 on the same inputs beside it. K19 at
+    227 KB: row 0 bit for bit; 228 KB must be refused."""
     from acai_omr_tpu_torch.ops import probe_kernels as pk
     from acai_omr_tpu_torch.tools import attn_microbench as ab
     from acai_omr_tpu_torch.tools import mosaic_dot_forms_probe as forms
@@ -1566,7 +1580,9 @@ def probe_cases(torch, F, record, kernel_times, dev):
     bsz, h, dh, t = kb.shape
     ql = qb[:, :, None, :]
     kl, vl = (a.transpose(-1, -2).contiguous() for a in (kb, vb))
-    sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl))
+    sdpa_of = lambda k_, v_: F.scaled_dot_product_attention(ql, k_, v_)
+    sdpa = time_ms(torch, lambda: sdpa_of(kl, vl))
+    sdpa_cold = cold_ms(torch, sdpa_of, [kl, vl])
     # flops: the block-diagonal product in full (H x H*Dh x T, twice)
     full_ops = 2 * 2 * bsz * h * (h * dh) * t
     for cache, bts, args in (("bf16", (2, 4, 8), (qb, kb, vb, bias)),
@@ -1574,14 +1590,52 @@ def probe_cases(torch, F, record, kernel_times, dev):
         nbytes = 2 * args[1].numel() * args[1].element_size() \
             + (2 * ks.numel() * 4 if cache == "int8" else 0) \
             + 2 * 2 * bsz * h * dh + 4 * bsz * t
+        split = pk.blockdiag_plan(bsz, t, dh, cache == "int8")[1]
         for bt in bts:
-            call = lambda: pk.blockdiag_decode_attention(*args, bt=bt)
+            # the cluster kernel at the plan's split, timed in turns with
+            # the wmma kernel it replaced (held to the twin too), warm and
+            # from HBM (K and V rotated out of L2), two runs bit-equal
+            call = lambda v=None: pk.blockdiag_decode_attention(
+                *args, bt=bt, variant=v)
             twin = lambda: pk.blockdiag_decode_attention.plain(*args, bt=bt)
+            cold_of = lambda v: cold_ms(
+                torch, lambda k_, v_: pk.blockdiag_decode_attention(
+                    args[0], k_, v_, *args[3:], bt=bt, variant=v),
+                [args[1], args[2]])
+            out_k, out_p = call(), twin()
+            exact = torch.equal(out_k, call()) and (
+                call("wmma").float() - out_p.float()).abs().max().item() \
+                <= 4e-3
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+            c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                    lambda: cold_of("wmma"), timer=False)
             record(pk.blockdiag_decode_attention,
-                   f"{cache} bt={bt} B={bsz} H={h} Dh={dh} T={t}", call(),
-                   twin(), 4e-3, kernel_times(call), time_ms(torch, twin),
-                   sdpa if cache == "bf16" else None, nbytes, full_ops,
-                   paths=["probes"], variant=f"{cache} bt={bt}")
+                   f"{cache} bt={bt} split{split} B={bsz} H={h} Dh={dh} T={t}",
+                   out_k, out_p, 4e-3, (t_new, host_us(torch, call)),
+                   time_ms(torch, twin), sdpa if cache == "bf16" else None,
+                   nbytes, full_ops, paths=["probes"],
+                   variant=f"{cache} bt={bt} split{split}", exact=exact,
+                   old_ms=old, cold=c_new,
+                   lib_cold=sdpa_cold if cache == "bf16" else None,
+                   extra={"old_cold_ms": c_old})
+    # K11 on the same inputs: the microbench's per-head line, the other
+    # answer to K17's question (within 1e-2 of the largest output, as
+    # decode_hd_cases holds it)
+    from acai_omr_tpu_torch.ops.decode_hd_kernel import decode_attention_hd
+    from acai_omr_tpu_torch.ops.decode_kernel import attention_split
+    call = lambda: decode_attention_hd(qb, kb, vb, bias)
+    twin = lambda: decode_attention_hd.plain(qb, kb, vb, bias)
+    out_k, out_p = call(), twin()
+    split = attention_split(None, bsz, h, t)[1]
+    record(decode_attention_hd, f"perhead split{split} B={bsz} H={h} "
+           f"Dh={dh} T={t} (attn_microbench's line)", out_k, out_p,
+           1e-2 * max(1.0, out_p.float().abs().max().item()),
+           kernel_times(call), time_ms(torch, twin), sdpa,
+           2 * kb.numel() * 2 + 2 * 2 * bsz * h * dh + 4 * bsz * t,
+           4 * bsz * h * dh * t, paths=["probes"], variant=f"split{split}",
+           exact=torch.equal(out_k, call()),
+           cold=cold_ms(torch, lambda k_, v_: decode_attention_hd(
+               qb, k_, v_, bias), [kb, vb]), lib_cold=sdpa_cold)
     call = lambda: pk.batched_decode_attention(qb, kb, vb, bias, bt=4)
     twin = lambda: pk.batched_decode_attention.plain(qb, kb, vb, bias, bt=4)
     record(pk.batched_decode_attention, f"bf16 bt=4 B={bsz} H={h} Dh={dh} "
@@ -1735,7 +1789,10 @@ def access_vpu_cases(torch, record, kernel_times, dev):
     at (T, E, H) = (256, 1024, 16) and (1024, 768, 12), fp32 out within 1e-5
     of the largest |logit|; bound q and k read once, the logits written once
     (the 2 H T^2 64 flops at the bf16 peak are smaller); library
-    ``torch.matmul`` on the (H, T, 64) views, bf16 out. K26: fp32 and int8 at
+    ``torch.bmm`` on the (H, T, 64) views with fp32 out (the same function;
+    ``torch.matmul``, bf16 out, beside it as ``library_bf16_ms``); the
+    persistent kernel in turns with the wmma kernel it replaced, warm and
+    from HBM (``old_cold_ms``), two runs bit-equal. K26: fp32 and int8 at
     BT = 8, T = 128, E = 1024, H = 16; int8 exact, fp32 within 1e-5 of the
     largest output; the transpose equal to the column sums bit for bit
     (``exact``); bound k read once; library ``torch.einsum`` (fp32), none
@@ -1744,7 +1801,7 @@ def access_vpu_cases(torch, record, kernel_times, dev):
     and the work's fp32 instructions (128 a SM a clock) or MUFU operations
     (16) at the card's highest SM clock; library none (no one call runs the
     chained passes). K25 and K26 also from HBM (``cold``). Then the resource
-    rows of K25-K27."""
+    rows of K17 and K25-K27."""
     from acai_omr_tpu_torch.ops import _build
     from acai_omr_tpu_torch.ops import head_logits_kernels as hk
     from acai_omr_tpu_torch.ops import vpu_probe_kernels as vk
@@ -1761,18 +1818,39 @@ def access_vpu_cases(torch, record, kernel_times, dev):
         qh, kh = (hk.as_heads(a, h).contiguous() for a in (q, k))
         lib = time_ms(torch, lambda: torch.matmul(
             hk.as_heads(q, h), hk.as_heads(k, h).transpose(-1, -2)))
+        try:  # the same function: fp32 out
+            lib32 = time_ms(torch, mhp.library_fp32(q, k, h))
+            lib32_cold = cold_ms(torch, lambda q_, k_: mhp.library_fp32(
+                q_, k_, h)(), [q, k])
+        except (RuntimeError, TypeError, NotImplementedError) as exc:
+            lib32 = lib32_cold = None
+            print(f"[probes] torch.bmm(out_dtype=torch.float32) refused: "
+                  f"{str(exc).splitlines()[0][:120]}", flush=True)
         for form in hk.FORMS:
             a, b = (qh, kh) if form == "preshaped" else (q, k)
-            call = lambda: hk.head_logits(a, b, form, h)
+            # the persistent kernel, timed in turns with the wmma kernel it
+            # replaced (held to the twin too), warm and from HBM (q, k
+            # rotated out of L2), two runs bit-equal
+            call = lambda v=None: hk.head_logits(a, b, form, h, variant=v)
+            cold_of = lambda v: cold_ms(torch, lambda a_, b_: hk.head_logits(
+                a_, b_, form, h, variant=v), [a, b])
             out_k, out_p = call(), hk.head_logits.plain(a, b, form, h)
-            record(hk.head_logits, f"{form} T={t} E={e} H={h}", out_k, out_p,
-                   1e-5 * max(1.0, out_p.abs().max().item()),
-                   kernel_times(call), time_ms(torch, lambda: hk.head_logits
-                                               .plain(a, b, form, h)),
-                   lib, 2 * 2 * t * e + 4 * h * t * t, 2 * h * t * t * hk.DH,
-                   paths=["probes"], variant=form,
-                   cold=cold_ms(torch, lambda a_, b_: hk.head_logits(
-                       a_, b_, form, h), [a, b]))
+            tol = 1e-5 * max(1.0, out_p.abs().max().item())
+            exact = torch.equal(out_k, call()) and (
+                call("wmma") - out_p).abs().max().item() <= tol
+            t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+            c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                    lambda: cold_of("wmma"), timer=False)
+            record(hk.head_logits, f"{form} T={t} E={e} H={h}" + (
+                   "" if lib32 is not None else " (library: torch.matmul, "
+                   "bf16 out, half the bytes: this build refuses the fp32-out "
+                   "bmm)"), out_k, out_p, tol, (t_new, host_us(torch, call)),
+                   time_ms(torch, lambda: hk.head_logits.plain(a, b, form, h)),
+                   lib if lib32 is None else lib32,
+                   2 * 2 * t * e + 4 * h * t * t, 2 * h * t * t * hk.DH,
+                   paths=["probes"], variant=form, exact=exact, old_ms=old,
+                   cold=c_new, lib_cold=lib32_cold,
+                   extra={"old_cold_ms": c_old, "library_bf16_ms": lib})
         del q, k, qh, kh
 
     for int8 in (False, True):
@@ -1821,7 +1899,8 @@ def access_vpu_cases(torch, record, kernel_times, dev):
                8 * x.numel(), ops_s * PEAK_FP32_FLOP_PER_S,
                peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
                variant=f"{work} {cols}")
-    for name in ("head_logits", "resident_elementwise"):
+    for name in ("probe_decode_attention", "head_logits",
+                 "resident_elementwise"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['kernel']} regs={r['registers']} "
                   f"local={r['local_bytes']} static_smem={r['static_smem']} "
@@ -3790,6 +3869,14 @@ def main() -> int:
     for k in EXPECTED_KERNELS["probes"]:
         if probe_run["launches"][k] <= 0:
             failures.append(f"probes: launches[{k}]=0")
+    # K17 and K25 on the path only in their new forms: the wmma kernels run
+    # in the kernel checks' turns alone
+    old_forms = {n: [v for v in probe_run["variants"].get(n, {}) if "wmma" in v]
+                 for n in ("blockdiag_decode_attention", "head_logits")}
+    print(f"[path probes] by variant " + json.dumps(
+        {n: probe_run["variants"].get(n, {}) for n in old_forms}), flush=True)
+    if any(old_forms.values()):
+        failures.append(f"probes: the wmma forms launched {old_forms}")
     res = probe_run["results"]
     if res["mosaic_dot_forms_probe"] != 0:
         failures.append("probes: a dot form differs from the plain product")
