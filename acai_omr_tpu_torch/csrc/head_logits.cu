@@ -197,29 +197,6 @@ __device__ __forceinline__ void tile_of(int i, int form, int H, int nq, int nk,
   }
 }
 
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
-      "[%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void store_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// Wait until at most N committed store groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void store_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
 // Grid: G persistent blocks (G <= N tiles); tq / tk: the maps of q and k
 // (forms 0, 1: (T, E), boxes of 64 / 128 rows x 64 columns; form 2:
 // (H * T, 64)); to: the (H * T, T) fp32 map of the output, boxes of 64 x 32.
@@ -305,7 +282,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (k0 + hf * HALF >= T) break;  // past the last key: nothing to store
       const int buf = halves++ % NHALF;
       // the store that last used this buffer has read it
-      if (lt == 0) store_wait_read<NHALF - 1>();
+      if (lt == 0) sm90::store_wait_read<NHALF - 1>();
       asm volatile("bar.sync 1, 128;" ::: "memory");
       unsigned char* hb = out_p + buf * HALF_BYTES;
 #pragma unroll
@@ -326,13 +303,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         const uint32_t src = stage_out + buf * HALF_BYTES;
 #pragma unroll
         for (int b = 0; b < HALF / OUT_COLS; ++b)
-          tma_store(&to, src + b * BOX_BYTES, k0 + hf * HALF + b * OUT_COLS,
-                    h * T + qt * BQ);
-        store_commit();
+          sm90::tma_store(&to, src + b * BOX_BYTES,
+                          k0 + hf * HALF + b * OUT_COLS, h * T + qt * BQ);
+        sm90::store_commit();
       }
     }
   }
-  if (lt == 0) store_wait_all();
+  if (lt == 0) sm90::store_wait_all();
 }
 
 template <int FORM>

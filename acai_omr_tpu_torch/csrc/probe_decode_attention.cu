@@ -73,11 +73,35 @@
 // 16-row step of K2) stays as `variant="wmma"`, the yardstick timed in turns.
 //
 // K18 replaces `_batcheddot_kernel` (:157, `batcheddot_attn` :176,
-// pallas_call :184), bf16 only: one warp per (row, head), the logits as a
-// CUDA-core dot along Dh (lanes on neighbouring keys, coalesced along T), the
-// weights rounded to bf16, the V sum one warp reduction per head-dim row. It
-// keeps the TPU's `bt` rows per block, so B / bt blocks stream the whole
-// cache: at B = 32 that is 8 of the 132 SMs.
+// pallas_call :184), bf16 only: per (row, head) the logits as a dot along Dh,
+// fp32 softmax, the weights rounded to bf16 after normalising, the V sum in
+// fp32 rounded once. Bound: the same stream as K17 (K and V read once). In
+// the lane-major caches the K and V planes of one (row, head) are each one
+// contiguous Dh x T block (64 KB at Dh = 64, T = 512), so the design
+// (`bh::rowhead_kernel`) is a plain stream over whole planes:
+//
+// * One block of 256 threads per (row, head): B x 16 blocks (512 at the
+//   microbench's B = 32), whatever `bt` is (it keeps only the TPU kernel's
+//   rule B % bt == 0); 64 registers and 9 KB of shared memory a block, so
+//   four blocks an SM and all 512 on the card at once.
+// * Logits: a lane owns 8 neighbouring keys and reads them as one 16-byte
+//   load a row, 4 rows in flight; the Dh rows are split over R groups of
+//   warps where T is short (R x ceil(T / 256) warp tasks), their partial
+//   logits summed in shared memory in group order. Then scale, bias, an fp32
+//   softmax over the block (maxima and sums by a fixed tree), the weights
+//   normalised, then rounded to bf16.
+// * V: the same warp tasks over the V plane: a lane's 8 weights times its 8
+//   keys of a row, the row's 32 lanes summed by a fixed shuffle tree, the
+//   key blocks in order; one bf16 rounding. Every sum has a fixed order:
+//   two runs give the same bits.
+// * Overlapping V with the logits did not pay on an H100 (PERF.md section
+//   6): a block keeps few bytes in flight, but the 512 blocks on the card at
+//   once keep HBM busy through every block's softmax.
+// * T not a multiple of 8 (or planes not 16-byte aligned): one 2-byte load a
+//   key, the tail masked in the kernel.
+// The kernel it replaced (one warp per (row, head), `bt` rows a block: B / bt
+// blocks, 8 at B = 32; scalar 2-byte loads; one warp reduction per head-dim
+// row of V) stays as `variant="warp"`, the yardstick timed in turns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1071,6 +1095,214 @@ int launch(const void* q, const void* kT, const void* vT, const void* bias,
 
 }  // namespace bd
 
+// ---------------------------------------------------------------------------
+// K18's kernel: one block per (row, head) over whole planes
+// ---------------------------------------------------------------------------
+
+namespace bh {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int GROUP = 8;            // neighbouring keys a lane: 16 bytes of bf16
+constexpr int KB_KEYS = 32 * GROUP;  // keys a warp covers at once: 256
+constexpr int UNROLL = 4;           // rows whose loads a lane keeps in flight
+constexpr int BLOCKS_PER_SM = 4;    // 4 x 132 >= the microbench's 512 blocks
+
+// The work split of a block: the T keys are KB blocks of 256 (a warp's 32
+// lanes x 8 keys); the Dh rows are R groups (row d in group d % R), so that
+// R x KB warp tasks keep the block's 8 warps busy where T is short.
+struct Split {
+  int kb, r, t_pad;
+  __host__ __device__ Split(int T)
+      : kb((T + KB_KEYS - 1) / KB_KEYS),
+        r(kb >= WARPS ? 1 : WARPS / kb),
+        t_pad(kb * KB_KEYS) {}
+};
+
+// Dynamic shared memory: R rows of partial logits (row 0 then holds the
+// logits and the weights), the V partials of each key block, q in fp32, the
+// block's reductions.
+__host__ __device__ inline int smem_bytes(int Dh, int T) {
+  const Split s(T);
+  return s.r * s.t_pad * 4 + s.kb * Dh * 4 + Dh * 4 + 2 * WARPS * 4;
+}
+
+__device__ __forceinline__ void widen8(const uint4& u, float (&f)[GROUP]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(p[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// Eight keys t0 .. t0 + 7 of row `d` of a plane: one 16-byte load where VEC
+// (T % 8 == 0, the planes 16-byte aligned), else one load a key in range.
+template <bool VEC>
+__device__ __forceinline__ uint4 keys8(const __nv_bfloat16* plane, int T,
+                                       int d, int t0) {
+  const __nv_bfloat16* p = plane + (size_t)d * T + t0;
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    __align__(16) __nv_bfloat16 v[GROUP];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j)
+      v[j] = t0 + j < T ? p[j] : __float2bfloat16(0.0f);
+    return *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// Block = (row b, head h) of the B x 16 pairs: the K plane, the softmax,
+// then the V plane, each plane through registers (a lane's 8 keys of UNROLL
+// rows in flight).
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+rowhead_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ kT,
+               const __nv_bfloat16* __restrict__ vT,
+               const float* __restrict__ bias, int H, int Dh, int T,
+               float scale, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Split sp(T);
+  const size_t row = blockIdx.x;  // b * H + h
+  const size_t plane_elems = (size_t)Dh * T;
+  const __nv_bfloat16* kp = kT + row * plane_elems;
+  const __nv_bfloat16* vp = vT + row * plane_elems;
+  float* lg = reinterpret_cast<float*>(smem_raw);  // [R][t_pad]
+  float* vpart = lg + sp.r * sp.t_pad;            // [KB][Dh]
+  float* qs = vpart + sp.kb * Dh;                 // [Dh]
+  float* red = qs + Dh;                           // [2][WARPS]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int d = tid; d < Dh; d += THREADS)
+    qs[d] = __bfloat162float(q[row * Dh + d]);
+  __syncthreads();
+
+  // the logits' partial sums: warp task (rg, kb) takes rows rg, rg + R, ...
+  // of its lanes' 8-key groups, summed in row order
+  for (int task = warp; task < sp.r * sp.kb; task += WARPS) {
+    const int rg = task / sp.kb, t0 = ((task % sp.kb) * 32 + lane) * GROUP;
+    if (t0 >= T) continue;
+    float acc[GROUP];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) acc[j] = 0.0f;
+    for (int d0 = rg; d0 < Dh; d0 += UNROLL * sp.r) {
+      uint4 kv[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int d = d0 + u * sp.r;
+        if (d < Dh) kv[u] = keys8<VEC>(kp, T, d, t0);
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int d = d0 + u * sp.r;
+        if (d < Dh) {
+          float kf[GROUP];
+          widen8(kv[u], kf);
+          const float qd = qs[d];
+#pragma unroll
+          for (int j = 0; j < GROUP; ++j) acc[j] = fmaf(qd, kf[j], acc[j]);
+        }
+      }
+    }
+    float* dst = lg + rg * sp.t_pad + t0;
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) dst[j] = acc[j];
+  }
+  __syncthreads();
+
+  // logits: the row groups' partials in order, scaled, biased; the max
+  float mx = -FLT_MAX;
+  for (int t = tid; t < T; t += THREADS) {
+    float l = 0.0f;
+    for (int rg = 0; rg < sp.r; ++rg) l += lg[rg * sp.t_pad + t];
+    l = l * scale;
+    if (bias != nullptr) l = l + bias[(row / H) * T + t];
+    lg[t] = l;
+    mx = fmaxf(mx, l);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) mx = fmaxf(mx, red[w]);
+  float sum = 0.0f;
+  for (int t = tid; t < T; t += THREADS) {
+    const float p = expf(lg[t] - mx);
+    lg[t] = p;
+    sum += p;
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) red[WARPS + warp] = sum;
+  __syncthreads();
+  sum = red[WARPS];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) sum += red[WARPS + w];
+  // the weights normalised, then rounded to bf16, as the twin rounds them
+  for (int t = tid; t < T; t += THREADS)
+    lg[t] = __bfloat162float(__float2bfloat16(lg[t] / sum));
+  __syncthreads();
+
+  // the V product: the same warp tasks; a row's 32 lanes summed by a fixed
+  // tree, the key blocks in order below
+  for (int task = warp; task < sp.r * sp.kb; task += WARPS) {
+    const int rg = task / sp.kb, kb = task % sp.kb;
+    const int t0 = (kb * 32 + lane) * GROUP;
+    const bool live = t0 < T;
+    float w[GROUP];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) w[j] = live && t0 + j < T ? lg[t0 + j] : 0.0f;
+    for (int d0 = rg; d0 < Dh; d0 += UNROLL * sp.r) {
+      uint4 vv[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int d = d0 + u * sp.r;
+        vv[u] = d < Dh && live ? keys8<VEC>(vp, T, d, t0)
+                               : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int d = d0 + u * sp.r;
+        if (d < Dh) {  // uniform over the warp
+          float vf[GROUP];
+          widen8(vv[u], vf);
+          float p = 0.0f;
+#pragma unroll
+          for (int j = 0; j < GROUP; ++j) p = fmaf(w[j], vf[j], p);
+          p = warp_sum(p);
+          if (lane == 0) vpart[kb * Dh + d] = p;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int d = tid; d < Dh; d += THREADS) {
+    float o = 0.0f;
+    for (int kb = 0; kb < sp.kb; ++kb) o += vpart[kb * Dh + d];
+    out[row * Dh + d] = __float2bfloat16(o);
+  }
+}
+
+template <bool VEC>
+int launch(const void* q, const void* kT, const void* vT, const void* bias,
+           int B, int H, int Dh, int T, float scale, void* out,
+           cudaStream_t s) {
+  const int smem = smem_bytes(Dh, T);
+  const auto kernel = rowhead_kernel<VEC>;
+  const int e = set_smem(kernel, (size_t)smem);
+  if (e != 0) return e;
+  kernel<<<B * H, THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kT),
+      static_cast<const __nv_bfloat16*>(vT), static_cast<const float*>(bias),
+      H, Dh, T, scale, static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bh
+
 // q (B, 16, Dh) bf16; kT / vT (B, 16, Dh, T) bf16 (int8 = 0) or int8
 // (int8 = 1, with ks / vs (B, 16, T) fp32); bias (B, T) fp32 or null; out
 // (B, 16, Dh) bf16. bt | B, Dh % 16 == 0, T in {128, 256, 512, 1024}.
@@ -1127,10 +1359,37 @@ extern "C" int acai_batched_decode_attention(const void* q, const void* kT,
   return (int)cudaGetLastError();
 }
 
-// The resource rows of K17's cluster kernels (csrc/func_attrs.cuh), at the
-// microbench's launch: Dh = 64, 64 keys a block, three stages (the ring at
-// which its 32 clusters of 8 are on an H100 at once).
+// K18's kernel: the same arguments without bt (it does not shape the grid:
+// one block per (row, head)), and how it loads, as ops/probe_kernels.py
+// `batched_route` picks it: `vec` 1 for 16-byte loads (T % 8 == 0, kT and vT
+// 16-byte aligned), 0 for one load a key (any T). Any Dh whose shared
+// memory fits.
+extern "C" int acai_batched_decode_attention_rowhead(
+    const void* q, const void* kT, const void* vT, const void* bias, int B,
+    int Dh, int T, float scale, int vec, void* out, void* stream) {
+  const bool aligned = reinterpret_cast<uintptr_t>(kT) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(vT) % 16 == 0;
+  if (B <= 0 || Dh <= 0 || T <= 0 || (vec && (!aligned || T % bh::GROUP)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? bh::launch<true>(q, kT, vT, bias, B, H, Dh, T, scale, out, s)
+             : bh::launch<false>(q, kT, vT, bias, B, H, Dh, T, scale, out, s);
+}
+
+// The resource rows (csrc/func_attrs.cuh) of K18's kernels and of K17's
+// cluster kernels, K17 at the microbench's launch: Dh = 64, 64 keys a block,
+// three stages (the ring at which its 32 clusters of 8 are on an H100 at
+// once).
 static const AcaiKernelEntry kResources[] = {
+    // K18 at the microbench's Dh = 64, T = 512, and at T = 100
+    AcaiKernelEntry{"batched_decode_attention|vector|rowhead_kernel<true>",
+                    reinterpret_cast<const void*>(&bh::rowhead_kernel<true>),
+                    bh::THREADS, bh::smem_bytes(64, 512)},
+    AcaiKernelEntry{"batched_decode_attention|scalar|rowhead_kernel<false>",
+                    reinterpret_cast<const void*>(&bh::rowhead_kernel<false>),
+                    bh::THREADS, bh::smem_bytes(64, 100)},
+    ACAI_KERNEL("batched_decode_attention", "warp", batched_kernel, 32 * H,
+                H * (64 + 512) * 4),
     ACAI_KERNEL("blockdiag_decode_attention", "bf16",
                 bd::blockdiag_cluster<__nv_bfloat16>, bd::THREADS,
                 (bd::Layout{3, 1, 64, false, true}.bytes())),

@@ -167,6 +167,32 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// One 2-D box of shared memory at `src` into `map` at (c0, c1), in the
+// thread's bulk group (commit with store_commit).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of the thread's committed store groups still read
+// shared memory.
+template <int N>
+__device__ __forceinline__ void store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 // A shared-memory matrix descriptor; `swizzle` is the swizzle's span in bytes
 // (128 or 64: layout types 1 and 2).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,

@@ -6,13 +6,19 @@ attention has to answer on the card:
 
 * K16 :data:`tile_gemm` (``csrc/tile_gemm.cu``): ``tools/pallas_gemm_probe.py``
   ``make_mm`` and ``tools/mosaic_dot_forms_probe.py`` ``make_kernel``, one
-  tensor-core GEMM over (BM, BN, BK) tiles in three operand layouts.
+  tensor-core GEMM over (BM, BN, BK) tiles in three operand layouts, on
+  persistent blocks (:func:`tile_gemm_blocks`) that walk the tiles of
+  :func:`tile_gemm_schedule` (TMA + ``wgmma``); ``variant="wmma"`` forces the
+  kernel it replaced, kept as the yardstick.
 * K17 :data:`blockdiag_decode_attention` and K18
   :data:`batched_decode_attention` (``csrc/probe_decode_attention.cu``):
   ``tools/attn_microbench.py`` ``blockdiag_attn`` and ``batcheddot_attn``.
   K17 runs one thread-block cluster a row, the row's keys split across it as
   :func:`blockdiag_plan` says (counted as ``"{cache} bt={bt} split{s}"``);
   ``variant="wmma"`` forces the kernel it replaced, kept as the yardstick.
+  K18 runs one block per (row, head) over whole planes, its loads as
+  :func:`batched_route` picks (counted as ``"bt={bt} {route}"``);
+  ``variant="warp"`` forces the kernel it replaced.
 * K19 :data:`smem_probe` (``csrc/smem_probe.cu``): ``tools/vmem_probe.py``
   ``probe``.
 
@@ -31,8 +37,8 @@ from . import _build
 from .linear_kernel import N_SMS
 
 # K16's compiled variants: (layout, out dtype) -> (BM, BN, BK) tiles. The
-# sweep's tiles fit Hopper's shared memory (two staged slabs of at most
-# 104 KB); the dot forms run at two tiles.
+# sweep's tiles fit Hopper's shared memory (at 128x256x64 three 48 KB stages
+# beside the 64 KB bf16 staging); the dot forms run at two tiles.
 SWEEP_TILES = tuple((bm, bn, bk) for bm, bn in ((64, 64), (128, 64), (64, 128),
                                                 (128, 128), (128, 256))
                     for bk in (32, 64))
@@ -86,21 +92,109 @@ def tile_gemm_plain(a: torch.Tensor, b: torch.Tensor, tile=(128, 128, 32),
     return (af @ bf).to(out_dtype)
 
 
-def _launch_gemm(op, a, b, tile=(128, 128, 32), layout="nn",
-                 out_dtype=torch.bfloat16):
-    _build.require(a, "a", torch.bfloat16, 2)
-    _build.require(b, "b", torch.bfloat16, 2)
+# K16's persistent kernel (csrc/tile_gemm.cu `tg::Cfg`): the blocks an SM
+# holds at a ring of GEMM_MIN_STAGES beside the output's staging, then as many
+# stages as they leave room for, up to GEMM_MAX_STAGES; tiles walked in
+# groups of GEMM_GROUP_M tile rows
+GEMM_MIN_STAGES, GEMM_MAX_STAGES = 6, 8
+GEMM_SMEM_LIMIT = 227 * 1024  # a block's shared memory
+GEMM_SM_SMEM = 228 * 1024  # an SM's; 1 KB of it kept per block
+GEMM_STATIC = 256  # room for the static mbarriers
+GEMM_GROUP_M = 8
+
+
+def tile_gemm_smem(tile, out_dtype=torch.bfloat16) -> tuple[int, int]:
+    """(stages, dynamic shared memory) of a K16 block: the (BM x BK + BK x
+    BN) bf16 stages of the ring, the (BM x BN) output staging and 1 KB of
+    alignment. The blocks an SM holds at GEMM_MIN_STAGES stages (one if
+    those do not fit a block) set the room; the ring takes as many stages
+    of it as it can, up to GEMM_MAX_STAGES."""
+    bm, bn, bk = tile
+    stage = (bm * bk + bk * bn) * 2
+    out = bm * bn * torch.empty((), dtype=out_dtype).element_size()
+    blocks = max(1, GEMM_SM_SMEM // (GEMM_MIN_STAGES * stage + out + 1024
+                                     + GEMM_STATIC + 1024))
+    room = min(GEMM_SMEM_LIMIT - GEMM_STATIC,
+               GEMM_SM_SMEM // blocks - GEMM_STATIC - 1024)
+    stages = min(GEMM_MAX_STAGES, (room - out - 1024) // stage)
+    return stages, stages * stage + out + 1024
+
+
+def tile_gemm_blocks_per_sm(tile, out_dtype=torch.bfloat16) -> int:
+    """K16's resident blocks an SM, by shared memory (the kernel's launch
+    bounds ask the compiler for the registers to match)."""
+    return GEMM_SM_SMEM // (tile_gemm_smem(tile, out_dtype)[1] + GEMM_STATIC
+                            + 1024)
+
+
+def tile_gemm_blocks(m: int, n: int, tile,
+                     out_dtype=torch.bfloat16) -> int:
+    """K16's persistent blocks: as many as the SMs hold, no more than the
+    (M / BM) x (N / BN) tiles."""
+    bm, bn, _ = tile
+    return min((m // bm) * (n // bn),
+               N_SMS * tile_gemm_blocks_per_sm(tile, out_dtype))
+
+
+def tile_gemm_tile(i: int, m: int, n: int, bm: int, bn: int) -> tuple:
+    """(first row, first column) of K16's tile ``i`` in the kernel's order:
+    groups of GEMM_GROUP_M tile rows (fewer in the last group), each group
+    walked down its rows before the next column of tiles."""
+    mtn, ntn = m // bm, n // bn
+    g, r = divmod(i, GEMM_GROUP_M * ntn)
+    first = g * GEMM_GROUP_M
+    gm = min(GEMM_GROUP_M, mtn - first)
+    return (first + r % gm) * bm, (r // gm) * bn
+
+
+def tile_gemm_schedule(m: int, n: int, bm: int, bn: int,
+                       blocks: int) -> list[list[tuple]]:
+    """The tiles each of K16's persistent blocks computes, in order: block b
+    takes tiles b, b + G, b + 2G, ... of :func:`tile_gemm_tile`'s order, G the
+    blocks, so the tiles in flight at once are neighbours in it."""
+    tiles = (m // bm) * (n // bn)
+    if not 1 <= blocks <= tiles:
+        raise ValueError(f"blocks must lie in 1..{tiles}, got {blocks}")
+    return [[tile_gemm_tile(i, m, n, bm, bn) for i in range(b, tiles, blocks)]
+            for b in range(blocks)]
+
+
+def _check_gemm(a, b, tile=(128, 128, 32), layout="nn",
+                out_dtype=torch.bfloat16, variant=None) -> tuple:
+    """K16's shape rules and its variant, on either device: (M, K, N)."""
+    if variant not in (None, "wmma"):
+        raise ValueError(f"unknown variant {variant!r}: None (the persistent "
+                         f"kernel) or 'wmma'")
     m, k, n = gemm_dims(a, b, layout)
     check_tile(m, k, n, tile, layout, out_dtype)
+    return m, k, n
+
+
+def _launch_gemm(op, a, b, tile=(128, 128, 32), layout="nn",
+                 out_dtype=torch.bfloat16, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"wmma"`` forces the
+    kernel the persistent one replaced."""
+    _build.require(a, "a", torch.bfloat16, 2)
+    _build.require(b, "b", torch.bfloat16, 2)
+    m, k, n = _check_gemm(a, b, tile, layout, out_dtype, variant)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    fn = _build.bind("tile_gemm", "acai_tile_gemm",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                     + [ctypes.c_void_p])
-    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, *tile,
-            LAYOUTS.index(layout), int(out_dtype == torch.float32),
-            _build.stream_ptr())
-    op.launched(f"{layout} {'x'.join(map(str, tile))} "
-                f"{str(out_dtype).split('.')[-1]}")
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, *tile,
+            LAYOUTS.index(layout), int(out_dtype == torch.float32))
+    name = f"{layout} {'x'.join(map(str, tile))} " \
+           f"{str(out_dtype).split('.')[-1]}"
+    if variant == "wmma":
+        fn = _build.bind("tile_gemm", "acai_tile_gemm",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                         + [ctypes.c_void_p])
+        rc = fn(*args, _build.stream_ptr())
+        op.launched(f"{name} wmma")
+    else:
+        fn = _build.bind("tile_gemm", "acai_tile_gemm_persistent",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                         + [ctypes.c_void_p])
+        rc = fn(*args, tile_gemm_blocks(m, n, tile, out_dtype),
+                _build.stream_ptr())
+        op.launched(name)
     _build.check(rc, op.name)
     return out
 
@@ -109,7 +203,7 @@ tile_gemm = _build.KernelOp(
     "tile_gemm", "acai_omr_tpu_torch/csrc/tile_gemm.cu",
     "tools/pallas_gemm_probe.py:23 (make_mm, pallas_call :39); "
     "tools/mosaic_dot_forms_probe.py:23 (make_kernel, pallas_call :37)",
-    _launch_gemm, tile_gemm_plain)
+    _launch_gemm, tile_gemm_plain, _check_gemm)
 
 
 # ---------------------------------------------------------------------------
@@ -329,27 +423,64 @@ blockdiag_decode_attention = _build.KernelOp(
     _check_blockdiag_call)
 
 
+BATCHED_GROUP = 8  # K18: keys a lane, one 16-byte load of bf16
+
+
+def batched_route(t: int, aligned: bool = True) -> str:
+    """How K18's kernel loads (csrc/probe_decode_attention.cu
+    `acai_batched_decode_attention_rowhead`): ``"vector"``, 8 keys of a row
+    in one 16-byte load (T % 8 == 0, the planes 16-byte aligned), else
+    ``"scalar"``, one load a key."""
+    return "vector" if aligned and t % BATCHED_GROUP == 0 else "scalar"
+
+
 def batched_decode_attention_plain(q, kT, vT, bias=None, bt: int = 4):
     return decode_attention_probe_plain(q, kT, vT, bias, bt=bt)
 
 
-def _launch_batched(op, q, kT, vT, bias=None, bt: int = 4):
+def _check_batched(q, kT, vT, bias=None, bt: int = 4, variant=None) -> tuple:
+    """K18's shape rules and its variant, on either device: (B, H, Dh, T).
+    ``bt`` keeps only the TPU kernel's rule, B % bt == 0."""
+    if variant not in (None, "warp"):
+        raise ValueError(f"unknown variant {variant!r}: None (one block per "
+                         f"(row, head)) or 'warp'")
+    b, h, dh, t = _check_attention(q, kT, vT, bias, bt)
+    if h != HEADS:
+        raise ValueError(f"batched attention takes H = {HEADS}, got {h}")
+    return b, h, dh, t
+
+
+def _launch_batched(op, q, kT, vT, bias=None, bt: int = 4, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"warp"`` forces the
+    kernel this one replaced (one warp per (row, head), B / bt blocks)."""
     _build.require(q, "q", torch.bfloat16, 3)
     _build.require(kT, "kT", torch.bfloat16, 4)
     _build.require(vT, "vT", torch.bfloat16, 4)
-    b, h, dh, t = _check_attention(q, kT, vT, bias, bt)
-    if h != HEADS:
-        raise ValueError(f"batched attention takes H = {HEADS} (a warp each)")
+    b, h, dh, t = _check_batched(q, kT, vT, bias, bt, variant)
     if bias is not None:
         _build.require(bias, "bias", torch.float32, 2)
     out = torch.empty_like(q)
-    fn = _build.bind("probe_decode_attention", "acai_batched_decode_attention",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    rc = fn(q.data_ptr(), kT.data_ptr(), vT.data_ptr(),
-            0 if bias is None else bias.data_ptr(), b, bt, dh, t,
-            1.0 / math.sqrt(dh), out.data_ptr(), _build.stream_ptr())
-    op.launched(f"bt={bt}")
+    ptrs = (q.data_ptr(), kT.data_ptr(), vT.data_ptr(),
+            0 if bias is None else bias.data_ptr())
+    if variant == "warp":
+        fn = _build.bind("probe_decode_attention",
+                         "acai_batched_decode_attention",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        rc = fn(*ptrs, b, bt, dh, t, 1.0 / math.sqrt(dh), out.data_ptr(),
+                _build.stream_ptr())
+        op.launched(f"bt={bt} warp")
+    else:
+        route = batched_route(t, kT.data_ptr() % 16 == 0
+                              and vT.data_ptr() % 16 == 0)
+        fn = _build.bind("probe_decode_attention",
+                         "acai_batched_decode_attention_rowhead",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_void_p])
+        rc = fn(*ptrs, b, dh, t, 1.0 / math.sqrt(dh), int(route == "vector"),
+                out.data_ptr(), _build.stream_ptr())
+        op.launched(f"bt={bt} {route}")
     _build.check(rc, op.name)
     return out
 
@@ -358,7 +489,8 @@ batched_decode_attention = _build.KernelOp(
     "batched_decode_attention",
     "acai_omr_tpu_torch/csrc/probe_decode_attention.cu",
     "tools/attn_microbench.py:157 (_batcheddot_kernel via batcheddot_attn "
-    ":176, pallas_call :184)", _launch_batched, batched_decode_attention_plain)
+    ":176, pallas_call :184)", _launch_batched, batched_decode_attention_plain,
+    _check_batched)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ T = 512, bf16 and int8 caches (fp32 (B, H, T) scales), timed in turns:
     keys split across it as ``blockdiag_plan`` says (the line names the
     split; ``bt`` no longer shapes the grid, so the lines of one cache read
     alike);
-  * "batcheddot": K18, one warp per (row, head), bf16 at bt 4.
+  * "batcheddot": K18, one block per (row, head) streaming its whole K and
+    V planes (V staged in shared memory by bulk copies issued beside K's
+    loads), bf16 at bt 4 (``bt`` keeps only the rule B % bt == 0).
 
 Each line prints microseconds, the bound (K and V read once, plus the
 scales for int8, at 3.35 TB/s) and the maxerr against the reference.

@@ -13,8 +13,9 @@ training layer needs, checked against the plain fp32 product:
 
 at the JAX script's shapes (tile 64x64x32), then each of the three forms
 timed at (8192, 768, 3072) (tile 128x128x32) beside ``torch.matmul`` of the
-same form: what a transposed operand costs when it is staged as stored and
-read through a col-major fragment.
+same form: what a transposed operand costs on K16's persistent TMA +
+``wgmma`` kernel, which loads every operand as stored (an MN-major operand
+in 64-column boxes read with the instruction's transpose bit).
 """
 
 from __future__ import annotations

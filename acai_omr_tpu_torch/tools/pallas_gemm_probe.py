@@ -6,11 +6,16 @@ training shapes.
 Port of ``tools/pallas_gemm_probe.py`` (``make_mm`` :23, ``bench`` :58):
 bf16 ``x (m, k) @ w (k, n)``, fp32 accumulation, bf16 out, over (bm, bn, bk)
 tiles, checked against the plain product and timed beside ``torch.matmul``.
-The sweep uses tiles Hopper's shared memory holds (64-256 wide, bk 32 / 64;
-the TPU's 512-2048 VMEM tiles do not carry over) at the stage-2 encoder's
-ff1 shape (8192, 768, 3072) and the stage-1 MAE decoder's (32768, 512, 1536)
-and (32768, 512, 3072). Per tile and shape: ms, TFLOP/s, times its bound
-(2mkn at 989 TFLOP/s) and the library's ms.
+K16 is a persistent, warp-specialised kernel: TMA loads through a ring a
+producer warp feeds, ``wgmma`` m64nBNk16 in BM / 64 consumer warpgroups, the
+tiles walked by as many blocks as the SMs hold, each tile's TMA stores
+overlapping the next tile's mainloop; so the sweep asks what a tile shape
+costs in the form a Hopper kernel of the port would take. The sweep uses
+tiles Hopper's shared memory holds (64-256 wide, bk 32 / 64; the TPU's
+512-2048 VMEM tiles do not carry over) at the stage-2 encoder's ff1 shape
+(8192, 768, 3072) and the stage-1 MAE decoder's (32768, 512, 1536) and
+(32768, 512, 3072). Per tile and shape: ms, TFLOP/s, times its bound (2mkn
+at 989 TFLOP/s) and the library's ms.
 """
 
 from __future__ import annotations

@@ -69,26 +69,29 @@ Phases, all in one process; any failure exits non-zero:
    K15's kernels, none of the Hopper dgrad, K3 and K7 kernels, none of K1's
    skinny kernels, K4's vector kernels or K15's one-card kernels with local
    memory;
-   then the probes phase: K16 tile_gemm at every tile of the GEMM sweep
-   (bf16 out) at (8192, 768, 3072), (32768, 512, 1536) and
-   (32768, 512, 3072), and in its three operand layouts (fp32 out) at the
-   dot-forms probe's shapes and at (8192, 768, 3072); K17
-   blockdiag_decode_attention (bf16 at bt 2 / 4 / 8, int8 at bt 4 / 8, on
-   one thread-block cluster a row, the split its plan gives) and K18
-   batched_decode_attention (bt 4) at B = 32, H = 16, Dh = 64, T = 512, with
-   K11 decode_attention_hd on the same inputs (the microbench's per-head
-   line) beside them; K19 smem_probe at 227 KB (row 0 bit for bit), 228 KB
-   refused; K20-K24 (the int4 and memory-stream probes' kernels,
+   then the probes phase: K16 tile_gemm (persistent blocks, TMA + wgmma,
+   TMA-stored tiles) at every tile of the GEMM sweep (bf16 out) at
+   (8192, 768, 3072), (32768, 512, 1536) and (32768, 512, 3072), and in its
+   three operand layouts (fp32 out) at the dot-forms probe's shapes and at
+   (8192, 768, 3072); K17 blockdiag_decode_attention (bf16 at bt 2 / 4 / 8,
+   int8 at bt 4 / 8, on one thread-block cluster a row, the split its plan
+   gives) and K18 batched_decode_attention (one block per (row, head), bt
+   4) at B = 32, H = 16, Dh = 64, T = 512, K18 also at B = 1 beside K11 there,
+   with K11 decode_attention_hd on the same inputs (the microbench's
+   per-head line) beside them; K19 smem_probe at 227 KB (row 0 bit for bit),
+   228 KB refused; K20-K24 (the int4 and memory-stream probes' kernels,
    ``int4_stream_cases``); K25 head_logits (persistent blocks, TMA-stored
    tiles) in its three access forms at (T, E, H) = (256, 1024, 16) and
    (1024, 768, 12), K26 batched_head_logits in fp32 and int8 (exact), K27
    resident_elementwise in its five works at 8 passes; each against its
    twin, timed beside its bound and the library call (K25: ``torch.bmm``
    with fp32 out, the same function, and ``torch.matmul`` with bf16 out);
-   K17 and K25 timed in turns with the wmma kernels they replaced
-   (``variant="wmma"``, held to the twins too), warm and from HBM, two runs
-   bit-equal; the resource rows (registers, local bytes, shared memory,
-   blocks per SM) of K17 and K25-K27. Then
+   K16, K17 and K25 timed in turns with the wmma kernels they replaced
+   (``variant="wmma"``) and K18 with its warp kernel (``variant="warp"``),
+   each held to the twin too, warm and from HBM, two runs bit-equal; the
+   resource rows (registers, local bytes, shared memory, blocks per SM) of
+   K16-K18 and K25-K27, none of the redesigned kernels with local memory.
+   Then
    the probes' main path, the launch counts reset before it and read after:
    ``main`` of the fourteen tools of ``acai_omr_tpu_torch/tools`` (gemm_probe,
    pallas_gemm_probe, mosaic_dot_forms_probe, attn_microbench, vmem_probe,
@@ -101,7 +104,8 @@ Phases, all in one process; any failure exits non-zero:
    cudaDevAttrMaxSharedMemoryPerBlockOptin and at least the 227 KB
    ops/decode_hd_kernel.py assumes, every head-access form and K27 work
    right, every backward mode OK with the launches of its layer arithmetic,
-   no launch of K17's or K25's wmma kernel on the path;
+   no launch of K16's, K17's or K25's wmma kernel or K18's warp kernel on
+   the path;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -270,6 +274,10 @@ EXPECTED_KERNELS = {
                "lane_stream_sum", "head_logits", "batched_head_logits",
                "resident_elementwise"],
 }
+# the probe kernels redesigned for Hopper, each kept beside the kernel it
+# replaced (a "wmma" or "warp" variant) as the yardstick timed in turns
+REDESIGNED_PROBES = ("tile_gemm", "blockdiag_decode_attention",
+                     "batched_decode_attention", "head_logits")
 # the stages bwd_vmem_probe stubs in the probes path, one run each
 BWD_PROBE_MODES = ("full", "nocross", "noself", "noffn")
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
@@ -1086,7 +1094,7 @@ def check_kernels(torch, F, dev):
                 spills.append(f"{r['op']} {r['kernel']}")
     k7_bad = k7_bit_failures(torch)
     race_bad = tp_allreduce_cases(torch, randn, record, kernel_times, dev)
-    probe_cases(torch, F, record, kernel_times, dev)
+    spills += probe_cases(torch, F, record, kernel_times, dev)
     return cases, race_bad, spills, k7_bad + nan_failures
 
 
@@ -1516,15 +1524,21 @@ def probe_cases(torch, F, record, kernel_times, dev):
     dot forms (fp32 out, within 1e-5 of the largest output: fp32 sums in
     another order) at the JAX script's shapes (tile 64x64x32) and at
     (8192, 768, 3072) (tile 128x128x32); library call ``torch.matmul`` of the
-    same form, bf16 out; bound 2mkn at the bf16 peak. K17 at bt 2 / 4 / 8
-    (bf16) and 4 / 8 (int8), K18 at bt 4, at the microbench's inputs, within
-    4e-3 absolute (outputs below 0.5: a weight rounded to bf16 on the other
-    side of a tie moves an output by one bf16 ulp); bound: K and V (and the
-    scales) read once; library call SDPA with one query (bf16). K17 on its
-    cluster kernel at the plan's split, in turns with the wmma kernel it
-    replaced, warm and from HBM (``old_cold_ms``), two runs bit-equal (the
-    wmma kernel within 4e-3 too); K11 on the same inputs beside it. K19 at
-    227 KB: row 0 bit for bit; 228 KB must be refused."""
+    same form, bf16 out, also from HBM; bound 2mkn at the bf16 peak; the
+    persistent kernel in turns with the wmma kernel it replaced (held to the
+    twin too), warm and from HBM (``old_cold_ms``), two runs bit-equal. K17
+    at bt 2 / 4 / 8 (bf16) and 4 / 8 (int8), K18 at bt 4, at the
+    microbench's inputs, within 4e-3 absolute (outputs below 0.5: a weight
+    rounded to bf16 on the other side of a tie moves an output by one bf16
+    ulp); bound: K and V (and the scales) read once; library call SDPA with
+    one query (bf16). K17 on its cluster kernel at the plan's split, K18 on
+    one block per (row, head), each in turns with the kernel it replaced
+    (``"wmma"``, ``"warp"``), warm and from HBM (``old_cold_ms``), two runs
+    bit-equal (the replaced kernel within 4e-3 too); K11 on the same inputs
+    beside them; K18 also at B = 1 (16 blocks), K11 (its keys split across
+    a cluster) beside it (``k11_ms``). K19 at 227 KB: row 0 bit for bit;
+    228 KB must be refused. Returns the redesigned kernels' resource rows
+    that use local memory."""
     from acai_omr_tpu_torch.ops import probe_kernels as pk
     from acai_omr_tpu_torch.tools import attn_microbench as ab
     from acai_omr_tpu_torch.tools import mosaic_dot_forms_probe as forms
@@ -1536,22 +1550,40 @@ def probe_cases(torch, F, record, kernel_times, dev):
     t0 = time.perf_counter()
 
     def gemm_case(a, b, tile, layout, out_dtype, case):
+        # the persistent kernel, timed in turns with the wmma kernel it
+        # replaced (held to the twin too), warm and from HBM (the operands
+        # rotated out of L2), two runs bit-equal
         m, k, n = pk.gemm_dims(a, b, layout)
-        call = lambda: pk.tile_gemm(a, b, tile, layout, out_dtype)
+        call = lambda v=None: pk.tile_gemm(a, b, tile, layout, out_dtype,
+                                           variant=v)
         twin = lambda: pk.tile_gemm.plain(a, b, tile, layout, out_dtype)
+        cold_of = lambda v: cold_ms(torch, lambda a_, b_: pk.tile_gemm(
+            a_, b_, tile, layout, out_dtype, variant=v), [a, b])
         ref = twin()
         key = (m, k, n, layout, out_dtype)
         if key not in plain_lib:
-            plain_lib[key] = (time_ms(torch, twin, iters=5),
-                              time_ms(torch, forms.library_call(a, b, layout)))
+            plain_lib[key] = (
+                time_ms(torch, twin, iters=5),
+                time_ms(torch, forms.library_call(a, b, layout)),
+                cold_ms(torch, lambda a_, b_: forms.library_call(
+                    a_, b_, layout)(), [a, b]))
+        t_plain, lib, lib_cold = plain_lib[key]
         rel = 1e-2 if out_dtype == bf else forms.REL_TOL
-        record(pk.tile_gemm, case, call(), ref,
-               rel * max(1.0, ref.float().abs().max().item()),
-               kernel_times(call), *plain_lib[key],
+        tol = rel * max(1.0, ref.float().abs().max().item())
+        out_k = call()
+        exact = torch.equal(out_k, call()) and (
+            call("wmma").float() - ref.float()).abs().max().item() <= tol
+        t_new, old = turns_ms(torch, call, lambda: call("wmma"))
+        c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                lambda: cold_of("wmma"), timer=False)
+        record(pk.tile_gemm, case, out_k, ref, tol,
+               (t_new, host_us(torch, call)), t_plain, lib,
                2 * (m * k + k * n) + out_dtype.itemsize * m * n,
                2 * m * k * n, paths=["probes"],
                variant=f"{layout} {'x'.join(map(str, tile))} "
-                       f"{str(out_dtype).split('.')[-1]}")
+                       f"{str(out_dtype).split('.')[-1]}",
+               exact=exact, old_ms=old, cold=c_new, lib_cold=lib_cold,
+               extra={"old_cold_ms": c_old})
 
     plain_lib = {}
     for m, k, n in pgp.SHAPES:
@@ -1580,7 +1612,8 @@ def probe_cases(torch, F, record, kernel_times, dev):
     bsz, h, dh, t = kb.shape
     ql = qb[:, :, None, :]
     kl, vl = (a.transpose(-1, -2).contiguous() for a in (kb, vb))
-    sdpa_of = lambda k_, v_: F.scaled_dot_product_attention(ql, k_, v_)
+    sdpa_of_q = lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_)
+    sdpa_of = lambda k_, v_: sdpa_of_q(ql, k_, v_)
     sdpa = time_ms(torch, lambda: sdpa_of(kl, vl))
     sdpa_cold = cold_ms(torch, sdpa_of, [kl, vl])
     # flops: the block-diagonal product in full (H x H*Dh x T, twice)
@@ -1636,13 +1669,45 @@ def probe_cases(torch, F, record, kernel_times, dev):
            exact=torch.equal(out_k, call()),
            cold=cold_ms(torch, lambda k_, v_: decode_attention_hd(
                qb, k_, v_, bias), [kb, vb]), lib_cold=sdpa_cold)
-    call = lambda: pk.batched_decode_attention(qb, kb, vb, bias, bt=4)
-    twin = lambda: pk.batched_decode_attention.plain(qb, kb, vb, bias, bt=4)
-    record(pk.batched_decode_attention, f"bf16 bt=4 B={bsz} H={h} Dh={dh} "
-           f"T={t}", call(), twin(), 4e-3, kernel_times(call),
-           time_ms(torch, twin), sdpa,
-           2 * kb.numel() * 2 + 2 * 2 * bsz * h * dh + 4 * bsz * t,
-           4 * bsz * h * dh * t, paths=["probes"], variant="bt=4")
+    # K18 on one block per (row, head), timed in turns with the warp kernel
+    # it replaced (held to the twin too), warm and from HBM, two runs
+    # bit-equal; at the microbench's B = 32 and at B = 1 (16 blocks, K11's
+    # keys split across a cluster beside it: whether a split would pay)
+    for rows in (bsz, 1):
+        bt = 4 if rows % 4 == 0 else 1
+        args = [a[:rows] for a in (qb, kb, vb, bias)]
+        call = lambda v=None: pk.batched_decode_attention(*args, bt=bt,
+                                                          variant=v)
+        twin = lambda: pk.batched_decode_attention.plain(*args, bt=bt)
+        cold_of = lambda v: cold_ms(
+            torch, lambda k_, v_: pk.batched_decode_attention(
+                args[0], k_, v_, args[3], bt=bt, variant=v), args[1:3])
+        out_k, out_p = call(), twin()
+        exact = torch.equal(out_k, call()) and (
+            call("warp").float() - out_p.float()).abs().max().item() <= 4e-3
+        t_new, old = turns_ms(torch, call, lambda: call("warp"))
+        c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                lambda: cold_of("warp"), timer=False)
+        extra = {"old_cold_ms": c_old}
+        if rows == bsz:
+            lib, lib_cold = sdpa, sdpa_cold
+        else:
+            ql1, kl1, vl1 = ql[:rows], kl[:rows], vl[:rows]
+            lib = time_ms(torch, lambda: sdpa_of_q(ql1, kl1, vl1))
+            lib_cold = cold_ms(torch, lambda k_, v_: sdpa_of_q(ql1, k_, v_),
+                               [kl1, vl1])
+            k11 = lambda k_, v_: decode_attention_hd(args[0], k_, v_, args[3])
+            extra.update(k11_ms=time_ms(torch, lambda: k11(*args[1:3])),
+                         k11_cold_ms=cold_ms(torch, k11, args[1:3]))
+        route = pk.batched_route(t)
+        record(pk.batched_decode_attention, f"bf16 bt={bt} {route} B={rows} "
+               f"H={h} Dh={dh} T={t}", out_k, out_p, 4e-3,
+               (t_new, host_us(torch, call)), time_ms(torch, twin), lib,
+               2 * args[1].numel() * 2 + 2 * 2 * rows * h * dh + 4 * rows * t,
+               4 * rows * h * dh * t, paths=["probes"],
+               variant=f"bt={bt} {route}" if rows == bsz else None,
+               exact=exact, old_ms=old, cold=c_new, lib_cold=lib_cold,
+               extra=extra)
 
     x = torch.randn(8, 128, generator=g, device=dev).to(bf)
     n_bytes = 227 * 1024
@@ -1661,8 +1726,9 @@ def probe_cases(torch, F, record, kernel_times, dev):
            peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
            exact=torch.equal(out_k[0], out_p[0]) and refused)
     int4_stream_cases(torch, record, kernel_times, dev)
-    access_vpu_cases(torch, record, kernel_times, dev)
+    spills = access_vpu_cases(torch, record, kernel_times, dev)
     print(f"[probes] checked in {time.perf_counter() - t0:.1f} s", flush=True)
+    return spills
 
 
 def int4_stream_cases(torch, record, kernel_times, dev):
@@ -1801,7 +1867,9 @@ def access_vpu_cases(torch, record, kernel_times, dev):
     and the work's fp32 instructions (128 a SM a clock) or MUFU operations
     (16) at the card's highest SM clock; library none (no one call runs the
     chained passes). K25 and K26 also from HBM (``cold``). Then the resource
-    rows of K17 and K25-K27."""
+    rows of K16-K18 and K25-K27; returns those of the redesigned kernels
+    (``REDESIGNED_PROBES``, not the kernels they replaced) that use local
+    memory."""
     from acai_omr_tpu_torch.ops import _build
     from acai_omr_tpu_torch.ops import head_logits_kernels as hk
     from acai_omr_tpu_torch.ops import vpu_probe_kernels as vk
@@ -1899,13 +1967,20 @@ def access_vpu_cases(torch, record, kernel_times, dev):
                8 * x.numel(), ops_s * PEAK_FP32_FLOP_PER_S,
                peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
                variant=f"{work} {cols}")
-    for name in ("probe_decode_attention", "head_logits",
+    spills = []
+    for name in ("tile_gemm", "probe_decode_attention", "head_logits",
                  "resident_elementwise"):
         for r in _build.resources(name):
-            print(f"[resources] {r['op']} {r['kernel']} regs={r['registers']} "
-                  f"local={r['local_bytes']} static_smem={r['static_smem']} "
+            print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
+                  f"regs={r['registers']} local={r['local_bytes']} "
+                  f"static_smem={r['static_smem']} "
                   f"dynamic_smem={r['dynamic_smem']} "
                   f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
+            # the redesigned probe kernels (K16-K18, K25) use no local memory
+            if r["local_bytes"] and r["op"] in REDESIGNED_PROBES \
+                    and r["variant"] != "warp" and "wmma" not in r["variant"]:
+                spills.append(f"{r['op']} {r['variant']} {r['kernel']}")
+    return spills
 
 
 def probes_path(torch):
@@ -3869,14 +3944,15 @@ def main() -> int:
     for k in EXPECTED_KERNELS["probes"]:
         if probe_run["launches"][k] <= 0:
             failures.append(f"probes: launches[{k}]=0")
-    # K17 and K25 on the path only in their new forms: the wmma kernels run
-    # in the kernel checks' turns alone
-    old_forms = {n: [v for v in probe_run["variants"].get(n, {}) if "wmma" in v]
-                 for n in ("blockdiag_decode_attention", "head_logits")}
+    # K16-K18 and K25 on the path only in their new forms: the kernels they
+    # replaced ("wmma", "warp") run in the kernel checks' turns alone
+    old_forms = {n: [v for v in probe_run["variants"].get(n, {})
+                     if "wmma" in v or v.endswith(" warp")]
+                 for n in REDESIGNED_PROBES}
     print(f"[path probes] by variant " + json.dumps(
         {n: probe_run["variants"].get(n, {}) for n in old_forms}), flush=True)
     if any(old_forms.values()):
-        failures.append(f"probes: the wmma forms launched {old_forms}")
+        failures.append(f"probes: the replaced forms launched {old_forms}")
     res = probe_run["results"]
     if res["mosaic_dot_forms_probe"] != 0:
         failures.append("probes: a dot form differs from the plain product")

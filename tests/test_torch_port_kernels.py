@@ -1530,23 +1530,45 @@ from acai_omr_tpu_torch.ops import probe_kernels as pk  # noqa: E402
 
 @pytest.mark.parametrize("tile", pk.SWEEP_TILES)
 def test_tile_gemm_sweep_tiles(dev, tile):
+    """The persistent kernel at a shape of few tiles and at one with more
+    tiles than resident blocks (every block walks several), and the wmma
+    kernel it replaced, within 1e-2 of the largest output (one bf16 ulp is
+    0.4-0.8 % of it); two runs of the persistent kernel bit-equal (a block
+    that wrote its staging before its last store had read it would differ
+    only sometimes)."""
     g = torch.Generator(device=dev).manual_seed(30)
-    a, b = _randn(g, 256, 384, dev=dev), _randn(g, 384, 512, dev=dev)
-    _close(pk.tile_gemm(a, b, tile), pk.tile_gemm.plain(a, b, tile))
+    for m, k, n in ((256, 384, 512), (4096, 384, 2048)):
+        a, b = _randn(g, m, k, dev=dev), _randn(g, k, n, dev=dev)
+        ref = pk.tile_gemm.plain(a, b, tile)
+        out = pk.tile_gemm(a, b, tile)
+        if (m, n) != (256, 512):
+            assert pk.tile_gemm_blocks(m, n, tile) < (m // tile[0]) * (
+                n // tile[1])
+        _close(out, ref)
+        _close(pk.tile_gemm(a, b, tile, variant="wmma"), ref)
+        assert torch.equal(out, pk.tile_gemm(a, b, tile))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("layout", pk.LAYOUTS)
 @pytest.mark.parametrize("tile", pk.FORM_TILES)
 def test_tile_gemm_forms_fp32(dev, layout, tile):
     """fp32 out within 1e-5 of the largest output: the sums differ in order
-    only."""
+    only. The persistent kernel at a few tiles and at more tiles than
+    resident blocks, the wmma kernel beside it, two runs bit-equal."""
     g = torch.Generator(device=dev).manual_seed(31)
-    m, k, n = 256, 512, 384
-    a = _randn(g, *((k, m) if layout == "tn" else (m, k)), dev=dev)
-    b = _randn(g, *((n, k) if layout == "nt" else (k, n)), dev=dev)
-    out = pk.tile_gemm(a, b, tile, layout, torch.float32)
-    assert out.dtype == torch.float32 and out.shape == (m, n)
-    _close(out, pk.tile_gemm.plain(a, b, tile, layout, torch.float32), 1e-5)
+    for m, k, n in ((256, 512, 384), (2048, 512, 2048)):
+        a = _randn(g, *((k, m) if layout == "tn" else (m, k)), dev=dev)
+        b = _randn(g, *((n, k) if layout == "nt" else (k, n)), dev=dev)
+        ref = pk.tile_gemm.plain(a, b, tile, layout, torch.float32)
+        out = pk.tile_gemm(a, b, tile, layout, torch.float32)
+        assert out.dtype == torch.float32 and out.shape == (m, n)
+        _close(out, ref, 1e-5)
+        _close(pk.tile_gemm(a, b, tile, layout, torch.float32,
+                            variant="wmma"), ref, 1e-5)
+        assert torch.equal(out, pk.tile_gemm(a, b, tile, layout,
+                                             torch.float32))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("cache", ["bf16", "int8"])
@@ -1600,15 +1622,41 @@ def test_blockdiag_decode_attention(dev, cache, b, t, dh):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("bt,t", [(1, 96), (4, 512)])
-def test_batched_decode_attention(dev, bt, t):
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("b,t", [(b, t) for b in (1, 8, 32)
+                                 for t in (96, 100, 512, 1024)]
+                         + [(1, 2056), (1, 3001)])
+def test_batched_decode_attention(dev, b, t, dh):
+    """One block per (row, head), 16-byte loads or one load a key (T = 100,
+    3,001), and the warp kernel it replaced, within 4e-3 of the twin
+    (outputs below 0.5 where tens of keys are averaged), a third of the keys
+    masked at -1e9 (key 0 never), with and without the bias; the masked
+    keys' values set to 7 change no bit; two runs bit-equal."""
     g = torch.Generator(device=dev).manual_seed(33)
-    b, h, dh = 8, 16, 64
+    h = 16
     q, kT, vT = (_randn(g, *s, dev=dev) for s in ((b, h, dh), (b, h, dh, t),
                                                    (b, h, dh, t)))
-    out = pk.batched_decode_attention(q, kT, vT, None, bt=bt)
-    ref = pk.batched_decode_attention.plain(q, kT, vT, None, bt=bt)
-    assert (out.float() - ref.float()).abs().max().item() <= 4e-3
+    masked = torch.rand(b, t, generator=g, device=dev) < 1 / 3
+    masked[:, 0] = False
+    bias = torch.where(masked, -1e9, 0.0).float()
+    bt = 4 if b % 4 == 0 else 1
+    for bias_ in (bias, None):
+        ref = pk.batched_decode_attention.plain(q, kT, vT, bias_, bt=bt)
+        for variant in (None, "warp"):
+            out = pk.batched_decode_attention(q, kT, vT, bias_, bt=bt,
+                                              variant=variant)
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= 4e-3, (variant, err)
+            if variant is None:
+                assert torch.equal(out, pk.batched_decode_attention(
+                    q, kT, vT, bias_, bt=bt))
+    k7, v7 = (x.masked_fill(masked[:, None, None, :], 7.0) for x in (kT, vT))
+    assert torch.equal(pk.batched_decode_attention(q, k7, v7, bias, bt=bt),
+                       pk.batched_decode_attention(q, kT, vT, bias, bt=bt))
+    route = pk.batched_route(t)
+    assert any(v.endswith(route)
+               for v in pk.batched_decode_attention.variants)
+    torch.cuda.synchronize()
 
 
 def test_smem_probe_up_to_the_card_limit(dev):
