@@ -6,25 +6,60 @@
 // int32 = x (bt, cin) int8 @ W (cin, cout), W's rows 0..cin/2 the int4 values
 // `lo`, the rest `hi`, exact. The schemes keep the TPU tool's names and say
 // how W reaches the dot on Hopper:
-//   i8ref     full int8 weights in K5's K-packed layout (cin/4, cout, 4),
-//             one 32-bit load a column is one __dp4a operand;
+//   i8ref     full int8 weights in K5's K-packed layout (cin/4, cout, 4): a
+//             word is four k of one column, a B register as it stands;
 //   s4dot     K14's layout (cin/8, cout) int32, eight K rows to a word,
-//             unpacked in registers into the two __dp4a operands;
+//             unpacked in registers into the B registers (K14's single k
+//             permutation, applied to the x rows too);
 //   s4conv    the same words widened to int8 into shared memory by the block
-//             first (the TPU's astype(int8) before the dot), then dotted from
-//             shared memory;
+//             first (the TPU's astype(int8) before the dot), i8ref's layout,
+//             then read as i8ref reads its weights;
 //   i8shift   the TPU's bytes (cin/2, cout) int8 holding (hi << 4) | (lo + 8);
 //             a thread loads one 32-bit word (four columns) of four rows,
 //             transposes the 4x4 bytes with __byte_perm and unpacks with
-//             per-byte shifts and masks; x[:, :cin/2] dots lo, x[:, cin/2:] hi;
+//             per-byte shifts and masks into a lo and a hi B register of each
+//             of its four columns; x[:, :cin/2] dots lo, x[:, cin/2:] hi;
 //   f32unpack the same bytes, each unpacked through fp32 floor(b / 16).
 // Bound: the weight bytes (2 MiB at 1024 -> 4096 in int4, 4 MiB in int8)
-// over 3.35 TB/s; the products are 67 MOP, far below the int8 peak. Design:
-// 128 threads, one column (word layouts) or four (byte layouts) a thread;
-// the contraction is split over blockIdx.y so that about 264 blocks stream
-// the weights, and the splits add their int32 sums with integer atomics,
-// exact in any order. x's columns of the split are staged in shared memory,
-// rows padded with zeros to R (8, 16 or 32).
+// over 3.35 TB/s; the products are 67 MOP, far below the int8 peak, so what
+// the design has to beat is a fixed cost, not the stream.
+//
+// Design (`strip_kernel`, one launch, no memset, no atomics): a block owns
+// a strip of 32 output columns over the whole contraction (cout / 32 blocks:
+// 128 at 1024 -> 4096). Its threads issue every 16-byte piece of the strip
+// at once with cp.async, in stages of 256 k: the x rows' two 128-k boxes
+// (rows padded with zeros to R = 8, 16 or 32) and the weight rows (i8ref 64
+// word rows, the int4 words 32, the bytes 128 rows x 32 columns), laid out
+// in shared memory as a 128-byte-swizzled TMA box would be (the bytes'
+// 32-byte rows plain); one wait, one barrier; where the strip is deeper
+// than 8 stages or 96 KB, rounds of that many. (TMA boxes on one mbarrier a
+// stage read no faster on the card, and need a tensor map each call.) The
+// products run on the tensor cores, `mma.sync` m16n8k32 s8 x s8 -> s32, a
+// warp a 32-deep k-step of each stage over the strip's four 8-column tiles
+// and R / 16 row tiles (R = 8: the tile's upper rows are zero registers),
+// two stages at a time into two accumulator sets so that their loads and
+// products overlap. An integer sum is the same in any order, so each format
+// picks the k order of its B registers and the x rows follow it: i8ref and
+// s4conv K5's (bank-conflict free on the swizzled layout), s4dot K14's, the
+// byte formats the order their transposed words come in (rotated by the
+// thread's quad index, so the four rows a warp reads at once fall in
+// distinct banks), and their output columns 4 g + j so that a thread's word
+// is its four columns. The eight warps' int32 tiles are added in shared
+// memory. Where the strips alone cannot fill the card and a strip is deep
+// (cout = 1024 at cin = 4096), the contraction is split across a
+// thread-block cluster of up to 8 blocks (ops/int4_probe_kernels.strip_plan),
+// whose exact tiles meet through distributed shared memory in rank order.
+// What sets its time on the card (PERF.md section 6): the rate at which one
+// SM's loads of its strip and of x's rows arrive, and a fixed cost of the
+// launch and the epilogue, not the weight bytes' bound.
+//
+// The form it replaced (`int4_gemm_kernel`, kept as the yardstick, variant
+// "atomic"): 128 threads, one column (word layouts) or four (byte layouts)
+// a thread, one 32-bit weight load a row, `__dp4a`; the contraction split
+// over blockIdx.y so that about 264 blocks stream the weights, the splits'
+// int32 sums added with integer atomics into an output the wrapper zeroes
+// first (two device kernels a call); x's columns of the split staged in
+// shared memory, rows padded with zeros to R (8, 16 or 32).
 //
 // K21 replaces tools/unpack_probe.py `run` (:112, pallas_call :124) and its
 // five kernels (`KERNELS` :108): packed (half, cols) int8 -> (2 half, cols)
@@ -45,6 +80,9 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "func_attrs.cuh"
+#include "sm90_cluster.cuh"
 
 namespace {
 
@@ -228,6 +266,366 @@ int launch_gemm_rows(const void* x, const void* w, void* out, int bt, int cin,
 }
 
 // ---------------------------------------------------------------------------
+// K20: the strip kernel
+// ---------------------------------------------------------------------------
+
+namespace dg {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int BN = 32;         // output columns a block: one strip
+constexpr int KS = 256;        // k a stage: eight 32-deep k-steps, one a warp
+constexpr int XBOX = 128;      // k (bytes) of an x box: 128-byte swizzle
+constexpr int MAX_SLOTS = 8;
+constexpr int RING_BUDGET = 96 * 1024;  // two blocks an SM where it holds
+constexpr int WIDE_BYTES = KS / 4 * BN * 4;  // s4conv's widened stage
+
+// bytes of a stage's weight box
+__host__ __device__ constexpr int w_stage_bytes(int scheme) {
+  return scheme == I8REF ? KS / 4 * BN * 4
+         : scheme >= I8SHIFT ? KS / 2 * BN
+                             : KS / 8 * BN * 4;
+}
+
+// bytes of a stage: two x boxes of R rows x 128 k, the weight box (each a
+// multiple of 1 KB, so every box keeps the swizzle's 1 KB alignment)
+__host__ __device__ constexpr int stage_bytes(int scheme, int rows) {
+  return 2 * rows * XBOX + w_stage_bytes(scheme);
+}
+
+// the ring's stages a launch holds: every stage of the strip where the
+// budget allows, at most MAX_SLOTS, at least one
+__host__ __device__ constexpr int ring_slots(int scheme, int rows,
+                                             int stages) {
+  const int fit = RING_BUDGET / stage_bytes(scheme, rows);
+  const int n = stages < MAX_SLOTS ? stages : MAX_SLOTS;
+  return n < fit ? n : (fit > 1 ? fit : 1);
+}
+
+// the dynamic shared memory of a launch with `slots` stages: the 1 KB
+// alignment, the slots (the warps' int32 tiles reuse them), s4conv's
+// widened stages
+__host__ __device__ constexpr int dyn_bytes(int scheme, int rows, int slots) {
+  return 1024 +
+         (slots * stage_bytes(scheme, rows) > WARPS * rows * BN * 4
+              ? slots * stage_bytes(scheme, rows)
+              : WARPS * rows * BN * 4) +
+         (scheme == S4CONV ? slots * WIDE_BYTES : 0);
+}
+
+// 4-k groups of a 32-deep step (K5's permutation): bits 0 and 1 swapped
+__device__ __forceinline__ int swap01(int u) {
+  return ((u & 1) << 1) | ((u >> 1) & 1) | (u & 4);
+}
+
+// word c of row r of a 128-byte-swizzled box of 32 words a row
+__device__ __forceinline__ uint32_t* box_word(unsigned char* box, int r,
+                                              int c) {
+  return reinterpret_cast<uint32_t*>(box + r * 128 +
+                                     (((c >> 2) ^ (r & 7)) << 4) + (c & 3) * 4);
+}
+
+// bytes k .. k + 3 (k % 4 == 0) of row r of a 128-byte-swizzled x box
+__device__ __forceinline__ uint32_t x_word(const unsigned char* box, int r,
+                                           int k) {
+  return *reinterpret_cast<const uint32_t*>(
+      box + r * 128 + (((k >> 4) ^ (r & 7)) << 4) + (k & 15));
+}
+
+__device__ __forceinline__ uint32_t nibbles(uint32_t w, int high) {
+  return __vsub4((high ? w >> 4 : w) & 0x0F0F0F0Fu, 0x08080808u);
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One 16-byte piece of global memory into shared memory, asynchronously
+// (the thread's current cp.async group); zeros where `valid` is false.
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       bool valid) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+          sm90::smem_u32(dst)),
+      "l"(src), "r"(valid ? 16 : 0)
+      : "memory");
+}
+
+// Grid (split, cout / 32): block (r, y) sums k in [r k_chunk, (r + 1)
+// k_chunk) of columns [32 y, 32 y + 32); with split > 1 the split is one
+// cluster. R: x rows a stage (bt padded with zeros), 8, 16 or 32.
+template <int S, int R>
+__global__ void __launch_bounds__(THREADS)
+    strip_kernel(const int8_t* __restrict__ x, const unsigned char* __restrict__ w,
+                 int* __restrict__ out, int bt, int cin, int cout,
+                 int k_chunk, int slots) {
+  constexpr bool BYTES = S >= I8SHIFT;
+  constexpr int MT = R == 32 ? 2 : 1;  // 16-row tiles
+  constexpr int XB = R * XBOX;         // bytes of an x box
+  constexpr int STAGE = stage_bytes(S, R);
+  constexpr int WROW = BYTES ? BN : BN * 4;      // bytes of a weight row
+  constexpr int WROWS = w_stage_bytes(S) / WROW;  // weight rows a stage
+  constexpr int XPIECES = 2 * R * (XBOX / 16);    // 16-byte pieces a stage
+  constexpr int PIECES = XPIECES + WROWS * (WROW / 16);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int tile[R * BN];  // the block's sum, read by its cluster
+
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int split = (int)gridDim.x, rank = (int)blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int k_lo = rank * k_chunk;
+  const int stages = (k_chunk + KS - 1) / KS;
+  const int w_rows = BYTES ? cin / 2 : cin / (S == I8REF ? 4 : 8);
+  unsigned char* wide =
+      base + max(slots * STAGE, WARPS * R * BN * 4);  // s4conv only
+
+  // every 16-byte piece of stage i into slot sl, laid out as a 128-byte
+  // swizzled box would be (the byte layouts' 32-byte weight rows plain)
+  auto fetch = [&](int i, int slot) {
+    unsigned char* dst = base + slot * STAGE;
+    for (int v = tid; v < PIECES; v += THREADS) {
+      if (v < XPIECES) {  // x: box b, row r, piece p
+        const int b = v / (R * 8), r = (v / 8) % R, p = v % 8;
+        const int col = BYTES ? (b ? cin / 2 : 0) + k_lo / 2 + i * (KS / 2)
+                              : k_lo + i * KS + b * XBOX;
+        const int k = col + 16 * p;
+        const bool ok = r < bt && k < cin;
+        copy16(dst + b * XB + r * 128 + ((p ^ (r & 7)) << 4),
+               ok ? x + (size_t)r * cin + k : x, ok);
+      } else {  // the weights: row q of the stage, piece p
+        const int u = v - XPIECES, q = u / (WROW / 16), p = u % (WROW / 16);
+        const int row = (BYTES ? k_lo / 2 + i * (KS / 2)
+                               : (k_lo + i * KS) / (S == I8REF ? 4 : 8)) + q;
+        const bool ok = row < w_rows;
+        unsigned char* to = dst + 2 * XB + q * WROW +
+                            (BYTES ? 16 * p : ((p ^ (q & 7)) << 4));
+        copy16(to, ok ? w + ((size_t)row * cout + n0) * (WROW / BN) + 16 * p
+                      : w, ok);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  // two accumulator sets, even and odd stages, so that a warp's k-steps of
+  // consecutive stages overlap; added at the end (integers: any order)
+  int acc[2][MT][4][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][m][j][e] = 0;
+  // the thread's two 4-k groups of a step (word formats): K5's order for the
+  // int8 words, K14's for the nibbles
+  const int odd = (S == S4DOT) ? 0 : (t & 1);
+  const int p0 = swap01(2 * t + odd), p1 = swap01(2 * t + 1 - odd);
+
+  // warp w's k-step (k 32 w .. 32 w + 31) of the stage in slot `sl`
+  auto step = [&](int sl, int (&c)[MT][4][4]) {
+    const unsigned char* st = base + sl * STAGE;
+    const unsigned char* xa = st;
+    const unsigned char* xb = st + XB;
+    const unsigned char* wbox = st + 2 * XB;
+    uint32_t a[MT][4];
+    if constexpr (BYTES) {
+      // packed rows pr .. pr + 3 of the stage: the lo k of x's first box,
+      // the hi k of its second, bytes in the order the rotated loads give
+      const int pr = 16 * warp + 4 * t;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int r = 16 * m + g;
+        const uint32_t lo0 = x_word(xa, r, pr), hi0 = x_word(xb, r, pr);
+        a[m][0] = __funnelshift_r(lo0, lo0, 8 * t);
+        a[m][2] = __funnelshift_r(hi0, hi0, 8 * t);
+        if constexpr (R > 8) {
+          const uint32_t lo1 = x_word(xa, r + 8, pr), hi1 = x_word(xb, r + 8, pr);
+          a[m][1] = __funnelshift_r(lo1, lo1, 8 * t);
+          a[m][3] = __funnelshift_r(hi1, hi1, 8 * t);
+        } else {
+          a[m][1] = a[m][3] = 0u;
+        }
+      }
+      // row pr + ((q + t) & 3), columns 4 g .. 4 g + 3 (32 bytes a row)
+      uint32_t wv[4], col[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wv[q] = *reinterpret_cast<const uint32_t*>(
+            wbox + (pr + ((q + t) & 3)) * BN + 4 * g);
+      transpose4x4(wv, col);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // column 4 g + j
+        int lo, hi;
+        if constexpr (S == I8SHIFT) unpack_shift(col[j], lo, hi);
+        else unpack_float(col[j], lo, hi);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          mma_s8(c[m][j], a[m][0], a[m][1], a[m][2], a[m][3], (uint32_t)lo,
+                 (uint32_t)hi);
+      }
+    } else {
+      const int ks = 32 * warp;  // the step's k within the stage
+      const unsigned char* xs = ks < XBOX ? xa : xb;
+      const int kx = ks % XBOX;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int r = 16 * m + g;
+        a[m][0] = x_word(xs, r, kx + 4 * p0);
+        a[m][2] = x_word(xs, r, kx + 4 * p1);
+        a[m][1] = R > 8 ? x_word(xs, r + 8, kx + 4 * p0) : 0u;
+        a[m][3] = R > 8 ? x_word(xs, r + 8, kx + 4 * p1) : 0u;
+      }
+      // s4conv reads the stage widened to int8 words
+      unsigned char* wb = S == S4CONV ? wide + sl * WIDE_BYTES
+                                      : const_cast<unsigned char*>(wbox);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // column 8 j + g
+        const int cc = 8 * j + g;
+        uint32_t b0, b1;
+        if constexpr (S == S4DOT) {
+          const int pw = 4 * warp + 2 * (t >> 1);
+          b0 = nibbles(*box_word(wb, pw, cc), t & 1);
+          b1 = nibbles(*box_word(wb, pw + 1, cc), t & 1);
+        } else {
+          b0 = *box_word(wb, 8 * warp + p0, cc);
+          b1 = *box_word(wb, 8 * warp + p1, cc);
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          mma_s8(c[m][j], a[m][0], a[m][1], a[m][2], a[m][3], b0, b1);
+      }
+    }
+  };
+
+  // every stage of the strip in flight at once where the slots hold them,
+  // else `slots` stages a round; a warp's k-steps of the round's stages two
+  // at a time, one accumulator set each
+  for (int i0 = 0; i0 < stages; i0 += slots) {
+    const int n_st = min(slots, stages - i0);
+    for (int sl = 0; sl < n_st; ++sl) fetch(i0 + sl, sl);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    if constexpr (S == S4CONV) {  // widen the round's words into int8 words
+      for (int v = tid; v < n_st * (KS / 8) * BN; v += THREADS) {
+        const int q = v / ((KS / 8) * BN), r = (v / BN) % (KS / 8),
+                  c = v % BN;
+        const uint32_t wv = *box_word(base + q * STAGE + 2 * XB, r, c);
+        *box_word(wide + q * WIDE_BYTES, 2 * r, c) = nibbles(wv, 0);
+        *box_word(wide + q * WIDE_BYTES, 2 * r + 1, c) = nibbles(wv, 1);
+      }
+      __syncthreads();
+    }
+    // every stage is whole but for the strip's last one
+    const int whole = i0 + n_st < stages || k_chunk % KS == 0 ? n_st
+                                                               : n_st - 1;
+    int sl = 0;
+#pragma unroll 1
+    for (; sl + 1 < whole; sl += 2) {
+      step(sl, acc[0]);
+      step(sl + 1, acc[1]);
+    }
+    if (sl < whole) step(sl++, acc[0]);
+    if (sl < n_st && warp < (k_chunk % KS) / 32) step(sl, acc[1]);
+    __syncthreads();  // the slots are free for the next round
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][m][j][e] += acc[1][m][j][e];
+
+  // the warps' tiles into shared memory (the ring's bytes), then added
+  int* part = reinterpret_cast<int*>(base);  // (WARPS, R, 32)
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c0 = BYTES ? 8 * t + j : 8 * j + 2 * t;  // n-slot 2t
+      const int c1 = BYTES ? 8 * t + 4 + j : 8 * j + 2 * t + 1;
+      int* p = part + (warp * R + 16 * m + g) * BN;
+      p[c0] = acc[0][m][j][0];
+      p[c1] = acc[0][m][j][1];
+      if constexpr (R > 8) {
+        p[8 * BN + c0] = acc[0][m][j][2];
+        p[8 * BN + c1] = acc[0][m][j][3];
+      }
+    }
+  __syncthreads();
+  for (int e = tid; e < R * BN; e += THREADS) {
+    int v = 0;
+#pragma unroll
+    for (int wi = 0; wi < WARPS; ++wi) v += part[wi * R * BN + e];
+    if (split == 1) {
+      if (e / BN < bt) out[(size_t)(e / BN) * cout + n0 + e % BN] = v;
+    } else {
+      tile[e] = v;
+    }
+  }
+  if (split == 1) return;
+  sm90::cluster_sync();  // every block's tile is staged
+  for (int e = rank * THREADS + tid; e < bt * BN; e += split * THREADS) {
+    int u[sm90::MAX_CLUSTER];
+    sm90::load_peers(&tile[e], split, u);
+    int v = u[0];
+#pragma unroll
+    for (int q = 1; q < sm90::MAX_CLUSTER; ++q)
+      if (q < split) v += u[q];
+    out[(size_t)(e / BN) * cout + n0 + e % BN] = v;
+  }
+  sm90::cluster_sync();  // no block leaves while another reads its tile
+}
+
+template <int S, int R>
+int launch_strip(const void* x, const void* w, void* out, int bt, int cin,
+                 int cout, int split, cudaStream_t st) {
+  if (bt < 1 || bt > R || cin <= 0 || cin % 64 != 0 || cout % BN != 0 ||
+      split < 1 || split > sm90::MAX_CLUSTER || cin % (64 * split) != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int k_chunk = cin / split;
+  const int stages = (k_chunk + KS - 1) / KS;
+  const int slots = ring_slots(S, R, stages);
+  const int dyn = dyn_bytes(S, R, slots);
+  const auto kernel = strip_kernel<S, R>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(split, cout / BN);
+  const int8_t* xp = static_cast<const int8_t*>(x);
+  const unsigned char* wp = static_cast<const unsigned char*>(w);
+  if (split == 1) {
+    kernel<<<grid, THREADS, dyn, st>>>(xp, wp, static_cast<int*>(out), bt,
+                                      cin, cout, k_chunk, slots);
+    return (int)cudaGetLastError();
+  }
+  return sm90::launch_cluster(kernel, grid, THREADS, (size_t)dyn, split, st,
+                              xp, wp, static_cast<int*>(out), bt, cin, cout,
+                              k_chunk, slots);
+}
+
+template <int S>
+int launch_strip_rows(const void* x, const void* w, void* out, int bt,
+                      int cin, int cout, int split, cudaStream_t st) {
+  if (bt <= 8) return launch_strip<S, 8>(x, w, out, bt, cin, cout, split, st);
+  if (bt <= 16) return launch_strip<S, 16>(x, w, out, bt, cin, cout, split, st);
+  return launch_strip<S, 32>(x, w, out, bt, cin, cout, split, st);
+}
+
+}  // namespace dg
+
+// ---------------------------------------------------------------------------
 // K21
 // ---------------------------------------------------------------------------
 
@@ -381,11 +779,30 @@ unpack_eyedot_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ out,
 
 }  // namespace
 
-// K20. x (bt, cin) int8; w: i8ref (cin/4, cout, 4) int8, s4dot / s4conv
-// (cin/8, cout) int32, i8shift / f32unpack (cin/2, cout) int8; out (bt, cout)
-// int32, zeroed by the caller when splits > 1. The wrapper checks bt <= 32,
-// cin % (64 splits) == 0, cout % 128 (words) or % 512 (bytes) == 0 and the
-// staged x within 48 KB.
+// K20, the strip kernel: x (bt, cin) int8; w: i8ref (cin/4, cout, 4) int8,
+// s4dot / s4conv (cin/8, cout) int32, i8shift / f32unpack (cin/2, cout)
+// int8; both 16-byte aligned; out (bt, cout) int32, written whole. bt <=
+// 32, cin % (64 split) == 0, cout % 32 == 0, split 1 (an ordinary launch)
+// or 2..8 (one cluster a strip). One device kernel.
+extern "C" int acai_int4_delivery_gemm_strip(const void* x, const void* w,
+                                             void* out, int scheme, int bt,
+                                             int cin, int cout, int split,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (scheme) {
+    case I8REF: return dg::launch_strip_rows<I8REF>(x, w, out, bt, cin, cout, split, s);
+    case S4DOT: return dg::launch_strip_rows<S4DOT>(x, w, out, bt, cin, cout, split, s);
+    case S4CONV: return dg::launch_strip_rows<S4CONV>(x, w, out, bt, cin, cout, split, s);
+    case I8SHIFT: return dg::launch_strip_rows<I8SHIFT>(x, w, out, bt, cin, cout, split, s);
+    case F32UNPACK: return dg::launch_strip_rows<F32UNPACK>(x, w, out, bt, cin, cout, split, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K20's replaced form (variant "atomic"). x (bt, cin) int8; w as above; out
+// (bt, cout) int32, zeroed by the caller when splits > 1. The wrapper checks
+// bt <= 32, cin % (64 splits) == 0, cout % 128 (words) or % 512 (bytes) ==
+// 0 and the staged x within 48 KB.
 extern "C" int acai_int4_delivery_gemm(const void* x, const void* w, void* out,
                                        int scheme, int bt, int cin, int cout,
                                        int splits, void* stream) {
@@ -426,3 +843,36 @@ extern "C" int acai_int4_unpack(const void* packed, void* out, int scheme,
   }
   return (int)cudaGetLastError();
 }
+
+// The resource report (func_attrs.cuh): K20's strip kernel per scheme and
+// row tile at its largest dynamic shared memory (the ring's budget, the
+// widened stage), the atomic kernel it replaced at the tool's shape (8
+// rows, one 64-k unit of x a split); K21's kernels.
+#define K20_STRIP(S, R, NAME)                                                \
+  AcaiKernelEntry {                                                          \
+    "int4_delivery_gemm|" NAME "|strip_kernel<" #S "," #R ">",              \
+        reinterpret_cast<const void*>(&dg::strip_kernel<S, R>), dg::THREADS, \
+        dg::dyn_bytes(S, R, dg::ring_slots(S, R, 1 << 20))                   \
+  }
+#define K20_ATOMIC(S, NAME)                                                  \
+  AcaiKernelEntry {                                                          \
+    "int4_delivery_gemm|" NAME " atomic|int4_gemm_kernel<" #S ",8>",        \
+        reinterpret_cast<const void*>(&int4_gemm_kernel<S, 8>), THREADS,     \
+        8 * UNIT                                                             \
+  }
+static const AcaiKernelEntry kResources[] = {
+    K20_STRIP(I8REF, 8, "i8ref"),         K20_STRIP(I8REF, 32, "i8ref"),
+    K20_STRIP(S4DOT, 8, "s4dot"),         K20_STRIP(S4DOT, 32, "s4dot"),
+    K20_STRIP(S4CONV, 8, "s4conv"),       K20_STRIP(S4CONV, 32, "s4conv"),
+    K20_STRIP(I8SHIFT, 8, "i8shift"),     K20_STRIP(I8SHIFT, 32, "i8shift"),
+    K20_STRIP(F32UNPACK, 8, "f32unpack"), K20_STRIP(F32UNPACK, 32, "f32unpack"),
+    K20_ATOMIC(I8REF, "i8ref"),           K20_ATOMIC(S4DOT, "s4dot"),
+    K20_ATOMIC(S4CONV, "s4conv"),         K20_ATOMIC(I8SHIFT, "i8shift"),
+    K20_ATOMIC(F32UNPACK, "f32unpack"),
+    ACAI_KERNEL("int4_unpack", "f32", unpack_kernel<U_F32>, 256, 0),
+    ACAI_KERNEL("int4_unpack", "i32", unpack_kernel<U_I32>, 256, 0),
+    ACAI_KERNEL("int4_unpack", "i16", unpack_kernel<U_I16>, 256, 0),
+    ACAI_KERNEL("int4_unpack", "i8div", unpack_kernel<U_I8DIV>, 256, 0),
+    ACAI_KERNEL("int4_unpack", "eyedot", unpack_eyedot_kernel, 128, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

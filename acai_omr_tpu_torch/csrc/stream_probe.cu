@@ -16,16 +16,39 @@
 //
 // K23 replaces tools/dma_skip_probe.py `run` (kernel :28, pallas_call :55):
 // out (1, E) fp32 = the sum over k <= s of the column sums of x[k], x (n, CH,
-// E) bf16, s an int32 in device memory. `clamped`: block k reads chunk
-// min(k, s), as the TPU's index map (:49), through volatile loads the
-// compiler may not drop, and stores its sums only when k <= s; the re-reads
-// of chunk s may come from L2. `skip`: blocks past s return before they load
-// anything. A block sums CH / slices rows of one chunk over a 128-column
-// strip, 16 bytes a thread a row, eight loads in flight, so that even two
-// live chunks put 128 blocks on the card; its 16 row groups are added in
-// shared memory in a fixed order into a partial row, and a second launch
-// adds the partial rows of k <= s in a fixed order, so two runs are
-// bit-equal (no float atomics). Bound: (s + 1) chunks read once.
+// E) bf16, s an int32 in device memory. The TPU's grid walks k = 0 .. n-1 in
+// order, its index map asks for block min(k, s) (:49) and the kernel adds
+// only when k <= s; the probe asks whether the pipeline skips the copy of a
+// block whose index did not change since the last step.
+//
+// The walk (`chunk_walk_kernel`, one launch): a block owns one tile, R rows
+// of a chunk x one 128-column strip (ops/stream_probe_kernels.chunk_tiles:
+// (64, 4096, 1024) gives 32 row slices x 8 strips, 256 blocks of 128 x 128,
+// two an SM, so that even the 16 MiB of s = 1 fill the card), and walks k =
+// 0 .. n-1 as the TPU's "arbitrary" grid axis does (`skip`: only to
+// min(s, n-1)). Step k asks for chunk c = min(k, s), and the block copies it
+// (a TMA 3-D box, rows past CH zero, into a ring slot armed with expect_tx)
+// only when k <= s and c differs from the previous step's c: the Pallas
+// pipeline's rule, so chunks 0 .. min(s, n-1) are read once each and the
+// steps past s issue nothing and add nothing. The rule needs no state
+// (`walk_copies`; ops/stream_probe_kernels.walk_copies is the same rule), so
+// a warp decides 32 steps with one ballot: warp 0 walks ahead and its lane 0
+// issues the copies, up to four in flight, and every warp walks behind it.
+// 16 row groups x 16 threads of 8 columns sum a tile from shared memory
+// into registers, in chunk and row order; the row groups meet in shared
+// memory in a fixed order into the tile's partial row; the last block of a
+// strip to take an integer ticket adds the strip's partial rows in a fixed
+// order (every load in flight at once) and resets the ticket, so two runs
+// are bit-equal with no float atomics. The partial rows and tickets are
+// scratch the wrapper allocates once per shape. Bound: (s + 1) chunks read
+// once.
+//
+// The form it replaced (`chunk_sum_partial_kernel` + `chunk_sum_final_kernel`,
+// kept as the yardstick, variant "grid"): two launches; a block per (k, row
+// slice, strip), n x 8 x E / 128 blocks whatever s is, each reading chunk
+// min(k, s) through volatile loads and storing its sums only when k <= s
+// (`skip`: blocks past s return first), so at s = 1 the blocks past s
+// re-read chunk 1 from L2; a second launch adds the partial rows.
 //
 // K24 replaces tools/narrow_lane_dma_probe.py `stream_sum` (pallas_call
 // :36): out (1, lanes) = c + the sum over blocks and rows of x (blocks, T,
@@ -38,6 +61,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "func_attrs.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -194,6 +220,165 @@ chunk_sum_final_kernel(const float* __restrict__ partial,
   }
 }
 
+constexpr int WALK_THREADS = 256;  // 16 row groups x 16 threads of 8 columns
+constexpr int WALK_MAX_SLOTS = 4;
+
+// Whether step k of the walk copies chunk min(k, s): k <= s and the index
+// changed since step k - 1 (whose index was min(k - 1, s); none before step
+// 0). The rule needs no state, so a warp's lanes decide 32 steps at once.
+__device__ __forceinline__ bool walk_copies(int k, int s) {
+  return k <= s && min(k, s) != (k == 0 ? -1 : min(k - 1, s));
+}
+
+// The steps of [k0, k0 + 32) below `steps` that copy, a bit each, decided by
+// lane l for step k0 + l (the whole warp calls it).
+__device__ __forceinline__ unsigned walk_window(int k0, int steps, int s) {
+  const int k = k0 + (int)(threadIdx.x % 32);
+  return __ballot_sync(0xffffffffu, k < steps && walk_copies(k, s));
+}
+
+// One 3-D box of `map` at (c0 = column, c1 = row, c2 = chunk).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// block (slice, strip) over the tile of `rows` rows x 128 columns of every
+// chunk it copies; grid slices x strips
+__global__ void __launch_bounds__(WALK_THREADS)
+chunk_walk_kernel(const __grid_constant__ CUtensorMap tx,
+                  const int* __restrict__ s_ptr, float* __restrict__ partial,
+                  int* __restrict__ tickets, float* __restrict__ out,
+                  int n_chunks, int e, int rows, int slices, int slots,
+                  int skip) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[WALK_MAX_SLOTS];
+  __shared__ float red[16][STRIP + 1];
+  __shared__ int is_last;
+  const int strips = e / STRIP;
+  const int strip = blockIdx.x % strips, slice = blockIdx.x / strips;
+  const int tid = threadIdx.x, tx16 = tid % 16, ty = tid / 16, warp = tid / 32;
+  const int s = *s_ptr;
+  const int steps = skip ? max(0, min(s, n_chunks - 1) + 1) : n_chunks;
+  const uint32_t tile_bytes = (uint32_t)rows * STRIP * 2;
+  const uint32_t raw = sm90::smem_u32(ring);
+  const uint32_t base = (raw + 127u) & ~127u;  // a TMA box's alignment
+  const unsigned char* slots_at = ring + (base - raw);
+
+  // warp 0 walks ahead of the adds and its lane 0 issues the copies: `pk`
+  // the next step it looks at
+  const int lane = tid % 32;
+  int pk = 0, issued = 0;
+  auto issue_next = [&]() {  // warp 0: the next copy step's copy
+    for (; pk < steps; pk += 32) {
+      const unsigned m = walk_window(pk, steps, s);
+      if (m == 0) continue;
+      const int k = pk + __ffs(m) - 1;
+      pk = k + 1;
+      if (lane == 0) {
+        const int slot = issued % slots;
+        const uint32_t bar = sm90::smem_u32(&full[slot]);
+        sm90::mbar_expect_tx(bar, tile_bytes);
+        tma_load_3d(base + slot * tile_bytes, &tx, bar, strip * STRIP,
+                    slice * rows, min(k, s));
+      }
+      ++issued;
+      return;
+    }
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tx))
+                   : "memory");
+      for (int i = 0; i < slots; ++i)
+        sm90::mbar_init(sm90::smem_u32(&full[i]), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncwarp();
+    for (int i = 0; i < slots; ++i) issue_next();
+  }
+  __syncthreads();  // the barriers are initialised
+
+  // every warp walks the steps 32 at a time and adds the tile of each step
+  // that copies, in step order
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int used = 0;
+  for (int k0 = 0; k0 < steps; k0 += 32) {
+    unsigned m = walk_window(k0, steps, s);
+    while (m != 0) {
+      m &= m - 1;  // step k0 + ffs(m) - 1: its copy is the next one in the ring
+      const int slot = used % slots;
+      sm90::mbar_wait(sm90::smem_u32(&full[slot]),
+                      (uint32_t)((used / slots) & 1));
+      const unsigned char* tile =
+          slots_at + (size_t)slot * tile_bytes + 16 * tx16;
+#pragma unroll 4
+      for (int r = ty; r < rows; r += 16) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(tile + r * (STRIP * 2));
+        add_bf16x2(acc + 0, v.x);
+        add_bf16x2(acc + 2, v.y);
+        add_bf16x2(acc + 4, v.z);
+        add_bf16x2(acc + 6, v.w);
+      }
+      ++used;
+      __syncthreads();  // the slot is read: warp 0 refills it
+      if (warp == 0) issue_next();
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) red[ty][8 * tx16 + j] = acc[j];
+  __syncthreads();
+  const int col = strip * STRIP + tid;
+  if (tid < STRIP) {
+    float sum = 0.f;
+#pragma unroll
+    for (int g = 0; g < 16; ++g) sum += red[g][tid];
+    partial[(size_t)slice * e + col] = sum;
+    __threadfence();  // the partial row is seen before the ticket
+  }
+  // the last block of the strip adds the slices' partial rows: thread t
+  // sums slices t / 32, t / 32 + 8, ... of columns 4 (t % 32) .. + 3 (every
+  // load in flight at once), then the eight sums of a column in order
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&tickets[strip], 1) == slices - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const int c4 = strip * STRIP + 4 * (tid % 32), grp = tid / 32;
+  float4 sum4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int q = grp; q < slices; q += 8) {
+    const float4 v =
+        __ldcg(reinterpret_cast<const float4*>(partial + (size_t)q * e + c4));
+    sum4.x += v.x;
+    sum4.y += v.y;
+    sum4.z += v.z;
+    sum4.w += v.w;
+  }
+  float* r8 = &red[0][0];  // (8, 128) sums, the row groups' sums are read
+  r8[grp * STRIP + 4 * (tid % 32) + 0] = sum4.x;
+  r8[grp * STRIP + 4 * (tid % 32) + 1] = sum4.y;
+  r8[grp * STRIP + 4 * (tid % 32) + 2] = sum4.z;
+  r8[grp * STRIP + 4 * (tid % 32) + 3] = sum4.w;
+  __syncthreads();
+  if (tid < STRIP) {
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) sum += r8[q * STRIP + tid];
+    out[col] = sum;
+  }
+  if (tid == 0) tickets[strip] = 0;  // ready for the next call
+}
+
 constexpr int LANE_THREADS = 256;
 
 __global__ void __launch_bounds__(LANE_THREADS)
@@ -272,9 +457,9 @@ extern "C" int acai_bulk_copy_ring(const void* src, void* out, int steps,
   return (int)cudaGetLastError();
 }
 
-// K23. x (n_chunks, ch_rows, e) bf16, s (1,) int32, partial (n_chunks *
-// slices, e) fp32 scratch, out (1, e) fp32; e % 128 == 0, ch_rows % slices
-// == 0. Two launches.
+// K23's replaced form (variant "grid"). x (n_chunks, ch_rows, e) bf16, s
+// (1,) int32, partial (n_chunks * slices, e) fp32 scratch, out (1, e) fp32;
+// e % 128 == 0, ch_rows % slices == 0. Two launches.
 extern "C" int acai_clamped_chunk_sum(const void* x, const void* s,
                                       void* partial, void* out, int n_chunks,
                                       int ch_rows, int e, int slices, int skip,
@@ -287,6 +472,55 @@ extern "C" int acai_clamped_chunk_sum(const void* x, const void* s,
   chunk_sum_final_kernel<<<e / 32, SUM_THREADS, 0, st>>>(
       static_cast<const float*>(partial), static_cast<const int*>(s),
       static_cast<float*>(out), n_chunks, slices, e);
+  return (int)cudaGetLastError();
+}
+
+// The 3-D map of x (n_chunks, ch_rows, e) bf16: boxes of `rows` rows x 128
+// columns of one chunk, rows past ch_rows zero.
+static int chunk_map(CUtensorMap* map, const void* x, int n_chunks,
+                     int ch_rows, int e, int rows) {
+  const sm90::EncodeTiled fn = sm90::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)e, (cuuint64_t)ch_rows,
+                              (cuuint64_t)n_chunks};
+  const cuuint64_t strides[2] = {(cuuint64_t)e * 2,
+                                 (cuuint64_t)ch_rows * e * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)STRIP, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(x), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// K23, the walk: x (n_chunks, ch_rows, e) bf16, 16-byte aligned; s (1,)
+// int32; partial (slices, e) fp32 and tickets (e / 128,) int32 scratch, the
+// tickets zero (the kernel leaves them zero); out (1, e) fp32. e % 128 == 0,
+// rows in 16..128 with slices = ceil(ch_rows / rows), slots 2..4. One launch.
+extern "C" int acai_clamped_chunk_walk(const void* x, const void* s,
+                                       void* partial, void* tickets, void* out,
+                                       int n_chunks, int ch_rows, int e,
+                                       int rows, int slices, int slots,
+                                       int skip, void* stream) {
+  if (e % STRIP != 0 || rows < 16 || rows > 128 || rows % 16 != 0 ||
+      slices != (ch_rows + rows - 1) / rows || slots < 2 ||
+      slots > WALK_MAX_SLOTS || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx;
+  const int rc = chunk_map(&tx, x, n_chunks, ch_rows, e, rows);
+  if (rc != 0) return rc;
+  const int dyn = slots * rows * STRIP * 2 + 128;  // + the ring's alignment
+  const cudaError_t err = cudaFuncSetAttribute(
+      chunk_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return (int)err;
+  chunk_walk_kernel<<<slices * (e / STRIP), WALK_THREADS, dyn,
+                      static_cast<cudaStream_t>(stream)>>>(
+      tx, static_cast<const int*>(s), static_cast<float*>(partial),
+      static_cast<int*>(tickets), static_cast<float*>(out), n_chunks, e, rows,
+      slices, slots, skip);
   return (int)cudaGetLastError();
 }
 
@@ -306,3 +540,20 @@ extern "C" int acai_lane_stream_sum(const void* x, const void* c,
       static_cast<float*>(out), blocks, lanes);
   return (int)cudaGetLastError();
 }
+
+// The resource report (func_attrs.cuh): K23's walk at the tool's plan (three
+// slots of 128 x 128 bf16), the grid form it replaced; K22; K24.
+static const AcaiKernelEntry kResources[] = {
+    ACAI_KERNEL("clamped_chunk_sum", "", chunk_walk_kernel, WALK_THREADS,
+                3 * 128 * STRIP * 2 + 128),
+    ACAI_KERNEL("clamped_chunk_sum", "grid", chunk_sum_partial_kernel,
+                SUM_THREADS, 0),
+    ACAI_KERNEL("clamped_chunk_sum", "grid", chunk_sum_final_kernel,
+                SUM_THREADS, 0),
+    ACAI_KERNEL("bulk_copy_ring", "", bulk_copy_ring_kernel, 32,
+                3 * 64 * 1024),
+    ACAI_KERNEL("lane_stream_sum", "", lane_sum_partial_kernel, LANE_THREADS,
+                0),
+    ACAI_KERNEL("lane_stream_sum", "", lane_sum_final_kernel, LANE_THREADS, 0),
+};
+ACAI_EXPORT_RESOURCES(kResources)

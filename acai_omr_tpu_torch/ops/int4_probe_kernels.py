@@ -12,6 +12,12 @@ Int4 values are in [-8, 7]. The TPU's byte packing (``pack_bytes``) holds a
 ``lo`` and a ``hi`` value in one byte, ``(hi << 4) | (lo + 8)``; K14's words
 (:func:`quant_linear_kernel.pack_k8_int4`) hold eight K rows, each nibble
 the value plus 8, so -8 is the nibble 0 on both sides.
+
+K20 runs each strip of 32 output columns over the whole contraction in one
+block on the tensor cores (:func:`strip_plan`: a K split across a cluster
+only where the strips cannot fill the card); ``variant="atomic"`` forces the
+kernel it replaced (the contraction split over blocks whose sums meet by
+integer atomics in a zeroed output), kept as the yardstick.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import ctypes
 import torch
 
 from . import _build
+from .linear_kernel import N_SMS
 from .quant_linear_kernel import (pack_k4, pack_k8_int4, unpack_k4,
                                   unpack_k8_int4)
 
@@ -29,8 +36,12 @@ BYTE_SCHEMES = ("i8shift", "f32unpack")
 UNPACK_SCHEMES = ("f32", "i32", "i16", "i8div", "eyedot")
 MAX_ROWS = 32
 UNIT = 64  # x columns per contraction unit of K20
-SMEM_X_BYTES = 48 * 1024  # K20 stages its split's x columns in static-size smem
-TARGET_BLOCKS = 2 * 132  # two waves of blocks on an H100's 132 SMs
+SMEM_X_BYTES = 48 * 1024  # the atomic form stages its split's x in 48 KB
+TARGET_BLOCKS = 2 * N_SMS  # the atomic form: two waves of blocks
+STRIP_COLS = 32  # K20: output columns a block
+STRIP_FILL = N_SMS // 2  # strips that fill the card without a split
+SPLIT_MIN_BYTES = 32 * 1024  # a strip's weight bytes worth a cluster's launch
+MAX_SPLIT = 8  # a portable cluster
 
 
 def pack_bytes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -80,11 +91,13 @@ def _weight_shape(scheme: str, cin: int, cout: int) -> tuple:
     return (cin // 4, cout, 4) if scheme == "i8ref" else (cin // 8, cout)
 
 
-def gemm_plan(x: torch.Tensor, w: torch.Tensor, scheme: str) -> tuple:
-    """(bt, cin, cout, splits) of a K20 call; raises on what the kernel does
-    not take: bt outside 1..32, cin % 64, cout not a multiple of the block's
-    columns (128 words, 512 for the byte layouts), a weight of another
-    shape."""
+def gemm_plan(x: torch.Tensor, w: torch.Tensor, scheme: str,
+              variant=None) -> tuple:
+    """(bt, cin, cout) of a K20 call; raises on what the kernel does not
+    take: bt outside 1..32, cin % 64, cout not a multiple of 128 (words) or
+    512 (the byte layouts), a weight of another shape, an unknown
+    ``variant`` (None, ``"atomic"``, ``"split{s}"`` with s in 1, 2, 4, 8
+    dividing cin / 64)."""
     _scheme(scheme)
     if x.dim() != 2:
         raise ValueError("x must be (bt, cin)")
@@ -103,12 +116,72 @@ def gemm_plan(x: torch.Tensor, w: torch.Tensor, scheme: str) -> tuple:
         raise ValueError(f"{scheme} weights must be "
                          f"{_weight_shape(scheme, cin, cout)}, got "
                          f"{tuple(w.shape)}")
-    rows = 8 if bt <= 8 else 16 if bt <= 16 else 32
+    _forced_split(variant, cin)
+    return bt, cin, cout
+
+
+def _forced_split(variant, cin: int):
+    """The split ``variant`` forces (None: the plan's; ``"atomic"``: none)."""
+    if variant is None or variant == "atomic":
+        return None
+    s = variant[5:] if isinstance(variant, str) \
+        and variant.startswith("split") else ""
+    if s not in ("1", "2", "4", "8") or cin % (UNIT * int(s)):
+        raise ValueError(f"unknown variant {variant!r}: None, 'atomic' or "
+                         f"'split{{s}}' (s in 1, 2, 4, 8 dividing cin / "
+                         f"{UNIT})")
+    return int(s)
+
+
+def strip_rows(bt: int) -> int:
+    """The x rows of K20's boxes: bt padded with zeros to 8, 16 or 32."""
+    return 8 if bt <= 8 else 16 if bt <= 16 else 32
+
+
+def strip_column(scheme: str, j: int, g: int) -> int:
+    """The column of a strip that K20's mma n-slot g of 8-column tile j
+    holds (``csrc/int4_probe.cu`` ``strip_kernel``): 8 j + g for the word
+    layouts; 4 g + j for the byte layouts, whose thread loads the word of
+    its four columns 4 g .. 4 g + 3."""
+    return 4 * g + j if scheme in BYTE_SCHEMES else 8 * j + g
+
+
+def strip_bytes(scheme: str, cin: int) -> int:
+    """The weight bytes of one strip of 32 columns over all of cin."""
+    return cin * STRIP_COLS // (1 if scheme == "i8ref" else 2)
+
+
+def strip_plan(bt: int, cin: int, cout: int, scheme: str,
+               variant=None) -> tuple[int, int]:
+    """(strips, split) of a K20 call: cout / 32 strips, each over the whole
+    contraction in one block; split > 1 (a cluster of split blocks along K)
+    only where the strips cannot fill the card (fewer than half its SMs) and
+    a strip is deep enough (more than 32 KB of weights) to be worth the
+    cluster launch's fixed cost: the least power of two, at most 8, that
+    brings the blocks to half the SMs, each block at least 64 k.
+    ``variant="split{s}"`` forces s."""
+    _scheme(scheme)
+    strips = cout // STRIP_COLS
+    forced = _forced_split(variant, cin)
+    if forced is not None:
+        return strips, forced
+    split = 1
+    if strips < STRIP_FILL and strip_bytes(scheme, cin) > SPLIT_MIN_BYTES:
+        while (split < MAX_SPLIT and strips * split < STRIP_FILL
+               and cin % (UNIT * 2 * split) == 0):
+            split *= 2
+    return strips, split
+
+
+def atomic_splits(bt: int, cin: int, cout: int, scheme: str) -> int:
+    """The contraction splits of the atomic form: enough blocks for two
+    waves, and the split's x rows within 48 KB."""
+    cols = 4 * 128 if scheme in BYTE_SCHEMES else 128
+    rows = strip_rows(bt)
     units = cin // UNIT
     need = min(units, max(-(-TARGET_BLOCKS // (cout // cols)),
                           -(-rows * cin // SMEM_X_BYTES)))
-    splits = next(d for d in range(need, units + 1) if units % d == 0)
-    return bt, cin, cout, splits
+    return next(d for d in range(need, units + 1) if units % d == 0)
 
 
 def int4_delivery_gemm_plain(x: torch.Tensor, w: torch.Tensor,
@@ -120,22 +193,41 @@ def int4_delivery_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.round(x.double() @ wf.double()).to(torch.int32)
 
 
-def _launch_gemm(op, x, w, scheme):
-    bt, cin, cout, splits = gemm_plan(x, w, scheme)
+def _launch_gemm(op, x, w, scheme, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"atomic"`` forces
+    the kernel this one replaced, ``"split{s}"`` a split of the contraction
+    across a cluster of s blocks."""
+    bt, cin, cout = gemm_plan(x, w, scheme, variant)
     _build.require(x, "x", torch.int8, 2)
     _build.require(w, "w", torch.int32 if scheme in ("s4dot", "s4conv")
                    else torch.int8, w.dim())
     if w.device != x.device:
         raise ValueError("x and w must be on one device")
-    out = (torch.zeros if splits > 1 else torch.empty)(
-        (bt, cout), dtype=torch.int32, device=x.device)
-    fn = _build.bind("int4_probe", "acai_int4_delivery_gemm",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-            GEMM_SCHEMES.index(scheme), bt, cin, cout, splits,
-            _build.stream_ptr())
-    op.launched(scheme)
+    if variant == "atomic":
+        splits = atomic_splits(bt, cin, cout, scheme)
+        out = (torch.zeros if splits > 1 else torch.empty)(
+            (bt, cout), dtype=torch.int32, device=x.device)
+        fn = _build.bind("int4_probe", "acai_int4_delivery_gemm",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                GEMM_SCHEMES.index(scheme), bt, cin, cout, splits,
+                _build.stream_ptr())
+        op.launched(f"{scheme} atomic")
+        if splits > 1:
+            op.extra_launches += 1  # the memset of the output
+    else:
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("x and w must be 16-byte aligned")
+        _, split = strip_plan(bt, cin, cout, scheme, variant)
+        out = torch.empty((bt, cout), dtype=torch.int32, device=x.device)
+        fn = _build.bind("int4_probe", "acai_int4_delivery_gemm_strip",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                GEMM_SCHEMES.index(scheme), bt, cin, cout, split,
+                _build.stream_ptr())
+        op.launched(scheme if split == 1 else f"{scheme} split{split}")
     _build.check(rc, op.name)
     return out
 
@@ -144,7 +236,7 @@ int4_delivery_gemm = _build.KernelOp(
     "int4_delivery_gemm", "acai_omr_tpu_torch/csrc/int4_probe.cu",
     "tools/int4_probe.py:96 (run_variant, pallas_call :112); :130 "
     "(time_variant, pallas_call :147)", _launch_gemm,
-    int4_delivery_gemm_plain)
+    int4_delivery_gemm_plain, gemm_plan)
 
 
 def _check_unpack(packed: torch.Tensor, scheme: str, reps: int) -> None:

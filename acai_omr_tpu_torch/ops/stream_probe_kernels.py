@@ -7,6 +7,12 @@ Port of the Pallas kernels of ``tools/dma_issue_probe.py`` (``build``),
 (``stream_sum``), which ask what a copy costs to issue, whether reads past a
 device-side length cost memory traffic, and whether narrow rows stream at the
 rate of wide ones. Each has its plain PyTorch twin beside it.
+
+K23 walks the chunks as the TPU's grid does, one block a tile
+(:func:`chunk_tiles`), and copies a chunk only where :func:`chunk_walk` says
+the Pallas pipeline would: where the step adds it and its index changed.
+``variant="grid"`` forces the two-launch kernel it replaced, kept as the
+yardstick.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import ctypes
 import torch
 
 from . import _build
+from .linear_kernel import N_SMS
 
 LANES = 1024  # bf16 lanes of one source row of K22, as the TPU tool's
 ROW_BYTES = LANES * 2
@@ -23,7 +30,13 @@ MAX_SLOTS = 8
 EXPECT_TX_MAX = 2 ** 20 - 1  # bytes one mbarrier phase may expect
 HOPPER_SMEM_OPTIN = 232448  # cudaDevAttrMaxSharedMemoryPerBlockOptin, H100
 RING_STATIC_SMEM = 8 * MAX_SLOTS  # the barriers
-CHUNK_SLICES = 8  # K23 row slices of a chunk (x E / 128 strips)
+CHUNK_SLICES = 8  # K23's grid form: row slices of a chunk (x E / 128 strips)
+STRIP = 128  # K23: columns of a tile
+WALK_TARGET_BLOCKS = 2 * N_SMS  # K23's walk: two blocks an SM
+WALK_RING_BYTES = 96 * 1024  # a walk block's ring, two blocks an SM
+WALK_ROWS = (16, 128)  # the rows of a walk tile, a power of two between
+WALK_MAX_SLOTS = 4
+CHUNK_VARIANTS = (None, "grid")
 MAX_STREAM_BLOCKS = 512  # K24 blocks
 
 
@@ -99,15 +112,55 @@ bulk_copy_ring = _build.KernelOp(
 MODES = ("clamped", "skip")
 
 
-def _check_chunks(x: torch.Tensor, s: torch.Tensor, mode: str) -> int:
-    """K23's blocks per chunk; raises on what the kernel does not take."""
+def chunk_tiles(ch: int, e: int) -> tuple[int, int, int, int]:
+    """(rows, slices, strips, slots) of K23's walk over chunks of (ch, e):
+    tiles of ``rows`` rows (the fewest, a power of two in 16..128, that keep
+    the grid within two blocks an SM) x 128 columns, ``slices`` =
+    ceil(ch / rows) row slices (the last one's rows past ch read as zeros)
+    x ``strips`` = e / 128, one block a tile; a ring of ``slots`` tiles
+    (2..4, within 96 KB so that two blocks share an SM)."""
+    strips = e // STRIP
+    rows = WALK_ROWS[0]
+    while rows < WALK_ROWS[1] and -(-ch // rows) * strips > WALK_TARGET_BLOCKS:
+        rows *= 2
+    slots = max(2, min(WALK_MAX_SLOTS, WALK_RING_BYTES // (rows * STRIP * 2)))
+    return rows, -(-ch // rows), strips, slots
+
+
+def walk_copies(k: int, s: int) -> bool:
+    """Whether step k of K23's walk copies chunk min(k, s): k <= s and the
+    index changed since step k - 1's min(k - 1, s) (none before step 0).
+    The rule needs no state, so the kernel's lanes decide 32 steps at once
+    (``csrc/stream_probe.cu`` ``walk_copies``)."""
+    return k <= s and min(k, s) != (min(k - 1, s) if k else -1)
+
+
+def chunk_walk(n: int, s: int, mode: str = "clamped") -> list[tuple]:
+    """The steps a K23 block walks: (k, c, copy, add) for k = 0 .. n - 1
+    (``skip``: to min(s, n - 1)), c = min(k, s) the chunk the TPU's index
+    map asks for, ``copy`` whether the block copies it
+    (:func:`walk_copies`), ``add`` whether the TPU kernel adds it (k <= s).
+    The kernel adds a tile where it copies one."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    steps = n if mode == "clamped" else max(0, min(s, n - 1) + 1)
+    return [(k, min(k, s), walk_copies(k, s), k <= s) for k in range(steps)]
+
+
+def _check_chunks(x: torch.Tensor, s: torch.Tensor, mode: str = "clamped",
+                  variant=None) -> int:
+    """K23's shape rules and its variant, on either device: the grid form's
+    row slices of a chunk."""
+    if variant not in CHUNK_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: None (the walk) or "
+                         f"'grid'")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if x.dim() != 3 or x.dtype != torch.bfloat16:
         raise ValueError("x must be (chunks, rows, E) bf16")
     _, ch, e = x.shape
-    if e % 128 or e == 0:
-        raise ValueError(f"E must be a positive multiple of 128, got {e}")
+    if e % STRIP or e == 0:
+        raise ValueError(f"E must be a positive multiple of {STRIP}, got {e}")
     if s.numel() != 1 or s.dtype != torch.int32 or s.device != x.device:
         raise ValueError("s must be one int32 on x's device")
     return next(d for d in range(min(CHUNK_SLICES, ch), 0, -1) if ch % d == 0)
@@ -121,22 +174,55 @@ def clamped_chunk_sum_plain(x: torch.Tensor, s: torch.Tensor,
     return x[: last + 1].float().sum(dim=(0, 1)).reshape(1, -1)
 
 
-def _launch_chunks(op, x, s, mode="clamped"):
-    slices = _check_chunks(x, s, mode)
+# K23's scratch by (device, slices, E): the tiles' partial rows and the
+# strips' tickets, allocated once (the kernel leaves the tickets zero). Calls
+# that share a shape run on one stream at a time.
+_WALK_SCRATCH: dict = {}
+
+
+def _walk_scratch(device, slices: int, e: int) -> tuple:
+    key = (device, slices, e)
+    got = _WALK_SCRATCH.get(key)
+    if got is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("clamped_chunk_sum: call it once outside a "
+                               "CUDA graph capture first (its scratch)")
+        got = (torch.empty((slices, e), dtype=torch.float32, device=device),
+               torch.zeros(e // STRIP, dtype=torch.int32, device=device))
+        _WALK_SCRATCH[key] = got
+    return got
+
+
+def _launch_chunks(op, x, s, mode="clamped", variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"grid"`` forces the
+    two-launch kernel this one replaced."""
+    grid_slices = _check_chunks(x, s, mode, variant)
     _build.require(x, "x", torch.bfloat16, 3)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     n, ch, e = x.shape
-    partial = torch.empty((n * slices, e), dtype=torch.float32,
-                          device=x.device)
     out = torch.empty((1, e), dtype=torch.float32, device=x.device)
-    fn = _build.bind("stream_probe", "acai_clamped_chunk_sum",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), s.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
-            ch, e, slices, int(mode == "skip"), _build.stream_ptr())
-    op.launched(mode)
-    op.extra_launches += 1  # the second pass over the partial rows
+    if variant == "grid":
+        partial = torch.empty((n * grid_slices, e), dtype=torch.float32,
+                              device=x.device)
+        fn = _build.bind("stream_probe", "acai_clamped_chunk_sum",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), s.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), n, ch, e, grid_slices, int(mode == "skip"),
+                _build.stream_ptr())
+        op.launched(f"{mode} grid")
+        op.extra_launches += 1  # the second pass over the partial rows
+    else:
+        rows, slices, _, slots = chunk_tiles(ch, e)
+        partial, tickets = _walk_scratch(x.device, slices, e)
+        fn = _build.bind("stream_probe", "acai_clamped_chunk_walk",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), s.data_ptr(), partial.data_ptr(),
+                tickets.data_ptr(), out.data_ptr(), n, ch, e, rows, slices,
+                slots, int(mode == "skip"), _build.stream_ptr())
+        op.launched(mode)
     _build.check(rc, op.name)
     return out
 
@@ -144,7 +230,7 @@ def _launch_chunks(op, x, s, mode="clamped"):
 clamped_chunk_sum = _build.KernelOp(
     "clamped_chunk_sum", "acai_omr_tpu_torch/csrc/stream_probe.cu",
     "tools/dma_skip_probe.py:44 (run, kernel :28, pallas_call :55)",
-    _launch_chunks, clamped_chunk_sum_plain)
+    _launch_chunks, clamped_chunk_sum_plain, _check_chunks)
 
 
 # ---------------------------------------------------------------------------

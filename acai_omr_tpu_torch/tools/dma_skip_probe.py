@@ -6,15 +6,18 @@ card (K23)?
 
 Port of ``tools/dma_skip_probe.py`` (``run`` :44): the fp32 column sums of
 chunks 0..s of x (64, 4096, 1024) bf16 (512 MiB, 8 MiB a chunk), s an int32
-in device memory. ``clamped``: every block reads chunk min(k, s), as the TPU
-kernel's index map does, and adds only when k <= s; on Hopper the re-reads
-of chunk s may come from L2. ``skip``: blocks past s return before they
-load. Per s and mode: ms a call beside the full-read and the clamped floors
-at 3.35 TB/s, the sum held against the plain fp32 sum, two runs bit-equal;
-then the ratio of the full to the small clamp per mode (>> 1: the steps
-past s cost little). Every call reads its chunks from device memory: where
-(s + 1) chunks are under twice the L2, the calls rotate over copies of x
-that start (s + 1) chunks apart in one larger tensor.
+in device memory. The kernel walks the chunks as the TPU's grid does and
+copies chunk min(k, s) only where the step adds it and the index changed
+(the Pallas pipeline's rule): ``clamped`` walks all n steps, as the TPU
+kernel's index map does, and issues nothing past s; ``skip`` ends the walk
+at s. Per s and mode: ms a call beside the full-read and the clamped floors
+at 3.35 TB/s and ``torch.sum`` of chunks 0..s in fp32 (s known on the host)
+on the same inputs, the sum held against the plain fp32 sum, two runs
+bit-equal; then the ratio of the full to the small clamp per mode (>> 1: the
+steps past s cost little). Every call reads its chunks from device memory:
+where (s + 1) chunks are under twice the L2, the calls, and the library's,
+rotate over copies of x that start (s + 1) chunks apart in one larger
+tensor.
 """
 
 from __future__ import annotations
@@ -66,16 +69,20 @@ def main(argv=None, device="cuda", shape=(N_CHUNKS, CH, E)) -> dict:
             tol = REL_TOL * max(1.0, ref.abs().max().item())
             ms = time_ms(lambda i: clamped_chunk_sum(views[i], s_dev, mode),
                          dev, iters=args.reps, copies=copies)
+            lib_ms = time_ms(lambda i: torch.sum(
+                views[i][:s + 1], dim=(0, 1), dtype=torch.float32), dev,
+                iters=args.reps, copies=copies)
             bound = 1e3 * min(s + 1, n) * chunk / PEAK_BYTES_PER_S
             where = residency(dev, copies, (s + 1) * chunk)
             rows.append({"mode": mode, "s": s, "ms": ms, "bound_ms": bound,
-                         "max_abs_err": err, "tol": tol,
-                         "equal_runs": torch.equal(out, again),
+                         "library_ms": lib_ms, "max_abs_err": err,
+                         "tol": tol, "equal_runs": torch.equal(out, again),
                          "where": where})
             times[(mode, s)] = ms
             print(f"clamp={s:3d} [{mode:7s}]: {ms:7.3f} ms/call (full-read "
-                  f"floor {full_ms:.3f} ms, clamped floor {bound:.3f} ms), "
-                  f"{where}; max|err| {err:.2e} (tol {tol:.1e}), two runs "
+                  f"floor {full_ms:.3f} ms, clamped floor {bound:.3f} ms; "
+                  f"torch.sum of chunks 0..s {lib_ms:.3f} ms), {where}; "
+                  f"max|err| {err:.2e} (tol {tol:.1e}), two runs "
                   f"{'equal' if rows[-1]['equal_runs'] else 'DIFFER'}",
                   flush=True)
     ratios = {}

@@ -80,7 +80,10 @@ Phases, all in one process; any failure exits non-zero:
    with K11 decode_attention_hd on the same inputs (the microbench's
    per-head line) beside them; K19 smem_probe at 227 KB (row 0 bit for bit),
    228 KB refused; K20-K24 (the int4 and memory-stream probes' kernels,
-   ``int4_stream_cases``); K25 head_logits (persistent blocks, TMA-stored
+   ``int4_stream_cases``: K20 int4_delivery_gemm on whole-K column strips
+   and K23 clamped_chunk_sum as a chunk walk, each in turns with the kernel
+   it replaced, ``variant="atomic"`` / ``"grid"``, warm and from HBM, K23's
+   ``torch.sum`` on the same rotation); K25 head_logits (persistent blocks, TMA-stored
    tiles) in its three access forms at (T, E, H) = (256, 1024, 16) and
    (1024, 768, 12), K26 batched_head_logits in fp32 and int8 (exact), K27
    resident_elementwise in its five works at 8 passes; each against its
@@ -90,7 +93,7 @@ Phases, all in one process; any failure exits non-zero:
    (``variant="wmma"``) and K18 with its warp kernel (``variant="warp"``),
    each held to the twin too, warm and from HBM, two runs bit-equal; the
    resource rows (registers, local bytes, shared memory, blocks per SM) of
-   K16-K18 and K25-K27, none of the redesigned kernels with local memory.
+   K16-K18 and K20-K27, none of the redesigned kernels with local memory.
    Then
    the probes' main path, the launch counts reset before it and read after:
    ``main`` of the fourteen tools of ``acai_omr_tpu_torch/tools`` (gemm_probe,
@@ -104,8 +107,8 @@ Phases, all in one process; any failure exits non-zero:
    cudaDevAttrMaxSharedMemoryPerBlockOptin and at least the 227 KB
    ops/decode_hd_kernel.py assumes, every head-access form and K27 work
    right, every backward mode OK with the launches of its layer arithmetic,
-   no launch of K16's, K17's or K25's wmma kernel or K18's warp kernel on
-   the path;
+   no launch of K16's, K17's or K25's wmma kernel, K18's warp kernel, K20's
+   atomic kernel or K23's grid kernel on the path;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -275,9 +278,21 @@ EXPECTED_KERNELS = {
                "resident_elementwise"],
 }
 # the probe kernels redesigned for Hopper, each kept beside the kernel it
-# replaced (a "wmma" or "warp" variant) as the yardstick timed in turns
+# replaced (a "wmma", "warp", "atomic" or "grid" variant) as the yardstick
+# timed in turns
 REDESIGNED_PROBES = ("tile_gemm", "blockdiag_decode_attention",
-                     "batched_decode_attention", "head_logits")
+                     "batched_decode_attention", "head_logits",
+                     "int4_delivery_gemm", "clamped_chunk_sum")
+
+
+def replaced_form(variant: str) -> bool:
+    """Whether a launch variant (``KernelOp.variants`` key, or the variant
+    of a resource row) is the kernel a redesigned probe replaced: K16's,
+    K17's and K25's ``wmma``, K18's ``warp``, K20's ``atomic``, K23's
+    ``grid``."""
+    return "wmma" in variant or any(
+        variant == w or variant.endswith(" " + w)
+        for w in ("warp", "atomic", "grid"))
 # the stages bwd_vmem_probe stubs in the probes path, one run each
 BWD_PROBE_MODES = ("full", "nocross", "noself", "noffn")
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
@@ -1733,18 +1748,25 @@ def probe_cases(torch, F, record, kernel_times, dev):
 
 def int4_stream_cases(torch, record, kernel_times, dev):
     """K20-K24 against their twins at the tools' shapes. K20: the five
-    schemes at (8, 256, 512) and (8, 1024, 4096), exact; library none
-    (``torch._int_mm`` takes more than 16 rows); bound the weight, row and
-    output bytes. K21: the five schemes at (512, 4096), one unpack, bit for
-    bit; library none (no one call unpacks nibbles); bound 2 MiB in, 4 MiB
-    out. K22: F = 1..16 at the tool's defaults, the tile bit for bit; library
-    none (the output is one tile, the stream is the probe); bound the
-    stream. K23: both modes at s = 1 / 31 / 63, within 1e-5 of the largest
-    |output|, two runs bit-equal; library ``torch.sum`` of chunks 0..s in
-    fp32 (s known on the host); bound (s + 1) chunks; the twin reads s on
-    the host, so it is timed with events around eager calls. K24: lanes 16 / 128,
-    the same tolerance; library ``x.sum((0, 1))`` (without the carry);
-    bound x. ``cold`` rotates the inputs out of L2 where they fit it."""
+    schemes at (8, 256, 512) and (8, 1024, 4096), exact, one device kernel
+    a call; the strip kernel in turns with the atomic kernel it replaced
+    (``variant="atomic"``, exact too), warm and from HBM (the weights
+    rotated out of L2, ``old_cold_ms``); library none (``torch._int_mm``
+    takes more than 16 rows); bound the weight, row and output bytes. K21:
+    the five schemes at (512, 4096), one unpack, bit for bit; library none
+    (no one call unpacks nibbles); bound 2 MiB in, 4 MiB out. K22: F =
+    1..16 at the tool's defaults, the tile bit for bit; library none (the
+    output is one tile, the stream is the probe); bound the stream. K23:
+    both modes at s = 1 / 31 / 63, within 1e-5 of the largest |output|, two
+    runs bit-equal, one device kernel a call; the walk in turns with the
+    grid kernel it replaced (``variant="grid"``, within the tolerance
+    too), warm and from HBM; library ``torch.sum`` of chunks 0..s in fp32
+    (s known on the host), warm on the same tensor and from HBM on the same
+    rotating views as the kernel's cold time (``library_cold_ms``); bound
+    (s + 1) chunks; the twin reads s on the host, so it is timed with
+    events around eager calls. K24: lanes 16 / 128, the same tolerance;
+    library ``x.sum((0, 1))`` (without the carry); bound x. ``cold``
+    rotates the inputs out of L2 where they fit it."""
     from acai_omr_tpu_torch.ops import int4_probe_kernels as ik
     from acai_omr_tpu_torch.ops import stream_probe_kernels as sk
     from acai_omr_tpu_torch.tools import dma_issue_probe as dip
@@ -1753,25 +1775,39 @@ def int4_stream_cases(torch, record, kernel_times, dev):
     from acai_omr_tpu_torch.tools import unpack_probe as upp
     from acai_omr_tpu_torch.tools._probe import cold_copies, l2_bytes
 
+    def one_kernel(op, call):
+        """Whether one call of ``op`` runs one device kernel."""
+        before = op.device_launches
+        call()
+        return op.device_launches == before + 1
+
     print("[probes] K20-K24 against their twins", flush=True)
+    op20 = ik.int4_delivery_gemm
     for shape in (i4p.LEGALITY_SHAPE, i4p.TIMING_SHAPE):
         bt, cin, cout = shape
         lo, hi, x = i4p.make_inputs(bt, cin, cout, dev)
         for scheme in ik.GEMM_SCHEMES:
             w = ik.scheme_weights(lo, hi, scheme)
-            call = lambda: ik.int4_delivery_gemm(x, w, scheme)
-            out_k, out_p = call(), ik.int4_delivery_gemm.plain(x, w, scheme)
-            record(ik.int4_delivery_gemm, f"{scheme} bt={bt} {cin}->{cout} "
+            call = lambda v=None: op20(x, w, scheme, variant=v)
+            cold_of = lambda v: cold_ms(torch, lambda w_: op20(
+                x, w_, scheme, variant=v), [w])
+            out_k, out_p = call(), op20.plain(x, w, scheme)
+            exact = (torch.equal(out_k, out_p) and torch.equal(call(), out_k)
+                     and torch.equal(call("atomic"), out_p)
+                     and one_kernel(op20, call))
+            t_new, old = turns_ms(torch, call, lambda: call("atomic"))
+            c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                    lambda: cold_of("atomic"), timer=False)
+            _, split = ik.strip_plan(bt, cin, cout, scheme)
+            record(op20, f"{scheme} bt={bt} {cin}->{cout} split{split} "
                    f"(library: none, _int_mm takes more than 16 rows)",
-                   out_k, out_p, 0.0, kernel_times(call),
-                   time_ms(torch, lambda: ik.int4_delivery_gemm.plain(
-                       x, w, scheme)), None,
+                   out_k, out_p, 0.0, (t_new, host_us(torch, call)),
+                   time_ms(torch, lambda: op20.plain(x, w, scheme)), None,
                    w.numel() * w.element_size() + bt * cin + 4 * bt * cout,
                    2 * bt * cin * cout, peak=PEAK_INT8_OP_PER_S,
-                   paths=["probes"], exact=torch.equal(out_k, out_p),
-                   variant=scheme,
-                   cold=cold_ms(torch, lambda w_: ik.int4_delivery_gemm(
-                       x, w_, scheme), [w]))
+                   paths=["probes"], exact=exact,
+                   variant=scheme if split == 1 else f"{scheme} split{split}",
+                   old_ms=old, cold=c_new, extra={"old_cold_ms": c_old})
 
     wp, want = upp.make_block(device=dev)
     for scheme in ik.UNPACK_SCHEMES:
@@ -1802,12 +1838,16 @@ def int4_stream_cases(torch, record, kernel_times, dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     x = torch.randn(64, 4096, 1024, generator=g, device=dev).to(torch.bfloat16)
     chunk = x[0].numel() * 2
+    op23 = sk.clamped_chunk_sum
     for mode in sk.MODES:
         for s in (1, 31, 63):
             s_dev = torch.tensor([s], dtype=torch.int32, device=dev)
-            call = lambda: sk.clamped_chunk_sum(x, s_dev, mode)
+            call = lambda v=None: op23(x, s_dev, mode, variant=v)
             out_k, again = call(), call()
-            out_p = sk.clamped_chunk_sum.plain(x, s_dev, mode)
+            out_p = op23.plain(x, s_dev, mode)
+            tol = 1e-5 * max(1.0, out_p.abs().max().item())
+            exact = (torch.equal(out_k, again) and one_kernel(op23, call)
+                     and (call("grid") - out_p).abs().max().item() <= tol)
             # copies start (s + 1) chunks apart in one tensor; an own tensor
             # per copy would hold 512 MiB each
             copies = cold_copies((s + 1) * chunk, l2_bytes(dev))
@@ -1815,19 +1855,25 @@ def int4_stream_cases(torch, record, kernel_times, dev):
                 if copies > 1 else x
             views = [x_all[j * (s + 1): j * (s + 1) + 64]
                      for j in range(copies)]
-            record(sk.clamped_chunk_sum, f"{mode} s={s} x (64,4096,1024) "
-                   f"(library: torch.sum of chunks 0..s)", out_k, out_p,
-                   1e-5 * max(1.0, out_p.abs().max().item()),
-                   kernel_times(call),
-                   time_ms_eager(torch, lambda: sk.clamped_chunk_sum.plain(
+            cold_of = lambda v: time_ms(torch, lambda i: op23(
+                views[i], s_dev, mode, variant=v), copies=copies)
+            lib_of = lambda x_: torch.sum(x_[:s + 1], dim=(0, 1),
+                                          dtype=torch.float32)
+            t_new, old = turns_ms(torch, call, lambda: call("grid"))
+            c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                    lambda: cold_of("grid"), timer=False)
+            record(op23, f"{mode} s={s} x (64,4096,1024) "
+                   f"(library: torch.sum of chunks 0..s)", out_k, out_p, tol,
+                   (t_new, host_us(torch, call)),
+                   time_ms_eager(torch, lambda: op23.plain(
                        x, s_dev, mode), iters=5),
-                   time_ms(torch, lambda: torch.sum(
-                       x[:s + 1], dim=(0, 1), dtype=torch.float32)),
+                   time_ms(torch, lambda: lib_of(x)),
                    (s + 1) * chunk + 4 + 4 * 1024, (s + 1) * chunk // 2,
                    peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
-                   exact=torch.equal(out_k, again), variant=mode,
-                   cold=time_ms(torch, lambda i: sk.clamped_chunk_sum(
-                       views[i], s_dev, mode), copies=copies))
+                   exact=exact, variant=mode, old_ms=old, cold=c_new,
+                   lib_cold=time_ms(torch, lambda i: lib_of(views[i]),
+                                    copies=copies),
+                   extra={"old_cold_ms": c_old})
             del x_all, views
     del x
     torch.cuda.empty_cache()
@@ -1861,7 +1907,8 @@ def access_vpu_cases(torch, record, kernel_times, dev):
     from HBM (``old_cold_ms``), two runs bit-equal. K26: fp32 and int8 at
     BT = 8, T = 128, E = 1024, H = 16; int8 exact, fp32 within 1e-5 of the
     largest output; the transpose equal to the column sums bit for bit
-    (``exact``); bound k read once; library ``torch.einsum`` (fp32), none
+    (``exact``); bound k read once; library ``torch.einsum`` (fp32), warm
+    and from HBM on the kernel's rotation of k (``library_cold_ms``), none
     for int8. K27: the five works at 8 passes, one shape each, within 1e-5
     of the largest output; bound: the larger of the 8 bytes an element moves
     and the work's fp32 instructions (128 a SM a clock) or MUFU operations
@@ -1929,9 +1976,12 @@ def access_vpu_cases(torch, record, kernel_times, dev):
         tol = 0.0 if int8 else 1e-5 * max(1.0, c_p.abs().max().item())
         sums_ok = torch.equal(s_k, s_p) if int8 else \
             (s_k - s_p).abs().max().item() <= 1e-5 * s_p.abs().max().item()
-        lib = None if int8 else time_ms(torch, lambda: torch.einsum(
-            "bthd,bhd->tbh", k.view(mbp.BT, mbp.T, mbp.H, hk.DH),
-            q.view(mbp.BT, mbp.H, hk.DH)))
+        lib_of = lambda k_: torch.einsum(
+            "bthd,bhd->tbh", k_.view(mbp.BT, mbp.T, mbp.H, hk.DH),
+            q.view(mbp.BT, mbp.H, hk.DH))
+        lib = None if int8 else time_ms(torch, lambda: lib_of(k))
+        # the library call from HBM on the kernel's rotation (k's copies)
+        lib_cold = None if int8 else cold_ms(torch, lib_of, [k])
         nl = mbp.BT * mbp.H
         record(hk.batched_head_logits, f"{'int8' if int8 else 'fp32'} "
                f"BT={mbp.BT} T={mbp.T} E={mbp.E} H={mbp.H}"
@@ -1945,7 +1995,7 @@ def access_vpu_cases(torch, record, kernel_times, dev):
                paths=["probes"], variant="int8" if int8 else "fp32",
                exact=sums_ok and torch.equal(t_k.t(), s_k),
                cold=cold_ms(torch, lambda k_: hk.batched_head_logits(
-                   k_, q, mbp.H), [k]))
+                   k_, q, mbp.H), [k]), lib_cold=lib_cold)
         del k, q
 
     clock = sm_clock_hz(dev)
@@ -1969,16 +2019,17 @@ def access_vpu_cases(torch, record, kernel_times, dev):
                variant=f"{work} {cols}")
     spills = []
     for name in ("tile_gemm", "probe_decode_attention", "head_logits",
-                 "resident_elementwise"):
+                 "resident_elementwise", "int4_probe", "stream_probe"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
                   f"static_smem={r['static_smem']} "
                   f"dynamic_smem={r['dynamic_smem']} "
                   f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
-            # the redesigned probe kernels (K16-K18, K25) use no local memory
+            # the redesigned probe kernels (K16-K18, K20, K23, K25) use no
+            # local memory
             if r["local_bytes"] and r["op"] in REDESIGNED_PROBES \
-                    and r["variant"] != "warp" and "wmma" not in r["variant"]:
+                    and not replaced_form(r["variant"]):
                 spills.append(f"{r['op']} {r['variant']} {r['kernel']}")
     return spills
 
@@ -3944,10 +3995,11 @@ def main() -> int:
     for k in EXPECTED_KERNELS["probes"]:
         if probe_run["launches"][k] <= 0:
             failures.append(f"probes: launches[{k}]=0")
-    # K16-K18 and K25 on the path only in their new forms: the kernels they
-    # replaced ("wmma", "warp") run in the kernel checks' turns alone
+    # K16-K18, K20, K23 and K25 on the path only in their new forms: the
+    # kernels they replaced ("wmma", "warp", "atomic", "grid") run in the
+    # kernel checks' turns alone
     old_forms = {n: [v for v in probe_run["variants"].get(n, {})
-                     if "wmma" in v or v.endswith(" warp")]
+                     if replaced_form(v)]
                  for n in REDESIGNED_PROBES}
     print(f"[path probes] by variant " + json.dumps(
         {n: probe_run["variants"].get(n, {}) for n in old_forms}), flush=True)

@@ -1693,26 +1693,41 @@ def _int4(g, shape, dev, low=-8, high=8):
                                          (3, 512, 1024), (32, 1024, 512),
                                          (16, 4096, 1024)])
 def test_int4_delivery_gemm(dev, scheme, bt, cin, cout):
+    """The strip kernel at its plan's split, one device kernel a call, and
+    at every split of the contraction across a cluster, exact; the atomic
+    kernel it replaced exact too."""
     g = torch.Generator(device=dev).manual_seed(40 + bt)
     lo, hi = _int4(g, (cin // 2, cout), dev), _int4(g, (cin // 2, cout), dev)
     x = _int4(g, (bt, cin), dev, -127, 128)
     w = ik.scheme_weights(lo, hi, scheme)
-    out = ik.int4_delivery_gemm(x, w, scheme)
+    want = ik.int4_delivery_gemm.plain(x, w, scheme)
+    op = ik.int4_delivery_gemm
+    before = op.device_launches
+    out = op(x, w, scheme)
+    assert op.device_launches == before + 1
     assert out.dtype == torch.int32 and out.shape == (bt, cout)
-    assert torch.equal(out, ik.int4_delivery_gemm.plain(x, w, scheme))
+    assert torch.equal(out, want)
+    for split in (1, 2, 4, 8):
+        if cin % (64 * split) == 0:
+            assert torch.equal(op(x, w, scheme, variant=f"split{split}"),
+                               want), split
+    assert torch.equal(op(x, w, scheme, variant="atomic"), want)
 
 
 @pytest.mark.parametrize("scheme", ik.GEMM_SCHEMES)
 def test_int4_delivery_gemm_extremes(dev, scheme):
-    """-8 on both sides of the packing, rows of +-127: the largest sums."""
+    """-8 on both sides of the packing, rows of +-127: the largest sums;
+    the strip kernel, split across a cluster of 2, and the atomic kernel."""
     lo = torch.full((128, 512), -8, dtype=torch.int8, device=dev)
     hi = torch.full((128, 512), 7, dtype=torch.int8, device=dev)
     hi[::2] = -8
     x = torch.full((8, 256), 127, dtype=torch.int8, device=dev)
     x[1::2] = -127
     w = ik.scheme_weights(lo, hi, scheme)
-    assert torch.equal(ik.int4_delivery_gemm(x, w, scheme),
-                       ik.int4_delivery_gemm.plain(x, w, scheme))
+    want = ik.int4_delivery_gemm.plain(x, w, scheme)
+    for variant in (None, "split2", "atomic"):
+        assert torch.equal(ik.int4_delivery_gemm(x, w, scheme,
+                                                 variant=variant), want)
 
 
 @pytest.mark.parametrize("scheme", ik.UNPACK_SCHEMES)
@@ -1784,11 +1799,34 @@ def chunks():
 @pytest.mark.parametrize("mode", sk.MODES)
 @pytest.mark.parametrize("s", [-1, 0, 1, 31, 63, 70])
 def test_clamped_chunk_sum(dev, chunks, mode, s):
+    """The walk, one device kernel a call, two runs bit-equal; the grid
+    kernel it replaced within the same tolerance."""
     s_dev = torch.tensor([s], dtype=torch.int32, device=dev)
-    out = sk.clamped_chunk_sum(chunks, s_dev, mode)
-    again = sk.clamped_chunk_sum(chunks, s_dev, mode)
+    op = sk.clamped_chunk_sum
+    before = op.device_launches
+    out = op(chunks, s_dev, mode)
+    assert op.device_launches == before + 1
+    again = op(chunks, s_dev, mode)
     assert torch.equal(out, again)
-    _close(out, sk.clamped_chunk_sum.plain(chunks, s_dev, mode), 1e-5)
+    want = op.plain(chunks, s_dev, mode)
+    _close(out, want, 1e-5)
+    _close(op(chunks, s_dev, mode, variant="grid"), want, 1e-5)
+
+
+@pytest.mark.parametrize("n,ch,e", [(4, 64, 128), (3, 100, 256),
+                                    (5, 1, 384), (2, 4096, 128)])
+def test_clamped_chunk_sum_ragged_tiles(dev, n, ch, e):
+    """Chunk rows that are no whole number of tiles (TMA's zeros past them),
+    a strip or a few, every s from -1 to n + 1, in both modes."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    x = torch.randn(n, ch, e, generator=g, device=dev).to(torch.bfloat16)
+    for mode in sk.MODES:
+        for s in range(-1, n + 2):
+            s_dev = torch.tensor([s], dtype=torch.int32, device=dev)
+            want = sk.clamped_chunk_sum.plain(x, s_dev, mode)
+            out = sk.clamped_chunk_sum(x, s_dev, mode)
+            assert torch.equal(out, sk.clamped_chunk_sum(x, s_dev, mode))
+            _close(out, want, 1e-5)
 
 
 @pytest.mark.parametrize("lanes,blocks,t", [(16, 256, 512), (128, 256, 512),
