@@ -54,12 +54,28 @@
 // masks it (BT-fold wasted work, which K17 measured at 12-48x the per-head
 // form); the contract kept here is the three outputs. int8: q is rounded to
 // int8 half to even (jnp.round, then astype), products summed with __dp4a in
-// int32 and converted once: exact, |sum| <= 64 * 128 * 128 < 2^24. Column
-// sums: one block per (b, h) keeps its T values in shared memory and one warp
-// adds them in a fixed order (no float atomics; int32 for int8, converted
-// once); the same block writes colsum and its transpose, so they are equal
-// bit for bit. Bound: k read once (4 MiB fp32, 1 MiB int8) at 3.35 TB/s;
-// with only BT H = 128 blocks of work the kernel is latency-bound.
+// int32 and converted once: exact, |sum| <= 64 * 128 * 128 < 2^24. Bound: k
+// read once (4 MiB fp32, 1 MiB int8 at the tool's BT 8, T 128, E 1024) at
+// 3.35 TB/s. With BT H = 128 pairs of a few KB each, the time is a memory
+// round trip and the bytes each SM must pull, so the design (bh::slab_kernel)
+// puts a head's whole slab in flight before any arithmetic:
+//
+// * A block per (b, h) pair. Every thread issues its 16-byte cp.async
+//   pieces of the slab (T x 256 B fp32, T x 64 B int8, rows E apart) before
+//   it waits on any: 8 pieces a thread for the tool's fp32 slab of 32 KB, 2
+//   for its int8 slab of 8 KB. A slab past 64 KB (fp32 T > 256) is walked in
+//   chunks of at most 64 KB, each staged whole (`batched_plan`).
+// * Four lanes a key row read the staged row (fp32: pieces g, g + 4, ...,
+//   the halves of odd rows swapped so a quarter-warp's reads take one
+//   wavefront; int8: one piece, four __dp4a), in a fixed order, then two
+//   shuffles.
+// * Column sums in a fixed order: the pair's values in shared memory, one
+//   warp adds keys j, j + 32, ... a lane, then a butterfly. One thread
+//   writes colsum and its transpose: equal bit for bit, and two runs are
+//   bit-equal.
+// The kernel it replaced (one 4- or 16-byte load a thread in flight, a
+// shuffle sum per key row, T / 8 dependent steps) stays as
+// `variant="shuffle"`, the yardstick timed in turns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -369,22 +385,27 @@ batched_head_logits_kernel(const void* __restrict__ k,
   const float4 qv = *reinterpret_cast<const float4*>(
       q + (size_t)b * E + h * DH + sub * 4);
   const size_t col0 = (size_t)h * DH + sub * 4;
-  for (int t = grp; t < T; t += THREADS / ROW_LANES) {
+  // the steps are uniform in the block, so a warp's full-mask shuffles never
+  // diverge (the two key rows of a warp end together whatever T is)
+  for (int t0 = 0; t0 < T; t0 += THREADS / ROW_LANES) {
+    const int t = t0 + grp;
     const size_t at = ((size_t)b * T + t) * E + col0;
-    Acc acc;
-    if constexpr (INT8) {
-      const int kw = *reinterpret_cast<const int*>(
-          static_cast<const int8_t*>(k) + at);
-      acc = __dp4a(kw, pack_int8(qv), 0);
-    } else {
-      const float4 kv = *reinterpret_cast<const float4*>(
-          static_cast<const float*>(k) + at);
-      acc = kv.x * qv.x + kv.y * qv.y + kv.z * qv.z + kv.w * qv.w;
+    Acc acc = 0;
+    if (t < T) {
+      if constexpr (INT8) {
+        const int kw = *reinterpret_cast<const int*>(
+            static_cast<const int8_t*>(k) + at);
+        acc = __dp4a(kw, pack_int8(qv), 0);
+      } else {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            static_cast<const float*>(k) + at);
+        acc = kv.x * qv.x + kv.y * qv.y + kv.z * qv.z + kv.w * qv.w;
+      }
     }
 #pragma unroll
     for (int o = ROW_LANES / 2; o > 0; o >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, o, ROW_LANES);
-    if (sub == 0) {
+    if (t < T && sub == 0) {
       vals[t] = acc;
       compact[(size_t)t * NL + n] = (float)acc;
     }
@@ -401,6 +422,150 @@ batched_head_logits_kernel(const void* __restrict__ k,
     }
   }
 }
+
+
+// K26's kernel: grid (H, BT), block (h, b) walks the T keys of pair (b, h)
+// in chunks of `chunk` rows (ops/head_logits_kernels.py `batched_plan`), each
+// staged whole before any arithmetic on it.
+namespace bh {
+
+constexpr int THREADS = 256;
+constexpr int ROW_LANES = 4;                        // lanes of one key row
+constexpr int ROWS_A_ROUND = THREADS / ROW_LANES;   // 64
+constexpr int SLAB_BYTES = 64 * 1024;  // the most of a slab staged at once
+
+template <bool INT8>
+struct Slab {
+  static constexpr int ROW_BYTES = INT8 ? DH : DH * 4;        // 64 / 256
+  static constexpr int PIECES = ROW_BYTES / 16;                // 4 / 16
+};
+
+// The slot of 16-byte piece p of staged row r: an odd fp32 row swaps its two
+// halves of 8 pieces, so the quarter-warp of two rows x four lanes (lane g
+// reading piece g + 4 j) meets 8 distinct bank groups.
+template <bool INT8>
+__device__ __forceinline__ int slot(int r, int p) {
+  return INT8 ? p : p ^ ((r & 1) << 2);
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <bool INT8>
+__global__ void __launch_bounds__(THREADS)
+slab_kernel(const void* __restrict__ k, const float* __restrict__ q,
+            float* __restrict__ compact, float* __restrict__ colsum,
+            float* __restrict__ col, int T, int H, int chunk) {
+  using Acc = typename std::conditional<INT8, int, float>::type;
+  using L = Slab<INT8>;
+  extern __shared__ __align__(16) uint4 slab[];  // chunk x PIECES, swizzled
+  __shared__ Acc vals[MAX_T];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int E = H * DH;
+  const int n = b * H + h;
+  const int NL = gridDim.y * H;
+  const int tid = threadIdx.x;
+  const size_t stride = (size_t)E * (INT8 ? 1 : 4);  // bytes between keys
+  const char* base = static_cast<const char*>(k) + (size_t)b * T * stride +
+                     (size_t)h * L::ROW_BYTES;
+  // every thread's 16-byte pieces of keys [t0, t0 + chunk) in flight at once
+  auto stage = [&](int t0) {
+    const int rows = min(chunk, T - t0);
+    for (int i = tid; i < rows * L::PIECES; i += THREADS) {
+      const int r = i / L::PIECES, p = i % L::PIECES;
+      copy16(slab + r * L::PIECES + slot<INT8>(r, p),
+             base + (size_t)(t0 + r) * stride + p * 16);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  stage(0);
+
+  // this lane's part of q while the first chunk is in flight: fp32 the four
+  // pieces g + 4 j, int8 piece g rounded half to even and packed
+  const int g = tid % ROW_LANES;
+  const float4* q4 =
+      reinterpret_cast<const float4*>(q + (size_t)b * E + h * DH);
+  float4 qv[4];
+  int qi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (INT8)
+      qi[j] = pack_int8(q4[g * 4 + j]);
+    else
+      qv[j] = q4[g + 4 * j];
+  }
+
+  for (int t0 = 0; t0 < T; t0 += chunk) {  // uniform in the block
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    const int rows = min(chunk, T - t0);
+    for (int r0 = 0; r0 < rows; r0 += ROWS_A_ROUND) {
+      const int r = r0 + tid / ROW_LANES;
+      const bool live = r < rows;
+      const uint4* row = slab + (live ? r : 0) * L::PIECES;
+      Acc acc;
+      if constexpr (INT8) {
+        const uint4 kv = row[g];
+        acc = __dp4a((int)kv.x, qi[0], 0);
+        acc = __dp4a((int)kv.y, qi[1], acc);
+        acc = __dp4a((int)kv.z, qi[2], acc);
+        acc = __dp4a((int)kv.w, qi[3], acc);
+      } else {
+        float a[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 kv =
+              reinterpret_cast<const float4*>(row)[slot<false>(r, g + 4 * j)];
+          a[j] = kv.x * qv[j].x;
+          a[j] = fmaf(kv.y, qv[j].y, a[j]);
+          a[j] = fmaf(kv.z, qv[j].z, a[j]);
+          a[j] = fmaf(kv.w, qv[j].w, a[j]);
+        }
+        acc = (a[0] + a[1]) + (a[2] + a[3]);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (live && g == 0) {
+        vals[t0 + r] = acc;
+        compact[(size_t)(t0 + r) * NL + n] = (float)acc;
+      }
+    }
+    if (t0 + chunk < T) {
+      __syncthreads();  // every thread has read this chunk
+      stage(t0 + chunk);
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {  // lane j adds keys j, j + 32, ..., then a butterfly
+    Acc s = 0;
+    for (int t = tid; t < T; t += 32) s += vals[t];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (tid == 0) {
+      colsum[n] = (float)s;
+      col[n] = (float)s;
+    }
+  }
+}
+
+template <bool INT8>
+int launch_slab(const void* k, const float* q, float* compact, float* colsum,
+                float* col, int BT, int T, int H, int chunk, cudaStream_t s) {
+  const auto kernel = slab_kernel<INT8>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SLAB_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<dim3(H, BT), THREADS, chunk * Slab<INT8>::ROW_BYTES, s>>>(
+      k, q, compact, colsum, col, T, H, chunk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bh
 
 }  // namespace
 
@@ -445,6 +610,27 @@ extern "C" int acai_head_logits_persistent(const void* q, const void* k,
 
 // k: (BT, T, H * 64) fp32 (int8 == 0) or int8; q: (BT, H * 64) fp32;
 // compact: (T, BT * H), colsum: (BT * H,), col: (BT * H,) fp32. T <= 1024.
+// K26's slab kernel: the same arguments and `chunk`, the keys a block stages
+// at once (ops/head_logits_kernels.py `batched_plan`), at most 64 KB of them;
+// k and q 16-byte aligned.
+extern "C" int acai_batched_head_logits_slab(const void* k, const void* q,
+                                             void* compact, void* colsum,
+                                             void* col, int BT, int T, int H,
+                                             int int8, int chunk,
+                                             void* stream) {
+  if (T <= 0 || T > MAX_T || BT <= 0 || H <= 0 || chunk <= 0 ||
+      chunk * (int8 ? DH : DH * 4) > bh::SLAB_BYTES)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const float*>(q);
+  auto* cp = static_cast<float*>(compact);
+  auto* sp = static_cast<float*>(colsum);
+  auto* tp = static_cast<float*>(col);
+  return int8 ? bh::launch_slab<true>(k, qp, cp, sp, tp, BT, T, H, chunk, s)
+              : bh::launch_slab<false>(k, qp, cp, sp, tp, BT, T, H, chunk, s);
+}
+
+// The kernel K26's slab kernel replaced (variant "shuffle").
 extern "C" int acai_batched_head_logits(const void* k, const void* q,
                                         void* compact, void* colsum, void* col,
                                         int BT, int T, int H, int int8,
@@ -479,9 +665,14 @@ static const AcaiKernelEntry kResources[] = {
                 THREADS, 0),
     ACAI_KERNEL("head_logits", "preshaped wmma",
                 head_logits_kernel<PRESHAPED>, THREADS, 0),
-    ACAI_KERNEL("batched_head_logits", "fp32",
+    ACAI_KERNEL("batched_head_logits", "fp32 shuffle",
                 batched_head_logits_kernel<false>, THREADS, 0),
-    ACAI_KERNEL("batched_head_logits", "int8",
+    ACAI_KERNEL("batched_head_logits", "int8 shuffle",
                 batched_head_logits_kernel<true>, THREADS, 0),
+    // K26's slab kernels at the most shared memory a launch asks for
+    ACAI_KERNEL("batched_head_logits", "fp32 slab", bh::slab_kernel<false>,
+                bh::THREADS, bh::SLAB_BYTES),
+    ACAI_KERNEL("batched_head_logits", "int8 slab", bh::slab_kernel<true>,
+                bh::THREADS, bh::SLAB_BYTES),
 };
 ACAI_EXPORT_RESOURCES(kResources)

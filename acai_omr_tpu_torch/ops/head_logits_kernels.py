@@ -8,7 +8,10 @@ fused row-major buffer, and how single-query logits of a batch are laid out.
 Each has its plain PyTorch twin beside it. K25 runs on persistent blocks
 (:func:`head_logits_blocks`) that walk the tiles of
 :func:`head_logits_schedule`; ``variant="wmma"`` forces the kernel it
-replaced, kept as the yardstick.
+replaced, kept as the yardstick. K26 stages each (image, head) slab of keys
+whole in shared memory, one block a pair, in chunks where the slab is larger
+than one block stages at once (:func:`batched_plan`); ``variant="shuffle"``
+forces the kernel it replaced.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ DH = 64  # the head width both kernels are compiled for
 FORMS = ("lane_slice", "reshape", "preshaped")
 TILE_Q, TILE_K = 64, 128  # K25: queries x keys of one head a tile
 BLOCKS_PER_SM = 2  # K25's persistent blocks (81 KB of shared memory each)
-MAX_KEYS = 1024  # K26: keys a (b, h) pair holds in shared memory
+MAX_KEYS = 1024  # K26: the most keys a call takes
+SLAB_BYTES = 64 * 1024  # K26: the most of a slab a block stages at once
 
 
 # ---------------------------------------------------------------------------
@@ -186,21 +190,61 @@ def batched_head_logits_plain(k: torch.Tensor, q: torch.Tensor,
     return compact, colsum, colsum.t().contiguous()
 
 
-def _launch_batched(op, k, q, num_heads):
-    bt, t = batched_dims(k, q, num_heads)
+def slab_row_bytes(dtype: torch.dtype) -> int:
+    """Bytes of one key row of a head: 64 int8 or 64 fp32 values."""
+    return DH * (1 if dtype == torch.int8 else 4)
+
+
+def batched_plan(bt: int, t: int, h: int,
+                 dtype: torch.dtype) -> tuple[int, int]:
+    """(chunks, keys a chunk) of K26: the block of each (b, h) pair walks
+    its T keys in the fewest chunks of at most :data:`SLAB_BYTES` (fp32:
+    256 keys, int8: 1,024), of equal size but the last, each staged whole
+    before any arithmetic on it."""
+    chunks = -(-t * slab_row_bytes(dtype) // SLAB_BYTES)
+    return chunks, -(-t // chunks)
+
+
+BATCHED_VARIANTS = (None, "shuffle")
+
+
+def _check_batched(k, q, num_heads, variant=None) -> tuple[int, int]:
+    """K26's shape rules and its variant, on either device: (BT, T)."""
+    if variant not in BATCHED_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of "
+                         f"{BATCHED_VARIANTS}")
+    return batched_dims(k, q, num_heads)
+
+
+def _launch_batched(op, k, q, num_heads, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"shuffle"`` forces
+    the kernel the slab kernel replaced."""
+    bt, t = _check_batched(k, q, num_heads, variant)
     _build.require(k, "k", k.dtype, 3)
     _build.require(q, "q", torch.float32, 2)
     nl = bt * num_heads
     compact = torch.empty((t, nl), dtype=torch.float32, device=k.device)
     colsum = torch.empty((1, nl), dtype=torch.float32, device=k.device)
     col = torch.empty((nl, 1), dtype=torch.float32, device=k.device)
-    fn = _build.bind("head_logits", "acai_batched_head_logits",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                     + [ctypes.c_void_p])
     int8 = k.dtype == torch.int8
-    rc = fn(k.data_ptr(), q.data_ptr(), compact.data_ptr(), colsum.data_ptr(),
-            col.data_ptr(), bt, t, num_heads, int(int8), _build.stream_ptr())
-    op.launched("int8" if int8 else "fp32")
+    dtype = "int8" if int8 else "fp32"
+    args = (k.data_ptr(), q.data_ptr(), compact.data_ptr(), colsum.data_ptr(),
+            col.data_ptr(), bt, t, num_heads, int(int8))
+    if variant == "shuffle":
+        fn = _build.bind("head_logits", "acai_batched_head_logits",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+        rc = fn(*args, _build.stream_ptr())
+        op.launched(f"{dtype} shuffle")
+    else:
+        if k.data_ptr() % 16 or q.data_ptr() % 16:
+            raise ValueError("k and q must be 16-byte aligned")
+        _, chunk = batched_plan(bt, t, num_heads, k.dtype)
+        fn = _build.bind("head_logits", "acai_batched_head_logits_slab",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        rc = fn(*args, chunk, _build.stream_ptr())
+        op.launched(f"{dtype} slab")
     _build.check(rc, op.name)
     return compact, colsum, col
 
@@ -209,4 +253,4 @@ batched_head_logits = _build.KernelOp(
     "batched_head_logits", "acai_omr_tpu_torch/csrc/head_logits.cu",
     "tools/mosaic_batched_attn_probe.py:77 (run: kern :86 / kernel :31, "
     "pallas_call :117)",
-    _launch_batched, batched_head_logits_plain)
+    _launch_batched, batched_head_logits_plain, _check_batched)

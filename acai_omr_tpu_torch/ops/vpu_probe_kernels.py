@@ -7,7 +7,11 @@ on-chip: ``iters`` chained passes ``x <- work(x) + 0.5 x + (i & 1) 1e-6``
 over one fp32 block. The port keeps its own copies of the JAX kernels' two
 erf forms (``pallas_monolith._erf_rational`` / ``_erf_poly``) and their
 coefficients, and adds ``gelu_erff``: CUDA's ``erff``, the GELU of the port's
-own K1 / K5 / K14 epilogues (its plain twin uses ``torch.erf``).
+own K1 / K5 / K14 epilogues (its plain twin uses ``torch.erf``). The kernel
+lays each row over the lanes :func:`resident_plan` gives;
+``variant="fixed"`` forces the kernel it replaced, kept as the yardstick, and
+a layout ``"<L>x<V>"`` (``" smem"`` added: the sums through shared memory)
+forces the plan kernel at a layout the source compiles.
 
 :data:`OPS_PER_ELEMENT` counts, per element and pass, the fp32 instructions
 (an FMA is one) and the MUFU operations (exp, reciprocal) of each work's
@@ -19,14 +23,29 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 
 import torch
 
 from . import _build
+from .linear_kernel import N_SMS
 
 WORKS = ("softmax", "ln", "gelu", "gelu_poly", "gelu_erff")
 COLS = (256, 768, 1024, 3072, 4096)  # compiled row widths
-WARPS_PER_ROW = {256: 1, 768: 1, 1024: 1, 3072: 4, 4096: 4}
+WARPS_PER_ROW = {256: 1, 768: 1, 1024: 1, 3072: 4, 4096: 4}  # "fixed"
+# the plan kernel's lanes a row of softmax and ln, by row width
+# (csrc/resident_elementwise.cu K27_PLANS): at most 32 values a lane
+ROW_LANES = {256: 32, 768: 32, 1024: 32, 3072: 128, 4096: 128}
+# softmax rows of 1,024 on 128 lanes (8 values a lane) where the rows put at
+# most two such warps on an SM
+WIDE_SOFTMAX_COLS, WIDE_SOFTMAX_LANES = 1024, 128
+# the GELU works: pieces of 32 lanes x 8 values, four a block
+PIECE_LANES, PIECE_VALUES, PIECES_PER_BLOCK = 32, 8, 4
+VARIANTS = (None, "fixed")  # and the layouts LAYOUT matches
+LAYOUT = re.compile(r"(\d+)x(\d+)( smem)?")
+# |z| at which the plan kernel clamps the A&S erf's argument (ERF_ONE in the
+# source): from |z| = 4 the formula rounds to 1.0f, so no bit changes
+ERF_ONE = 8.0
 LN_EPS = 1e-5
 # fp32 instructions, MUFU operations per element and pass. softmax: max, sub,
 # exp (4 + 1 MUFU), sum, scale, feedback (FMA + add); ln: sum, centre,
@@ -101,8 +120,13 @@ WORK_FN = {
 }
 
 
-def check_block(x: torch.Tensor, work: str, iters: int) -> None:
+def check_block(x: torch.Tensor, work: str, iters: int,
+                variant: str | None = None) -> None:
     """Raise on what K27 does not take."""
+    if variant not in VARIANTS and not (
+            isinstance(variant, str) and LAYOUT.fullmatch(variant)):
+        raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS} "
+                         f"or a layout '<L>x<V>[ smem]'")
     if work not in WORKS:
         raise ValueError(f"work must be one of {WORKS}, got {work!r}")
     if x.dim() != 2 or x.dtype != torch.float32:
@@ -128,17 +152,71 @@ def resident_elementwise_plain(x: torch.Tensor, work: str,
     return x.clone() if iters == 0 else x
 
 
-def _launch(op, x, work, iters):
-    check_block(x, work, iters)
+def resident_plan(rows: int, cols: int, work: str,
+                  variant: str | None = None) -> tuple[int, int, int, bool]:
+    """(lanes, values a lane, pieces a block, shared sums) of the plan
+    kernel. softmax and ln: a piece is a row, on :data:`ROW_LANES` lanes
+    (whole warps, at most 32 values a lane), one a block, so 256 rows launch
+    256 blocks; softmax rows of 1,024 take 128 lanes of 8 values where the
+    rows are at most two an SM (there a lane's 32 exponentials, not the
+    reductions, are the longer chain). Where one-warp ln rows are at most
+    two an SM (one wave that leaves the SMs idle), a row's two sums go
+    through shared memory, a shorter chain than the shuffle butterfly,
+    which wins once the SMs are busy (softmax has one sum, and gains
+    nothing). ``chip_smoke.py --k27-plan`` times each choice against the
+    other. The GELU works: pieces of 32 lanes x 8 values, four a block. A
+    layout ``variant`` replaces the lanes, the values and the shared
+    sums."""
+    if cols not in ROW_LANES or work not in WORKS:
+        raise ValueError(f"no plan for {work!r} at cols={cols}")
+    forced = LAYOUT.fullmatch(variant or "")
+    if forced:
+        return (int(forced[1]), int(forced[2]),
+                PIECES_PER_BLOCK if work.startswith("gelu") else 1,
+                bool(forced[3]))
+    if work.startswith("gelu"):
+        return PIECE_LANES, PIECE_VALUES, PIECES_PER_BLOCK, False
+    few = rows <= 2 * N_SMS
+    lanes = ROW_LANES[cols]
+    if work == "softmax" and cols == WIDE_SOFTMAX_COLS and few:
+        lanes = WIDE_SOFTMAX_LANES
+    return lanes, cols // lanes, 1, work == "ln" and few and lanes == 32
+
+
+def plan_variant(rows: int, cols: int, work: str,
+                 variant: str | None = None) -> str:
+    """The plan kernel's variant for these rows: "<work> <cols> <L>x<V>",
+    " smem" added where its sums go through shared memory."""
+    lanes, values, _, smem = resident_plan(rows, cols, work, variant)
+    return f"{work} {cols} {lanes}x{values}" + (" smem" if smem else "")
+
+
+def _launch(op, x, work, iters, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"fixed"`` forces
+    the kernel the plan kernel replaced, a layout ``"<L>x<V>[ smem]"`` the
+    plan kernel at that layout."""
+    check_block(x, work, iters, variant)
     _build.require(x, "x", torch.float32, 2)
     rows, cols = x.shape
     out = torch.empty_like(x)
-    fn = _build.bind("resident_elementwise", "acai_resident_elementwise",
-                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                     + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), out.data_ptr(), rows, cols, WORKS.index(work),
-            iters, _build.stream_ptr())
-    op.launched(f"{work} {cols}")
+    args = (x.data_ptr(), out.data_ptr(), rows, cols, WORKS.index(work),
+            iters)
+    if variant == "fixed":
+        fn = _build.bind("resident_elementwise", "acai_resident_elementwise",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+        rc = fn(*args, _build.stream_ptr())
+        op.launched(f"{work} {cols} fixed")
+    else:
+        lanes, values, per_block, smem = resident_plan(rows, cols, work,
+                                                       variant)
+        fn = _build.bind("resident_elementwise",
+                         "acai_resident_elementwise_plan",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                         + [ctypes.c_void_p])
+        rc = fn(*args, lanes, values, per_block, int(smem),
+                _build.stream_ptr())
+        op.launched(plan_variant(rows, cols, work, variant))
     _build.check(rc, op.name)
     return out
 
@@ -146,7 +224,7 @@ def _launch(op, x, work, iters):
 resident_elementwise = _build.KernelOp(
     "resident_elementwise", "acai_omr_tpu_torch/csrc/resident_elementwise.cu",
     "tools/vpu_probe.py:85 (run, _kernel :76, pallas_call :91)",
-    _launch, resident_elementwise_plain)
+    _launch, resident_elementwise_plain, check_block)
 
 
 def bound_s(work: str, elems: int, iters: int, sm_clock_hz: float,

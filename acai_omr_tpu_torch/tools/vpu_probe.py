@@ -24,7 +24,9 @@ Each shape is also held against the plain twin at 8 passes
 (``max_rel_err``): the rates are measured on other values. GELU's feedback
 ``y ~ 1.5 x`` overflows to inf within a few hundred passes for x > 0 (as it
 does on the TPU), so the timed passes run on infs and on values decaying
-to 0; numerical checks use 16 passes or fewer.
+to 0; the kernel's pass costs the same on them as on finite values (the
+A&S erf's argument is clamped where erf is already 1, so its reciprocal
+never takes the slow path). Numerical checks use 16 passes or fewer.
 """
 
 from __future__ import annotations

@@ -194,7 +194,9 @@ exits; ``--attn-splits`` times only K2's and K11's cluster kernels at every
 split of the keys at the decode shapes (``attn_splits``) and exits;
 ``--k4-plan`` times only K4's vector kernel at 1 and 4 warps a row and
 the scalar kernel at the paths' rows (``k4_plan``) and exits;
-``--int8-splits`` times only K5's, K6's, K12's and K14's cluster kernels
+``--k27-plan`` times only K27's plan kernel at the tool's softmax and ln
+shapes at each layout its plan takes on either side of its row threshold
+(``k27_plan``) and exits; ``--int8-splits`` times only K5's, K6's, K12's and K14's cluster kernels
 at every split (K5 also at 64 and 128 columns a block) at the int8 paths'
 shapes, from HBM, beside their plans' choices (``int8_splits``) and exits.
 Phase 3 also holds the monolith int8 step against the per-op int8 step on
@@ -278,21 +280,22 @@ EXPECTED_KERNELS = {
                "resident_elementwise"],
 }
 # the probe kernels redesigned for Hopper, each kept beside the kernel it
-# replaced (a "wmma", "warp", "atomic" or "grid" variant) as the yardstick
-# timed in turns
+# replaced (a "wmma", "warp", "atomic", "grid", "shuffle" or "fixed"
+# variant) as the yardstick timed in turns
 REDESIGNED_PROBES = ("tile_gemm", "blockdiag_decode_attention",
                      "batched_decode_attention", "head_logits",
-                     "int4_delivery_gemm", "clamped_chunk_sum")
+                     "int4_delivery_gemm", "clamped_chunk_sum",
+                     "batched_head_logits", "resident_elementwise")
 
 
 def replaced_form(variant: str) -> bool:
     """Whether a launch variant (``KernelOp.variants`` key, or the variant
     of a resource row) is the kernel a redesigned probe replaced: K16's,
     K17's and K25's ``wmma``, K18's ``warp``, K20's ``atomic``, K23's
-    ``grid``."""
+    ``grid``, K26's ``shuffle``, K27's ``fixed``."""
     return "wmma" in variant or any(
         variant == w or variant.endswith(" " + w)
-        for w in ("warp", "atomic", "grid"))
+        for w in ("warp", "atomic", "grid", "shuffle", "fixed"))
 # the stages bwd_vmem_probe stubs in the probes path, one run each
 BWD_PROBE_MODES = ("full", "nocross", "noself", "noffn")
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
@@ -385,6 +388,13 @@ def turns_ms(torch, new, old, timer: bool = True) -> tuple[float, float]:
     run = (lambda fn: time_ms(torch, fn)) if timer else (lambda fn: fn())
     a, b, c, d = (run(fn) for fn in (new, old, old, new))
     return min(a, d), min(b, c)
+
+
+def one_kernel(op, call) -> bool:
+    """Whether one call of ``op`` runs one device kernel."""
+    before = op.device_launches
+    call()
+    return op.device_launches == before + 1
 
 
 def time_ms_eager(torch, fn, iters: int = 20) -> float:
@@ -1450,6 +1460,49 @@ def k4_plan(torch) -> list:
     return out
 
 
+def k27_plan(torch) -> list:
+    """K27's plan kernel at the tool's softmax and ln shapes, at the layout
+    ``resident_plan`` takes for these rows and at the layout it takes on the
+    other side of its row threshold (forced through ``variant="<L>x<V>[
+    smem]"``), in turns (rising, then falling order; the lesser of two
+    readings): ns a pass from the 200- and 400-pass launches, where the
+    launch's fixed cost cancels. Where both sides take one layout there is
+    nothing to compare."""
+    from acai_omr_tpu_torch.ops import vpu_probe_kernels as vk
+    from acai_omr_tpu_torch.ops.linear_kernel import N_SMS
+    from acai_omr_tpu_torch.tools import vpu_probe as vpp
+    dev = torch.device("cuda")
+
+    def layout(rows, cols, work):
+        lanes, values, _, smem = vk.resident_plan(rows, cols, work)
+        return f"{lanes}x{values}" + (" smem" if smem else "")
+    out = []
+    for work in ("softmax", "ln"):
+        for rows, cols in vpp.SHAPES[work]:
+            plan = layout(rows, cols, work)
+            layouts = list(dict.fromkeys(
+                [plan] + [layout(r, cols, work)
+                          for r in (2 * N_SMS, 2 * N_SMS + 1)]))
+            x = vpp.make_block(rows, cols, dev)
+            times = {}
+            for v in layouts + layouts[::-1]:
+                t1, t2 = (time_ms(torch, lambda n=n, v=v:
+                                  vk.resident_elementwise(x, work, n,
+                                                          variant=v))
+                          for n in (200, 400))
+                ns = (t2 - t1) / 200 * 1e6
+                times[v] = min(times.get(v, ns), ns)
+            best = min(times, key=times.get)
+            out.append({"work": work, "rows": rows, "cols": cols,
+                        "plan": plan, "ns_per_pass": times})
+            print(f"[k27 plan] {work} {rows}x{cols}: plan {plan} "
+                  f"{times[plan]:.1f} ns a pass, best {best} "
+                  f"{times[best]:.1f}; "
+                  + json.dumps({v: round(t_, 1) for v, t_ in times.items()}),
+                  flush=True)
+    return out
+
+
 def k7_bit_failures(torch) -> list:
     """K7's bits at its training sites against the recorded K7_BITS."""
     got = k7_bits(torch)
@@ -1775,12 +1828,6 @@ def int4_stream_cases(torch, record, kernel_times, dev):
     from acai_omr_tpu_torch.tools import unpack_probe as upp
     from acai_omr_tpu_torch.tools._probe import cold_copies, l2_bytes
 
-    def one_kernel(op, call):
-        """Whether one call of ``op`` runs one device kernel."""
-        before = op.device_launches
-        call()
-        return op.device_launches == before + 1
-
     print("[probes] K20-K24 against their twins", flush=True)
     op20 = ik.int4_delivery_gemm
     for shape in (i4p.LEGALITY_SHAPE, i4p.TIMING_SHAPE):
@@ -1906,14 +1953,22 @@ def access_vpu_cases(torch, record, kernel_times, dev):
     persistent kernel in turns with the wmma kernel it replaced, warm and
     from HBM (``old_cold_ms``), two runs bit-equal. K26: fp32 and int8 at
     BT = 8, T = 128, E = 1024, H = 16; int8 exact, fp32 within 1e-5 of the
-    largest output; the transpose equal to the column sums bit for bit
-    (``exact``); bound k read once; library ``torch.einsum`` (fp32), warm
-    and from HBM on the kernel's rotation of k (``library_cold_ms``), none
-    for int8. K27: the five works at 8 passes, one shape each, within 1e-5
-    of the largest output; bound: the larger of the 8 bytes an element moves
-    and the work's fp32 instructions (128 a SM a clock) or MUFU operations
-    (16) at the card's highest SM clock; library none (no one call runs the
-    chained passes). K25 and K26 also from HBM (``cold``). Then the resource
+    largest output; the transpose equal to the column sums bit for bit, two
+    runs bit-equal, one device kernel a call (``exact``); the slab kernel in
+    turns with the kernel it replaced (``variant="shuffle"``, held to the
+    twin too), warm and from HBM; bound k read once; library
+    ``torch.einsum`` (fp32), warm and from HBM on the kernel's rotation of k
+    (``library_cold_ms``), none for int8. K27: the five works at 8 passes,
+    one shape each, within 1e-5 of the largest output; the plan kernel in
+    turns with the kernel it replaced (``variant="fixed"``, held to the
+    twin too), warm and from HBM, and ``ns_per_pass`` on finite values from
+    the 8- and 16-pass launches of both; the GELU works also from a block
+    that has overflowed (320 passes): both kernels keep the twin's infs,
+    make no NaN and hold the finite values within 1e-5 of the largest, and
+    the 8-pass launch on it in turns (``overflowed_ms``); bound: the larger
+    of the 8 bytes an element moves and the work's fp32 instructions (128 a
+    SM a clock) or MUFU operations (16) at the card's highest SM clock;
+    library none (no one call runs the chained passes). Then the resource
     rows of K16-K18 and K25-K27; returns those of the redesigned kernels
     (``REDESIGNED_PROBES``, not the kernels they replaced) that use local
     memory."""
@@ -1970,32 +2025,47 @@ def access_vpu_cases(torch, record, kernel_times, dev):
 
     for int8 in (False, True):
         k, q = (torch.from_numpy(a).to(dev) for a in mbp.make_inputs(int8))
-        call = lambda: hk.batched_head_logits(k, q, mbp.H)
+        dtype = "int8" if int8 else "fp32"
+        # the slab kernel, timed in turns with the kernel it replaced (held
+        # to the twin too), warm and from HBM (k rotated out of L2); two
+        # runs bit-equal, one device kernel a call
+        call = lambda v=None: hk.batched_head_logits(k, q, mbp.H, variant=v)
+        cold_of = lambda v: cold_ms(torch, lambda k_: hk.batched_head_logits(
+            k_, q, mbp.H, variant=v), [k])
         (c_k, s_k, t_k), (c_p, s_p, _) = call(), \
             hk.batched_head_logits.plain(k, q, mbp.H)
         tol = 0.0 if int8 else 1e-5 * max(1.0, c_p.abs().max().item())
         sums_ok = torch.equal(s_k, s_p) if int8 else \
             (s_k - s_p).abs().max().item() <= 1e-5 * s_p.abs().max().item()
+        c_o, _, t_o = call("shuffle")
+        exact = (sums_ok and torch.equal(t_k.t(), s_k)
+                 and all(torch.equal(a, b) for a, b in zip(
+                     (c_k, s_k, t_k), call()))
+                 and (c_o - c_p).abs().max().item() <= tol
+                 and one_kernel(hk.batched_head_logits, call))
+        t_new, old = turns_ms(torch, call, lambda: call("shuffle"))
+        c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                lambda: cold_of("shuffle"), timer=False)
         lib_of = lambda k_: torch.einsum(
             "bthd,bhd->tbh", k_.view(mbp.BT, mbp.T, mbp.H, hk.DH),
             q.view(mbp.BT, mbp.H, hk.DH))
         lib = None if int8 else time_ms(torch, lambda: lib_of(k))
         # the library call from HBM on the kernel's rotation (k's copies)
         lib_cold = None if int8 else cold_ms(torch, lib_of, [k])
+        chunks, _ = hk.batched_plan(mbp.BT, mbp.T, mbp.H, k.dtype)
         nl = mbp.BT * mbp.H
-        record(hk.batched_head_logits, f"{'int8' if int8 else 'fp32'} "
-               f"BT={mbp.BT} T={mbp.T} E={mbp.E} H={mbp.H}"
+        record(hk.batched_head_logits, f"{dtype} BT={mbp.BT} T={mbp.T} "
+               f"E={mbp.E} H={mbp.H} chunks={chunks}"
                + (" (library: none, no int8 einsum)" if int8 else ""),
-               c_k, c_p, tol, kernel_times(call),
+               c_k, c_p, tol, (t_new, host_us(torch, call)),
                time_ms(torch, lambda: hk.batched_head_logits.plain(
                    k, q, mbp.H)), lib,
                k.numel() * k.element_size() + q.numel() * 4
                + 4 * (mbp.T + 2) * nl, 2 * k.numel(),
                peak=PEAK_INT8_OP_PER_S if int8 else PEAK_FP32_FLOP_PER_S,
-               paths=["probes"], variant="int8" if int8 else "fp32",
-               exact=sums_ok and torch.equal(t_k.t(), s_k),
-               cold=cold_ms(torch, lambda k_: hk.batched_head_logits(
-                   k_, q, mbp.H), [k]), lib_cold=lib_cold)
+               paths=["probes"], variant=f"{dtype} slab",
+               exact=exact, old_ms=old, cold=c_new, lib_cold=lib_cold,
+               extra={"old_cold_ms": c_old})
         del k, q
 
     clock = sm_clock_hz(dev)
@@ -2004,19 +2074,56 @@ def access_vpu_cases(torch, record, kernel_times, dev):
     for work in vk.WORKS:
         rows, cols = vpp.SHAPES[work][-1]
         x = vpp.make_block(rows, cols, dev)
-        call = lambda: vk.resident_elementwise(x, work, 8)
+        # the plan kernel in turns with the kernel it replaced (held to the
+        # twin too), warm and from HBM; ns a pass on finite values from the
+        # 8- and 16-pass launches of both
+        call = lambda v=None, n=8, x_=x: vk.resident_elementwise(
+            x_, work, n, variant=v)
         out_k, out_p = call(), vk.resident_elementwise.plain(x, work, 8)
+        tol = 1e-5 * max(1.0, out_p.abs().max().item())
+        exact = (call("fixed") - out_p).abs().max().item() <= tol
+        t_new, old = turns_ms(torch, call, lambda: call("fixed"))
+        t16, old16 = turns_ms(torch, lambda: call(n=16),
+                              lambda: call("fixed", 16))
+        c_new, c_old = turns_ms(
+            torch, lambda: cold_ms(torch, lambda x_: call(x_=x_), [x]),
+            lambda: cold_ms(torch, lambda x_: call("fixed", x_=x_), [x]),
+            timer=False)
         ops_s = vk.bound_s(work, x.numel(), 8, clock, sm_count(dev),
                            FP32_LANES_PER_SM, MUFU_PER_SM)
+        extra = {"old_cold_ms": c_old,
+                 "ns_per_pass": (t16 - t_new) / 8 * 1e6,
+                 "old_ns_per_pass": (old16 - old) / 8 * 1e6,
+                 "bound_ns_per_pass": ops_s / 8 * 1e9}
+        if work.startswith("gelu"):
+            # an overflowed block (320 passes: about a third of the values
+            # are inf): each kernel's 8 passes keep the twin's infs, no NaN,
+            # the finite values within the tolerance; the 8-pass launch
+            # timed on it in turns
+            xo = call(n=320)
+            want = vk.resident_elementwise.plain(xo, work, 8)
+            fin = torch.isfinite(want)
+            ftol = 1e-5 * max(1.0, want[fin].abs().max().item())
+            for v in (None, "fixed"):
+                got = call(v, x_=xo)
+                exact = exact and bool(torch.isinf(xo).any()) and torch.equal(
+                    torch.isinf(got), torch.isinf(want)) and not bool(
+                    torch.isnan(got).any()) and (
+                    got[fin] - want[fin]).abs().max().item() <= ftol
+            o_new, o_old = turns_ms(torch, lambda: call(x_=xo),
+                                    lambda: call("fixed", x_=xo))
+            extra.update(overflowed_ms=o_new, old_overflowed_ms=o_old)
         record(vk.resident_elementwise, f"{work} ({rows},{cols}) 8 passes "
-               f"(library: none, no one call runs the chained passes)",
-               out_k, out_p, 1e-5 * max(1.0, out_p.abs().max().item()),
-               kernel_times(call), time_ms(torch, lambda: vk
-                                           .resident_elementwise.plain(
-                                               x, work, 8)), None,
-               8 * x.numel(), ops_s * PEAK_FP32_FLOP_PER_S,
-               peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
-               variant=f"{work} {cols}")
+               f"{vk.plan_variant(rows, cols, work).split(' ', 2)[-1]} "
+               f"(library: "
+               f"none, no one call runs the chained passes)",
+               out_k, out_p, tol, (t_new, host_us(torch, call)),
+               time_ms(torch, lambda: vk.resident_elementwise.plain(
+                   x, work, 8)), None, 8 * x.numel(),
+               ops_s * PEAK_FP32_FLOP_PER_S, peak=PEAK_FP32_FLOP_PER_S,
+               paths=["probes"], variant=vk.plan_variant(rows, cols, work),
+               exact=exact and one_kernel(vk.resident_elementwise, call),
+               old_ms=old, cold=c_new, extra=extra)
     spills = []
     for name in ("tile_gemm", "probe_decode_attention", "head_logits",
                  "resident_elementwise", "int4_probe", "stream_probe"):
@@ -2026,8 +2133,8 @@ def access_vpu_cases(torch, record, kernel_times, dev):
                   f"static_smem={r['static_smem']} "
                   f"dynamic_smem={r['dynamic_smem']} "
                   f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
-            # the redesigned probe kernels (K16-K18, K20, K23, K25) use no
-            # local memory
+            # the redesigned probe kernels (K16-K18, K20, K23, K25-K27) use
+            # no local memory
             if r["local_bytes"] and r["op"] in REDESIGNED_PROBES \
                     and not replaced_form(r["variant"]):
                 spills.append(f"{r['op']} {r['variant']} {r['kernel']}")
@@ -3947,6 +4054,10 @@ def main() -> int:
         print(card_line())
         k4_plan(torch)
         return 0
+    if "--k27-plan" in sys.argv[1:]:  # K27's layouts against the plan's
+        print(card_line())
+        k27_plan(torch)
+        return 0
     import numpy as np
     import torch.nn.functional as F
 
@@ -3995,9 +4106,9 @@ def main() -> int:
     for k in EXPECTED_KERNELS["probes"]:
         if probe_run["launches"][k] <= 0:
             failures.append(f"probes: launches[{k}]=0")
-    # K16-K18, K20, K23 and K25 on the path only in their new forms: the
-    # kernels they replaced ("wmma", "warp", "atomic", "grid") run in the
-    # kernel checks' turns alone
+    # the redesigned probes (REDESIGNED_PROBES) on the path only in their
+    # new forms: the kernels they replaced (replaced_form) run in the kernel
+    # checks' turns alone
     old_forms = {n: [v for v in probe_run["variants"].get(n, {})
                      if replaced_form(v)]
                  for n in REDESIGNED_PROBES}

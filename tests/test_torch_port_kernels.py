@@ -25,7 +25,7 @@ from acai_omr_tpu_torch.ops.decode_kernel import (decode_attention,
 from acai_omr_tpu_torch.ops.encoder_stack_kernel import (encoder_attention,
                                                          encoder_stack_fused)
 from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
-from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act
+from acai_omr_tpu_torch.ops.linear_kernel import N_SMS, linear_bias_act
 from acai_omr_tpu_torch.ops.quant_linear_kernel import (
     pack_k4, pack_k8_int4, quant4_linear_bias_act, quant_linear_bias_act)
 
@@ -1889,6 +1889,43 @@ def test_batched_head_logits(dev, int8):
     assert torch.equal(got[2].t(), got[1])
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("bt,t,h", [(8, 128, 16), (2, 1024, 16), (3, 77, 4),
+                                    (1, 1, 1), (4, 1000, 2), (1, 257, 16)])
+def test_batched_head_logits_slab_chunks(dev, int8, bt, t, h):
+    """The slab kernel in the plan's chunks (one at the tool's shape, up to
+    four in fp32 at T = 1,024) and the kernel it replaced (``"shuffle"``):
+    int8 bit for bit, fp32 within 1e-5 of the largest output; the transpose
+    equal to the column sums bit for bit; two runs of the slab kernel
+    bit-equal; one device kernel a call."""
+    g = torch.Generator().manual_seed(bt * 1000 + t)
+    e = h * hk.DH
+    if int8:
+        k = torch.randint(-127, 128, (bt, t, e), generator=g,
+                          dtype=torch.int8)
+        q = torch.randint(-127, 128, (bt, e), generator=g).float()
+    else:
+        k, q = torch.randn(bt, t, e, generator=g), torch.randn(bt, e,
+                                                               generator=g)
+    k, q = k.to(dev), q.to(dev)
+    want = hk.batched_head_logits.plain(k, q, h)
+    op = hk.batched_head_logits
+    for variant in hk.BATCHED_VARIANTS:
+        before = op.device_launches
+        got = op(k, q, h, variant=variant)
+        assert op.device_launches == before + 1
+        for a, b in zip(got, want):
+            if int8:
+                assert torch.equal(a, b), variant
+            else:
+                _close(a, b, 1e-5)
+        assert torch.equal(got[2].t(), got[1])
+        if variant != "shuffle":
+            again = op(k, q, h, variant=variant)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("work,rows,cols", [
     (w, r, c) for w, shapes in vpp.SHAPES.items() for r, c in shapes])
 def test_resident_elementwise(dev, work, rows, cols):
@@ -1899,6 +1936,74 @@ def test_resident_elementwise(dev, work, rows, cols):
     for iters in (0, 1, 8):
         _close(vk.resident_elementwise(x, work, iters),
                vk.resident_elementwise.plain(x, work, iters), 1e-5)
+
+
+@pytest.mark.parametrize("work,rows,cols", [
+    (w, r, c) for w, shapes in vpp.SHAPES.items() for r, c in shapes])
+def test_resident_elementwise_fixed(dev, work, rows, cols):
+    """The kernel the plan kernel replaced (``variant="fixed"``): 0, 1 and
+    8 passes against the twin, within 1e-5 of the largest output."""
+    x = vpp.make_block(rows, cols, dev)
+    for iters in (0, 1, 8):
+        _close(vk.resident_elementwise(x, work, iters, variant="fixed"),
+               vk.resident_elementwise.plain(x, work, iters), 1e-5)
+
+
+@pytest.mark.parametrize("work,rows,cols", [
+    (w, r, c) for w in ("softmax", "ln") for r, c in vpp.SHAPES[w]])
+def test_resident_elementwise_layouts(dev, work, rows, cols):
+    """The plan kernel at every layout its plan takes for this width on
+    either side of its row threshold (forced as ``chip_smoke.py
+    --k27-plan`` forces them): 8 passes against the twin, within 1e-5 of
+    the largest output."""
+    x = vpp.make_block(rows, cols, dev)
+    want = vk.resident_elementwise.plain(x, work, 8)
+    for r in (2 * N_SMS, 2 * N_SMS + 1):
+        lanes, values, _, smem = vk.resident_plan(r, cols, work)
+        variant = f"{lanes}x{values}" + (" smem" if smem else "")
+        _close(vk.resident_elementwise(x, work, 8, variant=variant), want,
+               1e-5)
+
+
+@pytest.mark.parametrize("work", ["gelu", "gelu_poly", "gelu_erff"])
+@pytest.mark.parametrize("rows,cols", [(256, 4096), (1024, 3072)])
+def test_resident_elementwise_overflowed(dev, work, rows, cols):
+    """A block after 320 passes holds infs (the feedback y ~ 1.5 x
+    overflows); 8 more passes of either kernel keep the twin's infs, make
+    no NaN and hold the finite values within 1e-5 of the largest."""
+    x = vpp.make_block(rows, cols, dev)
+    xo = vk.resident_elementwise(x, work, 320)
+    assert torch.isinf(xo).any()
+    want = vk.resident_elementwise.plain(xo, work, 8)
+    fin = torch.isfinite(want)
+    for variant in vk.VARIANTS:
+        got = vk.resident_elementwise(xo, work, 8, variant=variant)
+        assert torch.equal(torch.isinf(got), torch.isinf(want)), variant
+        assert not torch.isnan(got).any(), variant
+        _close(got[fin], want[fin], 1e-5)
+
+
+@pytest.mark.parametrize("work", ["gelu", "gelu_poly", "gelu_erff"])
+def test_resident_gelu_plan_bits_equal_the_fixed_kernel(dev, work):
+    """One pass of the plan kernel (the A&S erf's argument clamped, its
+    reciprocal's fast path inline) equals the fixed kernel's bit for bit on
+    every fp32 x with |x| <= 16, and on +-inf and +-3.4e38."""
+    lim = 0x41800000  # the bits of 16.0
+    chunk = 1 << 26
+    for sign in (0, 1):
+        for lo in range(0, lim + 1, chunk):
+            bits = torch.arange(lo, lo + chunk, device=dev,
+                                dtype=torch.int64).clamp_(max=lim)
+            x = (bits | (sign << 31)).to(torch.int32).view(
+                torch.float32).view(-1, 4096)
+            a = vk.resident_elementwise(x, work, 1)
+            b = vk.resident_elementwise(x, work, 1, variant="fixed")
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), lo
+    x = torch.tensor([math.inf, -math.inf, 3.4e38, -3.4e38] * 1024,
+                     device=dev).view(1, 4096)
+    a = vk.resident_elementwise(x, work, 1)
+    b = vk.resident_elementwise(x, work, 1, variant="fixed")
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _ptxas_report(name: str, out_dir) -> dict:
@@ -2067,8 +2172,22 @@ def test_k13_k8_kernels_report_no_spill(dev):
     assert len(layernorm_bwd.resources("three_pass")) == 3
 
 def test_resident_elementwise_keeps_its_rows_in_registers(dev):
-    """No local memory (spill) in any K27 variant the probe runs."""
+    """No local memory (spill) in any K27 variant the probe runs: the plan
+    kernel each of its shapes takes, and the kernel it replaced."""
     for work, shapes in vpp.SHAPES.items():
-        for _, cols in shapes:
-            (row,) = vk.resident_elementwise.resources(f"{work} {cols}")
-            assert row["local_bytes"] == 0, row
+        for rows, cols in shapes:
+            for variant in (vk.plan_variant(rows, cols, work),
+                            f"{work} {cols} fixed"):
+                (row,) = vk.resident_elementwise.resources(variant)
+                assert row["local_bytes"] == 0, row
+
+
+def test_batched_head_logits_slab_reports_no_spill(dev):
+    """K26's slab kernels (fp32 / int8): 256 threads, no local memory, at
+    least one block an SM at 64 KB of slab; the kernel they replaced listed
+    beside."""
+    for dtype in ("fp32", "int8"):
+        (r,) = hk.batched_head_logits.resources(f"{dtype} slab")
+        assert r["threads"] == 256 and r["local_bytes"] == 0, r
+        assert r["blocks_per_sm"] >= 1, r
+        assert len(hk.batched_head_logits.resources(f"{dtype} shuffle")) == 1
