@@ -64,18 +64,53 @@
 // K21 replaces tools/unpack_probe.py `run` (:112, pallas_call :124) and its
 // five kernels (`KERNELS` :108): packed (half, cols) int8 -> (2 half, cols)
 // int8, lo rows then hi rows, `reps` times in the kernel with a carried
-// perturbation as the TPU's fori_loop has. Schemes: f32 (float convert and
-// floorf), i32 (int32 shifts), i16 (int16 shifts, 16-bit PTX), i8div (C
-// division on int8 corrected to floor division), eyedot (a 16x16 int8
-// identity times the packed tile on the tensor cores through wmma with int32
-// accumulation, then fp32 floor math; the tiles off the diagonal of the TPU's
-// full identity product add zeros and are not computed). A thread holds its
-// 16 packed bytes (eyedot: 8) in registers across the reps, as the TPU holds
-// them in VMEM; every rep stores its 32 output bytes with st.global from
-// inline asm, so no rep's stores are merged, and the carry is the rep's first
-// lo word AND a kernel argument that is 0 at run time, which the compiler
-// cannot prove zero: no rep folds or hoists. Bound per unpack: 2 MiB in, 4
-// MiB out.
+// perturbation as the TPU's fori_loop has. Bound per unpack: 2 MiB in, 4 MiB
+// out at the tool's (512, 4096); with the output in L2 across the reps, what
+// a rep costs is the scheme's arithmetic and its stores.
+//
+// The word-wide kernels (`unpack_words_kernel`, `unpack_eyedot_mma_kernel`):
+// a grid sized to the card (ops/int4_probe_kernels.unpack_plan) in which a
+// thread owns four 16-byte pieces of the packed block (64 bytes), the four
+// loads issued before any arithmetic, rounds of four where the block is
+// larger than one pass of the grid; every scheme works on whole 32-bit words
+// in the arithmetic its name says:
+//   i32    four bytes at once with shifts and masks: lo = s((b & 0x0F0F0F0F)
+//          ^ 0x08080808), hi = s((b >> 4) & 0x0F0F0F0F), s(n) = n + (n &
+//          0x08080808) * 0x1E spreading each nibble's sign over its byte;
+//   i16    16-bit PTX on the word's two halves, two bytes each: lo = ((h &
+//          0x0F0F) + 0x7878) ^ 0x8080, hi = (((h >> 4) & 0x0F0F) + 0x7878) ^
+//          0x7878 (no sum carries out of its byte);
+//   i8div  byte lanes: floor(b / 16) as a per-byte arithmetic shift (the
+//          high nibble shifted down, the byte's sign filled above it), lo = b
+//          - (16 hi + 8) by __vsub4;
+//   f32    each byte sign-extended to 32 bits by prmt, made fp32 exactly
+//          through the exponent field (an integer add and an fp32 subtract,
+//          as cvt runs at a quarter of the fp32 rate), hi = floorf(b / 16),
+//          lo = b - 16 hi - 8 in fp32, both back through the exponent field
+//          and gathered into words by prmt;
+//   eyedot the identity product on the tensor cores, `mma.sync` m16n8k16 s8
+//          -> s32: a warp a 16 x 128 tile, lane (g, t) loading rows 4t ..
+//          4t + 3 of column group G(g) = 4 (g & 1) + g / 2 (16 bytes), a 4 x
+//          4 byte transpose by prmt making each word four K rows of one
+//          column (B registers straight from the loads), a constant identity
+//          A fragment; the accumulators are the bytes again, lane (g, t)
+//          holding rows g, g + 8 of column groups t and 4 + t, so a warp's
+//          store writes whole sectors; floored as f32 does, in registers; no
+//          shared memory and no __syncwarp a rep.
+// What stays from the kernels they replace: the reps loop with its carried
+// perturbation (__vadd4 of carry x 0x01010101 on the packed words, carry =
+// the rep's first lo word AND a kernel argument that is 0 at run time, which
+// the compiler cannot prove zero), the stores by st.global from inline asm
+// (so no rep folds, is hoisted or merged), lo rows then hi rows.
+//
+// The forms they replaced (`unpack_kernel`, `unpack_eyedot_kernel`, kept as
+// the yardstick, variant "bytewise"): a thread one 16-byte piece (eyedot: a
+// warp a 16 x 16 tile through wmma and shared memory, 8 bytes a lane) in a
+// single wave, one load in flight, each byte extracted, unpacked by the
+// scheme's arithmetic on it alone (f32: float convert and floorf; i32: int32
+// shifts; i16: int16 shifts in 16-bit PTX; i8div: C division on int8
+// corrected to floor division) and repacked by shift-or; eyedot's tile, its
+// fragments and its int32 accumulator through shared memory every rep.
 
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -777,6 +812,240 @@ unpack_eyedot_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K21, word-wide
+// ---------------------------------------------------------------------------
+
+constexpr int UNPACK_THREADS = 128;
+constexpr int UNPACK_VEC = 4;  // 16-byte pieces a thread loads at once
+// (the grid: at most four blocks an SM, so at most 128 registers a thread;
+// eyedot's accumulators take more, three blocks an SM hold the tool's grid)
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// the low bytes of four words gathered into one word, r0's lowest
+__device__ __forceinline__ uint32_t gather_low_bytes(uint32_t r0, uint32_t r1,
+                                                     uint32_t r2, uint32_t r3) {
+  return prmt(prmt(r0, r1, 0x0040u), prmt(r2, r3, 0x0040u), 0x5410u);
+}
+
+// fp32 of a small integer (|i| < 2^22) through the exponent field, minus 8
+constexpr float MAGIC = 12582912.0f;  // 1.5 x 2^23: its bits 0x4B400000
+__device__ __forceinline__ float f32_minus8(int i) {
+  return __int_as_float(i + 0x4B400000) - (MAGIC + 8.0f);
+}
+
+// hi = floor(b / 16), lo = b - 16 hi - 8 from v8 = b - 8, in fp32; each
+// returned in the low byte of its word (fp32 + 1.5 x 2^23: the integer's
+// two's complement in the low mantissa bits)
+__device__ __forceinline__ void floor_unpack(float v8, uint32_t& lo,
+                                             uint32_t& hi) {
+  const float fh = floorf(fmaf(v8, 0.0625f, 0.5f));  // (b - 8) / 16 + 1/2
+  const float fl = fmaf(-16.0f, fh, v8);
+  hi = __float_as_uint(fh + MAGIC);
+  lo = __float_as_uint(fl + MAGIC);
+}
+
+// the 16-bit halves of the i16 scheme, two bytes each
+__device__ __forceinline__ uint16_t i16_lo(uint16_t h) {
+  uint16_t r;
+  asm("{\n\t.reg .b16 t;\n\t"
+      "and.b16 t, %1, 0x0F0F;\n\t"
+      "add.u16 t, t, 0x7878;\n\t"
+      "xor.b16 %0, t, 0x8080;\n\t}"
+      : "=h"(r)
+      : "h"(h));
+  return r;
+}
+
+__device__ __forceinline__ uint16_t i16_hi(uint16_t h) {
+  uint16_t r;
+  asm("{\n\t.reg .b16 t;\n\t"
+      "shr.u16 t, %1, 4;\n\t"
+      "and.b16 t, t, 0x0F0F;\n\t"
+      "add.u16 t, t, 0x7878;\n\t"
+      "xor.b16 %0, t, 0x7878;\n\t}"
+      : "=h"(r)
+      : "h"(h));
+  return r;
+}
+
+// one packed word b -> (lo, hi) words by scheme S, four bytes at once
+template <int S>
+__device__ __forceinline__ void unpack_wide(uint32_t b, uint32_t& lo,
+                                            uint32_t& hi) {
+  if constexpr (S == U_I32) {
+    // each nibble's sign over its byte: n | (sign x 0xF0), the bits disjoint
+    const uint32_t nl = (b & 0x0F0F0F0Fu) ^ 0x08080808u;
+    const uint32_t nh = (b >> 4) & 0x0F0F0F0Fu;
+    lo = nl + (nl & 0x08080808u) * 0x1Eu;
+    hi = nh + (nh & 0x08080808u) * 0x1Eu;
+  } else if constexpr (S == U_I16) {
+    uint16_t h0, h1;
+    asm("mov.b32 {%0, %1}, %2;" : "=h"(h0), "=h"(h1) : "r"(b));
+    asm("mov.b32 %0, {%1, %2};" : "=r"(lo) : "h"(i16_lo(h0)), "h"(i16_lo(h1)));
+    asm("mov.b32 %0, {%1, %2};" : "=r"(hi) : "h"(i16_hi(h0)), "h"(i16_hi(h1)));
+  } else if constexpr (S == U_I8DIV) {
+    // floor(b / 16) a byte: the high nibble down, the byte's sign above it
+    const uint32_t neg = (b >> 7) & 0x01010101u;
+    hi = ((b >> 4) & 0x0F0F0F0Fu) + neg * 0xF0u;
+    lo = __vsub4(b, ((hi << 4) & 0xF0F0F0F0u) | 0x08080808u);
+  } else {  // U_F32: byte j sign-extended by prmt (selector nibbles 8 | j)
+    uint32_t l[4], h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t sel = 0x8880u | (0x1111u * (uint32_t)j);
+      floor_unpack(f32_minus8((int)prmt(b, 0u, sel)), l[j], h[j]);
+    }
+    lo = gather_low_bytes(l[0], l[1], l[2], l[3]);
+    hi = gather_low_bytes(h[0], h[1], h[2], h[3]);
+  }
+}
+
+// n 16-byte pieces; thread g of the grid owns pieces g + (4 r + j) x (the
+// grid's threads), j = 0..3, for rounds r = 0 .. rounds - 1: its four loads
+// of a round issued before any arithmetic, then the reps
+template <int S>
+__global__ void __launch_bounds__(UNPACK_THREADS, 4)
+unpack_words_kernel(const uint4* __restrict__ w, int8_t* __restrict__ out,
+                    long long n, int rounds, int reps, uint32_t zero) {
+  const long long threads = (long long)gridDim.x * UNPACK_THREADS;
+  const long long g = (long long)blockIdx.x * UNPACK_THREADS + threadIdx.x;
+  uint4* lo_out = reinterpret_cast<uint4*>(out);
+  uint4* hi_out = lo_out + n;
+  for (int r = 0; r < rounds; ++r) {
+    const long long k0 = g + (long long)r * UNPACK_VEC * threads;
+    if (k0 >= n) return;
+    // the pieces of this round below n: a prefix of the four
+    const int live = (int)min((long long)UNPACK_VEC,
+                              (n - 1 - k0) / threads + 1);
+    uint4 b[UNPACK_VEC];
+#pragma unroll
+    for (int j = 0; j < UNPACK_VEC; ++j)
+      b[j] = j < live ? __ldg(w + k0 + j * threads) : make_uint4(0, 0, 0, 0);
+    uint32_t carry = 0;
+    for (int rep = 0; rep < reps; ++rep) {
+      const uint32_t c4 = carry * 0x01010101u;  // w + carry, per byte
+      uint32_t first = 0;
+#pragma unroll
+      for (int j = 0; j < UNPACK_VEC; ++j) {
+        if (j < live) {
+          uint32_t l0, l1, l2, l3, h0, h1, h2, h3;
+          unpack_wide<S>(__vadd4(b[j].x, c4), l0, h0);
+          unpack_wide<S>(__vadd4(b[j].y, c4), l1, h1);
+          unpack_wide<S>(__vadd4(b[j].z, c4), l2, h2);
+          unpack_wide<S>(__vadd4(b[j].w, c4), l3, h3);
+          st_v4(lo_out + k0 + j * threads, l0, l1, l2, l3);
+          st_v4(hi_out + k0 + j * threads, h0, h1, h2, h3);
+          if (j == 0) first = l0;
+        }
+      }
+      carry = first & zero;
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_s8_m16n8k16(int (&d)[4], uint32_t a0,
+                                                uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%7, %8, %9, %10};"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "r"(0), "r"(0), "r"(0), "r"(0));
+}
+
+constexpr int EYE_COLS = 128;  // packed columns of a warp's tile
+
+// a warp a tile of 16 packed rows x 128 columns (at a ragged right edge
+// fewer groups of 16); warp w of the grid takes tiles w + r x (the grid's
+// warps), r < rounds. Lane (g, t) = (lane / 4, lane % 4) loads column group
+// G(g) = 4 (g & 1) + g / 2, so that the accumulators' n-slots 2t and 2t + 1
+// are column groups t and 4 + t: each store instruction of the warp writes
+// 64 contiguous bytes of a row, whole 32-byte sectors.
+__global__ void __launch_bounds__(UNPACK_THREADS, 3)
+unpack_eyedot_mma_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ out,
+                         int half, int cols, int rounds, int reps,
+                         uint32_t zero) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int warps = gridDim.x * (UNPACK_THREADS / 32);
+  const int wid = blockIdx.x * (UNPACK_THREADS / 32) + threadIdx.x / 32;
+  const int tiles_n = (cols + EYE_COLS - 1) / EYE_COLS;
+  const int tiles = (half / 16) * tiles_n;
+  // the identity's A fragment: a0 row g, a1 row g + 8, columns 4t .. 4t + 3
+  uint32_t a0 = 0, a1 = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a0 |= (uint32_t)(g == 4 * t + i) << (8 * i);
+    a1 |= (uint32_t)(g + 8 == 4 * t + i) << (8 * i);
+  }
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = wid + r * warps;
+    if (tile >= tiles) return;
+    const int r0 = (tile / tiles_n) * 16, c0 = (tile % tiles_n) * EYE_COLS;
+    const int groups = min(EYE_COLS, cols - c0) / 16;
+    // rows r0 + 4t + i, bytes c0 + 16 G(g) .. + 15: four loads, then b[v][j]
+    // = K rows 4t .. 4t + 3 of column c0 + 16 G(g) + 4v + j
+    const int gg = 4 * (g & 1) + g / 2;
+    uint4 q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = gg < groups
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                       w + (size_t)(r0 + 4 * t + i) * cols + c0 + 16 * gg))
+                 : make_uint4(0, 0, 0, 0);
+    uint32_t b[4][4];
+    {
+      const uint32_t w0[4] = {q[0].x, q[1].x, q[2].x, q[3].x};
+      const uint32_t w1[4] = {q[0].y, q[1].y, q[2].y, q[3].y};
+      const uint32_t w2[4] = {q[0].z, q[1].z, q[2].z, q[3].z};
+      const uint32_t w3[4] = {q[0].w, q[1].w, q[2].w, q[3].w};
+      transpose4x4(w0, b[0]);
+      transpose4x4(w1, b[1]);
+      transpose4x4(w2, b[2]);
+      transpose4x4(w3, b[3]);
+    }
+    // lane (g, t)'s outputs: rows r0 + g (k = 0, 1) and r0 + g + 8 (k = 2,
+    // 3), column groups t (k even: n-slot 2t) and 4 + t (k odd: 2t + 1)
+    const bool left = t < groups, right = 4 + t < groups;
+    int8_t* lo_p = out + (size_t)(r0 + g) * cols + c0 + 16 * t;
+    const size_t down = (size_t)8 * cols, hi_off = (size_t)half * cols;
+    uint32_t carry = 0;
+    for (int rep = 0; rep < reps; ++rep) {
+      const uint32_t c4 = carry * 0x01010101u;
+      uint32_t lo[4][4], hi[4][4];  // [k][v]
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        int d[4][4];  // [j][k]
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_s8_m16n8k16(d[j], a0, a1, __vadd4(b[v][j], c4));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          uint32_t l[4], h[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            floor_unpack(f32_minus8(d[j][k]), l[j], h[j]);
+          lo[k][v] = gather_low_bytes(l[0], l[1], l[2], l[3]);
+          hi[k][v] = gather_low_bytes(h[0], h[1], h[2], h[3]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k % 2 == 0 ? left : right) {
+          int8_t* p = lo_p + (k / 2) * down + (k % 2) * 64;
+          st_v4(p, lo[k][0], lo[k][1], lo[k][2], lo[k][3]);
+          st_v4(p + hi_off, hi[k][0], hi[k][1], hi[k][2], hi[k][3]);
+        }
+      }
+      carry = lo[0][0] & zero;
+    }
+  }
+}
+
 }  // namespace
 
 // K20, the strip kernel: x (bt, cin) int8; w: i8ref (cin/4, cout, 4) int8,
@@ -817,10 +1086,44 @@ extern "C" int acai_int4_delivery_gemm(const void* x, const void* w, void* out,
   }
 }
 
-// K21. packed (half, cols) int8 -> out (2 half, cols) int8; half % 16 == 0,
-// cols % 16 == 0, reps >= 1.
+// K21, word-wide: packed (half, cols) int8 -> out (2 half, cols) int8,
+// both 16-byte aligned; half % 16 == 0, cols % 16 == 0, reps >= 1; `blocks`
+// and `rounds` from ops/int4_probe_kernels.unpack_plan (eyedot: rounds of a
+// 16 x 128 tile a warp; else of four 16-byte pieces a thread).
 extern "C" int acai_int4_unpack(const void* packed, void* out, int scheme,
-                                int half, int cols, int reps, void* stream) {
+                                int half, int cols, int blocks, int rounds,
+                                int reps, void* stream) {
+  if (half % 16 != 0 || cols % 16 != 0 || half < 16 || cols < 16 ||
+      blocks < 1 || rounds < 1 || reps < 1 ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t zero = 0;  // a run-time 0: the kernels cannot fold it
+  const int8_t* p = static_cast<const int8_t*>(packed);
+  int8_t* o = static_cast<int8_t*>(out);
+  if (scheme == U_EYEDOT) {
+    unpack_eyedot_mma_kernel<<<blocks, UNPACK_THREADS, 0, s>>>(
+        p, o, half, cols, rounds, reps, zero);
+    return (int)cudaGetLastError();
+  }
+  const long long n = (long long)half * (cols / 16);
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+  switch (scheme) {
+    case U_F32: unpack_words_kernel<U_F32><<<blocks, UNPACK_THREADS, 0, s>>>(w, o, n, rounds, reps, zero); break;
+    case U_I32: unpack_words_kernel<U_I32><<<blocks, UNPACK_THREADS, 0, s>>>(w, o, n, rounds, reps, zero); break;
+    case U_I16: unpack_words_kernel<U_I16><<<blocks, UNPACK_THREADS, 0, s>>>(w, o, n, rounds, reps, zero); break;
+    case U_I8DIV: unpack_words_kernel<U_I8DIV><<<blocks, UNPACK_THREADS, 0, s>>>(w, o, n, rounds, reps, zero); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K21's replaced forms (variant "bytewise"). packed (half, cols) int8 ->
+// out (2 half, cols) int8; half % 16 == 0, cols % 16 == 0, reps >= 1.
+extern "C" int acai_int4_unpack_bytewise(const void* packed, void* out,
+                                         int scheme, int half, int cols,
+                                         int reps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t zero = 0;  // a run-time 0: the kernels cannot fold it
   if (scheme == U_EYEDOT) {
@@ -847,7 +1150,8 @@ extern "C" int acai_int4_unpack(const void* packed, void* out, int scheme,
 // The resource report (func_attrs.cuh): K20's strip kernel per scheme and
 // row tile at its largest dynamic shared memory (the ring's budget, the
 // widened stage), the atomic kernel it replaced at the tool's shape (8
-// rows, one 64-k unit of x a split); K21's kernels.
+// rows, one 64-k unit of x a split); K21's word-wide kernels and the
+// bytewise kernels they replaced.
 #define K20_STRIP(S, R, NAME)                                                \
   AcaiKernelEntry {                                                          \
     "int4_delivery_gemm|" NAME "|strip_kernel<" #S "," #R ">",              \
@@ -869,10 +1173,22 @@ static const AcaiKernelEntry kResources[] = {
     K20_ATOMIC(I8REF, "i8ref"),           K20_ATOMIC(S4DOT, "s4dot"),
     K20_ATOMIC(S4CONV, "s4conv"),         K20_ATOMIC(I8SHIFT, "i8shift"),
     K20_ATOMIC(F32UNPACK, "f32unpack"),
-    ACAI_KERNEL("int4_unpack", "f32", unpack_kernel<U_F32>, 256, 0),
-    ACAI_KERNEL("int4_unpack", "i32", unpack_kernel<U_I32>, 256, 0),
-    ACAI_KERNEL("int4_unpack", "i16", unpack_kernel<U_I16>, 256, 0),
-    ACAI_KERNEL("int4_unpack", "i8div", unpack_kernel<U_I8DIV>, 256, 0),
-    ACAI_KERNEL("int4_unpack", "eyedot", unpack_eyedot_kernel, 128, 0),
+    ACAI_KERNEL("int4_unpack", "f32", unpack_words_kernel<U_F32>,
+                UNPACK_THREADS, 0),
+    ACAI_KERNEL("int4_unpack", "i32", unpack_words_kernel<U_I32>,
+                UNPACK_THREADS, 0),
+    ACAI_KERNEL("int4_unpack", "i16", unpack_words_kernel<U_I16>,
+                UNPACK_THREADS, 0),
+    ACAI_KERNEL("int4_unpack", "i8div", unpack_words_kernel<U_I8DIV>,
+                UNPACK_THREADS, 0),
+    ACAI_KERNEL("int4_unpack", "eyedot", unpack_eyedot_mma_kernel,
+                UNPACK_THREADS, 0),
+    ACAI_KERNEL("int4_unpack", "f32 bytewise", unpack_kernel<U_F32>, 256, 0),
+    ACAI_KERNEL("int4_unpack", "i32 bytewise", unpack_kernel<U_I32>, 256, 0),
+    ACAI_KERNEL("int4_unpack", "i16 bytewise", unpack_kernel<U_I16>, 256, 0),
+    ACAI_KERNEL("int4_unpack", "i8div bytewise", unpack_kernel<U_I8DIV>, 256,
+                0),
+    ACAI_KERNEL("int4_unpack", "eyedot bytewise", unpack_eyedot_kernel, 128,
+                0),
 };
 ACAI_EXPORT_RESOURCES(kResources)

@@ -53,10 +53,35 @@
 // K24 replaces tools/narrow_lane_dma_probe.py `stream_sum` (pallas_call
 // :36): out (1, lanes) = c + the sum over blocks and rows of x (blocks, T,
 // lanes) fp32. Memory is linear on Hopper, so the kernel reads x flat and
-// coalesced, 16 bytes a thread, lane = index mod lanes; a block's threads
-// keep four lane sums each and reduce them by lane in shared memory in a
-// fixed order; a second launch, a block per 8 lanes, adds the blocks' rows
-// by lane in a fixed order, then to c. Bound: x read once.
+// coalesced, 16 bytes a thread, lane = index mod lanes. Bound: x read once;
+// at 16 lanes (8 MiB) a launch and one round trip weigh as much as the
+// stream.
+//
+// The one-launch form (`lane_sum_kernel`): a persistent grid of at most one
+// 256-thread block an SM (ops/stream_probe_kernels.stream_plan) walks the
+// flat stream grid-stride in steps of 16 x 16 bytes a thread: each thread
+// issues a step's sixteen loads before it adds any, and the next step's
+// sixteen before it adds the current one, so the stream has no gap between
+// steps. The stride in floats, 4 x the grid's threads, is a multiple of 1024
+// and so of lanes, so a thread's four accumulators hold the same four lanes
+// at every step; loads past the end are not issued. A block reduces its
+// threads' float4s by lane in a tree of fixed order with one barrier
+// (`lane_tree`: shuffles inside each warp over the lanes that hold a lane's
+// column, then the warps' rows added in warp order) into one partial row;
+// the last block to take an integer ticket adds every block's partial row,
+// all its loads in flight, then c, and resets the ticket. One block an SM
+// keeps the rows few (66 KB at 128 lanes for the last block to read, which
+// one SM reads alone). The partial rows and the ticket are scratch the
+// wrapper allocates once per shape: no float atomics, so two runs are
+// bit-equal. (Tried on the card and not kept: 512- or 1024-thread blocks
+// with wider trees, and bulk copies through a shared-memory ring, which
+// streamed 64 MiB no faster and were slower at 8 MiB.)
+//
+// The form it replaced (`lane_sum_partial_kernel` + `lane_sum_final_kernel`,
+// kept as the yardstick, variant "two_pass"): up to 512 blocks of one
+// contiguous range each, four lane sums a thread reduced by a 64-long serial
+// walk of shared memory a lane; a second launch, a block per 8 lanes, adds
+// the blocks' rows by lane in a fixed order, then to c.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -379,7 +404,117 @@ chunk_walk_kernel(const __grid_constant__ CUtensorMap tx,
   if (tid == 0) tickets[strip] = 0;  // ready for the next call
 }
 
-constexpr int LANE_THREADS = 256;
+constexpr int LANE_THREADS = 256;  // the blocks of both forms
+constexpr int LANE_WARPS = LANE_THREADS / 32;
+constexpr int LANE_VEC = 16;   // float4 loads a thread issues a step
+constexpr int FINAL_VEC = 24;  // the last block's loads in flight a thread
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int s) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, s),
+                     __shfl_xor_sync(0xffffffffu, v.y, s),
+                     __shfl_xor_sync(0xffffffffu, v.z, s),
+                     __shfl_xor_sync(0xffffffffu, v.w, s));
+}
+
+// The lane sums of a block's float4s, thread t's float4 holding lanes
+// 4 (t mod q) .. + 3 (q = lanes / 4, a power of two dividing 256), in a
+// fixed order with one barrier: inside each warp a butterfly over the
+// strides 16 .. q (both lanes of a pair add the same two values, so every
+// lane of a column holds the same bits), then column t (t < q) adds the
+// rows of the warps that hold it in warp order (every warp where q <= 32;
+// where q = 64, the warps w with w mod 2 = t / 32). `sm`: LANE_WARPS x 32
+// float4s. Thread t < q returns the sums of float4 column t.
+__device__ __forceinline__ float4 lane_tree(float4 v, float4 (*sm)[32],
+                                            int q) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  for (int s = 16; s >= q; s /= 2) v = add4(v, shfl_xor4(v, s));
+  sm[warp][lane] = v;
+  __syncthreads();
+  if (t < q) {
+    const int per = q > 32 ? q / 32 : 1;
+    v = sm[t / 32][t % 32];
+    for (int w = t / 32 + per; w < LANE_WARPS; w += per)
+      v = add4(v, sm[w][t % 32]);
+  }
+  return v;
+}
+
+// a step's loads of thread i (those below n4; zeros past it)
+__device__ __forceinline__ void load_step(float4 (&v)[LANE_VEC],
+                                          const float4* __restrict__ x,
+                                          long long at, long long threads,
+                                          long long n4) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < LANE_VEC; ++j) {
+    const long long k = at + j * threads;
+    v[j] = k < n4 ? __ldg(x + k) : zero;
+  }
+}
+
+// grid: stream_plan's blocks (at most one an SM), LANE_THREADS threads
+__global__ void __launch_bounds__(LANE_THREADS, 1)
+lane_sum_kernel(const float4* __restrict__ x, const float* __restrict__ c,
+                float4* __restrict__ partial, int* __restrict__ ticket,
+                float* __restrict__ out, long long n4, int lanes) {
+  __shared__ float4 sm[LANE_WARPS][32];
+  __shared__ int is_last;
+  const int q = lanes / 4, tid = threadIdx.x;
+  const long long threads = (long long)gridDim.x * LANE_THREADS;
+  const long long step = threads * LANE_VEC;
+  const long long i = (long long)blockIdx.x * LANE_THREADS + tid;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc = zero;
+  float4 cur[LANE_VEC];
+  load_step(cur, x, i, threads, n4);
+  for (long long at = i + step; at - step < n4; at += step) {
+    float4 nxt[LANE_VEC];
+    load_step(nxt, x, at, threads, n4);  // in flight while cur is added
+#pragma unroll
+    for (int j = 0; j < LANE_VEC; ++j) {
+      acc = add4(acc, cur[j]);
+      cur[j] = nxt[j];
+    }
+  }
+  acc = lane_tree(acc, sm, q);
+  if (tid < q) {
+    partial[(size_t)blockIdx.x * q + tid] = acc;
+    __threadfence();  // the partial row is seen before the ticket
+  }
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // the last block: thread t adds float4 column t mod q of rows t / q,
+  // t / q + LANE_THREADS / q, ..., FINAL_VEC loads in flight at a time
+  const int col = tid % q, stride = LANE_THREADS / q;
+  const int blocks = gridDim.x;
+  float4 sum = zero;
+  for (int r0 = tid / q; r0 < blocks; r0 += FINAL_VEC * stride) {
+    float4 v[FINAL_VEC];
+#pragma unroll
+    for (int j = 0; j < FINAL_VEC; ++j) {
+      const int r = r0 + j * stride;
+      v[j] = r < blocks ? __ldcg(partial + (size_t)r * q + col) : zero;
+    }
+#pragma unroll
+    for (int j = 0; j < FINAL_VEC; ++j) sum = add4(sum, v[j]);
+  }
+  sum = lane_tree(sum, sm, q);
+  if (tid < q) {
+    const int l = 4 * tid;
+    out[l + 0] = sum.x + c[l + 0];
+    out[l + 1] = sum.y + c[l + 1];
+    out[l + 2] = sum.z + c[l + 2];
+    out[l + 3] = sum.w + c[l + 3];
+  }
+  if (tid == 0) *ticket = 0;  // ready for the next call
+}
 
 __global__ void __launch_bounds__(LANE_THREADS)
 lane_sum_partial_kernel(const float4* __restrict__ x,
@@ -524,13 +659,34 @@ extern "C" int acai_clamped_chunk_walk(const void* x, const void* s,
   return (int)cudaGetLastError();
 }
 
-// K24. x flat fp32 of blocks * vec_per_block float4s, vec_per_block a
-// multiple of 256; c, out (lanes,) fp32, lanes dividing 1024, 4 <= lanes <=
-// 256; partial (blocks, lanes) fp32 scratch. Two launches.
+// K24, one launch: x flat fp32 of n4 float4s, 16-byte aligned; c, out
+// (lanes,) fp32, lanes dividing 1024, 4 <= lanes <= 256; partial (blocks,
+// lanes) fp32 (16-byte aligned) and ticket (1,) int32 scratch, the ticket
+// zero (the kernel leaves it zero).
 extern "C" int acai_lane_stream_sum(const void* x, const void* c,
-                                    void* partial, void* out, int blocks,
-                                    int vec_per_block, int lanes,
+                                    void* partial, void* ticket, void* out,
+                                    long long n4, int blocks, int lanes,
                                     void* stream) {
+  if (lanes < 4 || lanes > 256 || 1024 % lanes != 0 || blocks < 1 ||
+      n4 < 1 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(partial) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  lane_sum_kernel<<<blocks, LANE_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<const float*>(c),
+      static_cast<float4*>(partial), static_cast<int*>(ticket),
+      static_cast<float*>(out), n4, lanes);
+  return (int)cudaGetLastError();
+}
+
+// K24's replaced form (variant "two_pass"). x flat fp32 of blocks *
+// vec_per_block float4s, vec_per_block a multiple of 256; c, out (lanes,)
+// fp32, lanes dividing 1024, 4 <= lanes <= 256; partial (blocks, lanes) fp32
+// scratch. Two launches.
+extern "C" int acai_lane_stream_sum_two_pass(const void* x, const void* c,
+                                             void* partial, void* out,
+                                             int blocks, int vec_per_block,
+                                             int lanes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   lane_sum_partial_kernel<<<blocks, LANE_THREADS, 0, st>>>(
       static_cast<const float4*>(x), static_cast<float*>(partial),
@@ -542,7 +698,8 @@ extern "C" int acai_lane_stream_sum(const void* x, const void* c,
 }
 
 // The resource report (func_attrs.cuh): K23's walk at the tool's plan (three
-// slots of 128 x 128 bf16), the grid form it replaced; K22; K24.
+// slots of 128 x 128 bf16), the grid form it replaced; K22; K24's one-launch
+// kernel and the two-pass form it replaced.
 static const AcaiKernelEntry kResources[] = {
     ACAI_KERNEL("clamped_chunk_sum", "", chunk_walk_kernel, WALK_THREADS,
                 3 * 128 * STRIP * 2 + 128),
@@ -552,8 +709,10 @@ static const AcaiKernelEntry kResources[] = {
                 SUM_THREADS, 0),
     ACAI_KERNEL("bulk_copy_ring", "", bulk_copy_ring_kernel, 32,
                 3 * 64 * 1024),
-    ACAI_KERNEL("lane_stream_sum", "", lane_sum_partial_kernel, LANE_THREADS,
-                0),
-    ACAI_KERNEL("lane_stream_sum", "", lane_sum_final_kernel, LANE_THREADS, 0),
+    ACAI_KERNEL("lane_stream_sum", "", lane_sum_kernel, LANE_THREADS, 0),
+    ACAI_KERNEL("lane_stream_sum", "two_pass", lane_sum_partial_kernel,
+                LANE_THREADS, 0),
+    ACAI_KERNEL("lane_stream_sum", "two_pass", lane_sum_final_kernel,
+                LANE_THREADS, 0),
 };
 ACAI_EXPORT_RESOURCES(kResources)

@@ -18,6 +18,11 @@ block on the tensor cores (:func:`strip_plan`: a K split across a cluster
 only where the strips cannot fill the card); ``variant="atomic"`` forces the
 kernel it replaced (the contraction split over blocks whose sums meet by
 integer atomics in a zeroed output), kept as the yardstick.
+
+K21 unpacks whole words, each thread with four 16-byte pieces in flight
+(:func:`unpack_plan`, :func:`unpack_walk`; eyedot a warp a 16 x 128 tile on
+``mma.sync``); ``variant="bytewise"`` forces the byte-at-a-time kernels it
+replaced.
 """
 
 from __future__ import annotations
@@ -239,7 +244,18 @@ int4_delivery_gemm = _build.KernelOp(
     int4_delivery_gemm_plain, gemm_plan)
 
 
-def _check_unpack(packed: torch.Tensor, scheme: str, reps: int) -> None:
+UNPACK_THREADS = 128  # K21's block
+UNPACK_VEC = 4  # 16-byte pieces a thread loads at once (64 bytes)
+UNPACK_BLOCKS_PER_SM = 4
+EYE_COLS = 128  # packed columns of eyedot's warp tile (16 rows)
+UNPACK_VARIANTS = (None, "bytewise")
+
+
+def _check_unpack(packed: torch.Tensor, scheme: str = "i32", reps: int = 1,
+                  variant=None) -> None:
+    if variant not in UNPACK_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: None (word-wide) or "
+                         f"'bytewise'")
     if scheme not in UNPACK_SCHEMES:
         raise ValueError(f"scheme must be one of {UNPACK_SCHEMES}, got "
                          f"{scheme!r}")
@@ -253,6 +269,58 @@ def _check_unpack(packed: torch.Tensor, scheme: str, reps: int) -> None:
         raise ValueError(f"reps must be >= 1, got {reps}")
 
 
+def unpack_plan(half: int, cols: int, scheme: str = "i32") -> tuple[int, int]:
+    """(blocks, pieces a thread) of a K21 call on a packed (half, cols)
+    block: 128-thread blocks, each thread owning four 16-byte pieces (64
+    bytes) a round, as many blocks as one round of the whole block needs up
+    to four an SM, then more rounds (:func:`unpack_walk`). eyedot counts in
+    warp tiles of 16 rows x 128 columns (fewer at a ragged right edge), a
+    tile four pieces a lane."""
+    if scheme == "eyedot":
+        units = (half // 16) * -(-cols // EYE_COLS)  # a warp's tiles
+        per_block = UNPACK_THREADS // 32
+    else:
+        units = half * cols // 16  # pieces
+        per_block = UNPACK_THREADS * UNPACK_VEC
+    blocks = min(-(-units // per_block), UNPACK_BLOCKS_PER_SM * N_SMS)
+    rounds = -(-units // (blocks * per_block))
+    return blocks, UNPACK_VEC * rounds
+
+
+def unpack_walk(half: int, cols: int, scheme: str = "i32") -> torch.Tensor:
+    """The 16-byte pieces of a packed (half, cols) block each thread of
+    K21's word-wide kernel reads (``csrc/int4_probe.cu``), as piece indices
+    (row-major, cols / 16 a row), -1 where a read is past the end or the
+    thread has no tile: (threads of the grid, pieces a thread). Thread g
+    reads pieces g + (4 r + j) x (the grid's threads), j = 0..3, in round r;
+    eyedot's lane (g, t) of warp w reads rows 4t .. 4t + 3 of column group
+    4 (g & 1) + g / 2 (16 bytes) of tiles w, w + (the grid's warps), ..."""
+    blocks, pieces = unpack_plan(half, cols, scheme)
+    threads = blocks * UNPACK_THREADS
+    n = half * cols // 16
+    if scheme != "eyedot":
+        idx = (torch.arange(threads, dtype=torch.int64)[:, None]
+               + torch.arange(pieces, dtype=torch.int64)[None, :] * threads)
+        return torch.where(idx < n, idx, torch.full_like(idx, -1))
+    warps = threads // 32
+    tiles_n = -(-cols // EYE_COLS)
+    tiles = (half // 16) * tiles_n
+    lane = torch.arange(threads) % 32
+    g, t = lane // 4, lane % 4
+    wid = torch.arange(threads) // 32
+    out = []
+    for r in range(pieces // UNPACK_VEC):
+        tile = wid + r * warps
+        r0 = (tile // tiles_n) * 16
+        c0 = (tile % tiles_n) * EYE_COLS
+        col = c0 + 16 * (4 * (g % 2) + g // 2)
+        ok = (tile < tiles) & (col < cols)
+        for i in range(4):
+            idx = (r0 + 4 * t + i) * (cols // 16) + col // 16
+            out.append(torch.where(ok, idx, torch.full_like(idx, -1)))
+    return torch.stack(out, 1)
+
+
 def int4_unpack_plain(packed: torch.Tensor, scheme: str = "i32",
                       reps: int = 1) -> torch.Tensor:
     """Plain twin of K21: lo rows then hi rows, ``(2 half, cols)`` int8 (the
@@ -261,20 +329,33 @@ def int4_unpack_plain(packed: torch.Tensor, scheme: str = "i32",
     return torch.cat(unpack_bytes(packed), 0)
 
 
-def _launch_unpack(op, packed, scheme="i32", reps=1):
-    _check_unpack(packed, scheme, reps)
+def _launch_unpack(op, packed, scheme="i32", reps=1, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"bytewise"`` forces
+    the kernels this one replaced."""
+    _check_unpack(packed, scheme, reps, variant)
     _build.require(packed, "packed", torch.int8, 2)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned")
     half, cols = packed.shape
     out = torch.empty((2 * half, cols), dtype=torch.int8,
                       device=packed.device)
-    fn = _build.bind("int4_probe", "acai_int4_unpack",
-                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                     + [ctypes.c_void_p])
-    rc = fn(packed.data_ptr(), out.data_ptr(), UNPACK_SCHEMES.index(scheme),
-            half, cols, reps, _build.stream_ptr())
-    op.launched(scheme)
+    if variant == "bytewise":
+        fn = _build.bind("int4_probe", "acai_int4_unpack_bytewise",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+        rc = fn(packed.data_ptr(), out.data_ptr(),
+                UNPACK_SCHEMES.index(scheme), half, cols, reps,
+                _build.stream_ptr())
+        op.launched(f"{scheme} bytewise")
+    else:
+        blocks, pieces = unpack_plan(half, cols, scheme)
+        fn = _build.bind("int4_probe", "acai_int4_unpack",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p])
+        rc = fn(packed.data_ptr(), out.data_ptr(),
+                UNPACK_SCHEMES.index(scheme), half, cols, blocks,
+                pieces // UNPACK_VEC, reps, _build.stream_ptr())
+        op.launched(scheme)
     _build.check(rc, op.name)
     return out
 
@@ -282,4 +363,4 @@ def _launch_unpack(op, packed, scheme="i32", reps=1):
 int4_unpack = _build.KernelOp(
     "int4_unpack", "acai_omr_tpu_torch/csrc/int4_probe.cu",
     "tools/unpack_probe.py:112 (run, KERNELS :108, pallas_call :124)",
-    _launch_unpack, int4_unpack_plain)
+    _launch_unpack, int4_unpack_plain, _check_unpack)

@@ -13,6 +13,12 @@ K23 walks the chunks as the TPU's grid does, one block a tile
 the Pallas pipeline would: where the step adds it and its index changed.
 ``variant="grid"`` forces the two-launch kernel it replaced, kept as the
 yardstick.
+
+K24 sums the stream in one launch: a persistent grid walks it with the
+next step's sixteen 16-byte loads in flight a thread while it adds the step
+before (:func:`stream_plan`, :func:`stream_walk`), and the last block to
+take a ticket adds the blocks' partial rows;
+``variant="two_pass"`` forces the two-launch form it replaced.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ WALK_RING_BYTES = 96 * 1024  # a walk block's ring, two blocks an SM
 WALK_ROWS = (16, 128)  # the rows of a walk tile, a power of two between
 WALK_MAX_SLOTS = 4
 CHUNK_VARIANTS = (None, "grid")
-MAX_STREAM_BLOCKS = 512  # K24 blocks
+MAX_STREAM_BLOCKS = 512  # blocks of the two-pass form K24 replaced
 
 
 # ---------------------------------------------------------------------------
@@ -237,9 +243,18 @@ clamped_chunk_sum = _build.KernelOp(
 # K24: lane sums of a flat stream
 # ---------------------------------------------------------------------------
 
+STREAM_THREADS = 256  # K24's block
+STREAM_VEC = 16  # float4 loads a thread issues a step (the next step's too)
+STREAM_BLOCKS_PER_SM = 1
+STREAM_VARIANTS = (None, "two_pass")
+
+
 def stream_plan(x: torch.Tensor, c: torch.Tensor) -> tuple[int, int, int]:
-    """(lanes, blocks, float4s a block) of a K24 call; raises on what the
-    kernel does not take."""
+    """(lanes, blocks, float4s a thread a step) of a K24 call: a persistent
+    grid of at most one 256-thread block an SM, each thread issuing a
+    step's sixteen 16-byte loads before it adds the step before
+    (:func:`stream_walk`); fewer blocks where the stream is shorter than one
+    step of the full grid. Raises on what the kernel does not take."""
     if x.dim() != 3 or x.dtype != torch.float32:
         raise ValueError("x must be (blocks, T, lanes) fp32")
     lanes = x.shape[2]
@@ -251,10 +266,33 @@ def stream_plan(x: torch.Tensor, c: torch.Tensor) -> tuple[int, int, int]:
     n = x.numel()
     if n % 1024 or n == 0:
         raise ValueError(f"x must hold a multiple of 1024 values, got {n}")
+    per_block = STREAM_THREADS * STREAM_VEC
+    blocks = min(-(-(n // 4) // per_block), STREAM_BLOCKS_PER_SM * N_SMS)
+    return lanes, blocks, STREAM_VEC
+
+
+def stream_walk(n4: int, blocks: int, vec: int = STREAM_VEC) -> torch.Tensor:
+    """The float4 indices of a flat stream of ``n4`` float4s that K24's
+    threads load (``csrc/stream_probe.cu`` ``lane_sum_kernel``), -1 where a
+    load is past the end: (steps, vec, blocks x 256), thread g's j-th load
+    of a step at g + j x (the grid's threads) + the step's start, the steps
+    vec x the grid's threads apart."""
+    threads = blocks * STREAM_THREADS
+    step = threads * vec
+    steps = -(-n4 // step)
+    idx = (torch.arange(steps, dtype=torch.int64)[:, None, None] * step
+           + torch.arange(vec, dtype=torch.int64)[None, :, None] * threads
+           + torch.arange(threads, dtype=torch.int64)[None, None, :])
+    return torch.where(idx < n4, idx, torch.full_like(idx, -1))
+
+
+def two_pass_plan(n: int) -> tuple[int, int]:
+    """(blocks, float4s a block) of the two-pass form K24 replaced: the
+    most blocks up to 512 that split the stream's 1024-value units evenly."""
     units = n // 1024
     blocks = next(d for d in range(min(MAX_STREAM_BLOCKS, units), 0, -1)
                   if units % d == 0)
-    return lanes, blocks, n // 4 // blocks
+    return blocks, n // 4 // blocks
 
 
 def lane_stream_sum_plain(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -263,22 +301,66 @@ def lane_stream_sum_plain(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return c + x.sum(dim=(0, 1)).reshape(1, -1)
 
 
-def _launch_stream(op, x, c):
-    lanes, blocks, per_block = stream_plan(x, c)
+def _check_stream(x: torch.Tensor, c: torch.Tensor, variant=None) -> None:
+    """K24's shape rules and its variant, on either device."""
+    if variant not in STREAM_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: None (one launch) or "
+                         f"'two_pass'")
+    stream_plan(x, c)
+
+
+# K24's scratch by (device, blocks, lanes): the blocks' partial rows and the
+# ticket, allocated once (the kernel leaves the ticket zero). Calls that
+# share a shape run on one stream at a time.
+_STREAM_SCRATCH: dict = {}
+
+
+def _stream_scratch(device, blocks: int, lanes: int) -> tuple:
+    key = (device, blocks, lanes)
+    got = _STREAM_SCRATCH.get(key)
+    if got is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("lane_stream_sum: call it once outside a CUDA "
+                               "graph capture first (its scratch)")
+        got = (torch.empty((blocks, lanes), dtype=torch.float32,
+                           device=device),
+               torch.zeros(1, dtype=torch.int32, device=device))
+        _STREAM_SCRATCH[key] = got
+    return got
+
+
+def _launch_stream(op, x, c, variant=None):
+    """``variant`` (private: tests and chip_smoke.py): ``"two_pass"`` forces
+    the two-launch form this kernel replaced."""
+    _check_stream(x, c, variant)
+    lanes, blocks, _ = stream_plan(x, c)
     _build.require(x, "x", torch.float32, 3)
     _build.require(c, "c", torch.float32, 2)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    partial = torch.empty((blocks, lanes), dtype=torch.float32,
-                          device=x.device)
+    if c.device != x.device:
+        raise ValueError("x and c must be on one device")
     out = torch.empty((1, lanes), dtype=torch.float32, device=x.device)
-    fn = _build.bind("stream_probe", "acai_lane_stream_sum",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), c.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            blocks, per_block, lanes, _build.stream_ptr())
-    op.launched(f"lanes={lanes}")
-    op.extra_launches += 1  # the second pass over the blocks' rows
+    if variant == "two_pass":
+        blocks, per_block = two_pass_plan(x.numel())
+        partial = torch.empty((blocks, lanes), dtype=torch.float32,
+                              device=x.device)
+        fn = _build.bind("stream_probe", "acai_lane_stream_sum_two_pass",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), c.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), blocks, per_block, lanes, _build.stream_ptr())
+        op.launched(f"lanes={lanes} two_pass")
+        op.extra_launches += 1  # the second pass over the blocks' rows
+    else:
+        partial, ticket = _stream_scratch(x.device, blocks, lanes)
+        fn = _build.bind("stream_probe", "acai_lane_stream_sum",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), c.data_ptr(), partial.data_ptr(),
+                ticket.data_ptr(), out.data_ptr(), x.numel() // 4, blocks,
+                lanes, _build.stream_ptr())
+        op.launched(f"lanes={lanes}")
     _build.check(rc, op.name)
     return out
 
@@ -286,4 +368,4 @@ def _launch_stream(op, x, c):
 lane_stream_sum = _build.KernelOp(
     "lane_stream_sum", "acai_omr_tpu_torch/csrc/stream_probe.cu",
     "tools/narrow_lane_dma_probe.py:25 (stream_sum, pallas_call :36)",
-    _launch_stream, lane_stream_sum_plain)
+    _launch_stream, lane_stream_sum_plain, _check_stream)

@@ -39,15 +39,20 @@ def make_block(half: int = HALF, out: int = OUT, device="cpu") -> tuple:
     return pack_bytes(lo, hi).to(device), want.to(device)
 
 
-def run(name: str, reps: int, device="cuda", shape=(HALF, OUT)) -> dict:
+def run(name: str, reps: int, device="cuda", shape=(HALF, OUT),
+        variant=None) -> dict:
+    """One scheme: exact first, then ``(t(2n) - t(n)) / n``. ``variant``
+    (chip_smoke.py's turns): ``"bytewise"`` times the kernel K21's word-wide
+    kernel replaced."""
     dev = resolve(device)
     wp, want = make_block(*shape, device=dev)
-    out = int4_unpack(wp, name, 1)
+    unpack = lambda r: int4_unpack(wp, name, r, variant=variant)
+    out = unpack(1)
     if not torch.equal(out, want):
         diff = (out.int() - want.int()).abs().max().item()
         return {"exact": False, "line": f"WRONG (diff {diff})"}
-    t_n = time_ms(lambda: int4_unpack(wp, name, reps), dev, iters=5)
-    t_2n = time_ms(lambda: int4_unpack(wp, name, 2 * reps), dev, iters=5)
+    t_n = time_ms(lambda: unpack(reps), dev, iters=5)
+    t_2n = time_ms(lambda: unpack(2 * reps), dev, iters=5)
     ms = (t_2n - t_n) / reps
     packed = wp.numel()
     rate = f"{packed / (ms * 1e-3) / 1e9:6.1f} GB/s packed" if ms > 0 \

@@ -80,10 +80,12 @@ Phases, all in one process; any failure exits non-zero:
    with K11 decode_attention_hd on the same inputs (the microbench's
    per-head line) beside them; K19 smem_probe at 227 KB (row 0 bit for bit),
    228 KB refused; K20-K24 (the int4 and memory-stream probes' kernels,
-   ``int4_stream_cases``: K20 int4_delivery_gemm on whole-K column strips
-   and K23 clamped_chunk_sum as a chunk walk, each in turns with the kernel
-   it replaced, ``variant="atomic"`` / ``"grid"``, warm and from HBM, K23's
-   ``torch.sum`` on the same rotation); K25 head_logits (persistent blocks, TMA-stored
+   ``int4_stream_cases``: K20 int4_delivery_gemm on whole-K column strips,
+   K21 int4_unpack on whole words, K23 clamped_chunk_sum as a chunk walk and
+   K24 lane_stream_sum in one launch, each in turns with the kernel it
+   replaced, ``variant="atomic"`` / ``"bytewise"`` / ``"grid"`` /
+   ``"two_pass"``, warm and from HBM, K21's us per unpack of both forms,
+   K23's ``torch.sum`` on the same rotation); K25 head_logits (persistent blocks, TMA-stored
    tiles) in its three access forms at (T, E, H) = (256, 1024, 16) and
    (1024, 768, 12), K26 batched_head_logits in fp32 and int8 (exact), K27
    resident_elementwise in its five works at 8 passes; each against its
@@ -108,7 +110,8 @@ Phases, all in one process; any failure exits non-zero:
    ops/decode_hd_kernel.py assumes, every head-access form and K27 work
    right, every backward mode OK with the launches of its layer arithmetic,
    no launch of K16's, K17's or K25's wmma kernel, K18's warp kernel, K20's
-   atomic kernel or K23's grid kernel on the path;
+   atomic kernel, K21's bytewise kernels, K23's grid kernel, K24's two-pass
+   form, K26's shuffle kernel or K27's fixed kernel on the path;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -280,22 +283,25 @@ EXPECTED_KERNELS = {
                "resident_elementwise"],
 }
 # the probe kernels redesigned for Hopper, each kept beside the kernel it
-# replaced (a "wmma", "warp", "atomic", "grid", "shuffle" or "fixed"
-# variant) as the yardstick timed in turns
+# replaced (a "wmma", "warp", "atomic", "grid", "shuffle", "fixed",
+# "two_pass" or "bytewise" variant) as the yardstick timed in turns
 REDESIGNED_PROBES = ("tile_gemm", "blockdiag_decode_attention",
                      "batched_decode_attention", "head_logits",
                      "int4_delivery_gemm", "clamped_chunk_sum",
-                     "batched_head_logits", "resident_elementwise")
+                     "batched_head_logits", "resident_elementwise",
+                     "lane_stream_sum", "int4_unpack")
 
 
 def replaced_form(variant: str) -> bool:
     """Whether a launch variant (``KernelOp.variants`` key, or the variant
     of a resource row) is the kernel a redesigned probe replaced: K16's,
     K17's and K25's ``wmma``, K18's ``warp``, K20's ``atomic``, K23's
-    ``grid``, K26's ``shuffle``, K27's ``fixed``."""
+    ``grid``, K26's ``shuffle``, K27's ``fixed``, K24's ``two_pass``, K21's
+    ``bytewise``."""
     return "wmma" in variant or any(
         variant == w or variant.endswith(" " + w)
-        for w in ("warp", "atomic", "grid", "shuffle", "fixed"))
+        for w in ("warp", "atomic", "grid", "shuffle", "fixed", "two_pass",
+                  "bytewise"))
 # the stages bwd_vmem_probe stubs in the probes path, one run each
 BWD_PROBE_MODES = ("full", "nocross", "noself", "noffn")
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
@@ -1806,8 +1812,14 @@ def int4_stream_cases(torch, record, kernel_times, dev):
     (``variant="atomic"``, exact too), warm and from HBM (the weights
     rotated out of L2, ``old_cold_ms``); library none (``torch._int_mm``
     takes more than 16 rows); bound the weight, row and output bytes. K21:
-    the five schemes at (512, 4096), one unpack, bit for bit; library none
-    (no one call unpacks nibbles); bound 2 MiB in, 4 MiB out. K22: F =
+    the five schemes at (512, 4096), one unpack, bit for bit, one device
+    kernel a call; the word-wide kernel in turns with the bytewise kernel
+    it replaced (``variant="bytewise"``, bit for bit too), warm and from HBM
+    (the packed block rotated out of L2), and the tool's us per unpack of
+    both in turns (``us_per_unpack``, ``old_us_per_unpack``) beside the us
+    of ``fill_`` writing 4 MiB resident in L2 (``fill_4mib_us``: what an
+    unpack's stores alone cost); library none (no one call unpacks
+    nibbles); bound 2 MiB in, 4 MiB out. K22: F =
     1..16 at the tool's defaults, the tile bit for bit; library none (the
     output is one tile, the stream is the probe); bound the stream. K23:
     both modes at s = 1 / 31 / 63, within 1e-5 of the largest |output|, two
@@ -1817,9 +1829,12 @@ def int4_stream_cases(torch, record, kernel_times, dev):
     (s known on the host), warm on the same tensor and from HBM on the same
     rotating views as the kernel's cold time (``library_cold_ms``); bound
     (s + 1) chunks; the twin reads s on the host, so it is timed with
-    events around eager calls. K24: lanes 16 / 128, the same tolerance;
-    library ``x.sum((0, 1))`` (without the carry); bound x. ``cold``
-    rotates the inputs out of L2 where they fit it."""
+    events around eager calls. K24: lanes 16 / 128, the same tolerance, two
+    runs bit-equal, one device kernel a call; the one-launch kernel in turns
+    with the two-pass form it replaced (``variant="two_pass"``, within the
+    tolerance too), warm and from HBM; library ``x.sum((0, 1))`` (without
+    the carry), warm and from HBM; bound x. ``cold`` rotates the inputs out
+    of L2 where they fit it."""
     from acai_omr_tpu_torch.ops import int4_probe_kernels as ik
     from acai_omr_tpu_torch.ops import stream_probe_kernels as sk
     from acai_omr_tpu_torch.tools import dma_issue_probe as dip
@@ -1857,16 +1872,42 @@ def int4_stream_cases(torch, record, kernel_times, dev):
                    old_ms=old, cold=c_new, extra={"old_cold_ms": c_old})
 
     wp, want = upp.make_block(device=dev)
+    # the rate of L2 writes the unpack's stores meet: torch's fill_ of 4 MiB
+    # resident in L2, from fills of 16 and 32 MiB (one launch each)
+    fills = {}
+    for mib in (16, 32):
+        buf = torch.empty(mib * 2 ** 20, dtype=torch.uint8, device=dev)
+        fills[mib] = time_ms(torch, lambda: buf.fill_(1))
+    del buf
+    fill_4mib_us = (fills[32] - fills[16]) / 4 * 1e3
     for scheme in ik.UNPACK_SCHEMES:
-        call = lambda: ik.int4_unpack(wp, scheme, 1)
+        # the word-wide kernel in turns with the bytewise kernel it replaced
+        # (bit for bit too), one call warm and from HBM (the packed block
+        # rotated out of L2), and the tool's us per unpack (reps 50 / 100
+        # inside one launch, the output in L2) of both in turns
+        call = lambda v=None: ik.int4_unpack(wp, scheme, 1, variant=v)
+        cold_of = lambda v: cold_ms(torch, lambda p_: ik.int4_unpack(
+            p_, scheme, 1, variant=v), [wp])
         out_k = call()
+        exact = torch.equal(out_k, want) and torch.equal(
+            call("bytewise"), want) and one_kernel(ik.int4_unpack, call)
+        t_new, old = turns_ms(torch, call, lambda: call("bytewise"))
+        c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                lambda: cold_of("bytewise"), timer=False)
+        per_new, per_old = turns_ms(
+            torch, lambda: upp.run(scheme, 50, dev)["ms"],
+            lambda: upp.run(scheme, 50, dev, variant="bytewise")["ms"],
+            timer=False)
         record(ik.int4_unpack, f"{scheme} ({upp.HALF},{upp.OUT}) packed, one "
-               f"unpack", out_k, want, 0.0, kernel_times(call),
+               f"unpack", out_k, want, 0.0, (t_new, host_us(torch, call)),
                time_ms(torch, lambda: ik.int4_unpack.plain(wp, scheme)), None,
                3 * wp.numel(),
                2 * 16 * wp.numel() if scheme == "eyedot" else 0,
-               peak=PEAK_INT8_OP_PER_S, paths=["probes"],
-               exact=torch.equal(out_k, want), variant=scheme)
+               peak=PEAK_INT8_OP_PER_S, paths=["probes"], exact=exact,
+               variant=scheme, old_ms=old, cold=c_new,
+               extra={"old_cold_ms": c_old, "us_per_unpack": per_new * 1e3,
+                      "old_us_per_unpack": per_old * 1e3,
+                      "fill_4mib_us": fill_4mib_us})
 
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     src = dip.make_src(48, 64, blocks, dev)
@@ -1925,22 +1966,34 @@ def int4_stream_cases(torch, record, kernel_times, dev):
     del x
     torch.cuda.empty_cache()
 
+    op24 = sk.lane_stream_sum
     for lanes in (16, 128):
         g = torch.Generator(device=dev).manual_seed(0)
         x = torch.randn(nlp.N_BLOCKS, nlp.T, lanes, generator=g, device=dev)
         c = torch.randn(1, lanes, generator=g, device=dev)
-        call = lambda: sk.lane_stream_sum(x, c)
-        out_k, out_p = call(), sk.lane_stream_sum.plain(x, c)
-        record(sk.lane_stream_sum, f"lanes={lanes} x ({nlp.N_BLOCKS},{nlp.T},"
-               f"{lanes}) (library: x.sum((0, 1)), no carry)", out_k, out_p,
-               1e-5 * max(1.0, out_p.abs().max().item()), kernel_times(call),
-               time_ms(torch, lambda: sk.lane_stream_sum.plain(x, c)),
+        # the one-launch kernel in turns with the two-pass form it replaced
+        # (within the tolerance too), warm and from HBM; two runs bit-equal,
+        # one device kernel a call
+        call = lambda v=None: op24(x, c, variant=v)
+        cold_of = lambda v: cold_ms(torch, lambda x_: op24(x_, c, variant=v),
+                                    [x])
+        out_k, out_p = call(), op24.plain(x, c)
+        tol = 1e-5 * max(1.0, out_p.abs().max().item())
+        exact = (torch.equal(out_k, call()) and one_kernel(op24, call)
+                 and (call("two_pass") - out_p).abs().max().item() <= tol)
+        t_new, old = turns_ms(torch, call, lambda: call("two_pass"))
+        c_new, c_old = turns_ms(torch, lambda: cold_of(None),
+                                lambda: cold_of("two_pass"), timer=False)
+        record(op24, f"lanes={lanes} x ({nlp.N_BLOCKS},{nlp.T},{lanes}) "
+               f"(library: x.sum((0, 1)), no carry)", out_k, out_p, tol,
+               (t_new, host_us(torch, call)),
+               time_ms(torch, lambda: op24.plain(x, c)),
                time_ms(torch, lambda: x.sum(dim=(0, 1))),
                x.numel() * 4 + 8 * lanes, x.numel(),
                peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
-               variant=f"lanes={lanes}",
-               cold=cold_ms(torch, lambda x_: sk.lane_stream_sum(x_, c),
-                            [x]))
+               variant=f"lanes={lanes}", exact=exact, old_ms=old, cold=c_new,
+               lib_cold=cold_ms(torch, lambda x_: x_.sum(dim=(0, 1)), [x]),
+               extra={"old_cold_ms": c_old})
 
 
 def access_vpu_cases(torch, record, kernel_times, dev):
@@ -2133,7 +2186,7 @@ def access_vpu_cases(torch, record, kernel_times, dev):
                   f"static_smem={r['static_smem']} "
                   f"dynamic_smem={r['dynamic_smem']} "
                   f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
-            # the redesigned probe kernels (K16-K18, K20, K23, K25-K27) use
+            # the redesigned probe kernels (K16-K18, K20, K21, K23-K27) use
             # no local memory
             if r["local_bytes"] and r["op"] in REDESIGNED_PROBES \
                     and not replaced_form(r["variant"]):

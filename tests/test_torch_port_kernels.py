@@ -1732,12 +1732,33 @@ def test_int4_delivery_gemm_extremes(dev, scheme):
 
 @pytest.mark.parametrize("scheme", ik.UNPACK_SCHEMES)
 def test_int4_unpack_every_byte(dev, scheme):
+    """The word-wide kernel and the bytewise kernel it replaced, bit for bit
+    at reps 1 and 3, every byte value."""
     g = torch.Generator(device=dev).manual_seed(41)
     packed = _int4(g, (512, 4096), dev, -128, 128)
     packed[0, :256] = torch.arange(-128, 128, device=dev).to(torch.int8)
     want = ik.int4_unpack.plain(packed, scheme)
     for reps in (1, 3):
-        assert torch.equal(ik.int4_unpack(packed, scheme, reps), want)
+        for variant in (None, "bytewise"):
+            assert torch.equal(ik.int4_unpack(packed, scheme, reps,
+                                              variant=variant), want), \
+                (reps, variant)
+
+
+@pytest.mark.parametrize("scheme", ik.UNPACK_SCHEMES)
+@pytest.mark.parametrize("half,cols", [(16, 16), (16, 144), (48, 272),
+                                       (4096, 4096)])
+def test_int4_unpack_word_kernels_at_every_tail(dev, scheme, half, cols):
+    """The word-wide kernels where a thread's four pieces pass the end,
+    eyedot's tiles are ragged (cols % 128) and the grid takes more than one
+    round (4096 x 4096), bit for bit, one device kernel a call."""
+    g = torch.Generator(device=dev).manual_seed(half + cols)
+    packed = _int4(g, (half, cols), dev, -128, 128)
+    op = ik.int4_unpack
+    before = op.device_launches
+    out = op(packed, scheme, 2)
+    assert op.device_launches == before + 1
+    assert torch.equal(out, op.plain(packed, scheme))
 
 
 def test_int4_unpack_reps_are_not_folded(dev):
@@ -1832,12 +1853,19 @@ def test_clamped_chunk_sum_ragged_tiles(dev, n, ch, e):
 @pytest.mark.parametrize("lanes,blocks,t", [(16, 256, 512), (128, 256, 512),
                                             (4, 3, 1024), (256, 5, 8)])
 def test_lane_stream_sum(dev, lanes, blocks, t):
+    """One device kernel a call, two runs bit-equal, within 1e-5 of the
+    twin; the two-pass form it replaced within the same tolerance."""
     g = torch.Generator(device=dev).manual_seed(46)
     x = torch.randn(blocks, t, lanes, generator=g, device=dev)
     c = torch.randn(1, lanes, generator=g, device=dev)
-    out = sk.lane_stream_sum(x, c)
-    assert torch.equal(out, sk.lane_stream_sum(x, c))
-    _close(out, sk.lane_stream_sum.plain(x, c), 1e-5)
+    op = sk.lane_stream_sum
+    before = op.device_launches
+    out = op(x, c)
+    assert op.device_launches == before + 1
+    assert torch.equal(out, op(x, c))
+    want = op.plain(x, c)
+    _close(out, want, 1e-5)
+    _close(op(x, c, variant="two_pass"), want, 1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -2180,6 +2208,24 @@ def test_resident_elementwise_keeps_its_rows_in_registers(dev):
                             f"{work} {cols} fixed"):
                 (row,) = vk.resident_elementwise.resources(variant)
                 assert row["local_bytes"] == 0, row
+
+
+def test_unpack_and_stream_sum_report_no_spill(dev):
+    """K21's word-wide kernels (every scheme) and K24's one-launch kernel:
+    no local memory, the tool's grid resident at once; the kernels they
+    replaced listed beside."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for scheme in ik.UNPACK_SCHEMES:
+        (r,) = [r for r in ik.int4_unpack.resources(scheme)
+                if r["variant"] == scheme]
+        assert r["threads"] == ik.UNPACK_THREADS and r["local_bytes"] == 0, r
+        blocks, _ = ik.unpack_plan(512, 4096, scheme)
+        assert r["blocks_per_sm"] * sms >= blocks, r
+        assert len(ik.int4_unpack.resources(f"{scheme} bytewise")) == 1
+    (r,) = [r for r in sk.lane_stream_sum.resources() if r["variant"] == ""]
+    assert r["threads"] == sk.STREAM_THREADS and r["local_bytes"] == 0, r
+    assert r["blocks_per_sm"] >= sk.STREAM_BLOCKS_PER_SM, r
+    assert len(sk.lane_stream_sum.resources("two_pass")) == 3
 
 
 def test_batched_head_logits_slab_reports_no_spill(dev):
