@@ -6,12 +6,15 @@ Same on-disk layouts, split files, transform hooks and wrapper semantics
 (the MAE wrappers augment the input only, so the target is the clean image);
 items are numpy arrays / python strings consumed by the bucket loader.
 No dataset is in the repository: :class:`DebugDataset` generates the seeded
-synthetic examples the tests and ``chip_smoke.py`` train on. ``pandas`` is
-imported where a split file or ``ids.csv`` is read, not with the module.
+synthetic examples the tests and ``chip_smoke.py`` train on. Split files and
+``ids.csv`` are read with the ``csv`` module (the JAX package reads them
+with pandas, which the GPU machine does not carry): the ids are the first
+field of each non-blank line, as strings.
 """
 
 from __future__ import annotations
 
+import csv
 from pathlib import Path
 
 import numpy as np
@@ -24,15 +27,15 @@ class LMXDataset:
 
     def __init__(self, root_dir, split_file_name, img_transform=None,
                  lmx_transform=None, include_musicxml=False):
-        import pandas as pd
         self.root_dir = Path(root_dir)
-        self.id_df = pd.read_csv(self.root_dir / split_file_name, header=None)
+        with open(self.root_dir / split_file_name, newline="") as f:
+            self.ids = [row[0] for row in csv.reader(f) if row]
         self.img_transform = img_transform
         self.lmx_transform = lmx_transform
         self.include_musicxml = include_musicxml
 
     def __len__(self):
-        return len(self.id_df)
+        return len(self.ids)
 
     def _load_img(self, path) -> Image.Image:
         return Image.open(path).convert("L")
@@ -53,7 +56,7 @@ class GrandStaffLMXDataset(LMXDataset):
     """(original, distorted-resized, lmx[, musicxml])."""
 
     def __getitem__(self, idx):
-        ex_id = self.id_df.iat[idx, 0]
+        ex_id = self.ids[idx]
         original = self._load_img(self.root_dir / "grandstaff" / (ex_id + ".jpg"))
         distorted = self._load_img(
             self.root_dir / "grandstaff" / (ex_id + "_distorted.jpg"))
@@ -71,7 +74,7 @@ class OlimpicDataset(LMXDataset):
     """(img, lmx[, musicxml]) for synthetic/scanned OLiMPiC."""
 
     def __getitem__(self, idx):
-        ex_id = self.id_df.iat[idx, 0]
+        ex_id = self.ids[idx]
         img = self._load_img(self.root_dir / (ex_id + ".png"))
         if self.img_transform:
             img = self.img_transform(img)
@@ -84,16 +87,16 @@ class PreparedDataset:
     the prepare scripts write beside ``images/``."""
 
     def __init__(self, root_dir, transform=None):
-        import pandas as pd
         self.root_dir = Path(root_dir)
-        self.id_df = pd.read_csv(self.root_dir / "ids.csv")
+        with open(self.root_dir / "ids.csv", newline="") as f:
+            self.ids = [row["id"] for row in csv.DictReader(f)]
         self.transform = transform
 
     def __len__(self):
-        return len(self.id_df)
+        return len(self.ids)
 
     def __getitem__(self, idx):
-        img_id = self.id_df.at[idx, "id"]
+        img_id = self.ids[idx]
         img = Image.open(
             self.root_dir / "images" / (img_id + ".png")).convert("L")
         return self.transform(img) if self.transform else img

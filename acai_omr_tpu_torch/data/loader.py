@@ -22,6 +22,11 @@ from ..ops import patchify as patch_ops
 from ..models.vit_encoder import EncoderConfig
 
 
+class MaePackedBatch(dict):
+    """The packed arrays of one MAE step (what :func:`pack_mae_batch`
+    returns)."""
+
+
 def _pad_batch_dim(arrays: dict, pad_to: int | None,
                    fills: dict | None = None) -> dict:
     """Pad every array's batch dim to ``pad_to`` (padding rows have
@@ -41,7 +46,7 @@ def _pad_batch_dim(arrays: dict, pad_to: int | None,
 
 
 def pack_mae_batch(examples, enc_cfg: EncoderConfig, bucket_multiple=128,
-                   pad_to_batch: int | None = None) -> dict:
+                   pad_to_batch: int | None = None) -> MaePackedBatch:
     """[(input_img, target_img)] -> packed arrays for an MAE step: patches,
     pe_idx, pe_w, valid, lengths, target_patches. Targets share their
     input's shape and are patchified into the same bucket; when every target
@@ -62,16 +67,19 @@ def pack_mae_batch(examples, enc_cfg: EncoderConfig, bucket_multiple=128,
             tgt[i, :tp.shape[0]] = tp
     arrays = dict(patches=pb.patches, pe_idx=pb.pe_idx, pe_w=pb.pe_w,
                   valid=pb.valid, lengths=pb.lengths, target_patches=tgt)
-    return _pad_batch_dim(arrays, pad_to_batch)
+    return MaePackedBatch(_pad_batch_dim(arrays, pad_to_batch))
 
 
 def pack_omr_batch(examples, enc_cfg: EncoderConfig, tokenizer,
                    bucket_multiple=128, lmx_bucket_multiple=128,
                    max_lmx_seq_len: int | None = None,
+                   include_musicxml: bool = False,
                    pad_to_batch: int | None = None) -> dict:
-    """[(img, lmx)] -> packed arrays for a seq2seq step: patches, pe_idx,
-    pe_w, valid, lengths, inputs, targets, lmx_valid. Patch and token lengths
-    are padded to multiples of 128."""
+    """[(img, lmx[, musicxml])] -> packed arrays for a seq2seq step: patches,
+    pe_idx, pe_w, valid, lengths, inputs, targets, lmx_valid. Patch and token
+    lengths are padded to multiples of 128. ``include_musicxml`` adds the
+    host lists ``musicxml`` and ``lmx_seqs`` (token ids), row-aligned with the
+    padded arrays: rows added by ``pad_to_batch`` carry None."""
     imgs = [ex[0] for ex in examples]
     lmx = [ex[1] for ex in examples]
     pb = vit_encoder.batchify(imgs, enc_cfg, bucket_multiple)
@@ -82,9 +90,14 @@ def pack_omr_batch(examples, enc_cfg: EncoderConfig, tokenizer,
     arrays = dict(patches=pb.patches, pe_idx=pb.pe_idx, pe_w=pb.pe_w,
                   valid=pb.valid, lengths=pb.lengths, inputs=inputs,
                   targets=targets, lmx_valid=lmx_valid)
-    return _pad_batch_dim(arrays, pad_to_batch,
-                          fills={"inputs": tokenizer.pad_idx,
-                                 "targets": tokenizer.pad_idx})
+    out = _pad_batch_dim(arrays, pad_to_batch,
+                         fills={"inputs": tokenizer.pad_idx,
+                                "targets": tokenizer.pad_idx})
+    if include_musicxml:
+        n_pad = out["patches"].shape[0] - len(examples)
+        out["musicxml"] = [ex[2] for ex in examples] + [None] * n_pad
+        out["lmx_seqs"] = seqs + [None] * n_pad
+    return out
 
 
 def to_device(batch: dict, device) -> dict:

@@ -1,7 +1,8 @@
 """ctypes bindings for the native image-preprocessing kernel.
 
 Loads native/libimgproc.so (built by native/Makefile) and exposes
-antialiased bicubic resize for the host data pipeline. Falls back silently when the library isn't built — callers check
+antialiased bicubic resize and fused resize + patchify for the host data
+pipeline. Falls back silently when the library isn't built — callers check
 :func:`available` or use :mod:`.transforms`' PIL path.
 """
 
@@ -45,6 +46,9 @@ def _load():
                 lib.resize_bicubic.argtypes = [
                     fp, ctypes.c_int32, ctypes.c_int32,
                     fp, ctypes.c_int32, ctypes.c_int32]
+                lib.resize_patchify.argtypes = [
+                    fp, ctypes.c_int32, ctypes.c_int32,
+                    fp, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
                 _LIB = lib
         except OSError:
             _LIB = None
@@ -68,3 +72,15 @@ def resize_bicubic(img: np.ndarray, th: int, tw: int) -> np.ndarray:
     lib.resize_bicubic(_fp(img), img.shape[0], img.shape[1], _fp(out), th, tw)
     return out
 
+
+def resize_patchify(img: np.ndarray, th: int, tw: int,
+                    patch: int) -> np.ndarray:
+    """(H, W) float32 -> ((th//p)*(tw//p), p*p) patches of the antialiased
+    bicubic resize, clamped to [0, 1], in one call."""
+    lib = _load()
+    img = np.ascontiguousarray(img, dtype=np.float32)
+    hp, wp = th // patch, tw // patch
+    out = np.empty((hp * wp, patch * patch), dtype=np.float32)
+    lib.resize_patchify(_fp(img), img.shape[0], img.shape[1], _fp(out), th,
+                        tw, patch)
+    return out

@@ -1,9 +1,8 @@
-"""Host-side image transforms of inference and of stage-2 training.
+"""Host-side image transforms of inference and of training.
 
-The twin of the JAX package's ``data/transforms.py`` (without its MAE
-resize), implemented with PIL and numpy so the device never sees ragged
-shapes: images are resized and augmented on the host, patchified, and
-bucket-packed before transfer.
+The twin of the JAX package's ``data/transforms.py``, implemented with PIL
+and numpy so the device never sees ragged shapes: images are resized and
+augmented on the host, patchified, and bucket-packed before transfer.
 
 All transforms take and return float32 (C, H, W) arrays in [0, 1] (grayscale:
 C=1). ``DynamicResize`` keeps the reference's exact integer-division
@@ -82,6 +81,23 @@ def center_crop(arr: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     top = int(round((h - out_h) / 2.0))
     left = int(round((w - out_w) / 2.0))
     return arr[:, top:top + out_h, left:left + out_w]
+
+
+class PatchDivisibleResize:
+    """Round dims down to patch multiples (reference: utils.py:309-330)."""
+
+    def __init__(self, patch_size: int):
+        self.patch_size = patch_size
+
+    def __call__(self, img) -> np.ndarray:
+        arr = to_float_chw(img)
+        _, h, w = arr.shape
+        p = self.patch_size
+        new_w = max(w // p * p, p)
+        new_h = max(h // p * p, p)
+        if (new_h, new_w) == (h, w):
+            return arr
+        return _resize_chw(arr, (new_h, new_w))
 
 
 class DynamicResize:

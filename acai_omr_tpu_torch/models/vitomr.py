@@ -3,10 +3,12 @@
 The twin of the JAX package's ``models/vitomr.py``: one parameter dict with
 the JAX tree's names and layouts, the pure forward functions of inference
 and of stage-2 training (teacher-forced and scheduled-sampling forwards, the
-padded cross entropy), and the sampled rollouts of stage 3. Randomness is
-explicit: every training forward takes an integer ``seed`` from which the
-dropout masks (:mod:`..ops.dropout_kernel`) and the scheduled-sampling draws
-are derived on the host; rollouts take a ``torch.Generator``.
+padded cross entropy), the generation entry points (the uncached next-token
+distribution, the cached greedy and beam decodes) and the sampled rollouts
+of stage 3. Randomness is explicit: every training forward takes an integer
+``seed`` from which the dropout masks (:mod:`..ops.dropout_kernel`) and the
+scheduled-sampling draws are derived on the host; rollouts take a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -226,6 +228,87 @@ def omr_ce_loss(logits: torch.Tensor, target_seqs: torch.Tensor, pad_idx: int,
     if reduction == "sum":
         return (nll * mask).sum(), mask.sum()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# generation entry points
+# ---------------------------------------------------------------------------
+
+# the query and key rows of the card's attention tiles: K3 takes whole tiles
+ATTN_TILE = 64
+
+
+def _tile_rows(n: int) -> int:
+    return -(-n // ATTN_TILE) * ATTN_TILE
+
+
+def generate_next_token_distr(params: Params, cfg: ViTOMRConfig,
+                              img_latent: torch.Tensor, seqs: torch.Tensor,
+                              compute_dtype=torch.float32,
+                              latent_valid: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Beam-search-ready next-token distribution, uncached (reference:
+    TeacherForcedViTOMR.generate, models.py:749-757): one image's latent
+    (1, M, E) held by every row of ``seqs`` (N, T), and the (N, V) fp32 log
+    probabilities of the next token of each row.
+
+    ``latent_valid`` (1, M): REQUIRED when the latent comes from a padded
+    batchify (the bucket's pad rows carry nonzero values after the encoder;
+    without the mask every row cross-attends them and the distribution is
+    contaminated). The reference worked on unpadded per-image latents and
+    had no such argument.
+
+    The decoder's attention kernels take whole tiles of :data:`ATTN_TILE`
+    rows, so the prefixes are padded with ``<pad>`` past their end (masked,
+    and after every real position under the causal mask) and the latent
+    with masked rows, to whole tiles; the last real position's logits are
+    read. Neither padding reaches a real position's result."""
+    n, t = seqs.shape
+    m = img_latent.shape[1]
+    t_pad = max(t, min(_tile_rows(t), cfg.decoder.max_lmx_seq_len))
+    m_pad = _tile_rows(m)
+    dev = seqs.device
+    seqs = torch.nn.functional.pad(seqs, (0, t_pad - t),
+                                   value=cfg.decoder.pad_idx)
+    lmx_valid = (torch.arange(t_pad, device=dev) < t)[None].expand(n, t_pad)
+    if latent_valid is None:
+        latent_valid = torch.ones((1, m), dtype=torch.bool, device=dev)
+    latent_valid = torch.nn.functional.pad(latent_valid, (0, m_pad - m))
+    latent = torch.nn.functional.pad(img_latent, (0, 0, 0, m_pad - m))
+    logits = omr_decoder.forward(
+        params["decoder"], cfg.decoder, seqs,
+        latent.expand(n, m_pad, latent.shape[2]).contiguous(), lmx_valid,
+        latent_valid.expand(n, m_pad), compute_dtype=compute_dtype)
+    return torch.log_softmax(logits[:, t - 1, :], dim=-1)
+
+
+def cached_greedy_generate(params: Params, cfg: ViTOMRConfig, img_latent,
+                           latent_valid=None, max_len: int = 1536, **kwargs):
+    """(seqs, log_probs, seq_mask) of the KV-cached greedy decode
+    (reference models.py:600-615); ``kwargs`` go to
+    :func:`.decode.generate`."""
+    return decode_lib.generate(params["decoder"], cfg.decoder, img_latent,
+                               latent_valid, max_len=max_len, **kwargs)
+
+
+def cached_beam_generate(params: Params, cfg: ViTOMRConfig, img_latent,
+                         latent_valid=None, beam_size: int = 4,
+                         max_len: int = 1536, **kwargs):
+    """(seqs, log_probs, seq_mask) of the best length-normalised beam of a
+    KV-cached beam search (the reference decodes greedily, with a
+    beam-ready uncached ``generate``); ``kwargs`` go to
+    :func:`.decode.beam_generate`."""
+    return decode_lib.beam_generate(params["decoder"], cfg.decoder,
+                                    img_latent, latent_valid,
+                                    beam_size=beam_size, max_len=max_len,
+                                    **kwargs)
+
+
+def expand_img_latent_for_rollout(img_latent, latent_valid, group_size: int):
+    """(B, M, E) -> (B*G, M, E), and the mask alike: each image's rows
+    repeated ``group_size`` times in place (models.py:883-891)."""
+    return (img_latent.repeat_interleave(group_size, dim=0),
+            latent_valid.repeat_interleave(group_size, dim=0))
 
 
 # ---------------------------------------------------------------------------

@@ -154,7 +154,11 @@ def resources(name: str) -> list[dict]:
 
 
 def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The handle of the current device's current CUDA stream, which every
+    kernel launches on: ``torch.cuda.current_stream().cuda_stream`` without
+    building a ``Stream`` object (that costs about 5 us a call on the
+    card's host, a quarter of a K19 wrapper call)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def check(rc: int, what: str) -> None:

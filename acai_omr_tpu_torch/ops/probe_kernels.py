@@ -20,7 +20,10 @@ attention has to answer on the card:
   :func:`batched_route` picks (counted as ``"bt={bt} {route}"``);
   ``variant="warp"`` forces the kernel it replaced.
 * K19 :data:`smem_probe` (``csrc/smem_probe.cu``): ``tools/vmem_probe.py``
-  ``probe``.
+  ``probe``, one warp with no barrier, launched as a programmatic dependent
+  launch (``pdl=False``: an ordinary one), its shared-memory attribute set
+  only for a size past the largest set (:func:`smem_set_max`);
+  ``variant="simple"`` forces the kernel it replaced.
 
 Each has its plain PyTorch twin beside it, which the CPU tests use and the
 card is held against.
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -498,6 +502,8 @@ batched_decode_attention = _build.KernelOp(
 # ---------------------------------------------------------------------------
 
 SMEM_ROW_BYTES = 128 * 2  # one (128,) bf16 row of the scratch
+# None: the warp kernel; "simple": the kernel it replaced
+SMEM_VARIANTS = (None, "simple")
 
 
 class SmemRefused(RuntimeError):
@@ -510,7 +516,12 @@ class SmemRefused(RuntimeError):
         self.n_bytes, self.code = n_bytes, code
 
 
-def _check_smem(x: torch.Tensor, n_bytes: int) -> None:
+def _check_smem(x: torch.Tensor, n_bytes: int, variant=None,
+                pdl: bool = True) -> None:
+    """K19's shape rules and its variant, on either device."""
+    if variant not in SMEM_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: None (the warp "
+                         f"kernel) or 'simple'")
     if tuple(x.shape) != (8, 128) or x.dtype != torch.bfloat16:
         raise ValueError("x must be (8, 128) bf16")
     if n_bytes < 8 * SMEM_ROW_BYTES or n_bytes % SMEM_ROW_BYTES:
@@ -518,11 +529,13 @@ def _check_smem(x: torch.Tensor, n_bytes: int) -> None:
                          f"at least 8")
 
 
-def smem_probe_plain(x: torch.Tensor, n_bytes: int) -> torch.Tensor:
+def smem_probe_plain(x: torch.Tensor, n_bytes: int,
+                     pdl: bool = True) -> torch.Tensor:
     """Plain twin of K19: row 0 of ``x`` into row 0 of an (n_bytes / 256,
     128) bf16 scratch, out = scratch[0:8] * 2. The scratch's other rows are
     zeros here; the kernel's are whatever the card held (only row 0 is
-    defined on the card, as on the TPU)."""
+    defined on the card, as on the TPU). ``pdl`` is the kernel's launch
+    form and changes nothing here."""
     _check_smem(x, n_bytes)
     scratch = torch.zeros((n_bytes // SMEM_ROW_BYTES, 128), dtype=x.dtype,
                           device=x.device)
@@ -537,25 +550,89 @@ def _smem_lib():
     return lib
 
 
-def _launch_smem(op, x, n_bytes: int):
+# the largest dynamic shared memory the warp kernel may ask for on each
+# device: its attribute is set only for a size past it, so a call that
+# launches is one launch; a refused size leaves it as it was
+_SMEM_SET: dict[int, int] = {}
+_SMEM_LOCK = threading.Lock()
+
+
+def _refused(n_bytes: int, rc: int) -> SmemRefused:
+    return SmemRefused(n_bytes, rc,
+                       _smem_lib().acai_cuda_error_string(rc).decode())
+
+
+def smem_set_max(device_index: int, n_bytes: int) -> None:
+    """Let a launch of K19's warp kernel on device ``device_index`` ask for
+    ``n_bytes`` of dynamic shared memory: ``cudaFuncSetAttribute`` only when
+    ``n_bytes`` is past the largest set there so far. A refusal raises
+    :class:`SmemRefused` and leaves the cache as it was."""
+    if n_bytes <= _SMEM_SET.get(device_index, 0):
+        return
+    with _SMEM_LOCK:
+        if n_bytes <= _SMEM_SET.get(device_index, 0):
+            return
+        fn = _build.bind("smem_probe", "acai_smem_set_max",
+                         [ctypes.c_int, ctypes.c_int])
+        rc = fn(n_bytes, 0)
+        if rc != 0:
+            raise _refused(n_bytes, rc)
+        _SMEM_SET[device_index] = n_bytes
+
+
+def _launch_smem(op, x, n_bytes: int, variant=None, pdl: bool = True):
+    """``variant`` (private: tests and chip_smoke.py): ``"simple"`` forces
+    the kernel the warp kernel replaced, launched as it was (its attribute
+    set on every call). ``pdl=False`` launches the warp kernel as an
+    ordinary kernel, not a programmatic dependent launch."""
     _build.require(x, "x", torch.bfloat16, 2)
-    _check_smem(x, n_bytes)
+    _check_smem(x, n_bytes, variant)
     out = torch.empty_like(x)
-    fn = _build.bind("smem_probe", "acai_smem_probe",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
-    rc = fn(x.data_ptr(), out.data_ptr(), n_bytes, _build.stream_ptr())
+    ptr = x.data_ptr()
+    if variant == "simple":
+        fn = _build.bind("smem_probe", "acai_smem_probe_simple",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p])
+        rc = fn(ptr, out.data_ptr(), n_bytes, _build.stream_ptr())
+    else:
+        if ptr % 8:
+            raise ValueError("x must be 8-byte aligned: a lane loads 8 bytes")
+        smem_set_max(x.get_device(), n_bytes)
+        fn = _build.bind("smem_probe", "acai_smem_probe",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
+        rc = fn(ptr, out.data_ptr(), n_bytes, int(pdl), _build.stream_ptr())
     if rc != 0:  # refused: nothing launched
-        raise SmemRefused(n_bytes, rc,
-                          _smem_lib().acai_cuda_error_string(rc).decode())
-    op.launched(f"{n_bytes // 1024} KB")
+        raise _refused(n_bytes, rc)
+    suffix = " simple" if variant else ("" if pdl else " no_pdl")
+    op.launched(f"{n_bytes // 1024} KB{suffix}")
     return out
 
 
 smem_probe = _build.KernelOp(
     "smem_probe", "acai_omr_tpu_torch/csrc/smem_probe.cu",
     "tools/vmem_probe.py:13 (probe, pallas_call :21)", _launch_smem,
-    smem_probe_plain)
+    smem_probe_plain, _check_smem)
+
+
+def smem_graph_edges(x: torch.Tensor, n_bytes: int, pdl: bool = True,
+                     n: int = 20) -> tuple[int, int]:
+    """(edges, programmatic edges) of a CUDA graph captured from ``n``
+    launches of K19's warp kernel on ``x``: whether the graph keeps the
+    overlap of a programmatic launch. Not counted as launches."""
+    _build.require(x, "x", torch.bfloat16, 2)
+    _check_smem(x, n_bytes)
+    smem_set_max(x.get_device(), n_bytes)
+    out = torch.empty_like(x)
+    edges, prog = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _build.bind("smem_probe", "acai_smem_graph_edges",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    _build.check(fn(x.data_ptr(), out.data_ptr(), n_bytes, int(pdl), n,
+                    ctypes.addressof(edges), ctypes.addressof(prog)),
+                 "acai_smem_graph_edges")
+    return edges.value, prog.value
 
 
 def smem_optin_bytes() -> int:

@@ -39,14 +39,46 @@ def save_pytree(path, tree: dict) -> Path:
     return path
 
 
-def load_pytree(path) -> dict:
+def _leaf_spec(leaf) -> tuple | None:
+    """(shape, dtype name) of a tensor, array or scalar leaf; None for a
+    leaf stored as None."""
+    if leaf is None:
+        return None
+    if torch.is_tensor(leaf):
+        return tuple(leaf.shape), str(leaf.dtype).removeprefix("torch.")
+    a = np.asarray(leaf)
+    return a.shape, a.dtype.name
+
+
+def _check_like(tree: dict, like: dict, path) -> None:
+    """Raise ValueError naming the first leaf whose key, shape or dtype
+    differs between the tree read from ``path`` and ``like``."""
+    got, want = _flatten(tree), _flatten(like)
+    for key in sorted(want.keys() | got.keys()):
+        if key not in got:
+            raise ValueError(f"{path}: leaf {key!r} is missing")
+        if key not in want:
+            raise ValueError(f"{path}: leaf {key!r} is not in `like`")
+        g, w = _leaf_spec(got[key]), _leaf_spec(want[key])
+        if g != w:
+            raise ValueError(f"{path}: leaf {key!r} holds (shape, dtype) {g}"
+                             f", `like` has {w}")
+
+
+def load_pytree(path, like: dict | None = None) -> dict:
     """The nested dict of numpy arrays :func:`save_pytree` wrote, or that the
     JAX package's ``save_pytree`` / ``save_train_state`` wrote into the
-    orbax directory ``path``."""
+    orbax directory ``path``. With ``like`` (a tree of tensors, arrays or
+    scalars), the tree read must have its keys, shapes and dtypes: a
+    mismatch raises ValueError naming the leaf."""
     if orbax_tree.is_orbax_dir(path):
-        return orbax_tree.read(path)
-    with np.load(_npz(path)) as data:
-        return _unflatten({k: data[k] for k in data.files})
+        tree = orbax_tree.read(path)
+    else:
+        with np.load(_npz(path)) as data:
+            tree = _unflatten({k: data[k] for k in data.files})
+    if like is not None:
+        _check_like(tree, like, path)
+    return tree
 
 
 def save_train_state(path, state) -> Path:

@@ -79,7 +79,8 @@ Phases, all in one process; any failure exits non-zero:
    4) at B = 32, H = 16, Dh = 64, T = 512, K18 also at B = 1 beside K11 there,
    with K11 decode_attention_hd on the same inputs (the microbench's
    per-head line) beside them; K19 smem_probe at 227 KB (row 0 bit for bit),
-   228 KB refused; K20-K24 (the int4 and memory-stream probes' kernels,
+   228 KB refused, its warp kernel with and without its programmatic launch
+   in turns with the kernel it replaced (``variant="simple"``); K20-K24 (the int4 and memory-stream probes' kernels,
    ``int4_stream_cases``: K20 int4_delivery_gemm on whole-K column strips,
    K21 int4_unpack on whole words, K23 clamped_chunk_sum as a chunk walk and
    K24 lane_stream_sum in one launch, each in turns with the kernel it
@@ -109,9 +110,10 @@ Phases, all in one process; any failure exits non-zero:
    cudaDevAttrMaxSharedMemoryPerBlockOptin and at least the 227 KB
    ops/decode_hd_kernel.py assumes, every head-access form and K27 work
    right, every backward mode OK with the launches of its layer arithmetic,
-   no launch of K16's, K17's or K25's wmma kernel, K18's warp kernel, K20's
-   atomic kernel, K21's bytewise kernels, K23's grid kernel, K24's two-pass
-   form, K26's shuffle kernel or K27's fixed kernel on the path;
+   no launch of K16's, K17's or K25's wmma kernel, K18's warp kernel, K19's
+   simple kernel, K20's atomic kernel, K21's bytewise kernels, K23's grid
+   kernel, K24's two-pass form, K26's shuffle kernel or K27's fixed kernel
+   on the path;
 3. the paths: the flagship ViTOMR (~305M parameters, weights from a seed,
    bf16) goes through ``OmrModel.transcribe_batch`` on 8 ragged synthetic
    images greedily with bf16 caches and with ``quantized_kv`` (max_len 512),
@@ -150,7 +152,17 @@ Phases, all in one process; any failure exits non-zero:
    calls and device kernels per step held against the layer arithmetic,
    K15 launches, the share of tokens equal to the unsharded path of the
    same mode and the first step's largest |logit difference| against the
-   unsharded step;
+   unsharded step; then ``vitomr_api``: the flagship's bf16 weights
+   through the reference's state-dict layouts and back on the card
+   (``vitomr_state_dict_from_params`` plain and at fine-tune depth 4,
+   ``vitomr_params_from_torch``; every leaf bit-equal), and on the weights
+   read back ``models/vitomr``'s entry points: ``cached_greedy_generate``
+   (8 images, max_len 512) and ``cached_beam_generate`` (4 images, 4 beams,
+   256) bit-equal to ``decode.generate`` / ``decode.beam_generate`` on the
+   same latent, ``generate_next_token_distr`` for one padded image with its
+   ``latent_valid`` over 16 prefixes of its greedy output (each call through
+   K3) against the plain twins (log-probs < 0.25) and the greedy next token
+   (>= 90 %);
 4. the path ``train_tf``: ``omr_teacher_force_train`` on the card with the
    flagship configuration, bf16 over fp32 masters, dropout on, a seeded
    synthetic dataset (images of 512-1,024 patches, token sequences that pad
@@ -178,7 +190,15 @@ Phases, all in one process; any failure exits non-zero:
    hand-written path (equal bits demanded; forward, backward, optimizer and
    a validation forward timed apart) and, at 8 images, against autograd
    through the plain twins (the limits of phase 4);
-7. print the ``kernels`` JSON line, the card line, and last
+7. the path ``eval_cli``: a 48-image GrandStaff + OLiMPiC test layout
+   written to a temporary directory (``eval_layout``), ``eval_model``'s
+   root constants pointed at it; the flagship (seed 0, fp32) written by
+   ``save_pytree`` and evaluated by ``eval_vitomr``, the same weights
+   written as a reference ``.pth`` and evaluated by
+   ``verify_reference_losses._eval_with_params`` (the loss bit-equal), then
+   ``set_up_mae()``'s MAE by ``eval_mae``; finite losses, every eval batch
+   through K1 / K3 / K4 (K3 at head dims 64 and 32 for the MAE);
+8. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Options: ``--profile`` adds a torch.profiler window over 32 kernel-path
@@ -197,7 +217,10 @@ exits; ``--attn-splits`` times only K2's and K11's cluster kernels at every
 split of the keys at the decode shapes (``attn_splits``) and exits;
 ``--k4-plan`` times only K4's vector kernel at 1 and 4 warps a row and
 the scalar kernel at the paths' rows (``k4_plan``) and exits;
-``--k27-plan`` times only K27's plan kernel at the tool's softmax and ln
+``--k19`` runs only K19's checks and turns (``k19_case``: the warp kernel
+with and without its programmatic launch and the kernel it replaced, warm,
+from HBM, host us a call and its parts, a captured graph's programmatic
+edges) and exits; ``--k27-plan`` times only K27's plan kernel at the tool's softmax and ln
 shapes at each layout its plan takes on either side of its row threshold
 (``k27_plan``) and exits; ``--int8-splits`` times only K5's, K6's, K12's and K14's cluster kernels
 at every split (K5 also at 64 and 128 columns a block) at the int8 paths'
@@ -217,6 +240,7 @@ when the port's package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -243,6 +267,13 @@ CMP_STEPS = 64
 # path's step): the largest |logit difference| and the greedy token
 # agreement; the meshed step's first logits against the unsharded step's
 CMP_LOGIT_TOL, CMP_AGREEMENT = 0.25, 0.9
+# vitomr_api: prefixes of one image's greedy output whose next-token
+# distribution is held against the plain twins and the greedy token (the
+# share CMP_AGREEMENT of them allows one near-tie)
+NEXT_PREFIXES = 16
+# eval_cli: examples a test split (GrandStaff, OLiMPiC synthetic, scanned)
+# and the eval batch
+EVAL_SPLIT, EVAL_BATCH = 16, 16
 TP_CMP_STEPS = 16
 _ENC = ["linear_bias_act", "encoder_attention", "add_layernorm"]
 # the kernels each main path must have launched
@@ -275,6 +306,9 @@ EXPECTED_KERNELS = {
     "tp2_beam": _ENC + ["decode_attention", "tp_allreduce"],
     "dp2_tp2": _ENC + ["decode_attention", "tp_allreduce"],
     "tp2_per_op": _ENC + ["decode_attention_hd", "tp_allreduce"],
+    # models/vitomr's entry points on round-tripped weights; the eval CLI
+    "vitomr_api": _ENC + ["decode_attention"],
+    "eval_cli": _ENC,
     # the probe tools, each run through its main
     "probes": ["tile_gemm", "blockdiag_decode_attention",
                "batched_decode_attention", "smem_probe", "int4_delivery_gemm",
@@ -284,12 +318,12 @@ EXPECTED_KERNELS = {
 }
 # the probe kernels redesigned for Hopper, each kept beside the kernel it
 # replaced (a "wmma", "warp", "atomic", "grid", "shuffle", "fixed",
-# "two_pass" or "bytewise" variant) as the yardstick timed in turns
+# "two_pass", "bytewise" or "simple" variant) as the yardstick timed in turns
 REDESIGNED_PROBES = ("tile_gemm", "blockdiag_decode_attention",
                      "batched_decode_attention", "head_logits",
                      "int4_delivery_gemm", "clamped_chunk_sum",
                      "batched_head_logits", "resident_elementwise",
-                     "lane_stream_sum", "int4_unpack")
+                     "lane_stream_sum", "int4_unpack", "smem_probe")
 
 
 def replaced_form(variant: str) -> bool:
@@ -297,11 +331,11 @@ def replaced_form(variant: str) -> bool:
     of a resource row) is the kernel a redesigned probe replaced: K16's,
     K17's and K25's ``wmma``, K18's ``warp``, K20's ``atomic``, K23's
     ``grid``, K26's ``shuffle``, K27's ``fixed``, K24's ``two_pass``, K21's
-    ``bytewise``."""
+    ``bytewise``, K19's ``simple``."""
     return "wmma" in variant or any(
         variant == w or variant.endswith(" " + w)
         for w in ("warp", "atomic", "grid", "shuffle", "fixed", "two_pass",
-                  "bytewise"))
+                  "bytewise", "simple"))
 # the stages bwd_vmem_probe stubs in the probes path, one run each
 BWD_PROBE_MODES = ("full", "nocross", "noself", "noffn")
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
@@ -527,10 +561,13 @@ def variant_failures(name: str, r: dict) -> list:
     if name in ("train_tf", "pretrain_mae"):
         if set(k1) != {"sm90"}:
             out.append(f"{name}: K1 off the core {k1}")
-    elif name == "train_grpo":
+    elif name in ("train_grpo", "vitomr_api"):
         if not (k1.get("sm90") and k1.get("skinny")):
             out.append(f"{name}: K1 by variant {k1}: the encoder and the "
-                       f"update on the core, the rollouts on skinny")
+                       f"stacks on the core, the decode rows on skinny")
+    elif name == "eval_cli":  # a small bucket's rows (M <= 128) on skinny
+        if not k1.get("sm90") or "skinny_partial" in k1:
+            out.append(f"{name}: K1 by variant {k1}")
     elif k1.get("sm90", 0) != 4 * r["launches"]["encoder_attention"]:
         out.append(f"{name}: K1 by variant {k1}: the encoder's 4 a K3 launch "
                    f"on the core, the decode rows on skinny")
@@ -1783,26 +1820,115 @@ def probe_cases(torch, F, record, kernel_times, dev):
                exact=exact, old_ms=old, cold=c_new, lib_cold=lib_cold,
                extra=extra)
 
-    x = torch.randn(8, 128, generator=g, device=dev).to(bf)
-    n_bytes = 227 * 1024
-    call = lambda: pk.smem_probe(x, n_bytes)
-    out_k, out_p = call(), pk.smem_probe.plain(x, n_bytes)
-    refused = False
-    try:  # the one launch that must fail: past the card's limit
-        pk.smem_probe(x, 228 * 1024)
-    except pk.SmemRefused as e:
-        refused = True
-        print(f"[probes] smem_probe at 228 KB refused as expected: {e}",
-              flush=True)
-    record(pk.smem_probe, "227 KB, row 0", out_k[:1], out_p[:1], 0.0,
-           kernel_times(call), time_ms(torch, lambda: pk.smem_probe.plain(
-               x, n_bytes)), None, 2 * x.numel() * 2, x.numel(),
-           peak=PEAK_FP32_FLOP_PER_S, paths=["probes"],
-           exact=torch.equal(out_k[0], out_p[0]) and refused)
+    k19_case(torch, record, g, dev)
     int4_stream_cases(torch, record, kernel_times, dev)
     spills = access_vpu_cases(torch, record, kernel_times, dev)
     print(f"[probes] checked in {time.perf_counter() - t0:.1f} s", flush=True)
     return spills
+
+
+def k19_case(torch, record, g, dev):
+    """K19 at 227 KB: row 0 bit for bit against the twin, 228 KB refused as
+    ``SmemRefused`` by the warp kernel and by the kernel it replaced; the
+    warp kernel as a programmatic launch (``pdl``), as an ordinary one and
+    the replaced kernel (``variant="simple"``) timed in turns (pdl, ordinary,
+    simple, simple, ordinary, pdl; each the lesser of its two readings),
+    warm in a graph of 100 calls and from HBM, with the host us a call of
+    each; the edges of a graph captured from 20 programmatic launches
+    (``graph_programmatic_edges``: whether the graph kept the overlap)."""
+    from acai_omr_tpu_torch.ops import probe_kernels as pk
+    x = torch.randn(8, 128, generator=g, device=dev).to(torch.bfloat16)
+    n_bytes = 227 * 1024
+    forms = {"pdl": lambda x_=x: pk.smem_probe(x_, n_bytes),
+             "no_pdl": lambda x_=x: pk.smem_probe(x_, n_bytes, pdl=False),
+             "simple": lambda x_=x: pk.smem_probe(x_, n_bytes,
+                                                  variant="simple")}
+    out_p = pk.smem_probe.plain(x, n_bytes)
+    exact = all(torch.equal(f()[0], out_p[0]) for f in forms.values())
+    for variant in (None, "simple"):
+        try:  # the one launch that must fail: past the card's limit
+            pk.smem_probe(x, 228 * 1024, variant=variant)
+            exact = False
+        except pk.SmemRefused as e:
+            print(f"[probes] smem_probe ({variant or 'warp'}) at 228 KB "
+                  f"refused as expected: {e}", flush=True)
+    torch.cuda.synchronize()
+    order = ("pdl", "no_pdl", "simple", "simple", "no_pdl", "pdl")
+    warm, cold, host = ({k: [] for k in forms} for _ in range(3))
+    for k in order:
+        warm[k].append(time_ms(torch, forms[k], iters=100))
+    for k in order:
+        cold[k].append(cold_ms(torch, forms[k], [x]))
+    for k in order:
+        host[k].append(host_us(torch, forms[k]))
+    warm, cold, host = ({k: min(v) for k, v in d.items()}
+                        for d in (warm, cold, host))
+    # where a call's host time goes: the bare C launch (the ctypes call with
+    # its arguments ready), the output's allocation, the stream's lookup
+    # (the wrappers' ``stream_ptr``, and ``torch.cuda.current_stream()``
+    # that it replaced), the checks
+    from acai_omr_tpu_torch.ops import _build
+    out = torch.empty_like(x)
+    launch = _build.bind("smem_probe", "acai_smem_probe",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
+    args = (x.data_ptr(), out.data_ptr(), n_bytes, 1, _build.stream_ptr())
+    parts = {"launch_only": lambda: launch(*args),
+             "empty_like": lambda: torch.empty_like(x),
+             "stream_ptr": _build.stream_ptr,
+             "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+             "checks": lambda: (_build.require(x, "x", torch.bfloat16, 2),
+                                pk.smem_probe.check(x, n_bytes))}
+    host_parts = {k: host_us(torch, f) for k, f in parts.items()}
+    torch.cuda.synchronize()
+    n_edges, n_prog = pk.smem_graph_edges(x, n_bytes)
+    edges = {"graph_edges": n_edges, "graph_programmatic_edges": n_prog,
+             "graph_programmatic_edges_no_pdl":
+                 pk.smem_graph_edges(x, n_bytes, pdl=False)[1]}
+    regs = {r["variant"] or "warp": (r["registers"], r["local_bytes"])
+            for r in pk.smem_probe.resources()}
+    print(f"[probes] K19 at 227 KB: warm ms {json.dumps(warm)}, from HBM "
+          f"{json.dumps(cold)}, host us {json.dumps(host)} (parts "
+          f"{json.dumps(host_parts)}), {json.dumps(edges)}"
+          f", (registers, local bytes) {json.dumps(regs)}", flush=True)
+    record(pk.smem_probe, "227 KB, row 0", forms["pdl"]()[:1], out_p[:1], 0.0,
+           (warm["pdl"], host["pdl"]),
+           time_ms(torch, lambda: pk.smem_probe.plain(x, n_bytes)), None,
+           2 * x.numel() * 2, x.numel(), peak=PEAK_FP32_FLOP_PER_S,
+           paths=["probes"], exact=exact and regs["warp"][1] == 0,
+           old_ms=warm["simple"], cold=cold["pdl"],
+           extra={"no_pdl_ms": warm["no_pdl"],
+                  "no_pdl_cold_ms": cold["no_pdl"],
+                  "old_cold_ms": cold["simple"],
+                  "no_pdl_host_us": host["no_pdl"],
+                  "old_host_us": host["simple"],
+                  **{f"host_us_{k}": v for k, v in host_parts.items()},
+                  **edges,
+                  "registers": regs["warp"][0],
+                  "old_registers": regs["simple"][0]})
+
+
+def k19_alone(torch) -> int:
+    """``--k19``: :func:`k19_case` alone, its row printed as JSON; 1 when
+    row 0 differs from the twin or a check fails."""
+    rows = []
+
+    def record(op, case, out_k, out_p, tol, t_k, t_p, t_lib, nbytes, nops,
+               peak=PEAK_BF16_FLOP_PER_S, exact=None, old_ms=None, cold=None,
+               extra=None, **_):
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        b_ms, b_by = bound_ms(nbytes, nops, peak)
+        rows.append({"name": f"{op.name}[{case}]", "max_abs_err": err,
+                     "ok": err <= tol and exact is not False, "ms": t_k[0],
+                     "host_us": t_k[1], "plain_ms": t_p, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": t_lib, "old_ms": old_ms,
+                     "cold_ms": cold, **(extra or {})})
+
+    dev = torch.device("cuda")
+    k19_case(torch, record, torch.Generator(device=dev).manual_seed(SEED),
+             dev)
+    print(json.dumps(rows))
+    return 0 if all(r["ok"] for r in rows) else 1
 
 
 def int4_stream_cases(torch, record, kernel_times, dev):
@@ -2179,15 +2305,16 @@ def access_vpu_cases(torch, record, kernel_times, dev):
                old_ms=old, cold=c_new, extra=extra)
     spills = []
     for name in ("tile_gemm", "probe_decode_attention", "head_logits",
-                 "resident_elementwise", "int4_probe", "stream_probe"):
+                 "resident_elementwise", "int4_probe", "stream_probe",
+                 "smem_probe"):
         for r in _build.resources(name):
             print(f"[resources] {r['op']} {r['variant'] or '-'} {r['kernel']} "
                   f"regs={r['registers']} local={r['local_bytes']} "
                   f"static_smem={r['static_smem']} "
                   f"dynamic_smem={r['dynamic_smem']} "
                   f"blocks_per_sm={r['blocks_per_sm']}", flush=True)
-            # the redesigned probe kernels (K16-K18, K20, K21, K23-K27) use
-            # no local memory
+            # the redesigned probe kernels (K16-K21, K23-K27) use no local
+            # memory
             if r["local_bytes"] and r["op"] in REDESIGNED_PROBES \
                     and not replaced_form(r["variant"]):
                 spills.append(f"{r['op']} {r['variant']} {r['kernel']}")
@@ -3659,6 +3786,201 @@ def train_path(torch, model, tmp_dir):
                          for n, op in _build.REGISTRY.items()}}
 
 
+def path_counts(torch) -> dict:
+    """The launch counts read just after a path's run (launches, device
+    launches, by variant)."""
+    from acai_omr_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    return {"launches": {n: op.launches for n, op in _build.REGISTRY.items()},
+            "device_launches": {n: op.device_launches
+                                for n, op in _build.REGISTRY.items()},
+            "variants": {n: dict(op.variants)
+                         for n, op in _build.REGISTRY.items()}}
+
+
+def vitomr_api_path(torch, np, model, imgs) -> dict:
+    """The path ``vitomr_api``: the flagship's seeded bf16 weights through
+    the reference's state-dict layouts and back on the card (the plain
+    ``encoder_blocks`` layout and FineTuneOMREncoder's at fine-tune depth 4;
+    every leaf bit-equal, dtype too), then, on the weights read back, the
+    entry points of ``models/vitomr``: ``encode_image`` of the 8 images,
+    ``cached_greedy_generate`` (max_len 512) and ``cached_beam_generate``
+    (4 images, 4 beams, max_len 256), each held bit for bit against
+    ``decode.generate`` / ``decode.beam_generate`` on the same latent (run
+    first, outside the counted window), and ``generate_next_token_distr``
+    for one padded image with its ``latent_valid`` over NEXT_PREFIXES
+    prefixes of its greedy output, each call launching K3 (kernel path);
+    afterwards, uncounted, each distribution against the plain twins'
+    (``transformer.plain_twins``) and its argmax against the greedy next
+    token."""
+    from acai_omr_tpu_torch.models import decode, torch_compat, vit_encoder
+    from acai_omr_tpu_torch.models import vitomr
+    from acai_omr_tpu_torch.models.weights import _flatten
+    from acai_omr_tpu_torch.ops import _build, transformer
+
+    cfg, params, dt, dev = (model.cfg, model.params, model.compute_dtype,
+                            model.device)
+    t0 = time.perf_counter()
+    flat = _flatten(params)
+    round_trip = {}
+    for depth in (None, 4):
+        back = _flatten(torch_compat.vitomr_params_from_torch(
+            torch_compat.vitomr_state_dict_from_params(params, depth),
+            device=dev))
+        round_trip[f"depth_{depth}"] = back.keys() == flat.keys() and all(
+            back[k].dtype == v.dtype and torch.equal(back[k], v)
+            for k, v in flat.items())
+    api = torch_compat.vitomr_params_from_torch(
+        torch_compat.vitomr_state_dict_from_params(params, 4), device=dev)
+    round_trip_s = time.perf_counter() - t0
+    pb = vit_encoder.batchify([model._load_image(i) for i in imgs],
+                              cfg.encoder)
+    kw = dict(compute_dtype=dt, cache_dtype=dt)
+    with torch.no_grad():
+        lat, lv = vitomr.encode_image(params, cfg, *pb.to(dev),
+                                      compute_dtype=dt)
+        want_g = decode.generate(params["decoder"], cfg.decoder, lat, lv,
+                                 max_len=MAX_LEN, **kw)
+        want_b = decode.beam_generate(
+            params["decoder"], cfg.decoder, lat[:BEAM_IMAGES],
+            lv[:BEAM_IMAGES], beam_size=BEAM_SIZE, max_len=BEAM_MAX_LEN, **kw)
+
+    _build.reset_launch_counts()
+    t1 = time.perf_counter()
+    k3 = _build.REGISTRY["encoder_attention"]
+    with torch.no_grad():
+        lat2, lv2 = vitomr.encode_image(api, cfg, *pb.to(dev),
+                                        compute_dtype=dt)
+        got_g = vitomr.cached_greedy_generate(api, cfg, lat2, lv2,
+                                              max_len=MAX_LEN, **kw)
+        got_b = vitomr.cached_beam_generate(
+            api, cfg, lat2[:BEAM_IMAGES], lv2[:BEAM_IMAGES],
+            beam_size=BEAM_SIZE, max_len=BEAM_MAX_LEN, **kw)
+        row = next(i for i in range(len(imgs)) if not bool(lv2[i].all()))
+        n_seq = int(got_g[2][row].sum())
+        prefixes = sorted({int(t) for t in np.linspace(
+            1, n_seq - 1, NEXT_PREFIXES)})
+        one = lambda t: vitomr.generate_next_token_distr(
+            api, cfg, lat2[row:row + 1], got_g[0][row:row + 1, :t],
+            compute_dtype=dt, latent_valid=lv2[row:row + 1])
+        dists, through_kernels = [], True
+        for t in prefixes:
+            before = k3.launches
+            dists.append(one(t))
+            through_kernels &= k3.launches > before
+    counts = path_counts(torch)
+    wall = time.perf_counter() - t1
+    with torch.no_grad(), transformer.plain_twins():
+        plain = [one(t) for t in prefixes]
+    err = max((d.float() - p.float()).abs().max().item()
+              for d, p in zip(dists, plain))
+    agree = float(np.mean([int(d.argmax(-1)) == int(got_g[0][row, t])
+                           for d, t in zip(dists, prefixes)]))
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    return {"round_trip": round_trip, "round_trip_s": round_trip_s,
+            "greedy_equal": same(got_g, want_g),
+            "beam_equal": same(got_b, want_b),
+            "greedy_tokens": int(got_g[2].sum()) - len(imgs),
+            "next_token_row": row, "next_token_prefixes": prefixes,
+            "next_token_through_kernels": bool(through_kernels),
+            "next_token_logprob_max_abs_err": err,
+            "next_token_argmax_agreement": agree,
+            "next_token_finite": all(bool(torch.isfinite(d).all())
+                                     for d in dists),
+            "wall_s": wall, **counts}
+
+
+def eval_layout(np, root, n: int) -> None:
+    """A GrandStaff + OLiMPiC test layout under ``root``, ``n`` examples a
+    split (as tests/test_eval_harness.py writes it): seeded synthetic score
+    images (GrandStaff's original and distorted JPEGs, OLiMPiC's PNGs), LMX
+    from tests/data's sample files."""
+    from PIL import Image
+    lmx = [" ".join(f.read_text().replace("<eos>", "").split()) for f in
+           sorted((ROOT / "tests" / "data").glob("sample_lmx_*.txt"))]
+    imgs = iter(synthetic_images(np, 4 * n, SEED + 7))
+    gs = root / "grandstaff"
+    (gs / "grandstaff").mkdir(parents=True)
+    ids = [f"piece{i}" for i in range(n)]
+    (gs / "samples.test.txt").write_text("\n".join(ids) + "\n")
+    for i, ex in enumerate(ids):
+        Image.fromarray(next(imgs)).save(gs / "grandstaff" / f"{ex}.jpg")
+        Image.fromarray(next(imgs)).save(
+            gs / "grandstaff" / f"{ex}_distorted.jpg")
+        (gs / f"{ex}.lmx").write_text(lmx[i % len(lmx)] + "\n")
+    for split in ("synthetic", "scanned"):
+        d = root / split
+        d.mkdir()
+        oids = [f"score{i}" for i in range(n)]
+        (d / "samples.test.txt").write_text("\n".join(oids) + "\n")
+        for i, ex in enumerate(oids):
+            Image.fromarray(next(imgs)).save(d / f"{ex}.png")
+            (d / f"{ex}.lmx").write_text(lmx[i % len(lmx)] + "\n")
+
+
+def eval_cli_path(torch, np, tmp_dir) -> dict:
+    """The path ``eval_cli``: the evaluation CLI on an EVAL_SPLIT-example
+    GrandStaff + OLiMPiC test layout (``eval_layout``; the root constants of
+    ``eval_model`` pointed at it). The flagship (seed 0, fp32 weights)
+    written by ``save_pytree`` and read by ``eval_vitomr``, then the same
+    weights written as a reference ``.pth`` (``vitomr_state_dict_from_params``
+    at fine-tune depth 4, ``torch.save``), read by
+    ``verify_reference_losses.load_params`` and evaluated by its
+    ``_eval_with_params``: the two losses bit-equal. Then set_up_mae()'s MAE
+    (seed 0) through ``save_pytree`` and ``eval_mae``. The counts are read
+    for the two eval forwards (the loss evaluations)."""
+    from acai_omr_tpu_torch import eval_model
+    from acai_omr_tpu_torch.models import mae as mae_lib
+    from acai_omr_tpu_torch.models import torch_compat, vitomr
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.tools import verify_reference_losses as vrl
+    from acai_omr_tpu_torch.train.omr_teacher_force_train import set_up_vitomr
+    from acai_omr_tpu_torch.train.pre_train import set_up_mae
+    from acai_omr_tpu_torch.utils import checkpoint as ckpt_lib
+
+    root = Path(tmp_dir)
+    eval_layout(np, root / "data", EVAL_SPLIT)
+    for name, sub in (("GRAND_STAFF_ROOT_DIR", "grandstaff"),
+                      ("OLIMPIC_SYNTHETIC_ROOT_DIR", "synthetic"),
+                      ("OLIMPIC_SCANNED_ROOT_DIR", "scanned")):
+        setattr(eval_model, name, str(root / "data" / sub))
+    dev = torch.device("cuda")
+    cfg = set_up_vitomr()
+    params = vitomr.init_vitomr_params(cfg, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    npz = ckpt_lib.save_pytree(root / "vitomr", params)
+    pth = root / "vitomr.pth"
+    torch.save({"vitomr_state_dict":
+                torch_compat.vitomr_state_dict_from_params(params, 4)}, pth)
+    del params
+    write_s = time.perf_counter() - t0
+    kw = dict(batch_size=EVAL_BATCH, num_workers=8)
+    _build.reset_launch_counts()
+    t1 = time.perf_counter()
+    loss_npz = eval_model.eval_vitomr(str(npz), device=dev, **kw)
+    vit_counts = path_counts(torch)
+    vit_s = time.perf_counter() - t1
+    from_pth = vrl.load_params("vitomr", str(pth), None, device=dev)
+    loss_pth = vrl._eval_with_params(eval_model, "vitomr", from_pth,
+                                     EVAL_BATCH, num_workers=8, device=dev)
+    del from_pth
+    torch.cuda.empty_cache()
+    mae_npz = ckpt_lib.save_pytree(
+        root / "mae", mae_lib.init_mae_params(set_up_mae(), seed=SEED,
+                                              device=dev))
+    _build.reset_launch_counts()
+    t2 = time.perf_counter()
+    loss_mae = eval_model.eval_mae(str(mae_npz), device=dev, **kw)
+    mae_counts = path_counts(torch)
+    mae_s = time.perf_counter() - t2
+    return {"examples": 3 * EVAL_SPLIT, "write_s": write_s,
+            "vitomr_loss_npz": loss_npz, "vitomr_loss_pth": loss_pth,
+            "pth_equals_npz": loss_pth == loss_npz, "mae_loss": loss_mae,
+            "vitomr_eval_s": vit_s, "mae_eval_s": mae_s,
+            "mae_variants": mae_counts["variants"], **vit_counts,
+            "mae_launches": mae_counts["launches"]}
+
+
 def grpo_examples(np, model, n: int, seed: int) -> list:
     """Stage-3 examples (image (C, H, W), token ids, MusicXML): seeded
     synthetic score images of realistic sizes through the model's transform;
@@ -4111,6 +4433,9 @@ def main() -> int:
         print(card_line())
         k27_plan(torch)
         return 0
+    if "--k19" in sys.argv[1:]:  # K19's checks and turns alone
+        print(card_line())
+        return k19_alone(torch)
     import numpy as np
     import torch.nn.functional as F
 
@@ -4399,6 +4724,29 @@ def main() -> int:
                             f"{cmp[key]['device_kernels_per_step']} device "
                             f"kernels, not {11 * n_layers}")
 
+    # models/vitomr's entry points on weights through the reference's
+    # state-dict layouts and back
+    api = vitomr_api_path(torch, np, model, imgs)
+    paths["vitomr_api"] = api
+    print(f"[path vitomr_api] " + json.dumps(
+        {k: v for k, v in api.items()
+         if k not in ("launches", "device_launches", "variants")}),
+        flush=True)
+    print(f"[path vitomr_api] launches {json.dumps(api['launches'])}",
+          flush=True)
+    print(variant_line("vitomr_api", api), flush=True)
+    failures.extend(variant_failures("vitomr_api", api))
+    if not (all(api["round_trip"].values()) and api["greedy_equal"]
+            and api["beam_equal"] and api["next_token_through_kernels"]
+            and api["next_token_finite"]
+            and api["next_token_logprob_max_abs_err"] < CMP_LOGIT_TOL
+            and api["next_token_argmax_agreement"] >= CMP_AGREEMENT):
+        failures.append("vitomr_api: round trip, tokens or next-token "
+                        "distributions")
+    for k in EXPECTED_KERNELS["vitomr_api"]:
+        if api["launches"][k] <= 0:
+            failures.append(f"vitomr_api: launches[{k}]=0")
+
     # the training path and its comparison with the plain twins
     import tempfile
     with tempfile.TemporaryDirectory() as tmp_dir:
@@ -4555,6 +4903,36 @@ def main() -> int:
             and mcmp["grad_global_rel_err"] <= CMP_GLOBAL_REL):
         failures.append("pretrain kernel path vs plain path")
     mcmp["leaf_rel_err"] = leaf_errs
+
+    # the evaluation CLI and the reference-loss tool on a written test layout
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        ev = eval_cli_path(torch, np, tmp_dir)
+    paths["eval_cli"] = ev
+    print(f"[path eval_cli] " + json.dumps(
+        {k: v for k, v in ev.items()
+         if k not in ("launches", "device_launches", "variants",
+                      "mae_launches")}), flush=True)
+    print(f"[path eval_cli] launches {json.dumps(ev['launches'])}; MAE "
+          f"{json.dumps(ev['mae_launches'])}", flush=True)
+    print(variant_line("eval_cli", ev), flush=True)
+    failures.extend(variant_failures("eval_cli", ev))
+    failures.extend(variant_failures(
+        "eval_cli", {"launches": ev["mae_launches"],
+                     "variants": ev["mae_variants"]}))
+    mae_k3 = ev["mae_variants"].get("encoder_attention", {})
+    if not (finite([ev["vitomr_loss_npz"], ev["mae_loss"]])
+            and ev["pth_equals_npz"]
+            # every eval batch through the kernels: 12 encoder and 2 x 12
+            # decoder attentions a ViTOMR batch; 12 of head dim 64 and 8 of
+            # 32 an MAE batch
+            and ev["launches"]["encoder_attention"] % 36 == 0
+            and mae_k3.get("sm90_dh64", 0) * 8
+            == mae_k3.get("sm90_dh32", -1) * 12 > 0):
+        failures.append(f"eval_cli: losses, the .pth route or the launches "
+                        f"{ev['launches']['encoder_attention']} {mae_k3}")
+    for k in EXPECTED_KERNELS["eval_cli"]:
+        if ev["launches"][k] <= 0 or ev["mae_launches"][k] <= 0:
+            failures.append(f"eval_cli: launches[{k}]=0")
 
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
     if race_bad:
