@@ -27,7 +27,7 @@
 // start at its entry (`griddepcontrol.launch_dependents`) and waits for the
 // one before it (`griddepcontrol.wait`) only before its first global read,
 // so back-to-back probes overlap one launch's start with the tail of the
-// last. `pdl = 0` launches it as an ordinary kernel.
+// last.
 //
 // The attribute is set by acai_smem_set_max, which the wrapper calls only
 // for a size past the largest it has set on the device
@@ -122,9 +122,9 @@ extern "C" int acai_smem_set_max(int bytes, int simple) {
 
 // x (8, 128) bf16, out (8, 128) bf16, both 8-byte aligned; bytes >= 8 rows
 // of 256 bytes and at most what acai_smem_set_max last set for the warp
-// kernel. One launch, programmatic when `pdl`. Returns the CUDA error of the
-// launch (cleared), 0 when it ran.
-extern "C" int acai_smem_probe(const void* x, void* out, int bytes, int pdl,
+// kernel. One programmatic launch. Returns the CUDA error of the launch
+// (cleared), 0 when it ran.
+extern "C" int acai_smem_probe(const void* x, void* out, int bytes,
                                void* stream) {
   if (bytes < 8 * LANES * 2) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
@@ -136,7 +136,7 @@ extern "C" int acai_smem_probe(const void* x, void* out, int bytes, int pdl,
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, smem_probe_warp_kernel,
                                      static_cast<const uint2*>(x),
                                      static_cast<uint2*>(out));
@@ -158,13 +158,12 @@ extern "C" int acai_smem_probe_simple(const void* x, void* out, int bytes,
   return (int)cudaGetLastError();
 }
 
-// Captures `n` launches of the warp kernel (programmatic when `pdl`) on a
-// stream of its own into a CUDA graph and counts the graph's edges and,
+// Captures `n` launches of the warp kernel on a stream of its own into a CUDA graph and counts the graph's edges and,
 // among them, the programmatic ones (cudaGraphDependencyTypeProgrammatic):
 // whether a graph keeps the overlap that the stream gives. The attribute
 // must already be set for `bytes`. Returns the CUDA error, 0 when it ran.
 extern "C" int acai_smem_graph_edges(const void* x, void* out, int bytes,
-                                     int pdl, int n, int* n_edges,
+                                     int n, int* n_edges,
                                      int* n_programmatic) {
   cudaStream_t s = nullptr;
   cudaGraph_t graph = nullptr;
@@ -172,7 +171,7 @@ extern "C" int acai_smem_graph_edges(const void* x, void* out, int bytes,
   if (e == cudaSuccess)
     e = cudaStreamBeginCapture(s, cudaStreamCaptureModeThreadLocal);
   for (int i = 0; e == cudaSuccess && i < n; ++i)
-    e = (cudaError_t)acai_smem_probe(x, out, bytes, pdl, s);
+    e = (cudaError_t)acai_smem_probe(x, out, bytes, s);
   if (s != nullptr) {
     const cudaError_t end = cudaStreamEndCapture(s, &graph);
     if (e == cudaSuccess) e = end;

@@ -79,27 +79,50 @@ def mean_loss(loader, run) -> float:
     return float(total) / n if n else 0.0
 
 
+def test_loss(model: str, params: dict, batch_size: int = 64,
+              num_workers: int = 16, cfg=None, device=None,
+              reseed_masks: bool = False) -> float:
+    """The average test loss of ``model`` ("mae" or "vitomr") with
+    ``params`` already on ``device``: the test mix through the bucket
+    sampler, the prefetch loader and the trainer's ``make_eval_fn``. ``cfg``
+    overrides the flagship configuration (tiny configurations in tests).
+    The MAE's masks come from one ``torch.Generator`` seeded 0 on the
+    device, its draws running on from batch to batch, or reseeded 0 for
+    every batch with ``reseed_masks`` (as the reference-loss tool does)."""
+    from .data.loader import to_device
+
+    device = resolve_device(device)
+    if model == "mae":
+        from .train.pre_train import make_eval_fn, set_up_mae
+        cfg = cfg or set_up_mae()
+        ds = build_mae_test_sets()
+        pack = lambda ex: pack_mae_batch(ex, cfg.encoder)
+        eval_fn = make_eval_fn(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        run = lambda b: eval_fn(params, to_device(b, device),
+                                gen.manual_seed(0) if reseed_masks else gen)
+    else:
+        from .train.omr_teacher_force_train import make_eval_fn, set_up_vitomr
+        tokenizer = LmxTokenizer()
+        cfg = cfg or set_up_vitomr(tokenizer)
+        ds = build_vitomr_test_sets(tokenizer)
+        pack = lambda ex: pack_omr_batch(
+            ex, cfg.encoder, tokenizer,
+            max_lmx_seq_len=cfg.decoder.max_lmx_seq_len)
+        eval_fn = make_eval_fn(cfg)
+        run = lambda b: eval_fn(params, to_device(b, device))
+    sampler = BucketBatchSampler(ds, default_bucket_boundaries(), batch_size,
+                                 shuffle=False)
+    return mean_loss(PrefetchLoader(ds, sampler, pack, num_workers), run)
+
+
 def eval_mae(weights: str, batch_size: int = 64, num_workers: int = 16,
              cfg=None, device=None) -> float:
     """Average MAE test loss of the weights at ``weights``. ``cfg``
-    overrides ``set_up_mae()`` (tiny configurations in tests). The masks
-    come from one ``torch.Generator`` seeded 0 on the device."""
-    from .data.loader import to_device
-    from .train.pre_train import make_eval_fn, set_up_mae
-
+    overrides ``set_up_mae()`` (tiny configurations in tests)."""
     device = resolve_device(device)
-    cfg = cfg or set_up_mae()
-    params = weights_lib.load_mae_npz(weights, device)
-    test_ds = build_mae_test_sets()
-    sampler = BucketBatchSampler(test_ds, default_bucket_boundaries(),
-                                 batch_size, shuffle=False)
-    loader = PrefetchLoader(test_ds, sampler,
-                            lambda ex: pack_mae_batch(ex, cfg.encoder),
-                            num_workers)
-    eval_fn = make_eval_fn(cfg)
-    generator = torch.Generator(device=device).manual_seed(0)
-    loss = mean_loss(loader, lambda b: eval_fn(params, to_device(b, device),
-                                               generator))
+    loss = test_loss("mae", weights_lib.load_mae_npz(weights, device),
+                     batch_size, num_workers, cfg, device)
     print(f"Average MAE test loss: {loss}")
     return loss
 
@@ -109,23 +132,9 @@ def eval_vitomr(weights: str, batch_size: int = 64, num_workers: int = 16,
     """Average ViTOMR teacher-forced test loss of the weights at
     ``weights``. ``cfg`` overrides ``set_up_vitomr`` (tiny configurations in
     tests)."""
-    from .data.loader import to_device
-    from .train.omr_teacher_force_train import make_eval_fn, set_up_vitomr
-
     device = resolve_device(device)
-    tokenizer = LmxTokenizer()
-    cfg = cfg or set_up_vitomr(tokenizer)
-    params = weights_lib.load_npz(weights, device)
-    test_ds = build_vitomr_test_sets(tokenizer)
-    sampler = BucketBatchSampler(test_ds, default_bucket_boundaries(),
-                                 batch_size, shuffle=False)
-    loader = PrefetchLoader(
-        test_ds, sampler,
-        lambda ex: pack_omr_batch(ex, cfg.encoder, tokenizer,
-                                  max_lmx_seq_len=cfg.decoder.max_lmx_seq_len),
-        num_workers)
-    eval_fn = make_eval_fn(cfg)
-    loss = mean_loss(loader, lambda b: eval_fn(params, to_device(b, device)))
+    loss = test_loss("vitomr", weights_lib.load_npz(weights, device),
+                     batch_size, num_workers, cfg, device)
     print(f"Average ViTOMR test loss: {loss}")
     return loss
 

@@ -21,7 +21,7 @@ attention has to answer on the card:
   ``variant="warp"`` forces the kernel it replaced.
 * K19 :data:`smem_probe` (``csrc/smem_probe.cu``): ``tools/vmem_probe.py``
   ``probe``, one warp with no barrier, launched as a programmatic dependent
-  launch (``pdl=False``: an ordinary one), its shared-memory attribute set
+  launch, its shared-memory attribute set
   only for a size past the largest set (:func:`smem_set_max`);
   ``variant="simple"`` forces the kernel it replaced.
 
@@ -516,8 +516,7 @@ class SmemRefused(RuntimeError):
         self.n_bytes, self.code = n_bytes, code
 
 
-def _check_smem(x: torch.Tensor, n_bytes: int, variant=None,
-                pdl: bool = True) -> None:
+def _check_smem(x: torch.Tensor, n_bytes: int, variant=None) -> None:
     """K19's shape rules and its variant, on either device."""
     if variant not in SMEM_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: None (the warp "
@@ -529,13 +528,11 @@ def _check_smem(x: torch.Tensor, n_bytes: int, variant=None,
                          f"at least 8")
 
 
-def smem_probe_plain(x: torch.Tensor, n_bytes: int,
-                     pdl: bool = True) -> torch.Tensor:
+def smem_probe_plain(x: torch.Tensor, n_bytes: int) -> torch.Tensor:
     """Plain twin of K19: row 0 of ``x`` into row 0 of an (n_bytes / 256,
     128) bf16 scratch, out = scratch[0:8] * 2. The scratch's other rows are
     zeros here; the kernel's are whatever the card held (only row 0 is
-    defined on the card, as on the TPU). ``pdl`` is the kernel's launch
-    form and changes nothing here."""
+    defined on the card, as on the TPU)."""
     _check_smem(x, n_bytes)
     scratch = torch.zeros((n_bytes // SMEM_ROW_BYTES, 128), dtype=x.dtype,
                           device=x.device)
@@ -580,11 +577,10 @@ def smem_set_max(device_index: int, n_bytes: int) -> None:
         _SMEM_SET[device_index] = n_bytes
 
 
-def _launch_smem(op, x, n_bytes: int, variant=None, pdl: bool = True):
+def _launch_smem(op, x, n_bytes: int, variant=None):
     """``variant`` (private: tests and chip_smoke.py): ``"simple"`` forces
-    the kernel the warp kernel replaced, launched as it was (its attribute
-    set on every call). ``pdl=False`` launches the warp kernel as an
-    ordinary kernel, not a programmatic dependent launch."""
+    the kernel the warp kernel replaced, launched as it was (an ordinary
+    launch, its attribute set on every call)."""
     _build.require(x, "x", torch.bfloat16, 2)
     _check_smem(x, n_bytes, variant)
     out = torch.empty_like(x)
@@ -600,12 +596,11 @@ def _launch_smem(op, x, n_bytes: int, variant=None, pdl: bool = True):
         smem_set_max(x.get_device(), n_bytes)
         fn = _build.bind("smem_probe", "acai_smem_probe",
                          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
-        rc = fn(ptr, out.data_ptr(), n_bytes, int(pdl), _build.stream_ptr())
+                          ctypes.c_void_p])
+        rc = fn(ptr, out.data_ptr(), n_bytes, _build.stream_ptr())
     if rc != 0:  # refused: nothing launched
         raise _refused(n_bytes, rc)
-    suffix = " simple" if variant else ("" if pdl else " no_pdl")
-    op.launched(f"{n_bytes // 1024} KB{suffix}")
+    op.launched(f"{n_bytes // 1024} KB{' simple' if variant else ''}")
     return out
 
 
@@ -615,7 +610,7 @@ smem_probe = _build.KernelOp(
     smem_probe_plain, _check_smem)
 
 
-def smem_graph_edges(x: torch.Tensor, n_bytes: int, pdl: bool = True,
+def smem_graph_edges(x: torch.Tensor, n_bytes: int,
                      n: int = 20) -> tuple[int, int]:
     """(edges, programmatic edges) of a CUDA graph captured from ``n``
     launches of K19's warp kernel on ``x``: whether the graph keeps the
@@ -627,9 +622,8 @@ def smem_graph_edges(x: torch.Tensor, n_bytes: int, pdl: bool = True,
     edges, prog = ctypes.c_int(0), ctypes.c_int(0)
     fn = _build.bind("smem_probe", "acai_smem_graph_edges",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    _build.check(fn(x.data_ptr(), out.data_ptr(), n_bytes, int(pdl), n,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    _build.check(fn(x.data_ptr(), out.data_ptr(), n_bytes, n,
                     ctypes.addressof(edges), ctypes.addressof(prog)),
                  "acai_smem_graph_edges")
     return edges.value, prog.value

@@ -53,38 +53,12 @@ def load_params(model: str, torch_weights: str | None, weights: str | None,
 
 def _eval_with_params(eval_model, model: str, params: dict, batch_size: int,
                       cfg=None, num_workers: int = 16, device=None) -> float:
-    """The eval loop of ``eval_model`` on parameters already loaded (no
-    checkpoint read). ``cfg`` overrides the flagship configuration (tiny
-    configurations in tests). Every MAE batch draws its mask from a
-    generator seeded 0."""
-    from ..data.bucketing import BucketBatchSampler, default_bucket_boundaries
-    from ..data.loader import (PrefetchLoader, pack_mae_batch, pack_omr_batch,
-                               to_device)
-    from ..data.tokenizer import LmxTokenizer
-
-    device = resolve_device(device)
-    if model == "mae":
-        from ..train.pre_train import make_eval_fn, set_up_mae
-        cfg = cfg or set_up_mae()
-        ds = eval_model.build_mae_test_sets()
-        pack = lambda ex: pack_mae_batch(ex, cfg.encoder)
-        eval_fn = make_eval_fn(cfg)
-        gen = torch.Generator(device=device)
-        run = lambda b: eval_fn(params, to_device(b, device),
-                                gen.manual_seed(0))
-    else:
-        from ..train.omr_teacher_force_train import make_eval_fn, set_up_vitomr
-        tok = LmxTokenizer()
-        cfg = cfg or set_up_vitomr(tok)
-        ds = eval_model.build_vitomr_test_sets(tok)
-        pack = lambda ex: pack_omr_batch(
-            ex, cfg.encoder, tok, max_lmx_seq_len=cfg.decoder.max_lmx_seq_len)
-        eval_fn = make_eval_fn(cfg)
-        run = lambda b: eval_fn(params, to_device(b, device))
-    sampler = BucketBatchSampler(ds, default_bucket_boundaries(), batch_size,
-                                 shuffle=False)
-    loader = PrefetchLoader(ds, sampler, pack, num_workers=num_workers)
-    return eval_model.mean_loss(loader, run)
+    """The eval loop of ``eval_model`` (its ``test_loss``) on parameters
+    already loaded (no checkpoint read). ``cfg`` overrides the flagship
+    configuration (tiny configurations in tests). Every MAE batch draws its
+    mask from a generator seeded 0."""
+    return eval_model.test_loss(model, params, batch_size, num_workers, cfg,
+                                device, reseed_masks=True)
 
 
 def main(argv=None) -> int:

@@ -144,11 +144,11 @@ Phases, all in one process; any failure exits non-zero:
    ``batch_inference(mesh=make_mesh(n_data, n_model, ["cuda:0"] * n),
    model_axis="model")``, every shard on this card and K15 summing the
    model ranks in its one-card form (every launch "local", none "coop"):
-   ``tp2_bf16`` and ``tp4_bf16`` (8 images, max_len 512), ``tp2_int8``
+   ``tp2_bf16`` and ``tp4_bf16`` (8 images, max_len 256), ``tp2_int8``
    (int8 caches, K5 may not launch) and ``tp2_int8_w8a8``
    (``ACAI_TP_W8A8``: K5 partials), ``tp2_beam`` (4 images, 4 beams, 256),
    ``dp2_tp2`` (a 2 x 2 mesh with ``progress_cb`` events) and ``tp2_per_op``
-   (``ACAI_MONOLITH_DECODE`` off, K11 on); per path ms per step, wrapper
+   (``ACAI_MONOLITH_DECODE`` off, K11 on, max_len 128); per path ms per step, wrapper
    calls and device kernels per step held against the layer arithmetic,
    K15 launches, the share of tokens equal to the unsharded path of the
    same mode and the first step's largest |logit difference| against the
@@ -197,7 +197,9 @@ Phases, all in one process; any failure exits non-zero:
    written as a reference ``.pth`` and evaluated by
    ``verify_reference_losses._eval_with_params`` (the loss bit-equal), then
    ``set_up_mae()``'s MAE by ``eval_mae``; finite losses, every eval batch
-   through K1 / K3 / K4 (K3 at head dims 64 and 32 for the MAE);
+   through K1 / K3 / K4 (K3 at head dims 64 and 32 for the MAE); both
+   losses again through the stacks' plain twins, within CMP_LOSS_REL, and
+   K1 against its twin at every shape the two evaluations gave it;
 8. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -218,9 +220,11 @@ split of the keys at the decode shapes (``attn_splits``) and exits;
 ``--k4-plan`` times only K4's vector kernel at 1 and 4 warps a row and
 the scalar kernel at the paths' rows (``k4_plan``) and exits;
 ``--k19`` runs only K19's checks and turns (``k19_case``: the warp kernel
-with and without its programmatic launch and the kernel it replaced, warm,
-from HBM, host us a call and its parts, a captured graph's programmatic
-edges) and exits; ``--k27-plan`` times only K27's plan kernel at the tool's softmax and ln
+on its programmatic launch and the kernel it replaced, warm, from HBM, host
+us a call and its parts, a captured graph's programmatic edges) and exits;
+``--stream-lookup`` times only the greedy bf16 decode with the wrappers'
+stream lookup as it is and as it was, in turns (``stream_lookup``), and
+exits; ``--k27-plan`` times only K27's plan kernel at the tool's softmax and ln
 shapes at each layout its plan takes on either side of its row threshold
 (``k27_plan``) and exits; ``--int8-splits`` times only K5's, K6's, K12's and K14's cluster kernels
 at every split (K5 also at 64 and 128 columns a block) at the int8 paths'
@@ -340,17 +344,21 @@ def replaced_form(variant: str) -> bool:
 BWD_PROBE_MODES = ("full", "nocross", "noself", "noffn")
 # the meshed paths: (data, model) mesh, images, max_len, batch_inference
 # keywords, the unsharded path their tokens are held against
+# the meshed paths' max_len, cut from MAX_LEN (512) to keep the run within
+# its time: a meshed step makes 300-564 wrapper calls, the per-op one takes
+# about 41 ms
+TP_MAX_LEN, TP_PER_OP_MAX_LEN = 256, 128
 TP_PATHS = {
-    "tp2_bf16": ((1, 2), N_IMAGES, MAX_LEN, {}, "greedy_bf16"),
-    "tp4_bf16": ((1, 4), N_IMAGES, MAX_LEN, {}, "greedy_bf16"),
-    "tp2_int8": ((1, 2), N_IMAGES, MAX_LEN, {"cache_dtype": "int8"},
+    "tp2_bf16": ((1, 2), N_IMAGES, TP_MAX_LEN, {}, "greedy_bf16"),
+    "tp4_bf16": ((1, 4), N_IMAGES, TP_MAX_LEN, {}, "greedy_bf16"),
+    "tp2_int8": ((1, 2), N_IMAGES, TP_MAX_LEN, {"cache_dtype": "int8"},
                  "int8_bf16w"),
-    "tp2_int8_w8a8": ((1, 2), N_IMAGES, MAX_LEN, {"cache_dtype": "int8"},
+    "tp2_int8_w8a8": ((1, 2), N_IMAGES, TP_MAX_LEN, {"cache_dtype": "int8"},
                       "int8"),
     "tp2_beam": ((1, 2), BEAM_IMAGES, BEAM_MAX_LEN,
                  {"beam_size": BEAM_SIZE}, "beam_bf16"),
-    "dp2_tp2": ((2, 2), N_IMAGES, MAX_LEN, {}, "greedy_bf16"),
-    "tp2_per_op": ((1, 2), N_IMAGES, MAX_LEN, {}, "decode_hd_bf16"),
+    "dp2_tp2": ((2, 2), N_IMAGES, TP_MAX_LEN, {}, "greedy_bf16"),
+    "tp2_per_op": ((1, 2), N_IMAGES, TP_PER_OP_MAX_LEN, {}, "decode_hd_bf16"),
 }
 # K15 against its twin: 1,000 calls with fresh inputs, every one bit-equal
 RACE_CALLS = 1000
@@ -1830,17 +1838,17 @@ def probe_cases(torch, F, record, kernel_times, dev):
 def k19_case(torch, record, g, dev):
     """K19 at 227 KB: row 0 bit for bit against the twin, 228 KB refused as
     ``SmemRefused`` by the warp kernel and by the kernel it replaced; the
-    warp kernel as a programmatic launch (``pdl``), as an ordinary one and
-    the replaced kernel (``variant="simple"``) timed in turns (pdl, ordinary,
-    simple, simple, ordinary, pdl; each the lesser of its two readings),
-    warm in a graph of 100 calls and from HBM, with the host us a call of
-    each; the edges of a graph captured from 20 programmatic launches
+    warp kernel (a programmatic launch, ``pdl``) and the replaced kernel
+    (``variant="simple"``, an ordinary launch) timed in turns (pdl, simple,
+    simple, pdl; each the lesser of its two readings), warm in a graph of
+    100 calls and with the host us a call of each, and once each from HBM
+    (a 2 KB input is out of L2 only after 65,536 copies: about 3 s a
+    reading); the edges of a graph captured from 20 programmatic launches
     (``graph_programmatic_edges``: whether the graph kept the overlap)."""
     from acai_omr_tpu_torch.ops import probe_kernels as pk
     x = torch.randn(8, 128, generator=g, device=dev).to(torch.bfloat16)
     n_bytes = 227 * 1024
     forms = {"pdl": lambda x_=x: pk.smem_probe(x_, n_bytes),
-             "no_pdl": lambda x_=x: pk.smem_probe(x_, n_bytes, pdl=False),
              "simple": lambda x_=x: pk.smem_probe(x_, n_bytes,
                                                   variant="simple")}
     out_p = pk.smem_probe.plain(x, n_bytes)
@@ -1853,11 +1861,11 @@ def k19_case(torch, record, g, dev):
             print(f"[probes] smem_probe ({variant or 'warp'}) at 228 KB "
                   f"refused as expected: {e}", flush=True)
     torch.cuda.synchronize()
-    order = ("pdl", "no_pdl", "simple", "simple", "no_pdl", "pdl")
+    order = ("pdl", "simple", "simple", "pdl")
     warm, cold, host = ({k: [] for k in forms} for _ in range(3))
     for k in order:
         warm[k].append(time_ms(torch, forms[k], iters=100))
-    for k in order:
+    for k in order[:2]:
         cold[k].append(cold_ms(torch, forms[k], [x]))
     for k in order:
         host[k].append(host_us(torch, forms[k]))
@@ -1871,8 +1879,8 @@ def k19_case(torch, record, g, dev):
     out = torch.empty_like(x)
     launch = _build.bind("smem_probe", "acai_smem_probe",
                          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
-    args = (x.data_ptr(), out.data_ptr(), n_bytes, 1, _build.stream_ptr())
+                          ctypes.c_void_p])
+    args = (x.data_ptr(), out.data_ptr(), n_bytes, _build.stream_ptr())
     parts = {"launch_only": lambda: launch(*args),
              "empty_like": lambda: torch.empty_like(x),
              "stream_ptr": _build.stream_ptr,
@@ -1882,9 +1890,7 @@ def k19_case(torch, record, g, dev):
     host_parts = {k: host_us(torch, f) for k, f in parts.items()}
     torch.cuda.synchronize()
     n_edges, n_prog = pk.smem_graph_edges(x, n_bytes)
-    edges = {"graph_edges": n_edges, "graph_programmatic_edges": n_prog,
-             "graph_programmatic_edges_no_pdl":
-                 pk.smem_graph_edges(x, n_bytes, pdl=False)[1]}
+    edges = {"graph_edges": n_edges, "graph_programmatic_edges": n_prog}
     regs = {r["variant"] or "warp": (r["registers"], r["local_bytes"])
             for r in pk.smem_probe.resources()}
     print(f"[probes] K19 at 227 KB: warm ms {json.dumps(warm)}, from HBM "
@@ -1897,15 +1903,48 @@ def k19_case(torch, record, g, dev):
            2 * x.numel() * 2, x.numel(), peak=PEAK_FP32_FLOP_PER_S,
            paths=["probes"], exact=exact and regs["warp"][1] == 0,
            old_ms=warm["simple"], cold=cold["pdl"],
-           extra={"no_pdl_ms": warm["no_pdl"],
-                  "no_pdl_cold_ms": cold["no_pdl"],
-                  "old_cold_ms": cold["simple"],
-                  "no_pdl_host_us": host["no_pdl"],
+           extra={"old_cold_ms": cold["simple"],
                   "old_host_us": host["simple"],
                   **{f"host_us_{k}": v for k, v in host_parts.items()},
                   **edges,
                   "registers": regs["warp"][0],
                   "old_registers": regs["simple"][0]})
+
+
+def stream_lookup(torch) -> dict:
+    """``--stream-lookup``: what the wrappers' stream lookup costs a
+    host-bound path. The greedy bf16 decode of the N_IMAGES images
+    (max_len MAX_LEN, 132 wrapper calls a step) with ``_build.stream_ptr``
+    as it is (``raw``: the current stream's raw handle) and as it was
+    (``object``: ``torch.cuda.current_stream().cuda_stream``), in turns
+    raw, object, object, raw; ms a decode step of each (the lesser of its
+    two readings) and whether the tokens agree."""
+    import numpy as np
+
+    from acai_omr_tpu_torch.api import OmrModel
+    from acai_omr_tpu_torch.models import decode as decode_lib
+    from acai_omr_tpu_torch.ops import _build
+    model = OmrModel.load(device="cuda", seed=SEED)
+    imgs = synthetic_images(np, N_IMAGES, SEED)
+    model.transcribe_batch(imgs[:2], max_len=8)  # warm-up
+    raw = _build.stream_ptr
+    forms = {"raw": raw,
+             "object": lambda: torch.cuda.current_stream().cuda_stream}
+    ms, lmx = {k: [] for k in forms}, {}
+    try:
+        for k in ("raw", "object", "object", "raw"):
+            _build.stream_ptr = forms[k]
+            with counted_steps(decode_lib) as box:
+                out = model.transcribe_batch(imgs, max_len=MAX_LEN)
+                torch.cuda.synchronize()
+            ms[k].append(1e3 * model.last_result.decode_seconds / box["n"])
+            lmx.setdefault(k, [t.lmx for t in out])
+    finally:
+        _build.stream_ptr = raw
+    r = {"ms_per_step": {k: min(v) for k, v in ms.items()},
+         "readings": ms, "same_tokens": lmx["raw"] == lmx["object"]}
+    print(f"[stream lookup] {json.dumps(r)}", flush=True)
+    return r
 
 
 def k19_alone(torch) -> int:
@@ -3918,6 +3957,48 @@ def eval_layout(np, root, n: int) -> None:
             (d / f"{ex}.lmx").write_text(lmx[i % len(lmx)] + "\n")
 
 
+@contextlib.contextmanager
+def k1_shapes(shapes: set):
+    """Adds the (M, K, N, act) of every K1 launch inside the block to
+    ``shapes``; the launch itself is unchanged."""
+    from acai_omr_tpu_torch.ops.linear_kernel import linear_bias_act as op
+    launch = op._launch
+
+    def seen(op_, x, w, b, *a, **kw):
+        shapes.add((x.shape[0], x.shape[1], w.shape[1],
+                    kw.get("act", a[0] if a else "none")))
+        return launch(op_, x, w, b, *a, **kw)
+    op._launch = seen
+    try:
+        yield shapes
+    finally:
+        op._launch = launch
+
+
+def hold_k1_shapes(torch, shapes) -> list:
+    """K1 against its plain twin at each (M, K, N, act) of ``shapes`` (the
+    shapes a path gave it), on seeded inputs: a bias and x of unit scale, w
+    scaled by 1 / sqrt(K); held to 1e-2 of the largest output (one bf16 ulp
+    is 0.4-0.8 % of it), a fp32 partial to 1e-3, as the kernel checks
+    hold K1's fixed cases."""
+    from acai_omr_tpu_torch.ops.linear_kernel import gemm_plan, linear_bias_act
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for m, k, n, act in sorted(shapes):
+        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
+             ).to(torch.bfloat16)
+        b = (None if act == "partial" else
+             torch.randn(n, generator=g, device="cuda") * 0.1)
+        want = linear_bias_act.plain(x, w, b, act).float()
+        err = (linear_bias_act(x, w, b, act).float() - want).abs().max().item()
+        tol = (1e-3 if act == "partial" else 1e-2) * max(
+            1.0, want.abs().max().item())
+        rows.append({"shape": [m, k, n, act], "plan": gemm_plan(m, n, k)[0],
+                     "max_abs_err": err, "ok": err <= tol})
+    return rows
+
+
 def eval_cli_path(torch, np, tmp_dir) -> dict:
     """The path ``eval_cli``: the evaluation CLI on an EVAL_SPLIT-example
     GrandStaff + OLiMPiC test layout (``eval_layout``; the root constants of
@@ -3928,11 +4009,16 @@ def eval_cli_path(torch, np, tmp_dir) -> dict:
     ``verify_reference_losses.load_params`` and evaluated by its
     ``_eval_with_params``: the two losses bit-equal. Then set_up_mae()'s MAE
     (seed 0) through ``save_pytree`` and ``eval_mae``. The counts are read
-    for the two eval forwards (the loss evaluations)."""
+    for the two eval forwards (the loss evaluations). Afterwards, uncounted:
+    both evaluations again on the same files with the stacks' plain twins
+    (``transformer.plain_twins``; the MAE's masks are the same draws), each
+    loss within CMP_LOSS_REL of the kernel path's, and K1 held against its
+    twin at every (M, K, N) the two kernel-path evaluations gave it
+    (``hold_k1_shapes``: the small buckets' rows take the skinny kernel)."""
     from acai_omr_tpu_torch import eval_model
     from acai_omr_tpu_torch.models import mae as mae_lib
     from acai_omr_tpu_torch.models import torch_compat, vitomr
-    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.ops import _build, transformer
     from acai_omr_tpu_torch.tools import verify_reference_losses as vrl
     from acai_omr_tpu_torch.train.omr_teacher_force_train import set_up_vitomr
     from acai_omr_tpu_torch.train.pre_train import set_up_mae
@@ -3955,9 +4041,11 @@ def eval_cli_path(torch, np, tmp_dir) -> dict:
     del params
     write_s = time.perf_counter() - t0
     kw = dict(batch_size=EVAL_BATCH, num_workers=8)
+    shapes = set()
     _build.reset_launch_counts()
     t1 = time.perf_counter()
-    loss_npz = eval_model.eval_vitomr(str(npz), device=dev, **kw)
+    with k1_shapes(shapes):
+        loss_npz = eval_model.eval_vitomr(str(npz), device=dev, **kw)
     vit_counts = path_counts(torch)
     vit_s = time.perf_counter() - t1
     from_pth = vrl.load_params("vitomr", str(pth), None, device=dev)
@@ -3970,13 +4058,22 @@ def eval_cli_path(torch, np, tmp_dir) -> dict:
                                               device=dev))
     _build.reset_launch_counts()
     t2 = time.perf_counter()
-    loss_mae = eval_model.eval_mae(str(mae_npz), device=dev, **kw)
+    with k1_shapes(shapes):
+        loss_mae = eval_model.eval_mae(str(mae_npz), device=dev, **kw)
     mae_counts = path_counts(torch)
     mae_s = time.perf_counter() - t2
+    with transformer.plain_twins():
+        plain_vit = eval_model.eval_vitomr(str(npz), device=dev, **kw)
+        plain_mae = eval_model.eval_mae(str(mae_npz), device=dev, **kw)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    k1 = hold_k1_shapes(torch, shapes)
     return {"examples": 3 * EVAL_SPLIT, "write_s": write_s,
             "vitomr_loss_npz": loss_npz, "vitomr_loss_pth": loss_pth,
             "pth_equals_npz": loss_pth == loss_npz, "mae_loss": loss_mae,
-            "vitomr_eval_s": vit_s, "mae_eval_s": mae_s,
+            "vitomr_loss_plain": plain_vit, "mae_loss_plain": plain_mae,
+            "vitomr_loss_rel_err": rel(loss_npz, plain_vit),
+            "mae_loss_rel_err": rel(loss_mae, plain_mae),
+            "k1_shapes": k1, "vitomr_eval_s": vit_s, "mae_eval_s": mae_s,
             "mae_variants": mae_counts["variants"], **vit_counts,
             "mae_launches": mae_counts["launches"]}
 
@@ -4436,6 +4533,9 @@ def main() -> int:
     if "--k19" in sys.argv[1:]:  # K19's checks and turns alone
         print(card_line())
         return k19_alone(torch)
+    if "--stream-lookup" in sys.argv[1:]:  # the stream lookup's cost alone
+        print(card_line())
+        return 0 if stream_lookup(torch)["same_tokens"] else 1
     import numpy as np
     import torch.nn.functional as F
 
@@ -4456,6 +4556,14 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
+    phase_s, last = {"build": build_s}, [time.perf_counter()]
+
+    def mark(phase):
+        """The wall seconds since the last mark, under ``phase``."""
+        now = time.perf_counter()
+        phase_s[phase] = now - last[0]
+        last[0] = now
+        print(f"[time] {phase} {phase_s[phase]:.1f} s", flush=True)
     print(f"[build] {len(_build.sources())} kernel sources in {build_s:.2f} s",
           flush=True)
     for name, log in logs.items():
@@ -4464,8 +4572,10 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
 
     cases, race_bad, spills, k7_bad = check_kernels(torch, F, dev)
+    mark("kernel_checks")
     # the probes phase's main path: the fourteen probe tools
     probe_run = probes_path(torch)
+    mark("probes")
 
     # phase 3: the slice at the flagship width
     model = OmrModel.load(device="cuda", seed=SEED)
@@ -4724,9 +4834,11 @@ def main() -> int:
                             f"{cmp[key]['device_kernels_per_step']} device "
                             f"kernels, not {11 * n_layers}")
 
+    mark("serving_paths")
     # models/vitomr's entry points on weights through the reference's
     # state-dict layouts and back
     api = vitomr_api_path(torch, np, model, imgs)
+    mark("vitomr_api")
     paths["vitomr_api"] = api
     print(f"[path vitomr_api] " + json.dumps(
         {k: v for k, v in api.items()
@@ -4904,6 +5016,7 @@ def main() -> int:
         failures.append("pretrain kernel path vs plain path")
     mcmp["leaf_rel_err"] = leaf_errs
 
+    mark("training_paths")
     # the evaluation CLI and the reference-loss tool on a written test layout
     with tempfile.TemporaryDirectory() as tmp_dir:
         ev = eval_cli_path(torch, np, tmp_dir)
@@ -4930,9 +5043,18 @@ def main() -> int:
             == mae_k3.get("sm90_dh32", -1) * 12 > 0):
         failures.append(f"eval_cli: losses, the .pth route or the launches "
                         f"{ev['launches']['encoder_attention']} {mae_k3}")
+    if not (ev["vitomr_loss_rel_err"] <= CMP_LOSS_REL
+            and ev["mae_loss_rel_err"] <= CMP_LOSS_REL):
+        failures.append("eval_cli: a loss off the plain twins' by more than "
+                        "CMP_LOSS_REL")
+    off = [r["shape"] for r in ev["k1_shapes"] if not r["ok"]]
+    if off:
+        failures.append(f"eval_cli: K1 off its twin at the path's shapes {off}")
     for k in EXPECTED_KERNELS["eval_cli"]:
         if ev["launches"][k] <= 0 or ev["mae_launches"][k] <= 0:
             failures.append(f"eval_cli: launches[{k}]=0")
+    mark("eval_cli")
+    print(f"[time] total {sum(phase_s.values()):.1f} s", flush=True)
 
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]
     if race_bad:
@@ -4982,7 +5104,8 @@ def main() -> int:
                for c in cases]
     failures += [f"launches[{k['name']}]=0" for k in kernels
                  if k["launches"] <= 0]
-    report = {"card": card, "build_s": build_s, "n_params": n_params,
+    report = {"card": card, "build_s": build_s, "phase_s": phase_s,
+              "n_params": n_params,
               "kernels": kernels, "paths": paths, "compare": cmp,
               "per_op_bf16_k11_turns": hd_k11,
               "compare_training": tcmp, "compare_pretrain": mcmp,

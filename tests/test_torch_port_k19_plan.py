@@ -41,8 +41,8 @@ def card(monkeypatch):
         state["attr"][simple] = n_bytes
         return 0
 
-    def launch(x, out, n_bytes, pdl, stream):
-        state["calls"].append(("launch", n_bytes, pdl))
+    def launch(x, out, n_bytes, stream):
+        state["calls"].append(("launch", n_bytes))
         return 0 if n_bytes <= state["attr"][0] else REFUSED
 
     def launch_simple(x, out, n_bytes, stream):
@@ -92,7 +92,7 @@ def test_attribute_set_once_per_larger_size(card):
     assert sets == [("set_max", 2 * KB, 0), ("set_max", 64 * KB, 0),
                     ("set_max", 227 * KB, 0)]
     assert [c for c in card["calls"] if c[0] == "launch"] == [
-        ("launch", n, 1) for n in (2 * KB, 64 * KB, 16 * KB, 64 * KB,
+        ("launch", n) for n in (2 * KB, 64 * KB, 16 * KB, 64 * KB,
                                    227 * KB, 100 * KB, 227 * KB)]
     assert pk._SMEM_SET == {-1: 227 * KB}
 
@@ -109,7 +109,7 @@ def test_a_refused_size_raises_and_leaves_the_cache(card):
                                              "set_max"]
     # nothing launched for the refused size; the next launch runs
     _launch(x, 100 * KB)
-    assert card["calls"][-1] == ("launch", 100 * KB, 1)
+    assert card["calls"][-1] == ("launch", 100 * KB)
     assert K19.variants == {"200 KB": 1, "100 KB": 1}
 
 
@@ -134,16 +134,15 @@ def test_a_failed_launch_is_refused(card):
 def test_launch_forms_and_labels(card):
     x = _x()
     _launch(x, 227 * KB)
-    _launch(x, 227 * KB, pdl=False)
+    _launch(x, 227 * KB)
     _launch(x, 227 * KB, variant="simple")
     _launch(x, 227 * KB, variant="simple")
     assert card["calls"] == [
-        ("set_max", 227 * KB, 0), ("launch", 227 * KB, 1),
-        ("launch", 227 * KB, 0),
+        ("set_max", 227 * KB, 0), ("launch", 227 * KB),
+        ("launch", 227 * KB),
         ("simple", 227 * KB), ("set_max", 227 * KB, 1),
         ("simple", 227 * KB), ("set_max", 227 * KB, 1)]
-    assert K19.variants == {"227 KB": 1, "227 KB no_pdl": 1,
-                            "227 KB simple": 2}
+    assert K19.variants == {"227 KB": 2, "227 KB simple": 2}
     assert K19.launches == 4
     with pytest.raises(pk.SmemRefused):
         _launch(x, 228 * KB, variant="simple")
@@ -158,10 +157,11 @@ def test_the_warp_kernel_needs_8_byte_aligned_rows(card):
     assert card["calls"][0][0] == "simple"
 
 
-@pytest.mark.parametrize("kw", [{}, {"pdl": False}, {"variant": "simple"}])
+@pytest.mark.parametrize("kw", [{}, {"n_bytes": 227 * KB},
+                                {"variant": "simple"}])
 def test_twin_row_zero_on_cpu(kw):
     x = _x()
-    out = K19(x, 2 * KB, **kw)
+    out = K19(x, **{"n_bytes": 2 * KB, **kw})
     assert torch.equal(out[0], x[0] * 2) and not out[1:].any()
 
 

@@ -1673,8 +1673,7 @@ def test_smem_probe_up_to_the_card_limit(dev):
 
 
 def test_smem_probe_warp_kernel_beside_simple(dev):
-    """The warp kernel (programmatic launch and ordinary) and the kernel it
-    replaced: row 0 bit for bit against the twin at sizes rising and falling
+    """The warp kernel (a programmatic launch) and the kernel it replaced: row 0 bit for bit against the twin at sizes rising and falling
     (the attribute cache), a refusal past the limit leaves the next launch
     running, launches counted by form, a CUDA graph of programmatic launches
     keeps its programmatic edges, no local memory."""
@@ -1684,7 +1683,7 @@ def test_smem_probe_warp_kernel_beside_simple(dev):
     want = pk.smem_probe.plain(x, 2048)[0]
     pk.smem_probe.variants.clear()
     for n in (2048, top, 4096, top):
-        for kw in ({}, {"pdl": False}, {"variant": "simple"}):
+        for kw in ({}, {"variant": "simple"}):
             assert torch.equal(pk.smem_probe(x, n, **kw)[0], want), (n, kw)
         with pytest.raises(pk.SmemRefused):
             pk.smem_probe(x, top + 1024)
@@ -1692,12 +1691,10 @@ def test_smem_probe_warp_kernel_beside_simple(dev):
             pk.smem_probe(x, top + 1024, variant="simple")
     torch.cuda.synchronize()
     assert pk.smem_probe.variants[f"{top // 1024} KB"] == 2
-    assert pk.smem_probe.variants[f"{top // 1024} KB no_pdl"] == 2
     assert pk.smem_probe.variants[f"{top // 1024} KB simple"] == 2
     assert pk._SMEM_SET[x.get_device()] == top
     edges, prog = pk.smem_graph_edges(x, top, n=8)
     assert edges == 7 and prog in (0, 7)
-    assert pk.smem_graph_edges(x, top, pdl=False, n=8) == (7, 0)
     rows = pk.smem_probe.resources()
     assert {r["variant"] for r in rows} == {"", "simple"}
     assert all(r["local_bytes"] == 0 and r["blocks_per_sm"] == 1
