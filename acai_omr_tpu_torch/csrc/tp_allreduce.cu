@@ -57,6 +57,10 @@
 // mode), and stores tp outputs, each with its own rank's bias, with 16-byte
 // stores into one (tp, B, E) buffer. The same bits as the exchange on every
 // rank; a single memory round trip and one launch is all it waits for.
+// With n_out = 1 it stores rank 0's output alone, which may be rank 0's own
+// partial (each thread reads its eight elements of every partial before it
+// writes them): the data-parallel gradient sum, which reads only rank 0's,
+// then moves (tp + 1) * n elements and allocates nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -285,7 +289,7 @@ struct LocalTable {
 template <int TP>
 __global__ void __launch_bounds__(256)
 tp_allreduce_local_kernel(LocalTable t, void* out, int n, int e, int in_bf16,
-                          int out_bf16) {
+                          int out_bf16, int n_out) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
   if (i >= n) return;
   const bool has_bias = t.bias[0] != nullptr;
@@ -313,6 +317,7 @@ tp_allreduce_local_kernel(LocalTable t, void* out, int n, int e, int in_bf16,
   }
 #pragma unroll
   for (int r = 0; r < TP; ++r) {
+    if (r >= n_out) break;
     float o[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[j] = has_bias ? __fadd_rn(s[j], b[r][j]) : s[j];
@@ -325,16 +330,18 @@ tp_allreduce_local_kernel(LocalTable t, void* out, int n, int e, int in_bf16,
 // The one-card form: every rank of a group of tp (2 or 4) on the current
 // device. `in`: tp fp32 (in_bf16 = 0) or bf16 (B, E) buffers of n = B * E
 // elements, n % 8 == 0, e % 8 == 0, 16-byte aligned; `bias`: tp fp32 (E,)
-// vectors or null (no bias); `out`: one (tp, B, E) buffer, rank r's output at
-// r * n. `blocks` x `threads` cover n / 8 threads (local_plan in
+// vectors or null (no bias); `out`: n_out = tp outputs in one (tp, B, E)
+// buffer, rank r's at r * n, or n_out = 1: rank 0's alone, `out` possibly
+// in[0] (in place). `blocks` x `threads` cover n / 8 threads (local_plan in
 // ops/tp_allreduce_kernel.py). Launches on `stream`.
 extern "C" int acai_tp_allreduce_local(const void* const* in,
                                        const void* const* bias, void* out,
-                                       int tp, int n, int e, int in_bf16,
-                                       int out_bf16, int blocks, int threads,
-                                       void* stream) {
-  if ((tp != 2 && tp != 4) || n <= 0 || n % 8 || e <= 0 || e % 8 || n % e ||
-      threads < 32 || threads > 256 || (long long)blocks * threads * 8 < n)
+                                       int tp, int n_out, int n, int e,
+                                       int in_bf16, int out_bf16, int blocks,
+                                       int threads, void* stream) {
+  if ((tp != 2 && tp != 4) || (n_out != 1 && n_out != tp) || n <= 0 ||
+      n % 8 || e <= 0 || e % 8 || n % e || threads < 32 || threads > 256 ||
+      (long long)blocks * threads * 8 < n)
     return (int)cudaErrorInvalidValue;
   LocalTable t;
   for (int r = 0; r < MAX_TP; ++r) {
@@ -344,11 +351,11 @@ extern "C" int acai_tp_allreduce_local(const void* const* in,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tp == 2)
-    tp_allreduce_local_kernel<2><<<blocks, threads, 0, s>>>(t, out, n, e,
-                                                            in_bf16, out_bf16);
+    tp_allreduce_local_kernel<2><<<blocks, threads, 0, s>>>(
+        t, out, n, e, in_bf16, out_bf16, n_out);
   else
-    tp_allreduce_local_kernel<4><<<blocks, threads, 0, s>>>(t, out, n, e,
-                                                            in_bf16, out_bf16);
+    tp_allreduce_local_kernel<4><<<blocks, threads, 0, s>>>(
+        t, out, n, e, in_bf16, out_bf16, n_out);
   return (int)cudaGetLastError();
 }
 

@@ -319,14 +319,24 @@ def forward_rollout_policy(params: Params, cfg: ViTOMRConfig, img_latent,
                            latent_valid, generator: torch.Generator | None,
                            max_actions: int = 768, top_k: int = 50,
                            temperature: float = 1.1, group_size: int = 1,
-                           **kwargs):
+                           mesh=None, **kwargs):
     """Sampled KV-cached rollouts -> (seqs, log_probs, mask).
 
     ``group_size=G > 1`` decodes G rollouts per image from the unexpanded
     latent (decode ``mem_group``): the order of the G-times-repeated latent,
     with the cross K/V projected and held once per image. The Gumbel noise
-    comes from ``generator``. ``kwargs`` go to :func:`.decode.generate`."""
+    comes from ``generator``. ``kwargs`` go to :func:`.decode.generate`.
+    ``mesh``: the images cut over the mesh's data axis, one decode loop per
+    data shard in lock step (:func:`.decode.sharded_generate`); shard d
+    draws its noise from a seed drawn from ``generator``, plus d."""
     sampling = decode_lib.SamplingConfig(top_k=top_k, temperature=temperature)
+    if mesh is not None:
+        seed = 0 if generator is None else int(torch.randint(
+            2 ** 31 - 1, (), generator=generator, device=generator.device))
+        return decode_lib.sharded_generate(
+            params["decoder"], cfg.decoder, img_latent, latent_valid, mesh,
+            max_len=max_actions, sampling=sampling, seed=seed,
+            mem_group=group_size, **kwargs)
     return decode_lib.generate(params["decoder"], cfg.decoder, img_latent,
                                latent_valid, max_len=max_actions,
                                sampling=sampling, generator=generator,

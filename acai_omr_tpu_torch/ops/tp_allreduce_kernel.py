@@ -24,6 +24,9 @@ hand-written kernel, neither a fallback for the other:
   them once in the exchange's tree order and writes ``tp`` outputs, each
   with its rank's bias, into one ``(tp, B, E)`` buffer; the call returns its
   row views. No exchange state, no device context, E % 8 == 0.
+  ``root_only=True`` stores rank 0's output alone, in place into rank 0's
+  part (the data-parallel gradient sum, which reads only rank 0's: d + 1
+  buffers' bytes moved and nothing allocated).
 * ``"coop"``: a group over several cards, the exchange. A :class:`TPGroup`
   holds its state: per buffer size, every rank's send slots ``(2 * nr, n)``
   fp32, its flag words ``(nr, chunks)`` and, per card, the epoch counter the
@@ -48,6 +51,9 @@ from . import _build
 MAX_TP = 4
 CHUNK = 1024  # the exchange's elements a block and round (tp_allreduce.cu)
 LOCAL_ELEMS = 8  # elements per thread of the one-card form
+# the one-card kernel's element index, a thread's first element, is an int:
+# the last block's idle threads must not pass 2**31 - 1
+MAX_LOCAL_ELEMS = 2 ** 31 - 256 * LOCAL_ELEMS
 _PTRS = ctypes.c_void_p * MAX_TP
 
 
@@ -158,11 +164,13 @@ class TPGroup:
 
 def tp_allreduce_plain(parts: Sequence[torch.Tensor], group: TPGroup | None
                        = None, bias: Sequence[torch.Tensor] | None = None,
-                       out_dtype=None) -> list[torch.Tensor]:
+                       out_dtype=None, root_only: bool = False
+                       ) -> list[torch.Tensor]:
     """Plain twin: recursive doubling in fp32, the running sum rounded to the
     partials' dtype after every round (a no-op for fp32), then the fp32 bias
     and the output dtype. Returns one tensor per rank, on that rank's
-    device."""
+    device; ``root_only``: ``[parts[0]]`` with rank 0's output copied into
+    it."""
     del group
     tp = len(parts)
     dt = parts[0].dtype
@@ -173,6 +181,8 @@ def tp_allreduce_plain(parts: Sequence[torch.Tensor], group: TPGroup | None
                for i in range(tp)]
     if bias is not None:
         acc = [a + b.float() for a, b in zip(acc, bias)]
+    if root_only:
+        return [parts[0].copy_(acc[0])]
     return [a.to(out_dtype) for a in acc]
 
 
@@ -202,15 +212,20 @@ def local_plan(n: int, tp: int, in_dtype) -> tuple[int, int]:
     if n <= 0 or n % LOCAL_ELEMS:
         raise ValueError(f"tp_allreduce needs E % {LOCAL_ELEMS} == 0, got "
                          f"{n} elements")
+    if n > MAX_LOCAL_ELEMS:
+        raise ValueError(f"tp_allreduce indexes a rank's elements with a "
+                         f"32-bit int: at most {MAX_LOCAL_ELEMS}, got {n}")
     vectors = n // LOCAL_ELEMS
     threads = 128 if vectors <= 132 * 128 else 256
     return -(-vectors // threads), threads
 
 
-def _check(parts, group, bias=None, out_dtype=None, variant=None):
+def _check(parts, group, bias=None, out_dtype=None, variant=None,
+           root_only=False):
     """K15's rules on either device: the form (:func:`allreduce_form`),
     fp32 or bf16 in and out, one (B, E) shape with E % 8 == 0, one bias per
-    rank of (E,)."""
+    rank of (E,); ``root_only`` writes in place, so in and out types
+    agree."""
     form = allreduce_form(group, variant)
     tp = len(parts)
     if group.tp != tp:
@@ -231,12 +246,14 @@ def _check(parts, group, bias=None, out_dtype=None, variant=None):
     if bias is not None and (len(bias) != tp or any(
             bv.shape != shape[1:] for bv in bias)):
         raise ValueError(f"bias must be {tp} vectors of ({shape[1]},)")
+    if root_only and out_dtype != dt:
+        raise ValueError(f"root_only writes in place: out_dtype must be {dt}")
     return form, dt, out_dtype
 
 
 def _local_fn():
     return _build.bind("tp_allreduce", "acai_tp_allreduce_local",
-                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
 
 
@@ -253,11 +270,15 @@ def _pointers(tensors, devices, what: str) -> list[int]:
     return ptrs
 
 
-def _launch(op, parts, group, bias=None, out_dtype=None, variant=None):
+def _launch(op, parts, group, bias=None, out_dtype=None, variant=None,
+            root_only=False):
     """``variant`` (private: tests and chip_smoke.py): ``"coop"`` forces the
     exchange on a one-card group. Returns one output per rank: on one card
-    the rows of one (tp, B, E) tensor."""
-    form, dt, out_dtype = _check(parts, group, bias, out_dtype, variant)
+    the rows of one (tp, B, E) tensor; with ``root_only``, ``[parts[0]]``
+    holding rank 0's output (on one card the only output written; the
+    exchange writes every rank's into its own part)."""
+    form, dt, out_dtype = _check(parts, group, bias, out_dtype, variant,
+                                 root_only)
     tp = len(parts)
     if tp not in (2, 4):
         raise ValueError(f"tp_allreduce takes 2 or 4 ranks, got {tp} parts "
@@ -275,20 +296,23 @@ def _launch(op, parts, group, bias=None, out_dtype=None, variant=None):
         int(out_dtype == torch.bfloat16)
     if form == "local":
         blocks, threads = local_plan(n, tp, dt)
-        out = torch.empty((tp, b, e), dtype=out_dtype, device=devs[0])
+        out = parts[0] if root_only else torch.empty(
+            (tp, b, e), dtype=out_dtype, device=devs[0])
         rc = _local_fn()(
             _PTRS(*in_ptrs), None if bias_ptrs is None else _PTRS(*bias_ptrs),
-            out.data_ptr(), tp, n, e, in_bf16, out_bf16, blocks, threads,
-            _build.stream_ptr())
+            out.data_ptr(), tp, 1 if root_only else tp, n, e, in_bf16,
+            out_bf16, blocks, threads, _build.stream_ptr())
         op.launched("local")
         _build.check(rc, op.name)
-        return out.unbind(0)
+        return [out] if root_only else out.unbind(0)
     sets = group.launch_sets()
     multi = len(sets) > 1
     if multi:
         group.enable_peer_access()
     ws = group.workspace(n)
-    outs = [torch.empty((b, e), dtype=out_dtype, device=d) for d in devs]
+    # a rank reads its own part only before it writes its output
+    outs = list(parts) if root_only else [
+        torch.empty((b, e), dtype=out_dtype, device=d) for d in devs]
     pad = [None] * (MAX_TP - tp)
     table = (_PTRS(*in_ptrs, *pad),
              _PTRS(*[o.data_ptr() for o in outs], *pad),
@@ -305,7 +329,7 @@ def _launch(op, parts, group, bias=None, out_dtype=None, variant=None):
                     _build.stream_ptr())
         op.launched("coop")
         _build.check(rc, op.name)
-    return outs
+    return outs[:1] if root_only else outs
 
 
 class _GroupOp(_build.KernelOp):

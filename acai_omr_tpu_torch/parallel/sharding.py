@@ -1,6 +1,18 @@
-"""Tensor-parallel decode layout: the decode half of the JAX package's
+"""Parameter layouts over a mesh: the twin of the JAX package's
 ``parallel/sharding.py``.
 
+Training (:func:`param_specs`, :func:`param_shardings`,
+:func:`shard_params`): the Megatron rules of JAX's ``_spec_for_path``. A
+spec is a tuple with one entry per leading dim, an axis name or None (JAX's
+``PartitionSpec``; ``()`` replicates): the fused qkv and ``linear1`` kernels
+and biases split their output features over ``model``, the attention
+``out`` and ``linear2`` kernels their input features, the unembed its vocab
+columns; norms, embeddings, PE grids and the row-parallel biases replicate.
+Stacked ``blocks`` leaves carry their layer axis first, never split.
+JAX's ``sequence_parallel`` (a GSPMD hint that changes no value) has no
+counterpart.
+
+Decode:
 The fused qkv kernels store their columns as ``[q | k | v]``, each E wide and
 head-major; cutting the last dim into tp pieces would give shard 0 a slab of
 q only. :func:`tp_shuffle_decoder_params` reorders the columns to
@@ -20,7 +32,84 @@ from __future__ import annotations
 
 import torch
 
+from .mesh import MODEL_AXIS
+
 Params = dict
+
+
+def _spec_for_path(path: tuple[str, ...]) -> tuple:
+    """The spec of one parameter leaf, identified by its tree path."""
+    name = path[-1]
+    parent = path[-2] if len(path) >= 2 else ""
+    grandparent = path[-3] if len(path) >= 3 else ""
+    stacked = "blocks" in path  # a leading layer axis
+
+    def with_layer(*dims):
+        return (None, *dims) if stacked else dims
+
+    if parent in ("self_attn", "cross_attn"):
+        if name == "in_kernel":
+            return with_layer(None, MODEL_AXIS)   # (E, 3E): heads
+        if name == "in_bias":
+            return with_layer(MODEL_AXIS)
+    if grandparent in ("self_attn", "cross_attn") and parent == "out":
+        if name == "kernel":
+            return with_layer(MODEL_AXIS, None)   # row-parallel
+        return with_layer(None) if stacked else ()
+    if parent == "linear1":
+        if name == "kernel":
+            return with_layer(None, MODEL_AXIS)
+        return with_layer(MODEL_AXIS)
+    if parent == "linear2":
+        if name == "kernel":
+            return with_layer(MODEL_AXIS, None)
+        return with_layer(None) if stacked else ()
+    if parent == "unembed" and name == "kernel":
+        return (None, MODEL_AXIS)
+    return ()  # norms, embeddings, PE grids, scalars
+
+
+def _map_with_path(fn, tree: Params, path: tuple = ()) -> Params:
+    return {k: _map_with_path(fn, v, path + (k,)) if isinstance(v, dict)
+            else fn(path + (k,), v) for k, v in tree.items()}
+
+
+def param_specs(params: Params) -> Params:
+    """The spec tree of ``params`` (one tuple per leaf)."""
+    return _map_with_path(lambda path, _: _spec_for_path(path), params)
+
+
+def param_shardings(mesh, params: Params) -> Params:
+    """The specs as placed on ``mesh``: a leaf whose split dim does not
+    divide by its axis's size (tiny test configurations, the 227-token
+    unembed over an even axis) is replicated, ``()``."""
+    def fit(path, leaf):
+        spec = _spec_for_path(path)
+        for dim, axis in enumerate(spec):
+            if axis is not None and leaf.shape[dim] % mesh.shape[axis]:
+                return ()
+        return spec
+    return _map_with_path(fit, params)
+
+
+def shard_params(mesh, params: Params) -> list[list[Params]]:
+    """Each shard's parameters: ``out[d][m]`` holds, for every leaf, the
+    m-th contiguous piece along its ``model`` dim (the whole leaf where it
+    is replicated), on ``mesh.devices[d][m]``."""
+    specs = param_shardings(mesh, params)
+    n_model = mesh.shape[MODEL_AXIS]
+
+    def piece(path, leaf, m, dev):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        if MODEL_AXIS in spec:
+            dim = spec.index(MODEL_AXIS)
+            leaf = torch.chunk(leaf, n_model, dim=dim)[m]
+        return leaf.to(dev).contiguous()
+
+    return [[_map_with_path(lambda path, v: piece(path, v, m, dev), params)
+             for m, dev in enumerate(row)] for row in mesh.devices]
 
 
 def tp_shuffle_decoder_params(params: Params, num_heads: int, head_dim: int,
@@ -42,26 +131,14 @@ def tp_shuffle_decoder_params(params: Params, num_heads: int, head_dim: int,
 
 def tp_split_dim(path: tuple) -> int | None:
     """The dim of the leaf at ``path`` that the model axis splits, or None
-    when the leaf is replicated (the rules of JAX's
-    ``tp_decode_param_specs``; stacked ``blocks`` leaves carry the layer axis
-    first)."""
-    name = path[-1]
-    parent = path[-2] if len(path) >= 2 else ""
-    grandparent = path[-3] if len(path) >= 3 else ""
-    lead = 1 if "blocks" in path else 0
-    if parent in ("self_attn", "cross_attn"):
-        if name == "in_kernel":
-            return lead + 1
-        if name == "in_bias":
-            return lead
-    if grandparent in ("self_attn", "cross_attn") and parent == "out" \
-            and name == "kernel":
-        return lead
-    if parent == "linear1":
-        return lead + 1 if name == "kernel" else lead
-    if parent == "linear2" and name == "kernel":
-        return lead
-    return None
+    when the leaf is replicated: the training rules (:func:`_spec_for_path`)
+    with the unembed replicated, as JAX's ``tp_decode_param_specs`` (each
+    shard computes the whole (B, V) logits; stacked ``blocks`` leaves carry
+    the layer axis first)."""
+    spec = _spec_for_path(path)
+    if MODEL_AXIS not in spec or (len(path) >= 2 and path[-2] == "unembed"):
+        return None
+    return spec.index(MODEL_AXIS)
 
 
 def tp_split_decoder_params(params: Params, tp: int, devices=None

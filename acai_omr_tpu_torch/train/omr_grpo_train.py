@@ -1,6 +1,6 @@
 """GRPO fine-tuning (stage 3 of 3).
 
-The twin of the JAX package's ``train/omr_grpo_train.py`` on one card:
+The twin of the JAX package's ``train/omr_grpo_train.py``:
 group-relative policy optimization over KV-cached sampled rollouts with the
 composite LMX reward (:mod:`.grpo_rewards`), a PPO-style clipped objective,
 an entropy bonus and a teacher-forced CE anchor, a curriculum over the
@@ -46,6 +46,7 @@ from ..models import vitomr as vitomr_lib
 from ..models.vitomr import ViTOMRConfig
 from ..models.weights import params_from_jax
 from ..ops import transformer
+from ..parallel import mesh as mesh_lib
 from ..parallel import trainer
 from ..utils import checkpoint as ckpt_lib
 from ..utils.metrics import MetricsWriter
@@ -213,12 +214,11 @@ ROLLOUT_KEYS = ("rollouts", "rollout_inputs", "rollout_input_valid",
                 "old_log_probs", "advantages", "img_latent", "latent_valid")
 
 
-def make_grpo_grads_fn(cfg: ViTOMRConfig, num_groups: int, epsilon: float,
-                       compute_dtype=torch.bfloat16,
-                       rollout_microbatches: int = 16):
-    """``grads_fn(params, batch) -> (grads, sums)``: the gradient tree of one
-    GRPO update (before clipping) and the scalar tensors ``grpo_objective``,
-    ``entropy_bonus`` and ``ce_loss`` (:func:`make_grpo_update_step`)."""
+def _grpo_losses(cfg: ViTOMRConfig, num_groups: int, epsilon: float,
+                 compute_dtype):
+    """(rollout_loss, ce_loss_sum) of one update: a chunk's negated
+    objective plus entropy bonus (with the objective and the bonus), and the
+    CE anchor's (sum, count) on the unexpanded latents."""
     vocab_size = cfg.decoder.vocab_size
     cd = compute_dtype
 
@@ -249,6 +249,30 @@ def make_grpo_grads_fn(cfg: ViTOMRConfig, num_groups: int, epsilon: float,
         return vitomr_lib.omr_ce_loss(gold_logits, batch["gold_targets"],
                                       cfg.decoder.pad_idx, reduction="sum")
 
+    return rollout_loss, ce_loss_sum
+
+
+def _chunk_count(r: int, b_mem: int, requested: int) -> int:
+    """The largest chunk count <= ``requested`` that divides both the
+    rollout rows and the memory rows."""
+    if r % b_mem:
+        raise ValueError(f"rollout rows {r} not a multiple of memory rows "
+                         f"{b_mem}")
+    m = max(requested, 1)
+    while m > 1 and (r % m or b_mem % m):
+        m -= 1
+    return m
+
+
+def make_grpo_grads_fn(cfg: ViTOMRConfig, num_groups: int, epsilon: float,
+                       compute_dtype=torch.bfloat16,
+                       rollout_microbatches: int = 16):
+    """``grads_fn(params, batch) -> (grads, sums)``: the gradient tree of one
+    GRPO update (before clipping) and the scalar tensors ``grpo_objective``,
+    ``entropy_bonus`` and ``ce_loss`` (:func:`make_grpo_update_step`)."""
+    rollout_loss, ce_loss_sum = _grpo_losses(cfg, num_groups, epsilon,
+                                             compute_dtype)
+
     def grad_of(loss, leaves):
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
@@ -261,13 +285,8 @@ def make_grpo_grads_fn(cfg: ViTOMRConfig, num_groups: int, epsilon: float,
                   if p.split("/")[0] == "decoder"}
         params = trainer.tree_unflatten({**flat, **leaves})
         r = batch["rollouts"].shape[0]
-        b_mem = batch["img_latent"].shape[0]
-        if r % b_mem:
-            raise ValueError(f"rollout rows {r} not a multiple of memory rows "
-                             f"{b_mem}")
-        m = max(rollout_microbatches, 1)
-        while m > 1 and (r % m or b_mem % m):
-            m -= 1
+        m = _chunk_count(r, batch["img_latent"].shape[0],
+                         rollout_microbatches)
         acc = [torch.zeros_like(v, dtype=torch.float32)
                for v in leaves.values()]
         obj = ent = torch.zeros((), device=batch["rollouts"].device)
@@ -293,10 +312,79 @@ def make_grpo_grads_fn(cfg: ViTOMRConfig, num_groups: int, epsilon: float,
     return grads_fn
 
 
+def make_sharded_grpo_grads_fn(cfg: ViTOMRConfig, num_groups: int,
+                               epsilon: float, mesh, axis: str = "data",
+                               compute_dtype=torch.bfloat16,
+                               rollout_microbatches: int = 16):
+    """The data-parallel :func:`make_grpo_grads_fn`: the rollouts (with
+    their images) and the gold rows are cut over the data shards; each
+    shard sums its chunks' objective gradients (``max(rollout_microbatches
+    // n_shards, 1)`` chunks, or fewer where they must divide, as JAX) and
+    its CE anchor's gradients into two runs of one flat buffer, with its
+    objective, entropy bonus and CE (sum, count) after them; one K15 launch
+    sums the buffers; then ``grads + lambda_ce * ce_grads / max(count,
+    1)``. The objective and the bonus are normalised by the global group
+    and rollout counts, so the sums equal one device's."""
+    rollout_loss, ce_loss_sum = _grpo_losses(cfg, num_groups, epsilon,
+                                             compute_dtype)
+    n_shards = trainer.data_axis_size(mesh, axis)
+
+    def grads_fn(params: dict, batch: dict):
+        shards = mesh_lib.data_sharding(mesh, batch)
+        copies = mesh_lib.replicated(mesh, params)
+        flat = trainer.tree_flatten(params)
+        dec = [p for p in flat if p.split("/")[0] == "decoder"]
+        flats = []
+        for d in range(n_shards):
+            b, dev = shards[d], mesh.devices[d][0]
+            flat_d = trainer.tree_flatten(copies[d])
+            fg = trainer.FlatGrads(copies[d], dec, 4, dev, regions=2)
+            leaves = fg.bind(copies[d], 0)
+            p_obj = trainer.tree_unflatten({**flat_d, **leaves})
+            r_local = b["rollouts"].shape[0]
+            r_all = float(r_local * n_shards)
+            m = _chunk_count(r_local, b["img_latent"].shape[0],
+                             rollout_microbatches // n_shards)
+            obj = ent = ce_s = ce_n = 0.0
+            with mesh_lib.on_device(dev):
+                for j in range(m):
+                    mb = {k: b[k].chunk(m)[j] for k in ROLLOUT_KEYS}
+                    loss, o, e = rollout_loss(p_obj, mb, r_all,
+                                              b["entropy_beta"])
+                    torch.autograd.backward(loss,
+                                            inputs=list(leaves.values()))
+                    obj, ent = obj + o.detach(), ent + e.detach()
+                if "gold_inputs" in b:
+                    ce_leaves = fg.bind(copies[d], 1)
+                    ce_s, ce_n = ce_loss_sum(
+                        trainer.tree_unflatten({**flat_d, **ce_leaves}), b)
+                    torch.autograd.backward(ce_s,
+                                            inputs=list(ce_leaves.values()))
+            for i, v in enumerate((obj, ent, ce_s, ce_n)):
+                fg.set_extra(i, v)
+            flats.append(fg)
+        total = trainer.dp_sum(mesh, [fg.buf for fg in flats])
+        fg = flats[0]
+        obj, ent, ce_s, ce_n = (total[fg.extra(i)] for i in range(4))
+        ce = torch.zeros_like(obj)
+        if "gold_inputs" in batch:
+            n = ce_n.clamp_min(1.0)
+            total[:fg.n].add_(total[fg.n:2 * fg.n] * batch["lambda_ce"] / n)
+            ce = ce_s / n
+        grads = {p: torch.zeros_like(v, dtype=torch.float32)
+                 for p, v in flat.items()}
+        grads.update(fg.views(total, 0))
+        return trainer.tree_unflatten(grads), {
+            "grpo_objective": obj, "entropy_bonus": ent, "ce_loss": ce}
+
+    return grads_fn
+
+
 def make_grpo_update_step(cfg: ViTOMRConfig, tx: trainer.AdamW,
                           num_groups: int, epsilon: float,
                           compute_dtype=torch.bfloat16,
-                          rollout_microbatches: int = 16):
+                          rollout_microbatches: int = 16, mesh=None,
+                          axis: str = "data"):
     """``step(state, batch) -> (state, metrics)``: one GRPO update.
 
     The objective's gradients are summed over ``m`` chunks of rollouts, ``m``
@@ -311,9 +399,16 @@ def make_grpo_update_step(cfg: ViTOMRConfig, tx: trainer.AdamW,
     optimizer step runs. Only the decoder's leaves are differentiated (the
     latents are inputs: every other gradient is zero). ``metrics``: loss,
     objective, entropy bonus, CE and the gradient norm before clipping, as
-    scalar tensors left on the device."""
-    grads_fn = make_grpo_grads_fn(cfg, num_groups, epsilon, compute_dtype,
-                                  rollout_microbatches)
+    scalar tensors left on the device. ``mesh``: data-parallel over its
+    ``axis`` (:func:`make_sharded_grpo_grads_fn`; the images must divide by
+    the axis)."""
+    if mesh is None:
+        grads_fn = make_grpo_grads_fn(cfg, num_groups, epsilon,
+                                      compute_dtype, rollout_microbatches)
+    else:
+        grads_fn = make_sharded_grpo_grads_fn(
+            cfg, num_groups, epsilon, mesh, axis, compute_dtype,
+            rollout_microbatches)
     apply_fn = trainer.make_apply_fn(tx)
 
     def step(state: trainer.TrainState, batch: dict):
@@ -350,14 +445,16 @@ def grpo_update(old_params, state, update_step, cfg: ViTOMRConfig,
                 grpo_config: GRPOConfig, batch_examples, tokenizer,
                 generator: torch.Generator, writer: MetricsWriter | None = None,
                 step_idx: int = 0, compute_dtype=torch.bfloat16,
-                reward_workers: int = 16, next_examples=None,
+                reward_workers: int = 16, mesh=None, next_examples=None,
                 preencoded=None, device=None):
     """One outer GRPO step on a list of (img, lmx ids, musicxml) examples.
     Returns (state, metrics).
 
     Rollouts are drawn with ``old_params`` (the parameters before this
     step's updates; the updates then change ``state.params`` in place) and
-    Gumbel noise from ``generator``. ``next_examples``: the next batch,
+    Gumbel noise from ``generator``. ``mesh``: the rollouts' decode cut
+    over the mesh's data axis (``decode.sharded_generate``; the examples
+    must divide by it). ``next_examples``: the next batch,
     whose encoder pass is enqueued right after the rollouts land, so that it
     overlaps the reward scoring on the host (exact: the encoder is frozen).
     It comes back as ``metrics["preencoded_next"]``; pass it to the next call
@@ -382,7 +479,7 @@ def grpo_update(old_params, state, update_step, cfg: ViTOMRConfig,
         rollouts, old_lp, rollout_mask = vitomr_lib.forward_rollout_policy(
             old_params, cfg, unexp_latent, unexp_valid, generator,
             max_actions=rc.max_actions, top_k=rc.top_k,
-            temperature=rc.temperature, group_size=g,
+            temperature=rc.temperature, group_size=g, mesh=mesh,
             compute_dtype=compute_dtype,
             cache_dtype=_rollout_cache_dtype(rc, compute_dtype))
     rollouts, old_lp, rollout_mask = (a.cpu().numpy() for a in
@@ -582,10 +679,14 @@ def grpo_train(cfg: ViTOMRConfig, params, dataset, tokenizer: LmxTokenizer, *,
     checkpoints every ``checkpoint_freq`` steps and a mini-validation every
     ``mini_validation_freq`` (with ``val_dataset``); ``stats.csv`` in
     ``model_dir``; an emergency checkpoint if the loop fails. Runs on
-    ``cuda`` unless ``device="cpu"``. ``step_hook(kind, info)`` is called
+    ``cuda`` unless ``device="cpu"``, data-parallel (rollouts and updates)
+    over ``train_mesh(train_devices(device), batch_size)`` where that is a
+    mesh. ``step_hook(kind, info)`` is called
     after every outer step (``"step"``) and mini-validation (``"val"``).
     """
-    device = resolve_device(device)
+    devices = mesh_lib.train_devices(device)
+    mesh = mesh_lib.train_mesh(devices, batch_size)
+    device = devices[0]
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=False)
     (model_dir / "checkpoints").mkdir()
@@ -601,7 +702,8 @@ def grpo_train(cfg: ViTOMRConfig, params, dataset, tokenizer: LmxTokenizer, *,
     state = trainer.create_train_state(
         trainer.tree_map(lambda v: torch.as_tensor(v).to(device), params), tx)
     update_step = make_grpo_update_step(cfg, tx, batch_size, uc.epsilon,
-                                        compute_dtype, rollout_microbatches)
+                                        compute_dtype, rollout_microbatches,
+                                        mesh=mesh)
 
     # rollouts wider than the decoder's budget could not be scored
     rc0 = grpo_config.rollout_config
@@ -639,8 +741,9 @@ def grpo_train(cfg: ViTOMRConfig, params, dataset, tokenizer: LmxTokenizer, *,
                 state, metrics = grpo_update(
                     state.params, state, update_step, cfg, grpo_config,
                     batch_examples, tokenizer, generator, writer, step_idx,
-                    compute_dtype, reward_workers, next_examples=next_examples,
-                    preencoded=preencoded, device=device)
+                    compute_dtype, reward_workers, mesh=mesh,
+                    next_examples=next_examples, preencoded=preencoded,
+                    device=device)
                 batch_examples = next_examples
                 next_examples = load_batch(bi + 2)
                 preencoded = metrics.pop("preencoded_next")

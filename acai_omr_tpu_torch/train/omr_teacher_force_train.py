@@ -11,7 +11,11 @@ teacher-forced validation pass per epoch, checkpoints and ``stats.csv``.
 
 On a CUDA device both stacks run the hand-written kernels forward and
 backward (:mod:`..ops.train_layer_kernel`); with ``device="cpu"`` their plain
-twins run under autograd. Run as
+twins run under autograd. Where :func:`..parallel.mesh.train_mesh` finds 4
+or 2 of the devices that :func:`..parallel.mesh.train_devices` lists, and
+the batch divides by their count, the loop is data-parallel: each device computes its rows' loss sum and gradients, K15
+sums them (``parallel/trainer.make_sharded_grad_fn``), batches are padded to
+the full batch size. Run as
 
     python -m acai_omr_tpu_torch.train.omr_teacher_force_train [--device cpu]
 
@@ -42,6 +46,7 @@ from ..models.omr_decoder import DecoderConfig
 from ..models.vit_encoder import EncoderConfig
 from ..models.vitomr import ViTOMRConfig
 from ..ops import dropout_kernel as dk
+from ..parallel import mesh as mesh_lib
 from ..parallel import trainer
 from ..utils import checkpoint as ckpt_lib
 from ..utils.metrics import MetricsWriter
@@ -110,19 +115,36 @@ def make_loss_fn(cfg: ViTOMRConfig, use_hard_sampling: bool,
     return loss_fn
 
 
+def make_sum_loss_fn(cfg: ViTOMRConfig, use_hard_sampling: bool,
+                     compute_dtype=torch.bfloat16,
+                     label_smoothing=LABEL_SMOOTHING):
+    """The (nll_sum, token_count) variant of :func:`make_loss_fn`, for the
+    exact data-parallel reduction (``trainer.make_sharded_grad_fn``)."""
+    return make_loss_fn(cfg, use_hard_sampling, compute_dtype,
+                        label_smoothing, reduction="sum")
+
+
 def make_eval_fn(cfg: ViTOMRConfig, compute_dtype=torch.bfloat16,
-                 label_smoothing=LABEL_SMOOTHING):
+                 label_smoothing=LABEL_SMOOTHING, mesh=None):
     """``eval_fn(params, batch) -> mean loss`` of the deterministic
-    teacher-forced forward (no gradient, so the stacks keep no saves)."""
-    @torch.no_grad()
-    def eval_fn(params, batch):
+    teacher-forced forward (no gradient, so the stacks keep no saves); with
+    ``mesh`` the batch is cut over its data shards and their sums added."""
+    def eval_sum(params, batch, rng=None):
         logits = vitomr_lib.forward_teacher_forced(
             params, cfg, batch["patches"], batch["pe_idx"], batch["pe_w"],
             batch["valid"], batch["inputs"], batch["lmx_valid"],
             compute_dtype=compute_dtype, deterministic=True)
-        s, n = vitomr_lib.omr_ce_loss(logits, batch["targets"],
+        return vitomr_lib.omr_ce_loss(logits, batch["targets"],
                                       cfg.decoder.pad_idx, label_smoothing,
                                       reduction="sum")
+
+    if mesh is not None:
+        sharded = trainer.make_sharded_eval_fn(eval_sum, mesh)
+        return lambda params, batch: sharded(params, batch)
+
+    @torch.no_grad()
+    def eval_fn(params, batch):
+        s, n = eval_sum(params, batch)
         return s / n.clamp_min(1.0)
     return eval_fn
 
@@ -146,13 +168,19 @@ def omr_teacher_force_train(cfg: ViTOMRConfig, params, train_dataset,
                             step_hook=None):
     """Full stage-2 loop; returns (params, stats).
 
-    Runs on ``cuda`` unless ``device="cpu"``. ``params`` (any device) are
-    copied into fp32 masters on the device. ``step_hook(kind, info)``, when
+    Runs on ``cuda`` unless ``device="cpu"``, data-parallel over
+    ``train_mesh(train_devices(device), batch_size)`` where that is a mesh.
+    ``params`` (any device) are copied into fp32 masters on the first
+    device. ``step_hook(kind, info)``, when
     given, is called after every microbatch (``"micro"``), optimizer update
     (``"update"``) and validation batch (``"val"``) with the state and the
     values of that step: the place measurements hang their clocks on.
     """
-    device = resolve_device(device)
+    # data-parallel over the training devices when the batch shards evenly
+    devices = mesh_lib.train_devices(device)
+    mesh = mesh_lib.train_mesh(devices, batch_size)
+    use_dp = mesh is not None
+    device = devices[0]
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=False)
     (model_dir / "checkpoints").mkdir()
@@ -165,7 +193,8 @@ def omr_teacher_force_train(cfg: ViTOMRConfig, params, train_dataset,
                                      batch_size, shuffle=False, seed=seed)
     pack = lambda ex: pack_omr_batch(
         ex, cfg.encoder, tokenizer,
-        max_lmx_seq_len=cfg.decoder.max_lmx_seq_len)
+        max_lmx_seq_len=cfg.decoder.max_lmx_seq_len,
+        pad_to_batch=batch_size if use_dp else None)
     train_loader = PrefetchLoader(train_dataset, sampler, pack, num_workers)
     val_loader = PrefetchLoader(validation_dataset, val_sampler, pack,
                                 num_workers)
@@ -186,13 +215,23 @@ def omr_teacher_force_train(cfg: ViTOMRConfig, params, train_dataset,
                              MIN_TEACHER_FORCING_PROB, INITIAL_TAU, MIN_TAU,
                              soft_steps=soft_epochs * opt_steps_per_epoch,
                              anneal_steps=tf_anneal_epochs * opt_steps_per_epoch)
-    loss_fns = {hard: make_loss_fn(cfg, hard, compute_dtype)
-                for hard in (False, True)}
-    grad_fns = {h: trainer.make_grad_fn(f) for h, f in loss_fns.items()}
-    grad_acc_fns = {h: trainer.make_grad_acc_fn(f)
-                    for h, f in loss_fns.items()}
+    if use_dp:
+        # each device runs the single-device step (the fused kernels) on its
+        # rows; K15 sums the shards: exact global masked means
+        sum_fns = {hard: make_sum_loss_fn(cfg, hard, compute_dtype)
+                   for hard in (False, True)}
+        grad_fns = {h: trainer.make_sharded_grad_fn(f, mesh)
+                    for h, f in sum_fns.items()}
+        grad_acc_fns = {h: trainer.make_sharded_grad_acc_fn(f, mesh)
+                        for h, f in sum_fns.items()}
+    else:
+        loss_fns = {hard: make_loss_fn(cfg, hard, compute_dtype)
+                    for hard in (False, True)}
+        grad_fns = {h: trainer.make_grad_fn(f) for h, f in loss_fns.items()}
+        grad_acc_fns = {h: trainer.make_grad_acc_fn(f)
+                        for h, f in loss_fns.items()}
     apply_fn = trainer.make_apply_fn(tx)
-    eval_fn = make_eval_fn(cfg, compute_dtype)
+    eval_fn = make_eval_fn(cfg, compute_dtype, mesh=mesh)
 
     writer = MetricsWriter(str(model_dir / "stats.csv"))
     stats = {"train_losses": [], "val_losses": [], "window_losses": []}

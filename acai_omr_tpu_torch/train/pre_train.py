@@ -1,6 +1,6 @@
 """MAE pretraining loop (stage 1 of 3).
 
-The twin of the JAX package's ``train/pre_train.py`` on one device: ViT-B/16
+The twin of the JAX package's ``train/pre_train.py``: ViT-B/16
 encoder under a 0.75 random mask, the 8-layer 512-wide 16-head decoder, the
 per-patch-normalised pixel loss, AdamW (betas 0.9 / 0.95, weight decay 0.05,
 no layer-wise decay), one update per batch, a cosine schedule with warm-up
@@ -8,8 +8,12 @@ evaluated per epoch, bf16 compute over fp32 master weights, a validation pass
 per epoch, ``stats.csv``, periodic and emergency checkpoints, ``resume_from``,
 and at the end ``pretrained_mae.npz``: the file whose encoder stage 2
 (:func:`.omr_teacher_force_train.set_up_omr_teacher_force_train`) starts
-from. The JAX package's data-parallel branch over several devices is not
-here.
+from. Where :func:`..parallel.mesh.train_mesh` finds 4 or 2 of the devices
+that :func:`..parallel.mesh.train_devices` lists, and the batch divides by
+their count, each update is data-parallel: each
+device computes its rows' loss sum and gradients, K15 sums them
+(``parallel/trainer.make_sharded_train_step``), batches are padded to the
+full batch size.
 
 On a CUDA device both stacks run the hand-written kernels forward and
 backward (:mod:`..ops.train_layer_kernel`; the decoder's heads are 32 wide);
@@ -28,7 +32,6 @@ from pathlib import Path
 
 import torch
 
-from .. import resolve_device
 from ..config import (DOREMI_PREPARED_ROOT_DIR, GRAND_STAFF_ROOT_DIR,
                       MAE_MAX_SEQ_LEN, OLIMPIC_SYNTHETIC_ROOT_DIR, PATCH_SIZE,
                       PE_MAX_HEIGHT, PE_MAX_WIDTH, PRIMUS_PREPARED_ROOT_DIR)
@@ -40,6 +43,7 @@ from ..models import mae as mae_lib
 from ..models.mae import MaeConfig
 from ..models.vit_encoder import EncoderConfig
 from ..ops import dropout_kernel as dk
+from ..parallel import mesh as mesh_lib
 from ..parallel import trainer
 from ..utils import checkpoint as ckpt_lib
 from ..utils.metrics import MetricsWriter
@@ -89,14 +93,28 @@ def make_loss_fn(cfg: MaeConfig, compute_dtype=torch.bfloat16,
     return loss_fn
 
 
-def make_eval_fn(cfg: MaeConfig, compute_dtype=torch.bfloat16):
+def make_sum_loss_fn(cfg: MaeConfig, compute_dtype=torch.bfloat16):
+    """The (loss_sum, patch_count) variant of :func:`make_loss_fn`, for the
+    exact data-parallel reduction (``trainer.make_sharded_train_step``)."""
+    return make_loss_fn(cfg, compute_dtype, reduction="sum")
+
+
+def make_eval_fn(cfg: MaeConfig, compute_dtype=torch.bfloat16, mesh=None):
     """``eval_fn(params, batch, generator) -> mean loss`` over the batch's
-    masked patches (no gradient, so the stacks keep no saves)."""
-    @torch.no_grad()
-    def eval_fn(params, batch, generator):
-        s, n = mae_lib.mae_loss(
+    masked patches (no gradient, so the stacks keep no saves); with
+    ``mesh`` the batch is cut over its data shards (shard d's masks from
+    the generator's seed + d) and their sums added."""
+    def eval_sum(params, batch, generator):
+        return mae_lib.mae_loss(
             *_forward(cfg, params, batch, generator, compute_dtype),
             reduction="sum")
+
+    if mesh is not None:
+        return trainer.make_sharded_eval_fn(eval_sum, mesh)
+
+    @torch.no_grad()
+    def eval_fn(params, batch, generator):
+        s, n = eval_sum(params, batch, generator)
         return s / n.clamp_min(1.0)
     return eval_fn
 
@@ -111,15 +129,20 @@ def pre_train(mae_cfg: MaeConfig, train_dataset, validation_dataset, *,
               device=None, step_hook=None):
     """Full pretraining loop; returns (params, stats).
 
-    Runs on ``cuda`` unless ``device="cpu"``. ``params`` (any device; drawn
-    from ``seed`` when None) are copied into fp32 masters on the device.
+    Runs on ``cuda`` unless ``device="cpu"``, data-parallel over
+    ``train_mesh(train_devices(device), batch_size)`` where that is a mesh.
+    ``params`` (any device; drawn from ``seed`` when None)
+    are copied into fp32 masters on the first device.
     ``resume_from``: a train-state checkpoint to continue from; the resumed
     epochs draw masks from a stream of their own. ``step_hook(kind, info)``,
     when given, is called after every update (``"step"``) and validation
     batch (``"val"``) with the state and the values of that step: the place
     measurements hang their clocks on.
     """
-    device = resolve_device(device)
+    devices = mesh_lib.train_devices(device)
+    mesh = mesh_lib.train_mesh(devices, batch_size)
+    use_dp = mesh is not None
+    device = devices[0]
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=resume_from is not None)
     (model_dir / "checkpoints").mkdir(exist_ok=resume_from is not None)
@@ -135,7 +158,8 @@ def pre_train(mae_cfg: MaeConfig, train_dataset, validation_dataset, *,
                                        batch_size, seed=seed)
     val_sampler = BucketBatchSampler(validation_dataset, list(boundaries),
                                      batch_size, shuffle=False, seed=seed)
-    pack = lambda ex: pack_mae_batch(ex, mae_cfg.encoder)
+    pack = lambda ex: pack_mae_batch(
+        ex, mae_cfg.encoder, pad_to_batch=batch_size if use_dp else None)
     train_loader = PrefetchLoader(train_dataset, train_sampler, pack,
                                   num_workers)
     val_loader = PrefetchLoader(validation_dataset, val_sampler, pack,
@@ -155,8 +179,15 @@ def pre_train(mae_cfg: MaeConfig, train_dataset, validation_dataset, *,
         start_epoch = state.step // steps_per_epoch
         print(f"Resumed from {resume_from} at step {state.step} "
               f"(epoch {start_epoch})")
-    step_fn = trainer.make_train_step(make_loss_fn(mae_cfg, compute_dtype), tx)
-    eval_fn = make_eval_fn(mae_cfg, compute_dtype)
+    if use_dp:
+        # each device runs the single-device step (the fused kernels) on its
+        # rows; K15 sums the shards: exact global masked means
+        step_fn = trainer.make_sharded_train_step(
+            make_sum_loss_fn(mae_cfg, compute_dtype), tx, mesh)
+    else:
+        step_fn = trainer.make_train_step(
+            make_loss_fn(mae_cfg, compute_dtype), tx)
+    eval_fn = make_eval_fn(mae_cfg, compute_dtype, mesh=mesh)
 
     writer = MetricsWriter(str(model_dir / "stats.csv"))
     stats = {"train_losses": [], "val_losses": []}

@@ -178,6 +178,24 @@ Phases, all in one process; any failure exits non-zero:
    image, at most 768 actions, top-k 50, temperature 1.1, two update epochs
    of 16 rollout chunks), one mini-validation on 8; phase times per step,
    frozen leaves bit-unchanged, every decoder leaf moved;
+   then training over the mesh, every shard on this card, K15 ``"local"``
+   summing the data shards' flat gradient buffers exactly once a gradient
+   step (``k15_per_step``): ``train_dp`` (a (2, 1) mesh; stage 2: one
+   ``make_sharded_grad_fn`` call on the flagship at batch 8, dropout 0 and
+   tf_prob 1, then DP_UPDATES ``make_sharded_train_step`` updates with
+   dropout on; stage 1: ``set_up_mae()`` at batch 64, one sharded gradient
+   on one mask noise, one update; afterwards, uncounted, each sharded
+   gradient against ``make_grad_fn`` on the same rows within the limits of
+   phase 4, and the device ms of the DP step, the one-card step and one
+   shard's rows), ``train_pp`` (the flagship decoder over PP_STAGES stages
+   x 2 data shards, PP_MICRO microbatches a shard, batch 8, T = 256, memory
+   1,024: one ``make_pp_grad_fn`` call and PP_UPDATES ``make_pp_train_step``
+   updates; afterwards the loss and gradients against the unpipelined
+   decoder's, the bubble share, the device ms of both) and ``grpo_dp`` (one
+   outer step of ``train_grpo``'s configuration through
+   ``grpo_update(mesh=)``: the rollouts by ``forward_rollout_policy(mesh=)``
+   on 2 data shards, one sharded update; afterwards its batch's sharded
+   gradients against the mesh-less step's);
 6. the path ``pretrain_mae``: ``pre_train`` on the card at the full width of
    ``set_up_mae()`` (ViT-B/16 encoder over the kept quarter, 8 x 512 x 16-head
    decoder), bf16 over fp32 masters, batch 64, seeded noise images of
@@ -199,7 +217,15 @@ Phases, all in one process; any failure exits non-zero:
    ``set_up_mae()``'s MAE by ``eval_mae``; finite losses, every eval batch
    through K1 / K3 / K4 (K3 at head dims 64 and 32 for the MAE); both
    losses again through the stacks' plain twins, within CMP_LOSS_REL, and
-   K1 against its twin at every shape the two evaluations gave it;
+   K1 against its twin at every shape the two evaluations gave it; then
+   ``host_tools``: the LMX CLI's round trip of tests/data's samples, the
+   vocabulary writer against ``lmx_vocab.txt``, ``calc_dataset_stats`` over
+   the layout's images, ``ops/preprocess`` on the card against the host
+   pipeline (within PREPROCESS_TOL) and the port's parity gate (exit 0,
+   every check skipped); then K15 at the data-parallel step's flat buffer
+   (the flagship's gradients and two scalars, D = 2 and 4) in the step's
+   form (summed into the first buffer in place) against its twin, bit for
+   bit, beside ``torch.stack(parts).sum(0)``;
 8. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -222,6 +248,8 @@ the scalar kernel at the paths' rows (``k4_plan``) and exits;
 ``--k19`` runs only K19's checks and turns (``k19_case``: the warp kernel
 on its programmatic launch and the kernel it replaced, warm, from HBM, host
 us a call and its parts, a captured graph's programmatic edges) and exits;
+``--mesh-train`` runs only the mesh-training paths, ``host_tools`` and
+K15's flat-buffer rows (``mesh_train_alone``) and exits;
 ``--stream-lookup`` times only the greedy bf16 decode with the wrappers'
 stream lookup as it is and as it was, in turns (``stream_lookup``), and
 exits; ``--k27-plan`` times only K27's plan kernel at the tool's softmax and ln
@@ -310,6 +338,14 @@ EXPECTED_KERNELS = {
     "tp2_beam": _ENC + ["decode_attention", "tp_allreduce"],
     "dp2_tp2": _ENC + ["decode_attention", "tp_allreduce"],
     "tp2_per_op": _ENC + ["decode_attention_hd", "tp_allreduce"],
+    # training over a (2, 1) mesh on this card, K15 summing the shards; the
+    # pipelined decoder (its stack only); GRPO's meshed rollouts and update
+    "train_dp": _ENC + ["attention_bwd", "layernorm_bwd", "linear_dgrad",
+                        "linear_wgrad", "dropout", "tp_allreduce"],
+    "train_pp": _ENC + ["attention_bwd", "layernorm_bwd", "linear_dgrad",
+                        "linear_wgrad", "tp_allreduce"],
+    "grpo_dp": _ENC + ["decode_attention", "attention_bwd", "layernorm_bwd",
+                       "linear_dgrad", "linear_wgrad", "tp_allreduce"],
     # models/vitomr's entry points on round-tripped weights; the eval CLI
     "vitomr_api": _ENC + ["decode_attention"],
     "eval_cli": _ENC,
@@ -387,6 +423,14 @@ MAE_CMP_BATCH = 8  # the plain twins' fp32 autograd saves at L = 512
 # steps), 8 rollouts per image of at most 768 actions, top-k 50, temperature
 # 1.1, 2 update epochs of 16 rollout chunks, one mini-validation on 8
 GRPO_EXAMPLES, GRPO_BATCH, GRPO_VAL = 32, 16, 8
+# training over the mesh, every shard on this card: the stage-2 / stage-1
+# data-parallel updates after the comparison; the pipelined decoder's stages,
+# microbatches a data shard, T, memory length and updates
+DP_UPDATES = 2
+PP_STAGES, PP_MICRO, PP_T, PP_M, PP_UPDATES = 4, 2, 256, 1024, 2
+MESH_TRAIN_PATHS = ("train_dp", "train_pp", "grpo_dp")
+# the device ingest against the host pipeline (tests/test_preprocess_device.py)
+PREPROCESS_TOL = 2e-5
 # limits of the hand-written backward against autograd of the plain twins
 # (fixed before the first run, PERF.md section 6): loss, every leaf (stacked
 # leaves layer by layer), all leaves together
@@ -566,10 +610,10 @@ def variant_failures(name: str, r: dict) -> list:
     if set(k15) - {"local"} \
             or sum(k15.values()) != r["launches"].get("tp_allreduce", 0):
         out.append(f"{name}: tp_allreduce off its one-card form {k15}")
-    if name in ("train_tf", "pretrain_mae"):
+    if name in ("train_tf", "pretrain_mae", "train_dp", "train_pp"):
         if set(k1) != {"sm90"}:
             out.append(f"{name}: K1 off the core {k1}")
-    elif name in ("train_grpo", "vitomr_api"):
+    elif name in ("train_grpo", "vitomr_api", "grpo_dp"):
         if not (k1.get("sm90") and k1.get("skinny")):
             out.append(f"{name}: K1 by variant {k1}: the encoder and the "
                        f"stacks on the core, the decode rows on skinny")
@@ -4497,6 +4541,547 @@ def k8_profiles(torch, step) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the host tools and training over the mesh
+# ---------------------------------------------------------------------------
+
+def host_tools_path(torch, np, data_root) -> dict:
+    """The path ``host_tools``: the LMX CLI's linearize -> delinearize round
+    trip of tests/data's sample files, the vocabulary writer against
+    ``lmx_vocab.txt``, ``calc_dataset_stats`` over the eval_cli layout's
+    images at ``data_root``, the device ingest (``ops/preprocess``) on the
+    card against the host pipeline (within PREPROCESS_TOL, timed against it)
+    and the port's parity gate (exit 0, every check skipped: no weights,
+    dataset or reference checkout in the repository)."""
+    import contextlib as ctx
+    import io
+    import tempfile
+    from acai_omr_tpu_torch.data import transforms
+    from acai_omr_tpu_torch.lmx import __main__ as lmx_cli
+    from acai_omr_tpu_torch.ops import patchify as patchify_lib
+    from acai_omr_tpu_torch.ops import preprocess
+    from acai_omr_tpu_torch.tools import parity_gate
+    from acai_omr_tpu_torch.utils import (calc_dataset_stats,
+                                          create_lmx_vocab_file)
+
+    out = {"round_trip": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for f in sorted((ROOT / "tests" / "data").glob("sample_lmx_*.txt")):
+            lmx = f.read_text().replace("<eos>", "").split()
+            (tmp / "a.lmx").write_text(" ".join(lmx))
+            with ctx.redirect_stderr(io.StringIO()) as problems:
+                lmx_cli.main(["delinearize", str(tmp / "a.lmx"),
+                              str(tmp / "a.musicxml")])
+            lmx_cli.main(["linearize", str(tmp / "a.musicxml"),
+                          str(tmp / "b.lmx")])
+            out["round_trip"][f.name] = (
+                (tmp / "b.lmx").read_text().split() == lmx
+                and not problems.getvalue())
+        with ctx.redirect_stdout(io.StringIO()):
+            create_lmx_vocab_file.main(str(tmp / "vocab.txt"))
+        out["vocab_equal"] = ((tmp / "vocab.txt").read_bytes()
+                              == (ROOT / "lmx_vocab.txt").read_bytes())
+    stats = calc_dataset_stats.collect_stats([data_root], 16)
+    out["stats_images"] = int(len(stats["widths"]))
+    out["stats_summary"] = calc_dataset_stats.summarize(stats)
+    out["suggested_buckets"] = calc_dataset_stats.suggest_buckets(stats)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 11)
+    errs, dev_ms, host_ms = [], [], []
+    for shape, target in (((1, 100, 150), (48, 80)),
+                          ((1, 333, 517), None), ((1, 900, 1500), None)):
+        img = rng.random(shape, dtype=np.float32)
+        if target is None:
+            run = lambda: preprocess.dynamic_resize_patchify(
+                img, 16, 1024, 60, 200, device=dev)[0]
+            host = lambda: patchify_lib.patchify(transforms.DynamicResize(
+                16, 1024, 60, 200, crop_imgs=False)(img), 16)
+        else:
+            run = lambda: preprocess.resize_normalize_patchify(
+                img, *target, 16, device=dev)
+            host = lambda: patchify_lib.patchify(np.clip(
+                transforms._resize_chw(img, target), 0.0, 1.0), 16)
+        got = run().cpu().numpy()
+        want = host()
+        errs.append(float(np.abs(got - want).max()) if got.shape
+                    == want.shape else float("inf"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        dev_ms.append(1e3 * (time.perf_counter() - t0) / 5)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            host()
+        host_ms.append(1e3 * (time.perf_counter() - t0) / 5)
+    out.update(preprocess_max_abs_err=max(errs),
+               preprocess_card_ms=dev_ms, preprocess_host_ms=host_ms)
+
+    buf = io.StringIO()
+    with ctx.redirect_stdout(buf):
+        rc = parity_gate.main(["--fast"])
+    gate = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["parity_gate_rc"] = rc
+    out["parity_gate"] = {k: v if k == "ok" else v["status"]
+                          for k, v in gate.items()}
+    out["ok"] = (all(out["round_trip"].values()) and len(out["round_trip"])
+                 and out["vocab_equal"] and out["stats_images"] > 0
+                 and out["preprocess_max_abs_err"] <= PREPROCESS_TOL
+                 and rc == 0 and gate["ok"] is None
+                 and list(gate) == ["mae_mse", "vitomr_ce", "decode",
+                                    "code_level_identity", "ok"]
+                 and all(gate[k]["status"].startswith("skipped: ")
+                         for k in list(gate)[:-1]))
+    return out
+
+
+def k15_launches_of(torch, fn):
+    """Runs ``fn()`` and returns (its result, the K15 launches it made by
+    variant)."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import tp_allreduce
+    before = dict(tp_allreduce.variants)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0)
+                 for k, v in tp_allreduce.variants.items()
+                 if v != before.get(k, 0)}
+
+
+def device_ms(torch, fn) -> float:
+    """Device ms of one call of ``fn`` (torch.profiler: the kernels' time,
+    the host's gaps left out)."""
+    return profile_steps(torch, fn, 0, 1)["device_ms_per_step"]
+
+
+def _no_dropout(cfg):
+    import dataclasses
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0),
+        decoder=dataclasses.replace(cfg.decoder, dropout=0.0),
+        transition_head_dropout=0.0)
+
+
+def train_dp_path(torch, model) -> dict:
+    """The path ``train_dp``: data-parallel training over a (2, 1) mesh with
+    both shards on this card. Stage 2 (the flagship, batch TRAIN_BATCH, 4
+    rows a shard): one ``make_sharded_grad_fn`` call against ``make_grad_fn``
+    on the same rows with dropout 0 and tf_prob 1 (loss and every leaf
+    within the limits of the single-card comparison), then DP_UPDATES
+    updates through ``make_sharded_train_step`` with the flagship's dropout
+    and tf_prob 0.5. Stage 1 (``set_up_mae()``, batch MAE_BATCH): the same
+    comparison on one shared mask noise, then one update. Every gradient
+    step must be exactly one K15 ``"local"`` launch. The device ms of the
+    DP step, of the one-card step on all rows and of one shard's rows."""
+    import dataclasses
+    from acai_omr_tpu_torch.data.loader import (pack_mae_batch,
+                                                pack_omr_batch, to_device)
+    from acai_omr_tpu_torch.models import mae as mae_lib
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.parallel import mesh as mesh_lib
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
+    from acai_omr_tpu_torch.train import pre_train as pt
+
+    dev = torch.device("cuda")
+    mesh = mesh_lib.make_mesh(2, 1, [dev] * 2)
+    cfg, tok, dt = model.cfg, model.tokenizer, model.compute_dtype
+    cfg0 = _no_dropout(cfg)
+    params = trainer.tree_map(lambda v: v.float(), model.params)
+    ds = training_set(tok, TRAIN_BATCH, SEED + 8)
+
+    def batch_of(rows, tf_prob, tau):
+        b = to_device(pack_omr_batch(
+            [ds[i] for i in rows], cfg.encoder, tok,
+            max_lmx_seq_len=cfg.decoder.max_lmx_seq_len), dev)
+        b.update(tf_prob=tf_prob, tau=tau)
+        return b
+
+    out, k15 = {}, []
+    full = batch_of(range(TRAIN_BATCH), 1.0, 1.0)
+    dp_fn = trainer.make_sharded_grad_fn(
+        tf_train.make_sum_loss_fn(cfg0, False, dt), mesh)
+    tx = trainer.adamw(1e-5, betas=tf_train.ADAMW_BETAS,
+                       weight_decay=tf_train.ADAMW_WEIGHT_DECAY)
+    step = trainer.make_sharded_train_step(
+        tf_train.make_sum_loss_fn(cfg, False, dt), tx, mesh)
+    mcfg = pt.set_up_mae()
+    mparams = mae_lib.init_mae_params(mcfg, seed=SEED, device=dev)
+    mds = mae_set(MAE_BATCH, SEED + 9)
+    mb = to_device(pack_mae_batch([mds[i] for i in range(MAE_BATCH)],
+                                  mcfg.encoder), dev)
+    # one mask noise for the sharded and the one-card gradients: the noise
+    # rides in the batch, so each shard takes its rows' noise
+    mb_noise = {**mb, "noise": torch.rand(
+        mb["valid"].shape, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(3))}
+
+    def mae_sum(p, b, gen):
+        return mae_lib.mae_loss(*mae_lib.forward(
+            p, mcfg, b["patches"], b["pe_idx"], b["pe_w"], b["valid"],
+            b["lengths"], b["target_patches"], mask_noise=b["noise"],
+            compute_dtype=dt), reduction="sum")
+
+    def mae_mean(p, b, gen):
+        s, c = mae_sum(p, b, gen)
+        return s / c.clamp_min(1.0), {}
+
+    mdp = trainer.make_sharded_grad_fn(mae_sum, mesh)
+    mtx = trainer.adamw(1e-4, betas=pt.ADAMW_BETAS,
+                        weight_decay=pt.ADAMW_WEIGHT_DECAY)
+    mstep = trainer.make_sharded_train_step(pt.make_sum_loss_fn(mcfg, dt),
+                                            mtx, mesh)
+
+    # the path: every count from here to path_counts is the DP runs'
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    (loss_dp, grads_dp), n = k15_launches_of(
+        torch, lambda: dp_fn(params, full, 7))
+    k15.append(n)
+    state = trainer.create_train_state(params, tx)
+    losses = []
+    for i in range(DP_UPDATES):
+        (state, m), n = k15_launches_of(torch, lambda: step(
+            state, batch_of(range(TRAIN_BATCH), 0.5, 2.0), 100 + i))
+        k15.append(n)
+        losses.append(float(m["loss"]))
+    (mloss_dp, mgrads_dp), n = k15_launches_of(
+        torch, lambda: mdp(mparams, mb_noise, None))
+    k15.append(n)
+    mstate = trainer.create_train_state(mparams, mtx)
+    (mstate, mm), n = k15_launches_of(torch, lambda: mstep(
+        mstate, mb, torch.Generator(device=dev).manual_seed(5)))
+    k15.append(n)
+    counts = path_counts(torch)
+    wall = time.perf_counter() - t0
+
+    flat0 = trainer.tree_flatten(params)
+    after = trainer.tree_flatten(state.params)
+    out.update(stage2_losses=losses, stage2_leaves=len(flat0),
+               stage2_moved=sum(not torch.equal(after[p], flat0[p])
+                                for p in flat0))
+    del state, after
+    mflat0 = trainer.tree_flatten(mparams)
+    out.update(stage1_loss=float(mm["loss"]), stage1_leaves=len(mflat0),
+               stage1_moved=sum(not torch.equal(v, mflat0[p]) for p, v in
+                                trainer.tree_flatten(mstate.params).items()))
+    del mstate
+    one_fn = trainer.make_grad_fn(tf_train.make_loss_fn(cfg0, False, dt))
+    loss_one, grads_one = one_fn(params, full, 7)
+    out["stage2"] = gradient_errors(torch, loss_dp, grads_dp, loss_one,
+                                    grads_one)
+    del grads_dp, grads_one
+    mloss_one, mgrads_one = trainer.make_grad_fn(mae_mean)(mparams, mb_noise,
+                                                           None)
+    out["stage1"] = gradient_errors(torch, mloss_dp, mgrads_dp, mloss_one,
+                                    mgrads_one)
+    del mgrads_dp, mgrads_one, mparams
+    half = batch_of(range(TRAIN_BATCH // 2), 1.0, 1.0)
+    out["stage2_device_ms"] = {
+        "dp_step": device_ms(torch, lambda: dp_fn(params, full, 7)),
+        "one_card": device_ms(torch, lambda: one_fn(params, full, 7)),
+        "one_shard_rows": device_ms(torch, lambda: one_fn(params, half, 7))}
+    out.update(wall_s=wall, k15_per_step=k15,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               flat_elements=sum(v.numel() for v in flat0.values()))
+    del params, flat0
+    torch.cuda.empty_cache()
+    return {**out, **counts}
+
+
+def train_pp_path(torch, model) -> dict:
+    """The path ``train_pp``: the flagship decoder (12 layers) pipelined
+    over PP_STAGES stages x 2 data shards, every shard on this card,
+    PP_MICRO microbatches a data shard, batch TRAIN_BATCH, T = PP_T, memory
+    PP_M. One ``make_pp_grad_fn`` call (one K15 launch) against autograd of
+    the unpipelined decoder forward on the same batch (the limits of the
+    single-card comparison), then PP_UPDATES ``make_pp_train_step`` updates
+    (finite losses, every leaf moved). The schedule's bubble share and the
+    device ms of the pipelined and unpipelined gradients."""
+    from acai_omr_tpu_torch.models import omr_decoder, vitomr
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.parallel import mesh as mesh_lib
+    from acai_omr_tpu_torch.parallel import pipeline, trainer
+
+    dev = torch.device("cuda")
+    dcfg, dt = model.cfg.decoder, model.compute_dtype
+    params = trainer.tree_map(lambda v: v.float(), model.params["decoder"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    b = TRAIN_BATCH
+    lens = torch.randint(PP_T // 2, PP_T + 1, (b,), generator=g, device=dev)
+    mlens = torch.randint(PP_M // 2, PP_M + 1, (b,), generator=g, device=dev)
+    seqs_in = torch.randint(3, dcfg.vocab_size, (b, PP_T), generator=g,
+                            device=dev)
+    lmx_valid = torch.arange(PP_T, device=dev)[None] < lens[:, None]
+    seqs_tgt = torch.where(lmx_valid, torch.randint(
+        3, dcfg.vocab_size, (b, PP_T), generator=g, device=dev), dcfg.pad_idx)
+    latent = torch.randn(b, PP_M, dcfg.hidden_dim, generator=g, device=dev)
+    latent_valid = torch.arange(PP_M, device=dev)[None] < mlens[:, None]
+    batch = (seqs_in, seqs_tgt, lmx_valid, latent, latent_valid)
+    mesh = mesh_lib.make_mesh(2, PP_STAGES, [dev] * (2 * PP_STAGES))
+    pp = pipeline.stage_params(params, dcfg, mesh, "model")
+    kw = dict(stage_axis="model", data_axis="data", n_micro=PP_MICRO,
+              compute_dtype=dt)
+    grad_fn = pipeline.make_pp_grad_fn(dcfg, mesh, **kw)
+
+    def one_card():
+        flat = trainer.tree_flatten(params)
+        leaves = {p: v.detach().requires_grad_(True) for p, v in flat.items()}
+        logits = omr_decoder.forward(trainer.tree_unflatten(leaves), dcfg,
+                                     seqs_in, latent, lmx_valid, latent_valid,
+                                     compute_dtype=dt)
+        s, n = vitomr.omr_ce_loss(logits, seqs_tgt, dcfg.pad_idx,
+                                  reduction="sum")
+        loss = s / n.clamp_min(1.0)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), trainer.tree_unflatten(dict(zip(leaves, grads)))
+
+    tx = trainer.adamw(1e-4, weight_decay=0.0)
+    step = pipeline.make_pp_train_step(dcfg, tx, mesh, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    (loss_pp, grads_pp), n = k15_launches_of(torch,
+                                             lambda: grad_fn(pp, batch))
+    k15 = [n]
+    state = trainer.create_train_state(pp, tx)
+    losses = []
+    for _ in range(PP_UPDATES):
+        (state, m), n = k15_launches_of(torch, lambda: step(state, batch))
+        k15.append(n)
+        losses.append(float(m["loss"]))
+    counts = path_counts(torch)
+    wall = time.perf_counter() - t0
+    before = trainer.tree_flatten(pp)
+    after = trainer.tree_flatten(state.params)
+    unmoved = [p for p in before if torch.equal(after[p], before[p])]
+    del state, after
+    loss_one, grads_one = one_card()
+    out = {"cmp": gradient_errors(
+        torch, loss_pp, pipeline.unstage_params(grads_pp), loss_one,
+        grads_one)}
+    del grads_pp, grads_one
+    out["device_ms"] = {"pipelined": device_ms(torch,
+                                               lambda: grad_fn(pp, batch)),
+                        "unpipelined": device_ms(torch, one_card)}
+    ticks = PP_MICRO + PP_STAGES - 1
+    out.update(losses=losses, k15_per_step=k15, unmoved=unmoved,
+               leaves=len(before),
+               ticks=ticks, bubble_share=1 - PP_MICRO / ticks, wall_s=wall,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del pp, params, before
+    torch.cuda.empty_cache()
+    return {**out, **counts}
+
+
+def grpo_dp_path(torch, np, model) -> dict:
+    """The path ``grpo_dp``: one outer GRPO step of ``train_grpo``'s
+    configuration (GRPO_BATCH images, 8 rollouts each, one update epoch of
+    16 chunks) through ``grpo_update(mesh=)`` on a (2, 1) mesh on this
+    card: ``forward_rollout_policy(mesh=)`` decodes the rollouts on 2 data
+    shards in lock step, then ``make_grpo_update_step(mesh=)`` updates (one
+    K15 launch). Then, on the batch that update took, the sharded gradients
+    against the mesh-less step's (the limits of the single-card
+    comparison)."""
+    from acai_omr_tpu_torch.ops import _build
+    from acai_omr_tpu_torch.parallel import mesh as mesh_lib
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import omr_grpo_train as grpo
+
+    dev = torch.device("cuda")
+    cfg, params = grpo.set_up_grpo(model.cfg, model.params)
+    gcfg = grpo.default_grpo_config()
+    gcfg.update_config.update_epochs = 1
+    uc = gcfg.update_config
+    mesh = mesh_lib.make_mesh(2, 1, [dev] * 2)
+    tx = trainer.adamw(grpo.LR, betas=grpo.ADAMW_BETAS,
+                       weight_decay=grpo.ADAMW_WEIGHT_DECAY,
+                       max_grad_norm=uc.max_grad_norm,
+                       scale_tree_fn=grpo.grpo_frozen_scales)
+    state = trainer.create_train_state(params, tx)
+    dt = model.compute_dtype
+    dp_step = grpo.make_grpo_update_step(cfg, tx, GRPO_BATCH, uc.epsilon, dt,
+                                         mesh=mesh)
+    seen, k15 = [], []
+
+    def step(st, batch):
+        seen.append(batch)
+        out, n = k15_launches_of(torch, lambda: dp_step(st, batch))
+        k15.append(n)
+        return out
+
+    examples = grpo_examples(np, model, GRPO_BATCH, SEED + 5)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = grpo.grpo_update(
+        state.params, state, step, cfg, gcfg, examples, model.tokenizer,
+        torch.Generator(device=dev).manual_seed(SEED), None, 0, dt, 8,
+        mesh=mesh, device=dev)
+    wall = time.perf_counter() - t0
+    counts = path_counts(torch)
+    batch = seen[0]
+    grads_dp, sums_dp = grpo.make_sharded_grpo_grads_fn(
+        cfg, GRPO_BATCH, uc.epsilon, mesh, compute_dtype=dt)(state.params,
+                                                             batch)
+    grads_one, sums_one = grpo.make_grpo_grads_fn(
+        cfg, GRPO_BATCH, uc.epsilon, dt)(state.params, batch)
+    loss = lambda s: -(s["grpo_objective"] + batch["entropy_beta"]
+                       * s["entropy_bonus"] - batch["lambda_ce"]
+                       * s["ce_loss"])
+    cmp = gradient_errors(torch, loss(sums_dp),
+                          {"decoder": grads_dp["decoder"]}, loss(sums_one),
+                          {"decoder": grads_one["decoder"]})
+    del grads_dp, grads_one, state
+    torch.cuda.empty_cache()
+    return {"cmp": cmp, "wall_s": wall, "k15_per_step": k15,
+            "loss": m["loss"], "reward": m["reward"],
+            "rollout_tokens": m["rollout_tokens"],
+            "phase_times": m["phase_times"],
+            "rollout_rows": int(batch["rollouts"].shape[0]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **counts}
+
+
+def k15_flat_case(torch, n: int, d: int) -> dict:
+    """K15 ``"local"`` at the data-parallel step's shape and in its form: d
+    flat fp32 buffers of n elements as ``(1, n)`` rows summed into the first
+    in place (``root_only``, rank 0's output alone written), bit-equal to
+    the twin's rank 0 row; times from CUDA events around eager calls (a call
+    moves GBs, so the host's launch cost is nothing beside it; the calls go
+    on summing into the first buffer, which changes no time); bound: every
+    buffer read once and rank 0's output written once, d - 1 adds an
+    element; library call ``torch.stack(parts).sum(0)``."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
+                                                            tp_allreduce)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d)
+    group = TPGroup([dev] * d)
+    parts = [torch.randn(1, n, generator=g, device=dev) for _ in range(d)]
+    call = lambda: tp_allreduce(parts, group, root_only=True)
+    want = tp_allreduce.plain(parts, group)[0]
+    others = [p.clone() for p in parts[1:]]
+    got = call()[0]
+    exact = got.data_ptr() == parts[0].data_ptr() and torch.equal(got, want) \
+        and all(torch.equal(a, b) for a, b in zip(parts[1:], others))
+    err = (got - want).abs().max().item()
+    del want, others
+    t_k = time_ms_eager(torch, call, iters=5)
+    t_p = time_ms_eager(torch, lambda: tp_allreduce.plain(
+        parts, group, root_only=True), iters=3)
+    t_lib = time_ms_eager(torch, lambda: torch.stack(parts).sum(0), iters=3)
+    b_ms, b_by = bound_ms((d + 1) * n * 4, (d - 1) * n, PEAK_FP32_FLOP_PER_S)
+    del parts
+    torch.cuda.empty_cache()
+    return {"op": tp_allreduce, "case": f"flat D={d} N={n} fp32 root_only",
+            "max_abs_err": err, "tol": 0.0, "ms": t_k, "host_us": None,
+            "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
+            "bound_by": b_by, "ok": exact and err == 0.0,
+            "paths": list(MESH_TRAIN_PATHS), "variant": "local",
+            "cold_ms": None, "old_ms": None, "library_cold_ms": None,
+            "extra": {}}
+
+
+def mesh_run_failures(runs: dict) -> list:
+    """Prints the mesh-training paths' results and returns what failed:
+    the kernels each must launch and their variants, one K15 ``"local"``
+    launch a gradient step, every comparison with one card within the
+    limits of phase 4, finite losses and moved leaves."""
+    failures = []
+    finite = lambda vs: len(vs) > 0 and all(math.isfinite(v) for v in vs)
+    within = lambda c: (c["grads_finite"] and c["loss_rel_err"] <= CMP_LOSS_REL
+                        and c["grad_worst_leaf_rel_err"] <= CMP_LEAF_REL
+                        and c["grad_global_rel_err"] <= CMP_GLOBAL_REL)
+    for name, r in runs.items():
+        cmps = [k for k in ("stage2", "stage1", "cmp") if k in r]
+        for k in cmps:
+            r[k].pop("leaf_rel_err")
+        print(f"[path {name}] " + json.dumps(
+            {k: v for k, v in r.items()
+             if k not in ("launches", "device_launches", "variants")}),
+            flush=True)
+        print(f"[path {name}] launches {json.dumps(r['launches'])}",
+              flush=True)
+        print(variant_line(name, r), flush=True)
+        failures.extend(variant_failures(name, r))
+        failures.extend(k8_one_kernel_failures(name, r))
+        for k in EXPECTED_KERNELS[name]:
+            if r["launches"][k] <= 0:
+                failures.append(f"{name}: launches[{k}]=0")
+        if any(n != {"local": 1} for n in r["k15_per_step"]):
+            failures.append(f"{name}: K15 launches by gradient step "
+                            f"{r['k15_per_step']}, not one 'local' each")
+        for k in cmps:
+            if not within(r[k]):
+                failures.append(f"{name}: {k} against one card outside the "
+                                f"limits")
+    dp_r, pp_r, gd_r = (runs[k] for k in MESH_TRAIN_PATHS)
+    if not (finite(dp_r["stage2_losses"])
+            and len(dp_r["stage2_losses"]) == DP_UPDATES
+            and math.isfinite(dp_r["stage1_loss"])
+            and dp_r["stage2_moved"] >= 0.9 * dp_r["stage2_leaves"]
+            and dp_r["stage1_moved"] >= 0.9 * dp_r["stage1_leaves"]):
+        failures.append("train_dp: updates: a loss not finite or leaves "
+                        "unmoved")
+    if not (finite(pp_r["losses"]) and len(pp_r["losses"]) == PP_UPDATES
+            and len(pp_r["unmoved"]) <= 0.1 * pp_r["leaves"]):
+        failures.append(f"train_pp: updates: losses {pp_r['losses']}, "
+                        f"unmoved {pp_r['unmoved']}")
+    if not (math.isfinite(gd_r["loss"]) and math.isfinite(gd_r["reward"])
+            and len(gd_r["k15_per_step"]) == 1):
+        failures.append("grpo_dp: a non-finite loss or reward, or not one "
+                        "update")
+    return failures
+
+
+def mesh_train_alone(torch) -> int:
+    """``--mesh-train``: the kernels built, then only the mesh-training
+    paths, ``host_tools`` (on a freshly written eval layout) and K15 at the
+    data-parallel step's flat buffer, checked as in the full run."""
+    import tempfile
+
+    import numpy as np
+
+    from acai_omr_tpu_torch.api import OmrModel
+    from acai_omr_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(verbose=False)
+    model = OmrModel.load(device="cuda", seed=SEED)
+    n_params = sum(v.numel() for v in _leaves(model.params))
+    runs, t = {}, {}
+    for name, fn in (("train_dp", lambda: train_dp_path(torch, model)),
+                     ("train_pp", lambda: train_pp_path(torch, model)),
+                     ("grpo_dp", lambda: grpo_dp_path(torch, np, model))):
+        t0 = time.perf_counter()
+        runs[name] = fn()
+        t[name] = time.perf_counter() - t0
+    failures = mesh_run_failures(runs)
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_layout(np, Path(tmp), EVAL_SPLIT)
+        t0 = time.perf_counter()
+        ht = host_tools_path(torch, np, Path(tmp))
+        t["host_tools"] = time.perf_counter() - t0
+    print(f"[path host_tools] {json.dumps(ht)}", flush=True)
+    if not ht["ok"]:
+        failures.append("host_tools")
+    n_flat = -(-(n_params + 2) // 8) * 8
+    rows = []
+    for d in (2, 4):
+        c = k15_flat_case(torch, n_flat, d)
+        rows.append({k: v for k, v in c.items() if k not in ("op", "paths")})
+        if not c["ok"]:
+            failures.append(f"tp_allreduce[{c['case']}]")
+    print(json.dumps({"k15_flat": rows, "seconds": t}), flush=True)
+    if failures:
+        print(f"[fail] {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4533,6 +5118,9 @@ def main() -> int:
     if "--k19" in sys.argv[1:]:  # K19's checks and turns alone
         print(card_line())
         return k19_alone(torch)
+    if "--mesh-train" in sys.argv[1:]:  # the mesh-training paths alone
+        print(card_line())
+        return mesh_train_alone(torch)
     if "--stream-lookup" in sys.argv[1:]:  # the stream lookup's cost alone
         print(card_line())
         return 0 if stream_lookup(torch)["same_tokens"] else 1
@@ -4953,6 +5541,18 @@ def main() -> int:
         if gr["launches"][k] <= 0:
             failures.append(f"train_grpo: launches[{k}]=0")
 
+    mark("train_tf_grpo")
+    # training over the mesh, every shard on this card: data-parallel steps
+    # (stage 2 and stage 1), the pipelined decoder, GRPO's meshed step; K15
+    # sums the data shards once a gradient step
+    mesh_runs = {"train_dp": train_dp_path(torch, model),
+                 "train_pp": train_pp_path(torch, model),
+                 "grpo_dp": grpo_dp_path(torch, np, model)}
+    mark("mesh_training")
+    for name, r in mesh_runs.items():
+        paths[name] = r
+    failures.extend(mesh_run_failures(mesh_runs))
+
     # the MAE pretraining path, its hand-off to stage 2 and its comparison
     # with the plain twins
     del model
@@ -5020,6 +5620,10 @@ def main() -> int:
     # the evaluation CLI and the reference-loss tool on a written test layout
     with tempfile.TemporaryDirectory() as tmp_dir:
         ev = eval_cli_path(torch, np, tmp_dir)
+        mark("eval_cli")
+        # the host tools, their statistics over the eval layout's images
+        ht = host_tools_path(torch, np, Path(tmp_dir) / "data")
+        mark("host_tools")
     paths["eval_cli"] = ev
     print(f"[path eval_cli] " + json.dumps(
         {k: v for k, v in ev.items()
@@ -5053,7 +5657,24 @@ def main() -> int:
     for k in EXPECTED_KERNELS["eval_cli"]:
         if ev["launches"][k] <= 0 or ev["mae_launches"][k] <= 0:
             failures.append(f"eval_cli: launches[{k}]=0")
-    mark("eval_cli")
+    paths["host_tools"] = ht
+    print(f"[path host_tools] {json.dumps(ht)}", flush=True)
+    if not ht["ok"]:
+        failures.append("host_tools: round trip, vocabulary, statistics, "
+                        "device ingest or parity gate")
+    # K15 at the data-parallel step's shape: the flagship's gradients and
+    # the two scalars, padded to a multiple of 8, at D = 2 and 4
+    n_flat = -(-(n_params + 2) // 8) * 8
+    for d in (2, 4):
+        c = k15_flat_case(torch, n_flat, d)
+        cases.append(c)
+        print(f"[kernel] tp_allreduce[{c['case']}] max_abs_err="
+              f"{c['max_abs_err']:.3e} tol=0.0e+00 kernel_ms={c['ms']:.4f} "
+              f"plain_ms={c['plain_ms']:.4f} library_ms="
+              f"{c['library_ms']:.4f} bound_ms={c['bound_ms']:.4f} "
+              f"({c['bound_by']}) " + ("ok" if c["ok"] else "FAIL"),
+              flush=True)
+    mark("k15_flat")
     print(f"[time] total {sum(phase_s.values()):.1f} s", flush=True)
 
     failures += [f"{c['op'].name}[{c['case']}]" for c in cases if not c["ok"]]

@@ -1443,6 +1443,172 @@ def test_tp_allreduce_rejects_what_it_does_not_take(dev):
         tp_allreduce(parts, TPGroup([dev] * 2), variant="ring")
 
 
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("n", [8, 8 * 1000 + 8, 1024 * 2048 + 40,
+                               3 * 10 ** 6 + 16])
+def test_tp_allreduce_flat_gradient_buffers(dev, d, n):
+    """K15 ``"local"`` on the data-parallel step's flat fp32 buffers, one
+    ``(1, N)`` row a data shard, N a multiple of 8 but not of a block's
+    elements (2,048 or 1,024 a block): one launch, every rank's row
+    bit-equal to the twin, over fresh buffers each call; and in the step's
+    form (``root_only``): rank 0's row alone, summed into rank 0's buffer
+    in place, the other buffers untouched."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import (TPGroup,
+                                                            tp_allreduce)
+    g = torch.Generator(device=dev).manual_seed(d + n)
+    group = TPGroup([dev] * d)
+    for _ in range(2):
+        bufs = [torch.randn(n, generator=g, device=dev).view(1, n)
+                for _ in range(d)]
+        before = tp_allreduce.variants.get("local", 0)
+        got = tp_allreduce(bufs, group)
+        assert tp_allreduce.variants["local"] - before == 1
+        want = tp_allreduce.plain(bufs, group)
+        for o, w in zip(got, want):
+            assert o.shape == (1, n) and torch.equal(o, w)
+        others = [b.clone() for b in bufs[1:]]
+        got = tp_allreduce(bufs, group, root_only=True)
+        assert tp_allreduce.variants["local"] - before == 2
+        assert len(got) == 1 and got[0].data_ptr() == bufs[0].data_ptr()
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(bufs[1:], others))
+
+
+def test_data_parallel_gradients_are_views_of_one_k15_sum(dev):
+    """The sharded grad fn on a (2, 1) mesh on this card: one K15 launch,
+    every gradient leaf a view into shard 0's buffer, which it summed into
+    in place, and the loss and gradients those of one device on the same
+    rows."""
+    from acai_omr_tpu_torch.ops.tp_allreduce_kernel import tp_allreduce
+    from acai_omr_tpu_torch.parallel import mesh as mesh_lib
+    from acai_omr_tpu_torch.parallel import trainer
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = {"w": torch.randn(64, 24, generator=g, device=dev),
+              "b": {"c": torch.randn(24, generator=g, device=dev)}}
+    x = torch.randn(8, 64, generator=g, device=dev)
+    wt = torch.rand(8, generator=g, device=dev)
+
+    def sum_fn(p, batch, seed):
+        per_row = ((batch["x"] @ p["w"] + p["b"]["c"]) ** 2).sum(-1)
+        return (per_row * batch["wt"]).sum(), batch["wt"].sum()
+
+    mesh = mesh_lib.make_mesh(2, 1, [dev] * 2)
+    before = tp_allreduce.variants.get("local", 0)
+    loss, grads = trainer.make_sharded_grad_fn(sum_fn, mesh)(
+        params, {"x": x, "wt": wt}, 0)
+    assert tp_allreduce.variants["local"] - before == 1
+    leaves = list(trainer.tree_flatten(grads).values())
+    base = leaves[0].untyped_storage()
+    assert all(v.untyped_storage().data_ptr() == base.data_ptr()
+               for v in leaves)
+    # shard 0's own buffer, summed in place: no (tp, N) output buffer
+    assert base.nbytes() == 4 * -(-(64 * 24 + 24 + 2) // 8) * 8
+    one = trainer.make_grad_fn(lambda p, b, s: (sum_fn(p, b, s)[0]
+                                                / b["wt"].sum(), {}))
+    want_loss, want = one(params, {"x": x, "wt": wt}, 0)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-6)
+    for k, v in trainer.tree_flatten(want).items():
+        torch.testing.assert_close(trainer.tree_flatten(grads)[k], v,
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_training_meshes_across_cards(dev):
+    """Data-parallel and pipelined training over meshes whose shards lie on
+    four distinct cards (K15's exchange, each shard's parameters copied to
+    its card, the stages' hops card to card) against the same meshes with
+    every shard on one card (K15's one-card form): losses and every
+    gradient leaf within 1e-4 of the largest entry, and the gradients on
+    the first card. Needs four cards."""
+    from acai_omr_tpu_torch.models import omr_decoder, vitomr
+    from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
+    from acai_omr_tpu_torch.parallel import mesh as mesh_lib
+    from acai_omr_tpu_torch.parallel import pipeline, trainer
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    one = [torch.device("cuda", 0)] * 4
+    cfg = DecoderConfig(max_lmx_seq_len=64, vocab_size=33, num_layers=4,
+                        hidden_dim=256, num_heads=4, mlp_dim=512, eos_idx=2,
+                        dropout=0.0)
+    params = omr_decoder.init_decoder_params(
+        torch.Generator().manual_seed(0), cfg, device=cards[0])
+    g = torch.Generator(device=cards[0]).manual_seed(1)
+    b, t, m = 8, 64, 128
+    seqs_in = torch.randint(3, 33, (b, t), generator=g, device=cards[0])
+    lmx_valid = torch.arange(t, device=cards[0])[None] < torch.randint(
+        t // 2, t + 1, (b, 1), generator=g, device=cards[0])
+    seqs_tgt = torch.where(lmx_valid, torch.randint(
+        3, 33, (b, t), generator=g, device=cards[0]), cfg.pad_idx)
+    latent = torch.randn(b, m, 256, generator=g, device=cards[0])
+    latent_valid = torch.arange(m, device=cards[0])[None] < torch.randint(
+        m // 2, m + 1, (b, 1), generator=g, device=cards[0])
+
+    def sum_fn(p, batch, seed):
+        logits = omr_decoder.forward(
+            p, cfg, batch["seqs_in"], batch["latent"], batch["lmx_valid"],
+            batch["latent_valid"], compute_dtype=torch.bfloat16)
+        return vitomr.omr_ce_loss(logits, batch["seqs_tgt"], cfg.pad_idx,
+                                  reduction="sum")
+
+    def close(got, want):
+        (l1, g1), (l2, g2) = got, want
+        torch.testing.assert_close(l1.to(l2.device), l2, rtol=1e-4, atol=0)
+        f1, f2 = trainer.tree_flatten(g1), trainer.tree_flatten(g2)
+        for k, v in f2.items():
+            assert f1[k].device == cards[0], k
+            scale = v.abs().max().clamp_min(1e-12)
+            assert ((f1[k] - v).abs().max() / scale).item() <= 1e-4, k
+
+    batch = {"seqs_in": seqs_in, "seqs_tgt": seqs_tgt,
+             "lmx_valid": lmx_valid, "latent": latent,
+             "latent_valid": latent_valid}
+    for n in (2, 4):
+        runs = [trainer.make_sharded_grad_fn(
+            sum_fn, mesh_lib.make_mesh(n, 1, devs[:n]))(params, batch, 0)
+            for devs in (cards, one)]
+        close(*runs)
+    pp_batch = (seqs_in, seqs_tgt, lmx_valid, latent, latent_valid)
+    runs = []
+    for devs in (cards, one):
+        mesh = mesh_lib.make_mesh(2, 2, devs)
+        pp = pipeline.stage_params(params, cfg, mesh, "model")
+        kw = dict(stage_axis="model", data_axis="data", n_micro=2,
+                  compute_dtype=torch.bfloat16)
+        loss, grads = pipeline.make_pp_grad_fn(cfg, mesh, **kw)(pp, pp_batch)
+        value = pipeline.make_pp_loss_fn(cfg, mesh, **kw)(pp, *pp_batch)
+        torch.testing.assert_close(value.to(loss.device), loss, rtol=1e-5,
+                                   atol=0)
+        runs.append((loss, pipeline.unstage_params(grads)))
+    close(*runs)
+
+
+@pytest.mark.parametrize("n_model", [1, 2])
+def test_meshed_decode_across_cards(dev, n_model):
+    """Greedy meshed decode over 2 data shards x ``n_model`` model ranks
+    with every shard on its own card: the tokens of the same mesh with
+    every shard on cuda:0 (the rollouts of GRPO's mesh rule on a node of
+    several cards). Needs four cards."""
+    from acai_omr_tpu_torch.models import decode
+    from acai_omr_tpu_torch.models.omr_decoder import (DecoderConfig,
+                                                       init_decoder_params)
+    from acai_omr_tpu_torch.parallel import mesh as mesh_lib
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    cfg = DecoderConfig(max_lmx_seq_len=64, vocab_size=33, num_layers=2,
+                        hidden_dim=512, num_heads=8, mlp_dim=1024, eos_idx=2)
+    params = init_decoder_params(torch.Generator().manual_seed(0), cfg,
+                                 device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    latent = torch.randn(8, 48, 512, generator=g, device=dev)
+    valid = torch.arange(48, device=dev)[None] < torch.tensor(
+        [48, 20, 33, 48, 9, 48, 40, 12], device=dev)[:, None]
+    seqs = [decode.sharded_generate(
+        params, cfg, latent, valid, mesh_lib.make_mesh(2, n_model, devs),
+        max_len=32, model_axis="model" if n_model > 1 else None)[0].cpu()
+        for devs in ([f"cuda:{i}" for i in range(4)], ["cuda:0"] * 4)]
+    assert seqs[0].shape == (8, 32) and torch.equal(seqs[0], seqs[1])
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 512, 1024), (32, 256, 1024)])
 def test_partial_products(dev, m, k, n):
     """K1 and K5 ``partial``: the bare fp32 product (K5 dequantized), no
