@@ -70,6 +70,7 @@ from ..ops import nn
 from ..ops.decode_kernel import (decode_layers, monolith_takes, prepack,
                                  quantize_rows, use_monolith,
                                  weight_quant_mode)
+from ..ops.quant_linear_kernel import INT8_QMAX  # noqa: F401 (public name)
 from ..ops.tp_allreduce_kernel import tp_allreduce
 from .omr_decoder import DecoderConfig
 

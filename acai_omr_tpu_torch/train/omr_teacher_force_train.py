@@ -26,6 +26,7 @@ are present (none is in the repository).
 from __future__ import annotations
 
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 import torch
@@ -35,7 +36,7 @@ from ..config import (ENCODER_FINE_TUNE_DEPTH, GRAND_STAFF_ROOT_DIR,
                       LMX_VOCAB_PATH, MAX_LMX_SEQ_LEN, NUM_DECODER_LAYERS,
                       OLIMPIC_SCANNED_ROOT_DIR, OLIMPIC_SYNTHETIC_ROOT_DIR,
                       OMR_MAX_IMG_SEQ_LEN, PATCH_SIZE, PE_MAX_HEIGHT,
-                      PE_MAX_WIDTH)
+                      PE_MAX_WIDTH, PRETRAINED_MAE_PATH)
 from ..data import datasets as ds_lib
 from ..data import transforms as tf_lib
 from ..data.bucketing import BucketBatchSampler, default_bucket_boundaries
@@ -53,7 +54,6 @@ from ..utils.metrics import MetricsWriter
 from .schedules import TFSchedule, cosine_anneal_with_warmup
 
 MODEL_DIR_PATH = Path("tf_omr_train")
-PRETRAINED_MAE_PATH = "mae_pre_train/pretrained_mae"
 
 EPOCHS = 40
 CHECKPOINT_FREQ = 10
@@ -94,18 +94,33 @@ def set_up_vitomr(tokenizer: LmxTokenizer | None = None,
         transition_head_dropout=TRANSITION_HEAD_DROPOUT)
 
 
-def make_loss_fn(cfg: ViTOMRConfig, use_hard_sampling: bool,
-                 compute_dtype=torch.bfloat16, label_smoothing=LABEL_SMOOTHING,
-                 reduction="mean"):
+def _hard_sampling(tf_state) -> bool:
+    """``tf_state["use_hard_sampling"]``, read once as JAX reads it at trace
+    time; anything but a mapping with that key (a bare bool included) is a
+    caller's mistake."""
+    if not isinstance(tf_state, Mapping) or "use_hard_sampling" not in tf_state:
+        raise TypeError("tf_state must be a mapping with a 'use_hard_sampling' "
+                        f"key, as in JAX; got {tf_state!r}")
+    return bool(tf_state["use_hard_sampling"])
+
+
+def make_loss_fn(cfg: ViTOMRConfig, tf_state: Mapping,
+                 compute_dtype=torch.bfloat16, *,
+                 label_smoothing=LABEL_SMOOTHING, reduction="mean"):
     """Scheduled-sampling loss ``loss_fn(params, batch, seed)``; the batch
-    carries the curriculum values ``tf_prob`` and ``tau``. ``"mean"`` returns
-    (loss, {}); ``"sum"`` returns (nll_sum, token_count)."""
+    carries the curriculum values ``tf_prob`` and ``tau``, and ``tf_state``
+    the switch to hard sampling. ``"mean"`` returns (loss, {}); ``"sum"``
+    returns (nll_sum, token_count). The arguments after ``compute_dtype``
+    are keyword-only, so a call that passes JAX's ``remat`` by position
+    raises."""
+    hard = _hard_sampling(tf_state)
+
     def loss_fn(params, batch, seed):
         logits = vitomr_lib.forward_scheduled_sampling(
             params, cfg, batch["patches"], batch["pe_idx"], batch["pe_w"],
             batch["valid"], batch["inputs"], batch["lmx_valid"],
             teacher_forcing_prob=batch["tf_prob"], sample_tau=batch["tau"],
-            use_hard_sampling=use_hard_sampling, seed=seed,
+            use_hard_sampling=hard, seed=seed,
             compute_dtype=compute_dtype, deterministic=False,
             frozen_stop_gradient=True)
         out = vitomr_lib.omr_ce_loss(logits, batch["targets"],
@@ -115,13 +130,13 @@ def make_loss_fn(cfg: ViTOMRConfig, use_hard_sampling: bool,
     return loss_fn
 
 
-def make_sum_loss_fn(cfg: ViTOMRConfig, use_hard_sampling: bool,
-                     compute_dtype=torch.bfloat16,
+def make_sum_loss_fn(cfg: ViTOMRConfig, tf_state: Mapping,
+                     compute_dtype=torch.bfloat16, *,
                      label_smoothing=LABEL_SMOOTHING):
     """The (nll_sum, token_count) variant of :func:`make_loss_fn`, for the
     exact data-parallel reduction (``trainer.make_sharded_grad_fn``)."""
-    return make_loss_fn(cfg, use_hard_sampling, compute_dtype,
-                        label_smoothing, reduction="sum")
+    return make_loss_fn(cfg, tf_state, compute_dtype,
+                        label_smoothing=label_smoothing, reduction="sum")
 
 
 def make_eval_fn(cfg: ViTOMRConfig, compute_dtype=torch.bfloat16,
@@ -218,14 +233,16 @@ def omr_teacher_force_train(cfg: ViTOMRConfig, params, train_dataset,
     if use_dp:
         # each device runs the single-device step (the fused kernels) on its
         # rows; K15 sums the shards: exact global masked means
-        sum_fns = {hard: make_sum_loss_fn(cfg, hard, compute_dtype)
+        sum_fns = {hard: make_sum_loss_fn(cfg, {"use_hard_sampling": hard},
+                                          compute_dtype)
                    for hard in (False, True)}
         grad_fns = {h: trainer.make_sharded_grad_fn(f, mesh)
                     for h, f in sum_fns.items()}
         grad_acc_fns = {h: trainer.make_sharded_grad_acc_fn(f, mesh)
                         for h, f in sum_fns.items()}
     else:
-        loss_fns = {hard: make_loss_fn(cfg, hard, compute_dtype)
+        loss_fns = {hard: make_loss_fn(cfg, {"use_hard_sampling": hard},
+                                      compute_dtype)
                     for hard in (False, True)}
         grad_fns = {h: trainer.make_grad_fn(f) for h, f in loss_fns.items()}
         grad_acc_fns = {h: trainer.make_grad_acc_fn(f)

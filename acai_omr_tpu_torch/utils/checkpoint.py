@@ -7,9 +7,10 @@ adds ``step`` and the Adam moments under ``opt_state/``, enough to resume.
 
 The readers also take a checkpoint directory the JAX package wrote (orbax,
 read by :mod:`.orbax_tree`, which needs the optional ``tensorstore``):
-:func:`load_pytree` and :func:`load_params` return its tree of numpy arrays;
-:func:`load_train_state` refuses a JAX train state, whose optimizer state is
-optax's chain and not the port's ``{mu, nu}``.
+:func:`load_pytree` and :func:`load_params` return its tree of numpy arrays,
+and :func:`load_train_state` resumes a JAX train state, whose optimizer state
+is the optax chain of the JAX package's ``parallel/trainer.adamw``: its one
+Adam state's moments become the port's ``{mu, nu}``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.weights import _flatten, _unflatten
+from ..models.weights import _flatten, _unflatten, leaf_tensor
 from . import orbax_tree
 
 
@@ -99,31 +100,89 @@ def load_params(path) -> dict:
     return tree["params"] if "params" in tree else tree
 
 
-def load_train_state(path, like_state):
-    """Restore step, params and moments into ``like_state``'s buffers.
+def _adam_states(node, where: tuple = ()) -> list:
+    """Every (path, node) of an optax state tree, as :mod:`.orbax_tree`
+    reads it (a chain's tuple as keys ``"0"``, ``"1"``, ...), that holds
+    ``count``, ``mu`` and ``nu``: a ``ScaleByAdamState``."""
+    if not isinstance(node, dict):
+        return []
+    if {"count", "mu", "nu"} <= node.keys():
+        return [(where, node)]
+    return [hit for k, v in node.items()
+            for hit in _adam_states(v, where + (k,))]
 
-    Only the port's own train state resumes: a JAX train state's
-    ``opt_state`` is optax's chain (``(ScaleByAdamState(count, mu, nu),
-    ...)``), which no rule maps onto the port's ``{mu, nu}``, so it raises
-    ``ValueError`` (its parameters still load with :func:`load_params`)."""
+
+def _check_tree(tree, like: dict, what: str, path) -> None:
+    """Raise ValueError unless ``tree`` holds ``like``'s keys and shapes."""
+    got = _flatten(tree) if isinstance(tree, dict) else {}
+    want = _flatten(like)
+    if got.keys() != want.keys():
+        missing, extra = sorted(want.keys() - got.keys()), sorted(
+            got.keys() - want.keys())
+        raise ValueError(f"{path}: {what} do not match the parameters: "
+                         f"missing {missing[:4]}, extra {extra[:4]}")
+    for k, v in want.items():
+        if tuple(np.shape(got[k])) != tuple(v.shape):
+            raise ValueError(f"{path}: {what} leaf {k!r} has shape "
+                             f"{tuple(np.shape(got[k]))}, the parameter "
+                             f"{tuple(v.shape)}")
+
+
+def _jax_moments(tree: dict, path) -> tuple[dict, dict, str]:
+    """``mu``, ``nu`` and the path of the one Adam state in a JAX train
+    state's optax chain (``clip_by_global_norm``, ``adamw``,
+    ``layerwise_lr_scale``, the first and last optional), after checking
+    that its ``count`` equals the state's ``step``. The chain's other states
+    (the schedule's count, the LLRD or frozen scales) are not read: the
+    scales are rebuilt from the config, as on any resume."""
+    found = _adam_states(tree["opt_state"])
+    if len(found) != 1:
+        where = ["opt_state/" + "/".join(w) for w, _ in found]
+        raise ValueError(
+            f"{path}: a JAX train state's opt_state must hold one Adam state "
+            f"(count, mu, nu); found {len(found)} {where}, top-level keys "
+            f"{sorted(tree['opt_state'])}")
+    where, adam = found[0]
+    name = "opt_state/" + "/".join(where)
+    step, count = int(tree["step"]), int(np.asarray(adam["count"]))
+    if step != count:
+        raise ValueError(f"{path}: step {step} differs from the Adam count "
+                         f"{count} at {name}")
+    return adam["mu"], adam["nu"], name
+
+
+def load_train_state(path, like_state):
+    """Restore step, params and Adam moments into ``like_state``'s buffers,
+    from the port's own train state (``opt_state`` = ``{mu, nu}``) or from
+    a JAX train state (an orbax directory whose ``opt_state`` is the optax
+    chain of the JAX package's ``trainer.adamw``; see :func:`_jax_moments`).
+    The moments are copied as fp32; ``like_state``'s scale tree, built from
+    the config, is kept. A state of neither form, or whose moments or
+    parameters do not have ``like_state``'s keys and shapes, raises
+    ``ValueError`` naming what it found."""
     tree = load_pytree(path)
     opt = tree.get("opt_state")
-    if not (isinstance(opt, dict) and set(opt) == {"mu", "nu"}):
-        found = sorted(opt) if isinstance(opt, dict) else type(opt).__name__
-        raise ValueError(
-            f"{path}: opt_state holds {found}, not the port's {{mu, nu}} "
-            "Adam moments: a JAX (optax chain) train state cannot resume in "
-            "the port; load its parameters with load_params instead")
+    if not isinstance(opt, dict) or "params" not in tree or "step" not in tree:
+        found = sorted(tree)
+        raise ValueError(f"{path}: not a train state (step, params, "
+                         f"opt_state): top-level keys {found}")
+    if set(opt) == {"mu", "nu"}:
+        mu, nu, name = opt["mu"], opt["nu"], "opt_state"
+    else:
+        mu, nu, name = _jax_moments(tree, path)
+    for what, src in (("params", tree["params"]), (f"{name}/mu", mu),
+                      (f"{name}/nu", nu)):
+        _check_tree(src, like_state.params, what, path)
 
     def fill(dst: dict, src: dict):
         for k, v in dst.items():
             if isinstance(v, dict):
                 fill(v, src[k])
             else:
-                v.copy_(torch.from_numpy(np.asarray(src[k])))
+                v.copy_(leaf_tensor(src[k]))
 
     fill(like_state.params, tree["params"])
-    fill(like_state.opt_state["mu"], tree["opt_state"]["mu"])
-    fill(like_state.opt_state["nu"], tree["opt_state"]["nu"])
+    fill(like_state.opt_state["mu"], mu)
+    fill(like_state.opt_state["nu"], nu)
     like_state.step = int(tree["step"])
     return like_state

@@ -162,7 +162,16 @@ Phases, all in one process; any failure exits non-zero:
    same latent, ``generate_next_token_distr`` for one padded image with its
    ``latent_valid`` over 16 prefixes of its greedy output (each call through
    K3) against the plain twins (log-probs < 0.25) and the greedy next token
-   (>= 90 %);
+   (>= 90 %); between the meshed paths and ``vitomr_api``: ``greedy_full``
+   and ``int8_full`` (``decode.generate`` as ``transcribe_batch`` calls it on
+   the 8 encoded images, to ``serving.routes.MAX_INFERENCE_LEN`` = 1,536 with
+   an ``<eos>`` that never matches: 1,535 steps over caches of 256 -> 512 ->
+   1,024 -> 1,536, all on the monolith step; the last segment's kernel path
+   against the plain path over 64 steps, its tokens generate's bit for bit)
+   and ``determinism`` (``greedy_bf16`` and ``tp2_bf16`` in two fresh child
+   processes and twice in this one, the second after the caching
+   allocator's free blocks were filled with NaN bytes: every step's logits
+   and appended K / V bit-equal, and the tokens those of the paths above);
 4. the path ``train_tf``: ``omr_teacher_force_train`` on the card with the
    flagship configuration, bf16 over fp32 masters, dropout on, a seeded
    synthetic dataset (images of 512-1,024 patches, token sequences that pad
@@ -177,7 +186,11 @@ Phases, all in one process; any failure exits non-zero:
    from tests/data in batches of 16 (two outer steps of 8 rollouts per
    image, at most 768 actions, top-k 50, temperature 1.1, two update epochs
    of 16 rollout chunks), one mini-validation on 8; phase times per step,
-   frozen leaves bit-unchanged, every decoder leaf moved;
+   frozen leaves bit-unchanged, every decoder leaf moved; then ``grpo_int8``
+   (one outer step of that configuration with ``RolloutConfig(cache_dtype=
+   "int8")``, one update epoch: grouped K6 at ``mem_group`` 8 and no K2 in
+   the rollout, its products on the kernel ``weight_quant_mode`` picks, the
+   first 64 rollout steps replayed bit for bit and against the plain twins);
    then training over the mesh, every shard on this card, K15 ``"local"``
    summing the data shards' flat gradient buffers exactly once a gradient
    step (``k15_per_step``): ``train_dp`` (a (2, 1) mesh; stage 2: one
@@ -248,6 +261,8 @@ the scalar kernel at the paths' rows (``k4_plan``) and exits;
 ``--k19`` runs only K19's checks and turns (``k19_case``: the warp kernel
 on its programmatic launch and the kernel it replaced, warm, from HBM, host
 us a call and its parts, a captured graph's programmatic edges) and exits;
+``--determinism-child OUT`` is one child run of ``determinism`` (its records
+as JSON in OUT);
 ``--mesh-train`` runs only the mesh-training paths, ``host_tools`` and
 K15's flat-buffer rows (``mesh_train_alone``) and exits;
 ``--stream-lookup`` times only the greedy bf16 decode with the wrappers'
@@ -346,6 +361,17 @@ EXPECTED_KERNELS = {
                         "linear_wgrad", "tp_allreduce"],
     "grpo_dp": _ENC + ["decode_attention", "attention_bwd", "layernorm_bwd",
                        "linear_dgrad", "linear_wgrad", "tp_allreduce"],
+    # decode.generate as transcribe_batch calls it, to the app's
+    # MAX_INFERENCE_LEN with an <eos> that never matches: bf16, int8 caches
+    "greedy_full": _ENC + ["decode_attention"],
+    "int8_full": _ENC + ["quant_linear_bias_act", "decode_attention_int8"],
+    # greedy_bf16 and tp2_bf16 again, their logits and appended K / V
+    # recorded (the in-process runs; the child processes count their own)
+    "determinism": _ENC + ["decode_attention", "tp_allreduce"],
+    # one outer GRPO step with int8 rollouts (grouped K6 at mem_group = 8);
+    # the products as weight_quant_mode picks (W8A8 by default: K5)
+    "grpo_int8": _ENC + ["decode_attention_int8", "attention_bwd",
+                         "layernorm_bwd", "linear_dgrad", "linear_wgrad"],
     # models/vitomr's entry points on round-tripped weights; the eval CLI
     "vitomr_api": _ENC + ["decode_attention"],
     "eval_cli": _ENC,
@@ -402,11 +428,25 @@ RACE_CALLS = 1000
 MONOLITH_STEP = ["decode_attention", "decode_attention_int8",
                  "quant_linear_bias_act", "quant4_linear_bias_act"]
 SERVING_PATHS = ["greedy_bf16", "int8", "beam_bf16", "beam_int8", "streamed",
-                 "w4a8", "int8_bf16w", "serve_wsgi"]
+                 "w4a8", "int8_bf16w", "serve_wsgi", "greedy_full",
+                 "int8_full"]
+# greedy_full / int8_full: B = N_IMAGES rows decoded to the app's
+# MAX_INFERENCE_LEN (serving.routes, 1,536) with an <eos> that never matches
+# (bench.py's), so every row runs through the segment growth; the cache
+# lengths generate must grow through
+FULL_SEGMENTS = (256, 512, 1024, 1536)
+# grpo_int8: the cache length of the rollout's first segment (generate's
+# initial_segment)
+ROLLOUT_SEGMENT = 256
+# determinism: fresh child processes, each running greedy_bf16 and tp2_bf16
+DETERMINISM_CHILDREN = 2
+DETERMINISM_PATHS = ("greedy_bf16", "tp2_bf16")
 # the path serve_wsgi: concurrent clients of the WSGI app, dynamic batching
 # with int8 caches and W4A8 weights; MAX_LEN (512) stands for the app's
 # MAX_INFERENCE_LEN of 1,536
 SERVE_CLIENTS, SERVE_MAX_BATCH, SERVE_WAIT_MS = 8, 8, 25.0
+# the stage-2 losses' tf_state (JAX's mapping): soft Gumbel samples
+SOFT_SAMPLING = {"use_hard_sampling": False}
 # the training path: flagship width, batch 8, accumulation 2, 3 updates
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_UPDATES = 8, 2, 3
 TRAIN_SIZES = ((256, 1024), (256, 768), (192, 1024), (256, 512))
@@ -613,6 +653,10 @@ def variant_failures(name: str, r: dict) -> list:
     if name in ("train_tf", "pretrain_mae", "train_dp", "train_pp"):
         if set(k1) != {"sm90"}:
             out.append(f"{name}: K1 off the core {k1}")
+    elif name == "grpo_int8":  # the rollout's products on K5 or K14
+        if not k1.get("sm90") or set(k1) - {"sm90", "skinny"}:
+            out.append(f"{name}: K1 by variant {k1}: the encoder and the "
+                       f"stacks on the core")
     elif name in ("train_grpo", "vitomr_api", "grpo_dp"):
         if not (k1.get("sm90") and k1.get("skinny")):
             out.append(f"{name}: K1 by variant {k1}: the encoder and the "
@@ -805,7 +849,8 @@ def check_kernels(torch, F, dev):
 
     # K2 (the cluster kernel: keys split across a thread-block cluster) at
     # the rows the paths give it: self at pos 300 of T = 512 at B = 32, at
-    # the 4 rows greedy_bf16 runs after compaction and at B = 1 (streamed);
+    # the 4 rows greedy_bf16 runs after compaction, at B = 1 (streamed) and
+    # at pos 1,535 of T = 1,536 at B = 8 (greedy_full's last step);
     # cross over ragged memory at B = 32 (M = 512) and at 4 and 8 rows
     # (M = 1,024); grouped at B = 32, G = 4 (beams) and at GRPO's 128 rows,
     # G = 8. Each against its twin; timed in turns with the simt kernel it
@@ -845,15 +890,15 @@ def check_kernels(torch, F, dev):
     heads = lambda a, n: a.view(a.shape[0], n, h, dh).transpose(1, 2)
     sdpa = F.scaled_dot_product_attention
 
-    def self_case(qkv_, kc_, vc_, paths=None):
-        b_ = qkv_.shape[0]
+    def self_case(qkv_, kc_, vc_, paths=None, at=None):
+        b_, p_ = qkv_.shape[0], pos if at is None else at
         lib_args = (heads(qkv_[:, :e].contiguous(), 1),
-                    *(heads(a[:, : pos + 1].contiguous(), pos + 1)
+                    *(heads(a[:, : p_ + 1].contiguous(), p_ + 1)
                       for a in (kc_, vc_)))
-        return k2_case(f"self B={b_} T={t} pos={pos} E={e} H={h}", qkv_,
-                       (kc_, vc_), {"pos": pos}, sdpa, lib_args,
-                       2 * (b_ * 3 * e + 2 * b_ * pos * e + 2 * b_ * e
-                            + b_ * e), 4 * b_ * e * (pos + 1), paths)
+        return k2_case(f"self B={b_} T={kc_.shape[1]} pos={p_} E={e} H={h}",
+                       qkv_, (kc_, vc_), {"pos": p_}, sdpa, lib_args,
+                       2 * (b_ * 3 * e + 2 * b_ * p_ * e + 2 * b_ * e
+                            + b_ * e), 4 * b_ * e * (p_ + 1), paths)
 
     def cross_case(qc_, mk_, mv_, valid_, grp_=1, paths=None):
         b_, m_ = qc_.shape[0], mk_.shape[1]
@@ -914,6 +959,10 @@ def check_kernels(torch, F, dev):
         cross_case(qc_r[:rows].contiguous(), mk_r[:rows].contiguous(),
                    mv_r[:rows].contiguous(), valid_r[:rows], 1,
                    ["greedy_bf16"])
+    # the last step of greedy_full: pos 1,535 of T = 1,536 at B = 8
+    t_full = FULL_SEGMENTS[-1]
+    self_case(randn2(8, 3 * e), randn2(8, t_full, e), randn2(8, t_full, e),
+              ["greedy_full"], at=t_full - 1)
     # GRPO's rollouts: 16 images x 8 rollouts over their memories
     lens_g = torch.randint(128, m_big + 1, (16,), generator=g2, device=dev)
     valid_gr = torch.arange(m_big, device=dev)[None, :] < lens_g[:, None]
@@ -924,9 +973,10 @@ def check_kernels(torch, F, dev):
     # cluster, 64 or 128 columns a block as quant8_plan says, the rows
     # quantized in the kernel): the W8A8 decode products at B = 32 (qkv,
     # ff1 + GELU, ff2), at the rows the paths run (4 and 8 rows on int8, 16
-    # on beam_int8) and at the tp = 2 shards of tp2_int8_w8a8 (ACAI_TP_W8A8:
-    # the column-parallel qkv / ff1 and the row-parallel partials, fp32 and
-    # no bias, rows quantized over the rank's half of the contraction axis).
+    # on beam_int8, 128 on grpo_int8's rollout) and at the tp = 2 shards of
+    # tp2_int8_w8a8 (ACAI_TP_W8A8: the column-parallel qkv / ff1 and the
+    # row-parallel partials, fp32 and no bias, rows quantized over the
+    # rank's half of the contraction axis).
     # Each equal to the twin bit for bit, two runs bit-equal; timed in turns
     # with the three-launch form it replaced (``variant="simt"``, within two
     # bf16 ulps of the twin, 1e-5 of the largest value for a partial), warm
@@ -947,7 +997,9 @@ def check_kernels(torch, F, dev):
            ((1024, 3072, "none"), (4096, 1024, "none"))]
         + [(8, k_, n_, a_, ["tp2_int8_w8a8"]) for k_, n_, a_ in
            ((1024, 1536, "none"), (1024, 2048, "gelu_rounded"),
-            (512, 1024, "partial"), (2048, 1024, "partial"))])
+            (512, 1024, "partial"), (2048, 1024, "partial"))]
+        # grpo_int8's rollout: 16 images x 8 rollouts
+        + [(128, k_, n_, a_, ["grpo_int8"]) for k_, n_, a_ in step4])
     for m, k, n, act, k5_paths in k5_cases:
         partial = act == "partial"
         x = randn(m, k)
@@ -1038,8 +1090,9 @@ def check_kernels(torch, F, dev):
     # cluster per up to 8 queries of a grouped memory): int8 caches with
     # bf16 scales, self at pos 300 / 0 and cross / grouped at B = 32, then
     # the rows the paths run (self at 4 rows; cross at 4 and 8 rows over
-    # M = 1,024; beams B = 16, G = 4; GRPO's 128 rollouts over int8 caches,
-    # G = 8, a kernel row). Each against its twin (appends bit-equal, output
+    # M = 1,024; beams B = 16, G = 4; grpo_int8's 128 rollouts, G = 8; self
+    # at pos 1,535 of T = 1,536 at B = 8, int8_full's last step). Each
+    # against its twin (appends bit-equal, output
     # within two bf16 ulps), two runs bit-equal, split 1 and the simt kernel
     # it replaced within the tolerance; timed in turns with the simt kernel,
     # warm and from HBM. Bound: the int8 K/V bytes plus the scale bytes of
@@ -1073,10 +1126,11 @@ def check_kernels(torch, F, dev):
                extra={"old_cold_ms": cold_ms(
                    torch, lambda *c: call("simt", *c), list(caches))})
 
-    def int8_self(qkv_, p_at, paths, gen=g):
-        b_ = qkv_.shape[0]
-        (kc8, ks8), (vc8, vs8) = int8_cache(b_, t, gen), int8_cache(b_, t, gen)
-        int8_case(f"self B={b_} T={t} pos={p_at} E={e} H={h}", qkv_,
+    def int8_self(qkv_, p_at, paths, gen=g, length=None):
+        b_, t_ = qkv_.shape[0], length or t
+        (kc8, ks8), (vc8, vs8) = int8_cache(b_, t_, gen), \
+            int8_cache(b_, t_, gen)
+        int8_case(f"self B={b_} T={t_} pos={p_at} E={e} H={h}", qkv_,
                   (kc8, vc8, ks8, vs8), paths,
                   2 * b_ * p_at * (e + 2 * h) + 2 * b_ * (3 * e + e)
                   + 2 * b_ * (e + 2 * h), 4 * b_ * e * (p_at + 1), pos=p_at)
@@ -1113,10 +1167,11 @@ def check_kernels(torch, F, dev):
     int8_cross(qc3[:16].contiguous(),
                *(a[:4].contiguous() for a in (mk8, mv8, mks8, mvs8)),
                valid_gr[:4], 4, ["beam_int8"])
-    # GRPO's 16 images x 8 rollouts over int8 caches (no path runs it: the
-    # GRPO path decodes with bf16 caches); its launches are beam_int8's,
-    # the grouped mode's path
-    int8_cross(qc3, mk8, mv8, mks8, mvs8, valid_gr, 8, ["beam_int8"])
+    # GRPO's 16 images x 8 rollouts over int8 caches (grpo_int8's rollout)
+    int8_cross(qc3, mk8, mv8, mks8, mvs8, valid_gr, 8, ["grpo_int8"])
+    # the last step of int8_full: pos 1,535 of T = 1,536 at B = 8
+    int8_self(randn3(8, 3 * e), FULL_SEGMENTS[-1] - 1, ["int8_full"], g3,
+              FULL_SEGMENTS[-1])
 
     # K3: B=16, T=1024, E=768, H=12, ragged validity; the Hopper kernel
     # timed in turns with the wmma kernel it replaces (held to the twin too),
@@ -3389,6 +3444,7 @@ def mesh_paths(torch, model, imgs, decode_lib, paths, failures, finish_path,
                 f"token_share_vs_{ref}": token_share(res, refs[ref])},
                 steps=box["n"])
             r = paths[name]
+            r["seqs"] = [[int(v) for v in s] for s in res.seqs]
             r["tp_allreduce_per_step"] = r["launches"]["tp_allreduce"] / steps
             for got, exp in (("wrapper_calls_per_step",
                               "expected_wrapper_calls_per_step"),
@@ -3704,6 +3760,553 @@ def int8_vs_per_op(torch, decode_lib, decode_kernel, dec, dcfg, lat, valid,
     finally:
         decode_kernel.set_w8a8(w8a8)
     print(f"[int8 monolith vs per-op] {json.dumps(out)}", flush=True)
+    return out
+
+
+def _clone_state(torch, state):
+    """A copy of a DecodeState whose tensors (and lists of them) own their
+    memory, so that decoding from it leaves ``state`` as it was."""
+    import dataclasses
+    dup = lambda v: ([t.clone() for t in v] if isinstance(v, list) else
+                     v.clone() if torch.is_tensor(v) else v)
+    return dataclasses.replace(state, **{
+        f.name: dup(getattr(state, f.name))
+        for f in dataclasses.fields(state)})
+
+
+def full_length_paths(torch, model, imgs, decode_lib, finish_path, paths,
+                      failures):
+    """The paths greedy_full and int8_full: ``decode.generate`` called as
+    ``transcribe_batch`` calls it (``batch_inference``: the N_IMAGES serving
+    images batchified and encoded, then one ``generate``) at the app's
+    ``serving.routes.MAX_INFERENCE_LEN`` (1,536), with
+    ``dataclasses.replace(cfg.decoder, eos_idx=-1)`` (bench.py's <eos> that
+    never matches), so that every row decodes to max_len through the
+    segment growth FULL_SEGMENTS; bf16 caches, then int8 caches (W8A8 by
+    default). Checked: the steps counted equal max_len - 1 (what generate
+    takes for a row that never stops), the caches grew through
+    FULL_SEGMENTS, the monolith step's gate (``monolith_takes``) holds at
+    max_len and every step took that step (K2 or K6 twice a layer a step,
+    no kernel of the per-op step). Afterwards, uncounted: from the state at
+    the start of the last segment, CMP_STEPS steps of the kernel path,
+    whose tokens must be generate's bit for bit, against the plain path fed
+    the kernel path's tokens, to compare_paths' limits."""
+    import dataclasses
+
+    from acai_omr_tpu_torch.models import vit_encoder, vitomr
+    from acai_omr_tpu_torch.ops import _build, decode_kernel
+    from acai_omr_tpu_torch.serving import routes
+
+    max_len = routes.MAX_INFERENCE_LEN
+    cfg, params, dt, dev = (model.cfg, model.params, model.compute_dtype,
+                            model.device)
+    dec = params["decoder"]
+    dcfg = dataclasses.replace(cfg.decoder, eos_idx=-1)
+    pb = vit_encoder.batchify([model._load_image(i) for i in imgs],
+                              cfg.encoder)
+    per_op = ("decode_attention_hd", "decode_attention_hd_int8",
+              "self_attention_append_int8")
+    for name, cache in (("greedy_full", dt), ("int8_full", torch.int8)):
+        attn = "decode_attention_int8" if cache == torch.int8 \
+            else "decode_attention"
+        segments, last = [], {}
+        inner = decode_lib.decode_segment
+
+        def segment(prm, cfg_, mono, state, mem, *a, **kw):
+            n = decode_lib.cache_len_of(state.k_cache)
+            if not segments or segments[-1] != n:
+                segments.append(n)
+            if n == max_len and not last:  # the last segment's start
+                last.update(state=_clone_state(torch, state), mono=mono,
+                            mem=mem, t=state.t)
+            return inner(prm, cfg_, mono, state, mem, *a, **kw)
+
+        decode_lib.decode_segment = segment
+        _build.reset_launch_counts()
+        try:
+            with counted_steps(decode_lib) as box:
+                t0 = time.perf_counter()
+                latent, valid = vitomr.encode_image(params, cfg, *pb.to(dev),
+                                                    compute_dtype=dt)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                seqs, lps, mask = decode_lib.generate(
+                    dec, dcfg, latent, valid, max_len=max_len,
+                    compute_dtype=dt, cache_dtype=cache)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        finally:
+            decode_lib.decode_segment = inner
+        b, mem_len = latent.shape[0], latent.shape[1]
+        gate = decode_kernel.monolith_takes(
+            dcfg.hidden_dim, dcfg.num_heads, dcfg.mlp_dim, cache, dt, max_len,
+            mem_len, dev)
+        finish_path(name, int(mask.sum()) - b, t2 - t1, {
+            "max_len": max_len, "rows": b, "mem_len": mem_len,
+            "encode_s": t1 - t0, "segments": segments,
+            "monolith_takes": gate, "seq_len": int(seqs.shape[1]),
+            "log_probs_finite": bool(torch.isfinite(lps[mask]).all())},
+            steps=box["n"])
+        r = paths[name]
+        if box["n"] != max_len - 1 or tuple(segments) != FULL_SEGMENTS \
+                or int(seqs.shape[1]) != max_len or not bool(mask.all()):
+            failures.append(f"{name}: {box['n']} steps over segments "
+                            f"{segments}, not {max_len - 1} over "
+                            f"{list(FULL_SEGMENTS)} with every row to max_len")
+        if not (gate and r["launches"][attn] == 2 * dcfg.num_layers * box["n"]
+                and not any(r["launches"][k] for k in per_op)):
+            failures.append(f"{name}: not the monolith step throughout "
+                            f"(monolith_takes {gate}, {attn} "
+                            f"{r['launches'][attn]})")
+        if not r["log_probs_finite"]:
+            failures.append(f"{name}: non-finite log-probs")
+        # the last segment: the kernel path against the plain path
+        sk, sp = last["state"], _clone_state(torch, last["state"])
+        step_err, agree, replay = [], 0, True
+        for _ in range(CMP_STEPS):
+            t = sk.t
+            lk = decode_lib.step_logits(dec, dcfg, last["mono"], sk,
+                                        last["mem"], dt)
+            lp = decode_lib.step_logits(dec, dcfg, last["mono"], sp,
+                                        last["mem"], dt, plain=True)
+            tok = lk.argmax(-1)
+            replay &= bool(torch.equal(tok, seqs[:, t]))
+            agree += int((lp.argmax(-1) == tok).sum())
+            step_err.append((lk - lp).abs().max().item())
+            for s in (sk, sp):
+                s.seqs[:, s.t] = tok
+                s.t += 1
+        r["last_segment"] = {
+            "t0": last["t"], "steps": CMP_STEPS,
+            "token_agreement": agree / (CMP_STEPS * b),
+            "logit_max_abs_err": max(step_err),
+            "logits_finite": all(math.isfinite(v) for v in step_err),
+            "kernel_tokens_equal_generate": replay}
+        del last, sk, sp
+        print(f"[path {name}] segments {segments} steps {box['n']} "
+              f"monolith_takes {gate}; last segment kernel vs plain "
+              f"{json.dumps(r['last_segment'])}", flush=True)
+        c = r["last_segment"]
+        if not (c["logits_finite"] and c["token_agreement"] >= CMP_AGREEMENT
+                and c["logit_max_abs_err"] < CMP_LOGIT_TOL
+                and c["kernel_tokens_equal_generate"]):
+            failures.append(f"{name}: last segment, kernel path vs plain "
+                            f"path or generate's tokens")
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recorded_steps(torch, decode_lib, log: list):
+    """Records each monolith decode step inside the block into ``log``: the
+    position, the rows, a digest of each row's fp32 logits bytes, and for
+    each layer and row an integer checksum of the bytes of the K and of the
+    V column the step appended (every tensor-parallel rank's columns side by
+    side): an exact weighted sum of the bytes, so equal columns give equal
+    sums on any run."""
+    import hashlib
+    inner = decode_lib.step_logits
+    weights = {}
+
+    def checksum(cache, t):
+        parts = cache if isinstance(cache, list) else [cache]
+        col = torch.cat([c[:, :, t - 1] for c in parts], -1).contiguous()
+        raw = col.view(torch.uint8).reshape(col.shape[0], col.shape[1], -1)
+        n = raw.shape[-1]
+        if n not in weights:  # fixed odd weights below 2**31
+            weights[n] = (torch.arange(n, device=raw.device, dtype=torch.int64)
+                          * 2654435761 % 2147483647) | 1
+        return (raw.to(torch.int64) * weights[n]).sum(-1).cpu().tolist()
+
+    def step(*args, **kwargs):
+        state = args[3]
+        t = state.t
+        logits = inner(*args, **kwargs)
+        rows = logits.detach().float().contiguous().cpu().numpy()
+        log.append({"t": t, "rows": len(rows),
+                    "logits": [hashlib.blake2b(r.tobytes(), digest_size=8)
+                               .hexdigest() for r in rows],
+                    "k": checksum(state.k_cache, t),
+                    "v": checksum(state.v_cache, t)})
+        return logits
+
+    decode_lib.step_logits = step
+    try:
+        yield log
+    finally:
+        decode_lib.step_logits = inner
+
+
+def determinism_run(torch, np, model, imgs, decode_lib) -> dict:
+    """greedy_bf16 and tp2_bf16 as the serving and meshed phases build them
+    (``transcribe_batch`` at MAX_LEN; ``batch_inference`` on TP_PATHS'
+    tp = 2 mesh, every rank on cuda:0), each step recorded
+    (:func:`recorded_steps`), with the tokens of each image."""
+    from acai_omr_tpu_torch.inference.batch_inference import batch_inference
+    from acai_omr_tpu_torch.parallel.mesh import make_mesh
+
+    run = {}
+    for name in DETERMINISM_PATHS:
+        log = []
+        with recorded_steps(torch, decode_lib, log):
+            if name == "greedy_bf16":
+                model.transcribe_batch(imgs, max_len=MAX_LEN)
+                res = model.last_result
+            else:
+                (nd, nm), n_img, max_len, kw, _ = TP_PATHS[name]
+                res = batch_inference(
+                    model.params, model.cfg,
+                    [model._load_image(i) for i in imgs[:n_img]],
+                    model.tokenizer, max_inference_len=max_len,
+                    compute_dtype=model.compute_dtype,
+                    cache_dtype=model.compute_dtype, device=model.device,
+                    mesh=make_mesh(nd, nm, ["cuda:0"] * (nd * nm)),
+                    model_axis="model", **kw)
+            torch.cuda.synchronize()
+        run[name] = {"steps": log,
+                     "tokens": [np.asarray(s).tolist() for s in res.seqs]}
+    return run
+
+
+def first_difference(ref: dict, run: dict, n_layers: int) -> dict | None:
+    """None where two determinism runs are bit-equal; else the first step
+    that differs, with the first layer whose appended K or V differs (or
+    "logits" where only the final norm and unembedding do) and the first
+    row there, or the tokens where only they differ."""
+    for name in DETERMINISM_PATHS:
+        a, b = ref[name]["steps"], run[name]["steps"]
+        for i, (sa, sb) in enumerate(zip(a, b)):
+            at = {"path": name, "step": i, "t": sa["t"]}
+            if (sa["t"], sa["rows"]) != (sb["t"], sb["rows"]):
+                return {**at, "what": "position or rows",
+                        "got": [sb["t"], sb["rows"]]}
+            for layer in range(n_layers):
+                for what in ("k", "v"):
+                    rows = [r for r in range(sa["rows"])
+                            if sa[what][layer][r] != sb[what][layer][r]]
+                    if rows:
+                        return {**at, "layer": layer, "what": what,
+                                "row": rows[0], "rows": rows}
+            rows = [r for r in range(sa["rows"])
+                    if sa["logits"][r] != sb["logits"][r]]
+            if rows:
+                return {**at, "layer": "logits", "row": rows[0],
+                        "rows": rows}
+        if len(a) != len(b):
+            return {"path": name, "step": min(len(a), len(b)),
+                    "what": f"{len(a)} steps against {len(b)}"}
+        if ref[name]["tokens"] != run[name]["tokens"]:
+            return {"path": name, "what": "tokens"}
+    return None
+
+
+def fill_free_blocks_with_nan(torch) -> dict:
+    """Fill the CUDA caching allocator's free blocks with 0xFF bytes (NaN in
+    bf16 and fp32, -1 in int8), then free them again: byte tensors are
+    taken largest first (1 GiB down to 512 B), each kept while the
+    allocator serves it from its cache; one for which it had to reserve
+    memory anew is let go and the size halved. A kernel that reads memory
+    it never wrote then reads NaN."""
+    reserved0 = torch.cuda.memory_reserved()
+    free0 = reserved0 - torch.cuda.memory_allocated()
+    held, filled, size = [], 0, 1 << 30
+    while size >= 512:
+        before = torch.cuda.memory_reserved()
+        x = torch.empty(size, dtype=torch.uint8, device="cuda")
+        if torch.cuda.memory_reserved() > before:
+            del x
+            size //= 2
+            continue
+        x.fill_(255)
+        held.append(x)
+        filled += size
+    torch.cuda.synchronize()
+    del held
+    return {"free_cached_bytes": free0, "filled_bytes": filled,
+            "reserved_before": reserved0,
+            "reserved_after": torch.cuda.memory_reserved()}
+
+
+def determinism_path(torch, np, model, imgs, decode_lib, earlier) -> dict:
+    """The path determinism: greedy_bf16 and tp2_bf16 in DETERMINISM_CHILDREN
+    fresh child processes (this script with ``--determinism-child``, the
+    same seed, the kernels built by this run), then twice in this process:
+    as they are, and after :func:`fill_free_blocks_with_nan`. Every run's
+    recorded steps and tokens must equal the first in-process run's bit for
+    bit, and its tokens ``earlier[path]``, each image's tokens as the path
+    gave them earlier in this process.
+    The launch counts are set to 0 before the in-process runs and read
+    after them."""
+    import tempfile
+
+    from acai_omr_tpu_torch.ops import _build
+
+    n_layers = model.cfg.decoder.num_layers
+    runs, child_s = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(DETERMINISM_CHILDREN):
+            out = Path(tmp) / f"child{i}.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--determinism-child", str(out)], cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+            child_s.append(time.perf_counter() - t0)
+            if proc.returncode != 0 or not out.exists():
+                raise RuntimeError(f"determinism child {i} exited "
+                                   f"{proc.returncode}: {proc.stderr[-2000:]}")
+            runs[f"child{i}"] = json.loads(out.read_text())
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = determinism_run(torch, np, model, imgs, decode_lib)
+    fill = fill_free_blocks_with_nan(torch)
+    runs["nan_filled"] = determinism_run(torch, np, model, imgs, decode_lib)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    r = {"launches": {n: op.launches for n, op in _build.REGISTRY.items()},
+         "device_launches": {n: op.device_launches
+                             for n, op in _build.REGISTRY.items()},
+         "variants": {n: dict(op.variants)
+                      for n, op in _build.REGISTRY.items()},
+         "in_process_wall_s": wall, "child_s": child_s, "nan_fill": fill,
+         "steps": {n: len(ref[n]["steps"]) for n in DETERMINISM_PATHS},
+         "tokens": {n: sum(len(s) for s in ref[n]["tokens"])
+                    for n in DETERMINISM_PATHS}}
+    r["differences"] = {k: first_difference(ref, run, n_layers)
+                        for k, run in runs.items()}
+    r["earlier_paths_equal"] = {n: earlier[n] == ref[n]["tokens"]
+                                for n in DETERMINISM_PATHS}
+    return r
+
+
+def determinism_child(torch, out: Path) -> int:
+    """``--determinism-child OUT``: a fresh process's greedy_bf16 and
+    tp2_bf16 runs (:func:`determinism_run`) on the seeded flagship, written
+    to OUT as JSON."""
+    import numpy as np
+
+    from acai_omr_tpu_torch.api import OmrModel
+    from acai_omr_tpu_torch.models import decode as decode_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = OmrModel.load(device="cuda", seed=SEED)
+    imgs = synthetic_images(np, N_IMAGES, SEED)
+    model.transcribe_batch(imgs[:2], max_len=8)  # the main run's warm-up
+    out.write_text(json.dumps(determinism_run(torch, np, model, imgs,
+                                              decode_lib)))
+    return 0
+
+
+def grpo_int8_path(torch, np, model, tmp_dir) -> dict:
+    """The path grpo_int8: ``grpo_train`` in train_grpo's configuration
+    (``set_up_grpo`` of the flagship, GRPO_BATCH images x G = 8 rollouts of
+    at most 768 actions, top-k 50) with ``RolloutConfig(cache_dtype=
+    "int8")``: one outer step, one update epoch, no mini-validation. The
+    launch counts are set to 0 just before and read just after; a wrapper
+    of ``forward_rollout_policy`` reads them around the rollout alone and
+    keeps the rollout's inputs, the decoder it decoded with, its
+    generator's state and its outputs, and K6's launcher records the rows
+    and ``mem_group`` of each cross-attention launch. Afterwards,
+    uncounted: the first CMP_STEPS steps replayed from that state, on the
+    kernel path (whose tokens and log-probs must be the rollout's, bit for
+    bit, where the rollout's mask holds) and on the plain twins, both fed
+    the kernel path's tokens: the largest |logit difference|, the share of
+    greedy tokens equal, the share of the rollout's tokens among the
+    twins' top-k and the largest |old log-prob difference| there, and the
+    share the twins sample from the same noise."""
+    from acai_omr_tpu_torch.models import decode as decode_lib
+    from acai_omr_tpu_torch.ops import _build, decode_kernel, nn
+    from acai_omr_tpu_torch.ops.decode_kernel import decode_attention_int8
+    from acai_omr_tpu_torch.parallel import trainer
+    from acai_omr_tpu_torch.train import omr_grpo_train as grpo
+
+    cfg, params = grpo.set_up_grpo(model.cfg, model.params)
+    dt, dev = model.compute_dtype, model.device
+    gcfg = grpo.default_grpo_config()
+    gcfg.rollout_config.cache_dtype = "int8"
+    gcfg.update_config.update_epochs = 1
+    rc = gcfg.rollout_config
+    examples = grpo_examples(np, model, GRPO_BATCH, SEED + 5)
+    counts = lambda: {n: op.launches for n, op in _build.REGISTRY.items()}
+    rollout, cross, steps = {}, [], []
+    inner_roll = grpo.vitomr_lib.forward_rollout_policy
+    inner_k6 = decode_attention_int8._launch
+
+    def k6(op, q, k, v, ks, vs, h, pos=None, bias=None, mem_group=1,
+           variant=None):
+        if bias is not None:
+            cross.append((q.shape[0], k.shape[0], k.shape[1], mem_group))
+        return inner_k6(op, q, k, v, ks, vs, h, pos=pos, bias=bias,
+                        mem_group=mem_group, variant=variant)
+
+    def roll(prm, cfg_, latent, valid, generator, **kw):
+        rollout.update(
+            decoder=trainer.tree_map(torch.clone, prm["decoder"]),
+            latent=latent.clone(), valid=valid.clone(),
+            gen_state=generator.get_state().clone(), kw=dict(kw))
+        before = counts()
+        with counted_steps(decode_lib) as box:
+            out = inner_roll(prm, cfg_, latent, valid, generator, **kw)
+            torch.cuda.synchronize()
+        after = counts()
+        rollout.update(outputs=[a.clone() for a in out], steps=box["n"],
+                       rows=box["rows"][:1],
+                       launches={k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]})
+        return out
+
+    def hook(kind, info):
+        steps.append({k: info["metrics"][k] for k in (
+            "loss", "ce_loss", "reward", "rollout_tokens", "update_width",
+            "phase_times")})
+
+    before = {p: v.clone() for p, v in trainer.tree_flatten(params).items()}
+    grpo.vitomr_lib.forward_rollout_policy = roll
+    decode_attention_int8._launch = k6
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out, _ = grpo.grpo_train(
+            cfg, params, examples, model.tokenizer, grpo_config=gcfg,
+            batch_size=GRPO_BATCH, model_dir=Path(tmp_dir) / "grpo_int8",
+            seed=SEED, compute_dtype=dt, reward_workers=8, device="cuda",
+            step_hook=hook)
+        torch.cuda.synchronize()
+    finally:
+        grpo.vitomr_lib.forward_rollout_policy = inner_roll
+        decode_attention_int8._launch = inner_k6
+    wall = time.perf_counter() - t0
+    r = {"wall_s": wall, "steps": steps, "launches": counts(),
+         "device_launches": {n: op.device_launches
+                             for n, op in _build.REGISTRY.items()},
+         "variants": {n: dict(op.variants)
+                      for n, op in _build.REGISTRY.items()}}
+    after = trainer.tree_flatten(out)
+    moved = lambda p: not torch.equal(after[p], before[p].float())
+    r["frozen_moved"] = [p for p in after
+                         if not p.startswith("decoder/") and moved(p)]
+    r["decoder_unmoved"] = [p for p in after
+                            if p.startswith("decoder/") and not moved(p)]
+    mode = decode_kernel.weight_quant_mode(torch.int8)
+    r["weight_mode"] = mode or "bf16"
+    r["products"] = {"int4": "quant4_linear_bias_act",
+                     "int8": "quant_linear_bias_act"}.get(mode,
+                                                          "linear_bias_act")
+    r["rollout"] = {k: rollout[k] for k in ("steps", "rows", "launches")}
+    r["rollout"]["latent"] = list(rollout["latent"].shape)
+    r["rollout"]["cross_launches"] = sorted({c: cross.count(c)
+                                             for c in set(cross)}.items())
+    r["rollout"]["kw"] = {k: str(v) for k, v in rollout["kw"].items()}
+
+    # the first CMP_STEPS steps again: kernel path and plain twins
+    seqs, old_lp, mask = rollout["outputs"]
+    dcfg, dec, g = cfg.decoder, rollout["decoder"], rc.group_size
+    mem = decode_lib.precompute_memory_kv(dec, dcfg, rollout["latent"],
+                                          rollout["valid"], dt, torch.int8)
+    mono = decode_lib._prepack_for(dec, dt, torch.int8)
+    b = seqs.shape[0]
+    # the rollout's first segment: its caches' length, so that every kernel
+    # takes the plan it took
+    sk, sp = (decode_lib.init_decode_state(
+        dcfg, b, rc.max_actions, min(ROLLOUT_SEGMENT, rc.max_actions),
+        torch.int8, dev) for _ in range(2))
+    gen = torch.Generator(device=dev)
+    gen.set_state(rollout["gen_state"])
+    sampling = decode_lib.SamplingConfig(top_k=rc.top_k,
+                                         temperature=rc.temperature)
+    k = min(rc.top_k, dcfg.vocab_size)
+    step_err, lp_err, replay = [], 0.0, True
+    agree = in_top = sampled = valid_n = 0
+    for _ in range(min(CMP_STEPS, seqs.shape[1] - 1)):
+        t = sk.t
+        lk = decode_lib.step_logits(dec, dcfg, mono, sk, mem, dt,
+                                    mem_group=g)
+        lp = decode_lib.step_logits(dec, dcfg, mono, sp, mem, dt, plain=True,
+                                    mem_group=g)
+        noise = nn.gumbel_noise((b, k), gen, dev)
+        tok_k, lp_k = decode_lib.sample_top_k(lk, sampling, noise)
+        live = mask[:, t]
+        replay &= bool(torch.equal(tok_k[live], seqs[live, t])
+                       and torch.equal(lp_k[live], old_lp[live, t]))
+        # compare_paths' measure: the greedy token of each side
+        agree += int((live & (lk.argmax(-1) == lp.argmax(-1))).sum())
+        # the rollout's token among the plain twins' top-k, and its top-k
+        # log-prob there against the old log-prob the rollout kept
+        top, idx = lp.topk(k, dim=-1)
+        hit = idx == tok_k[:, None]
+        found = live & hit.any(-1)
+        in_top += int(found.sum())
+        if bool(found.any()):
+            lp_plain = (torch.log_softmax(top, -1) * hit).sum(-1)
+            lp_err = max(lp_err, (lp_plain - lp_k)[found].abs().max().item())
+        # reported, not held: the plain twins' sample from the same noise
+        # (near-tied top-k logits of a seeded model flip it)
+        sampled += int((live & (decode_lib.sample_top_k(
+            lp, sampling, noise)[0] == tok_k)).sum())
+        valid_n += int(live.sum())
+        step_err.append((lk - lp).abs().max().item())
+        for s in (sk, sp):
+            s.seqs[:, s.t] = tok_k
+            s.t += 1
+    n = max(valid_n, 1)
+    r["compare"] = {"steps": len(step_err), "rows": b, "positions": valid_n,
+                    "logit_max_abs_err": max(step_err),
+                    "logits_finite": all(math.isfinite(v) for v in step_err),
+                    "token_agreement": agree / n,
+                    "rollout_tokens_in_plain_top_k": in_top / n,
+                    "old_log_prob_max_abs_err": lp_err,
+                    "same_noise_sample_agreement": sampled / n,
+                    "kernel_replays_rollout": replay}
+    del rollout, mem, mono, sk, sp
+    torch.cuda.empty_cache()
+    return r
+
+
+def grpo_int8_failures(r: dict, n_layers: int) -> list:
+    """What the path grpo_int8 must show: one outer step with finite numbers,
+    frozen leaves unmoved and every decoder leaf moved; during the rollout
+    K6 twice a layer a step, every cross launch at mem_group = 8 over the
+    batch's GRPO_BATCH memory rows, the first at GRPO_BATCH x 8 rows, no
+    K2, the products on the kernel weight_quant_mode picks and neither
+    other; the replay bit-equal to the rollout and, against the plain
+    twins, within compare_paths' int8 limits: logits within CMP_LOGIT_TOL,
+    greedy tokens equal at CMP_AGREEMENT or more, the rollout's tokens
+    among the twins' top-k at CMP_AGREEMENT or more, the old log-probs
+    within CMP_LOGIT_TOL of the twins' top-k log-probs."""
+    out = []
+    finite = all(math.isfinite(st[k]) for st in r["steps"]
+                 for k in ("loss", "ce_loss", "reward"))
+    if len(r["steps"]) != 1 or not finite:
+        out.append("grpo_int8: not one outer step with finite numbers")
+    if r["frozen_moved"] or r["decoder_unmoved"]:
+        out.append(f"grpo_int8: frozen leaves moved {r['frozen_moved']}, "
+                   f"decoder leaves unmoved {r['decoder_unmoved']}")
+    ro = r["rollout"]
+    got = ro["launches"]
+    products = ("linear_bias_act", "quant_linear_bias_act",
+                "quant4_linear_bias_act")
+    if got.get("decode_attention", 0) \
+            or got.get("decode_attention_int8", 0) != 2 * n_layers * ro["steps"]:
+        out.append(f"grpo_int8: rollout attention launches {got}")
+    if got.get(r["products"], 0) <= 0 or any(
+            got.get(p, 0) for p in products if p != r["products"]):
+        out.append(f"grpo_int8: rollout products {got}, not "
+                   f"{r['products']} alone ({r['weight_mode']} weights)")
+    # (rows, memories, memory length, mem_group) of each cross launch: every
+    # one grouped by 8 over its memories (compaction drops whole groups),
+    # the first over all GRPO_BATCH of them
+    cross = ro["cross_launches"]
+    if not cross or any(c[0][3] != 8 or c[0][0] != 8 * c[0][1]
+                        for c in cross) \
+            or max(c[0][1] for c in cross) != GRPO_BATCH:
+        out.append(f"grpo_int8: K6 cross launches {cross}")
+    c = r["compare"]
+    if not (c["logits_finite"] and c["token_agreement"] >= CMP_AGREEMENT
+            and c["logit_max_abs_err"] < CMP_LOGIT_TOL
+            and c["rollout_tokens_in_plain_top_k"] >= CMP_AGREEMENT
+            and c["old_log_prob_max_abs_err"] < CMP_LOGIT_TOL
+            and c["kernel_replays_rollout"]):
+        out.append(f"grpo_int8: rollout vs the plain twins {c}")
     return out
 
 
@@ -4469,7 +5072,7 @@ def compare_training(torch, model, profile=False):
     cfg, tok, dt = model.cfg, model.tokenizer, model.compute_dtype
     ds = training_set(tok, TRAIN_BATCH, SEED + 2)
     params = trainer.tree_map(lambda v: v.float(), model.params)
-    loss_fn = tf_train.make_loss_fn(cfg, False, dt)
+    loss_fn = tf_train.make_loss_fn(cfg, SOFT_SAMPLING, dt)
     grad_fn = trainer.make_grad_fn(loss_fn)
 
     def batch_of(n):
@@ -4702,11 +5305,11 @@ def train_dp_path(torch, model) -> dict:
     out, k15 = {}, []
     full = batch_of(range(TRAIN_BATCH), 1.0, 1.0)
     dp_fn = trainer.make_sharded_grad_fn(
-        tf_train.make_sum_loss_fn(cfg0, False, dt), mesh)
+        tf_train.make_sum_loss_fn(cfg0, SOFT_SAMPLING, dt), mesh)
     tx = trainer.adamw(1e-5, betas=tf_train.ADAMW_BETAS,
                        weight_decay=tf_train.ADAMW_WEIGHT_DECAY)
     step = trainer.make_sharded_train_step(
-        tf_train.make_sum_loss_fn(cfg, False, dt), tx, mesh)
+        tf_train.make_sum_loss_fn(cfg, SOFT_SAMPLING, dt), tx, mesh)
     mcfg = pt.set_up_mae()
     mparams = mae_lib.init_mae_params(mcfg, seed=SEED, device=dev)
     mds = mae_set(MAE_BATCH, SEED + 9)
@@ -4769,7 +5372,8 @@ def train_dp_path(torch, model) -> dict:
                stage1_moved=sum(not torch.equal(v, mflat0[p]) for p, v in
                                 trainer.tree_flatten(mstate.params).items()))
     del mstate
-    one_fn = trainer.make_grad_fn(tf_train.make_loss_fn(cfg0, False, dt))
+    one_fn = trainer.make_grad_fn(tf_train.make_loss_fn(cfg0, SOFT_SAMPLING,
+                                                        dt))
     loss_one, grads_one = one_fn(params, full, 7)
     out["stage2"] = gradient_errors(torch, loss_dp, grads_dp, loss_one,
                                     grads_one)
@@ -5121,6 +5725,9 @@ def main() -> int:
     if "--mesh-train" in sys.argv[1:]:  # the mesh-training paths alone
         print(card_line())
         return mesh_train_alone(torch)
+    if "--determinism-child" in sys.argv[1:]:  # one run of determinism
+        return determinism_child(torch, Path(
+            sys.argv[sys.argv.index("--determinism-child") + 1]))
     if "--stream-lookup" in sys.argv[1:]:  # the stream lookup's cost alone
         print(card_line())
         return 0 if stream_lookup(torch)["same_tokens"] else 1
@@ -5423,6 +6030,35 @@ def main() -> int:
                             f"kernels, not {11 * n_layers}")
 
     mark("serving_paths")
+    # the app's own decode length: every row to MAX_INFERENCE_LEN through
+    # the segment growth, bf16 caches then int8
+    full_length_paths(torch, model, imgs, decode_lib, finish_path, paths,
+                      failures)
+    mark("full_length")
+    # greedy_bf16 and tp2_bf16 in fresh processes and twice in this one
+    # (the second after NaN bytes in the allocator's free blocks), bit for
+    # bit, and their tokens those of the paths above
+    det = determinism_path(torch, np, model, imgs, decode_lib, {
+        "greedy_bf16": [np.asarray(s).tolist() for s in greedy.seqs],
+        "tp2_bf16": paths["tp2_bf16"]["seqs"]})
+    mark("determinism")
+    paths["determinism"] = det
+    print(f"[path determinism] " + json.dumps(
+        {k: v for k, v in det.items()
+         if k not in ("launches", "device_launches", "variants")}),
+        flush=True)
+    print(f"[path determinism] launches {json.dumps(det['launches'])}",
+          flush=True)
+    print(variant_line("determinism", det), flush=True)
+    failures.extend(variant_failures("determinism", det))
+    for k in EXPECTED_KERNELS["determinism"]:
+        if det["launches"][k] <= 0:
+            failures.append(f"determinism: launches[{k}]=0")
+    differ = {k: v for k, v in det["differences"].items() if v is not None}
+    if differ or not all(det["earlier_paths_equal"].values()):
+        failures.append(f"determinism: runs differ {differ}; tokens equal to "
+                        f"the earlier paths' {det['earlier_paths_equal']}")
+
     # models/vitomr's entry points on weights through the reference's
     # state-dict layouts and back
     api = vitomr_api_path(torch, np, model, imgs)
@@ -5542,6 +6178,28 @@ def main() -> int:
             failures.append(f"train_grpo: launches[{k}]=0")
 
     mark("train_tf_grpo")
+    # one outer GRPO step with int8 rollouts: grouped K6 at mem_group = 8
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        gi = grpo_int8_path(torch, np, model, tmp_dir)
+    mark("grpo_int8")
+    paths["grpo_int8"] = gi
+    for name_, r_ in (("train_grpo", gr["steps"][0]), ("grpo_int8",
+                                                      gi["steps"][0])):
+        print(f"[path grpo_int8] phase_s of {name_}'s first step " + json.dumps(
+            {k: round(v, 3) for k, v in r_["phase_times"].items()}),
+            flush=True)
+    print(f"[path grpo_int8] " + json.dumps(
+        {k: v for k, v in gi.items()
+         if k not in ("launches", "device_launches", "variants")}),
+        flush=True)
+    print(f"[path grpo_int8] launches {json.dumps(gi['launches'])}",
+          flush=True)
+    print(variant_line("grpo_int8", gi), flush=True)
+    failures.extend(variant_failures("grpo_int8", gi))
+    failures.extend(grpo_int8_failures(gi, n_layers))
+    for k in EXPECTED_KERNELS["grpo_int8"]:
+        if gi["launches"][k] <= 0:
+            failures.append(f"grpo_int8: launches[{k}]=0")
     # training over the mesh, every shard on this card: data-parallel steps
     # (stage 2 and stage 1), the pipelined decoder, GRPO's meshed step; K15
     # sums the data shards once a gradient step

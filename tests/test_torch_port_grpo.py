@@ -38,7 +38,7 @@ from acai_omr_tpu_torch.models import omr_decoder, vitomr
 from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
 from acai_omr_tpu_torch.models.vit_encoder import EncoderConfig
 from acai_omr_tpu_torch.models.weights import params_from_jax
-from acai_omr_tpu_torch.ops import transformer
+from acai_omr_tpu_torch.ops import decode_kernel, transformer
 from acai_omr_tpu_torch.parallel import trainer
 from acai_omr_tpu_torch.train import grpo_rewards, schedules
 from acai_omr_tpu_torch.train import omr_grpo_train as grpo
@@ -303,6 +303,45 @@ def test_rollout_ratio_is_below_one_at_the_first_epoch(model):
     ratio = torch.exp(theta - old_lp[:, 1:])[torch.from_numpy(in_valid)]
     assert float(ratio.max()) <= 1.0 + 1e-4
     assert float(ratio.mean()) < 0.99
+
+
+@pytest.mark.parametrize("monolith", [True, False])
+def test_int8_rollouts_match_jax_at_top_k_one(model, monolith):
+    """``RolloutConfig.cache_dtype="int8"``: G = 3 rollouts of 2 images over
+    int8 caches, top-k 1 (the sampled token is the argmax, so no random
+    stream has to match). JAX's CPU decode takes its per-op step, which
+    repeats the latent; the port's takes the monolith step (grouped K6's
+    twin, the card's rollout path) or the per-op step. Tokens and masks
+    equal, old log-probs within 1e-3 (the int8 tolerance of
+    tests/test_torch_port_decode_hd.py)."""
+    jcfg, pcfg, jparams, pparams = model
+    rng = np.random.default_rng(9)
+    latent = rng.standard_normal((R_GROUPS, M_LAT, 64)).astype(np.float32)
+    valid = np.arange(M_LAT)[None] < np.array([M_LAT, 6])[:, None]
+    rc = grpo_rewards.RolloutConfig(group_size=G, max_actions=24, top_k=1,
+                                    temperature=1.1, cache_dtype="int8")
+    js, jl, jm = jax_vitomr.forward_rollout_policy(
+        jparams, jcfg, jnp.asarray(latent), jnp.asarray(valid),
+        jax.random.PRNGKey(0), max_actions=rc.max_actions, top_k=rc.top_k,
+        temperature=rc.temperature, group_size=G, compute_dtype=jnp.float32,
+        cache_dtype=jnp.int8)
+    prev = decode_kernel._ENABLED
+    decode_kernel.set_enabled(monolith)
+    try:
+        ps, pl, pm = vitomr.forward_rollout_policy(
+            pparams, pcfg, torch.from_numpy(latent), torch.from_numpy(valid),
+            torch.Generator().manual_seed(0), max_actions=rc.max_actions,
+            top_k=rc.top_k, temperature=rc.temperature, group_size=G,
+            compute_dtype=torch.float32,
+            cache_dtype=grpo._rollout_cache_dtype(rc, torch.float32))
+    finally:
+        decode_kernel.set_enabled(prev)
+    assert ps.shape[0] == R_GROUPS * G
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=1e-3, rtol=0)
+    # rows of one image are one greedy rollout G times
+    np.testing.assert_array_equal(ps.numpy()[0], ps.numpy()[G - 1])
 
 
 def test_clipping_sees_frozen_zero_gradients_and_scale_zero_stops_decay():

@@ -52,6 +52,7 @@ from acai_omr_tpu_torch.train import pre_train as pt
 
 TOK = LmxTokenizer()
 CPU = torch.device("cpu")
+SOFT = {"use_hard_sampling": False}
 # the ragged tiny ViTOMR of tests/test_parallel.py's sharded-gradient test
 ENC = dict(patch_size=16, pe_max_height=6, pe_max_width=8, num_layers=2,
            hidden_dim=16, num_heads=2, mlp_dim=24, dropout=0.0)
@@ -133,11 +134,11 @@ def tiny():
     jb, pb = _tf_batch(0)
     key = jax.random.PRNGKey(5)
     ref = jax_trainer.make_grad_fn(jax_tf.make_loss_fn(
-        jcfg, {"use_hard_sampling": False}, jnp.float32))(jparams, jb, key)
+        jcfg, SOFT, jnp.float32))(jparams, jb, key)
     sharded = {}
     for d in (2, 4):
         fn = jax_trainer.make_sharded_grad_fn(jax_tf.make_sum_loss_fn(
-            jcfg, {"use_hard_sampling": False}, jnp.float32),
+            jcfg, SOFT, jnp.float32),
             jax_mesh.make_mesh(d, 1))
         sharded[d] = fn(jparams, jb, key)
     return dict(jcfg=jcfg, pcfg=pcfg, params=params, jparams=jparams, jb=jb,
@@ -160,7 +161,7 @@ def test_sharded_grad_fn_matches_jax(tiny, d):
     views into one flat buffer."""
     mesh = mesh_lib.make_mesh(d, 1, ["cpu"] * d)
     fn = trainer.make_sharded_grad_fn(tf_train.make_sum_loss_fn(
-        tiny["pcfg"], False, torch.float32), mesh)
+        tiny["pcfg"], SOFT, torch.float32), mesh)
     loss, grads = fn(tiny["params"], tiny["pb"], 5)
     jloss, jgrads = tiny["sharded"][d]
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
@@ -176,7 +177,7 @@ def test_all_padding_batch_gives_zero_gradients(tiny):
     mesh = mesh_lib.make_mesh(2, 1, ["cpu"] * 2)
     _, pb = _tf_batch(2, all_padding=True)
     loss, grads = trainer.make_sharded_grad_fn(tf_train.make_sum_loss_fn(
-        tiny["pcfg"], False, torch.float32), mesh)(tiny["params"], pb, 3)
+        tiny["pcfg"], SOFT, torch.float32), mesh)(tiny["params"], pb, 3)
     assert float(loss) == 0.0
     for v in trainer.tree_flatten(grads).values():
         assert torch.isfinite(v).all() and not v.any()
@@ -188,7 +189,7 @@ def test_grad_acc_train_step_and_eval_fn(tiny):
     sharded eval equals JAX's sharded eval."""
     pcfg, params = tiny["pcfg"], tiny["params"]
     mesh = mesh_lib.make_mesh(2, 1, ["cpu"] * 2)
-    sum_fn = tf_train.make_sum_loss_fn(pcfg, False, torch.float32)
+    sum_fn = tf_train.make_sum_loss_fn(pcfg, SOFT, torch.float32)
     grad_fn = trainer.make_sharded_grad_fn(sum_fn, mesh)
     _, pb2 = _tf_batch(1)
     _, g1 = grad_fn(params, tiny["pb"], 0)
@@ -207,7 +208,7 @@ def test_grad_acc_train_step_and_eval_fn(tiny):
     s_one = trainer.create_train_state(params, tx)
     step_dp = trainer.make_sharded_train_step(sum_fn, tx, mesh)
     step_one = trainer.make_train_step(tf_train.make_loss_fn(
-        pcfg, False, torch.float32), tx)
+        pcfg, SOFT, torch.float32), tx)
     for pb in (tiny["pb"], pb2):
         s_dp, m_dp = step_dp(s_dp, pb, 0)
         s_one, m_one = step_one(s_one, pb, 0)
@@ -236,7 +237,7 @@ def test_grad_acc_train_step_and_eval_fn(tiny):
 
 
 def test_data_axis_sizes_k15_does_not_take_raise(tiny):
-    sum_fn = tf_train.make_sum_loss_fn(tiny["pcfg"], False, torch.float32)
+    sum_fn = tf_train.make_sum_loss_fn(tiny["pcfg"], SOFT, torch.float32)
     for d in (3, 8):
         mesh = mesh_lib.make_mesh(d, 1, ["cpu"] * d)
         for build in (trainer.make_sharded_grad_fn,

@@ -344,7 +344,8 @@ def test_training_forward_draws_from_its_seed_only(setup):
     tb = _tb(batch)
     tb.update(tf_prob=0.5, tau=2.0)
     grad_fn = trainer.make_grad_fn(
-        tf_train.make_loss_fn(pcfg, False, torch.float32))
+        tf_train.make_loss_fn(pcfg, {"use_hard_sampling": False},
+                              torch.float32))
     state = torch.get_rng_state()
     l1, g1 = grad_fn(pparams, tb, 11)
     l2, g2 = grad_fn(pparams, tb, 11)
