@@ -37,6 +37,8 @@ from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
 from acai_omr_tpu_torch.models.weights import (_flatten, _unflatten,
                                                params_from_jax)
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 DEC = dict(max_lmx_seq_len=64, vocab_size=33, num_layers=2, hidden_dim=256,
            num_heads=4, mlp_dim=1024, eos_idx=2)
 JCFG = JaxDecoderConfig(**DEC)

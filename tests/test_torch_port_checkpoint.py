@@ -48,6 +48,8 @@ from acai_omr_tpu_torch.train import pre_train as pt
 from acai_omr_tpu_torch.utils import checkpoint as ckpt
 from acai_omr_tpu_torch.utils import orbax_tree
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 ENC = dict(pe_max_height=4, pe_max_width=6, num_layers=1, hidden_dim=32,
            num_heads=2, mlp_dim=64)
 DEC = dict(max_lmx_seq_len=64, vocab_size=33, num_layers=2, hidden_dim=64,

@@ -27,6 +27,8 @@ from tools.reference_identity import make_cfg
 from acai_omr_tpu_torch.models import torch_compat, weights
 from acai_omr_tpu_torch.models.weights import _flatten
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 DEPTHS = [None, 1, 2]  # plain layout; FineTune with 1 of 2 / both layers
 
 

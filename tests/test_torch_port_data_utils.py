@@ -31,6 +31,8 @@ from acai_omr_tpu_torch.models.vit_encoder import EncoderConfig
 from acai_omr_tpu_torch.ops import patchify
 from acai_omr_tpu_torch.utils import checkpoint, metrics
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 ENC = dict(patch_size=16, pe_max_height=12, pe_max_width=24, num_layers=1,
            hidden_dim=32, num_heads=4, mlp_dim=64)
 LMX = "measure key:fifths:0 time beats:4 beat-type:4 G4 quarter"

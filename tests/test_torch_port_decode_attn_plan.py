@@ -12,6 +12,8 @@ from acai_omr_tpu_torch.ops import _build
 from acai_omr_tpu_torch.ops import decode_kernel as dk
 from acai_omr_tpu_torch.ops.decode_hd_kernel import decode_attention_hd
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 KEYS = [1, 2, 31, 63, 64, 65, 127, 128, 129, 191, 255, 256, 300, 301, 383,
         511, 512, 513, 767, 1000, 1023, 1024, 1025, 1536, 2047, 2048, 3000,
         4095, 4096, 5000, 6143, 8191, 8192]

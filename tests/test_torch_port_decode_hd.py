@@ -31,6 +31,8 @@ from acai_omr_tpu_torch.models.weights import _flatten, _unflatten
 from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
 from acai_omr_tpu_torch.ops import decode_kernel
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 DEC = dict(max_lmx_seq_len=320, vocab_size=33, num_layers=2, hidden_dim=64,
            num_heads=4, mlp_dim=128, eos_idx=2)
 JCFG = JaxDecoderConfig(**DEC)

@@ -26,6 +26,8 @@ from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
 from acai_omr_tpu_torch.models.weights import params_from_jax
 from acai_omr_tpu_torch.ops import encoder_stack_kernel, transformer
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 ENC = dict(pe_max_height=8, pe_max_width=8, num_layers=2, hidden_dim=256,
            num_heads=4, mlp_dim=512)
 DEC = dict(vocab_size=40, num_layers=1, hidden_dim=256, num_heads=4,

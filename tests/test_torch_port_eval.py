@@ -58,6 +58,8 @@ from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
 from acai_omr_tpu_torch.train import pre_train as pt
 from acai_omr_tpu_torch.utils import checkpoint as ckpt_lib
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 DATA = Path(__file__).parent / "data"
 SAMPLE_LMX = " ".join((DATA / "sample_lmx_0.txt").read_text()

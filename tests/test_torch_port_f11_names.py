@@ -44,6 +44,8 @@ from acai_omr_tpu_torch.ops import quant_linear_kernel
 from acai_omr_tpu_torch.parallel import trainer
 from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 TOK = LmxTokenizer()
 ENC = dict(patch_size=16, pe_max_height=6, pe_max_width=8, num_layers=2,

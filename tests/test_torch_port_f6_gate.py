@@ -33,6 +33,8 @@ from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
 from acai_omr_tpu_torch.ops import decode_kernel as dk
 from acai_omr_tpu_torch.ops.layernorm_kernel import add_layernorm
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 B, M, STEPS = 2, 8, 10
 # (decoder widths, cache dtype name): the two inputs of the fault
 INPUTS = {"e1280_fp32": (dict(hidden_dim=1280, num_heads=20, mlp_dim=256),

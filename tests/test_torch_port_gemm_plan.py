@@ -16,6 +16,8 @@ from acai_omr_tpu_torch.ops import encoder_stack_kernel as es
 from acai_omr_tpu_torch.ops import linear_bwd_kernel as lb
 from acai_omr_tpu_torch.ops import linear_kernel as lk
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 # (M, K, N): the decode step (B = 32), beams (4 x 4), GRPO's rollouts
 # (16 images x 8), the meshed decode's shards (column-parallel qkv and ff1
 # at tp = 2 and 4, and the row-parallel fp32 partials)

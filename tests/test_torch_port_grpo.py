@@ -43,6 +43,8 @@ from acai_omr_tpu_torch.parallel import trainer
 from acai_omr_tpu_torch.train import grpo_rewards, schedules
 from acai_omr_tpu_torch.train import omr_grpo_train as grpo
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 TOK = LmxTokenizer()
 ENC = dict(patch_size=16, pe_max_height=6, pe_max_width=8, num_layers=2,
            hidden_dim=64, num_heads=2, mlp_dim=128, dropout=0.0)

@@ -37,6 +37,8 @@ from acai_omr_tpu_torch.models.vit_encoder import EncoderConfig
 from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
 from acai_omr_tpu_torch.ops import pe
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "acai_omr_tpu_torch"
 FIXTURES = sorted((REPO / "tests" / "data").glob("sample_lmx_*.txt")) \

@@ -35,6 +35,8 @@ from acai_omr_tpu_torch.tools import parity_gate, reference_identity
 from acai_omr_tpu_torch.utils import (calc_dataset_stats,
                                       create_lmx_vocab_file, prepare_data)
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 DATA = Path(__file__).parent / "data"
 REPO = Path(__file__).resolve().parents[1]
 LMX_FILES = sorted([*DATA.glob("sample_lmx_*.txt"),

@@ -14,6 +14,8 @@ from acai_omr_tpu_torch.ops import _build
 from acai_omr_tpu_torch.ops import decode_kernel as dk
 from acai_omr_tpu_torch.ops import quant_linear_kernel as qk
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 KEYS = [1, 2, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 256, 299, 300, 301,
         511, 512, 513, 1000, 1023, 1024, 1025, 1536, 2047, 2048, 3000, 4095,
         4096, 5000, 6143, 8191, 8192]

@@ -30,6 +30,8 @@ from acai_omr_tpu_torch.ops import dropout_kernel as drop_k
 from acai_omr_tpu_torch.ops import layernorm_bwd_kernel as lk
 from acai_omr_tpu_torch.ops.linear_kernel import N_SMS
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K13 = hd.self_attention_append_int8
 K8 = lk.layernorm_bwd
 CUDA = torch.device("cuda")

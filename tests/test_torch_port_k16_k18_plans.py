@@ -28,6 +28,8 @@ from acai_omr_tpu_torch.tools import mosaic_dot_forms_probe as forms
 from acai_omr_tpu_torch.tools import pallas_gemm_probe as pgp
 from tools import attn_microbench as jax_attn
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K16 = pk.tile_gemm
 K18 = pk.batched_decode_attention
 

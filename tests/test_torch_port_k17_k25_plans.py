@@ -30,6 +30,8 @@ from acai_omr_tpu_torch.ops import probe_kernels as pk
 from acai_omr_tpu_torch.ops.linear_kernel import N_SMS
 from tools import attn_microbench as jax_attn
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K17 = pk.blockdiag_decode_attention
 K25 = hk.head_logits
 

@@ -13,6 +13,8 @@ import torch
 from acai_omr_tpu_torch.ops import _build
 from acai_omr_tpu_torch.ops import probe_kernels as pk
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K19 = pk.smem_probe
 KB = 1024
 REFUSED = 1  # cudaErrorInvalidValue, what the card answers past its limit

@@ -22,6 +22,8 @@ from acai_omr_tpu_torch.ops import stream_probe_kernels as sk
 from acai_omr_tpu_torch.ops.linear_kernel import N_SMS
 from acai_omr_tpu_torch.tools import int4_probe
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K20 = ik.int4_delivery_gemm
 K23 = sk.clamped_chunk_sum
 # the shapes the card's tests hold K20 to, and the tool's two

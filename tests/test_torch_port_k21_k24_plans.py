@@ -24,6 +24,8 @@ from acai_omr_tpu_torch.ops.linear_kernel import N_SMS
 from acai_omr_tpu_torch.tools import narrow_lane_dma_probe as nlp
 from acai_omr_tpu_torch.tools import unpack_probe
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K21 = ik.int4_unpack
 K24 = sk.lane_stream_sum
 # x (blocks, T, lanes) of K24: the tool's two widths and its equal-bytes

@@ -30,6 +30,8 @@ from acai_omr_tpu_torch.ops.linear_kernel import N_SMS
 from acai_omr_tpu_torch.tools import mosaic_batched_attn_probe as mbp
 from acai_omr_tpu_torch.tools import vpu_probe as vpp
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K26 = hk.batched_head_logits
 K27 = vk.resident_elementwise
 DTYPES = (torch.float32, torch.int8)

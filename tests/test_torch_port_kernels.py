@@ -29,6 +29,8 @@ from acai_omr_tpu_torch.ops.linear_kernel import N_SMS, linear_bias_act
 from acai_omr_tpu_torch.ops.quant_linear_kernel import (
     pack_k4, pack_k8_int4, quant4_linear_bias_act, quant_linear_bias_act)
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 
 

@@ -50,6 +50,8 @@ from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
 from acai_omr_tpu_torch.train import pre_train as pt
 from acai_omr_tpu_torch.utils import checkpoint as ckpt_lib
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 # encoder heads 64 wide, decoder heads 32 wide, widths multiples of 128: the
 # shapes the JAX package's fused stacks take (`enabled_for_enc`)

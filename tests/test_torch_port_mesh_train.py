@@ -50,6 +50,8 @@ from acai_omr_tpu_torch.train import omr_grpo_train as grpo
 from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
 from acai_omr_tpu_torch.train import pre_train as pt
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 TOK = LmxTokenizer()
 CPU = torch.device("cpu")
 SOFT = {"use_hard_sampling": False}

@@ -18,6 +18,8 @@ from acai_omr_tpu_torch.ops import _build
 from acai_omr_tpu_torch.ops import layernorm_kernel as lk
 from acai_omr_tpu_torch.ops import tp_allreduce_kernel as tk
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 E = 1024
 # the rows K15 runs at on the meshed paths (dp2_tp2's 4-row shards, tp2 /
 # tp4's 8, tp2_beam's 16, beams of 4 x 32) and around them

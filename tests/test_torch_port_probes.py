@@ -36,6 +36,8 @@ from tools import mosaic_dot_forms_probe as jax_forms
 from tools import pallas_gemm_probe as jax_gemm
 from tools import vmem_probe as jax_vmem
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 
 

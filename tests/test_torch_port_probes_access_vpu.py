@@ -42,6 +42,8 @@ from tools import mosaic_batched_attn_probe as jax_batched
 from tools import mosaic_head_access_probe as jax_heads
 from tools import vpu_probe as jax_vpu
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 REL_TOL = 1e-5
 
 

@@ -41,6 +41,8 @@ from tools import int4_probe as jax_int4
 from tools import narrow_lane_dma_probe as jax_lane
 from tools import unpack_probe as jax_unpack
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 REL_TOL = 1e-5
 
 

@@ -28,6 +28,8 @@ from acai_omr_tpu_torch.ops import decode_kernel
 from acai_omr_tpu_torch.ops.quant_linear_kernel import (
     pack_k4, quant_linear_bias_act, unpack_k4)
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 DEC = dict(max_lmx_seq_len=64, vocab_size=33, num_layers=2, hidden_dim=256,
            num_heads=4, mlp_dim=1024, eos_idx=2)
 JCFG = JaxDecoderConfig(**DEC)

@@ -27,6 +27,8 @@ from acai_omr_tpu_torch.ops import decode_hd_kernel as hd
 from acai_omr_tpu_torch.ops import decode_kernel as dk
 from acai_omr_tpu_torch.ops import quant_linear_kernel as qk
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 K12 = hd.decode_attention_hd_int8
 
 CUDA = torch.device("cuda")

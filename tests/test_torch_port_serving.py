@@ -46,6 +46,8 @@ from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
 from acai_omr_tpu_torch.models.weights import params_from_jax
 from acai_omr_tpu_torch.serving import routes, scheduler, wsgi_app
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 ENC = dict(patch_size=16, pe_max_height=6, pe_max_width=8, num_layers=2,
            hidden_dim=16, num_heads=2, mlp_dim=24, dropout=0.0)
 DEC = dict(max_lmx_seq_len=32, num_layers=2, hidden_dim=16, num_heads=2,

@@ -34,6 +34,8 @@ from acai_omr_tpu_torch.models import vit_encoder, vitomr
 from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
 from acai_omr_tpu_torch.models.weights import params_from_jax
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 ENC = dict(num_layers=2, hidden_dim=256, num_heads=4, mlp_dim=512)
 DEC = dict(num_layers=2, hidden_dim=256, num_heads=4, mlp_dim=1024,
            max_lmx_seq_len=64)
@@ -92,6 +94,9 @@ def test_batch_inference_same_lmx(setup, monkeypatch):
             return real(*a, **k)
         monkeypatch.setattr(mod, name, wrapped)
 
+    # JAX calls the spied names only while it traces: drop what an earlier
+    # module in this process compiled at these shapes, so this call traces
+    jax.clear_caches()
     spy(ptl, "encoder_stack_fused", "enc")
     spy(pallas_monolith, "decode_layers", "dec")
     imgs = [_transform(tf)(img) for img in raw]

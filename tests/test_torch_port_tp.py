@@ -48,6 +48,8 @@ from acai_omr_tpu_torch.ops.tp_allreduce_kernel import TPGroup, tp_allreduce
 from acai_omr_tpu_torch.parallel import mesh as mesh_lib
 from acai_omr_tpu_torch.parallel import sharding
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 DEC = dict(max_lmx_seq_len=32, vocab_size=33, num_layers=2, hidden_dim=256,
            num_heads=4, mlp_dim=1024, eos_idx=2)
 JCFG = JaxDecoderConfig(**DEC)

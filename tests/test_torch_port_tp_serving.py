@@ -33,6 +33,8 @@ from test_torch_port_serving import (BOXES, FLUSH, WsgiClient, _imgs,  # noqa
                                      _png_bytes, check_contract, collapsed,
                                      models)
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 KW = dict(max_inference_len=12, decode_batch=2, bucket_multiple=8)
 CACHES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

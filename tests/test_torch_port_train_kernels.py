@@ -39,6 +39,8 @@ from acai_omr_tpu_torch.ops.linear_bwd_kernel import (linear_dgrad,
 from acai_omr_tpu_torch.ops.linear_kernel import (gelu_grad32,
                                                   linear_bias_act)
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 ATOL = 2e-5
 T = torch.from_numpy
 

@@ -42,6 +42,8 @@ from acai_omr_tpu_torch.train import omr_teacher_force_train as tf_train
 from acai_omr_tpu_torch.train import schedules
 from acai_omr_tpu_torch.utils import checkpoint as ckpt_lib
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 # head dim 64 and widths that are multiples of 128: the JAX package's fused
 # stacks take these shapes (its `enabled_for` gates)
 ENC = dict(pe_max_height=8, pe_max_width=8, num_layers=2, hidden_dim=128,

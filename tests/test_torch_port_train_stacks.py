@@ -29,6 +29,8 @@ from acai_omr_tpu_torch.ops import dropout_kernel as dk
 from acai_omr_tpu_torch.ops import nn, transformer
 from acai_omr_tpu_torch.ops import train_layer_kernel as tlk
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 L, B, T, M, E, H, F = 2, 4, 32, 128, 256, 4, 512
 
 

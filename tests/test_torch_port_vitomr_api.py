@@ -31,6 +31,8 @@ from acai_omr_tpu_torch.models.omr_decoder import DecoderConfig
 from acai_omr_tpu_torch.models.vit_encoder import EncoderConfig
 from acai_omr_tpu_torch.ops import decode_kernel
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 JCFG = make_cfg(tiny=True)
 PCFG = vitomr.ViTOMRConfig(
     EncoderConfig(**dataclasses.asdict(JCFG.encoder)),

@@ -34,6 +34,8 @@ from acai_omr_tpu_torch.ops import train_layer_kernel as tlk
 from acai_omr_tpu_torch.ops.quant_linear_kernel import (
     pack_k8_int4, quant4_linear_bias_act, unpack_k8_int4)
 
+from _torch_port_threads import torch_one_thread  # noqa: F401
+
 DEC = dict(max_lmx_seq_len=64, vocab_size=33, num_layers=2, hidden_dim=256,
            num_heads=4, mlp_dim=1024, eos_idx=2)
 JCFG = JaxDecoderConfig(**DEC)
